@@ -1,0 +1,63 @@
+"""Carries weights from the JAX package's Flax param tree to a timm-named
+PyTorch state_dict: the inverse of ``timm_to_flax``
+(``deltakd_tpu/models/import_timm.py``).
+
+Dense kernels [in, out] become nn.Linear weights [out, in]; the patch-embed
+conv kernel goes HWIO -> OIHW; LayerNorm ``scale`` becomes ``weight``; the
+fused QKV keeps its (3, heads, head_dim) output packing.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def flax_block_to_torch(block: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """One Flax Block subtree -> its parameters by timm name within the block
+    (``norm1.weight``, ``attn.qkv.weight``, ...)."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def linear(tree, name):
+        sd[f"{name}.weight"] = np.asarray(tree["kernel"]).T
+        sd[f"{name}.bias"] = np.asarray(tree["bias"])
+
+    def layernorm(tree, name):
+        sd[f"{name}.weight"] = np.asarray(tree["scale"])
+        sd[f"{name}.bias"] = np.asarray(tree["bias"])
+
+    layernorm(block["norm1"], "norm1")
+    linear(block["attn"]["qkv"], "attn.qkv")
+    linear(block["attn"]["proj"], "attn.proj")
+    layernorm(block["norm2"], "norm2")
+    linear(block["mlp"]["fc1"], "mlp.fc1")
+    linear(block["mlp"]["fc2"], "mlp.fc2")
+    return _tensors(sd)
+
+
+def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ViT params (nested dict of arrays) -> timm-named fp32 state_dict."""
+    sd: Dict[str, Any] = {}
+    for tok in ("cls_token", "dist_token", "pos_embed"):
+        if tok in params:
+            sd[tok] = np.asarray(params[tok])
+    sd["patch_embed.proj.weight"] = np.asarray(
+        params["patch_embed"]["kernel"]).transpose(3, 2, 0, 1)
+    sd["patch_embed.proj.bias"] = np.asarray(params["patch_embed"]["bias"])
+    depth = len([k for k in params if k.startswith("blocks_")])
+    for i in range(depth):
+        for name, t in flax_block_to_torch(params[f"blocks_{i}"]).items():
+            sd[f"blocks.{i}.{name}"] = t
+    sd["norm.weight"] = np.asarray(params["norm"]["scale"])
+    sd["norm.bias"] = np.asarray(params["norm"]["bias"])
+    for head in ("head", "head_dist"):
+        if head in params:
+            sd[f"{head}.weight"] = np.asarray(params[head]["kernel"]).T
+            sd[f"{head}.bias"] = np.asarray(params[head]["bias"])
+    return _tensors({k: np.asarray(v) for k, v in sd.items()})

@@ -1,0 +1,87 @@
+"""Builds the package's CUDA kernels with nvcc at first use and loads them.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
+bound with ctypes: no PyTorch headers are compiled, so a build takes seconds.
+Libraries go to ``deltakd_tpu_torch/_build/`` (ignored by git), named by a
+digest of the sources and flags, so an edited source is rebuilt. Only the
+sources in this checkout are compiled.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Iterable
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_BUILD_DIR = os.path.join(os.path.dirname(_CSRC), os.pardir, "_build")
+SOURCES = ("fused_block_fwd", "fused_block_bwd")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "source at first use and need the CUDA toolkit")
+    return path
+
+
+def _library_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for fn in sorted(os.listdir(_CSRC)):
+        if fn == f"{name}.cu" or fn.endswith(".cuh"):
+            with open(os.path.join(_CSRC, fn), "rb") as f:
+                h.update(fn.encode() + f.read())
+    return os.path.normpath(os.path.join(
+        _BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so"))
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every library in ``names`` that is not built yet, one nvcc per
+    source, all started together. Returns each compiled source's nvcc log
+    (ptxas register and spill counts); raises with the log on failure."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _library_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.tmp{os.getpid()}"
+        cmd = [_nvcc(), *FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(name)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    if name not in _libs:
+        build([name])
+        lib = ctypes.CDLL(_library_path(name))
+        ws = getattr(lib, f"dk_{name}_workspace")
+        ws.argtypes = [ctypes.c_int] * 5
+        ws.restype = ctypes.c_size_t
+        run = getattr(lib, f"dk_{name}")
+        run.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 5
+                        + [ctypes.c_float, ctypes.c_void_p])
+        run.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]

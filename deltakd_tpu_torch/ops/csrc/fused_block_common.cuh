@@ -1,0 +1,422 @@
+// Building blocks shared by the fused ViT block forward and backward kernels.
+//
+// The TPU kernels (deltakd_tpu/ops/fused_block.py `_fwd_kernel`,
+// `_bwd_kernel`) keep one batch element's whole block in 16+ MB of VMEM. An
+// H100 thread block has at most 227 KB of shared memory, and the teacher's
+// [198, 1536] hidden alone is about 600 KB in bf16, so this port runs the
+// block as a short chain of hand-written kernels launched by one C entry
+// point, with per-element intermediates (qkv, scores, hidden) in a
+// global-memory workspace the wrapper allocates:
+//
+//   LN -> tiled bf16 GEMM (WMMA, fp32 accumulate) with a fused epilogue
+//      (bias, column/row scaling, erf-GELU, drop-path-scaled residual)
+//   -> per-(element, head) score GEMM -> row softmax -> e@v GEMM ...
+//
+// Every product the Pallas kernel computes in its body is a product of
+// `gemm_kernel` below; no library GEMM is called. Weight gradients are split
+// over row chunks into fp32 partials and summed in a fixed order by a second
+// pass (deterministic; no atomics).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace dk {
+
+using bf16 = __nv_bfloat16;
+using namespace nvcuda;
+
+__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+
+// ---------------------------------------------------------------------------
+// GEMM: C[z] (M x N) = A[z] (M x K) @ B[z] (K x N), bf16 in, fp32 accumulate.
+// Operands are addressed through element strides, so transposed views (the
+// weight-gradient products, k^T, e^T) need no copies. z = blockIdx.z is
+// split as (z1, z2) = (z / Z2, z % Z2) for the (element, head) batches; with
+// k_chunk > 0, z instead indexes consecutive K chunks and each writes its own
+// partial product (split-K weight gradients).
+// ---------------------------------------------------------------------------
+
+enum Act { ACT_NONE = 0, ACT_GELU = 1 };
+
+struct GemmArgs {
+  int M, N, K;
+  const bf16* A; long long a_sm, a_sk, a_z1, a_z2;
+  const bf16* B; long long b_sk, b_sn, b_z1, b_z2;
+  int Z2;
+  int k_chunk;            // > 0: split-K, chunk z covers [z*k_chunk, (z+1)*k_chunk)
+  long long c_sm, c_z1, c_z2;
+  // epilogue, applied in this order to v = acc:
+  float alpha;            // v *= alpha
+  const float* bias;      // v += bias[n]
+  int scale_cols;         // v *= col_scale for n < scale_cols
+  float col_scale;
+  const float* row_scale; // v *= row_scale[z * rs_z + m]
+  long long rs_z;
+  const float* mul;       // v *= mul[c]         (same layout as C)
+  int act;                // ACT_GELU: v = gelu(v), gelu'(v) -> act_grad[c]
+  float* act_grad;
+  bf16* pre_bf16;         // pre_bf16[c] = v     (before the residual)
+  const float* res_f32;   // v = res[c] + res_scale[row / rows_per_sample] * v
+  const bf16* res_bf16;
+  const float* res_scale;
+  int rows_per_sample;
+  float* out_f32;         // out[c] = v
+  bf16* out_bf16;
+};
+
+constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
+constexpr int LDA_S = BK + 8, LDB_S = BN + 8, LDC_S = BN + 4;
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float gelu_erf_grad(float x) {
+  float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752f));
+  return cdf + x * __expf(-0.5f * x * x) * 0.3989422804014327f;
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
+  __shared__ __align__(32) bf16 As[BM * LDA_S];
+  __shared__ __align__(32) bf16 Bs[BK * LDB_S];
+  __shared__ __align__(32) float Cs[BM * LDC_S];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wm = warp / 2, wn = warp % 2;      // 2 x 2 warps, 32 x 32 each
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int z = blockIdx.z;
+
+  const bf16* A = p.A;
+  const bf16* B = p.B;
+  long long c_off;
+  int k_begin = 0, k_end = p.K;
+  if (p.k_chunk > 0) {
+    k_begin = z * p.k_chunk;
+    k_end = min(p.K, k_begin + p.k_chunk);
+    c_off = (long long)z * p.c_z1;
+  } else {
+    const int z1 = z / p.Z2, z2 = z % p.Z2;
+    A += z1 * p.a_z1 + z2 * p.a_z2;
+    B += z1 * p.b_z1 + z2 * p.b_z2;
+    c_off = z1 * p.c_z1 + z2 * p.c_z2;
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  const bool a_kcontig = (p.a_sk == 1);
+  const bool b_ncontig = (p.b_sn == 1);
+  const bf16 zero = __float2bfloat16(0.0f);
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+    // A tile (BM x BK): neighbouring threads walk the operand's contiguous dim
+    for (int i = tid; i < BM * BK; i += GEMM_THREADS) {
+      int mm, kk;
+      if (a_kcontig) { mm = i / BK; kk = i % BK; } else { kk = i / BM; mm = i % BM; }
+      const int gm = m0 + mm, gk = k0 + kk;
+      As[mm * LDA_S + kk] = (gm < p.M && gk < k_end)
+          ? A[gm * p.a_sm + (long long)gk * p.a_sk] : zero;
+    }
+    // B tile (BK x BN)
+    for (int i = tid; i < BK * BN; i += GEMM_THREADS) {
+      int kk, nn;
+      if (b_ncontig) { kk = i / BN; nn = i % BN; } else { nn = i / BK; kk = i % BK; }
+      const int gk = k0 + kk, gn = n0 + nn;
+      Bs[kk * LDB_S + nn] = (gk < k_end && gn < p.N)
+          ? B[(long long)gk * p.b_sk + gn * p.b_sn] : zero;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * LDA_S + kk, LDA_S);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + kk * LDB_S + wn * 32 + j * 16, LDB_S);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC_S + wn * 32 + j * 16,
+                              acc[i][j], LDC_S, wmma::mem_row_major);
+  __syncthreads();
+
+  for (int i = tid; i < BM * BN; i += GEMM_THREADS) {
+    const int mm = i / BN, nn = i % BN;
+    const int gm = m0 + mm, gn = n0 + nn;
+    if (gm >= p.M || gn >= p.N) continue;
+    const long long c = c_off + gm * p.c_sm + gn;
+    float v = Cs[mm * LDC_S + nn] * p.alpha;
+    if (p.bias) v += p.bias[gn];
+    if (gn < p.scale_cols) v *= p.col_scale;
+    if (p.row_scale) v *= p.row_scale[z * p.rs_z + gm];
+    if (p.mul) v *= p.mul[c];
+    if (p.act == ACT_GELU) {
+      if (p.act_grad) p.act_grad[c] = gelu_erf_grad(v);
+      v = gelu_erf(v);
+    }
+    if (p.pre_bf16) p.pre_bf16[c] = __float2bfloat16(v);
+    if (p.res_scale) {
+      const float r = p.res_f32 ? p.res_f32[c] : __bfloat162float(p.res_bf16[c]);
+      v = r + p.res_scale[gm / p.rows_per_sample] * v;
+    }
+    if (p.out_f32) p.out_f32[c] = v;
+    if (p.out_bf16) p.out_bf16[c] = __float2bfloat16(v);
+  }
+}
+
+inline GemmArgs gemm_args(int M, int N, int K) {
+  GemmArgs p = {};
+  p.M = M; p.N = N; p.K = K;
+  p.Z2 = 1;
+  p.alpha = 1.0f;
+  p.rows_per_sample = 1;
+  return p;
+}
+
+inline void gemm(const GemmArgs& p, int Z, cudaStream_t s) {
+  dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN, Z);
+  gemm_kernel<<<grid, GEMM_THREADS, 0, s>>>(p);
+}
+
+// Row-major activations [M, K] times an nn.Linear weight [N, K] (y = a W^T).
+inline GemmArgs linear_args(const bf16* a, const bf16* w, int M, int N, int K) {
+  GemmArgs p = gemm_args(M, N, K);
+  p.A = a; p.a_sm = K; p.a_sk = 1;
+  p.B = w; p.b_sk = 1; p.b_sn = K;
+  p.c_sm = N;
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+// Row kernels: one warp per row.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+constexpr int ROW_THREADS = 256, ROWS_PER_BLOCK = ROW_THREADS / 32;
+
+inline int row_blocks(long long rows) {
+  return (int)((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
+}
+
+// LayerNorm (two-pass fp32 statistics, like _ln_fwd): y = xhat*g + b in bf16;
+// optionally keeps xhat and rstd for the backward.
+template <typename T>
+__global__ void ln_fwd_kernel(const T* x, const float* g, const float* b, int M,
+                              int D, float eps, bf16* y, float* xhat, float* rstd_out) {
+  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const T* xr = x + (long long)row * D;
+  float s = 0.f;
+  for (int d = lane; d < D; d += 32) s += ld(xr + d);
+  const float mu = warp_sum(s) / D;
+  float v = 0.f;
+  for (int d = lane; d < D; d += 32) { const float c = ld(xr + d) - mu; v += c * c; }
+  const float rstd = rsqrtf(warp_sum(v) / D + eps);
+  for (int d = lane; d < D; d += 32) {
+    const float xh = (ld(xr + d) - mu) * rstd;
+    y[(long long)row * D + d] = __float2bfloat16(xh * g[d] + b[d]);
+    if (xhat) xhat[(long long)row * D + d] = xh;
+  }
+  if (rstd_out && lane == 0) rstd_out[row] = rstd;
+}
+
+// Row softmax stash: e = exp(s - max(s)) written over s in place (fp32) and
+// as bf16; rs = 1 / sum(e). The normalisation is applied later, to the
+// [N, hd] product (post-division, fused_block.py:214-247).
+__global__ void softmax_rows_kernel(float* s, bf16* e_lp, float* rs, long long rows, int n) {
+  const long long row = (long long)blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float* sr = s + row * n;
+  float mx = -3.402823466e38f;
+  for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sr[j]);
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int j = lane; j < n; j += 32) {
+    const float e = __expf(sr[j] - mx);
+    sr[j] = e;
+    e_lp[row * n + j] = __float2bfloat16(e);
+    sum += e;
+  }
+  sum = warp_sum(sum);
+  if (lane == 0) rs[row] = 1.0f / sum;
+}
+
+// ---------------------------------------------------------------------------
+// Forward chain, shared by the forward kernel and the backward's recompute.
+// ---------------------------------------------------------------------------
+
+struct BlockWeights {
+  const float *g1, *b1; const bf16* wqkv; const float* bqkv;
+  const bf16* wproj; const float* bproj;
+  const float *g2, *b2; const bf16* w1; const float* bf1;
+  const bf16* w2; const float* bf2;
+};
+
+struct Shape {
+  int B, N, D, H, F;
+  long long M() const { return (long long)B * N; }
+  int hd() const { return D / H; }
+  long long BH() const { return (long long)B * H; }
+};
+
+// Bump allocator over the wrapper's workspace (256-byte aligned slices).
+struct Carver {
+  char* base; size_t off;
+  template <typename T> T* take(long long n) {
+    T* ptr = base ? reinterpret_cast<T*>(base + off) : nullptr;
+    off += ((size_t)n * sizeof(T) + 255) / 256 * 256;
+    return ptr;
+  }
+};
+
+// Intermediates of one block forward. The forward kernel keeps the first
+// group; the backward's recompute also keeps the stash group.
+struct FwdBuffers {
+  bf16* y; bf16* qkv_lp; float* s; bf16* e_lp; float* rs; bf16* merged; float* x2;
+  bf16* z; bf16* h;
+  // stash (backward only)
+  float *xhat1, *rstd1, *qkv32, *xhat2, *rstd2, *hgrad;
+
+  void carve(Carver& c, const Shape& sh, bool stash) {
+    const long long M = sh.M();
+    y = c.take<bf16>(M * sh.D);
+    qkv_lp = c.take<bf16>(M * 3 * sh.D);
+    s = c.take<float>(sh.BH() * sh.N * sh.N);
+    e_lp = c.take<bf16>(sh.BH() * sh.N * sh.N);
+    rs = c.take<float>(sh.BH() * sh.N);
+    merged = c.take<bf16>(M * sh.D);
+    x2 = c.take<float>(M * sh.D);
+    z = c.take<bf16>(M * sh.D);
+    h = c.take<bf16>(M * sh.F);
+    xhat1 = rstd1 = qkv32 = xhat2 = rstd2 = hgrad = nullptr;
+    if (stash) {
+      xhat1 = c.take<float>(M * sh.D);
+      rstd1 = c.take<float>(M);
+      qkv32 = c.take<float>(M * 3 * sh.D);
+      xhat2 = c.take<float>(M * sh.D);
+      rstd2 = c.take<float>(M);
+      hgrad = c.take<float>(M * sh.F);
+    }
+  }
+};
+
+// LN1 -> qkv -> per-head softmax(q k^T) v -> proj -> x + s_attn*attn ->
+// LN2 -> fc1 -> GELU; then, when `out` is given, fc2 -> x2 + s_mlp*feat.
+inline void forward_chain(const bf16* x, const float* s_attn, const float* s_mlp,
+                          const BlockWeights& w, const Shape& sh, float eps,
+                          FwdBuffers& f, bool stash, bf16* out, bf16* feat,
+                          cudaStream_t st) {
+  const int N = sh.N, D = sh.D, H = sh.H, hd = sh.hd(), F = sh.F;
+  const long long M = sh.M();
+  const float scale = 1.0f / sqrtf((float)hd);
+
+  ln_fwd_kernel<bf16><<<row_blocks(M), ROW_THREADS, 0, st>>>(
+      x, w.g1, w.b1, (int)M, D, eps, f.y, stash ? f.xhat1 : nullptr,
+      stash ? f.rstd1 : nullptr);
+
+  // qkv = y Wqkv^T + b, packed (3, H, hd); q pre-scaled by hd^-1/2
+  GemmArgs p = linear_args(f.y, w.wqkv, (int)M, 3 * D, D);
+  p.bias = w.bqkv; p.scale_cols = D; p.col_scale = scale;
+  p.out_bf16 = f.qkv_lp;
+  if (stash) p.out_f32 = f.qkv32;
+  gemm(p, 1, st);
+
+  // s[b,h] = (q*scale) k^T over all N keys
+  p = gemm_args(N, N, hd);
+  p.A = f.qkv_lp; p.a_sm = 3 * D; p.a_sk = 1; p.a_z1 = (long long)N * 3 * D; p.a_z2 = hd;
+  p.B = f.qkv_lp + D; p.b_sk = 1; p.b_sn = 3 * D; p.b_z1 = (long long)N * 3 * D; p.b_z2 = hd;
+  p.Z2 = H;
+  p.c_sm = N; p.c_z1 = (long long)H * N * N; p.c_z2 = (long long)N * N;
+  p.out_f32 = f.s;
+  gemm(p, (int)sh.BH(), st);
+
+  softmax_rows_kernel<<<row_blocks(sh.BH() * N), ROW_THREADS, 0, st>>>(
+      f.s, f.e_lp, f.rs, sh.BH() * N, N);
+
+  // merged[b, :, h] = (e v) * (1/S)
+  p = gemm_args(N, hd, N);
+  p.A = f.e_lp; p.a_sm = N; p.a_sk = 1; p.a_z1 = (long long)H * N * N; p.a_z2 = (long long)N * N;
+  p.B = f.qkv_lp + 2 * D; p.b_sk = 3 * D; p.b_sn = 1; p.b_z1 = (long long)N * 3 * D; p.b_z2 = hd;
+  p.Z2 = H;
+  p.c_sm = D; p.c_z1 = (long long)N * D; p.c_z2 = hd;
+  p.row_scale = f.rs; p.rs_z = N;
+  p.out_bf16 = f.merged;
+  gemm(p, (int)sh.BH(), st);
+
+  // x2 = x + s_attn * (merged Wproj^T + b)
+  p = linear_args(f.merged, w.wproj, (int)M, D, D);
+  p.bias = w.bproj;
+  p.res_bf16 = x; p.res_scale = s_attn; p.rows_per_sample = N;
+  p.out_f32 = f.x2;
+  gemm(p, 1, st);
+
+  ln_fwd_kernel<float><<<row_blocks(M), ROW_THREADS, 0, st>>>(
+      f.x2, w.g2, w.b2, (int)M, D, eps, f.z, stash ? f.xhat2 : nullptr,
+      stash ? f.rstd2 : nullptr);
+
+  // h = gelu(z W1^T + b1)
+  p = linear_args(f.z, w.w1, (int)M, F, D);
+  p.bias = w.bf1; p.act = ACT_GELU;
+  if (stash) p.act_grad = f.hgrad;
+  p.out_bf16 = f.h;
+  gemm(p, 1, st);
+
+  if (out) {
+    // feat = h W2^T + b2 ; out = x2 + s_mlp * feat
+    p = linear_args(f.h, w.w2, (int)M, D, F);
+    p.bias = w.bf2; p.pre_bf16 = feat;
+    p.res_f32 = f.x2; p.res_scale = s_mlp; p.rows_per_sample = N;
+    p.out_bf16 = out;
+    gemm(p, 1, st);
+  }
+}
+
+// Unpacks the wrapper's pointer table: x, s_attn, s_mlp, then the 12 weights
+// in _weight_arrays order (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bf1,
+// w2, bf2).
+inline BlockWeights unpack_weights(void* const* ptr) {
+  BlockWeights w;
+  w.g1 = (const float*)ptr[3]; w.b1 = (const float*)ptr[4];
+  w.wqkv = (const bf16*)ptr[5]; w.bqkv = (const float*)ptr[6];
+  w.wproj = (const bf16*)ptr[7]; w.bproj = (const float*)ptr[8];
+  w.g2 = (const float*)ptr[9]; w.b2 = (const float*)ptr[10];
+  w.w1 = (const bf16*)ptr[11]; w.bf1 = (const float*)ptr[12];
+  w.w2 = (const bf16*)ptr[13]; w.bf2 = (const float*)ptr[14];
+  return w;
+}
+
+}  // namespace dk

@@ -1,0 +1,179 @@
+"""The port's fused block (deltakd_tpu_torch/ops/fused_block.py) against the
+JAX package's: the plain PyTorch forward and its gradients (through the
+autograd Function and the plain backward) against the JAX pure-XLA
+reference and the Pallas kernel run in interpret mode, with and without the
+feature output and with drop-path scales of 0 and 1/keep.
+
+Everything runs in fp32 on the CPU; differences are summation order only, so
+the tolerance is 1e-4 of the largest reference value. The kernels themselves
+run only on a card (tests/test_torch_cuda.py).
+"""
+
+import ast
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deltakd_tpu.models.vit import Block
+from deltakd_tpu.ops import fused_block as jfb
+from deltakd_tpu_torch.models.convert import flax_block_to_torch
+from deltakd_tpu_torch.ops import fused_block as tfb
+
+torch.set_num_threads(1)
+
+B, N, D, H = 4, 18, 64, 2
+TOL = 1e-4
+KEEP = 0.9
+
+
+def _setup(seed=0):
+    blk = Block(num_heads=H, mlp_ratio=4.0, qkv_bias=True, drop_path_rate=0.0,
+                ln_eps=1e-6)
+    params = blk.init({"params": jax.random.PRNGKey(seed)}, jnp.zeros((1, N, D)),
+                      True)["params"]
+    rng = np.random.RandomState(seed)
+    # shift every param off its init so LN and bias grads are non-trivial
+    params = jax.tree.map(
+        lambda p: p + 0.05 * rng.randn(*p.shape).astype(np.float32), params)
+    x = rng.randn(B, N, D).astype(np.float32)
+    sa = np.array([0.0, 1 / KEEP, 1 / KEEP, 1.0], np.float32)
+    sm = np.array([1 / KEEP, 0.0, 1 / KEEP, 1.0], np.float32)
+    g_out = rng.randn(B, N, D).astype(np.float32)
+    g_feat = rng.randn(B, N, D).astype(np.float32)
+    return params, x, sa, sm, g_out, g_feat
+
+
+def _np(a):
+    return a.detach().float().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _close(a, b, tol=TOL):
+    a, b = _np(a).astype(np.float32), _np(b).astype(np.float32)
+    assert a.shape == b.shape
+    err, scale = float(np.max(np.abs(a - b))), float(np.max(np.abs(b)))
+    assert err <= tol * scale, f"max abs err {err:.3e} > {tol} x {scale:.3e}"
+
+
+def _jax_grads(fn, params, x, sa, sm, g_out, g_feat, need_feat):
+    def loss(p, x):
+        out, feat = fn(x, p, num_heads=H, scale_attn=jnp.asarray(sa),
+                       scale_mlp=jnp.asarray(sm))
+        l = jnp.sum(out * g_out)
+        return l + jnp.sum(feat * g_feat) if need_feat else l
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    return np.asarray(gx), flax_block_to_torch(gp)
+
+
+def _torch_grads(params, x, sa, sm, g_out, g_feat, need_feat):
+    tp = {k: v.clone().requires_grad_(True) for k, v in flax_block_to_torch(params).items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out, feat = tfb.fused_vit_block(tx, tp, num_heads=H, scale_attn=torch.from_numpy(sa),
+                                    scale_mlp=torch.from_numpy(sm),
+                                    need_features=need_feat)
+    loss = (out * torch.from_numpy(g_out)).sum()
+    if need_feat:
+        loss = loss + (feat * torch.from_numpy(g_feat)).sum()
+    else:
+        assert feat is None
+    grads = torch.autograd.grad(loss, [tx] + [tp[n] for n in tfb.PARAM_NAMES])
+    return out, feat, grads[0].numpy(), dict(zip(tfb.PARAM_NAMES, grads[1:]))
+
+
+def test_forward_matches_jax_reference():
+    params, x, sa, sm, *_ = _setup()
+    j_out, j_feat = jfb.reference_vit_block(jnp.asarray(x), params, num_heads=H,
+                                            scale_attn=jnp.asarray(sa),
+                                            scale_mlp=jnp.asarray(sm))
+    t_out, t_feat = tfb.reference_vit_block(torch.from_numpy(x), flax_block_to_torch(params),
+                                            num_heads=H, scale_attn=torch.from_numpy(sa),
+                                            scale_mlp=torch.from_numpy(sm))
+    _close(t_out, j_out)
+    _close(t_feat, j_feat)
+    # both branches scaled to 0: the block is the identity
+    zero = torch.zeros(B)
+    out, _ = tfb.reference_vit_block(torch.from_numpy(x), flax_block_to_torch(params),
+                                     num_heads=H, scale_attn=zero, scale_mlp=zero)
+    np.testing.assert_allclose(out.numpy(), x, atol=1e-6)
+
+
+@pytest.mark.parametrize("need_feat", [False, True])
+def test_gradients_match_jax_reference(need_feat):
+    params, x, sa, sm, g_out, g_feat = _setup(1)
+    j_dx, j_dw = _jax_grads(jfb.reference_vit_block, params, x, sa, sm, g_out, g_feat,
+                            need_feat)
+    _, _, t_dx, t_dw = _torch_grads(params, x, sa, sm, g_out, g_feat, need_feat)
+    _close(t_dx, j_dx)
+    for name in tfb.PARAM_NAMES:
+        _close(t_dw[name], j_dw[name])
+
+
+@pytest.mark.parametrize("need_feat", [False, True])
+def test_forward_and_gradients_match_interpreted_pallas_kernel(need_feat, monkeypatch):
+    """The Pallas kernels themselves (forward and recompute backward), run by
+    the Pallas interpreter on the CPU, on the single-device path."""
+    monkeypatch.setenv("DELTAKD_FUSED_CP", "0")
+    params, x, sa, sm, g_out, g_feat = _setup(2)
+    jfb.set_interpret(True)
+    try:
+        j_out, j_feat = jfb.fused_vit_block(jnp.asarray(x), params, num_heads=H,
+                                            scale_attn=jnp.asarray(sa),
+                                            scale_mlp=jnp.asarray(sm),
+                                            need_features=need_feat)
+        j_dx, j_dw = _jax_grads(
+            lambda x, p, **kw: jfb.fused_vit_block(x, p, need_features=need_feat, **kw),
+            params, x, sa, sm, g_out, g_feat, need_feat)
+    finally:
+        jfb.set_interpret(False)
+    t_out, t_feat, t_dx, t_dw = _torch_grads(params, x, sa, sm, g_out, g_feat, need_feat)
+    _close(t_out, j_out)
+    if need_feat:
+        _close(t_feat, j_feat)
+    _close(t_dx, j_dx)
+    for name in tfb.PARAM_NAMES:
+        _close(t_dw[name], j_dw[name])
+
+
+def test_plain_backward_matches_autograd_and_dispatch():
+    """The plain backward (the kernel's reference) equals autograd through the
+    plain forward; CPU tensors never reach a kernel."""
+    params, x, sa, sm, g_out, g_feat = _setup(3)
+    tp = {k: v.requires_grad_(True) for k, v in flax_block_to_torch(params).items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    kw = dict(num_heads=H, scale_attn=torch.from_numpy(sa), scale_mlp=torch.from_numpy(sm))
+    out, feat = tfb.reference_vit_block(tx, tp, **kw)
+    loss = (out * torch.from_numpy(g_out)).sum() + (feat * torch.from_numpy(g_feat)).sum()
+    auto = torch.autograd.grad(loss, [tx] + [tp[n] for n in tfb.PARAM_NAMES])
+    tfb.reset_launches()
+    dx, dws = tfb.reference_vit_block_bwd(tx.detach(), tp, torch.from_numpy(g_out),
+                                          torch.from_numpy(g_feat), **kw)
+    _close(dx, auto[0], 1e-5)
+    for name, a in zip(tfb.PARAM_NAMES, auto[1:]):
+        _close(dws[name], a, 1e-5)
+    assert not tfb.LAUNCHES
+
+
+def test_port_imports_no_jax():
+    """deltakd_tpu_torch and chip_smoke.py import neither jax nor deltakd_tpu."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = [os.path.join(root, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(root, "deltakd_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    banned = ("jax", "jaxlib", "flax", "optax", "deltakd_tpu")
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in banned, f"{path} imports {m}"

@@ -1,0 +1,149 @@
+"""One whole soft-KD train step of the port against the JAX package's
+``build_train_step``, from the same weights, the same post-transform images
+and soft targets (the JAX step's transform and mixup are replaced by
+functions returning them) and drop-path rate 0: loss terms, grad norm and
+the updated parameters. Then ``build_eval_step``'s masked sums.
+
+fp32 on the CPU. Losses and grad norm to rtol 1e-4; parameters after the
+AdamW step to 1e-6 absolute (lr 1e-3 and eps 1e-4, so grads that differ in
+their last bits cannot flip an update's sign).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deltakd_tpu.configs.config import TrainConfig as JTrainConfig
+from deltakd_tpu.data.augment import AugmentConfig as JAugmentConfig
+from deltakd_tpu.data.mixup import MixupConfig as JMixupConfig
+from deltakd_tpu.kd.losses import KDSettings as JKDSettings
+from deltakd_tpu.models.vit import ViTConfig as JViTConfig
+from deltakd_tpu.models.vit import VisionTransformer as JViT
+from deltakd_tpu.train import step as jstep
+from deltakd_tpu.train.optim import make_optimizer as j_make_optimizer
+from deltakd_tpu.train.state import TrainState as JTrainState
+from deltakd_tpu_torch.configs.config import TrainConfig
+from deltakd_tpu_torch.data.augment import AugmentConfig
+from deltakd_tpu_torch.data.mixup import MixupConfig
+from deltakd_tpu_torch.kd.losses import KDSettings
+from deltakd_tpu_torch.models.convert import flax_to_torch
+from deltakd_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from deltakd_tpu_torch.ops.fused_block import fused_vit_block
+from deltakd_tpu_torch.train.optim import make_optimizer
+from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
+from deltakd_tpu_torch.train.step import build_eval_step, build_train_step
+
+torch.set_num_threads(1)
+
+B, C = 4, 10
+STUDENT = dict(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=2,
+               num_classes=C, distilled=True)
+TEACHER = dict(STUDENT, embed_dim=96)
+HP = dict(distillation_type="soft", alpha=0.5, tau=2.0, drop_path_rate=0.0, lr=1e-3,
+          warmup_epochs=0, epochs=10, opt_eps=1e-4, clip_grad=1.0, ema_decay=0.9,
+          dataset="cifar-10", input_size=32, dtype="float32")
+
+
+def _pair(kw, seed):
+    j = JViT(JViTConfig(**kw), dtype=jnp.float32)
+    params = j.init({"params": jax.random.PRNGKey(seed)}, jnp.zeros((1, 32, 32, 3)))["params"]
+    t = VisionTransformer(ViTConfig(**kw), dtype=torch.float32, block_fn=fused_vit_block)
+    t.load_state_dict(flax_to_torch(params))
+    return j, params, t
+
+
+def _close(a, b, rtol=1e-4):
+    np.testing.assert_allclose(float(a), float(b), rtol=rtol)
+
+
+def test_train_step_matches_jax(monkeypatch):
+    rng = np.random.RandomState(0)
+    images = rng.randn(B, 32, 32, 3).astype(np.float32)
+    labels = rng.randint(0, C, B)
+    targets = rng.dirichlet(np.ones(C), B).astype(np.float32)
+    u8 = rng.randint(0, 256, (B, 32, 32, 3)).astype(np.uint8)
+
+    j_student, s_params, t_student = _pair(STUDENT, 1)
+    j_teacher, t_params, t_teacher = _pair(TEACHER, 2)
+
+    # JAX step: the real build_train_step with its transform and mixup
+    # returning the pinned batch
+    monkeypatch.setattr(jstep, "train_transform", lambda k, x, ac: jnp.asarray(images))
+    monkeypatch.setattr(jstep, "apply_mixup",
+                        lambda k, x, y, mc: (x, jnp.asarray(targets)))
+    jcfg = JTrainConfig(**HP)
+    jtx = j_make_optimizer(jcfg, {"student": s_params, "aux": {}}, 5)
+    jstate = JTrainState.create(student_params=s_params, aux_params={}, tx=jtx,
+                                ema_decay=jcfg.ema_decay)
+    jfn = jstep.build_train_step(
+        cfg=jcfg, kd=JKDSettings.from_config(jcfg, student_prefix=2, teacher_prefix=2),
+        student_module=j_student, teacher_module=j_teacher,
+        aug=JAugmentConfig(input_size=32), mixup=JMixupConfig(num_classes=C), tx=jtx,
+        donate=False)
+    jstate, jm = jfn(jstate, t_params, jnp.asarray(u8), jnp.asarray(labels),
+                     jax.random.PRNGKey(0), jnp.asarray(0, jnp.int32))
+
+    cfg = TrainConfig(aa="", color_jitter=0.0, **HP)
+    tx = make_optimizer(cfg, trainable_parameters(t_student), 5)
+    state = TrainState(t_student, tx=tx, ema_decay=cfg.ema_decay)
+    fn = build_train_step(cfg=cfg, kd=KDSettings.from_config(cfg), student=t_student,
+                          teacher=t_teacher, aug=AugmentConfig.from_config(cfg),
+                          mixup=MixupConfig.from_config(cfg, C), tx=tx)
+    m = fn(state, torch.from_numpy(u8), torch.from_numpy(labels),
+           torch.Generator().manual_seed(0), images=torch.from_numpy(images),
+           targets=torch.from_numpy(targets))
+
+    for k in ("train_loss", "base_loss", "distill_loss", "grad_norm", "train_acc1",
+              "train_acc5"):
+        _close(m[k], jm[k])
+    expect = flax_to_torch(jstate.params["student"])
+    for name, p in t_student.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), expect[name].numpy(), atol=1e-6,
+                                   err_msg=name)
+    # the teacher is frozen and unchanged
+    for name, p in t_teacher.state_dict().items():
+        np.testing.assert_array_equal(p.numpy(), flax_to_torch(t_params)[name].numpy())
+
+
+@pytest.mark.parametrize("valid", [3, np.array([1, 0, 1, 1], bool)])
+def test_eval_step_matches_jax(valid):
+    rng = np.random.RandomState(1)
+    u8 = rng.randint(0, 256, (B, 32, 32, 3)).astype(np.uint8)
+    labels = rng.randint(0, C, B)
+    j_student, s_params, t_student = _pair(STUDENT, 3)
+    t_student.collect_features = True     # the eval step turns collection off
+    jsums = jstep.build_eval_step(student_module=j_student, aug=JAugmentConfig(input_size=32))(
+        s_params, jnp.asarray(u8), jnp.asarray(labels), jnp.asarray(valid))
+    tsums = build_eval_step(student=t_student, aug=AugmentConfig(input_size=32))(
+        torch.from_numpy(u8), torch.from_numpy(labels), torch.as_tensor(valid))
+    assert set(tsums) == set(jsums)
+    for k in jsums:
+        _close(tsums[k], jsums[k])
+
+
+def test_train_step_draws_its_own_augmentation_and_accumulates():
+    """Unpinned, with drop-path, mixup, erasing and two micro-batches: the
+    step runs from the generator alone, changes the student only and is
+    reproducible from the seed."""
+    def run(seed):
+        _, _, student = _pair(dict(STUDENT, drop_path_rate=0.1), 4)
+        _, _, teacher = _pair(TEACHER, 5)
+        cfg = TrainConfig(aa="", color_jitter=0.0, **dict(HP, drop_path_rate=0.1,
+                                                          grad_accum_steps=2))
+        tx = make_optimizer(cfg, trainable_parameters(student), 5)
+        state = TrainState(student, tx=tx)
+        fn = build_train_step(cfg=cfg, kd=KDSettings.from_config(cfg), student=student,
+                              teacher=teacher, aug=AugmentConfig.from_config(cfg),
+                              mixup=MixupConfig.from_config(cfg, C), tx=tx)
+        rng = np.random.RandomState(6)
+        u8 = torch.from_numpy(rng.randint(0, 256, (B, 32, 32, 3)).astype(np.uint8))
+        labels = torch.from_numpy(rng.randint(0, C, B))
+        p0 = state.params.clone()
+        m = fn(state, u8, labels, torch.Generator().manual_seed(seed))
+        assert all(torch.isfinite(v) for v in m.values())
+        assert state.step == 1 and not torch.equal(p0, state.params)
+        return float(m["train_loss"])
+
+    assert run(0) == run(0) != run(1)
