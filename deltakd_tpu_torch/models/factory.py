@@ -22,16 +22,15 @@ from deltakd_tpu_torch.ops.fused_block import fused_vit_block
 
 def create_model(name: str, *, num_classes: int, img_size: int = 224,
                  drop_path_rate: float = 0.0, dtype=torch.bfloat16,
-                 fused: bool = True, collect_features=True, seed: int = 0,
+                 collect_features=True, seed: int = 0,
                  device="cuda") -> VisionTransformer:
-    """A model of the zoo with seeded random weights on ``device``. ``fused``
-    runs each block through ``fused_vit_block`` (the kernels on the card, their
-    plain version on the CPU); otherwise the unfused module path runs."""
+    """A model of the zoo with seeded random weights on ``device``. Each block
+    runs through ``fused_vit_block``: the kernels on the card, their plain
+    version on the CPU."""
     device = resolve_device(device)
     cfg = get_model_config(name, num_classes=num_classes, img_size=img_size,
                            drop_path_rate=drop_path_rate)
-    model = VisionTransformer(cfg, dtype=dtype,
-                              block_fn=fused_vit_block if fused else None,
+    model = VisionTransformer(cfg, dtype=dtype, block_fn=fused_vit_block,
                               collect_features=collect_features)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device)

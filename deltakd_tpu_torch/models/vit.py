@@ -67,7 +67,8 @@ class ViTOutput:
 
 
 def _linear(x, layer: nn.Linear, dtype):
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def _layer_norm(x, layer: nn.LayerNorm, dtype):
@@ -152,7 +153,9 @@ class VisionTransformer(nn.Module):
                                       "ported yet")
         self.cfg = cfg
         self.dtype = dtype
-        self.block_fn = block_fn if cfg.qkv_bias else None
+        # the fused block takes a qkv bias; without one the unfused module path
+        # runs, on the CPU only (forward raises on the card)
+        self.block_fn = block_fn
         # True/False, or a collection of the block indices whose features the
         # KD objective reads (kd.losses.feature_indices)
         self.collect_features = collect_features
@@ -203,6 +206,13 @@ class VisionTransformer(nn.Module):
         per block) or else drawn from ``generator``."""
         cfg, dt = self.cfg, self.dtype
         B = x.shape[0]
+        block_fn = self.block_fn
+        if block_fn is not None and not cfg.qkv_bias:
+            if x.device.type != "cpu":
+                raise NotImplementedError(
+                    "the fused block kernels need qkv_bias=True; a model "
+                    "without a qkv bias runs only on the CPU")
+            block_fn = None
         if train and cfg.drop_path_rate > 0.0 and drop_scales is None:
             if generator is None:
                 raise ValueError("train mode with drop_path_rate > 0 needs "
@@ -223,7 +233,7 @@ class VisionTransformer(nn.Module):
         feats = []
         for i, blk in enumerate(self.blocks):
             scales = drop_scales[i] if drop_scales is not None else None
-            x, feat = blk(x, dt, scales, self.block_fn,
+            x, feat = blk(x, dt, scales, block_fn,
                           self._collect(i, collect_features))
             feats.append(feat)
 

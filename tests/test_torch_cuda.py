@@ -36,7 +36,9 @@ def test_kernels_match_plain_version_on_card(need_feat):
     r_out, r_feat = fb.reference_vit_block(x, params, **kw)
     dx, dws = fb.kernel_block_bwd(x, params, g_out, g_feat, **kw)
     r_dx, r_dws = fb.reference_vit_block_bwd(x, params, g_out, g_feat, **kw)
-    pairs = [(out, r_out), (dx, r_dx)] + [(dws[n], r_dws[n]) for n in fb.PARAM_NAMES]
+    # out is compared as out - x, so that the residual does not hide the branches
+    pairs = [(out.float() - x.float(), r_out.float() - x.float()), (dx, r_dx)]
+    pairs += [(dws[n], r_dws[n]) for n in fb.PARAM_NAMES]
     if need_feat:
         pairs.append((feat, r_feat))
     else:

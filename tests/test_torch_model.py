@@ -82,6 +82,18 @@ def test_distilled_train_returns_both_heads_eval_the_average():
     torch.testing.assert_close(ev.logits, (tr.logits + tr.logits_dist) / 2)
 
 
+def test_no_qkv_bias_runs_unfused_on_cpu_and_raises_elsewhere():
+    cfg = ViTConfig(distilled=True, qkv_bias=False, **CFG)
+    fused = VisionTransformer(cfg, dtype=torch.float32, block_fn=fused_vit_block)
+    plain = VisionTransformer(cfg, dtype=torch.float32)
+    plain.load_state_dict(fused.state_dict())
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, 32, 32, 3).astype(np.float32))
+    with torch.no_grad():
+        torch.testing.assert_close(fused(x).logits, plain(x).logits, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="qkv_bias"):
+        fused(x.to("meta"))
+
+
 def test_flax_to_torch_inverts_timm_to_flax():
     j, params, t, _ = _models(True, False, seed=2)
     back, report = timm_to_flax({k: v.numpy() for k, v in t.state_dict().items()}, params)
