@@ -52,6 +52,16 @@ class TrainConfig:
     distillation_type: str = "none"
     alpha: float = 0.1
     tau: float = 3.0
+    lrkd_rank: int = 32
+    lrkd_alpha: float = 0.1
+    lrkd_beta: float = 0.1
+    lrkd_gamma: float = 0.1
+    saliency_method: int = 1
+    saliency_mask_ratio: float = 0.5
+    wasskd_type: str = "l1"
+    sinkhorn_iters: int = 20
+    mgd_alpha: float = 7e-5
+    mgd_mask_ratio: float = 0.5
 
     # data
     dataset: str = "imagenet-1k"

@@ -4,7 +4,8 @@ PyTorch state_dict: the inverse of ``timm_to_flax``
 
 Dense kernels [in, out] become nn.Linear weights [out, in]; the patch-embed
 conv kernel goes HWIO -> OIHW; LayerNorm ``scale`` becomes ``weight``; the
-fused QKV keeps its (3, heads, head_dim) output packing.
+fused QKV keeps its (3, heads, head_dim) output packing. ``aux_flax_to_torch``
+does the same for the aux-head tree of ``deltakd_tpu/kd/aux.py``.
 """
 
 from __future__ import annotations
@@ -61,3 +62,29 @@ def flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             sd[f"{head}.weight"] = np.asarray(params[head]["kernel"]).T
             sd[f"{head}.bias"] = np.asarray(params[head]["bias"])
     return _tensors({k: np.asarray(v) for k, v in sd.items()})
+
+
+def aux_flax_to_torch(aux_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX aux-head tree (nested dicts and lists of arrays) -> the fp32
+    state_dict of ``kd.aux.AuxHeads``: a dense ``kernel`` [in, out] becomes
+    ``weight`` [out, in], a conv ``kernel`` HWIO becomes OIHW, ``mask_token``
+    stays as it is; list entries are named by their index."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, (list, tuple)):
+            for i, sub in enumerate(tree):
+                walk(sub, f"{prefix}{i}.")
+        elif isinstance(tree, Mapping) and "kernel" in tree:
+            kernel = np.asarray(tree["kernel"])
+            sd[f"{prefix}weight"] = (kernel.T if kernel.ndim == 2
+                                     else kernel.transpose(3, 2, 0, 1))
+            sd[f"{prefix}bias"] = np.asarray(tree["bias"])
+        elif isinstance(tree, Mapping):
+            for k, sub in tree.items():
+                walk(sub, f"{prefix}{k}.")
+        else:
+            sd[prefix[:-1]] = np.asarray(tree)
+
+    walk(aux_params, "")
+    return _tensors(sd)

@@ -1,5 +1,6 @@
 """Model construction (``deltakd_tpu/models/factory.py``): the DeiT teacher
-and student with the fused block, randomly initialised from a seed.
+and student with the fused block, and the aux heads of the distillation type,
+randomly initialised from a seed.
 
 A pretrained teacher needs a timm checkpoint, which loads by name into
 ``VisionTransformer.load_state_dict``; until one is available, distilling
@@ -8,13 +9,14 @@ against the random teacher must be asked for with ``allow_random_teacher``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from deltakd_tpu_torch import resolve_device
 from deltakd_tpu_torch.data.registry import DATASET_STATS
-from deltakd_tpu_torch.kd.losses import feature_indices
+from deltakd_tpu_torch.kd.aux import AuxHeads
+from deltakd_tpu_torch.kd.losses import FEATURE_TYPES, feature_indices
 from deltakd_tpu_torch.models.registry import get_model_config
 from deltakd_tpu_torch.models.vit import VisionTransformer, init_weights
 from deltakd_tpu_torch.ops.fused_block import fused_vit_block
@@ -37,8 +39,11 @@ def create_model(name: str, *, num_classes: int, img_size: int = 224,
 
 
 def load_teacher_student(config, *, seed: int = 0, device="cuda"
-                         ) -> Tuple[VisionTransformer, VisionTransformer]:
-    """(teacher, student) for a TrainConfig; the teacher is frozen."""
+                         ) -> Tuple[VisionTransformer, VisionTransformer,
+                                    Optional[AuxHeads]]:
+    """(teacher, student, aux) for a TrainConfig; the teacher is frozen and
+    ``aux`` holds the aux heads of a feature objective (None for
+    none/soft/hard)."""
     if config.distillation_type != "none" and not config.allow_random_teacher:
         raise ValueError(
             f"distillation_type {config.distillation_type!r} needs a pretrained "
@@ -61,4 +66,9 @@ def load_teacher_student(config, *, seed: int = 0, device="cuda"
                            drop_path_rate=config.drop_path_rate, dtype=dtype,
                            collect_features=needed(config.student_model),
                            seed=seed + 2, device=device)
-    return teacher, student
+    aux = None
+    if config.distillation_type.lower() in FEATURE_TYPES:
+        aux = AuxHeads(config.distillation_type, student.cfg.embed_dim,
+                       teacher.cfg.embed_dim,
+                       torch.Generator().manual_seed(seed + 3)).to(resolve_device(device))
+    return teacher, student, aux

@@ -16,9 +16,31 @@ import shutil
 import subprocess
 from typing import Dict, Iterable
 
+_INT, _PTR = ctypes.c_int, ctypes.c_void_p
+
+
+def _block_signatures(name: str) -> dict:
+    return {f"dk_{name}_workspace": ([_INT] * 5, ctypes.c_size_t),
+            f"dk_{name}": ([ctypes.POINTER(_PTR)] + [_INT] * 5
+                           + [ctypes.c_float, _PTR], _INT)}
+
+
+# The C interface of each source: function -> (argument types, result type).
+# Every pointer and the stream are c_void_p, or ctypes would cut them to 32 bits.
+SIGNATURES = {
+    "fused_block_fwd": _block_signatures("fused_block_fwd"),
+    "fused_block_bwd": _block_signatures("fused_block_bwd"),
+    "sort": {
+        "dk_sort_tiles": ([_INT, _INT], _INT),
+        "dk_sort_bitonic": ([_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR], _INT),
+        "dk_sort_sl1_fwd": ([_PTR] * 4 + [_INT] * 4 + [_PTR], _INT),
+        "dk_sort_sl1_bwd": ([_PTR, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR], _INT),
+    },
+}
+
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_CSRC), os.pardir, "_build")
-SOURCES = ("fused_block_fwd", "fused_block_bwd")
+SOURCES = ("fused_block_fwd", "fused_block_bwd", "sort")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -76,12 +98,8 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build([name])
         lib = ctypes.CDLL(_library_path(name))
-        ws = getattr(lib, f"dk_{name}_workspace")
-        ws.argtypes = [ctypes.c_int] * 5
-        ws.restype = ctypes.c_size_t
-        run = getattr(lib, f"dk_{name}")
-        run.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 5
-                        + [ctypes.c_float, ctypes.c_void_p])
-        run.restype = ctypes.c_int
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         _libs[name] = lib
     return _libs[name]

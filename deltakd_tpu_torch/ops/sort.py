@@ -1,0 +1,213 @@
+"""Sorting along an axis and the sorted-L1 distance (the WassKD-l1 building
+block): plain PyTorch versions, CUDA kernel wrappers and the autograd Function
+that joins them.
+
+Counterpart of ``deltakd_tpu/ops/sort.py``.
+
+    sorted_l1(s, t, axis) = mean |sort(s, axis) - sort(t, axis)|
+
+sorts in the dtype of ``s`` (``t`` is cast to it and treated as a constant),
+takes differences and the mean in fp32, and gives ``s`` the gradient
+``sign(s_sorted - t_sorted) / numel`` scattered back to the row each sorted
+value came from. Equal keys are ordered by row (a stable sort), which fixes
+the split of the gradient inside a group of tied rows; any other split is an
+equally valid subgradient of the same loss.
+
+Dispatch is by the device of the input: a CPU tensor takes the plain version,
+a CUDA tensor the hand-written kernels in ``csrc/sort.cu`` (bf16 and fp32,
+2 <= n <= 1024 along the sorted axis), anything else raises. The kernels work
+on a contiguous [B, n, d] tensor sorted along n; another axis or rank is
+brought to that layout by a transpose, not by another code path. The whole
+batch goes through one call.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Tuple
+
+import torch
+
+# Kernel launches by kernel name. Each wrapper adds one where it launches its
+# kernel; nothing else touches the count.
+LAUNCHES: collections.Counter = collections.Counter()
+
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+_MIN_N, _MAX_N = 2, 1024
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+# -----------------------------------------------------------------------------
+# Plain versions (the CPU path, and the reference the kernels are held to)
+# -----------------------------------------------------------------------------
+
+def sorted_l1_reference(s: torch.Tensor, t: torch.Tensor, axis: int = 1) -> torch.Tensor:
+    """Plain PyTorch sorted_l1 on any device, differentiable by autograd
+    through the stable sort; fp32 mean."""
+    t = t.detach().to(s.dtype)
+    s_sorted = torch.sort(s, dim=axis, stable=True).values.float()
+    t_sorted = torch.sort(t, dim=axis).values.float()
+    return (s_sorted - t_sorted).abs().mean()
+
+
+def _plain_sl1_fwd(s3: torch.Tensor, t3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the forward kernel computes on [B, n, d]: the fp32 sum of
+    |s_sorted - t_sorted| and the int8 signs in row order."""
+    s_sorted, idx = torch.sort(s3, dim=1, stable=True)
+    diff = s_sorted.float() - torch.sort(t3, dim=1).values.float()
+    sign = torch.zeros(s3.shape, dtype=torch.int8, device=s3.device)
+    sign.scatter_(1, idx, torch.sign(diff).to(torch.int8))
+    return diff.abs().sum(), sign
+
+
+def _plain_sl1_bwd(sign: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """What the backward kernel computes: sign * scale in fp32, cast."""
+    return (sign.float() * scale).to(dtype)
+
+
+# -----------------------------------------------------------------------------
+# CUDA kernel wrappers
+# -----------------------------------------------------------------------------
+
+def _kernel_operand(x: torch.Tensor, name: str) -> torch.Tensor:
+    if x.dim() != 3 or x.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{name}: takes a bf16 or fp32 [B, n, d] tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if not _MIN_N <= x.shape[1] <= _MAX_N or x.shape[0] < 1 or x.shape[2] < 1:
+        raise ValueError(f"{name}: sorts {_MIN_N} <= n <= {_MAX_N} rows of a "
+                         f"non-empty [B, n, d] tensor, got {tuple(x.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: needs a CUDA tensor, got one on {x.device}")
+    return x.contiguous()
+
+
+def _call(fn: str, name: str, *args) -> None:
+    from deltakd_tpu_torch.ops import _build
+
+    err = getattr(_build.library("sort"), fn)(*args)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    LAUNCHES[name] += 1
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def bitonic_sort_kernel(x: torch.Tensor) -> torch.Tensor:
+    """The value-sort kernel: ascending along axis 1 of a CUDA [B, n, d]."""
+    x = _kernel_operand(x, "bitonic_sort")
+    B, n, d = x.shape
+    with torch.cuda.device(x.device):
+        out = torch.empty_like(x)
+        _call("dk_sort_bitonic", "bitonic_sort", x.data_ptr(), out.data_ptr(), B, n, d,
+              int(x.dtype == torch.bfloat16), _stream(x))
+    return out
+
+
+def kernel_sorted_l1_fwd(s: torch.Tensor, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on CUDA [B, n, d] tensors of one dtype: (fp32 sum of
+    |s_sorted - t_sorted|, int8 signs in row order). One loss partial per
+    thread block, summed here in a fixed order."""
+    from deltakd_tpu_torch.ops import _build
+
+    s = _kernel_operand(s, "sorted_l1_fwd")
+    if t.shape != s.shape or t.dtype != s.dtype or t.device != s.device:
+        raise ValueError(f"sorted_l1_fwd: t is {t.dtype} {tuple(t.shape)} on {t.device}, "
+                         f"s is {s.dtype} {tuple(s.shape)} on {s.device}")
+    t = t.contiguous()
+    B, n, d = s.shape
+    tiles = _build.library("sort").dk_sort_tiles(n, d)
+    with torch.cuda.device(s.device):
+        partials = torch.empty(B * tiles, dtype=torch.float32, device=s.device)
+        sign = torch.empty(s.shape, dtype=torch.int8, device=s.device)
+        _call("dk_sort_sl1_fwd", "sorted_l1_fwd", s.data_ptr(), t.data_ptr(),
+              partials.data_ptr(), sign.data_ptr(), B, n, d,
+              int(s.dtype == torch.bfloat16), _stream(s))
+    return partials.sum(), sign
+
+
+def kernel_sorted_l1_bwd(sign: torch.Tensor, scale: torch.Tensor,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """The backward kernel: ``sign`` (CUDA int8, row order) times the fp32
+    device scalar ``scale`` (ct / numel), cast to ``dtype``."""
+    if sign.device.type != "cuda" or sign.dtype != torch.int8 or dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"sorted_l1_bwd: takes CUDA int8 signs and a bf16 or fp32 "
+                         f"output, got {sign.dtype} on {sign.device} and {dtype}")
+    sign = sign.contiguous()
+    scale = scale.to(device=sign.device, dtype=torch.float32).reshape(1).contiguous()
+    with torch.cuda.device(sign.device):
+        g = torch.empty(sign.shape, dtype=dtype, device=sign.device)
+        _call("dk_sort_sl1_bwd", "sorted_l1_bwd", sign.data_ptr(), scale.data_ptr(),
+              g.data_ptr(), sign.numel(), int(dtype == torch.bfloat16), _stream(sign))
+    return g
+
+
+# -----------------------------------------------------------------------------
+# Dispatch and autograd
+# -----------------------------------------------------------------------------
+
+def _to_rows(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``x`` as [B, n, d] with the sorted axis in the middle: as it is for the
+    token axis of a 3-D tensor, else the axis moved to the front of [1, n, rest]."""
+    if x.dim() == 3 and axis == 1:
+        return x
+    return x.movedim(axis, 0).reshape(1, x.shape[axis], -1)
+
+
+def _check_device(x: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU one (the plain
+    version); raises for any other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no implementation for device {x.device}")
+    return x.device.type == "cuda"
+
+
+def bitonic_sort(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Ascending sort along ``axis`` (values only, not differentiable): the
+    kernel for CUDA tensors, ``torch.sort`` for CPU tensors."""
+    axis = axis % x.dim()
+    if not _check_device(x, "bitonic_sort"):
+        return torch.sort(x, dim=axis).values
+    if x.dim() == 3 and axis == 1:
+        return bitonic_sort_kernel(x)
+    moved = x.movedim(axis, 0)
+    out = bitonic_sort_kernel(moved.reshape(1, x.shape[axis], -1))
+    return out.reshape(moved.shape).movedim(0, axis)
+
+
+class _SortedL1(torch.autograd.Function):
+    """Saves only the int8 sign residual (one byte an element of s)."""
+
+    @staticmethod
+    def forward(ctx, s3, t3):
+        if _check_device(s3, "sorted_l1"):
+            total, sign = kernel_sorted_l1_fwd(s3, t3)
+        else:
+            total, sign = _plain_sl1_fwd(s3, t3)
+        ctx.save_for_backward(sign)
+        ctx.dtype = s3.dtype
+        return total / s3.numel()
+
+    @staticmethod
+    def backward(ctx, ct):
+        (sign,) = ctx.saved_tensors
+        scale = ct.float() / sign.numel()
+        if sign.device.type == "cuda":
+            g = kernel_sorted_l1_bwd(sign, scale, ctx.dtype)
+        else:
+            g = _plain_sl1_bwd(sign, scale, ctx.dtype)
+        return g, (torch.zeros_like(g) if ctx.needs_input_grad[1] else None)
+
+
+def sorted_l1(s: torch.Tensor, t: torch.Tensor, axis: int) -> torch.Tensor:
+    """mean |sort(s, axis) - sort(t, axis)| in fp32; the gradient goes to ``s``
+    and ``t`` gets zero. The kernels for CUDA tensors, the plain version for
+    CPU tensors."""
+    if t.shape != s.shape:
+        raise ValueError(f"sorted_l1: shapes differ, {tuple(s.shape)} and {tuple(t.shape)}")
+    axis = axis % s.dim()
+    return _SortedL1.apply(_to_rows(s, axis), _to_rows(t.to(s.dtype), axis))

@@ -1,11 +1,13 @@
 """The train and eval steps (``deltakd_tpu/train/step.py``).
 
 One train step: on-device augmentation and mixup, the frozen teacher forward
-under ``torch.no_grad()``, the student forward and backward, the KD loss, the
-clipped AdamW update over the flat parameter vector, the EMA update and the
-metrics, optionally over several accumulated micro-batches. Randomness comes
-from one explicit ``torch.Generator``; tests may instead pin the
-post-transform images, the soft targets and the drop-path scales.
+under ``torch.no_grad()``, the student forward and backward, the KD loss (for
+a feature objective on both models' per-block features and the aux heads),
+the clipped AdamW update over the flat parameter vector of student and aux
+heads, the EMA update and the metrics, optionally over several accumulated
+micro-batches. Randomness comes from one explicit ``torch.Generator``; tests
+may instead pin the post-transform images, the soft targets, the drop-path
+scales and the masking noise.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from deltakd_tpu_torch.data.augment import AugmentConfig, eval_transform, train_transform
 from deltakd_tpu_torch.data.mixup import MixupConfig, apply_mixup
-from deltakd_tpu_torch.kd.losses import KDSettings, total_loss
+from deltakd_tpu_torch.kd.losses import FEATURE_TYPES, KDSettings, total_loss
 from deltakd_tpu_torch.train.state import TrainState
 
 
@@ -28,24 +30,30 @@ def topk_correct(logits, labels, k: int):
 
 
 def build_train_step(*, cfg, kd: KDSettings, student, teacher,
-                     aug: AugmentConfig, mixup: Optional[MixupConfig], tx) -> Callable:
+                     aug: AugmentConfig, mixup: Optional[MixupConfig], tx,
+                     aux=None) -> Callable:
     """Returns ``step(state, images_u8, labels, generator, *, images=None,
-    targets=None, drop_scales=None) -> metrics``.
+    targets=None, drop_scales=None, epoch=0, mask_noise=None) -> metrics``.
 
-    ``state`` must hold ``student``'s parameters (TrainState(student, ...)).
+    ``state`` must hold ``student``'s parameters and, for a feature objective,
+    those of its aux heads ``aux`` (TrainState(student, aux=aux, ...)).
     ``images`` (post-transform, post-mixup, [B, S, S, 3]) and ``targets``
     replace the drawn augmentation; ``drop_scales`` (per block an
-    (s_attn, s_mlp) pair or None) replaces the drawn stochastic depth and needs
+    (s_attn, s_mlp) pair or None) replaces the drawn stochastic depth and
+    ``mask_noise`` ([B, L]) the drawn masking noise, and both need
     ``grad_accum_steps == 1``. Metrics are 0-d tensors on the device.
     """
     needs_teacher = kd.distillation_type != "none"
+    needs_features = kd.distillation_type.lower() in FEATURE_TYPES
+    if needs_features and aux is None:
+        raise ValueError(f"{kd.distillation_type} needs its aux heads: pass aux=")
     accum = max(1, cfg.grad_accum_steps)
     ema_decay = cfg.ema_decay
     if teacher is not None:
         teacher.requires_grad_(False)
 
     def micro_grads(params, generator, images_u8, labels, images, targets,
-                    drop_scales):
+                    drop_scales, epoch, mask_noise):
         if images is None:
             images = train_transform(generator, images_u8, aug)
             if mixup is not None:
@@ -56,16 +64,24 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
             targets = labels
         images = images.to(student.dtype)
 
-        teacher_logits = None
+        teacher_logits = teacher_feats = None
         if needs_teacher:
             with torch.no_grad():
-                teacher_logits = teacher(images, train=False).logits
+                t_out = teacher(images, train=False)
+            teacher_logits = t_out.logits
+            teacher_feats = t_out.features if needs_features else None
         s_out = student(images, train=True, drop_scales=drop_scales,
                         generator=generator)
         loss, loss_metrics = total_loss(
             kd, student_logits=s_out.logits, student_dist_logits=s_out.logits_dist,
-            teacher_logits=teacher_logits, targets=targets)
-        grads = torch.autograd.grad(loss, params)
+            student_feats=s_out.features if needs_features else None,
+            teacher_logits=teacher_logits, teacher_feats=teacher_feats, aux=aux,
+            targets=targets, generator=generator, noise=mask_noise, epoch=epoch,
+            train=True)
+        # a parameter the loss does not reach (the dist head under a feature
+        # objective) has a zero gradient
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         logits = s_out.logits.detach()
         metrics = {
             "train_loss": loss.detach(),
@@ -77,10 +93,12 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
         return torch.cat([g.reshape(-1) for g in grads]), metrics
 
     def step(state: TrainState, images_u8, labels, generator: torch.Generator, *,
-             images=None, targets=None, drop_scales: Optional[Sequence] = None
+             images=None, targets=None, drop_scales: Optional[Sequence] = None,
+             epoch: int = 0, mask_noise: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
-        if drop_scales is not None and accum > 1:
-            raise ValueError("pinned drop_scales need grad_accum_steps == 1")
+        if (drop_scales is not None or mask_noise is not None) and accum > 1:
+            raise ValueError("pinned drop_scales or mask_noise need "
+                             "grad_accum_steps == 1")
         params = state.parameters()
         mb = labels.shape[0] // accum
         g_sum, m_sum = None, None
@@ -90,7 +108,8 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
                 params, generator,
                 None if images_u8 is None else images_u8[part], labels[part],
                 None if images is None else images[part],
-                None if targets is None else targets[part], drop_scales)
+                None if targets is None else targets[part], drop_scales,
+                epoch, mask_noise)
             g_sum = g if g_sum is None else g_sum + g
             m_sum = m if m_sum is None else {k: m_sum[k] + m[k] for k in m}
         grads = g_sum / accum

@@ -66,7 +66,7 @@ def test_total_loss_matches_jax(kind, mixup):
 
 def test_feature_objectives_raise_until_ported():
     with pytest.raises(NotImplementedError):
-        tl.total_loss(tl.KDSettings(distillation_type="mgd"), student_logits=torch.zeros(2, 3),
+        tl.total_loss(tl.KDSettings(distillation_type="lrkd"), student_logits=torch.zeros(2, 3),
                       student_dist_logits=None, teacher_logits=None,
                       targets=torch.zeros(2, 3))
     assert tl.feature_indices("mgd", 12) == jl.feature_indices("mgd", 12)

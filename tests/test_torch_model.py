@@ -118,3 +118,34 @@ def test_drop_path_ramp_and_scales():
     assert abs(float((s > 0).float().mean()) - 0.9) < 0.04
     with pytest.raises(ValueError):
         t(torch.zeros(2, 32, 32, 3), train=True)
+
+
+@pytest.mark.parametrize("kd_type,feats,aux_keys", [
+    ("soft", False, None),
+    ("wasskd", {0, 1, 2}, {"align_wasskd"}),
+    ("mgd", {11}, {"align", "mask_token", "generation"}),
+    ("vitkd", {0, 1, 11}, {"align2", "align", "mask_token", "generation"})])
+def test_load_teacher_student_returns_the_aux_heads(kd_type, feats, aux_keys):
+    """(teacher, student, aux) as the JAX factory: aux is None for a logit
+    objective, else the heads of the type from student width to teacher
+    width; both models collect only the features the objective reads."""
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.models.factory import load_teacher_student
+
+    cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224",
+                      student_model="deit_tiny_distilled_patch16_224", aa="",
+                      color_jitter=0.0, dataset="cifar-10", input_size=32,
+                      distillation_type=kd_type, allow_random_teacher=True)
+    teacher, student, aux = load_teacher_student(cfg, seed=0, device="cpu")
+    assert not any(p.requires_grad for p in teacher.parameters())
+    assert [student._collect(i, None) for i in range(12)] == [
+        bool(feats) and i in feats for i in range(12)]
+    assert teacher.collect_features == student.collect_features
+    if aux_keys is None:
+        assert aux is None
+    else:
+        assert {n.split(".")[0] for n, _ in aux.named_parameters()} == aux_keys
+        assert aux.align_wasskd[0].weight.shape == (384, 192) if kd_type == "wasskd" \
+            else aux.align.weight.shape == (384, 192)
+    with pytest.raises(NotImplementedError):
+        load_teacher_student(cfg.replace(distillation_type="lrkd"), device="cpu")

@@ -1,0 +1,165 @@
+"""The port's sorted_l1 and value sort (deltakd_tpu_torch/ops/sort.py) against
+the JAX package's: the plain PyTorch versions (the autograd Function with its
+sign residual, and the autograd-through-sort reference) against the XLA
+sorting network `_sorted_l1_network` and the Pallas kernel `sorted_l1_pallas`
+run in interpret mode.
+
+fp32 on the CPU, inputs from a numpy seed. On tie-free inputs the terms are
+the same and only the fp32 summation order differs: value and gradient to
+rtol 1e-5. With ties (bf16-rounded inputs) the sorted values are exact, the
+loss holds to rtol 1e-5, and the gradient is compared after summing over each
+group of tied rows in a column (the split inside a group is a free choice of
+subgradient). Where a sorted s equals the sorted t, the port and the Pallas
+kernel give the gradient sign(0) = 0 while autodiff through the XLA network
+gives jnp.abs's +1, another valid subgradient: so the network is compared on
+inputs with ties inside s but no s equal to a t, the Pallas kernel also with
+such equalities planted. The kernels themselves run only on a card
+(tests/test_torch_cuda.py).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deltakd_tpu.ops import fused_block as jfb
+from deltakd_tpu.ops import sort as jsort
+from deltakd_tpu_torch.ops import sort as tsort
+
+torch.set_num_threads(1)
+
+
+def _inputs(shape, seed, ties=False, s_equals_t=False):
+    rng = np.random.RandomState(seed)
+    s = rng.randn(*shape).astype(np.float32)
+    t = rng.randn(*shape).astype(np.float32)
+    if ties:
+        # bf16 rounding of a coarse draw ties many values (t lies between the
+        # values of s); plant exact duplicates within s
+        s = torch.from_numpy(np.round(s * 4) / 4).bfloat16().float().numpy()
+        t = torch.from_numpy(np.round(t * 4) / 4 + 0.125).bfloat16().float().numpy()
+        s[:, 1] = s[:, 0]
+    if s_equals_t:
+        t[:, :3] = s[:, :3]
+    return s, t
+
+
+def _torch_value_and_grad(fn, s, t, axis, dtype=torch.float32):
+    ts = torch.from_numpy(s).to(dtype).requires_grad_(True)
+    tt = torch.from_numpy(t).to(dtype).requires_grad_(True)
+    loss = fn(ts, tt, axis)
+    gs, gt = torch.autograd.grad(loss, [ts, tt], allow_unused=True)
+    return loss, gs, gt
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_results(shape, seed, ties=False, s_equals_t=False):
+    """((value, grad) of the XLA network, (value, grad) of the Pallas kernel in
+    interpret mode) on `_inputs(...)`, as numpy; computed once per input."""
+    s, t = _inputs(shape, seed, ties, s_equals_t)
+    net = jax.jit(jax.value_and_grad(
+        lambda x: jsort._sorted_l1_network(x, jnp.asarray(t), axis=1)))(jnp.asarray(s))
+    jfb.set_interpret(True)
+    try:
+        pallas = jax.value_and_grad(
+            lambda x: jsort.sorted_l1_pallas(x, jnp.asarray(t), axis=1))(jnp.asarray(s))
+    finally:
+        jfb.set_interpret(False)
+    return tuple((float(v), np.asarray(g)) for v, g in (net, pallas))
+
+
+def _tie_group_sums(g, s):
+    """Per column (b, :, j), the gradient summed over rows with equal s."""
+    g, s = np.asarray(g, np.float64), np.asarray(s)
+    out = np.zeros_like(g)
+    B, n, d = s.shape
+    for b in range(B):
+        for j in range(d):
+            _, inv = np.unique(s[b, :, j], return_inverse=True)
+            sums = np.zeros(inv.max() + 1)
+            np.add.at(sums, inv, g[b, :, j])
+            out[b, :, j] = sums[inv]
+    return out
+
+
+@pytest.mark.parametrize("shape", [(4, 10, 128), (40, 6, 128)],
+                         ids=["b4", "ragged-b40-crosses-the-jax-chunk"])
+@pytest.mark.parametrize("fn", [tsort.sorted_l1, tsort.sorted_l1_reference],
+                         ids=["function", "reference"])
+def test_sorted_l1_matches_network_and_interpreted_pallas(fn, shape):
+    s, t = _inputs(shape, 7)
+    (v_net, g_net), (v_pl, g_pl) = _jax_results(shape, 7)
+    tsort.reset_launches()
+    loss, gs, gt = _torch_value_and_grad(fn, s, t, 1)
+    assert loss.dtype == torch.float32 and not tsort.LAUNCHES
+    for v, g in ((v_net, g_net), (v_pl, g_pl)):
+        np.testing.assert_allclose(loss.item(), float(v), rtol=1e-5)
+        np.testing.assert_allclose(gs.numpy(), np.asarray(g), rtol=1e-5, atol=1e-8)
+    assert gt is None or float(gt.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("s_equals_t", [False, True])
+@pytest.mark.parametrize("fn", [tsort.sorted_l1, tsort.sorted_l1_reference],
+                         ids=["function", "reference"])
+def test_sorted_l1_with_ties(fn, s_equals_t):
+    s, t = _inputs((3, 12, 128), 3, ties=True, s_equals_t=s_equals_t)
+    assert len(np.unique(s[0, :, 0])) < s.shape[1]
+    np.testing.assert_array_equal(
+        tsort.bitonic_sort(torch.from_numpy(s), axis=1).numpy(),
+        np.asarray(jsort.bitonic_sort(jnp.asarray(s), axis=1)))
+    loss, gs, gt = _torch_value_and_grad(fn, s, t, 1)
+    (v_net, g_net), (v_pl, g_pl) = _jax_results((3, 12, 128), 3, True, s_equals_t)
+    mine = _tie_group_sums(gs.numpy(), s)
+    for v, g in ((v_net, g_net), (v_pl, g_pl)):
+        np.testing.assert_allclose(loss.item(), float(v), rtol=1e-5)
+        if g is g_pl or not s_equals_t:
+            np.testing.assert_allclose(mine, _tie_group_sums(g, s), rtol=1e-5, atol=1e-9)
+    assert gt is None or float(gt.abs().max()) == 0.0
+    # stable order: the Function and the autograd reference agree row by row
+    _, g_ref, _ = _torch_value_and_grad(tsort.sorted_l1_reference, s, t, 1)
+    _, g_fn, g_t = _torch_value_and_grad(tsort.sorted_l1, s, t, 1)
+    assert torch.equal(g_ref, g_fn) and float(g_t.abs().max()) == 0.0
+
+
+def test_sorted_l1_in_bf16_sorts_in_bf16_and_reduces_in_fp32():
+    s, t = _inputs((2, 9, 16), 5, ties=True, s_equals_t=True)
+    loss, gs, _ = _torch_value_and_grad(tsort.sorted_l1, s, t, 1, torch.bfloat16)
+    ref, g_ref, _ = _torch_value_and_grad(tsort.sorted_l1_reference, s, t, 1, torch.bfloat16)
+    v = jsort._sorted_l1_network(jnp.asarray(s, jnp.bfloat16), jnp.asarray(t, jnp.bfloat16), 1)
+    assert loss.dtype == torch.float32 and gs.dtype == torch.bfloat16
+    np.testing.assert_allclose(loss.item(), float(v), rtol=1e-5)
+    assert loss.item() == ref.item() and torch.equal(gs, g_ref)
+
+
+@pytest.mark.parametrize("shape,axis", [((5, 7, 6), 2), ((5, 7, 6), 0), ((5, 7, 6), -2),
+                                        ((9, 4), 0), ((3, 4, 5, 2), 2)])
+def test_other_axes_go_through_the_same_layout(shape, axis):
+    s, t = _inputs(shape, 11)
+    v, g = jax.jit(jax.value_and_grad(
+        lambda x: jsort._sorted_l1_network(x, jnp.asarray(t), axis=axis)))(jnp.asarray(s))
+    loss, gs, _ = _torch_value_and_grad(tsort.sorted_l1, s, t, axis)
+    np.testing.assert_allclose(loss.item(), float(v), rtol=1e-5)
+    np.testing.assert_allclose(gs.numpy(), np.asarray(g), rtol=1e-5, atol=1e-8)
+    np.testing.assert_array_equal(
+        tsort.bitonic_sort(torch.from_numpy(s), axis=axis).numpy(), np.sort(s, axis=axis))
+
+
+def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take():
+    """A CPU tensor never reaches a kernel wrapper by dispatch; called
+    directly, the wrappers raise instead of falling back."""
+    ok = torch.zeros(2, 4, 8)
+    for bad in (torch.zeros(2, 1, 8), torch.zeros(2, 1025, 8), torch.zeros(4, 8),
+                torch.zeros(2, 4, 8, dtype=torch.float64), ok):
+        with pytest.raises(ValueError):
+            tsort.bitonic_sort_kernel(bad)
+        with pytest.raises(ValueError):
+            tsort.kernel_sorted_l1_fwd(bad, bad)
+    with pytest.raises(ValueError):
+        tsort.kernel_sorted_l1_bwd(torch.zeros(2, 4, 8, dtype=torch.int8),
+                                   torch.tensor(1.0), torch.float32)
+    with pytest.raises(ValueError):
+        tsort.sorted_l1(ok, torch.zeros(2, 4, 7), 1)
+    assert not tsort.LAUNCHES

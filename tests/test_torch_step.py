@@ -2,7 +2,10 @@
 ``build_train_step``, from the same weights, the same post-transform images
 and soft targets (the JAX step's transform and mixup are replaced by
 functions returning them) and drop-path rate 0: loss terms, grad norm and
-the updated parameters. Then ``build_eval_step``'s masked sums.
+the updated parameters. The same for one wasskd-l1 and one mgd step, with the
+same aux-head weights and, for mgd, the masking noise the JAX step draws from
+its key handed to the port; the updated aux parameters are compared too.
+Then ``build_eval_step``'s masked sums.
 
 fp32 on the CPU. Losses and grad norm to rtol 1e-4; parameters after the
 AdamW step to 1e-6 absolute (lr 1e-3 and eps 1e-4, so grads that differ in
@@ -18,6 +21,7 @@ import torch
 from deltakd_tpu.configs.config import TrainConfig as JTrainConfig
 from deltakd_tpu.data.augment import AugmentConfig as JAugmentConfig
 from deltakd_tpu.data.mixup import MixupConfig as JMixupConfig
+from deltakd_tpu.kd.aux import init_aux_params
 from deltakd_tpu.kd.losses import KDSettings as JKDSettings
 from deltakd_tpu.models.vit import ViTConfig as JViTConfig
 from deltakd_tpu.models.vit import VisionTransformer as JViT
@@ -27,8 +31,9 @@ from deltakd_tpu.train.state import TrainState as JTrainState
 from deltakd_tpu_torch.configs.config import TrainConfig
 from deltakd_tpu_torch.data.augment import AugmentConfig
 from deltakd_tpu_torch.data.mixup import MixupConfig
+from deltakd_tpu_torch.kd.aux import AuxHeads
 from deltakd_tpu_torch.kd.losses import KDSettings
-from deltakd_tpu_torch.models.convert import flax_to_torch
+from deltakd_tpu_torch.models.convert import aux_flax_to_torch, flax_to_torch
 from deltakd_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from deltakd_tpu_torch.ops.fused_block import fused_vit_block
 from deltakd_tpu_torch.train.optim import make_optimizer
@@ -105,6 +110,93 @@ def test_train_step_matches_jax(monkeypatch):
     # the teacher is frozen and unchanged
     for name, p in t_teacher.state_dict().items():
         np.testing.assert_array_equal(p.numpy(), flax_to_torch(t_params)[name].numpy())
+
+
+@pytest.mark.parametrize("kd_type", ["wasskd", "mgd"])
+def test_feature_kd_train_step_matches_jax(kd_type, monkeypatch):
+    """The whole slice at 2 layers and narrow widths: teacher and student
+    features through the fused block's plain version, the aux heads, the
+    objective, and the AdamW update of student and aux parameters."""
+    rng = np.random.RandomState(10)
+    images = rng.randn(B, 32, 32, 3).astype(np.float32)
+    labels = rng.randint(0, C, B)
+    targets = rng.dirichlet(np.ones(C), B).astype(np.float32)
+    u8 = rng.randint(0, 256, (B, 32, 32, 3)).astype(np.uint8)
+    hp = dict(HP, distillation_type=kd_type, mgd_alpha=0.5)
+
+    kw_s = dict(STUDENT, depth=3) if kd_type == "wasskd" else STUDENT
+    kw_t = dict(TEACHER, depth=3) if kd_type == "wasskd" else TEACHER
+    j_student, s_params, t_student = _pair(kw_s, 11)
+    j_teacher, t_params, t_teacher = _pair(kw_t, 12)
+    aux_tree = init_aux_params(jax.random.PRNGKey(13), kd_type, STUDENT["embed_dim"],
+                               TEACHER["embed_dim"])
+    if "mask_token" in aux_tree:
+        aux_tree["mask_token"] = aux_tree["mask_token"] + 0.1
+
+    monkeypatch.setattr(jstep, "train_transform", lambda k, x, ac: jnp.asarray(images))
+    monkeypatch.setattr(jstep, "apply_mixup",
+                        lambda k, x, y, mc: (x, jnp.asarray(targets)))
+    jcfg = JTrainConfig(**hp)
+    jtx = j_make_optimizer(jcfg, {"student": s_params, "aux": aux_tree}, 5)
+    jstate = JTrainState.create(student_params=s_params, aux_params=aux_tree, tx=jtx,
+                                ema_decay=jcfg.ema_decay)
+    jfn = jstep.build_train_step(
+        cfg=jcfg, kd=JKDSettings.from_config(jcfg, student_prefix=2, teacher_prefix=2),
+        student_module=j_student, teacher_module=j_teacher,
+        aug=JAugmentConfig(input_size=32), mixup=JMixupConfig(num_classes=C), tx=jtx,
+        donate=False)
+    key = jax.random.PRNGKey(0)
+    jstate, jm = jfn(jstate, t_params, jnp.asarray(u8), jnp.asarray(labels), key,
+                     jnp.asarray(0, jnp.int32))
+    # the masking noise of the JAX step: its loss key is the third of five
+    # split off the step key folded with the step count
+    k_loss = jax.random.split(jax.random.fold_in(key, 0), 5)[2]
+    n_patches = (32 // 8) ** 2
+    noise = torch.from_numpy(np.array(jax.random.uniform(k_loss, (B, n_patches))))
+
+    cfg = TrainConfig(aa="", color_jitter=0.0, **hp)
+    aux = AuxHeads(kd_type, STUDENT["embed_dim"], TEACHER["embed_dim"],
+                   torch.Generator().manual_seed(0))
+    aux.load_state_dict(aux_flax_to_torch(aux_tree))
+    feats = {"wasskd": {0, 1, 2}, "mgd": {1}}[kd_type]
+    t_student.collect_features = t_teacher.collect_features = feats
+    tx = make_optimizer(cfg, trainable_parameters(t_student, aux), 5)
+    state = TrainState(t_student, tx=tx, aux=aux, ema_decay=cfg.ema_decay)
+    fn = build_train_step(
+        cfg=cfg, kd=KDSettings.from_config(cfg, student_prefix=2, teacher_prefix=2),
+        student=t_student, teacher=t_teacher, aux=aux, aug=AugmentConfig.from_config(cfg),
+        mixup=MixupConfig.from_config(cfg, C), tx=tx)
+    m = fn(state, torch.from_numpy(u8), torch.from_numpy(labels),
+           torch.Generator().manual_seed(0), images=torch.from_numpy(images),
+           targets=torch.from_numpy(targets),
+           mask_noise=noise if kd_type == "mgd" else None)
+
+    assert float(m["distill_loss"]) > 0
+    for k in ("train_loss", "base_loss", "distill_loss", "grad_norm", "train_acc1",
+              "train_acc5"):
+        _close(m[k], jm[k])
+    expect = flax_to_torch(jstate.params["student"])
+    for name, p in t_student.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), expect[name].numpy(), atol=1e-6,
+                                   err_msg=name)
+    before = aux_flax_to_torch(aux_tree)
+    expect = aux_flax_to_torch(jstate.params["aux"])
+    assert set(expect) == set(aux.state_dict())
+    for name, p in aux.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), expect[name].numpy(), atol=1e-6,
+                                   err_msg=name)
+        assert not np.array_equal(p.numpy(), before[name].numpy()), name
+
+
+def test_feature_kd_step_needs_aux_heads():
+    _, _, student = _pair(STUDENT, 1)
+    _, _, teacher = _pair(TEACHER, 2)
+    cfg = TrainConfig(aa="", color_jitter=0.0, **dict(HP, distillation_type="mgd"))
+    tx = make_optimizer(cfg, trainable_parameters(student), 5)
+    with pytest.raises(ValueError):
+        build_train_step(cfg=cfg, kd=KDSettings.from_config(cfg), student=student,
+                         teacher=teacher, aug=AugmentConfig.from_config(cfg),
+                         mixup=None, tx=tx)
 
 
 @pytest.mark.parametrize("valid", [3, np.array([1, 0, 1, 1], bool)])
