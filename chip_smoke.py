@@ -19,16 +19,34 @@ Phases, each of which fails the run:
      tile) and at the main-path shape [256, 196, 384]: sorted values, signs
      and gradients exactly, the loss to 1e-5, t's gradient zero, two runs the
      same bits; then times them at the main-path shape in bf16;
-  5. runs train steps at full width (DeiT-Small-distilled teacher, DeiT-Tiny-
+  5. holds the attention kernels (forward: o and lse; backward: dq, dk, dv) and
+     the fused-MLP kernels (forward; backward: dx, dW1, db1, dW2, db2) against
+     their plain versions on O(1) inputs (q, k of std 1.5, weights of std
+     1/sqrt(fan-in)): attention at [24,198,64], at N=50 (no multiple of 16),
+     at N=578 (three key ranges in the backward) and at the main-path shapes
+     [1536,198,64] and [768,198,64]; the MLP at D=192 and D=384 with M=1584
+     and M=1001 (no row tile divides them) and at M=50688; two runs give the
+     same bits; then times them at the main-path shapes beside their plain
+     versions, their bounds and one PyTorch library call
+     (scaled_dot_product_attention; linear + gelu + linear);
+  6. runs train steps at full width (DeiT-Small-distilled teacher, DeiT-Tiny-
      distilled student, 224 px, batch 256, random weights from a seed) for
      soft KD, WassKD-l1, MGD and ViTKD, each path with the launch counts set
      to 0 just before and read just after, checking the kernel launches,
      finite metrics, a positive distill loss and changed student (and aux)
      parameters; one eval batch; and the value sort through its public
-     function (no model calls it);
-  6. checks on 4 images that the card agrees with the plain path on the CPU:
+     function (no model calls it); then the unfused model path (block_fn=None:
+     the teacher through flash_attention and fused_mlp, the student through
+     flash_attention): 3 soft-KD steps with exactly 24 attention-forward, 12
+     attention-backward, 12 MLP-forward and no fused-block launches a step,
+     one eval batch on the student's eval view with fused_mlp (12 + 12),
+     fused_mlp_train forward and backward through its public function (no
+     model calls it), and a model without a qkv bias;
+  7. checks on 4 images that the card agrees with the plain path on the CPU:
      both models' logits, and for the feature path the features of blocks
-     0-2 and the WassKD distill loss.
+     0-2 and the WassKD distill loss; and that the unfused path's logits
+     agree with the CPU plain path and with the fused-block path on the card
+     on the same weights.
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
@@ -48,12 +66,19 @@ TOL = 2e-2            # max |kernel - plain| <= TOL * max |plain| (bf16 rounding
 #                       for `out` the residual x is taken off both sides first
 LOGIT_TOL = 5e-2      # logits, features and the distill loss, card kernels vs
 #                       CPU plain path, same formula
+LSE_TOL = 1e-3        # attention lse, kernel vs plain, absolute (fp32 both sides)
 LOSS_TOL = 1e-5       # sorted_l1 loss, kernel vs plain, relative (fp32 sums in
 #                       another order); sorted values, signs, gradients: exact
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16
 PEAK_FP32_OPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SORT_MAIN = (B_MAIN, 196, 384)   # one WassKD layer: patch tokens x teacher width
+HEAD_DIM = 64
+M_MAIN = B_MAIN * N_TOK          # token rows of one batch: 50688
+# (batch * heads) of the main path's attention calls, and the MLP widths
+ATTN_MAIN = {"teacher": B_MAIN * 6, "student": B_MAIN * 3}
+MLP_MAIN = {"teacher": 384, "student": 192}
+UNFUSED_STEPS = 3
 # train steps per distillation type, in the order they run
 PATHS = (("soft", 3), ("wasskd", 4), ("mgd", 2), ("vitkd", 2))
 
@@ -81,6 +106,12 @@ def _err(a, b):
     a, b = a.float(), b.float()
     mx = b.abs().max().item()
     return (a - b).abs().max().item(), mx
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def _block_inputs(D, H, B, seed, device):
@@ -227,11 +258,8 @@ def time_kernels(fb, worst):
         if kernel == "fused_block_bwd":
             flops *= 3    # the recompute plus two products per forward product
             nbytes = 3 * B * N * D * 2 + weight_bytes + 12 * D * D * 4
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        rows[(kernel, D)] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        rows[(kernel, D)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                 **_bound(flops, nbytes))
         print(f"[time] {kernel} D={D} B={B}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"library {library_ms:.3f} ms, bound {rows[(kernel, D)]['bound_ms']:.4f} ms "
               f"({rows[(kernel, D)]['bound_by']}){extra}")
@@ -377,16 +405,254 @@ def time_sort_kernels(so):
     return rows
 
 
+def _hold_all(worst, key, tag, checks, same_bits):
+    """Fails unless each (name, kernel output, plain output, tolerance or
+    None for TOL of the plain output's largest value) agrees and a second run
+    of the kernel gave the same bits. Keeps the largest abs error in
+    worst[key]."""
+    for name, a, b, abs_tol in checks:
+        abs_err, mx = _err(a, b)
+        limit = abs_tol if abs_tol is not None else TOL * mx
+        ok = abs_err <= limit
+        print(f"[kernel] {key if isinstance(key, str) else key[0]} {tag} {name}: max_abs_err "
+              f"{abs_err:.3e} max |plain| {mx:.3e} (limit {limit:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{key} {tag} {name} disagrees with its plain version")
+        worst[key] = max(worst.get(key, 0.0), abs_err)
+    if not same_bits:
+        raise AssertionError(f"{key} {tag}: two runs gave different bits")
+
+
+def _attention_inputs(shape, seed):
+    """q, k of std 1.5 (scores of std about 2.2, a softmax far from flat), v
+    and the cotangent dO of std 1, bf16 on the card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q, k = (1.5 * torch.randn(shape, generator=g) for _ in range(2))
+    v, do = (torch.randn(shape, generator=g) for _ in range(2))
+    return tuple(t.cuda().bfloat16() for t in (q, k, v, do))
+
+
+def _hold_attention(at, worst, shape, main=False):
+    """Both attention kernels against their plain versions at one shape."""
+    import torch
+
+    q, k, v, do = _attention_inputs(shape, shape[0] + shape[1])
+    o, lse = at.kernel_flash_fwd(q, k, v)
+    o2, lse2 = at.kernel_flash_fwd(q, k, v)
+    r_o, r_lse = at._plain_fwd(q, k, v)
+    grads = at.kernel_flash_bwd(q, k, v, o, lse, do)
+    grads2 = at.kernel_flash_bwd(q, k, v, o, lse, do)
+    r_grads = at._plain_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    spread = r_lse.std().item()
+    if not spread > 0.1:
+        raise AssertionError(f"attention check {shape}: lse barely varies ({spread})")
+    tag = f"{tuple(shape)}"
+    fwd_key = ("flash_fwd", shape[0]) if main else "flash_fwd"
+    bwd_key = ("flash_bwd", shape[0]) if main else "flash_bwd"
+    _hold_all(worst, fwd_key, tag, [("o", o, r_o, None), ("lse", lse, r_lse, LSE_TOL)],
+              torch.equal(o, o2) and torch.equal(lse, lse2))
+    _hold_all(worst, bwd_key, tag,
+              [(n, a, b, None) for n, a, b in zip(("dq", "dk", "dv"), grads, r_grads)],
+              all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+
+
+def check_attention_kernels(at, worst):
+    """Phase 5a: the attention kernels vs their plain versions: 8 images of
+    the student (3 heads), an N that is no multiple of 16, an N above 256
+    (three key ranges and the dq reduction in the backward), and the main
+    path's two shapes."""
+    for shape in ((B_CHECK * 3, N_TOK, HEAD_DIM), (4, 50, HEAD_DIM), (4, 578, HEAD_DIM)):
+        _hold_attention(at, worst, shape)
+    for bh in ATTN_MAIN.values():
+        _hold_attention(at, worst, (bh, N_TOK, HEAD_DIM), main=True)
+
+
+def time_attention_kernels(at):
+    """Phase 5b: the attention kernels at the main path's shapes: kernel,
+    plain and library times and the bound. Library: one
+    F.scaled_dot_product_attention call in bf16 (its backward's time is
+    forward+backward minus forward). Bound: q, k, v, o (and for the backward
+    dO, dq, dk, dv) and lse once each over the memory rate, against two (five)
+    N x N x 64 products over the bf16 rate."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    for kernel, who in (("flash_fwd", "teacher"), ("flash_fwd", "student"),
+                        ("flash_bwd", "student")):
+        bh = ATTN_MAIN[who]
+        q, k, v, do = _attention_inputs((bh, N_TOK, HEAD_DIM), 3)
+        o, lse = at.kernel_flash_fwd(q, k, v)
+        q4, k4, v4, do4 = (t.reshape(B_MAIN, -1, N_TOK, HEAD_DIM) for t in (q, k, v, do))
+        tensor_bytes, product = bh * N_TOK * HEAD_DIM * 2, 2 * bh * N_TOK * N_TOK * HEAD_DIM
+        extra = ""
+        if kernel == "flash_fwd":
+            ms = _timed(lambda: at.kernel_flash_fwd(q, k, v), 20)
+            plain_ms = _timed(lambda: at._plain_fwd(q, k, v), 5)
+            with torch.no_grad():
+                library_ms = _timed(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
+            bound = _bound(2 * product, 4 * tensor_bytes + bh * N_TOK * 4)
+        else:
+            ms = _timed(lambda: at.kernel_flash_bwd(q, k, v, o, lse, do), 20)
+            plain_ms = _timed(lambda: at._plain_bwd(q, k, v, o, lse, do), 5)
+            leaves = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(*leaves)
+
+            def lib_fwd_bwd():
+                torch.autograd.grad(lib_fwd(), leaves, do4)
+
+            both, fwd = _timed(lib_fwd_bwd, 20), _timed(lib_fwd, 20)
+            library_ms = both - fwd
+            extra = f" (library forward+backward {both:.3f} ms, forward {fwd:.3f} ms)"
+            bound = _bound(5 * product, 8 * tensor_bytes + bh * N_TOK * 4)
+        rows[(kernel, bh)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+        print(f"[time] {kernel} {who} [{bh},{N_TOK},{HEAD_DIM}]: {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}){extra}")
+    return rows
+
+
+def _mlp_inputs(M, D, seed):
+    """x and the cotangent dy of std 1 in bf16, fp32 weights of std
+    1/sqrt(fan-in) in nn.Linear layout and biases of std 0.1, on the card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    F = 4 * D
+    x, dy = (torch.randn(M, D, generator=g).cuda().bfloat16() for _ in range(2))
+    w1 = (torch.randn(F, D, generator=g) / math.sqrt(D)).cuda()
+    w2 = (torch.randn(D, F, generator=g) / math.sqrt(F)).cuda()
+    b1, b2 = ((0.1 * torch.randn(n, generator=g)).cuda() for n in (F, D))
+    return x, w1, b1, w2, b2, dy
+
+
+def _hold_mlp(fm, worst, M, D, main=False):
+    """Both fused-MLP kernels against their plain versions at one shape."""
+    import torch
+
+    x, w1, b1, w2, b2, dy = _mlp_inputs(M, D, M + D)
+    out, out2 = (fm.kernel_fused_mlp(x, w1, b1, w2, b2) for _ in range(2))
+    r_out = fm._plain_fwd(x, w1, b1, w2, b2)
+    grads, grads2 = (fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy) for _ in range(2))
+    r_grads = fm._plain_bwd(x, w1, b1, w2, dy)
+    torch.cuda.synchronize()
+    tag = f"M={M} D={D}"
+    _hold_all(worst, ("fused_mlp_fwd", D) if main else "fused_mlp_fwd", tag,
+              [("out", out, r_out, None)], torch.equal(out, out2))
+    _hold_all(worst, ("fused_mlp_bwd", D) if main else "fused_mlp_bwd", tag,
+              [(n, a, b, None) for n, a, b in
+               zip(("dx", "dW1", "db1", "dW2", "db2"), grads, r_grads)],
+              all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+
+
+def check_mlp_kernels(fm, worst):
+    """Phase 5c: the fused-MLP kernels vs their plain versions at both
+    widths: 8 images' rows (1584 = 24.75 row tiles), an odd M, and the main
+    path's M = 50688."""
+    for D in MLP_MAIN.values():
+        for M in (B_CHECK * N_TOK, 1001):
+            _hold_mlp(fm, worst, M, D)
+        _hold_mlp(fm, worst, M_MAIN, D, main=True)
+
+
+def time_mlp_kernels(fm):
+    """Phase 5d: the fused-MLP kernels at the main path's shapes. Library:
+    F.linear + F.gelu + F.linear in bf16 and its autograd backward
+    (forward+backward minus forward). Bound: two (five) M x D x 4D products
+    over the bf16 rate, against x and out (x, dy, dx), the bf16 weights and,
+    for the backward, the fp32 weight gradients over the memory rate."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    for kernel, who in (("fused_mlp_fwd", "teacher"), ("fused_mlp_fwd", "student"),
+                        ("fused_mlp_bwd", "student")):
+        D = MLP_MAIN[who]
+        x, w1, b1, w2, b2, dy = _mlp_inputs(M_MAIN, D, 5)
+        lib = [t.bfloat16() for t in (x, w1, b1, w2, b2)]
+        product, weights = 2 * M_MAIN * D * 4 * D, 2 * D * 4 * D
+        extra = ""
+
+        def lib_fwd():
+            return F.linear(F.gelu(F.linear(lib[0], lib[1], lib[2])), lib[3], lib[4])
+
+        if kernel == "fused_mlp_fwd":
+            ms = _timed(lambda: fm.kernel_fused_mlp(x, w1, b1, w2, b2), 10)
+            plain_ms = _timed(lambda: fm._plain_fwd(x, w1, b1, w2, b2), 3)
+            with torch.no_grad():
+                library_ms = _timed(lib_fwd, 20)
+            bound = _bound(2 * product, 2 * M_MAIN * D * 2 + weights * 2 + 5 * D * 4)
+        else:
+            ms = _timed(lambda: fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy), 10)
+            plain_ms = _timed(lambda: fm._plain_bwd(x, w1, b1, w2, dy), 3)
+            lib = [t.requires_grad_(True) for t in lib]
+
+            def lib_fwd_bwd():
+                torch.autograd.grad(lib_fwd(), lib, dy)
+
+            both, fwd = _timed(lib_fwd_bwd, 20), _timed(lib_fwd, 20)
+            library_ms = both - fwd
+            extra = f" (library forward+backward {both:.3f} ms, forward {fwd:.3f} ms)"
+            bound = _bound(5 * product, 3 * M_MAIN * D * 2 + weights * (2 + 4) + 9 * D * 4)
+        rows[(kernel, D)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+        print(f"[time] {kernel} {who} M={M_MAIN} D={D}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"library {library_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}){extra}")
+    return rows
+
+
 def _block_launches(steps):
     return {("fused_block_fwd", 384): 12 * steps, ("fused_block_fwd", 192): 12 * steps,
             ("fused_block_bwd", 192): 12 * steps}
 
 
-def run_train_path(fb, so, kd_type, steps):
-    """Phase 5: ``steps`` train steps of one distillation type at full width
-    through load_teacher_student -> TrainState -> build_train_step. The launch
-    counts are set to 0 just before the steps and read just after. Returns
-    (launches, step ms, what the later phases need)."""
+def _unfused_launches(steps):
+    return {("flash_fwd", ATTN_MAIN["teacher"]): 12 * steps,
+            ("flash_fwd", ATTN_MAIN["student"]): 12 * steps,
+            ("flash_bwd", ATTN_MAIN["student"]): 12 * steps,
+            ("fused_mlp_fwd", MLP_MAIN["teacher"]): 12 * steps}
+
+
+def _reset_launches(mods):
+    for mod in mods:
+        mod.reset_launches()
+
+
+def _read_launches(mods):
+    return {k: n for mod in mods for k, n in mod.LAUNCHES.items()}
+
+
+def _unfused_models(cfg, num_classes):
+    """Teacher and student on the unfused path, built as the JAX package's
+    bench builds them: explicit attention_fn / mlp_fn and no block_fn; the
+    forward-only teacher also takes fused_mlp."""
+    import torch
+
+    from deltakd_tpu_torch.models.factory import create_model
+    from deltakd_tpu_torch.ops.attention import flash_attention
+    from deltakd_tpu_torch.ops.fused_mlp import fused_mlp
+
+    kw = dict(num_classes=num_classes, img_size=cfg.input_size, dtype=torch.bfloat16,
+              attention_fn=flash_attention, block_fn=None, collect_features=False,
+              device="cuda")
+    teacher = create_model(cfg.teacher_model, mlp_fn=fused_mlp, seed=1, **kw)
+    teacher.requires_grad_(False)
+    student = create_model(cfg.student_model, drop_path_rate=cfg.drop_path_rate, seed=2, **kw)
+    return teacher, student
+
+
+def run_train_path(mods, kd_type, steps, unfused=False):
+    """Phase 6: ``steps`` train steps of one distillation type at full width
+    through load_teacher_student (the fused block) or, with ``unfused``,
+    create_model with attention_fn / mlp_fn and no block_fn, then TrainState
+    -> build_train_step. The launch counts are set to 0 just before the steps
+    and read just after. Returns (launches, step ms, what the later phases
+    need)."""
     import numpy as np
     import torch
 
@@ -405,8 +671,15 @@ def run_train_path(fb, so, kd_type, steps):
                       input_size=224, dtype="bfloat16", drop_path_rate=0.1, epochs=300,
                       aug_pixel_bf16=True, aa="", color_jitter=0.0,
                       allow_random_teacher=True)
-    teacher, student, aux = load_teacher_student(cfg, seed=0, device="cuda")
+    if unfused:
+        from deltakd_tpu_torch.data.registry import DATASET_STATS
+
+        teacher, student = _unfused_models(cfg, DATASET_STATS[cfg.dataset]["num_classes"])
+        aux = None
+    else:
+        teacher, student, aux = load_teacher_student(cfg, seed=0, device="cuda")
     num_classes = student.cfg.num_classes
+    name = f"unfused {kd_type}" if unfused else kd_type
     tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
     state = TrainState(student, tx=tx, aux=aux)
     aug = AugmentConfig.from_config(cfg)
@@ -422,8 +695,7 @@ def run_train_path(fb, so, kd_type, steps):
     n_student = sum(p.numel() for p in student.parameters())
 
     torch.cuda.synchronize()
-    fb.reset_launches()
-    so.reset_launches()
+    _reset_launches(mods)
     times, metrics = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -431,49 +703,110 @@ def run_train_path(fb, so, kd_type, steps):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
-    launches = {**fb.LAUNCHES, **so.LAUNCHES}
-    print(f"[{kd_type}] launches over {steps} steps: {launches}")
-    expect = _block_launches(steps)
+    launches = _read_launches(mods)
+    print(f"[{name}] launches over {steps} steps: {launches}")
+    expect = _unfused_launches(steps) if unfused else _block_launches(steps)
     if kd_type == "wasskd":
         expect.update(sorted_l1_fwd=3 * steps, sorted_l1_bwd=3 * steps)
     if launches != expect:
-        raise AssertionError(f"{kd_type}: kernel launches {launches}, expected {expect}")
+        raise AssertionError(f"{name}: kernel launches {launches}, expected {expect}")
     for i, m in enumerate(metrics):
-        print(f"[{kd_type}] step {i}: " + " ".join(f"{k}={v:.5g}" for k, v in m.items())
+        print(f"[{name}] step {i}: " + " ".join(f"{k}={v:.5g}" for k, v in m.items())
               + f" time={times[i] * 1e3:.1f} ms")
         if not all(math.isfinite(v) for v in m.values()):
-            raise AssertionError(f"{kd_type}: non-finite metrics at step {i}: {m}")
+            raise AssertionError(f"{name}: non-finite metrics at step {i}: {m}")
         if kd_type != "soft" and not m["distill_loss"] > 0:
-            raise AssertionError(f"{kd_type}: distill_loss {m['distill_loss']} at step {i}")
+            raise AssertionError(f"{name}: distill_loss {m['distill_loss']} at step {i}")
     delta = (state.params - params0).abs()
     changed = {"student": delta[:n_student].max().item()}
     if aux is not None:
         changed["aux"] = delta[n_student:].max().item()
     if not all(v > 0 for v in changed.values()):
-        raise AssertionError(f"{kd_type}: parameters did not change: {changed}")
+        raise AssertionError(f"{name}: parameters did not change: {changed}")
     steady = sorted(times[1:])[len(times[1:]) // 2]
-    print(f"[{kd_type}] step time (median of steps 1-{steps - 1}) {steady * 1e3:.2f} ms, "
+    print(f"[{name}] step time (median of steps 1-{steps - 1}) {steady * 1e3:.2f} ms, "
           f"{B_MAIN / steady:.1f} images/s; max |param change| {changed}")
     return launches, steady * 1e3, (teacher, student, aux, aug, kd, images, labels)
 
 
-def run_eval(fb, student, aug, images, labels):
-    """One eval batch through build_eval_step: 12 forward launches."""
+def run_eval(mods, student, aug, images, labels, expect, name="eval"):
+    """One eval batch through build_eval_step; returns its launches, which
+    must be exactly ``expect``."""
     import torch
 
     from deltakd_tpu_torch.train.step import build_eval_step
 
     eval_step = build_eval_step(student=student, aug=aug)
     torch.cuda.synchronize()
-    fb.reset_launches()
+    _reset_launches(mods)
     sums = {k: float(v) for k, v in eval_step(images, labels, B_MAIN).items()}
     torch.cuda.synchronize()
-    eval_launches = dict(fb.LAUNCHES)
-    print(f"[eval] {sums}; launches {eval_launches}")
-    if eval_launches != {("fused_block_fwd", 192): 12}:
-        raise AssertionError(f"eval launches {eval_launches}, expected 12 forward")
+    eval_launches = _read_launches(mods)
+    print(f"[{name}] {sums}; launches {eval_launches}")
+    if eval_launches != expect:
+        raise AssertionError(f"{name} launches {eval_launches}, expected {expect}")
     if sums["count"] != B_MAIN or not all(math.isfinite(v) for v in sums.values()):
-        raise AssertionError(f"bad eval sums {sums}")
+        raise AssertionError(f"bad {name} sums {sums}")
+    return eval_launches
+
+
+def run_mlp_train(mods, fm):
+    """fused_mlp_train forward and backward through its public function at the
+    student's [256, 198, 192] (no model calls it, in the JAX package either):
+    one forward and one backward launch, finite gradients of the operands'
+    shapes and dtypes."""
+    import torch
+
+    D = MLP_MAIN["student"]
+    x, w1, b1, w2, b2, dy = _mlp_inputs(M_MAIN, D, 9)
+    ops = [t.requires_grad_(True) for t in (x.reshape(B_MAIN, N_TOK, D), w1, b1, w2, b2)]
+    _reset_launches(mods)
+    out = fm.fused_mlp_train(*ops)
+    grads = torch.autograd.grad(out, ops, dy.reshape(out.shape))
+    torch.cuda.synchronize()
+    launches = _read_launches(mods)
+    print(f"[fused_mlp_train] launches {launches}")
+    if launches != {("fused_mlp_fwd", D): 1, ("fused_mlp_bwd", D): 1}:
+        raise AssertionError(f"fused_mlp_train launches {launches}, expected one forward "
+                             f"and one backward")
+    for g, t in zip(grads, ops):
+        if g.shape != t.shape or g.dtype != t.dtype or not torch.isfinite(g).all():
+            raise AssertionError("fused_mlp_train: a gradient is not finite or not of "
+                                 "its operand's shape and dtype")
+    return launches
+
+
+def run_no_qkv_bias(mods, images, aug):
+    """A model without a qkv bias (2 blocks at the student's width) on the
+    card: it takes the unfused path through the attention and MLP kernels,
+    never the fused block it was also given, and agrees with its CPU plain
+    path."""
+    import torch
+
+    from deltakd_tpu_torch.data.augment import eval_transform
+    from deltakd_tpu_torch.models.vit import ViTConfig, VisionTransformer, init_weights
+    from deltakd_tpu_torch.ops.attention import flash_attention
+    from deltakd_tpu_torch.ops.fused_block import fused_vit_block
+    from deltakd_tpu_torch.ops.fused_mlp import fused_mlp
+
+    cfg = ViTConfig(num_classes=100, embed_dim=192, depth=2, num_heads=3, qkv_bias=False,
+                    distilled=True)
+    model = VisionTransformer(cfg, attention_fn=flash_attention, mlp_fn=fused_mlp,
+                              block_fn=fused_vit_block)
+    init_weights(model, torch.Generator().manual_seed(7))
+    x = eval_transform(images[:4], aug).bfloat16()
+    with torch.no_grad():
+        on_cpu = model(x.cpu(), train=False).logits.float()
+        model = model.cuda()
+        _reset_launches(mods)
+        on_card = model(x, train=False).logits.float().cpu()
+    launches = _read_launches(mods)
+    print(f"[no qkv bias] launches {launches}")
+    if launches != {("flash_fwd", 4 * 3): 2, ("fused_mlp_fwd", 192): 2}:
+        raise AssertionError(f"no-qkv-bias launches {launches}, expected 2 attention and "
+                             f"2 MLP forward launches and no fused block")
+    _agree("no-qkv-bias model logits", on_card, on_cpu, (4, 100))
+    return launches
 
 
 def run_value_sort(so):
@@ -495,14 +828,14 @@ def run_value_sort(so):
     return launches
 
 
-def _agree(what, on_card, on_cpu, shape=None):
+def _agree(what, on_card, on_cpu, shape=None, other="the CPU plain path"):
     abs_err, mx = _err(on_card, on_cpu)
     ok = abs_err <= LOGIT_TOL * max(mx, 1e-3) and (shape is None
                                                    or tuple(on_card.shape) == shape)
-    print(f"[reference] {what} card vs CPU plain path: max_abs_err {abs_err:.3e}, "
+    print(f"[reference] {what} on the card vs {other}: max_abs_err {abs_err:.3e}, "
           f"max |ref| {mx:.3e} (tol {LOGIT_TOL}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{what} on the card disagrees with the CPU path")
+        raise AssertionError(f"{what} on the card disagrees with {other}")
 
 
 def check_against_cpu(teacher, student, aug, images):
@@ -517,6 +850,27 @@ def check_against_cpu(teacher, student, aug, images):
             on_card = model(x, train=False).logits.float().cpu()
             on_cpu = copy.deepcopy(model).cpu()(x.cpu(), train=False).logits.float()
         _agree(f"{name} logits", on_card, on_cpu, (4, model.cfg.num_classes))
+
+
+def check_unfused_logits(teacher, student, aug, images):
+    """Phase 7c: the unfused path's logits on 4 images against the CPU plain
+    path, and against the fused-block path on the card with the same weights
+    (a view of the same parameters): two independent kernel routes to the
+    same logits."""
+    import torch
+
+    from deltakd_tpu_torch.data.augment import eval_transform
+    from deltakd_tpu_torch.ops.fused_block import fused_vit_block
+
+    x = eval_transform(images[:4], aug).bfloat16()
+    for name, model in (("teacher", teacher), ("student", student)):
+        with torch.no_grad():
+            on_card = model(x, train=False).logits.float().cpu()
+            on_cpu = copy.deepcopy(model).cpu()(x.cpu(), train=False).logits.float()
+            fused = model.view(block_fn=fused_vit_block)(x, train=False).logits.float().cpu()
+        _agree(f"unfused {name} logits", on_card, on_cpu, (4, model.cfg.num_classes))
+        _agree(f"unfused {name} logits", on_card, fused, (4, model.cfg.num_classes),
+               other="the fused-block path on the card")
 
 
 def check_features_against_cpu(teacher, student, aux, aug, kd, images):
@@ -561,9 +915,12 @@ def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deltakd_tpu_torch.ops import _build
+    from deltakd_tpu_torch.ops import attention as at
     from deltakd_tpu_torch.ops import fused_block as fb
+    from deltakd_tpu_torch.ops import fused_mlp as fm
     from deltakd_tpu_torch.ops import sort as so
 
+    mods = (fb, so, at, fm)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -587,19 +944,39 @@ def main() -> int:
     timing = time_kernels(fb, worst)
     check_sort_kernels(so, worst)
     timing.update(time_sort_kernels(so))
+    check_attention_kernels(at, worst)
+    timing.update(time_attention_kernels(at))
+    check_mlp_kernels(fm, worst)
+    timing.update(time_mlp_kernels(fm))
+    torch.cuda.empty_cache()
 
     by_path, step_ms = {}, {}
     for kd_type, steps in PATHS:
-        by_path[kd_type], step_ms[kd_type], kept = run_train_path(fb, so, kd_type, steps)
+        by_path[kd_type], step_ms[kd_type], kept = run_train_path(mods, kd_type, steps)
         teacher, student, aux, aug, kd, images, labels = kept
         if kd_type == "soft":
-            run_eval(fb, student, aug, images, labels)
+            by_path["eval"] = run_eval(mods, student, aug, images, labels,
+                                       {("fused_block_fwd", 192): 12})
             check_against_cpu(teacher, student, aug, images)
         elif kd_type == "wasskd":
             check_features_against_cpu(teacher, student, aux, aug, kd, images)
         del teacher, student, aux, kept
         torch.cuda.empty_cache()
     by_path["value_sort"] = run_value_sort(so)
+
+    # the unfused model path: its train steps, its eval batch on the eval view
+    by_path["unfused_soft"], step_ms["unfused soft"], kept = run_train_path(
+        mods, "soft", UNFUSED_STEPS, unfused=True)
+    teacher, student, _, aug, _, images, labels = kept
+    by_path["unfused_eval"] = run_eval(
+        mods, student.view(mlp_fn=fm.fused_mlp, collect_features=False), aug, images, labels,
+        {("flash_fwd", ATTN_MAIN["student"]): 12, ("fused_mlp_fwd", MLP_MAIN["student"]): 12},
+        name="unfused eval")
+    check_unfused_logits(teacher, student, aug, images)
+    del teacher, student, kept
+    torch.cuda.empty_cache()
+    by_path["fused_mlp_train"] = run_mlp_train(mods, fm)
+    by_path["no_qkv_bias"] = run_no_qkv_bias(mods, images, aug)
     print("[slice] step ms by path: "
           + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
 
@@ -608,19 +985,30 @@ def main() -> int:
            "fused_block_bwd": (csrc + "fused_block_bwd.cu", "deltakd_tpu/ops/fused_block.py:478"),
            "bitonic_sort": (csrc + "sort.cu", "deltakd_tpu/ops/sort.py:83"),
            "sorted_l1_fwd": (csrc + "sort.cu", "deltakd_tpu/ops/sort.py:317"),
-           "sorted_l1_bwd": (csrc + "sort.cu", "deltakd_tpu/ops/sort.py:338")}
+           "sorted_l1_bwd": (csrc + "sort.cu", "deltakd_tpu/ops/sort.py:338"),
+           "flash_fwd": (csrc + "attention.cu", "deltakd_tpu/ops/attention.py:46"),
+           "flash_bwd": (csrc + "attention.cu", "deltakd_tpu/ops/attention.py:62"),
+           "fused_mlp_fwd": (csrc + "fused_mlp.cu", "deltakd_tpu/ops/fused_mlp.py:50"),
+           "fused_mlp_bwd": (csrc + "fused_mlp.cu", "deltakd_tpu/ops/fused_mlp.py:126")}
+    teacher_keys = (384, ATTN_MAIN["teacher"])
     kernels = []
     for key, row in timing.items():
         kernel = key[0] if isinstance(key, tuple) else key
         name = kernel
         if isinstance(key, tuple):
-            name = f"{kernel}[{'teacher' if key[1] == 384 else 'student'} D={key[1]}]"
+            what = "D" if key[1] in MLP_MAIN.values() else "BH"
+            name = (f"{kernel}[{'teacher' if key[1] in teacher_keys else 'student'} "
+                    f"{what}={key[1]}]")
         launched = {path: n[key] for path, n in by_path.items() if n.get(key)}
         if not launched:
             raise AssertionError(f"{name} was launched on no driven path")
+        # the row's own checks at the main shape, and the kernel's at small shapes
+        max_abs_err = max(worst[key], worst.get(kernel, 0.0))
         kernels.append({"name": name, "route": "cuda", "source": src[kernel][0],
                         "replaces": src[kernel][1], "launches": sum(launched.values()),
-                        "launches_by_path": launched, "max_abs_err": worst[key], **row})
+                        "launches_by_path": launched, "max_abs_err": max_abs_err, **row})
+    if {k["source"] for k in kernels} != {csrc + f"{n}.cu" for n in _build.SOURCES}:
+        raise AssertionError("a built source has no kernel in the report")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

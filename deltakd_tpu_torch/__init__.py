@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of deltakd_tpu (the JAX/TPU package beside it).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``; on the CPU the fused block runs its plain PyTorch version.
+``device="cpu"``; on the CPU the fused block, ``sorted_l1``, ``flash_attention``
+and the fused MLP run their plain PyTorch versions.
 """
 
 import torch

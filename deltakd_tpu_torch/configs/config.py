@@ -87,6 +87,14 @@ class TrainConfig:
     # misc
     seed: int = 42
     dtype: str = "bfloat16"
+    # False turns the attention, MLP and fused-block kernels off (PyTorch's
+    # own ops throughout)
+    flash_attention: bool = True
+    # (data, model) device mesh. In the port it so far only selects the module
+    # path: a model axis > 1 takes the unfused path (attention and MLP
+    # kernels) instead of the fused block, as tensor parallelism does in the
+    # JAX package; nothing is placed over a model axis yet.
+    mesh_shape: Optional[Tuple[int, ...]] = None
     grad_accum_steps: int = 1
     aug_pixel_bf16: bool = True
     allow_random_teacher: bool = False

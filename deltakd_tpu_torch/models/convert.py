@@ -23,7 +23,8 @@ def flax_block_to_torch(block: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     def linear(tree, name):
         sd[f"{name}.weight"] = np.asarray(tree["kernel"]).T
-        sd[f"{name}.bias"] = np.asarray(tree["bias"])
+        if "bias" in tree:      # a model without a qkv bias has none
+            sd[f"{name}.bias"] = np.asarray(tree["bias"])
 
     def layernorm(tree, name):
         sd[f"{name}.weight"] = np.asarray(tree["scale"])

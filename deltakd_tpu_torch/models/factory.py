@@ -1,6 +1,7 @@
 """Model construction (``deltakd_tpu/models/factory.py``): the DeiT teacher
-and student with the fused block, and the aux heads of the distillation type,
-randomly initialised from a seed.
+and student, with the fused block or on the unfused path with the attention
+and MLP kernels, and the aux heads of the distillation type, randomly
+initialised from a seed.
 
 A pretrained teacher needs a timm checkpoint, which loads by name into
 ``VisionTransformer.load_state_dict``; until one is available, distilling
@@ -9,7 +10,7 @@ against the random teacher must be asked for with ``allow_random_teacher``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -19,31 +20,51 @@ from deltakd_tpu_torch.kd.aux import AuxHeads
 from deltakd_tpu_torch.kd.losses import FEATURE_TYPES, feature_indices
 from deltakd_tpu_torch.models.registry import get_model_config
 from deltakd_tpu_torch.models.vit import VisionTransformer, init_weights
+from deltakd_tpu_torch.ops.attention import best_attention_fn
 from deltakd_tpu_torch.ops.fused_block import fused_vit_block
+from deltakd_tpu_torch.ops.fused_mlp import best_mlp_fn
+
+_FROM_CONFIG = object()
 
 
 def create_model(name: str, *, num_classes: int, img_size: int = 224,
                  drop_path_rate: float = 0.0, dtype=torch.bfloat16,
+                 attention_fn: Optional[Callable] = None,
+                 mlp_fn: Optional[Callable] = None,
+                 block_fn: Optional[Callable] = fused_vit_block,
                  collect_features=True, seed: int = 0,
                  device="cuda") -> VisionTransformer:
-    """A model of the zoo with seeded random weights on ``device``. Each block
-    runs through ``fused_vit_block``: the kernels on the card, their plain
-    version on the CPU."""
+    """A model of the zoo with seeded random weights on ``device``. By default
+    each block runs through ``fused_vit_block``; ``block_fn=None`` gives the
+    unfused path with ``attention_fn`` and ``mlp_fn`` (or PyTorch's own ops).
+    Each of the three runs its kernels on the card and its plain version on
+    the CPU."""
     device = resolve_device(device)
     cfg = get_model_config(name, num_classes=num_classes, img_size=img_size,
                            drop_path_rate=drop_path_rate)
-    model = VisionTransformer(cfg, dtype=dtype, block_fn=fused_vit_block,
+    model = VisionTransformer(cfg, dtype=dtype, attention_fn=attention_fn,
+                              mlp_fn=mlp_fn, block_fn=block_fn,
                               collect_features=collect_features)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device)
 
 
-def load_teacher_student(config, *, seed: int = 0, device="cuda"
+def load_teacher_student(config, *, attention_fn=_FROM_CONFIG, seed: int = 0,
+                         device="cuda"
                          ) -> Tuple[VisionTransformer, VisionTransformer,
                                     Optional[AuxHeads]]:
     """(teacher, student, aux) for a TrainConfig; the teacher is frozen and
     ``aux`` holds the aux heads of a feature objective (None for
-    none/soft/hard)."""
+    none/soft/hard).
+
+    ``attention_fn`` defaults to ``best_attention_fn(config.flash_attention)``;
+    None turns every kernel off (PyTorch's own ops throughout), as in the JAX
+    factory. With kernels on, both models run the fused block, unless
+    ``config.mesh_shape`` has a model axis > 1: the fused block consumes whole
+    weight matrices, so tensor parallelism takes the unfused path, the student
+    with ``attention_fn`` and the forward-only teacher with ``attention_fn``
+    and ``fused_mlp``. In the port ``mesh_shape`` so far only selects that
+    path; nothing is placed over a model axis yet."""
     if config.distillation_type != "none" and not config.allow_random_teacher:
         raise ValueError(
             f"distillation_type {config.distillation_type!r} needs a pretrained "
@@ -52,18 +73,28 @@ def load_teacher_student(config, *, seed: int = 0, device="cuda"
     num_classes = DATASET_STATS[config.dataset]["num_classes"]
     dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
 
+    if attention_fn is _FROM_CONFIG:
+        attention_fn = best_attention_fn(config.flash_attention)
+    kernels_on = attention_fn is not None
+    mesh_shape = config.mesh_shape
+    model_axis = int(mesh_shape[1]) if mesh_shape and len(mesh_shape) > 1 else 1
+    block_fn = fused_vit_block if kernels_on and model_axis == 1 else None
+
     def needed(name):
         depth = get_model_config(name, num_classes=num_classes).depth
         return feature_indices(config.distillation_type, depth)
 
     teacher = create_model(config.teacher_model, num_classes=num_classes,
                            img_size=config.input_size, dtype=dtype,
+                           attention_fn=attention_fn, mlp_fn=best_mlp_fn(kernels_on),
+                           block_fn=block_fn,
                            collect_features=needed(config.teacher_model),
                            seed=seed + 1, device=device)
     teacher.requires_grad_(False)
     student = create_model(config.student_model, num_classes=num_classes,
                            img_size=config.input_size,
                            drop_path_rate=config.drop_path_rate, dtype=dtype,
+                           attention_fn=attention_fn, block_fn=block_fn,
                            collect_features=needed(config.student_model),
                            seed=seed + 2, device=device)
     aux = None

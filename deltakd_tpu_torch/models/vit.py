@@ -11,13 +11,21 @@ checkpoint loads natively. The contract is the JAX model's:
 * a distilled model returns ``(cls, dist)`` logits in train mode and the
   average of the two heads in eval mode.
 
-With ``block_fn`` set (the fused block, ``ops/fused_block.fused_vit_block``),
-each block runs as one fused call and only the features a KD objective reads
-are written; otherwise the unfused module path below runs.
+With ``block_fn`` set (the fused block, ``ops/fused_block.fused_vit_block``)
+and a qkv bias, each block runs as one fused call and only the features a KD
+objective reads are written. Otherwise the unfused module path below runs
+(the path of a model without a qkv bias, and of tensor parallelism in the JAX
+package): LayerNorms and the qkv / proj projections through PyTorch, the
+attention core through ``attention_fn(q, k, v)`` on [B, H, N, head_dim]
+(``ops/attention.flash_attention``) and the MLP through
+``mlp_fn(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias)``
+(``ops/fused_mlp.fused_mlp``, forward only) when they are set, else through
+PyTorch's matmul, softmax and GELU.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -84,15 +92,18 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, attention_fn: Optional[Callable] = None):
         B, N, D = x.shape
         hd = D // self.num_heads
         qkv = _linear(x, self.qkv, dtype).reshape(B, N, 3, self.num_heads, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        s = torch.matmul((q * hd ** -0.5).float(), k.float().transpose(-1, -2))
-        p = torch.softmax(s, dim=-1).to(dtype)
-        out = torch.matmul(p, v).transpose(1, 2).reshape(B, N, D)
-        return _linear(out, self.proj, dtype)
+        if attention_fn is not None:
+            out = attention_fn(q, k, v)
+        else:
+            s = torch.matmul((q * hd ** -0.5).float(), k.float().transpose(-1, -2))
+            p = torch.softmax(s, dim=-1).to(dtype)
+            out = torch.matmul(p, v)
+        return _linear(out.transpose(1, 2).reshape(B, N, D), self.proj, dtype)
 
 
 class Mlp(nn.Module):
@@ -101,7 +112,10 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, mlp_fn: Optional[Callable] = None):
+        if mlp_fn is not None:
+            return mlp_fn(x.to(dtype), self.fc1.weight, self.fc1.bias,
+                          self.fc2.weight, self.fc2.bias)
         h = F.gelu(_linear(x, self.fc1, dtype))
         return _linear(h, self.fc2, dtype)
 
@@ -118,20 +132,23 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x, dtype, scales: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                block_fn: Optional[Callable], collect: bool):
+                block_fn: Optional[Callable], collect: bool,
+                attention_fn: Optional[Callable] = None,
+                mlp_fn: Optional[Callable] = None):
         """Returns (x, feature); scales are the per-sample drop-path branch
-        scales (s_attn, s_mlp) or None."""
+        scales (s_attn, s_mlp) or None. ``block_fn`` runs the whole block and
+        needs a qkv bias; without one the unfused path runs."""
         s_attn, s_mlp = scales if scales is not None else (None, None)
-        if block_fn is not None:
+        if block_fn is not None and self.attn.qkv.bias is not None:
             return block_fn(x, dict(self.named_parameters()),
                             num_heads=self.num_heads, ln_eps=self.ln_eps,
                             scale_attn=s_attn, scale_mlp=s_mlp,
                             need_features=collect)
-        y = self.attn(_layer_norm(x, self.norm1, dtype), dtype)
+        y = self.attn(_layer_norm(x, self.norm1, dtype), dtype, attention_fn)
         if s_attn is not None:
             y = y * s_attn.view(-1, 1, 1).to(dtype)
         x = x + y
-        mlp_out = self.mlp(_layer_norm(x, self.norm2, dtype), dtype)
+        mlp_out = self.mlp(_layer_norm(x, self.norm2, dtype), dtype, mlp_fn)
         z = mlp_out if s_mlp is None else mlp_out * s_mlp.view(-1, 1, 1).to(dtype)
         return x + z, mlp_out
 
@@ -146,6 +163,8 @@ class VisionTransformer(nn.Module):
     """DeiT/ViT backbone with the dual-head distilled variant."""
 
     def __init__(self, cfg: ViTConfig, *, dtype: torch.dtype = torch.bfloat16,
+                 attention_fn: Optional[Callable] = None,
+                 mlp_fn: Optional[Callable] = None,
                  block_fn: Optional[Callable] = None, collect_features=True):
         super().__init__()
         if cfg.drop_rate > 0.0:
@@ -153,8 +172,10 @@ class VisionTransformer(nn.Module):
                                       "ported yet")
         self.cfg = cfg
         self.dtype = dtype
-        # the fused block takes a qkv bias; without one the unfused module path
-        # runs, on the CPU only (forward raises on the card)
+        # block_fn (the whole block fused) wins where the model has a qkv bias;
+        # otherwise the unfused path runs with attention_fn and mlp_fn
+        self.attention_fn = attention_fn
+        self.mlp_fn = mlp_fn
         self.block_fn = block_fn
         # True/False, or a collection of the block indices whose features the
         # KD objective reads (kd.losses.feature_indices)
@@ -193,6 +214,20 @@ class VisionTransformer(nn.Module):
                  ).float() / keep for _ in range(2)))
         return scales
 
+    def view(self, **overrides) -> "VisionTransformer":
+        """A model that shares this one's parameters (the same storage, so it
+        follows every update) with other ``attention_fn``, ``mlp_fn``,
+        ``block_fn`` or ``collect_features``: evaluation is forward only and
+        can run ``fused_mlp`` while training does not."""
+        unknown = set(overrides) - {"attention_fn", "mlp_fn", "block_fn",
+                                    "collect_features"}
+        if unknown:
+            raise TypeError(f"view() got unexpected arguments {sorted(unknown)}")
+        other = copy.copy(self)
+        for name, value in overrides.items():
+            setattr(other, name, value)
+        return other
+
     def _collect(self, i: int, override) -> bool:
         cf = self.collect_features if override is None else override
         return bool(cf) if isinstance(cf, bool) else i in cf
@@ -206,13 +241,6 @@ class VisionTransformer(nn.Module):
         per block) or else drawn from ``generator``."""
         cfg, dt = self.cfg, self.dtype
         B = x.shape[0]
-        block_fn = self.block_fn
-        if block_fn is not None and not cfg.qkv_bias:
-            if x.device.type != "cpu":
-                raise NotImplementedError(
-                    "the fused block kernels need qkv_bias=True; a model "
-                    "without a qkv bias runs only on the CPU")
-            block_fn = None
         if train and cfg.drop_path_rate > 0.0 and drop_scales is None:
             if generator is None:
                 raise ValueError("train mode with drop_path_rate > 0 needs "
@@ -233,8 +261,9 @@ class VisionTransformer(nn.Module):
         feats = []
         for i, blk in enumerate(self.blocks):
             scales = drop_scales[i] if drop_scales is not None else None
-            x, feat = blk(x, dt, scales, block_fn,
-                          self._collect(i, collect_features))
+            x, feat = blk(x, dt, scales, self.block_fn,
+                          self._collect(i, collect_features),
+                          self.attention_fn, self.mlp_fn)
             feats.append(feat)
 
         x = _layer_norm(x, self.norm, dt)

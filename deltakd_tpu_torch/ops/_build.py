@@ -16,7 +16,7 @@ import shutil
 import subprocess
 from typing import Dict, Iterable
 
-_INT, _PTR = ctypes.c_int, ctypes.c_void_p
+_INT, _PTR, _I64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 
 
 def _block_signatures(name: str) -> dict:
@@ -34,13 +34,26 @@ SIGNATURES = {
         "dk_sort_tiles": ([_INT, _INT], _INT),
         "dk_sort_bitonic": ([_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR], _INT),
         "dk_sort_sl1_fwd": ([_PTR] * 4 + [_INT] * 4 + [_PTR], _INT),
-        "dk_sort_sl1_bwd": ([_PTR, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR], _INT),
+        "dk_sort_sl1_bwd": ([_PTR, _PTR, _PTR, _I64, _INT, _PTR], _INT),
+    },
+    # tensors, their (batch, head, row) strides, outputs, B, H, N, stream
+    "attention": {
+        "dk_flash_max_n": ([], _INT),
+        "dk_flash_fwd": ([_PTR] * 3 + [_I64] * 9 + [_PTR] * 2 + [_INT] * 3 + [_PTR], _INT),
+        "dk_flash_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
+        "dk_flash_bwd": ([_PTR] * 4 + [_I64] * 12 + [_PTR] * 6 + [_INT] * 3 + [_PTR], _INT),
+    },
+    "fused_mlp": {
+        "dk_fused_mlp_rows": ([_INT], _INT),
+        "dk_fused_mlp_fwd": ([_PTR] * 6 + [_INT] * 3 + [_PTR], _INT),
+        "dk_fused_mlp_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
+        "dk_fused_mlp_bwd": ([_PTR] * 11 + [_INT] * 3 + [_PTR], _INT),
     },
 }
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_CSRC), os.pardir, "_build")
-SOURCES = ("fused_block_fwd", "fused_block_bwd", "sort")
+SOURCES = ("fused_block_fwd", "fused_block_bwd", "sort", "attention", "fused_mlp")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,210 @@
+"""Fused attention for ViT-length sequences: plain PyTorch versions, CUDA kernel
+wrappers and the autograd Function that joins them.
+
+Counterpart of ``deltakd_tpu/ops/attention.py``. Per (batch, head), with
+``scale = head_dim ** -0.5``:
+
+    s   = q k^T * scale                 fp32
+    p   = softmax(s) cast to v's dtype
+    o   = p v                           fp32 accumulate, cast to q's dtype
+    lse = max(s) + log(sum exp(s - max(s)))    fp32, kept for the backward
+
+and the backward, from the saved ``(q, k, v, o, lse)`` and the cotangent dO,
+rebuilds ``p = exp(s - lse)`` and emits
+``dv = p^T dO``, ``dp = dO v^T``, ``delta = rowsum(dO * o)``,
+``ds = p (dp - delta) scale``, ``dq = ds k``, ``dk = ds^T q``.
+
+Tensors are [B, H, N, head_dim] (the kernels alone also take [B*H, N,
+head_dim]). Dispatch is by the device of ``q``: a CPU tensor takes the plain
+version, a CUDA tensor the hand-written kernels in ``csrc/attention.cu`` (bf16,
+head dim 64, N up to ``max_sequence()``), anything else raises. The kernels
+read q, k, v and dO through their strides when the head dim is contiguous, so
+the views of a packed qkv projection are not copied.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from deltakd_tpu_torch.ops import current_stream, on_card
+
+_HEAD_DIM = 64
+
+# Kernel launches by (kernel name, batch * heads). Each wrapper adds one where
+# it launches its kernel; nothing else touches the count.
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+# -----------------------------------------------------------------------------
+# Plain versions (the CPU path, and the reference the kernels are held to)
+# -----------------------------------------------------------------------------
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain attention with an fp32 softmax: [B, H, N, d] each -> [B, H, N, d].
+    The scale goes on q before the product and p is cast to q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.matmul(p, v)
+
+
+def _plain_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the forward kernel computes: (o in q's dtype, lse [..., N] fp32)."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    denom = e.sum(-1, keepdim=True)
+    p = (e / denom).to(v.dtype)
+    o = torch.matmul(p.float(), v.float()).to(q.dtype)
+    return o, (m + torch.log(denom)).squeeze(-1)
+
+
+def _plain_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the backward kernel computes, written from its formulas (not from
+    autograd), with fp32 operands in every product: (dq, dk, dv) in q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.unsqueeze(-1))
+    dv = torch.matmul(p.transpose(-1, -2), do32)
+    dp = torch.matmul(do32, v32.transpose(-1, -2))
+    delta = (do32 * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.matmul(ds, k32)
+    dk = torch.matmul(ds.transpose(-1, -2), q32)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+# -----------------------------------------------------------------------------
+# CUDA kernel wrappers
+# -----------------------------------------------------------------------------
+
+def _library():
+    from deltakd_tpu_torch.ops import _build
+
+    return _build.library("attention")
+
+
+def max_sequence() -> int:
+    """The longest N the forward kernel takes (K, V and one warp's score rows
+    must fit one thread block's shared memory). Needs the built library."""
+    return _library().dk_flash_max_n()
+
+
+def _operands(name: str, *tensors: torch.Tensor):
+    """Checks what the kernels take and returns ((B, H, N), the tensors as
+    [B, H, N, 64] views): CUDA bf16, head dim 64, one shape, [B, H, N, 64] or
+    [B*H, N, 64]."""
+    q = tensors[0]
+    for t in tensors:
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: takes CUDA bf16 tensors, got {t.dtype} on {t.device}")
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{name}: operands differ, {tuple(t.shape)} on {t.device} "
+                             f"and {tuple(q.shape)} on {q.device}")
+    if q.dim() not in (3, 4) or q.shape[-1] != _HEAD_DIM or q.numel() == 0:
+        raise ValueError(f"{name}: takes non-empty [B, H, N, {_HEAD_DIM}] or "
+                         f"[B*H, N, {_HEAD_DIM}] tensors, got {tuple(q.shape)}")
+    if q.dim() == 3:
+        tensors = tuple(t.unsqueeze(1) for t in tensors)
+    return tuple(tensors[0].shape[:3]), tensors
+
+
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels can read it in place: head dim contiguous, rows
+    16-byte aligned; otherwise a contiguous copy."""
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(s % 8 == 0 for s in t.stride()[:3]))
+    return t if ok else t.contiguous()
+
+
+def kernel_flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel alone on CUDA bf16 tensors: (o, lse), o contiguous
+    in the shape of q and lse fp32 over its leading dims."""
+    (B, H, N), (q4, k4, v4) = _operands("flash_fwd", q, k, v)
+    lib = _library()
+    if N > max_sequence():
+        raise ValueError(f"flash_fwd: N = {N} exceeds the kernel's limit of "
+                         f"{max_sequence()} keys")
+    q4, k4, v4 = _strided(q4), _strided(k4), _strided(v4)
+    with torch.cuda.device(q.device):
+        o = torch.empty((B, H, N, _HEAD_DIM), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+        err = lib.dk_flash_fwd(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                               *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
+                               o.data_ptr(), lse.data_ptr(), B, H, N, current_stream(q))
+    if err:
+        raise RuntimeError(f"flash_fwd: CUDA error {err} at launch")
+    LAUNCHES[("flash_fwd", B * H)] += 1
+    return o.reshape(q.shape), lse.reshape(q.shape[:-1])
+
+
+def kernel_flash_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel alone on CUDA tensors: (dq, dk, dv), contiguous in
+    the shape of q. ``o`` and ``lse`` are the forward kernel's outputs."""
+    (B, H, N), (q4, k4, v4, o4, do4) = _operands("flash_bwd", q, k, v, o, do)
+    if lse.dtype != torch.float32 or lse.numel() != B * H * N or lse.device != q.device:
+        raise ValueError(f"flash_bwd: lse must be fp32 with one value a row on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    lib = _library()
+    q4, k4, v4, do4 = _strided(q4), _strided(k4), _strided(v4), _strided(do4)
+    o4, lse = o4.contiguous(), lse.contiguous()
+    with torch.cuda.device(q.device):
+        dq, dk, dv = (torch.empty((B, H, N, _HEAD_DIM), dtype=q.dtype, device=q.device)
+                      for _ in range(3))
+        nbytes = lib.dk_flash_bwd_workspace(B, H, N)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
+        err = lib.dk_flash_bwd(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), do4.data_ptr(),
+            *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3], *do4.stride()[:3],
+            o4.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if work is None else work.data_ptr(), B, H, N, current_stream(q))
+    if err:
+        raise RuntimeError(f"flash_bwd: CUDA error {err} at launch")
+    LAUNCHES[("flash_bwd", B * H)] += 1
+    return dq.reshape(q.shape), dk.reshape(q.shape), dv.reshape(q.shape)
+
+
+# -----------------------------------------------------------------------------
+# Dispatch and autograd
+# -----------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """Saves (q, k, v, o, lse); the backward rebuilds p from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        fwd = kernel_flash_fwd if on_card(q, "flash_attention") else _plain_fwd
+        o, lse = fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = kernel_flash_bwd if q.device.type == "cuda" else _plain_bwd
+        return bwd(q, k, v, o, lse, do)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Fused attention, [B, H, N, d] -> [B, H, N, d], differentiable: the
+    kernels for CUDA tensors, the plain version for CPU tensors."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention: takes three [B, H, N, d] tensors, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    return _FlashAttention.apply(q, k, v)
+
+
+def best_attention_fn(enabled: bool = True) -> Optional[Callable]:
+    """attention_fn for VisionTransformer: ``flash_attention``, or None (the
+    model's own matmul-softmax-matmul). Which implementation runs is decided
+    at call time by the tensors' device."""
+    return flash_attention if enabled else None

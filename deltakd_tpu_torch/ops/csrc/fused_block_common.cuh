@@ -1,4 +1,5 @@
-// Building blocks shared by the fused ViT block forward and backward kernels.
+// Building blocks shared by the fused ViT block forward and backward kernels;
+// the fused-MLP backward (fused_mlp.cu) builds on the same GEMM and row sums.
 //
 // The TPU kernels (deltakd_tpu/ops/fused_block.py `_fwd_kernel`,
 // `_bwd_kernel`) keep one batch element's whole block in 16+ MB of VMEM. An
@@ -204,6 +205,78 @@ inline GemmArgs linear_args(const bf16* a, const bf16* w, int M, int N, int K) {
   GemmArgs p = gemm_args(M, N, K);
   p.A = a; p.a_sm = K; p.a_sk = 1;
   p.B = w; p.b_sk = 1; p.b_sn = K;
+  p.c_sm = N;
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+// Sums over all rows (weight and bias gradients): fp32 partials per chunk of
+// KCHUNK rows, then a second pass that adds the partials in chunk order.
+// Deterministic; no atomics.
+// ---------------------------------------------------------------------------
+
+constexpr int KCHUNK = 512;
+
+// partial[chunk, j] = sum over the chunk's rows of a[r, j] (* b[r, j])
+template <typename TA>
+__global__ void colsum_partial_kernel(const TA* a, const float* b, int rows, int cols,
+                                      float* partial) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= cols) return;
+  const int r0 = blockIdx.y * KCHUNK, r1 = min(rows, r0 + KCHUNK);
+  float s = 0.f;
+  for (int r = r0; r < r1; ++r) {
+    const long long i = (long long)r * cols + j;
+    s += b ? ld(a + i) * b[i] : ld(a + i);
+  }
+  partial[(long long)blockIdx.y * cols + j] = s;
+}
+
+// out[j] = sum_c partial[c, j], in chunk order.
+__global__ void reduce_partials_kernel(const float* partial, int chunks, long long len,
+                                       float* out) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= len) return;
+  float s = 0.f;
+  for (int c = 0; c < chunks; ++c) s += partial[c * len + j];
+  out[j] = s;
+}
+
+inline int chunks_of(long long M) { return (int)((M + KCHUNK - 1) / KCHUNK); }
+
+inline int blocks_of(long long n, int t) { return (int)((n + t - 1) / t); }
+
+// dW [O, I] = sum_m G[m, o] X[m, i]  (nn.Linear weight layout)
+inline void weight_grad(const bf16* g, const bf16* x, int M, int O, int I, float* partial,
+                 float* out, cudaStream_t st) {
+  GemmArgs p = gemm_args(O, I, M);
+  p.A = g; p.a_sm = 1; p.a_sk = O;
+  p.B = x; p.b_sk = I; p.b_sn = 1;
+  p.k_chunk = KCHUNK;
+  p.c_sm = I; p.c_z1 = (long long)O * I;
+  p.out_f32 = partial;
+  const int chunks = chunks_of(M);
+  gemm(p, chunks, st);
+  reduce_partials_kernel<<<blocks_of((long long)O * I, 256), 256, 0, st>>>(
+      partial, chunks, (long long)O * I, out);
+}
+
+// out[j] = sum_r a[r, j] (* b[r, j])
+template <typename TA>
+inline void col_sum(const TA* a, const float* b, int M, int cols, float* partial, float* out,
+             cudaStream_t st) {
+  const int chunks = chunks_of(M);
+  colsum_partial_kernel<TA><<<dim3(blocks_of(cols, 128), chunks), 128, 0, st>>>(a, b, M, cols,
+                                                                          partial);
+  reduce_partials_kernel<<<blocks_of(cols, 256), 256, 0, st>>>(partial, chunks, cols, out);
+}
+
+// x = rows [M, K] bf16 times W [K, N] read untransposed (a nn.Linear weight
+// [O=K, I=N] used as dX = dY W).
+inline GemmArgs grad_input_args(const bf16* a, const bf16* w, int M, int N, int K) {
+  GemmArgs p = gemm_args(M, N, K);
+  p.A = a; p.a_sm = K; p.a_sk = 1;
+  p.B = w; p.b_sk = N; p.b_sn = 1;
   p.c_sm = N;
   return p;
 }

@@ -28,6 +28,8 @@ from typing import Tuple
 
 import torch
 
+from deltakd_tpu_torch.ops import current_stream, on_card
+
 # Kernel launches by kernel name. Each wrapper adds one where it launches its
 # kernel; nothing else touches the count.
 LAUNCHES: collections.Counter = collections.Counter()
@@ -93,10 +95,6 @@ def _call(fn: str, name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def bitonic_sort_kernel(x: torch.Tensor) -> torch.Tensor:
     """The value-sort kernel: ascending along axis 1 of a CUDA [B, n, d]."""
     x = _kernel_operand(x, "bitonic_sort")
@@ -104,7 +102,7 @@ def bitonic_sort_kernel(x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
         _call("dk_sort_bitonic", "bitonic_sort", x.data_ptr(), out.data_ptr(), B, n, d,
-              int(x.dtype == torch.bfloat16), _stream(x))
+              int(x.dtype == torch.bfloat16), current_stream(x))
     return out
 
 
@@ -126,7 +124,7 @@ def kernel_sorted_l1_fwd(s: torch.Tensor, t: torch.Tensor) -> Tuple[torch.Tensor
         sign = torch.empty(s.shape, dtype=torch.int8, device=s.device)
         _call("dk_sort_sl1_fwd", "sorted_l1_fwd", s.data_ptr(), t.data_ptr(),
               partials.data_ptr(), sign.data_ptr(), B, n, d,
-              int(s.dtype == torch.bfloat16), _stream(s))
+              int(s.dtype == torch.bfloat16), current_stream(s))
     return partials.sum(), sign
 
 
@@ -142,7 +140,7 @@ def kernel_sorted_l1_bwd(sign: torch.Tensor, scale: torch.Tensor,
     with torch.cuda.device(sign.device):
         g = torch.empty(sign.shape, dtype=dtype, device=sign.device)
         _call("dk_sort_sl1_bwd", "sorted_l1_bwd", sign.data_ptr(), scale.data_ptr(),
-              g.data_ptr(), sign.numel(), int(dtype == torch.bfloat16), _stream(sign))
+              g.data_ptr(), sign.numel(), int(dtype == torch.bfloat16), current_stream(sign))
     return g
 
 
@@ -158,19 +156,11 @@ def _to_rows(x: torch.Tensor, axis: int) -> torch.Tensor:
     return x.movedim(axis, 0).reshape(1, x.shape[axis], -1)
 
 
-def _check_device(x: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor (the kernels), False for a CPU one (the plain
-    version); raises for any other device."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no implementation for device {x.device}")
-    return x.device.type == "cuda"
-
-
 def bitonic_sort(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """Ascending sort along ``axis`` (values only, not differentiable): the
     kernel for CUDA tensors, ``torch.sort`` for CPU tensors."""
     axis = axis % x.dim()
-    if not _check_device(x, "bitonic_sort"):
+    if not on_card(x, "bitonic_sort"):
         return torch.sort(x, dim=axis).values
     if x.dim() == 3 and axis == 1:
         return bitonic_sort_kernel(x)
@@ -184,7 +174,7 @@ class _SortedL1(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, s3, t3):
-        if _check_device(s3, "sorted_l1"):
+        if on_card(s3, "sorted_l1"):
             total, sign = kernel_sorted_l1_fwd(s3, t3)
         else:
             total, sign = _plain_sl1_fwd(s3, t3)

@@ -6,13 +6,17 @@ Without a card the tests skip: a CUDA kernel has no CPU mode. The fused
 block: small shape (D=64, 2 heads, N=18) with drop-path scales of 0 and
 1/keep; bf16 operands, so the tolerance is 2e-2 of the largest reference
 value. The sort kernels: inputs with ties; sorted values, signs and gradients
-exactly, the loss to 1e-5 (fp32 sums in another order).
+exactly, the loss to 1e-5 (fp32 sums in another order). The attention and MLP
+kernels: O(1) bf16 inputs (q, k of std 2, weights of std 1/sqrt(fan-in)), ragged
+N and M; 2e-2 of the largest reference value, 1e-3 absolute on lse.
 """
 
 import pytest
 import torch
 
+from deltakd_tpu_torch.ops import attention as at
 from deltakd_tpu_torch.ops import fused_block as fb
+from deltakd_tpu_torch.ops import fused_mlp as fm
 from deltakd_tpu_torch.ops import sort as so
 
 B, N, D, H = 4, 18, 64, 2
@@ -77,3 +81,64 @@ def test_sort_kernels_match_plain_version_on_card(shape, dtype):
     assert torch.equal(g_s, g_r) and g_t.abs().max().item() == 0.0
     with pytest.raises(ValueError):
         so.sorted_l1(s.double(), t.double(), 1)
+
+
+def _within(a, b, tol=2e-2):
+    a, b = a.float(), b.float()
+    assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 198, 64), (1, 2, 50, 64), (6, 16, 64), (1, 1, 578, 64)])
+def test_attention_kernels_match_plain_version_on_card(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(shape[-2])
+    q, k = (2 * torch.randn(shape, generator=g).cuda().bfloat16() for _ in range(2))
+    v, do = (torch.randn(shape, generator=g).cuda().bfloat16() for _ in range(2))
+    o, lse = at.kernel_flash_fwd(q, k, v)
+    r_o, r_lse = at._plain_fwd(q, k, v)
+    _within(o, r_o)
+    assert (lse - r_lse).abs().max().item() <= 1e-3
+    for a, b in zip(at.kernel_flash_bwd(q, k, v, o, lse, do),
+                    at._plain_bwd(q, k, v, o, lse, do)):
+        _within(a, b)
+    if len(shape) == 4:     # through the autograd Function, on strided views
+        B, H, N, D = shape
+        qkv = torch.randn(B, N, 3, H, D, generator=g).cuda().bfloat16().requires_grad_(True)
+        views = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+        at.reset_launches()
+        (g_k,) = torch.autograd.grad(at.flash_attention(*views), [qkv], do)
+        assert at.LAUNCHES == {("flash_fwd", B * H): 1, ("flash_bwd", B * H): 1}
+        (g_r,) = torch.autograd.grad(at.reference_attention(*views), [qkv], do)
+        _within(g_k, g_r)
+    with pytest.raises(ValueError):
+        at.kernel_flash_fwd(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        at.kernel_flash_fwd(q[..., :32], k[..., :32], v[..., :32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D", [(1000, 192), (37, 64), (130, 384)])
+def test_mlp_kernels_match_plain_version_on_card(M, D):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(M)
+    F = 4 * D
+    x, dy = (torch.randn(M, D, generator=g).cuda().bfloat16() for _ in range(2))
+    w1 = (torch.randn(F, D, generator=g) / D ** 0.5).cuda()
+    w2 = (torch.randn(D, F, generator=g) / F ** 0.5).cuda()
+    b1, b2 = ((0.1 * torch.randn(n, generator=g)).cuda() for n in (F, D))
+    _within(fm.kernel_fused_mlp(x, w1, b1, w2, b2), fm._plain_fwd(x, w1, b1, w2, b2))
+    for a, b in zip(fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy),
+                    fm._plain_bwd(x, w1, b1, w2, dy)):
+        _within(a, b)
+    ops = [t.clone().requires_grad_(True) for t in (x.reshape(1, M, D), w1, b1, w2, b2)]
+    fm.reset_launches()
+    grads = torch.autograd.grad(fm.fused_mlp_train(*ops), ops, dy.reshape(1, M, D))
+    assert fm.LAUNCHES == {("fused_mlp_fwd", D): 1, ("fused_mlp_bwd", D): 1}
+    assert [t.dtype for t in grads] == [t.dtype for t in ops]
+    with pytest.raises(RuntimeError, match="forward only"):
+        fm.fused_mlp(*ops)
+    with pytest.raises(ValueError):
+        fm.kernel_fused_mlp(x.float(), w1, b1, w2, b2)

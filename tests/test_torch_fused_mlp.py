@@ -1,0 +1,158 @@
+"""The port's fused MLP (deltakd_tpu_torch/ops/fused_mlp.py) against the JAX
+package's: the forward against ``reference_mlp``, the gradients of
+``fused_mlp_train`` for all five operands against ``jax.grad`` of it, and the
+plain forward and backward (the versions the CUDA kernels are held to) against
+the Pallas kernel bodies ``_mlp_kernel`` / ``_mlp_bwd_kernel`` run by the
+Pallas interpreter over a two-tile grid (the JAX wrappers pin their blocks to
+TPU memory, so the test builds its own ``pl.pallas_call`` around the unchanged
+bodies, accumulation across grid steps included).
+
+The port takes nn.Linear's [out, in] weights, the JAX functions [in, out]: the
+tests hand each its layout. fp32 on the CPU; tolerance 1e-5 of the largest
+reference value (summation order, and erf against the TPU body's polynomial
+erf, which is within 1.5e-7 of it).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from deltakd_tpu.ops import fused_mlp as jfm
+from deltakd_tpu_torch.ops import fused_mlp as tfm
+
+torch.set_num_threads(1)
+
+TOL = 1e-5
+D, F = 16, 64
+
+
+def _inputs(lead, seed=0):
+    """x [*lead, D], weights of std 1/sqrt(fan-in) in the port's layout,
+    biases, and a cotangent."""
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    x, dy = f32(rng.randn(*lead, D)), f32(rng.randn(*lead, D))
+    w1, b1 = f32(rng.randn(F, D) / np.sqrt(D)), f32(0.1 * rng.randn(F))
+    w2, b2 = f32(rng.randn(D, F) / np.sqrt(F)), f32(0.1 * rng.randn(D))
+    return x, w1, b1, w2, b2, dy
+
+
+def _jax_operands(x, w1, b1, w2, b2):
+    return tuple(map(jnp.asarray, (x, w1.T, b1, w2.T, b2)))
+
+
+def _close(a, b, tol=TOL):
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    assert a.shape == b.shape
+    err, scale = float(np.max(np.abs(a - b))), float(np.max(np.abs(b)))
+    assert err <= tol * scale, f"max abs err {err:.3e} > {tol} x {scale:.3e}"
+
+
+def _tile_specs(tile):
+    row = pl.BlockSpec((tile, D), lambda i: (i, 0))
+    whole = lambda *shape: pl.BlockSpec(shape, lambda i: (0,) * len(shape))  # noqa: E731
+    return row, whole
+
+
+def _pallas_fwd(x2, w1, b1, w2, b2, tile):
+    row, whole = _tile_specs(tile)
+    return pl.pallas_call(
+        jfm._mlp_kernel, grid=(x2.shape[0] // tile,),
+        in_specs=[row, whole(D, F), whole(1, F), whole(F, D), whole(1, D)],
+        out_specs=row, out_shape=jax.ShapeDtypeStruct(x2.shape, x2.dtype),
+        interpret=True)(x2, w1, b1.reshape(1, F), w2, b2.reshape(1, D))
+
+
+def _pallas_bwd(x2, w1, b1, w2, dy2, tile):
+    row, whole = _tile_specs(tile)
+    f32 = lambda *shape: jax.ShapeDtypeStruct(shape, jnp.float32)  # noqa: E731
+    return pl.pallas_call(
+        jfm._mlp_bwd_kernel, grid=(x2.shape[0] // tile,),
+        in_specs=[row, whole(D, F), whole(1, F), whole(F, D), row],
+        out_specs=(row, whole(D, F), whole(1, F), whole(F, D), whole(1, D)),
+        out_shape=(jax.ShapeDtypeStruct(x2.shape, x2.dtype), f32(D, F), f32(1, F),
+                   f32(F, D), f32(1, D)),
+        interpret=True)(x2, w1, b1.reshape(1, F), w2, dy2)
+
+
+@pytest.mark.parametrize("lead", [(16,), (37,), (3, 11), (2, 3, 5)])
+def test_forward_matches_jax_reference(lead):
+    """Any leading shape, row counts that no tile divides."""
+    x, w1, b1, w2, b2, _ = _inputs(lead)
+    ref = jfm.reference_mlp(*_jax_operands(x, w1, b1, w2, b2))
+    ops = tuple(map(torch.from_numpy, (x, w1, b1, w2, b2)))
+    _close(tfm.fused_mlp(*ops), ref)
+    _close(tfm.fused_mlp_train(*ops), ref)
+    _close(tfm.reference_mlp(*ops), ref)
+
+
+def test_plain_forward_matches_interpreted_pallas_body():
+    x, w1, b1, w2, b2, _ = _inputs((16,), 1)
+    j_out = _pallas_fwd(*_jax_operands(x, w1, b1, w2, b2), tile=8)
+    _close(tfm._plain_fwd(*map(torch.from_numpy, (x, w1, b1, w2, b2))), j_out)
+
+
+def test_plain_backward_matches_interpreted_pallas_body():
+    """dx per tile and the fp32 sums over both tiles of the sequential grid."""
+    x, w1, b1, w2, b2, dy = _inputs((16,), 2)
+    jx, jw1, jb1, jw2, _ = _jax_operands(x, w1, b1, w2, b2)
+    j_dx, j_dw1, j_db1, j_dw2, j_db2 = _pallas_bwd(jx, jw1, jb1, jw2, jnp.asarray(dy), tile=8)
+    dx, dw1, db1, dw2, db2 = tfm._plain_bwd(*map(torch.from_numpy, (x, w1, b1, w2, dy)))
+    _close(dx, j_dx)
+    _close(dw1, np.asarray(j_dw1).T)
+    _close(db1, np.asarray(j_db1)[0])
+    _close(dw2, np.asarray(j_dw2).T)
+    _close(db2, np.asarray(j_db2)[0])
+
+
+@pytest.mark.parametrize("lead", [(37,), (3, 11)])
+def test_train_gradients_match_jax_grad(lead):
+    x, w1, b1, w2, b2, dy = _inputs(lead, 3)
+    jg = jax.grad(lambda *ops: jnp.sum(jfm.reference_mlp(*ops) * dy),
+                  argnums=(0, 1, 2, 3, 4))(*_jax_operands(x, w1, b1, w2, b2))
+    ops = [torch.from_numpy(a).requires_grad_(True) for a in (x, w1, b1, w2, b2)]
+    tg = torch.autograd.grad(tfm.fused_mlp_train(*ops), ops, torch.from_numpy(dy))
+    for i, (a, b) in enumerate(zip(tg, jg)):
+        _close(a, np.asarray(b).T if i in (1, 3) else b)
+
+
+def test_plain_backward_matches_autograd_and_cpu_reaches_no_kernel():
+    x, w1, b1, w2, b2, dy = _inputs((37,), 4)
+    ops = [torch.from_numpy(a).requires_grad_(True) for a in (x, w1, b1, w2, b2)]
+    auto = torch.autograd.grad(tfm.reference_mlp(*ops), ops, torch.from_numpy(dy))
+    tfm.reset_launches()
+    with torch.no_grad():
+        plain = tfm._plain_bwd(*ops[:4], torch.from_numpy(dy))
+    for a, b in zip(plain, auto):
+        _close(a, b)
+    assert not tfm.LAUNCHES
+
+
+def test_fused_mlp_is_forward_only():
+    x, w1, b1, w2, b2, _ = _inputs((5,), 5)
+    ops = [torch.from_numpy(a) for a in (x, w1, b1, w2, b2)]
+    ops[1].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        tfm.fused_mlp(*ops)
+    with torch.no_grad():
+        out = tfm.fused_mlp(*ops)
+    assert not out.requires_grad
+    assert tfm.fused_mlp_train(*ops).requires_grad
+
+
+def test_dispatch_is_by_device_and_kernels_refuse_what_they_do_not_take():
+    assert tfm.best_mlp_fn(True) is tfm.fused_mlp and tfm.best_mlp_fn(False) is None
+    assert tfm.best_train_mlp_fn(True) is tfm.fused_mlp_train
+    assert tfm.best_train_mlp_fn(False) is None
+    x, w1, b1, w2, b2, dy = (torch.from_numpy(a) for a in _inputs((5,), 6))
+    with pytest.raises(ValueError, match="no implementation for device"):
+        tfm.fused_mlp(x.to("meta"), w1, b1, w2, b2)
+    # the kernel wrappers never fall back to the plain version
+    with pytest.raises(ValueError, match="CUDA bf16"):
+        tfm.kernel_fused_mlp(x, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="CUDA bf16"):
+        tfm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy)

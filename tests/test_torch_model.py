@@ -1,7 +1,9 @@
 """The port's VisionTransformer against the JAX package's, on the same weights
 carried across by models/convert.flax_to_torch: logits and per-block features,
-distilled and plain, train and eval mode, through the unfused module path and
-through the fused block (its plain version on the CPU).
+distilled and plain, train and eval mode, through the unfused module path,
+through the fused block (its plain version on the CPU) and through the unfused
+path with ``flash_attention`` and ``fused_mlp`` (with and without a qkv bias);
+and the factory's choice of path from ``mesh_shape`` and ``flash_attention``.
 
 fp32 on the CPU; tolerance 1e-4 of the largest reference value (summation
 order only).
@@ -16,10 +18,14 @@ import torch
 from deltakd_tpu.models.import_timm import timm_to_flax
 from deltakd_tpu.models.vit import ViTConfig as JViTConfig
 from deltakd_tpu.models.vit import VisionTransformer as JViT
+from deltakd_tpu.ops.attention import reference_attention as j_reference_attention
+from deltakd_tpu.ops.fused_mlp import reference_mlp as j_reference_mlp
 from deltakd_tpu_torch.models.convert import flax_to_torch
 from deltakd_tpu_torch.models.registry import get_model_config
 from deltakd_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from deltakd_tpu_torch.ops.attention import flash_attention
 from deltakd_tpu_torch.ops.fused_block import fused_vit_block
+from deltakd_tpu_torch.ops.fused_mlp import fused_mlp
 
 torch.set_num_threads(1)
 
@@ -82,16 +88,86 @@ def test_distilled_train_returns_both_heads_eval_the_average():
     torch.testing.assert_close(ev.logits, (tr.logits + tr.logits_dist) / 2)
 
 
+@pytest.mark.parametrize("distilled", [False, True])
+@pytest.mark.parametrize("qkv_bias", [True, False])
+def test_unfused_kernel_path_matches_jax(distilled, qkv_bias):
+    """attention_fn=flash_attention, mlp_fn=fused_mlp, no block_fn (their plain
+    versions on the CPU) against the JAX model given reference_attention and
+    reference_mlp, on the same weights: logits, the dist head, every feature."""
+    kw = dict(distilled=distilled, qkv_bias=qkv_bias, **CFG)
+    j = JViT(JViTConfig(**kw), dtype=jnp.float32, attention_fn=j_reference_attention,
+             mlp_fn=j_reference_mlp)
+    params = j.init({"params": jax.random.PRNGKey(4)}, jnp.zeros((1, 32, 32, 3)))["params"]
+    t = VisionTransformer(ViTConfig(**kw), dtype=torch.float32,
+                          attention_fn=flash_attention, mlp_fn=fused_mlp)
+    t.load_state_dict(flax_to_torch(params))
+    assert (t.blocks[0].attn.qkv.bias is None) == (not qkv_bias)
+    x = np.random.RandomState(4).randn(4, 32, 32, 3).astype(np.float32)
+    jo = j.apply({"params": params}, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        to = t(torch.from_numpy(x), train=False)
+    _close(to.logits, jo.logits)
+    if distilled:
+        _close(to.logits_dist, jo.logits_dist)
+    for tf, jf in zip(to.features, jo.features):
+        _close(tf, jf)
+
+
 def test_no_qkv_bias_runs_unfused_on_cpu_and_raises_elsewhere():
+    """A model without a qkv bias takes the unfused path on every device: it
+    calls its attention_fn and mlp_fn and never its block_fn (nothing raises
+    any more; the name is kept from when the card refused such a model)."""
+    calls = {"attention": 0, "mlp": 0}
+
+    def attention_fn(q, k, v):
+        calls["attention"] += 1
+        assert q.shape == (2, 2, 18, 32)
+        return flash_attention(q, k, v)
+
+    def mlp_fn(x, w1, b1, w2, b2):
+        calls["mlp"] += 1
+        assert w1.shape == (256, 64) and w2.shape == (64, 256)
+        return fused_mlp(x, w1, b1, w2, b2)
+
+    def block_fn(*args, **kwargs):
+        raise AssertionError("block_fn called for a model without a qkv bias")
+
     cfg = ViTConfig(distilled=True, qkv_bias=False, **CFG)
-    fused = VisionTransformer(cfg, dtype=torch.float32, block_fn=fused_vit_block)
+    model = VisionTransformer(cfg, dtype=torch.float32, attention_fn=attention_fn,
+                              mlp_fn=mlp_fn, block_fn=block_fn)
     plain = VisionTransformer(cfg, dtype=torch.float32)
-    plain.load_state_dict(fused.state_dict())
+    plain.load_state_dict(model.state_dict())
     x = torch.from_numpy(np.random.RandomState(3).randn(2, 32, 32, 3).astype(np.float32))
     with torch.no_grad():
-        torch.testing.assert_close(fused(x).logits, plain(x).logits, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="qkv_bias"):
-        fused(x.to("meta"))
+        out = model(x)
+        _close(out.logits, plain(x).logits)
+    assert calls == {"attention": CFG["depth"], "mlp": CFG["depth"]}
+    # with a qkv bias the same block_fn wins over attention_fn and mlp_fn
+    biased = VisionTransformer(ViTConfig(distilled=True, **CFG), dtype=torch.float32,
+                               attention_fn=attention_fn, mlp_fn=mlp_fn, block_fn=block_fn)
+    with pytest.raises(AssertionError, match="block_fn called"), torch.no_grad():
+        biased(x)
+
+
+def test_view_shares_parameters_and_overrides_the_path():
+    """The eval view: same parameter storage, its own mlp_fn and feature
+    collection; the model it came from is unchanged."""
+    _, _, t, x = _models(True, False, seed=5)
+    t.attention_fn = flash_attention
+    view = t.view(mlp_fn=fused_mlp, collect_features=False)
+    assert view.mlp_fn is fused_mlp and t.mlp_fn is None
+    assert view.attention_fn is flash_attention and t.collect_features is True
+    for (n1, p1), (n2, p2) in zip(t.named_parameters(), view.named_parameters()):
+        assert n1 == n2 and p1 is p2
+    with torch.no_grad():
+        before = view(torch.from_numpy(x)).logits
+        assert view.collect_features is False
+        _close(before, t(torch.from_numpy(x)).logits)
+        t.head.weight.mul_(2.0)      # an update of the model shows in the view
+        _close(view(torch.from_numpy(x)).logits, t(torch.from_numpy(x)).logits)
+        assert not torch.equal(view(torch.from_numpy(x)).logits, before)
+    with pytest.raises(TypeError):
+        t.view(dtype=torch.bfloat16)
 
 
 def test_flax_to_torch_inverts_timm_to_flax():
@@ -149,3 +225,34 @@ def test_load_teacher_student_returns_the_aux_heads(kd_type, feats, aux_keys):
             else aux.align.weight.shape == (384, 192)
     with pytest.raises(NotImplementedError):
         load_teacher_student(cfg.replace(distillation_type="lrkd"), device="cpu")
+
+
+@pytest.mark.parametrize("mesh_shape,flash,path", [
+    (None, True, "fused"), ((2, 1), True, "fused"), ((1, 2), True, "unfused"),
+    ((1, 2), False, "plain")])
+def test_load_teacher_student_picks_the_path_from_the_config(mesh_shape, flash, path):
+    """As the JAX factory: the fused block unless the mesh has a model axis
+    > 1, then flash_attention for both and fused_mlp for the frozen teacher
+    only; with the kernels off, PyTorch's own ops throughout."""
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.models.factory import load_teacher_student
+
+    cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224",
+                      student_model="deit_tiny_distilled_patch16_224", aa="",
+                      color_jitter=0.0, dataset="cifar-10", input_size=32,
+                      distillation_type="soft", allow_random_teacher=True,
+                      mesh_shape=mesh_shape, flash_attention=flash)
+    fields = TrainConfig.__dataclass_fields__
+    assert fields["flash_attention"].default is True and fields["mesh_shape"].default is None
+    teacher, student, _ = load_teacher_student(cfg, seed=0, device="cpu")
+    kernels = path != "plain"
+    for model in (teacher, student):
+        assert model.block_fn is (fused_vit_block if path == "fused" else None)
+        assert model.attention_fn is (flash_attention if kernels else None)
+    assert teacher.mlp_fn is (fused_mlp if kernels else None)
+    assert student.mlp_fn is None
+    if path == "unfused":
+        # an explicit attention_fn=None turns the kernels off whatever the config says
+        teacher, student, _ = load_teacher_student(cfg, attention_fn=None, device="cpu")
+        assert teacher.block_fn is None and teacher.mlp_fn is None
+        assert student.attention_fn is None

@@ -5,7 +5,11 @@ functions returning them) and drop-path rate 0: loss terms, grad norm and
 the updated parameters. The same for one wasskd-l1 and one mgd step, with the
 same aux-head weights and, for mgd, the masking noise the JAX step draws from
 its key handed to the port; the updated aux parameters are compared too.
-Then ``build_eval_step``'s masked sums.
+The same soft-KD step on the unfused path (the student through
+``flash_attention``, the frozen teacher through ``flash_attention`` and
+``fused_mlp``) with drop-path masks shared by both sides. Then
+``build_eval_step``'s masked sums, also through the eval view with
+``fused_mlp``.
 
 fp32 on the CPU. Losses and grad norm to rtol 1e-4; parameters after the
 AdamW step to 1e-6 absolute (lr 1e-3 and eps 1e-4, so grads that differ in
@@ -23,8 +27,11 @@ from deltakd_tpu.data.augment import AugmentConfig as JAugmentConfig
 from deltakd_tpu.data.mixup import MixupConfig as JMixupConfig
 from deltakd_tpu.kd.aux import init_aux_params
 from deltakd_tpu.kd.losses import KDSettings as JKDSettings
+from deltakd_tpu.models import vit as jvit
 from deltakd_tpu.models.vit import ViTConfig as JViTConfig
 from deltakd_tpu.models.vit import VisionTransformer as JViT
+from deltakd_tpu.ops.attention import reference_attention as j_reference_attention
+from deltakd_tpu.ops.fused_mlp import reference_mlp as j_reference_mlp
 from deltakd_tpu.train import step as jstep
 from deltakd_tpu.train.optim import make_optimizer as j_make_optimizer
 from deltakd_tpu.train.state import TrainState as JTrainState
@@ -35,7 +42,9 @@ from deltakd_tpu_torch.kd.aux import AuxHeads
 from deltakd_tpu_torch.kd.losses import KDSettings
 from deltakd_tpu_torch.models.convert import aux_flax_to_torch, flax_to_torch
 from deltakd_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from deltakd_tpu_torch.ops.attention import flash_attention
 from deltakd_tpu_torch.ops.fused_block import fused_vit_block
+from deltakd_tpu_torch.ops.fused_mlp import fused_mlp
 from deltakd_tpu_torch.train.optim import make_optimizer
 from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
 from deltakd_tpu_torch.train.step import build_eval_step, build_train_step
@@ -188,6 +197,90 @@ def test_feature_kd_train_step_matches_jax(kd_type, monkeypatch):
         assert not np.array_equal(p.numpy(), before[name].numpy()), name
 
 
+def test_unfused_train_step_matches_jax(monkeypatch):
+    """The slice as a whole at 2 layers and narrow widths: one soft-KD step on
+    the unfused path with stochastic depth. The JAX student runs
+    reference_attention, its teacher reference_attention and reference_mlp;
+    the port runs flash_attention / fused_mlp (their plain versions here).
+    Both sides drop the same samples: the JAX model's drop_path is replaced by
+    one that reads the pinned masks in call order (block 0 has rate 0, so
+    block 1's attention branch, then its MLP branch)."""
+    rng = np.random.RandomState(20)
+    images = rng.randn(B, 32, 32, 3).astype(np.float32)
+    labels = rng.randint(0, C, B)
+    targets = rng.dirichlet(np.ones(C), B).astype(np.float32)
+    u8 = rng.randint(0, 256, (B, 32, 32, 3)).astype(np.uint8)
+    keep = 0.9
+    masks = np.array([[1, 0, 1, 1], [1, 1, 0, 1]], np.float32)   # attention, MLP
+    hp = dict(HP, drop_path_rate=1 - keep)
+    kw_s = dict(STUDENT, drop_path_rate=1 - keep)
+
+    def build(kw, seed, **fns):
+        j = JViT(JViTConfig(**kw), dtype=jnp.float32, **fns["jax"])
+        params = j.init({"params": jax.random.PRNGKey(seed)},
+                        jnp.zeros((1, 32, 32, 3)))["params"]
+        t = VisionTransformer(ViTConfig(**kw), dtype=torch.float32, **fns["torch"])
+        t.load_state_dict(flax_to_torch(params))
+        return j, params, t
+
+    j_student, s_params, t_student = build(
+        kw_s, 21, jax=dict(attention_fn=j_reference_attention),
+        torch=dict(attention_fn=flash_attention))
+    j_teacher, t_params, t_teacher = build(
+        TEACHER, 22, jax=dict(attention_fn=j_reference_attention, mlp_fn=j_reference_mlp),
+        torch=dict(attention_fn=flash_attention, mlp_fn=fused_mlp))
+    assert t_student.block_fn is None and t_teacher.block_fn is None
+
+    calls = []
+
+    def pinned_drop_path(x, rate, rng, deterministic):
+        assert not deterministic and abs(rate - (1 - keep)) < 1e-6
+        mask = jnp.asarray(masks[len(calls) % 2]).reshape(-1, 1, 1)
+        calls.append(rate)
+        return x * mask / keep
+
+    monkeypatch.setattr(jvit, "drop_path", pinned_drop_path)
+    monkeypatch.setattr(jstep, "train_transform", lambda k, x, ac: jnp.asarray(images))
+    monkeypatch.setattr(jstep, "apply_mixup",
+                        lambda k, x, y, mc: (x, jnp.asarray(targets)))
+    jcfg = JTrainConfig(**hp)
+    jtx = j_make_optimizer(jcfg, {"student": s_params, "aux": {}}, 5)
+    jstate = JTrainState.create(student_params=s_params, aux_params={}, tx=jtx,
+                                ema_decay=jcfg.ema_decay)
+    jfn = jstep.build_train_step(
+        cfg=jcfg, kd=JKDSettings.from_config(jcfg, student_prefix=2, teacher_prefix=2),
+        student_module=j_student, teacher_module=j_teacher,
+        aug=JAugmentConfig(input_size=32), mixup=JMixupConfig(num_classes=C), tx=jtx,
+        donate=False)
+    jstate, jm = jfn(jstate, t_params, jnp.asarray(u8), jnp.asarray(labels),
+                     jax.random.PRNGKey(0), jnp.asarray(0, jnp.int32))
+    assert calls and len(calls) % 2 == 0
+
+    cfg = TrainConfig(aa="", color_jitter=0.0, **hp)
+    tx = make_optimizer(cfg, trainable_parameters(t_student), 5)
+    state = TrainState(t_student, tx=tx, ema_decay=cfg.ema_decay)
+    fn = build_train_step(cfg=cfg, kd=KDSettings.from_config(cfg, student_prefix=2,
+                                                            teacher_prefix=2),
+                          student=t_student, teacher=t_teacher,
+                          aug=AugmentConfig.from_config(cfg),
+                          mixup=MixupConfig.from_config(cfg, C), tx=tx)
+    scales = [None, tuple(torch.from_numpy(m / keep) for m in masks)]
+    m = fn(state, torch.from_numpy(u8), torch.from_numpy(labels),
+           torch.Generator().manual_seed(0), images=torch.from_numpy(images),
+           targets=torch.from_numpy(targets), drop_scales=scales)
+
+    for k in ("train_loss", "base_loss", "distill_loss", "grad_norm", "train_acc1",
+              "train_acc5"):
+        _close(m[k], jm[k])
+    expect = flax_to_torch(jstate.params["student"])
+    before = flax_to_torch(s_params)
+    for name, p in t_student.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), expect[name].numpy(), atol=1e-6,
+                                   err_msg=name)
+    assert not np.array_equal(t_student.blocks[1].attn.qkv.weight.detach().numpy(),
+                              before["blocks.1.attn.qkv.weight"].numpy())
+
+
 def test_feature_kd_step_needs_aux_heads():
     _, _, student = _pair(STUDENT, 1)
     _, _, teacher = _pair(TEACHER, 2)
@@ -199,13 +292,17 @@ def test_feature_kd_step_needs_aux_heads():
                          mixup=None, tx=tx)
 
 
+@pytest.mark.parametrize("unfused", [False, True])
 @pytest.mark.parametrize("valid", [3, np.array([1, 0, 1, 1], bool)])
-def test_eval_step_matches_jax(valid):
+def test_eval_step_matches_jax(valid, unfused):
     rng = np.random.RandomState(1)
     u8 = rng.randint(0, 256, (B, 32, 32, 3)).astype(np.uint8)
     labels = rng.randint(0, C, B)
     j_student, s_params, t_student = _pair(STUDENT, 3)
     t_student.collect_features = True     # the eval step turns collection off
+    if unfused:     # the eval view of an unfused student: fused_mlp, shared parameters
+        t_student = t_student.view(block_fn=None, attention_fn=flash_attention,
+                                   mlp_fn=fused_mlp, collect_features=False)
     jsums = jstep.build_eval_step(student_module=j_student, aug=JAugmentConfig(input_size=32))(
         s_params, jnp.asarray(u8), jnp.asarray(labels), jnp.asarray(valid))
     tsums = build_eval_step(student=t_student, aug=AugmentConfig(input_size=32))(
