@@ -46,7 +46,25 @@ Phases, each of which fails the run:
      both models' logits, and for the feature path the features of blocks
      0-2 and the WassKD distill loss; and that the unfused path's logits
      agree with the CPU plain path and with the fused-block path on the card
-     on the same weights.
+     on the same weights;
+  8. the block-pair path: holds the pair forward and backward kernels against
+     their plain versions at B=8 for D=192 and D=384 and the four
+     (feat1, feat2) variants, with drop-path scales that hold zeros (one
+     sample with all four at 0 must come back as x), and at the main-path
+     shape [256, 198, 192] (out - x, feat1, feat2, dx, all 24 dW), two runs
+     the same bits; prints how far the pair is from the two single kernels
+     chained (they round the activation between the blocks to bf16); times
+     the pair beside its plain version, its bound, two library blocks, the
+     two single kernels' sum and the single-forward variant, and prints the
+     backward's workspace bytes; then runs the soft, wasskd and vitkd steps
+     with the student on block pairs (12 teacher block forwards, 6 pair
+     forwards and 6 pair backwards a step, no single-block launch at the
+     student's width), an eval batch on the single-block view of the paired
+     student (12 block forwards, no pair launch), a depth-3 student (one pair
+     and one single block, forward and backward), and compares on the card,
+     on the same weights and drop-path masks, the paired student's logits
+     with the single-block student's and the CPU plain path, and the
+     gradient of a soft-KD loss through both.
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
@@ -81,6 +99,10 @@ MLP_MAIN = {"teacher": 384, "student": 192}
 UNFUSED_STEPS = 3
 # train steps per distillation type, in the order they run
 PATHS = (("soft", 3), ("wasskd", 4), ("mgd", 2), ("vitkd", 2))
+# the same with the student on block pairs; between them the three types ask
+# every (feat1, feat2) variant of a pair
+PAIRED_PATHS = (("soft", 3), ("wasskd", 2), ("vitkd", 2))
+PAIR_FLAGS = ((False, False), (True, False), (False, True), (True, True))
 
 
 def _timed(fn, iters, warmup=3):
@@ -216,15 +238,22 @@ def time_kernels(fb, worst):
         g_out = torch.randn_like(x)
         if kernel == "fused_block_fwd":
             out, feat = fb.kernel_block_fwd(x, p, need_features=True, **kw)
+            again = fb.kernel_block_fwd(x, p, need_features=True, **kw)
             r_out, r_feat = fb.reference_vit_block(x, p, **kw)
             checks = [("out", out, r_out), ("feat", feat, r_feat)]
+            same_bits = torch.equal(out, again[0]) and torch.equal(feat, again[1])
         else:
             dx, dws = fb.kernel_block_bwd(x, p, g_out, None, **kw)
+            dx2, dws2 = fb.kernel_block_bwd(x, p, g_out, None, **kw)
             r_dx, r_dws = fb.reference_vit_block_bwd(x, p, g_out, None, **kw)
             checks = [("dx", dx, r_dx)] + [("d" + n, dws[n], r_dws[n])
                                            for n in fb.PARAM_NAMES]
+            same_bits = torch.equal(dx, dx2) and all(torch.equal(dws[n], dws2[n])
+                                                     for n in fb.PARAM_NAMES)
         torch.cuda.synchronize()
         _hold(worst, f"B={B_MAIN}", kernel, D, x, checks)
+        if not same_bits:
+            raise AssertionError(f"{kernel} D={D} B={B_MAIN}: two runs gave different bits")
         lib_w = [t.detach().bfloat16().requires_grad_(kernel == "fused_block_bwd")
                  for t in fb.block_params(p)]
         x_lib = x.detach().requires_grad_(kernel == "fused_block_bwd")
@@ -263,6 +292,207 @@ def time_kernels(fb, worst):
         print(f"[time] {kernel} D={D} B={B}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"library {library_ms:.3f} ms, bound {rows[(kernel, D)]['bound_ms']:.4f} ms "
               f"({rows[(kernel, D)]['bound_by']}){extra}")
+    return rows
+
+
+def _pair_inputs(D, H, B, seed, device):
+    """Two blocks' weights, x and the four drop-path scales (s_attn1, s_mlp1,
+    s_attn2, s_mlp2): _block_inputs twice, block 2's scales rolled so its
+    zeros fall on other samples, and sample 5 with all four at 0."""
+    import torch
+
+    p1, x, sa1, sm1 = _block_inputs(D, H, B, seed, device)
+    p2, _, sa2, sm2 = _block_inputs(D, H, B, seed + 1000, device)
+    scales = [sa1, sm1, sa2.roll(3), sm2.roll(3)]
+    for s in scales:
+        s[5] = 0.0
+    g = torch.Generator(device=device).manual_seed(seed)
+    gs = [torch.randn(x.shape, generator=g, device=device).bfloat16() for _ in range(3)]
+    return p1, p2, x, tuple(scales), gs
+
+
+def _hold_pair(fb, worst, D, H, B, nf1, nf2, seed, repeat=False):
+    """Both pair kernels against their plain versions on one input; with
+    ``repeat`` a second run must give the same bits. Returns what the caller
+    may compare further: (inputs, kernel forward outputs, kernel dx)."""
+    import torch
+
+    p1, p2, x, scales, (g_out, g_f1, g_f2) = inputs = _pair_inputs(D, H, B, seed, "cuda")
+    g_f1, g_f2 = (g_f1 if nf1 else None), (g_f2 if nf2 else None)
+    kw = dict(num_heads=H, scales=scales)
+    fwd = fb.kernel_block_pair_fwd(x, p1, p2, need_features1=nf1, need_features2=nf2, **kw)
+    r_fwd = fb.reference_vit_block_pair(x, p1, p2, **kw)
+    dx, dw1, dw2 = bwd = fb.kernel_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)
+    r_dx, r_dw1, r_dw2 = fb.reference_vit_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)
+    torch.cuda.synchronize()
+    tag = f"B={B} feat=({nf1}, {nf2})"
+    for flag, feat in ((nf1, fwd[1]), (nf2, fwd[2])):
+        if (feat is not None) != flag:
+            raise AssertionError(f"fused_pair_fwd D={D} {tag}: a feature output does "
+                                 f"not follow its flag")
+    if not torch.equal(fwd[0][5], x[5]):
+        raise AssertionError(f"fused_pair_fwd D={D} {tag}: all four scales 0 did not "
+                             f"return x")
+    _hold(worst, tag, "fused_pair_fwd", D, x, [("out", fwd[0], r_fwd[0])] + [
+        (name, fwd[i], r_fwd[i]) for i, name in ((1, "feat1"), (2, "feat2"))
+        if fwd[i] is not None])
+    _hold(worst, tag, "fused_pair_bwd", D, x, [("dx", dx, r_dx)] + [
+        (f"d{n}[{blk}]", dw[n], r_dw[n]) for blk, dw, r_dw in ((1, dw1, r_dw1), (2, dw2, r_dw2))
+        for n in fb.PARAM_NAMES])
+    if repeat:
+        fwd2 = fb.kernel_block_pair_fwd(x, p1, p2, need_features1=nf1, need_features2=nf2,
+                                        **kw)
+        dx2, dw1b, dw2b = fb.kernel_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)
+        torch.cuda.synchronize()
+        same = (all(torch.equal(a, b) for a, b in zip(fwd, fwd2) if a is not None)
+                and torch.equal(dx, dx2)
+                and all(torch.equal(a[n], b[n]) for a, b in ((dw1, dw1b), (dw2, dw2b))
+                        for n in fb.PARAM_NAMES))
+        if not same:
+            raise AssertionError(f"pair kernels D={D} {tag}: two runs gave different bits")
+    return inputs, fwd, bwd
+
+
+def check_pair_kernels(fb, worst):
+    """Phase 8a: the pair kernels vs their plain versions at B=8 for both
+    widths and the four feature variants, then at the main-path shape with
+    both features, twice; and, printed, the pair against the two single
+    kernels chained, which round the activation between the blocks (and its
+    cotangent) to bf16."""
+    import torch
+
+    for D, H in ((192, 3), (384, 6)):
+        for nf1, nf2 in PAIR_FLAGS:
+            _hold_pair(fb, worst, D, H, B_CHECK, nf1, nf2, D + 2 * nf1 + nf2)
+    D, H = 192, 3
+    (p1, p2, x, scales, (g_out, g_f1, g_f2)), fwd, (dx, dw1, _) = _hold_pair(
+        fb, worst, D, H, B_MAIN, True, True, 11, repeat=True)
+    kw1 = dict(num_heads=H, scale_attn=scales[0], scale_mlp=scales[1])
+    kw2 = dict(num_heads=H, scale_attn=scales[2], scale_mlp=scales[3])
+    mid, f1 = fb.kernel_block_fwd(x, p1, need_features=True, **kw1)
+    out, f2 = fb.kernel_block_fwd(mid, p2, need_features=True, **kw2)
+    dmid, _ = fb.kernel_block_bwd(mid, p2, g_out, g_f2, **kw2)
+    s_dx, s_dw1 = fb.kernel_block_bwd(x, p1, dmid, g_f1, **kw1)
+    torch.cuda.synchronize()
+    for name, a, b in (("out - x", fwd[0].float() - x.float(), out.float() - x.float()),
+                       ("feat2", fwd[2], f2), ("dx", dx, s_dx),
+                       ("dmlp.fc1.weight[1]", dw1["mlp.fc1.weight"], s_dw1["mlp.fc1.weight"])):
+        abs_err, mx = _err(a, b)
+        print(f"[pair vs two single kernels] {name}: max_abs_diff {abs_err:.3e}, max |single| "
+              f"{mx:.3e} (rel {abs_err / mx:.3e}; the singles round mid and dmid to bf16)")
+        if abs_err > TOL * mx:
+            raise AssertionError(f"pair kernels and two single kernels differ in {name}")
+        if abs_err == 0.0:
+            raise AssertionError(f"the pair's {name} has the bits of two single kernels: "
+                                 f"the activation between its blocks, or its cotangent, "
+                                 f"was rounded to bf16")
+    if not torch.equal(fwd[1], f1):
+        raise AssertionError("feat1 of the pair and of the first single block differ: "
+                             "both come from the same chain on the same input")
+
+
+def time_pair_kernels(fb):
+    """Phase 8b: the pair kernels at [256, 198, 192]: kernel, plain and
+    library times (two library blocks chained; the backward's is
+    forward+backward minus forward) and the bound; beside them the two single
+    kernels chained, timed in turns with the pair (pair, singles, singles,
+    pair); forward+backward through autograd for the pair, the single-forward
+    variant and two single blocks; and the backward's workspace."""
+    import torch
+
+    D, H, B, N = 192, 3, B_MAIN, N_TOK
+    p1, p2, x, scales, (g_out, _, _) = _pair_inputs(D, H, B, 13, "cuda")
+    kw = dict(num_heads=H, scales=scales)
+    kw1 = dict(num_heads=H, scale_attn=scales[0], scale_mlp=scales[1])
+    kw2 = dict(num_heads=H, scale_attn=scales[2], scale_mlp=scales[3])
+    mid, _ = fb.kernel_block_fwd(x, p1, need_features=False, **kw1)
+
+    def pair_fwd():
+        fb.kernel_block_pair_fwd(x, p1, p2, need_features1=False, need_features2=False, **kw)
+
+    def singles_fwd():
+        m, _ = fb.kernel_block_fwd(x, p1, need_features=False, **kw1)
+        fb.kernel_block_fwd(m, p2, need_features=False, **kw2)
+
+    def pair_bwd():
+        fb.kernel_block_pair_bwd(x, p1, p2, g_out, **kw)
+
+    def singles_bwd():
+        dmid, _ = fb.kernel_block_bwd(mid, p2, g_out, None, **kw2)
+        fb.kernel_block_bwd(x, p1, dmid, None, **kw1)
+
+    lib_w = [[t.detach().bfloat16().requires_grad_(True) for t in fb.block_params(p)]
+             for p in (p1, p2)]
+    x_lib = x.detach().requires_grad_(True)
+
+    def lib_fwd():
+        m = _library_block(x_lib, lib_w[0], H, 1e-6, scales[0], scales[1])
+        return _library_block(m, lib_w[1], H, 1e-6, scales[2], scales[3])
+
+    def lib_fwd_no_grad():
+        with torch.no_grad():
+            lib_fwd()
+
+    flops1 = B * (24 * N * D * D + 4 * N * N * D)
+    fc2 = 2 * B * N * D * 4 * D
+    io, weights = B * N * D * 2, 2 * 12 * D * D
+    rows = {}
+    for kernel, pair, singles, plain in (
+            ("fused_pair_fwd", pair_fwd, singles_fwd,
+             lambda: fb.reference_vit_block_pair(x, p1, p2, **kw)),
+            ("fused_pair_bwd", pair_bwd, singles_bwd,
+             lambda: fb.reference_vit_block_pair_bwd(x, p1, p2, g_out, **kw))):
+        turns = [_timed(fn, 10) for fn in (pair, singles, singles, pair)]
+        ms, singles_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        plain_ms = _timed(plain, 3)
+        if kernel == "fused_pair_fwd":
+            library_ms, extra = _timed(lib_fwd_no_grad, 20), ""
+            bound = _bound(2 * flops1, 2 * io + weights * 2)
+        else:
+            both = _timed(lambda: lib_fwd().backward(g_out), 20)
+            fwd = _timed(lib_fwd, 20)
+            library_ms = both - fwd
+            extra = f" (library forward+backward {both:.3f} ms, forward {fwd:.3f} ms)"
+            # the recompute and two products per forward product for each block, and
+            # block 1's fc2; x, g_out, dx, the bf16 weights, the fp32 gradients
+            bound = _bound(2 * 3 * flops1 + fc2, 3 * io + weights * (2 + 4))
+        rows[(kernel, D)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+        print(f"[time] {kernel} D={D} B={B}: {ms:.3f} ms (turns {turns[0]:.3f}, {turns[3]:.3f}), "
+              f"two single kernels {singles_ms:.3f} ms (turns {turns[1]:.3f}, {turns[2]:.3f}), "
+              f"pair/singles {ms / singles_ms:.4f}, plain {plain_ms:.3f} ms, library "
+              f"{library_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}){extra}")
+
+    # forward + backward through autograd: which half of the pair costs or saves
+    leaves = [{n: t.detach().requires_grad_(True) for n, t in p.items()} for p in (p1, p2)]
+    x_leaf = x.detach().requires_grad_(True)
+    skw = dict(zip(("scale_attn1", "scale_mlp1", "scale_attn2", "scale_mlp2"), scales),
+               num_heads=H, need_features1=False, need_features2=False)
+
+    def through_pair(single_forward):
+        def run():
+            out, _, _ = fb.fused_vit_block_pair(x_leaf, *leaves, single_forward=single_forward,
+                                                **skw)
+            out.backward(g_out)
+        return run
+
+    def through_singles():
+        m, _ = fb.fused_vit_block(x_leaf, leaves[0], need_features=False, **kw1)
+        out, _ = fb.fused_vit_block(m, leaves[1], need_features=False, **kw2)
+        out.backward(g_out)
+
+    both = {"pair": through_pair(False), "single forwards + pair backward": through_pair(True),
+            "two single blocks": through_singles}
+    first = {k: _timed(fn, 6) for k, fn in both.items()}
+    second = {k: _timed(fn, 6) for k, fn in reversed(both.items())}
+    print("[time] forward+backward through autograd D=192 B=256: " + ", ".join(
+        f"{k} {(first[k] + second[k]) / 2:.3f} ms ({first[k]:.3f}, {second[k]:.3f})"
+        for k in both))
+    F = 4 * D
+    sizes = {name: fb.workspace_bytes(name, (B, N, D), H, F)
+             for name in ("fused_pair_fwd", "fused_pair_bwd", "fused_block_fwd",
+                          "fused_block_bwd")}
+    print("[workspace] bytes at [256, 198, 192]: "
+          + ", ".join(f"{k} {v}" for k, v in sizes.items()))
     return rows
 
 
@@ -611,6 +841,11 @@ def _block_launches(steps):
             ("fused_block_bwd", 192): 12 * steps}
 
 
+def _paired_launches(steps):
+    return {("fused_block_fwd", 384): 12 * steps, ("fused_pair_fwd", 192): 6 * steps,
+            ("fused_pair_bwd", 192): 6 * steps}
+
+
 def _unfused_launches(steps):
     return {("flash_fwd", ATTN_MAIN["teacher"]): 12 * steps,
             ("flash_fwd", ATTN_MAIN["student"]): 12 * steps,
@@ -646,11 +881,12 @@ def _unfused_models(cfg, num_classes):
     return teacher, student
 
 
-def run_train_path(mods, kd_type, steps, unfused=False):
+def run_train_path(mods, kd_type, steps, unfused=False, paired=False):
     """Phase 6: ``steps`` train steps of one distillation type at full width
-    through load_teacher_student (the fused block) or, with ``unfused``,
-    create_model with attention_fn / mlp_fn and no block_fn, then TrainState
-    -> build_train_step. The launch counts are set to 0 just before the steps
+    through load_teacher_student (the fused block; with ``paired`` the student
+    on block pairs, block_pair=True) or, with ``unfused``, create_model with
+    attention_fn / mlp_fn and no block_fn, then TrainState ->
+    build_train_step. The launch counts are set to 0 just before the steps
     and read just after. Returns (launches, step ms, what the later phases
     need)."""
     import numpy as np
@@ -677,9 +913,10 @@ def run_train_path(mods, kd_type, steps, unfused=False):
         teacher, student = _unfused_models(cfg, DATASET_STATS[cfg.dataset]["num_classes"])
         aux = None
     else:
-        teacher, student, aux = load_teacher_student(cfg, seed=0, device="cuda")
+        teacher, student, aux = load_teacher_student(cfg, block_pair=paired, seed=0,
+                                                     device="cuda")
     num_classes = student.cfg.num_classes
-    name = f"unfused {kd_type}" if unfused else kd_type
+    name = f"unfused {kd_type}" if unfused else f"paired {kd_type}" if paired else kd_type
     tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
     state = TrainState(student, tx=tx, aux=aux)
     aug = AugmentConfig.from_config(cfg)
@@ -705,7 +942,8 @@ def run_train_path(mods, kd_type, steps, unfused=False):
         metrics.append({k: float(v) for k, v in m.items()})
     launches = _read_launches(mods)
     print(f"[{name}] launches over {steps} steps: {launches}")
-    expect = _unfused_launches(steps) if unfused else _block_launches(steps)
+    expect = (_unfused_launches if unfused else _paired_launches if paired
+              else _block_launches)(steps)
     if kd_type == "wasskd":
         expect.update(sorted_l1_fwd=3 * steps, sorted_l1_bwd=3 * steps)
     if launches != expect:
@@ -828,6 +1066,103 @@ def run_value_sort(so):
     return launches
 
 
+def run_odd_depth_pair(mods, images, aug):
+    """A depth-3 student at the student's width on block pairs: blocks 0-1 go
+    through the pair kernels, the odd last block through the single-block
+    kernels, forward and backward; its eval logits agree with its CPU plain
+    path."""
+    import torch
+
+    from deltakd_tpu_torch.data.augment import eval_transform
+    from deltakd_tpu_torch.models.vit import ViTConfig, VisionTransformer, init_weights
+    from deltakd_tpu_torch.ops.fused_block import fused_vit_block, fused_vit_block_pair
+
+    cfg = ViTConfig(num_classes=100, embed_dim=192, depth=3, num_heads=3, distilled=True,
+                    drop_path_rate=0.1)
+    model = VisionTransformer(cfg, block_fn=fused_vit_block, block_pair_fn=fused_vit_block_pair,
+                              collect_features=frozenset({1, 2}))
+    init_weights(model, torch.Generator().manual_seed(8))
+    x = eval_transform(images[:8], aug).bfloat16()
+    with torch.no_grad():
+        on_cpu = model(x.cpu(), train=False).logits.float()
+    model = model.cuda()
+    _reset_launches(mods)
+    out = model(x, train=True, generator=torch.Generator(device="cuda").manual_seed(1))
+    loss = out.logits.square().mean() + sum(f.float().square().mean()
+                                            for f in out.features if f is not None)
+    grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+    torch.cuda.synchronize()
+    launches = _read_launches(mods)
+    print(f"[depth-3 pair] launches {launches}")
+    if launches != {("fused_pair_fwd", 192): 1, ("fused_pair_bwd", 192): 1,
+                    ("fused_block_fwd", 192): 1, ("fused_block_bwd", 192): 1}:
+        raise AssertionError(f"depth-3 paired model launches {launches}, expected one pair "
+                             f"and one single block, forward and backward")
+    if [f is not None for f in out.features] != [False, True, True]:
+        raise AssertionError("depth-3 paired model: features do not follow collect_features")
+    block_grads = [g for (n, _), g in zip(model.named_parameters(), grads)
+                   if n.startswith("blocks.")]
+    if len(block_grads) != 36 or not all(g is not None and torch.isfinite(g).all()
+                                         and g.abs().max() > 0 for g in block_grads):
+        raise AssertionError("depth-3 paired model: a block gradient is missing, zero or "
+                             "not finite")
+    with torch.no_grad():
+        on_card = model(x, train=False).logits.float().cpu()
+    _agree("depth-3 paired model logits", on_card, on_cpu, (8, 100))
+    return launches
+
+
+def check_paired_against_single(mods, teacher, student, aug, kd, images, labels):
+    """The paired student against the single-block student on the card, the
+    same parameters (a view) and the same drop-path masks: eval logits on 4
+    images (also against the CPU plain path), and the flat gradient of the
+    soft-KD loss of one batch through both."""
+    import torch
+
+    from deltakd_tpu_torch.data.augment import eval_transform
+    from deltakd_tpu_torch.kd.losses import total_loss
+
+    single = student.view(block_pair_fn=None)
+    x = eval_transform(images[:4], aug).bfloat16()
+    with torch.no_grad():
+        on_card = student(x, train=False).logits.float().cpu()
+        by_single = single(x, train=False).logits.float().cpu()
+        on_cpu = copy.deepcopy(student).cpu()(x.cpu(), train=False).logits.float()
+    _agree("paired student logits", on_card, on_cpu, (4, student.cfg.num_classes))
+    _agree("paired student logits", on_card, by_single, (4, student.cfg.num_classes),
+           other="the single-block student on the card")
+
+    batch = eval_transform(images, aug).bfloat16()
+    scales = student.draw_drop_scales(B_MAIN, torch.Generator(device="cuda").manual_seed(5),
+                                      "cuda")
+    with torch.no_grad():
+        teacher_logits = teacher(batch, train=False).logits
+    targets = torch.nn.functional.one_hot(labels.long(), student.cfg.num_classes).float()
+    params = list(student.parameters())
+    flat, launches = {}, {}
+    for name, model in (("paired", student), ("single", single)):
+        _reset_launches(mods)
+        out = model(batch, train=True, drop_scales=scales)
+        loss, _ = total_loss(kd, student_logits=out.logits, student_dist_logits=out.logits_dist,
+                             student_feats=None, teacher_logits=teacher_logits,
+                             teacher_feats=None, aux=None, targets=targets, train=True)
+        flat[name] = torch.cat([g.reshape(-1).float()
+                                for g in torch.autograd.grad(loss, params)])
+        torch.cuda.synchronize()
+        launches[name] = _read_launches(mods)
+    if launches["paired"] != {("fused_pair_fwd", 192): 6, ("fused_pair_bwd", 192): 6} or \
+            launches["single"] != {("fused_block_fwd", 192): 12, ("fused_block_bwd", 192): 12}:
+        raise AssertionError(f"gradient comparison launches {launches}")
+    abs_err, mx = _err(flat["paired"], flat["single"])
+    ok = abs_err <= LOGIT_TOL * mx and bool(torch.isfinite(flat["paired"]).all())
+    print(f"[reference] soft-KD gradient ({flat['paired'].numel()} values) through the paired "
+          f"student vs the single-block student: max_abs_diff {abs_err:.3e}, max |single| "
+          f"{mx:.3e} (rel {abs_err / mx:.3e}, tol {LOGIT_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the paired student's gradient disagrees with the single-block "
+                             "student's")
+
+
 def _agree(what, on_card, on_cpu, shape=None, other="the CPU plain path"):
     abs_err, mx = _err(on_card, on_cpu)
     ok = abs_err <= LOGIT_TOL * max(mx, 1e-3) and (shape is None
@@ -948,6 +1283,8 @@ def main() -> int:
     timing.update(time_attention_kernels(at))
     check_mlp_kernels(fm, worst)
     timing.update(time_mlp_kernels(fm))
+    check_pair_kernels(fb, worst)
+    timing.update(time_pair_kernels(fb))
     torch.cuda.empty_cache()
 
     by_path, step_ms = {}, {}
@@ -977,12 +1314,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["fused_mlp_train"] = run_mlp_train(mods, fm)
     by_path["no_qkv_bias"] = run_no_qkv_bias(mods, images, aug)
+
+    # the block-pair path: the student's blocks two per kernel
+    for kd_type, steps in PAIRED_PATHS:
+        name = f"paired {kd_type}"
+        by_path[name], step_ms[name], kept = run_train_path(mods, kd_type, steps, paired=True)
+        teacher, student, aux, aug, kd, images, labels = kept
+        if kd_type == "soft":
+            by_path["paired_eval"] = run_eval(
+                mods, student.view(block_pair_fn=None, collect_features=False), aug, images,
+                labels, {("fused_block_fwd", 192): 12}, name="paired eval")
+            check_paired_against_single(mods, teacher, student, aug, kd, images, labels)
+        del teacher, student, aux, kept
+        torch.cuda.empty_cache()
+    by_path["odd_depth_pair"] = run_odd_depth_pair(mods, images, aug)
     print("[slice] step ms by path: "
           + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
 
     csrc = "deltakd_tpu_torch/ops/csrc/"
     src = {"fused_block_fwd": (csrc + "fused_block_fwd.cu", "deltakd_tpu/ops/fused_block.py:313"),
            "fused_block_bwd": (csrc + "fused_block_bwd.cu", "deltakd_tpu/ops/fused_block.py:478"),
+           "fused_pair_fwd": (csrc + "fused_block_pair.cu", "deltakd_tpu/ops/fused_block.py:929"),
+           "fused_pair_bwd": (csrc + "fused_block_pair.cu", "deltakd_tpu/ops/fused_block.py:982"),
            "bitonic_sort": (csrc + "sort.cu", "deltakd_tpu/ops/sort.py:83"),
            "sorted_l1_fwd": (csrc + "sort.cu", "deltakd_tpu/ops/sort.py:317"),
            "sorted_l1_bwd": (csrc + "sort.cu", "deltakd_tpu/ops/sort.py:338"),

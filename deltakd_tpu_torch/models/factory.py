@@ -21,7 +21,7 @@ from deltakd_tpu_torch.kd.losses import FEATURE_TYPES, feature_indices
 from deltakd_tpu_torch.models.registry import get_model_config
 from deltakd_tpu_torch.models.vit import VisionTransformer, init_weights
 from deltakd_tpu_torch.ops.attention import best_attention_fn
-from deltakd_tpu_torch.ops.fused_block import fused_vit_block
+from deltakd_tpu_torch.ops.fused_block import best_block_pair_fn, fused_vit_block
 from deltakd_tpu_torch.ops.fused_mlp import best_mlp_fn
 
 _FROM_CONFIG = object()
@@ -32,25 +32,28 @@ def create_model(name: str, *, num_classes: int, img_size: int = 224,
                  attention_fn: Optional[Callable] = None,
                  mlp_fn: Optional[Callable] = None,
                  block_fn: Optional[Callable] = fused_vit_block,
+                 block_pair_fn: Optional[Callable] = None,
                  collect_features=True, seed: int = 0,
                  device="cuda") -> VisionTransformer:
     """A model of the zoo with seeded random weights on ``device``. By default
     each block runs through ``fused_vit_block``; ``block_fn=None`` gives the
-    unfused path with ``attention_fn`` and ``mlp_fn`` (or PyTorch's own ops).
-    Each of the three runs its kernels on the card and its plain version on
+    unfused path with ``attention_fn`` and ``mlp_fn`` (or PyTorch's own ops);
+    ``block_pair_fn=fused_vit_block_pair`` runs two consecutive blocks per
+    call. Each of them runs its kernels on the card and its plain version on
     the CPU."""
     device = resolve_device(device)
     cfg = get_model_config(name, num_classes=num_classes, img_size=img_size,
                            drop_path_rate=drop_path_rate)
     model = VisionTransformer(cfg, dtype=dtype, attention_fn=attention_fn,
                               mlp_fn=mlp_fn, block_fn=block_fn,
+                              block_pair_fn=block_pair_fn,
                               collect_features=collect_features)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device)
 
 
-def load_teacher_student(config, *, attention_fn=_FROM_CONFIG, seed: int = 0,
-                         device="cuda"
+def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
+                         block_pair: bool = False, seed: int = 0, device="cuda"
                          ) -> Tuple[VisionTransformer, VisionTransformer,
                                     Optional[AuxHeads]]:
     """(teacher, student, aux) for a TrainConfig; the teacher is frozen and
@@ -64,7 +67,13 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG, seed: int = 0,
     weight matrices, so tensor parallelism takes the unfused path, the student
     with ``attention_fn`` and the forward-only teacher with ``attention_fn``
     and ``fused_mlp``. In the port ``mesh_shape`` so far only selects that
-    path; nothing is placed over a model axis yet."""
+    path; nothing is placed over a model axis yet.
+
+    ``block_pair`` stands for the JAX factory's environment variable
+    ``DELTAKD_PAIR=1``: with kernels on and no model axis, the student (never
+    the forward-only teacher) runs two consecutive blocks per call through
+    ``fused_vit_block_pair``. Evaluate it on single blocks:
+    ``student.view(block_pair_fn=None, collect_features=False)``."""
     if config.distillation_type != "none" and not config.allow_random_teacher:
         raise ValueError(
             f"distillation_type {config.distillation_type!r} needs a pretrained "
@@ -79,6 +88,7 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG, seed: int = 0,
     mesh_shape = config.mesh_shape
     model_axis = int(mesh_shape[1]) if mesh_shape and len(mesh_shape) > 1 else 1
     block_fn = fused_vit_block if kernels_on and model_axis == 1 else None
+    block_pair_fn = best_block_pair_fn(kernels_on and model_axis == 1 and block_pair)
 
     def needed(name):
         depth = get_model_config(name, num_classes=num_classes).depth
@@ -95,6 +105,7 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG, seed: int = 0,
                            img_size=config.input_size,
                            drop_path_rate=config.drop_path_rate, dtype=dtype,
                            attention_fn=attention_fn, block_fn=block_fn,
+                           block_pair_fn=block_pair_fn,
                            collect_features=needed(config.student_model),
                            seed=seed + 2, device=device)
     aux = None

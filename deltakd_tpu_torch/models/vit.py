@@ -13,8 +13,12 @@ checkpoint loads natively. The contract is the JAX model's:
 
 With ``block_fn`` set (the fused block, ``ops/fused_block.fused_vit_block``)
 and a qkv bias, each block runs as one fused call and only the features a KD
-objective reads are written. Otherwise the unfused module path below runs
-(the path of a model without a qkv bias, and of tensor parallelism in the JAX
+objective reads are written. With ``block_pair_fn`` too
+(``ops/fused_block.fused_vit_block_pair``) blocks ``i``, ``i + 1`` run as one
+call and an odd last block through ``block_fn``; each block keeps its own
+parameters and drop-path scales, so a ``state_dict`` and the masks drawn from
+a generator are the same with and without pairing. Otherwise the unfused
+module path below runs (the path of a model without a qkv bias, and of tensor parallelism in the JAX
 package): LayerNorms and the qkv / proj projections through PyTorch, the
 attention core through ``attention_fn(q, k, v)`` on [B, H, N, head_dim]
 (``ops/attention.flash_attention``) and the MLP through
@@ -165,7 +169,8 @@ class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, *, dtype: torch.dtype = torch.bfloat16,
                  attention_fn: Optional[Callable] = None,
                  mlp_fn: Optional[Callable] = None,
-                 block_fn: Optional[Callable] = None, collect_features=True):
+                 block_fn: Optional[Callable] = None,
+                 block_pair_fn: Optional[Callable] = None, collect_features=True):
         super().__init__()
         if cfg.drop_rate > 0.0:
             raise NotImplementedError("token dropout (drop_rate > 0) is not "
@@ -177,6 +182,8 @@ class VisionTransformer(nn.Module):
         self.attention_fn = attention_fn
         self.mlp_fn = mlp_fn
         self.block_fn = block_fn
+        # two consecutive blocks per call, where the model has a qkv bias
+        self.block_pair_fn = block_pair_fn
         # True/False, or a collection of the block indices whose features the
         # KD objective reads (kd.losses.feature_indices)
         self.collect_features = collect_features
@@ -214,15 +221,20 @@ class VisionTransformer(nn.Module):
                  ).float() / keep for _ in range(2)))
         return scales
 
+    # what view() may override: the functions that choose the path, and the
+    # feature collection
+    VIEW_OVERRIDES = ("attention_fn", "mlp_fn", "block_fn", "block_pair_fn",
+                      "collect_features")
+
     def view(self, **overrides) -> "VisionTransformer":
         """A model that shares this one's parameters (the same storage, so it
-        follows every update) with other ``attention_fn``, ``mlp_fn``,
-        ``block_fn`` or ``collect_features``: evaluation is forward only and
-        can run ``fused_mlp`` while training does not."""
-        unknown = set(overrides) - {"attention_fn", "mlp_fn", "block_fn",
-                                    "collect_features"}
+        follows every update) with other values for any of ``VIEW_OVERRIDES``:
+        evaluation is forward only and can run ``fused_mlp``, or single blocks
+        where training runs block pairs."""
+        unknown = set(overrides) - set(self.VIEW_OVERRIDES)
         if unknown:
-            raise TypeError(f"view() got unexpected arguments {sorted(unknown)}")
+            raise TypeError(f"view() got unexpected arguments {sorted(unknown)}; "
+                            f"it takes {', '.join(self.VIEW_OVERRIDES)}")
         other = copy.copy(self)
         for name, value in overrides.items():
             setattr(other, name, value)
@@ -258,13 +270,32 @@ class VisionTransformer(nn.Module):
             prefix.append(self.dist_token.to(dt).expand(B, -1, -1))
         x = torch.cat(prefix + [x], dim=1) + self.pos_embed.to(dt)
 
+        def scales_of(i):
+            pair = drop_scales[i] if drop_scales is not None else None
+            return pair if pair is not None else (None, None)
+
         feats = []
-        for i, blk in enumerate(self.blocks):
-            scales = drop_scales[i] if drop_scales is not None else None
-            x, feat = blk(x, dt, scales, self.block_fn,
-                          self._collect(i, collect_features),
-                          self.attention_fn, self.mlp_fn)
+        pair_on = self.block_pair_fn is not None and cfg.qkv_bias
+        i = 0
+        while i < cfg.depth:
+            if pair_on and i + 1 < cfg.depth:
+                (sa1, sm1), (sa2, sm2) = scales_of(i), scales_of(i + 1)
+                x, f1, f2 = self.block_pair_fn(
+                    x, dict(self.blocks[i].named_parameters()),
+                    dict(self.blocks[i + 1].named_parameters()),
+                    num_heads=cfg.num_heads, ln_eps=cfg.ln_eps,
+                    scale_attn1=sa1, scale_mlp1=sm1, scale_attn2=sa2, scale_mlp2=sm2,
+                    need_features1=self._collect(i, collect_features),
+                    need_features2=self._collect(i + 1, collect_features))
+                feats.extend([f1, f2])
+                i += 2
+                continue
+            x, feat = self.blocks[i](
+                x, dt, drop_scales[i] if drop_scales is not None else None,
+                self.block_fn, self._collect(i, collect_features),
+                self.attention_fn, self.mlp_fn)
             feats.append(feat)
+            i += 1
 
         x = _layer_norm(x, self.norm, dt)
         logits = _linear(x[:, 0], self.head, dt).float()

@@ -30,6 +30,8 @@ def _block_signatures(name: str) -> dict:
 SIGNATURES = {
     "fused_block_fwd": _block_signatures("fused_block_fwd"),
     "fused_block_bwd": _block_signatures("fused_block_bwd"),
+    "fused_block_pair": {**_block_signatures("fused_pair_fwd"),
+                         **_block_signatures("fused_pair_bwd")},
     "sort": {
         "dk_sort_tiles": ([_INT, _INT], _INT),
         "dk_sort_bitonic": ([_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR], _INT),
@@ -53,7 +55,8 @@ SIGNATURES = {
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_CSRC), os.pardir, "_build")
-SOURCES = ("fused_block_fwd", "fused_block_bwd", "sort", "attention", "fused_mlp")
+SOURCES = ("fused_block_fwd", "fused_block_bwd", "fused_block_pair", "sort", "attention",
+           "fused_mlp")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

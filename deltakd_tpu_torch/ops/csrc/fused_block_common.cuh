@@ -1,5 +1,6 @@
-// Building blocks shared by the fused ViT block forward and backward kernels;
-// the fused-MLP backward (fused_mlp.cu) builds on the same GEMM and row sums.
+// Building blocks shared by the fused ViT block forward and backward kernels
+// and the block-pair kernels (fused_block_pair.cu); the fused-MLP backward
+// (fused_mlp.cu) builds on the same GEMM and row sums.
 //
 // The TPU kernels (deltakd_tpu/ops/fused_block.py `_fwd_kernel`,
 // `_bwd_kernel`) keep one batch element's whole block in 16+ MB of VMEM. An
@@ -407,17 +408,25 @@ struct FwdBuffers {
   }
 };
 
+// The block input as the residual operand of the proj epilogue: bf16 at a
+// kernel boundary, fp32 for the second block of a pair.
+inline void set_residual(GemmArgs& p, const bf16* x) { p.res_bf16 = x; }
+inline void set_residual(GemmArgs& p, const float* x) { p.res_f32 = x; }
+
 // LN1 -> qkv -> per-head softmax(q k^T) v -> proj -> x + s_attn*attn ->
-// LN2 -> fc1 -> GELU; then, when `out` is given, fc2 -> x2 + s_mlp*feat.
-inline void forward_chain(const bf16* x, const float* s_attn, const float* s_mlp,
+// LN2 -> fc1 -> GELU; then, when `out` or `out32` is given, fc2 ->
+// x2 + s_mlp*feat, written as bf16 (`out`) and/or unrounded (`out32`, the
+// activation between the two blocks of a pair). The input x is bf16 or fp32.
+template <typename TX>
+inline void forward_chain(const TX* x, const float* s_attn, const float* s_mlp,
                           const BlockWeights& w, const Shape& sh, float eps,
-                          FwdBuffers& f, bool stash, bf16* out, bf16* feat,
+                          FwdBuffers& f, bool stash, bf16* out, float* out32, bf16* feat,
                           cudaStream_t st) {
   const int N = sh.N, D = sh.D, H = sh.H, hd = sh.hd(), F = sh.F;
   const long long M = sh.M();
   const float scale = 1.0f / sqrtf((float)hd);
 
-  ln_fwd_kernel<bf16><<<row_blocks(M), ROW_THREADS, 0, st>>>(
+  ln_fwd_kernel<TX><<<row_blocks(M), ROW_THREADS, 0, st>>>(
       x, w.g1, w.b1, (int)M, D, eps, f.y, stash ? f.xhat1 : nullptr,
       stash ? f.rstd1 : nullptr);
 
@@ -453,7 +462,7 @@ inline void forward_chain(const bf16* x, const float* s_attn, const float* s_mlp
   // x2 = x + s_attn * (merged Wproj^T + b)
   p = linear_args(f.merged, w.wproj, (int)M, D, D);
   p.bias = w.bproj;
-  p.res_bf16 = x; p.res_scale = s_attn; p.rows_per_sample = N;
+  set_residual(p, x); p.res_scale = s_attn; p.rows_per_sample = N;
   p.out_f32 = f.x2;
   gemm(p, 1, st);
 
@@ -468,28 +477,28 @@ inline void forward_chain(const bf16* x, const float* s_attn, const float* s_mlp
   p.out_bf16 = f.h;
   gemm(p, 1, st);
 
-  if (out) {
+  if (out || out32) {
     // feat = h W2^T + b2 ; out = x2 + s_mlp * feat
     p = linear_args(f.h, w.w2, (int)M, D, F);
     p.bias = w.bf2; p.pre_bf16 = feat;
     p.res_f32 = f.x2; p.res_scale = s_mlp; p.rows_per_sample = N;
-    p.out_bf16 = out;
+    p.out_bf16 = out; p.out_f32 = out32;
     gemm(p, 1, st);
   }
 }
 
-// Unpacks the wrapper's pointer table: x, s_attn, s_mlp, then the 12 weights
-// in _weight_arrays order (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bf1,
-// w2, bf2).
-inline BlockWeights unpack_weights(void* const* ptr) {
-  BlockWeights w;
-  w.g1 = (const float*)ptr[3]; w.b1 = (const float*)ptr[4];
-  w.wqkv = (const bf16*)ptr[5]; w.bqkv = (const float*)ptr[6];
-  w.wproj = (const bf16*)ptr[7]; w.bproj = (const float*)ptr[8];
-  w.g2 = (const float*)ptr[9]; w.b2 = (const float*)ptr[10];
-  w.w1 = (const bf16*)ptr[11]; w.bf1 = (const float*)ptr[12];
-  w.w2 = (const bf16*)ptr[13]; w.bf2 = (const float*)ptr[14];
-  return w;
+// Unpacks one block's 12 weights from the wrapper's pointer table, `w`
+// pointing at the first of them, in _weight_arrays order (g1, b1, wqkv, bqkv,
+// wproj, bproj, g2, b2, w1, bf1, w2, bf2).
+inline BlockWeights unpack_weights(void* const* w) {
+  BlockWeights r;
+  r.g1 = (const float*)w[0]; r.b1 = (const float*)w[1];
+  r.wqkv = (const bf16*)w[2]; r.bqkv = (const float*)w[3];
+  r.wproj = (const bf16*)w[4]; r.bproj = (const float*)w[5];
+  r.g2 = (const float*)w[6]; r.b2 = (const float*)w[7];
+  r.w1 = (const bf16*)w[8]; r.bf1 = (const float*)w[9];
+  r.w2 = (const bf16*)w[10]; r.bf2 = (const float*)w[11];
+  return r;
 }
 
 }  // namespace dk

@@ -31,8 +31,8 @@ extern "C" size_t dk_fused_block_fwd_workspace(int B, int N, int D, int H, int F
   return c.off;
 }
 
-// ptr: x, s_attn, s_mlp, 12 weights (see unpack_weights), out, feat|null,
-// workspace. Returns cudaGetLastError() after the launches.
+// ptr: x, s_attn, s_mlp, 12 weights from ptr[3] (see unpack_weights), out,
+// feat|null, workspace. Returns cudaGetLastError() after the launches.
 extern "C" int dk_fused_block_fwd(void* const* ptr, int B, int N, int D, int H, int F,
                                   float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -41,6 +41,7 @@ extern "C" int dk_fused_block_fwd(void* const* ptr, int B, int N, int D, int H, 
   FwdBuffers f;
   f.carve(c, sh, false);
   forward_chain((const bf16*)ptr[0], (const float*)ptr[1], (const float*)ptr[2],
-                unpack_weights(ptr), sh, eps, f, false, (bf16*)ptr[15], (bf16*)ptr[16], st);
+                unpack_weights(ptr + 3), sh, eps, f, false, (bf16*)ptr[15], nullptr,
+                (bf16*)ptr[16], st);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,126 @@
+// Two consecutive fused pre-norm ViT blocks behind one entry point, forward
+// and backward.
+//
+// Replaces: deltakd_tpu/ops/fused_block.py `_pair_fwd_kernel` (called by
+// `_pair_fwd_call`) and `_pair_bwd_kernel` (called by `_pair_bwd_call`). For
+// x [B, N, D] bf16, four per-sample drop-path scales [B] fp32 and two weight
+// sets:
+//   mid, feat1 = block(x,   w1, s_attn1, s_mlp1)
+//   out, feat2 = block(mid, w2, s_attn2, s_mlp2)
+// What the pair does that two single-block launches do not: `mid` never
+// leaves fp32 (a single block rounds its output to bf16 at the kernel
+// boundary), and in the backward neither does the cotangent `dmid` between
+// the two reverse sweeps; the backward saves one tensor (x) per pair and
+// recomputes both blocks, block 1 including its fc2 (one [M, 4D] x [4D, D]
+// product more than two single backwards) to get `mid`.
+//
+// The TPU kernel holds one element's two blocks in VMEM. Here one block
+// already exceeds a thread block's 227 KB of shared memory, so a block is the
+// chain of kernels of fused_block_common.cuh over a global workspace, and the
+// pair is block 1's chain then block 2's chain over one workspace:
+//   forward:  one set of forward buffers, reused by block 2, plus `mid`;
+//   backward: two stashes alive at once (block 1's must survive until block
+//             2's sweep has produced `dmid`), `mid`, `dmid`, and one set of
+//             backward buffers that the two sweeps share.
+// What bounds it on an H100: as for the single kernels, the tensor cores
+// (twice the forward's operations; twice the backward's plus one fc2) against
+// 4ND bytes of input and output per element; this design stays far above
+// that floor for the same reasons (workspace round trips, the plain WMMA
+// tile). Each of the 24 weight gradients is a fixed-order sum of split-row
+// partials; no atomics, so two runs give the same bits.
+
+#include "fused_block_reverse.cuh"
+
+using namespace dk;
+
+namespace {
+
+// Pointer-table slots shared by both entry points: x, the four scales
+// (s_attn1, s_mlp1, s_attn2, s_mlp2), 12 weights of block 1, 12 of block 2.
+constexpr int P_X = 0, P_SCALES = 1, P_W1 = 5, P_W2 = 17, P_REST = 29;
+
+struct PairBwdBuffers {
+  FwdBuffers f1, f2;
+  float *mid, *dmid;
+  BwdBuffers g;
+
+  void carve(Carver& c, const Shape& sh) {
+    f1.carve(c, sh, true);
+    f2.carve(c, sh, true);
+    mid = c.take<float>(sh.M() * sh.D);
+    dmid = c.take<float>(sh.M() * sh.D);
+    g.carve(c, sh);
+  }
+};
+
+}  // namespace
+
+extern "C" size_t dk_fused_pair_fwd_workspace(int B, int N, int D, int H, int F) {
+  Shape sh{B, N, D, H, F};
+  Carver c{nullptr, 0};
+  FwdBuffers f;
+  f.carve(c, sh, false);
+  c.take<float>(sh.M() * D);
+  return c.off;
+}
+
+// ptr: x, s_attn1, s_mlp1, s_attn2, s_mlp2, 12 weights of block 1, 12 of
+// block 2, out, feat1|null, feat2|null, workspace. Returns
+// cudaGetLastError() after the launches.
+extern "C" int dk_fused_pair_fwd(void* const* ptr, int B, int N, int D, int H, int F,
+                                 float eps, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Shape sh{B, N, D, H, F};
+  const float* const* s = (const float* const*)(ptr + P_SCALES);
+  Carver c{(char*)ptr[P_REST + 3], 0};
+  FwdBuffers f;
+  f.carve(c, sh, false);
+  float* mid = c.take<float>(sh.M() * D);
+  forward_chain((const bf16*)ptr[P_X], s[0], s[1], unpack_weights(ptr + P_W1), sh, eps, f,
+                false, nullptr, mid, (bf16*)ptr[P_REST + 1], st);
+  forward_chain((const float*)mid, s[2], s[3], unpack_weights(ptr + P_W2), sh, eps, f, false,
+                (bf16*)ptr[P_REST], nullptr, (bf16*)ptr[P_REST + 2], st);
+  return (int)cudaGetLastError();
+}
+
+extern "C" size_t dk_fused_pair_bwd_workspace(int B, int N, int D, int H, int F) {
+  Shape sh{B, N, D, H, F};
+  Carver c{nullptr, 0};
+  PairBwdBuffers b;
+  b.carve(c, sh);
+  return c.off;
+}
+
+// ptr: x, s_attn1, s_mlp1, s_attn2, s_mlp2, 12 weights of block 1, 12 of
+// block 2, g_out, g_feat1|null, g_feat2|null, dx, the 12 fp32 weight
+// gradients of block 1, the 12 of block 2 (each in its weights' order), then
+// the workspace. Returns cudaGetLastError() after the launches.
+extern "C" int dk_fused_pair_bwd(void* const* ptr, int B, int N, int D, int H, int F,
+                                 float eps, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Shape sh{B, N, D, H, F};
+  const float* const* s = (const float* const*)(ptr + P_SCALES);
+  const BlockWeights w1 = unpack_weights(ptr + P_W1), w2 = unpack_weights(ptr + P_W2);
+  const bf16* g_out = (const bf16*)ptr[P_REST];
+  const bf16* g_feat1 = (const bf16*)ptr[P_REST + 1];
+  const bf16* g_feat2 = (const bf16*)ptr[P_REST + 2];
+  bf16* dx = (bf16*)ptr[P_REST + 3];
+  float* const* dW1 = (float* const*)(ptr + P_REST + 4);
+  float* const* dW2 = dW1 + 12;
+
+  Carver c{(char*)ptr[P_REST + 4 + 24], 0};
+  PairBwdBuffers b;
+  b.carve(c, sh);
+
+  // recompute block 1 with its stash and its unrounded output, then block 2's
+  // stash from it (block 2 stops at the GELU)
+  forward_chain((const bf16*)ptr[P_X], s[0], s[1], w1, sh, eps, b.f1, true, nullptr, b.mid,
+                nullptr, st);
+  forward_chain((const float*)b.mid, s[2], s[3], w2, sh, eps, b.f2, true, nullptr, nullptr,
+                nullptr, st);
+  // block 2's sweep leaves dmid in fp32; block 1's sweep reads it as its g_out
+  reverse_chain(g_out, g_feat2, s[2], s[3], w2, sh, b.f2, b.g, dW2, b.dmid, nullptr, st);
+  reverse_chain((const float*)b.dmid, g_feat1, s[0], s[1], w1, sh, b.f1, b.g, dW1, nullptr, dx,
+                st);
+  return (int)cudaGetLastError();
+}

@@ -17,6 +17,12 @@ the ``e @ v`` product (``post_div``). The backward saves only ``x`` and the
 scales and recomputes the forward, then folds the softmax normalisations into
 row scalings.
 
+The block pair (``fused_vit_block_pair``) runs two consecutive blocks as one
+function with its own forward and backward kernels. What it does that two
+single blocks do not: the activation between the two blocks, and in the
+backward its cotangent, never leave fp32 (a single block rounds its output to
+the compute dtype), and the backward saves one tensor per pair.
+
 Dispatch is by the device of ``x``: a CPU tensor takes the plain version, a
 CUDA tensor the hand-written kernels in ``csrc/`` (bf16 only), anything else
 raises. Weights use nn.Linear's [out, in] layout and timm's names.
@@ -101,10 +107,12 @@ def _split_qkv(qkv, H):
             _heads(qkv[..., 2 * D:], H))
 
 
-def _block_fwd_stash(x32, w, s_attn, eps, H, dtype):
+def _block_fwd_stash(x32, w, s_attn, eps, H, dtype, s_mlp=None):
     """Forward up to the GELU, keeping what the reverse sweep needs
     (_block_fwd_stash / _attention_fwd_stash); the softmax normalisation is
-    applied to the e @ v product (post_div)."""
+    applied to the e @ v product (post_div). With ``s_mlp`` also fc2 and the
+    block output. Returns (out, feat, stash), all fp32; out and feat are None
+    without ``s_mlp``."""
     D = x32.shape[-1]
     scale = (D // H) ** -0.5
     y, xhat1, rstd1 = _ln_fwd(x32, w[0], w[1], eps)
@@ -118,26 +126,21 @@ def _block_fwd_stash(x32, w, s_attn, eps, H, dtype):
     x2 = x32 + s_attn.view(-1, 1, 1) * attn
     z, xhat2, rstd2 = _ln_fwd(x2, w[6], w[7], eps)
     h, hgrad = _gelu_and_grad(_mm(z, w[8].t(), dtype) + w[9])
-    return x2, (y, qkv, e, rs, merged, xhat1, rstd1, xhat2, rstd2, z, h, hgrad)
+    out = feat = None
+    if s_mlp is not None:
+        feat = _mm(h, w[10].t(), dtype) + w[11]
+        out = x2 + s_mlp.view(-1, 1, 1) * feat
+    return out, feat, (y, qkv, e, rs, merged, xhat1, rstd1, xhat2, rstd2, z, h, hgrad)
 
 
-def _plain_fwd(x, s_attn, s_mlp, w, H, eps, need_feat):
-    """reference_vit_block on the kernel operand tuple ``w``."""
-    x2, stash = _block_fwd_stash(x.float(), w, s_attn, eps, H, x.dtype)
-    feat = _mm(stash[10], w[10].t(), x.dtype) + w[11]
-    out = x2 + s_mlp.view(-1, 1, 1) * feat
-    return out.to(x.dtype), (feat.to(x.dtype) if need_feat else None)
-
-
-def _plain_bwd(x, s_attn, s_mlp, w, g_out, g_feat, H, eps):
-    """Recompute + reverse sweep (_block_bwd_reverse, _attention_bwd_one).
-    Returns dx in x's dtype and the 12 fp32 weight grads summed over the
-    batch, in nn.Linear layout."""
-    dtype = x.dtype
-    scale = (x.shape[-1] // H) ** -0.5
-    _, (y, qkv, e, rs, merged, xhat1, rstd1, xhat2, rstd2, z, h, hgrad) = \
-        _block_fwd_stash(x.float(), w, s_attn, eps, H, dtype)
-    g_out = g_out.float()
+def _block_bwd_reverse(stash, w, g_out, g_feat, s_attn, s_mlp, H, dtype):
+    """Reverse sweep of one block from its stash (_block_bwd_reverse,
+    _attention_bwd_one). ``g_out`` is the fp32 cotangent at the block output,
+    ``g_feat`` an optional extra cotangent on the feature. Returns the fp32
+    dx and the 12 fp32 weight grads summed over the batch, in nn.Linear
+    layout."""
+    y, qkv, e, rs, merged, xhat1, rstd1, xhat2, rstd2, z, h, hgrad = stash
+    scale = (y.shape[-1] // H) ** -0.5
     rows = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
 
     def wgrad(g, a):  # sum over rows of g^T a, operands rounded to dtype
@@ -177,8 +180,48 @@ def _plain_bwd(x, s_attn, s_mlp, w, g_out, g_feat, H, eps):
     dx = dx2 + _ln_bwd(dy, xhat1, rstd1, w[0])
     dg1 = rows(dy * xhat1).sum(0)
     db1 = rows(dy).sum(0)
-    return dx.to(dtype), (dg1, db1, dwqkv, dbqkv, dwproj, dbproj, dg2, db2,
-                          dw1, dbf1, dw2, dbf2)
+    return dx, (dg1, db1, dwqkv, dbqkv, dwproj, dbproj, dg2, db2,
+                dw1, dbf1, dw2, dbf2)
+
+
+def _plain_fwd(x, s_attn, s_mlp, w, H, eps, need_feat):
+    """reference_vit_block on the kernel operand tuple ``w``."""
+    out, feat, _ = _block_fwd_stash(x.float(), w, s_attn, eps, H, x.dtype, s_mlp)
+    return out.to(x.dtype), (feat.to(x.dtype) if need_feat else None)
+
+
+def _plain_bwd(x, s_attn, s_mlp, w, g_out, g_feat, H, eps):
+    """Recompute + reverse sweep. Returns dx in x's dtype and the 12 fp32
+    weight grads summed over the batch, in nn.Linear layout."""
+    _, _, stash = _block_fwd_stash(x.float(), w, s_attn, eps, H, x.dtype)
+    dx, dws = _block_bwd_reverse(stash, w, g_out.float(), g_feat, s_attn, s_mlp,
+                                 H, x.dtype)
+    return dx.to(x.dtype), dws
+
+
+def _plain_pair_fwd(x, scales, w1, w2, H, eps, nf1, nf2):
+    """Two consecutive blocks (_pair_fwd_kernel); ``scales`` is (s_attn1,
+    s_mlp1, s_attn2, s_mlp2). The activation between them stays fp32.
+    Returns (out, feat1|None, feat2|None) in x's dtype."""
+    sa1, sm1, sa2, sm2 = scales
+    mid, f1, _ = _block_fwd_stash(x.float(), w1, sa1, eps, H, x.dtype, sm1)
+    out, f2, _ = _block_fwd_stash(mid, w2, sa2, eps, H, x.dtype, sm2)
+    return (out.to(x.dtype), f1.to(x.dtype) if nf1 else None,
+            f2.to(x.dtype) if nf2 else None)
+
+
+def _plain_pair_bwd(x, scales, w1, w2, g_out, g_f1, g_f2, H, eps):
+    """_pair_bwd_kernel: recompute block 1 with its output, block 2's stash
+    from that output, then the two reverse sweeps; the cotangent between
+    them stays fp32. Returns dx in x's dtype and the 12 + 12 fp32 weight
+    grads (block 1's, then block 2's)."""
+    sa1, sm1, sa2, sm2 = scales
+    dtype = x.dtype
+    mid, _, stash1 = _block_fwd_stash(x.float(), w1, sa1, eps, H, dtype, sm1)
+    _, _, stash2 = _block_fwd_stash(mid, w2, sa2, eps, H, dtype)
+    dmid, dws2 = _block_bwd_reverse(stash2, w2, g_out.float(), g_f2, sa2, sm2, H, dtype)
+    dx, dws1 = _block_bwd_reverse(stash1, w1, dmid, g_f1, sa1, sm1, H, dtype)
+    return dx.to(dtype), dws1 + dws2
 
 
 # -----------------------------------------------------------------------------
@@ -212,10 +255,20 @@ def _kernel_operands(x, s_attn, s_mlp, w, H, name):
     return x.contiguous(), scales[0], scales[1], ws
 
 
-def _launch(name, ptrs, x, H, F, eps):
+# The source under csrc/ that holds a kernel's entry point, where it is not
+# named like the kernel.
+_SOURCE_OF = {"fused_pair_fwd": "fused_block_pair", "fused_pair_bwd": "fused_block_pair"}
+
+
+def _library(name):
     from deltakd_tpu_torch.ops import _build
 
-    lib = _build.library(name)
+    return _build.library(_SOURCE_OF.get(name, name))
+
+
+def _launch(name, ptrs, x, H, F, eps):
+    """Calls the entry point ``dk_<name>`` and counts the launch."""
+    lib = _library(name)
     B, N, D = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     table = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -225,12 +278,15 @@ def _launch(name, ptrs, x, H, F, eps):
     LAUNCHES[(name, D)] += 1
 
 
-def _workspace(name, x, H, F):
-    from deltakd_tpu_torch.ops import _build
+def workspace_bytes(name, shape, H, F) -> int:
+    """Bytes of scratch that kernel ``name`` needs for x of ``shape``."""
+    B, N, D = shape
+    return getattr(_library(name), f"dk_{name}_workspace")(B, N, D, H, F)
 
-    B, N, D = x.shape
-    nbytes = getattr(_build.library(name), f"dk_{name}_workspace")(B, N, D, H, F)
-    return torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+
+def _workspace(name, x, H, F):
+    return torch.empty(workspace_bytes(name, x.shape, H, F), dtype=torch.uint8,
+                       device=x.device)
 
 
 def fused_block_fwd_cuda(x, s_attn, s_mlp, w, H, eps, need_feat):
@@ -265,6 +321,52 @@ def fused_block_bwd_cuda(x, s_attn, s_mlp, w, g_out, g_feat, H, eps):
         _launch("fused_block_bwd",
                 [_ptr(t) for t in (x, s_attn, s_mlp, *ws, g_out, g_feat, dx,
                                    *dws, work)],
+                x, H, F, eps)
+    return dx, dws
+
+
+def _pair_operands(x, scales, w1, w2, H, name):
+    """_kernel_operands for both blocks of a pair, which must have the same
+    widths: (x, four scales, weights of block 1, weights of block 2)."""
+    x, sa1, sm1, ws1 = _kernel_operands(x, scales[0], scales[1], w1, H, name)
+    _, sa2, sm2, ws2 = _kernel_operands(x, scales[2], scales[3], w2, H, name)
+    if ws1[8].shape != ws2[8].shape:
+        raise ValueError(f"{name}: the two blocks have hidden widths "
+                         f"{ws1[8].shape[0]} and {ws2[8].shape[0]}")
+    return x, (sa1, sm1, sa2, sm2), ws1, ws2
+
+
+def fused_pair_fwd_cuda(x, scales, w1, w2, H, eps, nf1, nf2):
+    """The pair forward kernel (csrc/fused_block_pair.cu) on CUDA tensors:
+    (out, feat1|None, feat2|None)."""
+    name = "fused_pair_fwd"
+    x, scales, ws1, ws2 = _pair_operands(x, scales, w1, w2, H, name)
+    F = ws1[8].shape[0]
+    with torch.cuda.device(x.device):
+        out = torch.empty_like(x)
+        f1 = torch.empty_like(x) if nf1 else None
+        f2 = torch.empty_like(x) if nf2 else None
+        work = _workspace(name, x, H, F)
+        _launch(name, [_ptr(t) for t in (x, *scales, *ws1, *ws2, out, f1, f2, work)],
+                x, H, F, eps)
+    return out, f1, f2
+
+
+def fused_pair_bwd_cuda(x, scales, w1, w2, g_out, g_f1, g_f2, H, eps):
+    """The pair backward kernel (csrc/fused_block_pair.cu) on CUDA tensors:
+    dx (bf16) and the 12 + 12 fp32 weight grads summed over the batch."""
+    name = "fused_pair_bwd"
+    x, scales, ws1, ws2 = _pair_operands(x, scales, w1, w2, H, name)
+    g_out, g_f1, g_f2 = (None if g is None else g.to(torch.bfloat16).contiguous()
+                         for g in (g_out, g_f1, g_f2))
+    F = ws1[8].shape[0]
+    with torch.cuda.device(x.device):
+        dx = torch.empty_like(x)
+        dws = tuple(torch.empty(t.shape, dtype=torch.float32, device=x.device)
+                    for t in ws1 + ws2)
+        work = _workspace(name, x, H, F)
+        _launch(name, [_ptr(t) for t in (x, *scales, *ws1, *ws2, g_out, g_f1, g_f2,
+                                         dx, *dws, work)],
                 x, H, F, eps)
     return dx, dws
 
@@ -312,6 +414,62 @@ class _FusedBlock(torch.autograd.Function):
         # the drop-path scales are non-trainable masks: zero cotangent (None)
         return (dx, None, None, None, None, None,
                 *(d.to(t.dtype) for d, t in zip(dws, w)))
+
+
+def pair_fwd(x, scales, w1, w2, H, eps, nf1, nf2):
+    """(out, feat1|None, feat2|None): the plain version for CPU tensors, the
+    kernel for CUDA tensors."""
+    if x.device.type == "cpu":
+        return _plain_pair_fwd(x, scales, w1, w2, H, eps, nf1, nf2)
+    if x.device.type == "cuda":
+        return fused_pair_fwd_cuda(x, scales, w1, w2, H, eps, nf1, nf2)
+    raise ValueError(f"fused block pair: no implementation for device {x.device}")
+
+
+def pair_bwd(x, scales, w1, w2, g_out, g_f1, g_f2, H, eps):
+    """(dx, 24 fp32 weight grads): the plain version for CPU tensors, the
+    kernel for CUDA tensors."""
+    if x.device.type == "cpu":
+        return _plain_pair_bwd(x, scales, w1, w2, g_out, g_f1, g_f2, H, eps)
+    if x.device.type == "cuda":
+        return fused_pair_bwd_cuda(x, scales, w1, w2, g_out, g_f1, g_f2, H, eps)
+    raise ValueError(f"fused block pair: no implementation for device {x.device}")
+
+
+class _FusedPair(torch.autograd.Function):
+    """Two blocks as one function: saves x, the four scales and the 24
+    weights; the backward recomputes both blocks. With ``single_forward`` the
+    forward runs as two single-block forwards (so the activation between them
+    is rounded to x's dtype) and only the backward is the pair's: an
+    attribution variant that no model path selects."""
+
+    @staticmethod
+    def forward(ctx, x, sa1, sm1, sa2, sm2, num_heads, eps, nf1, nf2,
+                single_forward, *w):
+        n = len(PARAM_NAMES)
+        w1, w2 = w[:n], w[n:]
+        ctx.save_for_backward(x, sa1, sm1, sa2, sm2, *w)
+        ctx.cfg = (num_heads, eps, nf1, nf2)
+        if single_forward:
+            mid, f1 = block_fwd(x, sa1, sm1, w1, num_heads, eps, nf1)
+            out, f2 = block_fwd(mid, sa2, sm2, w2, num_heads, eps, nf2)
+        else:
+            out, f1, f2 = pair_fwd(x, (sa1, sm1, sa2, sm2), w1, w2, num_heads,
+                                   eps, nf1, nf2)
+        return (out, *(f for f in (f1, f2) if f is not None))
+
+    @staticmethod
+    def backward(ctx, g_out, *g_feats):
+        x, sa1, sm1, sa2, sm2, *w = ctx.saved_tensors
+        num_heads, eps, nf1, nf2 = ctx.cfg
+        n = len(PARAM_NAMES)
+        g_feats = list(g_feats)
+        g_f1 = g_feats.pop(0) if nf1 else None
+        g_f2 = g_feats.pop(0) if nf2 else None
+        dx, dws = pair_bwd(x, (sa1, sm1, sa2, sm2), w[:n], w[n:], g_out, g_f1,
+                           g_f2, num_heads, eps)
+        # the drop-path scales are non-trainable masks: zero cotangent (None)
+        return (dx, *([None] * 9), *(d.to(t.dtype) for d, t in zip(dws, w)))
 
 
 def _scales(s, x):
@@ -377,3 +535,85 @@ def kernel_block_bwd(x, params, g_out, g_feat=None, *, num_heads, ln_eps=1e-6,
                                    g_out, g_feat, num_heads, ln_eps)
     return dx, dict(zip(PARAM_NAMES, dws))
 
+
+
+def fused_vit_block_pair(x: torch.Tensor, params1: Mapping[str, torch.Tensor],
+                         params2: Mapping[str, torch.Tensor], *, num_heads: int,
+                         ln_eps: float = 1e-6,
+                         scale_attn1: Optional[torch.Tensor] = None,
+                         scale_mlp1: Optional[torch.Tensor] = None,
+                         scale_attn2: Optional[torch.Tensor] = None,
+                         scale_mlp2: Optional[torch.Tensor] = None,
+                         need_features1: bool = True, need_features2: bool = True,
+                         single_forward: bool = False
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                    Optional[torch.Tensor]]:
+    """Apply two consecutive fused pre-norm ViT blocks as one function.
+
+    The contract of two chained :func:`fused_vit_block` calls, except that the
+    activation between the blocks stays fp32. Returns (out, feat1, feat2),
+    a feature None when not asked for. ``single_forward`` (the JAX package's
+    ``DELTAKD_PAIR_HYBRID=1``) runs the forward as two single-block forwards
+    and only the backward as the pair: for attributing a time difference to
+    one half, not for training.
+    """
+    outs = list(_FusedPair.apply(
+        x, *(_scales(s, x) for s in (scale_attn1, scale_mlp1, scale_attn2, scale_mlp2)),
+        num_heads, ln_eps, need_features1, need_features2, single_forward,
+        *block_params(params1), *block_params(params2)))
+    out = outs.pop(0)
+    f1 = outs.pop(0) if need_features1 else None
+    f2 = outs.pop(0) if need_features2 else None
+    return out, f1, f2
+
+
+def best_block_pair_fn(enabled: bool = True):
+    """block_pair_fn for VisionTransformer: ``fused_vit_block_pair`` or None
+    (single blocks). The device of the input decides at call time between the
+    kernels and the plain version."""
+    return fused_vit_block_pair if enabled else None
+
+
+def _pair_scales(x, scales):
+    return tuple(_scales(s, x) for s in (scales or (None,) * 4))
+
+
+def reference_vit_block_pair(x, params1, params2, *, num_heads, ln_eps=1e-6,
+                             scales=None):
+    """Plain PyTorch forward of the pair on any device: (out, feat1, feat2).
+    ``scales`` is (scale_attn1, scale_mlp1, scale_attn2, scale_mlp2) or None."""
+    return _plain_pair_fwd(x, _pair_scales(x, scales), block_params(params1),
+                           block_params(params2), num_heads, ln_eps, True, True)
+
+
+def _named_pair_grads(dws):
+    n = len(PARAM_NAMES)
+    return dict(zip(PARAM_NAMES, dws[:n])), dict(zip(PARAM_NAMES, dws[n:]))
+
+
+def reference_vit_block_pair_bwd(x, params1, params2, g_out, g_feat1=None,
+                                 g_feat2=None, *, num_heads, ln_eps=1e-6, scales=None):
+    """Plain PyTorch backward of the pair on any device: (dx, block 1's weight
+    grads by timm name, block 2's)."""
+    dx, dws = _plain_pair_bwd(x, _pair_scales(x, scales), block_params(params1),
+                              block_params(params2), g_out, g_feat1, g_feat2,
+                              num_heads, ln_eps)
+    return (dx, *_named_pair_grads(dws))
+
+
+def kernel_block_pair_fwd(x, params1, params2, *, num_heads, ln_eps=1e-6, scales=None,
+                          need_features1=True, need_features2=True):
+    """The pair forward kernel alone, no autograd (CUDA tensors)."""
+    return fused_pair_fwd_cuda(x, _pair_scales(x, scales), block_params(params1),
+                               block_params(params2), num_heads, ln_eps,
+                               need_features1, need_features2)
+
+
+def kernel_block_pair_bwd(x, params1, params2, g_out, g_feat1=None, g_feat2=None, *,
+                          num_heads, ln_eps=1e-6, scales=None):
+    """The pair backward kernel alone (CUDA tensors): (dx, block 1's weight
+    grads by name, block 2's)."""
+    dx, dws = fused_pair_bwd_cuda(x, _pair_scales(x, scales), block_params(params1),
+                                  block_params(params2), g_out, g_feat1, g_feat2,
+                                  num_heads, ln_eps)
+    return (dx, *_named_pair_grads(dws))

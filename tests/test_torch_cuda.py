@@ -5,7 +5,9 @@ Run on a machine with an NVIDIA GPU (no JAX needed there):
 Without a card the tests skip: a CUDA kernel has no CPU mode. The fused
 block: small shape (D=64, 2 heads, N=18) with drop-path scales of 0 and
 1/keep; bf16 operands, so the tolerance is 2e-2 of the largest reference
-value. The sort kernels: inputs with ties; sorted values, signs and gradients
+value. The block-pair kernels: the four (feat1, feat2) variants at D=192 and
+D=384 on weights of std 1/sqrt(fan-in), scales with zeros, through the kernels
+alone and through the autograd Function. The sort kernels: inputs with ties; sorted values, signs and gradients
 exactly, the loss to 1e-5 (fp32 sums in another order). The attention and MLP
 kernels: O(1) bf16 inputs (q, k of std 2, weights of std 1/sqrt(fan-in)), ragged
 N and M; 2e-2 of the largest reference value, 1e-3 absolute on lse.
@@ -56,6 +58,70 @@ def test_kernels_match_plain_version_on_card(need_feat):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nf1,nf2", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("width,heads", [(192, 3), (384, 6)])
+def test_pair_kernels_match_plain_version_on_card(width, heads, nf1, nf2):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(width + 2 * nf1 + nf2)
+    F, n_tok, batch = 4 * width, 50, 4
+    shapes = [(width,), (width,), (3 * width, width), (3 * width,), (width, width), (width,),
+              (width,), (width,), (F, width), (F,), (width, F), (width,)]
+
+    def block():
+        return {n: (torch.randn(s, generator=g) * (s[-1] ** -0.5 if len(s) == 2 else 0.1)
+                    + (1.0 if "norm" in n and "weight" in n else 0.0)).cuda()
+                for n, s in zip(fb.PARAM_NAMES, shapes)}
+
+    p1, p2 = block(), block()
+    x = torch.randn(batch, n_tok, width, generator=g).cuda().bfloat16()
+    keep = 0.9
+    scales = tuple(torch.tensor(v).cuda() for v in (
+        [0, 1 / keep, 1 / keep, 0], [1 / keep, 0, 1 / keep, 0], [1 / keep, 1, 0, 0],
+        [1, 1 / keep, 0, 0]))
+    g_out, g_f1, g_f2 = (torch.randn(x.shape, generator=g).cuda().bfloat16() for _ in range(3))
+    g_f1, g_f2 = (g_f1 if nf1 else None), (g_f2 if nf2 else None)
+    kw = dict(num_heads=heads, scales=scales)
+    out, f1, f2 = fb.kernel_block_pair_fwd(x, p1, p2, need_features1=nf1, need_features2=nf2,
+                                           **kw)
+    r_out, r_f1, r_f2 = fb.reference_vit_block_pair(x, p1, p2, **kw)
+    dx, dw1, dw2 = fb.kernel_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)
+    r_dx, r_dw1, r_dw2 = fb.reference_vit_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)
+    assert torch.equal(out[3], x[3])        # all four scales 0: the pair is the identity
+    _within(out.float() - x.float(), r_out.float() - x.float())
+    _within(dx, r_dx)
+    for n in fb.PARAM_NAMES:
+        _within(dw1[n], r_dw1[n])
+        _within(dw2[n], r_dw2[n])
+    for flag, f, r_f in ((nf1, f1, r_f1), (nf2, f2, r_f2)):
+        if flag:
+            _within(f, r_f)
+        else:
+            assert f is None
+    # through the autograd Function: one launch each, gradients in the parameters' dtype
+    leaves = [{n: t.clone().requires_grad_(True) for n, t in p.items()} for p in (p1, p2)]
+    x_leaf = x.clone().requires_grad_(True)
+    fb.reset_launches()
+    names = ("scale_attn1", "scale_mlp1", "scale_attn2", "scale_mlp2")
+    o, a1, a2 = fb.fused_vit_block_pair(x_leaf, *leaves, num_heads=heads, need_features1=nf1,
+                                        need_features2=nf2, **dict(zip(names, scales)))
+    loss = (o.float() * g_out.float()).sum()
+    loss = loss + sum((a.float() * c.float()).sum() for a, c in ((a1, g_f1), (a2, g_f2))
+                      if a is not None)
+    grads = torch.autograd.grad(loss, [x_leaf] + [p[n] for p in leaves for n in fb.PARAM_NAMES])
+    assert fb.LAUNCHES == {("fused_pair_fwd", width): 1, ("fused_pair_bwd", width): 1}
+    assert torch.equal(grads[0], dx) and grads[1].dtype == torch.float32
+    assert torch.equal(grads[1], dw1["norm1.weight"])
+    with pytest.raises(ValueError):
+        fb.kernel_block_pair_fwd(x.float(), p1, p2, **kw)
+
+
+def _within(a, b, tol=2e-2):
+    a, b = a.float(), b.float()
+    assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(3, 196, 40), (2, 64, 33), (2, 2, 5), (1, 1024, 20)])
 def test_sort_kernels_match_plain_version_on_card(shape, dtype):
@@ -81,11 +147,6 @@ def test_sort_kernels_match_plain_version_on_card(shape, dtype):
     assert torch.equal(g_s, g_r) and g_t.abs().max().item() == 0.0
     with pytest.raises(ValueError):
         so.sorted_l1(s.double(), t.double(), 1)
-
-
-def _within(a, b, tol=2e-2):
-    a, b = a.float(), b.float()
-    assert (a - b).abs().max().item() <= tol * b.abs().max().item()
 
 
 @pytest.mark.cuda

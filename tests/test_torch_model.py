@@ -3,7 +3,10 @@ carried across by models/convert.flax_to_torch: logits and per-block features,
 distilled and plain, train and eval mode, through the unfused module path,
 through the fused block (its plain version on the CPU) and through the unfused
 path with ``flash_attention`` and ``fused_mlp`` (with and without a qkv bias);
-and the factory's choice of path from ``mesh_shape`` and ``flash_attention``.
+the factory's choice of path from ``mesh_shape`` and ``flash_attention``; and
+the block-pair path (``block_pair_fn``) against the JAX model on the Pallas
+pair kernels in interpret mode, with its drop-path masks, ``state_dict``,
+``view`` and the factory's ``block_pair``.
 
 fp32 on the CPU; tolerance 1e-4 of the largest reference value (summation
 order only).
@@ -18,13 +21,14 @@ import torch
 from deltakd_tpu.models.import_timm import timm_to_flax
 from deltakd_tpu.models.vit import ViTConfig as JViTConfig
 from deltakd_tpu.models.vit import VisionTransformer as JViT
+from deltakd_tpu.ops import fused_block as jfb
 from deltakd_tpu.ops.attention import reference_attention as j_reference_attention
 from deltakd_tpu.ops.fused_mlp import reference_mlp as j_reference_mlp
 from deltakd_tpu_torch.models.convert import flax_to_torch
 from deltakd_tpu_torch.models.registry import get_model_config
 from deltakd_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from deltakd_tpu_torch.ops.attention import flash_attention
-from deltakd_tpu_torch.ops.fused_block import fused_vit_block
+from deltakd_tpu_torch.ops.fused_block import fused_vit_block, fused_vit_block_pair
 from deltakd_tpu_torch.ops.fused_mlp import fused_mlp
 
 torch.set_num_threads(1)
@@ -256,3 +260,145 @@ def test_load_teacher_student_picks_the_path_from_the_config(mesh_shape, flash, 
         teacher, student, _ = load_teacher_student(cfg, attention_fn=None, device="cpu")
         assert teacher.block_fn is None and teacher.mlp_fn is None
         assert student.attention_fn is None
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+@pytest.mark.parametrize("train", [False, True])
+def test_paired_model_matches_jax_paired_model(depth, train, monkeypatch):
+    """The pairing loop: blocks 0-1 through one pair call, at depth 3 the odd
+    last block through the single block; only block 1's feature is collected
+    (the pair's (False, True) variant). The JAX model runs the Pallas pair and
+    block kernels in interpret mode."""
+    monkeypatch.setenv("DELTAKD_FUSED_CP", "0")
+    monkeypatch.delenv("DELTAKD_PAIR_HYBRID", raising=False)
+    kw = dict(CFG, depth=depth, distilled=True)
+    collect = frozenset({1})
+    j = JViT(JViTConfig(**kw), dtype=jnp.float32, block_fn=jfb.fused_vit_block,
+             block_pair_fn=jfb.fused_vit_block_pair, collect_features=collect)
+    x = np.random.RandomState(6).randn(4, 32, 32, 3).astype(np.float32)
+    jfb.set_interpret(True)
+    try:
+        params = j.init({"params": jax.random.PRNGKey(6)}, jnp.zeros((1, 32, 32, 3)))["params"]
+        jo = j.apply({"params": params}, jnp.asarray(x), train=train)
+    finally:
+        jfb.set_interpret(False)
+    calls = []
+
+    def counting_pair(*args, **kwargs):
+        calls.append((kwargs["need_features1"], kwargs["need_features2"]))
+        return fused_vit_block_pair(*args, **kwargs)
+
+    t = VisionTransformer(ViTConfig(**kw), dtype=torch.float32, block_fn=fused_vit_block,
+                          block_pair_fn=counting_pair, collect_features=collect)
+    t.load_state_dict(flax_to_torch(params))
+    with torch.no_grad():
+        to = t(torch.from_numpy(x), train=train)
+    assert calls == [(False, True)]
+    _close(to.logits, jo.logits)
+    _close(to.logits_dist, jo.logits_dist)
+    assert len(to.features) == depth
+    for i, (tf, jf) in enumerate(zip(to.features, jo.features)):
+        if i == 1:
+            _close(tf, jf)
+        else:
+            assert tf is None and jf is None
+
+
+def test_paired_and_single_models_share_masks_and_state_dict():
+    """Pairing changes neither the parameters nor the drop-path draws: equal
+    generators give equal masks, each model loads the other's state_dict, and
+    on the CPU at fp32 both compute the same function of them."""
+    kw = dict(CFG, distilled=True, drop_path_rate=0.2)
+    single = VisionTransformer(ViTConfig(**kw), dtype=torch.float32, block_fn=fused_vit_block)
+    paired = VisionTransformer(ViTConfig(**kw), dtype=torch.float32, block_fn=fused_vit_block,
+                               block_pair_fn=fused_vit_block_pair)
+    with torch.no_grad():
+        for p in single.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    assert list(single.state_dict()) == list(paired.state_dict())
+    paired.load_state_dict(single.state_dict())
+    single.load_state_dict(paired.state_dict())
+    a = single.draw_drop_scales(8, torch.Generator().manual_seed(3), "cpu")
+    b = paired.draw_drop_scales(8, torch.Generator().manual_seed(3), "cpu")
+    assert a[0] is None and b[0] is None
+    for pa, pb in zip(a[1:], b[1:]):
+        assert all(torch.equal(u, v) for u, v in zip(pa, pb))
+    x = torch.from_numpy(np.random.RandomState(7).randn(8, 32, 32, 3).astype(np.float32))
+    with torch.no_grad():
+        so = single(x, train=True, generator=torch.Generator().manual_seed(4))
+        po = paired(x, train=True, generator=torch.Generator().manual_seed(4))
+    _close(po.logits, so.logits)
+    for pf, sf in zip(po.features, so.features):
+        _close(pf, sf)
+
+
+def test_view_without_pairs_shares_storage_and_lists_its_overrides():
+    """The eval model of a paired student: single blocks on the same
+    parameters. view() takes exactly VIEW_OVERRIDES."""
+    calls = {"pair": 0, "block": 0}
+
+    def pair_fn(*args, **kwargs):
+        calls["pair"] += 1
+        return fused_vit_block_pair(*args, **kwargs)
+
+    def block_fn(*args, **kwargs):
+        calls["block"] += 1
+        return fused_vit_block(*args, **kwargs)
+
+    paired = VisionTransformer(ViTConfig(distilled=True, **CFG), dtype=torch.float32,
+                               block_fn=block_fn, block_pair_fn=pair_fn)
+    view = paired.view(block_pair_fn=None, collect_features=False)
+    assert view.block_pair_fn is None and paired.block_pair_fn is pair_fn
+    for (n1, p1), (n2, p2) in zip(paired.named_parameters(), view.named_parameters()):
+        assert n1 == n2 and p1 is p2
+    x = torch.from_numpy(np.random.RandomState(8).randn(2, 32, 32, 3).astype(np.float32))
+    with torch.no_grad():
+        out = view(x)
+        assert calls == {"pair": 0, "block": CFG["depth"]}
+        assert all(f is None for f in out.features)
+        _close(paired(x).logits, out.logits)
+        assert calls == {"pair": 1, "block": CFG["depth"] + 1}    # depth 3: a pair and a block
+    assert "block_pair_fn" in VisionTransformer.VIEW_OVERRIDES
+    for name in VisionTransformer.VIEW_OVERRIDES:
+        assert getattr(paired.view(**{name: None}), name) is None
+    with pytest.raises(TypeError, match="block_pair_fn"):
+        paired.view(num_heads=2)
+
+
+def test_no_qkv_bias_model_ignores_block_pair_fn():
+    def pair_fn(*args, **kwargs):
+        raise AssertionError("block_pair_fn called for a model without a qkv bias")
+
+    cfg = ViTConfig(distilled=True, qkv_bias=False, **CFG)
+    model = VisionTransformer(cfg, dtype=torch.float32, block_pair_fn=pair_fn)
+    with torch.no_grad():
+        out = model(torch.zeros(2, 32, 32, 3))
+    assert out.logits.shape == (2, 10)
+
+
+@pytest.mark.parametrize("mesh_shape,flash,block_pair,paired", [
+    (None, True, True, True), ((2, 1), True, True, True), (None, True, False, False),
+    ((1, 2), True, True, False), (None, False, True, False)])
+def test_load_teacher_student_pairs_the_student_only(mesh_shape, flash, block_pair, paired):
+    """block_pair=True (the JAX factory's DELTAKD_PAIR=1) gives the student,
+    never the teacher, fused_vit_block_pair, and only with the kernels on and
+    no model axis."""
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.models.factory import create_model, load_teacher_student
+
+    cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224",
+                      student_model="deit_tiny_distilled_patch16_224", aa="",
+                      color_jitter=0.0, dataset="cifar-10", input_size=32,
+                      distillation_type="soft", allow_random_teacher=True,
+                      mesh_shape=mesh_shape, flash_attention=flash)
+    teacher, student, _ = load_teacher_student(cfg, block_pair=block_pair, seed=0,
+                                               device="cpu")
+    assert teacher.block_pair_fn is None
+    assert student.block_pair_fn is (fused_vit_block_pair if paired else None)
+    if paired:
+        assert student.block_fn is fused_vit_block
+        eval_model = student.view(block_pair_fn=None, collect_features=False)
+        assert eval_model.block_pair_fn is None and eval_model.head.weight is student.head.weight
+    default = create_model("deit_tiny_distilled_patch16_224", num_classes=10, img_size=32,
+                           device="cpu")
+    assert default.block_pair_fn is None
