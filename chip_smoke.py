@@ -53,7 +53,9 @@ Phases, each of which fails the run:
      sample with all four at 0 must come back as x), and at the main-path
      shape [256, 198, 192] (out - x, feat1, feat2, dx, all 24 dW), two runs
      the same bits; prints how far the pair is from the two single kernels
-     chained (they round the activation between the blocks to bf16); times
+     chained (they round the activation between the blocks to bf16); checks
+     that the cotangent between the two reverse sweeps keeps its fp32 bits
+     (one fp32 weight gradient is additive in two cotangents 2^-10 apart); times
      the pair beside its plain version, its bound, two library blocks, the
      two single kernels' sum and the single-forward variant, and prints the
      backward's workspace bytes; then runs the soft, wasskd and vitkd steps
@@ -87,6 +89,8 @@ LOGIT_TOL = 5e-2      # logits, features and the distill loss, card kernels vs
 LSE_TOL = 1e-3        # attention lse, kernel vs plain, absolute (fp32 both sides)
 LOSS_TOL = 1e-5       # sorted_l1 loss, kernel vs plain, relative (fp32 sums in
 #                       another order); sorted values, signs, gradients: exact
+DMID_TOL = 1e-2       # additivity of one fp32 weight gradient of the pair backward
+#                       in its two cotangents (check_pair_cotangent_fp32)
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16
 PEAK_FP32_OPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -285,7 +289,9 @@ def time_kernels(fb, worst):
         weight_bytes = 12 * D * D * 2
         nbytes = 2 * B * N * D * 2 + weight_bytes
         if kernel == "fused_block_bwd":
-            flops *= 3    # the recompute plus two products per forward product
+            # two products per forward product, and the recompute, which stops
+            # at the GELU: a forward less its fc2
+            flops = 3 * flops - 2 * B * N * D * 4 * D
             nbytes = 3 * B * N * D * 2 + weight_bytes + 12 * D * D * 4
         rows[(kernel, D)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                                  **_bound(flops, nbytes))
@@ -356,15 +362,16 @@ def _hold_pair(fb, worst, D, H, B, nf1, nf2, seed, repeat=False):
 def check_pair_kernels(fb, worst):
     """Phase 8a: the pair kernels vs their plain versions at B=8 for both
     widths and the four feature variants, then at the main-path shape with
-    both features, twice; and, printed, the pair against the two single
-    kernels chained, which round the activation between the blocks (and its
-    cotangent) to bf16."""
+    no feature and with both features, the latter twice; and, printed, the
+    pair against the two single kernels chained, which round the activation
+    between the blocks to bf16."""
     import torch
 
     for D, H in ((192, 3), (384, 6)):
         for nf1, nf2 in PAIR_FLAGS:
             _hold_pair(fb, worst, D, H, B_CHECK, nf1, nf2, D + 2 * nf1 + nf2)
     D, H = 192, 3
+    _hold_pair(fb, worst, D, H, B_MAIN, False, False, 12)   # what the soft step launches
     (p1, p2, x, scales, (g_out, g_f1, g_f2)), fwd, (dx, dw1, _) = _hold_pair(
         fb, worst, D, H, B_MAIN, True, True, 11, repeat=True)
     kw1 = dict(num_heads=H, scale_attn=scales[0], scale_mlp=scales[1])
@@ -379,16 +386,48 @@ def check_pair_kernels(fb, worst):
                        ("dmlp.fc1.weight[1]", dw1["mlp.fc1.weight"], s_dw1["mlp.fc1.weight"])):
         abs_err, mx = _err(a, b)
         print(f"[pair vs two single kernels] {name}: max_abs_diff {abs_err:.3e}, max |single| "
-              f"{mx:.3e} (rel {abs_err / mx:.3e}; the singles round mid and dmid to bf16)")
+              f"{mx:.3e} (rel {abs_err / mx:.3e}; the singles round mid to bf16)")
         if abs_err > TOL * mx:
             raise AssertionError(f"pair kernels and two single kernels differ in {name}")
         if abs_err == 0.0:
             raise AssertionError(f"the pair's {name} has the bits of two single kernels: "
-                                 f"the activation between its blocks, or its cotangent, "
-                                 f"was rounded to bf16")
+                                 f"the activation between its blocks was rounded to bf16")
     if not torch.equal(fwd[1], f1):
         raise AssertionError("feat1 of the pair and of the first single block differ: "
                              "both come from the same chain on the same input")
+
+
+def check_pair_cotangent_fp32(fb):
+    """Phase 8a': the cotangent between the two reverse sweeps keeps its low
+    bits. Against the plain version a bf16 `dmid` hides under TOL, so this
+    check needs none: with block 2's four scales at 0, dmid = g_out + J(g_feat2)
+    where J does not depend on g_out, and block 1's fc2-bias gradient is the
+    fp32 column sum of dmid. So that gradient is additive in (g_out, g_feat2)
+    up to fp32 summation error, as long as a g_feat2 of 2^-10 the size of
+    g_out survives beside g_out in dmid; rounded to bf16 it would not."""
+    import torch
+
+    D, H = 192, 3
+    p1, p2, x, _, (g_out, _, g_f2) = _pair_inputs(D, H, B_CHECK, 17, "cuda")
+    one, zero = torch.ones(B_CHECK, device="cuda"), torch.zeros(B_CHECK, device="cuda")
+    small = (g_f2.float() * 2.0 ** -10).bfloat16()
+    nothing = torch.zeros_like(g_out)
+
+    def dbias(g, gf2):
+        _, dw1, _ = fb.kernel_block_pair_bwd(x, p1, p2, g, None, gf2, num_heads=H,
+                                             scales=(one, one, zero, zero))
+        return dw1["mlp.fc2.bias"].double()
+
+    both, only_out, only_feat = dbias(g_out, small), dbias(g_out, nothing), dbias(nothing, small)
+    torch.cuda.synchronize()
+    err = ((both - only_out) - only_feat).abs().max().item()
+    mx = only_feat.abs().max().item()
+    print(f"[pair dmid fp32] dmlp.fc2.bias[1] with (g_out, g_feat2) less that with g_out alone, "
+          f"against that with g_feat2 alone: max_abs_diff {err:.3e}, max {mx:.3e} "
+          f"(rel {err / mx:.3e}, limit {DMID_TOL})")
+    if not (mx > 0.0 and err <= DMID_TOL * mx):
+        raise AssertionError("fused_pair_bwd: a small cotangent did not survive beside g_out "
+                             "between the two sweeps: dmid was rounded")
 
 
 def time_pair_kernels(fb):
@@ -453,9 +492,10 @@ def time_pair_kernels(fb):
             fwd = _timed(lib_fwd, 20)
             library_ms = both - fwd
             extra = f" (library forward+backward {both:.3f} ms, forward {fwd:.3f} ms)"
-            # the recompute and two products per forward product for each block, and
-            # block 1's fc2; x, g_out, dx, the bf16 weights, the fp32 gradients
-            bound = _bound(2 * 3 * flops1 + fc2, 3 * io + weights * (2 + 4))
+            # per block the recompute up to the GELU (a forward less its fc2) and
+            # two products per forward product, and block 1's fc2 for mid; x,
+            # g_out, dx, the bf16 weights, the fp32 gradients
+            bound = _bound(2 * (3 * flops1 - fc2) + fc2, 3 * io + weights * (2 + 4))
         rows[(kernel, D)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
         print(f"[time] {kernel} D={D} B={B}: {ms:.3f} ms (turns {turns[0]:.3f}, {turns[3]:.3f}), "
               f"two single kernels {singles_ms:.3f} ms (turns {turns[1]:.3f}, {turns[2]:.3f}), "
@@ -1284,6 +1324,7 @@ def main() -> int:
     check_mlp_kernels(fm, worst)
     timing.update(time_mlp_kernels(fm))
     check_pair_kernels(fb, worst)
+    check_pair_cotangent_fp32(fb)
     timing.update(time_pair_kernels(fb))
     torch.cuda.empty_cache()
 
