@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Runs the PyTorch/CUDA port (deltakd_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # the run below, on one card
+    python3 chip_smoke.py --faults     # the planted faults (FAULTS), each in a copy
 
 Phases, each of which fails the run:
   1. prints the card's name and power limit (nvidia-smi);
@@ -10,9 +11,15 @@ Phases, each of which fails the run:
   3. holds each fused-block kernel against its plain PyTorch version on the
      card, for the student (D=192) and teacher (D=384) widths, with and
      without the feature output, with drop-path scales of 0 and 1/keep, at
-     B=8; then again at the main-path shape (B=256, N=198), where it times it
-     beside its plain version, its bound and the same block built from
-     PyTorch library calls;
+     B=8; the forward also at N = 50, 198 and 578 for D = 192, 384 and 768;
+     the forward's GEMM alone (gemm_sm90.cuh) against F.linear plus its
+     epilogue on the four products at D=192/384, timed beside cuBLAS; prints
+     the forward's workspace beside the one that held the [N, N] scores; then
+     the block kernels again at the main-path shape (B=256, N=198), where it
+     times them beside their plain versions, their bounds and the same block
+     built from PyTorch library calls. Times are medians of per-call
+     CUDA-event times with the calls queued behind a sleep on the card, so
+     they are the card's and not the host's;
   4. holds the sort kernels (value sort, sorted_l1 forward and backward)
      against their plain versions on inputs with ties, in bf16 and fp32, at
      B=8 (n=196, a power-of-two n, a d that is no multiple of the column
@@ -23,7 +30,8 @@ Phases, each of which fails the run:
      the fused-MLP kernels (forward; backward: dx, dW1, db1, dW2, db2) against
      their plain versions on O(1) inputs (q, k of std 1.5, weights of std
      1/sqrt(fan-in)): attention at [24,198,64], at N=50 (no multiple of 16),
-     at N=578 (three key ranges in the backward) and at the main-path shapes
+     at N=578 ([4,578,64] and [48,578,64]; three key ranges in the
+     backward) and at the main-path shapes
      [1536,198,64] and [768,198,64]; the MLP at D=192 and D=384 with M=1584
      and M=1001 (no row tile divides them) and at M=50688; two runs give the
      same bits; then times them at the main-path shapes beside their plain
@@ -91,6 +99,7 @@ LOSS_TOL = 1e-5       # sorted_l1 loss, kernel vs plain, relative (fp32 sums in
 #                       another order); sorted values, signs, gradients: exact
 DMID_TOL = 1e-2       # additivity of one fp32 weight gradient of the pair backward
 #                       in its two cotangents (check_pair_cotangent_fp32)
+SLEEP_CYCLES = 200_000_000  # about 0.1 s of the card's clock (_timed)
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16
 PEAK_FP32_OPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -111,7 +120,9 @@ PAIR_FLAGS = ((False, False), (True, False), (False, True), (True, True))
 
 def _timed(fn, iters, warmup=3):
     """Median ms of ``iters`` calls, each between its own pair of CUDA events,
-    after ``warmup`` calls."""
+    after ``warmup`` calls. The calls are queued behind a 0.1 s sleep on the
+    card, so that the host's launch work runs ahead of the card and the events
+    bracket the card's work, not the host's."""
     import torch
 
     for _ in range(warmup):
@@ -119,6 +130,7 @@ def _timed(fn, iters, warmup=3):
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(iters)]
+    torch.cuda._sleep(SLEEP_CYCLES)
     for e0, e1 in events:
         e0.record()
         fn()
@@ -140,7 +152,7 @@ def _bound(flops, nbytes):
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def _block_inputs(D, H, B, seed, device):
+def _block_inputs(D, H, B, seed, device, n=N_TOK):
     """A block's weights (LayerNorm params off their ones/zeros init), bf16
     input and drop-path scales with some 0 and some 1/keep. The matmul weights
     have std 1/sqrt(fan-in), and q, k twice that so the softmax is peaked:
@@ -162,7 +174,7 @@ def _block_inputs(D, H, B, seed, device):
           r(F, D, sc=1 / math.sqrt(D)), r(F, sc=.02), r(D, F, sc=1 / math.sqrt(F)),
           r(D, sc=.02)]
     params = {n: w.to(device) for n, w in zip(PARAM_NAMES, ws)}
-    x = r(B, N_TOK, D, sc=1.0).to(device).bfloat16()
+    x = r(B, n, D, sc=1.0).to(device).bfloat16()
     keep = 0.9
     sa = (torch.rand(B, generator=g) < keep).float() / keep
     sm = (torch.rand(B, generator=g) < keep).float() / keep
@@ -211,6 +223,129 @@ def check_kernels(fb, worst):
                 [("feat", feat, r_feat)] if need_feat else []))
             _hold(worst, tag, "fused_block_bwd", D, x, [("dx", dx, r_dx)] + [
                 ("d" + n, dws[n], r_dws[n]) for n in fb.PARAM_NAMES])
+
+
+def check_block_forward_shapes(fb, worst):
+    """Phase 3a': the block forward against its plain version at B=8 for every
+    sequence length N in (50, 198, 578) (ragged against the 64-row query
+    tiles, 64-key chunks and 128-row GEMM tiles; 578 is the 384-px finetune),
+    width (192, 384, 768) and feature option, with drop-path scales that hold
+    zeros; two runs the same bits."""
+    import torch
+
+    for n in (50, N_TOK, 578):
+        for D, H in ((192, 3), (384, 6), (768, 12)):
+            for need_feat in (False, True):
+                p, x, sa, sm = _block_inputs(D, H, B_CHECK, D + n + need_feat, "cuda", n=n)
+                kw = dict(num_heads=H, scale_attn=sa, scale_mlp=sm)
+                out, feat = fb.kernel_block_fwd(x, p, need_features=need_feat, **kw)
+                again = fb.kernel_block_fwd(x, p, need_features=need_feat, **kw)
+                r_out, r_feat = fb.reference_vit_block(x, p, **kw)
+                torch.cuda.synchronize()
+                _hold(worst, f"B={B_CHECK} N={n} feat={need_feat}", "fused_block_fwd", D, x,
+                      [("out", out, r_out)] + ([("feat", feat, r_feat)] if need_feat else []))
+                if not (torch.equal(out, again[0])
+                        and (not need_feat or torch.equal(feat, again[1]))):
+                    raise AssertionError(f"fused_block_fwd D={D} N={n}: two runs gave "
+                                         f"different bits")
+
+
+# The forward's four linear products: (name, N / D, K / D).
+LINEAR_PRODUCTS = (("qkv", 3, 1), ("proj", 1, 1), ("fc1", 4, 1), ("fc2", 1, 4))
+
+
+def _linear_inputs(name, D, M, seed):
+    """One product's operands and the epilogue that forward_chain gives it:
+    qkv scales its q columns by 64^-1/2, proj adds the drop-path-scaled bf16
+    block input, fc1 applies GELU (and keeps its derivative), fc2 adds the
+    fp32 x2; the scales hold zeros."""
+    import torch
+
+    mult = {n: (a, b) for n, a, b in LINEAR_PRODUCTS}[name]
+    N, K = mult[0] * D, mult[1] * D
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(M, K, generator=g).cuda().bfloat16()
+    w = (torch.randn(N, K, generator=g) / math.sqrt(K)).cuda().bfloat16()
+    bias = (0.1 * torch.randn(N, generator=g)).cuda()
+    kw = {}
+    if name == "qkv":
+        kw = dict(scale_cols=D, col_scale=HEAD_DIM ** -0.5)
+    elif name == "fc1":
+        kw = dict(gelu=True)
+    else:
+        rps = N_TOK if M % N_TOK == 0 else 7
+        s = (torch.rand(M // rps, generator=g) < 0.9).float() / 0.9
+        s[0] = 0.0
+        res = torch.randn(M, N, generator=g).cuda()
+        kw = dict(residual=res.bfloat16() if name == "proj" else res, res_scale=s.cuda(),
+                  rows_per_sample=rps)
+    return a, w, bias, kw
+
+
+# What forward_chain writes of each product on the main path (no stash, no
+# feature): qkv_lp, x2, the hidden, the block output.
+LINEAR_MAIN_OUTPUTS = {"qkv": ("bf16",), "proj": ("f32",), "fc1": ("bf16",), "fc2": ("bf16",)}
+
+
+def check_linear(fb, worst):
+    """Phase 3a'': the forward's GEMM alone (fb.kernel_linear, gemm_sm90.cuh)
+    against F.linear plus the same epilogue (fb.plain_linear) on the four
+    product shapes at D=192 and D=384: at M=1001 (ragged against the 128-row
+    tile) with every output (fp32, bf16, the pre-residual bf16, GELU's
+    derivative), at M=50688 (the main path) with the outputs forward_chain
+    writes there; each within TOL, two runs the same bits. At M=50688 it is
+    timed beside one cuBLAS call (F.linear, bf16) of the same product.
+    Returns {(name, D): (ms, cuBLAS ms)}."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    for D in (192, 384):
+        for name, _, _ in LINEAR_PRODUCTS:
+            for M in (1001, M_MAIN):
+                a, w, bias, kw = _linear_inputs(name, D, M, D + M)
+                if M == M_MAIN:
+                    kw["outputs"] = LINEAR_MAIN_OUTPUTS[name]
+                got = fb.kernel_linear(a, w, bias, **kw)
+                again = fb.kernel_linear(a, w, bias, **kw)
+                ref = fb.plain_linear(a, w, bias, **{k: v for k, v in kw.items()
+                                                     if k != "outputs"})
+                torch.cuda.synchronize()
+                checks = [(tag, g_, r_, None) for tag, g_, r_ in
+                          zip(("out32", "out_bf16", "pre", "gelu'"), got, ref) if g_ is not None]
+                same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again) if g_ is not None)
+                _hold_all(worst, "linear_sm90", f"{name} D={D} M={M}", checks, same)
+            N, K = w.shape
+            flops = 2 * M * N * K
+            ms = _timed(lambda: fb.kernel_linear(a, w, bias, **kw), 20)
+            b_lp = bias.bfloat16()
+            lib = _timed(lambda: F.linear(a, w, b_lp), 20)
+            rows[(name, D)] = (ms, lib)
+            print(f"[gemm] {name} D={D} [{M}x{K}]x[{K}x{N}] writing "
+                  f"{'+'.join(kw['outputs'])}: {ms:.4f} ms {flops / ms / 1e9:.1f} TFLOP/s; "
+                  f"cuBLAS (F.linear, bf16 out) {lib:.4f} ms {flops / lib / 1e9:.1f} TFLOP/s")
+    return rows
+
+
+def print_forward_workspace(fb):
+    """The block forward's workspace at the main path's shapes beside what it
+    took while it materialised the scores (the same plus the fp32 scores,
+    their bf16 copy and the row sums, [B*H, N, N] each): fails unless it is
+    exactly the six activations of the no-stash chain (y, qkv, merged, x2, z,
+    hidden), that is, unless the scores are gone."""
+    def r256(n):
+        return (n + 255) // 256 * 256
+
+    for D, H in ((384, 6), (192, 3)):
+        now = fb.workspace_bytes("fused_block_fwd", (B_MAIN, N_TOK, D), H, 4 * D)
+        M, bh, nn = B_MAIN * N_TOK, B_MAIN * H, N_TOK * N_TOK
+        scores = sum(r256(n) for n in (bh * nn * 4, bh * nn * 2, bh * N_TOK * 4))
+        chain = sum(r256(M * D * k) for k in (2, 3 * 2, 2, 4, 2, 4 * 2))
+        print(f"[workspace] fused_block_fwd [{B_MAIN},{N_TOK},{D}]: {now} bytes; with the "
+              f"materialised scores {now + scores}; {scores} less")
+        if now != chain:
+            raise AssertionError(f"fused_block_fwd D={D}: the workspace is {now} bytes, not "
+                                 f"the {chain} of the chain's activations alone")
 
 
 def _library_block(x, w, H, eps, sa, sm):
@@ -732,9 +867,10 @@ def _hold_attention(at, worst, shape, main=False):
 def check_attention_kernels(at, worst):
     """Phase 5a: the attention kernels vs their plain versions: 8 images of
     the student (3 heads), an N that is no multiple of 16, an N above 256
-    (three key ranges and the dq reduction in the backward), and the main
-    path's two shapes."""
-    for shape in ((B_CHECK * 3, N_TOK, HEAD_DIM), (4, 50, HEAD_DIM), (4, 578, HEAD_DIM)):
+    (three key ranges and the dq reduction in the backward) for 4 and for 48
+    (batch, head) pairs, and the main path's two shapes."""
+    for shape in ((B_CHECK * 3, N_TOK, HEAD_DIM), (4, 50, HEAD_DIM), (4, 578, HEAD_DIM),
+                  (B_CHECK * 6, 578, HEAD_DIM)):
         _hold_attention(at, worst, shape)
     for bh in ATTN_MAIN.values():
         _hold_attention(at, worst, (bh, N_TOK, HEAD_DIM), main=True)
@@ -1280,6 +1416,64 @@ def check_features_against_cpu(teacher, student, aux, aug, kd, images):
     _agree("wasskd distill loss", on_card, on_cpu, ())
 
 
+# Planted faults (``--faults``): each is an edit of one kernel source in a
+# copy of the package; the copy's forward checks must then fail (exit 1).
+FAULTS = (
+    ("the online rescale left out", "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
+     (("l[r] *= alpha[r];", "l[r] *= 1.0f;"),
+      ("o[i] *= alpha[(i / 2) & 1];", "o[i] *= 1.0f;"))),
+    ("a padding key left in the sum", "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
+     (("const float v = key + 8 * (i / 4) + (i & 1) < N ? s[i] * scale_log2 : -INFINITY;",
+       "const float v = s[i] * scale_log2;"),)),
+    ("a wrong head offset in the merged write",
+     "deltakd_tpu_torch/ops/csrc/fused_block_common.cuh",
+     (("a.o_sh = hd;", "a.o_sh = 0;"),)),
+    # the consumers read the stage after the one whose barrier they waited on
+    # (the ring itself stays in step, so the run ends)
+    ("a stage of the ring read before its barrier", "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
+     (("sw128_desc(As + stage * BM * BK + wg * 64 * BK)",
+       "sw128_desc(As + (stage + 1) % STAGES * BM * BK + wg * 64 * BK)"),)),
+)
+
+
+def run_faults() -> int:
+    """For each planted fault: a copy of the package and this script under
+    .scratch/faults/ (ignored by git), the edit, then ``chip_smoke.py
+    --forward-checks`` in the copy, which must exit 1. Returns 0 when every
+    fault failed its run."""
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    caught = []
+    for i, (name, rel, edits) in enumerate(FAULTS):
+        copy = os.path.join(root, ".scratch", "faults", str(i))
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(os.path.join(root, "deltakd_tpu_torch"),
+                        os.path.join(copy, "deltakd_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        shutil.copy2(os.path.abspath(__file__), copy)
+        path = os.path.join(copy, rel)
+        with open(path) as f:
+            text = f.read()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"fault '{name}': its edit no longer applies to {rel}")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "chip_smoke.py", "--forward-checks"], cwd=copy,
+                              capture_output=True, text=True, timeout=300)
+        first = ([line for line in proc.stdout.splitlines() if "FAIL" in line]
+                 or proc.stderr.strip().splitlines()[-1:] or ["(none)"])[0]
+        print(f"[fault] {name}: exit {proc.returncode} after {time.perf_counter() - t0:.1f} s; "
+              f"first failure: {first}")
+        caught.append(proc.returncode == 1)
+        shutil.rmtree(copy)
+    print(f"[fault] {sum(caught)} of {len(FAULTS)} planted faults failed their run")
+    return 0 if all(caught) else 1
+
+
 def main() -> int:
     import torch
 
@@ -1287,6 +1481,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on a GPU",
               file=sys.stderr)
         return 1
+    if "--faults" in sys.argv[1:]:
+        return run_faults()
+    forward_checks = "--forward-checks" in sys.argv[1:]
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deltakd_tpu_torch.ops import _build
@@ -1305,7 +1502,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    logs = _build.build()
+    logs = _build.build(["fused_block_fwd", "attention"] if forward_checks else _build.SOURCES)
     print(f"[build] sources {list(_build.SOURCES)}, compiled {sorted(logs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -1315,7 +1512,15 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     worst = {}
+    if forward_checks:   # a planted-fault copy: the checks of the redesigned forward only
+        check_block_forward_shapes(fb, worst)
+        check_linear(fb, worst)
+        check_attention_kernels(at, worst)
+        return 0
     check_kernels(fb, worst)
+    check_block_forward_shapes(fb, worst)
+    check_linear(fb, worst)
+    print_forward_workspace(fb)
     timing = time_kernels(fb, worst)
     check_sort_kernels(so, worst)
     timing.update(time_sort_kernels(so))

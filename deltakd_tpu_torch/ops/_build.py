@@ -28,7 +28,10 @@ def _block_signatures(name: str) -> dict:
 # The C interface of each source: function -> (argument types, result type).
 # Every pointer and the stream are c_void_p, or ctypes would cut them to 32 bits.
 SIGNATURES = {
-    "fused_block_fwd": _block_signatures("fused_block_fwd"),
+    # the forward, and one of its linear products alone (gemm_sm90.cuh)
+    "fused_block_fwd": {**_block_signatures("fused_block_fwd"),
+                        "dk_linear_sm90": ([ctypes.POINTER(_PTR)] + [_INT] * 4
+                                           + [ctypes.c_float, _INT, _INT, _PTR], _INT)},
     "fused_block_bwd": _block_signatures("fused_block_bwd"),
     "fused_block_pair": {**_block_signatures("fused_pair_fwd"),
                          **_block_signatures("fused_pair_bwd")},

@@ -3,8 +3,9 @@
 // Replaces: deltakd_tpu/ops/attention.py `_fwd_kernel` (called by `_flash_fwd`)
 // and `_bwd_kernel` (called by `_flash_bwd`). Per (batch, head), head dim 64:
 //
-//   forward   s = q k^T * scale (fp32), p = softmax(s) rounded to bf16,
-//             o = p v (fp32 accumulate) in bf16, lse = max + log(sum) in fp32
+//   forward   s = q k^T * scale (fp32), p = softmax(s) with p in bf16 for
+//             its product, o = p v (fp32 accumulate) in bf16,
+//             lse = max + log(sum) in fp32
 //   backward  p = exp(s - lse), dv = p^T dO, dp = dO v^T,
 //             delta = rowsum(dO * o), ds = p (dp - delta) scale,
 //             dq = ds k, dk = ds^T q
@@ -15,14 +16,14 @@
 // device memory. The TPU kernel keeps one head's whole problem, fp32 scores
 // included, in VMEM. A thread block here has 227 KB, so:
 //
-// * forward: one block per (batch, head) keeps all of K and V in shared memory
-//   and each warp walks 16-row query tiles. With every key present a row's
-//   maximum and sum are exact in one pass (no online rescaling); the fp32
-//   score rows of the warp's tile live in shared memory and are overwritten in
-//   place by the bf16 probabilities. Padding keys (N is ragged against the
-//   16-wide tiles) are zero rows of K and V, their columns are left out of
-//   the maximum and the sum and get probability 0; padding query rows are
-//   computed on zeros and never stored, so no -inf and no NaN arises.
+// * forward: attention_fwd.cuh, shared with the fused block's forward: a CTA
+//   of one warpgroup per (batch * head, 64 query rows), K and V streamed in
+//   64-key chunks through a double-buffered cp.async ring, both products on
+//   wgmma with the scores and P in registers, and an online softmax; see
+//   that header for its rounding and padding. What keeps it above its byte
+//   bound: each CTA's chain of two wgmma batches with the softmax between
+//   them (no overlap inside a CTA; several CTAs per SM overlap each other),
+//   198 keys padded to 256, and K and V read once per 64-row query tile.
 // * backward: dq sums over keys, dk and dv over queries. A block owns one
 //   range of at most 208 keys of one (batch, head), keeps that range of K, V
 //   and its fp32 dk, dv accumulators in shared memory and loops over 32-row
@@ -32,16 +33,18 @@
 //   written directly; with more, each range writes an fp32 partial and a
 //   second kernel sums the partials in range order.
 //
-// p and ds are rounded to bf16 before their products (the tensor cores take
-// bf16); q, k, v, dO arrive in bf16. Inputs are addressed through (batch,
-// head, row) strides with a contiguous head dim, so the [B, N, 3, H, 64] views
-// of a packed qkv projection are read in place.
+// In the backward p and ds are rounded to bf16 before their products (the
+// tensor cores take bf16); q, k, v, dO arrive in bf16. Inputs are addressed
+// through (batch, head, row) strides with a contiguous head dim, so the
+// [B, N, 3, H, 64] views of a packed qkv projection are read in place.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "attention_fwd.cuh"
 
 using namespace nvcuda;
 
@@ -53,7 +56,6 @@ constexpr int HD = 64;            // head dim
 constexpr int LDK = HD + 8;       // bf16 row stride of K, V, Q, dO tiles
 constexpr int LDO = HD + 4;       // fp32 row stride of [*, 64] staging tiles
 constexpr int MAX_SMEM = 232448;  // 227 KB
-constexpr int FWD_MAX_WARPS = 8;
 constexpr int BWD_THREADS = 256, BWD_WARPS = 8;
 constexpr int BQ = 32;            // backward query tile
 constexpr int KC_MAX = 208;       // backward key range
@@ -69,12 +71,6 @@ struct Strided {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -96,120 +92,7 @@ typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
-// ---------------------------------------------------------------------------
-// Forward
-// ---------------------------------------------------------------------------
-
 inline int round16(int n) { return (n + 15) / 16 * 16; }
-
-// Bytes of one warp's work area: 16 fp32 score rows of Np + 8, and never less
-// than the 16 x 64 fp32 output staging tile that reuses it.
-inline size_t fwd_warp_bytes(int Np) {
-  const size_t s = (size_t)16 * (Np + 8) * sizeof(float);
-  const size_t o = (size_t)16 * LDO * sizeof(float);
-  return s > o ? s : o;
-}
-
-__host__ __device__ inline size_t fwd_kv_bytes(int Np) { return (size_t)2 * Np * LDK * sizeof(bf16); }
-
-__global__ void flash_fwd_kernel(Strided q, Strided k, Strided v, bf16* o, float* lse, int H,
-                                 int N, int Np, int warp_bytes, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int nwarps = blockDim.x / 32;
-  const int ldS = Np + 8, ldP = 2 * ldS, ntiles = Np / 16;
-
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + Np * LDK;
-  float* S = reinterpret_cast<float*>(smem + fwd_kv_bytes(Np) + (size_t)warp * warp_bytes);
-  bf16* P = reinterpret_cast<bf16*>(S);      // probabilities, in place over the scores
-  bf16* Qs = reinterpret_cast<bf16*>(S);     // query tile staging, before the scores
-  float* Os = S;                             // output staging, after the p v product
-
-  load_rows(Ks, k.head(b, h), k.sn, 0, Np, N, tid, blockDim.x);
-  load_rows(Vs, v.head(b, h), v.sn, 0, Np, N, tid, blockDim.x);
-  __syncthreads();
-
-  const bf16* qh = q.head(b, h);
-  for (int t = warp; t < ntiles; t += nwarps) {
-    const int r0 = t * 16;
-    load_rows(Qs, qh, q.sn, r0, 16, N, lane, 32);
-    __syncwarp();
-    FragA qa[HD / 16];
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) wmma::load_matrix_sync(qa[kk], Qs + kk * 16, LDK);
-    __syncwarp();
-
-    // scores of the 16 rows against every key
-    for (int j = 0; j < ntiles; ++j) {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        FragBT kb;   // (k^T)[d][key] = Ks[key][d]
-        wmma::load_matrix_sync(kb, Ks + j * 16 * LDK + kk * 16, LDK);
-        wmma::mma_sync(acc, qa[kk], kb, acc);
-      }
-      wmma::store_matrix_sync(S + j * 16, acc, ldS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // row softmax over the N real keys; p in bf16 over the row's own scores
-    for (int r = 0; r < 16; ++r) {
-      float* srow = S + r * ldS;
-      bf16* prow = P + r * ldP;
-      float m = -3.402823466e38f;
-      for (int j = lane; j < N; j += 32) m = fmaxf(m, srow[j] * scale);
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        const float e = __expf(srow[j] * scale - m);
-        srow[j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0 && r0 + r < N) lse[(long long)bh * N + r0 + r] = m + logf(sum);
-      // bf16 element j lies inside fp32 elements <= j of the same row, all of
-      // which this or an earlier round has already read
-      for (int j0 = 0; j0 < Np; j0 += 32) {
-        const int j = j0 + lane;
-        const float e = (j < N) ? srow[j] : 0.f;
-        __syncwarp();
-        if (j < Np) prow[j] = __float2bfloat16(e / sum);
-        __syncwarp();
-      }
-    }
-    __syncwarp();
-
-    // o = p v
-    FragC oacc[HD / 16];
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) wmma::fill_fragment(oacc[n], 0.0f);
-    for (int kt = 0; kt < ntiles; ++kt) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, P + kt * 16, ldP);
-#pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        FragB vb;
-        wmma::load_matrix_sync(vb, Vs + kt * 16 * LDK + n * 16, LDK);
-        wmma::mma_sync(oacc[n], pa, vb, oacc[n]);
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n)
-      wmma::store_matrix_sync(Os + n * 16, oacc[n], LDO, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 16 * (HD / 2); i += 32) {
-      const int r = i / (HD / 2), c = (i % (HD / 2)) * 2;
-      if (r0 + r < N)
-        *reinterpret_cast<__nv_bfloat162*>(o + ((long long)bh * N + r0 + r) * HD + c) =
-            __floats2bfloat162_rn(Os[r * LDO + c], Os[r * LDO + c + 1]);
-    }
-    __syncwarp();
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Backward
@@ -392,13 +275,10 @@ __global__ void dq_reduce_kernel(const float* part, int splits, long long len, b
 
 }  // namespace
 
-// The longest sequence the forward kernel takes: K, V and one warp's score
-// rows must fit one block's shared memory.
-extern "C" int dk_flash_max_n() {
-  int n = 16;
-  while (fwd_kv_bytes(n + 16) + fwd_warp_bytes(n + 16) <= (size_t)MAX_SMEM) n += 16;
-  return n;
-}
+// The longest sequence flash_attention takes: 656 keys, the limit of the
+// forward when it kept all of K and V in shared memory. The streaming forward
+// takes any N; the backward is held to its plain version up to this length.
+extern "C" int dk_flash_max_n() { return 656; }
 
 // q, k, v: [B, H, N, 64] bf16 through strides (batch, head, row), in
 // elements; o: [B, H, N, 64] bf16 and lse: [B, H, N] fp32, both contiguous.
@@ -408,21 +288,15 @@ extern "C" int dk_flash_fwd(const void* q, const void* k, const void* v, long lo
                             long long k_sn, long long v_sb, long long v_sh, long long v_sn,
                             void* o, void* lse, int B, int H, int N, void* stream) {
   if (B < 1 || H < 1 || N < 1 || N > dk_flash_max_n()) return -1;
-  const int Np = round16(N);
-  const size_t warp_bytes = fwd_warp_bytes(Np);
-  int nwarps = (int)(((size_t)MAX_SMEM - fwd_kv_bytes(Np)) / warp_bytes);
-  if (nwarps > FWD_MAX_WARPS) nwarps = FWD_MAX_WARPS;
-  if (nwarps > Np / 16) nwarps = Np / 16;
-  const size_t smem = fwd_kv_bytes(Np) + (size_t)nwarps * warp_bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const Strided qs{(const bf16*)q, q_sb, q_sh, q_sn};
-  const Strided ks{(const bf16*)k, k_sb, k_sh, k_sn};
-  const Strided vs{(const bf16*)v, v_sb, v_sh, v_sn};
-  flash_fwd_kernel<<<B * H, 32 * nwarps, smem, (cudaStream_t)stream>>>(
-      qs, ks, vs, (bf16*)o, (float*)lse, H, N, Np, (int)warp_bytes, 1.0f / sqrtf((float)HD));
-  return (int)cudaGetLastError();
+  dk::AttnArgs a = {};
+  a.q = (const bf16*)q; a.q_sb = q_sb; a.q_sh = q_sh; a.q_sn = q_sn;
+  a.k = (const bf16*)k; a.k_sb = k_sb; a.k_sh = k_sh; a.k_sn = k_sn;
+  a.v = (const bf16*)v; a.v_sb = v_sb; a.v_sh = v_sh; a.v_sn = v_sn;
+  a.o = (bf16*)o; a.o_sb = (long long)H * N * HD; a.o_sh = (long long)N * HD; a.o_sn = HD;
+  a.lse = (float*)lse;
+  a.B = B; a.H = H; a.N = N;
+  a.scale = 1.0f / sqrtf((float)HD);
+  return (int)dk::attention_fwd(a, HD, (cudaStream_t)stream);
 }
 
 // Bytes of fp32 dq partials the backward needs (0 when one key range covers N).

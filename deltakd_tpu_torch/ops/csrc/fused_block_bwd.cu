@@ -17,8 +17,11 @@
 // carried across a sequential grid on the TPU; here blocks run in parallel, so
 // each weight gradient is a split-K product writing fp32 partials per chunk
 // of KCHUNK rows, and a second pass sums the partials in a fixed order
-// (deterministic, no atomics). As in the forward, the workspace round trips
-// and the simple WMMA tile keep this first design well above its floor.
+// (deterministic, no atomics). The recompute's four linear products run on
+// the forward's TMA + wgmma GEMM (gemm_sm90.cuh); the reverse sweep, the
+// stash's materialised scores and the weight gradients stay on the plain
+// WMMA tile of fused_block_common.cuh, and with the workspace round trips
+// they keep this design well above its floor.
 
 #include "fused_block_reverse.cuh"
 
@@ -57,7 +60,9 @@ extern "C" int dk_fused_block_bwd(void* const* ptr, int B, int N, int D, int H, 
   g.carve(c, sh);
 
   // recompute the forward up to the hidden, keeping the stash
-  forward_chain(x, s_attn, s_mlp, w, sh, eps, f, true, nullptr, nullptr, nullptr, st);
+  const cudaError_t err =
+      forward_chain(x, s_attn, s_mlp, w, sh, eps, f, true, nullptr, nullptr, nullptr, st);
+  if (err != cudaSuccess) return (int)err;
   reverse_chain(g_out, g_feat, s_attn, s_mlp, w, sh, f, g, dW, nullptr, dx, st);
   return (int)cudaGetLastError();
 }

@@ -7,17 +7,21 @@
 // H100 thread block has at most 227 KB of shared memory, and the teacher's
 // [198, 1536] hidden alone is about 600 KB in bf16, so this port runs the
 // block as a short chain of hand-written kernels launched by one C entry
-// point, with per-element intermediates (qkv, scores, hidden) in a
-// global-memory workspace the wrapper allocates:
+// point, with per-element intermediates (qkv, the hidden) in a global-memory
+// workspace the wrapper allocates:
 //
-//   LN -> tiled bf16 GEMM (WMMA, fp32 accumulate) with a fused epilogue
-//      (bias, column/row scaling, erf-GELU, drop-path-scaled residual)
-//   -> per-(element, head) score GEMM -> row softmax -> e@v GEMM ...
+//   LN -> qkv, proj, fc1, fc2: the TMA + wgmma GEMM of gemm_sm90.cuh with a
+//         fused epilogue (bias, q's scaling, erf-GELU, drop-path-scaled
+//         residual)
+//   attention without a stash: attention_fwd.cuh, the scores stay on chip
+//   attention with a stash (the backward's recompute): score GEMM -> row
+//         softmax -> e@v GEMM through `gemm_kernel` below, because the
+//         reverse sweep reads the scores
 //
-// Every product the Pallas kernel computes in its body is a product of
-// `gemm_kernel` below; no library GEMM is called. Weight gradients are split
-// over row chunks into fp32 partials and summed in a fixed order by a second
-// pass (deterministic; no atomics).
+// The reverse sweep's products, the weight gradients and the fused-MLP
+// backward run on `gemm_kernel`, a plain strided WMMA tile. No library GEMM
+// is called. Weight gradients are split over row chunks into fp32 partials
+// and summed in a fixed order by a second pass (deterministic; no atomics).
 
 #pragma once
 
@@ -25,6 +29,9 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "attention_fwd.cuh"
+#include "gemm_sm90.cuh"
 
 namespace dk {
 
@@ -73,15 +80,6 @@ struct GemmArgs {
 
 constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
 constexpr int LDA_S = BK + 8, LDB_S = BN + 8, LDC_S = BN + 4;
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ float gelu_erf_grad(float x) {
-  float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752f));
-  return cdf + x * __expf(-0.5f * x * x) * 0.3989422804014327f;
-}
 
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   __shared__ __align__(32) bf16 As[BM * LDA_S];
@@ -378,26 +376,28 @@ struct Carver {
 };
 
 // Intermediates of one block forward. The forward kernel keeps the first
-// group; the backward's recompute also keeps the stash group.
+// group; the backward's recompute also keeps the stash group, the
+// materialised scores among it.
 struct FwdBuffers {
-  bf16* y; bf16* qkv_lp; float* s; bf16* e_lp; float* rs; bf16* merged; float* x2;
-  bf16* z; bf16* h;
+  bf16* y; bf16* qkv_lp; bf16* merged; float* x2; bf16* z; bf16* h;
   // stash (backward only)
+  float *s; bf16* e_lp; float* rs;
   float *xhat1, *rstd1, *qkv32, *xhat2, *rstd2, *hgrad;
 
   void carve(Carver& c, const Shape& sh, bool stash) {
     const long long M = sh.M();
     y = c.take<bf16>(M * sh.D);
     qkv_lp = c.take<bf16>(M * 3 * sh.D);
-    s = c.take<float>(sh.BH() * sh.N * sh.N);
-    e_lp = c.take<bf16>(sh.BH() * sh.N * sh.N);
-    rs = c.take<float>(sh.BH() * sh.N);
     merged = c.take<bf16>(M * sh.D);
     x2 = c.take<float>(M * sh.D);
     z = c.take<bf16>(M * sh.D);
     h = c.take<bf16>(M * sh.F);
+    s = nullptr; e_lp = nullptr; rs = nullptr;
     xhat1 = rstd1 = qkv32 = xhat2 = rstd2 = hgrad = nullptr;
     if (stash) {
+      s = c.take<float>(sh.BH() * sh.N * sh.N);
+      e_lp = c.take<bf16>(sh.BH() * sh.N * sh.N);
+      rs = c.take<float>(sh.BH() * sh.N);
       xhat1 = c.take<float>(M * sh.D);
       rstd1 = c.take<float>(M);
       qkv32 = c.take<float>(M * 3 * sh.D);
@@ -410,81 +410,100 @@ struct FwdBuffers {
 
 // The block input as the residual operand of the proj epilogue: bf16 at a
 // kernel boundary, fp32 for the second block of a pair.
-inline void set_residual(GemmArgs& p, const bf16* x) { p.res_bf16 = x; }
-inline void set_residual(GemmArgs& p, const float* x) { p.res_f32 = x; }
+inline void set_residual(Linear& p, const bf16* x) { p.res_bf16 = x; }
+inline void set_residual(Linear& p, const float* x) { p.res_f32 = x; }
 
 // LN1 -> qkv -> per-head softmax(q k^T) v -> proj -> x + s_attn*attn ->
 // LN2 -> fc1 -> GELU; then, when `out` or `out32` is given, fc2 ->
 // x2 + s_mlp*feat, written as bf16 (`out`) and/or unrounded (`out32`, the
 // activation between the two blocks of a pair). The input x is bf16 or fp32.
+// Without the stash the attention is attention_fwd.cuh's (head dim 64 only);
+// with it, the scores are materialised for the reverse sweep. Returns the
+// first launch error, or cudaErrorInvalidValue for a shape the kernels do
+// not take (nothing after it is launched).
 template <typename TX>
-inline void forward_chain(const TX* x, const float* s_attn, const float* s_mlp,
-                          const BlockWeights& w, const Shape& sh, float eps,
-                          FwdBuffers& f, bool stash, bf16* out, float* out32, bf16* feat,
-                          cudaStream_t st) {
+inline cudaError_t forward_chain(const TX* x, const float* s_attn, const float* s_mlp,
+                                 const BlockWeights& w, const Shape& sh, float eps,
+                                 FwdBuffers& f, bool stash, bf16* out, float* out32,
+                                 bf16* feat, cudaStream_t st) {
   const int N = sh.N, D = sh.D, H = sh.H, hd = sh.hd(), F = sh.F;
   const long long M = sh.M();
   const float scale = 1.0f / sqrtf((float)hd);
+  cudaError_t err;
 
   ln_fwd_kernel<TX><<<row_blocks(M), ROW_THREADS, 0, st>>>(
       x, w.g1, w.b1, (int)M, D, eps, f.y, stash ? f.xhat1 : nullptr,
       stash ? f.rstd1 : nullptr);
 
   // qkv = y Wqkv^T + b, packed (3, H, hd); q pre-scaled by hd^-1/2
-  GemmArgs p = linear_args(f.y, w.wqkv, (int)M, 3 * D, D);
-  p.bias = w.bqkv; p.scale_cols = D; p.col_scale = scale;
-  p.out_bf16 = f.qkv_lp;
-  if (stash) p.out_f32 = f.qkv32;
-  gemm(p, 1, st);
+  Linear l = linear_of(f.y, w.wqkv, (int)M, 3 * D, D);
+  l.bias = w.bqkv; l.scale_cols = D; l.col_scale = scale;
+  l.out_bf16 = f.qkv_lp;
+  if (stash) l.out_f32 = f.qkv32;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
 
-  // s[b,h] = (q*scale) k^T over all N keys
-  p = gemm_args(N, N, hd);
-  p.A = f.qkv_lp; p.a_sm = 3 * D; p.a_sk = 1; p.a_z1 = (long long)N * 3 * D; p.a_z2 = hd;
-  p.B = f.qkv_lp + D; p.b_sk = 1; p.b_sn = 3 * D; p.b_z1 = (long long)N * 3 * D; p.b_z2 = hd;
-  p.Z2 = H;
-  p.c_sm = N; p.c_z1 = (long long)H * N * N; p.c_z2 = (long long)N * N;
-  p.out_f32 = f.s;
-  gemm(p, (int)sh.BH(), st);
+  if (!stash) {
+    // merged[b, :, h] = softmax(q k^T) v, q, k, v read in place from qkv_lp
+    AttnArgs a = {};
+    a.q = f.qkv_lp; a.k = f.qkv_lp + D; a.v = f.qkv_lp + 2 * D;
+    a.q_sb = a.k_sb = a.v_sb = (long long)N * 3 * D;
+    a.q_sh = a.k_sh = a.v_sh = hd;
+    a.q_sn = a.k_sn = a.v_sn = 3 * D;
+    a.o = f.merged; a.o_sb = (long long)N * D; a.o_sh = hd; a.o_sn = D;
+    a.B = sh.B; a.H = H; a.N = N;
+    a.scale = 1.0f;
+    if ((err = attention_fwd(a, hd, st)) != cudaSuccess) return err;
+  } else {
+    // s[b,h] = (q*scale) k^T over all N keys
+    GemmArgs p = gemm_args(N, N, hd);
+    p.A = f.qkv_lp; p.a_sm = 3 * D; p.a_sk = 1; p.a_z1 = (long long)N * 3 * D; p.a_z2 = hd;
+    p.B = f.qkv_lp + D; p.b_sk = 1; p.b_sn = 3 * D; p.b_z1 = (long long)N * 3 * D; p.b_z2 = hd;
+    p.Z2 = H;
+    p.c_sm = N; p.c_z1 = (long long)H * N * N; p.c_z2 = (long long)N * N;
+    p.out_f32 = f.s;
+    gemm(p, (int)sh.BH(), st);
 
-  softmax_rows_kernel<<<row_blocks(sh.BH() * N), ROW_THREADS, 0, st>>>(
-      f.s, f.e_lp, f.rs, sh.BH() * N, N);
+    softmax_rows_kernel<<<row_blocks(sh.BH() * N), ROW_THREADS, 0, st>>>(
+        f.s, f.e_lp, f.rs, sh.BH() * N, N);
 
-  // merged[b, :, h] = (e v) * (1/S)
-  p = gemm_args(N, hd, N);
-  p.A = f.e_lp; p.a_sm = N; p.a_sk = 1; p.a_z1 = (long long)H * N * N; p.a_z2 = (long long)N * N;
-  p.B = f.qkv_lp + 2 * D; p.b_sk = 3 * D; p.b_sn = 1; p.b_z1 = (long long)N * 3 * D; p.b_z2 = hd;
-  p.Z2 = H;
-  p.c_sm = D; p.c_z1 = (long long)N * D; p.c_z2 = hd;
-  p.row_scale = f.rs; p.rs_z = N;
-  p.out_bf16 = f.merged;
-  gemm(p, (int)sh.BH(), st);
+    // merged[b, :, h] = (e v) * (1/S)
+    p = gemm_args(N, hd, N);
+    p.A = f.e_lp; p.a_sm = N; p.a_sk = 1; p.a_z1 = (long long)H * N * N; p.a_z2 = (long long)N * N;
+    p.B = f.qkv_lp + 2 * D; p.b_sk = 3 * D; p.b_sn = 1; p.b_z1 = (long long)N * 3 * D; p.b_z2 = hd;
+    p.Z2 = H;
+    p.c_sm = D; p.c_z1 = (long long)N * D; p.c_z2 = hd;
+    p.row_scale = f.rs; p.rs_z = N;
+    p.out_bf16 = f.merged;
+    gemm(p, (int)sh.BH(), st);
+  }
 
   // x2 = x + s_attn * (merged Wproj^T + b)
-  p = linear_args(f.merged, w.wproj, (int)M, D, D);
-  p.bias = w.bproj;
-  set_residual(p, x); p.res_scale = s_attn; p.rows_per_sample = N;
-  p.out_f32 = f.x2;
-  gemm(p, 1, st);
+  l = linear_of(f.merged, w.wproj, (int)M, D, D);
+  l.bias = w.bproj;
+  set_residual(l, x); l.res_scale = s_attn; l.rows_per_sample = N;
+  l.out_f32 = f.x2;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
 
   ln_fwd_kernel<float><<<row_blocks(M), ROW_THREADS, 0, st>>>(
       f.x2, w.g2, w.b2, (int)M, D, eps, f.z, stash ? f.xhat2 : nullptr,
       stash ? f.rstd2 : nullptr);
 
   // h = gelu(z W1^T + b1)
-  p = linear_args(f.z, w.w1, (int)M, F, D);
-  p.bias = w.bf1; p.act = ACT_GELU;
-  if (stash) p.act_grad = f.hgrad;
-  p.out_bf16 = f.h;
-  gemm(p, 1, st);
+  l = linear_of(f.z, w.w1, (int)M, F, D);
+  l.bias = w.bf1; l.gelu = 1;
+  if (stash) l.act_grad = f.hgrad;
+  l.out_bf16 = f.h;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
 
   if (out || out32) {
     // feat = h W2^T + b2 ; out = x2 + s_mlp * feat
-    p = linear_args(f.h, w.w2, (int)M, D, F);
-    p.bias = w.bf2; p.pre_bf16 = feat;
-    p.res_f32 = f.x2; p.res_scale = s_mlp; p.rows_per_sample = N;
-    p.out_bf16 = out; p.out_f32 = out32;
-    gemm(p, 1, st);
+    l = linear_of(f.h, w.w2, (int)M, D, F);
+    l.bias = w.bf2; l.pre_bf16 = feat;
+    l.res_f32 = f.x2; l.res_scale = s_mlp; l.rows_per_sample = N;
+    l.out_bf16 = out; l.out_f32 = out32;
+    if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
   }
+  return cudaGetLastError();
 }
 
 // Unpacks one block's 12 weights from the wrapper's pointer table, `w`

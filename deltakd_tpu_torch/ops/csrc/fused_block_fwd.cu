@@ -12,12 +12,17 @@
 // What bounds it on an H100: at the main-path shapes (B=256, N=198,
 // D=192/384) the block is about 24ND^2 + 4N^2D FLOPs per element against
 // 4ND bytes of input and output, far above the card's ~295 FLOP/byte ridge,
-// so its floor is the tensor cores (989 TFLOP/s bf16). This first design does
-// not reach that floor: the intermediates (qkv, the [N, N] scores, the
-// [N, 4D] hidden) round-trip through a global workspace because one
-// element's block does not fit in 227 KB of shared memory, and the GEMM is a
-// plain 64x64x32 WMMA tile without TMA, wgmma or pipelining. Those are the
-// levers for a later pass; this one is right first.
+// so its floor is the tensor cores (989 TFLOP/s bf16). The four linear
+// products (92% of the operations at D=384) run on the TMA + wgmma GEMM of
+// gemm_sm90.cuh, and the attention on attention_fwd.cuh, whose [N, N] scores
+// never leave the chip. What keeps it above the floor now: one element's
+// block still does not fit in 227 KB of shared memory, so qkv, the merged
+// heads, x2 and the [N, 4D] hidden round-trip through the workspace
+// (about 20 bytes per token and unit of D, written and read once each,
+// with two LayerNorm passes between the products); the GEMM itself reaches
+// about half of cuBLAS's rate on these short-K products; the attention pads
+// 198 keys to 256; and each product is a launch of its own, whose tail
+// leaves SMs idle.
 
 #include "fused_block_common.cuh"
 
@@ -40,8 +45,25 @@ extern "C" int dk_fused_block_fwd(void* const* ptr, int B, int N, int D, int H, 
   Carver c{(char*)ptr[17], 0};
   FwdBuffers f;
   f.carve(c, sh, false);
-  forward_chain((const bf16*)ptr[0], (const float*)ptr[1], (const float*)ptr[2],
-                unpack_weights(ptr + 3), sh, eps, f, false, (bf16*)ptr[15], nullptr,
-                (bf16*)ptr[16], st);
-  return (int)cudaGetLastError();
+  return (int)forward_chain((const bf16*)ptr[0], (const float*)ptr[1], (const float*)ptr[2],
+                            unpack_weights(ptr + 3), sh, eps, f, false, (bf16*)ptr[15],
+                            nullptr, (bf16*)ptr[16], st);
+}
+
+// One linear product of the forward alone, on gemm_sm90.cuh (a kernel-only
+// check; no model path calls it): out = a w^T with the epilogue of `Linear`.
+// ptr: a [M, K] bf16, w [N, K] bf16, then each of bias, act_grad, pre_bf16,
+// res_f32, res_bf16, res_scale, out_f32, out_bf16 or null. Returns the launch
+// error, or cudaErrorInvalidValue for a shape it does not take.
+extern "C" int dk_linear_sm90(void* const* ptr, int M, int N, int K, int scale_cols,
+                              float col_scale, int gelu, int rows_per_sample, void* stream) {
+  Linear l = linear_of((const bf16*)ptr[0], (const bf16*)ptr[1], M, N, K);
+  l.bias = (const float*)ptr[2];
+  l.scale_cols = scale_cols; l.col_scale = col_scale;
+  l.gelu = gelu; l.act_grad = (float*)ptr[3];
+  l.pre_bf16 = (bf16*)ptr[4];
+  l.res_f32 = (const float*)ptr[5]; l.res_bf16 = (const bf16*)ptr[6];
+  l.res_scale = (const float*)ptr[7]; l.rows_per_sample = rows_per_sample;
+  l.out_f32 = (float*)ptr[8]; l.out_bf16 = (bf16*)ptr[9];
+  return (int)linear_sm90(l, (cudaStream_t)stream);
 }

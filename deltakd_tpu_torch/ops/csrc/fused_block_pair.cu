@@ -24,9 +24,10 @@
 //             backward buffers that the two sweeps share.
 // What bounds it on an H100: as for the single kernels, the tensor cores
 // (twice the forward's operations; twice the backward's plus one fc2) against
-// 4ND bytes of input and output per element; this design stays far above
-// that floor for the same reasons (workspace round trips, the plain WMMA
-// tile). Each of the 24 weight gradients is a fixed-order sum of split-row
+// 4ND bytes of input and output per element. Both chains' linear products
+// run on the TMA + wgmma GEMM (gemm_sm90.cuh) and the forward's attention on
+// attention_fwd.cuh; the backward's reverse sweeps stay on the plain WMMA
+// tile and keep it far above that floor, with the workspace round trips. Each of the 24 weight gradients is a fixed-order sum of split-row
 // partials; no atomics, so two runs give the same bits.
 
 #include "fused_block_reverse.cuh"
@@ -76,11 +77,12 @@ extern "C" int dk_fused_pair_fwd(void* const* ptr, int B, int N, int D, int H, i
   FwdBuffers f;
   f.carve(c, sh, false);
   float* mid = c.take<float>(sh.M() * D);
-  forward_chain((const bf16*)ptr[P_X], s[0], s[1], unpack_weights(ptr + P_W1), sh, eps, f,
-                false, nullptr, mid, (bf16*)ptr[P_REST + 1], st);
-  forward_chain((const float*)mid, s[2], s[3], unpack_weights(ptr + P_W2), sh, eps, f, false,
-                (bf16*)ptr[P_REST], nullptr, (bf16*)ptr[P_REST + 2], st);
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      forward_chain((const bf16*)ptr[P_X], s[0], s[1], unpack_weights(ptr + P_W1), sh, eps, f,
+                    false, nullptr, mid, (bf16*)ptr[P_REST + 1], st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)forward_chain((const float*)mid, s[2], s[3], unpack_weights(ptr + P_W2), sh, eps,
+                            f, false, (bf16*)ptr[P_REST], nullptr, (bf16*)ptr[P_REST + 2], st);
 }
 
 extern "C" size_t dk_fused_pair_bwd_workspace(int B, int N, int D, int H, int F) {
@@ -114,10 +116,12 @@ extern "C" int dk_fused_pair_bwd(void* const* ptr, int B, int N, int D, int H, i
 
   // recompute block 1 with its stash and its unrounded output, then block 2's
   // stash from it (block 2 stops at the GELU)
-  forward_chain((const bf16*)ptr[P_X], s[0], s[1], w1, sh, eps, b.f1, true, nullptr, b.mid,
-                nullptr, st);
-  forward_chain((const float*)b.mid, s[2], s[3], w2, sh, eps, b.f2, true, nullptr, nullptr,
-                nullptr, st);
+  cudaError_t err = forward_chain((const bf16*)ptr[P_X], s[0], s[1], w1, sh, eps, b.f1, true,
+                                  nullptr, b.mid, nullptr, st);
+  if (err == cudaSuccess)
+    err = forward_chain((const float*)b.mid, s[2], s[3], w2, sh, eps, b.f2, true, nullptr,
+                        nullptr, nullptr, st);
+  if (err != cudaSuccess) return (int)err;
   // block 2's sweep leaves dmid in fp32; block 1's sweep reads it as its g_out
   reverse_chain(g_out, g_feat2, s[2], s[3], w2, sh, b.f2, b.g, dW2, b.dmid, nullptr, st);
   reverse_chain((const float*)b.dmid, g_feat1, s[0], s[1], w1, sh, b.f1, b.g, dW1, nullptr, dx,

@@ -44,6 +44,9 @@ PARAM_NAMES = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
                "attn.proj.weight", "attn.proj.bias", "norm2.weight", "norm2.bias",
                "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")
 _MATMUL_WEIGHTS = (2, 4, 8, 10)
+# Head dims the block kernels take: the forward's attention (attention_fwd.cuh)
+# has an instantiation for these only.
+KERNEL_HEAD_DIMS = (64,)
 
 # Kernel launches by (kernel name, embed width). Each wrapper adds one where
 # it launches its kernel; nothing else touches the count.
@@ -234,14 +237,18 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _kernel_operands(x, s_attn, s_mlp, w, H, name):
     """Checks what the kernels take and returns (x, s_attn, s_mlp, weights)
-    as contiguous tensors: x bf16 [B,N,D], scales fp32 [B], matmul weights
-    bf16, LN params and biases fp32."""
+    as contiguous tensors: x bf16 [B,N,D] with a head dim in
+    KERNEL_HEAD_DIMS, scales fp32 [B], matmul weights bf16, LN params and
+    biases fp32. Raises ValueError, before any launch, for anything else."""
     if x.dtype != torch.bfloat16 or x.dim() != 3:
         raise ValueError(f"{name}: x must be bf16 [B, N, D], got "
                          f"{x.dtype} {tuple(x.shape)}")
     B, N, D = x.shape
     if D % H:
         raise ValueError(f"{name}: width {D} is not divisible by {H} heads")
+    if D // H not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D // H} (width {D}, {H} heads) is not one "
+                         f"the kernels take: {KERNEL_HEAD_DIMS}")
     F = w[8].shape[0]
     shapes = ((D,), (D,), (3 * D, D), (3 * D,), (D, D), (D,), (D,), (D,),
               (F, D), (F,), (D, F), (D,))
@@ -535,6 +542,76 @@ def kernel_block_bwd(x, params, g_out, g_feat=None, *, num_heads, ln_eps=1e-6,
                                    g_out, g_feat, num_heads, ln_eps)
     return dx, dict(zip(PARAM_NAMES, dws))
 
+
+def plain_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, gelu=False,
+                 residual=None, res_scale=None, rows_per_sample=1):
+    """What one linear product of the block forward computes
+    (csrc/gemm_sm90.cuh), on any device: v = a w^T with bf16 operands and
+    fp32 accumulation (a [M, K], w [N, K]), + bias, the first ``scale_cols``
+    columns times ``col_scale``, then GELU; with a ``residual`` r,
+    out = r + res_scale[row // rows_per_sample] * v. Returns (out fp32, out
+    bf16, v before the residual in bf16, gelu' before the GELU in fp32 or
+    None)."""
+    v = _mm(a, w.t(), torch.bfloat16)
+    if bias is not None:
+        v = v + bias.float()
+    if scale_cols:
+        v = torch.cat([v[:, :scale_cols] * col_scale, v[:, scale_cols:]], dim=1)
+    grad = None
+    if gelu:
+        v, grad = _gelu_and_grad(v)
+    pre = v.to(torch.bfloat16)
+    if residual is not None:
+        row_scale = res_scale.float().repeat_interleave(rows_per_sample)
+        v = residual.float() + row_scale[:, None] * v
+    return v, v.to(torch.bfloat16), pre, grad
+
+
+def kernel_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, gelu=False,
+                  residual=None, res_scale=None, rows_per_sample=1,
+                  outputs=("f32", "bf16", "pre", "grad")):
+    """One linear product of the block forward alone, on the forward's TMA +
+    wgmma GEMM (``dk_linear_sm90``), no autograd; CUDA tensors: a [M, K] and
+    w [N, K] bf16 with N and K multiples of 8, bias fp32, residual fp32 or
+    bf16 [M, N], res_scale fp32 [M // rows_per_sample]. ``outputs`` names
+    those to write ("grad" only with ``gelu``). No model path calls it.
+    Returns what :func:`plain_linear` returns, None for each output not
+    asked for."""
+    M, K = a.shape
+    N = w.shape[0]
+    if (a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or w.shape[1] != K
+            or a.device.type != "cuda" or w.device != a.device or N % 8 or K % 8):
+        raise ValueError(f"linear: takes CUDA bf16 a [M, K] and w [N, K] with N, K "
+                         f"multiples of 8, got {a.dtype} {tuple(a.shape)} and {w.dtype} "
+                         f"{tuple(w.shape)} on {a.device}")
+    if (residual is None) != (res_scale is None):
+        raise ValueError("linear: a residual needs its res_scale and the other way round")
+    a, w = a.contiguous(), w.contiguous()
+    if residual is not None:
+        residual = residual.contiguous()
+        res_scale = res_scale.float().contiguous()
+    if bias is not None:
+        bias = bias.float().contiguous()
+
+    def new(name, dtype):
+        wanted = name in outputs and (name != "grad" or gelu)
+        return torch.empty((M, N), dtype=dtype, device=a.device) if wanted else None
+
+    with torch.cuda.device(a.device):
+        out32, out_lp = new("f32", torch.float32), new("bf16", torch.bfloat16)
+        pre, grad = new("pre", torch.bfloat16), new("grad", torch.float32)
+        res32 = residual if residual is not None and residual.dtype == torch.float32 else None
+        res_lp = residual if residual is not None and res32 is None else None
+        ptrs = [_ptr(t) for t in (a, w, bias, grad, pre, res32, res_lp, res_scale, out32,
+                                  out_lp)]
+        table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        err = _library("fused_block_fwd").dk_linear_sm90(
+            table, M, N, K, scale_cols, col_scale, int(gelu), rows_per_sample,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"linear: CUDA error {err} at launch")
+    LAUNCHES[("linear_sm90", N)] += 1
+    return out32, out_lp, pre, grad
 
 
 def fused_vit_block_pair(x: torch.Tensor, params1: Mapping[str, torch.Tensor],

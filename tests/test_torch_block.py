@@ -157,6 +157,91 @@ def test_plain_backward_matches_autograd_and_dispatch():
     assert not tfb.LAUNCHES
 
 
+@pytest.mark.parametrize("width,heads", [(128, 4), (128, 1), (96, 2)])
+def test_kernel_operands_reject_head_dims_without_kernel(width, heads):
+    """The block kernels take head dim 64 only (the forward's attention has no
+    other instantiation): the operand check raises ValueError before any
+    launch; bf16 CPU tensors, so nothing could launch."""
+    g = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+
+    def weights(D):
+        shapes = [(D,), (D,), (3 * D, D), (3 * D,), (D, D), (D,), (D,), (D,),
+                  (4 * D, D), (4 * D,), (D, 4 * D), (D,)]
+        return [torch.randn(s, generator=g) for s in shapes]
+
+    s = torch.ones(2)
+    x = torch.randn(2, 5, width, generator=g).to(bf)
+    with pytest.raises(ValueError, match="head dim"):
+        tfb._kernel_operands(x, s, s, weights(width), heads, "fused_block_fwd")
+    x64 = torch.randn(2, 5, 128, generator=g).to(bf)
+    x_, sa_, sm_, ws = tfb._kernel_operands(x64, s, s, weights(128), 2, "fused_block_fwd")
+    assert x_.dtype == bf and ws[2].dtype == bf and ws[0].dtype == torch.float32
+    assert not tfb.LAUNCHES
+
+
+def test_plain_forward_matches_jax_reference_at_finetune_length():
+    """The plain block forward, which the card's kernel is held to, against the
+    JAX reference at the 384-px finetune's sequence length (N=578: 24x24
+    patches and two prefix tokens), B=1, D=128, 2 heads."""
+    n, width, heads = 578, 128, 2
+    blk = Block(num_heads=heads, mlp_ratio=4.0, qkv_bias=True, drop_path_rate=0.0,
+                ln_eps=1e-6)
+    params = blk.init({"params": jax.random.PRNGKey(5)}, jnp.zeros((1, n, width)),
+                      True)["params"]
+    rng = np.random.RandomState(5)
+    params = jax.tree.map(
+        lambda p: p + 0.05 * rng.randn(*p.shape).astype(np.float32), params)
+    x = rng.randn(1, n, width).astype(np.float32)
+    sa, sm = np.array([1 / KEEP], np.float32), np.array([1.0], np.float32)
+    j_out, j_feat = jfb.reference_vit_block(jnp.asarray(x), params, num_heads=heads,
+                                            scale_attn=jnp.asarray(sa),
+                                            scale_mlp=jnp.asarray(sm))
+    t_out, t_feat = tfb.reference_vit_block(torch.from_numpy(x), flax_block_to_torch(params),
+                                            num_heads=heads, scale_attn=torch.from_numpy(sa),
+                                            scale_mlp=torch.from_numpy(sm))
+    assert t_out.shape == (1, n, width)
+    _close(t_out - torch.from_numpy(x), np.asarray(j_out) - x)
+    _close(t_feat, j_feat)
+
+
+@pytest.mark.parametrize("epilogue", ["qkv", "proj", "fc1", "fc2"])
+def test_plain_linear_is_the_forward_chains_product(epilogue):
+    """plain_linear, the version the forward's GEMM is held to on the card,
+    written out: a w^T + b in fp32 with bf16 operands, q's scaling, GELU and
+    its derivative, the drop-path-scaled residual; kernel_linear refuses CPU
+    tensors."""
+    g = torch.Generator().manual_seed(1)
+    M, K, N, rps = 12, 16, 24, 4
+    a, w = torch.randn(M, K, generator=g), torch.randn(N, K, generator=g)
+    bias, res = torch.randn(N, generator=g), torch.randn(M, N, generator=g)
+    rs = torch.tensor([0.0, 1.5, 1.0])
+    v = a.bfloat16().float() @ w.bfloat16().float().t() + bias
+    kw, grad = {}, None
+    if epilogue == "qkv":
+        kw = dict(scale_cols=8, col_scale=0.25)
+        v = torch.cat([v[:, :8] * 0.25, v[:, 8:]], dim=1)
+    elif epilogue == "fc1":
+        kw = dict(gelu=True)
+        grad = torch.autograd.functional.jacobian(
+            lambda t: torch.nn.functional.gelu(t), v[0]).diagonal()
+        v = torch.nn.functional.gelu(v)
+    pre = v
+    if epilogue in ("proj", "fc2"):
+        kw = dict(residual=res, res_scale=rs, rows_per_sample=rps)
+        v = res + rs.repeat_interleave(rps)[:, None] * v
+    out32, out_lp, got_pre, got_grad = tfb.plain_linear(a, w, bias, **kw)
+    torch.testing.assert_close(out32, v, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out_lp, v.bfloat16())
+    torch.testing.assert_close(got_pre, pre.bfloat16())
+    if grad is None:
+        assert got_grad is None
+    else:
+        torch.testing.assert_close(got_grad[0], grad, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfb.kernel_linear(a.bfloat16(), w.bfloat16(), bias, **kw)
+
+
 def test_port_imports_no_jax():
     """deltakd_tpu_torch and chip_smoke.py import neither jax nor deltakd_tpu."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

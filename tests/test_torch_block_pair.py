@@ -231,8 +231,9 @@ def test_pair_rounds_nothing_between_the_blocks_in_bf16():
 
 def test_pair_dispatch_and_operand_checks():
     """A meta tensor has no implementation; the kernel wrappers refuse fp32
-    input and two blocks of different hidden widths before they touch a
-    library; best_block_pair_fn gives the function or None."""
+    input, two blocks of different hidden widths and a head dim without a
+    kernel before they touch a library; best_block_pair_fn gives the function
+    or None."""
     params, x, scales, _ = _setup(7)
     tps = [flax_block_to_torch(p) for p in params]
     ws = [tfb.block_params(tp) for tp in tps]
@@ -245,9 +246,12 @@ def test_pair_dispatch_and_operand_checks():
         tfb.fused_pair_fwd_cuda(torch.from_numpy(x), ts, *ws, H, 1e-6, True, True)
     narrow = list(ws[1])
     narrow[8], narrow[9], narrow[10] = narrow[8][:128], narrow[9][:128], narrow[10][:, :128]
+    # one head of 64, a head dim the kernels take, so that the widths are what is refused
     with pytest.raises(ValueError, match="hidden widths"):
         tfb.fused_pair_bwd_cuda(torch.from_numpy(x).bfloat16(), ts, ws[0], tuple(narrow),
-                                torch.from_numpy(x), None, None, H, 1e-6)
+                                torch.from_numpy(x), None, None, D // 64, 1e-6)
+    with pytest.raises(ValueError, match="head dim"):
+        tfb.fused_pair_fwd_cuda(torch.from_numpy(x).bfloat16(), ts, *ws, H, 1e-6, True, True)
     assert tfb.best_block_pair_fn() is tfb.fused_vit_block_pair
     assert tfb.best_block_pair_fn(False) is None
     assert not tfb.LAUNCHES

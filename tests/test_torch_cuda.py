@@ -3,11 +3,13 @@
 Run on a machine with an NVIDIA GPU (no JAX needed there):
     python -m pytest tests/test_torch_cuda.py -m cuda
 Without a card the tests skip: a CUDA kernel has no CPU mode. The fused
-block: small shape (D=64, 2 heads, N=18) with drop-path scales of 0 and
-1/keep; bf16 operands, so the tolerance is 2e-2 of the largest reference
-value. The block-pair kernels: the four (feat1, feat2) variants at D=192 and
-D=384 on weights of std 1/sqrt(fan-in), scales with zeros, through the kernels
-alone and through the autograd Function. The sort kernels: inputs with ties; sorted values, signs and gradients
+block: small shape (D=128, 2 heads of 64, N=18) with drop-path scales of 0
+and 1/keep, and the forward at N in (50, 198, 578) for D in (192, 384, 768);
+bf16 operands, so the tolerance is 2e-2 of the largest reference value. The
+forward's GEMM alone against F.linear plus its epilogue, same tolerance. The
+block-pair kernels: the four (feat1, feat2) variants at D=192 and D=384 on
+weights of std 1/sqrt(fan-in), scales with zeros, through the kernels alone
+and through the autograd Function. The sort kernels: inputs with ties; sorted values, signs and gradients
 exactly, the loss to 1e-5 (fp32 sums in another order). The attention and MLP
 kernels: O(1) bf16 inputs (q, k of std 2, weights of std 1/sqrt(fan-in)), ragged
 N and M; 2e-2 of the largest reference value, 1e-3 absolute on lse.
@@ -21,7 +23,7 @@ from deltakd_tpu_torch.ops import fused_block as fb
 from deltakd_tpu_torch.ops import fused_mlp as fm
 from deltakd_tpu_torch.ops import sort as so
 
-B, N, D, H = 4, 18, 64, 2
+B, N, D, H = 4, 18, 128, 2
 
 
 @pytest.mark.cuda
@@ -55,6 +57,73 @@ def test_kernels_match_plain_version_on_card(need_feat):
     for a, b in pairs:
         a, b = a.float(), b.float()
         assert (a - b).abs().max().item() <= 2e-2 * b.abs().max().item()
+    # a head dim without a kernel instantiation is refused before any launch
+    fb.reset_launches()
+    with pytest.raises(ValueError, match="head dim"):
+        fb.kernel_block_fwd(x, params, need_features=need_feat, **{**kw, "num_heads": 4})
+    assert not fb.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tok", [50, 198, 578])
+@pytest.mark.parametrize("width,heads", [(192, 3), (384, 6), (768, 12)])
+def test_block_forward_sequence_lengths_on_card(width, heads, n_tok):
+    """The forward (TMA + wgmma GEMM, on-chip attention) at ragged sequence
+    lengths and every registered width; drop-path scales with zeros; two runs
+    the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(width + n_tok)
+    params = _block_params(width, g)
+    x = torch.randn(2, n_tok, width, generator=g).cuda().bfloat16()
+    kw = dict(num_heads=heads, scale_attn=torch.tensor([0.0, 1 / 0.9]).cuda(),
+              scale_mlp=torch.tensor([1 / 0.9, 1.0]).cuda())
+    out, feat = fb.kernel_block_fwd(x, params, need_features=True, **kw)
+    again = fb.kernel_block_fwd(x, params, need_features=True, **kw)
+    r_out, r_feat = fb.reference_vit_block(x, params, **kw)
+    _within(out.float() - x.float(), r_out.float() - x.float())
+    _within(feat, r_feat)
+    assert torch.equal(out, again[0]) and torch.equal(feat, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("product", ["qkv", "proj", "fc1", "fc2"])
+@pytest.mark.parametrize("width", [192, 384])
+def test_linear_matches_f_linear_on_card(width, product):
+    """The forward's GEMM alone (gemm_sm90.cuh) against F.linear plus the
+    epilogue forward_chain gives the product, every output, M ragged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(width)
+    M = 1001
+    n_mult, k_mult = {"qkv": (3, 1), "proj": (1, 1), "fc1": (4, 1), "fc2": (1, 4)}[product]
+    N, K = n_mult * width, k_mult * width
+    a = torch.randn(M, K, generator=g).cuda().bfloat16()
+    w = (torch.randn(N, K, generator=g) / K ** 0.5).cuda().bfloat16()
+    bias = (0.1 * torch.randn(N, generator=g)).cuda()
+    kw = {"qkv": dict(scale_cols=width, col_scale=0.125), "fc1": dict(gelu=True)}.get(product)
+    if kw is None:
+        res = torch.randn(M, N, generator=g).cuda()
+        kw = dict(residual=res.bfloat16() if product == "proj" else res,
+                  res_scale=torch.tensor([0.0, 1.5] * 71 + [1.0]).cuda(), rows_per_sample=7)
+    got = fb.kernel_linear(a, w, bias, **kw)
+    ref = fb.plain_linear(a, w, bias, **kw)
+    for x, r in zip(got, ref):
+        if r is None:
+            assert x is None
+        else:
+            _within(x, r)
+    if product == "qkv":    # past the q columns, the product is F.linear's
+        lin = torch.nn.functional.linear(a.float(), w.float(), bias)
+        _within(got[0][:, width:], lin[:, width:])
+
+
+def _block_params(width, g):
+    shapes = [(width,), (width,), (3 * width, width), (3 * width,), (width, width), (width,),
+              (width,), (width,), (4 * width, width), (4 * width,), (width, 4 * width), (width,)]
+    return {n: (torch.randn(s, generator=g) * (s[-1] ** -0.5 if len(s) == 2 else 0.1)
+                + (1.0 if "norm" in n and "weight" in n else 0.0)).cuda()
+            for n, s in zip(fb.PARAM_NAMES, shapes)}
 
 
 @pytest.mark.cuda
@@ -64,16 +133,8 @@ def test_pair_kernels_match_plain_version_on_card(width, heads, nf1, nf2):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     g = torch.Generator().manual_seed(width + 2 * nf1 + nf2)
-    F, n_tok, batch = 4 * width, 50, 4
-    shapes = [(width,), (width,), (3 * width, width), (3 * width,), (width, width), (width,),
-              (width,), (width,), (F, width), (F,), (width, F), (width,)]
-
-    def block():
-        return {n: (torch.randn(s, generator=g) * (s[-1] ** -0.5 if len(s) == 2 else 0.1)
-                    + (1.0 if "norm" in n and "weight" in n else 0.0)).cuda()
-                for n, s in zip(fb.PARAM_NAMES, shapes)}
-
-    p1, p2 = block(), block()
+    n_tok, batch = 50, 4
+    p1, p2 = _block_params(width, g), _block_params(width, g)
     x = torch.randn(batch, n_tok, width, generator=g).cuda().bfloat16()
     keep = 0.9
     scales = tuple(torch.tensor(v).cuda() for v in (
@@ -150,7 +211,8 @@ def test_sort_kernels_match_plain_version_on_card(shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 3, 198, 64), (1, 2, 50, 64), (6, 16, 64), (1, 1, 578, 64)])
+@pytest.mark.parametrize("shape", [(2, 3, 198, 64), (1, 2, 50, 64), (6, 16, 64), (1, 1, 578, 64),
+                                   (2, 6, 578, 64)])
 def test_attention_kernels_match_plain_version_on_card(shape):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
