@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Runs the PyTorch/CUDA port (deltakd_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # the run below, on one card
-    python3 chip_smoke.py --faults     # the planted faults (FAULTS), each in a copy
+    python3 chip_smoke.py                    # the run below, on one card
+    python3 chip_smoke.py --faults           # the planted faults (FAULTS), each in a copy
+    python3 chip_smoke.py --forward-checks   # only the forward's checks (phase 3a, 3b, 5a)
+    python3 chip_smoke.py --backward-checks  # only the backward's checks (phase 3c, 3d)
 
 Phases, each of which fails the run:
   1. prints the card's name and power limit (nvidia-smi);
@@ -11,15 +13,18 @@ Phases, each of which fails the run:
   3. holds each fused-block kernel against its plain PyTorch version on the
      card, for the student (D=192) and teacher (D=384) widths, with and
      without the feature output, with drop-path scales of 0 and 1/keep, at
-     B=8; the forward also at N = 50, 198 and 578 for D = 192, 384 and 768;
-     the forward's GEMM alone (gemm_sm90.cuh) against F.linear plus its
-     epilogue on the four products at D=192/384, timed beside cuBLAS; prints
-     the forward's workspace beside the one that held the [N, N] scores; then
+     B=8; the forward and the backward also at N = 50, 198 and 578 for
+     D = 192, 384 and 768 (the pair backward at D = 192 and 384); the GEMM
+     alone (gemm_sm90.cuh) against its plain version on the forward's four
+     products and the backward's four input and four weight gradients at
+     D=192/384, timed beside cuBLAS; prints the forward's and the backward's
+     workspace beside the ones that held the [N, N] scores; then
      the block kernels again at the main-path shape (B=256, N=198), where it
      times them beside their plain versions, their bounds and the same block
-     built from PyTorch library calls. Times are medians of per-call
-     CUDA-event times with the calls queued behind a sleep on the card, so
-     they are the card's and not the host's;
+     built from PyTorch library calls, and splits the backward's time by
+     kernel with torch.profiler. Times are medians of per-call CUDA-event
+     times with the calls queued behind a sleep on the card, so they are the
+     card's and not the host's;
   4. holds the sort kernels (value sort, sorted_l1 forward and backward)
      against their plain versions on inputs with ties, in bf16 and fp32, at
      B=8 (n=196, a power-of-two n, a d that is no multiple of the column
@@ -45,7 +50,7 @@ Phases, each of which fails the run:
      parameters; one eval batch; and the value sort through its public
      function (no model calls it); then the unfused model path (block_fn=None:
      the teacher through flash_attention and fused_mlp, the student through
-     flash_attention): 3 soft-KD steps with exactly 24 attention-forward, 12
+     flash_attention): 8 soft-KD steps with exactly 24 attention-forward, 12
      attention-backward, 12 MLP-forward and no fused-block launches a step,
      one eval batch on the student's eval view with fused_mlp (12 + 12),
      fused_mlp_train forward and backward through its public function (no
@@ -109,12 +114,12 @@ M_MAIN = B_MAIN * N_TOK          # token rows of one batch: 50688
 # (batch * heads) of the main path's attention calls, and the MLP widths
 ATTN_MAIN = {"teacher": B_MAIN * 6, "student": B_MAIN * 3}
 MLP_MAIN = {"teacher": 384, "student": 192}
-UNFUSED_STEPS = 3
+UNFUSED_STEPS = 8
 # train steps per distillation type, in the order they run
-PATHS = (("soft", 3), ("wasskd", 4), ("mgd", 2), ("vitkd", 2))
+PATHS = (("soft", 8), ("wasskd", 4), ("mgd", 2), ("vitkd", 2))
 # the same with the student on block pairs; between them the three types ask
 # every (feat1, feat2) variant of a pair
-PAIRED_PATHS = (("soft", 3), ("wasskd", 2), ("vitkd", 2))
+PAIRED_PATHS = (("soft", 8), ("wasskd", 2), ("vitkd", 2))
 PAIR_FLAGS = ((False, False), (True, False), (False, True), (True, True))
 
 
@@ -138,6 +143,61 @@ def _timed(fn, iters, warmup=3):
     torch.cuda.synchronize()
     times = sorted(e0.elapsed_time(e1) for e0, e1 in events)
     return times[len(times) // 2]
+
+
+def _ptxas_summary(log):
+    """(kernel, registers, spills or '') per entry function of an nvcc -Xptxas
+    -v log, the kernel's name demangled as far as c++filt goes."""
+    out, kernel, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel, spill = line.split("'")[1], ""
+        elif "bytes spill stores" in line:
+            counts = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spill = line.strip() if any(counts) else ""
+        elif "Used" in line and "registers" in line and kernel:
+            out.append((kernel, line.split(":", 1)[1].strip(), spill))
+            kernel = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(k for k, _, _ in out),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        out = [(n.split("(")[0], r, sp) for n, (_, r, sp) in zip(names, out)]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return out
+
+
+def profile_backward(fb, x, p, g_out, kw, calls=5):
+    """Phase 3b': device time of each kernel inside one fused_block_bwd call,
+    from torch.profiler over ``calls`` calls (per-call means); prints the
+    kernels by time and their sum, or says that the profiler saw no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fb.kernel_block_bwd(x, p, g_out, None, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fb.kernel_block_bwd(x, p, g_out, None, **kw)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us / calls / 1e3, e.count / calls, e.key))
+    if not rows:
+        print("[profile] fused_block_bwd: torch.profiler saw no device time (not measured)")
+        return
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    for ms, n, key in rows:
+        print(f"[profile] fused_block_bwd D={x.shape[-1]} B={x.shape[0]}: {ms:.4f} ms "
+              f"({100 * ms / total:.1f}%) in {n:g} launches of {key[:90]}")
+    print(f"[profile] fused_block_bwd D={x.shape[-1]} B={x.shape[0]}: {total:.4f} ms of "
+          f"kernels a call")
 
 
 def _err(a, b):
@@ -248,6 +308,150 @@ def check_block_forward_shapes(fb, worst):
                         and (not need_feat or torch.equal(feat, again[1]))):
                     raise AssertionError(f"fused_block_fwd D={D} N={n}: two runs gave "
                                          f"different bits")
+
+
+def check_block_backward_shapes(fb, worst):
+    """Phase 3c: the block backward against its plain version at B=8 for
+    every N in (50, 198, 578) (ragged against the attention backward's 64-row
+    tiles and the weight gradients' 64-row k-blocks), width (192, 384, 768),
+    with and without a feature cotangent; the pair backward (and its forward)
+    at D=192 and 384 for the same N, with no feature cotangent and with both;
+    drop-path scales that hold zeros; two runs the same bits."""
+    import torch
+
+    for n in (50, N_TOK, 578):
+        for D, H in ((192, 3), (384, 6), (768, 12)):
+            for need_feat in (False, True):
+                p, x, sa, sm = _block_inputs(D, H, B_CHECK, D + n + need_feat, "cuda", n=n)
+                kw = dict(num_heads=H, scale_attn=sa, scale_mlp=sm)
+                g = torch.Generator(device="cuda").manual_seed(D + n)
+                g_out = torch.randn(x.shape, generator=g, device="cuda").bfloat16()
+                g_feat = (torch.randn(x.shape, generator=g, device="cuda").bfloat16()
+                          if need_feat else None)
+                dx, dws = fb.kernel_block_bwd(x, p, g_out, g_feat, **kw)
+                dx2, dws2 = fb.kernel_block_bwd(x, p, g_out, g_feat, **kw)
+                r_dx, r_dws = fb.reference_vit_block_bwd(x, p, g_out, g_feat, **kw)
+                torch.cuda.synchronize()
+                _hold(worst, f"B={B_CHECK} N={n} feat={need_feat}", "fused_block_bwd", D, x,
+                      [("dx", dx, r_dx)] + [("d" + k, dws[k], r_dws[k]) for k in fb.PARAM_NAMES])
+                if not (torch.equal(dx, dx2) and all(torch.equal(dws[k], dws2[k])
+                                                     for k in fb.PARAM_NAMES)):
+                    raise AssertionError(f"fused_block_bwd D={D} N={n}: two runs gave "
+                                         f"different bits")
+        for D, H in ((192, 3), (384, 6)):
+            for nf in (False, True):
+                _hold_pair(fb, worst, D, H, B_CHECK, nf, nf, D + n + nf, repeat=True, n=n)
+
+
+# The backward's products per nn.Linear weight W [O, I] of the block:
+# (name, O / D, I / D). Its input gradient dX [M, I] = G W runs on
+# linear_sm90 against W^T (kernel_linear(G, W.t())), its weight gradient
+# dW [O, I] = G^T X on weight_grad_kernel (kernel_weight_grad(G, X)).
+BACKWARD_PRODUCTS = (("fc2", 1, 4), ("fc1", 4, 1), ("proj", 1, 1), ("qkv", 3, 1))
+# What reverse_chain writes of each input gradient: dhpre (bf16, times gelu';
+# its column sums, which the sweep also takes from this epilogue, are held
+# through the block backward's fc1 bias gradient), dz, dO for the attention
+# backward, dy.
+DGRAD_OUTPUTS = {"fc2": ("bf16",), "fc1": ("f32",), "proj": ("bf16",), "qkv": ("f32",)}
+
+
+def check_backward_gemms(fb, worst, timed=True):
+    """Phase 3d: the backward's GEMM products alone at D=192 and D=384: each
+    input gradient (fb.kernel_linear on W^T, fc2's with the GELU derivative
+    as `mul`) against fb.plain_linear, each weight gradient
+    (fb.kernel_weight_grad) against fb.plain_weight_grad; at M=1001 (ragged
+    against the 128-row tile and the 64-row k-blocks) and M=50688 (the main
+    path); within TOL, two runs the same bits. With ``timed``, each at
+    M=50688 beside one torch.matmul of the same product (cuBLAS, bf16 out).
+    Returns {(kind, name, D): (ms, cuBLAS ms)}."""
+    import torch
+
+    rows = {}
+    for D in (192, 384):
+        for name, o_mult, i_mult in BACKWARD_PRODUCTS:
+            O, I = o_mult * D, i_mult * D
+            for M in (1001, M_MAIN):
+                g = torch.Generator().manual_seed(D + M + O)
+                G = torch.randn(M, O, generator=g).cuda().bfloat16()
+                X = torch.randn(M, I, generator=g).cuda().bfloat16()
+                W = (torch.randn(O, I, generator=g) / math.sqrt(O)).cuda().bfloat16()
+                mul = (1.2 * torch.rand(M, I, generator=g) - 0.1).cuda() if name == "fc2" else None
+                Wt = W.t().contiguous()
+                outs = DGRAD_OUTPUTS[name]
+                got = fb.kernel_linear(G, Wt, mul=mul, outputs=outs)
+                again = fb.kernel_linear(G, Wt, mul=mul, outputs=outs)
+                ref = fb.plain_linear(G, Wt, mul=mul)
+                dw, dw2 = fb.kernel_weight_grad(G, X), fb.kernel_weight_grad(G, X)
+                r_dw = fb.plain_weight_grad(G, X)
+                torch.cuda.synchronize()
+                checks = [(tag, g_, r_, None) for tag, g_, r_ in zip(("out32", "out_bf16"), got, ref)
+                          if g_ is not None]
+                same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again) if g_ is not None)
+                _hold_all(worst, "linear_sm90", f"dgrad {name} D={D} M={M}", checks, same)
+                _hold_all(worst, "weight_grad_sm90", f"{name} D={D} M={M}", [("dW", dw, r_dw, None)],
+                          torch.equal(dw, dw2))
+            if not timed:
+                continue
+            flops = 2 * M * O * I
+            for kind, ours, lib, shape in (
+                    ("dgrad", lambda: fb.kernel_linear(G, Wt, mul=mul, outputs=outs),
+                     lambda: torch.matmul(G, W), f"[{M}x{O}]x[{O}x{I}]"),
+                    ("wgrad", lambda: fb.kernel_weight_grad(G, X),
+                     lambda: torch.matmul(G.t(), X), f"[{O}x{M}]x[{M}x{I}]")):
+                ms, lib_ms = _timed(ours, 20), _timed(lib, 20)
+                rows[(kind, name, D)] = (ms, lib_ms)
+                what = (f"writing {'+'.join(outs)}{' (x gelu)' if mul is not None else ''}"
+                        if kind == "dgrad" else "fp32, partials summed")
+                print(f"[gemm] {kind} {name} D={D} {shape} {what}: {ms:.4f} ms "
+                      f"{flops / ms / 1e9:.1f} TFLOP/s; cuBLAS (torch.matmul, bf16 out) "
+                      f"{lib_ms:.4f} ms {flops / lib_ms / 1e9:.1f} TFLOP/s")
+    return rows
+
+
+# Workspace bytes of the two backward kernels at [256, 198, 192] in the
+# design whose recompute kept the [B*H, N, N] scores and whose sweep carved
+# two more [B*H, N, N] buffers.
+BWD_WORKSPACE_BEFORE = {"fused_block_bwd": 1_744_579_584, "fused_pair_bwd": 2_588_027_904}
+
+
+def print_backward_workspace(fb):
+    """The backward's and the pair backward's workspace at the main path's
+    shape beside BWD_WORKSPACE_BEFORE: fails unless each is below it and is
+    exactly the per-token buffers of the chain (a stash per block, the
+    sweep's buffers, the four transposed weights, the widest weight
+    gradient's row-range partials, the column-sum partials), that is, unless
+    no [B*H, N, N] buffer and no fp32 copy kept only for a column sum is
+    carved."""
+    D, H, N, B = 192, 3, N_TOK, B_MAIN
+    F, M, BH = 4 * D, B * N, B * H
+
+    def r256(n):
+        return (n + 255) // 256 * 256
+
+    lib = fb._library("fused_block_bwd")
+    partial = max(lib.dk_weight_grad_sm90_workspace(M, o * D, i * D)
+                  for _, o, i in BACKWARD_PRODUCTS)
+    stash = [M * D * 2, M * 3 * D * 2, M * D * 2, M * D * 4, M * D * 2, M * F * 2, BH * N * 4,
+             M * D * 4, M * 4, M * D * 4, M * 4, M * F * 4]
+    transposed = [3 * D * D * 2, D * D * 2, F * D * 2, D * F * 2]
+    # the column-sum partials: three sums over 128-row chunks, the fc2 input
+    # gradient's per 128-row tile, or the attention backward's per element
+    tiles = (M + 127) // 128
+    col_partial = max(3 * tiles * D, tiles * F, 3 * B * D) * 4
+    sweep = [M * D * 2, M * F * 2, M * D * 4, M * D * 4, M * D * 2, M * D * 2, BH * N * 4,
+             M * 3 * D * 2, M * D * 4, *transposed, partial, col_partial]
+    reckoned = {"fused_block_bwd": stash + sweep,
+                "fused_pair_bwd": stash + stash + [M * D * 4, M * D * 4] + sweep}
+    for name, before in BWD_WORKSPACE_BEFORE.items():
+        now = fb.workspace_bytes(name, (B, N, D), H, F)
+        parts = sum(r256(n) for n in reckoned[name])
+        print(f"[workspace] {name} [{B},{N},{D}]: {now} bytes, before {before}, {before - now} "
+              f"less; of it the delta rows {r256(BH * N * 4)}, the transposed weights "
+              f"{sum(r256(n) for n in transposed)}, the weight-gradient partials {r256(partial)}, "
+              f"the column-sum partials {r256(col_partial)}")
+        if now != parts or now >= before:
+            raise AssertionError(f"{name}: the workspace is {now} bytes, not the {parts} of the "
+                                 f"chain's per-token buffers, or not below {before}")
 
 
 # The forward's four linear products: (name, N / D, K / D).
@@ -374,7 +578,8 @@ def time_kernels(fb, worst):
                          ("fused_block_bwd", 192, 3)):
         p, x, sa, sm = _block_inputs(D, H, B_MAIN, 7, "cuda")
         kw = dict(num_heads=H, scale_attn=sa, scale_mlp=sm)
-        g_out = torch.randn_like(x)
+        g_out = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(D),
+                            device="cuda", dtype=x.dtype)
         if kernel == "fused_block_fwd":
             out, feat = fb.kernel_block_fwd(x, p, need_features=True, **kw)
             again = fb.kernel_block_fwd(x, p, need_features=True, **kw)
@@ -419,6 +624,7 @@ def time_kernels(fb, worst):
             both, fwd = _timed(lib_fwd_bwd, 20), _timed(lib_fwd_graph, 20)
             library_ms = both - fwd
             extra = f" (library forward+backward {both:.3f} ms, forward {fwd:.3f} ms)"
+            profile_backward(fb, x, p, g_out, kw)
         B, N = B_MAIN, N_TOK
         flops = B * (24 * N * D * D + 4 * N * N * D)
         weight_bytes = 12 * D * D * 2
@@ -436,14 +642,15 @@ def time_kernels(fb, worst):
     return rows
 
 
-def _pair_inputs(D, H, B, seed, device):
-    """Two blocks' weights, x and the four drop-path scales (s_attn1, s_mlp1,
-    s_attn2, s_mlp2): _block_inputs twice, block 2's scales rolled so its
-    zeros fall on other samples, and sample 5 with all four at 0."""
+def _pair_inputs(D, H, B, seed, device, n=N_TOK):
+    """Two blocks' weights, x of n tokens and the four drop-path scales
+    (s_attn1, s_mlp1, s_attn2, s_mlp2): _block_inputs twice, block 2's scales
+    rolled so its zeros fall on other samples, and sample 5 with all four at
+    0."""
     import torch
 
-    p1, x, sa1, sm1 = _block_inputs(D, H, B, seed, device)
-    p2, _, sa2, sm2 = _block_inputs(D, H, B, seed + 1000, device)
+    p1, x, sa1, sm1 = _block_inputs(D, H, B, seed, device, n=n)
+    p2, _, sa2, sm2 = _block_inputs(D, H, B, seed + 1000, device, n=n)
     scales = [sa1, sm1, sa2.roll(3), sm2.roll(3)]
     for s in scales:
         s[5] = 0.0
@@ -452,13 +659,14 @@ def _pair_inputs(D, H, B, seed, device):
     return p1, p2, x, tuple(scales), gs
 
 
-def _hold_pair(fb, worst, D, H, B, nf1, nf2, seed, repeat=False):
-    """Both pair kernels against their plain versions on one input; with
-    ``repeat`` a second run must give the same bits. Returns what the caller
-    may compare further: (inputs, kernel forward outputs, kernel dx)."""
+def _hold_pair(fb, worst, D, H, B, nf1, nf2, seed, repeat=False, n=N_TOK):
+    """Both pair kernels against their plain versions on one input of n
+    tokens; with ``repeat`` a second run must give the same bits. Returns what
+    the caller may compare further: (inputs, kernel forward outputs, kernel
+    dx)."""
     import torch
 
-    p1, p2, x, scales, (g_out, g_f1, g_f2) = inputs = _pair_inputs(D, H, B, seed, "cuda")
+    p1, p2, x, scales, (g_out, g_f1, g_f2) = inputs = _pair_inputs(D, H, B, seed, "cuda", n=n)
     g_f1, g_f2 = (g_f1 if nf1 else None), (g_f2 if nf2 else None)
     kw = dict(num_heads=H, scales=scales)
     fwd = fb.kernel_block_pair_fwd(x, p1, p2, need_features1=nf1, need_features2=nf2, **kw)
@@ -466,7 +674,7 @@ def _hold_pair(fb, worst, D, H, B, nf1, nf2, seed, repeat=False):
     dx, dw1, dw2 = bwd = fb.kernel_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)
     r_dx, r_dw1, r_dw2 = fb.reference_vit_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)
     torch.cuda.synchronize()
-    tag = f"B={B} feat=({nf1}, {nf2})"
+    tag = f"B={B}{'' if n == N_TOK else f' N={n}'} feat=({nf1}, {nf2})"
     for flag, feat in ((nf1, fwd[1]), (nf2, fwd[2])):
         if (feat is not None) != flag:
             raise AssertionError(f"fused_pair_fwd D={D} {tag}: a feature output does "
@@ -1417,35 +1625,54 @@ def check_features_against_cpu(teacher, student, aux, aug, kd, images):
 
 
 # Planted faults (``--faults``): each is an edit of one kernel source in a
-# copy of the package; the copy's forward checks must then fail (exit 1).
+# copy of the package; the copy's checks of that kernel (``--forward-checks``
+# or ``--backward-checks``) must then fail (exit 1).
 FAULTS = (
     ("the online rescale left out", "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
      (("l[r] *= alpha[r];", "l[r] *= 1.0f;"),
-      ("o[i] *= alpha[(i / 2) & 1];", "o[i] *= 1.0f;"))),
+      ("o[i] *= alpha[(i / 2) & 1];", "o[i] *= 1.0f;")), "--forward-checks"),
     ("a padding key left in the sum", "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
      (("const float v = key + 8 * (i / 4) + (i & 1) < N ? s[i] * scale_log2 : -INFINITY;",
-       "const float v = s[i] * scale_log2;"),)),
+       "const float v = s[i] * scale_log2;"),), "--forward-checks"),
     ("a wrong head offset in the merged write",
      "deltakd_tpu_torch/ops/csrc/fused_block_common.cuh",
-     (("a.o_sh = hd;", "a.o_sh = 0;"),)),
+     (("a.o_sh = hd;", "a.o_sh = 0;"),), "--forward-checks"),
     # the consumers read the stage after the one whose barrier they waited on
     # (the ring itself stays in step, so the run ends)
     ("a stage of the ring read before its barrier", "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
      (("sw128_desc(As + stage * BM * BK + wg * 64 * BK)",
-       "sw128_desc(As + (stage + 1) % STAGES * BM * BK + wg * 64 * BK)"),)),
+       "sw128_desc(As + (stage + 1) % STAGES * BM * BK + wg * 64 * BK)"),), "--forward-checks"),
+    ("delta left out of dS", "deltakd_tpu_torch/ops/csrc/attention_bwd.cuh",
+     (("sv[e] = pv[e] * (dp[idx] - delta_s[col]);", "sv[e] = pv[e] * dp[idx];"),),
+     "--backward-checks"),
+    ("the dQ share of key tile 1 added twice", "deltakd_tpu_torch/ops/csrc/attention_bwd.cuh",
+     (("v.x += dqi[4 * jb + 2 * hh];", "v.x += (j == 1 ? 2.f : 1.f) * dqi[4 * jb + 2 * hh];"),
+      ("v.y += dqi[4 * jb + 2 * hh + 1];",
+       "v.y += (j == 1 ? 2.f : 1.f) * dqi[4 * jb + 2 * hh + 1];")), "--backward-checks"),
+    ("the last row range of a weight gradient left out of the sum",
+     "deltakd_tpu_torch/ops/csrc/fused_block_common.cuh",
+     (("partial, splits, (long long)O * I, out);", "partial, splits - 1, (long long)O * I, out);"),),
+     "--backward-checks"),
+    ("a warp's rows left out of a row kernel's column sums",
+     "deltakd_tpu_torch/ops/csrc/fused_block_reverse.cuh",
+     (("for (int w = 0; w < ROWS_PER_BLOCK; ++w) s += acc[w * n + i];",
+       "for (int w = 1; w < ROWS_PER_BLOCK; ++w) s += acc[w * n + i];"),), "--backward-checks"),
+    ("the GELU derivative left out of the fc2 input gradient",
+     "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
+     (("v0 *= mu.x;", "v0 *= 1.0f;"), ("v1 *= mu.y;", "v1 *= 1.0f;")), "--backward-checks"),
 )
 
 
 def run_faults() -> int:
     """For each planted fault: a copy of the package and this script under
-    .scratch/faults/ (ignored by git), the edit, then ``chip_smoke.py
-    --forward-checks`` in the copy, which must exit 1. Returns 0 when every
-    fault failed its run."""
+    .scratch/faults/ (ignored by git), the edit, then ``chip_smoke.py`` with
+    the fault's checks (``--forward-checks`` or ``--backward-checks``) in the
+    copy, which must exit 1. Returns 0 when every fault failed its run."""
     import shutil
 
     root = os.path.dirname(os.path.abspath(__file__))
     caught = []
-    for i, (name, rel, edits) in enumerate(FAULTS):
+    for i, (name, rel, edits, checks) in enumerate(FAULTS):
         copy = os.path.join(root, ".scratch", "faults", str(i))
         shutil.rmtree(copy, ignore_errors=True)
         shutil.copytree(os.path.join(root, "deltakd_tpu_torch"),
@@ -1462,7 +1689,7 @@ def run_faults() -> int:
         with open(path, "w") as f:
             f.write(text)
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "chip_smoke.py", "--forward-checks"], cwd=copy,
+        proc = subprocess.run([sys.executable, "chip_smoke.py", checks], cwd=copy,
                               capture_output=True, text=True, timeout=300)
         first = ([line for line in proc.stdout.splitlines() if "FAIL" in line]
                  or proc.stderr.strip().splitlines()[-1:] or ["(none)"])[0]
@@ -1484,6 +1711,7 @@ def main() -> int:
     if "--faults" in sys.argv[1:]:
         return run_faults()
     forward_checks = "--forward-checks" in sys.argv[1:]
+    backward_checks = "--backward-checks" in sys.argv[1:]
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deltakd_tpu_torch.ops import _build
@@ -1502,14 +1730,14 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    logs = _build.build(["fused_block_fwd", "attention"] if forward_checks else _build.SOURCES)
+    logs = _build.build(["fused_block_fwd", "attention"] if forward_checks else
+                        ["fused_block_fwd", "fused_block_bwd", "fused_block_pair"]
+                        if backward_checks else _build.SOURCES)
     print(f"[build] sources {list(_build.SOURCES)}, compiled {sorted(logs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or ("spill" in line and "0 bytes spill stores, 0 bytes"
-                                       not in line):
-                print(f"[build] {name}: {line.strip()}")
+        for kernel, regs, spill in _ptxas_summary(log):
+            print(f"[build] {name}: {kernel}: {regs}{'; ' + spill if spill else ''}")
 
     worst = {}
     if forward_checks:   # a planted-fault copy: the checks of the redesigned forward only
@@ -1517,10 +1745,17 @@ def main() -> int:
         check_linear(fb, worst)
         check_attention_kernels(at, worst)
         return 0
+    if backward_checks:  # a planted-fault copy: the checks of the redesigned backward only
+        check_block_backward_shapes(fb, worst)
+        check_backward_gemms(fb, worst, timed=False)
+        return 0
     check_kernels(fb, worst)
     check_block_forward_shapes(fb, worst)
+    check_block_backward_shapes(fb, worst)
     check_linear(fb, worst)
+    check_backward_gemms(fb, worst)
     print_forward_workspace(fb)
+    print_backward_workspace(fb)
     timing = time_kernels(fb, worst)
     check_sort_kernels(so, worst)
     timing.update(time_sort_kernels(so))

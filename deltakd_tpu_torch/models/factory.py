@@ -62,7 +62,12 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
 
     ``attention_fn`` defaults to ``best_attention_fn(config.flash_attention)``;
     None turns every kernel off (PyTorch's own ops throughout), as in the JAX
-    factory. With kernels on, both models run the fused block, unless
+    factory. A config whose ``dtype`` is not bfloat16 turns them off too: the
+    kernels take bf16 operands only (each wrapper raises on an fp32 CUDA
+    tensor, and none converts), so an fp32 config runs both models on
+    PyTorch's own ops, exactly as ``attention_fn=None`` does. The JAX
+    package runs its kernels at fp32 as well; the port does not yet. With
+    kernels on, both models run the fused block, unless
     ``config.mesh_shape`` has a model axis > 1: the fused block consumes whole
     weight matrices, so tensor parallelism takes the unfused path, the student
     with ``attention_fn`` and the forward-only teacher with ``attention_fn``
@@ -84,6 +89,8 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
 
     if attention_fn is _FROM_CONFIG:
         attention_fn = best_attention_fn(config.flash_attention)
+    if dtype != torch.bfloat16:
+        attention_fn = None
     kernels_on = attention_fn is not None
     mesh_shape = config.mesh_shape
     model_axis = int(mesh_shape[1]) if mesh_shape and len(mesh_shape) > 1 else 1

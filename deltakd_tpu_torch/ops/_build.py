@@ -32,7 +32,10 @@ SIGNATURES = {
     "fused_block_fwd": {**_block_signatures("fused_block_fwd"),
                         "dk_linear_sm90": ([ctypes.POINTER(_PTR)] + [_INT] * 4
                                            + [ctypes.c_float, _INT, _INT, _PTR], _INT)},
-    "fused_block_bwd": _block_signatures("fused_block_bwd"),
+    # the backward, and one of its weight gradients alone (gemm_sm90.cuh)
+    "fused_block_bwd": {**_block_signatures("fused_block_bwd"),
+                        "dk_weight_grad_sm90_workspace": ([_INT] * 3, ctypes.c_size_t),
+                        "dk_weight_grad_sm90": ([_PTR] * 2 + [_INT] * 3 + [_PTR] * 3, _INT)},
     "fused_block_pair": {**_block_signatures("fused_pair_fwd"),
                          **_block_signatures("fused_pair_bwd")},
     "sort": {

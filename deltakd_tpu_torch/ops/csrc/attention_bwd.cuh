@@ -1,0 +1,332 @@
+// Attention backward whose scores never leave the chip, on Hopper (sm_90a):
+// the attention stage of the fused block's reverse sweep (`reverse_chain`,
+// fused_block_reverse.cuh). Per (batch, head), from q (pre-scaled), k, v, the
+// output cotangent dO, the forward's row statistic lse and
+// delta = rowsum(dO * O):
+//
+//   S = q k^T,  P = exp(S - lse),  dV = P^T dO,  dP = dO v^T,
+//   dS = P * (dP - delta),  dQ = dS k * dq_scale,  dK = dS^T q
+//
+// This is the math of deltakd_tpu/ops/fused_block.py `_attention_bwd_one`,
+// which folds the softmax normalisation into row scalings of the unnormalised
+// e and its row sums; with P normalised through lse the same gradient needs
+// only one row statistic, and delta = rowsum(dO * O) stands for its
+// c = rowsum(dP * e) / rowsum(e).
+//
+// One CTA (one warpgroup, 128 threads) per (batch, head). It walks the key
+// tiles of 64 keys; for each it keeps dK and dV of those keys in registers
+// and loops over the query tiles of 64 rows:
+//   S^T = K Q^T and dP^T = V dO^T: wgmma from shared memory, keys as rows, so
+//        that P^T and dS^T land in registers as the A operand of the next two;
+//   dV += P^T dO and dK += dS^T Q: wgmma with A from registers, dO and Q
+//        as they lie in shared memory (wgmma's transposed B operand);
+//   dQ_i = dS K: dS^T goes to shared memory in the 128-byte swizzle and is
+//        read as wgmma's transposed A operand, K as its transposed B; the
+//        product is added to an fp32 dQ of all N rows in shared memory.
+// dQ sums its key tiles in key-tile order inside one CTA: no partials in
+// device memory and no atomics, two runs give the same bits. Tiles arrive by
+// cp.async in the 128-byte swizzle (attention_fwd.cuh's loader); rows at or
+// beyond N arrive as zeros, and P is set to 0 wherever the key or the query
+// is at or beyond N, so padding adds nothing.
+//
+// With `colsum` it also writes each head's column sums of dq, dk and dv
+// (fixed order: rows by shuffles and warps, key tiles in order), the
+// per-element partials of the qkv bias gradient.
+//
+// What bounds it on an H100: the five N x N x 64 products of a head against
+// q, k, v, dO, dq, dk, dv (7 x N x 64 bf16), some 140 operations a byte at
+// N = 198, under the card's ~295: bytes, in
+// principle; in practice each CTA's serial chain (two products, the
+// exponentials, two more, a barrier, the fifth) and the padding of 198 rows
+// to 256. The scores never reach device memory; shared memory holds the five
+// 8 KB tiles and dQ (16 KB per 64 query rows: 64 KB at N = 198, two CTAs an
+// SM; N up to 704).
+
+#pragma once
+
+#include <math.h>
+
+#include "attention_fwd.cuh"
+
+namespace dk {
+
+// q, k, v, dout: [B, H, N, hd] bf16 through (batch, head, row) element
+// strides, the head dim contiguous, rows 16-byte aligned. lse and delta:
+// [B * H, N] fp32. The bf16 gradients go through (batch, head, row) strides
+// g_sb, g_sh, g_sn; dq is multiplied by dq_scale. With `colsum`, the sums over
+// the head's N rows of dq, dk, dv (fp32, dq scaled) go to
+// colsum[b * cs_b + part * cs_part + h * 64 + d], part 0, 1, 2 for q, k, v
+// (the per-element partials of the qkv bias gradient).
+struct AttnBwdArgs {
+  const bf16 *q, *k, *v, *dout;
+  long long q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, d_sb, d_sh, d_sn;
+  const float *lse, *delta;
+  bf16 *dq, *dk, *dv;
+  long long g_sb, g_sh, g_sn;
+  float* colsum;
+  int cs_b, cs_part;
+  float dq_scale;
+  int B, H, N;
+};
+
+namespace attn_bwd {
+constexpr int T = attn::T;             // keys of a key tile, rows of a query tile
+constexpr int TILE = T * 64;           // bf16 elements of one tile
+constexpr int MAX_TILES = 11;          // dQ in shared memory: N <= 704
+// five bf16 tiles, lse and delta of a query tile, dQ of all rows, the
+// column sums of dq, dk, dv and one 64-column partial per warp
+inline size_t smem_bytes(int N) {
+  const int tiles = (N + T - 1) / T;
+  return 5 * TILE * sizeof(bf16) + 2 * T * sizeof(float) + (size_t)tiles * T * 64 * sizeof(float) +
+         (3 + 4) * 64 * sizeof(float) + 1024;
+}
+}  // namespace attn_bwd
+
+// The fp32 dQ accumulator in shared memory: row r, float2 column c2 (of 32),
+// swizzled so that the accumulator layout's 4 rows x 4 column pairs of a
+// half-warp fall on 16 different 8-byte banks.
+__device__ __forceinline__ float2* dq_slot(float* dq, int r, int c2) {
+  return reinterpret_cast<float2*>(dq + r * 64) + (c2 ^ ((r & 3) << 2));
+}
+
+// Stores one thread's share of a 64 x 64 accumulator (rows of the tile r,
+// r + 8 with r = 16 warp + lane / 4; columns 8 jb + 2 (lane % 4) + {0, 1})
+// as bf16 into a 128-byte-swizzled tile.
+__device__ __forceinline__ void store_tile_sw128(bf16* tile, const float (&d)[32]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  unsigned char* base = reinterpret_cast<unsigned char*>(tile);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + lane / 4 + 8 * h;
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb)
+      *reinterpret_cast<uint32_t*>(base + r * 128 + ((jb ^ (r & 7)) << 4) + 4 * (lane % 4)) =
+          pack_bf16(d[4 * jb + 2 * h], d[4 * jb + 2 * h + 1]);
+  }
+}
+
+// Adds the column sums of one 64 x 64 accumulator (all 64 rows; rows past N
+// hold zeros) to col[64]: each warp's 16 rows by shuffles, then the four
+// warps in order through wpart[4][64]. All 128 threads call it.
+__device__ __forceinline__ void add_colsums(const float (&d)[32], float* wpart, float* col) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb) {
+    float a = d[4 * jb] + d[4 * jb + 2], b = d[4 * jb + 1] + d[4 * jb + 3];
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, o);
+      b += __shfl_xor_sync(0xffffffffu, b, o);
+    }
+    if (lane < 4) {
+      wpart[warp * 64 + 8 * jb + 2 * lane] = a;
+      wpart[warp * 64 + 8 * jb + 2 * lane + 1] = b;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 64)
+    col[threadIdx.x] += wpart[threadIdx.x] + wpart[64 + threadIdx.x] + wpart[128 + threadIdx.x] +
+                        wpart[192 + threadIdx.x];
+  __syncthreads();
+}
+
+// One thread's rows of a 64 x 64 gradient tile (rows r0 + 16 warp + lane / 4
+// and + 8 of the head) to `out`, rows at or beyond N left out.
+__device__ __forceinline__ void store_grad_rows(const AttnBwdArgs& p, bf16* out, long long head,
+                                                int r0, const float (&d)[32]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 16 * warp + lane / 4 + 8 * h;
+    if (row >= p.N) continue;
+    const long long off = head + row * p.g_sn + 2 * (lane % 4);
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb)
+      store2(out + off + 8 * jb, d[4 * jb + 2 * h], d[4 * jb + 2 * h + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const AttnBwdArgs p) {
+  using attn_bwd::T;
+  using attn_bwd::TILE;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* Vs = Ks + TILE;
+  bf16* Qs = Vs + TILE;
+  bf16* Ds = Qs + TILE;       // dO of the query tile
+  bf16* Ss = Ds + TILE;       // dS^T of the (key, query) tile pair
+  float* lse_s = reinterpret_cast<float*>(Ss + TILE);   // lse * log2(e) of the query tile
+  float* delta_s = lse_s + T;
+  float* dq = delta_s + T;    // [tiles * T][64] fp32
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int N = p.N, tiles = (N + T - 1) / T;
+  const bf16* qh = p.q + b * p.q_sb + h * p.q_sh;
+  const bf16* kh = p.k + b * p.k_sb + h * p.k_sh;
+  const bf16* vh = p.v + b * p.v_sb + h * p.v_sh;
+  const bf16* dh = p.dout + b * p.d_sb + h * p.d_sh;
+  const float* lse = p.lse + (long long)bh * N;
+  const float* delta = p.delta + (long long)bh * N;
+  const long long ghead = b * p.g_sb + h * p.g_sh;
+  constexpr float LOG2E = 1.4426950408889634f;
+
+  float* col = dq + tiles * T * 64;   // [3][64]: the column sums of dq, dk, dv
+  float* wpart = col + 3 * 64;        // [4][64]
+  for (int i = threadIdx.x; i < tiles * T * 16; i += attn::THREADS)
+    reinterpret_cast<float4*>(dq)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = threadIdx.x; i < 3 * 64; i += attn::THREADS) col[i] = 0.f;
+
+  // this thread's rows (keys in S^T, dP^T, dK, dV; queries in dQ) and columns
+  const int r_lo = 16 * warp + lane / 4, c_lo = 2 * (lane % 4);
+
+  for (int j = 0; j < tiles; ++j) {
+    load_tile_async(Ks, kh, p.k_sn, j * T, N);
+    load_tile_async(Vs, vh, p.v_sn, j * T, N);
+    cp_async_commit();
+    float dk[32], dv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+
+    for (int i = 0; i < tiles; ++i) {
+      load_tile_async(Qs, qh, p.q_sn, i * T, N);
+      load_tile_async(Ds, dh, p.d_sn, i * T, N);
+      cp_async_commit();
+      if (threadIdx.x < T) {
+        const int row = i * T + threadIdx.x;
+        lse_s[threadIdx.x] = row < N ? lse[row] * LOG2E : 0.f;
+        delta_s[threadIdx.x] = row < N ? delta[row] : 0.f;
+      }
+      cp_async_wait<0>();
+      // this thread's copies are visible to wgmma (the async proxy), then all threads'
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T over the 64 dims of the head
+      float s[32], dp[32];
+      const uint64_t k_desc = sw128_desc(Ks), v_desc = sw128_desc(Vs);
+      const uint64_t q_desc = sw128_desc(Qs), do_desc = sw128_desc(Ds);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_ss(s, k_desc + 2 * k, q_desc + 2 * k, k > 0);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_ss(dp, v_desc + 2 * k, do_desc + 2 * k, k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T = exp(S^T - lse) and dS^T = P^T (dP^T - delta), 0 at padding
+      // keys and queries; both as wgmma A fragments (16 queries a k-step)
+      uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+        float pv[4], sv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * T + r_lo + 8 * (e >> 1);
+          const int col = 8 * jb + c_lo + (e & 1);
+          const int idx = 4 * jb + e;
+          const bool in = key < N && i * T + col < N;
+          pv[e] = in ? exp2f(s[idx] * LOG2E - lse_s[col]) : 0.f;
+          sv[e] = pv[e] * (dp[idx] - delta_s[col]);
+          s[idx] = sv[e];
+        }
+        pa[jb / 2][2 * (jb & 1)] = pack_bf16(pv[0], pv[1]);
+        pa[jb / 2][2 * (jb & 1) + 1] = pack_bf16(pv[2], pv[3]);
+        sa[jb / 2][2 * (jb & 1)] = pack_bf16(sv[0], sv[1]);
+        sa[jb / 2][2 * (jb & 1) + 1] = pack_bf16(sv[2], sv[3]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q: a k-step of 16 queries is 16 rows
+      // of dO and Q, 2048 bytes
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_rs_t(dv, pa[k], do_desc + 128 * k, 1);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_rs_t(dk, sa[k], q_desc + 128 * k, 1);
+      wgmma_commit();
+
+      // dS^T to shared memory, then dQ_i = dS K (dS^T and K both read
+      // transposed: 16 keys a k-step)
+      store_tile_sw128(Ss, s);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+      float dqi[32];
+      const uint64_t ds_desc = sw128_desc(Ss);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_ss_tt(dqi, ds_desc + 128 * k, k_desc + 128 * k, k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(dqi);
+
+      // dQ of the query tile += this key tile's share (one thread owns each
+      // element, key tiles in order)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = i * T + r_lo + 8 * hh;
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb) {
+          float2* slot = dq_slot(dq, r, 4 * jb + c_lo / 2);
+          float2 v = *slot;
+          v.x += dqi[4 * jb + 2 * hh];
+          v.y += dqi[4 * jb + 2 * hh + 1];
+          *slot = v;
+        }
+      }
+      __syncthreads();   // the tiles are refilled by the next iteration's copies
+    }
+    store_grad_rows(p, p.dk, ghead, j * T, dk);
+    store_grad_rows(p, p.dv, ghead, j * T, dv);
+    if (p.colsum) {   // key tiles in order
+      add_colsums(dk, wpart, col + 64);
+      add_colsums(dv, wpart, col + 128);
+    }
+  }
+
+  __syncthreads();
+  // thread t writes column pair t % 32 of rows t / 32, + 4, + 8, ...
+  float2 qs = make_float2(0.f, 0.f);
+  for (int e = threadIdx.x; e < N * 32; e += attn::THREADS) {
+    const int r = e / 32, c2 = e % 32;
+    const float2 v = *dq_slot(dq, r, c2);
+    const float a = v.x * p.dq_scale, b2 = v.y * p.dq_scale;
+    store2(p.dq + ghead + r * p.g_sn + 2 * c2, a, b2);
+    qs.x += a;
+    qs.y += b2;
+  }
+  if (p.colsum) {
+    wpart[2 * threadIdx.x] = qs.x;        // [4 row classes][32 column pairs]
+    wpart[2 * threadIdx.x + 1] = qs.y;
+    __syncthreads();
+    if (threadIdx.x < 64)
+      col[threadIdx.x] = wpart[threadIdx.x] + wpart[64 + threadIdx.x] +
+                         wpart[128 + threadIdx.x] + wpart[192 + threadIdx.x];
+    __syncthreads();
+    for (int i = threadIdx.x; i < 3 * 64; i += attn::THREADS)
+      p.colsum[(long long)b * p.cs_b + (i / 64) * p.cs_part + h * 64 + i % 64] = col[i];
+  }
+}
+
+// Whether the kernel takes head dim hd and sequence length N (dQ of all N
+// rows lives in shared memory).
+inline bool attention_bwd_takes(int hd, int N) {
+  return hd == 64 && N >= 1 && (N + attn_bwd::T - 1) / attn_bwd::T <= attn_bwd::MAX_TILES;
+}
+
+// Launches the attention backward on `st`; cudaErrorInvalidValue, without a
+// launch, for a shape it does not take.
+inline cudaError_t attention_bwd(const AttnBwdArgs& p, int hd, cudaStream_t st) {
+  if (!attention_bwd_takes(hd, p.N) || p.B < 1 || p.H < 1) return cudaErrorInvalidValue;
+  const size_t smem = attn_bwd::smem_bytes(p.N);
+  cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  attention_bwd_kernel<<<p.B * p.H, attn::THREADS, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace dk

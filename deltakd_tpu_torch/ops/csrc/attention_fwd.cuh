@@ -1,8 +1,9 @@
 // Attention forward whose scores never leave the chip, on Hopper (sm_90a).
 // Shared by `flash_fwd` (attention.cu) and the attention stage of the fused
-// block forward when it keeps no stash (`forward_chain`,
-// fused_block_common.cuh). Per (batch, head), with `scale` applied to q k^T
-// (1 when q arrives pre-scaled, as the block's packed qkv does):
+// block forward and of the backward's recompute, which keeps its lse
+// (`forward_chain`, fused_block_common.cuh). Per (batch, head), with `scale`
+// applied to q k^T (1 when q arrives pre-scaled, as the block's packed qkv
+// does):
 //
 //   o = softmax(q k^T scale) v   in bf16,   lse = max + log(sum)   in fp32
 //

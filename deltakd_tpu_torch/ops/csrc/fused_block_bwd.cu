@@ -12,16 +12,18 @@
 // shared with the block-pair backward.
 //
 // What bounds it on an H100: about three forwards of tensor-core work (the
-// recompute plus two products per forward product) on the same 4ND-scale
-// inputs, so again the tensor cores set the floor. The sum over the batch is
-// carried across a sequential grid on the TPU; here blocks run in parallel, so
-// each weight gradient is a split-K product writing fp32 partials per chunk
-// of KCHUNK rows, and a second pass sums the partials in a fixed order
-// (deterministic, no atomics). The recompute's four linear products run on
-// the forward's TMA + wgmma GEMM (gemm_sm90.cuh); the reverse sweep, the
-// stash's materialised scores and the weight gradients stay on the plain
-// WMMA tile of fused_block_common.cuh, and with the workspace round trips
-// they keep this design well above its floor.
+// recompute up to the GELU, then two products per forward product) on the
+// same 4ND-scale inputs, so the tensor cores set the floor; above it, the
+// bytes of the activations that the chain carries through its workspace.
+// The design puts all twelve products on the TMA + wgmma GEMM of
+// gemm_sm90.cuh (the recompute's four linears and the sweep's four input
+// gradients on `linear_sm90`, the four weight gradients on
+// `weight_grad_kernel`), and keeps the attention's [N, N] scores on chip in
+// both directions (attention_fwd.cuh with its lse for the recompute,
+// attention_bwd.cuh for the sweep), so that the workspace holds per-token
+// activations only. The sum over the batch, carried across a sequential grid
+// on the TPU, is here a split over row ranges into fp32 partials that a
+// second pass adds in a fixed order (deterministic, no atomics).
 
 #include "fused_block_reverse.cuh"
 
@@ -39,11 +41,13 @@ extern "C" size_t dk_fused_block_bwd_workspace(int B, int N, int D, int H, int F
 
 // ptr: x, s_attn, s_mlp, 12 weights, g_out, g_feat|null, dx, then the 12 fp32
 // weight gradients in the same order as the weights, then the workspace.
-// Returns cudaGetLastError() after the launches.
+// Returns the first launch error, or cudaErrorInvalidValue, before any
+// launch, for a shape the attention kernels do not take.
 extern "C" int dk_fused_block_bwd(void* const* ptr, int B, int N, int D, int H, int F,
                                   float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const Shape sh{B, N, D, H, F};
+  if (!attention_bwd_takes(sh.hd(), N)) return (int)cudaErrorInvalidValue;
   const bf16* x = (const bf16*)ptr[0];
   const float* s_attn = (const float*)ptr[1];
   const float* s_mlp = (const float*)ptr[2];
@@ -63,6 +67,21 @@ extern "C" int dk_fused_block_bwd(void* const* ptr, int B, int N, int D, int H, 
   const cudaError_t err =
       forward_chain(x, s_attn, s_mlp, w, sh, eps, f, true, nullptr, nullptr, nullptr, st);
   if (err != cudaSuccess) return (int)err;
-  reverse_chain(g_out, g_feat, s_attn, s_mlp, w, sh, f, g, dW, nullptr, dx, st);
-  return (int)cudaGetLastError();
+  return (int)reverse_chain(g_out, g_feat, s_attn, s_mlp, w, sh, f, g, dW, nullptr, dx, st);
+}
+
+// Bytes of scratch for dk_weight_grad_sm90 at (M, O, I): the row-range
+// partials.
+extern "C" size_t dk_weight_grad_sm90_workspace(int M, int O, int I) {
+  return (size_t)weight_grad_partial_len(M, O, I) * sizeof(float);
+}
+
+// One weight gradient of the backward alone, on gemm_sm90.cuh (a kernel-only
+// check; no model path calls it): out [O, I] fp32 = g^T x, g [M, O] and
+// x [M, I] bf16 row-major, `partial` the workspace above. Returns the launch
+// error, or cudaErrorInvalidValue for a shape it does not take.
+extern "C" int dk_weight_grad_sm90(const void* g, const void* x, int M, int O, int I,
+                                   void* partial, void* out, void* stream) {
+  return (int)weight_grad_sm90((const bf16*)g, (const bf16*)x, M, O, I, (float*)partial,
+                               (float*)out, (cudaStream_t)stream);
 }

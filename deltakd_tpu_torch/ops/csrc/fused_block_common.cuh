@@ -1,6 +1,6 @@
 // Building blocks shared by the fused ViT block forward and backward kernels
-// and the block-pair kernels (fused_block_pair.cu); the fused-MLP backward
-// (fused_mlp.cu) builds on the same GEMM and row sums.
+// and the block-pair kernels (fused_block_pair.cu); the fused-MLP kernels
+// (fused_mlp.cu) build on the plain GEMM and the row sums.
 //
 // The TPU kernels (deltakd_tpu/ops/fused_block.py `_fwd_kernel`,
 // `_bwd_kernel`) keep one batch element's whole block in 16+ MB of VMEM. An
@@ -13,15 +13,23 @@
 //   LN -> qkv, proj, fc1, fc2: the TMA + wgmma GEMM of gemm_sm90.cuh with a
 //         fused epilogue (bias, q's scaling, erf-GELU, drop-path-scaled
 //         residual)
-//   attention without a stash: attention_fwd.cuh, the scores stay on chip
-//   attention with a stash (the backward's recompute): score GEMM -> row
-//         softmax -> e@v GEMM through `gemm_kernel` below, because the
-//         reverse sweep reads the scores
+//   attention: attention_fwd.cuh, the scores stay on chip; the backward's
+//         recompute runs the same kernel and keeps its row statistic lse
 //
-// The reverse sweep's products, the weight gradients and the fused-MLP
-// backward run on `gemm_kernel`, a plain strided WMMA tile. No library GEMM
-// is called. Weight gradients are split over row chunks into fp32 partials
-// and summed in a fixed order by a second pass (deterministic; no atomics).
+// What bounds the chain on an H100: the tensor cores for its products (a few
+// hundred operations a byte), and the bytes of the intermediates that the
+// workspace carries between its kernels (about 20 bytes per token and unit
+// of D in the forward; about 80 in the backward, its stash and its sweep's
+// cotangents). The design keeps every [N, N] score tile on chip, puts every
+// product on the TMA + wgmma GEMM, and takes the bias and LayerNorm-gain
+// gradients (column sums) inside the passes that already hold their operands
+// rather than from fp32 copies of them.
+//
+// `gemm_kernel` below, a plain strided WMMA tile, the split-K `weight_grad`
+// over it and `col_sum` serve only the fused-MLP backward (fused_mlp.cu)
+// now. Sums over all rows (weight and bias gradients) are fp32 partials over
+// row ranges, added in a fixed order by a second pass: no atomics, two runs
+// give the same bits.
 
 #pragma once
 
@@ -42,38 +50,26 @@ __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p)
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 
 // ---------------------------------------------------------------------------
-// GEMM: C[z] (M x N) = A[z] (M x K) @ B[z] (K x N), bf16 in, fp32 accumulate.
+// GEMM: C (M x N) = A (M x K) @ B (K x N), bf16 in, fp32 accumulate.
 // Operands are addressed through element strides, so transposed views (the
-// weight-gradient products, k^T, e^T) need no copies. z = blockIdx.z is
-// split as (z1, z2) = (z / Z2, z % Z2) for the (element, head) batches; with
-// k_chunk > 0, z instead indexes consecutive K chunks and each writes its own
-// partial product (split-K weight gradients).
+// weight-gradient products) need no copies. With k_chunk > 0, z = blockIdx.z
+// indexes consecutive K chunks and each writes its own partial product at
+// z * c_z (split-K weight gradients).
 // ---------------------------------------------------------------------------
 
 enum Act { ACT_NONE = 0, ACT_GELU = 1 };
 
 struct GemmArgs {
   int M, N, K;
-  const bf16* A; long long a_sm, a_sk, a_z1, a_z2;
-  const bf16* B; long long b_sk, b_sn, b_z1, b_z2;
-  int Z2;
+  const bf16* A; long long a_sm, a_sk;
+  const bf16* B; long long b_sk, b_sn;
   int k_chunk;            // > 0: split-K, chunk z covers [z*k_chunk, (z+1)*k_chunk)
-  long long c_sm, c_z1, c_z2;
+  long long c_sm, c_z;
   // epilogue, applied in this order to v = acc:
-  float alpha;            // v *= alpha
   const float* bias;      // v += bias[n]
-  int scale_cols;         // v *= col_scale for n < scale_cols
-  float col_scale;
-  const float* row_scale; // v *= row_scale[z * rs_z + m]
-  long long rs_z;
   const float* mul;       // v *= mul[c]         (same layout as C)
   int act;                // ACT_GELU: v = gelu(v), gelu'(v) -> act_grad[c]
   float* act_grad;
-  bf16* pre_bf16;         // pre_bf16[c] = v     (before the residual)
-  const float* res_f32;   // v = res[c] + res_scale[row / rows_per_sample] * v
-  const bf16* res_bf16;
-  const float* res_scale;
-  int rows_per_sample;
   float* out_f32;         // out[c] = v
   bf16* out_bf16;
 };
@@ -94,17 +90,12 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 
   const bf16* A = p.A;
   const bf16* B = p.B;
-  long long c_off;
+  long long c_off = 0;
   int k_begin = 0, k_end = p.K;
   if (p.k_chunk > 0) {
     k_begin = z * p.k_chunk;
     k_end = min(p.K, k_begin + p.k_chunk);
-    c_off = (long long)z * p.c_z1;
-  } else {
-    const int z1 = z / p.Z2, z2 = z % p.Z2;
-    A += z1 * p.a_z1 + z2 * p.a_z2;
-    B += z1 * p.b_z1 + z2 * p.b_z2;
-    c_off = z1 * p.c_z1 + z2 * p.c_z2;
+    c_off = (long long)z * p.c_z;
   }
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
@@ -166,19 +157,12 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     const int gm = m0 + mm, gn = n0 + nn;
     if (gm >= p.M || gn >= p.N) continue;
     const long long c = c_off + gm * p.c_sm + gn;
-    float v = Cs[mm * LDC_S + nn] * p.alpha;
+    float v = Cs[mm * LDC_S + nn];
     if (p.bias) v += p.bias[gn];
-    if (gn < p.scale_cols) v *= p.col_scale;
-    if (p.row_scale) v *= p.row_scale[z * p.rs_z + gm];
     if (p.mul) v *= p.mul[c];
     if (p.act == ACT_GELU) {
       if (p.act_grad) p.act_grad[c] = gelu_erf_grad(v);
       v = gelu_erf(v);
-    }
-    if (p.pre_bf16) p.pre_bf16[c] = __float2bfloat16(v);
-    if (p.res_scale) {
-      const float r = p.res_f32 ? p.res_f32[c] : __bfloat162float(p.res_bf16[c]);
-      v = r + p.res_scale[gm / p.rows_per_sample] * v;
     }
     if (p.out_f32) p.out_f32[c] = v;
     if (p.out_bf16) p.out_bf16[c] = __float2bfloat16(v);
@@ -188,9 +172,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 inline GemmArgs gemm_args(int M, int N, int K) {
   GemmArgs p = {};
   p.M = M; p.N = N; p.K = K;
-  p.Z2 = 1;
-  p.alpha = 1.0f;
-  p.rows_per_sample = 1;
   return p;
 }
 
@@ -252,7 +233,7 @@ inline void weight_grad(const bf16* g, const bf16* x, int M, int O, int I, float
   p.A = g; p.a_sm = 1; p.a_sk = O;
   p.B = x; p.b_sk = I; p.b_sn = 1;
   p.k_chunk = KCHUNK;
-  p.c_sm = I; p.c_z1 = (long long)O * I;
+  p.c_sm = I; p.c_z = (long long)O * I;
   p.out_f32 = partial;
   const int chunks = chunks_of(M);
   gemm(p, chunks, st);
@@ -268,6 +249,40 @@ inline void col_sum(const TA* a, const float* b, int M, int cols, float* partial
   colsum_partial_kernel<TA><<<dim3(blocks_of(cols, 128), chunks), 128, 0, st>>>(a, b, M, cols,
                                                                           partial);
   reduce_partials_kernel<<<blocks_of(cols, 256), 256, 0, st>>>(partial, chunks, cols, out);
+}
+
+// dW [O, I] = sum_m G[m, O]^T X[m, I] on the TMA + wgmma GEMM: fp32 partials
+// over row ranges (gemm_sm90.cuh `weight_grad_kernel`), then their sum in
+// range order. `partial` holds weight_grad_partial_len(M, O, I) floats.
+inline cudaError_t weight_grad_sm90(const bf16* g, const bf16* x, int M, int O, int I,
+                                    float* partial, float* out, cudaStream_t st) {
+  int splits = 0;
+  const cudaError_t e = weight_grad_partials_sm90(g, x, M, O, I, partial, &splits, st);
+  if (e != cudaSuccess) return e;
+  reduce_partials_kernel<<<blocks_of((long long)O * I, 256), 256, 0, st>>>(
+      partial, splits, (long long)O * I, out);
+  return cudaGetLastError();
+}
+
+// out [C, R] = in [R, C]^T, bf16: an nn.Linear weight [O, I] as the K-major
+// [I, O] operand of an input gradient dX = G W on linear_sm90.
+__global__ void transpose_kernel(const bf16* in, int R, int C, bf16* out) {
+  __shared__ bf16 t[32][33];
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  for (int dy = threadIdx.y; dy < 32; dy += blockDim.y) {
+    const int r = r0 + dy, c = c0 + threadIdx.x;
+    if (r < R && c < C) t[dy][threadIdx.x] = in[(long long)r * C + c];
+  }
+  __syncthreads();
+  for (int dy = threadIdx.y; dy < 32; dy += blockDim.y) {
+    const int c = c0 + dy, r = r0 + threadIdx.x;
+    if (r < R && c < C) out[(long long)c * R + r] = t[threadIdx.x][dy];
+  }
+}
+
+inline void transpose(const bf16* in, int R, int C, bf16* out, cudaStream_t st) {
+  transpose_kernel<<<dim3(blocks_of(C, 32), blocks_of(R, 32)), dim3(32, 8), 0, st>>>(in, R, C,
+                                                                                   out);
 }
 
 // x = rows [M, K] bf16 times W [K, N] read untransposed (a nn.Linear weight
@@ -287,12 +302,6 @@ inline GemmArgs grad_input_args(const bf16* a, const bf16* w, int M, int N, int 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -325,28 +334,6 @@ __global__ void ln_fwd_kernel(const T* x, const float* g, const float* b, int M,
   if (rstd_out && lane == 0) rstd_out[row] = rstd;
 }
 
-// Row softmax stash: e = exp(s - max(s)) written over s in place (fp32) and
-// as bf16; rs = 1 / sum(e). The normalisation is applied later, to the
-// [N, hd] product (post-division, fused_block.py:214-247).
-__global__ void softmax_rows_kernel(float* s, bf16* e_lp, float* rs, long long rows, int n) {
-  const long long row = (long long)blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  float* sr = s + row * n;
-  float mx = -3.402823466e38f;
-  for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sr[j]);
-  mx = warp_max(mx);
-  float sum = 0.f;
-  for (int j = lane; j < n; j += 32) {
-    const float e = __expf(sr[j] - mx);
-    sr[j] = e;
-    e_lp[row * n + j] = __float2bfloat16(e);
-    sum += e;
-  }
-  sum = warp_sum(sum);
-  if (lane == 0) rs[row] = 1.0f / sum;
-}
-
 // ---------------------------------------------------------------------------
 // Forward chain, shared by the forward kernel and the backward's recompute.
 // ---------------------------------------------------------------------------
@@ -376,13 +363,13 @@ struct Carver {
 };
 
 // Intermediates of one block forward. The forward kernel keeps the first
-// group; the backward's recompute also keeps the stash group, the
-// materialised scores among it.
+// group; the backward's recompute also keeps the stash group: the attention's
+// row statistic lse [B*H, N] and the LayerNorm and GELU derivatives, no
+// [N, N] scores.
 struct FwdBuffers {
   bf16* y; bf16* qkv_lp; bf16* merged; float* x2; bf16* z; bf16* h;
   // stash (backward only)
-  float *s; bf16* e_lp; float* rs;
-  float *xhat1, *rstd1, *qkv32, *xhat2, *rstd2, *hgrad;
+  float *lse, *xhat1, *rstd1, *xhat2, *rstd2, *hgrad;
 
   void carve(Carver& c, const Shape& sh, bool stash) {
     const long long M = sh.M();
@@ -392,15 +379,11 @@ struct FwdBuffers {
     x2 = c.take<float>(M * sh.D);
     z = c.take<bf16>(M * sh.D);
     h = c.take<bf16>(M * sh.F);
-    s = nullptr; e_lp = nullptr; rs = nullptr;
-    xhat1 = rstd1 = qkv32 = xhat2 = rstd2 = hgrad = nullptr;
+    lse = xhat1 = rstd1 = xhat2 = rstd2 = hgrad = nullptr;
     if (stash) {
-      s = c.take<float>(sh.BH() * sh.N * sh.N);
-      e_lp = c.take<bf16>(sh.BH() * sh.N * sh.N);
-      rs = c.take<float>(sh.BH() * sh.N);
+      lse = c.take<float>(sh.BH() * sh.N);
       xhat1 = c.take<float>(M * sh.D);
       rstd1 = c.take<float>(M);
-      qkv32 = c.take<float>(M * 3 * sh.D);
       xhat2 = c.take<float>(M * sh.D);
       rstd2 = c.take<float>(M);
       hgrad = c.take<float>(M * sh.F);
@@ -417,10 +400,11 @@ inline void set_residual(Linear& p, const float* x) { p.res_f32 = x; }
 // LN2 -> fc1 -> GELU; then, when `out` or `out32` is given, fc2 ->
 // x2 + s_mlp*feat, written as bf16 (`out`) and/or unrounded (`out32`, the
 // activation between the two blocks of a pair). The input x is bf16 or fp32.
-// Without the stash the attention is attention_fwd.cuh's (head dim 64 only);
-// with it, the scores are materialised for the reverse sweep. Returns the
-// first launch error, or cudaErrorInvalidValue for a shape the kernels do
-// not take (nothing after it is launched).
+// The attention is attention_fwd.cuh's (head dim 64 only) with or without
+// the stash, so the recompute's `merged` has the forward's bits; the stash
+// adds its lse and the LayerNorm and GELU derivatives. Returns the first
+// launch error, or cudaErrorInvalidValue for a shape the kernels do not take
+// (nothing after it is launched).
 template <typename TX>
 inline cudaError_t forward_chain(const TX* x, const float* s_attn, const float* s_mlp,
                                  const BlockWeights& w, const Shape& sh, float eps,
@@ -439,43 +423,19 @@ inline cudaError_t forward_chain(const TX* x, const float* s_attn, const float* 
   Linear l = linear_of(f.y, w.wqkv, (int)M, 3 * D, D);
   l.bias = w.bqkv; l.scale_cols = D; l.col_scale = scale;
   l.out_bf16 = f.qkv_lp;
-  if (stash) l.out_f32 = f.qkv32;
   if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
 
-  if (!stash) {
-    // merged[b, :, h] = softmax(q k^T) v, q, k, v read in place from qkv_lp
-    AttnArgs a = {};
-    a.q = f.qkv_lp; a.k = f.qkv_lp + D; a.v = f.qkv_lp + 2 * D;
-    a.q_sb = a.k_sb = a.v_sb = (long long)N * 3 * D;
-    a.q_sh = a.k_sh = a.v_sh = hd;
-    a.q_sn = a.k_sn = a.v_sn = 3 * D;
-    a.o = f.merged; a.o_sb = (long long)N * D; a.o_sh = hd; a.o_sn = D;
-    a.B = sh.B; a.H = H; a.N = N;
-    a.scale = 1.0f;
-    if ((err = attention_fwd(a, hd, st)) != cudaSuccess) return err;
-  } else {
-    // s[b,h] = (q*scale) k^T over all N keys
-    GemmArgs p = gemm_args(N, N, hd);
-    p.A = f.qkv_lp; p.a_sm = 3 * D; p.a_sk = 1; p.a_z1 = (long long)N * 3 * D; p.a_z2 = hd;
-    p.B = f.qkv_lp + D; p.b_sk = 1; p.b_sn = 3 * D; p.b_z1 = (long long)N * 3 * D; p.b_z2 = hd;
-    p.Z2 = H;
-    p.c_sm = N; p.c_z1 = (long long)H * N * N; p.c_z2 = (long long)N * N;
-    p.out_f32 = f.s;
-    gemm(p, (int)sh.BH(), st);
-
-    softmax_rows_kernel<<<row_blocks(sh.BH() * N), ROW_THREADS, 0, st>>>(
-        f.s, f.e_lp, f.rs, sh.BH() * N, N);
-
-    // merged[b, :, h] = (e v) * (1/S)
-    p = gemm_args(N, hd, N);
-    p.A = f.e_lp; p.a_sm = N; p.a_sk = 1; p.a_z1 = (long long)H * N * N; p.a_z2 = (long long)N * N;
-    p.B = f.qkv_lp + 2 * D; p.b_sk = 3 * D; p.b_sn = 1; p.b_z1 = (long long)N * 3 * D; p.b_z2 = hd;
-    p.Z2 = H;
-    p.c_sm = D; p.c_z1 = (long long)N * D; p.c_z2 = hd;
-    p.row_scale = f.rs; p.rs_z = N;
-    p.out_bf16 = f.merged;
-    gemm(p, (int)sh.BH(), st);
-  }
+  // merged[b, :, h] = softmax(q k^T) v, q, k, v read in place from qkv_lp
+  AttnArgs a = {};
+  a.q = f.qkv_lp; a.k = f.qkv_lp + D; a.v = f.qkv_lp + 2 * D;
+  a.q_sb = a.k_sb = a.v_sb = (long long)N * 3 * D;
+  a.q_sh = a.k_sh = a.v_sh = hd;
+  a.q_sn = a.k_sn = a.v_sn = 3 * D;
+  a.o = f.merged; a.o_sb = (long long)N * D; a.o_sh = hd; a.o_sn = D;
+  a.lse = stash ? f.lse : nullptr;
+  a.B = sh.B; a.H = H; a.N = N;
+  a.scale = 1.0f;
+  if ((err = attention_fwd(a, hd, st)) != cudaSuccess) return err;
 
   // x2 = x + s_attn * (merged Wproj^T + b)
   l = linear_of(f.merged, w.wproj, (int)M, D, D);

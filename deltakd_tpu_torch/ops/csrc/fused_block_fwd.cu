@@ -50,11 +50,12 @@ extern "C" int dk_fused_block_fwd(void* const* ptr, int B, int N, int D, int H, 
                             nullptr, (bf16*)ptr[16], st);
 }
 
-// One linear product of the forward alone, on gemm_sm90.cuh (a kernel-only
-// check; no model path calls it): out = a w^T with the epilogue of `Linear`.
-// ptr: a [M, K] bf16, w [N, K] bf16, then each of bias, act_grad, pre_bf16,
-// res_f32, res_bf16, res_scale, out_f32, out_bf16 or null. Returns the launch
-// error, or cudaErrorInvalidValue for a shape it does not take.
+// One linear product alone, on gemm_sm90.cuh (a kernel-only check; no model
+// path calls it): out = a w^T with the epilogue of `Linear`, as the forward's
+// products and the backward's input gradients run it. ptr: a [M, K] bf16,
+// w [N, K] bf16, then each of bias, act_grad, pre_bf16, res_f32, res_bf16,
+// res_scale, out_f32, out_bf16, mul or null. Returns the launch error, or
+// cudaErrorInvalidValue for a shape it does not take.
 extern "C" int dk_linear_sm90(void* const* ptr, int M, int N, int K, int scale_cols,
                               float col_scale, int gelu, int rows_per_sample, void* stream) {
   Linear l = linear_of((const bf16*)ptr[0], (const bf16*)ptr[1], M, N, K);
@@ -65,5 +66,6 @@ extern "C" int dk_linear_sm90(void* const* ptr, int M, int N, int K, int scale_c
   l.res_f32 = (const float*)ptr[5]; l.res_bf16 = (const bf16*)ptr[6];
   l.res_scale = (const float*)ptr[7]; l.rows_per_sample = rows_per_sample;
   l.out_f32 = (float*)ptr[8]; l.out_bf16 = (bf16*)ptr[9];
+  l.mul = (const float*)ptr[10];
   return (int)linear_sm90(l, (cudaStream_t)stream);
 }

@@ -23,12 +23,15 @@
 //             2's sweep has produced `dmid`), `mid`, `dmid`, and one set of
 //             backward buffers that the two sweeps share.
 // What bounds it on an H100: as for the single kernels, the tensor cores
-// (twice the forward's operations; twice the backward's plus one fc2) against
-// 4ND bytes of input and output per element. Both chains' linear products
-// run on the TMA + wgmma GEMM (gemm_sm90.cuh) and the forward's attention on
-// attention_fwd.cuh; the backward's reverse sweeps stay on the plain WMMA
-// tile and keep it far above that floor, with the workspace round trips. Each of the 24 weight gradients is a fixed-order sum of split-row
-// partials; no atomics, so two runs give the same bits.
+// (twice the forward's operations; twice the backward's plus one fc2)
+// against 4ND bytes of input and output per element, and above that floor
+// the activations the chains carry through the workspace. Every product of
+// both chains runs on the TMA + wgmma GEMM (gemm_sm90.cuh), and the
+// attention keeps its [N, N] scores on chip in both directions
+// (attention_fwd.cuh, attention_bwd.cuh), so a stash is per-token
+// activations and one [B*H, N] row statistic. Each of the 24 weight
+// gradients is a fixed-order sum of row-range partials; no atomics, so two
+// runs give the same bits.
 
 #include "fused_block_reverse.cuh"
 
@@ -96,11 +99,13 @@ extern "C" size_t dk_fused_pair_bwd_workspace(int B, int N, int D, int H, int F)
 // ptr: x, s_attn1, s_mlp1, s_attn2, s_mlp2, 12 weights of block 1, 12 of
 // block 2, g_out, g_feat1|null, g_feat2|null, dx, the 12 fp32 weight
 // gradients of block 1, the 12 of block 2 (each in its weights' order), then
-// the workspace. Returns cudaGetLastError() after the launches.
+// the workspace. Returns the first launch error, or cudaErrorInvalidValue,
+// before any launch, for a shape the attention kernels do not take.
 extern "C" int dk_fused_pair_bwd(void* const* ptr, int B, int N, int D, int H, int F,
                                  float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const Shape sh{B, N, D, H, F};
+  if (!attention_bwd_takes(sh.hd(), N)) return (int)cudaErrorInvalidValue;
   const float* const* s = (const float* const*)(ptr + P_SCALES);
   const BlockWeights w1 = unpack_weights(ptr + P_W1), w2 = unpack_weights(ptr + P_W2);
   const bf16* g_out = (const bf16*)ptr[P_REST];
@@ -123,8 +128,8 @@ extern "C" int dk_fused_pair_bwd(void* const* ptr, int B, int N, int D, int H, i
                         nullptr, nullptr, st);
   if (err != cudaSuccess) return (int)err;
   // block 2's sweep leaves dmid in fp32; block 1's sweep reads it as its g_out
-  reverse_chain(g_out, g_feat2, s[2], s[3], w2, sh, b.f2, b.g, dW2, b.dmid, nullptr, st);
-  reverse_chain((const float*)b.dmid, g_feat1, s[0], s[1], w1, sh, b.f1, b.g, dW1, nullptr, dx,
-                st);
-  return (int)cudaGetLastError();
+  err = reverse_chain(g_out, g_feat2, s[2], s[3], w2, sh, b.f2, b.g, dW2, b.dmid, nullptr, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reverse_chain((const float*)b.dmid, g_feat1, s[0], s[1], w1, sh, b.f1, b.g, dW1,
+                            nullptr, dx, st);
 }

@@ -3,117 +3,225 @@
 // (fused_block_pair.cu), which runs it twice.
 //
 // Math: deltakd_tpu/ops/fused_block.py `_block_bwd_reverse` and
-// `_attention_bwd_one`. The softmax normalisations are folded into row
-// scalings: with p = e * rS,
-//   dv = e^T (do * rS),  t = e (dp - c),  c = rowsum(dp e) rS,
-//   dq = (t k) scale rS,  dk = t^T (q scale rS).
+// `_attention_bwd_one`, the attention in its flash form: from the
+// recompute's lse and delta = rowsum(dO * O), attention_bwd.cuh recomputes
+// the scores on chip, so no [N, N] tensor reaches the workspace. Every
+// product runs on the TMA + wgmma GEMM of gemm_sm90.cuh: the four input
+// gradients on `linear_sm90` against the weights transposed once per sweep,
+// the four weight gradients on `weight_grad_sm90`.
 
 #pragma once
 
+#include "attention_bwd.cuh"
 #include "fused_block_common.cuh"
 
 namespace dk {
 
-// g_feat = g_out * s_mlp + g_feat_extra   (fp32 and bf16 copies); g_out is
-// bf16 at a kernel boundary, fp32 between the two blocks of a pair
+// ---------------------------------------------------------------------------
+// Row kernels that also sum columns (the bias and LayerNorm-gain gradients):
+// a CTA of ROWS_PER_BLOCK warps takes CS_ROWS consecutive rows, each warp
+// every ROWS_PER_BLOCK-th of them, one lane per 32nd column. Each warp adds
+// its rows into its own [nsums][D] slice of shared memory (a lane owns its
+// columns: no races), the CTA adds its warps' slices in warp order and writes
+// partial[s][chunk][D]; reduce_chunks_kernel then adds the chunks in a
+// fixed order. No atomics: two runs give the same bits.
+// ---------------------------------------------------------------------------
+
+constexpr int CS_ROWS = 128;
+
+inline int cs_chunks(long long M) { return (int)((M + CS_ROWS - 1) / CS_ROWS); }
+
+inline size_t cs_smem(int nsums, int D) {
+  return (size_t)ROWS_PER_BLOCK * nsums * D * sizeof(float);
+}
+
+__device__ __forceinline__ float* cs_warp_slice(float* acc, int nsums, int D) {
+  float* w = acc + (threadIdx.x / 32) * nsums * D;
+  for (int i = threadIdx.x % 32; i < nsums * D; i += 32) w[i] = 0.f;
+  return w;
+}
+
+__device__ __forceinline__ void cs_write(const float* acc, int nsums, int D, float* partial) {
+  __syncthreads();
+  const int n = nsums * D;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < ROWS_PER_BLOCK; ++w) s += acc[w * n + i];
+    const int sum = i / D, d = i % D;
+    partial[((long long)sum * gridDim.x + blockIdx.x) * D + d] = s;
+  }
+}
+
+// out[j] = sum over c of partial[c * len + j], for a short row of many
+// chunks: a CTA of ROWS_PER_BLOCK warps takes 32 columns, warp w adds chunks
+// w, w + ROWS_PER_BLOCK, ... in order, then the CTA adds its warps in order.
+__global__ void reduce_chunks_kernel(const float* partial, int chunks, int len, float* out) {
+  __shared__ float part[ROWS_PER_BLOCK][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int j = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (j < len)
+    for (int c = warp; c < chunks; c += ROWS_PER_BLOCK) s += partial[(long long)c * len + j];
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && j < len) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < ROWS_PER_BLOCK; ++w) t += part[w][lane];
+    out[j] = t;
+  }
+}
+
+inline void reduce_chunks(const float* partial, int chunks, int len, float* out,
+                          cudaStream_t st) {
+  reduce_chunks_kernel<<<blocks_of(len, 32), ROW_THREADS, 0, st>>>(partial, chunks, len, out);
+}
+
+// out_s[d] = sum over the chunks of partial[s][chunk][d], in chunk order.
+inline void cs_reduce(const float* partial, int chunks, int D, int s, float* out,
+                      cudaStream_t st) {
+  reduce_chunks(partial + (long long)s * chunks * D, chunks, D, out, st);
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only
+// after the opt-in; at D = 1024 three sums take 96 KB).
+template <typename K>
+inline cudaError_t cs_opt_in(K kernel, size_t bytes) {
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes)
+             : cudaSuccess;
+}
+
+// g_feat = g_out * s_mlp + g_feat_extra in bf16, and its column sums (the
+// fc2 bias gradient) in partial[0]; g_out is bf16 at a kernel boundary,
+// fp32 between the two blocks of a pair
 template <typename TG>
-__global__ void gfeat_kernel(const TG* g_out, const bf16* g_extra, const float* s_mlp,
-                             long long total, int rows_per_sample, int D, float* g32,
-                             bf16* g_lp) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long row = i / D;
-  float v = ld(g_out + i) * s_mlp[row / rows_per_sample];
-  if (g_extra) v += __bfloat162float(g_extra[i]);
-  g32[i] = v;
-  g_lp[i] = __float2bfloat16(v);
+__global__ void gfeat_kernel(const TG* g_out, const bf16* g_extra, const float* s_mlp, int M,
+                             int rows_per_sample, int D, bf16* g_lp, float* partial) {
+  extern __shared__ float cs_acc[];
+  float* acc = cs_warp_slice(cs_acc, 1, D);
+  const int r0 = blockIdx.x * CS_ROWS, r1 = min(M, r0 + CS_ROWS);
+  for (int r = r0 + threadIdx.x / 32; r < r1; r += ROWS_PER_BLOCK) {
+    const float sc = s_mlp[r / rows_per_sample];
+    for (int d = threadIdx.x % 32; d < D; d += 32) {
+      const long long i = (long long)r * D + d;
+      float v = ld(g_out + i) * sc;
+      if (g_extra) v += __bfloat162float(g_extra[i]);
+      g_lp[i] = __float2bfloat16(v);
+      acc[d] += v;
+    }
+  }
+  cs_write(cs_acc, 1, D, partial);
 }
 
 // LayerNorm backward (_ln_bwd) plus the residual cotangent:
 //   dx = add + (dy*g - mean(dy*g) - xhat*mean(dy*g*xhat)) * rstd
-// written as fp32/bf16, and optionally dx * row_scale[sample] as fp32/bf16.
+// written as fp32/bf16, and with a row_scale also dx * row_scale[sample] as
+// bf16; the column sums of dy*xhat (the gain gradient), dy (the bias
+// gradient) and, with a row_scale, dx * row_scale (the bias gradient of the
+// branch before it) in partial[0], [1], [2].
 template <typename TA>
 __global__ void ln_bwd_kernel(const float* dy, const float* xhat, const float* rstd,
                               const float* g, const TA* add, int M, int D, float* out32,
                               bf16* out_lp, const float* row_scale, int rows_per_sample,
-                              float* sc32, bf16* sc_lp) {
-  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+                              bf16* sc_lp, float* partial) {
+  extern __shared__ float cs_acc[];
+  const int nsums = row_scale ? 3 : 2;
+  float* acc = cs_warp_slice(cs_acc, nsums, D);
   const int lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const long long o = (long long)row * D;
-  float m1 = 0.f, m2 = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    const float dxh = dy[o + d] * g[d];
-    m1 += dxh;
-    m2 += dxh * xhat[o + d];
+  const int r0 = blockIdx.x * CS_ROWS, r1 = min(M, r0 + CS_ROWS);
+  for (int row = r0 + threadIdx.x / 32; row < r1; row += ROWS_PER_BLOCK) {
+    const long long o = (long long)row * D;
+    float m1 = 0.f, m2 = 0.f;
+    for (int d = lane; d < D; d += 32) {
+      const float dxh = dy[o + d] * g[d];
+      m1 += dxh;
+      m2 += dxh * xhat[o + d];
+    }
+    m1 = warp_sum(m1) / D;
+    m2 = warp_sum(m2) / D;
+    const float r = rstd[row];
+    const float sc = row_scale ? row_scale[row / rows_per_sample] : 0.f;
+    for (int d = lane; d < D; d += 32) {
+      const float dyv = dy[o + d], xh = xhat[o + d];
+      const float v = ld(add + o + d) + (dyv * g[d] - m1 - xh * m2) * r;
+      if (out32) out32[o + d] = v;
+      if (out_lp) out_lp[o + d] = __float2bfloat16(v);
+      acc[d] += dyv * xh;
+      acc[D + d] += dyv;
+      if (row_scale) {
+        sc_lp[o + d] = __float2bfloat16(v * sc);
+        acc[2 * D + d] += v * sc;
+      }
+    }
   }
-  m1 = warp_sum(m1) / D;
-  m2 = warp_sum(m2) / D;
-  const float r = rstd[row];
-  const float sc = row_scale ? row_scale[row / rows_per_sample] : 0.f;
-  for (int d = lane; d < D; d += 32) {
-    const float v = ld(add + o + d) + (dy[o + d] * g[d] - m1 - xhat[o + d] * m2) * r;
-    if (out32) out32[o + d] = v;
-    if (out_lp) out_lp[o + d] = __float2bfloat16(v);
-    if (sc32) sc32[o + d] = v * sc;
-    if (sc_lp) sc_lp[o + d] = __float2bfloat16(v * sc);
-  }
+  cs_write(cs_acc, nsums, D, partial);
 }
 
-// Per (row, column) of [M, D]: do = bf16(dmerged), do*rS, and q*scale*rS
-// (qkv32 already holds q*scale), with rS the row's reciprocal softmax sum.
-__global__ void attn_prep_kernel(const float* dmerged, const float* qkv32, const float* rs,
-                                 long long total, int N, int D, int H, bf16* do_lp,
-                                 bf16* do_rs, bf16* qsr) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long row = i / D;
-  const int col = (int)(i % D);
-  const int h = col / (D / H);
-  const long long b = row / N, n = row % N;
-  const float r = rs[(b * H + h) * N + n];
-  const float dm = dmerged[i];
-  do_lp[i] = __float2bfloat16(dm);
-  do_rs[i] = __float2bfloat16(dm * r);
-  qsr[i] = __float2bfloat16(qkv32[row * 3 * D + col] * r);
-}
-
-// Per score row: c = rowsum(dp * e) * rS ; t = bf16(e * (dp - c)).
-__global__ void attn_bwd_rows_kernel(const float* dp, const float* e, const float* rs,
-                                     long long rows, int n, bf16* t) {
-  const long long row = (long long)blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+// delta[b, h, n] = sum over the head's 64 columns of dO * O, one warp per
+// (row, head); dO and O bf16 [M, D], delta [B*H, N] fp32.
+__global__ void attn_delta_kernel(const bf16* dout, const bf16* o, long long M, int N, int D,
+                                  int H, float* delta) {
+  const long long w = (long long)blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const float* dpr = dp + row * n;
-  const float* er = e + row * n;
-  float c = 0.f;
-  for (int j = lane; j < n; j += 32) c += dpr[j] * er[j];
-  c = warp_sum(c) * rs[row];
-  for (int j = lane; j < n; j += 32) t[row * n + j] = __float2bfloat16(er[j] * (dpr[j] - c));
+  if (w >= M * H) return;
+  const long long row = w / H;
+  const int h = (int)(w % H);
+  const long long i = row * D + h * 64 + 2 * lane;
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + i));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + i));
+  const float s = warp_sum(a.x * b.x + a.y * b.y);
+  if (lane == 0) delta[(row / N * H + h) * N + row % N] = s;
 }
 
+// fp32 elements of the partials of the widest weight gradient.
+inline long long wgrad_partial_len(const Shape& sh) {
+  const int M = (int)sh.M(), D = sh.D, F = sh.F;
+  const long long a = weight_grad_partial_len(M, D, F), b = weight_grad_partial_len(M, F, D);
+  const long long c = weight_grad_partial_len(M, D, D), d = weight_grad_partial_len(M, 3 * D, D);
+  const long long ab = a > b ? a : b, cd = c > d ? c : d;
+  return ab > cd ? ab : cd;
+}
+
+// fp32 elements of the largest set of column-sum partials: three sums over
+// the row chunks of the LayerNorm backward, the fc2 input gradient's per
+// 128-row tile, or the attention backward's per element.
+inline long long colsum_partial_len(const Shape& sh) {
+  const long long a = 3LL * cs_chunks(sh.M()) * sh.D;
+  const long long b = (long long)linear_row_tiles((int)sh.M()) * sh.F;
+  const long long c = 3LL * sh.B * sh.D;
+  const long long ab = a > b ? a : b;
+  return ab > c ? ab : c;
+}
+
+// The sweep's own buffers: the cotangents it carries between its kernels
+// (bf16 where only a product reads them, fp32 where a LayerNorm backward
+// does), the four matmul weights transposed ([I, O], K-major for
+// linear_sm90), and the partials of the weight and column sums.
 struct BwdBuffers {
-  float *gfeat32, *dhpre32, *dz, *dx2, *dattn32, *dmerged, *dp, *dqkv32, *dy;
-  bf16 *gfeat_lp, *dhpre_lp, *dattn_lp, *do_lp, *do_rs, *qsr, *t, *dqkv_lp;
+  float *dz, *dx2, *delta, *dy;
+  bf16 *gfeat_lp, *dhpre_lp, *dattn_lp, *do_lp, *dqkv_lp;
+  bf16 *wqkv_t, *wproj_t, *w1_t, *w2_t;
   float *partial, *col_partial;
 
   void carve(Carver& c, const Shape& sh) {
     const long long M = sh.M();
     const int D = sh.D, F = sh.F;
-    gfeat32 = c.take<float>(M * D);  gfeat_lp = c.take<bf16>(M * D);
-    dhpre32 = c.take<float>(M * F);  dhpre_lp = c.take<bf16>(M * F);
+    gfeat_lp = c.take<bf16>(M * D);
+    dhpre_lp = c.take<bf16>(M * F);
     dz = c.take<float>(M * D);       dx2 = c.take<float>(M * D);
-    dattn32 = c.take<float>(M * D);  dattn_lp = c.take<bf16>(M * D);
-    dmerged = c.take<float>(M * D);
-    do_lp = c.take<bf16>(M * D);     do_rs = c.take<bf16>(M * D);
-    qsr = c.take<bf16>(M * D);
-    dp = c.take<float>(sh.BH() * sh.N * sh.N);
-    t = c.take<bf16>(sh.BH() * sh.N * sh.N);
-    dqkv32 = c.take<float>(M * 3 * D); dqkv_lp = c.take<bf16>(M * 3 * D);
+    dattn_lp = c.take<bf16>(M * D);
+    do_lp = c.take<bf16>(M * D);
+    delta = c.take<float>(sh.BH() * sh.N);
+    dqkv_lp = c.take<bf16>(M * 3 * D);
     dy = c.take<float>(M * D);
-    const long long widest = (long long)D * (F > 3 * D ? F : 3 * D);
-    partial = c.take<float>(chunks_of(M) * widest);
-    col_partial = c.take<float>((long long)chunks_of(M) * (F > 3 * D ? F : 3 * D));
+    wqkv_t = c.take<bf16>(3LL * D * D);
+    wproj_t = c.take<bf16>((long long)D * D);
+    w1_t = c.take<bf16>((long long)F * D);
+    w2_t = c.take<bf16>((long long)D * F);
+    partial = c.take<float>(wgrad_partial_len(sh));
+    col_partial = c.take<float>(colsum_partial_len(sh));
   }
 };
 
@@ -121,103 +229,99 @@ struct BwdBuffers {
 // `g_out` at its output (bf16, or fp32 between the blocks of a pair; plus the
 // optional bf16 `g_feat` on the feature output): the 12 weight gradients
 // `dW` (fp32, summed over the batch, in the weights' order) and the input
-// cotangent as fp32 (`dx32`) and/or bf16 (`dx`). `g` is scratch.
+// cotangent as fp32 (`dx32`) and/or bf16 (`dx`). `g` is scratch. Returns the
+// first launch error (nothing after it is launched).
 template <typename TG>
-inline void reverse_chain(const TG* g_out, const bf16* g_feat, const float* s_attn,
-                          const float* s_mlp, const BlockWeights& w, const Shape& sh,
-                          FwdBuffers& f, BwdBuffers& g, float* const* dW, float* dx32,
-                          bf16* dx, cudaStream_t st) {
-  const int N = sh.N, D = sh.D, F = sh.F, hd = sh.hd();
-  const long long M = sh.M();
-  const long long BH = sh.BH();
+inline cudaError_t reverse_chain(const TG* g_out, const bf16* g_feat, const float* s_attn,
+                                 const float* s_mlp, const BlockWeights& w, const Shape& sh,
+                                 FwdBuffers& f, BwdBuffers& g, float* const* dW, float* dx32,
+                                 bf16* dx, cudaStream_t st) {
+  const int N = sh.N, D = sh.D, F = sh.F, H = sh.H, hd = sh.hd();
+  const int M = (int)sh.M();
   const float scale = 1.0f / sqrtf((float)hd);
   float *dg1 = dW[0], *db1 = dW[1], *dwqkv = dW[2], *dbqkv = dW[3], *dwproj = dW[4],
         *dbproj = dW[5], *dg2 = dW[6], *db2 = dW[7], *dw1 = dW[8], *dbf1 = dW[9],
         *dw2 = dW[10], *dbf2 = dW[11];
+  cudaError_t err;
 
-  // MLP: feat = h W2^T + b2
-  gfeat_kernel<TG><<<blocks_of(M * D, 256), 256, 0, st>>>(g_out, g_feat, s_mlp, M * D, N,
-                                                          D, g.gfeat32, g.gfeat_lp);
-  weight_grad(g.gfeat_lp, f.h, (int)M, D, F, g.partial, dw2, st);
-  col_sum(g.gfeat32, nullptr, (int)M, D, g.col_partial, dbf2, st);
-  GemmArgs p = grad_input_args(g.gfeat_lp, w.w2, (int)M, F, D);
-  p.mul = f.hgrad;
-  p.out_f32 = g.dhpre32; p.out_bf16 = g.dhpre_lp;
-  gemm(p, 1, st);
-  weight_grad(g.dhpre_lp, f.z, (int)M, F, D, g.partial, dw1, st);
-  col_sum(g.dhpre32, nullptr, (int)M, F, g.col_partial, dbf1, st);
-  p = grad_input_args(g.dhpre_lp, w.w1, (int)M, D, F);
-  p.out_f32 = g.dz;
-  gemm(p, 1, st);
+  // the weights as the K-major operands of the input gradients
+  transpose(w.wqkv, 3 * D, D, g.wqkv_t, st);
+  transpose(w.wproj, D, D, g.wproj_t, st);
+  transpose(w.w1, F, D, g.w1_t, st);
+  transpose(w.w2, D, F, g.w2_t, st);
 
-  // LN2 backward; dx2 = g_out + dLN2 ; dattn = dx2 * s_attn
-  ln_bwd_kernel<TG><<<row_blocks(M), ROW_THREADS, 0, st>>>(
-      g.dz, f.xhat2, f.rstd2, w.g2, g_out, (int)M, D, g.dx2, nullptr, s_attn, N,
-      g.dattn32, g.dattn_lp);
-  col_sum(g.dz, f.xhat2, (int)M, D, g.col_partial, dg2, st);
-  col_sum(g.dz, nullptr, (int)M, D, g.col_partial, db2, st);
+  // MLP: feat = h W2^T + b2; dhpre = (g_feat W2) * gelu', its column sums
+  // per 128-row tile from the GEMM's epilogue
+  const int chunks = cs_chunks(M);
+  if ((err = cs_opt_in(gfeat_kernel<TG>, cs_smem(1, D))) != cudaSuccess) return err;
+  gfeat_kernel<TG><<<chunks, ROW_THREADS, cs_smem(1, D), st>>>(g_out, g_feat, s_mlp, M, N, D,
+                                                               g.gfeat_lp, g.col_partial);
+  cs_reduce(g.col_partial, chunks, D, 0, dbf2, st);
+  if ((err = weight_grad_sm90(g.gfeat_lp, f.h, M, D, F, g.partial, dw2, st)) != cudaSuccess)
+    return err;
+  Linear l = linear_of(g.gfeat_lp, g.w2_t, M, F, D);
+  l.mul = f.hgrad; l.col_part = g.col_partial;
+  l.out_bf16 = g.dhpre_lp;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
+  cs_reduce(g.col_partial, linear_row_tiles(M), F, 0, dbf1, st);
+  if ((err = weight_grad_sm90(g.dhpre_lp, f.z, M, F, D, g.partial, dw1, st)) != cudaSuccess)
+    return err;
+  l = linear_of(g.dhpre_lp, g.w1_t, M, D, F);
+  l.out_f32 = g.dz;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
 
-  // proj: attn = merged Wproj^T + bproj
-  weight_grad(g.dattn_lp, f.merged, (int)M, D, D, g.partial, dwproj, st);
-  col_sum(g.dattn32, nullptr, (int)M, D, g.col_partial, dbproj, st);
-  p = grad_input_args(g.dattn_lp, w.wproj, (int)M, D, D);
-  p.out_f32 = g.dmerged;
-  gemm(p, 1, st);
+  // LN2 backward; dx2 = g_out + dLN2 ; dattn = dx2 * s_attn; the sums of
+  // the LN2 gain and bias and the proj bias
+  if ((err = cs_opt_in(ln_bwd_kernel<TG>, cs_smem(3, D))) != cudaSuccess) return err;
+  ln_bwd_kernel<TG><<<chunks, ROW_THREADS, cs_smem(3, D), st>>>(
+      g.dz, f.xhat2, f.rstd2, w.g2, g_out, M, D, g.dx2, nullptr, s_attn, N, g.dattn_lp,
+      g.col_partial);
+  cs_reduce(g.col_partial, chunks, D, 0, dg2, st);
+  cs_reduce(g.col_partial, chunks, D, 1, db2, st);
+  cs_reduce(g.col_partial, chunks, D, 2, dbproj, st);
 
-  // attention, per (element, head)
-  attn_prep_kernel<<<blocks_of(M * D, 256), 256, 0, st>>>(g.dmerged, f.qkv32, f.rs, M * D, N,
-                                                          D, sh.H, g.do_lp, g.do_rs, g.qsr);
-  const long long zN3D = (long long)N * 3 * D, zND = (long long)N * D;
-  const long long zHNN = (long long)sh.H * N * N, zNN = (long long)N * N;
-  // dv = e^T (do rS)
-  p = gemm_args(N, hd, N);
-  p.A = f.e_lp; p.a_sm = 1; p.a_sk = N; p.a_z1 = zHNN; p.a_z2 = zNN;
-  p.B = g.do_rs; p.b_sk = D; p.b_sn = 1; p.b_z1 = zND; p.b_z2 = hd;
-  p.Z2 = sh.H;
-  p.c_sm = 3 * D; p.c_z1 = zN3D; p.c_z2 = hd;
-  p.out_f32 = g.dqkv32 + 2 * D; p.out_bf16 = g.dqkv_lp + 2 * D;
-  gemm(p, (int)BH, st);
-  // dp = do v^T
-  p = gemm_args(N, N, hd);
-  p.A = g.do_lp; p.a_sm = D; p.a_sk = 1; p.a_z1 = zND; p.a_z2 = hd;
-  p.B = f.qkv_lp + 2 * D; p.b_sk = 1; p.b_sn = 3 * D; p.b_z1 = zN3D; p.b_z2 = hd;
-  p.Z2 = sh.H;
-  p.c_sm = N; p.c_z1 = zHNN; p.c_z2 = zNN;
-  p.out_f32 = g.dp;
-  gemm(p, (int)BH, st);
-  attn_bwd_rows_kernel<<<row_blocks(BH * N), ROW_THREADS, 0, st>>>(g.dp, f.s, f.rs, BH * N,
-                                                                  N, g.t);
-  // dq = (t k) * scale * rS
-  p = gemm_args(N, hd, N);
-  p.A = g.t; p.a_sm = N; p.a_sk = 1; p.a_z1 = zHNN; p.a_z2 = zNN;
-  p.B = f.qkv_lp + D; p.b_sk = 3 * D; p.b_sn = 1; p.b_z1 = zN3D; p.b_z2 = hd;
-  p.Z2 = sh.H;
-  p.c_sm = 3 * D; p.c_z1 = zN3D; p.c_z2 = hd;
-  p.alpha = scale; p.row_scale = f.rs; p.rs_z = N;
-  p.out_f32 = g.dqkv32; p.out_bf16 = g.dqkv_lp;
-  gemm(p, (int)BH, st);
-  // dk = t^T (q scale rS)
-  p = gemm_args(N, hd, N);
-  p.A = g.t; p.a_sm = 1; p.a_sk = N; p.a_z1 = zHNN; p.a_z2 = zNN;
-  p.B = g.qsr; p.b_sk = D; p.b_sn = 1; p.b_z1 = zND; p.b_z2 = hd;
-  p.Z2 = sh.H;
-  p.c_sm = 3 * D; p.c_z1 = zN3D; p.c_z2 = hd;
-  p.out_f32 = g.dqkv32 + D; p.out_bf16 = g.dqkv_lp + D;
-  gemm(p, (int)BH, st);
+  // proj: attn = merged Wproj^T + bproj; dO = dattn Wproj
+  if ((err = weight_grad_sm90(g.dattn_lp, f.merged, M, D, D, g.partial, dwproj, st)) !=
+      cudaSuccess)
+    return err;
+  l = linear_of(g.dattn_lp, g.wproj_t, M, D, D);
+  l.out_bf16 = g.do_lp;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
+
+  // attention, per (element, head): dq (times the q-column scale), dk, dv
+  // straight into the q, k, v columns of dqkv, their column sums per element
+  attn_delta_kernel<<<row_blocks((long long)M * H), ROW_THREADS, 0, st>>>(
+      g.do_lp, f.merged, M, N, D, H, g.delta);
+  AttnBwdArgs a = {};
+  a.q = f.qkv_lp; a.k = f.qkv_lp + D; a.v = f.qkv_lp + 2 * D; a.dout = g.do_lp;
+  a.q_sb = a.k_sb = a.v_sb = (long long)N * 3 * D;
+  a.q_sh = a.k_sh = a.v_sh = hd;
+  a.q_sn = a.k_sn = a.v_sn = 3 * D;
+  a.d_sb = (long long)N * D; a.d_sh = hd; a.d_sn = D;
+  a.lse = f.lse; a.delta = g.delta;
+  a.dq = g.dqkv_lp; a.dk = g.dqkv_lp + D; a.dv = g.dqkv_lp + 2 * D;
+  a.g_sb = (long long)N * 3 * D; a.g_sh = hd; a.g_sn = 3 * D;
+  a.colsum = g.col_partial; a.cs_b = 3 * D; a.cs_part = D;
+  a.dq_scale = scale;
+  a.B = sh.B; a.H = H; a.N = N;
+  if ((err = attention_bwd(a, hd, st)) != cudaSuccess) return err;
+  reduce_chunks(g.col_partial, sh.B, 3 * D, dbqkv, st);
 
   // qkv = LN1(x) Wqkv^T + bqkv
-  weight_grad(g.dqkv_lp, f.y, (int)M, 3 * D, D, g.partial, dwqkv, st);
-  col_sum(g.dqkv32, nullptr, (int)M, 3 * D, g.col_partial, dbqkv, st);
-  p = grad_input_args(g.dqkv_lp, w.wqkv, (int)M, D, 3 * D);
-  p.out_f32 = g.dy;
-  gemm(p, 1, st);
+  if ((err = weight_grad_sm90(g.dqkv_lp, f.y, M, 3 * D, D, g.partial, dwqkv, st)) !=
+      cudaSuccess)
+    return err;
+  l = linear_of(g.dqkv_lp, g.wqkv_t, M, D, 3 * D);
+  l.out_f32 = g.dy;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
 
-  // LN1 backward; dx = dx2 + dLN1
-  ln_bwd_kernel<float><<<row_blocks(M), ROW_THREADS, 0, st>>>(
-      g.dy, f.xhat1, f.rstd1, w.g1, g.dx2, (int)M, D, dx32, dx, nullptr, N, nullptr,
-      nullptr);
-  col_sum(g.dy, f.xhat1, (int)M, D, g.col_partial, dg1, st);
-  col_sum(g.dy, nullptr, (int)M, D, g.col_partial, db1, st);
+  // LN1 backward; dx = dx2 + dLN1; the sums of the LN1 gain and bias
+  if ((err = cs_opt_in(ln_bwd_kernel<float>, cs_smem(2, D))) != cudaSuccess) return err;
+  ln_bwd_kernel<float><<<chunks, ROW_THREADS, cs_smem(2, D), st>>>(
+      g.dy, f.xhat1, f.rstd1, w.g1, g.dx2, M, D, dx32, dx, nullptr, N, nullptr, g.col_partial);
+  cs_reduce(g.col_partial, chunks, D, 0, dg1, st);
+  cs_reduce(g.col_partial, chunks, D, 1, db1, st);
+  return cudaGetLastError();
 }
 
 }  // namespace dk

@@ -1,14 +1,25 @@
-// A pipelined TMA + wgmma GEMM for Hopper (sm_90a): the four linear products
-// of the ViT block forward (qkv, proj, fc1, fc2 in `forward_chain`,
-// fused_block_common.cuh), and the Hopper primitives (mbarriers, TMA, wgmma
-// and its shared-memory descriptors) that attention_fwd.cuh builds on.
+// A pipelined TMA + wgmma GEMM for Hopper (sm_90a), in two forms, and the
+// Hopper primitives (mbarriers, TMA, wgmma and its shared-memory descriptors)
+// that attention_fwd.cuh and attention_bwd.cuh build on.
 //
-//   C[M, N] = A[M, K] W[N, K]^T,  then a fused epilogue (`Linear` below)
+//   linear_kernel:       C[M, N] = A[M, K] W[N, K]^T, then a fused epilogue
+//                        (`Linear` below). The block forward's four products
+//                        (qkv, proj, fc1, fc2 in `forward_chain`) and the
+//                        backward's four input gradients (dX = G W, with W
+//                        copied once per call into a K-major W^T; fc2's times
+//                        GELU's derivative, with the column sums of each
+//                        128-row tile for the fc1 bias gradient).
+//   weight_grad_kernel:  P[s][O, I] = sum over rows m of split s of
+//                        G[m, O]^T X[m, I], the backward's weight gradients,
+//                        summed over the splits in a fixed order afterwards.
 //
-// A is row-major activations and W an nn.Linear weight, both bf16 and
-// K-major, which is what wgmma reads with no transpose; fp32 accumulation.
+// linear_kernel reads A (row-major activations) and W (an nn.Linear weight)
+// K-major, as wgmma reads them with no transpose. weight_grad_kernel reads G
+// and X as they lie in memory, rows of the batch along the product's depth:
+// both operands MN-major, which wgmma reads with its transpose bits set.
+// bf16 operands, fp32 accumulation.
 //
-// What bounds it on an H100: the tensor cores. At the main path's shapes
+// What bounds them on an H100: the tensor cores. At the main path's shapes
 // (M = 50,688 rows, K = D or 4D, D = 192/384) a product does 2MNK operations
 // on (M + N) K + M N elements, hundreds of operations a byte, above the
 // card's ~295 FLOP/byte ridge. But K is short (3-24 blocks of 64), so each
@@ -31,11 +42,17 @@
 //  * The epilogue runs straight from the registers: each thread owns two
 //    neighbouring columns of two rows per 8-column block and stores them as
 //    float2 / bf16x2, masked at the ragged M and N edges. Its inputs (bias,
-//    residual) are loaded a group of blocks ahead of the group's stores.
+//    residual, multiplier) are loaded a group of blocks ahead of the group's
+//    stores.
 // Tiles 64 wide and two CTAs per SM were the fastest of the layouts tried on
-// the four products (tiles 64 to 256 wide, one CTA per SM with 4 or 5
-// stages); chip_smoke.py's [gemm] lines give this design's rates.
-// Each output element is summed by one warpgroup in a fixed k order: no
+// the four forward products (tiles 64 to 256 wide, one CTA per SM with 4 or
+// 5 stages); chip_smoke.py's [gemm] lines give this design's rates.
+// A weight gradient has a short output (O x I = 36,864 to 147,456 elements
+// at D = 192, 6 to 24 tiles) and a long depth (M = 50,688 rows), so
+// weight_grad_kernel splits the depth into row ranges, as many as fill the
+// card's CTA slots with (tile, range) items, and writes one fp32 partial per
+// range; the caller sums them in range order. Each output element is summed
+// by one warpgroup in a fixed k order and the partials in a fixed order: no
 // atomics, two runs give the same bits.
 
 #pragma once
@@ -162,6 +179,23 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B MN-major in shared memory
+// (both transposed: A's rows and B's columns contiguous, 16 k-rows of 128
+// bytes a k-step).
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (bf16 pairs),
 // B MN-major in shared memory (transposed).
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
@@ -192,6 +226,9 @@ struct Linear {
   const float* bias;        // v += bias[n]
   int scale_cols;           // v *= col_scale for n < scale_cols
   float col_scale;
+  const float* mul;         // v *= mul[m, n] (fp32, C's layout; not with a residual)
+  float* col_part;          // with mul: col_part[m / 128, n] = the 128-row tile's
+                            // column sums of v here (fp32, rows past M left out)
   int gelu;                 // v = gelu(v); gelu'(v) -> act_grad (fp32)
   float* act_grad;
   bf16* pre_bf16;           // pre_bf16 = v (before the residual)
@@ -216,9 +253,19 @@ namespace sm90 {
 constexpr int BM = 128, BN = 64, BK = 64, STAGES = 4, CONSUMER_WARPS = 8, EPI_J = 4;
 constexpr int THREADS = (CONSUMER_WARPS + 1) * 32;
 constexpr int CTAS_PER_SM = 2;
-constexpr size_t SMEM_BYTES =
-    (size_t)STAGES * (BM + BN) * BK * sizeof(bf16) + 2 * STAGES * sizeof(uint64_t) + 1024;
+// the ring, its barriers, and the column sums of one tile per consumer warp
+constexpr size_t SMEM_BYTES = (size_t)STAGES * (BM + BN) * BK * sizeof(bf16) +
+                              2 * STAGES * sizeof(uint64_t) + CONSUMER_WARPS * BN * sizeof(float) +
+                              1024;
 }  // namespace sm90
+
+// Row tiles of a linear product of M rows (the rows of `Linear::col_part`).
+inline int linear_row_tiles(int M) { return (M + sm90::BM - 1) / sm90::BM; }
+
+// Barrier 1 among the consumer warps alone (the producer warp runs ahead).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(sm90::CONSUMER_WARPS * 32) : "memory");
+}
 
 // Two neighbouring outputs as one float2 / bf16x2 store.
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -228,10 +275,13 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// The epilogue of columns n, n + 1 of row m, given their bias b, residual r
-// and the row's residual scale rs (each read by the caller).
-__device__ __forceinline__ void linear_epilogue(const Linear& p, int m, int n, float v0,
-                                                float v1, float2 b, float2 r, float rs) {
+// The epilogue of columns n, n + 1 of row m, given their bias b, residual r,
+// multiplier mu (read only with MUL) and the row's residual scale rs (each
+// read by the caller). Returns v after the multiplier.
+template <bool MUL>
+__device__ __forceinline__ float2 linear_epilogue(const Linear& p, int m, int n, float v0,
+                                                  float v1, float2 b, float2 r, float2 mu,
+                                                  float rs) {
   const long long c = (long long)m * p.N + n;
   v0 += b.x;
   v1 += b.y;
@@ -239,18 +289,24 @@ __device__ __forceinline__ void linear_epilogue(const Linear& p, int m, int n, f
     v0 *= p.col_scale;
     v1 *= p.col_scale;
   }
+  if (MUL) {
+    v0 *= mu.x;
+    v1 *= mu.y;
+  }
+  const float2 after_mul = make_float2(v0, v1);
   if (p.gelu) {
     if (p.act_grad) store2(p.act_grad + c, gelu_erf_grad(v0), gelu_erf_grad(v1));
     v0 = gelu_erf(v0);
     v1 = gelu_erf(v1);
   }
   if (p.pre_bf16) store2(p.pre_bf16 + c, v0, v1);
-  if (p.res_scale) {
+  if (!MUL && p.res_scale) {
     v0 = r.x + rs * v0;
     v1 = r.y + rs * v1;
   }
   if (p.out_f32) store2(p.out_f32 + c, v0, v1);
   if (p.out_bf16) store2(p.out_bf16 + c, v0, v1);
+  return after_mul;
 }
 
 __device__ __forceinline__ float2 load_residual(const Linear& p, long long c) {
@@ -258,6 +314,10 @@ __device__ __forceinline__ float2 load_residual(const Linear& p, long long c) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p.res_bf16 + c)));
 }
 
+// MUL: the epilogue reads `mul` and may write `col_part` (an instantiation of
+// its own, so that the forward's products keep the registers of the one
+// without it).
+template <bool MUL>
 static __global__ void __launch_bounds__(sm90::THREADS, sm90::CTAS_PER_SM)
 linear_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
               const Linear p) {
@@ -267,6 +327,7 @@ linear_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ 
   bf16* Bs = As + STAGES * BM * BK;                            // [STAGES][BN][BK]
   uint64_t* full = reinterpret_cast<uint64_t*>(Bs + STAGES * BN * BK);
   uint64_t* empty = full + STAGES;
+  float* cs = reinterpret_cast<float*>(empty + STAGES);     // [CONSUMER_WARPS][BN]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -327,8 +388,8 @@ linear_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ 
     if (lane == 0) mbar_arrive(&empty[held]);
 
     // Epilogue, EPI_J 8-column blocks at a time: first every input of the
-    // group (bias, residual), then the stores, so that the loads overlap
-    // instead of each waiting behind the stores before it.
+    // group (bias, residual, multiplier), then the stores, so that the loads
+    // overlap instead of each waiting behind the stores before it.
     const int row = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
     const int col = n0 + 2 * (lane % 4);
     const bool row_ok[2] = {row < p.M, row + 8 < p.M};
@@ -338,28 +399,183 @@ linear_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ 
       if (p.res_scale && row_ok[h]) rs[h] = __ldg(p.res_scale + (row + 8 * h) / p.rows_per_sample);
 #pragma unroll
     for (int j0 = 0; j0 < BN / 8; j0 += EPI_J) {
-      float2 b[EPI_J], r[EPI_J][2];
+      float2 b[EPI_J], r[MUL ? 1 : EPI_J][2], mu[MUL ? EPI_J : 1][2];
 #pragma unroll
       for (int jj = 0; jj < EPI_J; ++jj) {
         const int n = col + 8 * (j0 + jj);   // N % 8 == 0: n, n + 1 both in or both out
         b[jj] = p.bias && n < p.N ? __ldg(reinterpret_cast<const float2*>(p.bias + n))
                                   : make_float2(0.f, 0.f);
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          r[jj][h] = p.res_scale && n < p.N && row_ok[h]
-                         ? load_residual(p, (long long)(row + 8 * h) * p.N + n)
-                         : make_float2(0.f, 0.f);
+        for (int h = 0; h < 2; ++h) {
+          if (MUL)   // in place of the residual, which a MUL launch never has
+            mu[MUL ? jj : 0][h] =
+                n < p.N && row_ok[h]
+                    ? __ldg(reinterpret_cast<const float2*>(p.mul + (long long)(row + 8 * h) * p.N + n))
+                    : make_float2(1.f, 1.f);
+          else
+            r[MUL ? 0 : jj][h] = p.res_scale && n < p.N && row_ok[h]
+                           ? load_residual(p, (long long)(row + 8 * h) * p.N + n)
+                           : make_float2(0.f, 0.f);
+        }
       }
 #pragma unroll
       for (int jj = 0; jj < EPI_J; ++jj) {
         const int n = col + 8 * (j0 + jj), j = j0 + jj;
-        if (n >= p.N) continue;
+        if (n >= p.N) continue;   // the same for the whole warp (N % 8 == 0)
+        float2 csum = make_float2(0.f, 0.f);
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          if (row_ok[h])
-            linear_epilogue(p, row + 8 * h, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], b[jj],
-                            r[jj][h], rs[h]);
+          if (row_ok[h]) {
+            const float2 v = linear_epilogue<MUL>(
+                p, row + 8 * h, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], b[jj],
+                MUL ? make_float2(0.f, 0.f) : r[MUL ? 0 : jj][h],
+                MUL ? mu[MUL ? jj : 0][h] : make_float2(1.f, 1.f), rs[h]);
+            csum.x += v.x;
+            csum.y += v.y;
+          }
+        if (MUL && p.col_part) {
+          // the warp's 16 rows: lanes with the same lane % 4 hold the same columns
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            csum.x += __shfl_xor_sync(0xffffffffu, csum.x, o);
+            csum.y += __shfl_xor_sync(0xffffffffu, csum.y, o);
+          }
+          if (lane < 4) {
+            cs[warp * BN + 8 * j + 2 * lane] = csum.x;
+            cs[warp * BN + 8 * j + 2 * lane + 1] = csum.y;
+          }
+        }
       }
+    }
+    if (MUL && p.col_part) {
+      // the tile's 128 rows: the consumer warps' sums in warp order
+      consumer_sync();
+      if (threadIdx.x < BN && n0 + threadIdx.x < p.N) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < CONSUMER_WARPS; ++w) sum += cs[w * BN + threadIdx.x];
+        p.col_part[(long long)(m0 / BM) * p.N + n0 + threadIdx.x] = sum;
+      }
+      consumer_sync();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The weight gradient: partials of G^T X over row ranges
+// ---------------------------------------------------------------------------
+
+// partial[s][o, i] = sum over the rows m of range s of g[m, o] x[m, i], with g
+// [M, O] and x [M, I] row-major (the output cotangent and the input of an
+// nn.Linear, whose weight gradient is the sum of the partials over s). Range
+// s covers k-blocks [s kb_per_split, (s + 1) kb_per_split) of 64 rows.
+struct WeightGrad {
+  int M, O, I;
+  int splits, kb_per_split;
+  float* partial;           // [splits][O][I] fp32
+};
+
+// A (o, i) output tile of 128 x 64 over one row range is one work item.
+// Each stage holds G's rows of the k-block as two [64 m][64 o] boxes (one per
+// consumer warpgroup) and X's as one [64 m][64 i] box, each in the 128-byte
+// swizzle; a box is MN-major for wgmma (its 64 columns are the product's o or
+// i), so a k-step of 16 rows is 2048 bytes on. Where the tile's upper 64
+// columns of o lie past O (O = 192 is three halves), that half is not loaded
+// and its warpgroup only keeps the ring in step.
+static __global__ void __launch_bounds__(sm90::THREADS, sm90::CTAS_PER_SM)
+weight_grad_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_constant__ CUtensorMap tm_x,
+                   const WeightGrad p) {
+  using namespace sm90;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(align1024(smem_raw));   // [STAGES][2][BK][64]
+  bf16* Bs = As + STAGES * BM * BK;                            // [STAGES][BK][BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + STAGES * BN * BK);
+  uint64_t* empty = full + STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int i_tiles = (p.I + BN - 1) / BN;
+  const int tiles = (p.O + BM - 1) / BM * i_tiles;
+  const int items = tiles * p.splits;
+  const int k_total = (p.M + BK - 1) / BK;
+
+  if (warp == CONSUMER_WARPS) {
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < items; t += gridDim.x) {
+        const int s = t / tiles, tile = t % tiles;
+        const int o0 = tile / i_tiles * BM, i0 = tile % i_tiles * BN;
+        const int halves = o0 + 64 < p.O ? 2 : 1;
+        const int kb0 = s * p.kb_per_split, kb1 = min(k_total, kb0 + p.kb_per_split);
+        for (int kb = kb0; kb < kb1; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], (halves * 64 + BN) * BK * sizeof(bf16));
+          for (int h = 0; h < halves; ++h)
+            tma_load_2d(As + stage * BM * BK + h * 64 * BK, &tm_g, o0 + 64 * h, kb * BK,
+                        &full[stage]);
+          tma_load_2d(Bs + stage * BN * BK, &tm_x, i0, kb * BK, &full[stage]);
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns columns [o0 + 64 wg, o0 + 64 wg + 64) of o
+  const int wg = warp / 4;
+  float acc[BN / 2];
+  int stage = 0, held = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < items; t += gridDim.x) {
+    const int s = t / tiles, tile = t % tiles;
+    const int o0 = tile / i_tiles * BM, i0 = tile % i_tiles * BN;
+    const bool active = o0 + 64 * wg < p.O;
+    const int kb0 = s * p.kb_per_split, kb1 = min(k_total, kb0 + p.kb_per_split);
+    for (int kb = kb0; kb < kb1; ++kb) {
+      mbar_wait(&full[stage], phase);
+      if (active) {
+        const uint64_t da = sw128_desc(As + (stage * BM + wg * 64) * BK);
+        const uint64_t db = sw128_desc(Bs + stage * BN * BK);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < BK / 16; ++k)
+          wgmma_ss_tt(acc, da + 128 * k, db + 128 * k, kb > kb0 || k > 0);
+        wgmma_commit();
+        // the k-block before this one is done: its stage goes back to the producer
+        wgmma_wait<1>();
+      }
+      if (kb > kb0 && lane == 0) mbar_arrive(&empty[held]);
+      held = stage;
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+    }
+    if (active) {
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    if (lane == 0) mbar_arrive(&empty[held]);
+    if (!active) continue;
+
+    const int row = o0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+    const int col = i0 + 2 * (lane % 4);
+    float* out = p.partial + (long long)s * p.O * p.I;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = col + 8 * j;   // I % 8 == 0: n, n + 1 both in or both out
+      if (n >= p.I) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (row + 8 * h < p.O)
+          store2(out + (long long)(row + 8 * h) * p.I + n, acc[4 * j + 2 * h],
+                 acc[4 * j + 2 * h + 1]);
     }
   }
 }
@@ -404,45 +620,119 @@ inline bool kmajor_map(CUtensorMap* map, const bf16* ptr, int rows, int K, int b
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Per device, the number of CTAs that fit the card at once, known once
-// linear_kernel has its shared-memory opt-in there. Internal linkage on
-// purpose: every library that includes this header has its own copy of the
-// kernel to opt in (a static local of an inline function would be one object
-// for the whole process, and a second library would launch without its
-// opt-in).
+// Per device and instantiation, the number of CTAs that fit the card at once,
+// known once linear_kernel has its shared-memory opt-in there. Internal
+// linkage on purpose: every library that includes this header has its own
+// copy of the kernel to opt in (a static local of an inline function would be
+// one object for the whole process, and a second library would launch without
+// its opt-in).
 constexpr int kMaxDevices = 64;
-static int linear_grid[kMaxDevices];
+static int linear_grid[2][kMaxDevices];
+
+template <bool MUL>
+inline cudaError_t launch_linear(const CUtensorMap& ta, const CUtensorMap& tw, const Linear& p,
+                                 cudaStream_t st) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int& slots = linear_grid[MUL][dev];
+  if (!slots) {
+    int sms = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(linear_kernel<MUL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sm90::SMEM_BYTES);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, linear_kernel<MUL>,
+                                                        sm90::THREADS, sm90::SMEM_BYTES);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    slots = sms * per_sm;
+  }
+  const long long tiles =
+      (long long)((p.M + sm90::BM - 1) / sm90::BM) * ((p.N + sm90::BN - 1) / sm90::BN);
+  const int grid = (int)(tiles < slots ? tiles : slots);
+  linear_kernel<MUL><<<grid, sm90::THREADS, sm90::SMEM_BYTES, st>>>(ta, tw, p);
+  return cudaGetLastError();
+}
 
 // Launches C = a w^T + epilogue on `st`. Takes N and K multiples of 8 (TMA
-// strides are multiples of 16 bytes) and 16-byte-aligned a and w; returns
-// cudaErrorInvalidValue for anything else, without a launch.
+// strides are multiples of 16 bytes), 16-byte-aligned a and w, and `mul` or
+// a residual but not both; returns cudaErrorInvalidValue for anything else,
+// without a launch.
 inline cudaError_t linear_sm90(const Linear& p, cudaStream_t st) {
   if (p.M < 1 || p.N < 8 || p.K < 8 || p.N % 8 || p.K % 8 ||
-      ((uintptr_t)p.a | (uintptr_t)p.w) % 16)
+      ((uintptr_t)p.a | (uintptr_t)p.w) % 16 || (p.mul && p.res_scale))
     return cudaErrorInvalidValue;
   CUtensorMap ta, tw;
   if (!kmajor_map(&ta, p.a, p.M, p.K, sm90::BM) || !kmajor_map(&tw, p.w, p.N, p.K, sm90::BN))
+    return cudaErrorInvalidValue;
+  return p.mul ? launch_linear<true>(ta, tw, p, st) : launch_linear<false>(ta, tw, p, st);
+}
+
+// The split of a weight gradient's M rows into row ranges: as many ranges
+// as fill kWgradSlots CTA slots (two CTAs on each of an H100's 132 SMs) with
+// (tile, range) items, each range a whole number of 64-row k-blocks and none
+// empty. A function of the shape alone, so the workspace can be sized before
+// a launch and the sum order is the same on every run.
+constexpr int kWgradSlots = 2 * 132;
+
+inline void weight_grad_plan(int M, int O, int I, int* splits, int* kb_per_split) {
+  const int tiles = (O + sm90::BM - 1) / sm90::BM * ((I + sm90::BN - 1) / sm90::BN);
+  const int k_total = (M + sm90::BK - 1) / sm90::BK;
+  int s = (kWgradSlots + tiles - 1) / tiles;
+  s = s < 1 ? 1 : (s > k_total ? k_total : s);
+  const int per = (k_total + s - 1) / s;
+  *kb_per_split = per;
+  *splits = (k_total + per - 1) / per;
+}
+
+// fp32 elements of the partials of one weight gradient.
+inline long long weight_grad_partial_len(int M, int O, int I) {
+  int splits, per;
+  weight_grad_plan(M, O, I, &splits, &per);
+  return (long long)splits * O * I;
+}
+
+static int wgrad_grid[kMaxDevices];
+
+// Launches the partials of dW[O, I] = g^T x (g [M, O], x [M, I] bf16,
+// row-major) into `partial` (weight_grad_partial_len floats) on `st` and
+// returns the number of partials through `splits`. Takes O and I multiples of
+// 8 and 16-byte-aligned g and x; cudaErrorInvalidValue, without a launch, for
+// anything else.
+inline cudaError_t weight_grad_partials_sm90(const bf16* g, const bf16* x, int M, int O, int I,
+                                             float* partial, int* splits, cudaStream_t st) {
+  if (M < 1 || O < 8 || I < 8 || O % 8 || I % 8 || ((uintptr_t)g | (uintptr_t)x) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap tg, tx;
+  if (!kmajor_map(&tg, g, M, O, sm90::BK) || !kmajor_map(&tx, x, M, I, sm90::BK))
     return cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!linear_grid[dev]) {
+  if (!wgrad_grid[dev]) {
     int sms = 0, per_sm = 0;
-    e = cudaFuncSetAttribute(linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(weight_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)sm90::SMEM_BYTES);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, linear_kernel, sm90::THREADS,
-                                                        sm90::SMEM_BYTES);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, weight_grad_kernel,
+                                                        sm90::THREADS, sm90::SMEM_BYTES);
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    linear_grid[dev] = sms * per_sm;
+    wgrad_grid[dev] = sms * per_sm;
   }
-  const long long tiles =
-      (long long)((p.M + sm90::BM - 1) / sm90::BM) * ((p.N + sm90::BN - 1) / sm90::BN);
-  const int grid = (int)(tiles < linear_grid[dev] ? tiles : linear_grid[dev]);
-  linear_kernel<<<grid, sm90::THREADS, sm90::SMEM_BYTES, st>>>(ta, tw, p);
+  WeightGrad p;
+  p.M = M; p.O = O; p.I = I;
+  weight_grad_plan(M, O, I, &p.splits, &p.kb_per_split);
+  p.partial = partial;
+  const long long items = (long long)((O + sm90::BM - 1) / sm90::BM) *
+                          ((I + sm90::BN - 1) / sm90::BN) * p.splits;
+  const int grid = (int)(items < wgrad_grid[dev] ? items : wgrad_grid[dev]);
+  weight_grad_kernel<<<grid, sm90::THREADS, sm90::SMEM_BYTES, st>>>(tg, tx, p);
+  *splits = p.splits;
   return cudaGetLastError();
 }
 

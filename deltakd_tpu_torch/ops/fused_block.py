@@ -14,8 +14,10 @@ Numerics follow the TPU kernel: matmul operands are rounded to the compute
 dtype (bf16 on the card) and accumulated in fp32; LayerNorm, softmax, GELU and
 the residual stream run in fp32; the softmax normalisation is applied after
 the ``e @ v`` product (``post_div``). The backward saves only ``x`` and the
-scales and recomputes the forward, then folds the softmax normalisations into
-row scalings.
+scales and recomputes the forward. Its plain version folds the softmax
+normalisations into row scalings, as the JAX package does; the kernel reaches
+the same gradient in the flash form, from the forward's row statistic lse and
+delta = rowsum(dO * O), and never stores the [N, N] scores.
 
 The block pair (``fused_vit_block_pair``) runs two consecutive blocks as one
 function with its own forward and backward kernels. What it does that two
@@ -47,6 +49,10 @@ _MATMUL_WEIGHTS = (2, 4, 8, 10)
 # Head dims the block kernels take: the forward's attention (attention_fwd.cuh)
 # has an instantiation for these only.
 KERNEL_HEAD_DIMS = (64,)
+# Longest sequence the backward kernels take: the attention backward
+# (attention_bwd.cuh) keeps dQ of all of a head's rows in shared memory, 11
+# tiles of 64 rows.
+KERNEL_BWD_MAX_N = 704
 
 # Kernel launches by (kernel name, embed width). Each wrapper adds one where
 # it launches its kernel; nothing else touches the count.
@@ -146,16 +152,13 @@ def _block_bwd_reverse(stash, w, g_out, g_feat, s_attn, s_mlp, H, dtype):
     scale = (y.shape[-1] // H) ** -0.5
     rows = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
 
-    def wgrad(g, a):  # sum over rows of g^T a, operands rounded to dtype
-        return _mm(rows(g).t(), rows(a), dtype)
-
     g_feat32 = g_out * s_mlp.view(-1, 1, 1)
     if g_feat is not None:
         g_feat32 = g_feat32 + g_feat.float()
-    dw2 = wgrad(g_feat32, h)
+    dw2 = plain_weight_grad(g_feat32, h, dtype)
     dbf2 = rows(g_feat32).sum(0)
     dhpre = _mm(g_feat32, w[10], dtype) * hgrad
-    dw1 = wgrad(dhpre, z)
+    dw1 = plain_weight_grad(dhpre, z, dtype)
     dbf1 = rows(dhpre).sum(0)
     dz = _mm(dhpre, w[8], dtype)
     dx2 = g_out + _ln_bwd(dz, xhat2, rstd2, w[6])
@@ -163,7 +166,7 @@ def _block_bwd_reverse(stash, w, g_out, g_feat, s_attn, s_mlp, H, dtype):
     db2 = rows(dz).sum(0)
 
     dattn = dx2 * s_attn.view(-1, 1, 1)
-    dwproj = wgrad(dattn, merged)
+    dwproj = plain_weight_grad(dattn, merged, dtype)
     dbproj = rows(dattn).sum(0)
     dmerged = _mm(dattn, w[4], dtype)
 
@@ -177,7 +180,7 @@ def _block_bwd_reverse(stash, w, g_out, g_feat, s_attn, s_mlp, H, dtype):
     dk = _mm(t.transpose(-1, -2), q * (scale * rs), dtype)
     dqkv = torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1)
 
-    dwqkv = wgrad(dqkv, y)
+    dwqkv = plain_weight_grad(dqkv, y, dtype)
     dbqkv = rows(dqkv).sum(0)
     dy = _mm(dqkv, w[2], dtype)
     dx = dx2 + _ln_bwd(dy, xhat1, rstd1, w[0])
@@ -311,11 +314,18 @@ def fused_block_fwd_cuda(x, s_attn, s_mlp, w, H, eps, need_feat):
     return out, feat
 
 
+def _bwd_length(x, name):
+    if x.shape[1] > KERNEL_BWD_MAX_N:
+        raise ValueError(f"{name}: sequence length {x.shape[1]} is above the "
+                         f"{KERNEL_BWD_MAX_N} the backward kernels take")
+
+
 def fused_block_bwd_cuda(x, s_attn, s_mlp, w, g_out, g_feat, H, eps):
     """The backward kernel (csrc/fused_block_bwd.cu) on CUDA tensors:
     dx (bf16) and the 12 fp32 weight grads summed over the batch."""
     x, s_attn, s_mlp, ws = _kernel_operands(x, s_attn, s_mlp, w, H,
                                             "fused_block_bwd")
+    _bwd_length(x, "fused_block_bwd")
     g_out = g_out.to(torch.bfloat16).contiguous()
     if g_feat is not None:
         g_feat = g_feat.to(torch.bfloat16).contiguous()
@@ -364,6 +374,7 @@ def fused_pair_bwd_cuda(x, scales, w1, w2, g_out, g_f1, g_f2, H, eps):
     dx (bf16) and the 12 + 12 fp32 weight grads summed over the batch."""
     name = "fused_pair_bwd"
     x, scales, ws1, ws2 = _pair_operands(x, scales, w1, w2, H, name)
+    _bwd_length(x, name)
     g_out, g_f1, g_f2 = (None if g is None else g.to(torch.bfloat16).contiguous()
                          for g in (g_out, g_f1, g_f2))
     F = ws1[8].shape[0]
@@ -543,12 +554,53 @@ def kernel_block_bwd(x, params, g_out, g_feat=None, *, num_heads, ln_eps=1e-6,
     return dx, dict(zip(PARAM_NAMES, dws))
 
 
-def plain_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, gelu=False,
+def plain_weight_grad(g, x, dtype=torch.bfloat16):
+    """What one weight gradient of the block backward computes
+    (csrc/gemm_sm90.cuh ``weight_grad_kernel``), on any device: the fp32
+    [O, I] sum over all rows of g[m, o] x[m, i], g [..., O] and x [..., I]
+    with their leading dims flattened into rows and both rounded to
+    ``dtype``: an nn.Linear's weight gradient from its output cotangent and
+    its input."""
+    return _mm(g.reshape(-1, g.shape[-1]).t(), x.reshape(-1, x.shape[-1]), dtype)
+
+
+def kernel_weight_grad(g, x):
+    """One weight gradient of the block backward alone, on its TMA + wgmma
+    GEMM (``dk_weight_grad_sm90``: fp32 partials over row ranges, summed in a
+    fixed order), no autograd; CUDA tensors: g [M, O] and x [M, I] bf16 with
+    O and I multiples of 8. No model path calls it. Returns what
+    :func:`plain_weight_grad` returns."""
+    if (g.dim() != 2 or x.dim() != 2 or g.shape[0] != x.shape[0]
+            or g.dtype != torch.bfloat16 or x.dtype != torch.bfloat16
+            or g.device.type != "cuda" or x.device != g.device
+            or g.shape[1] % 8 or x.shape[1] % 8):
+        raise ValueError(f"weight grad: takes CUDA bf16 g [M, O] and x [M, I] with O, I "
+                         f"multiples of 8, got {g.dtype} {tuple(g.shape)} and {x.dtype} "
+                         f"{tuple(x.shape)} on {g.device}")
+    M, O = g.shape
+    I = x.shape[1]
+    g, x = g.contiguous(), x.contiguous()
+    lib = _library("fused_block_bwd")
+    with torch.cuda.device(g.device):
+        partial = torch.empty(lib.dk_weight_grad_sm90_workspace(M, O, I), dtype=torch.uint8,
+                              device=g.device)
+        out = torch.empty((O, I), dtype=torch.float32, device=g.device)
+        err = lib.dk_weight_grad_sm90(g.data_ptr(), x.data_ptr(), M, O, I, partial.data_ptr(),
+                                      out.data_ptr(),
+                                      torch.cuda.current_stream(g.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"weight grad: CUDA error {err} at launch")
+    LAUNCHES[("weight_grad_sm90", O)] += 1
+    return out
+
+
+def plain_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, mul=None, gelu=False,
                  residual=None, res_scale=None, rows_per_sample=1):
-    """What one linear product of the block forward computes
-    (csrc/gemm_sm90.cuh), on any device: v = a w^T with bf16 operands and
-    fp32 accumulation (a [M, K], w [N, K]), + bias, the first ``scale_cols``
-    columns times ``col_scale``, then GELU; with a ``residual`` r,
+    """What one linear product of the block forward or one input gradient of
+    its backward computes (csrc/gemm_sm90.cuh), on any device: v = a w^T with
+    bf16 operands and fp32 accumulation (a [M, K], w [N, K]), + bias, the
+    first ``scale_cols`` columns times ``col_scale``, times ``mul`` (fp32
+    [M, N]), then GELU; with a ``residual`` r,
     out = r + res_scale[row // rows_per_sample] * v. Returns (out fp32, out
     bf16, v before the residual in bf16, gelu' before the GELU in fp32 or
     None)."""
@@ -557,6 +609,8 @@ def plain_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, gelu=False,
         v = v + bias.float()
     if scale_cols:
         v = torch.cat([v[:, :scale_cols] * col_scale, v[:, scale_cols:]], dim=1)
+    if mul is not None:
+        v = v * mul.float()
     grad = None
     if gelu:
         v, grad = _gelu_and_grad(v)
@@ -567,16 +621,18 @@ def plain_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, gelu=False,
     return v, v.to(torch.bfloat16), pre, grad
 
 
-def kernel_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, gelu=False,
+def kernel_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, mul=None, gelu=False,
                   residual=None, res_scale=None, rows_per_sample=1,
                   outputs=("f32", "bf16", "pre", "grad")):
-    """One linear product of the block forward alone, on the forward's TMA +
-    wgmma GEMM (``dk_linear_sm90``), no autograd; CUDA tensors: a [M, K] and
-    w [N, K] bf16 with N and K multiples of 8, bias fp32, residual fp32 or
-    bf16 [M, N], res_scale fp32 [M // rows_per_sample]. ``outputs`` names
-    those to write ("grad" only with ``gelu``). No model path calls it.
-    Returns what :func:`plain_linear` returns, None for each output not
-    asked for."""
+    """One linear product alone, on the block's TMA + wgmma GEMM
+    (``dk_linear_sm90``), no autograd; CUDA tensors: a [M, K] and w [N, K]
+    bf16 with N and K multiples of 8, bias fp32, mul fp32 [M, N] or a
+    residual fp32 or bf16 [M, N] with res_scale fp32 [M // rows_per_sample]
+    (not both). An input
+    gradient dX = G W of the backward is ``kernel_linear(G, W.t())``.
+    ``outputs`` names those to write ("grad" only with ``gelu``). No model
+    path calls it. Returns what :func:`plain_linear` returns, None for each
+    output not asked for."""
     M, K = a.shape
     N = w.shape[0]
     if (a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or w.shape[1] != K
@@ -586,12 +642,19 @@ def kernel_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, gelu=False,
                          f"{tuple(w.shape)} on {a.device}")
     if (residual is None) != (res_scale is None):
         raise ValueError("linear: a residual needs its res_scale and the other way round")
+    if mul is not None and residual is not None:
+        raise ValueError("linear: the GEMM takes mul or a residual, not both")
     a, w = a.contiguous(), w.contiguous()
     if residual is not None:
         residual = residual.contiguous()
         res_scale = res_scale.float().contiguous()
     if bias is not None:
         bias = bias.float().contiguous()
+    if mul is not None:
+        if tuple(mul.shape) != (M, N) or mul.device != a.device:
+            raise ValueError(f"linear: mul must be [{M}, {N}] on {a.device}, got "
+                             f"{tuple(mul.shape)} on {mul.device}")
+        mul = mul.float().contiguous()
 
     def new(name, dtype):
         wanted = name in outputs and (name != "grad" or gelu)
@@ -603,7 +666,7 @@ def kernel_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, gelu=False,
         res32 = residual if residual is not None and residual.dtype == torch.float32 else None
         res_lp = residual if residual is not None and res32 is None else None
         ptrs = [_ptr(t) for t in (a, w, bias, grad, pre, res32, res_lp, res_scale, out32,
-                                  out_lp)]
+                                  out_lp, mul)]
         table = (ctypes.c_void_p * len(ptrs))(*ptrs)
         err = _library("fused_block_fwd").dk_linear_sm90(
             table, M, N, K, scale_cols, col_scale, int(gelu), rows_per_sample,

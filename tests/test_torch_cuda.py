@@ -4,9 +4,14 @@ Run on a machine with an NVIDIA GPU (no JAX needed there):
     python -m pytest tests/test_torch_cuda.py -m cuda
 Without a card the tests skip: a CUDA kernel has no CPU mode. The fused
 block: small shape (D=128, 2 heads of 64, N=18) with drop-path scales of 0
-and 1/keep, and the forward at N in (50, 198, 578) for D in (192, 384, 768);
-bf16 operands, so the tolerance is 2e-2 of the largest reference value. The
-forward's GEMM alone against F.linear plus its epilogue, same tolerance. The
+and 1/keep, and the forward and the backward (with and without a feature
+cotangent) at N in (50, 198, 578) for D in (192, 384, 768); bf16 operands, so
+the tolerance is 2e-2 of the largest reference value. The GEMM alone: the
+forward's products against F.linear plus their epilogue, the backward's input
+gradient with the GELU derivative as `mul` and its weight gradients against
+their plain versions, same tolerance, two runs the same bits. An fp32 soft-KD
+train step through the factory, which gives an fp32 config no kernels: on the
+card, and on the CPU as well (the one case here that runs without a card). The
 block-pair kernels: the four (feat1, feat2) variants at D=192 and D=384 on
 weights of std 1/sqrt(fan-in), scales with zeros, through the kernels alone
 and through the autograd Function. The sort kernels: inputs with ties; sorted values, signs and gradients
@@ -116,6 +121,82 @@ def test_linear_matches_f_linear_on_card(width, product):
     if product == "qkv":    # past the q columns, the product is F.linear's
         lin = torch.nn.functional.linear(a.float(), w.float(), bias)
         _within(got[0][:, width:], lin[:, width:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tok", [50, 198, 578])
+@pytest.mark.parametrize("width,heads", [(192, 3), (384, 6), (768, 12)])
+def test_block_backward_sequence_lengths_on_card(width, heads, n_tok):
+    """The backward (recompute with lse, attention backward with the scores
+    on chip, every product on the TMA + wgmma GEMM) at ragged sequence
+    lengths and every registered width, with and without a feature
+    cotangent; drop-path scales with zeros; two runs the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(width + n_tok + 1)
+    params = _block_params(width, g)
+    x = torch.randn(2, n_tok, width, generator=g).cuda().bfloat16()
+    kw = dict(num_heads=heads, scale_attn=torch.tensor([0.0, 1 / 0.9]).cuda(),
+              scale_mlp=torch.tensor([1 / 0.9, 1.0]).cuda())
+    g_out, g_feat = (torch.randn(x.shape, generator=g).cuda().bfloat16() for _ in range(2))
+    for gf in (None, g_feat):
+        dx, dws = fb.kernel_block_bwd(x, params, g_out, gf, **kw)
+        dx2, dws2 = fb.kernel_block_bwd(x, params, g_out, gf, **kw)
+        r_dx, r_dws = fb.reference_vit_block_bwd(x, params, g_out, gf, **kw)
+        _within(dx, r_dx)
+        for n in fb.PARAM_NAMES:
+            _within(dws[n], r_dws[n])
+            assert torch.equal(dws[n], dws2[n])
+        assert torch.equal(dx, dx2)
+    # a sequence longer than the attention backward's shared-memory dQ holds is
+    # refused before any launch
+    long_x = torch.zeros(1, fb.KERNEL_BWD_MAX_N + 1, width, device="cuda", dtype=torch.bfloat16)
+    fb.reset_launches()
+    with pytest.raises(ValueError, match="sequence length"):
+        fb.kernel_block_bwd(long_x, params, long_x, None, num_heads=heads)
+    assert not fb.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,O,I", [(1001, 192, 768), (1584, 768, 192), (50, 192, 192),
+                                   (1001, 576, 192), (333, 384, 1536)])
+def test_weight_grad_matches_plain_version_on_card(M, O, I):
+    """The backward's weight-gradient GEMM (fp32 partials over row ranges,
+    summed in a fixed order) against plain_weight_grad: ragged M, O that
+    leaves half a 128-row tile; two runs the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(M + O + I)
+    G = torch.randn(M, O, generator=g).cuda().bfloat16()
+    X = torch.randn(M, I, generator=g).cuda().bfloat16()
+    dw = fb.kernel_weight_grad(G, X)
+    assert dw.dtype == torch.float32 and dw.shape == (O, I)
+    _within(dw, fb.plain_weight_grad(G, X))
+    assert torch.equal(dw, fb.kernel_weight_grad(G, X))
+    with pytest.raises(ValueError):
+        fb.kernel_weight_grad(G.cpu(), X.cpu())
+    with pytest.raises(ValueError):
+        fb.kernel_weight_grad(G[:, :O - 4], X)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [192, 384])
+def test_input_gradient_with_mul_on_card(width):
+    """dhpre = (g_feat W2) * gelu' on the GEMM (kernel_linear on W2^T with
+    `mul`) against plain_linear, M ragged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(width + 5)
+    M, F = 1001, 4 * width
+    gfeat = torch.randn(M, width, generator=g).cuda().bfloat16()
+    w2 = (torch.randn(width, F, generator=g) / width ** 0.5).cuda().bfloat16()
+    mul = (1.2 * torch.rand(M, F, generator=g) - 0.1).cuda()
+    got = fb.kernel_linear(gfeat, w2.t().contiguous(), mul=mul, outputs=("f32", "bf16"))
+    ref = fb.plain_linear(gfeat, w2.t(), mul=mul)
+    _within(got[0], ref[0])
+    _within(got[1], ref[1])
+    with pytest.raises(ValueError):
+        fb.kernel_linear(gfeat, w2.t().contiguous(), mul=mul[:, :8])
 
 
 def _block_params(width, g):
@@ -265,3 +346,59 @@ def test_mlp_kernels_match_plain_version_on_card(M, D):
         fm.fused_mlp(*ops)
     with pytest.raises(ValueError):
         fm.kernel_fused_mlp(x.float(), w1, b1, w2, b2)
+
+
+def _fp32_soft_step(device):
+    """One soft-KD train step of DeiT-Small -> DeiT-Tiny at 32 px, batch 4,
+    from an fp32 TrainConfig through load_teacher_student: no kernel is
+    given to either model and none launches; finite metrics and a changed
+    student. Returns the metrics."""
+    import numpy as np
+
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.data.augment import AugmentConfig
+    from deltakd_tpu_torch.data.mixup import MixupConfig
+    from deltakd_tpu_torch.kd.losses import KDSettings
+    from deltakd_tpu_torch.models.factory import load_teacher_student
+    from deltakd_tpu_torch.train.optim import make_optimizer
+    from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
+    from deltakd_tpu_torch.train.step import build_train_step
+
+    cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224",
+                      student_model="deit_tiny_distilled_patch16_224", batch_size=4,
+                      distillation_type="soft", dataset="cifar-100", input_size=32,
+                      dtype="float32", drop_path_rate=0.1, epochs=300, aa="",
+                      color_jitter=0.0, allow_random_teacher=True)
+    teacher, student, aux = load_teacher_student(cfg, seed=0, device=device)
+    for model in (teacher, student):
+        assert all(getattr(model, f) is None
+                   for f in ("block_fn", "block_pair_fn", "attention_fn", "mlp_fn"))
+    tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
+    state = TrainState(student, tx=tx, aux=aux)
+    kd = KDSettings.from_config(cfg, student_prefix=student.cfg.num_prefix_tokens,
+                                teacher_prefix=teacher.cfg.num_prefix_tokens)
+    step = build_train_step(cfg=cfg, kd=kd, student=student, teacher=teacher, aux=aux,
+                            aug=AugmentConfig.from_config(cfg),
+                            mixup=MixupConfig.from_config(cfg, student.cfg.num_classes), tx=tx)
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.randint(0, 256, (4, 32, 32, 3), dtype=np.uint8)).to(device)
+    labels = torch.from_numpy(rng.randint(0, student.cfg.num_classes, (4,))).to(device)
+    before = state.params.clone()
+    for mod in (fb, at, fm, so):
+        mod.reset_launches()
+    metrics = {k: float(v) for k, v in
+               step(state, images, labels, torch.Generator(device=device).manual_seed(1)).items()}
+    assert not any(mod.LAUNCHES for mod in (fb, at, fm, so))
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert (state.params - before).abs().max().item() > 0
+    return metrics
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_fp32_soft_kd_step_runs_without_kernels(device):
+    """The kernels take bf16 only; an fp32 config trains on PyTorch's own ops,
+    on the card as on the CPU."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.set_num_threads(1)
+    _fp32_soft_step(device)
