@@ -5,6 +5,7 @@
     python3 chip_smoke.py --faults           # the planted faults (FAULTS), each in a copy
     python3 chip_smoke.py --forward-checks   # only the forward's checks (phase 3a, 3b, 5a)
     python3 chip_smoke.py --backward-checks  # only the backward's checks (phase 3c, 3d)
+    python3 chip_smoke.py --mlp-checks       # only the fused-MLP kernels' checks (phase 5c)
 
 Phases, each of which fails the run:
   1. prints the card's name and power limit (nvidia-smi);
@@ -37,11 +38,14 @@ Phases, each of which fails the run:
      1/sqrt(fan-in)): attention at [24,198,64], at N=50 (no multiple of 16),
      at N=578 ([4,578,64] and [48,578,64]; three key ranges in the
      backward) and at the main-path shapes
-     [1536,198,64] and [768,198,64]; the MLP at D=192 and D=384 with M=1584
-     and M=1001 (no row tile divides them) and at M=50688; two runs give the
-     same bits; then times them at the main-path shapes beside their plain
-     versions, their bounds and one PyTorch library call
-     (scaled_dot_product_attention; linear + gelu + linear);
+     [1536,198,64] and [768,198,64]; the MLP at every zoo width D = 192,
+     384, 768, 1024 with M=1584 and M=1001 (no row tile divides them) and at
+     M=50688 for D = 192, 384; two runs give the same bits; prints the MLP
+     backward's workspace, which must be below the earlier design's; then
+     times them at the main-path shapes beside their plain versions, their
+     bounds and one PyTorch library call (scaled_dot_product_attention;
+     linear + gelu + linear), and the MLP forward beside the same MLP as two
+     products on the block's GEMM (`[mlp two-gemm]`);
   6. runs train steps at full width (DeiT-Small-distilled teacher, DeiT-Tiny-
      distilled student, 224 px, batch 256, random weights from a seed) for
      soft KD, WassKD-l1, MGD and ViTKD, each path with the launch counts set
@@ -114,6 +118,7 @@ M_MAIN = B_MAIN * N_TOK          # token rows of one batch: 50688
 # (batch * heads) of the main path's attention calls, and the MLP widths
 ATTN_MAIN = {"teacher": B_MAIN * 6, "student": B_MAIN * 3}
 MLP_MAIN = {"teacher": 384, "student": 192}
+MLP_WIDTHS = (192, 384, 768, 1024)   # the model zoo's (models/registry.py)
 UNFUSED_STEPS = 8
 # train steps per distillation type, in the order they run
 PATHS = (("soft", 8), ("wasskd", 4), ("mgd", 2), ("vitkd", 2))
@@ -161,25 +166,26 @@ def _ptxas_summary(log):
     try:
         names = subprocess.run(["c++filt"], input="\n".join(k for k, _, _ in out),
                                capture_output=True, text=True, check=True).stdout.splitlines()
-        out = [(n.split("(")[0], r, sp) for n, (_, r, sp) in zip(names, out)]
+        out = [(n.replace("(anonymous namespace)::", "").split("(")[0], r, sp)
+               for n, (_, r, sp) in zip(names, out)]
     except (OSError, subprocess.CalledProcessError):
         pass
     return out
 
 
-def profile_backward(fb, x, p, g_out, kw, calls=5):
-    """Phase 3b': device time of each kernel inside one fused_block_bwd call,
-    from torch.profiler over ``calls`` calls (per-call means); prints the
-    kernels by time and their sum, or says that the profiler saw no device
-    time."""
+def profile_calls(label, fn, calls=5):
+    """Device time of each kernel inside one call of ``fn`` (one entry point
+    that launches a chain of kernels), from torch.profiler over ``calls``
+    calls (per-call means); prints the kernels by time and their sum, or says
+    that the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fb.kernel_block_bwd(x, p, g_out, None, **kw)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            fb.kernel_block_bwd(x, p, g_out, None, **kw)
+            fn()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -189,15 +195,20 @@ def profile_backward(fb, x, p, g_out, kw, calls=5):
         if us > 0:
             rows.append((us / calls / 1e3, e.count / calls, e.key))
     if not rows:
-        print("[profile] fused_block_bwd: torch.profiler saw no device time (not measured)")
+        print(f"[profile] {label}: torch.profiler saw no device time (not measured)")
         return
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     for ms, n, key in rows:
-        print(f"[profile] fused_block_bwd D={x.shape[-1]} B={x.shape[0]}: {ms:.4f} ms "
-              f"({100 * ms / total:.1f}%) in {n:g} launches of {key[:90]}")
-    print(f"[profile] fused_block_bwd D={x.shape[-1]} B={x.shape[0]}: {total:.4f} ms of "
-          f"kernels a call")
+        print(f"[profile] {label}: {ms:.4f} ms ({100 * ms / total:.1f}%) in {n:g} launches of "
+              f"{key[:90]}")
+    print(f"[profile] {label}: {total:.4f} ms of kernels a call")
+
+
+def profile_backward(fb, x, p, g_out, kw):
+    """Phase 3b': the kernels inside one fused_block_bwd call."""
+    profile_calls(f"fused_block_bwd D={x.shape[-1]} B={x.shape[0]}",
+                  lambda: fb.kernel_block_bwd(x, p, g_out, None, **kw))
 
 
 def _err(a, b):
@@ -1165,21 +1176,62 @@ def _hold_mlp(fm, worst, M, D, main=False):
 
 
 def check_mlp_kernels(fm, worst):
-    """Phase 5c: the fused-MLP kernels vs their plain versions at both
-    widths: 8 images' rows (1584 = 24.75 row tiles), an odd M, and the main
-    path's M = 50688."""
-    for D in MLP_MAIN.values():
+    """Phase 5c: the fused-MLP kernels vs their plain versions at every width
+    of the model zoo (D = 192, 384, 768, 1024: every forward plan, one to four
+    column passes): 8 images' rows (1584 = 24.75 row tiles) and an odd M;
+    then the main path's M = 50688 at the student's and the teacher's
+    width."""
+    for D in MLP_WIDTHS:
         for M in (B_CHECK * N_TOK, 1001):
             _hold_mlp(fm, worst, M, D)
+    for D in MLP_MAIN.values():
         _hold_mlp(fm, worst, M_MAIN, D, main=True)
 
 
-def time_mlp_kernels(fm):
+# Workspace bytes of the MLP backward at [50688, 192] in the design that ran
+# its products on a WMMA tile and kept an fp32 copy of dhpre.
+MLP_BWD_WORKSPACE_BEFORE = 525_837_312
+
+
+def print_mlp_backward_workspace(fb, fm):
+    """The MLP backward's workspace at the main path's [50688, 192] beside
+    MLP_BWD_WORKSPACE_BEFORE: fails unless it is below it and exactly the
+    chain's buffers (h and dhpre in bf16, gelu' in fp32, the two transposed
+    weights, the wider weight gradient's row-range partials, dhpre's
+    128-row-tile column sums), that is, unless no fp32 copy of dhpre is
+    carved."""
+    D, M = MLP_MAIN["student"], M_MAIN
+    F = 4 * D
+
+    def r256(n):
+        return (n + 255) // 256 * 256
+
+    partial = max(fb._library("fused_block_bwd").dk_weight_grad_sm90_workspace(M, o, i)
+                  for o, i in ((F, D), (D, F)))
+    col_partial = max((M + 127) // 128 * F, (M + 127) // 128 * D) * 4
+    parts = {"h": M * F * 2, "dhpre": M * F * 2, "gelu'": M * F * 4, "W1^T": F * D * 2,
+             "W2^T": D * F * 2, "weight-gradient partials": partial,
+             "column-sum partials": col_partial}
+    now = fm.workspace_bytes(M, D, F)
+    reckoned = sum(r256(n) for n in parts.values())
+    before = MLP_BWD_WORKSPACE_BEFORE
+    print(f"[workspace] fused_mlp_bwd [{M},{D}]: {now} bytes, before {before}, {before - now} "
+          f"less; " + ", ".join(f"{k} {r256(n)}" for k, n in parts.items()))
+    if now != reckoned or now >= before:
+        raise AssertionError(f"fused_mlp_bwd: the workspace is {now} bytes, not the {reckoned} "
+                             f"of the chain's buffers, or not below {before}")
+
+
+def time_mlp_kernels(fb, fm):
     """Phase 5d: the fused-MLP kernels at the main path's shapes. Library:
     F.linear + F.gelu + F.linear in bf16 and its autograd backward
     (forward+backward minus forward). Bound: two (five) M x D x 4D products
     over the bf16 rate, against x and out (x, dy, dx), the bf16 weights and,
-    for the backward, the fp32 weight gradients over the memory rate."""
+    for the backward, the fp32 weight gradients over the memory rate. Beside
+    the forward, `[mlp two-gemm]`: the same MLP as two products on the block's
+    GEMM (fb.kernel_linear with GELU, then without, the hidden through device
+    memory), held against the fused kernel within TOL and timed in turns with
+    it (fused, two-gemm, two-gemm, fused)."""
     import torch
     import torch.nn.functional as F
 
@@ -1196,7 +1248,26 @@ def time_mlp_kernels(fm):
             return F.linear(F.gelu(F.linear(lib[0], lib[1], lib[2])), lib[3], lib[4])
 
         if kernel == "fused_mlp_fwd":
-            ms = _timed(lambda: fm.kernel_fused_mlp(x, w1, b1, w2, b2), 10)
+            w1b, w2b = w1.bfloat16(), w2.bfloat16()
+            b1r, b2r = b1.bfloat16().float(), b2.bfloat16().float()
+
+            def fused():
+                return fm.kernel_fused_mlp(x, w1b, b1r, w2b, b2r)
+
+            def two_gemm():
+                h = fb.kernel_linear(x, w1b, b1r, gelu=True, outputs=("bf16",))[1]
+                return fb.kernel_linear(h, w2b, b2r, outputs=("bf16",))[1]
+
+            abs_err, mx = _err(two_gemm(), fused())
+            if abs_err > TOL * mx:
+                raise AssertionError(f"fused_mlp_fwd D={D}: the two-gemm chain and the fused "
+                                     f"kernel differ by {abs_err:.3e} of {mx:.3e}")
+            turns = [_timed(fn, 10) for fn in (fused, two_gemm, two_gemm, fused)]
+            ms, chain_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            print(f"[mlp two-gemm] {who} M={M_MAIN} D={D}: fused {ms:.4f} ms (turns "
+                  f"{turns[0]:.4f}, {turns[3]:.4f}), two linear_sm90 products {chain_ms:.4f} ms "
+                  f"(turns {turns[1]:.4f}, {turns[2]:.4f}), fused/two-gemm {ms / chain_ms:.4f}; "
+                  f"max |fused - two-gemm| {abs_err:.3e} of {mx:.3e}")
             plain_ms = _timed(lambda: fm._plain_fwd(x, w1, b1, w2, b2), 3)
             with torch.no_grad():
                 library_ms = _timed(lib_fwd, 20)
@@ -1213,6 +1284,8 @@ def time_mlp_kernels(fm):
             library_ms = both - fwd
             extra = f" (library forward+backward {both:.3f} ms, forward {fwd:.3f} ms)"
             bound = _bound(5 * product, 3 * M_MAIN * D * 2 + weights * (2 + 4) + 9 * D * 4)
+            profile_calls(f"fused_mlp_bwd M={M_MAIN} D={D}",
+                          lambda: fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy))
         rows[(kernel, D)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
         print(f"[time] {kernel} {who} M={M_MAIN} D={D}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"library {library_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
@@ -1625,8 +1698,8 @@ def check_features_against_cpu(teacher, student, aux, aug, kd, images):
 
 
 # Planted faults (``--faults``): each is an edit of one kernel source in a
-# copy of the package; the copy's checks of that kernel (``--forward-checks``
-# or ``--backward-checks``) must then fail (exit 1).
+# copy of the package; the copy's checks of that kernel (``--forward-checks``,
+# ``--backward-checks`` or ``--mlp-checks``) must then fail (exit 1).
 FAULTS = (
     ("the online rescale left out", "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
      (("l[r] *= alpha[r];", "l[r] *= 1.0f;"),
@@ -1660,14 +1733,24 @@ FAULTS = (
     ("the GELU derivative left out of the fc2 input gradient",
      "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
      (("v0 *= mu.x;", "v0 *= 1.0f;"), ("v1 *= mu.y;", "v1 *= 1.0f;")), "--backward-checks"),
+    ("GELU left out of one hidden chunk of the MLP forward",
+     "deltakd_tpu_torch/ops/csrc/fused_mlp.cu",
+     (("__floats2bfloat162_rn(gelu_rational(v0), gelu_rational(v1));",
+       "j == 1 ? __floats2bfloat162_rn(v0, v1) : "
+       "__floats2bfloat162_rn(gelu_rational(v0), gelu_rational(v1));"),),
+     "--mlp-checks"),
+    ("the last row chunk of db2 left out of the MLP backward's sum",
+     "deltakd_tpu_torch/ops/csrc/fused_mlp.cu",
+     (("reduce_chunks(g.col_partial, chunks, D, (float*)db2, st);",
+       "reduce_chunks(g.col_partial, chunks - 1, D, (float*)db2, st);"),), "--mlp-checks"),
 )
 
 
 def run_faults() -> int:
     """For each planted fault: a copy of the package and this script under
     .scratch/faults/ (ignored by git), the edit, then ``chip_smoke.py`` with
-    the fault's checks (``--forward-checks`` or ``--backward-checks``) in the
-    copy, which must exit 1. Returns 0 when every fault failed its run."""
+    the fault's checks (``--forward-checks``, ``--backward-checks`` or
+    ``--mlp-checks``) in the copy, which must exit 1. Returns 0 when every fault failed its run."""
     import shutil
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1712,6 +1795,7 @@ def main() -> int:
         return run_faults()
     forward_checks = "--forward-checks" in sys.argv[1:]
     backward_checks = "--backward-checks" in sys.argv[1:]
+    mlp_checks = "--mlp-checks" in sys.argv[1:]
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deltakd_tpu_torch.ops import _build
@@ -1732,7 +1816,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build(["fused_block_fwd", "attention"] if forward_checks else
                         ["fused_block_fwd", "fused_block_bwd", "fused_block_pair"]
-                        if backward_checks else _build.SOURCES)
+                        if backward_checks else ["fused_mlp"] if mlp_checks else _build.SOURCES)
     print(f"[build] sources {list(_build.SOURCES)}, compiled {sorted(logs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -1749,6 +1833,9 @@ def main() -> int:
         check_block_backward_shapes(fb, worst)
         check_backward_gemms(fb, worst, timed=False)
         return 0
+    if mlp_checks:       # a planted-fault copy: the checks of the MLP kernels only
+        check_mlp_kernels(fm, worst)
+        return 0
     check_kernels(fb, worst)
     check_block_forward_shapes(fb, worst)
     check_block_backward_shapes(fb, worst)
@@ -1762,7 +1849,8 @@ def main() -> int:
     check_attention_kernels(at, worst)
     timing.update(time_attention_kernels(at))
     check_mlp_kernels(fm, worst)
-    timing.update(time_mlp_kernels(fm))
+    print_mlp_backward_workspace(fb, fm)
+    timing.update(time_mlp_kernels(fb, fm))
     check_pair_kernels(fb, worst)
     check_pair_cotangent_fp32(fb)
     timing.update(time_pair_kernels(fb))

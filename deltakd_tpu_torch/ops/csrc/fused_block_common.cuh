@@ -1,6 +1,6 @@
 // Building blocks shared by the fused ViT block forward and backward kernels
-// and the block-pair kernels (fused_block_pair.cu); the fused-MLP kernels
-// (fused_mlp.cu) build on the plain GEMM and the row sums.
+// and the block-pair kernels (fused_block_pair.cu); the fused-MLP backward
+// (fused_mlp.cu) builds on the weight-gradient sum and the transpose.
 //
 // The TPU kernels (deltakd_tpu/ops/fused_block.py `_fwd_kernel`,
 // `_bwd_kernel`) keep one batch element's whole block in 16+ MB of VMEM. An
@@ -25,17 +25,14 @@
 // gradients (column sums) inside the passes that already hold their operands
 // rather than from fp32 copies of them.
 //
-// `gemm_kernel` below, a plain strided WMMA tile, the split-K `weight_grad`
-// over it and `col_sum` serve only the fused-MLP backward (fused_mlp.cu)
-// now. Sums over all rows (weight and bias gradients) are fp32 partials over
-// row ranges, added in a fixed order by a second pass: no atomics, two runs
-// give the same bits.
+// Sums over all rows (weight and bias gradients) are fp32 partials over row
+// ranges, added in a fixed order by a second pass: no atomics, two runs give
+// the same bits.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "attention_fwd.cuh"
@@ -44,175 +41,16 @@
 namespace dk {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 
 // ---------------------------------------------------------------------------
-// GEMM: C (M x N) = A (M x K) @ B (K x N), bf16 in, fp32 accumulate.
-// Operands are addressed through element strides, so transposed views (the
-// weight-gradient products) need no copies. With k_chunk > 0, z = blockIdx.z
-// indexes consecutive K chunks and each writes its own partial product at
-// z * c_z (split-K weight gradients).
+// Sums over all rows (weight gradients): fp32 partials per row range, then a
+// second pass that adds them in range order. Deterministic; no atomics.
 // ---------------------------------------------------------------------------
 
-enum Act { ACT_NONE = 0, ACT_GELU = 1 };
-
-struct GemmArgs {
-  int M, N, K;
-  const bf16* A; long long a_sm, a_sk;
-  const bf16* B; long long b_sk, b_sn;
-  int k_chunk;            // > 0: split-K, chunk z covers [z*k_chunk, (z+1)*k_chunk)
-  long long c_sm, c_z;
-  // epilogue, applied in this order to v = acc:
-  const float* bias;      // v += bias[n]
-  const float* mul;       // v *= mul[c]         (same layout as C)
-  int act;                // ACT_GELU: v = gelu(v), gelu'(v) -> act_grad[c]
-  float* act_grad;
-  float* out_f32;         // out[c] = v
-  bf16* out_bf16;
-};
-
-constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
-constexpr int LDA_S = BK + 8, LDB_S = BN + 8, LDC_S = BN + 4;
-
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
-  __shared__ __align__(32) bf16 As[BM * LDA_S];
-  __shared__ __align__(32) bf16 Bs[BK * LDB_S];
-  __shared__ __align__(32) float Cs[BM * LDC_S];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;      // 2 x 2 warps, 32 x 32 each
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int z = blockIdx.z;
-
-  const bf16* A = p.A;
-  const bf16* B = p.B;
-  long long c_off = 0;
-  int k_begin = 0, k_end = p.K;
-  if (p.k_chunk > 0) {
-    k_begin = z * p.k_chunk;
-    k_end = min(p.K, k_begin + p.k_chunk);
-    c_off = (long long)z * p.c_z;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const bool a_kcontig = (p.a_sk == 1);
-  const bool b_ncontig = (p.b_sn == 1);
-  const bf16 zero = __float2bfloat16(0.0f);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    // A tile (BM x BK): neighbouring threads walk the operand's contiguous dim
-    for (int i = tid; i < BM * BK; i += GEMM_THREADS) {
-      int mm, kk;
-      if (a_kcontig) { mm = i / BK; kk = i % BK; } else { kk = i / BM; mm = i % BM; }
-      const int gm = m0 + mm, gk = k0 + kk;
-      As[mm * LDA_S + kk] = (gm < p.M && gk < k_end)
-          ? A[gm * p.a_sm + (long long)gk * p.a_sk] : zero;
-    }
-    // B tile (BK x BN)
-    for (int i = tid; i < BK * BN; i += GEMM_THREADS) {
-      int kk, nn;
-      if (b_ncontig) { kk = i / BN; nn = i % BN; } else { nn = i / BK; kk = i % BK; }
-      const int gk = k0 + kk, gn = n0 + nn;
-      Bs[kk * LDB_S + nn] = (gk < k_end && gn < p.N)
-          ? B[(long long)gk * p.b_sk + gn * p.b_sn] : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * LDA_S + kk, LDA_S);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * LDB_S + wn * 32 + j * 16, LDB_S);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC_S + wn * 32 + j * 16,
-                              acc[i][j], LDC_S, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int i = tid; i < BM * BN; i += GEMM_THREADS) {
-    const int mm = i / BN, nn = i % BN;
-    const int gm = m0 + mm, gn = n0 + nn;
-    if (gm >= p.M || gn >= p.N) continue;
-    const long long c = c_off + gm * p.c_sm + gn;
-    float v = Cs[mm * LDC_S + nn];
-    if (p.bias) v += p.bias[gn];
-    if (p.mul) v *= p.mul[c];
-    if (p.act == ACT_GELU) {
-      if (p.act_grad) p.act_grad[c] = gelu_erf_grad(v);
-      v = gelu_erf(v);
-    }
-    if (p.out_f32) p.out_f32[c] = v;
-    if (p.out_bf16) p.out_bf16[c] = __float2bfloat16(v);
-  }
-}
-
-inline GemmArgs gemm_args(int M, int N, int K) {
-  GemmArgs p = {};
-  p.M = M; p.N = N; p.K = K;
-  return p;
-}
-
-inline void gemm(const GemmArgs& p, int Z, cudaStream_t s) {
-  dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN, Z);
-  gemm_kernel<<<grid, GEMM_THREADS, 0, s>>>(p);
-}
-
-// Row-major activations [M, K] times an nn.Linear weight [N, K] (y = a W^T).
-inline GemmArgs linear_args(const bf16* a, const bf16* w, int M, int N, int K) {
-  GemmArgs p = gemm_args(M, N, K);
-  p.A = a; p.a_sm = K; p.a_sk = 1;
-  p.B = w; p.b_sk = 1; p.b_sn = K;
-  p.c_sm = N;
-  return p;
-}
-
-// ---------------------------------------------------------------------------
-// Sums over all rows (weight and bias gradients): fp32 partials per chunk of
-// KCHUNK rows, then a second pass that adds the partials in chunk order.
-// Deterministic; no atomics.
-// ---------------------------------------------------------------------------
-
-constexpr int KCHUNK = 512;
-
-// partial[chunk, j] = sum over the chunk's rows of a[r, j] (* b[r, j])
-template <typename TA>
-__global__ void colsum_partial_kernel(const TA* a, const float* b, int rows, int cols,
-                                      float* partial) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= cols) return;
-  const int r0 = blockIdx.y * KCHUNK, r1 = min(rows, r0 + KCHUNK);
-  float s = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const long long i = (long long)r * cols + j;
-    s += b ? ld(a + i) * b[i] : ld(a + i);
-  }
-  partial[(long long)blockIdx.y * cols + j] = s;
-}
-
-// out[j] = sum_c partial[c, j], in chunk order.
+// out[j] = sum_c partial[c, j], in range order.
 __global__ void reduce_partials_kernel(const float* partial, int chunks, long long len,
                                        float* out) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -222,34 +60,7 @@ __global__ void reduce_partials_kernel(const float* partial, int chunks, long lo
   out[j] = s;
 }
 
-inline int chunks_of(long long M) { return (int)((M + KCHUNK - 1) / KCHUNK); }
-
 inline int blocks_of(long long n, int t) { return (int)((n + t - 1) / t); }
-
-// dW [O, I] = sum_m G[m, o] X[m, i]  (nn.Linear weight layout)
-inline void weight_grad(const bf16* g, const bf16* x, int M, int O, int I, float* partial,
-                 float* out, cudaStream_t st) {
-  GemmArgs p = gemm_args(O, I, M);
-  p.A = g; p.a_sm = 1; p.a_sk = O;
-  p.B = x; p.b_sk = I; p.b_sn = 1;
-  p.k_chunk = KCHUNK;
-  p.c_sm = I; p.c_z = (long long)O * I;
-  p.out_f32 = partial;
-  const int chunks = chunks_of(M);
-  gemm(p, chunks, st);
-  reduce_partials_kernel<<<blocks_of((long long)O * I, 256), 256, 0, st>>>(
-      partial, chunks, (long long)O * I, out);
-}
-
-// out[j] = sum_r a[r, j] (* b[r, j])
-template <typename TA>
-inline void col_sum(const TA* a, const float* b, int M, int cols, float* partial, float* out,
-             cudaStream_t st) {
-  const int chunks = chunks_of(M);
-  colsum_partial_kernel<TA><<<dim3(blocks_of(cols, 128), chunks), 128, 0, st>>>(a, b, M, cols,
-                                                                          partial);
-  reduce_partials_kernel<<<blocks_of(cols, 256), 256, 0, st>>>(partial, chunks, cols, out);
-}
 
 // dW [O, I] = sum_m G[m, O]^T X[m, I] on the TMA + wgmma GEMM: fp32 partials
 // over row ranges (gemm_sm90.cuh `weight_grad_kernel`), then their sum in
@@ -283,16 +94,6 @@ __global__ void transpose_kernel(const bf16* in, int R, int C, bf16* out) {
 inline void transpose(const bf16* in, int R, int C, bf16* out, cudaStream_t st) {
   transpose_kernel<<<dim3(blocks_of(C, 32), blocks_of(R, 32)), dim3(32, 8), 0, st>>>(in, R, C,
                                                                                    out);
-}
-
-// x = rows [M, K] bf16 times W [K, N] read untransposed (a nn.Linear weight
-// [O=K, I=N] used as dX = dY W).
-inline GemmArgs grad_input_args(const bf16* a, const bf16* w, int M, int N, int K) {
-  GemmArgs p = gemm_args(M, N, K);
-  p.A = a; p.a_sm = K; p.a_sk = 1;
-  p.B = w; p.b_sk = N; p.b_sn = 1;
-  p.c_sm = N;
-  return p;
 }
 
 // ---------------------------------------------------------------------------

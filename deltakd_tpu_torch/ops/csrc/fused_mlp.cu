@@ -1,5 +1,5 @@
 // Fused transformer MLP (fc1 -> erf-GELU -> fc2), forward and recompute
-// backward.
+// backward, on Hopper (sm_90a).
 //
 // Replaces: deltakd_tpu/ops/fused_mlp.py `_mlp_kernel` (called by `fused_mlp`)
 // and `_mlp_bwd_kernel` (called by `_fused_mlp_bwd_call`). With x [M, D] and
@@ -10,230 +10,423 @@
 //             dx = dhpre W1, dW1 = dhpre^T x, dW2 = h^T dy,
 //             db1 = colsum(dhpre), db2 = colsum(dy)        (fp32 sums)
 //
-// What bounds it on an H100: operations. 4 M D F operations on 2 M D bf16 of
-// input and output are some 1500 operations a byte at D = 384, far above the
-// card's 295, provided the [M, F] hidden never reaches device memory (it is
-// four times the input). The TPU kernel holds a 256-row tile's whole hidden in
-// VMEM; at 227 KB a block cannot, so the forward chunks the hidden axis:
+// What bounds the forward on an H100: the tensor cores, as long as the
+// [M, F] hidden never reaches device memory. 4 M D F operations on 2 M D bf16
+// of input and output are some 1500 operations a byte at D = 384, far above
+// the card's 295; written out and read back, the hidden (four times the
+// input, 155.7 MB at M = 50,688, D = 384) would cost more than the products.
+// The TPU kernel holds a 256-row tile's whole hidden in VMEM. Here a CTA takes
+// 64 rows of x and streams the hidden axis in chunks:
+//  * The producer warp loads the x tile once (TMA, 128-byte swizzle), then
+//    streams the weights as 64 x 64 tiles through an mbarrier ring, in the
+//    order the consumers take them: per chunk of Fc = 64 C hidden units the
+//    W1 tiles [64 f, 64 k], then the W2 tiles [64 d, 64 f].
+//  * C consumer warpgroups share the rows. Warpgroup c computes the chunk's
+//    f-block c, S = X W1_c^T, by wgmma into registers, adds b1, applies
+//    erf-GELU, rounds to bf16 and writes the tile into a double-buffered
+//    shared H in the swizzle wgmma reads. After one named barrier per chunk
+//    each warpgroup adds H W2_c^T for its own DN output columns (wgmma from
+//    shared memory, accumulators in registers: DN / 2 a thread).
+//  * The b2 epilogue runs from the registers and stores bf16x2, masked at
+//    the ragged M edge (rows past M arrive as zeros and are never stored).
+//  * Width: the output accumulators of 64 rows are D / 2 registers a thread
+//    for one warpgroup, too many above D = 192, so the columns split across
+//    the C warpgroups and, above C * DN, into passes that recompute fc1
+//    (`mlp_fwd_kernel<C, DN>`: D = 192 one warpgroup of 192 columns, 384 two
+//    of 192, 768 two passes of those, 1024 four passes of two of 128). The
+//    plan comes from the wrapper (ops/fused_mlp.py `forward_plan`).
+//  * The GELU runs between a warpgroup's two products, with its own
+//    tensor-core work waiting (the other warpgroup, and at D = 192 a second
+//    CTA on the SM, fill that gap), so its cost shows: it uses the TPU
+//    kernel's rational erf on the special-function units, fewer
+//    instructions than erff.
+//  * What is left: every product is a 64 x 64 x 16 wgmma with both operands
+//    read from shared memory, and every 64-row tile reads both weights again
+//    from L2 (2.36 MB a tile at D = 384).
 //
-// * forward: a block takes 64 rows of x (32 or 16 for wide models) into
-//   shared memory and holds their [64, D] fp32 output tile there. For each
-//   chunk of 128 hidden units it computes gelu(x W1_c^T + b1_c), rounds it to
-//   bf16 into a [64, 128] shared tile, and adds h_c W2_c^T to the output tile.
-//   The hidden exists only as that tile. Weight fragments are read straight
-//   from device memory (the two matrices stay in L2). The last row tile is
-//   masked: x is not padded.
-// * backward: a chain of kernels behind one entry point, as the fused block's
-//   backward: the shared tiled GEMM with fused epilogues computes every
-//   product, reading W2 and W1 untransposed through strides; h, gelu'(hpre)
-//   and dhpre pass through a workspace; the sums over all rows are fp32
-//   partials per 512-row chunk added in chunk order by a second pass
-//   (deterministic, no atomics; on the TPU they are carried across a
-//   sequential grid).
+// The backward is a chain behind one entry point, every product on the TMA +
+// wgmma GEMM of gemm_sm90.cuh, as the block's reverse sweep
+// (fused_block_reverse.cuh) runs it: W1 and W2 transposed once per call;
+// the recompute's fc1 with GELU and its derivative; dhpre = (dy W2) gelu' in
+// bf16 with its 128-row column sums (db1) from the GEMM's epilogue; dx; the
+// two weight gradients as fp32 row-range partials; db2 from one row pass over
+// dy. What bounds it: the tensor cores for its five products, and the bytes
+// of h, gelu' and dhpre that the workspace carries between them (8 bytes an
+// element of [M, F]). Every sum over rows is fp32 partials added in a fixed
+// order: no atomics, two runs give the same bits.
 //
-// GELU uses erff (the TPU kernel a polynomial erf within 1.5e-7 of it).
+// GELU: the forward uses the TPU kernel's rational erf (Abramowitz and
+// Stegun 7.1.26, within 1.5e-7 of erf), the backward's recompute erff.
 
-#include "fused_block_common.cuh"
+#include "fused_block_reverse.cuh"
 
 using namespace dk;
 
 namespace {
 
-constexpr int FC = 128;            // hidden chunk of the forward
-constexpr int LDH = FC + 8;        // bf16 row stride of the hidden tile
-constexpr int MLP_THREADS = 256, MLP_WARPS = 8;
-constexpr int MAX_RT = 4;          // row tiles of 16 a block (BM = 64)
-constexpr int MAX_SMEM = 232448;   // 227 KB
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
 
-inline size_t fwd_smem(int BM, int D) {
-  return (size_t)BM * ((D + 8) * sizeof(bf16) + LDH * sizeof(bf16) + (D + 4) * sizeof(float))
-         + (size_t)MLP_WARPS * 256 * sizeof(float);
+constexpr int RT = 64;                // rows of a CTA; every tile is RT x RT bf16
+constexpr int TILE = RT * RT;         // elements of a tile (8 KB)
+constexpr int MAX_STAGES = 12;
+constexpr int MAX_SMEM = 232448;      // 227 KB
+constexpr int TWO_CTA_SMEM = 110 * 1024;   // two CTAs an SM at one warpgroup
+
+// GELU of the forward: x Phi(x) with the rational erf of Abramowitz and
+// Stegun 7.1.26 (absolute error 1.5e-7), the TPU kernel's own `_erf`, on the
+// approximate reciprocal and exp2 of the special-function units (a few ulp
+// more).
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
 }
 
-// The most rows (64, 32 or 16) whose tiles fit one block; 0 if none does.
-inline int fwd_rows(int D) {
-  for (int BM = 16 * MAX_RT; BM >= 16; BM /= 2)
-    if (fwd_smem(BM, D) <= (size_t)MAX_SMEM) return BM;
-  return 0;
+__device__ __forceinline__ float ex2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
 }
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+// q = (1 - erf(|x| / sqrt 2)) / 2 = a poly(t) exp(-x^2 / 2) with t = 1 / (1 +
+// p |x| / sqrt 2) (the coefficients halved); gelu = x (1 - q) for x >= 0, x q
+// below.
+__device__ __forceinline__ float gelu_rational(float x) {
+  const float z = fabsf(x) * 0.70710678118654752f;
+  const float t = rcp_approx(fmaf(0.3275911f, z, 1.0f));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 0.5307027145f, -0.7265760135f), 0.7107068705f),
+                       -0.142248368f),
+               0.127414796f);
+  const float q = poly * ex2_approx(x * x * -0.72134752044448170f);
+  return x * (x >= 0.f ? 1.0f - q : q);
+}
 
-__global__ void __launch_bounds__(MLP_THREADS)
-mlp_fwd_kernel(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
-               bf16* out, int M, int D, int F, int BM) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * BM, RT = BM / 16;
-  const int ldX = D + 8, ldO = D + 4;
+// Ring stages below which a warpgroup could hold back the producer: between
+// two of its W2 tiles lie the other warpgroups' (C - 1) DN / 64.
+inline int min_stages(int C, int DN) { return (C - 1) * (DN / 64) + 2; }
 
-  bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* Hs = Xs + BM * ldX;
-  float* Os = reinterpret_cast<float*>(Hs + BM * LDH);
-  float* scr = Os + BM * ldO + warp * 256;
+// x tile, the two H buffers, the ring, then its barriers (and the alignment).
+inline size_t fwd_smem(int C, int D, int stages) {
+  return 1024 + (size_t)(D / 64 + 2 * C + stages) * TILE * sizeof(bf16) +
+         (2 * MAX_STAGES + 1) * sizeof(uint64_t);
+}
 
-  // x tile, 16 bytes a thread; rows at or beyond M are zero
-  for (int i = tid; i < BM * (D / 8); i += MLP_THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < M) v = *reinterpret_cast<const uint4*>(x + (long long)(m0 + r) * D + c);
-    *reinterpret_cast<uint4*>(Xs + r * ldX + c) = v;
+// Rows of CTA blockIdx.x: [64 blockIdx.x, +64). Warp 4 C is the producer.
+template <int C, int DN>
+__global__ void __launch_bounds__(C * 128 + 32, C == 1 ? 2 : 1)
+mlp_fwd_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w1,
+               const __grid_constant__ CUtensorMap tm_w2, const float* __restrict__ b1,
+               const float* __restrict__ b2, bf16* __restrict__ out, int M, int D, int F,
+               int stages) {
+  constexpr int NB = DN / 64;   // 64-column blocks of a warpgroup's output
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Xs = reinterpret_cast<bf16*>(align1024(smem_raw));   // [D / 64][RT][RT]
+  bf16* Hs = Xs + D / 64 * TILE;                               // [2][C][RT][RT]
+  bf16* Ws = Hs + 2 * C * TILE;                                // [stages][RT][RT]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ws + stages * TILE);
+  uint64_t* empty = full + MAX_STAGES;
+  uint64_t* xbar = empty + MAX_STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.x * RT;
+  const int kblocks = D / 64, chunks = F / (64 * C), passes = D / (C * DN);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);   // the four warps of the tile's warpgroup
+    }
+    mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int i = tid; i < BM * D; i += MLP_THREADS) Os[(i / D) * ldO + i % D] = b2[i % D];
   __syncthreads();
 
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    const int nct = min(FC, F - f0) / 16;
-    // h_c = gelu(x W1_c^T + b1_c): a warp owns 16 hidden units, every row tile
-    for (int ct = warp; ct < nct; ct += MLP_WARPS) {
-      FragC acc[MAX_RT];
-#pragma unroll
-      for (int rt = 0; rt < MAX_RT; ++rt) wmma::fill_fragment(acc[rt], 0.0f);
-      const bf16* wrow = w1 + (long long)(f0 + ct * 16) * D;
-      for (int k0 = 0; k0 < D; k0 += 16) {
-        FragBT wb;   // (W1^T)[d][f] = W1[f][d]
-        wmma::load_matrix_sync(wb, wrow + k0, D);
-#pragma unroll
-        for (int rt = 0; rt < MAX_RT; ++rt) {
-          if (rt < RT) {
-            FragA xa;
-            wmma::load_matrix_sync(xa, Xs + rt * 16 * ldX + k0, ldX);
-            wmma::mma_sync(acc[rt], xa, wb, acc[rt]);
-          }
+  if (warp == 4 * C) {
+    // producer: one thread loads x, then keeps the ring full
+    if (lane == 0) {
+      mbar_expect_tx(xbar, kblocks * TILE * sizeof(bf16));
+      for (int kb = 0; kb < kblocks; ++kb) tma_load_2d(Xs + kb * TILE, &tm_x, kb * 64, m0, xbar);
+      int stage = 0;
+      uint32_t phase = 0;
+      auto load = [&](const CUtensorMap* map, int c0, int c1) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], TILE * sizeof(bf16));
+        tma_load_2d(Ws + stage * TILE, map, c0, c1, &full[stage]);
+        if (++stage == stages) { stage = 0; phase ^= 1; }
+      };
+      for (int p = 0; p < passes; ++p)
+        for (int j = 0; j < chunks; ++j) {
+          const int f0 = j * 64 * C;
+          for (int kb = 0; kb < kblocks; ++kb)
+            for (int c = 0; c < C; ++c) load(&tm_w1, kb * 64, f0 + 64 * c);
+          for (int b = 0; b < C; ++b)
+            for (int w = 0; w < C; ++w)
+              for (int nb = 0; nb < NB; ++nb) load(&tm_w2, f0 + 64 * b, (p * C + w) * DN + 64 * nb);
         }
-      }
-#pragma unroll
-      for (int rt = 0; rt < MAX_RT; ++rt) {
-        if (rt < RT) {
-          wmma::store_matrix_sync(scr, acc[rt], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) {
-            const int r = e / 16, c = e % 16;
-            const float hpre = scr[e] + b1[f0 + ct * 16 + c];
-            Hs[(rt * 16 + r) * LDH + ct * 16 + c] = __float2bfloat16(gelu_erf(hpre));
-          }
-          __syncwarp();
-        }
-      }
     }
-    __syncthreads();
-    // out tile += h_c W2_c^T: a warp owns 16 output columns, every row tile
-    for (int ct = warp; ct < D / 16; ct += MLP_WARPS) {
-      FragC acc[MAX_RT];
-#pragma unroll
-      for (int rt = 0; rt < MAX_RT; ++rt)
-        if (rt < RT)
-          wmma::load_matrix_sync(acc[rt], Os + rt * 16 * ldO + ct * 16, ldO,
-                                 wmma::mem_row_major);
-      const bf16* wrow = w2 + (long long)(ct * 16) * F + f0;
-      for (int kk = 0; kk < nct; ++kk) {
-        FragBT wb;   // (W2^T)[f][d] = W2[d][f]
-        wmma::load_matrix_sync(wb, wrow + kk * 16, F);
-#pragma unroll
-        for (int rt = 0; rt < MAX_RT; ++rt) {
-          if (rt < RT) {
-            FragA ha;
-            wmma::load_matrix_sync(ha, Hs + rt * 16 * LDH + kk * 16, LDH);
-            wmma::mma_sync(acc[rt], ha, wb, acc[rt]);
-          }
-        }
-      }
-#pragma unroll
-      for (int rt = 0; rt < MAX_RT; ++rt)
-        if (rt < RT)
-          wmma::store_matrix_sync(Os + rt * 16 * ldO + ct * 16, acc[rt], ldO,
-                                  wmma::mem_row_major);
-    }
-    __syncthreads();
+    return;
   }
 
-  for (int i = tid; i < BM * (D / 2); i += MLP_THREADS) {
-    const int r = i / (D / 2), c = (i % (D / 2)) * 2;
-    if (m0 + r < M)
-      *reinterpret_cast<__nv_bfloat162*>(out + (long long)(m0 + r) * D + c) =
-          __floats2bfloat162_rn(Os[r * ldO + c], Os[r * ldO + c + 1]);
+  // consumers: warpgroup c takes f-block c of every chunk and the output
+  // columns [(p C + c) DN, +DN) of pass p. Thread (warp, lane) holds rows
+  // r = 16 (warp % 4) + lane / 4 and r + 8; of every 8 columns, the two at cq.
+  const int c = warp / 4;
+  const int r = (warp % 4) * 16 + lane / 4, cq = 2 * (lane % 4);
+  float acc[NB][32], s[32];
+  int stage = 0, held = -1;
+  uint32_t phase = 0;
+  auto skip = [&]() {   // a tile of another warpgroup
+    if (++stage == stages) { stage = 0; phase ^= 1; }
+  };
+  // after committing the group that read `stage`: the group before it is
+  // done, and its stage goes back to the producer
+  auto retire = [&]() {
+    wgmma_wait<1>();
+    if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+    held = stage;
+    skip();
+  };
+  auto release = [&]() {   // after wgmma_wait<0>
+    if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+    held = -1;
+  };
+
+  mbar_wait(xbar, 0);
+  int chunk_no = 0;
+  for (int p = 0; p < passes; ++p) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+    for (int j = 0; j < chunks; ++j, ++chunk_no) {
+      const int f0 = j * 64 * C;
+      // S = X W1_c^T over the k-blocks of D
+      for (int kb = 0; kb < kblocks; ++kb) {
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) {
+          if (cc != c) {
+            skip();
+            continue;
+          }
+          mbar_wait(&full[stage], phase);
+          const uint64_t da = sw128_desc(Xs + kb * TILE), db = sw128_desc(Ws + stage * TILE);
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < 4; ++k) wgmma_ss(s, da + 2 * k, db + 2 * k, kb > 0 || k > 0);
+          wgmma_commit();
+          retire();
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      release();
+
+      // H_c = gelu(S + b1) in bf16, into this chunk's buffer in the 128-byte
+      // swizzle: element (row, col) at row * 128 + ((col / 8) ^ (row % 8)) * 16
+      // + (col % 8) * 2 bytes
+      unsigned char* hc =
+          reinterpret_cast<unsigned char*>(Hs + ((chunk_no & 1) * C + c) * TILE);
+      const float* bias = b1 + f0 + 64 * c + cq;
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+        const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + 8 * jb));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r + 8 * h;
+          const float v0 = s[4 * jb + 2 * h] + bv.x, v1 = s[4 * jb + 2 * h + 1] + bv.y;
+          *reinterpret_cast<__nv_bfloat162*>(hc + row * 128 + ((jb ^ (row & 7)) << 4) + 2 * cq) =
+              __floats2bfloat162_rn(gelu_rational(v0), gelu_rational(v1));
+        }
+      }
+      // the stores are visible to wgmma (the async proxy), then every
+      // warpgroup's f-block is written
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync 1, %0;" ::"n"(C * 128) : "memory");
+
+      // O += H W2^T over the chunk's C f-blocks, this warpgroup's columns
+#pragma unroll
+      for (int b = 0; b < C; ++b) {
+        const uint64_t da = sw128_desc(Hs + ((chunk_no & 1) * C + b) * TILE);
+#pragma unroll
+        for (int w = 0; w < C; ++w) {
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb) {
+            if (w != c) {
+              skip();
+              continue;
+            }
+            mbar_wait(&full[stage], phase);
+            const uint64_t db = sw128_desc(Ws + stage * TILE);
+            wgmma_fence();
+#pragma unroll
+            for (int k = 0; k < 4; ++k) wgmma_ss(acc[nb], da + 2 * k, db + 2 * k, 1);
+            wgmma_commit();
+            retire();
+          }
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+    release();
+
+    // out = O + b2, bf16x2 stores, rows past M left out
+    const int d0 = (p * C + c) * DN + cq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + r + 8 * h;
+      if (row >= M) continue;
+      bf16* orow = out + (long long)row * D + d0;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb) {
+          const int n = 64 * nb + 8 * jb;
+          const float2 bv = __ldg(reinterpret_cast<const float2*>(b2 + d0 + n));
+          store2(orow + n, acc[nb][4 * jb + 2 * h] + bv.x, acc[nb][4 * jb + 2 * h + 1] + bv.y);
+        }
+    }
   }
 }
 
-// Workspace of the backward: h and dhpre in bf16, gelu'(hpre) and dhpre in
-// fp32, and the split-row partials of the widest sum.
-struct BwdBuffers {
-  bf16 *h, *dhpre_lp;
-  float *hgrad, *dhpre32, *partial, *col_partial;
+template <int C, int DN>
+cudaError_t launch_fwd(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                       const float* b2, bf16* out, int M, int D, int F, cudaStream_t st) {
+  // as many stages as fit (two CTAs an SM at one warpgroup and D <= 192)
+  const size_t budget = C == 1 && D <= 192 ? TWO_CTA_SMEM : MAX_SMEM;
+  int stages = MAX_STAGES;
+  while (stages > min_stages(C, DN) && fwd_smem(C, D, stages) > budget) --stages;
+  const size_t smem = fwd_smem(C, D, stages);
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  CUtensorMap tx, t1, t2;
+  if (!kmajor_map(&tx, x, M, D, RT) || !kmajor_map(&t1, w1, F, D, RT) ||
+      !kmajor_map(&t2, w2, D, F, RT))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(mlp_fwd_kernel<C, DN>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  mlp_fwd_kernel<C, DN><<<(M + RT - 1) / RT, C * 128 + 32, smem, st>>>(tx, t1, t2, b1, b2, out,
+                                                                      M, D, F, stages);
+  return cudaGetLastError();
+}
 
-  void carve(Carver& c, long long M, int D, int F) {
-    h = c.take<bf16>(M * F);
-    dhpre_lp = c.take<bf16>(M * F);
-    hgrad = c.take<float>(M * F);
-    dhpre32 = c.take<float>(M * F);
-    partial = c.take<float>((long long)chunks_of(M) * D * F);
-    col_partial = c.take<float>((long long)chunks_of(M) * F);
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
+// partial[chunk][d] = the sum over the chunk's CS_ROWS rows of a[row, d]: the
+// row kernels' column-sum pattern (fused_block_reverse.cuh), fixed order.
+__global__ void colsum_kernel(const bf16* a, int M, int D, float* partial) {
+  extern __shared__ float cs_acc[];
+  float* acc = cs_warp_slice(cs_acc, 1, D);
+  const int r0 = blockIdx.x * CS_ROWS, r1 = min(M, r0 + CS_ROWS);
+  for (int row = r0 + threadIdx.x / 32; row < r1; row += ROWS_PER_BLOCK)
+    for (int d = threadIdx.x % 32; d < D; d += 32) acc[d] += ld(a + (long long)row * D + d);
+  cs_write(cs_acc, 1, D, partial);
+}
+
+// Workspace of the backward: h and dhpre in bf16, gelu'(hpre) in fp32, the
+// weights transposed (K-major operands of the input gradients), the
+// row-range partials of the wider weight gradient, and the column sums'
+// partials (dhpre's per 128-row tile, dy's per CS_ROWS rows).
+struct MlpBwdBuffers {
+  bf16 *h, *dhpre, *w1_t, *w2_t;
+  float *hgrad, *partial, *col_partial;
+
+  void carve(Carver& c, int M, int D, int F) {
+    h = c.take<bf16>((long long)M * F);
+    dhpre = c.take<bf16>((long long)M * F);
+    hgrad = c.take<float>((long long)M * F);
+    w1_t = c.take<bf16>((long long)D * F);
+    w2_t = c.take<bf16>((long long)F * D);
+    const long long a = weight_grad_partial_len(M, F, D), b = weight_grad_partial_len(M, D, F);
+    partial = c.take<float>(a > b ? a : b);
+    const long long t = (long long)linear_row_tiles(M) * F, r = (long long)cs_chunks(M) * D;
+    col_partial = c.take<float>(t > r ? t : r);
   }
 };
 
 }  // namespace
 
-// Rows of x one forward block takes at width D (0: D is too wide).
-extern "C" int dk_fused_mlp_rows(int D) { return fwd_rows(D); }
-
+// The instantiations of the forward, (C, DN): warpgroups and output columns
+// of each. The wrapper picks one by width (ops/fused_mlp.py `forward_plan`).
 // x: [M, D] bf16; w1: [F, D], w2: [D, F] bf16 (nn.Linear layout); b1: [F],
-// b2: [D] fp32; out: [M, D] bf16. D and F are multiples of 16. Returns
-// cudaGetLastError() after the launch, or -1 for a shape it refuses.
-extern "C" int dk_fused_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                                const void* b2, void* out, int M, int D, int F,
+// b2: [D] fp32; out: [M, D] bf16; all 16-byte aligned. Returns
+// cudaGetLastError() after the launch, or -1, without a launch, for a plan
+// that is not instantiated or does not divide the shape.
+extern "C" int dk_fused_mlp_fwd(const void* x_, const void* w1_, const void* b1_, const void* w2_,
+                                const void* b2_, void* out_, int M, int D, int F, int C, int DN,
                                 void* stream) {
-  const int BM = fwd_rows(D);
-  if (M < 1 || D < 16 || D % 16 || F < 16 || F % 16 || BM == 0) return -1;
-  const size_t smem = fwd_smem(BM, D);
-  cudaError_t err = cudaFuncSetAttribute(mlp_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  mlp_fwd_kernel<<<(M + BM - 1) / BM, MLP_THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2, (const float*)b2,
-      (bf16*)out, M, D, F, BM);
-  return (int)cudaGetLastError();
+  if (M < 1 || D < 64 || F < 64 || D % (C * DN) || F % (64 * C) ||
+      ((uintptr_t)x_ | (uintptr_t)w1_ | (uintptr_t)w2_) % 16)
+    return -1;
+  const bf16 *x = (const bf16*)x_, *w1 = (const bf16*)w1_, *w2 = (const bf16*)w2_;
+  const float *b1 = (const float*)b1_, *b2 = (const float*)b2_;
+  bf16* out = (bf16*)out_;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e;
+  if (C == 1 && DN == 192) e = launch_fwd<1, 192>(x, w1, b1, w2, b2, out, M, D, F, st);
+  else if (C == 2 && DN == 128) e = launch_fwd<2, 128>(x, w1, b1, w2, b2, out, M, D, F, st);
+  else if (C == 2 && DN == 192) e = launch_fwd<2, 192>(x, w1, b1, w2, b2, out, M, D, F, st);
+  else return -1;
+  return e == cudaErrorInvalidValue ? -1 : (int)e;
 }
 
 extern "C" size_t dk_fused_mlp_bwd_workspace(int M, int D, int F) {
   Carver c{nullptr, 0};
-  BwdBuffers g;
+  MlpBwdBuffers g;
   g.carve(c, M, D, F);
   return c.off;
 }
 
 // x, dy: [M, D] bf16; w1: [F, D], w2: [D, F] bf16; b1: [F] fp32. Writes dx
-// [M, D] bf16 and dw1 [F, D], db1 [F], dw2 [D, F], db2 [D] in fp32.
+// [M, D] bf16 and dw1 [F, D], db1 [F], dw2 [D, F], db2 [D] in fp32. D and F
+// are multiples of 8. Returns the first launch error, or -1 for a shape it
+// refuses (nothing after it is launched).
 extern "C" int dk_fused_mlp_bwd(const void* x_, const void* w1_, const void* b1_,
                                 const void* w2_, const void* dy_, void* dx, void* dw1,
                                 void* db1, void* dw2, void* db2, void* work, int M, int D,
                                 int F, void* stream) {
-  if (M < 1 || D < 1 || F < 1 || !work) return -1;
+  if (M < 1 || D < 8 || F < 8 || D % 8 || F % 8 || !work) return -1;
   cudaStream_t st = (cudaStream_t)stream;
   const bf16 *x = (const bf16*)x_, *w1 = (const bf16*)w1_, *w2 = (const bf16*)w2_,
              *dy = (const bf16*)dy_;
   Carver c{(char*)work, 0};
-  BwdBuffers g;
+  MlpBwdBuffers g;
   g.carve(c, M, D, F);
+  cudaError_t err;
+
+  // the weights as the K-major operands of the input gradients
+  transpose(w1, F, D, g.w1_t, st);
+  transpose(w2, D, F, g.w2_t, st);
 
   // recompute h = gelu(hpre) and gelu'(hpre), hpre = x W1^T + b1
-  GemmArgs p = linear_args(x, w1, M, F, D);
-  p.bias = (const float*)b1_; p.act = ACT_GELU; p.act_grad = g.hgrad;
-  p.out_bf16 = g.h;
-  gemm(p, 1, st);
-  // dhpre = (dy W2) * gelu'(hpre)
-  p = grad_input_args(dy, w2, M, F, D);
-  p.mul = g.hgrad;
-  p.out_f32 = g.dhpre32; p.out_bf16 = g.dhpre_lp;
-  gemm(p, 1, st);
+  Linear l = linear_of(x, w1, M, F, D);
+  l.bias = (const float*)b1_; l.gelu = 1; l.act_grad = g.hgrad;
+  l.out_bf16 = g.h;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
+  // dhpre = (dy W2) * gelu'(hpre) in bf16; db1 from its 128-row column sums
+  l = linear_of(dy, g.w2_t, M, F, D);
+  l.mul = g.hgrad; l.col_part = g.col_partial;
+  l.out_bf16 = g.dhpre;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
+  cs_reduce(g.col_partial, linear_row_tiles(M), F, 0, (float*)db1, st);
   // dx = dhpre W1
-  p = grad_input_args(g.dhpre_lp, w1, M, D, F);
-  p.out_bf16 = (bf16*)dx;
-  gemm(p, 1, st);
-  weight_grad(g.dhpre_lp, x, M, F, D, g.partial, (float*)dw1, st);
-  weight_grad(dy, g.h, M, D, F, g.partial, (float*)dw2, st);
-  col_sum(g.dhpre32, nullptr, M, F, g.col_partial, (float*)db1, st);
-  col_sum(dy, nullptr, M, D, g.col_partial, (float*)db2, st);
+  l = linear_of(g.dhpre, g.w1_t, M, D, F);
+  l.out_bf16 = (bf16*)dx;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
+  // dW1 = dhpre^T x, dW2 = dy^T h
+  if ((err = weight_grad_sm90(g.dhpre, x, M, F, D, g.partial, (float*)dw1, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = weight_grad_sm90(dy, g.h, M, D, F, g.partial, (float*)dw2, st)) != cudaSuccess)
+    return (int)err;
+  // db2 = colsum(dy)
+  const int chunks = cs_chunks(M);
+  if ((err = cs_opt_in(colsum_kernel, cs_smem(1, D))) != cudaSuccess) return (int)err;
+  colsum_kernel<<<chunks, ROW_THREADS, cs_smem(1, D), st>>>(dy, M, D, g.col_partial);
+  reduce_chunks(g.col_partial, chunks, D, (float*)db2, st);
   return (int)cudaGetLastError();
 }

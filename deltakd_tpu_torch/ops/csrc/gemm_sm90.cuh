@@ -1,6 +1,8 @@
 // A pipelined TMA + wgmma GEMM for Hopper (sm_90a), in two forms, and the
 // Hopper primitives (mbarriers, TMA, wgmma and its shared-memory descriptors)
-// that attention_fwd.cuh and attention_bwd.cuh build on.
+// that attention_fwd.cuh, attention_bwd.cuh and the fused-MLP forward
+// (fused_mlp.cu) build on. The fused-MLP backward runs its five products on
+// the two forms below, as the block's reverse sweep does.
 //
 //   linear_kernel:       C[M, N] = A[M, K] W[N, K]^T, then a fused epilogue
 //                        (`Linear` below). The block forward's four products

@@ -323,20 +323,34 @@ def test_attention_kernels_match_plain_version_on_card(shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,D", [(1000, 192), (37, 64), (130, 384)])
+@pytest.mark.parametrize("M", [1000, 37, 130])
+@pytest.mark.parametrize("D", [192, 384, 768, 1024])
 def test_mlp_kernels_match_plain_version_on_card(M, D):
+    """Every width of the model zoo (one to four column passes of the
+    forward) at ragged M; two runs give the same bits; the forward allocates
+    its output and nothing of size M x F."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     g = torch.Generator().manual_seed(M)
     F = 4 * D
     x, dy = (torch.randn(M, D, generator=g).cuda().bfloat16() for _ in range(2))
-    w1 = (torch.randn(F, D, generator=g) / D ** 0.5).cuda()
-    w2 = (torch.randn(D, F, generator=g) / F ** 0.5).cuda()
+    w1 = (torch.randn(F, D, generator=g) / D ** 0.5).cuda().bfloat16()
+    w2 = (torch.randn(D, F, generator=g) / F ** 0.5).cuda().bfloat16()
     b1, b2 = ((0.1 * torch.randn(n, generator=g)).cuda() for n in (F, D))
-    _within(fm.kernel_fused_mlp(x, w1, b1, w2, b2), fm._plain_fwd(x, w1, b1, w2, b2))
-    for a, b in zip(fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy),
-                    fm._plain_bwd(x, w1, b1, w2, dy)):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fm.kernel_fused_mlp(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    # the output, and the biases rounded to bf16 and held in fp32
+    assert torch.cuda.max_memory_allocated() - before <= M * D * 2 + 4 * (F + D) + 2048
+    assert torch.cuda.max_memory_allocated() - before < M * F * 2
+    _within(out, fm._plain_fwd(x, w1, b1, w2, b2))
+    assert torch.equal(out, fm.kernel_fused_mlp(x, w1, b1, w2, b2))
+    grads = fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy)
+    for a, b in zip(grads, fm._plain_bwd(x, w1, b1, w2, dy)):
         _within(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(grads, fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy)))
     ops = [t.clone().requires_grad_(True) for t in (x.reshape(1, M, D), w1, b1, w2, b2)]
     fm.reset_launches()
     grads = torch.autograd.grad(fm.fused_mlp_train(*ops), ops, dy.reshape(1, M, D))

@@ -156,3 +156,51 @@ def test_dispatch_is_by_device_and_kernels_refuse_what_they_do_not_take():
         tfm.kernel_fused_mlp(x, w1, b1, w2, b2)
     with pytest.raises(ValueError, match="CUDA bf16"):
         tfm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy)
+
+
+def test_two_plain_linears_compose_to_the_plain_forward():
+    """The yardstick `[mlp two-gemm]` of the forward kernel: the block GEMM's
+    plain version with GELU, then without, on bf16 operands and bf16-rounded
+    biases, is the plain forward the kernel is held to, bit for bit."""
+    from deltakd_tpu_torch.ops.fused_block import plain_linear
+
+    x, w1, b1, w2, b2, _ = (torch.from_numpy(a) for a in _inputs((37,), 7))
+    x, w1, w2 = x.bfloat16(), w1.bfloat16(), w2.bfloat16()
+    b1, b2 = b1.bfloat16().float(), b2.bfloat16().float()
+    h = plain_linear(x, w1, b1, gelu=True)[1]
+    out = plain_linear(h, w2, b2)[1]
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, tfm._plain_fwd(x, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("D,plan", [(192, (1, 192)), (384, (2, 192)), (768, (2, 192)),
+                                    (1024, (2, 128))])
+def test_forward_plan_covers_every_model_width(D, plan):
+    """Every width of the model zoo, with F = 4D, has a plan of the forward
+    kernel, and the plan divides both widths."""
+    from deltakd_tpu_torch.models.registry import MODEL_REGISTRY
+
+    assert D in {cfg.embed_dim for cfg in MODEL_REGISTRY.values()}
+    assert tfm.forward_plan(D, 4 * D) == plan
+    C, DN = plan
+    assert D % (C * DN) == 0 and (4 * D) % (64 * C) == 0
+
+
+@pytest.mark.parametrize("D,F", [(64, 256), (80, 320), (192, 800), (1536, 6144),
+                                 (2048, 8192)])
+def test_forward_kernel_refuses_widths_without_a_plan(D, F):
+    """D not a multiple of 192 or 256, F not a multiple of the hidden chunk,
+    an x tile wider than shared memory: ValueError before anything is
+    launched or allocated, on any device, and no fall-back to the plain
+    version."""
+    assert tfm.forward_plan(D, F) is None
+    x = torch.zeros(3, D, dtype=torch.bfloat16)
+    w1, w2 = torch.empty(F, D, dtype=torch.bfloat16), torch.empty(D, F, dtype=torch.bfloat16)
+    b1, b2 = torch.zeros(F), torch.zeros(D)
+    tfm.reset_launches()
+    with pytest.raises(ValueError, match="takes no width"):
+        tfm.kernel_fused_mlp(x, w1, b1, w2, b2)
+    assert not tfm.LAUNCHES
+    # the dispatch still gives a CPU tensor the plain version, whatever its width
+    if D <= 192:
+        assert tfm.fused_mlp(x, w1.normal_(), b1, w2.normal_(), b2).shape == x.shape
