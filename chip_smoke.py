@@ -44,8 +44,9 @@ Phases, each of which fails the run:
      backward's workspace, which must be below the earlier design's; then
      times them at the main-path shapes beside their plain versions, their
      bounds and one PyTorch library call (scaled_dot_product_attention;
-     linear + gelu + linear), and the MLP forward beside the same MLP as two
-     products on the block's GEMM (`[mlp two-gemm]`);
+     linear + gelu + linear), the MLP forward beside the same MLP as two
+     products on the block's GEMM (`[mlp two-gemm]`), and the MLP forward
+     at every zoo width at M=50688 beside its library call;
   6. runs train steps at full width (DeiT-Small-distilled teacher, DeiT-Tiny-
      distilled student, 224 px, batch 256, random weights from a seed) for
      soft KD, WassKD-l1, MGD and ViTKD, each path with the launch counts set
@@ -1193,45 +1194,63 @@ def check_mlp_kernels(fm, worst):
 MLP_BWD_WORKSPACE_BEFORE = 525_837_312
 
 
-def print_mlp_backward_workspace(fb, fm):
-    """The MLP backward's workspace at the main path's [50688, 192] beside
-    MLP_BWD_WORKSPACE_BEFORE: fails unless it is below it and exactly the
-    chain's buffers (h and dhpre in bf16, gelu' in fp32, the two transposed
-    weights, the wider weight gradient's row-range partials, dhpre's
-    128-row-tile column sums), that is, unless no fp32 copy of dhpre is
-    carved."""
+def print_mlp_backward_workspace(fm):
+    """The MLP backward's workspace at the main path's [50688, 192], beside
+    MLP_BWD_WORKSPACE_BEFORE and per element of the [M, F] hidden (h and
+    dhpre in bf16 and gelu' in fp32 are 8 bytes of it; the earlier design's
+    fp32 copy of dhpre made it 12 and more). Fails unless it is below
+    MLP_BWD_WORKSPACE_BEFORE."""
     D, M = MLP_MAIN["student"], M_MAIN
     F = 4 * D
-
-    def r256(n):
-        return (n + 255) // 256 * 256
-
-    partial = max(fb._library("fused_block_bwd").dk_weight_grad_sm90_workspace(M, o, i)
-                  for o, i in ((F, D), (D, F)))
-    col_partial = max((M + 127) // 128 * F, (M + 127) // 128 * D) * 4
-    parts = {"h": M * F * 2, "dhpre": M * F * 2, "gelu'": M * F * 4, "W1^T": F * D * 2,
-             "W2^T": D * F * 2, "weight-gradient partials": partial,
-             "column-sum partials": col_partial}
-    now = fm.workspace_bytes(M, D, F)
-    reckoned = sum(r256(n) for n in parts.values())
-    before = MLP_BWD_WORKSPACE_BEFORE
+    now, before = fm.workspace_bytes(M, D, F), MLP_BWD_WORKSPACE_BEFORE
     print(f"[workspace] fused_mlp_bwd [{M},{D}]: {now} bytes, before {before}, {before - now} "
-          f"less; " + ", ".join(f"{k} {r256(n)}" for k, n in parts.items()))
-    if now != reckoned or now >= before:
-        raise AssertionError(f"fused_mlp_bwd: the workspace is {now} bytes, not the {reckoned} "
-                             f"of the chain's buffers, or not below {before}")
+          f"less; {now / (M * F):.4f} bytes an element of the [M, F] hidden (before "
+          f"{before / (M * F):.4f})")
+    if now >= before:
+        raise AssertionError(f"fused_mlp_bwd: the workspace is {now} bytes, not below {before}")
+
+
+def time_mlp_widths(fm):
+    """The forward kernel at every zoo width at M = 50688 on fp32 parameters,
+    as the model passes them (the wrapper casts them on every call), beside
+    the library call (F.linear + F.gelu + F.linear on bf16 copies) and the
+    bound of the MLP's own work (above D = 384 the kernel recomputes fc1 once
+    per column pass: 1.5x the MLP's operations at D = 768, 2.5x at 1024).
+    Uses nothing of ``fm`` but kernel_fused_mlp, so that an earlier commit's
+    package can be timed the same way (scripts/time_mlp_forward.py). Returns
+    {D: (ms, library_ms, bound_ms)}."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    for D in MLP_WIDTHS:
+        x, w1, b1, w2, b2, _ = _mlp_inputs(M_MAIN, D, 5)
+        lib = [t.bfloat16() for t in (x, w1, b1, w2, b2)]
+        ms = _timed(lambda: fm.kernel_fused_mlp(x, w1, b1, w2, b2), 10)
+        with torch.no_grad():
+            library_ms = _timed(
+                lambda: F.linear(F.gelu(F.linear(lib[0], lib[1], lib[2])), lib[3], lib[4]), 10)
+        bound = _bound(2 * 2 * M_MAIN * D * 4 * D, 2 * M_MAIN * D * 2 + 2 * D * 4 * D * 2 + 5 * D * 4)
+        rows[D] = (ms, library_ms, bound["bound_ms"])
+        print(f"[time] fused_mlp_fwd width M={M_MAIN} D={D}: {ms:.4f} ms (fp32 parameters), "
+              f"library {library_ms:.4f} ms, kernel/library {ms / library_ms:.4f}, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        del x, w1, b1, w2, b2, lib
+    return rows
 
 
 def time_mlp_kernels(fb, fm):
-    """Phase 5d: the fused-MLP kernels at the main path's shapes. Library:
-    F.linear + F.gelu + F.linear in bf16 and its autograd backward
-    (forward+backward minus forward). Bound: two (five) M x D x 4D products
-    over the bf16 rate, against x and out (x, dy, dx), the bf16 weights and,
-    for the backward, the fp32 weight gradients over the memory rate. Beside
-    the forward, `[mlp two-gemm]`: the same MLP as two products on the block's
-    GEMM (fb.kernel_linear with GELU, then without, the hidden through device
-    memory), held against the fused kernel within TOL and timed in turns with
-    it (fused, two-gemm, two-gemm, fused)."""
+    """Phase 5d: the fused-MLP kernels at the main path's shapes, on fp32
+    parameters as the model passes them (the wrappers cast them to bf16 on
+    every call). Library: F.linear + F.gelu + F.linear in bf16 and its
+    autograd backward (forward+backward minus forward). Bound: two (five)
+    M x D x 4D products over the bf16 rate, against x and out (x, dy, dx),
+    the bf16 weights and, for the backward, the fp32 weight gradients over
+    the memory rate. Beside the forward, `[mlp two-gemm]`: the same MLP as two
+    products on the block's GEMM (fb.kernel_linear with GELU, then without,
+    the hidden through device memory) on bf16 weights and bf16-rounded
+    biases, held against the fused kernel on the same operands within TOL
+    and timed in turns with it (fused, two-gemm, two-gemm, fused)."""
     import torch
     import torch.nn.functional as F
 
@@ -1248,6 +1267,9 @@ def time_mlp_kernels(fb, fm):
             return F.linear(F.gelu(F.linear(lib[0], lib[1], lib[2])), lib[3], lib[4])
 
         if kernel == "fused_mlp_fwd":
+            # the two-gemm chain takes bf16 weights and bf16-rounded biases;
+            # the fused kernel is timed on those too, beside its time on the
+            # fp32 parameters the model passes (`ms`, the row's time)
             w1b, w2b = w1.bfloat16(), w2.bfloat16()
             b1r, b2r = b1.bfloat16().float(), b2.bfloat16().float()
 
@@ -1263,11 +1285,14 @@ def time_mlp_kernels(fb, fm):
                 raise AssertionError(f"fused_mlp_fwd D={D}: the two-gemm chain and the fused "
                                      f"kernel differ by {abs_err:.3e} of {mx:.3e}")
             turns = [_timed(fn, 10) for fn in (fused, two_gemm, two_gemm, fused)]
-            ms, chain_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-            print(f"[mlp two-gemm] {who} M={M_MAIN} D={D}: fused {ms:.4f} ms (turns "
-                  f"{turns[0]:.4f}, {turns[3]:.4f}), two linear_sm90 products {chain_ms:.4f} ms "
-                  f"(turns {turns[1]:.4f}, {turns[2]:.4f}), fused/two-gemm {ms / chain_ms:.4f}; "
-                  f"max |fused - two-gemm| {abs_err:.3e} of {mx:.3e}")
+            lp_ms, chain_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            print(f"[mlp two-gemm] {who} M={M_MAIN} D={D}, bf16 operands: fused {lp_ms:.4f} ms "
+                  f"(turns {turns[0]:.4f}, {turns[3]:.4f}), two linear_sm90 products "
+                  f"{chain_ms:.4f} ms (turns {turns[1]:.4f}, {turns[2]:.4f}), fused/two-gemm "
+                  f"{lp_ms / chain_ms:.4f}; max |fused - two-gemm| {abs_err:.3e} of {mx:.3e}")
+            ms = _timed(lambda: fm.kernel_fused_mlp(x, w1, b1, w2, b2), 10)
+            extra = (f" (fp32 parameters, cast on every call; on bf16 operands "
+                     f"{lp_ms:.3f} ms)")
             plain_ms = _timed(lambda: fm._plain_fwd(x, w1, b1, w2, b2), 3)
             with torch.no_grad():
                 library_ms = _timed(lib_fwd, 20)
@@ -1849,8 +1874,9 @@ def main() -> int:
     check_attention_kernels(at, worst)
     timing.update(time_attention_kernels(at))
     check_mlp_kernels(fm, worst)
-    print_mlp_backward_workspace(fb, fm)
+    print_mlp_backward_workspace(fm)
     timing.update(time_mlp_kernels(fb, fm))
+    time_mlp_widths(fm)
     check_pair_kernels(fb, worst)
     check_pair_cotangent_fp32(fb)
     timing.update(time_pair_kernels(fb))

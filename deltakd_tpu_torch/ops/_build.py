@@ -51,9 +51,8 @@ SIGNATURES = {
         "dk_flash_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
         "dk_flash_bwd": ([_PTR] * 4 + [_I64] * 12 + [_PTR] * 6 + [_INT] * 3 + [_PTR], _INT),
     },
-    # the forward: tensors, M, D, F, then its plan (C, DN), stream
     "fused_mlp": {
-        "dk_fused_mlp_fwd": ([_PTR] * 6 + [_INT] * 5 + [_PTR], _INT),
+        "dk_fused_mlp_fwd": ([_PTR] * 6 + [_INT] * 3 + [_PTR], _INT),
         "dk_fused_mlp_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
         "dk_fused_mlp_bwd": ([_PTR] * 11 + [_INT] * 3 + [_PTR], _INT),
     },

@@ -33,13 +33,14 @@
 //    for one warpgroup, too many above D = 192, so the columns split across
 //    the C warpgroups and, above C * DN, into passes that recompute fc1
 //    (`mlp_fwd_kernel<C, DN>`: D = 192 one warpgroup of 192 columns, 384 two
-//    of 192, 768 two passes of those, 1024 four passes of two of 128). The
-//    plan comes from the wrapper (ops/fused_mlp.py `forward_plan`).
+//    of 192, 768 two passes of those, 1024 four passes of two of 128). Each
+//    pass recomputes fc1, so the operations are 1.5x the MLP's at D = 768
+//    and 2.5x at 1024. `dk_fused_mlp_fwd` picks the plan by width.
 //  * The GELU runs between a warpgroup's two products, with its own
 //    tensor-core work waiting (the other warpgroup, and at D = 192 a second
 //    CTA on the SM, fill that gap), so its cost shows: it uses the TPU
-//    kernel's rational erf on the special-function units, fewer
-//    instructions than erff.
+//    kernel's rational erf on the special-function units (gemm_sm90.cuh
+//    `gelu_rational`), fewer instructions than erff.
 //  * What is left: every product is a 64 x 64 x 16 wgmma with both operands
 //    read from shared memory, and every 64-row tile reads both weights again
 //    from L2 (2.36 MB a tile at D = 384).
@@ -56,7 +57,11 @@
 // order: no atomics, two runs give the same bits.
 //
 // GELU: the forward uses the TPU kernel's rational erf (Abramowitz and
-// Stegun 7.1.26, within 1.5e-7 of erf), the backward's recompute erff.
+// Stegun 7.1.26, within 1.5e-7 of erf; `gelu_rational`), the backward's
+// recompute of h the GEMM epilogue's erff (`gelu_erf`). So the h that the
+// backward's dW2 reads is not always the forward's bit for bit: the two
+// GELUs differ by far less than h's bf16 rounding, and each kernel is held
+// to the plain version within TOL.
 
 #include "fused_block_reverse.cuh"
 
@@ -72,37 +77,11 @@ constexpr int RT = 64;                // rows of a CTA; every tile is RT x RT bf
 constexpr int TILE = RT * RT;         // elements of a tile (8 KB)
 constexpr int MAX_STAGES = 12;
 constexpr int MAX_SMEM = 232448;      // 227 KB
+// The widest model (ViT-L): its x tile takes 128 KB of shared memory and
+// leaves room for every plan's ring. The wrapper states the same rule
+// (ops/fused_mlp.py `forward_takes`).
+constexpr int MAX_D = 1024;
 constexpr int TWO_CTA_SMEM = 110 * 1024;   // two CTAs an SM at one warpgroup
-
-// GELU of the forward: x Phi(x) with the rational erf of Abramowitz and
-// Stegun 7.1.26 (absolute error 1.5e-7), the TPU kernel's own `_erf`, on the
-// approximate reciprocal and exp2 of the special-function units (a few ulp
-// more).
-__device__ __forceinline__ float rcp_approx(float x) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
-// q = (1 - erf(|x| / sqrt 2)) / 2 = a poly(t) exp(-x^2 / 2) with t = 1 / (1 +
-// p |x| / sqrt 2) (the coefficients halved); gelu = x (1 - q) for x >= 0, x q
-// below.
-__device__ __forceinline__ float gelu_rational(float x) {
-  const float z = fabsf(x) * 0.70710678118654752f;
-  const float t = rcp_approx(fmaf(0.3275911f, z, 1.0f));
-  const float poly =
-      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 0.5307027145f, -0.7265760135f), 0.7107068705f),
-                       -0.142248368f),
-               0.127414796f);
-  const float q = poly * ex2_approx(x * x * -0.72134752044448170f);
-  return x * (x >= 0.f ? 1.0f - q : q);
-}
 
 // Ring stages below which a warpgroup could hold back the producer: between
 // two of its W2 tiles lie the other warpgroups' (C - 1) DN / 64.
@@ -351,16 +330,15 @@ struct MlpBwdBuffers {
 
 }  // namespace
 
-// The instantiations of the forward, (C, DN): warpgroups and output columns
-// of each. The wrapper picks one by width (ops/fused_mlp.py `forward_plan`).
 // x: [M, D] bf16; w1: [F, D], w2: [D, F] bf16 (nn.Linear layout); b1: [F],
-// b2: [D] fp32; out: [M, D] bf16; all 16-byte aligned. Returns
-// cudaGetLastError() after the launch, or -1, without a launch, for a plan
-// that is not instantiated or does not divide the shape.
+// b2: [D] fp32; out: [M, D] bf16; all 16-byte aligned. The plan (C, DN) of
+// `mlp_fwd_kernel` by width: the first of C DN = 384, 256, 192 that divides
+// D. Takes D up to MAX_D, a multiple of 192 or 256, and F a multiple of 128
+// (every plan's hidden chunk divides it). Returns cudaGetLastError() after
+// the launch, or -1, without a launch, for a width it does not take.
 extern "C" int dk_fused_mlp_fwd(const void* x_, const void* w1_, const void* b1_, const void* w2_,
-                                const void* b2_, void* out_, int M, int D, int F, int C, int DN,
-                                void* stream) {
-  if (M < 1 || D < 64 || F < 64 || D % (C * DN) || F % (64 * C) ||
+                                const void* b2_, void* out_, int M, int D, int F, void* stream) {
+  if (M < 1 || D < 192 || D > MAX_D || F < 128 || F % 128 ||
       ((uintptr_t)x_ | (uintptr_t)w1_ | (uintptr_t)w2_) % 16)
     return -1;
   const bf16 *x = (const bf16*)x_, *w1 = (const bf16*)w1_, *w2 = (const bf16*)w2_;
@@ -368,9 +346,9 @@ extern "C" int dk_fused_mlp_fwd(const void* x_, const void* w1_, const void* b1_
   bf16* out = (bf16*)out_;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e;
-  if (C == 1 && DN == 192) e = launch_fwd<1, 192>(x, w1, b1, w2, b2, out, M, D, F, st);
-  else if (C == 2 && DN == 128) e = launch_fwd<2, 128>(x, w1, b1, w2, b2, out, M, D, F, st);
-  else if (C == 2 && DN == 192) e = launch_fwd<2, 192>(x, w1, b1, w2, b2, out, M, D, F, st);
+  if (D % 384 == 0) e = launch_fwd<2, 192>(x, w1, b1, w2, b2, out, M, D, F, st);
+  else if (D % 256 == 0) e = launch_fwd<2, 128>(x, w1, b1, w2, b2, out, M, D, F, st);
+  else if (D % 192 == 0) e = launch_fwd<1, 192>(x, w1, b1, w2, b2, out, M, D, F, st);
   else return -1;
   return e == cudaErrorInvalidValue ? -1 : (int)e;
 }

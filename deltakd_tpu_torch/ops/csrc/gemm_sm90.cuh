@@ -77,6 +77,39 @@ __device__ __forceinline__ float gelu_erf_grad(float x) {
   return cdf + x * __expf(-0.5f * x * x) * 0.3989422804014327f;
 }
 
+// The second GELU, of the fused-MLP forward alone (fused_mlp.cu), where the
+// GELU runs between two products of one warpgroup and its instruction count
+// shows: x Phi(x) with the rational erf of Abramowitz and Stegun 7.1.26
+// (absolute error 1.5e-7), the TPU kernel's own `_erf`, on the approximate
+// reciprocal and exp2 of the special-function units (a few ulp more). The
+// epilogue above, and so the MLP backward's recompute of the hidden, uses
+// gelu_erf: the two differ by far less than h's bf16 rounding.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// q = (1 - erf(|x| / sqrt 2)) / 2 = a poly(t) exp(-x^2 / 2) with t = 1 / (1 +
+// p |x| / sqrt 2) (the coefficients halved); gelu = x (1 - q) for x >= 0, x q
+// below.
+__device__ __forceinline__ float gelu_rational(float x) {
+  const float z = fabsf(x) * 0.70710678118654752f;
+  const float t = rcp_approx(fmaf(0.3275911f, z, 1.0f));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 0.5307027145f, -0.7265760135f), 0.7107068705f),
+                       -0.142248368f),
+               0.127414796f);
+  const float q = poly * ex2_approx(x * x * -0.72134752044448170f);
+  return x * (x >= 0.f ? 1.0f - q : q);
+}
+
 // ---------------------------------------------------------------------------
 // Hopper primitives
 // ---------------------------------------------------------------------------

@@ -20,8 +20,8 @@ fp32 and cast to the parameters' dtypes.
 
 Dispatch is by the device of ``x``: a CPU tensor takes the plain version, a
 CUDA tensor the hand-written kernels in ``csrc/fused_mlp.cu`` (bf16, D and F
-multiples of 16; the forward also needs a :func:`forward_plan`, which every
-model width has), anything else raises.
+multiples of 16; the forward takes the widths of :func:`forward_takes`, every
+model width among them), anything else raises.
 """
 
 from __future__ import annotations
@@ -89,37 +89,16 @@ def _plain_bwd(x2, w1, b1, w2, dy2):
 
 
 # -----------------------------------------------------------------------------
-# The forward kernel's plan
+# The forward kernel's widths
 # -----------------------------------------------------------------------------
 
-# Shared memory of one CTA of the forward kernel and the 64 x 64 bf16 tile it
-# is counted in (csrc/fused_mlp.cu `fwd_smem`: the x tile, two H buffers of C
-# tiles, the ring, the alignment and the ring's barriers).
-_MAX_SMEM, _TILE_BYTES, _SMEM_EXTRA = 232448, 8192, 1024 + (2 * 12 + 1) * 8
-
-
-def forward_plan(D: int, F: int) -> Optional[Tuple[int, int]]:
-    """(C, DN) of the forward kernel ``mlp_fwd_kernel<C, DN>`` at width D and
-    hidden width F: C consumer warpgroups, each holding DN output columns of
-    64 rows in registers, fc1 recomputed for each of D / (C DN) column passes.
-    The instantiations, by the first C DN (384, 256, 192) that divides D:
-    D = 384 and 768 two warpgroups of 192 (one pass, two), 1024 two of 128
-    (four passes), 192 one of 192. None where the kernel cannot take the
-    widths: no C DN divides D, F is no multiple of the hidden chunk 64 C, or
-    the x tile does not fit shared memory."""
-    if D % 384 == 0:
-        C, DN = 2, 192
-    elif D % 256 == 0:
-        C, DN = 2, 128
-    elif D % 192 == 0:
-        C, DN = 1, 192
-    else:
-        return None
-    min_stages = (C - 1) * (DN // 64) + 2      # csrc/fused_mlp.cu `min_stages`
-    smem = _SMEM_EXTRA + (D // 64 + 2 * C + min_stages) * _TILE_BYTES
-    if F % (64 * C) or smem > _MAX_SMEM:
-        return None
-    return C, DN
+def forward_takes(D: int, F: int) -> bool:
+    """Whether the forward kernel takes width D and hidden width F: D a
+    multiple of 192 or 256 up to 1024 (the widest model; its x tile fills
+    most of shared memory), F a multiple of 128. Every width of the model zoo
+    with F = 4D is taken. The kernel's entry point (csrc/fused_mlp.cu
+    `dk_fused_mlp_fwd`) holds the same rule and picks the kernel's plan."""
+    return 0 < D <= 1024 and (D % 192 == 0 or D % 256 == 0) and F > 0 and F % 128 == 0
 
 
 # -----------------------------------------------------------------------------
@@ -158,21 +137,22 @@ def _operands(name, x2, w1, b1, w2, b2=None):
 
 def kernel_fused_mlp(x2, w1, b1, w2, b2) -> torch.Tensor:
     """The forward kernel alone on a CUDA bf16 [M, D] tensor. Raises
-    ValueError for widths without a :func:`forward_plan`, on a bf16 [M, D]
-    tensor of any device before its device is looked at."""
+    ValueError for widths it does not take (:func:`forward_takes`), on a
+    bf16 [M, D] tensor of any device before its device is looked at."""
     D, F = x2.shape[-1], w1.shape[0]
-    plan = forward_plan(D, F)
-    if plan is None and x2.dtype == torch.bfloat16 and x2.dim() == 2:
-        raise ValueError(f"fused_mlp: the forward kernel takes no width D={D}, F={F} "
-                         f"(D a multiple of 192 or 256, F of its hidden chunk, the x "
-                         f"tile in shared memory)")
+    if not forward_takes(D, F) and x2.dtype == torch.bfloat16 and x2.dim() == 2:
+        raise ValueError(f"fused_mlp: the forward kernel takes no width D={D}, F={F} (D "
+                         f"a multiple of 192 or 256 up to 1024, F of 128)")
     x2, w1, b1, w2, b2 = _operands("fused_mlp", x2, w1, b1, w2, b2)
     M = x2.shape[0]
     with torch.cuda.device(x2.device):
         out = torch.empty_like(x2)
         err = _library().dk_fused_mlp_fwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                                           w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                                          M, D, F, *plan, current_stream(x2))
+                                          M, D, F, current_stream(x2))
+    if err == -1:
+        raise ValueError(f"fused_mlp: the kernel refused D={D}, F={F} or an operand not "
+                         f"16-byte aligned; nothing was launched")
     if err:
         raise RuntimeError(f"fused_mlp: CUDA error {err} at launch")
     LAUNCHES[("fused_mlp_fwd", D)] += 1

@@ -243,11 +243,13 @@ def test_plain_linear_is_the_forward_chains_product(epilogue):
 
 
 def test_port_imports_no_jax():
-    """deltakd_tpu_torch and chip_smoke.py import neither jax nor deltakd_tpu."""
+    """deltakd_tpu_torch, chip_smoke.py and scripts/ import neither jax nor
+    deltakd_tpu."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = [os.path.join(root, "chip_smoke.py")]
-    for d, _, names in os.walk(os.path.join(root, "deltakd_tpu_torch")):
-        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    for top in ("deltakd_tpu_torch", "scripts"):
+        for d, _, names in os.walk(os.path.join(root, top)):
+            files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
     banned = ("jax", "jaxlib", "flax", "optax", "deltakd_tpu")
     for path in files:

@@ -322,29 +322,32 @@ def test_attention_kernels_match_plain_version_on_card(shape):
         at.kernel_flash_fwd(q[..., :32], k[..., :32], v[..., :32])
 
 
+def _mlp_operands(M, D):
+    """x and dy in bf16, fp32 weights and biases (the model's parameters, as
+    the model passes them), on the card."""
+    g = torch.Generator().manual_seed(M)
+    F = 4 * D
+    x, dy = (torch.randn(M, D, generator=g).cuda().bfloat16() for _ in range(2))
+    w1 = (torch.randn(F, D, generator=g) / D ** 0.5).cuda()
+    w2 = (torch.randn(D, F, generator=g) / F ** 0.5).cuda()
+    b1, b2 = ((0.1 * torch.randn(n, generator=g)).cuda() for n in (F, D))
+    return x, w1, b1, w2, b2, dy
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [1000, 37, 130])
 @pytest.mark.parametrize("D", [192, 384, 768, 1024])
 def test_mlp_kernels_match_plain_version_on_card(M, D):
     """Every width of the model zoo (one to four column passes of the
-    forward) at ragged M; two runs give the same bits; the forward allocates
-    its output and nothing of size M x F."""
+    forward) at ragged M, on fp32 parameters as the model passes them; two
+    runs give the same bits. On bf16 weights and bf16-rounded biases (nothing
+    for the wrapper to cast) the forward allocates its output and nothing of
+    size M x F, and gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    g = torch.Generator().manual_seed(M)
+    x, w1, b1, w2, b2, dy = _mlp_operands(M, D)
     F = 4 * D
-    x, dy = (torch.randn(M, D, generator=g).cuda().bfloat16() for _ in range(2))
-    w1 = (torch.randn(F, D, generator=g) / D ** 0.5).cuda().bfloat16()
-    w2 = (torch.randn(D, F, generator=g) / F ** 0.5).cuda().bfloat16()
-    b1, b2 = ((0.1 * torch.randn(n, generator=g)).cuda() for n in (F, D))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
     out = fm.kernel_fused_mlp(x, w1, b1, w2, b2)
-    torch.cuda.synchronize()
-    # the output, and the biases rounded to bf16 and held in fp32
-    assert torch.cuda.max_memory_allocated() - before <= M * D * 2 + 4 * (F + D) + 2048
-    assert torch.cuda.max_memory_allocated() - before < M * F * 2
     _within(out, fm._plain_fwd(x, w1, b1, w2, b2))
     assert torch.equal(out, fm.kernel_fused_mlp(x, w1, b1, w2, b2))
     grads = fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy)
@@ -360,6 +363,36 @@ def test_mlp_kernels_match_plain_version_on_card(M, D):
         fm.fused_mlp(*ops)
     with pytest.raises(ValueError):
         fm.kernel_fused_mlp(x.float(), w1, b1, w2, b2)
+
+    lp = [w1.bfloat16(), b1.bfloat16().float(), w2.bfloat16(), b2.bfloat16().float()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out_lp = fm.kernel_fused_mlp(x, *lp)
+    torch.cuda.synchronize()
+    # the output, and the biases rounded to bf16 and held in fp32
+    assert torch.cuda.max_memory_allocated() - before <= M * D * 2 + 4 * (F + D) + 2048
+    assert torch.cuda.max_memory_allocated() - before < M * F * 2
+    assert torch.equal(out_lp, out)
+
+
+@pytest.mark.cuda
+def test_mlp_backward_at_a_width_the_forward_refuses_on_card():
+    """D = 64 (no model's width): the backward kernel takes it and holds
+    against its plain version, two runs the same bits; the forward refuses it
+    with ValueError and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    M, D = 37, 64
+    x, w1, b1, w2, b2, dy = _mlp_operands(M, D)
+    grads = fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy)
+    for a, b in zip(grads, fm._plain_bwd(x, w1, b1, w2, dy)):
+        _within(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(grads, fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy)))
+    fm.reset_launches()
+    with pytest.raises(ValueError, match="takes no width"):
+        fm.kernel_fused_mlp(x, w1, b1, w2, b2)
+    assert not fm.LAUNCHES
 
 
 def _fp32_soft_step(device):
