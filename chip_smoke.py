@@ -6,6 +6,8 @@
     python3 chip_smoke.py --forward-checks   # only the forward's checks (phase 3a, 3b, 5a)
     python3 chip_smoke.py --backward-checks  # only the backward's checks (phase 3c, 3d)
     python3 chip_smoke.py --mlp-checks       # only the fused-MLP kernels' checks (phase 5c)
+    python3 chip_smoke.py --attention-checks # only flash_fwd's and flash_bwd's checks (phase 5a)
+    python3 chip_smoke.py --sort-checks      # only the sort kernels' checks (phase 4a)
 
 Phases, each of which fails the run:
   1. prints the card's name and power limit (nvidia-smi);
@@ -29,15 +31,19 @@ Phases, each of which fails the run:
   4. holds the sort kernels (value sort, sorted_l1 forward and backward)
      against their plain versions on inputs with ties, in bf16 and fp32, at
      B=8 (n=196, a power-of-two n, a d that is no multiple of the column
-     tile) and at the main-path shape [256, 196, 384]: sorted values, signs
-     and gradients exactly, the loss to 1e-5, t's gradient zero, two runs the
-     same bits; then times them at the main-path shape in bf16;
+     tile, n = 2 and 33 with d = 40), at [2, 1024, 20] and at the main-path
+     shape [256, 196, 384], each input with -0.0 at one row tied to +0.0 at
+     an earlier one: sorted values, signs and gradients exactly, the loss to
+     1e-5, t's gradient zero, two runs the same bits; then times them at the
+     main-path shape in bf16;
   5. holds the attention kernels (forward: o and lse; backward: dq, dk, dv) and
      the fused-MLP kernels (forward; backward: dx, dW1, db1, dW2, db2) against
      their plain versions on O(1) inputs (q, k of std 1.5, weights of std
      1/sqrt(fan-in)): attention at [24,198,64], at N=50 (no multiple of 16),
-     at N=578 ([4,578,64] and [48,578,64]; three key ranges in the
-     backward) and at the main-path shapes
+     N=65 (a 64-row tile and one row), N=578 ([4,578,64] and [48,578,64]),
+     N=656 (the longest it takes; the backward's shared memory at its
+     largest), through the autograd Function on strided views of a packed
+     qkv projection, and at the main-path shapes
      [1536,198,64] and [768,198,64]; the MLP at every zoo width D = 192,
      384, 768, 1024 with M=1584 and M=1001 (no row tile divides them) and at
      M=50688 for D = 192, 384; two runs give the same bits; prints the MLP
@@ -57,7 +63,9 @@ Phases, each of which fails the run:
      the teacher through flash_attention and fused_mlp, the student through
      flash_attention): 8 soft-KD steps with exactly 24 attention-forward, 12
      attention-backward, 12 MLP-forward and no fused-block launches a step,
-     one eval batch on the student's eval view with fused_mlp (12 + 12),
+     the device time of one unfused soft step by kernel and by the step's
+     parts (`[profile]`), one eval batch on the student's eval view with
+     fused_mlp (12 + 12),
      fused_mlp_train forward and backward through its public function (no
      model calls it), and a model without a qkv bias;
   7. checks on 4 images that the card agrees with the plain path on the CPU:
@@ -204,6 +212,103 @@ def profile_calls(label, fn, calls=5):
         print(f"[profile] {label}: {ms:.4f} ms ({100 * ms / total:.1f}%) in {n:g} launches of "
               f"{key[:90]}")
     print(f"[profile] {label}: {total:.4f} ms of kernels a call")
+
+
+# The parts of an unfused train step (profile_parts): the first whose test
+# takes a kernel gets its time. A test sees the kernel's name and the chain of
+# PyTorch ops that launched it, innermost first, as (name, input shapes).
+_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul", "aten::linear",
+            "MmBackward0", "AddmmBackward0", "BmmBackward0", "LinearBackward0")
+
+
+def _names(chain):
+    return [name for name, _ in chain]
+
+
+def _has_dim(chain, n):
+    return any(n in shape for _, shapes in chain for shape in shapes if isinstance(shape, list))
+
+
+def _token_products(chain):
+    return any(n in _MATMULS for n in _names(chain)) and _has_dim(chain, M_MAIN)
+
+
+UNFUSED_PARTS = (
+    ("the port's kernels (flash_fwd, flash_bwd, fused_mlp_fwd)",
+     lambda kernel, chain: any(k in kernel for k in ("attention_fwd_kernel",
+                                                     "attention_bwd_kernel",
+                                                     "mlp_fwd_kernel"))),
+    # flash_bwd's dq, dk, dv reach the packed qkv through select's backward
+    # (a zero [B, N, 3, H, 64] tensor and a copy into it, each) and two adds
+    ("the copies that assemble the qkv gradient",
+     lambda kernel, chain: any("select_backward" in n or n == "SelectBackward0"
+                               for n in _names(chain))
+     or any(n.startswith("aten::add") and shapes and isinstance(shapes[0], list)
+            and len(shapes[0]) == 5 and shapes[0][2] == 3 for n, shapes in chain)),
+    ("the LayerNorms", lambda kernel, chain: any("layer_norm" in n for n in _names(chain))),
+    # the student's fc1, fc2 (hidden 4 x 192 = 768 columns) and GELU
+    ("the student's MLP (fc1, GELU, fc2)",
+     lambda kernel, chain: any("gelu" in n.lower() for n in _names(chain))
+     or (_token_products(chain) and _has_dim(chain, 4 * 192))),
+    ("the qkv and proj products", lambda kernel, chain: _token_products(chain)),
+    # x + y, y * s (drop path) on [B, N, D] tokens, and the gradient sums
+    # where the residual stream branches
+    ("the residual adds and drop-path scales",
+     lambda kernel, chain: any(n.split("::")[-1] in ("add", "add_", "mul", "mul_")
+                               and shapes and isinstance(shapes[0], list)
+                               and shapes[0][:2] == [B_MAIN, N_TOK] for n, shapes in chain)),
+    ("the casts (.to, .float)",
+     lambda kernel, chain: any(n in ("aten::to", "aten::_to_copy", "ToCopyBackward0")
+                               for n in _names(chain))),
+)
+
+
+def profile_parts(label, fn, parts):
+    """Device time of one call of ``fn`` (a train step) by part: torch.profiler
+    with the CPU ops and their input shapes, each kernel given to the first
+    part whose test takes it, what no test takes printed as the rest (kernels
+    launched under no PyTorch op included). Prints only; gates nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        total = sum(e.time_range.end - e.time_range.start for e in events
+                    if e.device_type == DeviceType.CUDA)
+        sums = {name: 0.0 for name, _ in parts}
+        for e in events:
+            if e.device_type != DeviceType.CPU or not e.kernels:
+                continue
+            chain, node = [], e
+            while node is not None:
+                chain.append((node.name, node.input_shapes or []))
+                node = node.cpu_parent
+            for k in e.kernels:
+                part = next((name for name, test in parts if test(k.name, chain)), None)
+                if part is not None:
+                    sums[part] += k.duration
+        if total <= 0:
+            print(f"[profile] {label}: torch.profiler saw no device time (not measured)")
+            return
+        # the first part is taken by kernel name alone: the port's kernels are
+        # launched through ctypes, under an autograd node or under no op at all
+        sums[parts[0][0]] = sum(e.time_range.end - e.time_range.start for e in events
+                                if e.device_type == DeviceType.CUDA and parts[0][1](e.name, []))
+        rest = total - sum(sums.values())
+        for name, us in list(sums.items()) + [("the rest", rest)]:
+            print(f"[profile] {label} by part: {us / 1e3:.4f} ms ({100 * us / total:.1f}%) "
+                  f"{name}")
+        print(f"[profile] {label} by part: {total / 1e3:.4f} ms of device time a step")
+    except Exception as exc:   # a measurement only: report it with its traceback and go on
+        import traceback
+
+        traceback.print_exc()
+        print(f"[profile] {label} by part: not measured ({type(exc).__name__}: {exc})")
 
 
 def profile_backward(fb, x, p, g_out, kw):
@@ -895,7 +1000,9 @@ def _sort_inputs(shape, dtype, seed):
     """s, t on the card with ties: a normal draw rounded to bf16 (many equal
     values in a column of 196), a few exact duplicate rows inside s, and a few
     positions where s equals t; in fp32 a quarter of the rows of s is left
-    unrounded."""
+    unrounded. From n = 4 on, row 2 of s is +0.0 and row 3 is -0.0: equal
+    as floats, so the stable order keeps row 2 first, while their bit
+    images order -0.0 first."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -906,6 +1013,8 @@ def _sort_inputs(shape, dtype, seed):
         s[:, n // 4: n // 2] = torch.randn(s[:, n // 4: n // 2].shape, generator=g)
     s[:, 1] = s[:, 0]
     s[:, n - 1] = s[:, n // 2]
+    if n >= 4:
+        s[:, 2], s[:, 3] = 0.0, -0.0
     t[:, : max(1, n // 8)] = s[:, : max(1, n // 8)]
     return s.cuda(), t.cuda()
 
@@ -964,13 +1073,15 @@ def _hold_sort(so, worst, shape, dtype):
 
 
 def check_sort_kernels(so, worst):
-    """Phase 4a: the sort kernels vs their plain versions, small shapes and
-    the main-path shape, bf16 and fp32."""
+    """Phase 4a: the sort kernels vs their plain versions, small shapes (the
+    forward's network with one key a lane at n = 2, two at n = 33 and 32 at
+    n = 1024, its 16-byte loads at d = 384, one-element loads at d = 100, 40
+    and 20) and the main-path shape, bf16 and fp32."""
     import torch
 
     for dtype in (torch.bfloat16, torch.float32):
         for shape in ((B_CHECK, 196, 384), (B_CHECK, 256, 384), (B_CHECK, 196, 100),
-                      SORT_MAIN):
+                      (B_CHECK, 2, 40), (B_CHECK, 33, 40), (2, 1024, 20), SORT_MAIN):
             _hold_sort(so, worst, shape, dtype)
 
 
@@ -1084,14 +1195,48 @@ def _hold_attention(at, worst, shape, main=False):
               all(torch.equal(a, b) for a, b in zip(grads, grads2)))
 
 
+def _hold_attention_views(at, worst, B, H, N):
+    """flash_attention's gradient through its autograd Function on strided
+    [B, H, N, 64] views of a packed [B, N, 3, H, 64] qkv projection (the
+    model's layout, read in place) against autograd through the plain
+    reference_attention on the same views: one launch of each kernel, two
+    runs the same bits."""
+    import torch
+
+    g = torch.Generator().manual_seed(N + H)
+    qkv = (1.5 * torch.randn(B, N, 3, H, HEAD_DIM, generator=g)).cuda().bfloat16()
+    do = torch.randn(B, H, N, HEAD_DIM, generator=g).cuda().bfloat16()
+
+    def grad(fn):
+        leaf = qkv.clone().requires_grad_(True)
+        views = [leaf[:, :, i].transpose(1, 2) for i in range(3)]
+        return torch.autograd.grad(fn(*views), [leaf], do)[0]
+
+    at.reset_launches()
+    g1 = grad(at.flash_attention)
+    launches = dict(at.LAUNCHES)
+    g2 = grad(at.flash_attention)
+    ref = grad(at.reference_attention)
+    torch.cuda.synchronize()
+    if launches != {("flash_fwd", B * H): 1, ("flash_bwd", B * H): 1}:
+        raise AssertionError(f"attention on views [{B},{N},3,{H},64]: launches {launches}")
+    _hold_all(worst, "flash_bwd", f"views [{B},{N},3,{H},{HEAD_DIM}]", [("dqkv", g1, ref, None)],
+              torch.equal(g1, g2))
+
+
 def check_attention_kernels(at, worst):
     """Phase 5a: the attention kernels vs their plain versions: 8 images of
-    the student (3 heads), an N that is no multiple of 16, an N above 256
-    (three key ranges and the dq reduction in the backward) for 4 and for 48
-    (batch, head) pairs, and the main path's two shapes."""
-    for shape in ((B_CHECK * 3, N_TOK, HEAD_DIM), (4, 50, HEAD_DIM), (4, 578, HEAD_DIM),
-                  (B_CHECK * 6, 578, HEAD_DIM)):
+    the student (3 heads), an N that is no multiple of 16, a 64-row tile and
+    one row, N = 578 for 4 and for 48 (batch, head) pairs, N = 656 (the
+    longest they take: the backward keeps dQ and delta of 11 row tiles in
+    227,072 bytes of shared memory), the gradient through the autograd
+    Function on strided views of a packed qkv projection, and the main
+    path's two shapes."""
+    for shape in ((B_CHECK * 3, N_TOK, HEAD_DIM), (4, 50, HEAD_DIM), (4, 65, HEAD_DIM),
+                  (4, 578, HEAD_DIM), (B_CHECK * 6, 578, HEAD_DIM), (4, 656, HEAD_DIM)):
         _hold_attention(at, worst, shape)
+    _hold_attention_views(at, worst, 2, 3, N_TOK)
+    _hold_attention_views(at, worst, 1, 2, 656)
     for bh in ATTN_MAIN.values():
         _hold_attention(at, worst, (bh, N_TOK, HEAD_DIM), main=True)
 
@@ -1217,7 +1362,7 @@ def time_mlp_widths(fm):
     bound of the MLP's own work (above D = 384 the kernel recomputes fc1 once
     per column pass: 1.5x the MLP's operations at D = 768, 2.5x at 1024).
     Uses nothing of ``fm`` but kernel_fused_mlp, so that an earlier commit's
-    package can be timed the same way (scripts/time_mlp_forward.py). Returns
+    package can be timed the same way (scripts/time_kernels.py). Returns
     {D: (ms, library_ms, bound_ms)}."""
     import torch
     import torch.nn.functional as F
@@ -1424,6 +1569,9 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False):
         metrics.append({k: float(v) for k, v in m.items()})
     launches = _read_launches(mods)
     print(f"[{name}] launches over {steps} steps: {launches}")
+    if unfused:   # after the counts are read: where the step's device time goes
+        profile_calls(f"{name} step", lambda: step(state, images, labels, gen), calls=2)
+        profile_parts(f"{name} step", lambda: step(state, images, labels, gen), UNFUSED_PARTS)
     expect = (_unfused_launches if unfused else _paired_launches if paired
               else _block_launches)(steps)
     if kd_type == "wasskd":
@@ -1724,7 +1872,8 @@ def check_features_against_cpu(teacher, student, aux, aug, kd, images):
 
 # Planted faults (``--faults``): each is an edit of one kernel source in a
 # copy of the package; the copy's checks of that kernel (``--forward-checks``,
-# ``--backward-checks`` or ``--mlp-checks``) must then fail (exit 1).
+# ``--backward-checks``, ``--mlp-checks``, ``--attention-checks`` or
+# ``--sort-checks``) must then fail (exit 1).
 FAULTS = (
     ("the online rescale left out", "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
      (("l[r] *= alpha[r];", "l[r] *= 1.0f;"),
@@ -1768,14 +1917,29 @@ FAULTS = (
      "deltakd_tpu_torch/ops/csrc/fused_mlp.cu",
      (("reduce_chunks(g.col_partial, chunks, D, (float*)db2, st);",
        "reduce_chunks(g.col_partial, chunks - 1, D, (float*)db2, st);"),), "--mlp-checks"),
+    # flash_bwd hands the unscaled q to the block's attention backward
+    ("flash's score scale left out of the exponent", "deltakd_tpu_torch/ops/csrc/attention_bwd.cuh",
+     (("const float s_log2e = p.scale * LOG2E;", "const float s_log2e = LOG2E;"),),
+     "--attention-checks"),
+    ("flash's score scale left out of dK", "deltakd_tpu_torch/ops/csrc/attention_bwd.cuh",
+     (("for (int i = 0; i < 32; ++i) dk[i] *= p.scale;",
+       "for (int i = 0; i < 32; ++i) dk[i] *= 1.0f;"),), "--attention-checks"),
+    ("the row index left out of the packed s key", "deltakd_tpu_torch/ops/csrc/sort.cu",
+     (("return (image << 16) | (uint32_t)row;", "return image << 16;"),), "--sort-checks"),
+    # the exchange with lane ^ 8 keeps each key where it is (s keys; t keys
+    # of fp32, the bf16 t pairs have a network of their own)
+    ("one shuffle stage of the key network skipped", "deltakd_tpu_torch/ops/csrc/sort.cu",
+     (("const K o = __shfl_xor_sync(0xffffffffu, v[r], J / R);",
+       "const K o = J == 8 * R ? v[r] : __shfl_xor_sync(0xffffffffu, v[r], J / R);"),),
+     "--sort-checks"),
 )
 
 
 def run_faults() -> int:
     """For each planted fault: a copy of the package and this script under
     .scratch/faults/ (ignored by git), the edit, then ``chip_smoke.py`` with
-    the fault's checks (``--forward-checks``, ``--backward-checks`` or
-    ``--mlp-checks``) in the copy, which must exit 1. Returns 0 when every fault failed its run."""
+    the fault's check mode in the copy, which must exit 1. Returns 0 when
+    every fault failed its run."""
     import shutil
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1821,6 +1985,8 @@ def main() -> int:
     forward_checks = "--forward-checks" in sys.argv[1:]
     backward_checks = "--backward-checks" in sys.argv[1:]
     mlp_checks = "--mlp-checks" in sys.argv[1:]
+    attention_checks = "--attention-checks" in sys.argv[1:]
+    sort_checks = "--sort-checks" in sys.argv[1:]
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deltakd_tpu_torch.ops import _build
@@ -1841,7 +2007,9 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build(["fused_block_fwd", "attention"] if forward_checks else
                         ["fused_block_fwd", "fused_block_bwd", "fused_block_pair"]
-                        if backward_checks else ["fused_mlp"] if mlp_checks else _build.SOURCES)
+                        if backward_checks else ["fused_mlp"] if mlp_checks else
+                        ["attention"] if attention_checks else ["sort"] if sort_checks
+                        else _build.SOURCES)
     print(f"[build] sources {list(_build.SOURCES)}, compiled {sorted(logs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -1860,6 +2028,12 @@ def main() -> int:
         return 0
     if mlp_checks:       # a planted-fault copy: the checks of the MLP kernels only
         check_mlp_kernels(fm, worst)
+        return 0
+    if attention_checks:  # a planted-fault copy: flash_fwd's and flash_bwd's checks only
+        check_attention_kernels(at, worst)
+        return 0
+    if sort_checks:      # a planted-fault copy: the sort kernels' checks only
+        check_sort_kernels(so, worst)
         return 0
     check_kernels(fb, worst)
     check_block_forward_shapes(fb, worst)

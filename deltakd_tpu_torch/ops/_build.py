@@ -48,8 +48,7 @@ SIGNATURES = {
     "attention": {
         "dk_flash_max_n": ([], _INT),
         "dk_flash_fwd": ([_PTR] * 3 + [_I64] * 9 + [_PTR] * 2 + [_INT] * 3 + [_PTR], _INT),
-        "dk_flash_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
-        "dk_flash_bwd": ([_PTR] * 4 + [_I64] * 12 + [_PTR] * 6 + [_INT] * 3 + [_PTR], _INT),
+        "dk_flash_bwd": ([_PTR] * 4 + [_I64] * 12 + [_PTR] * 5 + [_INT] * 3 + [_PTR], _INT),
     },
     "fused_mlp": {
         "dk_fused_mlp_fwd": ([_PTR] * 6 + [_INT] * 3 + [_PTR], _INT),

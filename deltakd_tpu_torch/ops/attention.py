@@ -94,8 +94,8 @@ def _library():
 
 
 def max_sequence() -> int:
-    """The longest N the forward kernel takes (K, V and one warp's score rows
-    must fit one thread block's shared memory). Needs the built library."""
+    """The longest N the kernels take (656; the backward keeps dQ of all N
+    rows in shared memory and takes up to 704). Needs the built library."""
     return _library().dk_flash_max_n()
 
 
@@ -149,24 +149,26 @@ def kernel_flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def kernel_flash_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel alone on CUDA tensors: (dq, dk, dv), contiguous in
-    the shape of q. ``o`` and ``lse`` are the forward kernel's outputs."""
+    the shape of q. ``o`` and ``lse`` are the forward kernel's outputs; one
+    launch, which also forms delta = rowsum(dO * o)."""
     (B, H, N), (q4, k4, v4, o4, do4) = _operands("flash_bwd", q, k, v, o, do)
     if lse.dtype != torch.float32 or lse.numel() != B * H * N or lse.device != q.device:
         raise ValueError(f"flash_bwd: lse must be fp32 with one value a row on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
     lib = _library()
+    if N > max_sequence():
+        raise ValueError(f"flash_bwd: N = {N} exceeds the kernel's limit of "
+                         f"{max_sequence()} keys")
     q4, k4, v4, do4 = _strided(q4), _strided(k4), _strided(v4), _strided(do4)
     o4, lse = o4.contiguous(), lse.contiguous()
     with torch.cuda.device(q.device):
         dq, dk, dv = (torch.empty((B, H, N, _HEAD_DIM), dtype=q.dtype, device=q.device)
                       for _ in range(3))
-        nbytes = lib.dk_flash_bwd_workspace(B, H, N)
-        work = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
         err = lib.dk_flash_bwd(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), do4.data_ptr(),
             *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3], *do4.stride()[:3],
             o4.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if work is None else work.data_ptr(), B, H, N, current_stream(q))
+            B, H, N, current_stream(q))
     if err:
         raise RuntimeError(f"flash_bwd: CUDA error {err} at launch")
     LAUNCHES[("flash_bwd", B * H)] += 1

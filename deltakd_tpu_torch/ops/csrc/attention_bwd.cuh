@@ -1,17 +1,32 @@
 // Attention backward whose scores never leave the chip, on Hopper (sm_90a):
 // the attention stage of the fused block's reverse sweep (`reverse_chain`,
-// fused_block_reverse.cuh). Per (batch, head), from q (pre-scaled), k, v, the
-// output cotangent dO, the forward's row statistic lse and
-// delta = rowsum(dO * O):
+// fused_block_reverse.cuh) and the whole of `flash_bwd` (attention.cu). Per
+// (batch, head), from q, k, v, the output cotangent dO, the forward's row
+// statistic lse and delta = rowsum(dO * O):
 //
-//   S = q k^T,  P = exp(S - lse),  dV = P^T dO,  dP = dO v^T,
-//   dS = P * (dP - delta),  dQ = dS k * dq_scale,  dK = dS^T q
+//   S = q k^T,  P = exp(S scale - lse),  dV = P^T dO,  dP = dO v^T,
+//   dS = P * (dP - delta),  dQ = dS k * dq_scale,  dK = dS^T q * scale
 //
-// This is the math of deltakd_tpu/ops/fused_block.py `_attention_bwd_one`,
+// This is the math of deltakd_tpu/ops/fused_block.py `_attention_bwd_one`
+// (the block) and of deltakd_tpu/ops/attention.py `_bwd_kernel` (flash),
 // which folds the softmax normalisation into row scalings of the unnormalised
 // e and its row sums; with P normalised through lse the same gradient needs
 // only one row statistic, and delta = rowsum(dO * O) stands for its
 // c = rowsum(dP * e) / rowsum(e).
+//
+// The score scale. The block hands over a q already scaled (its forward
+// runs with scale 1) and passes scale = 1 and dq_scale = head_dim^-1/2;
+// flash_bwd hands over the unscaled q of its caller, so it passes
+// scale = dq_scale = 64^-1/2. 64^-1/2 = 2^-3, so applying it to S in the
+// exponent and to dQ and dK in fp32 is exact (a power of two), and dS in
+// bf16 is the same whether the scale is applied before or after its rounding.
+//
+// delta. The block passes delta (its chain has dO and O in token-major
+// buffers and computes it in a row pass); flash_bwd passes `o` instead, and
+// each CTA computes delta of its head's N rows in its prologue (8 threads a
+// row, 16 bytes each, a fixed-order sum) into shared memory. That reads dO
+// and O of the head once more (2 x N x 64 bf16; 2 x 19.5 MB at [768, 198, 64])
+// and saves a launch and a round trip of delta through device memory.
 //
 // One CTA (one warpgroup, 128 threads) per (batch, head). It walks the key
 // tiles of 64 keys; for each it keeps dK and dV of those keys in registers
@@ -39,8 +54,8 @@
 // principle; in practice each CTA's serial chain (two products, the
 // exponentials, two more, a barrier, the fifth) and the padding of 198 rows
 // to 256. The scores never reach device memory; shared memory holds the five
-// 8 KB tiles and dQ (16 KB per 64 query rows: 64 KB at N = 198, two CTAs an
-// SM; N up to 704).
+// 8 KB tiles, delta of all rows and dQ (16 KB per 64 query rows: 64 KB at
+// N = 198, two CTAs an SM; N up to 704, 227,072 bytes at 11 tiles).
 
 #pragma once
 
@@ -51,8 +66,10 @@
 namespace dk {
 
 // q, k, v, dout: [B, H, N, hd] bf16 through (batch, head, row) element
-// strides, the head dim contiguous, rows 16-byte aligned. lse and delta:
-// [B * H, N] fp32. The bf16 gradients go through (batch, head, row) strides
+// strides, the head dim contiguous, rows 16-byte aligned. lse: [B * H, N]
+// fp32. delta: [B * H, N] fp32, or null, and then `o` (the forward's output,
+// strided like dout) gives it. S is multiplied by `scale` in the exponent and
+// dk by `scale`. The bf16 gradients go through (batch, head, row) strides
 // g_sb, g_sh, g_sn; dq is multiplied by dq_scale. With `colsum`, the sums over
 // the head's N rows of dq, dk, dv (fp32, dq scaled) go to
 // colsum[b * cs_b + part * cs_part + h * 64 + d], part 0, 1, 2 for q, k, v
@@ -61,11 +78,13 @@ struct AttnBwdArgs {
   const bf16 *q, *k, *v, *dout;
   long long q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, d_sb, d_sh, d_sn;
   const float *lse, *delta;
+  const bf16* o;
+  long long o_sb, o_sh, o_sn;
   bf16 *dq, *dk, *dv;
   long long g_sb, g_sh, g_sn;
   float* colsum;
   int cs_b, cs_part;
-  float dq_scale;
+  float scale, dq_scale;
   int B, H, N;
 };
 
@@ -73,12 +92,12 @@ namespace attn_bwd {
 constexpr int T = attn::T;             // keys of a key tile, rows of a query tile
 constexpr int TILE = T * 64;           // bf16 elements of one tile
 constexpr int MAX_TILES = 11;          // dQ in shared memory: N <= 704
-// five bf16 tiles, lse and delta of a query tile, dQ of all rows, the
-// column sums of dq, dk, dv and one 64-column partial per warp
+// five bf16 tiles, lse of a query tile, delta of all rows, dQ of all rows,
+// the column sums of dq, dk, dv and one 64-column partial per warp
 inline size_t smem_bytes(int N) {
   const int tiles = (N + T - 1) / T;
-  return 5 * TILE * sizeof(bf16) + 2 * T * sizeof(float) + (size_t)tiles * T * 64 * sizeof(float) +
-         (3 + 4) * 64 * sizeof(float) + 1024;
+  return 5 * TILE * sizeof(bf16) + T * sizeof(float) + (size_t)tiles * T * sizeof(float) +
+         (size_t)tiles * T * 64 * sizeof(float) + (3 + 4) * 64 * sizeof(float) + 1024;
 }
 }  // namespace attn_bwd
 
@@ -155,27 +174,65 @@ __global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const Attn
   bf16* Qs = Vs + TILE;
   bf16* Ds = Qs + TILE;       // dO of the query tile
   bf16* Ss = Ds + TILE;       // dS^T of the (key, query) tile pair
-  float* lse_s = reinterpret_cast<float*>(Ss + TILE);   // lse * log2(e) of the query tile
-  float* delta_s = lse_s + T;
-  float* dq = delta_s + T;    // [tiles * T][64] fp32
-
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
   const int N = p.N, tiles = (N + T - 1) / T;
+  float* lse_s = reinterpret_cast<float*>(Ss + TILE);   // lse * log2(e) of the query tile
+  float* delta_all = lse_s + T;                          // [tiles * T], 0 past N
+  float* dq = delta_all + tiles * T;                     // [tiles * T][64] fp32
   const bf16* qh = p.q + b * p.q_sb + h * p.q_sh;
   const bf16* kh = p.k + b * p.k_sb + h * p.k_sh;
   const bf16* vh = p.v + b * p.v_sb + h * p.v_sh;
   const bf16* dh = p.dout + b * p.d_sb + h * p.d_sh;
   const float* lse = p.lse + (long long)bh * N;
-  const float* delta = p.delta + (long long)bh * N;
   const long long ghead = b * p.g_sb + h * p.g_sh;
   constexpr float LOG2E = 1.4426950408889634f;
+  const float s_log2e = p.scale * LOG2E;   // the block: scale 1, LOG2E itself
 
   float* col = dq + tiles * T * 64;   // [3][64]: the column sums of dq, dk, dv
   float* wpart = col + 3 * 64;        // [4][64]
   for (int i = threadIdx.x; i < tiles * T * 16; i += attn::THREADS)
     reinterpret_cast<float4*>(dq)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int i = threadIdx.x; i < 3 * 64; i += attn::THREADS) col[i] = 0.f;
+  if (p.delta) {
+    const float* delta = p.delta + (long long)bh * N;
+    for (int r = threadIdx.x; r < tiles * T; r += attn::THREADS)
+      delta_all[r] = r < N ? delta[r] : 0.f;
+  } else {
+    // delta = rowsum(dO * O): 8 threads a row, 8 columns each, summed over
+    // the 8 by shuffles in a fixed order; a thread has the loads of 4 rows
+    // (16 apart) in flight, and each pass covers one 64-row tile
+    const bf16* oh = p.o + b * p.o_sb + h * p.o_sh;
+    const int c = 8 * (threadIdx.x % 8);
+    for (int r0 = threadIdx.x / 8; r0 < tiles * T; r0 += T) {
+      uint4 a[4], o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = r0 + 16 * u;
+        a[u] = o[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (r < N) {
+          a[u] = *reinterpret_cast<const uint4*>(dh + (long long)r * p.d_sn + c);
+          o[u] = *reinterpret_cast<const uint4*>(oh + (long long)r * p.o_sn + c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t av[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
+        const uint32_t ov[4] = {o[u].x, o[u].y, o[u].z, o[u].w};
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[e]));
+          const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov[e]));
+          d += x.x * y.x + x.y * y.y;
+        }
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        d += __shfl_xor_sync(0xffffffffu, d, 4);
+        if (threadIdx.x % 8 == 0) delta_all[r0 + 16 * u] = d;
+      }
+    }
+  }
 
   // this thread's rows (keys in S^T, dP^T, dK, dV; queries in dQ) and columns
   const int r_lo = 16 * warp + lane / 4, c_lo = 2 * (lane % 4);
@@ -195,8 +252,8 @@ __global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const Attn
       if (threadIdx.x < T) {
         const int row = i * T + threadIdx.x;
         lse_s[threadIdx.x] = row < N ? lse[row] * LOG2E : 0.f;
-        delta_s[threadIdx.x] = row < N ? delta[row] : 0.f;
       }
+      const float* delta_s = delta_all + i * T;
       cp_async_wait<0>();
       // this thread's copies are visible to wgmma (the async proxy), then all threads'
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -228,7 +285,7 @@ __global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const Attn
           const int col = 8 * jb + c_lo + (e & 1);
           const int idx = 4 * jb + e;
           const bool in = key < N && i * T + col < N;
-          pv[e] = in ? exp2f(s[idx] * LOG2E - lse_s[col]) : 0.f;
+          pv[e] = in ? exp2f(s[idx] * s_log2e - lse_s[col]) : 0.f;
           sv[e] = pv[e] * (dp[idx] - delta_s[col]);
           s[idx] = sv[e];
         }
@@ -279,6 +336,8 @@ __global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const Attn
       }
       __syncthreads();   // the tiles are refilled by the next iteration's copies
     }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] *= p.scale;
     store_grad_rows(p, p.dk, ghead, j * T, dk);
     store_grad_rows(p, p.dv, ghead, j * T, dv);
     if (p.colsum) {   // key tiles in order
@@ -311,8 +370,8 @@ __global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const Attn
   }
 }
 
-// Whether the kernel takes head dim hd and sequence length N (dQ of all N
-// rows lives in shared memory).
+// Whether the kernel takes head dim hd and sequence length N (dQ and delta
+// of all N rows live in shared memory).
 inline bool attention_bwd_takes(int hd, int N) {
   return hd == 64 && N >= 1 && (N + attn_bwd::T - 1) / attn_bwd::T <= attn_bwd::MAX_TILES;
 }
@@ -320,7 +379,8 @@ inline bool attention_bwd_takes(int hd, int N) {
 // Launches the attention backward on `st`; cudaErrorInvalidValue, without a
 // launch, for a shape it does not take.
 inline cudaError_t attention_bwd(const AttnBwdArgs& p, int hd, cudaStream_t st) {
-  if (!attention_bwd_takes(hd, p.N) || p.B < 1 || p.H < 1) return cudaErrorInvalidValue;
+  if (!attention_bwd_takes(hd, p.N) || p.B < 1 || p.H < 1 || !(p.delta || p.o))
+    return cudaErrorInvalidValue;
   const size_t smem = attn_bwd::smem_bytes(p.N);
   cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -302,6 +302,7 @@ inline cudaError_t reverse_chain(const TG* g_out, const bf16* g_feat, const floa
   a.dq = g.dqkv_lp; a.dk = g.dqkv_lp + D; a.dv = g.dqkv_lp + 2 * D;
   a.g_sb = (long long)N * 3 * D; a.g_sh = hd; a.g_sn = 3 * D;
   a.colsum = g.col_partial; a.cs_b = 3 * D; a.cs_part = D;
+  a.scale = 1.0f;   // q arrives scaled
   a.dq_scale = scale;
   a.B = sh.B; a.H = H; a.N = N;
   if ((err = attention_bwd(a, hd, st)) != cudaSuccess) return err;

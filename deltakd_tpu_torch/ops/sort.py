@@ -65,6 +65,31 @@ def _plain_sl1_fwd(s3: torch.Tensor, t3: torch.Tensor) -> Tuple[torch.Tensor, to
     return diff.abs().sum(), sign
 
 
+def sort_keys(x3: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's packed s keys of a [B, n, d] bf16 or fp32 tensor
+    sorted along axis 1, as int64: the order-preserving unsigned image of each
+    value (sign bit set: all bits flipped; clear: sign bit set; -0.0 folded
+    onto +0.0 first, every NaN onto the largest image) above its row index.
+    bf16: ``image << 16 | row``, the kernel's 32-bit key; fp32: the kernel's
+    ``image << 32 | row`` less 2**63, which keeps its order inside int64. The
+    keys are distinct, and ascending key order is the stable ascending order
+    of the values (torch.sort(stable=True) puts NaN last as well)."""
+    bits = {torch.bfloat16: 16, torch.float32: 32}.get(x3.dtype)
+    if bits is None or x3.dim() != 3:
+        raise ValueError(f"sort_keys: takes a bf16 or fp32 [B, n, d] tensor, got "
+                         f"{x3.dtype} {tuple(x3.shape)}")
+    view = torch.int16 if bits == 16 else torch.int32
+    sign, mask = 1 << (bits - 1), (1 << bits) - 1
+    u = x3.contiguous().view(view).to(torch.int64) & mask
+    u = torch.where((u & (sign - 1)) > (0x7f80 if bits == 16 else 0x7f800000), sign - 1, u)
+    u = torch.where(u == sign, 0, u)
+    image = torch.where((u & sign) != 0, ~u & mask, u | sign)
+    row = torch.arange(x3.shape[1], dtype=torch.int64, device=x3.device).view(1, -1, 1)
+    if bits == 16:
+        return (image << 16) | row
+    return ((image - (1 << 31)) << 32) | row
+
+
 def _plain_sl1_bwd(sign: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """What the backward kernel computes: sign * scale in fp32, cast."""
     return (sign.float() * scale).to(dtype)

@@ -27,6 +27,9 @@ torch.set_num_threads(1)
 
 TOL = 1e-5
 SHAPES = [(2, 2, 10, 8), (1, 3, 20, 16), (2, 1, 7, 64)]
+# the backward kernel's edges at head dim 64: one row, a 64-row tile and one
+# row more, and the longest sequence the kernels take
+KERNEL_LENGTHS = [(1, 2, 1, 64), (1, 2, 65, 64), (1, 1, 656, 64)]
 
 
 def _inputs(shape, seed=0):
@@ -37,11 +40,13 @@ def _inputs(shape, seed=0):
     return q, k, v, do
 
 
-def _close(a, b, tol=TOL):
+def _close(a, b, tol=TOL, floor=0.0):
+    """max |a - b| <= tol * max(max |b|, floor); ``floor`` only where b is
+    zero by its math and holds rounding alone."""
     a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
     b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
     assert a.shape == b.shape
-    err, scale = float(np.max(np.abs(a - b))), float(np.max(np.abs(b)))
+    err, scale = float(np.max(np.abs(a - b))), max(float(np.max(np.abs(b))), floor)
     assert err <= tol * scale, f"max abs err {err:.3e} > {tol} x {scale:.3e}"
 
 
@@ -104,7 +109,7 @@ def test_plain_forward_matches_interpreted_pallas_body(shape):
     assert lse3.shape == (B * H, N)
 
 
-@pytest.mark.parametrize("shape", SHAPES[:2])
+@pytest.mark.parametrize("shape", SHAPES[:2] + KERNEL_LENGTHS)
 def test_plain_backward_matches_interpreted_pallas_body(shape):
     q, k, v, do = _inputs(shape, 3)
     B, H, N, D = shape
@@ -113,8 +118,12 @@ def test_plain_backward_matches_interpreted_pallas_body(shape):
     j_grads = _pallas_bwd(q3, k3, v3, o3, lse, do3)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     t_o, t_lse = tat._plain_fwd(tq, tk, tv)
-    for a, b in zip(tat._plain_bwd(tq, tk, tv, t_o, t_lse, tdo), j_grads):
-        _close(a.reshape(B * H, N, D), b)
+    t_grads = tat._plain_bwd(tq, tk, tv, t_o, t_lse, tdo)
+    # one key: p = 1 has no gradient, so dq and dk are zero up to rounding
+    # on both sides (about 1e-7); they are held to 1e-5 of the largest dv
+    floor = float(np.max(np.abs(np.asarray(j_grads[2])))) if N == 1 else 0.0
+    for a, b, f in zip(t_grads, j_grads, (floor, floor, 0.0)):
+        _close(a.reshape(B * H, N, D), b, floor=f)
 
 
 def test_plain_backward_matches_autograd_and_cpu_reaches_no_kernel():

@@ -14,8 +14,9 @@ train step through the factory, which gives an fp32 config no kernels: on the
 card, and on the CPU as well (the one case here that runs without a card). The
 block-pair kernels: the four (feat1, feat2) variants at D=192 and D=384 on
 weights of std 1/sqrt(fan-in), scales with zeros, through the kernels alone
-and through the autograd Function. The sort kernels: inputs with ties; sorted values, signs and gradients
-exactly, the loss to 1e-5 (fp32 sums in another order). The attention and MLP
+and through the autograd Function. The sort kernels: inputs with ties (+0.0 tied with a later -0.0 from
+n = 4 on), n from 2 to 1024; sorted values, signs and gradients exactly, the loss to 1e-5 (fp32 sums in
+another order). The attention and MLP
 kernels: O(1) bf16 inputs (q, k of std 2, weights of std 1/sqrt(fan-in)), ragged
 N and M; 2e-2 of the largest reference value, 1e-3 absolute on lse.
 """
@@ -265,7 +266,8 @@ def _within(a, b, tol=2e-2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(3, 196, 40), (2, 64, 33), (2, 2, 5), (1, 1024, 20)])
+@pytest.mark.parametrize("shape", [(3, 196, 40), (2, 64, 33), (2, 2, 5), (1, 1024, 20),
+                                   (2, 1024, 20), (2, 33, 40), (4, 196, 384)])
 def test_sort_kernels_match_plain_version_on_card(shape, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -273,6 +275,8 @@ def test_sort_kernels_match_plain_version_on_card(shape, dtype):
     s = torch.randn(shape, generator=g).bfloat16().to(dtype)
     t = torch.randn(shape, generator=g).bfloat16().to(dtype)
     s[:, 1] = s[:, 0]
+    if shape[1] >= 4:   # +0.0 tied with a later -0.0: the stable order keeps row 2 first
+        s[:, 2], s[:, 3] = 0.0, -0.0
     t[:, :1] = s[:, :1]
     s, t = s.cuda(), t.cuda()
     assert torch.equal(so.bitonic_sort(s, axis=1), torch.sort(s, dim=1).values)
@@ -287,13 +291,15 @@ def test_sort_kernels_match_plain_version_on_card(shape, dtype):
     (g_r,) = torch.autograd.grad(ref, [s_r])
     assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
     assert torch.equal(g_s, g_r) and g_t.abs().max().item() == 0.0
+    _, sign = so.kernel_sorted_l1_fwd(s, t)
+    assert torch.equal(sign, so._plain_sl1_fwd(s, t)[1])
     with pytest.raises(ValueError):
         so.sorted_l1(s.double(), t.double(), 1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 3, 198, 64), (1, 2, 50, 64), (6, 16, 64), (1, 1, 578, 64),
-                                   (2, 6, 578, 64)])
+                                   (2, 6, 578, 64), (1, 2, 656, 64)])
 def test_attention_kernels_match_plain_version_on_card(shape):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -304,9 +310,11 @@ def test_attention_kernels_match_plain_version_on_card(shape):
     r_o, r_lse = at._plain_fwd(q, k, v)
     _within(o, r_o)
     assert (lse - r_lse).abs().max().item() <= 1e-3
-    for a, b in zip(at.kernel_flash_bwd(q, k, v, o, lse, do),
-                    at._plain_bwd(q, k, v, o, lse, do)):
+    grads = at.kernel_flash_bwd(q, k, v, o, lse, do)
+    for a, b, c in zip(grads, at._plain_bwd(q, k, v, o, lse, do),
+                       at.kernel_flash_bwd(q, k, v, o, lse, do)):
         _within(a, b)
+        assert torch.equal(a, c)
     if len(shape) == 4:     # through the autograd Function, on strided views
         B, H, N, D = shape
         qkv = torch.randn(B, N, 3, H, D, generator=g).cuda().bfloat16().requires_grad_(True)
@@ -320,6 +328,9 @@ def test_attention_kernels_match_plain_version_on_card(shape):
         at.kernel_flash_fwd(q.float(), k.float(), v.float())
     with pytest.raises(ValueError):
         at.kernel_flash_fwd(q[..., :32], k[..., :32], v[..., :32])
+    long = torch.zeros(1, 1, at.max_sequence() + 1, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):
+        at.kernel_flash_bwd(long, long, long, long, long[..., 0].float(), long)
 
 
 def _mlp_operands(M, D):

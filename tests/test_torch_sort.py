@@ -134,6 +134,51 @@ def test_sorted_l1_in_bf16_sorts_in_bf16_and_reduces_in_fp32():
     assert loss.item() == ref.item() and torch.equal(gs, g_ref)
 
 
+@pytest.mark.parametrize("n", [2, 33, 257])
+def test_sorted_l1_matches_network_at_kernel_lengths(n):
+    """n = 2 (one key a lane in the forward kernel's network), 33 (two) and
+    257 (padded to 512); column 0 of s holds -0.0 and +0.0 ties, the -0.0 at
+    the later rows. Against the jitted XLA network (not the interpreted
+    Pallas kernel); the gradient is compared after summing over tied rows."""
+    s, t = _inputs((2, n, 24), 13)
+    s[:, ::2, 0], s[:, 1::2, 0] = 0.0, -0.0
+    v, g = jax.jit(jax.value_and_grad(
+        lambda x: jsort._sorted_l1_network(x, jnp.asarray(t), axis=1)))(jnp.asarray(s))
+    tsort.reset_launches()
+    loss, gs, gt = _torch_value_and_grad(tsort.sorted_l1, s, t, 1)
+    assert not tsort.LAUNCHES
+    np.testing.assert_allclose(loss.item(), float(v), rtol=1e-5)
+    np.testing.assert_allclose(_tie_group_sums(gs.numpy(), s), _tie_group_sums(g, s),
+                               rtol=1e-5, atol=1e-9)
+    assert float(gt.abs().max()) == 0.0
+    # stable order: the -0.0 rows follow the +0.0 rows they tie with
+    _, g_ref, _ = _torch_value_and_grad(tsort.sorted_l1_reference, s, t, 1)
+    assert torch.equal(gs, g_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_packed_sort_keys_order_as_the_stable_sort(dtype):
+    """``sort_keys`` (the forward kernel's packing of a value and its row):
+    ascending key order equals torch.sort(stable=True)'s indices, with -0.0
+    tied to +0.0 in both orders of rows, +-inf, NaN of both signs, and ties."""
+    rng = np.random.RandomState(17)
+    x = torch.from_numpy(rng.randn(3, 40, 7).astype(np.float32)).bfloat16().to(dtype)
+    x[:, 0], x[:, 5], x[:, 13], x[:, 14] = 0.0, -0.0, -0.0, 0.0
+    x[:, 7], x[:, 9], x[:, 11] = float("inf"), -float("inf"), float("inf")
+    x[:, 20] = x[:, 21]
+    x[0, 30], x[0, 31], x[1, 2] = float("nan"), -float("nan"), float("nan")
+    keys = tsort.sort_keys(x)
+    order = torch.sort(keys, dim=1)
+    assert keys.dtype == torch.int64 and bool((order.values.diff(dim=1) > 0).all())
+    assert torch.equal(order.indices, torch.sort(x, dim=1, stable=True).indices)
+    # the row index is the low bits; -0.0 and +0.0 have one image
+    assert torch.equal(keys & 0xffff, torch.arange(40).view(1, -1, 1).expand(3, 40, 7))
+    zero = keys[:, [0, 5, 13, 14], :] >> (16 if dtype == torch.bfloat16 else 32)
+    assert bool((zero == zero[:, :1]).all())
+    with pytest.raises(ValueError):
+        tsort.sort_keys(x.double())
+
+
 @pytest.mark.parametrize("shape,axis", [((5, 7, 6), 2), ((5, 7, 6), 0), ((5, 7, 6), -2),
                                         ((9, 4), 0), ((3, 4, 5, 2), 2)])
 def test_other_axes_go_through_the_same_layout(shape, axis):
