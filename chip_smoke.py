@@ -29,13 +29,18 @@ Phases, each of which fails the run:
      times with the calls queued behind a sleep on the card, so they are the
      card's and not the host's;
   4. holds the sort kernels (value sort, sorted_l1 forward and backward)
-     against their plain versions on inputs with ties, in bf16 and fp32, at
-     B=8 (n=196, a power-of-two n, a d that is no multiple of the column
-     tile, n = 2 and 33 with d = 40), at [2, 1024, 20] and at the main-path
-     shape [256, 196, 384], each input with -0.0 at one row tied to +0.0 at
-     an earlier one: sorted values, signs and gradients exactly, the loss to
-     1e-5, t's gradient zero, two runs the same bits; then times them at the
-     main-path shape in bf16;
+     against their plain versions on inputs with ties at B=8 (n=196, a
+     power-of-two n, a d that is no multiple of the column tile, n = 2 and 33
+     with d = 40), at [2, 1024, 20] and at the main-path shape
+     [256, 196, 384], each float input with -0.0 at one row tied to +0.0 at
+     an earlier one: the value sort in bf16, fp16, fp32 and int32 (also at
+     d = 1 with n = 196 and 700), its floats with +-inf, a column of NaNs and
+     scattered NaNs, its int32 with the extremes, exactly against torch.sort
+     (NaNs at the same places, each column's -0.0 count kept, two runs the
+     same bits); the sorted_l1 kernels in bf16 and fp32: signs and gradients
+     exactly, the loss to 1e-5, t's gradient zero, two runs the same bits;
+     then times them at the main-path shape in bf16, the value sort in fp32
+     as well;
   5. holds the attention kernels (forward: o and lse; backward: dq, dk, dv) and
      the fused-MLP kernels (forward; backward: dx, dW1, db1, dW2, db2) against
      their plain versions on O(1) inputs (q, k of std 1.5, weights of std
@@ -59,7 +64,7 @@ Phases, each of which fails the run:
      to 0 just before and read just after, checking the kernel launches,
      finite metrics, a positive distill loss and changed student (and aux)
      parameters; one eval batch; and the value sort through its public
-     function (no model calls it); then the unfused model path (block_fn=None:
+     function in its four dtypes (no model calls it); then the unfused model path (block_fn=None:
      the teacher through flash_attention and fused_mlp, the student through
      flash_attention): 8 soft-KD steps with exactly 24 attention-forward, 12
      attention-backward, 12 MLP-forward and no fused-block launches a step,
@@ -1019,10 +1024,82 @@ def _sort_inputs(shape, dtype, seed):
     return s.cuda(), t.cuda()
 
 
+def _value_sort_input(shape, dtype, seed):
+    """The value sort's input on the card: for a float dtype `_sort_inputs`'s
+    s (ties, -0.0 after a tied +0.0) with +-inf and, from d = 2 on, a column
+    of NaNs alone and NaNs scattered over a hundredth of the elements; for
+    int32 a narrow draw (ties) with the int32 extremes, 0 and -1 planted."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    if dtype == torch.int32:
+        x = torch.randint(-40, 40, shape, generator=g, dtype=torch.int32)
+        specials = torch.tensor([-2**31, 2**31 - 1, 0, -1, 2**31 - 2], dtype=torch.int32)
+    else:
+        x = _sort_inputs(shape, torch.float32, seed)[0].cpu()
+        if shape[2] >= 2:
+            x[:, :, 1] = float("nan")
+        specials = torch.tensor([float("inf"), -float("inf"), float("nan"), -0.0, 0.0])
+    at = torch.randperm(x.numel(), generator=g)[: max(5, x.numel() // 100)]
+    x.view(-1)[at] = specials[torch.arange(len(at)) % len(specials)]
+    return x.to(dtype).cuda()
+
+
+def _negative_zeros(x):
+    """The count of -0.0 in each column of a [B, n, d] tensor."""
+    import torch
+
+    if not x.dtype.is_floating_point:
+        return torch.zeros(x.shape[0], x.shape[2], dtype=torch.int64, device=x.device)
+    return ((x == 0) & torch.signbit(x)).sum(dim=1)
+
+
+def _value_sort_checks(x, out):
+    """(name, ok) of a value sort's result against torch.sort's on the card:
+    the values equal where torch.sort has no NaN, the NaNs at the same places
+    (each column's last), the -0.0s of each column kept; and the largest
+    error. torch.sort on the card puts a NaN with its sign bit set first
+    (PyTorch's fp32 -> bf16 cast on the CPU makes every NaN 0xffff), where
+    on the CPU it puts every NaN last; so the reference sorts the input with
+    each NaN's sign bit cleared."""
+    import torch
+
+    if x.dtype.is_floating_point:
+        x = torch.where(torch.isnan(x), x.abs(), x)
+    ref = torch.sort(x, dim=1).values
+    nan = torch.isnan(ref) if ref.dtype.is_floating_point else torch.zeros_like(ref, dtype=torch.bool)
+    isnan = torch.isnan(out) if out.dtype.is_floating_point else nan
+    err = (out[~nan].double() - ref[~nan].double()).abs().max().item() if bool((~nan).any()) else 0.0
+    return [("sorted values equal torch.sort", torch.equal(out[~nan], ref[~nan])),
+            ("NaN columns match", torch.equal(isnan, nan)),
+            ("-0.0 count of each column kept", torch.equal(_negative_zeros(out), _negative_zeros(x)))], err
+
+
+def _hold_value_sort(so, worst, shape, dtype):
+    """Fails unless the value-sort kernel agrees with torch.sort on one input
+    (`_value_sort_checks`) and a second run gives the same bits."""
+    import torch
+
+    x = _value_sort_input(shape, dtype, shape[1] + shape[2])
+    tag = f"{tuple(shape)} {str(dtype).split('.')[-1]}"
+    out, out2 = so.bitonic_sort_kernel(x), so.bitonic_sort_kernel(x)
+    torch.cuda.synchronize()
+    checks, err = _value_sort_checks(x, out)
+    bits = torch.int16 if dtype.itemsize == 2 else torch.int32
+    checks.append(("two runs give the same bits", torch.equal(out.view(bits), out2.view(bits))))
+    nans = torch.isnan(x).sum().item() if dtype.is_floating_point else 0
+    print(f"[kernel] value sort {tag} ({nans} NaN, {_negative_zeros(x).sum().item()} -0.0): "
+          + "; ".join(f"{name}: {'ok' if ok else 'FAIL'}" for name, ok in checks))
+    for name, ok in checks:
+        if not ok:
+            raise AssertionError(f"value sort {tag}: {name} failed")
+    worst["bitonic_sort"] = max(worst.get("bitonic_sort", 0.0), err)
+
+
 def _hold_sort(so, worst, shape, dtype):
-    """Fails unless the three sort kernels agree with their plain versions on
-    one input: sorted values, signs and gradient exactly, the loss within
-    LOSS_TOL, t's gradient zero, and a second run gives the same bits."""
+    """Fails unless the sorted_l1 kernels agree with their plain versions on
+    one input: signs and gradient exactly, the loss within LOSS_TOL, t's
+    gradient zero, and a second run gives the same bits."""
     import torch
 
     s, t = _sort_inputs(shape, dtype, shape[1] + shape[2])
@@ -1030,10 +1107,6 @@ def _hold_sort(so, worst, shape, dtype):
     ties = (torch.sort(s, dim=1).values.diff(dim=1) == 0).sum().item()
     if ties == 0:
         raise AssertionError(f"sort check {tag}: the input has no ties")
-
-    out = so.bitonic_sort_kernel(s)
-    ref = torch.sort(s, dim=1).values
-    sort_err = (out.float() - ref.float()).abs().max().item()
 
     total, sign = so.kernel_sorted_l1_fwd(s, t)
     r_total, r_sign = so._plain_sl1_fwd(s, t)
@@ -1052,7 +1125,6 @@ def _hold_sort(so, worst, shape, dtype):
     loss_err = abs(loss - r_loss)
     grad_err = (g.float() - g_ref.float()).abs().max().item()
     checks = [
-        ("sorted values equal torch.sort", torch.equal(out, ref)),
         ("loss", loss_err <= LOSS_TOL * abs(r_loss)),
         ("signs equal the plain version's", torch.equal(sign, r_sign)),
         ("gradient equals autograd through the stable sort",
@@ -1067,27 +1139,32 @@ def _hold_sort(so, worst, shape, dtype):
     for name, ok in checks:
         if not ok:
             raise AssertionError(f"sort kernels {tag}: {name} failed")
-    for kernel, err in (("bitonic_sort", sort_err), ("sorted_l1_fwd", loss_err),
-                        ("sorted_l1_bwd", grad_err)):
+    for kernel, err in (("sorted_l1_fwd", loss_err), ("sorted_l1_bwd", grad_err)):
         worst[kernel] = max(worst.get(kernel, 0.0), err)
 
 
 def check_sort_kernels(so, worst):
     """Phase 4a: the sort kernels vs their plain versions, small shapes (the
-    forward's network with one key a lane at n = 2, two at n = 33 and 32 at
-    n = 1024, its 16-byte loads at d = 384, one-element loads at d = 100, 40
-    and 20) and the main-path shape, bf16 and fp32."""
+    network with one key a lane at n = 2, two at n = 33 and 32 at n = 1024,
+    16-byte loads at d = 384, one-element loads at d = 100, 40 and 20) and
+    the main-path shape: the value sort in bf16, fp16, fp32 and int32, also
+    at d = 1; the sorted_l1 kernels in bf16 and fp32."""
     import torch
 
+    shapes = ((B_CHECK, 196, 384), (B_CHECK, 256, 384), (B_CHECK, 196, 100),
+              (B_CHECK, 2, 40), (B_CHECK, 33, 40), (2, 1024, 20), SORT_MAIN)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32, torch.int32):
+        for shape in shapes + ((B_CHECK, 196, 1), (4, 700, 1)):
+            _hold_value_sort(so, worst, shape, dtype)
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in ((B_CHECK, 196, 384), (B_CHECK, 256, 384), (B_CHECK, 196, 100),
-                      (B_CHECK, 2, 40), (B_CHECK, 33, 40), (2, 1024, 20), SORT_MAIN):
+        for shape in shapes:
             _hold_sort(so, worst, shape, dtype)
 
 
 def time_sort_kernels(so):
-    """Phase 4b: the sort kernels at the main-path shape in bf16: kernel,
-    plain and library times, and the bound. Library: torch.sort(dim=1,
+    """Phase 4b: the sort kernels at the main-path shape in bf16 (the value
+    sort in fp32 as well, `fp32_*` keys of its row): kernel, plain and
+    library times, and the bound. Library: torch.sort(dim=1,
     stable=True) for the value sort; for sorted_l1 the stable sort of s and
     the sort of t with autograd's index scatter as the backward (its time is
     forward+backward minus forward). Bound: the larger of the bytes each
@@ -1130,13 +1207,19 @@ def time_sort_kernels(so):
             library_ms=lib_both - lib_f,
             nbytes=numel + 4 + numel * esize, ops=numel),
     }
-    for kernel, row in rows.items():
+    x32 = s.float()
+    fp32 = dict(ms=_timed(lambda: so.bitonic_sort_kernel(x32), 20),
+                plain_ms=_timed(lambda: torch.sort(x32, dim=1).values, 20),
+                library_ms=_timed(lambda: torch.sort(x32, dim=1, stable=True), 20),
+                nbytes=2 * numel * 4, ops=2 * exchanges)
+    for kernel, row in (*rows.items(), ("bitonic_sort", fp32)):
         t_bytes, t_ops = row.pop("nbytes") / PEAK_BYTES, row.pop("ops") / PEAK_FP32_OPS
         row["bound_ms"] = max(t_bytes, t_ops) * 1e3
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"[time] {kernel} {SORT_MAIN} bf16: {row['ms']:.3f} ms, plain "
-              f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        print(f"[time] {kernel} {SORT_MAIN} {'fp32' if row is fp32 else 'bf16'}: "
+              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+              f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    rows["bitonic_sort"].update({f"fp32_{k}": v for k, v in fp32.items() if k != "bound_by"})
     print(f"[time] sorted_l1 library forward+backward {lib_both:.3f} ms, forward {lib_f:.3f} ms")
     return rows
 
@@ -1679,20 +1762,22 @@ def run_no_qkv_bias(mods, images, aug):
 
 def run_value_sort(so):
     """The value sort through its public function, at the main-path shape in
-    both dtypes (no model calls it, in the JAX package either)."""
+    its four dtypes (no model calls it, in the JAX package either)."""
     import torch
 
+    dtypes = (torch.bfloat16, torch.float16, torch.float32, torch.int32)
+    inputs = [_value_sort_input(SORT_MAIN, dtype, 2) for dtype in dtypes]
     so.reset_launches()
-    for dtype in (torch.bfloat16, torch.float32):
-        x, _ = _sort_inputs(SORT_MAIN, dtype, 2)
-        out = so.bitonic_sort(x, axis=1)
-        torch.cuda.synchronize()
-        if not torch.equal(out, torch.sort(x, dim=1).values):
-            raise AssertionError(f"bitonic_sort {dtype} disagrees with torch.sort")
+    outs = [so.bitonic_sort(x, axis=1) for x in inputs]
     launches = dict(so.LAUNCHES)
+    for x, out in zip(inputs, outs):
+        checks, _ = _value_sort_checks(x, out)
+        for name, ok in checks:
+            if not ok:
+                raise AssertionError(f"bitonic_sort {x.dtype}: {name} failed")
     print(f"[value sort] launches {launches}")
-    if launches != {"bitonic_sort": 2}:
-        raise AssertionError(f"value sort launches {launches}, expected 2")
+    if launches != {"bitonic_sort": len(dtypes)}:
+        raise AssertionError(f"value sort launches {launches}, expected {len(dtypes)}")
     return launches
 
 
@@ -1926,11 +2011,19 @@ FAULTS = (
        "for (int i = 0; i < 32; ++i) dk[i] *= 1.0f;"),), "--attention-checks"),
     ("the row index left out of the packed s key", "deltakd_tpu_torch/ops/csrc/sort.cu",
      (("return (image << 16) | (uint32_t)row;", "return image << 16;"),), "--sort-checks"),
-    # the exchange with lane ^ 8 keeps each key where it is (s keys; t keys
-    # of fp32, the bf16 t pairs have a network of their own)
+    # the exchange with lane ^ 8 keeps each key where it is (sorted_l1's s
+    # keys and fp32 t keys, the value sort's fp32 and int32 keys; the 16-bit
+    # pairs have a network of their own)
     ("one shuffle stage of the key network skipped", "deltakd_tpu_torch/ops/csrc/sort.cu",
      (("const K o = __shfl_xor_sync(0xffffffffu, v[r], J / R);",
        "const K o = J == 8 * R ? v[r] : __shfl_xor_sync(0xffffffffu, v[r], J / R);"),),
+     "--sort-checks"),
+    # the 16-bit pairs (the value sort's bf16 and fp16 keys, sorted_l1's bf16
+    # t) exchange with lane ^ 9 where the stage's partner is lane ^ 8
+    ("a wrong partner lane in one shuffle stage of the pair network",
+     "deltakd_tpu_torch/ops/csrc/sort.cu",
+     (("const uint32_t o = __shfl_xor_sync(0xffffffffu, w[i], J / R);",
+       "const uint32_t o = __shfl_xor_sync(0xffffffffu, w[i], J == 8 * R ? J / R ^ 1 : J / R);"),),
      "--sort-checks"),
 )
 

@@ -7,45 +7,56 @@
 // `bitonic_sort_pallas`), `_sl1_fwd_kernel` (`_sl1_fwd_call`) and
 // `_sl1_bwd_kernel` (`_sl1_bwd_call`).
 //
-// Every column (b, :, j) is an independent sort of n values. A thread block
-// takes one batch element b and a tile of C neighbouring columns (32 up to
-// n_pad = 512, 16 at n_pad = 1024; column edges are masked, so any d works)
-// and loads [n, C] with reads coalesced along d.
+// Every column (b, :, j) is an independent sort of n <= 1024 values. The
+// value sort and the sorted_l1 forward run one design. A thread block (8
+// warps) takes one batch element b and a tile of C neighbouring columns (32
+// up to n_pad = 512, 16 at n_pad = 1024; columns past d are skipped, so any d
+// works), loads [n, C] with reads coalesced along d (16 bytes a load when d
+// allows it) and keeps it in shared memory as columns, values as they are.
+// Each warp then takes one column at a time and sorts it with a bitonic
+// network in registers and warp shuffles, n_pad / 32 = R keys a lane (n_pad
+// the next power of two of n, at least 32). A key's network position is
+// lane * R + r, so the stages of stride below R exchange two registers of one
+// lane and those of stride R..n_pad/2 exchange register r with
+// lane ^ (stride / R) by __shfl_xor_sync: at n_pad = 256, 21 register stages
+// and 15 shuffle stages, and no barrier in the network. (A key's first
+// position is free: the network sorts whatever it is given, so lane l takes
+// rows l, l + 32, ... of its column, which reads shared memory without bank
+// conflicts.)
+//   A key is an unsigned image whose order is the order to sort by. A
+// float's (bf16, fp16, fp32): every NaN takes the largest image (all ones);
+// otherwise sign bit set: all bits flipped; clear: sign bit set. An int32's:
+// x ^ 0x80000000. Rows past n take the largest image, so padding sorts
+// behind every real key, a NaN included. In each phase of the network the
+// keys of its descending blocks are held complemented (~key reverses the
+// unsigned order), so every exchange keeps the smaller key low: a register
+// stage is one min and one max a pair, a shuffle stage one shuffle and one
+// min or max a word, and entering a phase one XOR a word. 16-bit keys go two
+// to a word (positions r and r + R/2 of a lane, from R = 2 on), so that one
+// shuffle moves two and min.u16x2 / max.u16x2 exchange two pairs at once.
 //
-// The sorted_l1 forward: a bitonic network in registers and warp shuffles.
-// The block (8 warps) turns the [n, C] tile into columns in shared memory
-// as it is (5 bytes a cell in bf16 with the signs, 41 KB at n_pad = 256,
-// where 64 registers a thread let four blocks share an SM); each warp then
-// takes one column at a time, forms its keys, with
-// n_pad / 32 = R keys a lane (n_pad the next power of two of n, at least 32)
-// and sorts s and t side by side. A key's network position is lane * R + r,
-// so the stages of stride below R exchange two registers of one lane and
-// those of stride R..n_pad/2 exchange register r with lane ^ (stride / R)
-// by __shfl_xor_sync: at n_pad = 256, 21 register stages and 15 shuffle
-// stages, and no barrier in the network. (A key's first position is free:
-// the network sorts whatever it is given, so lane l takes rows l, l + 32, ...
-// of its column, which reads shared memory without bank conflicts.)
-//   s keys carry their row: (image(s) << 16) | row in 32 bits for bf16,
-// (image(s) << 32) | row in 64 bits for fp32, where image() is the
-// order-preserving unsigned image of the float (sign bit set: all bits
-// flipped; clear: sign bit set). All keys are then distinct and their
-// unsigned order is the lexicographic (value, row) order, so an exchange is
-// one unsigned min or max (two shuffles for 64 bits) and the result is
-// exactly the stable ascending order: the row indices agree element for
-// element with torch.sort(stable=True). -0.0 is folded onto +0.0 before the
-// image (their bit images differ, but they are equal as floats and tie by
-// row). Padding rows and the columns past d carry the largest image and a
-// row >= n, so they sort behind every real key, a real +inf or NaN included.
-// t keys are images alone; in bf16 two share a word (positions r and
-// r + R/2 of a lane, from R = 2 on), so that one shuffle moves two and
-// min.u16x2 / max.u16x2 exchange two pairs at once. In each phase of the
-// network the keys of its descending blocks are held complemented (~key
-// reverses the unsigned order), so every exchange keeps the smaller key low:
-// a register stage is one min and one max a pair, a shuffle stage one
-// shuffle and one min or max a word, and entering a phase one XOR a word.
-//   NaN: every NaN takes the largest image (after +inf, as torch.sort puts
-// NaN last, ties by row); its value decodes to a NaN, so the loss is NaN and
-// its sign is 0. No check feeds NaN.
+// The value sort (bf16, fp16, fp32, int32): the keys are the images of the
+// values, decoded back to values after the network. -0.0's image lies just
+// below +0.0's, so every -0.0 comes out as a -0.0, ahead of the +0.0s:
+// equal as floats to torch.sort's result. A column with k NaNs ends in k
+// NaNs (the dtype's NaN with every other bit set), as torch.sort puts NaN
+// last. Each lane writes its sorted values back into its column at
+// positions lane * R + r, through a column layout that skips one 32-bit word
+// after every 128 bytes, so that these writes meet no bank conflict either;
+// then the block stores the [n, C] tile coalesced along d.
+//
+// The sorted_l1 forward (bf16, fp32) sorts s and t side by side. s keys
+// carry their row: (image(s) << 16) | row in 32 bits for bf16,
+// (image(s) << 32) | row in 64 bits for fp32, with -0.0 folded onto +0.0
+// before the image (equal as floats, they tie by row). All keys are then
+// distinct and their unsigned order is the lexicographic (value, row) order,
+// so an exchange is one unsigned min or max (two shuffles for 64 bits) and
+// the result is exactly the stable ascending order: the row indices agree
+// element for element with torch.sort(stable=True). Padding rows carry a row
+// >= n. t keys are images alone (bf16 t two to a word). A NaN's value
+// decodes to a NaN, so the loss is NaN and its sign is 0. The raw values
+// take 5 bytes a cell in bf16 with the signs (41 KB at n_pad = 256, where 64
+// registers a thread let four blocks share an SM).
 //   The epilogue decodes both keys, adds |s - t| of the first n positions to
 // a per-lane sum (columns and positions in a fixed order, then shuffles and
 // the 8 warps in order: one fp32 partial per block, bit-reproducible, no
@@ -55,28 +66,28 @@
 // left for the backward kernel is one pass: g = sign * (ct / numel) in fp32,
 // cast to the dtype of s.
 //
-// The value sort (no model path calls it) still runs the first design: the
-// log2(n_pad)(log2(n_pad)+1)/2 compare-exchange stages on a [n_pad, C] tile
-// in shared memory with one barrier per stage.
-//
-// What bounds them on an H100: bytes. The forward must read s and t and write
-// the int8 residual (5 bytes an element in bf16, 96.3 MB at [256, 196, 384]),
-// the backward reads 1 byte and writes one element, the value sort reads and
-// writes one element each. Against that stand n_pad/2 * 36 compare-exchanges
-// a column at n_pad = 256 for each of s and t. In the forward, 15 of the 36
-// stages take one shuffle a word: 8 words of s and 4 of t a lane, about
-// 17.7 M warp shuffles at the main shape, near 0.08 ms at one warp shuffle a
-// clock an SM, above the 0.029 ms of its bytes; the min/max instructions
-// (about 1.5x as many) share the SM's instruction slots with them.
+// What bounds them on an H100: bytes, and then the network's shuffles. The
+// value sort reads and writes one element each (77 MB at [256, 196, 384]
+// bf16, 0.023 ms at the memory rate); the forward reads s and t and writes
+// the int8 residual (96.3 MB); the backward reads 1 byte and writes one
+// element. Against that stand the 15 shuffle stages at n_pad = 256: a lane
+// shuffles one word a stage for each word of keys it holds, 4 for a bf16
+// column (5.9 M warp shuffles for the value sort at the main shape), 8 for
+// fp32, and 8 + 4 for the forward's s and t (17.7 M), at one warp shuffle a
+// clock an SM; the min/max instructions share the SM's issue slots with them.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kMaxThreads = 512;
 constexpr int kMaxN = 1024;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
 
 inline int next_pow2(int n) {
   int p = 1;
@@ -84,110 +95,76 @@ inline int next_pow2(int n) {
   return p;
 }
 
-inline int col_tile(int n_pad) { return n_pad <= 512 ? 32 : 16; }
+__host__ __device__ constexpr int col_tile(int n_pad) { return n_pad <= 512 ? 32 : 16; }
 
+// A dtype's bits, as its key image needs them.
 template <typename T>
-struct Key;
+struct Bits;
 
 template <>
-struct Key<float> {
-  static __device__ __forceinline__ float f(float v) { return v; }
-  static __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
+struct Bits<__nv_bfloat16> {
+  static constexpr bool kFloat = true;
+  static constexpr uint32_t kSign = 0x8000u, kMask = 0xffffu, kInf = 0x7f80u;
+  static __device__ __forceinline__ uint32_t of(__nv_bfloat16 x) { return __bfloat16_as_ushort(x); }
+  static __device__ __forceinline__ __nv_bfloat16 from(uint32_t u) {
+    return __ushort_as_bfloat16((unsigned short)u);
+  }
 };
 
 template <>
-struct Key<__nv_bfloat16> {
-  static __device__ __forceinline__ float f(__nv_bfloat16 v) { return __bfloat162float(v); }
-  static __device__ __forceinline__ __nv_bfloat16 inf() {
-    return __ushort_as_bfloat16((unsigned short)0x7f80);
-  }
+struct Bits<__half> {
+  static constexpr bool kFloat = true;
+  static constexpr uint32_t kSign = 0x8000u, kMask = 0xffffu, kInf = 0x7c00u;
+  static __device__ __forceinline__ uint32_t of(__half x) { return __half_as_ushort(x); }
+  static __device__ __forceinline__ __half from(uint32_t u) { return __ushort_as_half((unsigned short)u); }
 };
 
-// Rows [0, n) and columns [col0, col0 + C) of element b into a [n_pad, C]
-// shared tile; everything outside the tensor is +inf.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ x, T* tile, int b, int n,
-                                          int n_pad, int d, int col0) {
-  const int C = blockDim.x;
-  const int col = col0 + threadIdx.x;
-  for (int r = threadIdx.y; r < n_pad; r += blockDim.y) {
-    T v = Key<T>::inf();
-    if (r < n && col < d) v = x[((size_t)b * n + r) * d + col];
-    tile[r * C + threadIdx.x] = v;
+template <>
+struct Bits<float> {
+  static constexpr bool kFloat = true;
+  static constexpr uint32_t kSign = 0x80000000u, kMask = 0xffffffffu, kInf = 0x7f800000u;
+  static __device__ __forceinline__ uint32_t of(float x) { return __float_as_uint(x); }
+  static __device__ __forceinline__ float from(uint32_t u) { return __uint_as_float(u); }
+};
+
+template <>
+struct Bits<int32_t> {
+  static constexpr bool kFloat = false;
+  static constexpr uint32_t kSign = 0x80000000u, kMask = 0xffffffffu;
+  static __device__ __forceinline__ uint32_t of(int32_t x) { return (uint32_t)x; }
+  static __device__ __forceinline__ int32_t from(uint32_t u) { return (int32_t)u; }
+};
+
+// The order-preserving unsigned image of a value, every NaN onto the largest
+// image; FoldZero: -0.0 onto +0.0 first.
+template <bool FoldZero = false, typename T>
+__device__ __forceinline__ uint32_t key_image(T x) {
+  using B = Bits<T>;
+  uint32_t u = B::of(x);
+  if constexpr (!B::kFloat) {
+    return u ^ B::kSign;
+  } else {
+    if ((u & (B::kSign - 1u)) > B::kInf) return B::kMask;   // NaN
+    if (FoldZero && u == B::kSign) u = 0u;
+    return (u & B::kSign) ? (~u & B::kMask) : (u | B::kSign);
   }
 }
 
-// The low row of compare-exchange pair q at stride j (a power of two).
-__device__ __forceinline__ int pair_low(int q, int j) {
-  return ((q & ~(j - 1)) << 1) | (q & (j - 1));
-}
-
-// One stage on values alone: ascending blocks keep the smaller key low.
+// The value of an image: the inverse of key_image (the largest image decodes
+// to a NaN with every bit but the sign set, or to INT32_MAX).
 template <typename T>
-__device__ __forceinline__ void exchange_values(T* tile, int lo, int hi, bool asc) {
-  const T a = tile[lo], b = tile[hi];
-  const float fa = Key<T>::f(a), fb = Key<T>::f(b);
-  if (asc ? (fa > fb) : (fa < fb)) {
-    tile[lo] = b;
-    tile[hi] = a;
-  }
-}
-
-template <typename T>
-__global__ void bitonic_sort_kernel(const T* __restrict__ x, T* __restrict__ out, int n,
-                                    int n_pad, int d, int tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* tile = reinterpret_cast<T*>(smem);
-  const int C = blockDim.x;
-  const int b = blockIdx.x / tiles;
-  const int col0 = (blockIdx.x % tiles) * C;
-  load_tile(x, tile, b, n, n_pad, d, col0);
-  __syncthreads();
-  const int half = n_pad >> 1;
-  for (int k = 2; k <= n_pad; k <<= 1) {
-    for (int j = k >> 1; j >= 1; j >>= 1) {
-      for (int q = threadIdx.y; q < half; q += blockDim.y) {
-        const int lo = pair_low(q, j);
-        exchange_values(tile, lo * C + threadIdx.x, (lo + j) * C + threadIdx.x,
-                        (lo & k) == 0);
-      }
-      __syncthreads();
-    }
-  }
-  const int col = col0 + threadIdx.x;
-  if (col < d)
-    for (int r = threadIdx.y; r < n; r += blockDim.y)
-      out[((size_t)b * n + r) * d + col] = tile[r * C + threadIdx.x];
-}
-
-// ---------------------------------------------------------------------------
-// sorted_l1 forward: the network in registers and shuffles
-// ---------------------------------------------------------------------------
-
-constexpr int kSl1Warps = 8;
-constexpr int kSl1Threads = 32 * kSl1Warps;
-
-// The order-preserving unsigned image of a key, -0.0 folded onto +0.0 and
-// every NaN onto the largest image; and back (the largest image decodes to a
-// NaN).
-__device__ __forceinline__ uint32_t key_image(__nv_bfloat16 x) {
-  uint32_t u = __bfloat16_as_ushort(x);
-  if ((u & 0x7fffu) > 0x7f80u) u = 0x7fffu;   // NaN
-  if (u == 0x8000u) u = 0u;                   // -0.0
-  return (u & 0x8000u) ? (~u & 0xffffu) : (u | 0x8000u);
-}
-
-__device__ __forceinline__ uint32_t key_image(float x) {
-  uint32_t u = __float_as_uint(x);
-  if ((u & 0x7fffffffu) > 0x7f800000u) u = 0x7fffffffu;
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+__device__ __forceinline__ T key_value(uint32_t image) {
+  using B = Bits<T>;
+  if constexpr (!B::kFloat)
+    return B::from(image ^ B::kSign);
+  else
+    return B::from((image & B::kSign) ? (image ^ B::kSign) : (~image & B::kMask));
 }
 
 template <typename T>
 struct SortKey;
 
-// s keys: (image << 16) | row; t keys: the image
+// sorted_l1's s keys: (image << 16) | row; t keys: the image
 template <>
 struct SortKey<__nv_bfloat16> {
   using S = uint32_t;
@@ -197,8 +174,7 @@ struct SortKey<__nv_bfloat16> {
   }
   static __device__ __forceinline__ int row(S key) { return (int)(key & 0xffffu); }
   static __device__ __forceinline__ float value(uint32_t image) {
-    const uint32_t u = (image & 0x8000u) ? (image ^ 0x8000u) : (~image & 0xffffu);
-    return __bfloat162float(__ushort_as_bfloat16((unsigned short)u));
+    return __bfloat162float(key_value<__nv_bfloat16>(image));
   }
   static __device__ __forceinline__ float s_value(S key) { return value(key >> 16); }
 };
@@ -212,9 +188,7 @@ struct SortKey<float> {
     return ((S)image << 32) | (uint32_t)row;
   }
   static __device__ __forceinline__ int row(S key) { return (int)(uint32_t)key; }
-  static __device__ __forceinline__ float value(uint32_t image) {
-    return __uint_as_float((image & 0x80000000u) ? (image ^ 0x80000000u) : ~image);
-  }
+  static __device__ __forceinline__ float value(uint32_t image) { return key_value<float>(image); }
   static __device__ __forceinline__ float s_value(S key) { return value((uint32_t)(key >> 32)); }
 };
 
@@ -339,14 +313,29 @@ __device__ __forceinline__ void network_pairs(uint32_t (&w)[R / 2], int lane) {
   if constexpr (Kb < 32 * R) network_pairs<R, 2 * Kb>(w, lane);
 }
 
-// Rows 0 .. n - 1 of columns col0 .. col0 + C - 1 of element b of s and t,
-// as they are, into the columns xs[c][row], xt[c][row] (row stride LD);
+// Where row p of a column lies in shared memory: at p, or (Padded) with one
+// 32-bit word skipped after every 128 bytes, so that lanes which each write
+// R consecutive rows of one column meet no bank conflict.
+template <typename T, bool Padded>
+__device__ __forceinline__ int slot(int p) {
+  constexpr int EW = 4 / (int)sizeof(T);   // elements a word
+  return Padded ? p + EW * (p / (32 * EW)) : p;
+}
+
+// The value sort's column stride in elements: room for the padded slots, and
+// LD = 1 word (mod 32 words), so that the load's column writes and the
+// store's column reads meet no bank conflict.
+template <typename T, int NP>
+__host__ __device__ constexpr int value_sort_ld() { return NP + 33 * (4 / (int)sizeof(T)); }
+
+// Rows 0 .. n - 1 of columns col0 .. col0 + C - 1 of element b of x (and, if
+// Twin, of y), as they are, into the columns xs[c * LD + slot(row)] (and ys);
 // columns at or past d are left out. VEC elements a load: 16 bytes when d
 // allows it, else one; four passes of loads in flight.
-template <typename T, int R, int C, int LD, int VEC>
-__device__ __forceinline__ void load_columns(const T* __restrict__ s, const T* __restrict__ t,
-                                             T* xs, T* xt, int b, int n, int d, int col0) {
-  constexpr int NP = 32 * R, PER_ROW = C / VEC, ROWS = kSl1Threads / PER_ROW;
+template <typename T, int R, int C, int LD, int VEC, bool Padded, bool Twin>
+__device__ __forceinline__ void load_columns(const T* __restrict__ x, const T* __restrict__ y,
+                                             T* xs, T* ys, int b, int n, int d, int col0) {
+  constexpr int NP = 32 * R, PER_ROW = C / VEC, ROWS = kThreads / PER_ROW;
   constexpr int PASSES = (NP + ROWS - 1) / ROWS, BATCH = PASSES < 4 ? PASSES : 4;
   static_assert(PASSES % BATCH == 0, "whole batches of passes");
   struct alignas(sizeof(T) * VEC) Vec { T x[VEC]; };
@@ -354,40 +343,125 @@ __device__ __forceinline__ void load_columns(const T* __restrict__ s, const T* _
   if (col0 + c0 >= d) return;   // VEC > 1: d % VEC == 0, the whole vector
 #pragma unroll 1
   for (int p0 = 0; p0 < PASSES; p0 += BATCH) {
-    Vec sv[BATCH], tv[BATCH];
+    Vec xv[BATCH], yv[BATCH];
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       const int r = r0 + (p0 + u) * ROWS;
       if (r < n) {
         const size_t at = ((size_t)b * n + r) * d + col0 + c0;
-        sv[u] = *reinterpret_cast<const Vec*>(s + at);
-        tv[u] = *reinterpret_cast<const Vec*>(t + at);
+        xv[u] = *reinterpret_cast<const Vec*>(x + at);
+        if constexpr (Twin) yv[u] = *reinterpret_cast<const Vec*>(y + at);
       }
     }
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       const int r = r0 + (p0 + u) * ROWS;
       if (r >= n) continue;
+      const int at = slot<T, Padded>(r);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
-        xs[(c0 + e) * LD + r] = sv[u].x[e];
-        xt[(c0 + e) * LD + r] = tv[u].x[e];
+        xs[(c0 + e) * LD + at] = xv[u].x[e];
+        if constexpr (Twin) ys[(c0 + e) * LD + at] = yv[u].x[e];
       }
     }
   }
 }
 
+// The way back for one tensor of padded columns: rows 0 .. n - 1 of
+// xs[c * LD + slot(row)] into columns col0 .. col0 + C - 1 of element b of
+// out, stores coalesced along d, VEC elements a store.
+template <typename T, int R, int C, int LD, int VEC>
+__device__ __forceinline__ void store_columns(const T* xs, T* __restrict__ out, int b, int n,
+                                              int d, int col0) {
+  constexpr int NP = 32 * R, PER_ROW = C / VEC, ROWS = kThreads / PER_ROW;
+  constexpr int PASSES = (NP + ROWS - 1) / ROWS;
+  struct alignas(sizeof(T) * VEC) Vec { T x[VEC]; };
+  const int c0 = (threadIdx.x % PER_ROW) * VEC, r0 = threadIdx.x / PER_ROW;
+  if (col0 + c0 >= d) return;
+#pragma unroll 4
+  for (int p = 0; p < PASSES; ++p) {
+    const int r = r0 + p * ROWS;
+    if (r >= n) break;
+    const int at = slot<T, true>(r);
+    Vec v;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v.x[e] = xs[(c0 + e) * LD + at];
+    *reinterpret_cast<Vec*>(out + ((size_t)b * n + r) * d + col0 + c0) = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The value sort
+// ---------------------------------------------------------------------------
+
+// One block: element b, columns col0 .. col0 + C - 1 of x, sorted into out.
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
+value_sort_kernel(const T* __restrict__ x, T* __restrict__ out, int n, int d, int tiles, int vec) {
+  constexpr int NP = 32 * R, C = col_tile(NP), LD = value_sort_ld<T, NP>();
+  constexpr int VEC = 16 / sizeof(T);
+  // 16-bit keys two to a word (positions r and r + R / 2), from R = 2 on
+  constexpr bool kPairs = sizeof(T) == 2 && R >= 2;
+  constexpr int W = kPairs ? R / 2 : R;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);   // [C][LD] by column, rows at slot(row)
+  const int b = blockIdx.x / tiles, col0 = (blockIdx.x % tiles) * C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (vec)
+    load_columns<T, R, C, LD, VEC, true, false>(x, nullptr, xs, nullptr, b, n, d, col0);
+  else
+    load_columns<T, R, C, LD, 1, true, false>(x, nullptr, xs, nullptr, b, n, d, col0);
+  __syncthreads();
+
+  for (int c = warp; c < C && col0 + c < d; c += kWarps) {
+    T* col = xs + c * LD;
+    // the keys: lane l takes rows l, l + 32, ...; rows at or past n pad
+    uint32_t w[W];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = 32 * r + lane;
+      const uint32_t k = row < n ? key_image(col[slot<T, true>(row)]) : Bits<T>::kMask;
+      if (!kPairs || r < W)
+        w[r % W] = k;
+      else
+        w[r % W] |= k << 16;
+    }
+    if constexpr (kPairs)
+      network_pairs<R>(w, lane);
+    else
+      network<R>(w, lane);
+    __syncwarp();   // every lane has read its rows before any is overwritten
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int p = lane * R + r;
+      if (p >= n) break;
+      const uint32_t k = kPairs ? (w[r % W] >> (16 * (r / W))) & 0xffffu : w[r % W];
+      col[slot<T, true>(p)] = key_value<T>(k);
+    }
+  }
+  __syncthreads();
+  if (vec)
+    store_columns<T, R, C, LD, VEC>(xs, out, b, n, d, col0);
+  else
+    store_columns<T, R, C, LD, 1>(xs, out, b, n, d, col0);
+}
+
+// ---------------------------------------------------------------------------
+// sorted_l1 forward
+// ---------------------------------------------------------------------------
+
 // One block: element b, columns col0 .. col0 + C - 1. partials[blockIdx.x]
 // gets the block's sum of |s_sorted - t_sorted|; sign (int8, [B, n, d])
 // gets sign(s_sorted - t_sorted) at the row each s key came from.
 template <typename T, int R>
-__global__ void __launch_bounds__(kSl1Threads, R <= 8 ? 4 : 1)   // R <= 8: 64 registers
+__global__ void __launch_bounds__(kThreads, R <= 8 ? 4 : 1)   // R <= 8: 64 registers
 sl1_fwd_kernel(const T* __restrict__ s, const T* __restrict__ t, float* __restrict__ partials,
                int8_t* __restrict__ sign, int n, int d, int tiles, int vec) {
   using K = SortKey<T>;
   using S = typename K::S;
   constexpr int NP = 32 * R;
-  constexpr int C = NP <= 512 ? 32 : 16;             // col_tile(n_pad)
+  constexpr int C = col_tile(NP);
   constexpr int LD = NP + 4 / (int)sizeof(T);        // conflict-free column writes
   constexpr int LDS = NP + 4;                        // signs: conflict-free row reads
   constexpr int VEC = 16 / sizeof(T);
@@ -398,18 +472,18 @@ sl1_fwd_kernel(const T* __restrict__ s, const T* __restrict__ t, float* __restri
   T* xs = reinterpret_cast<T*>(smem);                // [C][LD] s by column
   T* xt = xs + C * LD;                               // [C][LD] t by column
   int8_t* sg = reinterpret_cast<int8_t*>(xt + C * LD);   // [C][LDS] signs by row
-  __shared__ float red[kSl1Warps];
+  __shared__ float red[kWarps];
   const int b = blockIdx.x / tiles, col0 = (blockIdx.x % tiles) * C;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (vec)
-    load_columns<T, R, C, LD, VEC>(s, t, xs, xt, b, n, d, col0);
+    load_columns<T, R, C, LD, VEC, false, true>(s, t, xs, xt, b, n, d, col0);
   else
-    load_columns<T, R, C, LD, 1>(s, t, xs, xt, b, n, d, col0);
+    load_columns<T, R, C, LD, 1, false, true>(s, t, xs, xt, b, n, d, col0);
   __syncthreads();
 
   float acc = 0.f;
-  for (int c = warp; c < C && col0 + c < d; c += kSl1Warps) {
+  for (int c = warp; c < C && col0 + c < d; c += kWarps) {
     // the keys: lane l takes rows l, l + 32, ...; rows at or past n pad
     S v[R];
     uint32_t w[TW];
@@ -417,8 +491,8 @@ sl1_fwd_kernel(const T* __restrict__ s, const T* __restrict__ t, float* __restri
     for (int r = 0; r < R; ++r) {
       const int row = 32 * r + lane;
       const bool in = row < n;
-      v[r] = K::pack(in ? key_image(xs[c * LD + row]) : K::kPad, row);
-      const uint32_t ti = in ? key_image(xt[c * LD + row]) : K::kPad;
+      v[r] = K::pack(in ? key_image<true>(xs[c * LD + row]) : K::kPad, row);
+      const uint32_t ti = in ? key_image<true>(xt[c * LD + row]) : K::kPad;
       if (!kPairs || r < TW)
         w[r % TW] = ti;
       else
@@ -445,10 +519,10 @@ sl1_fwd_kernel(const T* __restrict__ s, const T* __restrict__ t, float* __restri
   if (threadIdx.x == 0) {
     float total = 0.f;
 #pragma unroll
-    for (int i = 0; i < kSl1Warps; ++i) total += red[i];
+    for (int i = 0; i < kWarps; ++i) total += red[i];
     partials[blockIdx.x] = total;
   }
-  for (int i = threadIdx.x; i < n * C; i += kSl1Threads) {
+  for (int i = threadIdx.x; i < n * C; i += kThreads) {
     const int r = i / C, c = i % C;
     if (col0 + c < d) sign[((size_t)b * n + r) * d + col0 + c] = sg[c * LDS + r];
   }
@@ -483,68 +557,71 @@ __global__ void sl1_bwd_kernel(const int8_t* __restrict__ sign, const float* __r
   }
 }
 
-struct Launch {
-  int n_pad, C, tiles;
-  dim3 block;
-};
-
-inline Launch plan(int n, int d) {
-  Launch l;
-  l.n_pad = next_pow2(n);
-  l.C = col_tile(l.n_pad);
-  l.tiles = (d + l.C - 1) / l.C;
-  int rows = l.n_pad / 2;
-  if (rows < 1) rows = 1;
-  if (rows > kMaxThreads / l.C) rows = kMaxThreads / l.C;
-  l.block = dim3(l.C, rows);
-  return l;
-}
-
 inline bool bad_shape(int B, int n, int d) {
   return B < 1 || d < 1 || n < 2 || n > kMaxN || (long long)B * ((d + 15) / 16) > 0x7fffffffLL;
 }
 
+// f(std::integral_constant<int, R>()) for the keys a lane, R = n_pad / 32.
+template <typename F>
+int by_keys_a_lane(int n, F f) {
+  using std::integral_constant;
+  const int n_pad = next_pow2(n);
+  if (n_pad <= 32) return f(integral_constant<int, 1>());
+  if (n_pad == 64) return f(integral_constant<int, 2>());
+  if (n_pad == 128) return f(integral_constant<int, 4>());
+  if (n_pad == 256) return f(integral_constant<int, 8>());
+  if (n_pad == 512) return f(integral_constant<int, 16>());
+  return f(integral_constant<int, 32>());
+}
+
+// 16-byte loads and stores when every row segment of a column tile is 16-byte
+// aligned in each tensor.
 template <typename T>
-int run_sort(const void* x, void* out, int B, int n, int d, cudaStream_t st) {
-  const Launch l = plan(n, d);
-  const size_t bytes = (size_t)l.n_pad * l.C * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(bitonic_sort_kernel<T>,
+int vectorised(int d, const void* a, const void* b) {
+  return d % (16 / (int)sizeof(T)) == 0 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
+}
+
+template <typename T, int R>
+int launch_sort(const T* x, T* out, int B, int n, int d, cudaStream_t st) {
+  constexpr int NP = 32 * R, C = col_tile(NP);
+  const size_t bytes = (size_t)C * value_sort_ld<T, NP>() * sizeof(T);
+  cudaError_t e = cudaFuncSetAttribute(value_sort_kernel<T, R>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  bitonic_sort_kernel<T><<<B * l.tiles, l.block, bytes, st>>>(
-      (const T*)x, (T*)out, n, l.n_pad, d, l.tiles);
+  const int tiles = (d + C - 1) / C;
+  value_sort_kernel<T, R><<<B * tiles, kThreads, bytes, st>>>(x, out, n, d, tiles,
+                                                              vectorised<T>(d, x, out));
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_sort(const void* x, void* out, int B, int n, int d, cudaStream_t st) {
+  return by_keys_a_lane(n, [&](auto r) {
+    return launch_sort<T, decltype(r)::value>((const T*)x, (T*)out, B, n, d, st);
+  });
 }
 
 template <typename T, int R>
 int launch_sl1_fwd(const T* s, const T* t, float* partials, int8_t* sign, int B, int n, int d,
                    cudaStream_t st) {
-  constexpr int NP = 32 * R, C = NP <= 512 ? 32 : 16;
+  constexpr int NP = 32 * R, C = col_tile(NP);
   const size_t bytes = (size_t)C * (NP + 4 / sizeof(T)) * 2 * sizeof(T) + (size_t)C * (NP + 4);
   cudaError_t e = cudaFuncSetAttribute(sl1_fwd_kernel<T, R>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (d + C - 1) / C;
-  // 16-byte loads when every row segment of a column tile is 16-byte aligned
-  const int vec = d % (16 / (int)sizeof(T)) == 0 && (uintptr_t)s % 16 == 0 &&
-                  (uintptr_t)t % 16 == 0;
-  sl1_fwd_kernel<T, R><<<B * tiles, kSl1Threads, bytes, st>>>(s, t, partials, sign, n, d, tiles,
-                                                               vec);
+  sl1_fwd_kernel<T, R><<<B * tiles, kThreads, bytes, st>>>(s, t, partials, sign, n, d, tiles,
+                                                           vectorised<T>(d, s, t));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int run_sl1_fwd(const void* s, const void* t, float* partials, int8_t* sign, int B, int n,
                 int d, cudaStream_t st) {
-  const T* sp = (const T*)s;
-  const T* tp = (const T*)t;
-  const int n_pad = next_pow2(n);
-  if (n_pad <= 32) return launch_sl1_fwd<T, 1>(sp, tp, partials, sign, B, n, d, st);
-  if (n_pad == 64) return launch_sl1_fwd<T, 2>(sp, tp, partials, sign, B, n, d, st);
-  if (n_pad == 128) return launch_sl1_fwd<T, 4>(sp, tp, partials, sign, B, n, d, st);
-  if (n_pad == 256) return launch_sl1_fwd<T, 8>(sp, tp, partials, sign, B, n, d, st);
-  if (n_pad == 512) return launch_sl1_fwd<T, 16>(sp, tp, partials, sign, B, n, d, st);
-  return launch_sl1_fwd<T, 32>(sp, tp, partials, sign, B, n, d, st);
+  return by_keys_a_lane(n, [&](auto r) {
+    return launch_sl1_fwd<T, decltype(r)::value>((const T*)s, (const T*)t, partials, sign, B, n,
+                                                 d, st);
+  });
 }
 
 template <typename T>
@@ -562,17 +639,23 @@ int run_sl1_bwd(const int8_t* sign, const float* scale, void* g, long long numel
 // Column tiles per batch element: the forward writes B * tiles loss partials.
 extern "C" int dk_sort_tiles(int n, int d) {
   if (bad_shape(1, n, d)) return -1;
-  return plan(n, d).tiles;
+  const int C = col_tile(next_pow2(n));
+  return (d + C - 1) / C;
 }
 
-// x, out: [B, n, d] contiguous, bf16 (is_bf16 = 1) or fp32. Returns a CUDA
-// error code (0 = launched).
-extern "C" int dk_sort_bitonic(const void* x, void* out, int B, int n, int d, int is_bf16,
+// x, out: [B, n, d] contiguous, of the dtype that `dtype` names: 0 fp32,
+// 1 bf16, 2 fp16, 3 int32. Returns a CUDA error code (0 = launched).
+extern "C" int dk_sort_bitonic(const void* x, void* out, int B, int n, int d, int dtype,
                                void* stream) {
   if (bad_shape(B, n, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? run_sort<__nv_bfloat16>(x, out, B, n, d, st)
-                 : run_sort<float>(x, out, B, n, d, st);
+  switch (dtype) {
+    case 0: return run_sort<float>(x, out, B, n, d, st);
+    case 1: return run_sort<__nv_bfloat16>(x, out, B, n, d, st);
+    case 2: return run_sort<__half>(x, out, B, n, d, st);
+    case 3: return run_sort<int32_t>(x, out, B, n, d, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // s, t: [B, n, d] contiguous, one dtype; partials: fp32 [B * dk_sort_tiles(n, d)];

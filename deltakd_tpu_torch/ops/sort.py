@@ -14,11 +14,17 @@ the split of the gradient inside a group of tied rows; any other split is an
 equally valid subgradient of the same loss.
 
 Dispatch is by the device of the input: a CPU tensor takes the plain version,
-a CUDA tensor the hand-written kernels in ``csrc/sort.cu`` (bf16 and fp32,
-2 <= n <= 1024 along the sorted axis), anything else raises. The kernels work
-on a contiguous [B, n, d] tensor sorted along n; another axis or rank is
-brought to that layout by a transpose, not by another code path. The whole
-batch goes through one call.
+a CUDA tensor the hand-written kernels in ``csrc/sort.cu``, anything else
+raises. The kernels work on a contiguous [B, n, d] tensor sorted along n,
+2 <= n <= 1024; another axis or rank is brought to that layout by a
+transpose, not by another code path. The whole batch goes through one call.
+Both sorts run one bitonic network in registers and warp shuffles, one warp
+a column, on unsigned key images whose order is the order to sort by
+(``value_sort_keys``). The value sort takes bf16, fp16, fp32 and int32 and
+equals ``torch.sort(x, dim=1).values``: every NaN sorts last (a column with k
+NaNs ends in k NaNs), -0.0 and +0.0 keep their signs (the -0.0s first, equal
+as floats to torch.sort's result). The sorted_l1 kernels take bf16 and fp32;
+their s keys carry the row, with -0.0 folded onto +0.0 (``sort_keys``).
 """
 
 from __future__ import annotations
@@ -35,6 +41,11 @@ from deltakd_tpu_torch.ops import current_stream, on_card
 LAUNCHES: collections.Counter = collections.Counter()
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# the value sort's dtypes, by the code dk_sort_bitonic takes
+_SORT_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int32: 3}
+# (integer view, bits, the bits of +inf: anything above is a NaN; None for an integer)
+_KEY_BITS = {torch.bfloat16: (torch.int16, 16, 0x7f80), torch.float16: (torch.int16, 16, 0x7c00),
+             torch.float32: (torch.int32, 32, 0x7f800000), torch.int32: (torch.int32, 32, None)}
 _MIN_N, _MAX_N = 2, 1024
 
 
@@ -65,12 +76,42 @@ def _plain_sl1_fwd(s3: torch.Tensor, t3: torch.Tensor) -> Tuple[torch.Tensor, to
     return diff.abs().sum(), sign
 
 
+def value_sort_keys(x: torch.Tensor) -> torch.Tensor:
+    """The value-sort kernel's key image of each element of a bf16, fp16,
+    fp32 or int32 tensor, as int64 (16 or 32 bits used): unsigned, and its
+    order is the value order. A float's: every NaN onto the largest image
+    (all ones, which is also the padding's), otherwise sign bit set: all bits
+    flipped; clear: sign bit set (so -0.0 lies just below +0.0). An int32's:
+    ``x ^ 0x80000000``. ``value_from_keys`` is its inverse."""
+    if x.dtype not in _KEY_BITS:
+        raise ValueError(f"value_sort_keys: takes bf16, fp16, fp32 or int32, got {x.dtype}")
+    view, bits, inf = _KEY_BITS[x.dtype]
+    sign, mask = 1 << (bits - 1), (1 << bits) - 1
+    u = x.contiguous().view(view).to(torch.int64) & mask
+    if inf is None:
+        return u ^ sign
+    image = torch.where((u & sign) != 0, ~u & mask, u | sign)
+    return torch.where((u & (sign - 1)) > inf, mask, image)
+
+
+def value_from_keys(keys: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The values of ``value_sort_keys`` images, as the kernel decodes them:
+    the bits back for every value but a NaN, and the largest image decodes to
+    the NaN with every bit but the sign set (INT32_MAX for int32)."""
+    view, bits, inf = _KEY_BITS[dtype]
+    sign, mask = 1 << (bits - 1), (1 << bits) - 1
+    if inf is None:
+        u = keys ^ sign
+    else:
+        u = torch.where((keys & sign) != 0, keys ^ sign, ~keys & mask)
+    return torch.where(u >= sign, u - (1 << bits), u).to(view).view(dtype)
+
+
 def sort_keys(x3: torch.Tensor) -> torch.Tensor:
     """The forward kernel's packed s keys of a [B, n, d] bf16 or fp32 tensor
-    sorted along axis 1, as int64: the order-preserving unsigned image of each
-    value (sign bit set: all bits flipped; clear: sign bit set; -0.0 folded
-    onto +0.0 first, every NaN onto the largest image) above its row index.
-    bf16: ``image << 16 | row``, the kernel's 32-bit key; fp32: the kernel's
+    sorted along axis 1, as int64: the ``value_sort_keys`` image of each
+    value, -0.0 folded onto +0.0, above its row index. bf16:
+    ``image << 16 | row``, the kernel's 32-bit key; fp32: the kernel's
     ``image << 32 | row`` less 2**63, which keeps its order inside int64. The
     keys are distinct, and ascending key order is the stable ascending order
     of the values (torch.sort(stable=True) puts NaN last as well)."""
@@ -78,12 +119,9 @@ def sort_keys(x3: torch.Tensor) -> torch.Tensor:
     if bits is None or x3.dim() != 3:
         raise ValueError(f"sort_keys: takes a bf16 or fp32 [B, n, d] tensor, got "
                          f"{x3.dtype} {tuple(x3.shape)}")
-    view = torch.int16 if bits == 16 else torch.int32
-    sign, mask = 1 << (bits - 1), (1 << bits) - 1
-    u = x3.contiguous().view(view).to(torch.int64) & mask
-    u = torch.where((u & (sign - 1)) > (0x7f80 if bits == 16 else 0x7f800000), sign - 1, u)
-    u = torch.where(u == sign, 0, u)
-    image = torch.where((u & sign) != 0, ~u & mask, u | sign)
+    sign = 1 << (bits - 1)
+    image = value_sort_keys(x3)
+    image = torch.where(image == sign - 1, sign, image)   # -0.0 onto +0.0
     row = torch.arange(x3.shape[1], dtype=torch.int64, device=x3.device).view(1, -1, 1)
     if bits == 16:
         return (image << 16) | row
@@ -99,9 +137,10 @@ def _plain_sl1_bwd(sign: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) 
 # CUDA kernel wrappers
 # -----------------------------------------------------------------------------
 
-def _kernel_operand(x: torch.Tensor, name: str) -> torch.Tensor:
-    if x.dim() != 3 or x.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"{name}: takes a bf16 or fp32 [B, n, d] tensor, got "
+def _kernel_operand(x: torch.Tensor, name: str, dtypes=_KERNEL_DTYPES) -> torch.Tensor:
+    if x.dim() != 3 or x.dtype not in dtypes:
+        raise ValueError(f"{name}: takes a [B, n, d] tensor of "
+                         f"{', '.join(str(t).split('.')[-1] for t in dtypes)}, got "
                          f"{x.dtype} {tuple(x.shape)}")
     if not _MIN_N <= x.shape[1] <= _MAX_N or x.shape[0] < 1 or x.shape[2] < 1:
         raise ValueError(f"{name}: sorts {_MIN_N} <= n <= {_MAX_N} rows of a "
@@ -121,13 +160,14 @@ def _call(fn: str, name: str, *args) -> None:
 
 
 def bitonic_sort_kernel(x: torch.Tensor) -> torch.Tensor:
-    """The value-sort kernel: ascending along axis 1 of a CUDA [B, n, d]."""
-    x = _kernel_operand(x, "bitonic_sort")
+    """The value-sort kernel: ascending along axis 1 of a CUDA [B, n, d]
+    tensor of bf16, fp16, fp32 or int32."""
+    x = _kernel_operand(x, "bitonic_sort", tuple(_SORT_DTYPE_CODES))
     B, n, d = x.shape
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
         _call("dk_sort_bitonic", "bitonic_sort", x.data_ptr(), out.data_ptr(), B, n, d,
-              int(x.dtype == torch.bfloat16), current_stream(x))
+              _SORT_DTYPE_CODES[x.dtype], current_stream(x))
     return out
 
 

@@ -21,7 +21,8 @@ soft-KD steps and N WassKD-l1 steps on the fused-block path (chip_smoke.py's
 `run_train_path`: full width, batch 256, random weights), the steps that
 launch flash_bwd and the sorted_l1 forward. Prints the card's name and power
 limit, chip_smoke.py's `[time]` lines, and last one JSON object {"package":
-DIR, "rows": {name: {"ms", "plain_ms", "library_ms", "bound_ms"}},
+DIR, "rows": {name: {"ms", "plain_ms", "library_ms", "bound_ms", and for the
+value sort the same in fp32 with a "fp32_" prefix}},
 "mlp_widths": {D: {"ms", "library_ms", "bound_ms"}}, "step_ms": {path: ms}}.
 Exits 1 without a card.
 """
@@ -68,9 +69,10 @@ def main() -> int:
                          check=True).stdout.strip())
     rows = {**chip_smoke.time_attention_kernels(at), **chip_smoke.time_sort_kernels(so)}
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys += tuple(f"fp32_{k}" for k in keys)   # the value sort's fp32 timing
     result = {"package": pkg,
-              "rows": {(k if isinstance(k, str) else f"{k[0]}[BH={k[1]}]"): {n: r[n] for n in keys}
-                       for k, r in rows.items()},
+              "rows": {(k if isinstance(k, str) else f"{k[0]}[BH={k[1]}]"):
+                       {n: r[n] for n in keys if n in r} for k, r in rows.items()},
               "mlp_widths": {D: dict(ms=ms, library_ms=lib, bound_ms=bound)
                              for D, (ms, lib, bound) in chip_smoke.time_mlp_widths(fm).items()}}
     if args.steps:

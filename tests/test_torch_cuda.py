@@ -15,7 +15,8 @@ card, and on the CPU as well (the one case here that runs without a card). The
 block-pair kernels: the four (feat1, feat2) variants at D=192 and D=384 on
 weights of std 1/sqrt(fan-in), scales with zeros, through the kernels alone
 and through the autograd Function. The sort kernels: inputs with ties (+0.0 tied with a later -0.0 from
-n = 4 on), n from 2 to 1024; sorted values, signs and gradients exactly, the loss to 1e-5 (fp32 sums in
+n = 4 on), n from 2 to 1024; the value sort also in fp16 and int32 with NaN, +-inf and
+the int32 extremes, against torch.sort (NaNs at the same places); sorted values, signs and gradients exactly, the loss to 1e-5 (fp32 sums in
 another order). The attention and MLP
 kernels: O(1) bf16 inputs (q, k of std 2, weights of std 1/sqrt(fan-in)), ragged
 N and M; 2e-2 of the largest reference value, 1e-3 absolute on lse.
@@ -262,6 +263,39 @@ def test_pair_kernels_match_plain_version_on_card(width, heads, nf1, nf2):
 def _within(a, b, tol=2e-2):
     a, b = a.float(), b.float()
     assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32, torch.int32])
+@pytest.mark.parametrize("shape", [(3, 196, 40), (2, 2, 5), (2, 1024, 20), (4, 33, 1)])
+def test_value_sort_matches_torch_sort_on_card(shape, dtype):
+    """The value sort in its four dtypes: ties, +-0.0, +-inf and NaN (the int32
+    extremes for int32); torch.sort's values where it has no NaN, the NaNs at
+    the same places, each column's -0.0 count kept."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(shape[1])
+    if dtype == torch.int32:
+        x = torch.randint(-40, 40, shape, generator=g, dtype=torch.int32)
+        x.view(-1)[:4] = torch.tensor([-2**31, 2**31 - 1, 2**31 - 1, 0], dtype=torch.int32)
+    else:
+        x = (torch.randn(shape, generator=g) * 4).round() / 4
+        x.view(-1)[:6] = torch.tensor([float("nan"), -0.0, float("inf"), 0.0, -float("inf"), -0.0])
+        x = x.to(dtype)
+    x = x.cuda()
+    so.reset_launches()
+    out = so.bitonic_sort(x, axis=1)
+    assert so.LAUNCHES == {"bitonic_sort": 1} and out.dtype == dtype
+    # torch.sort on the card puts a NaN with its sign bit set first (the CPU
+    # cast to bf16 makes every NaN 0xffff); the value sort puts every NaN last
+    ref = torch.sort(torch.where(torch.isnan(x), x.abs(), x) if dtype.is_floating_point else x,
+                     dim=1).values
+    nan = torch.isnan(ref) if dtype.is_floating_point else torch.zeros_like(ref, dtype=torch.bool)
+    assert torch.equal(out[~nan], ref[~nan])
+    if dtype.is_floating_point:
+        assert torch.equal(torch.isnan(out), nan)
+        neg_zero = lambda t: ((t == 0) & torch.signbit(t)).sum(dim=1)
+        assert torch.equal(neg_zero(out), neg_zero(x))
 
 
 @pytest.mark.cuda

@@ -2,7 +2,9 @@
 the JAX package's: the plain PyTorch versions (the autograd Function with its
 sign residual, and the autograd-through-sort reference) against the XLA
 sorting network `_sorted_l1_network` and the Pallas kernel `sorted_l1_pallas`
-run in interpret mode.
+run in interpret mode; and the value sort's key images (``value_sort_keys``,
+the image the kernel sorts, and ``value_from_keys``, its decode) in bf16,
+fp16, fp32 and int32 against np.sort and JAX `bitonic_sort`.
 
 fp32 on the CPU, inputs from a numpy seed. On tie-free inputs the terms are
 the same and only the fp32 summation order differs: value and gradient to
@@ -192,6 +194,115 @@ def test_other_axes_go_through_the_same_layout(shape, axis):
         tsort.bitonic_sort(torch.from_numpy(s), axis=axis).numpy(), np.sort(s, axis=axis))
 
 
+_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32,
+           "int32": torch.int32}
+_JAX_DTYPES = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16,
+               torch.float32: jnp.float32, torch.int32: jnp.int32}
+
+
+def _value_inputs(shape, dtype, seed, nan=False):
+    """A tensor with many ties and a tenth of its elements special: +-0.0 and
+    +-inf (and NaN) for a float, the int32 extremes, 0 and -1 for int32."""
+    rng = np.random.RandomState(seed)
+    if dtype == torch.int32:
+        x = rng.randint(-40, 40, size=shape).astype(np.int32)
+        info = np.iinfo(np.int32)
+        specials = [info.min, info.max, 0, -1, info.max - 1]
+    else:
+        x = (np.round(rng.randn(*shape) * 4) / 4).astype(np.float32)
+        specials = [0.0, -0.0, np.inf, -np.inf, -0.0] + ([np.nan] if nan else [])
+    idx = rng.choice(x.size, max(len(specials), x.size // 10), replace=False)
+    x.flat[idx] = np.resize(np.asarray(specials, x.dtype), len(idx))
+    return torch.from_numpy(x).to(dtype)
+
+
+def _image_sort(x):
+    """What the value-sort kernel computes, in plain PyTorch: sort the key
+    images along axis 1 and decode them."""
+    return tsort.value_from_keys(torch.sort(tsort.value_sort_keys(x), dim=1).values, x.dtype)
+
+
+def _negative_zeros(x):
+    """The count of -0.0 in each column of a [B, n, d] tensor."""
+    if not x.dtype.is_floating_point:
+        return torch.zeros(x.shape[0], x.shape[2], dtype=torch.int64)
+    return ((x == 0) & torch.signbit(x)).sum(dim=1)
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES.values()), ids=list(_DTYPES))
+def test_value_sort_keys_order_as_the_values(dtype):
+    """a < b gives image(a) < image(b); equal values give equal images except
+    -0.0, whose image is +0.0's less one; every NaN takes the largest image,
+    above every other value's."""
+    v = _value_inputs((1, 96, 1), dtype, 5, nan=dtype.is_floating_point).flatten()
+    k = tsort.value_sort_keys(v)
+    a = v.double()
+    less = a[:, None] < a[None, :]
+    assert bool((k[:, None] < k[None, :])[less].all())
+    neg_zero = (a == 0) & torch.signbit(a)
+    equal = (a[:, None] == a[None, :]) & (neg_zero[:, None] == neg_zero[None, :])
+    assert bool((k[:, None] == k[None, :])[equal].all())
+    if dtype.is_floating_point:
+        mask = (1 << (16 if dtype.itemsize == 2 else 32)) - 1
+        nan = torch.isnan(a)
+        assert bool(nan.any()) and bool((k[nan] == mask).all()) and bool((k[~nan] < mask).all())
+        assert bool(neg_zero.any())
+        assert bool((k[neg_zero] == k[(a == 0) & ~neg_zero][0] - 1).all())
+    with pytest.raises(ValueError):
+        tsort.value_sort_keys(v.double())
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES.values()), ids=list(_DTYPES))
+def test_value_sort_keys_decode_to_the_same_bits(dtype):
+    """value_from_keys(value_sort_keys(x)) gives x's bits back for every value
+    but a NaN, over random bit patterns, -0.0 and the extremes included; a
+    NaN comes back as a NaN."""
+    rng = np.random.RandomState(23)
+    ints = torch.int16 if dtype.itemsize == 2 else torch.int32
+    info = torch.iinfo(ints)
+    bits = torch.from_numpy(rng.randint(info.min, info.max, size=8192, dtype=np.int64))
+    bits = torch.cat([bits, torch.tensor([info.min, info.max, 0, -1])]).to(ints)
+    x = bits.view(dtype)
+    back = tsort.value_from_keys(tsort.value_sort_keys(x), dtype)
+    keep = ~torch.isnan(x) if dtype.is_floating_point else torch.ones_like(bits, dtype=torch.bool)
+    assert torch.equal(back.view(ints)[keep], bits[keep])
+    if dtype.is_floating_point:
+        assert bool((~keep).any()) and bool(torch.isnan(back[~keep]).all())
+
+
+@pytest.mark.parametrize("n", [2, 33, 196, 1024])
+@pytest.mark.parametrize("dtype", list(_DTYPES.values()), ids=list(_DTYPES))
+def test_sorted_images_match_numpy_and_jax(dtype, n):
+    """Sorting the key images and decoding (the value-sort kernel's
+    arithmetic) equals np.sort and the JAX package's bitonic_sort (its XLA
+    network on the CPU) along axis 1, with ties, +-0.0, +-inf and the int32
+    extremes; the -0.0s keep their signs; the port's CPU path agrees."""
+    x = _value_inputs((2, n, 5), dtype, n)
+    out = _image_sort(x)
+    assert out.dtype == dtype
+    as_np = (lambda t: t.float().numpy()) if dtype.is_floating_point else (lambda t: t.numpy())
+    np.testing.assert_array_equal(as_np(out), np.sort(as_np(x), axis=1))
+    jx = jnp.asarray(as_np(x)).astype(_JAX_DTYPES[dtype])
+    j_out = np.asarray(jsort.bitonic_sort(jx, axis=1)).astype(as_np(x).dtype)
+    np.testing.assert_array_equal(as_np(out), j_out)
+    assert torch.equal(tsort.bitonic_sort(x, axis=1), out)
+    assert torch.equal(_negative_zeros(out), _negative_zeros(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+def test_sorted_images_put_nan_last_as_torch_sort(dtype):
+    """With NaNs: the image sort equals torch.sort's values, each column's
+    NaNs last and as many as it had, the -0.0 counts kept."""
+    x = _value_inputs((3, 196, 7), dtype, 9, nan=True)
+    x[0, :, 0] = float("nan")   # a column of NaNs alone
+    out, ref = _image_sort(x), torch.sort(x, dim=1).values
+    nan = torch.isnan(ref)
+    assert bool(nan.any()) and torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], ref[~nan])
+    assert torch.equal(_negative_zeros(out), _negative_zeros(x))
+
+
 def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take():
     """A CPU tensor never reaches a kernel wrapper by dispatch; called
     directly, the wrappers raise instead of falling back."""
@@ -202,6 +313,16 @@ def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take():
             tsort.bitonic_sort_kernel(bad)
         with pytest.raises(ValueError):
             tsort.kernel_sorted_l1_fwd(bad, bad)
+    # fp16 and int32: the value sort takes them (refused here only for lying
+    # on the CPU), the sorted_l1 forward does not
+    for dtype in (torch.float16, torch.int32):
+        x = torch.zeros(2, 4, 8, dtype=dtype)
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
+            tsort.bitonic_sort_kernel(x)
+        with pytest.raises(ValueError, match="takes a"):
+            tsort.kernel_sorted_l1_fwd(x, x)
+    with pytest.raises(ValueError, match="takes a"):
+        tsort.bitonic_sort_kernel(torch.zeros(2, 4, 8, dtype=torch.float64))
     with pytest.raises(ValueError):
         tsort.kernel_sorted_l1_bwd(torch.zeros(2, 4, 8, dtype=torch.int8),
                                    torch.tensor(1.0), torch.float32)
