@@ -97,7 +97,29 @@ Phases, each of which fails the run:
      and one single block, forward and backward), and compares on the card,
      on the same weights and drop-path masks, the paired student's logits
      with the single-block student's and the CPU plain path, and the
-     gradient of a soft-KD loss through both.
+     gradient of a soft-KD loss through both;
+  9. (run after phase 6's fused-block paths) the train-time data path at
+     B=256, 224 px, cifar-100 (AUG_VARIANTS):
+     RandAugment rand-m9-mstd0.5-inc1 and AutoAugment original-mstd0.5 with
+     fp32 and bf16 pixel stages from 32 px sources (the geometric ops as a
+     dense warp at the source) and from 256 px sources (a gather warp at the
+     output), 3-Augment, --src, colour jitter without aa, and aa='' beside
+     them: draws made on the card, the transform twice under torch.cuda's
+     sync debug mode 'error' (no host sync), the same bits twice, the card
+     against the CPU on the same draws stage by stage (the geometric stage,
+     then the pixel stage from the same integers); mixup in its batch, elem
+     and pair modes, card against CPU; each timed in ms a batch on the card;
+ 10. the soft recipe path: exp/soft-deit-tiny.sh's configuration (TrainConfig's
+     defaults: RandAugment, mixup 0.8 / cutmix 1.0, erasing 0.25, the bf16
+     pixel stage; weight decay 1e-4, alpha 0.1, tau 3), its teacher imported
+     from a DeiT-S-distilled checkpoint that the script writes to a temporary
+     directory (1000-class heads, a 24 x 24 grid, 'module.' keys in a
+     {"model": ...} wrapper): the import report (both heads skipped, every
+     block loaded, the grid interpolated to 14 x 14, the blocks equal to the
+     file's), 8 steps with their launch counts (12 + 12 block forwards and 12
+     block backwards a step) and times beside the aa='' soft step, and the
+     device time of one step by part, the transform and mixup their own parts
+     (`[profile] soft recipe step by part`; the aa='' soft step's too).
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
@@ -140,6 +162,28 @@ PATHS = (("soft", 8), ("wasskd", 4), ("mgd", 2), ("vitkd", 2))
 # every (feat1, feat2) variant of a pair
 PAIRED_PATHS = (("soft", 8), ("wasskd", 2), ("vitkd", 2))
 PAIR_FLAGS = ((False, False), (True, False), (False, True), (True, True))
+# the train-time data path (phase 9): (name, TrainConfig values, source px) at
+# B_MAIN, 224 px, cifar-100; from 32 px the RA/AA geometric ops run as a dense
+# warp at the source, from 256 px as a gather warp at the output
+RA_SPEC, AA_SPEC = "rand-m9-mstd0.5-inc1", "original-mstd0.5"
+AUG_VARIANTS = tuple(
+    (f"{name} {'bf16' if bf16 else 'fp32'} {px}px", dict(kw, aug_pixel_bf16=bf16), px)
+    for name, kw in (("RA", dict(aa=RA_SPEC)), ("AA", dict(aa=AA_SPEC)))
+    for bf16 in (False, True) for px in (32, 256)) + (
+    ("3-Augment bf16 32px", dict(ThreeAugment=True), 32),
+    ("src RA bf16 32px", dict(src=True), 32),
+    ("colour jitter bf16 32px", dict(aa="", color_jitter=0.3), 32),
+    ("aa='' bf16 32px", dict(aa="", color_jitter=0.0), 32),
+    ("aa='' bf16 256px", dict(aa="", color_jitter=0.0), 256))
+CIFAR100_STD = (0.2675, 0.2565, 0.2761)
+GREY_LEVEL = 1.0 / (255.0 * min(CIFAR100_STD))   # one grey level after normalisation
+RECIPE_STEPS = 8
+# the kernels that the fused block's wrappers launch (gemm_sm90.cuh,
+# attention_{fwd,bwd}.cuh, fused_block_{common,reverse}.cuh)
+BLOCK_KERNELS = ("linear_kernel", "weight_grad_kernel", "attention_fwd_kernel",
+                 "attention_bwd_kernel", "attn_delta_kernel", "ln_fwd_kernel",
+                 "ln_bwd_kernel", "gfeat_kernel", "reduce_chunks_kernel",
+                 "reduce_partials_kernel", "transpose_kernel", "colsum_kernel")
 
 
 def _timed(fn, iters, warmup=3):
@@ -162,6 +206,21 @@ def _timed(fn, iters, warmup=3):
     torch.cuda.synchronize()
     times = sorted(e0.elapsed_time(e1) for e0, e1 in events)
     return times[len(times) // 2]
+
+
+def _host_ms(fn, iters):
+    """Median ms of ``iters`` calls of ``fn`` on the host's clock, each to the
+    end of its work on the card (synchronised): the time a caller waits."""
+    import torch
+
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
 
 
 def _ptxas_summary(log):
@@ -268,6 +327,15 @@ UNFUSED_PARTS = (
 )
 
 
+# The parts of a fused train step (profile_parts): the block kernels by name,
+# then the ranges that build_train_step names around its transform and mixup
+STEP_PARTS = (
+    ("the fused-block kernels", lambda kernel, chain: any(k in kernel for k in BLOCK_KERNELS)),
+    ("the train transform", lambda kernel, chain: "train_transform" in _names(chain)),
+    ("mixup", lambda kernel, chain: "mixup" in _names(chain)),
+)
+
+
 def profile_parts(label, fn, parts):
     """Device time of one call of ``fn`` (a train step) by part: torch.profiler
     with the CPU ops and their input shapes, each kernel given to the first
@@ -283,8 +351,11 @@ def profile_parts(label, fn, parts):
             fn()
             torch.cuda.synchronize()
         events = prof.events()
+        # a record_function range (the step names its transform and mixup) also
+        # shows as a device interval over its kernels: it is no kernel
+        ranges = {e.name for e in events if getattr(e, "is_user_annotation", False)}
         total = sum(e.time_range.end - e.time_range.start for e in events
-                    if e.device_type == DeviceType.CUDA)
+                    if e.device_type == DeviceType.CUDA and e.name not in ranges)
         sums = {name: 0.0 for name, _ in parts}
         for e in events:
             if e.device_type != DeviceType.CPU or not e.kernels:
@@ -294,6 +365,8 @@ def profile_parts(label, fn, parts):
                 chain.append((node.name, node.input_shapes or []))
                 node = node.cpu_parent
             for k in e.kernels:
+                if k.name in ranges:
+                    continue
                 part = next((name for name, test in parts if test(k.name, chain)), None)
                 if part is not None:
                     sums[part] += k.duration
@@ -303,7 +376,8 @@ def profile_parts(label, fn, parts):
         # the first part is taken by kernel name alone: the port's kernels are
         # launched through ctypes, under an autograd node or under no op at all
         sums[parts[0][0]] = sum(e.time_range.end - e.time_range.start for e in events
-                                if e.device_type == DeviceType.CUDA and parts[0][1](e.name, []))
+                                if e.device_type == DeviceType.CUDA and e.name not in ranges
+                                and parts[0][1](e.name, []))
         rest = total - sum(sums.values())
         for name, us in list(sums.items()) + [("the rest", rest)]:
             print(f"[profile] {label} by part: {us / 1e3:.4f} ms ({100 * us / total:.1f}%) "
@@ -1591,14 +1665,18 @@ def _unfused_models(cfg, num_classes):
     return teacher, student
 
 
-def run_train_path(mods, kd_type, steps, unfused=False, paired=False):
+def run_train_path(mods, kd_type, steps, unfused=False, paired=False,
+                   teacher_checkpoint=None):
     """Phase 6: ``steps`` train steps of one distillation type at full width
     through load_teacher_student (the fused block; with ``paired`` the student
     on block pairs, block_pair=True) or, with ``unfused``, create_model with
     attention_fn / mlp_fn and no block_fn, then TrainState ->
     build_train_step. The launch counts are set to 0 just before the steps
-    and read just after. Returns (launches, step ms, what the later phases
-    need)."""
+    and read just after. With ``teacher_checkpoint`` the config is the
+    recipe's (exp/soft-deit-tiny.sh: TrainConfig's defaults, RandAugment and
+    colour jitter 0.3 among them, and the teacher from that file); otherwise
+    aa='', no colour jitter and a random teacher. Returns (launches, step ms,
+    what the later phases need)."""
     import numpy as np
     import torch
 
@@ -1611,12 +1689,19 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False):
     from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
     from deltakd_tpu_torch.train.step import build_train_step
 
-    cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224",
-                      student_model="deit_tiny_distilled_patch16_224",
-                      batch_size=B_MAIN, distillation_type=kd_type, dataset="cifar-100",
-                      input_size=224, dtype="bfloat16", drop_path_rate=0.1, epochs=300,
-                      aug_pixel_bf16=True, aa="", color_jitter=0.0,
-                      allow_random_teacher=True)
+    if teacher_checkpoint is None:
+        cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224",
+                          student_model="deit_tiny_distilled_patch16_224",
+                          batch_size=B_MAIN, distillation_type=kd_type, dataset="cifar-100",
+                          input_size=224, dtype="bfloat16", drop_path_rate=0.1, epochs=300,
+                          aug_pixel_bf16=True, aa="", color_jitter=0.0,
+                          allow_random_teacher=True)
+    else:
+        cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224",
+                          student_model="deit_tiny_distilled_patch16_224",
+                          batch_size=B_MAIN, distillation_type=kd_type, dataset="cifar-100",
+                          weight_decay=1e-4, alpha=0.1, tau=3.0,
+                          teacher_checkpoint=teacher_checkpoint)
     if unfused:
         from deltakd_tpu_torch.data.registry import DATASET_STATS
 
@@ -1626,7 +1711,8 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False):
         teacher, student, aux = load_teacher_student(cfg, block_pair=paired, seed=0,
                                                      device="cuda")
     num_classes = student.cfg.num_classes
-    name = f"unfused {kd_type}" if unfused else f"paired {kd_type}" if paired else kd_type
+    name = (f"unfused {kd_type}" if unfused else f"paired {kd_type}" if paired
+            else f"{kd_type} recipe" if teacher_checkpoint else kd_type)
     tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
     state = TrainState(student, tx=tx, aux=aux)
     aug = AugmentConfig.from_config(cfg)
@@ -1655,6 +1741,8 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False):
     if unfused:   # after the counts are read: where the step's device time goes
         profile_calls(f"{name} step", lambda: step(state, images, labels, gen), calls=2)
         profile_parts(f"{name} step", lambda: step(state, images, labels, gen), UNFUSED_PARTS)
+    elif kd_type == "soft" and not paired:
+        profile_parts(f"{name} step", lambda: step(state, images, labels, gen), STEP_PARTS)
     expect = (_unfused_launches if unfused else _paired_launches if paired
               else _block_launches)(steps)
     if kd_type == "wasskd":
@@ -1678,6 +1766,174 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False):
     print(f"[{name}] step time (median of steps 1-{steps - 1}) {steady * 1e3:.2f} ms, "
           f"{B_MAIN / steady:.1f} images/s; max |param change| {changed}")
     return launches, steady * 1e3, (teacher, student, aux, aug, kd, images, labels)
+
+
+def write_teacher_checkpoint(path):
+    """A random-weight DeiT-S-distilled as timm and DeiT save one: a
+    1000-class head, a 24 x 24 position grid (384 px), every key with
+    'module.' inside {"model": ...} beside non-tensor entries. Returns the
+    state_dict (timm names, CPU tensors)."""
+    import torch
+
+    from deltakd_tpu_torch.models.vit import ViTConfig, VisionTransformer, init_weights
+
+    src = VisionTransformer(ViTConfig(img_size=384, patch_size=16, embed_dim=384, depth=12,
+                                      num_heads=6, num_classes=1000, distilled=True),
+                            dtype=torch.float32)
+    init_weights(src, torch.Generator().manual_seed(7))
+    with torch.no_grad():   # non-zero biases and gains, so that loading them shows
+        for p in src.parameters():
+            p.add_(0.01 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    state = src.state_dict()
+    torch.save({"model": {"module." + k: v for k, v in state.items()}, "epoch": 299,
+                "args": "deit_small_distilled_patch16_384"}, path)
+    return state
+
+
+def run_recipe_path(mods):
+    """Phase 10, the soft recipe path: exp/soft-deit-tiny.sh's configuration
+    (TrainConfig's defaults: rand-m9-mstd0.5-inc1, mixup 0.8 / cutmix 1.0,
+    reprob 0.25, the bf16 pixel stage; weight decay 1e-4, alpha 0.1, tau 3)
+    with its teacher imported from a checkpoint written here. Checks the
+    import report (both heads skipped, every block loaded, nothing
+    unconsumed), that the teacher's blocks equal the file's and that its
+    position embedding is the file's 24 x 24 grid interpolated to 14 x 14,
+    then runs RECIPE_STEPS train steps through run_train_path."""
+    import tempfile
+
+    import torch
+
+    from deltakd_tpu_torch.models.pos_embed import interpolate_pos_embed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "deit_small_distilled_patch16_384.pth")
+        state = write_teacher_checkpoint(path)
+        launches, ms, kept = run_train_path(mods, "soft", RECIPE_STEPS, teacher_checkpoint=path)
+    teacher = kept[0]
+    report = teacher.import_report
+    heads = ["head.weight", "head.bias", "head_dist.weight", "head_dist.bias"]
+    blocks = [k for k in state if k.startswith("blocks.")]
+    sd = {k: v.cpu() for k, v in teacher.state_dict().items()}
+    differ = [k for k in blocks if not torch.equal(sd[k], state[k])]
+    grid = interpolate_pos_embed(state["pos_embed"], 2, 14 * 14)
+    ok = (report["skipped"] == heads and set(blocks) <= set(report["loaded"])
+          and not report["unconsumed"] and not differ
+          and tuple(sd["pos_embed"].shape) == (1, 2 + 14 * 14, 384)
+          and torch.equal(sd["pos_embed"], grid))
+    print(f"[teacher import] skipped {report['skipped']}; loaded {len(report['loaded'])} "
+          f"(the {len(blocks)} block tensors among them, {len(differ)} differ from the file); "
+          f"unconsumed {report['unconsumed']}; pos_embed {tuple(state['pos_embed'].shape)} -> "
+          f"{tuple(sd['pos_embed'].shape)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the teacher import does not match its checkpoint")
+    return launches, ms, kept
+
+
+def _pixels_agree(what, a, b, tol, level, ops=None):
+    """At most ``level`` + ``tol`` anywhere and under 1% of the values beyond
+    ``tol`` (the port's CPU tests hold it to JAX so). On a failure, prints
+    what the worst image drew from ``ops`` (RA layers or AA slots)."""
+    diff = (a.float().cpu() - b.float().cpu()).abs()
+    mx, share = diff.max().item(), (diff > tol).float().mean().item()
+    ok = mx <= level + tol and share < 0.01
+    where = [int(i) for i in (diff == mx).nonzero()[0]] if mx > 0 else []
+    print(f"[augment] {what}: max diff {mx:.3e} at {where} (bound {level + tol:.3e}), share "
+          f"beyond {tol:g} {share:.5f} (bound 0.01) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        for i, op in enumerate(ops or []):
+            b_ = where[0]
+            print(f"[augment] {what}: image {b_}, layer {i}: op {int(op.op_idx[b_])}, "
+                  f"applied {bool(op.apply[b_])}, magnitude {float(op.m[b_]):.4f}")
+        raise AssertionError(f"{what}: the card disagrees with the CPU")
+
+
+def check_augment():
+    """Phase 9, the train-time data path at B_MAIN, 224 px: for each of
+    AUG_VARIANTS the draws are made on the card, the transform runs on them
+    twice under torch.cuda's sync debug mode 'error' (a host sync raises)
+    and must give the same bits; the CPU runs the same draws, and the card
+    is held against it stage by stage: the geometric stage (integer pixels:
+    a difference is a rounding flip, one level at each of the bicubic
+    resample's two roundings), then the pixel stage from the CPU's
+    integers. Then mixup in its three modes on the RA batch, card
+    against CPU on the same draws, twice the same bits. Each is timed on the
+    card (draws and transform, as the step calls it; and by stage). Returns
+    {variant: ms}."""
+    import numpy as np
+    import torch
+
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.data import augment as ta
+    from deltakd_tpu_torch.data import mixup as tm
+
+    host = np.random.RandomState(5)
+    u8 = {px: torch.from_numpy(host.randint(0, 256, (B_MAIN, px, px, 3), dtype=np.uint8)).cuda()
+          for px in (32, 256)}
+    rows, ra_batch = {}, None
+    for name, kw, px in AUG_VARIANTS:
+        ac = ta.AugmentConfig.from_config(TrainConfig(dataset="cifar-100", **kw))
+        x = u8[px]
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        ta.train_transform(gen, x, ac)      # first calls: handles and caches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            d = ta.draw_train_transform(gen, x.shape, ac, device="cuda")
+            out = ta.apply_train_transform(x, ac, d)
+            again = ta.apply_train_transform(x, ac, d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name}: two runs of the transform differ")
+        d_cpu = ta.draws_to(d, "cpu")
+        geo = ta.geometric_stage(x, ac, d)
+        geo_cpu = ta.geometric_stage(x.cpu(), ac, d_cpu)
+        # integer pixels: the bicubic resample rounds twice (between its passes
+        # and at the end), and a sum that differs in its last bit can flip each
+        # rounding by one level
+        _pixels_agree(f"{name}: geometric stage, card vs CPU", geo, geo_cpu, 1e-3, 2.0)
+        tol = 1.6e-2 if ac.pixel_bf16 else 1e-5
+        _pixels_agree(f"{name}: pixel stage from the same integers, card vs CPU",
+                      ta.pixel_stage(geo_cpu.cuda(), ac, d), ta.pixel_stage(geo_cpu, ac, d_cpu),
+                      tol, GREY_LEVEL, ops=d_cpu.ra or d_cpu.aa)
+        whole = (out.float().cpu() - ta.apply_train_transform(x.cpu(), ac, d_cpu).float()).abs()
+        # 4 calls stay inside _timed's head start, so the events bracket the
+        # card's work; the host's time a call is taken beside it
+        ms = _timed(lambda: ta.train_transform(gen, x, ac), 4)
+        geo_ms = _timed(lambda: ta.geometric_stage(x, ac, d), 4)
+        pix_ms = _timed(lambda: ta.pixel_stage(geo, ac, d), 4)
+        host_ms = _host_ms(lambda: ta.train_transform(gen, x, ac), 4)
+        print(f"[augment] {name}: whole transform card vs CPU: share beyond {tol:g} "
+              f"{(whole > tol).float().mean().item():.5f}, max diff {whole.max().item():.3e}; "
+              f"{ms:.3f} ms a batch of {B_MAIN} on the card (geometric stage {geo_ms:.3f}, "
+              f"pixel stage {pix_ms:.3f}), {host_ms:.3f} ms on the host's clock to the end, "
+              f"two runs the same bits, no host sync")
+        rows[name] = dict(ms=ms, geometric_ms=geo_ms, pixel_ms=pix_ms, host_ms=host_ms)
+        if name == "RA bf16 32px":   # the recipe's: where its time goes
+            ra_batch = out
+            profile_calls(f"train transform {name}", lambda: ta.train_transform(gen, x, ac))
+    labels = torch.from_numpy(host.randint(0, 100, (B_MAIN,))).cuda()
+    S = ra_batch.shape[1]
+    for mode in ("batch", "elem", "pair"):
+        mc = tm.MixupConfig(num_classes=100, mode=mode)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            md = tm.draw_mixup(gen, mc, B_MAIN, S, S, "cuda")
+            img, tgt = tm.mix_batch(ra_batch, labels, mc, md)
+            img2, tgt2 = tm.mix_batch(ra_batch, labels, mc, md)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not (torch.equal(img, img2) and torch.equal(tgt, tgt2)):
+            raise AssertionError(f"mixup {mode}: two runs differ")
+        img_c, tgt_c = tm.mix_batch(ra_batch.cpu(), labels.cpu(), mc, ta.draws_to(md, "cpu"))
+        _pixels_agree(f"mixup {mode}: images, card vs CPU", img, img_c, 1.6e-2, 0.0)
+        _pixels_agree(f"mixup {mode}: targets, card vs CPU", tgt, tgt_c, 1e-6, 0.0)
+        ms = _timed(lambda: tm.apply_mixup(gen, ra_batch, labels, mc), 4)
+        print(f"[augment] mixup {mode}: {ms:.3f} ms a batch on the card, two runs the same "
+              f"bits, no host sync")
+        rows[f"mixup {mode}"] = dict(ms=ms)
+    return rows
 
 
 def run_eval(mods, student, aug, images, labels, expect, name="eval"):
@@ -2162,6 +2418,20 @@ def main() -> int:
         del teacher, student, aux, kept
         torch.cuda.empty_cache()
     by_path["value_sort"] = run_value_sort(so)
+
+    # the train-time data path, then the recipe's soft step with its teacher
+    # imported from a checkpoint
+    aug_ms = check_augment()
+    torch.cuda.empty_cache()
+    by_path["soft recipe"], step_ms["soft recipe"], kept = run_recipe_path(mods)
+    del kept
+    torch.cuda.empty_cache()
+    plain_ms = aug_ms["aa='' bf16 32px"]["ms"]
+    ra = aug_ms["RA bf16 32px"]
+    print(f"[recipe] soft recipe step {step_ms['soft recipe']:.2f} ms beside the aa='' soft "
+          f"step {step_ms['soft']:.2f} ms; the transform alone {ra['ms']:.3f} ms a batch on "
+          f"the card, {ra['host_ms']:.3f} on the host's clock (aa='': {plain_ms:.3f}), mixup "
+          f"{aug_ms['mixup batch']['ms']:.3f}")
 
     # the unfused model path: its train steps, its eval batch on the eval view
     by_path["unfused_soft"], step_ms["unfused soft"], kept = run_train_path(

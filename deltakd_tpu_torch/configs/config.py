@@ -2,13 +2,13 @@
 ``TrainConfig`` that the train and eval steps read, with the same names and
 defaults.
 
-This slice of the port runs the main-path augmentation only (RandomResizedCrop
-or RandomCrop, flip, random erasing, mixup/cutmix). RandAugment, AutoAugment,
-3-Augment, ``--src`` and colour jitter arrive with the next slice, so a config
-asking for them raises ``NotImplementedError`` instead of silently training
-another recipe. The reference defaults (``aa='rand-m9-mstd0.5-inc1'``,
-``color_jitter=0.3``) are kept, so callers must pass ``aa=''`` and
-``color_jitter=0.0`` explicitly.
+Every augmentation flag of the JAX package's ``TrainConfig`` works, and
+``aa`` is parsed when the config is made, so a policy string the JAX package
+rejects raises here too. What the port does not have yet raises
+``NotImplementedError`` instead of silently training another recipe:
+optimizers other than AdamW, schedules other than cosine, and LR noise.
+``cutmix_minmax`` raises as well, and an unknown ``mixup_mode`` raises
+``ValueError`` (the JAX package ignores both).
 """
 
 from __future__ import annotations
@@ -16,9 +16,6 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
-
-_LATER = "the port's next slice (RandAugment/AutoAugment and the rest of augmentation)"
-
 
 @dataclass(frozen=True)
 class TrainConfig:
@@ -97,20 +94,16 @@ class TrainConfig:
     mesh_shape: Optional[Tuple[int, ...]] = None
     grad_accum_steps: int = 1
     aug_pixel_bf16: bool = True
+    # a local timm/DeiT state_dict (.pth, .npz or .npy) for the teacher
+    teacher_checkpoint: Optional[str] = None
     allow_random_teacher: bool = False
 
     def __post_init__(self):
+        from deltakd_tpu_torch.data.augment import parse_aa_spec
+        from deltakd_tpu_torch.data.mixup import MODES
+
         if self.aa:
-            raise NotImplementedError(
-                f"aa={self.aa!r}: RandAugment/AutoAugment are not ported yet; "
-                f"they arrive with {_LATER}. Pass aa=''.")
-        if self.ThreeAugment or self.src:
-            raise NotImplementedError(
-                f"ThreeAugment/src are not ported yet; they arrive with {_LATER}.")
-        if self.color_jitter > 0:
-            raise NotImplementedError(
-                f"color_jitter={self.color_jitter}: colour jitter is not ported "
-                f"yet; it arrives with {_LATER}. Pass color_jitter=0.0.")
+            parse_aa_spec(self.aa)
         if self.remode not in ("pixel", "const", "rand"):
             raise NotImplementedError(f"remode {self.remode!r} is not implemented "
                                       f"('pixel', 'const', 'rand' are)")
@@ -119,9 +112,11 @@ class TrainConfig:
         if self.opt != "adamw" or self.sched != "cosine" or self.lr_noise:
             raise NotImplementedError(
                 "only opt='adamw' with sched='cosine' and no lr_noise is ported")
-        if self.mixup_mode != "batch" or self.cutmix_minmax is not None:
-            raise NotImplementedError("only batch-mode mixup/cutmix without "
-                                      "cutmix_minmax is ported")
+        if self.mixup_mode not in MODES:
+            raise ValueError(f"mixup_mode {self.mixup_mode!r} is not one of {MODES}")
+        if self.cutmix_minmax is not None:
+            raise NotImplementedError("cutmix_minmax is not implemented (the JAX "
+                                      "package accepts it and ignores it)")
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be bfloat16 or float32, got {self.dtype!r}")
 

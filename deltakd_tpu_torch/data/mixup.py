@@ -1,8 +1,10 @@
 """Mixup / CutMix as an on-device batch transform (``deltakd_tpu/data/mixup.py``,
-timm ``Mixup`` in 'batch' mode): with probability ``prob`` the batch is mixed
-with its flip; when both are enabled a coin with ``switch_prob`` picks cutmix;
-one lambda ~ Beta(alpha, alpha) per batch; targets become smoothed one-hot
-mixed with the same lambda (cutmix corrects it by the clipped box area).
+timm ``Mixup``): with probability ``prob`` an image is mixed with its partner
+in the flipped batch; when both are enabled a coin with ``switch_prob`` picks
+cutmix; lambda ~ Beta(alpha, alpha); targets become smoothed one-hot mixed with
+the same lambda (cutmix corrects it by the clipped box area). Mode 'batch'
+draws one decision for the whole batch, 'elem' one per image, and 'pair' one
+per image with partners (i, B-1-i) sharing the first one's.
 
 ``draw_mixup`` takes a ``torch.Generator`` and returns the draws, all on the
 device (no host sync); ``mix_batch`` applies them.
@@ -16,6 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 
+MODES = ("batch", "pair", "elem")
+
 
 @dataclasses.dataclass(frozen=True)
 class MixupConfig:
@@ -25,6 +29,7 @@ class MixupConfig:
     switch_prob: float = 0.5
     label_smoothing: float = 0.1
     num_classes: int = 1000
+    mode: str = "batch"
 
     @classmethod
     def from_config(cls, cfg, num_classes: int) -> Optional["MixupConfig"]:
@@ -32,60 +37,69 @@ class MixupConfig:
             return None
         return cls(mixup_alpha=cfg.mixup, cutmix_alpha=cfg.cutmix,
                    prob=cfg.mixup_prob, switch_prob=cfg.mixup_switch_prob,
-                   label_smoothing=cfg.smoothing, num_classes=num_classes)
+                   label_smoothing=cfg.smoothing, num_classes=num_classes,
+                   mode=cfg.mixup_mode)
 
 
 @dataclasses.dataclass
 class MixupDraws:
-    do_mix: torch.Tensor       # 0-d bool
-    use_cutmix: torch.Tensor   # 0-d bool
-    lam_mix: torch.Tensor      # 0-d float
-    lam_cut: torch.Tensor      # 0-d float
-    cy: torch.Tensor           # 0-d float, box centre row
-    cx: torch.Tensor           # 0-d float, box centre column
+    """0-d in 'batch' mode, [B] (one per image, before pairing) otherwise."""
+
+    do_mix: torch.Tensor       # bool
+    use_cutmix: torch.Tensor   # bool
+    lam_mix: torch.Tensor      # float
+    lam_cut: torch.Tensor      # float
+    cy: torch.Tensor           # float, box centre row
+    cx: torch.Tensor           # float, box centre column
 
 
 def one_hot_smoothed(labels, num_classes: int, smoothing: float):
     on = 1.0 - smoothing + smoothing / num_classes
     off = smoothing / num_classes
-    return torch.nn.functional.one_hot(labels.long(), num_classes).float() * (on - off) + off
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels.long()[:, None] == classes).float() * (on - off) + off
 
 
-def _gamma(generator, alpha: float, device, tries: int = 32):
-    """One Gamma(alpha, 1) sample on the device: Marsaglia-Tsang, with
-    ``tries`` proposals drawn at once and the first accepted one kept (each
-    is accepted with probability > 0.95), boosted for alpha < 1."""
+def _gamma(generator, alpha: float, device, shape=(), tries: int = 32):
+    """Gamma(alpha, 1) samples of ``shape`` on the device: Marsaglia-Tsang,
+    with ``tries`` proposals drawn at once and the first accepted one kept
+    (each is accepted with probability > 0.95), boosted for alpha < 1."""
     a = alpha + 1.0 if alpha < 1.0 else alpha
     d = a - 1.0 / 3.0
     c = 1.0 / math.sqrt(9.0 * d)
-    x = torch.randn(tries, generator=generator, device=device)
-    u = torch.rand(tries, generator=generator, device=device)
+    x = torch.randn((tries,) + tuple(shape), generator=generator, device=device)
+    u = torch.rand((tries,) + tuple(shape), generator=generator, device=device)
     v = (1.0 + c * x) ** 3
     ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
                     + d * torch.log(v.clamp(min=1e-30)))
-    g = (d * v)[torch.argmax(ok.int())]
+    first = torch.argmax(ok.int(), dim=0, keepdim=True)
+    g = (d * v).gather(0, first)[0]
     if alpha < 1.0:
-        g = g * torch.rand((), generator=generator, device=device) ** (1.0 / alpha)
+        g = g * torch.rand(shape, generator=generator, device=device) ** (1.0 / alpha)
     return g
 
 
-def _beta(generator, alpha: float, device):
-    x = _gamma(generator, alpha, device)
-    y = _gamma(generator, alpha, device)
+def _beta(generator, alpha: float, device, shape=()):
+    x = _gamma(generator, alpha, device, shape)
+    y = _gamma(generator, alpha, device, shape)
     return x / (x + y)
 
 
-def draw_mixup(generator, mc: MixupConfig, h: int, w: int, device=None) -> MixupDraws:
-    one = torch.ones((), device=device)
-    do_mix = torch.rand((), generator=generator, device=device) < mc.prob
+def draw_mixup(generator, mc: MixupConfig, b: int, h: int, w: int, device=None
+               ) -> MixupDraws:
+    if mc.mode not in MODES:
+        raise ValueError(f"mixup mode {mc.mode!r} is not one of {MODES}")
+    shape = () if mc.mode == "batch" else (b,)
+    one = torch.ones(shape, device=device)
+    do_mix = torch.rand(shape, generator=generator, device=device) < mc.prob
     if mc.cutmix_alpha > 0 and mc.mixup_alpha > 0:
-        use_cutmix = torch.rand((), generator=generator, device=device) < mc.switch_prob
+        use_cutmix = torch.rand(shape, generator=generator, device=device) < mc.switch_prob
     else:
-        use_cutmix = torch.tensor(mc.mixup_alpha <= 0, device=device)
-    lam_mix = _beta(generator, mc.mixup_alpha, device) if mc.mixup_alpha > 0 else one
-    lam_cut = _beta(generator, mc.cutmix_alpha, device) if mc.cutmix_alpha > 0 else one
-    cy = torch.randint(0, h, (), generator=generator, device=device).float()
-    cx = torch.randint(0, w, (), generator=generator, device=device).float()
+        use_cutmix = torch.full(shape, mc.mixup_alpha <= 0, device=device)
+    lam_mix = _beta(generator, mc.mixup_alpha, device, shape) if mc.mixup_alpha > 0 else one
+    lam_cut = _beta(generator, mc.cutmix_alpha, device, shape) if mc.cutmix_alpha > 0 else one
+    cy = torch.randint(0, h, shape, generator=generator, device=device).float()
+    cx = torch.randint(0, w, shape, generator=generator, device=device).float()
     return MixupDraws(do_mix, use_cutmix, lam_mix, lam_cut, cy, cx)
 
 
@@ -101,26 +115,40 @@ def _bbox(h: int, w: int, lam, cy, cx):
     return y0, y1, x0, x1, 1.0 - (y1 - y0) * (x1 - x0) / float(h * w)
 
 
+def _paired(d: MixupDraws) -> MixupDraws:
+    """Images i >= B // 2 take the draws of their partner B-1-i."""
+    def mirror(v):
+        first = torch.arange(v.shape[0], device=v.device) < v.shape[0] // 2
+        return torch.where(first, v, v.flip(0))
+    return MixupDraws(*(mirror(v) for v in dataclasses.astuple(d)))
+
+
 def mix_batch(images, labels, mc: MixupConfig, d: MixupDraws
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B,H,W,C] images + int labels -> (mixed images, soft targets [B,C])."""
     B, H, W, _ = images.shape
+    if mc.mode == "pair":
+        d = _paired(d)
+    per_image = d.lam_mix.dim() == 1
+    e4 = (lambda v: v[:, None, None, None]) if per_image else (lambda v: v)  # noqa: E731
     flipped = images.flip(0)
-    lam_b = d.lam_mix.to(images.dtype)     # keep a bf16 pixel stage bf16
+    lam_b = e4(d.lam_mix).to(images.dtype)     # keep a bf16 pixel stage bf16
     mixed_m = lam_b * images + (1.0 - lam_b) * flipped
     y0, y1, x0, x1, lam_cut_c = _bbox(H, W, d.lam_cut, d.cy, d.cx)
-    yy = torch.arange(H, dtype=torch.float32, device=images.device)[:, None]
-    xx = torch.arange(W, dtype=torch.float32, device=images.device)[None, :]
-    box = ((yy >= y0) & (yy < y1) & (xx >= x0) & (xx < x1))[None, :, :, None]
+    yy = torch.arange(H, dtype=torch.float32, device=images.device)[:, None, None]
+    xx = torch.arange(W, dtype=torch.float32, device=images.device)[None, :, None]
+    sq = (lambda v: v[:, None, None, None]) if per_image else (lambda v: v)  # noqa: E731
+    box = (yy >= sq(y0)) & (yy < sq(y1)) & (xx >= sq(x0)) & (xx < sq(x1))
     mixed_c = torch.where(box, flipped, images)
-    mixed = torch.where(d.use_cutmix, mixed_c, mixed_m)
+    mixed = torch.where(e4(d.use_cutmix), mixed_c, mixed_m)
     lam = torch.where(d.use_cutmix, lam_cut_c, d.lam_mix)
-    images_out = torch.where(d.do_mix, mixed, images)
+    images_out = torch.where(e4(d.do_mix), mixed, images)
     lam = torch.where(d.do_mix, lam, torch.ones_like(lam))
     targets = one_hot_smoothed(labels, mc.num_classes, mc.label_smoothing)
-    return images_out, lam * targets + (1.0 - lam) * targets.flip(0)
+    lam_t = lam[:, None] if per_image else lam
+    return images_out, lam_t * targets + (1.0 - lam_t) * targets.flip(0)
 
 
 def apply_mixup(generator, images, labels, mc: MixupConfig):
-    H, W = images.shape[1:3]
-    return mix_batch(images, labels, mc, draw_mixup(generator, mc, H, W, images.device))
+    B, H, W = images.shape[:3]
+    return mix_batch(images, labels, mc, draw_mixup(generator, mc, B, H, W, images.device))

@@ -18,6 +18,7 @@ from deltakd_tpu_torch import resolve_device
 from deltakd_tpu_torch.data.registry import DATASET_STATS
 from deltakd_tpu_torch.kd.aux import AuxHeads
 from deltakd_tpu_torch.kd.losses import FEATURE_TYPES, feature_indices
+from deltakd_tpu_torch.models.import_timm import load_state_dict, timm_to_torch
 from deltakd_tpu_torch.models.registry import get_model_config
 from deltakd_tpu_torch.models.vit import VisionTransformer, init_weights
 from deltakd_tpu_torch.ops.attention import best_attention_fn
@@ -60,6 +61,14 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
     ``aux`` holds the aux heads of a feature objective (None for
     none/soft/hard).
 
+    With ``config.teacher_checkpoint`` the teacher's weights are imported
+    from that file (``timm_to_torch``: a head of another class count keeps
+    its initialisation, the position embedding is interpolated to the input
+    size); the skipped keys are printed, and the import's report is kept as
+    ``teacher.import_report``. Without one, a distillation type other than
+    'none' raises ``ValueError`` unless ``allow_random_teacher`` is set, as in
+    the JAX factory.
+
     ``attention_fn`` defaults to ``best_attention_fn(config.flash_attention)``;
     None turns every kernel off (PyTorch's own ops throughout), as in the JAX
     factory. A config whose ``dtype`` is not bfloat16 turns them off too: the
@@ -79,11 +88,13 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
     the forward-only teacher) runs two consecutive blocks per call through
     ``fused_vit_block_pair``. Evaluate it on single blocks:
     ``student.view(block_pair_fn=None, collect_features=False)``."""
-    if config.distillation_type != "none" and not config.allow_random_teacher:
+    if (not config.teacher_checkpoint and config.distillation_type != "none"
+            and not config.allow_random_teacher):
         raise ValueError(
-            f"distillation_type {config.distillation_type!r} needs a pretrained "
-            f"teacher, and loading one is not ported yet; pass "
-            f"allow_random_teacher=True to distill against a random teacher")
+            f"distillation_type {config.distillation_type!r} requires "
+            f"teacher_checkpoint (the reference always loads pretrained teacher "
+            f"weights). Pass allow_random_teacher=True to override for "
+            f"tests/ablations.")
     num_classes = DATASET_STATS[config.dataset]["num_classes"]
     dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
 
@@ -108,6 +119,15 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
                            collect_features=needed(config.teacher_model),
                            seed=seed + 1, device=device)
     teacher.requires_grad_(False)
+    if config.teacher_checkpoint:
+        teacher.import_report = timm_to_torch(load_state_dict(config.teacher_checkpoint),
+                                              teacher)
+        if teacher.import_report["skipped"]:
+            print(f"[teacher import] reinitialized (shape mismatch): "
+                  f"{teacher.import_report['skipped']}")
+    elif config.distillation_type != "none":
+        print("[teacher] WARNING: distilling against a RANDOMLY INITIALIZED "
+              "teacher (allow_random_teacher); KD signal is noise")
     student = create_model(config.student_model, num_classes=num_classes,
                            img_size=config.input_size,
                            drop_path_rate=config.drop_path_rate, dtype=dtype,

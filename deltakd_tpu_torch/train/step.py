@@ -55,9 +55,12 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
     def micro_grads(params, generator, images_u8, labels, images, targets,
                     drop_scales, epoch, mask_noise):
         if images is None:
-            images = train_transform(generator, images_u8, aug)
+            # named ranges, so that a profile of the step can tell them apart
+            with torch.profiler.record_function("train_transform"):
+                images = train_transform(generator, images_u8, aug)
             if mixup is not None:
-                images, targets = apply_mixup(generator, images, labels, mixup)
+                with torch.profiler.record_function("mixup"):
+                    images, targets = apply_mixup(generator, images, labels, mixup)
             else:
                 targets = labels
         elif targets is None:

@@ -251,6 +251,9 @@ def test_port_imports_no_jax():
         for d, _, names in os.walk(os.path.join(root, top)):
             files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    for module in ("models/import_timm.py", "models/pos_embed.py", "data/augment.py",
+                   "data/mixup.py"):
+        assert os.path.join(root, "deltakd_tpu_torch", module) in files, module
     banned = ("jax", "jaxlib", "flax", "optax", "deltakd_tpu")
     for path in files:
         with open(path) as f:

@@ -19,7 +19,12 @@ n = 4 on), n from 2 to 1024; the value sort also in fp16 and int32 with NaN, +-i
 the int32 extremes, against torch.sort (NaNs at the same places); sorted values, signs and gradients exactly, the loss to 1e-5 (fp32 sums in
 another order). The attention and MLP
 kernels: O(1) bf16 inputs (q, k of std 2, weights of std 1/sqrt(fan-in)), ragged
-N and M; 2e-2 of the largest reference value, 1e-3 absolute on lse.
+N and M; 2e-2 of the largest reference value, 1e-3 absolute on lse. The
+train-time data path: the RA and AA transform at 224 px on the card against
+the CPU on the same draws (as chip_smoke.py phase 9), no host sync in the
+transform or in mixup, and a fused soft-KD step with TrainConfig's defaults
+and a teacher imported from a checkpoint written with chip_smoke.py's
+``write_teacher_checkpoint``.
 """
 
 import pytest
@@ -494,3 +499,136 @@ def test_fp32_soft_kd_step_runs_without_kernels(device):
         pytest.skip("needs an NVIDIA GPU")
     torch.set_num_threads(1)
     _fp32_soft_step(device)
+
+
+# -----------------------------------------------------------------------------
+# The train-time data path and the teacher import
+# -----------------------------------------------------------------------------
+
+RA_SPEC, AA_SPEC = "rand-m9-mstd0.5-inc1", "original-mstd0.5"
+CIFAR_STD = (0.2675, 0.2565, 0.2761)
+
+
+def _close_pixels(a, b, tol, level):
+    """At most ``level`` + ``tol`` anywhere, under 1% of the values beyond
+    ``tol`` (as tests/test_torch_augment_transform.py holds the port to JAX)."""
+    diff = (a.float().cpu() - b.float().cpu()).abs()
+    assert diff.max().item() <= level + tol, diff.max().item()
+    assert (diff > tol).float().mean().item() < 0.01
+
+
+def _u8_batch(B, H, seed=0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(0, 256, (B, H, H, 3), dtype=np.uint8)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [32, 256])
+@pytest.mark.parametrize("spec", [RA_SPEC, AA_SPEC])
+def test_augment_on_card_matches_cpu(spec, H):
+    """The RA and AA train transform at 224 px in bf16 on the card against the
+    CPU on the same draws, stage by stage: from 32 px the geometric ops run as
+    a dense warp at the source, from 256 px as a gather warp at the output
+    (integer pixels, where a sum that differs in its last bit flips a
+    rounding: one level at each of the bicubic resample's two); the pixel
+    stage from the same integers. Two runs on the card give the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.data import augment as ta
+
+    ac = ta.AugmentConfig.from_config(TrainConfig(dataset="cifar-100", aa=spec))
+    u8 = _u8_batch(32, H)
+    d = ta.draw_train_transform(torch.Generator(device="cuda").manual_seed(0), u8.shape, ac,
+                                device="cuda")
+    d_cpu = ta.draws_to(d, "cpu")
+    geo = ta.geometric_stage(u8, ac, d)
+    geo_cpu = ta.geometric_stage(u8.cpu(), ac, d_cpu)
+    # a rounding flip of one level at each of the bicubic resample's two roundings
+    _close_pixels(geo, geo_cpu, tol=1e-3, level=2.0)
+    level = 1.0 / (255.0 * min(CIFAR_STD))
+    _close_pixels(ta.pixel_stage(geo_cpu.cuda(), ac, d), ta.pixel_stage(geo_cpu, ac, d_cpu),
+                  tol=1.6e-2, level=level)
+    assert torch.equal(ta.apply_train_transform(u8, ac, d), ta.apply_train_transform(u8, ac, d))
+
+
+@pytest.mark.cuda
+def test_transform_and_mixup_do_not_sync():
+    """No host sync in the train transform (every policy and variant, both
+    warp sides) or in mixup (every mode): torch.cuda's sync debug mode
+    'error' raises on any synchronising call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.data import augment as ta
+    from deltakd_tpu_torch.data import mixup as tm
+
+    variants = [dict(aa=RA_SPEC), dict(aa=AA_SPEC), dict(ThreeAugment=True), dict(src=True),
+                dict(aa="", color_jitter=0.3), dict(aa=RA_SPEC, aug_pixel_bf16=False)]
+    labels = torch.arange(16, device="cuda") % 100
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for H in (32, 256):
+        u8 = _u8_batch(16, H)
+        for kw in variants:
+            ac = ta.AugmentConfig.from_config(TrainConfig(dataset="cifar-100", **kw))
+            ta.train_transform(gen, u8, ac)             # warm-up: handles, caches
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = ta.train_transform(gen, u8, ac)
+                for mode in ("batch", "pair", "elem"):
+                    tm.apply_mixup(gen, out, labels, tm.MixupConfig(num_classes=100, mode=mode))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_recipe_soft_step_on_card(tmp_path):
+    """One fused soft-KD step with TrainConfig's defaults (RandAugment, mixup,
+    erasing 0.25, bf16 pixel stage) and the teacher from a written
+    checkpoint: both heads skipped, the grid interpolated to 14 x 14, the
+    fused-block kernels launched, finite metrics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    from chip_smoke import write_teacher_checkpoint
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.data.augment import AugmentConfig
+    from deltakd_tpu_torch.data.mixup import MixupConfig
+    from deltakd_tpu_torch.kd.losses import KDSettings
+    from deltakd_tpu_torch.models.factory import load_teacher_student
+    from deltakd_tpu_torch.train.optim import make_optimizer
+    from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
+    from deltakd_tpu_torch.train.step import build_train_step
+
+    path = str(tmp_path / "deit_small_distilled.pth")
+    state = write_teacher_checkpoint(path)
+    cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224",
+                      student_model="deit_tiny_distilled_patch16_224", batch_size=8,
+                      distillation_type="soft", dataset="cifar-100", weight_decay=1e-4,
+                      alpha=0.1, tau=3.0, teacher_checkpoint=path)
+    teacher, student, aux = load_teacher_student(cfg, seed=0, device="cuda")
+    report = teacher.import_report
+    assert report["skipped"] == ["head.weight", "head.bias", "head_dist.weight",
+                                 "head_dist.bias"]
+    assert teacher.pos_embed.shape == (1, 2 + 14 * 14, 384)
+    assert torch.equal(teacher.blocks[5].mlp.fc1.weight.cpu(), state["blocks.5.mlp.fc1.weight"])
+    tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
+    state_ = TrainState(student, tx=tx, aux=aux)
+    kd = KDSettings.from_config(cfg, student_prefix=2, teacher_prefix=2)
+    step = build_train_step(cfg=cfg, kd=kd, student=student, teacher=teacher, aux=aux,
+                            aug=AugmentConfig.from_config(cfg),
+                            mixup=MixupConfig.from_config(cfg, 100), tx=tx)
+    images = _u8_batch(8, 32)
+    labels = torch.arange(8, device="cuda")
+    fb.reset_launches()
+    metrics = {k: float(v) for k, v in
+               step(state_, images, labels, torch.Generator(device="cuda").manual_seed(1)).items()}
+    assert fb.LAUNCHES == {("fused_block_fwd", 384): 12, ("fused_block_fwd", 192): 12,
+                           ("fused_block_bwd", 192): 12}
+    assert all(np.isfinite(v) for v in metrics.values()) and metrics["distill_loss"] > 0

@@ -129,9 +129,15 @@ def test_fused_clipped_adamw_and_ema_match_jax():
 
 
 def test_config_rejects_what_is_not_ported():
-    for kw in (dict(aa="rand-m9-mstd0.5-inc1", color_jitter=0.0), dict(aa="", color_jitter=0.3),
-               dict(aa="", color_jitter=0.0, ThreeAugment=True),
-               dict(aa="", color_jitter=0.0, sched="step")):
+    """What the port lacks raises (other optimizers and schedules, LR noise,
+    cutmix_minmax, the aa specs the JAX package rejects); every augmentation
+    flag of the JAX TrainConfig constructs."""
+    for kw in (dict(sched="step"), dict(opt="sgd"), dict(lr_noise=(0.5,)),
+               dict(cutmix_minmax=(0.2, 0.8)), dict(aa="augmix-m5"),
+               dict(aa="rand-m9-mstd0.5")):
         with pytest.raises(NotImplementedError):
             TrainConfig(**kw)
-    TrainConfig(aa=None, color_jitter=0.0)
+    for kw in (dict(), dict(aa="original-mstd0.5"), dict(aa="", color_jitter=0.3),
+               dict(ThreeAugment=True), dict(src=True), dict(mixup_mode="pair"),
+               dict(mixup_mode="elem"), dict(aa=None, color_jitter=0.0)):
+        TrainConfig(**kw)
