@@ -16,7 +16,7 @@ Phases, each of which fails the run:
   3. holds each fused-block kernel against its plain PyTorch version on the
      card, for the student (D=192) and teacher (D=384) widths, with and
      without the feature output, with drop-path scales of 0 and 1/keep, at
-     B=8; the forward and the backward also at N = 50, 198 and 578 for
+     B=8; the forward and the backward also at N = 50, 197, 198 and 578 for
      D = 192, 384 and 768 (the pair backward at D = 192 and 384); the GEMM
      alone (gemm_sm90.cuh) against its plain version on the forward's four
      products and the backward's four input and four weight gradients at
@@ -63,7 +63,22 @@ Phases, each of which fails the run:
      soft KD, WassKD-l1, MGD and ViTKD, each path with the launch counts set
      to 0 just before and read just after, checking the kernel launches,
      finite metrics, a positive distill loss and changed student (and aux)
-     parameters; one eval batch; and the value sort through its public
+     parameters; one eval batch; then the objectives of the recipes that
+     PATHS leaves out, each in its exp/*.sh configuration (OBJECTIVE_PATHS:
+     WassKD-sinkhorn, Saliency-MGD method 1, LRKD rank 32, DiffKD, CurKD at
+     epochs 0, 120 and 200, hard KD; the DeiT-Ti without a distillation
+     token, N = 197, but for hard; weight decay 1e-4), 2 steps each (CurKD
+     3) with the same launch, metric and parameter checks and the peak of
+     allocated memory, and each objective on 4 images card against CPU
+     (6c): the features the objective makes the kernels write, then its
+     distill loss and feature gradients on the same fp32 features with the
+     draws pinned on both sides (LRKD's targets held to their invariants,
+     Saliency-MGD's scores to a tolerance, each then pinned to the card's;
+     the Sinkhorn divergence also with TF32 on, the same bits); 6d: LRKD's
+     rank_k_targets on a planted spectrum at [50176, 384], both solvers, card
+     against CPU, the batched eigh and the subspace solver timed, and the
+     Sinkhorn potential solve and divergence timed at [768, 196, 384]; and
+     the value sort through its public
      function in its four dtypes (no model calls it); then the unfused model path (block_fn=None:
      the teacher through flash_attention and fused_mlp, the student through
      flash_attention): 8 soft-KD steps with exactly 24 attention-forward, 12
@@ -158,6 +173,28 @@ MLP_WIDTHS = (192, 384, 768, 1024)   # the model zoo's (models/registry.py)
 UNFUSED_STEPS = 8
 # train steps per distillation type, in the order they run
 PATHS = (("soft", 8), ("wasskd", 4), ("mgd", 2), ("vitkd", 2))
+# The recipes whose objectives PATHS does not drive (exp/*.sh): name,
+# distillation options, the epoch of each step (curkd: one step in each of its
+# phases). All but hard train the DeiT-Ti without a distillation token (N = 197).
+RECIPE_COMMON = dict(student_model="deit_tiny_patch16_224", weight_decay=1e-4)
+OBJECTIVE_PATHS = (
+    ("wasskd-sinkhorn", dict(distillation_type="wasskd", wasskd_type="sinkhorn", alpha=0.5),
+     (0, 0)),
+    ("saliency_mgd", dict(distillation_type="saliency_mgd", saliency_method=1,
+                          saliency_mask_ratio=0.5, alpha=0.1), (0, 0)),
+    ("lrkd", dict(distillation_type="lrkd", lrkd_rank=32, lrkd_alpha=0.1, lrkd_beta=0.1,
+                  lrkd_gamma=0.1, alpha=0.1), (0, 0)),
+    ("diffkd", dict(distillation_type="diffkd"), (0, 0)),
+    ("curkd", dict(distillation_type="curkd", alpha=0.5), (0, 120, 200)),
+    ("hard", dict(distillation_type="hard", alpha=0.5,
+                  student_model="deit_tiny_distilled_patch16_224"), (0, 0)),
+)
+OBJ_LOSS_TOL = 1e-4   # a distill loss, card vs CPU on the same fp32 features, relative
+OBJ_GRAD_TOL = 1e-3   # its gradients (and saliency scores), of the largest |value|
+# The Sinkhorn gradients weight each cost by exp(-C / eps), eps = 0.0025: one
+# fp32 rounding of |x|^2 (the card and the CPU sum it in other orders) moves a
+# weight by |x|^2 * 6e-8 / eps, 0.24% at |x|^2 = 100.
+SINKHORN_GRAD_TOL = 2e-2
 # the same with the student on block pairs; between them the three types ask
 # every (feat1, feat2) variant of a pair
 PAIRED_PATHS = (("soft", 8), ("wasskd", 2), ("vitkd", 2))
@@ -483,13 +520,14 @@ def check_kernels(fb, worst):
 
 def check_block_forward_shapes(fb, worst):
     """Phase 3a': the block forward against its plain version at B=8 for every
-    sequence length N in (50, 198, 578) (ragged against the 64-row query
-    tiles, 64-key chunks and 128-row GEMM tiles; 578 is the 384-px finetune),
+    sequence length N in (50, 197, 198, 578) (ragged against the 64-row query
+    tiles, 64-key chunks and 128-row GEMM tiles; 197, odd, is the DeiT
+    without a distillation token; 578 is the 384-px finetune),
     width (192, 384, 768) and feature option, with drop-path scales that hold
     zeros; two runs the same bits."""
     import torch
 
-    for n in (50, N_TOK, 578):
+    for n in (50, N_TOK - 1, N_TOK, 578):
         for D, H in ((192, 3), (384, 6), (768, 12)):
             for need_feat in (False, True):
                 p, x, sa, sm = _block_inputs(D, H, B_CHECK, D + n + need_feat, "cuda", n=n)
@@ -508,14 +546,14 @@ def check_block_forward_shapes(fb, worst):
 
 def check_block_backward_shapes(fb, worst):
     """Phase 3c: the block backward against its plain version at B=8 for
-    every N in (50, 198, 578) (ragged against the attention backward's 64-row
+    every N in (50, 197, 198, 578) (ragged against the attention backward's 64-row
     tiles and the weight gradients' 64-row k-blocks), width (192, 384, 768),
     with and without a feature cotangent; the pair backward (and its forward)
     at D=192 and 384 for the same N, with no feature cotangent and with both;
     drop-path scales that hold zeros; two runs the same bits."""
     import torch
 
-    for n in (50, N_TOK, 578):
+    for n in (50, N_TOK - 1, N_TOK, 578):
         for D, H in ((192, 3), (384, 6), (768, 12)):
             for need_feat in (False, True):
                 p, x, sa, sm = _block_inputs(D, H, B_CHECK, D + n + need_feat, "cuda", n=n)
@@ -1666,17 +1704,20 @@ def _unfused_models(cfg, num_classes):
 
 
 def run_train_path(mods, kd_type, steps, unfused=False, paired=False,
-                   teacher_checkpoint=None):
+                   teacher_checkpoint=None, options=None, epochs=None, name=None):
     """Phase 6: ``steps`` train steps of one distillation type at full width
     through load_teacher_student (the fused block; with ``paired`` the student
     on block pairs, block_pair=True) or, with ``unfused``, create_model with
     attention_fn / mlp_fn and no block_fn, then TrainState ->
     build_train_step. The launch counts are set to 0 just before the steps
-    and read just after. With ``teacher_checkpoint`` the config is the
-    recipe's (exp/soft-deit-tiny.sh: TrainConfig's defaults, RandAugment and
-    colour jitter 0.3 among them, and the teacher from that file); otherwise
-    aa='', no colour jitter and a random teacher. Returns (launches, step ms,
-    what the later phases need)."""
+    and read just after, and so is the peak of allocated memory. With
+    ``teacher_checkpoint`` the config is the recipe's (exp/soft-deit-tiny.sh:
+    TrainConfig's defaults, RandAugment and colour jitter 0.3 among them, and
+    the teacher from that file); otherwise aa='', no colour jitter and a
+    random teacher. ``options`` (TrainConfig fields) override the config: a
+    recipe's student and distillation options; ``epochs`` gives each step's
+    epoch (0 without). Returns (launches, step ms, peak bytes, what the later
+    phases need)."""
     import numpy as np
     import torch
 
@@ -1690,12 +1731,13 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False,
     from deltakd_tpu_torch.train.step import build_train_step
 
     if teacher_checkpoint is None:
-        cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224",
-                          student_model="deit_tiny_distilled_patch16_224",
-                          batch_size=B_MAIN, distillation_type=kd_type, dataset="cifar-100",
-                          input_size=224, dtype="bfloat16", drop_path_rate=0.1, epochs=300,
-                          aug_pixel_bf16=True, aa="", color_jitter=0.0,
-                          allow_random_teacher=True)
+        cfg = TrainConfig(**{**dict(teacher_model="deit_small_distilled_patch16_224",
+                                    student_model="deit_tiny_distilled_patch16_224",
+                                    batch_size=B_MAIN, distillation_type=kd_type,
+                                    dataset="cifar-100", input_size=224, dtype="bfloat16",
+                                    drop_path_rate=0.1, epochs=300, aug_pixel_bf16=True,
+                                    aa="", color_jitter=0.0, allow_random_teacher=True),
+                             **(options or {})})
     else:
         cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224",
                           student_model="deit_tiny_distilled_patch16_224",
@@ -1711,8 +1753,8 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False,
         teacher, student, aux = load_teacher_student(cfg, block_pair=paired, seed=0,
                                                      device="cuda")
     num_classes = student.cfg.num_classes
-    name = (f"unfused {kd_type}" if unfused else f"paired {kd_type}" if paired
-            else f"{kd_type} recipe" if teacher_checkpoint else kd_type)
+    name = name or (f"unfused {kd_type}" if unfused else f"paired {kd_type}" if paired
+                    else f"{kd_type} recipe" if teacher_checkpoint else kd_type)
     tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
     state = TrainState(student, tx=tx, aux=aux)
     aug = AugmentConfig.from_config(cfg)
@@ -1728,15 +1770,17 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False,
     n_student = sum(p.numel() for p in student.parameters())
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _reset_launches(mods)
     times, metrics = [], []
-    for _ in range(steps):
+    for i in range(steps):
         t0 = time.perf_counter()
-        m = step(state, images, labels, gen)
+        m = step(state, images, labels, gen, epoch=epochs[i] if epochs else 0)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
     launches = _read_launches(mods)
+    peak = torch.cuda.max_memory_allocated()
     print(f"[{name}] launches over {steps} steps: {launches}")
     if unfused:   # after the counts are read: where the step's device time goes
         profile_calls(f"{name} step", lambda: step(state, images, labels, gen), calls=2)
@@ -1745,12 +1789,13 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False,
         profile_parts(f"{name} step", lambda: step(state, images, labels, gen), STEP_PARTS)
     expect = (_unfused_launches if unfused else _paired_launches if paired
               else _block_launches)(steps)
-    if kd_type == "wasskd":
+    if kd_type == "wasskd" and cfg.wasskd_type == "l1":
         expect.update(sorted_l1_fwd=3 * steps, sorted_l1_bwd=3 * steps)
     if launches != expect:
         raise AssertionError(f"{name}: kernel launches {launches}, expected {expect}")
     for i, m in enumerate(metrics):
-        print(f"[{name}] step {i}: " + " ".join(f"{k}={v:.5g}" for k, v in m.items())
+        print(f"[{name}] step {i}" + (f" (epoch {epochs[i]})" if epochs else "") + ": "
+              + " ".join(f"{k}={v:.5g}" for k, v in m.items())
               + f" time={times[i] * 1e3:.1f} ms")
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"{name}: non-finite metrics at step {i}: {m}")
@@ -1764,8 +1809,9 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False,
         raise AssertionError(f"{name}: parameters did not change: {changed}")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     print(f"[{name}] step time (median of steps 1-{steps - 1}) {steady * 1e3:.2f} ms, "
-          f"{B_MAIN / steady:.1f} images/s; max |param change| {changed}")
-    return launches, steady * 1e3, (teacher, student, aux, aug, kd, images, labels)
+          f"{B_MAIN / steady:.1f} images/s; peak allocated {peak / 2**30:.3f} GiB; "
+          f"max |param change| {changed}")
+    return launches, steady * 1e3, peak, (teacher, student, aux, aug, kd, images, labels)
 
 
 def write_teacher_checkpoint(path):
@@ -1808,7 +1854,8 @@ def run_recipe_path(mods):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "deit_small_distilled_patch16_384.pth")
         state = write_teacher_checkpoint(path)
-        launches, ms, kept = run_train_path(mods, "soft", RECIPE_STEPS, teacher_checkpoint=path)
+        launches, ms, _, kept = run_train_path(mods, "soft", RECIPE_STEPS,
+                                               teacher_checkpoint=path)
     teacher = kept[0]
     report = teacher.import_report
     heads = ["head.weight", "head.bias", "head_dist.weight", "head_dist.bias"]
@@ -2179,29 +2226,47 @@ def check_unfused_logits(teacher, student, aug, images):
                other="the fused-block path on the card")
 
 
+def _features_against_cpu(what, teacher, student, aug, kd, images):
+    """Both models' features on 4 images, card (kernels) vs CPU (plain path):
+    exactly the blocks that feature_indices names for the distillation type
+    (a missing flag shows as a zero feature, not as an error), each non-zero
+    and held against the CPU. Returns {"teacher"/"student": (card features,
+    CPU features)}, None where a block wrote none."""
+    import torch
+
+    from deltakd_tpu_torch.data.augment import eval_transform
+    from deltakd_tpu_torch.kd.losses import feature_indices
+
+    x = eval_transform(images[:4], aug).bfloat16()
+    feats = {}
+    for role, model in (("teacher", teacher), ("student", student)):
+        with torch.no_grad():
+            on_card = model(x, train=False).features
+            on_cpu = copy.deepcopy(model).cpu()(x.cpu(), train=False).features
+        written = [i for i, f in enumerate(on_card) if f is not None]
+        expect = sorted(feature_indices(kd.distillation_type, model.cfg.depth))
+        if written != expect:
+            raise AssertionError(f"{what}: the {role} wrote the features of blocks {written}, "
+                                 f"expected {expect}")
+        n_tok = model.cfg.num_prefix_tokens + model.cfg.num_patches
+        for i in written:
+            if not on_card[i].abs().max().item() > 0:
+                raise AssertionError(f"{what}: the {role}'s block {i} feature is zero")
+            _agree(f"{what}: {role} block {i} features", on_card[i].float().cpu(),
+                   on_cpu[i].float(), (4, n_tok, model.cfg.embed_dim))
+        feats[role] = (on_card, on_cpu)
+    return feats
+
+
 def check_features_against_cpu(teacher, student, aux, aug, kd, images):
     """Phase 6b: the feature path on 4 images, card (kernels) vs CPU (plain
     path): both models' features of blocks 0-2 (the only ones WassKD makes
     them write) and the WassKD distill loss."""
     import torch
 
-    from deltakd_tpu_torch.data.augment import eval_transform
     from deltakd_tpu_torch.kd.losses import wasskd_loss
 
-    x = eval_transform(images[:4], aug).bfloat16()
-    feats = {}
-    for name, model in (("teacher", teacher), ("student", student)):
-        with torch.no_grad():
-            on_card = model(x, train=False).features
-            on_cpu = copy.deepcopy(model).cpu()(x.cpu(), train=False).features
-        written = [i for i, f in enumerate(on_card) if f is not None]
-        if written != [0, 1, 2]:
-            raise AssertionError(f"{name} wrote the features of blocks {written}, "
-                                 f"expected [0, 1, 2]")
-        for i in written:
-            _agree(f"{name} block {i} features", on_card[i].float().cpu(),
-                   on_cpu[i].float(), (4, N_TOK, model.cfg.embed_dim))
-        feats[name] = (on_card, on_cpu)
+    feats = _features_against_cpu("wasskd", teacher, student, aug, kd, images)
     with torch.no_grad():
         on_card = wasskd_loss(kd, aux, feats["student"][0], feats["teacher"][0]).float().cpu()
         on_cpu = wasskd_loss(kd, copy.deepcopy(aux).cpu(), feats["student"][1],
@@ -2209,6 +2274,232 @@ def check_features_against_cpu(teacher, student, aux, aug, kd, images):
     if not (torch.isfinite(on_card) and on_card > 0):
         raise AssertionError(f"wasskd distill loss on the card is {on_card}")
     _agree("wasskd distill loss", on_card, on_cpu, ())
+
+
+def _hold_objective(what, loss_fn, feats, aux, grad_tol):
+    """Runs ``loss_fn(aux, s_feats, t_feats, device)`` on the card and on
+    the CPU from the same fp32 features ``feats`` ({"student": [...],
+    "teacher": [...]}, None where a block wrote none) and holds the card's
+    loss (OBJ_LOSS_TOL, relative) and its gradient with respect to each
+    student feature (``grad_tol`` of the largest |value|; None on both sides
+    where the loss does not read the block) against the CPU's."""
+    import torch
+
+    out = {}
+    for device, aux_d in (("cuda", aux), ("cpu", copy.deepcopy(aux).cpu())):
+        s = [None if f is None else f.to(device).detach().requires_grad_(True)
+             for f in feats["student"]]
+        t = [None if f is None else f.to(device) for f in feats["teacher"]]
+        loss = loss_fn(aux_d, s, t, device)
+        read = [f for f in s if f is not None]
+        grads = torch.autograd.grad(loss, read, allow_unused=True)
+        out[device] = (loss.detach().float().cpu(),
+                       [None if g is None else g.float().cpu() for g in grads])
+    (card, g_card), (cpu, g_cpu) = out["cuda"], out["cpu"]
+    rel = abs(card.item() - cpu.item()) / abs(cpu.item())
+    ok = math.isfinite(card.item()) and card.item() > 0 and rel <= OBJ_LOSS_TOL
+    print(f"[objective] {what} distill loss on the card {card.item():.6g} vs the CPU port "
+          f"{cpu.item():.6g}: rel err {rel:.3e} (tol {OBJ_LOSS_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the distill loss on the card disagrees with the CPU")
+    worst = 0.0
+    for a, b in zip(g_card, g_cpu):
+        if (a is None) != (b is None):
+            raise AssertionError(f"{what}: a feature gradient exists on one side only")
+        if a is not None:
+            err, mx = _err(a, b)
+            worst = max(worst, err / max(mx, 1e-30))
+    ok = worst <= grad_tol
+    print(f"[objective] {what} d loss / d student features, card vs CPU: max rel err "
+          f"{worst:.3e} (tol {grad_tol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the feature gradients on the card disagree with the CPU")
+
+
+def _check_lrkd_targets(what, targets, t_feats, kd):
+    """LRKD's targets on a random teacher's features are ill-conditioned
+    vectors but well-defined invariants: per layer T^T T is diagonal with the
+    top-k eigenvalues of the fp64 Gram matrix, in descending order, on it."""
+    import torch
+
+    for row, i in enumerate((0, 1, -1)):
+        a = t_feats[i][:, kd.teacher_prefix:].reshape(-1, t_feats[i].shape[-1]).double().cpu()
+        top = torch.linalg.eigvalsh(a.T @ a).flip(0)[:kd.lrkd_rank]
+        tt = targets[row].double().cpu()
+        tt = tt.T @ tt
+        diag_err = (torch.diagonal(tt) - top).abs().max().item() / top[0].item()
+        off = (tt - torch.diag(torch.diagonal(tt))).abs().max().item() / top[0].item()
+        ok = diag_err <= OBJ_GRAD_TOL and off <= OBJ_GRAD_TOL
+        print(f"[objective] {what} layer {row}: T^T T diagonal vs the top-{kd.lrkd_rank} "
+              f"eigenvalues (lambda_1 {top[0].item():.4g}, lambda_k {top[-1].item():.4g}) "
+              f"max err {diag_err:.3e}, off-diagonal {off:.3e} of lambda_1 (tol "
+              f"{OBJ_GRAD_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{what}: LRKD targets break T^T T = diag(top eigenvalues)")
+
+
+def check_objective_against_cpu(name, teacher, student, aux, aug, kd, images):
+    """Phase 6c: one of OBJECTIVE_PATHS on 4 images, card against CPU. Both
+    models' features (_features_against_cpu); then, on the card's features
+    copied to fp32 (the same values on both sides), the distill loss and its
+    feature gradients on the card against the CPU port (_hold_objective), the
+    draws pinned on both sides: DiffKD's draws and CurKD's masking noise made
+    once, CurKD in each of its phases; Saliency-MGD's scores held to
+    OBJ_GRAD_TOL, then the loss on the card's scores on both sides; LRKD's
+    targets held to their invariants (_check_lrkd_targets), then the loss on
+    the card's targets on both sides; the Sinkhorn divergence also with TF32
+    on in the process, which must give the same bits."""
+    import torch
+
+    from deltakd_tpu_torch.kd import losses as L
+    from deltakd_tpu_torch.kd.masking import saliency_scores
+
+    feats = {role: [None if f is None else f.detach().float() for f in on_card]
+             for role, (on_card, _) in _features_against_cpu(
+                 name, teacher, student, aug, kd, images).items()}
+    t_feats = feats["teacher"]
+    L_patch = teacher.cfg.num_patches
+    t = kd.distillation_type
+
+    if t == "wasskd":
+        _hold_objective(name, lambda a, s, tf, dev: L.wasskd_loss(kd, a, s, tf), feats, aux,
+                        SINKHORN_GRAD_TOL)
+        check_sinkhorn_tf32(kd, aux, feats)
+    elif t == "saliency_mgd":
+        on_card = saliency_scores(aux.saliency_attn, t_feats[-1], kd.saliency_method,
+                                  kd.teacher_prefix)
+        on_cpu = saliency_scores(copy.deepcopy(aux.saliency_attn).cpu(), t_feats[-1].cpu(),
+                                 kd.saliency_method, kd.teacher_prefix)
+        err, mx = _err(on_card.cpu(), on_cpu)
+        ok = err <= OBJ_GRAD_TOL * mx and tuple(on_card.shape) == (4, L_patch)
+        print(f"[objective] {name} saliency scores, card vs CPU: max_abs_err {err:.3e} of "
+              f"max {mx:.3e} (tol {OBJ_GRAD_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: the saliency scores disagree")
+        _hold_objective(name, lambda a, s, tf, dev: L.saliency_mgd_loss(
+            kd, a, s, tf, scores=on_card.to(dev)), feats, aux, OBJ_GRAD_TOL)
+    elif t == "lrkd":
+        targets = L.lrkd_targets(kd, t_feats)
+        _check_lrkd_targets(name, targets, t_feats, kd)
+        _hold_objective(name, lambda a, s, tf, dev: L.lrkd_loss(
+            kd, a, s, tf, targets=targets.to(dev)), feats, aux, OBJ_GRAD_TOL)
+    elif t == "diffkd":
+        draws = L.DiffKDDraws.draw(torch.Generator().manual_seed(5),
+                                   (4, L_patch, teacher.cfg.embed_dim), "cpu")
+
+        def on(dev):
+            return L.DiffKDDraws(draws.t_step.to(dev), [v.to(dev) for v in draws.noise],
+                                 [v.to(dev) for v in draws.keep])
+        _hold_objective(name, lambda a, s, tf, dev: L.diffkd_loss(
+            kd, a, s, tf, train=True, draws=on(dev)), feats, aux, OBJ_GRAD_TOL)
+    elif t == "curkd":
+        noise = torch.rand(4, L_patch, generator=torch.Generator().manual_seed(6))
+        for epoch in (0, 120, 200):
+            _hold_objective(f"{name} epoch {epoch}", lambda a, s, tf, dev: L.curkd_loss(
+                kd, a, s, tf, epoch=epoch, noise=noise.to(dev)), feats, aux, OBJ_GRAD_TOL)
+    else:
+        raise AssertionError(f"{name}: no card-against-CPU check for {t}")
+
+
+def check_sinkhorn_tf32(kd, aux, feats):
+    """The Sinkhorn divergence's cost products do not take TF32: on the
+    aligned features of the three layers, the divergences and their
+    gradients have the same bits with TF32 on in the process as with it off,
+    where a plain fp32 product of the same features changes."""
+    import torch
+
+    from deltakd_tpu_torch.kd.aux import dense
+    from deltakd_tpu_torch.kd.sinkhorn import batched_sinkhorn_divergence
+
+    with torch.no_grad():
+        x = torch.cat([dense(aux.align_wasskd[i], feats["student"][i][:, kd.student_prefix:])
+                       for i in range(3)])
+        y = torch.cat([feats["teacher"][i][:, kd.teacher_prefix:] for i in range(3)])
+
+    def run():
+        xg = x.detach().requires_grad_(True)
+        div = batched_sinkhorn_divergence(xg, y, n_iters=kd.sinkhorn_iters)
+        (grad,) = torch.autograd.grad(div.sum(), xg)
+        return div.detach(), grad, torch.bmm(x, y.transpose(1, 2))
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        div, grad, prod = run()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        div_tf32, grad_tf32, prod_tf32 = run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    same = torch.equal(div, div_tf32) and torch.equal(grad, grad_tf32)
+    moved = not torch.equal(prod, prod_tf32)
+    print(f"[objective] sinkhorn divergence {tuple(x.shape)} with TF32 on: the same bits "
+          f"{same}; a plain fp32 product of the same features moved under TF32 {moved}")
+    if not (same and moved):
+        raise AssertionError("the Sinkhorn divergence depends on the TF32 setting")
+
+
+def _planted_targets_input(M, D, top, seed):
+    """[M, D] fp32 on the card, U diag(s) V^T with the first ``top`` singular
+    values falling from 40 by 0.95 a step and the rest in [0.1, 1]: the top
+    eigenvectors of its Gram matrix are well separated."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.linalg.qr(torch.randn(M, D, device="cuda", generator=g, dtype=torch.float64))[0]
+    v = torch.linalg.qr(torch.randn(D, D, device="cuda", generator=g, dtype=torch.float64))[0]
+    s = torch.cat([40.0 * 0.95 ** torch.arange(top, device="cuda", dtype=torch.float64),
+                   0.1 + 0.9 * torch.rand(D - top, device="cuda", generator=g,
+                                          dtype=torch.float64)])
+    return ((u * s) @ v.T).float()
+
+
+def time_objective_solvers():
+    """Phase 6d, at the main path's shapes. LRKD: rank_k_targets on a
+    planted [50176, 384] spectrum (rank 32), both solvers, card against the
+    CPU port; the batched eigh of lrkd_targets ([3, 384, 384]) and the
+    subspace solver on the same Gram matrices, each on the host's clock (eigh
+    waits for its error check on the host). WassKD-sinkhorn: the potential
+    solve alone and the loss forward and backward on [768, 196, 384], on the
+    card's clock."""
+    import torch
+
+    from deltakd_tpu_torch.kd import losses as L
+    from deltakd_tpu_torch.kd import sinkhorn as sk
+
+    M, D, rank = B_MAIN * 196, 384, 32
+    a = _planted_targets_input(M, D, 40, 0)
+    for solver in ("eigh", "subspace"):
+        on_card = L.rank_k_targets(a, rank, solver=solver).cpu()
+        on_cpu = L.rank_k_targets(a.cpu(), rank, solver=solver)
+        err, mx = _err(on_card, on_cpu)
+        ok = err <= OBJ_GRAD_TOL * mx
+        print(f"[lrkd] rank_k_targets ({solver}) on a planted [{M}, {D}] spectrum, rank {rank}, "
+              f"card vs CPU: max_abs_err {err:.3e} of max {mx:.3e} (tol {OBJ_GRAD_TOL}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"rank_k_targets ({solver}) on the card disagrees with the CPU")
+    t2 = torch.stack([_planted_targets_input(M, D, 40, s) for s in (1, 2, 3)])
+    gram = torch.bmm(t2.mT, t2)
+    eigh_ms = _host_ms(lambda: torch.linalg.eigh(gram), 10)
+    sub_ms = _host_ms(lambda: L.topk_eigvecs_subspace(gram, rank), 10)
+    tgt_ms = _host_ms(lambda: torch.bmm(t2, L._canon_sign(
+        torch.linalg.eigh(torch.bmm(t2.mT, t2))[1].flip(-1)[..., :rank])), 10)
+    print(f"[lrkd] [3, {D}, {D}] batched eigh {eigh_ms:.3f} ms, subspace solver (rank {rank}) "
+          f"{sub_ms:.3f} ms, the whole of lrkd_targets at M = {M} {tgt_ms:.3f} ms "
+          f"(host's clock)")
+    del a, t2, gram
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(3 * B_MAIN, 196, 384, device="cuda", generator=g) * 0.5
+    y = torch.randn(3 * B_MAIN, 196, 384, device="cuda", generator=g) * 0.5
+    solve = _timed(lambda: sk._solve_scan(x, y, 0.0025, 20, 6), 5, warmup=1)
+    xg = x.clone().requires_grad_(True)
+
+    def loss_fwd_bwd():
+        sk.batched_sinkhorn_divergence(xg, y).sum().backward()
+    whole = _timed(loss_fwd_bwd, 5, warmup=1)
+    print(f"[sinkhorn] [{3 * B_MAIN}, 196, 384]: the potential solve {solve:.3f} ms, the "
+          f"divergence forward and backward {whole:.3f} ms (card's clock)")
 
 
 # Planted faults (``--faults``): each is an edit of one kernel source in a
@@ -2405,9 +2696,10 @@ def main() -> int:
     timing.update(time_pair_kernels(fb))
     torch.cuda.empty_cache()
 
-    by_path, step_ms = {}, {}
+    by_path, step_ms, peaks = {}, {}, {}
     for kd_type, steps in PATHS:
-        by_path[kd_type], step_ms[kd_type], kept = run_train_path(mods, kd_type, steps)
+        by_path[kd_type], step_ms[kd_type], peaks[kd_type], kept = run_train_path(
+            mods, kd_type, steps)
         teacher, student, aux, aug, kd, images, labels = kept
         if kd_type == "soft":
             by_path["eval"] = run_eval(mods, student, aug, images, labels,
@@ -2417,6 +2709,21 @@ def main() -> int:
             check_features_against_cpu(teacher, student, aux, aug, kd, images)
         del teacher, student, aux, kept
         torch.cuda.empty_cache()
+
+    # the recipes' objectives, each in its recipe's configuration
+    for name, options, epochs in OBJECTIVE_PATHS:
+        by_path[name], step_ms[name], peaks[name], kept = run_train_path(
+            mods, options["distillation_type"], len(epochs), name=name, epochs=epochs,
+            options=dict(RECIPE_COMMON, **options))
+        teacher, student, aux, aug, kd, images, labels = kept
+        if aux is not None:
+            check_objective_against_cpu(name, teacher, student, aux, aug, kd, images)
+        del teacher, student, aux, kept
+        torch.cuda.empty_cache()
+    print("[objectives] step ms, images/s and peak allocated GiB: " + "; ".join(
+        f"{k} {step_ms[k]:.2f} ms {B_MAIN / step_ms[k] * 1e3:.1f} img/s "
+        f"{peaks[k] / 2**30:.3f} GiB" for k in peaks))
+    time_objective_solvers()
     by_path["value_sort"] = run_value_sort(so)
 
     # the train-time data path, then the recipe's soft step with its teacher
@@ -2434,7 +2741,7 @@ def main() -> int:
           f"{aug_ms['mixup batch']['ms']:.3f}")
 
     # the unfused model path: its train steps, its eval batch on the eval view
-    by_path["unfused_soft"], step_ms["unfused soft"], kept = run_train_path(
+    by_path["unfused_soft"], step_ms["unfused soft"], _, kept = run_train_path(
         mods, "soft", UNFUSED_STEPS, unfused=True)
     teacher, student, _, aug, _, images, labels = kept
     by_path["unfused_eval"] = run_eval(
@@ -2450,7 +2757,8 @@ def main() -> int:
     # the block-pair path: the student's blocks two per kernel
     for kd_type, steps in PAIRED_PATHS:
         name = f"paired {kd_type}"
-        by_path[name], step_ms[name], kept = run_train_path(mods, kd_type, steps, paired=True)
+        by_path[name], step_ms[name], _, kept = run_train_path(mods, kd_type, steps,
+                                                               paired=True)
         teacher, student, aux, aug, kd, images, labels = kept
         if kd_type == "soft":
             by_path["paired_eval"] = run_eval(

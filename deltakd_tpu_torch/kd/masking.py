@@ -1,8 +1,10 @@
 """Token masking for the masked-generation objectives
 (``deltakd_tpu/kd/masking.py``): MAE-style random masking by the argsort of
-uniform noise, and the fill / restore / grid helpers around the generation
-head. Randomness comes from an explicit ``torch.Generator``; a test may hand
-in the noise itself.
+uniform noise, attention-guided (saliency) masking that keeps the least
+salient tokens, and the fill / restore / grid helpers around the generation
+head. Randomness comes from an explicit ``torch.Generator``; a caller may
+hand in the noise, or the saliency scores, itself. Every argsort is stable,
+as JAX's is.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from deltakd_tpu_torch.kd import aux as aux_ops
 
 
 def random_masking(generator: Optional[torch.Generator], x: torch.Tensor,
@@ -35,6 +39,57 @@ def random_masking(generator: Optional[torch.Generator], x: torch.Tensor,
     mask[:, :len_keep] = 0.0
     mask = mask.gather(1, ids_restore)
     return x_keep, mask, ids_restore, ids_masked
+
+
+def _keep_lowest(scores: torch.Tensor, student_feat: torch.Tensor, len_keep: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Keep the ``len_keep`` lowest-scoring tokens of ``student_feat``
+    [B, L, D] (ascending argsort of ``scores`` [B, L]: the reference keeps
+    the least salient tokens). Returns (x_keep, mask with 1 = removed,
+    ids_restore)."""
+    B, L = scores.shape
+    ids_shuffle = torch.argsort(scores, dim=1, stable=True)
+    ids_restore = torch.argsort(ids_shuffle, dim=1, stable=True)
+    ids_keep = ids_shuffle[:, :len_keep]
+    x_keep = student_feat.gather(1, ids_keep[..., None].expand(-1, -1, student_feat.shape[-1]))
+    mask = torch.ones(B, L, dtype=student_feat.dtype, device=student_feat.device)
+    mask[:, :len_keep] = 0.0
+    return x_keep, mask.gather(1, ids_restore), ids_restore
+
+
+@torch.no_grad()
+def saliency_scores(saliency_attn: torch.nn.Module, teacher_feat: torch.Tensor,
+                    method: int, teacher_prefix: int = 2) -> torch.Tensor:
+    """The attention score of each patch token [B, L_patch] that saliency
+    masking sorts by, from ``teacher_feat`` with its prefix tokens (CLS, then
+    DIST for a distilled teacher). Method 1: the self-attention diagonal over
+    the patch tokens; 2: the CLS row of self-attention over CLS and the patch
+    tokens, the CLS column dropped; 3: the CLS query's cross-attention over
+    the patch keys. No gradient flows through the argsort that reads them, so
+    none is taken."""
+    patches = teacher_feat[:, teacher_prefix:]
+    if method == 1:
+        return aux_ops.simple_attention_scores(saliency_attn, patches)
+    kept = torch.cat([teacher_feat[:, :1], patches], dim=1)   # CLS kept, DIST dropped
+    if method == 2:
+        return aux_ops.simple_attention_cls_row(saliency_attn, kept)[:, 1:]
+    if method == 3:
+        return aux_ops.cross_attention_scores(saliency_attn, kept[:, :1], kept[:, 1:])[:, 0]
+    raise ValueError(f"Invalid saliency masking method: {method}")
+
+
+def saliency_masking(saliency_attn: torch.nn.Module, teacher_feat: torch.Tensor,
+                     student_feat: torch.Tensor, mask_ratio: float, method: int,
+                     teacher_prefix: int = 2, *, scores: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention-guided masking: keep the int(L * (1 - mask_ratio)) least
+    salient of the L patch tokens of ``student_feat`` [B, L, D] (patch
+    tokens only). ``scores`` [B, L] replaces ``saliency_scores``. Returns
+    (x_keep, mask with 1 = removed, ids_restore)."""
+    if scores is None:
+        scores = saliency_scores(saliency_attn, teacher_feat, method, teacher_prefix)
+    len_keep = int(scores.shape[1] * (1 - mask_ratio))
+    return _keep_lowest(scores, student_feat, len_keep)
 
 
 def fill_and_restore(x_keep: torch.Tensor, ids_restore: torch.Tensor,

@@ -69,7 +69,9 @@ def aux_flax_to_torch(aux_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The JAX aux-head tree (nested dicts and lists of arrays) -> the fp32
     state_dict of ``kd.aux.AuxHeads``: a dense ``kernel`` [in, out] becomes
     ``weight`` [out, in], a conv ``kernel`` HWIO becomes OIHW, ``mask_token``
-    stays as it is; list entries are named by their index."""
+    stays as it is; nested dicts name submodules (``denoise.time1``,
+    ``saliency_attn.qk``, ``generation.conv2``) and list entries are named by
+    their index (``curkd_align_mid.3``)."""
     sd: Dict[str, np.ndarray] = {}
 
     def walk(tree, prefix):

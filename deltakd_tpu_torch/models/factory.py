@@ -138,6 +138,7 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
     aux = None
     if config.distillation_type.lower() in FEATURE_TYPES:
         aux = AuxHeads(config.distillation_type, student.cfg.embed_dim,
-                       teacher.cfg.embed_dim,
-                       torch.Generator().manual_seed(seed + 3)).to(resolve_device(device))
+                       teacher.cfg.embed_dim, torch.Generator().manual_seed(seed + 3),
+                       lrkd_rank=config.lrkd_rank,
+                       saliency_method=config.saliency_method).to(resolve_device(device))
     return teacher, student, aux

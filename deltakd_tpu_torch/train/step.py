@@ -7,7 +7,7 @@ the clipped AdamW update over the flat parameter vector of student and aux
 heads, the EMA update and the metrics, optionally over several accumulated
 micro-batches. Randomness comes from one explicit ``torch.Generator``; tests
 may instead pin the post-transform images, the soft targets, the drop-path
-scales and the masking noise.
+scales, the masking noise and DiffKD's draws.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from deltakd_tpu_torch.data.augment import AugmentConfig, eval_transform, train_transform
 from deltakd_tpu_torch.data.mixup import MixupConfig, apply_mixup
-from deltakd_tpu_torch.kd.losses import FEATURE_TYPES, KDSettings, total_loss
+from deltakd_tpu_torch.kd.losses import FEATURE_TYPES, DiffKDDraws, KDSettings, total_loss
 from deltakd_tpu_torch.train.state import TrainState
 
 
@@ -33,15 +33,18 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
                      aug: AugmentConfig, mixup: Optional[MixupConfig], tx,
                      aux=None) -> Callable:
     """Returns ``step(state, images_u8, labels, generator, *, images=None,
-    targets=None, drop_scales=None, epoch=0, mask_noise=None) -> metrics``.
+    targets=None, drop_scales=None, epoch=0, mask_noise=None,
+    diffkd_draws=None) -> metrics``.
 
     ``state`` must hold ``student``'s parameters and, for a feature objective,
     those of its aux heads ``aux`` (TrainState(student, aux=aux, ...)).
     ``images`` (post-transform, post-mixup, [B, S, S, 3]) and ``targets``
     replace the drawn augmentation; ``drop_scales`` (per block an
     (s_attn, s_mlp) pair or None) replaces the drawn stochastic depth and
-    ``mask_noise`` ([B, L]) the drawn masking noise, and both need
-    ``grad_accum_steps == 1``. Metrics are 0-d tensors on the device.
+    ``mask_noise`` ([B, L]) the drawn masking noise, ``diffkd_draws``
+    (``kd.losses.DiffKDDraws``) DiffKD's timesteps, noise and dropout masks;
+    each pinned draw needs ``grad_accum_steps == 1``. ``epoch`` (a Python
+    int) picks CurKD's phase. Metrics are 0-d tensors on the device.
     """
     needs_teacher = kd.distillation_type != "none"
     needs_features = kd.distillation_type.lower() in FEATURE_TYPES
@@ -53,7 +56,7 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
         teacher.requires_grad_(False)
 
     def micro_grads(params, generator, images_u8, labels, images, targets,
-                    drop_scales, epoch, mask_noise):
+                    drop_scales, epoch, mask_noise, diffkd_draws):
         if images is None:
             # named ranges, so that a profile of the step can tell them apart
             with torch.profiler.record_function("train_transform"):
@@ -79,8 +82,8 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
             kd, student_logits=s_out.logits, student_dist_logits=s_out.logits_dist,
             student_feats=s_out.features if needs_features else None,
             teacher_logits=teacher_logits, teacher_feats=teacher_feats, aux=aux,
-            targets=targets, generator=generator, noise=mask_noise, epoch=epoch,
-            train=True)
+            targets=targets, generator=generator, noise=mask_noise,
+            diffkd_draws=diffkd_draws, epoch=epoch, train=True)
         # a parameter the loss does not reach (the dist head under a feature
         # objective) has a zero gradient
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -97,10 +100,11 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
 
     def step(state: TrainState, images_u8, labels, generator: torch.Generator, *,
              images=None, targets=None, drop_scales: Optional[Sequence] = None,
-             epoch: int = 0, mask_noise: Optional[torch.Tensor] = None
-             ) -> Dict[str, torch.Tensor]:
-        if (drop_scales is not None or mask_noise is not None) and accum > 1:
-            raise ValueError("pinned drop_scales or mask_noise need "
+             epoch: int = 0, mask_noise: Optional[torch.Tensor] = None,
+             diffkd_draws: Optional[DiffKDDraws] = None) -> Dict[str, torch.Tensor]:
+        pinned = (drop_scales, mask_noise, diffkd_draws)
+        if any(p is not None for p in pinned) and accum > 1:
+            raise ValueError("pinned drop_scales, mask_noise or diffkd_draws need "
                              "grad_accum_steps == 1")
         params = state.parameters()
         mb = labels.shape[0] // accum
@@ -112,7 +116,7 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
                 None if images_u8 is None else images_u8[part], labels[part],
                 None if images is None else images[part],
                 None if targets is None else targets[part], drop_scales,
-                epoch, mask_noise)
+                epoch, mask_noise, diffkd_draws)
             g_sum = g if g_sum is None else g_sum + g
             m_sum = m if m_sum is None else {k: m_sum[k] + m[k] for k in m}
         grads = g_sum / accum

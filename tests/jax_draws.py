@@ -1,9 +1,11 @@
-"""Test helper: the random values that the JAX package's train transform and
-mixup draw from their keys, rebuilt as the port's draws
-(``deltakd_tpu_torch.data.augment.TrainDraws``, ``data.mixup.MixupDraws``),
-so that both packages' deterministic halves see the same draws. Every key
-split and fold follows ``deltakd_tpu/data/augment.py`` ``train_transform``
-and ``deltakd_tpu/data/mixup.py`` ``apply_mixup``.
+"""Test helper: the random values that the JAX package's train transform,
+mixup and DiffKD loss draw from their keys, rebuilt as the port's draws
+(``deltakd_tpu_torch.data.augment.TrainDraws``, ``data.mixup.MixupDraws``,
+``kd.losses.DiffKDDraws``), so that both packages' deterministic halves see
+the same draws. Every key split and fold follows
+``deltakd_tpu/data/augment.py`` ``train_transform``,
+``deltakd_tpu/data/mixup.py`` ``apply_mixup`` and
+``deltakd_tpu/kd/losses.py`` ``diffkd_loss``.
 """
 
 import math
@@ -16,6 +18,7 @@ import torch
 from deltakd_tpu.data import augment as ja
 from deltakd_tpu_torch.data import augment as ta
 from deltakd_tpu_torch.data import mixup as tm
+from deltakd_tpu_torch.kd import losses as tl
 
 
 def t(a):
@@ -132,3 +135,17 @@ def mixup_draws(key, B, H, W, mc):
         t(jax.random.bernoulli(k_switch, mc.switch_prob, shape)),
         f(jax.random.beta(k_lam_m, mc.mixup_alpha, mc.mixup_alpha, shape)),
         f(jax.random.beta(k_lam_c, mc.cutmix_alpha, mc.cutmix_alpha, shape)), f(cy), f(cx))
+
+
+def diffkd_draws(key, shape):
+    """What ``diffkd_loss(..., rng=key)`` draws for teacher features of
+    ``shape`` [B, L, D]: the timesteps, and per layer i the noise and the
+    denoiser's dropout keep mask from ``fold_in(k_rest, i)``."""
+    k_t, k_rest = jax.random.split(key)
+    t_step = t(jax.random.randint(k_t, shape[:1], 0, tl.DIFFKD_STEPS)).long()
+    noise, keep = [], []
+    for i in range(3):
+        k_noise, k_drop = jax.random.split(jax.random.fold_in(k_rest, i))
+        noise.append(t(jax.random.normal(k_noise, shape)))
+        keep.append(t(jax.random.bernoulli(k_drop, 0.9, shape)))
+    return tl.DiffKDDraws(t_step, noise, keep)

@@ -5,7 +5,7 @@ Run on a machine with an NVIDIA GPU (no JAX needed there):
 Without a card the tests skip: a CUDA kernel has no CPU mode. The fused
 block: small shape (D=128, 2 heads of 64, N=18) with drop-path scales of 0
 and 1/keep, and the forward and the backward (with and without a feature
-cotangent) at N in (50, 198, 578) for D in (192, 384, 768); bf16 operands, so
+cotangent) at N in (50, 197, 198, 578) for D in (192, 384, 768); bf16 operands, so
 the tolerance is 2e-2 of the largest reference value. The GEMM alone: the
 forward's products against F.linear plus their epilogue, the backward's input
 gradient with the GELU derivative as `mul` and its weight gradients against
@@ -24,7 +24,11 @@ train-time data path: the RA and AA transform at 224 px on the card against
 the CPU on the same draws (as chip_smoke.py phase 9), no host sync in the
 transform or in mixup, and a fused soft-KD step with TrainConfig's defaults
 and a teacher imported from a checkpoint written with chip_smoke.py's
-``write_teacher_checkpoint``.
+``write_teacher_checkpoint``. The recipes' objectives: one fused step of
+WassKD-sinkhorn, Saliency-MGD, LRKD, DiffKD, CurKD (epochs 0, 120, 200) and
+hard KD in their exp/*.sh configurations at batch 8 (the DeiT-Ti without a
+distillation token, N = 197, but for hard), and the Sinkhorn divergence with
+TF32 on in the process: the same bits as with it off.
 """
 
 import pytest
@@ -77,7 +81,7 @@ def test_kernels_match_plain_version_on_card(need_feat):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_tok", [50, 198, 578])
+@pytest.mark.parametrize("n_tok", [50, 197, 198, 578])
 @pytest.mark.parametrize("width,heads", [(192, 3), (384, 6), (768, 12)])
 def test_block_forward_sequence_lengths_on_card(width, heads, n_tok):
     """The forward (TMA + wgmma GEMM, on-chip attention) at ragged sequence
@@ -131,7 +135,7 @@ def test_linear_matches_f_linear_on_card(width, product):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_tok", [50, 198, 578])
+@pytest.mark.parametrize("n_tok", [50, 197, 198, 578])
 @pytest.mark.parametrize("width,heads", [(192, 3), (384, 6), (768, 12)])
 def test_block_backward_sequence_lengths_on_card(width, heads, n_tok):
     """The backward (recompute with lse, attention backward with the scores
@@ -632,3 +636,89 @@ def test_recipe_soft_step_on_card(tmp_path):
     assert fb.LAUNCHES == {("fused_block_fwd", 384): 12, ("fused_block_fwd", 192): 12,
                            ("fused_block_bwd", 192): 12}
     assert all(np.isfinite(v) for v in metrics.values()) and metrics["distill_loss"] > 0
+
+
+# -----------------------------------------------------------------------------
+# The feature objectives of the recipes that train the non-distilled student
+# -----------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe,epoch", [("wasskd-sinkhorn", 0), ("saliency_mgd", 0),
+                                          ("lrkd", 0), ("diffkd", 0), ("curkd", 0),
+                                          ("curkd", 120), ("curkd", 200), ("hard", 0)])
+def test_recipe_objective_step_on_card(recipe, epoch):
+    """One fused train step of each objective in its recipe's configuration
+    (chip_smoke.OBJECTIVE_PATHS) at batch 8, 224 px: the DeiT-Ti student without a distillation token
+    (N = 197; the distilled one for hard), 12 + 12 block forwards and 12
+    block backwards, finite metrics, a positive distill loss, student and aux
+    parameters changed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.data.augment import AugmentConfig
+    from deltakd_tpu_torch.data.mixup import MixupConfig
+    from deltakd_tpu_torch.kd.losses import KDSettings
+    from deltakd_tpu_torch.models.factory import load_teacher_student
+    from deltakd_tpu_torch.train.optim import make_optimizer
+    from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
+    from chip_smoke import OBJECTIVE_PATHS, RECIPE_COMMON
+    from deltakd_tpu_torch.train.step import build_train_step
+
+    options = dict(RECIPE_COMMON, **dict((n, o) for n, o, _ in OBJECTIVE_PATHS)[recipe])
+    cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224", batch_size=8,
+                      dataset="cifar-100", aa="", color_jitter=0.0,
+                      allow_random_teacher=True, **options)
+    teacher, student, aux = load_teacher_student(cfg, seed=0, device="cuda")
+    tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
+    state = TrainState(student, tx=tx, aux=aux)
+    kd = KDSettings.from_config(cfg, student_prefix=student.cfg.num_prefix_tokens,
+                                teacher_prefix=teacher.cfg.num_prefix_tokens)
+    step = build_train_step(cfg=cfg, kd=kd, student=student, teacher=teacher, aux=aux,
+                            aug=AugmentConfig.from_config(cfg),
+                            mixup=MixupConfig.from_config(cfg, 100), tx=tx)
+    before = state.params.clone()
+    n_student = sum(p.numel() for p in student.parameters())
+    fb.reset_launches()
+    metrics = {k: float(v) for k, v in
+               step(state, _u8_batch(8, 32), torch.arange(8, device="cuda"),
+                    torch.Generator(device="cuda").manual_seed(1), epoch=epoch).items()}
+    assert fb.LAUNCHES == {("fused_block_fwd", 384): 12, ("fused_block_fwd", 192): 12,
+                           ("fused_block_bwd", 192): 12}
+    assert all(np.isfinite(v) for v in metrics.values()) and metrics["distill_loss"] > 0
+    delta = (state.params - before).abs()
+    assert delta[:n_student].max().item() > 0
+    assert aux is None or delta[n_student:].max().item() > 0
+
+
+@pytest.mark.cuda
+def test_sinkhorn_ignores_tf32():
+    """The divergence and its gradients have the same bits with TF32 on in
+    the process as with it off, where a plain fp32 product of the same
+    clouds does change."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from deltakd_tpu_torch.kd.sinkhorn import batched_sinkhorn_divergence
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(6, 196, 384, device="cuda", generator=g) * 0.5
+    y = torch.randn(6, 196, 384, device="cuda", generator=g) * 0.5
+
+    def run():
+        xg = x.clone().requires_grad_(True)
+        div = batched_sinkhorn_divergence(xg, y)
+        div.sum().backward()
+        return div.detach(), xg.grad, torch.bmm(x, y.transpose(1, 2))
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        div, grad, prod = run()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        div_tf32, grad_tf32, prod_tf32 = run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert not torch.equal(prod, prod_tf32)
+    assert torch.equal(div, div_tf32) and torch.equal(grad, grad_tf32)
+    assert torch.isfinite(div).all() and (div > 0).all()

@@ -65,11 +65,16 @@ def test_total_loss_matches_jax(kind, mixup):
 
 
 def test_feature_objectives_raise_until_ported():
-    with pytest.raises(NotImplementedError):
-        tl.total_loss(tl.KDSettings(distillation_type="lrkd"), student_logits=torch.zeros(2, 3),
-                      student_dist_logits=None, teacher_logits=None,
-                      targets=torch.zeros(2, 3))
-    assert tl.feature_indices("mgd", 12) == jl.feature_indices("mgd", 12)
+    """Every objective is ported: none raises NotImplementedError, a feature
+    objective without its features raises ValueError, and each reads the
+    blocks the JAX package's reads."""
+    for t in tl.FEATURE_TYPES:
+        with pytest.raises(ValueError, match="requires student and teacher features"):
+            tl.total_loss(tl.KDSettings(distillation_type=t), student_logits=torch.zeros(2, 3),
+                          student_dist_logits=None, teacher_logits=None,
+                          targets=torch.zeros(2, 3))
+        assert tl.feature_indices(t, 12) == jl.feature_indices(t, 12)
+    assert tl.FEATURE_TYPES == jl.FEATURE_TYPES
     assert tl.feature_indices("soft", 12) is False
 
 

@@ -204,11 +204,17 @@ def test_drop_path_ramp_and_scales():
     ("soft", False, None),
     ("wasskd", {0, 1, 2}, {"align_wasskd"}),
     ("mgd", {11}, {"align", "mask_token", "generation"}),
-    ("vitkd", {0, 1, 11}, {"align2", "align", "mask_token", "generation"})])
+    ("vitkd", {0, 1, 11}, {"align2", "align", "mask_token", "generation"}),
+    ("lrkd", {0, 1, 11}, {"align"}),
+    ("diffkd", {0, 1, 11}, {"denoise", "align"}),
+    ("curkd", {0, 1, 2, 3, 4, 5, 6, 11}, {"curkd_align_early", "curkd_align_mid",
+                                          "curkd_align_last", "mask_token", "generation"}),
+    ("saliency_mgd", {11}, {"align", "mask_token", "generation", "saliency_attn"})])
 def test_load_teacher_student_returns_the_aux_heads(kd_type, feats, aux_keys):
     """(teacher, student, aux) as the JAX factory: aux is None for a logit
     objective, else the heads of the type from student width to teacher
-    width; both models collect only the features the objective reads."""
+    width (LRKD's to its rank, Saliency-MGD's attention by its method);
+    both models collect only the features the objective reads."""
     from deltakd_tpu_torch.configs.config import TrainConfig
     from deltakd_tpu_torch.models.factory import load_teacher_student
 
@@ -223,12 +229,17 @@ def test_load_teacher_student_returns_the_aux_heads(kd_type, feats, aux_keys):
     assert teacher.collect_features == student.collect_features
     if aux_keys is None:
         assert aux is None
-    else:
-        assert {n.split(".")[0] for n, _ in aux.named_parameters()} == aux_keys
-        assert aux.align_wasskd[0].weight.shape == (384, 192) if kd_type == "wasskd" \
-            else aux.align.weight.shape == (384, 192)
-    with pytest.raises(NotImplementedError):
-        load_teacher_student(cfg.replace(distillation_type="lrkd"), device="cpu")
+        return
+    assert {n.split(".")[0] for n, _ in aux.named_parameters()} == aux_keys
+    first = {"wasskd": "align_wasskd.0", "curkd": "curkd_align_early.0",
+             "lrkd": "align.0", "diffkd": "align.0"}.get(kd_type, "align")
+    assert aux.get_submodule(first).weight.shape == ((32 if kd_type == "lrkd" else 384), 192)
+    if kd_type == "lrkd":   # the config's rank sizes the align layers
+        _, _, aux = load_teacher_student(cfg.replace(lrkd_rank=16), device="cpu")
+        assert aux.align[2].weight.shape == (16, 192)
+    if kd_type == "saliency_mgd":   # the config's method picks the attention heads
+        _, _, aux = load_teacher_student(cfg.replace(saliency_method=3), device="cpu")
+        assert {n for n, _ in aux.saliency_attn.named_children()} == {"q", "k"}
 
 
 @pytest.mark.parametrize("mesh_shape,flash,path", [

@@ -2,9 +2,11 @@
 ``build_train_step``, from the same weights, the same post-transform images
 and soft targets (the JAX step's transform and mixup are replaced by
 functions returning them) and drop-path rate 0: loss terms, grad norm and
-the updated parameters. The same for one wasskd-l1 and one mgd step, with the
-same aux-head weights and, for mgd, the masking noise the JAX step draws from
-its key handed to the port; the updated aux parameters are compared too.
+the updated parameters. The same for one wasskd-l1, one mgd, one lrkd and one
+diffkd step, with the same aux-head weights and, for mgd and diffkd, the
+draws the JAX step makes from its key (masking noise; timesteps, noise and
+dropout masks) handed to the port; the updated aux parameters are compared
+too.
 The same soft-KD step on the unfused path (the student through
 ``flash_attention``, the frozen teacher through ``flash_attention`` and
 ``fused_mlp``) with drop-path masks shared by both sides. The same soft-KD
@@ -52,6 +54,7 @@ from deltakd_tpu_torch.ops.fused_mlp import fused_mlp
 from deltakd_tpu_torch.train.optim import make_optimizer
 from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
 from deltakd_tpu_torch.train.step import build_eval_step, build_train_step
+from tests import jax_draws
 
 torch.set_num_threads(1)
 
@@ -125,24 +128,26 @@ def test_train_step_matches_jax(monkeypatch):
         np.testing.assert_array_equal(p.numpy(), flax_to_torch(t_params)[name].numpy())
 
 
-@pytest.mark.parametrize("kd_type", ["wasskd", "mgd"])
+@pytest.mark.parametrize("kd_type", ["wasskd", "mgd", "lrkd", "diffkd"])
 def test_feature_kd_train_step_matches_jax(kd_type, monkeypatch):
     """The whole slice at 2 layers and narrow widths: teacher and student
     features through the fused block's plain version, the aux heads, the
-    objective, and the AdamW update of student and aux parameters."""
+    objective, and the AdamW update of student and aux parameters. LRKD at
+    rank 8 of the teacher's 96 columns (its batched eigh on 64 token rows);
+    DiffKD with the draws of the JAX step's loss key pinned."""
     rng = np.random.RandomState(10)
     images = rng.randn(B, 32, 32, 3).astype(np.float32)
     labels = rng.randint(0, C, B)
     targets = rng.dirichlet(np.ones(C), B).astype(np.float32)
     u8 = rng.randint(0, 256, (B, 32, 32, 3)).astype(np.uint8)
-    hp = dict(HP, distillation_type=kd_type, mgd_alpha=0.5)
+    hp = dict(HP, distillation_type=kd_type, mgd_alpha=0.5, lrkd_rank=8)
 
     kw_s = dict(STUDENT, depth=3) if kd_type == "wasskd" else STUDENT
     kw_t = dict(TEACHER, depth=3) if kd_type == "wasskd" else TEACHER
     j_student, s_params, t_student = _pair(kw_s, 11)
     j_teacher, t_params, t_teacher = _pair(kw_t, 12)
     aux_tree = init_aux_params(jax.random.PRNGKey(13), kd_type, STUDENT["embed_dim"],
-                               TEACHER["embed_dim"])
+                               TEACHER["embed_dim"], lrkd_rank=8)
     if "mask_token" in aux_tree:
         aux_tree["mask_token"] = aux_tree["mask_token"] + 0.1
 
@@ -169,9 +174,9 @@ def test_feature_kd_train_step_matches_jax(kd_type, monkeypatch):
 
     cfg = TrainConfig(aa="", color_jitter=0.0, **hp)
     aux = AuxHeads(kd_type, STUDENT["embed_dim"], TEACHER["embed_dim"],
-                   torch.Generator().manual_seed(0))
+                   torch.Generator().manual_seed(0), lrkd_rank=8)
     aux.load_state_dict(aux_flax_to_torch(aux_tree))
-    feats = {"wasskd": {0, 1, 2}, "mgd": {1}}[kd_type]
+    feats = {"wasskd": {0, 1, 2}, "mgd": {1}, "lrkd": {0, 1}, "diffkd": {0, 1}}[kd_type]
     t_student.collect_features = t_teacher.collect_features = feats
     tx = make_optimizer(cfg, trainable_parameters(t_student, aux), 5)
     state = TrainState(t_student, tx=tx, aux=aux, ema_decay=cfg.ema_decay)
@@ -182,7 +187,9 @@ def test_feature_kd_train_step_matches_jax(kd_type, monkeypatch):
     m = fn(state, torch.from_numpy(u8), torch.from_numpy(labels),
            torch.Generator().manual_seed(0), images=torch.from_numpy(images),
            targets=torch.from_numpy(targets),
-           mask_noise=noise if kd_type == "mgd" else None)
+           mask_noise=noise if kd_type == "mgd" else None,
+           diffkd_draws=(jax_draws.diffkd_draws(k_loss, (B, n_patches, TEACHER["embed_dim"]))
+                         if kd_type == "diffkd" else None))
 
     assert float(m["distill_loss"]) > 0
     for k in ("train_loss", "base_loss", "distill_loss", "grad_norm", "train_acc1",
