@@ -134,19 +134,44 @@ Phases, each of which fails the run:
      file's), 8 steps with their launch counts (12 + 12 block forwards and 12
      block backwards a step) and times beside the aa='' soft step, and the
      device time of one step by part, the transform and mixup their own parts
-     (`[profile] soft recipe step by part`; the aa='' soft step's too).
+     (`[profile] soft recipe step by part`; the aa='' soft step's too);
+ 11. the runtime: run() and the CLIs (deltakd_tpu_torch.cli.train.main and
+     cli.eval.main) with the flags of the port's exp/*.sh copies (each recipe
+     run by bash with a stub `python` that records its arguments; --epochs,
+     --save-dir and the like appended through EXTRA_FLAGS), phase 10's teacher
+     checkpoint and CIFAR-100 pickles written here (4096 train and 1000 test
+     images at 32 px: 16 steps of 256, 4 eval batches, the last one padded):
+     11a soft-deit-tiny.sh for 2 epochs: 12 + 12 block forwards and 12 block
+     backwards each train step, 12 block forwards each eval batch, finite
+     metrics, the checkpoint layout and meta.json, and the host syncs of epoch
+     0 under torch.cuda's sync debug mode, of which the loop's own (those
+     outside the steps) must be the one epoch-end read; 11b resumed to a third
+     epoch against 3 straight epochs: parameters, Adam moments, step count and
+     the last val metrics the same bits; 11c cli.eval on 11b's checkpoint:
+     test_loss and test_acc1 equal to run()'s last val_loss and val_acc1; 11d
+     mgd-deit-tiny.sh for 4 steps, then mgd-deit-tiny-transfer.sh's flowers run
+     on synthetic data (102 classes, 224 px, batch 512, 4 steps): the heads
+     dropped and re-initialised, every block the checkpoint's, the launch
+     counts of each step. Prints run()'s train step (CUDA events recorded
+     after each step) beside phase 10's, the loader wait, validate, checkpoint
+     save and load times and bytes, and peak allocated memory, each beside the
+     card's name and power limit.
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
 """
 
+import atexit
 import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 B_CHECK, B_MAIN, N_TOK = 8, 256, 198
 TOL = 2e-2            # max |kernel - plain| <= TOL * max |plain| (bf16 rounding
@@ -1836,26 +1861,23 @@ def write_teacher_checkpoint(path):
     return state
 
 
-def run_recipe_path(mods):
+def run_recipe_path(mods, path):
     """Phase 10, the soft recipe path: exp/soft-deit-tiny.sh's configuration
     (TrainConfig's defaults: rand-m9-mstd0.5-inc1, mixup 0.8 / cutmix 1.0,
     reprob 0.25, the bf16 pixel stage; weight decay 1e-4, alpha 0.1, tau 3)
-    with its teacher imported from a checkpoint written here. Checks the
-    import report (both heads skipped, every block loaded, nothing
-    unconsumed), that the teacher's blocks equal the file's and that its
-    position embedding is the file's 24 x 24 grid interpolated to 14 x 14,
-    then runs RECIPE_STEPS train steps through run_train_path."""
-    import tempfile
-
+    with its teacher imported from a checkpoint written here to ``path``
+    (phase 11 reads it again). Checks the import report (both heads skipped,
+    every block loaded, nothing unconsumed), that the teacher's blocks equal
+    the file's and that its position embedding is the file's 24 x 24 grid
+    interpolated to 14 x 14, then runs RECIPE_STEPS train steps through
+    run_train_path."""
     import torch
 
     from deltakd_tpu_torch.models.pos_embed import interpolate_pos_embed
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "deit_small_distilled_patch16_384.pth")
-        state = write_teacher_checkpoint(path)
-        launches, ms, _, kept = run_train_path(mods, "soft", RECIPE_STEPS,
-                                               teacher_checkpoint=path)
+    state = write_teacher_checkpoint(path)
+    launches, ms, _, kept = run_train_path(mods, "soft", RECIPE_STEPS,
+                                           teacher_checkpoint=path)
     teacher = kept[0]
     report = teacher.import_report
     heads = ["head.weight", "head.bias", "head_dist.weight", "head_dist.bias"]
@@ -2502,6 +2524,389 @@ def time_objective_solvers():
           f"divergence forward and backward {whole:.3f} ms (card's clock)")
 
 
+# The runtime (phase 11): run() and the CLIs with the flags of the port's
+# copies of the exp/*.sh recipes, on CIFAR-100-format pickles written here
+RUNTIME_TRAIN, RUNTIME_TEST = 4096, 1000   # 16 train steps of 256, 4 eval batches
+TRANSFER_STEPS = 4
+SYNC_WARNING = "synchroniz"   # in torch.cuda's sync debug warnings
+
+
+def write_cifar100(root, n_train, n_test, seed=0):
+    """cifar-100-python/{train,test} as the standard archive holds them: uint8
+    rows of 3072 (CHW) and 'fine_labels'."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    base = os.path.join(root, "cifar-100-python")
+    os.makedirs(base)
+    for name, n in (("train", n_train), ("test", n_test)):
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({"data": rng.randint(0, 256, (n, 3072), dtype=np.uint8),
+                         "fine_labels": rng.randint(0, 100, n).tolist()}, f)
+
+
+def recipe_argvs(recipe, tmp, **env):
+    """The training commands of deltakd_tpu_torch/exp/<recipe>: bash runs the
+    recipe with a stub ``python`` first on PATH that records its arguments.
+    Returns each command's flags (after ``-m deltakd_tpu_torch.cli.train``)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    stub_dir = os.path.join(tmp, "bin")
+    os.makedirs(stub_dir, exist_ok=True)
+    stub, record = os.path.join(stub_dir, "python"), os.path.join(tmp, "recipe.args")
+    with open(stub, "w") as f:
+        f.write('#!/bin/bash\nprintf "%s\\0" "$@" >> "$RECORD"\nprintf "\\n\\0" >> "$RECORD"\n')
+    os.chmod(stub, 0o755)
+    if os.path.exists(record):
+        os.remove(record)
+    subprocess.run(["bash", os.path.join(root, "deltakd_tpu_torch", "exp", recipe)],
+                   env={**os.environ, "PATH": f"{stub_dir}:{os.environ['PATH']}",
+                        "RECORD": record, **env}, check=True, cwd=tmp)
+    calls, current = [], []
+    with open(record, "rb") as f:
+        for arg in f.read().split(b"\0")[:-1]:
+            if arg == b"\n":
+                calls.append(current)
+                current = []
+            else:
+                current.append(arg.decode())
+    for argv in calls:
+        if argv[:2] != ["-m", "deltakd_tpu_torch.cli.train"]:
+            raise AssertionError(f"{recipe} runs {argv[:2]}")
+    return [argv[2:] for argv in calls]
+
+
+class RunProbe:
+    """Wraps what run() calls (train_one_epoch, the steps, validate, the
+    checkpoint save and load, the train loader's batches, the finetune load)
+    to count and time them without a host sync inside an epoch: each train
+    step and eval batch gets its kernel launches (read off the host-side
+    counts) and each train step a CUDA event recorded after it; one epoch can
+    run under torch.cuda's sync debug mode, which counts the syncs inside the
+    steps and records where each of the others was."""
+
+    def __init__(self, mods):
+        import torch
+
+        from deltakd_tpu_torch.data import pipeline
+        from deltakd_tpu_torch.train import loop
+
+        self.mods, self.torch, self.loop, self.pipeline = mods, torch, loop, pipeline
+        self.sync_epoch = None
+        self.reset()
+
+    def reset(self):
+        self.step_launches, self.eval_launches, self.events = [], [], []
+        self.loader_wait, self.validate_ms, self.epoch_metrics = [], [], []
+        self.save, self.load_ms, self.finetune = [], [], None
+        self.syncs = None   # (where each sync outside the steps was, syncs in the steps)
+        self._warnings, self._in_steps = None, set()
+
+    def _syncs(self):
+        return [w for w in self._warnings if SYNC_WARNING in str(w.message)]
+
+    def _launch_delta(self, before):
+        after = _read_launches(self.mods)
+        return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+    def __enter__(self):
+        torch, loop, probe = self.torch, self.loop, self
+        self._saved = {name: getattr(loop, name) for name in (
+            "build_train_step", "build_eval_step", "train_one_epoch", "validate",
+            "save_checkpoint", "load_checkpoint", "load_student_for_finetune")}
+        self._saved_epoch = self.pipeline.Loader.epoch
+        real = self._saved
+
+        def build_train_step(**kw):
+            inner = real["build_train_step"](**kw)
+
+            def step(state, images, labels, generator, **skw):
+                before = _read_launches(probe.mods)
+                seen = len(probe._warnings) if probe._warnings is not None else 0
+                metrics = inner(state, images, labels, generator, **skw)
+                if probe._warnings is not None:
+                    probe._in_steps.update(id(w) for w in probe._warnings[seen:])
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                probe.events.append((skw.get("epoch"), event))
+                probe.step_launches.append(probe._launch_delta(before))
+                return metrics
+
+            return step
+
+        def build_eval_step(**kw):
+            inner = real["build_eval_step"](**kw)
+
+            def step(*args):
+                before = _read_launches(probe.mods)
+                out = inner(*args)
+                probe.eval_launches.append(probe._launch_delta(before))
+                return out
+
+            return step
+
+        def train_one_epoch(state, train_step, loader, epoch, cfg, **kw):
+            if epoch != probe.sync_epoch:
+                out = real["train_one_epoch"](state, train_step, loader, epoch, cfg, **kw)
+            else:
+                # set before the record starts: the first switch in a process
+                # warns at the setter's own line
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        probe._warnings, probe._in_steps = caught, set()
+                        out = real["train_one_epoch"](state, train_step, loader, epoch,
+                                                      cfg, **kw)
+                        syncs = probe._syncs()
+                        probe.syncs = (
+                            [f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs
+                             if id(w) not in probe._in_steps],
+                            sum(id(w) in probe._in_steps for w in syncs))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                    probe._warnings = None
+            probe.epoch_metrics.append(out)
+            return out
+
+        def timed(name, record):
+            def wrapper(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real[name](*args, **kw)
+                torch.cuda.synchronize()
+                record(out, (time.perf_counter() - t0) * 1e3)
+                return out
+            return wrapper
+
+        def loader_epoch(loader, epoch):
+            it = probe._saved_epoch(loader, epoch)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        return
+                    if loader.is_train:
+                        probe.loader_wait.append(time.perf_counter() - t0)
+                    yield item
+            finally:
+                it.close()
+
+        def finetune(checkpoint, student, **kw):
+            target = {n: p.detach().clone() for n, p in student.named_parameters()}
+            lines = []
+            log = kw.pop("log")
+            merged = real["load_student_for_finetune"](
+                checkpoint, student, log=lambda m: (lines.append(m), log(m)), **kw)
+            probe.finetune = dict(target=target, merged=merged, lines=lines)
+            return merged
+
+        loop.build_train_step = build_train_step
+        loop.build_eval_step = build_eval_step
+        loop.train_one_epoch = train_one_epoch
+        loop.validate = timed("validate", lambda out, ms: probe.validate_ms.append(ms))
+        loop.save_checkpoint = timed("save_checkpoint", lambda path, ms: probe.save.append(
+            (ms, os.path.getsize(os.path.join(path, "state.pt")))))
+        loop.load_checkpoint = timed("load_checkpoint",
+                                     lambda out, ms: probe.load_ms.append(ms))
+        loop.load_student_for_finetune = finetune
+        self.pipeline.Loader.epoch = loader_epoch
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.loop, name, fn)
+        self.pipeline.Loader.epoch = self._saved_epoch
+
+    def step_ms(self):
+        """Per train step after the first of its epoch: the time between the
+        events recorded after it and after the step before it."""
+        self.torch.cuda.synchronize()
+        out = []
+        for (e0, a), (e1, b) in zip(self.events, self.events[1:]):
+            if e0 == e1:
+                out.append(a.elapsed_time(b))
+        return out
+
+
+def _median(values):
+    values = sorted(values)
+    return values[len(values) // 2]
+
+
+def _check_launches(what, got, expect, count):
+    if len(got) != count or any(g != expect for g in got):
+        raise AssertionError(f"{what}: {len(got)} launch counts (expected {count} of "
+                             f"{expect}): {got[:3]}")
+
+
+def _check_loop_syncs(n):
+    if n != 1:
+        raise AssertionError(f"11a: the loop adds {n} host syncs to an epoch; expected 1, "
+                             f"the epoch-end read")
+
+
+def _same_state(a_dir, b_dir):
+    import torch
+
+    a = torch.load(os.path.join(a_dir, "state.pt"), weights_only=True)
+    b = torch.load(os.path.join(b_dir, "state.pt"), weights_only=True)
+    sa, sb = a["state"], b["state"]
+    same = (a["meta"] == b["meta"] and sa["step"] == sb["step"]
+            and sa["opt"]["count"] == sb["opt"]["count"]
+            and all(torch.equal(x, y) for x, y in (
+                (sa["params"], sb["params"]), (sa["opt"]["mu"], sb["opt"]["mu"]),
+                (sa["opt"]["nu"], sb["opt"]["nu"]))))
+    return same, sa["step"]
+
+
+def run_runtime_path(mods, tmp, teacher_checkpoint, smi, soft_recipe_ms):
+    """Phase 11, the runtime: cli.train.main and cli.eval.main with the flags of
+    the port's exp/*.sh copies (their --epochs and --save-dir overridden through
+    EXTRA_FLAGS), the teacher from phase 10's checkpoint, the data from CIFAR-100
+    pickles (4096 train, 1000 test images). 11a: soft-deit-tiny.sh for 2
+    epochs; 11b: resumed to 3, against 3 straight epochs; 11c: the eval CLI on
+    11b's checkpoint; 11d: mgd-deit-tiny.sh for 4 steps, then
+    mgd-deit-tiny-transfer.sh's flowers run on synthetic data at batch 512."""
+    import torch
+
+    from deltakd_tpu_torch.ckpt.checkpoint import student_state_dict
+    from deltakd_tpu_torch.cli import eval as eval_cli
+    from deltakd_tpu_torch.cli import train as train_cli
+
+    # the recipes pass --wandb; where wandb is installed, keep it off the
+    # network (no run, no error reports)
+    os.environ.update(WANDB_MODE="disabled", WANDB_ERROR_REPORTING="false")
+    data = os.path.join(tmp, "data")
+    write_cifar100(data, RUNTIME_TRAIN, RUNTIME_TEST)
+    env = dict(DATA_PATH=data, TEACHER_CKPT=teacher_checkpoint)
+    steps = RUNTIME_TRAIN // B_MAIN
+    eval_batches = -(-RUNTIME_TEST // B_MAIN)
+    fused = {("fused_block_fwd", 384): 12, ("fused_block_fwd", 192): 12,
+             ("fused_block_bwd", 192): 12}
+    eval_fused = {("fused_block_fwd", 192): 12}
+
+    def soft(save, *extra):
+        [argv] = recipe_argvs("soft-deit-tiny.sh", tmp, EXTRA_FLAGS=" ".join(
+            ["--save-dir", os.path.join(tmp, save), "--log-file",
+             os.path.join(tmp, "logs", save), "--log-every", "1000", *extra]), **env)
+        return argv
+
+    probe = RunProbe(mods)
+    # 11a: two epochs; the syncs of the first counted
+    probe.sync_epoch = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with probe:
+        metrics_a = train_cli.main(soft("soft", "--epochs", "2"))
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = probe.step_ms()
+    _check_launches("11a train steps", probe.step_launches, fused, 2 * steps)
+    _check_launches("11a eval batches", probe.eval_launches, eval_fused, 2 * eval_batches)
+    finite = [m for m in probe.epoch_metrics + [metrics_a]
+              if not all(math.isfinite(v) for v in m.values())]
+    if finite or len(probe.epoch_metrics) != 2:
+        raise AssertionError(f"11a: non-finite metrics {finite or probe.epoch_metrics}")
+    ckpt = os.path.join(tmp, "soft", "checkpoint")
+    with open(os.path.join(ckpt, "meta.json")) as f:
+        meta = json.load(f)
+    layout = sorted(os.listdir(ckpt))
+    if layout != ["meta.json", "state-1", "state-2"] or meta != {
+            "epoch": 2, "best_acc": metrics_a["best_val_acc"], "format": "torch-v1",
+            "state_dir": "state-2"}:
+        raise AssertionError(f"11a: checkpoint layout {layout}, meta {meta}")
+    outside, in_steps = probe.syncs
+    print(f"[runtime] 11a soft-deit-tiny.sh 2 epochs of {steps} steps in {run_s:.1f} s "
+          f"(models, banner and validation included): {metrics_a}; train "
+          f"{probe.epoch_metrics[-1]}; checkpoint {layout}, meta {meta}")
+    print(f"[runtime] 11a host syncs over epoch 0 (log_every 1000 > {steps} steps): "
+          f"{in_steps} inside the {steps} steps (build_train_step's own), "
+          f"{len(outside)} outside them, the loop's own (at {outside})")
+    _check_loop_syncs(len(outside))
+    ms = _median(step_ms)
+    wait = sum(probe.loader_wait) / len(probe.loader_wait)
+    save_ms, save_bytes = probe.save[-1]
+    validate_ms = list(probe.validate_ms)
+    print(f"[runtime] {smi}: run() train step {ms:.2f} ms (median of {len(step_ms)} "
+          f"steps after the first of each epoch, CUDA events), {B_MAIN / ms * 1e3:.1f} "
+          f"images/s; phase 10's soft recipe step {soft_recipe_ms:.2f} ms in this run")
+    print(f"[runtime] {smi}: loader wait {wait * 1e3:.3f} ms a step (mean of "
+          f"{len(probe.loader_wait)}, max {max(probe.loader_wait) * 1e3:.3f}); validate "
+          f"{', '.join(f'{v:.1f}' for v in probe.validate_ms)} ms an epoch "
+          f"({eval_batches} batches of {B_MAIN}); checkpoint save "
+          f"{', '.join(f'{v:.1f}' for v, _ in probe.save)} ms, {save_bytes} bytes; "
+          f"peak allocated {peak / 2**30:.3f} GiB")
+
+    # 11b: resumed to a third epoch, against three straight epochs
+    probe.sync_epoch = None
+    probe.reset()
+    with probe:
+        straight = train_cli.main(soft("straight", "--epochs", "3"))
+        resumed = train_cli.main(soft("soft", "--epochs", "3", "--resume",
+                                      "--checkpoint", ckpt))
+    same, step = _same_state(os.path.join(tmp, "straight", "checkpoint", "state-3"),
+                             os.path.join(ckpt, "state-3"))
+    last = {k: v for k, v in straight.items() if k.startswith("val_")}
+    print(f"[runtime] 11b resumed to epoch 3: {resumed}; straight: {straight}; "
+          f"parameters, Adam moments and {step} steps "
+          f"{'the same bits' if same else 'DIFFER'}")
+    print(f"[runtime] {smi}: checkpoint load {probe.load_ms[0]:.1f} ms, "
+          f"{save_bytes} bytes")
+    if not same or {k: resumed[k] for k in last} != last:
+        raise AssertionError("11b: the resumed run differs from the straight one")
+
+    # 11c: the eval CLI on 11b's checkpoint
+    argv = soft("soft", "--epochs", "3") + ["--checkpoint", ckpt, "--output",
+                                            os.path.join(tmp, "eval.json")]
+    got = eval_cli.main(argv)
+    print(f"[runtime] 11c cli.eval: {got}")
+    if (got["test_loss"], got["test_acc1"]) != (resumed["val_loss"], resumed["val_acc1"]):
+        raise AssertionError(f"11c: cli.eval {got} differs from run()'s last {resumed}")
+
+    # 11d: mgd for a short epoch, then the transfer recipe's flowers run
+    probe.reset()
+    with probe:
+        [argv] = recipe_argvs("mgd-deit-tiny.sh", tmp, EXTRA_FLAGS=" ".join([
+            "--save-dir", os.path.join(tmp, "mgd"), "--log-file",
+            os.path.join(tmp, "logs", "mgd"), "--epochs", "1", "--steps-per-epoch",
+            str(TRANSFER_STEPS), "--eval-steps", "1"]), **env)
+        train_cli.main(argv)
+        _check_launches("11d mgd steps", probe.step_launches, fused, TRANSFER_STEPS)
+        mgd_ckpt = os.path.join(tmp, "mgd", "checkpoint")
+        argvs = recipe_argvs("mgd-deit-tiny-transfer.sh", tmp, CKPT=mgd_ckpt, EXTRA_FLAGS=(
+            f"--synthetic-data --epochs 1 --steps-per-epoch {TRANSFER_STEPS} "
+            f"--eval-steps 1 --save-dir {os.path.join(tmp, 'transfer')} "
+            f"--log-file {os.path.join(tmp, 'logs', 'transfer')}"), **env)
+        if argvs[0][argvs[0].index("--dataset") + 1] != "flowers":
+            raise AssertionError(f"the transfer recipe's first run: {argvs[0]}")
+        probe.step_launches, probe.eval_launches = [], []
+        transfer = train_cli.main(argvs[0])
+    _check_launches("11d transfer steps (B=512)", probe.step_launches, fused, TRANSFER_STEPS)
+    _check_launches("11d transfer eval batch", probe.eval_launches, eval_fused, 1)
+    ft = probe.finetune
+    source, _ = student_state_dict(mgd_ckpt)
+    blocks = [k for k in source if k.startswith("blocks.")]
+    differ = [k for k in blocks if not torch.equal(ft["merged"][k].cpu(), source[k])]
+    head_fresh = all(torch.equal(ft["merged"][k], ft["target"][k])
+                     for k in ("head.weight", "head.bias"))
+    dropped = sorted(line.split()[2].rstrip(":") for line in ft["lines"]
+                     if "dropping" in line)
+    print(f"[runtime] 11d transfer (flowers, synthetic, 102 classes, B=512): {transfer}; "
+          f"dropped {dropped}, head re-initialised {head_fresh}; {len(blocks)} block "
+          f"tensors, {len(differ)} differ from the checkpoint")
+    if dropped != ["head.bias", "head.weight"] or not head_fresh or differ or not blocks:
+        raise AssertionError("11d: the finetune load does not match the checkpoint")
+    if not all(math.isfinite(v) for v in transfer.values()):
+        raise AssertionError(f"11d: non-finite metrics {transfer}")
+    return dict(step_ms=ms, loader_wait_ms=wait * 1e3, validate_ms=validate_ms,
+                save_ms=save_ms, save_bytes=save_bytes, peak=peak)
+
+
 # Planted faults (``--faults``): each is an edit of one kernel source in a
 # copy of the package; the copy's checks of that kernel (``--forward-checks``,
 # ``--backward-checks``, ``--mlp-checks``, ``--attention-checks`` or
@@ -2730,7 +3135,11 @@ def main() -> int:
     # imported from a checkpoint
     aug_ms = check_augment()
     torch.cuda.empty_cache()
-    by_path["soft recipe"], step_ms["soft recipe"], kept = run_recipe_path(mods)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")   # phase 10's teacher for phase 11
+    atexit.register(shutil.rmtree, tmp, True)
+    teacher_checkpoint = os.path.join(tmp, "deit_small_distilled_patch16_384.pth")
+    by_path["soft recipe"], step_ms["soft recipe"], kept = run_recipe_path(
+        mods, teacher_checkpoint)
     del kept
     torch.cuda.empty_cache()
     plain_ms = aug_ms["aa='' bf16 32px"]["ms"]
@@ -2768,6 +3177,16 @@ def main() -> int:
         del teacher, student, aux, kept
         torch.cuda.empty_cache()
     by_path["odd_depth_pair"] = run_odd_depth_pair(mods, images, aug)
+
+    # the runtime: run() and the CLIs with the flags of the recipes
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _reset_launches(mods)
+    runtime = run_runtime_path(mods, tmp, teacher_checkpoint, smi, step_ms["soft recipe"])
+    by_path["runtime"] = _read_launches(mods)
+    step_ms["run()"] = runtime["step_ms"]
+    print(f"[runtime] phase 11 took {time.perf_counter() - t0:.1f} s; launches "
+          f"{by_path['runtime']}")
     print("[slice] step ms by path: "
           + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
 

@@ -414,6 +414,14 @@ def resample_separable(imgs, mats, out_h: int, out_w: int, fill=None,
     return out
 
 
+# The largest source side at which the oblique warp runs at the source: its
+# dense product holds [B, H*W, H, 3] fp32 (0.8 GB at 64 px and B = 256, 34 GB
+# at 224 px). The JAX package's rule (H*W <= S*S alone) takes it for a 224 px
+# source at S = 224 as well (its synthetic data at input sizes above 64 px),
+# against its own docstring's "<=64px inputs".
+DENSE_WARP_MAX_SIDE = 64
+
+
 def warp_dense_matmul(imgs, mats, out_h: int, out_w: int, fill=None):
     """General (oblique) batched affine bilinear warp as two dense
     interpolation products, no gathers: out[o] = sum_h ky[o,h] sum_w kx[o,w]
@@ -1064,9 +1072,10 @@ def geometric_stage(images_u8, ac: AugmentConfig, d: TrainDraws):
     """Steps 1-4 of the train transform: the crop and the flip as one
     axis-aligned affine; the RA/AA geometric ops as one oblique warp, run at
     the smaller of the source and the output resolution (at the source
-    through the crop's conjugate, a dense-matmul warp; at the output a gather
-    warp) and selected by a device flag when any image drew one; the
-    resample; the rounding to integer pixels and the bf16 cast."""
+    through the crop's conjugate, a dense-matmul warp, for sources of at most
+    DENSE_WARP_MAX_SIDE px; at the output a gather warp) and selected by a
+    device flag when any image drew one; the resample; the rounding to
+    integer pixels and the bf16 cast."""
     B, H, W, _ = images_u8.shape
     S = ac.input_size
     dev = images_u8.device
@@ -1085,7 +1094,7 @@ def geometric_stage(images_u8, ac: AugmentConfig, d: TrainDraws):
     imgs = images_u8.float()
     if geo is None:
         imgs = resample(imgs)
-    elif H * W <= S * S:
+    elif H * W <= S * S and max(H, W) <= DENSE_WARP_MAX_SIDE:
         # the output-space affine conjugated into source space: M G = (M G M^-1) M
         g_src = (_to3(mats) @ _to3(geo) @ _to3(_invert_axis_aligned(mats)))[:, :2]
         imgs = resample(torch.where(any_geo, warp_dense_matmul(imgs, g_src, H, W, fill),

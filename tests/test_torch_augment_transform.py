@@ -153,3 +153,32 @@ def test_three_augment_src_and_jitter_match_jax(variant, bf16, monkeypatch):
     _hold_transform(u8, jac, tac, jax.random.PRNGKey(5), bf16, monkeypatch)
 
 
+
+
+def test_large_square_source_warps_at_the_output(monkeypatch):
+    """A source above DENSE_WARP_MAX_SIDE px and no larger than the output (S =
+    H = 96, as the synthetic data of an input size above 64 px) takes the
+    gather warp at the output: the dense warp at the source would hold [B,
+    H*W, H, 3] fp32, 34 GB at 224 px and B = 256. (The JAX package's rule
+    takes the dense warp there.)"""
+    B, S = 4, 96
+    u8 = _u8(41, B, S, S)
+    jac, tac = _configs(S, False, aa=RA_SPEC)
+    key = next(k for k in map(jax.random.PRNGKey, range(100))
+               if _geo_drawn(jd.train_draws(k, u8.shape, jac).ra))
+    d = jd.train_draws(key, u8.shape, jac)
+
+    calls, real = [], ta.warp_dense_matmul
+
+    def counted(imgs, *args, **kw):
+        calls.append(tuple(imgs.shape))
+        return real(imgs, *args, **kw)
+
+    monkeypatch.setattr(ta, "warp_dense_matmul", counted)
+    out = ta.geometric_stage(jd.t(u8), tac, d)
+    assert out.shape == (B, S, S, 3) and not calls
+    assert torch.equal(out, out.round()) and 0 <= out.min() and out.max() <= 255
+    # a 32 px source still warps at the source, as in the JAX package
+    small = ta.geometric_stage(jd.t(_u8(42, B, 32, 32)), tac,
+                               jd.train_draws(key, (B, 32, 32, 3), jac))
+    assert small.shape == (B, S, S, 3) and calls == [(B, 32, 32, 3)]

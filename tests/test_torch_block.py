@@ -252,7 +252,10 @@ def test_port_imports_no_jax():
             files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
     for module in ("models/import_timm.py", "models/pos_embed.py", "data/augment.py",
-                   "data/mixup.py"):
+                   "data/mixup.py", "data/sampler.py", "data/sources.py",
+                   "data/pipeline.py", "data/loader.py", "obs/logger.py", "obs/meters.py",
+                   "obs/wandb_adapter.py", "obs/profiling.py", "ckpt/checkpoint.py",
+                   "train/loop.py", "cli/train.py", "cli/eval.py", "cli/sweep.py"):
         assert os.path.join(root, "deltakd_tpu_torch", module) in files, module
     banned = ("jax", "jaxlib", "flax", "optax", "deltakd_tpu")
     for path in files:

@@ -28,7 +28,9 @@ and a teacher imported from a checkpoint written with chip_smoke.py's
 WassKD-sinkhorn, Saliency-MGD, LRKD, DiffKD, CurKD (epochs 0, 120, 200) and
 hard KD in their exp/*.sh configurations at batch 8 (the DeiT-Ti without a
 distillation token, N = 197, but for hard), and the Sinkhorn divergence with
-TF32 on in the process: the same bits as with it off.
+TF32 on in the process: the same bits as with it off. The runtime: run() of
+two tiny epochs on the card against the same run on the CPU (launch counts
+per train step and eval batch, the losses to 5e-2 relative).
 """
 
 import pytest
@@ -722,3 +724,53 @@ def test_sinkhorn_ignores_tf32():
     assert not torch.equal(prod, prod_tf32)
     assert torch.equal(div, div_tf32) and torch.equal(grad, grad_tf32)
     assert torch.isfinite(div).all() and (div > 0).all()
+
+
+# -----------------------------------------------------------------------------
+# The runtime: run() on the card against run() on the CPU
+# -----------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_run_on_card_matches_cpu(tmp_path):
+    """Two tiny epochs of run() (soft KD, 32 px, batch 8, 2 steps, the fused
+    block on the card) against the same run with --device cpu on the same
+    seed: 12 + 12 block forwards and 12 block backwards a train step and 12
+    block forwards an eval batch on the card, none on the CPU; the losses of
+    each epoch to chip_smoke's LOGIT_TOL, relative. The draws come from each
+    device's own generator, so the two runs see other crops: the losses
+    agree because two steps at the warmup's learning rate barely move the
+    seeded weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    from chip_smoke import LOGIT_TOL, RunProbe
+    from deltakd_tpu_torch.configs.config import parse_args
+    from deltakd_tpu_torch.train import loop
+
+    mods = (fb, so, at, fm)
+    argv = ["--synthetic-data", "--dataset", "synthetic", "--input-size", "32",
+            "--batch-size", "8", "--epochs", "2", "--steps-per-epoch", "2",
+            "--eval-steps", "1", "--distillation-type", "soft",
+            "--student-model", "deit_tiny_distilled_patch16_224",
+            "--teacher-model", "deit_small_distilled_patch16_224",
+            "--allow-random-teacher", "--seed", "5"]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        probe = RunProbe(mods)
+        with probe:
+            metrics = loop.run(parse_args(argv + [
+                "--device", device, "--save-dir", str(tmp_path / device),
+                "--log-file", str(tmp_path / "logs" / device)]))
+        runs[device] = (metrics, probe)
+    (card, card_probe), (cpu, cpu_probe) = runs["cuda"], runs["cpu"]
+    fused = {("fused_block_fwd", 384): 12, ("fused_block_fwd", 192): 12,
+             ("fused_block_bwd", 192): 12}
+    assert card_probe.step_launches == [fused] * 4
+    assert card_probe.eval_launches == [{("fused_block_fwd", 192): 12}] * 2
+    assert cpu_probe.step_launches == [{}] * 4 and cpu_probe.eval_launches == [{}] * 2
+    pairs = [(card["val_loss"], cpu["val_loss"])]
+    for a, b in zip(card_probe.epoch_metrics, cpu_probe.epoch_metrics):
+        pairs += [(a["train_loss"], b["train_loss"]), (a["base_loss"], b["base_loss"])]
+    for a, b in pairs:
+        assert np.isfinite(a) and abs(a - b) <= LOGIT_TOL * abs(b), (a, b)
