@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py                    # the run below, on one card
     python3 chip_smoke.py --faults           # the planted faults (FAULTS), each in a copy
+    python3 chip_smoke.py --faults --dp-checks  # only the faults of one check mode
     python3 chip_smoke.py --forward-checks   # only the forward's checks (phase 3a, 3b, 5a)
     python3 chip_smoke.py --backward-checks  # only the backward's checks (phase 3c, 3d)
     python3 chip_smoke.py --mlp-checks       # only the fused-MLP kernels' checks (phase 5c)
     python3 chip_smoke.py --attention-checks # only flash_fwd's and flash_bwd's checks (phase 5a)
     python3 chip_smoke.py --sort-checks      # only the sort kernels' checks (phase 4a)
+    python3 chip_smoke.py --dp-checks        # only the data-parallel step's checks (phase 12a)
 
 Phases, each of which fails the run:
   1. prints the card's name and power limit (nvidia-smi);
@@ -155,7 +157,26 @@ Phases, each of which fails the run:
      counts of each step. Prints run()'s train step (CUDA events recorded
      after each step) beside phase 10's, the loader wait, validate, checkpoint
      save and load times and bytes, and peak allocated memory, each beside the
-     card's name and power limit.
+     card's name and power limit;
+ 12. data parallelism: 12a, two processes on the one card joined by a gloo
+     group, each B = 128 of one pinned global batch of 256 (post-transform
+     images, targets, drop-path scales, DiffKD's draws made from a seed):
+     the soft step (4 steps), one lrkd and one diffkd step at full width,
+     each rank's all-reduced gradient and the ranks' mean loss against the
+     one-process step at 256 (DP_GRAD_TOL, DP_LOSS_TOL), both ranks'
+     gradients and parameters the same bits, 12 + 12 / 12 block launches a
+     step on each rank; mixup in its three modes across the ranks against
+     the one-process mixup of the global batch on the same draws (the same
+     bits); the epoch's per-image generators differ between the ranks and
+     the global batch's are equal; the gradient all-reduce and the mixup
+     exchange timed; 12b, run() on the two ranks with soft-deit-tiny.sh's
+     flags on phase 11's pickles: the RASampler's 8 steps an epoch, the
+     launches of each step, the val metrics equal on both ranks, rank 0
+     alone writing checkpoints, one epoch resumed to a second against two
+     straight epochs (the same bits); 12c, `bash soft-deit-tiny.sh 1`
+     (torchrun, NCCL at world 1) for 2 epochs against phase 11a's plain run
+     (the same bits); each with its seconds, step times and peak memory
+     beside the card's name and power limit.
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
@@ -2820,6 +2841,8 @@ def run_runtime_path(mods, tmp, teacher_checkpoint, smi, soft_recipe_ms):
             "epoch": 2, "best_acc": metrics_a["best_val_acc"], "format": "torch-v1",
             "state_dir": "state-2"}:
         raise AssertionError(f"11a: checkpoint layout {layout}, meta {meta}")
+    state_11a = os.path.join(tmp, "11a-state-2")   # for phase 12c
+    shutil.copytree(os.path.join(ckpt, "state-2"), state_11a)
     outside, in_steps = probe.syncs
     print(f"[runtime] 11a soft-deit-tiny.sh 2 epochs of {steps} steps in {run_s:.1f} s "
           f"(models, banner and validation included): {metrics_a}; train "
@@ -2904,13 +2927,370 @@ def run_runtime_path(mods, tmp, teacher_checkpoint, smi, soft_recipe_ms):
     if not all(math.isfinite(v) for v in transfer.values()):
         raise AssertionError(f"11d: non-finite metrics {transfer}")
     return dict(step_ms=ms, loader_wait_ms=wait * 1e3, validate_ms=validate_ms,
-                save_ms=save_ms, save_bytes=save_bytes, peak=peak)
+                save_ms=save_ms, save_bytes=save_bytes, peak=peak, env=env,
+                state_11a=state_11a, soft_argv=soft)
 
 
-# Planted faults (``--faults``): each is an edit of one kernel source in a
-# copy of the package; the copy's checks of that kernel (``--forward-checks``,
-# ``--backward-checks``, ``--mlp-checks``, ``--attention-checks`` or
-# ``--sort-checks``) must then fail (exit 1).
+# Data parallelism (phase 12): two processes on the one card over gloo (12a,
+# 12b), then a recipe under torchrun with NCCL at world 1 (12c)
+DP_WORLD = 2
+DP_SOFT_STEPS = 4
+DP_OBJECTIVES = ("soft", "lrkd", "diffkd")
+# the ranks' all-reduced gradient against the one-process step on the same
+# inputs, per parameter tensor of its largest |value|, and the ranks' mean
+# loss, relative. The per-sample work is the same; the batch sums run in
+# another order: in fp32 in the block kernels and the all-reduce, but the
+# gradients of the parameters that PyTorch's own bf16 ops use (the patch
+# embedding, the heads, the tokens, the aux heads) are rounded to bf16 per
+# rank before they are summed, and LRKD's eigenvectors move with the fp32
+# order of the Gram's sum where two eigenvalues lie close. Measured worst
+# (one H100): 3.9e-3 soft, 5.8e-3 lrkd and diffkd; a rank's own half-batch
+# gradient misses by O(1)
+DP_GRAD_TOL = 1e-2
+DP_LOSS_TOL = 1e-4
+
+
+def _dp_config(name):
+    from deltakd_tpu_torch.configs.config import TrainConfig
+
+    options = dict(teacher_model="deit_small_distilled_patch16_224",
+                   student_model="deit_tiny_distilled_patch16_224", batch_size=B_MAIN,
+                   distillation_type="soft", dataset="cifar-100", input_size=224,
+                   dtype="bfloat16", drop_path_rate=0.1, epochs=300, aug_pixel_bf16=True,
+                   aa="", color_jitter=0.0, allow_random_teacher=True)
+    if name != "soft":
+        options.update(RECIPE_COMMON, **{n: o for n, o, _ in OBJECTIVE_PATHS}[name])
+    return TrainConfig(**options)
+
+
+def _dp_rows(rank, world):
+    b = B_MAIN // world
+    return slice(rank * b, (rank + 1) * b)
+
+
+def _dp_step(mods, name, dp, rows, steps):
+    """``steps`` train steps of ``name`` (soft, lrkd or diffkd) at full width on
+    ``rows`` of one pinned global batch of B_MAIN, made from a seed on the
+    card: post-transform images, soft targets, drop-path scales and DiffKD's
+    draws. Returns the first step's metrics and applied flat gradient, the
+    parameters after the last, each step's launches and CUDA-event ms, and
+    the peak of allocated memory."""
+    import torch
+
+    from deltakd_tpu_torch.data.augment import AugmentConfig
+    from deltakd_tpu_torch.kd.losses import DiffKDDraws, KDSettings
+    from deltakd_tpu_torch.models.factory import load_teacher_student
+    from deltakd_tpu_torch.train.optim import make_optimizer
+    from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
+    from deltakd_tpu_torch.train.step import build_train_step
+
+    cfg = _dp_config(name)
+    teacher, student, aux = load_teacher_student(cfg, seed=0, device="cuda")
+    tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
+    state = TrainState(student, tx=tx, aux=aux)
+    applied = []
+    apply = state.apply_gradients
+    state.apply_gradients = lambda *, grads, **kw: (
+        applied.append(grads.detach().clone()) if not applied else None,
+        apply(grads=grads, **kw))
+    kd = KDSettings.from_config(cfg, student_prefix=student.cfg.num_prefix_tokens,
+                                teacher_prefix=teacher.cfg.num_prefix_tokens)
+    step = build_train_step(cfg=cfg, kd=kd, student=student, teacher=teacher, aux=aux,
+                            aug=AugmentConfig.from_config(cfg), mixup=None, tx=tx, dp=dp)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    images = torch.randn(B_MAIN, 224, 224, 3, generator=g, device="cuda").to(torch.bfloat16)
+    targets = torch.softmax(3.0 * torch.randn(B_MAIN, 100, generator=g, device="cuda"), -1)
+    labels = torch.randint(0, 100, (B_MAIN,), generator=g, device="cuda")
+    scales = [None if s is None else tuple(x[rows] for x in s)
+              for s in student.draw_drop_scales(B_MAIN, g, "cuda")]
+    draws = None
+    if name == "diffkd":
+        n_patches = (224 // 16) ** 2
+        d = DiffKDDraws.draw(g, (B_MAIN, n_patches, teacher.cfg.embed_dim), "cuda")
+        draws = DiffKDDraws(d.t_step[rows], [x[rows] for x in d.noise],
+                            [x[rows] for x in d.keep])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, ms, first = [], [], None
+    for _ in range(steps):
+        _reset_launches(mods)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        m = step(state, None, labels[rows], gen, images=images[rows], targets=targets[rows],
+                 drop_scales=scales, diffkd_draws=draws)
+        e1.record()
+        torch.cuda.synchronize()
+        launches.append(_read_launches(mods))
+        ms.append(e0.elapsed_time(e1))
+        first = first or {k: float(v) for k, v in m.items()}
+    return dict(metrics=first, grads=applied[0].cpu(), params=state.params.cpu(),
+                names=[(n, p.numel()) for n, p in state.named_params],
+                launches=launches, ms=ms, peak=torch.cuda.max_memory_allocated())
+
+
+def _dp_mixup(dp, rows):
+    """Mixup of this rank's rows in each mode against the one-process mixup of
+    the global batch on the same draws (the same bits); the ms of both."""
+    import torch
+
+    from deltakd_tpu_torch.data import mixup as tm
+    from deltakd_tpu_torch.parallel import LOCAL
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    images = (torch.rand(B_MAIN, 224, 224, 3, generator=g, device="cuda") * 255).to(
+        torch.bfloat16)
+    labels = torch.randint(0, 100, (B_MAIN,), generator=g, device="cuda")
+    out = {}
+    for mode in tm.MODES:
+        mc = tm.MixupConfig(num_classes=100, mode=mode)
+        d = tm.draw_mixup(g, mc, B_MAIN, 224, 224, "cuda")
+        mine = tm.mix_batch(images[rows], labels[rows], mc, d, dp)
+        ref = tm.mix_batch(images, labels, mc, d, LOCAL)
+        same = all(torch.equal(a, b[rows]) for a, b in zip(mine, ref))
+        out[mode] = dict(same=same, ms=_host_ms(
+            lambda: tm.mix_batch(images[rows], labels[rows], mc, d, dp), 5),
+            local_ms=_host_ms(lambda: tm.mix_batch(images[rows], labels[rows], mc, d, LOCAL),
+                              5))
+    return out
+
+
+def _dp_collectives(dp, n):
+    """Host-clock ms of the step's gradient all-reduce (n fp32 values) and of
+    the mixup exchange of one local batch (bf16 images and int labels)."""
+    import torch
+
+    grads = torch.ones(n, device="cuda")
+    images = torch.zeros(B_MAIN // dp.world, 224, 224, 3, dtype=torch.bfloat16,
+                         device="cuda")
+    return dict(all_reduce_ms=_host_ms(lambda: dp.all_reduce(grads), 5),
+                all_reduce_bytes=4 * n,
+                exchange_ms=_host_ms(lambda: dp.swap_with_partner(images), 5),
+                exchange_bytes=images.numel() * 2)
+
+
+def _dp_rank(rank, port, out_dir, run_argvs):
+    """One of phase 12's two processes: a gloo group on the one card, 12a, and
+    with ``run_argvs`` 12b. Writes its results to out_dir/dp_rank<rank>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from deltakd_tpu_torch import parallel
+    from deltakd_tpu_torch.ops import attention as at
+    from deltakd_tpu_torch.ops import fused_block as fb
+    from deltakd_tpu_torch.ops import fused_mlp as fm
+    from deltakd_tpu_torch.ops import sort as so
+    from deltakd_tpu_torch.train import loop
+
+    mods = (fb, so, at, fm)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=DP_WORLD, rank=rank)
+    dp = parallel.current()
+    rows = _dp_rows(dp.rank, dp.world)
+    t0 = time.perf_counter()
+    out = {name: _dp_step(mods, name, dp, rows, DP_SOFT_STEPS if name == "soft" else 1)
+           for name in DP_OBJECTIVES}
+    torch.cuda.empty_cache()
+    out["mixup"] = _dp_mixup(dp, rows)
+    out["collectives"] = _dp_collectives(dp, out["soft"]["grads"].numel())
+    per_image, batch = loop.epoch_generators(42, 0, torch.device("cuda"), dp)
+    out["generators"] = (torch.rand(64, generator=per_image, device="cuda").cpu(),
+                         torch.rand(64, generator=batch, device="cuda").cpu())
+    out["12a_s"] = time.perf_counter() - t0
+    if run_argvs:
+        from deltakd_tpu_torch.cli import train as train_cli
+
+        t0 = time.perf_counter()
+        out["run"] = {}
+        for name, argv in run_argvs:
+            probe = RunProbe(mods)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with probe:
+                metrics = train_cli.main(argv)
+            out["run"][name] = dict(metrics=metrics, steps=probe.step_launches,
+                                    evals=probe.eval_launches, saves=len(probe.save),
+                                    step_ms=probe.step_ms(),
+                                    peak=torch.cuda.max_memory_allocated())
+        out["12b_s"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(out_dir, f"dp_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_spawn(out_dir, run_argvs):
+    import torch
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_dp_rank, args=(_free_port(), out_dir, run_argvs), nprocs=DP_WORLD,
+                       start_method="spawn")
+    return [torch.load(os.path.join(out_dir, f"dp_rank{r}.pt"), weights_only=False)
+            for r in range(DP_WORLD)]
+
+
+def _dp_check_steps(got, mods):
+    """12a's checks: each rank's applied gradient and the ranks' mean loss
+    against the one-process step on the whole batch; the same bits on both
+    ranks; the parameters after DP_SOFT_STEPS the same bits; 12 + 12 / 12
+    block launches a step on each rank."""
+    import torch
+
+    from deltakd_tpu_torch.parallel import LOCAL
+
+    fused = {("fused_block_fwd", 384): 12, ("fused_block_fwd", 192): 12,
+             ("fused_block_bwd", 192): 12}
+    for name in DP_OBJECTIVES:
+        ref = _dp_step(mods, name, LOCAL, slice(0, B_MAIN), 1)
+        torch.cuda.empty_cache()
+        a, b = (g[name] for g in got)
+        errs, offset = {}, 0
+        for pname, n in ref["names"]:
+            want = ref["grads"][offset:offset + n]
+            errs[pname] = ((a["grads"][offset:offset + n] - want).abs().max().item()
+                           / max(want.abs().max().item(), 1e-30))
+            offset += n
+        worst = sorted(errs, key=errs.get, reverse=True)[:3]
+        err = errs[worst[0]]
+        scale = (a["grads"] - ref["grads"]).abs().max().item() / ref["grads"].abs().max().item()
+        loss = sum(g[name]["metrics"]["train_loss"] for g in got) / len(got)
+        loss_err = abs(loss - ref["metrics"]["train_loss"]) / abs(ref["metrics"]["train_loss"])
+        distill = sum(g[name]["metrics"]["distill_loss"] for g in got) / len(got)
+        same = torch.equal(a["grads"], b["grads"]) and torch.equal(a["params"], b["params"])
+        print(f"[dp] 12a {name}: two ranks of {B_MAIN // DP_WORLD} against one process of "
+              f"{B_MAIN}: gradient max |diff| per tensor of its max |g|: "
+              + ", ".join(f"{k} {errs[k]:.2e}" for k in worst)
+              + f" (worst of {len(errs)}; tolerance {DP_GRAD_TOL:g}); of the whole vector's "
+              f"max |g| {scale:.2e}; loss {loss:.7g} vs {ref['metrics']['train_loss']:.7g} "
+              f"(relative {loss_err:.2e}, tolerance {DP_LOSS_TOL:g}); distill "
+              f"{distill:.6g} vs {ref['metrics']['distill_loss']:.6g}; grad_norm "
+              f"{a['metrics']['grad_norm']:.6g} vs {ref['metrics']['grad_norm']:.6g}; ranks' "
+              f"gradients and parameters after {len(a['ms'])} step(s) "
+              f"{'the same bits' if same else 'DIFFER'}")
+        for r, g in enumerate(got):
+            _check_launches(f"12a {name} rank {r}", g[name]["launches"], fused,
+                            len(g[name]["ms"]))
+        if err > DP_GRAD_TOL or loss_err > DP_LOSS_TOL or not same:
+            raise AssertionError(f"12a {name}: the ranks' step is not the global batch's")
+
+
+def _dp_check_mixup_and_generators(got):
+    for mode, r in got[0]["mixup"].items():
+        print(f"[dp] 12a mixup {mode}: ranks' rows against the global batch's "
+              f"{'the same bits' if all(g['mixup'][mode]['same'] for g in got) else 'DIFFER'}"
+              f"; {r['ms']:.3f} ms with the exchange, {r['local_ms']:.3f} ms the local "
+              f"mix (host clock, rank 0)")
+    if not all(g["mixup"][m]["same"] for g in got for m in g["mixup"]):
+        raise AssertionError("12a: mixup across ranks is not the global batch's")
+    (pa, ba), (pb, bb) = (g["generators"] for g in got)
+    shared, equal = bool((pa == pb).any()), bool((ba == bb).all())
+    print(f"[dp] 12a generators: per-image draws differ between ranks {not shared}, "
+          f"global-batch draws equal {equal}")
+    if shared or not equal:
+        raise AssertionError("12a: the ranks share per-image draws or differ in the "
+                             "global batch's")
+
+
+def run_data_parallel(mods, smi, tmp=None, data_env=None, state_11a=None, soft_argv=None):
+    """Phase 12. 12a: two processes on the one card over gloo, each B = 128 of
+    one pinned global batch of 256, soft (DP_SOFT_STEPS steps), lrkd and
+    diffkd (one step) at full width, against the one-process step at 256;
+    mixup in its three modes across the ranks; the epoch's two generators.
+    12b (with ``soft_argv``): run() under the two ranks on phase 11's CIFAR
+    pickles: one epoch, resumed to a second, against two straight epochs.
+    12c (with ``tmp``): ``bash soft-deit-tiny.sh 1`` (torchrun, NCCL, world
+    1) for 2 epochs against phase 11a's plain run."""
+    t_start = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    atexit.register(shutil.rmtree, out_dir, True)
+    run_argvs = None
+    if soft_argv is not None:
+        run_argvs = [("one", soft_argv("dp", "--epochs", "1")),
+                     ("resumed", soft_argv("dp", "--epochs", "2", "--resume", "--checkpoint",
+                                           os.path.join(tmp, "dp", "checkpoint"))),
+                     ("straight", soft_argv("dp_straight", "--epochs", "2"))]
+    got = _dp_spawn(out_dir, run_argvs)
+    print(f"[dp] the two ranks took {got[0]['12a_s']:.1f} s for 12a"
+          + (f", {got[0]['12b_s']:.1f} s for 12b" if run_argvs else "")
+          + " (rank 0), collectives over gloo on CUDA tensors: all_reduce (the gradient, "
+            "LRKD's Gram, DiffKD's weight, the metric and eval sums, the stop flag), "
+            "broadcast, all_to_all_single (mixup's exchange), barrier")
+    _dp_check_steps(got, mods)
+    _dp_check_mixup_and_generators(got)
+    for r, g in enumerate(got):
+        c = g["collectives"]
+        print(f"[dp] {smi}: rank {r}: soft step {_median(g['soft']['ms']):.2f} ms (median of "
+              f"{len(g['soft']['ms'])}, CUDA events, two processes sharing the card), lrkd "
+              f"{g['lrkd']['ms'][0]:.2f} ms, diffkd {g['diffkd']['ms'][0]:.2f} ms; peak "
+              f"allocated {max(g[n]['peak'] for n in DP_OBJECTIVES) / 2**30:.3f} GiB; gradient "
+              f"all-reduce {c['all_reduce_ms']:.2f} ms for {c['all_reduce_bytes']} bytes, mixup "
+              f"exchange {c['exchange_ms']:.2f} ms for {c['exchange_bytes']} bytes (gloo, host "
+              f"clock)")
+    if run_argvs:
+        fused = {("fused_block_fwd", 384): 12, ("fused_block_fwd", 192): 12,
+                 ("fused_block_bwd", 192): 12}
+        steps = int(RUNTIME_TRAIN // 256 * 256 / DP_WORLD) // B_MAIN    # the RASampler's
+        runs = [g["run"] for g in got]
+        for r, run in enumerate(runs):
+            _check_launches(f"12b rank {r} one epoch", run["one"]["steps"], fused, steps)
+            _check_launches(f"12b rank {r} straight", run["straight"]["steps"], fused,
+                            2 * steps)
+        saves = [sum(run[n]["saves"] for n in run) for run in runs]
+        same_val = all(runs[0][n]["metrics"] == runs[1][n]["metrics"] for n in runs[0])
+        same, step = _same_state(os.path.join(tmp, "dp_straight", "checkpoint", "state-2"),
+                                 os.path.join(tmp, "dp", "checkpoint", "state-2"))
+        print(f"[dp] 12b run() on two ranks: {steps} steps an epoch each (the RASampler), "
+              f"val metrics {runs[0]['straight']['metrics']} "
+              f"{'equal' if same_val else 'DIFFER'} on both ranks; checkpoint saves by rank "
+              f"{saves}; resumed against straight after {step} steps: "
+              f"{'the same bits' if same else 'DIFFER'}")
+        for r, run in enumerate(runs):
+            ms = run["straight"]["step_ms"]
+            print(f"[dp] {smi}: 12b rank {r}: run() train step {_median(ms):.2f} ms (median of "
+                  f"{len(ms)}, CUDA events, two processes sharing the card); peak allocated "
+                  f"{run['straight']['peak'] / 2**30:.3f} GiB")
+        if not same_val or saves[1] != 0 or saves[0] != 4 or not same:
+            raise AssertionError("12b: run() on two ranks failed its checks")
+    if data_env is not None:
+        t0 = time.perf_counter()
+        root = os.path.dirname(os.path.abspath(__file__))
+        extra = ["--save-dir", os.path.join(tmp, "nccl"), "--log-file",
+                 os.path.join(tmp, "logs", "nccl"), "--log-every", "1000", "--epochs", "2"]
+        proc = subprocess.run(
+            ["bash", os.path.join(root, "deltakd_tpu_torch", "exp", "soft-deit-tiny.sh"), "1"],
+            env={**os.environ, **data_env, "EXTRA_FLAGS": " ".join(extra),
+                 "PYTHONPATH": root}, cwd=root, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:])
+            raise AssertionError(f"12c: soft-deit-tiny.sh 1 exited {proc.returncode}")
+        same, step = _same_state(state_11a, os.path.join(tmp, "nccl", "checkpoint", "state-2"))
+        nccl = [line for line in proc.stdout.splitlines() + proc.stderr.splitlines()
+                if "data axis of" in line]
+        print(f"[dp] 12c soft-deit-tiny.sh 1 (torchrun --standalone --nproc_per_node 1, NCCL) "
+              f"in {time.perf_counter() - t0:.1f} s: {nccl[:1]}; parameters, Adam moments and "
+              f"{step} steps against phase 11a's plain run: "
+              f"{'the same bits' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("12c: torchrun at world 1 differs from the plain run")
+    print(f"[dp] {smi}: phase 12 took {time.perf_counter() - t_start:.1f} s")
+
+
+# Planted faults (``--faults``): each is an edit of one kernel source, or of
+# the data-parallel step, in a copy of the package; the copy's checks of it
+# (``--forward-checks``, ``--backward-checks``, ``--mlp-checks``,
+# ``--attention-checks``, ``--sort-checks`` or ``--dp-checks``) must then
+# fail (exit 1).
 FAULTS = (
     ("the online rescale left out", "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
      (("l[r] *= alpha[r];", "l[r] *= 1.0f;"),
@@ -2977,6 +3357,19 @@ FAULTS = (
      (("const uint32_t o = __shfl_xor_sync(0xffffffffu, w[i], J / R);",
        "const uint32_t o = __shfl_xor_sync(0xffffffffu, w[i], J == 8 * R ? J / R ^ 1 : J / R);"),),
      "--sort-checks"),
+    # data parallelism (phase 12a): a Python edit of the port, not a kernel
+    ("the gradient all-reduce left out", "deltakd_tpu_torch/train/step.py",
+     (("grads = dp.all_reduce(grads) / dp.world", "grads = grads"),), "--dp-checks"),
+    ("one generator shared by both ranks", "deltakd_tpu_torch/train/loop.py",
+     (("return epoch_generator(seed, epoch, device, dp.rank), shared",
+       "return shared, shared"),), "--dp-checks"),
+    ("the mixup flip kept local", "deltakd_tpu_torch/data/mixup.py",
+     (("flipped = dp.swap_with_partner(images).flip(0)", "flipped = images.flip(0)"),
+      ("flipped_labels = dp.swap_with_partner(labels).flip(0)",
+       "flipped_labels = labels.flip(0)")), "--dp-checks"),
+    ("LRKD's Gram left local", "deltakd_tpu_torch/kd/losses.py",
+     (("gram = dp.all_reduce(torch.bmm(t2.mT, t2))", "gram = torch.bmm(t2.mT, t2)"),),
+     "--dp-checks"),
 )
 
 
@@ -2989,7 +3382,10 @@ def run_faults() -> int:
 
     root = os.path.dirname(os.path.abspath(__file__))
     caught = []
+    only = [a for a in sys.argv[1:] if a.endswith("-checks")]
     for i, (name, rel, edits, checks) in enumerate(FAULTS):
+        if only and checks not in only:
+            continue
         copy = os.path.join(root, ".scratch", "faults", str(i))
         shutil.rmtree(copy, ignore_errors=True)
         shutil.copytree(os.path.join(root, "deltakd_tpu_torch"),
@@ -3007,14 +3403,14 @@ def run_faults() -> int:
             f.write(text)
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "chip_smoke.py", checks], cwd=copy,
-                              capture_output=True, text=True, timeout=300)
+                              capture_output=True, text=True, timeout=600)
         first = ([line for line in proc.stdout.splitlines() if "FAIL" in line]
                  or proc.stderr.strip().splitlines()[-1:] or ["(none)"])[0]
         print(f"[fault] {name}: exit {proc.returncode} after {time.perf_counter() - t0:.1f} s; "
               f"first failure: {first}")
         caught.append(proc.returncode == 1)
         shutil.rmtree(copy)
-    print(f"[fault] {sum(caught)} of {len(FAULTS)} planted faults failed their run")
+    print(f"[fault] {sum(caught)} of {len(caught)} planted faults failed their run")
     return 0 if all(caught) else 1
 
 
@@ -3032,6 +3428,7 @@ def main() -> int:
     mlp_checks = "--mlp-checks" in sys.argv[1:]
     attention_checks = "--attention-checks" in sys.argv[1:]
     sort_checks = "--sort-checks" in sys.argv[1:]
+    dp_checks = "--dp-checks" in sys.argv[1:]
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deltakd_tpu_torch.ops import _build
@@ -3054,6 +3451,7 @@ def main() -> int:
                         ["fused_block_fwd", "fused_block_bwd", "fused_block_pair"]
                         if backward_checks else ["fused_mlp"] if mlp_checks else
                         ["attention"] if attention_checks else ["sort"] if sort_checks
+                        else ["fused_block_fwd", "fused_block_bwd"] if dp_checks
                         else _build.SOURCES)
     print(f"[build] sources {list(_build.SOURCES)}, compiled {sorted(logs)} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -3079,6 +3477,9 @@ def main() -> int:
         return 0
     if sort_checks:      # a planted-fault copy: the sort kernels' checks only
         check_sort_kernels(so, worst)
+        return 0
+    if dp_checks:        # a planted-fault copy: phase 12a only
+        run_data_parallel(mods, smi)
         return 0
     check_kernels(fb, worst)
     check_block_forward_shapes(fb, worst)
@@ -3187,6 +3588,11 @@ def main() -> int:
     step_ms["run()"] = runtime["step_ms"]
     print(f"[runtime] phase 11 took {time.perf_counter() - t0:.1f} s; launches "
           f"{by_path['runtime']}")
+
+    # data parallelism: two ranks on the card over gloo; torchrun with NCCL
+    torch.cuda.empty_cache()
+    run_data_parallel(mods, smi, tmp, data_env=runtime["env"], state_11a=runtime["state_11a"],
+                      soft_argv=runtime["soft_argv"])
     print("[slice] step ms by path: "
           + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
 

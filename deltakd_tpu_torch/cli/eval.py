@@ -1,7 +1,8 @@
 """Checkpoint evaluation CLI (``deltakd_tpu/cli/eval.py``): load a checkpoint's
 student (or its EMA), evaluate it on the validation split, print the metrics
 and write them as JSON (next to the checkpoint unless ``--output`` says
-otherwise).
+otherwise). Under torchrun each rank evaluates its shard of the split and
+the sums are all-reduced; rank 0 prints and writes them.
 
     python -m deltakd_tpu_torch.cli.eval --checkpoint checkpoints/run/checkpoint \\
         --dataset cifar-100 --data-path dataset [--use-ema]
@@ -18,6 +19,7 @@ from deltakd_tpu_torch.data.augment import AugmentConfig
 from deltakd_tpu_torch.data.loader import make_loader
 from deltakd_tpu_torch.data.sources import build_source
 from deltakd_tpu_torch.models.factory import load_teacher_student
+from deltakd_tpu_torch.parallel import current, rank_device
 from deltakd_tpu_torch.train.loop import eval_view, validate
 from deltakd_tpu_torch.train.step import build_eval_step
 
@@ -33,7 +35,8 @@ def main(argv=None):
     if not ns.checkpoint:
         parser.error("--checkpoint is required")
     cfg = config_from_namespace(ns)
-    device = resolve_device(cfg.device or "cuda")
+    device = rank_device(resolve_device(cfg.device or "cuda"))
+    dp = current()
 
     # the factory picks the student's path as run() does; the teacher is
     # never run, so it needs no weights
@@ -45,16 +48,18 @@ def main(argv=None):
 
     pin = cfg.pin_mem and device.type == "cuda"
     loader = make_loader(cfg, build_source(cfg, is_train=False),
-                         batch_size=cfg.batch_size, is_train=False, seed=cfg.seed,
-                         pin_memory=pin)
+                         batch_size=cfg.batch_size, is_train=False, world=dp.world,
+                         rank=dp.rank, seed=cfg.seed, pin_memory=pin)
     eval_step = build_eval_step(student=eval_view(student),
                                 aug=AugmentConfig.from_config(cfg))
-    metrics = validate(eval_step, loader, cfg, device=device, pin=pin, prefix="test")
+    metrics = validate(eval_step, loader, cfg, device=device, pin=pin, prefix="test",
+                       dp=dp)
     metrics["epoch"] = meta["epoch"]
-    print(json.dumps(metrics, indent=4))
-    out_path = ns.output or os.path.join(cfg.checkpoint, "eval.json")
-    with open(out_path, "w") as f:
-        json.dump(metrics, f, indent=4)
+    if dp.is_main:
+        print(json.dumps(metrics, indent=4))
+        out_path = ns.output or os.path.join(cfg.checkpoint, "eval.json")
+        with open(out_path, "w") as f:
+            json.dump(metrics, f, indent=4)
     return metrics
 
 

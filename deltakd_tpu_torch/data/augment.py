@@ -227,9 +227,13 @@ class AugmentConfig:
     def from_config(cls, cfg) -> "AugmentConfig":
         """The JAX package's rules: 3-Augment turns RA/AA and erasing off;
         colour jitter acts only without aa or with 3-Augment; the heavy RA ops
-        run on a batch subset unless the batch is split over devices (the
-        port runs one process, so ``mesh_shape`` None means one card)."""
+        run on a batch subset unless the batch is split over devices, i.e.
+        over more than one rank or a data axis > 1 in ``mesh_shape``. The
+        subset (its size and the rows past it) is the local batch's, so a
+        split batch would not give the global batch's transform: the ops run
+        on every image instead, as in the JAX package."""
         from deltakd_tpu_torch.data.registry import DATASET_STATS
+        from deltakd_tpu_torch.parallel.mesh import world
 
         stats = DATASET_STATS[cfg.dataset]
         aa = parse_aa_spec(cfg.aa) if not cfg.ThreeAugment else None
@@ -245,7 +249,7 @@ class AugmentConfig:
                    small_input_crop=cfg.input_size <= 32,
                    eval_crop_ratio=cfg.eval_crop_ratio,
                    pixel_bf16=cfg.aug_pixel_bf16,
-                   subset_ops=ms is None or int(ms[0]) == 1)
+                   subset_ops=world() == 1 and (ms is None or int(ms[0]) == 1))
 
 
 # -----------------------------------------------------------------------------
@@ -827,14 +831,18 @@ class JitterDraws:
     order: torch.Tensor        # [3] a permutation of (0, 1, 2), one per batch
 
 
-def draw_color_jitter(generator, batch: int, strength: float, device=None) -> JitterDraws:
+def draw_color_jitter(generator, batch: int, strength: float, device=None,
+                      batch_generator=None) -> JitterDraws:
+    """Per-image factors from ``generator``; the one order of the whole
+    (global) batch from ``batch_generator``, which defaults to it."""
     lo, hi = max(0.0, 1 - strength), 1 + strength
 
     def u():
         return torch.rand(batch, generator=generator, device=device) * (hi - lo) + lo
 
     fb, fc, fs = u(), u(), u()
-    order = torch.argsort(torch.rand(3, generator=generator, device=device))
+    order = torch.argsort(torch.rand(3, generator=batch_generator or generator,
+                                     device=device))
     return JitterDraws(fb, fc, fs, order)
 
 
@@ -895,11 +903,11 @@ class ThreeAugDraws:
     jitter: Optional[JitterDraws]
 
 
-def draw_three_augment(generator, batch: int, color_jitter: float, device=None
-                       ) -> ThreeAugDraws:
+def draw_three_augment(generator, batch: int, color_jitter: float, device=None,
+                       batch_generator=None) -> ThreeAugDraws:
     choice = torch.randint(0, 3, (batch,), generator=generator, device=device)
     radius = torch.rand(batch, generator=generator, device=device) * 1.9 + 0.1
-    jitter = (draw_color_jitter(generator, batch, color_jitter, device)
+    jitter = (draw_color_jitter(generator, batch, color_jitter, device, batch_generator)
               if color_jitter > 0 else None)
     return ThreeAugDraws(choice, radius, jitter)
 
@@ -1016,7 +1024,12 @@ class TrainDraws:
     jitter: Optional[JitterDraws] = None  # colour jitter without aa
 
 
-def draw_train_transform(generator, shape, ac: AugmentConfig, device=None) -> TrainDraws:
+def draw_train_transform(generator, shape, ac: AugmentConfig, device=None,
+                         batch_generator=None) -> TrainDraws:
+    """The per-image draws from ``generator``; the draw that the JAX package
+    makes once for the whole global batch (colour jitter's order) from
+    ``batch_generator``, which under data parallelism is equal on every rank
+    (default: ``generator``). The order of the draws is the same either way."""
     B, H, W, C = shape
     S = ac.input_size
     if ac.small_input_crop or ac.src:
@@ -1033,7 +1046,7 @@ def draw_train_transform(generator, shape, ac: AugmentConfig, device=None) -> Tr
             if ac.interpolation == "random" else None)
     d = TrainDraws(top, left, ch, cw, flip, pick, None)
     if ac.three_augment:
-        d.three = draw_three_augment(generator, B, ac.color_jitter, device)
+        d.three = draw_three_augment(generator, B, ac.color_jitter, device, batch_generator)
     else:
         if ac.rand_augment is not None:
             d.ra = [draw_ra_layer(generator, B, ac.rand_augment, device)
@@ -1041,7 +1054,8 @@ def draw_train_transform(generator, shape, ac: AugmentConfig, device=None) -> Tr
         if ac.auto_augment is not None:
             d.aa = draw_aa_slots(generator, B, ac.auto_augment, device)
         if d.ra is None and d.aa is None and ac.color_jitter > 0:
-            d.jitter = draw_color_jitter(generator, B, ac.color_jitter, device)
+            d.jitter = draw_color_jitter(generator, B, ac.color_jitter, device,
+                                         batch_generator)
     if ac.reprob > 0:
         d.erase = draw_random_erasing(generator, (B, S, S, C), ac.reprob, mode=ac.remode,
                                       max_count=ac.recount, device=device)
@@ -1144,8 +1158,9 @@ def draws_to(d, device):
     return d
 
 
-def train_transform(generator, images_u8, ac: AugmentConfig):
-    d = draw_train_transform(generator, images_u8.shape, ac, device=images_u8.device)
+def train_transform(generator, images_u8, ac: AugmentConfig, batch_generator=None):
+    d = draw_train_transform(generator, images_u8.shape, ac, device=images_u8.device,
+                             batch_generator=batch_generator)
     return apply_train_transform(images_u8, ac, d)
 
 

@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from deltakd_tpu_torch.parallel.mesh import LOCAL, DataParallel
+
 MODES = ("batch", "pair", "elem")
 
 
@@ -43,7 +45,8 @@ class MixupConfig:
 
 @dataclasses.dataclass
 class MixupDraws:
-    """0-d in 'batch' mode, [B] (one per image, before pairing) otherwise."""
+    """0-d in 'batch' mode, [B] (one per image of the global batch, before
+    pairing) otherwise."""
 
     do_mix: torch.Tensor       # bool
     use_cutmix: torch.Tensor   # bool
@@ -123,15 +126,22 @@ def _paired(d: MixupDraws) -> MixupDraws:
     return MixupDraws(*(mirror(v) for v in dataclasses.astuple(d)))
 
 
-def mix_batch(images, labels, mc: MixupConfig, d: MixupDraws
+def mix_batch(images, labels, mc: MixupConfig, d: MixupDraws, dp: DataParallel = LOCAL
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B,H,W,C] images + int labels -> (mixed images, soft targets [B,C])."""
+    """[B,H,W,C] images + int labels -> (mixed images, soft targets [B,C]).
+    ``images`` and ``labels`` are this rank's rows of the global batch and
+    ``d`` the draws for the global batch."""
     B, H, W, _ = images.shape
-    if mc.mode == "pair":
-        d = _paired(d)
     per_image = d.lam_mix.dim() == 1
+    if per_image:
+        if mc.mode == "pair":
+            d = _paired(d)
+        rows = slice(dp.rank * B, (dp.rank + 1) * B)
+        d = MixupDraws(*(v[rows] for v in dataclasses.astuple(d)))
     e4 = (lambda v: v[:, None, None, None]) if per_image else (lambda v: v)  # noqa: E731
-    flipped = images.flip(0)
+    # the partner rank's batch, flipped: row j's partner in the global batch
+    flipped = dp.swap_with_partner(images).flip(0)
+    flipped_labels = dp.swap_with_partner(labels).flip(0)
     lam_b = e4(d.lam_mix).to(images.dtype)     # keep a bf16 pixel stage bf16
     mixed_m = lam_b * images + (1.0 - lam_b) * flipped
     y0, y1, x0, x1, lam_cut_c = _bbox(H, W, d.lam_cut, d.cy, d.cx)
@@ -145,10 +155,14 @@ def mix_batch(images, labels, mc: MixupConfig, d: MixupDraws
     images_out = torch.where(e4(d.do_mix), mixed, images)
     lam = torch.where(d.do_mix, lam, torch.ones_like(lam))
     targets = one_hot_smoothed(labels, mc.num_classes, mc.label_smoothing)
+    partner = one_hot_smoothed(flipped_labels, mc.num_classes, mc.label_smoothing)
     lam_t = lam[:, None] if per_image else lam
-    return images_out, lam_t * targets + (1.0 - lam_t) * targets.flip(0)
+    return images_out, lam_t * targets + (1.0 - lam_t) * partner
 
 
-def apply_mixup(generator, images, labels, mc: MixupConfig):
+def apply_mixup(generator, images, labels, mc: MixupConfig, dp: DataParallel = LOCAL):
+    """Mixup of this rank's rows of the global batch; ``generator`` must be
+    equal on every rank."""
     B, H, W = images.shape[:3]
-    return mix_batch(images, labels, mc, draw_mixup(generator, mc, B, H, W, images.device))
+    d = draw_mixup(generator, mc, B * dp.world, H, W, images.device)
+    return mix_batch(images, labels, mc, d, dp)

@@ -1,7 +1,8 @@
 #!/bin/bash
-# Shared recipe preamble for the TPU-native CLI (no torchrun: one process
-# drives the whole jax.sharding.Mesh; pass the data-axis size as $1 to
-# override the default of "all devices").
+# Shared recipe preamble for the PyTorch/CUDA port. Pass the number of cards
+# as $1 to launch one process per card under torchrun (NCCL; --batch-size is
+# per card, as in the reference's DDP launch and the JAX package's data
+# axis, which $1 sizes there); without $1 the recipe runs one plain process.
 #
 # Env overrides:
 #   DATA_PATH     dataset root                (default: dataset)
@@ -15,3 +16,4 @@ if [[ -n "$1" ]]; then MESH_FLAGS="--mesh-shape $1"; fi
 TEACHER_FLAGS=""
 if [[ -n "$TEACHER_CKPT" ]]; then TEACHER_FLAGS="--teacher-checkpoint $TEACHER_CKPT"; fi
 TRAIN="python -m deltakd_tpu_torch.cli.train"
+if [[ -n "$1" ]]; then TRAIN="torchrun --standalone --nproc_per_node $1 -m deltakd_tpu_torch.cli.train"; fi

@@ -13,6 +13,11 @@ epoch the step passes in.
 
 Every random draw (masking noise, DiffKD's timesteps, noise and dropout
 masks) comes from an explicit ``torch.Generator`` unless the caller pins it.
+
+Under data parallelism (``dp``) each rank holds its rows of the global batch.
+Every objective is a mean over equal local batches, so the ranks' mean of
+the local losses is the global one, except for two terms that couple the
+batch: LRKD's Gram matrices and DiffKD's mean weight, which are all-reduced.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from deltakd_tpu_torch.kd.masking import (fill_and_restore, grid_to_tokens,
                                           tokens_to_grid)
 from deltakd_tpu_torch.kd.sinkhorn import batched_sinkhorn_divergence
 from deltakd_tpu_torch.ops.sort import sorted_l1
+from deltakd_tpu_torch.parallel.mesh import LOCAL, DataParallel
 
 FEATURE_TYPES = ("vitkd", "lrkd", "diffkd", "curkd", "saliency_mgd", "wasskd", "mgd")
 LOGIT_TYPES = ("soft", "hard")
@@ -230,26 +236,28 @@ def vitkd_loss(kd: KDSettings, aux, s_feats, t_feats, generator=None, *, noise=N
     return loss_lr + loss_gen / B * beta_vitkd / lambda_vitkd
 
 
-def lrkd_targets(kd: KDSettings, t_feats) -> torch.Tensor:
+def lrkd_targets(kd: KDSettings, t_feats, dp: DataParallel = LOCAL) -> torch.Tensor:
     """LRKD's targets [3, M, rank]: the teacher's top-``lrkd_rank`` spectral
     coordinates of blocks 0, 1 and the last, M = B x patch tokens. The three
     eigendecompositions are one batched ``torch.linalg.eigh`` of the
     [3, D, D] Gram matrices, as the JAX package computes them on every
-    backend but the TPU."""
+    backend but the TPU. The Gram matrices are the global batch's (summed
+    over the ranks), so every rank projects its rows on the same vectors."""
     t_sel = _slice_feats(t_feats, (0, 1, -1), kd.teacher_prefix)
     t2 = torch.stack([t.reshape(-1, t.shape[-1]) for t in t_sel]).float()
-    _, vecs = torch.linalg.eigh(torch.bmm(t2.mT, t2))     # ascending eigenvalues
+    gram = dp.all_reduce(torch.bmm(t2.mT, t2))
+    _, vecs = torch.linalg.eigh(gram)     # ascending eigenvalues
     return torch.bmm(t2, _canon_sign(vecs.flip(-1)[..., :kd.lrkd_rank]))
 
 
 def lrkd_loss(kd: KDSettings, aux, s_feats, t_feats, *,
-              targets: Optional[torch.Tensor] = None):
+              targets: Optional[torch.Tensor] = None, dp: DataParallel = LOCAL):
     """LRKD: the student's blocks 0, 1 and last projected to rank k by the
     align layers, mean-MSE against the teacher's spectral coordinates,
     weighted by lrkd_alpha, lrkd_beta, lrkd_gamma. ``targets`` [3, M, k]
     replaces ``lrkd_targets``."""
     if targets is None:
-        targets = lrkd_targets(kd, t_feats)
+        targets = lrkd_targets(kd, t_feats, dp)
     s_sel = _slice_feats(s_feats, (0, 1, -1), kd.student_prefix)
     losses = [_mean_sq(targets[i] - aux_ops.dense(layer, s).reshape(-1, kd.lrkd_rank).float())
               for i, (layer, s) in enumerate(zip(aux.align, s_sel))]
@@ -281,13 +289,14 @@ class DiffKDDraws(NamedTuple):
 
 
 def diffkd_loss(kd: KDSettings, aux, s_feats, t_feats, generator=None, train: bool = True,
-                *, draws: Optional[DiffKDDraws] = None):
+                *, draws: Optional[DiffKDDraws] = None, dp: DataParallel = LOCAL):
     """DiffKD on blocks 0, 1 and the last: a cosine noise schedule over 8
     steps with sigma_max 0.3 for the first half and 0.7 for the second; the
     denoiser predicts the noise injected into the normalised teacher feature,
     plus 1/sigma^2-weighted matching of the normalised aligned student
     feature; the total x 5e-5. ``draws`` replaces the draws from
-    ``generator``; with ``train`` False the denoiser drops nothing."""
+    ``generator``; with ``train`` False the denoiser drops nothing. The
+    matching weight is the mean of 1/sigma^2 over the global batch."""
     s_sel = _slice_feats(s_feats, (0, 1, -1), kd.student_prefix)
     t_sel = _slice_feats(t_feats, (0, 1, -1), kd.teacher_prefix)
     if draws is None:
@@ -297,6 +306,7 @@ def diffkd_loss(kd: KDSettings, aux, s_feats, t_feats, generator=None, train: bo
     sigma_max = torch.where(t_step < T // 2, 0.3, 0.7)
     sigma_t = (1.0 - torch.cos(math.pi * t_step.float() / T)) * sigma_max
     w_t = 1.0 / (sigma_t ** 2 + 1e-8)
+    w_mean = dp.mean(w_t.mean())
 
     feat_loss = 0.0
     for i, (layer, s, t) in enumerate(zip(aux.align, s_sel, t_sel)):
@@ -308,7 +318,7 @@ def diffkd_loss(kd: KDSettings, aux, s_feats, t_feats, generator=None, train: bo
         pred = aux_ops.denoise_apply(aux.denoise, t_n + noise, t_step, train=train,
                                      keep=draws.keep[i] if train else None)
         feat_loss = feat_loss + _mean_sq(pred - noise)
-        feat_loss = feat_loss + w_t.mean() * _mean_sq(s_n - t_n)
+        feat_loss = feat_loss + w_mean * _mean_sq(s_n - t_n)
     return feat_loss / 3.0 * 5e-5
 
 
@@ -401,15 +411,16 @@ def total_loss(kd: KDSettings, *, student_logits, student_dist_logits: Optional[
                teacher_feats: Optional[Sequence[torch.Tensor]] = None,
                aux=None, generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None,
-               diffkd_draws: Optional[DiffKDDraws] = None, epoch=0, train: bool = True
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               diffkd_draws: Optional[DiffKDDraws] = None, epoch=0, train: bool = True,
+               dp: DataParallel = LOCAL) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Combine base and distillation losses for one batch.
 
     ``aux`` is the ``AuxHeads`` module of the distillation type. The
     objectives draw from ``generator`` unless the draws are given: ``noise``
     [B, L] is the masking noise (vitkd, mgd, curkd's last phase) and
     ``diffkd_draws`` DiffKD's. ``epoch`` (a Python int) picks curkd's phase;
-    ``train`` False turns DiffKD's dropout off."""
+    ``train`` False turns DiffKD's dropout off; ``dp`` holds the ranks over
+    which LRKD's and DiffKD's batch-coupled terms are reduced."""
     t = kd.distillation_type.lower()
     base = base_criterion(kd, student_logits, targets)
     metrics = {"base_loss": base}
@@ -435,9 +446,9 @@ def total_loss(kd: KDSettings, *, student_logits, student_dist_logits: Optional[
     if t == "vitkd":
         distill = vitkd_loss(*feats, generator, noise=noise)
     elif t == "lrkd":
-        distill = lrkd_loss(*feats)
+        distill = lrkd_loss(*feats, dp=dp)
     elif t == "diffkd":
-        distill = diffkd_loss(*feats, generator, train=train, draws=diffkd_draws)
+        distill = diffkd_loss(*feats, generator, train=train, draws=diffkd_draws, dp=dp)
     elif t == "curkd":
         distill = curkd_loss(*feats, generator, epoch, noise=noise)
     elif t == "saliency_mgd":

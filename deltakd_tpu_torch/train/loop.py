@@ -10,9 +10,19 @@ The host never waits on the card between log points: each batch goes to the
 card from pinned memory without blocking, the step's 0-d metrics fold into
 one running-sum tensor on the card, and the host reads it once every
 ``log_every`` steps and at the end of the epoch; validation sums on the card
-and reads once. Every draw of an epoch comes from a generator seeded from
+and reads once. Every draw of an epoch comes from generators seeded from
 (seed, epoch), and the loader's order from seed + epoch, so a resumed run
 repeats a straight one bit for bit.
+
+Under torchrun (``parallel.maybe_initialize_distributed``) each process
+trains its card's rows of the global batch (``--batch-size`` is per card):
+the loaders shard by rank (the RASampler with ``--repeated-aug``), the
+per-image draws come from a generator seeded from (seed, epoch, rank) and
+the global batch's draws from one seeded from (seed, epoch) on every rank;
+the parameters are broadcast from rank 0 after they are built or loaded;
+the epoch's metric sums and the validation sums are all-reduced at their
+one read; rank 0 alone logs and writes checkpoints; a SIGTERM on any rank
+stops every rank after the same epoch.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ import os
 import signal
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +52,9 @@ from deltakd_tpu_torch.obs.meters import MetricLogger
 from deltakd_tpu_torch.obs.profiling import count_params, measure_throughput, model_gflops
 from deltakd_tpu_torch.obs.wandb_adapter import WandbRun
 from deltakd_tpu_torch.ops.fused_mlp import best_mlp_fn
+from deltakd_tpu_torch.parallel import LOCAL, DataParallel, make_mesh
+from deltakd_tpu_torch.parallel import current as current_dp
+from deltakd_tpu_torch.parallel import rank_device
 from deltakd_tpu_torch.train.optim import make_optimizer
 from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
 from deltakd_tpu_torch.train.step import build_eval_step, build_train_step
@@ -61,18 +74,36 @@ def to_device(x, device: torch.device, pin: bool) -> torch.Tensor:
     return t.to(device, non_blocking=pin)
 
 
-def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Generator:
-    """The generator of an epoch's draws, seeded from (seed, epoch)."""
-    state = np.random.SeedSequence([seed, epoch]).generate_state(2, np.uint32)
+def epoch_generator(seed: int, epoch: int, device: torch.device,
+                    rank: Optional[int] = None) -> torch.Generator:
+    """The generator of an epoch's draws, seeded from (seed, epoch), or from
+    (seed, epoch, rank) for one rank's own."""
+    entropy = [seed, epoch] if rank is None else [seed, epoch, rank]
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return torch.Generator(device=device).manual_seed(
         int(state[0]) << 32 | int(state[1]))
 
 
+def epoch_generators(seed: int, epoch: int, device: torch.device,
+                     dp: DataParallel = LOCAL) -> Tuple[torch.Generator, torch.Generator]:
+    """(per-image, global-batch) generators of an epoch: at world 1 one
+    generator serves both, as in a plain process; at world > 1 each rank
+    draws its images' crops, flips, ops, erasing, drop-path and loss draws
+    from its own and the global batch's draws from the shared one."""
+    shared = epoch_generator(seed, epoch, device)
+    if not dp.active:
+        return shared, shared
+    return epoch_generator(seed, epoch, device, dp.rank), shared
+
+
 def train_one_epoch(state, train_step, loader, epoch: int, cfg, *,
                     device: torch.device, generator: torch.Generator,
-                    pin: bool = True, printer=print) -> Dict[str, float]:
+                    batch_generator: Optional[torch.Generator] = None,
+                    pin: bool = True, printer=print,
+                    dp: DataParallel = LOCAL) -> Dict[str, float]:
     """One sweep over the train loader (reference tools/engine.py:8-76);
-    ``state`` is updated in place. Returns the epoch's metric averages."""
+    ``state`` is updated in place. Returns the epoch's metric averages over
+    the steps and the ranks; rank 0 logs its own steps' metrics."""
     metric_logger = MetricLogger(printer=printer)
     header = f"Epoch: [{epoch + 1}/{cfg.epochs}]"
     steps = len(loader)
@@ -81,26 +112,29 @@ def train_one_epoch(state, train_step, loader, epoch: int, cfg, *,
     names, sums, n_steps = None, None, 0
     batches = itertools.islice(loader.epoch(epoch), steps)
     for images, labels, _ in metric_logger.log_every(
-            batches, cfg.log_every, header, total=steps):
+            batches, cfg.log_every, header, total=steps, is_main=dp.is_main):
         metrics = train_step(state, to_device(images, device, pin),
-                             to_device(labels, device, pin), generator, epoch=epoch)
+                             to_device(labels, device, pin), generator,
+                             batch_generator=batch_generator, epoch=epoch)
         if names is None:
             names = sorted(metrics)
         vec = torch.stack([metrics[k].float() for k in names])
         sums = vec if sums is None else sums + vec
         n_steps += 1
-        if n_steps % cfg.log_every == 0:
+        if dp.is_main and n_steps % cfg.log_every == 0:
             metric_logger.update(**dict(zip(names, vec.tolist())))  # one read
     if not n_steps:
         return {}
-    return dict(zip(names, (sums / n_steps).tolist()))
+    return dict(zip(names, (dp.all_reduce(sums) / (n_steps * dp.world)).tolist()))
 
 
 @torch.no_grad()
 def validate(eval_step, loader, cfg, *, device: torch.device, pin: bool = True,
-             printer=print, prefix: str = "val") -> Dict[str, float]:
+             printer=print, prefix: str = "val", dp: DataParallel = LOCAL
+             ) -> Dict[str, float]:
     """Masked-sum evaluation (reference tools/engine.py:78-104): the padded
-    tail of the last batch is masked out."""
+    tail of the last batch is masked out; the sums are the ranks' (each rank
+    evaluates its shard of the split)."""
     metric_logger = MetricLogger(printer=printer)
     steps = len(loader)
     if cfg.eval_steps:
@@ -108,7 +142,7 @@ def validate(eval_step, loader, cfg, *, device: torch.device, pin: bool = True,
     sums = None
     batches = itertools.islice(loader.epoch(0), steps)
     for images, labels, n_valid in metric_logger.log_every(
-            batches, cfg.log_every, f"{prefix}:", total=steps):
+            batches, cfg.log_every, f"{prefix}:", total=steps, is_main=dp.is_main):
         labels = to_device(labels, device, pin)
         valid = torch.arange(labels.shape[0], device=device) < n_valid
         out = eval_step(to_device(images, device, pin), labels, valid)
@@ -116,7 +150,7 @@ def validate(eval_step, loader, cfg, *, device: torch.device, pin: bool = True,
         sums = vec if sums is None else sums + vec
     if sums is None:
         return {}
-    loss_sum, correct1, correct5, count = sums.tolist()
+    loss_sum, correct1, correct5, count = dp.all_reduce(sums).tolist()
     n = max(count, 1.0)
     return {f"{prefix}_loss": loss_sum / n,
             f"{prefix}_acc1": correct1 / n * 100.0,
@@ -142,8 +176,10 @@ def _profiler(cfg, device):
 
 def run(cfg) -> Dict[str, float]:
     """Full training entry (reference tools/train.py:215-367). Runs on the
-    card unless ``cfg.device`` is 'cpu'; without a card it raises."""
-    device = resolve_device(cfg.device or "cuda")
+    card unless ``cfg.device`` is 'cpu'; without a card it raises. Under
+    torchrun, or in a process group that already exists, it runs one rank of
+    the data axis (on card ``LOCAL_RANK``)."""
+    device = rank_device(resolve_device(cfg.device or "cuda"))
     stop = threading.Event()
     try:   # the handler only sets a flag; the loop saves and returns
         previous = signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
@@ -163,13 +199,16 @@ def run(cfg) -> Dict[str, float]:
 
 
 def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
+    dp = current_dp()
+    make_mesh(cfg.mesh_shape, dp)   # the JAX package's check of --mesh-shape
     pin = cfg.pin_mem and device.type == "cuda"
     log_file = get_timestamped_log_file_path(cfg.log_file)
-    logger = setup_logger(log_file)
+    logger = setup_logger(log_file, is_main=dp.is_main)
     logger.info(f"Training started with {cfg.teacher_model} as teacher and "
                 f"{cfg.student_model} as student")
     logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
-                                       if device.type == "cuda" else ""))
+                                       if device.type == "cuda" else "")
+                + f"; data axis of {dp.world} rank(s)")
 
     teacher, student, aux = load_teacher_student(
         cfg, block_pair=os.environ.get("DELTAKD_PAIR") == "1", seed=cfg.seed,
@@ -177,27 +216,32 @@ def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
     student_eval = eval_view(student)
 
     # startup banner: params / FLOPs / inference throughput (train.py:230-241)
-    params_m = count_params(student)
-    flops = model_gflops(student, cfg.input_size)
-    throughput = measure_throughput(student_eval, batch_size=min(cfg.batch_size, 64),
-                                    input_size=cfg.input_size)
-    logger.info("Model Statistics:")
-    logger.info(f"FLOPs: {flops:.2f}G")
-    logger.info(f"Parameters: {params_m:.2f}M")
-    logger.info(f"Throughput: {throughput:.2f} images/sec")
+    if dp.is_main:
+        params_m = count_params(student)
+        flops = model_gflops(student, cfg.input_size)
+        throughput = measure_throughput(student_eval, batch_size=min(cfg.batch_size, 64),
+                                        input_size=cfg.input_size)
+        logger.info("Model Statistics:")
+        logger.info(f"FLOPs: {flops:.2f}G")
+        logger.info(f"Parameters: {params_m:.2f}M")
+        logger.info(f"Throughput: {throughput:.2f} images/sec")
     wandb_run = WandbRun(enabled=cfg.wandb, project=cfg.wandb_project,
-                         name=os.path.basename(log_file).replace(".log", ""), config=cfg)
-    wandb_run.summary({"flops_G": flops, "params_M": params_m, "throughput": throughput})
+                         name=os.path.basename(log_file).replace(".log", ""), config=cfg,
+                         is_main=dp.is_main)
+    if dp.is_main:
+        wandb_run.summary({"flops_G": flops, "params_M": params_m,
+                           "throughput": throughput})
 
     # grad accumulation multiplies the train batch (the step splits it into
-    # micro-batches); evaluation runs plain forwards at the batch size
+    # micro-batches); evaluation runs plain forwards at the batch size. Each
+    # rank loads its shard; the RASampler engages at world > 1.
     train_loader = make_loader(cfg, build_source(cfg, is_train=True),
                                batch_size=cfg.batch_size * max(1, cfg.grad_accum_steps),
-                               is_train=True, repeated_aug=cfg.repeated_aug,
-                               seed=cfg.seed, pin_memory=pin)
+                               is_train=True, world=dp.world, rank=dp.rank,
+                               repeated_aug=cfg.repeated_aug, seed=cfg.seed, pin_memory=pin)
     val_loader = make_loader(cfg, build_source(cfg, is_train=False),
-                             batch_size=cfg.batch_size, is_train=False, seed=cfg.seed,
-                             pin_memory=pin)
+                             batch_size=cfg.batch_size, is_train=False, world=dp.world,
+                             rank=dp.rank, seed=cfg.seed, pin_memory=pin)
     steps_per_epoch = len(train_loader)
     if cfg.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, cfg.steps_per_epoch)
@@ -206,6 +250,7 @@ def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
 
     start_epoch, best_val_acc = 0, 0.0
     if cfg.checkpoint:
+        dp.barrier()   # no rank reads a checkpoint before rank 0 has written it
         if cfg.resume:
             state, start_epoch, best_val_acc = load_checkpoint(cfg.checkpoint, state)
             logger.info(f"Resumed from {cfg.checkpoint} at epoch {start_epoch}")
@@ -215,29 +260,36 @@ def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
                                       log=logger.info)
             if cfg.finetune:
                 logger.info(f"Finetuning from {cfg.checkpoint}")
+    # every rank starts from rank 0's parameters (what DDP's wrapper does)
+    dp.broadcast(state.params)
+    if state.ema_params is not None:
+        dp.broadcast(state.ema_params)
 
     kd = KDSettings.from_config(cfg, student_prefix=student.cfg.num_prefix_tokens,
                                 teacher_prefix=teacher.cfg.num_prefix_tokens)
     aug = AugmentConfig.from_config(cfg)
     mixup = MixupConfig.from_config(cfg, num_classes=student.cfg.num_classes)
     train_step = build_train_step(cfg=cfg, kd=kd, student=student, teacher=teacher,
-                                  aug=aug, mixup=mixup, tx=tx, aux=aux)
+                                  aug=aug, mixup=mixup, tx=tx, aux=aux, dp=dp)
     eval_step = build_eval_step(student=student_eval, aug=aug)
 
-    os.makedirs(cfg.save_dir, exist_ok=True)
+    if dp.is_main:
+        os.makedirs(cfg.save_dir, exist_ok=True)
     val_metrics: Dict[str, float] = {}
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
+        generator, batch_generator = epoch_generators(cfg.seed, epoch, device, dp)
         with (_profiler(cfg, device) if epoch == start_epoch
               else contextlib.nullcontext()) as prof:
             train_metrics = train_one_epoch(
                 state, train_step, train_loader, epoch, cfg, device=device,
-                generator=epoch_generator(cfg.seed, epoch, device), pin=pin)
+                generator=generator, batch_generator=batch_generator, pin=pin, dp=dp)
         if prof is not None:
-            os.makedirs(cfg.profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(cfg.profile_dir,
-                                                  f"trace_epoch{epoch}.json"))
-        val_metrics = validate(eval_step, val_loader, cfg, device=device, pin=pin)
+            trace_dir = cfg.profile_dir if not dp.active else os.path.join(
+                cfg.profile_dir, f"rank{dp.rank}")
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, f"trace_epoch{epoch}.json"))
+        val_metrics = validate(eval_step, val_loader, cfg, device=device, pin=pin, dp=dp)
         wandb_run.log(train_metrics, step=epoch)
         wandb_run.log(val_metrics, step=epoch)
         logger.info(f"Epoch {epoch} ({time.time() - t0:.1f}s) - Train: {train_metrics} "
@@ -246,9 +298,11 @@ def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
         current = val_metrics.get("val_acc1", 0.0)
         is_best = current > best_val_acc
         best_val_acc = max(best_val_acc, current)
-        save_checkpoint(os.path.join(cfg.save_dir, "checkpoint"), state,
-                        epoch=epoch + 1, best_acc=best_val_acc, is_best=is_best)
-        if stop.is_set():
+        if dp.is_main:
+            save_checkpoint(os.path.join(cfg.save_dir, "checkpoint"), state,
+                            epoch=epoch + 1, best_acc=best_val_acc, is_best=is_best)
+        dp.barrier()
+        if dp.any_rank(stop.is_set(), device):   # every rank stops after the same epoch
             logger.info(f"SIGTERM received — checkpoint saved at epoch {epoch + 1}, "
                         f"exiting for resume")
             break

@@ -5,9 +5,20 @@ under ``torch.no_grad()``, the student forward and backward, the KD loss (for
 a feature objective on both models' per-block features and the aux heads),
 the clipped AdamW update over the flat parameter vector of student and aux
 heads, the EMA update and the metrics, optionally over several accumulated
-micro-batches. Randomness comes from one explicit ``torch.Generator``; tests
+micro-batches. Randomness comes from explicit ``torch.Generator``s; tests
 may instead pin the post-transform images, the soft targets, the drop-path
 scales, the masking noise and DiffKD's draws.
+
+Under data parallelism (``dp``, one process per card) each rank runs the
+step on its rows of the global batch: the per-image draws come from the
+rank's own generator, the draws that the JAX package makes once for the
+global batch (mixup's, colour jitter's order) from ``batch_generator``,
+which is equal on every rank; mixup pairs rows across ranks, LRKD's and
+DiffKD's batch-coupled terms are all-reduced, and after the micro-batches
+one all-reduce of the flat gradient vector divided by the world size makes
+every rank's update the global batch's (the psum of the JAX kernels'
+partitioning rules). The teacher stays a replica on each rank; the metrics
+stay per rank and are reduced where they are read.
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ import torch
 from deltakd_tpu_torch.data.augment import AugmentConfig, eval_transform, train_transform
 from deltakd_tpu_torch.data.mixup import MixupConfig, apply_mixup
 from deltakd_tpu_torch.kd.losses import FEATURE_TYPES, DiffKDDraws, KDSettings, total_loss
+from deltakd_tpu_torch.parallel.mesh import DataParallel, current
 from deltakd_tpu_torch.train.state import TrainState
 
 
@@ -31,10 +43,10 @@ def topk_correct(logits, labels, k: int):
 
 def build_train_step(*, cfg, kd: KDSettings, student, teacher,
                      aug: AugmentConfig, mixup: Optional[MixupConfig], tx,
-                     aux=None) -> Callable:
-    """Returns ``step(state, images_u8, labels, generator, *, images=None,
-    targets=None, drop_scales=None, epoch=0, mask_noise=None,
-    diffkd_draws=None) -> metrics``.
+                     aux=None, dp: Optional[DataParallel] = None) -> Callable:
+    """Returns ``step(state, images_u8, labels, generator, *,
+    batch_generator=None, images=None, targets=None, drop_scales=None,
+    epoch=0, mask_noise=None, diffkd_draws=None) -> metrics``.
 
     ``state`` must hold ``student``'s parameters and, for a feature objective,
     those of its aux heads ``aux`` (TrainState(student, aux=aux, ...)).
@@ -45,7 +57,10 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
     (``kd.losses.DiffKDDraws``) DiffKD's timesteps, noise and dropout masks;
     each pinned draw needs ``grad_accum_steps == 1``. ``epoch`` (a Python
     int) picks CurKD's phase. Metrics are 0-d tensors on the device.
+    ``dp`` is the data axis (default: the current process group, see
+    ``parallel.current``); ``batch_generator`` defaults to ``generator``.
     """
+    dp = dp or current()
     needs_teacher = kd.distillation_type != "none"
     needs_features = kd.distillation_type.lower() in FEATURE_TYPES
     if needs_features and aux is None:
@@ -55,15 +70,16 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
     if teacher is not None:
         teacher.requires_grad_(False)
 
-    def micro_grads(params, generator, images_u8, labels, images, targets,
-                    drop_scales, epoch, mask_noise, diffkd_draws):
+    def micro_grads(params, generator, batch_generator, images_u8, labels, images,
+                    targets, drop_scales, epoch, mask_noise, diffkd_draws):
         if images is None:
             # named ranges, so that a profile of the step can tell them apart
             with torch.profiler.record_function("train_transform"):
-                images = train_transform(generator, images_u8, aug)
+                images = train_transform(generator, images_u8, aug, batch_generator)
             if mixup is not None:
                 with torch.profiler.record_function("mixup"):
-                    images, targets = apply_mixup(generator, images, labels, mixup)
+                    images, targets = apply_mixup(batch_generator, images, labels, mixup,
+                                                  dp)
             else:
                 targets = labels
         elif targets is None:
@@ -83,7 +99,7 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
             student_feats=s_out.features if needs_features else None,
             teacher_logits=teacher_logits, teacher_feats=teacher_feats, aux=aux,
             targets=targets, generator=generator, noise=mask_noise,
-            diffkd_draws=diffkd_draws, epoch=epoch, train=True)
+            diffkd_draws=diffkd_draws, epoch=epoch, train=True, dp=dp)
         # a parameter the loss does not reach (the dist head under a feature
         # objective) has a zero gradient
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -99,6 +115,7 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
         return torch.cat([g.reshape(-1) for g in grads]), metrics
 
     def step(state: TrainState, images_u8, labels, generator: torch.Generator, *,
+             batch_generator: Optional[torch.Generator] = None,
              images=None, targets=None, drop_scales: Optional[Sequence] = None,
              epoch: int = 0, mask_noise: Optional[torch.Tensor] = None,
              diffkd_draws: Optional[DiffKDDraws] = None) -> Dict[str, torch.Tensor]:
@@ -107,12 +124,13 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
             raise ValueError("pinned drop_scales, mask_noise or diffkd_draws need "
                              "grad_accum_steps == 1")
         params = state.parameters()
+        batch_generator = batch_generator or generator
         mb = labels.shape[0] // accum
         g_sum, m_sum = None, None
         for i in range(accum):
             part = slice(i * mb, (i + 1) * mb)
             g, m = micro_grads(
-                params, generator,
+                params, generator, batch_generator,
                 None if images_u8 is None else images_u8[part], labels[part],
                 None if images is None else images[part],
                 None if targets is None else targets[part], drop_scales,
@@ -120,6 +138,9 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
             g_sum = g if g_sum is None else g_sum + g
             m_sum = m if m_sum is None else {k: m_sum[k] + m[k] for k in m}
         grads = g_sum / accum
+        if dp.active:   # the global batch's gradient
+            with torch.profiler.record_function("gradient all-reduce"):
+                grads = dp.all_reduce(grads) / dp.world
         metrics = {k: v / accum for k, v in m_sum.items()}
         metrics["grad_norm"] = torch.linalg.vector_norm(grads)
         state.apply_gradients(grads=grads, tx=tx, ema_decay=ema_decay)

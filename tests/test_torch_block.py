@@ -255,7 +255,8 @@ def test_port_imports_no_jax():
                    "data/mixup.py", "data/sampler.py", "data/sources.py",
                    "data/pipeline.py", "data/loader.py", "obs/logger.py", "obs/meters.py",
                    "obs/wandb_adapter.py", "obs/profiling.py", "ckpt/checkpoint.py",
-                   "train/loop.py", "cli/train.py", "cli/eval.py", "cli/sweep.py"):
+                   "train/loop.py", "cli/train.py", "cli/eval.py", "cli/sweep.py",
+                   "parallel/distributed.py", "parallel/mesh.py"):
         assert os.path.join(root, "deltakd_tpu_torch", module) in files, module
     banned = ("jax", "jaxlib", "flax", "optax", "deltakd_tpu")
     for path in files:

@@ -64,19 +64,20 @@ def test_every_jax_option_exists_with_its_default():
     assert jf == pf
 
 
-def _recipe_argvs(tmp_path, script, tag):
-    """The argv of every training command a recipe runs: ``python`` on PATH is
-    a stub that records its arguments."""
+def _recipe_argvs(tmp_path, script, tag, args=(), launcher="python"):
+    """The argv of every training command a recipe runs with ``args``:
+    ``launcher`` (``python``, or ``torchrun`` for a card count) on PATH is a
+    stub that records its arguments."""
     stub_dir = tmp_path / "bin"
     stub_dir.mkdir(exist_ok=True)
     record = tmp_path / f"{tag}.args"
-    stub = stub_dir / "python"
+    stub = stub_dir / launcher
     stub.write_text('#!/bin/bash\nprintf "%s\\0" "$@" >> "$RECORD"\nprintf "\\n\\0" >> "$RECORD"\n')
     stub.chmod(0o755)
     env = {**os.environ, "PATH": f"{stub_dir}:{os.environ['PATH']}", "RECORD": str(record)}
     for var in ("DATA_PATH", "TEACHER_CKPT", "EXTRA_FLAGS", "CKPT"):
         env.pop(var, None)
-    subprocess.run(["bash", script], env=env, check=True, cwd=str(tmp_path))
+    subprocess.run(["bash", script, *args], env=env, check=True, cwd=str(tmp_path))
     calls, current = [], []
     for arg in record.read_bytes().split(b"\0")[:-1]:
         if arg == b"\n":
@@ -104,6 +105,8 @@ def test_recipe_copies_parse_to_the_same_config(tmp_path, recipe):
 
 
 def test_recipe_copies_differ_only_in_the_train_line():
+    """Every recipe is its JAX copy; ``_common.sh`` differs in its comments and
+    in the launch: the port's module, and torchrun when $1 gives a card count."""
     names = sorted(os.listdir(os.path.join(ROOT, "exp")))
     assert sorted(os.listdir(os.path.join(ROOT, "deltakd_tpu_torch", "exp"))) == names
     assert len(RECIPES) == 14
@@ -112,12 +115,32 @@ def test_recipe_copies_differ_only_in_the_train_line():
             a = f.read().splitlines()
         with open(os.path.join(ROOT, "deltakd_tpu_torch", "exp", name)) as f:
             b = f.read().splitlines()
-        differ = [(x, y) for x, y in zip(a, b) if x != y]
-        assert len(a) == len(b)
-        want = ([('TRAIN="python -m deltakd_tpu.cli.train"',
-                  'TRAIN="python -m deltakd_tpu_torch.cli.train"')]
-                if name == "_common.sh" else [])
-        assert differ == want, name
+        if name == "_common.sh":
+            a, b = ([x for x in lines if not x.startswith("#")] for lines in (a, b))
+            assert a[:-1] == b[:-2], name
+            assert a[-1] == 'TRAIN="python -m deltakd_tpu.cli.train"'
+            assert b[-2:] == [
+                'TRAIN="python -m deltakd_tpu_torch.cli.train"',
+                'if [[ -n "$1" ]]; then TRAIN="torchrun --standalone --nproc_per_node $1 '
+                '-m deltakd_tpu_torch.cli.train"; fi']
+        else:
+            assert a == b, name
+
+
+@pytest.mark.parametrize("recipe", RECIPES)
+def test_recipe_copies_launch_one_process_per_card(tmp_path, recipe):
+    """``bash <recipe> 2``: the JAX recipe runs one process over a data axis
+    of 2; the port's runs torchrun with 2 processes and the same flags."""
+    jcalls = _recipe_argvs(tmp_path, os.path.join(ROOT, "exp", recipe), "jax", ("2",))
+    pcalls = _recipe_argvs(tmp_path, os.path.join(ROOT, "deltakd_tpu_torch", "exp", recipe),
+                           "port", ("2",), launcher="torchrun")
+    assert len(jcalls) == len(pcalls) >= 1
+    for jargv, pargv in zip(jcalls, pcalls):
+        assert jargv[:2] == ["-m", "deltakd_tpu.cli.train"]
+        assert pargv[:5] == ["--standalone", "--nproc_per_node", "2", "-m",
+                             "deltakd_tpu_torch.cli.train"]
+        assert jargv[2:] == pargv[5:]
+        assert pconfig.parse_args(pargv[5:]).mesh_shape == (2,)
 
 
 @pytest.mark.parametrize("argv,raises", [
