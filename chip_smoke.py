@@ -10,6 +10,8 @@
     python3 chip_smoke.py --attention-checks # only flash_fwd's and flash_bwd's checks (phase 5a)
     python3 chip_smoke.py --sort-checks      # only the sort kernels' checks (phase 4a)
     python3 chip_smoke.py --dp-checks        # only the data-parallel step's checks (phase 12a)
+    python3 chip_smoke.py --fp32-checks      # only the fp32 forms' checks at B=8 (phase 13a, 13b)
+    python3 chip_smoke.py --fp32-checks --seeds 8  # ... the block and MLP checks on 8 draws each
 
 Phases, each of which fails the run:
   1. prints the card's name and power limit (nvidia-smi);
@@ -176,7 +178,35 @@ Phases, each of which fails the run:
      straight epochs (the same bits); 12c, `bash soft-deit-tiny.sh 1`
      (torchrun, NCCL at world 1) for 2 epochs against phase 11a's plain run
      (the same bits); each with its seconds, step times and peak memory
-     beside the card's name and power limit.
+     beside the card's name and power limit;
+ 13. the fp32 route (an fp32 TrainConfig takes the same kernels in their fp32
+     forms, every product 3xTF32 on TF32 tensor cores): 13a holds the fp32 block
+     forward and backward against their plain fp32 versions (TF32 off in
+     PyTorch's products and convolutions) at B=8 for D = 192 and 384, N =
+     198 and 197, with and without the feature output, drop-path scales 0
+     and 1/keep, then at the main-path shape [256, 198, D]: out - x, the
+     feature, dx and the 12 weight gradients, each error (the largest
+     |difference| over the largest |plain value|) at most F32_RATIO of the
+     bf16 kernel's against the same fp32 plain result on the same inputs (or
+     below F32_FLOOR), two runs the same bits; the fp32 MLP forward the same
+     way at D = 192, 384, 768, 1024 (M = 1584 and 1001) and at the teacher's
+     [50688, 384]; 13b the fp32 attention kernels the same way (o, lse, dq,
+     dk, dv), at [24, 198, 64], N
+     = 50, 65, 578 (4 and 1 heads) and 656 (the longest they take), at [24,
+     198, 64] on bf16-exact inputs, through the autograd Function on strided
+     views of a packed qkv, and at [1536, 198, 64] and [768, 198, 64]; the
+     largest fp32/bf16 ratio of each quantity (`[fp32 worst]`); 13c
+     the soft-KD train step at full width with dtype float32 through
+     load_teacher_student: exactly 12 + 12 fp32 block forwards and 12 fp32
+     block backwards a step and no bf16 launch, finite metrics, changed
+     parameters, its ms beside phase 6's bf16 soft step, peak memory; an eval
+     batch; both models' logits and the soft loss on 4 images against the
+     CPU port at fp32 on the same weights, closer than the bf16 card path on
+     the same weights; one unfused fp32 step (a model axis of 2: 24 + 12 fp32
+     attention launches and 12 of the teacher's fp32 MLP forward); 13d the fp32
+     forms' times at the main-path shapes beside their bounds (TF32 rate or
+     4-byte elements), their plain versions and one library call with TF32
+     allowed, each beside the card's name and power limit.
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
@@ -207,6 +237,18 @@ DMID_TOL = 1e-2       # additivity of one fp32 weight gradient of the pair backw
 #                       in its two cotangents (check_pair_cotangent_fp32)
 SLEEP_CYCLES = 200_000_000  # about 0.1 s of the card's clock (_timed)
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32
+F32_RATIO = 0.02      # phase 13: an fp32 kernel's error against its plain fp32 version
+#                       (TF32 off) at most this share of the bf16 kernel's against
+#                       the same result on the same inputs, each error the largest
+#                       |difference| over the largest |plain value|. Every fp32 product
+#                       is 3xTF32 (hi and lo TF32 parts, about fp32 accuracy): the
+#                       attention cores read about 0.001; one TF32 rounding of the
+#                       operands reads 0.06-0.25, one bf16 rounding inside a form 0.15
+#                       and more ...
+F32_FLOOR = 1e-6      # ... or below this share of the largest |plain value|
+F32_WORST = {}        # phase 13: the largest fp32/bf16 error ratio by (kernel, quantity)
+F32_STEPS = 4         # phase 13c: fp32 soft steps (the ms is the median of steps 1-3)
 PEAK_FP32_OPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SORT_MAIN = (B_MAIN, 196, 384)   # one WassKD layer: patch tokens x teacher width
@@ -266,7 +308,10 @@ RECIPE_STEPS = 8
 BLOCK_KERNELS = ("linear_kernel", "weight_grad_kernel", "attention_fwd_kernel",
                  "attention_bwd_kernel", "attn_delta_kernel", "ln_fwd_kernel",
                  "ln_bwd_kernel", "gfeat_kernel", "reduce_chunks_kernel",
-                 "reduce_partials_kernel", "transpose_kernel", "colsum_kernel")
+                 "reduce_partials_kernel", "transpose_kernel", "colsum_kernel",
+                 # the fp32 forms' own kernels
+                 "attention_fwd_f32_kernel", "attention_bwd_dkdv_f32_kernel",
+                 "attention_bwd_dq_f32_kernel", "tf32_copy_kernel")
 
 
 def _timed(fn, iters, warmup=3):
@@ -485,15 +530,16 @@ def _err(a, b):
     return (a - b).abs().max().item(), mx
 
 
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def _block_inputs(D, H, B, seed, device, n=N_TOK):
+def _block_inputs(D, H, B, seed, device, n=N_TOK, fp32=False):
     """A block's weights (LayerNorm params off their ones/zeros init), bf16
-    input and drop-path scales with some 0 and some 1/keep. The matmul weights
+    (with ``fp32``: fp32) input and drop-path scales with some 0 and some
+    1/keep. The matmul weights
     have std 1/sqrt(fan-in), and q, k twice that so the softmax is peaked:
     each branch is then O(1) next to x ~ N(0, 1), and a fault in either one
     moves `out` by far more than the tolerance."""
@@ -513,7 +559,8 @@ def _block_inputs(D, H, B, seed, device, n=N_TOK):
           r(F, D, sc=1 / math.sqrt(D)), r(F, sc=.02), r(D, F, sc=1 / math.sqrt(F)),
           r(D, sc=.02)]
     params = {n: w.to(device) for n, w in zip(PARAM_NAMES, ws)}
-    x = r(B, n, D, sc=1.0).to(device).bfloat16()
+    x = r(B, n, D, sc=1.0).to(device)
+    x = x if fp32 else x.bfloat16()
     keep = 0.9
     sa = (torch.rand(B, generator=g) < keep).float() / keep
     sm = (torch.rand(B, generator=g) < keep).float() / keep
@@ -1400,15 +1447,15 @@ def _hold_all(worst, key, tag, checks, same_bits):
         raise AssertionError(f"{key} {tag}: two runs gave different bits")
 
 
-def _attention_inputs(shape, seed):
+def _attention_inputs(shape, seed, fp32=False):
     """q, k of std 1.5 (scores of std about 2.2, a softmax far from flat), v
-    and the cotangent dO of std 1, bf16 on the card."""
+    and the cotangent dO of std 1, bf16 (with ``fp32``: fp32) on the card."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     q, k = (1.5 * torch.randn(shape, generator=g) for _ in range(2))
     v, do = (torch.randn(shape, generator=g) for _ in range(2))
-    return tuple(t.cuda().bfloat16() for t in (q, k, v, do))
+    return tuple(t.cuda() if fp32 else t.cuda().bfloat16() for t in (q, k, v, do))
 
 
 def _hold_attention(at, worst, shape, main=False):
@@ -1704,9 +1751,10 @@ def time_mlp_kernels(fb, fm):
     return rows
 
 
-def _block_launches(steps):
-    return {("fused_block_fwd", 384): 12 * steps, ("fused_block_fwd", 192): 12 * steps,
-            ("fused_block_bwd", 192): 12 * steps}
+def _block_launches(steps, form=""):
+    return {(f"fused_block_fwd{form}", 384): 12 * steps,
+            (f"fused_block_fwd{form}", 192): 12 * steps,
+            (f"fused_block_bwd{form}", 192): 12 * steps}
 
 
 def _paired_launches(steps):
@@ -1714,11 +1762,11 @@ def _paired_launches(steps):
             ("fused_pair_bwd", 192): 6 * steps}
 
 
-def _unfused_launches(steps):
-    return {("flash_fwd", ATTN_MAIN["teacher"]): 12 * steps,
-            ("flash_fwd", ATTN_MAIN["student"]): 12 * steps,
-            ("flash_bwd", ATTN_MAIN["student"]): 12 * steps,
-            ("fused_mlp_fwd", MLP_MAIN["teacher"]): 12 * steps}
+def _unfused_launches(steps, form=""):
+    return {(f"flash_fwd{form}", ATTN_MAIN["teacher"]): 12 * steps,
+            (f"flash_fwd{form}", ATTN_MAIN["student"]): 12 * steps,
+            (f"flash_bwd{form}", ATTN_MAIN["student"]): 12 * steps,
+            (f"fused_mlp_fwd{form}", MLP_MAIN["teacher"]): 12 * steps}
 
 
 def _reset_launches(mods):
@@ -1762,8 +1810,10 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False,
     the teacher from that file); otherwise aa='', no colour jitter and a
     random teacher. ``options`` (TrainConfig fields) override the config: a
     recipe's student and distillation options; ``epochs`` gives each step's
-    epoch (0 without). Returns (launches, step ms, peak bytes, what the later
-    phases need)."""
+    epoch (0 without). The launches the steps must make follow the path and
+    the config's dtype (float32: the kernels' fp32 forms; a model axis > 1
+    in ``mesh_shape``: the unfused route). Returns (launches, step ms, peak
+    bytes, what the later phases need)."""
     import numpy as np
     import torch
 
@@ -1833,8 +1883,12 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False,
         profile_parts(f"{name} step", lambda: step(state, images, labels, gen), UNFUSED_PARTS)
     elif kd_type == "soft" and not paired:
         profile_parts(f"{name} step", lambda: step(state, images, labels, gen), STEP_PARTS)
-    expect = (_unfused_launches if unfused else _paired_launches if paired
-              else _block_launches)(steps)
+    form = "_f32" if cfg.dtype == "float32" else ""
+    mesh = cfg.mesh_shape
+    if unfused or (mesh and len(mesh) > 1 and int(mesh[1]) > 1):
+        expect = _unfused_launches(steps, form)
+    else:
+        expect = _paired_launches(steps) if paired else _block_launches(steps, form)
     if kd_type == "wasskd" and cfg.wasskd_type == "l1":
         expect.update(sorted_l1_fwd=3 * steps, sorted_l1_bwd=3 * steps)
     if launches != expect:
@@ -3291,6 +3345,370 @@ def run_data_parallel(mods, smi, tmp=None, data_env=None, state_11a=None, soft_a
 # (``--forward-checks``, ``--backward-checks``, ``--mlp-checks``,
 # ``--attention-checks``, ``--sort-checks`` or ``--dp-checks``) must then
 # fail (exit 1).
+# ---------------------------------------------------------------------------
+# Phase 13: the fp32 route
+# ---------------------------------------------------------------------------
+
+def _hold_f32(worst, key, tag, checks, same_bits, x=None):
+    """Phase 13: fails unless each (name, fp32 kernel output, bf16 kernel
+    output, fp32 plain output) has its fp32 error at most F32_RATIO of the
+    bf16 error, or below F32_FLOOR, each error the largest |difference| over
+    the largest |plain value| (`out` as out - x, with x the fp32 input), and
+    a second run of the fp32 kernel gave the same bits. Keeps the largest
+    abs error of the fp32 kernel in worst[key] and the largest ratio in
+    F32_WORST."""
+    name0 = key if isinstance(key, str) else key[0]
+    for name, a32, a16, ref in checks:
+        if name == "out":
+            name, (a32, a16, ref) = "out - x", (t.float() - x.float() for t in (a32, a16, ref))
+        e32, mx = _err(a32, ref)
+        e16, _ = _err(a16, ref)
+        r32, r16 = e32 / mx, e16 / mx
+        ratio = r32 / max(r16, 1e-30)
+        ok = r32 <= F32_RATIO * r16 or r32 <= F32_FLOOR
+        print(f"[fp32] {name0} {tag} {name}: fp32 err {r32:.3e}, bf16 err {r16:.3e} of max "
+              f"|plain| {mx:.3e} (fp32/bf16 {ratio:.4f}, limit {F32_RATIO}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name0} {tag} {name}: the fp32 form is not within "
+                                 f"{F32_RATIO} of the bf16 form's error")
+        worst[key] = max(worst.get(key, 0.0), e32)
+        if r32 > F32_FLOOR:
+            F32_WORST[(name0, name)] = max(F32_WORST.get((name0, name), (0.0, "")), (ratio, tag))
+    if not same_bits:
+        raise AssertionError(f"{name0} {tag}: two runs gave different bits")
+
+
+def _hold_block_f32(fb, worst, D, H, B, n, need_feat, seed, main=False, backward=True):
+    """The fp32 block forward (and backward) against its plain fp32 version,
+    beside the bf16 kernels on the same inputs rounded to bf16."""
+    import torch
+
+    p, x, sa, sm = _block_inputs(D, H, B, seed, "cuda", n=n, fp32=True)
+    x16 = x.bfloat16()
+    kw = dict(num_heads=H, scale_attn=sa, scale_mlp=sm)
+    tag = f"B={B} N={n} feat={need_feat}"
+    out, feat = fb.kernel_block_fwd(x, p, need_features=need_feat, **kw)
+    again = fb.kernel_block_fwd(x, p, need_features=need_feat, **kw)
+    out16, feat16 = fb.kernel_block_fwd(x16, p, need_features=True, **kw)
+    r_out, r_feat = fb.reference_vit_block(x, p, **kw)
+    torch.cuda.synchronize()
+    _hold_f32(worst, ("fused_block_fwd_f32", D) if main else "fused_block_fwd_f32", tag,
+              [("out", out, out16, r_out)] + ([("feat", feat, feat16, r_feat)] if need_feat
+                                              else []),
+              torch.equal(out, again[0]) and (not need_feat or torch.equal(feat, again[1])), x)
+    if not backward:
+        return
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    g_out = torch.randn(x.shape, generator=g, device="cuda")
+    g_feat = torch.randn(x.shape, generator=g, device="cuda") if need_feat else None
+    dx, dws = fb.kernel_block_bwd(x, p, g_out, g_feat, **kw)
+    dx2, dws2 = fb.kernel_block_bwd(x, p, g_out, g_feat, **kw)
+    dx16, dws16 = fb.kernel_block_bwd(x16, p, g_out, g_feat, **kw)
+    r_dx, r_dws = fb.reference_vit_block_bwd(x, p, g_out, g_feat, **kw)
+    torch.cuda.synchronize()
+    _hold_f32(worst, ("fused_block_bwd_f32", D) if main else "fused_block_bwd_f32", tag,
+              [("dx", dx, dx16, r_dx)] + [("d" + k, dws[k], dws16[k], r_dws[k])
+                                          for k in fb.PARAM_NAMES],
+              torch.equal(dx, dx2) and all(torch.equal(dws[k], dws2[k]) for k in fb.PARAM_NAMES))
+
+
+def check_fp32_blocks(fb, worst, seeds=1):
+    """Phase 13a: the fp32 block kernels at B=8: D = 192 and 384, N = 198 and
+    197, with and without the feature output; each case on ``seeds`` input
+    draws."""
+    for s in range(seeds):
+        for D, H in ((192, 3), (384, 6)):
+            for n in (N_TOK, N_TOK - 1):
+                for need_feat in (False, True):
+                    _hold_block_f32(fb, worst, D, H, B_CHECK, n, need_feat,
+                                    13 * D + n + need_feat + 1000 * s)
+
+
+def _hold_mlp_f32(fm, worst, M, D, seed, main=False):
+    """The fp32 MLP forward against its plain fp32 version at [M, D] (fp32 x
+    of std 1, weights of std 1/sqrt(fan-in)), beside the bf16 kernel on the
+    same inputs (x rounded to bf16, the fp32 parameters as the model passes
+    them)."""
+    import torch
+
+    x, w1, b1, w2, b2, _ = _mlp_inputs(M, D, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(M, D, generator=g).cuda()
+    out = fm.kernel_fused_mlp(x, w1, b1, w2, b2)
+    again = fm.kernel_fused_mlp(x, w1, b1, w2, b2)
+    out16 = fm.kernel_fused_mlp(x.bfloat16(), w1, b1, w2, b2)
+    ref = fm._plain_fwd(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    _hold_f32(worst, ("fused_mlp_fwd_f32", D) if main else "fused_mlp_fwd_f32",
+              f"M={M} D={D}", [("o", out, out16, ref)], torch.equal(out, again))
+
+
+def check_fp32_mlp(fm, worst, seeds=1):
+    """Phase 13a: the fp32 MLP forward at every width of the model zoo at 8
+    images' rows and an odd M, each on ``seeds`` input draws."""
+    for s in range(seeds):
+        for D in MLP_WIDTHS:
+            for M in (B_CHECK * N_TOK, 1001):
+                _hold_mlp_f32(fm, worst, M, D, M + D + 1000 * s)
+
+
+def print_fp32_ratios():
+    """The largest fp32/bf16 error ratio of each (kernel, quantity) over the
+    phase's checks, with the case that read it, beside its limit."""
+    for (kernel, name), (ratio, tag) in sorted(F32_WORST.items()):
+        print(f"[fp32 worst] {kernel} {name}: fp32/bf16 {ratio:.4f} ({tag}), limit {F32_RATIO}, "
+              f"{ratio / F32_RATIO:.2f} of it")
+
+
+def _hold_attention_f32(at, worst, shape, main=False, exact=False):
+    """Both fp32 attention kernels against their plain fp32 versions at one
+    shape, beside the bf16 kernels on the same inputs rounded to bf16. With
+    ``exact`` the inputs are bf16 values, so that rounding them adds nothing
+    to either form's error and what is left is the kernels' own roundings
+    (P, dS and the outputs in the bf16 form): a bf16 rounding inside the
+    fp32 form then shows (lse, an exact fp32 sum on both sides, is left
+    out)."""
+    import torch
+
+    q, k, v, do = _attention_inputs(shape, shape[0] + shape[1] + 1, fp32=True)
+    if exact:
+        q, k, v, do = (t.bfloat16().float() for t in (q, k, v, do))
+    q16, k16, v16, do16 = (t.bfloat16() for t in (q, k, v, do))
+    o, lse = at.kernel_flash_fwd(q, k, v)
+    o2, lse2 = at.kernel_flash_fwd(q, k, v)
+    o16, lse16 = at.kernel_flash_fwd(q16, k16, v16)
+    r_o, r_lse = at._plain_fwd(q, k, v)
+    grads = at.kernel_flash_bwd(q, k, v, o, lse, do)
+    grads2 = at.kernel_flash_bwd(q, k, v, o, lse, do)
+    grads16 = at.kernel_flash_bwd(q16, k16, v16, o16, lse16, do16)
+    r_grads = at._plain_bwd(q, k, v, r_o, r_lse, do)
+    torch.cuda.synchronize()
+    tag = f"{tuple(shape)}" + (" bf16-exact inputs" if exact else "")
+    _hold_f32(worst, ("flash_fwd_f32", shape[0]) if main else "flash_fwd_f32", tag,
+              [("o", o, o16, r_o)] + ([] if exact else [("lse", lse, lse16, r_lse)]),
+              torch.equal(o, o2) and torch.equal(lse, lse2))
+    _hold_f32(worst, ("flash_bwd_f32", shape[0]) if main else "flash_bwd_f32", tag,
+              [(n, *t) for n, t in zip(("dq", "dk", "dv"), zip(grads, grads16, r_grads))],
+              all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+
+
+def _hold_attention_views_f32(at, worst, B, H, N):
+    """flash_attention's fp32 gradient through its autograd Function on
+    strided views of a packed fp32 [B, N, 3, H, 64] qkv against autograd
+    through the plain reference_attention at fp32, beside the bf16 route on
+    the same views rounded to bf16: one launch of each fp32 kernel."""
+    import torch
+
+    g = torch.Generator().manual_seed(N + H + 1)
+    qkv = (1.5 * torch.randn(B, N, 3, H, HEAD_DIM, generator=g)).cuda()
+    do = torch.randn(B, H, N, HEAD_DIM, generator=g).cuda()
+
+    def grad(fn, packed):
+        leaf = packed.clone().requires_grad_(True)
+        views = [leaf[:, :, i].transpose(1, 2) for i in range(3)]
+        return torch.autograd.grad(fn(*views), [leaf], do.to(packed.dtype))[0]
+
+    at.reset_launches()
+    g1 = grad(at.flash_attention, qkv)
+    launches = dict(at.LAUNCHES)
+    g2 = grad(at.flash_attention, qkv)
+    g16 = grad(at.flash_attention, qkv.bfloat16())
+    ref = grad(at.reference_attention, qkv)
+    torch.cuda.synchronize()
+    if launches != {("flash_fwd_f32", B * H): 1, ("flash_bwd_f32", B * H): 1}:
+        raise AssertionError(f"fp32 attention on views [{B},{N},3,{H},64]: launches {launches}")
+    _hold_f32(worst, "flash_bwd_f32", f"views [{B},{N},3,{H},{HEAD_DIM}]",
+              [("dqkv", g1, g16, ref)], torch.equal(g1, g2))
+
+
+def check_fp32_attention(at, worst):
+    """Phase 13b: the fp32 attention kernels at [24, 198, 64], N = 50, 65, 578
+    (also for one head) and 656 (the longest they take), at [24, 198, 64] on
+    bf16-exact inputs, and through the autograd Function on strided views of
+    a packed qkv."""
+    for shape in ((B_CHECK * 3, N_TOK, HEAD_DIM), (4, 50, HEAD_DIM), (4, 65, HEAD_DIM),
+                  (4, 578, HEAD_DIM), (1, 578, HEAD_DIM), (4, 656, HEAD_DIM)):
+        _hold_attention_f32(at, worst, shape)
+    _hold_attention_f32(at, worst, (B_CHECK * 3, N_TOK, HEAD_DIM), exact=True)
+    _hold_attention_views_f32(at, worst, 2, 3, N_TOK)
+
+
+def time_fp32_kernels(fb, at, fm, worst, smi):
+    """Phases 13a-b at the main-path shapes, then 13d: each fp32 form held
+    there, then its ms, its plain version's (fp32, TF32 off) and one library
+    call's with TF32 allowed (the block from PyTorch calls; SDPA; F.linear,
+    F.gelu, F.linear), beside the bound: TF32 operations over 495 TFLOP/s or
+    4-byte elements over the memory rate, whichever is larger."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    _hold_block_f32(fb, worst, 384, 6, B_MAIN, N_TOK, True, 7, main=True, backward=False)
+    _hold_block_f32(fb, worst, 192, 3, B_MAIN, N_TOK, True, 7, main=True)
+    for bh in ATTN_MAIN.values():
+        _hold_attention_f32(at, worst, (bh, N_TOK, HEAD_DIM), main=True)
+    _hold_mlp_f32(fm, worst, M_MAIN, MLP_MAIN["teacher"], 5, main=True)
+
+    def library(fn):
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    B, N = B_MAIN, N_TOK
+    for kernel, D, H in (("fused_block_fwd_f32", 384, 6), ("fused_block_fwd_f32", 192, 3),
+                         ("fused_block_bwd_f32", 192, 3)):
+        p, x, sa, sm = _block_inputs(D, H, B, 7, "cuda", fp32=True)
+        kw = dict(num_heads=H, scale_attn=sa, scale_mlp=sm)
+        g_out = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(D),
+                            device="cuda")
+        lib_w = [t.detach().requires_grad_(kernel == "fused_block_bwd_f32")
+                 for t in fb.block_params(p)]
+        x_lib = x.detach().requires_grad_(kernel == "fused_block_bwd_f32")
+        flops = B * (24 * N * D * D + 4 * N * N * D)
+        weight_bytes = 12 * D * D * 4
+        if kernel == "fused_block_fwd_f32":
+            ms = _timed(lambda: fb.kernel_block_fwd(x, p, need_features=False, **kw), 10)
+            plain_ms = _timed(lambda: fb.reference_vit_block(x, p, **kw), 3)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    _library_block(x_lib, lib_w, H, 1e-6, sa, sm)
+
+            library_ms = library(lambda: _timed(lib_fwd, 20))
+            nbytes = 2 * B * N * D * 4 + weight_bytes
+        else:
+            ms = _timed(lambda: fb.kernel_block_bwd(x, p, g_out, None, **kw), 10)
+            plain_ms = _timed(lambda: fb.reference_vit_block_bwd(x, p, g_out, None, **kw), 3)
+
+            def lib_fwd_graph():
+                _library_block(x_lib, lib_w, H, 1e-6, sa, sm)
+
+            def lib_fwd_bwd():
+                _library_block(x_lib, lib_w, H, 1e-6, sa, sm).backward(g_out)
+
+            library_ms = library(lambda: _timed(lib_fwd_bwd, 20) - _timed(lib_fwd_graph, 20))
+            flops = 3 * flops - 2 * B * N * D * 4 * D
+            nbytes = 3 * B * N * D * 4 + weight_bytes + 12 * D * D * 4
+        rows[(kernel, D)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                 **_bound(flops, nbytes, PEAK_TF32_FLOPS))
+    for kernel, who in (("flash_fwd_f32", "teacher"), ("flash_fwd_f32", "student"),
+                        ("flash_bwd_f32", "student")):
+        bh = ATTN_MAIN[who]
+        q, k, v, do = _attention_inputs((bh, N, HEAD_DIM), 3, fp32=True)
+        o, lse = at.kernel_flash_fwd(q, k, v)
+        q4, k4, v4, do4 = (t.reshape(B, -1, N, HEAD_DIM) for t in (q, k, v, do))
+        tensor_bytes, product = bh * N * HEAD_DIM * 4, 2 * bh * N * N * HEAD_DIM
+        if kernel == "flash_fwd_f32":
+            ms = _timed(lambda: at.kernel_flash_fwd(q, k, v), 20)
+            plain_ms = _timed(lambda: at._plain_fwd(q, k, v), 5)
+
+            def lib_attn():
+                with torch.no_grad():
+                    F.scaled_dot_product_attention(q4, k4, v4)
+
+            library_ms = library(lambda: _timed(lib_attn, 20))
+            bound = _bound(2 * product, 4 * tensor_bytes + bh * N * 4, PEAK_TF32_FLOPS)
+        else:
+            ms = _timed(lambda: at.kernel_flash_bwd(q, k, v, o, lse, do), 20)
+            plain_ms = _timed(lambda: at._plain_bwd(q, k, v, o, lse, do), 5)
+            leaves = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(*leaves)
+
+            def lib_fwd_bwd():
+                torch.autograd.grad(lib_fwd(), leaves, do4)
+
+            library_ms = library(lambda: _timed(lib_fwd_bwd, 20) - _timed(lib_fwd, 20))
+            bound = _bound(5 * product, 8 * tensor_bytes + bh * N * 4, PEAK_TF32_FLOPS)
+        rows[(kernel, bh)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+    D = MLP_MAIN["teacher"]
+    x, w1, b1, w2, b2, _ = _mlp_inputs(M_MAIN, D, 5)
+    x = x.float()
+
+    def lib_mlp():
+        with torch.no_grad():
+            F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
+
+    rows[("fused_mlp_fwd_f32", D)] = dict(
+        ms=_timed(lambda: fm.kernel_fused_mlp(x, w1, b1, w2, b2), 10),
+        plain_ms=_timed(lambda: fm._plain_fwd(x, w1, b1, w2, b2), 3),
+        library_ms=library(lambda: _timed(lib_mlp, 20)),
+        **_bound(4 * M_MAIN * D * 4 * D, (2 * M_MAIN * D + 8 * D * D + 5 * D) * 4,
+                 PEAK_TF32_FLOPS))
+    for (kernel, n), row in rows.items():
+        what = f"D={n}" if kernel.startswith("fused") else f"[{n},{N},{HEAD_DIM}]"
+        print(f"[time fp32] {kernel} {what} B={B}: {row['ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, library (TF32 allowed) {row['library_ms']:.3f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); {smi}")
+    return rows
+
+
+def check_fp32_against_cpu(teacher, student, aug, images, tau=3.0):
+    """Phase 13c: both fp32 models' logits and the soft-KD loss on 4 images,
+    the card against the CPU port at fp32 on the same weights; the bf16 card
+    path on the same weights (the models' compute dtype set to bf16) must be
+    further from the CPU than the fp32 card path in each."""
+    import torch
+
+    from deltakd_tpu_torch.data.augment import eval_transform
+    from deltakd_tpu_torch.kd.losses import soft_kd_loss
+
+    x = eval_transform(images[:4], aug).float()
+
+    def run(t, s, xx):
+        with torch.no_grad():
+            t_out, s_out = t(xx, train=False), s(xx, train=False)
+            loss = soft_kd_loss(s_out.logits_dist, t_out.logits, tau)
+        return {"teacher logits": t_out.logits.float().cpu(),
+                "student logits": s_out.logits.float().cpu(), "soft loss": loss.float().cpu()}
+
+    on_cpu = run(copy.deepcopy(teacher).cpu(), copy.deepcopy(student).cpu(), x.cpu())
+    on_card = run(teacher, student, x)
+    t16, s16 = copy.copy(teacher), copy.copy(student)
+    t16.dtype = s16.dtype = torch.bfloat16
+    on_card16 = run(t16, s16, x)
+    for what, ref in on_cpu.items():
+        e32, mx = _err(on_card[what], ref)
+        e16, _ = _err(on_card16[what], ref)
+        ok = e32 < e16 and e32 <= LOGIT_TOL * max(mx, 1e-3)
+        print(f"[fp32 reference] {what}: fp32 card vs CPU fp32 max_abs_err {e32:.3e}, bf16 card "
+              f"{e16:.3e}, max |ref| {mx:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fp32 {what}: the card's fp32 path is not closer to the CPU "
+                                 f"than its bf16 path")
+
+
+def run_fp32_route(mods, soft_bf16_ms, smi):
+    """Phase 13c: the fp32 soft-KD step at full width through
+    load_teacher_student (dtype float32), its eval batch and its agreement
+    with the CPU port, then one unfused fp32 step (a model axis of 2).
+    Returns the launches by path and the fused step's ms."""
+    import torch
+
+    by_path = {}
+    opts = dict(dtype="float32")
+    by_path["fp32 soft"], ms, peak, kept = run_train_path(
+        mods, "soft", F32_STEPS, name="fp32 soft", options=opts)
+    teacher, student, _, aug, _, images, labels = kept
+    by_path["fp32 eval"] = run_eval(mods, student, aug, images, labels,
+                                    {("fused_block_fwd_f32", 192): 12}, name="fp32 eval")
+    check_fp32_against_cpu(teacher, student, aug, images)
+    del teacher, student, kept
+    torch.cuda.empty_cache()
+    by_path["fp32 unfused soft"], unfused_ms, unfused_peak, kept = run_train_path(
+        mods, "soft", 2, name="fp32 unfused soft", options=dict(opts, mesh_shape=(1, 2)))
+    del kept
+    torch.cuda.empty_cache()
+    print(f"[fp32] soft step {ms:.2f} ms ({B_MAIN / ms * 1e3:.1f} images/s), peak allocated "
+          f"{peak / 2**30:.3f} GiB, beside phase 6's bf16 soft step {soft_bf16_ms:.2f} ms; "
+          f"unfused fp32 step {unfused_ms:.2f} ms, peak {unfused_peak / 2**30:.3f} GiB; {smi}")
+    return by_path, ms
+
+
 FAULTS = (
     ("the online rescale left out", "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
      (("l[r] *= alpha[r];", "l[r] *= 1.0f;"),
@@ -3357,6 +3775,34 @@ FAULTS = (
      (("const uint32_t o = __shfl_xor_sync(0xffffffffu, w[i], J / R);",
        "const uint32_t o = __shfl_xor_sync(0xffffffffu, w[i], J == 8 * R ? J / R ^ 1 : J / R);"),),
      "--sort-checks"),
+    # the fp32 forms (phase 13a, 13b)
+    ("one operand of an fp32 product rounded to bf16 (the attention forward's P)",
+     "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
+     (("      tf32_a_fragments(pa[kk], pl[kk], e);",
+       "      tf32_a_fragments(pa[kk], pl[kk], {__bfloat162float(__float2bfloat16(e[0])), "
+       "__bfloat162float(__float2bfloat16(e[1])), __bfloat162float(__float2bfloat16(e[2])), "
+       "__bfloat162float(__float2bfloat16(e[3]))});"),), "--fp32-checks"),
+    ("an fp32 intermediate stored as bf16 (the GEMM epilogue's product operands)",
+     "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
+     (("void store2_lp(float* p, float a, float b) { store2(p, a, b); }",
+       "void store2_lp(float* p, float a, float b) { store2(p, "
+       "__bfloat162float(__float2bfloat16(a)), __bfloat162float(__float2bfloat16(b))); }"),),
+     "--fp32-checks"),
+    # the lo part of the GEMM's A tiles left out: 2xTF32, a single TF32
+    # rounding of every activation operand
+    ("the lo part of one operand of the fp32 GEMM left out",
+     "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
+     (("    wgmma_ss_tf32(d, da_lo, db, acc);\n    wgmma_ss_tf32(d, da, db_lo, 1);",
+       "    wgmma_ss_tf32(d, da, db_lo, acc);"),), "--fp32-checks"),
+    # the columns of every transposed tile in their natural order, where the
+    # A fragments from registers want them in tf32_key_slot order
+    ("a wrong transpose of a tile (V^T, K^T, Q^T, dO^T)",
+     "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
+     (("    const int col = (r & ~7) | tf32_key_slot(r & 7);", "    const int col = r;"),),
+     "--fp32-checks"),
+    ("GELU left out of the fp32 MLP forward's fc1", "deltakd_tpu_torch/ops/csrc/fused_mlp.cu",
+     (("f1.bias = (const float*)b1_; f1.gelu = 1;", "f1.bias = (const float*)b1_; f1.gelu = 0;"),),
+     "--fp32-checks"),
     # data parallelism (phase 12a): a Python edit of the port, not a kernel
     ("the gradient all-reduce left out", "deltakd_tpu_torch/train/step.py",
      (("grads = dp.all_reduce(grads) / dp.world", "grads = grads"),), "--dp-checks"),
@@ -3429,6 +3875,7 @@ def main() -> int:
     attention_checks = "--attention-checks" in sys.argv[1:]
     sort_checks = "--sort-checks" in sys.argv[1:]
     dp_checks = "--dp-checks" in sys.argv[1:]
+    fp32_checks = "--fp32-checks" in sys.argv[1:]
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deltakd_tpu_torch.ops import _build
@@ -3452,6 +3899,8 @@ def main() -> int:
                         if backward_checks else ["fused_mlp"] if mlp_checks else
                         ["attention"] if attention_checks else ["sort"] if sort_checks
                         else ["fused_block_fwd", "fused_block_bwd"] if dp_checks
+                        else ["fused_block_fwd", "fused_block_bwd", "attention", "fused_mlp"]
+                        if fp32_checks
                         else _build.SOURCES)
     print(f"[build] sources {list(_build.SOURCES)}, compiled {sorted(logs)} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -3480,6 +3929,13 @@ def main() -> int:
         return 0
     if dp_checks:        # a planted-fault copy: phase 12a only
         run_data_parallel(mods, smi)
+        return 0
+    if fp32_checks:      # a planted-fault copy: the fp32 forms' checks at B=8 only
+        seeds = int(sys.argv[sys.argv.index("--seeds") + 1]) if "--seeds" in sys.argv else 1
+        check_fp32_blocks(fb, worst, seeds)
+        check_fp32_mlp(fm, worst, seeds)
+        check_fp32_attention(at, worst)
+        print_fp32_ratios()
         return 0
     check_kernels(fb, worst)
     check_block_forward_shapes(fb, worst)
@@ -3593,6 +4049,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_data_parallel(mods, smi, tmp, data_env=runtime["env"], state_11a=runtime["state_11a"],
                       soft_argv=runtime["soft_argv"])
+
+    # the fp32 route: the kernels' fp32 forms, then an fp32 config's step
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_fp32_blocks(fb, worst)
+    check_fp32_mlp(fm, worst)
+    check_fp32_attention(at, worst)
+    timing.update(time_fp32_kernels(fb, at, fm, worst, smi))
+    print_fp32_ratios()
+    torch.cuda.empty_cache()
+    fp32_paths, step_ms["fp32 soft"] = run_fp32_route(mods, step_ms["soft"], smi)
+    by_path.update(fp32_paths)
+    print(f"[fp32] phase 13 took {time.perf_counter() - t0:.1f} s")
     print("[slice] step ms by path: "
           + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
 
@@ -3606,7 +4075,14 @@ def main() -> int:
            "sorted_l1_bwd": (csrc + "sort.cu", "deltakd_tpu/ops/sort.py:338"),
            "flash_fwd": (csrc + "attention.cu", "deltakd_tpu/ops/attention.py:46"),
            "flash_bwd": (csrc + "attention.cu", "deltakd_tpu/ops/attention.py:62"),
+           "fused_block_fwd_f32": (csrc + "fused_block_fwd.cu",
+                                   "deltakd_tpu/ops/fused_block.py:313"),
+           "fused_block_bwd_f32": (csrc + "fused_block_bwd.cu",
+                                   "deltakd_tpu/ops/fused_block.py:478"),
+           "flash_fwd_f32": (csrc + "attention.cu", "deltakd_tpu/ops/attention.py:46"),
+           "flash_bwd_f32": (csrc + "attention.cu", "deltakd_tpu/ops/attention.py:62"),
            "fused_mlp_fwd": (csrc + "fused_mlp.cu", "deltakd_tpu/ops/fused_mlp.py:50"),
+           "fused_mlp_fwd_f32": (csrc + "fused_mlp.cu", "deltakd_tpu/ops/fused_mlp.py:50"),
            "fused_mlp_bwd": (csrc + "fused_mlp.cu", "deltakd_tpu/ops/fused_mlp.py:126")}
     teacher_keys = (384, ATTN_MAIN["teacher"])
     kernels = []

@@ -71,23 +71,27 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
 
     ``attention_fn`` defaults to ``best_attention_fn(config.flash_attention)``;
     None turns every kernel off (PyTorch's own ops throughout), as in the JAX
-    factory. A config whose ``dtype`` is not bfloat16 turns them off too: the
-    kernels take bf16 operands only (each wrapper raises on an fp32 CUDA
-    tensor, and none converts), so an fp32 config runs both models on
-    PyTorch's own ops, exactly as ``attention_fn=None`` does. The JAX
-    package runs its kernels at fp32 as well; the port does not yet. With
-    kernels on, both models run the fused block, unless
-    ``config.mesh_shape`` has a model axis > 1: the fused block consumes whole
-    weight matrices, so tensor parallelism takes the unfused path, the student
-    with ``attention_fn`` and the forward-only teacher with ``attention_fn``
-    and ``fused_mlp``. In the port ``mesh_shape`` so far only selects that
-    path; nothing is placed over a model axis yet.
+    factory. The route is the JAX factory's, whatever ``config.dtype`` is
+    (its kernels run at the input's dtype; here bf16 takes the kernels' bf16
+    forms and float32 their fp32 forms on TF32 tensor cores):
+
+    * With kernels on and no model axis, both models run the fused block
+      (``fused_vit_block``).
+    * With a model axis > 1 in ``config.mesh_shape``, the unfused path: the
+      fused block consumes whole weight matrices, so tensor parallelism runs
+      the student with ``attention_fn`` and the forward-only teacher with
+      ``attention_fn`` and ``fused_mlp`` (at float32 the MLP forward's fp32
+      form). In the port ``mesh_shape`` so far only selects that path;
+      nothing is placed over a model axis yet.
 
     ``block_pair`` stands for the JAX factory's environment variable
     ``DELTAKD_PAIR=1``: with kernels on and no model axis, the student (never
     the forward-only teacher) runs two consecutive blocks per call through
     ``fused_vit_block_pair``. Evaluate it on single blocks:
-    ``student.view(block_pair_fn=None, collect_features=False)``."""
+    ``student.view(block_pair_fn=None, collect_features=False)``. The pair
+    kernels take bf16 only, so ``block_pair`` with a float32 config raises
+    ``NotImplementedError`` (ROADMAP.md, Queue 1 item 6) rather than give the
+    student single blocks."""
     if (not config.teacher_checkpoint and config.distillation_type != "none"
             and not config.allow_random_teacher):
         raise ValueError(
@@ -100,13 +104,16 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
 
     if attention_fn is _FROM_CONFIG:
         attention_fn = best_attention_fn(config.flash_attention)
-    if dtype != torch.bfloat16:
-        attention_fn = None
     kernels_on = attention_fn is not None
     mesh_shape = config.mesh_shape
     model_axis = int(mesh_shape[1]) if mesh_shape and len(mesh_shape) > 1 else 1
     block_fn = fused_vit_block if kernels_on and model_axis == 1 else None
-    block_pair_fn = best_block_pair_fn(kernels_on and model_axis == 1 and block_pair)
+    pair_on = kernels_on and model_axis == 1 and block_pair
+    if pair_on and dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"block_pair with dtype {config.dtype}: the block-pair kernels take bf16 only; "
+            f"their fp32 form is not ported yet (ROADMAP.md, Queue 1 item 6)")
+    block_pair_fn = best_block_pair_fn(pair_on)
 
     def needed(name):
         depth = get_model_config(name, num_classes=num_classes).depth

@@ -15,3 +15,9 @@ def on_card(t: torch.Tensor, name: str) -> bool:
 def current_stream(t: torch.Tensor) -> int:
     """The handle of the current CUDA stream of ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def kernel_entry(name: str, t: torch.Tensor) -> str:
+    """The entry point of kernel ``name`` for ``t``'s dtype: its fp32 form is
+    ``<name>_f32``."""
+    return f"{name}_f32" if t.dtype == torch.float32 else name

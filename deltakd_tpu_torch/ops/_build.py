@@ -28,12 +28,16 @@ def _block_signatures(name: str) -> dict:
 # The C interface of each source: function -> (argument types, result type).
 # Every pointer and the stream are c_void_p, or ctypes would cut them to 32 bits.
 SIGNATURES = {
-    # the forward, and one of its linear products alone (gemm_sm90.cuh)
+    # the forward in bf16 and fp32, and one of its linear products alone
+    # (gemm_sm90.cuh)
     "fused_block_fwd": {**_block_signatures("fused_block_fwd"),
+                        **_block_signatures("fused_block_fwd_f32"),
                         "dk_linear_sm90": ([ctypes.POINTER(_PTR)] + [_INT] * 4
                                            + [ctypes.c_float, _INT, _INT, _PTR], _INT)},
-    # the backward, and one of its weight gradients alone (gemm_sm90.cuh)
+    # the backward in bf16 and fp32, and one of its weight gradients alone
+    # (gemm_sm90.cuh)
     "fused_block_bwd": {**_block_signatures("fused_block_bwd"),
+                        **_block_signatures("fused_block_bwd_f32"),
                         "dk_weight_grad_sm90_workspace": ([_INT] * 3, ctypes.c_size_t),
                         "dk_weight_grad_sm90": ([_PTR] * 2 + [_INT] * 3 + [_PTR] * 3, _INT)},
     "fused_block_pair": {**_block_signatures("fused_pair_fwd"),
@@ -44,14 +48,19 @@ SIGNATURES = {
         "dk_sort_sl1_fwd": ([_PTR] * 4 + [_INT] * 4 + [_PTR], _INT),
         "dk_sort_sl1_bwd": ([_PTR, _PTR, _PTR, _I64, _INT, _PTR], _INT),
     },
-    # tensors, their (batch, head, row) strides, outputs, B, H, N, stream
+    # tensors, their (batch, head, row) strides, outputs, B, H, N, stream;
+    # the _f32 forms take the same arguments
     "attention": {
         "dk_flash_max_n": ([], _INT),
-        "dk_flash_fwd": ([_PTR] * 3 + [_I64] * 9 + [_PTR] * 2 + [_INT] * 3 + [_PTR], _INT),
-        "dk_flash_bwd": ([_PTR] * 4 + [_I64] * 12 + [_PTR] * 5 + [_INT] * 3 + [_PTR], _INT),
+        **{f"dk_flash_fwd{form}": ([_PTR] * 3 + [_I64] * 9 + [_PTR] * 2 + [_INT] * 3 + [_PTR],
+                                   _INT) for form in ("", "_f32")},
+        **{f"dk_flash_bwd{form}": ([_PTR] * 4 + [_I64] * 12 + [_PTR] * 5 + [_INT] * 3 + [_PTR],
+                                   _INT) for form in ("", "_f32")},
     },
     "fused_mlp": {
         "dk_fused_mlp_fwd": ([_PTR] * 6 + [_INT] * 3 + [_PTR], _INT),
+        "dk_fused_mlp_fwd_f32_workspace": ([_INT] * 3, ctypes.c_size_t),
+        "dk_fused_mlp_fwd_f32": ([_PTR] * 7 + [_INT] * 3 + [_PTR], _INT),
         "dk_fused_mlp_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
         "dk_fused_mlp_bwd": ([_PTR] * 11 + [_INT] * 3 + [_PTR], _INT),
     },

@@ -16,10 +16,14 @@ rebuilds ``p = exp(s - lse)`` and emits
 
 Tensors are [B, H, N, head_dim] (the kernels alone also take [B*H, N,
 head_dim]). Dispatch is by the device of ``q``: a CPU tensor takes the plain
-version, a CUDA tensor the hand-written kernels in ``csrc/attention.cu`` (bf16,
-head dim 64, N up to ``max_sequence()``), anything else raises. The kernels
-read q, k, v and dO through their strides when the head dim is contiguous, so
-the views of a packed qkv projection are not copied.
+version, a CUDA tensor the hand-written kernels in ``csrc/attention.cu`` (bf16
+or fp32, head dim 64, N up to ``max_sequence()``), anything else raises. The
+fp32 forms run every product on TF32 tensor cores in 3xTF32 (each operand as a
+high and a low TF32 part, three products: fp32 accuracy) and round nothing to
+bf16: o, lse, dq, dk, dv are fp32, as the TPU kernels emit their input's
+dtype. The kernels read q, k, v and dO through
+their strides when the head dim is contiguous, so the views of a packed qkv
+projection are not copied.
 """
 
 from __future__ import annotations
@@ -29,12 +33,13 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from deltakd_tpu_torch.ops import current_stream, on_card
+from deltakd_tpu_torch.ops import current_stream, kernel_entry, on_card
 
 _HEAD_DIM = 64
 
-# Kernel launches by (kernel name, batch * heads). Each wrapper adds one where
-# it launches its kernel; nothing else touches the count.
+# Kernel launches by (entry point, batch * heads): the fp32 forms count under
+# ``flash_fwd_f32`` and ``flash_bwd_f32``. Each wrapper adds one where it
+# launches its kernel; nothing else touches the count.
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -101,12 +106,17 @@ def max_sequence() -> int:
 
 def _operands(name: str, *tensors: torch.Tensor):
     """Checks what the kernels take and returns ((B, H, N), the tensors as
-    [B, H, N, 64] views): CUDA bf16, head dim 64, one shape, [B, H, N, 64] or
-    [B*H, N, 64]."""
+    [B, H, N, 64] views): CUDA, all bf16 or all fp32, head dim 64, one shape,
+    [B, H, N, 64] or [B*H, N, 64]. Raises ValueError, before any launch, for
+    anything else, a mix of dtypes among it."""
     q = tensors[0]
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != q.dtype
+                                                             for t in tensors):
+        raise ValueError(f"{name}: takes all bf16 or all fp32 tensors, got "
+                         f"{[str(t.dtype) for t in tensors]}")
     for t in tensors:
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: takes CUDA bf16 tensors, got {t.dtype} on {t.device}")
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: takes CUDA bf16 or fp32 tensors, got one on {t.device}")
         if t.shape != q.shape or t.device != q.device:
             raise ValueError(f"{name}: operands differ, {tuple(t.shape)} on {t.device} "
                              f"and {tuple(q.shape)} on {q.device}")
@@ -127,9 +137,11 @@ def _strided(t: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel alone on CUDA bf16 tensors: (o, lse), o contiguous
-    in the shape of q and lse fp32 over its leading dims."""
+    """The forward kernel alone on CUDA bf16 or fp32 tensors: (o, lse), o
+    contiguous in the shape and dtype of q and lse fp32 over its leading
+    dims."""
     (B, H, N), (q4, k4, v4) = _operands("flash_fwd", q, k, v)
+    name = kernel_entry("flash_fwd", q)
     lib = _library()
     if N > max_sequence():
         raise ValueError(f"flash_fwd: N = {N} exceeds the kernel's limit of "
@@ -138,20 +150,21 @@ def kernel_flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     with torch.cuda.device(q.device):
         o = torch.empty((B, H, N, _HEAD_DIM), dtype=q.dtype, device=q.device)
         lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-        err = lib.dk_flash_fwd(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-                               *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
-                               o.data_ptr(), lse.data_ptr(), B, H, N, current_stream(q))
+        err = getattr(lib, f"dk_{name}")(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), *q4.stride()[:3], *k4.stride()[:3],
+            *v4.stride()[:3], o.data_ptr(), lse.data_ptr(), B, H, N, current_stream(q))
     if err:
-        raise RuntimeError(f"flash_fwd: CUDA error {err} at launch")
-    LAUNCHES[("flash_fwd", B * H)] += 1
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    LAUNCHES[(name, B * H)] += 1
     return o.reshape(q.shape), lse.reshape(q.shape[:-1])
 
 
 def kernel_flash_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernel alone on CUDA tensors: (dq, dk, dv), contiguous in
-    the shape of q. ``o`` and ``lse`` are the forward kernel's outputs; one
-    launch, which also forms delta = rowsum(dO * o)."""
+    """The backward kernel alone on CUDA bf16 or fp32 tensors: (dq, dk, dv),
+    contiguous in the shape and dtype of q. ``o`` and ``lse`` are the forward
+    kernel's outputs; one call, which also forms delta = rowsum(dO * o)."""
     (B, H, N), (q4, k4, v4, o4, do4) = _operands("flash_bwd", q, k, v, o, do)
+    name = kernel_entry("flash_bwd", q)
     if lse.dtype != torch.float32 or lse.numel() != B * H * N or lse.device != q.device:
         raise ValueError(f"flash_bwd: lse must be fp32 with one value a row on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
@@ -164,14 +177,14 @@ def kernel_flash_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, t
     with torch.cuda.device(q.device):
         dq, dk, dv = (torch.empty((B, H, N, _HEAD_DIM), dtype=q.dtype, device=q.device)
                       for _ in range(3))
-        err = lib.dk_flash_bwd(
+        err = getattr(lib, f"dk_{name}")(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), do4.data_ptr(),
             *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3], *do4.stride()[:3],
             o4.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, H, N, current_stream(q))
     if err:
-        raise RuntimeError(f"flash_bwd: CUDA error {err} at launch")
-    LAUNCHES[("flash_bwd", B * H)] += 1
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    LAUNCHES[(name, B * H)] += 1
     return dq.reshape(q.shape), dk.reshape(q.shape), dv.reshape(q.shape)
 
 

@@ -34,7 +34,13 @@
 //   memory), above the forward's 656.
 //
 // In the backward p and ds are rounded to bf16 before their products (the
-// tensor cores take bf16); q, k, v, dO arrive in bf16. Inputs are addressed
+// tensor cores take bf16); q, k, v, dO arrive in bf16. The fp32 forms
+// (`dk_flash_fwd_f32`, `dk_flash_bwd_f32`, for fp32 tensors, as the TPU
+// kernels run at their inputs' dtype) run every product on TF32 wgmma in
+// 3xTF32 (each operand as a high and a low TF32 part, three products) and
+// round nothing to bf16: o, lse, dq, dk, dv fp32 (the fp32 forms in
+// attention_fwd.cuh and attention_bwd.cuh; the backward is two kernels
+// there). Inputs are addressed
 // through (batch, head, row) strides with a contiguous head dim, so the
 // [B, N, 3, H, 64] views of a packed qkv projection are read in place.
 
@@ -98,6 +104,48 @@ extern "C" int dk_flash_bwd(const void* q, const void* k, const void* v, const v
   a.delta = nullptr;   // the kernel computes it from o and dO
   a.o = (const bf16*)o; a.o_sb = sb; a.o_sh = sh; a.o_sn = HD;
   a.dq = (bf16*)dq; a.dk = (bf16*)dk; a.dv = (bf16*)dv;
+  a.g_sb = sb; a.g_sh = sh; a.g_sn = HD;
+  a.colsum = nullptr;
+  a.scale = a.dq_scale = 1.0f / sqrtf((float)HD);   // 2^-3
+  a.B = B; a.H = H; a.N = N;
+  return (int)dk::attention_bwd(a, HD, (cudaStream_t)stream);
+}
+
+// The fp32 forms of the two entry points above: the same arguments, every
+// tensor fp32 (lse fp32 as before).
+extern "C" int dk_flash_fwd_f32(const void* q, const void* k, const void* v, long long q_sb,
+                                long long q_sh, long long q_sn, long long k_sb, long long k_sh,
+                                long long k_sn, long long v_sb, long long v_sh, long long v_sn,
+                                void* o, void* lse, int B, int H, int N, void* stream) {
+  if (B < 1 || H < 1 || N < 1 || N > dk_flash_max_n()) return -1;
+  dk::AttnArgsT<float> a = {};
+  a.q = (const float*)q; a.q_sb = q_sb; a.q_sh = q_sh; a.q_sn = q_sn;
+  a.k = (const float*)k; a.k_sb = k_sb; a.k_sh = k_sh; a.k_sn = k_sn;
+  a.v = (const float*)v; a.v_sb = v_sb; a.v_sh = v_sh; a.v_sn = v_sn;
+  a.o = (float*)o; a.o_sb = (long long)H * N * HD; a.o_sh = (long long)N * HD; a.o_sn = HD;
+  a.lse = (float*)lse;
+  a.B = B; a.H = H; a.N = N;
+  a.scale = 1.0f / sqrtf((float)HD);
+  return (int)dk::attention_fwd(a, HD, (cudaStream_t)stream);
+}
+
+extern "C" int dk_flash_bwd_f32(const void* q, const void* k, const void* v, const void* dO,
+                                long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+                                long long k_sh, long long k_sn, long long v_sb, long long v_sh,
+                                long long v_sn, long long g_sb, long long g_sh, long long g_sn,
+                                const void* o, const void* lse, void* dq, void* dk, void* dv,
+                                int B, int H, int N, void* stream) {
+  if (B < 1 || H < 1 || N < 1 || N > dk_flash_max_n()) return -1;
+  const long long sb = (long long)H * N * HD, sh = (long long)N * HD;
+  dk::AttnBwdArgsT<float> a = {};
+  a.q = (const float*)q; a.q_sb = q_sb; a.q_sh = q_sh; a.q_sn = q_sn;
+  a.k = (const float*)k; a.k_sb = k_sb; a.k_sh = k_sh; a.k_sn = k_sn;
+  a.v = (const float*)v; a.v_sb = v_sb; a.v_sh = v_sh; a.v_sn = v_sn;
+  a.dout = (const float*)dO; a.d_sb = g_sb; a.d_sh = g_sh; a.d_sn = g_sn;
+  a.lse = (const float*)lse;
+  a.delta = nullptr;   // each CTA computes it from o and dO
+  a.o = (const float*)o; a.o_sb = sb; a.o_sh = sh; a.o_sn = HD;
+  a.dq = (float*)dq; a.dk = (float*)dk; a.dv = (float*)dv;
   a.g_sb = sb; a.g_sh = sh; a.g_sn = HD;
   a.colsum = nullptr;
   a.scale = a.dq_scale = 1.0f / sqrtf((float)HD);   // 2^-3

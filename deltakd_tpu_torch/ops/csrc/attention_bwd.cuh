@@ -65,28 +65,32 @@
 
 namespace dk {
 
-// q, k, v, dout: [B, H, N, hd] bf16 through (batch, head, row) element
-// strides, the head dim contiguous, rows 16-byte aligned. lse: [B * H, N]
+// q, k, v, dout: [B, H, N, hd] of T (bf16; fp32 for the fp32 form below)
+// through (batch, head, row) element strides, the head dim contiguous, rows 16-byte aligned. lse: [B * H, N]
 // fp32. delta: [B * H, N] fp32, or null, and then `o` (the forward's output,
 // strided like dout) gives it. S is multiplied by `scale` in the exponent and
 // dk by `scale`. The bf16 gradients go through (batch, head, row) strides
 // g_sb, g_sh, g_sn; dq is multiplied by dq_scale. With `colsum`, the sums over
 // the head's N rows of dq, dk, dv (fp32, dq scaled) go to
 // colsum[b * cs_b + part * cs_part + h * 64 + d], part 0, 1, 2 for q, k, v
-// (the per-element partials of the qkv bias gradient).
-struct AttnBwdArgs {
-  const bf16 *q, *k, *v, *dout;
+// (the per-element partials of the qkv bias gradient). The gradients are of
+// T: "bf16" below reads as T.
+template <typename T>
+struct AttnBwdArgsT {
+  const T *q, *k, *v, *dout;
   long long q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, d_sb, d_sh, d_sn;
   const float *lse, *delta;
-  const bf16* o;
+  const T* o;
   long long o_sb, o_sh, o_sn;
-  bf16 *dq, *dk, *dv;
+  T *dq, *dk, *dv;
   long long g_sb, g_sh, g_sn;
   float* colsum;
   int cs_b, cs_part;
   float scale, dq_scale;
   int B, H, N;
 };
+
+using AttnBwdArgs = AttnBwdArgsT<bf16>;
 
 namespace attn_bwd {
 constexpr int T = attn::T;             // keys of a key tile, rows of a query tile
@@ -386,6 +390,341 @@ inline cudaError_t attention_bwd(const AttnBwdArgs& p, int hd, cudaStream_t st) 
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   attention_bwd_kernel<<<p.B * p.H, attn::THREADS, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 form: fp32 operands on TF32 wgmma (m64n64k8) in 3xTF32, fp32
+// accumulation
+// ---------------------------------------------------------------------------
+//
+// The math is the bf16 form's, every product in 3xTF32 as attention_fwd.cuh's
+// fp32 form computes it (each operand split into hi and lo TF32 parts, three
+// wgmmas a product). TF32 wgmma takes no transpose, and three of the five
+// products read a tile transposed (dV += P^T dO, dK += dS^T Q and dQ = dS K),
+// so the threads write Q^T, dO^T and K^T from registers
+// (`load_tile_f32_t`, their columns in tf32_key_slot order, so that P^T,
+// dS^T and dS are the A fragments as the accumulators hold them). An fp32
+// split tile is 32 KB, and one CTA cannot also hold dQ of all N rows, so
+// the backward is two kernels:
+//   attention_bwd_dkdv_f32_kernel: one CTA per (batch, head) walks the key
+//     tiles, keeps dK and dV of the tile in registers and loops over the
+//     query tiles: S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and
+//     dK += dS^T Q from registers against dO^T and Q^T. Shared memory: K,
+//     V, Q, dO, Q^T, dO^T (split) and delta of all rows, 197 KB at N = 198;
+//   attention_bwd_dq_f32_kernel: one CTA per (batch, head) walks the query
+//     tiles, keeps dQ of the tile in registers and loops over the key tiles:
+//     S = Q K^T, dP = dO V^T, then dQ += dS K against K^T. Shared memory:
+//     Q, dO, K, V, K^T (split), 162 KB.
+// The second recomputes S and dP (seven products of N x N x 64 where the bf16
+// form has five). Each sum runs in a fixed order inside one CTA: no atomics,
+// two runs give the same bits, and no shared memory grows with N but delta.
+// Nothing is rounded to bf16: P, dS, delta, lse and the gradients are fp32.
+
+namespace attn32 {
+// K, V, Q, dO, Q^T, dO^T (split tiles); lse of a query tile, delta of all
+// rows, the column sums of dk and dv and one 64-column partial per warp
+inline size_t dkdv_smem_bytes(int N) {
+  const int tiles = (N + attn::T - 1) / attn::T;
+  return 6 * SPLIT * sizeof(float) + attn::T * sizeof(float) +
+         (size_t)tiles * attn::T * sizeof(float) + (2 + 4) * 64 * sizeof(float) + 1024;
+}
+// Q, dO, K, V, K^T (split tiles); lse and delta of the query tile, the
+// column sums of dq and one 64-column partial per warp
+constexpr size_t DQ_SMEM_BYTES =
+    5 * SPLIT * sizeof(float) + 2 * attn::T * sizeof(float) + (1 + 4) * 64 * sizeof(float) + 1024;
+}  // namespace attn32
+
+// delta = rowsum(dO * O) of rows [r0, r0 + count) of one head into
+// out[0, count), 0 past N: 8 threads a row, 8 columns each, summed over the
+// 8 by shuffles in a fixed order. count is a multiple of 16 (a pass of the
+// 128 threads), so every lane of a warp takes part in each shuffle.
+__device__ __forceinline__ void rows_delta_f32(const AttnBwdArgsT<float>& p, const float* dh,
+                                               const float* oh, int r0, int count, float* out) {
+  const int c = 8 * (threadIdx.x % 8);
+  for (int r = r0 + threadIdx.x / 8; r < r0 + count; r += attn::THREADS / 8) {
+    float d = 0.f;
+    if (r < p.N) {
+      const float4* a = reinterpret_cast<const float4*>(dh + (long long)r * p.d_sn + c);
+      const float4* o = reinterpret_cast<const float4*>(oh + (long long)r * p.o_sn + c);
+      const float4 a0 = a[0], a1 = a[1], o0 = o[0], o1 = o[1];
+      d = a0.x * o0.x + a0.y * o0.y + a0.z * o0.z + a0.w * o0.w + a1.x * o1.x + a1.y * o1.y +
+          a1.z * o1.z + a1.w * o1.w;
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    d += __shfl_xor_sync(0xffffffffu, d, 4);
+    if (threadIdx.x % 8 == 0) out[r - r0] = d;
+  }
+}
+
+// One thread's rows of a 64 x 64 fp32 gradient tile (rows r0 + 16 warp +
+// lane / 4 and + 8 of the head) to `out`, rows at or beyond N left out.
+__device__ __forceinline__ void store_grad_rows_f32(const AttnBwdArgsT<float>& p, float* out,
+                                                    long long head, int r0, const float (&d)[32]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 16 * warp + lane / 4 + 8 * h;
+    if (row >= p.N) continue;
+    const long long off = head + row * p.g_sn + 2 * (lane % 4);
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      store2(out + off + 8 * jb, d[4 * jb + 2 * h], d[4 * jb + 2 * h + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(attn::THREADS)
+attention_bwd_dkdv_f32_kernel(const AttnBwdArgsT<float> p) {
+  using attn32::SPLIT;
+  constexpr int T = attn::T;
+  extern __shared__ unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(align1024(smem_raw));   // split tiles
+  float* Vs = Ks + SPLIT;
+  float* Qs = Vs + SPLIT;
+  float* Ds = Qs + SPLIT;   // dO of the query tile
+  float* Qt = Ds + SPLIT;   // Q^T and dO^T of the query tile, queries in tf32_key_slot order
+  float* Dt = Qt + SPLIT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int N = p.N, tiles = (N + T - 1) / T;
+  float* lse_t = Dt + SPLIT;         // lse * log2(e) of the query tile
+  float* delta_all = lse_t + T;      // [tiles * T], 0 past N
+  float* col = delta_all + tiles * T;   // [2][64]: the column sums of dk, dv
+  float* wpart = col + 2 * 64;          // [4][64]
+  const float* qh = p.q + b * p.q_sb + h * p.q_sh;
+  const float* kh = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vh = p.v + b * p.v_sb + h * p.v_sh;
+  const float* dh = p.dout + b * p.d_sb + h * p.d_sh;
+  const float* lse = p.lse + (long long)bh * N;
+  const long long ghead = b * p.g_sb + h * p.g_sh;
+  const float exp_scale = p.scale * 1.4426950408889634f;
+
+  for (int i = threadIdx.x; i < 2 * 64; i += attn::THREADS) col[i] = 0.f;
+  if (p.delta) {
+    const float* delta = p.delta + (long long)bh * N;
+    for (int r = threadIdx.x; r < tiles * T; r += attn::THREADS)
+      delta_all[r] = r < N ? delta[r] : 0.f;
+  } else {
+    rows_delta_f32(p, dh, p.o + b * p.o_sb + h * p.o_sh, 0, tiles * T, delta_all);
+  }
+
+  // this thread's rows (keys) and columns (queries) of S^T and dP^T
+  const int r_lo = 16 * warp + lane / 4, c_lo = 2 * (lane % 4);
+
+  for (int j = 0; j < tiles; ++j) {
+    load_tile_f32_async(Ks, kh, p.k_sn, j * T, N);
+    load_tile_f32_async(Vs, vh, p.v_sn, j * T, N);
+    cp_async_commit();
+    float gk[32], gv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) gk[i] = gv[i] = 0.f;
+
+    for (int i = 0; i < tiles; ++i) {
+      load_tile_f32_async(Qs, qh, p.q_sn, i * T, N);
+      load_tile_f32_async(Ds, dh, p.d_sn, i * T, N);
+      cp_async_commit();
+      load_tile_f32_t(Qt, qh, p.q_sn, i * T, N);
+      load_tile_f32_t(Dt, dh, p.d_sn, i * T, N);
+      if (threadIdx.x < T) {
+        const int row = i * T + threadIdx.x;
+        lse_t[threadIdx.x] = row < N ? lse[row] * 1.4426950408889634f : 0.f;
+      }
+      cp_async_wait<0>();
+      if (i == 0) {
+        split_tile_f32(Ks);
+        split_tile_f32(Vs);
+      }
+      split_tile_f32(Qs);
+      split_tile_f32(Ds);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T over the 64 dims of the head
+      float st[32], dpt[32];
+      wgmma_fence();
+      mma3_ss(st, Ks, Qs, 0);
+      mma3_ss(dpt, Vs, Ds, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T = exp(S^T - lse) in place of S^T, 0 where the key or the query
+      // is padding; dV += P^T dO from its hi and lo A fragments (8 queries a
+      // k-step), B = dO^T
+      uint32_t fh[8][4], fl[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int key = j * T + r_lo + 8 * (u >> 1), qc = 8 * kk + c_lo + (u & 1);
+          const bool live = key < N && i * T + qc < N;
+          st[4 * kk + u] = live ? exp2f(st[4 * kk + u] * exp_scale - lse_t[qc]) : 0.f;
+        }
+        const float pv[4] = {st[4 * kk], st[4 * kk + 1], st[4 * kk + 2], st[4 * kk + 3]};
+        tf32_a_fragments(fh[kk], fl[kk], pv);
+      }
+      wgmma_fence();
+      mma3_rs(gv, fh, fl, Dt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(gv);
+
+      // dS^T = P^T (dP^T - delta); dK += dS^T Q, B = Q^T
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        float sv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          sv[u] = st[4 * kk + u] * (dpt[4 * kk + u] - delta_all[i * T + 8 * kk + c_lo + (u & 1)]);
+        tf32_a_fragments(fh[kk], fl[kk], sv);
+      }
+      wgmma_fence();
+      mma3_rs(gk, fh, fl, Qt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(gk);
+      __syncthreads();   // the query tiles are refilled by the next iteration
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) gk[i] *= p.scale;
+    store_grad_rows_f32(p, p.dk, ghead, j * T, gk);
+    store_grad_rows_f32(p, p.dv, ghead, j * T, gv);
+    if (p.colsum) {   // key tiles in order
+      add_colsums(gk, wpart, col);
+      add_colsums(gv, wpart, col + 64);
+    }
+  }
+  if (p.colsum) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * 64; i += attn::THREADS)
+      p.colsum[(long long)b * p.cs_b + (1 + i / 64) * p.cs_part + h * 64 + i % 64] = col[i];
+  }
+}
+
+__global__ void __launch_bounds__(attn::THREADS)
+attention_bwd_dq_f32_kernel(const AttnBwdArgsT<float> p) {
+  using attn32::SPLIT;
+  constexpr int T = attn::T;
+  extern __shared__ unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(align1024(smem_raw));   // split tiles
+  float* Ds = Qs + SPLIT;   // dO of the query tile
+  float* Ks = Ds + SPLIT;
+  float* Vs = Ks + SPLIT;
+  float* Kt = Vs + SPLIT;   // K^T of the key tile, keys in tf32_key_slot order
+  float* lse_t = Kt + SPLIT;     // lse * log2(e) of the query tile
+  float* delta_t = lse_t + T;    // delta of the query tile
+  float* col = delta_t + T;      // [64]: the column sums of dq
+  float* wpart = col + 64;       // [4][64]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int N = p.N, tiles = (N + T - 1) / T;
+  const float* qh = p.q + b * p.q_sb + h * p.q_sh;
+  const float* kh = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vh = p.v + b * p.v_sb + h * p.v_sh;
+  const float* dh = p.dout + b * p.d_sb + h * p.d_sh;
+  const float* lse = p.lse + (long long)bh * N;
+  const long long ghead = b * p.g_sb + h * p.g_sh;
+  const float exp_scale = p.scale * 1.4426950408889634f;
+  if (threadIdx.x < 64) col[threadIdx.x] = 0.f;
+
+  // this thread's rows (queries) and columns (keys) of S and dP
+  const int r_lo = 16 * warp + lane / 4, c_lo = 2 * (lane % 4);
+
+  for (int i = 0; i < tiles; ++i) {
+    load_tile_f32_async(Qs, qh, p.q_sn, i * T, N);
+    load_tile_f32_async(Ds, dh, p.d_sn, i * T, N);
+    cp_async_commit();
+    if (threadIdx.x < T) {
+      const int row = i * T + threadIdx.x;
+      lse_t[threadIdx.x] = row < N ? lse[row] * 1.4426950408889634f : 0.f;
+      if (p.delta) delta_t[threadIdx.x] = row < N ? p.delta[(long long)bh * N + row] : 0.f;
+    }
+    if (!p.delta) rows_delta_f32(p, dh, p.o + b * p.o_sb + h * p.o_sh, i * T, T, delta_t);
+    float gq[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) gq[e] = 0.f;
+
+    for (int j = 0; j < tiles; ++j) {
+      load_tile_f32_async(Ks, kh, p.k_sn, j * T, N);
+      load_tile_f32_async(Vs, vh, p.v_sn, j * T, N);
+      cp_async_commit();
+      load_tile_f32_t(Kt, kh, p.k_sn, j * T, N);
+      cp_async_wait<0>();
+      if (j == 0) {
+        split_tile_f32(Qs);
+        split_tile_f32(Ds);
+      }
+      split_tile_f32(Ks);
+      split_tile_f32(Vs);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+
+      // S = Q K^T and dP = dO V^T over the 64 dims of the head
+      float sq[32], dpq[32];
+      wgmma_fence();
+      mma3_ss(sq, Qs, Ks, 0);
+      mma3_ss(dpq, Ds, Vs, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sq);
+      fence_regs(dpq);
+
+      // dS = P (dP - delta), 0 where the query or the key is padding; as hi
+      // and lo TF32 A fragments, 8 keys a k-step
+      uint32_t sf[8][4], sl[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        float sv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int qr = r_lo + 8 * (u >> 1), key = j * T + 8 * kk + c_lo + (u & 1);
+          const bool live = i * T + qr < N && key < N;
+          const float pq = live ? exp2f(sq[4 * kk + u] * exp_scale - lse_t[qr]) : 0.f;
+          sv[u] = pq * (dpq[4 * kk + u] - delta_t[qr]);
+        }
+        tf32_a_fragments(sf[kk], sl[kk], sv);
+      }
+
+      // dQ += dS K, B = K^T
+      wgmma_fence();
+      mma3_rs(gq, sf, sl, Kt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(gq);
+      __syncthreads();   // the key tiles are refilled by the next iteration
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) gq[e] *= p.dq_scale;
+    store_grad_rows_f32(p, p.dq, ghead, i * T, gq);
+    if (p.colsum) add_colsums(gq, wpart, col);   // query tiles in order
+  }
+  if (p.colsum) {
+    __syncthreads();
+    if (threadIdx.x < 64)
+      p.colsum[(long long)b * p.cs_b + h * 64 + threadIdx.x] = col[threadIdx.x];
+  }
+}
+
+// Launches the fp32 attention backward (its two kernels) on `st`;
+// cudaErrorInvalidValue, without a launch, for a shape the bf16 form does
+// not take either.
+inline cudaError_t attention_bwd(const AttnBwdArgsT<float>& p, int hd, cudaStream_t st) {
+  if (!attention_bwd_takes(hd, p.N) || p.B < 1 || p.H < 1 || !(p.delta || p.o))
+    return cudaErrorInvalidValue;
+  const size_t kv_smem = attn32::dkdv_smem_bytes(p.N);
+  cudaError_t e = cudaFuncSetAttribute(attention_bwd_dkdv_f32_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attention_bwd_dq_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)attn32::DQ_SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  attention_bwd_dkdv_f32_kernel<<<p.B * p.H, attn::THREADS, kv_smem, st>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  attention_bwd_dq_f32_kernel<<<p.B * p.H, attn::THREADS, attn32::DQ_SMEM_BYTES, st>>>(p);
   return cudaGetLastError();
 }
 

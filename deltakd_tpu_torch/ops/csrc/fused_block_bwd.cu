@@ -6,7 +6,9 @@
 // input x and the drop-path scales, recomputes the forward keeping its stash,
 // then runs the reverse sweep. The cotangent at the block output may be joined
 // by an extra cotangent on the feature output. It returns dx (bf16) and the
-// 12 weight gradients in fp32, summed over the batch.
+// 12 weight gradients in fp32, summed over the batch. Its fp32 form
+// (`dk_fused_block_bwd_f32`) takes and returns fp32 and runs every product
+// 3xTF32 on TF32 wgmma.
 //
 // The reverse sweep itself is `reverse_chain` (fused_block_reverse.cuh),
 // shared with the block-pair backward.
@@ -68,6 +70,40 @@ extern "C" int dk_fused_block_bwd(void* const* ptr, int B, int N, int D, int H, 
       forward_chain(x, s_attn, s_mlp, w, sh, eps, f, true, nullptr, nullptr, nullptr, st);
   if (err != cudaSuccess) return (int)err;
   return (int)reverse_chain(g_out, g_feat, s_attn, s_mlp, w, sh, f, g, dW, nullptr, dx, st);
+}
+
+// The fp32 form: x, g_out, g_feat and dx fp32, the 12 weights fp32, every
+// product 3xTF32 on TF32 wgmma (fused_block_common.cuh). The same pointer table and
+// return as dk_fused_block_bwd.
+extern "C" size_t dk_fused_block_bwd_f32_workspace(int B, int N, int D, int H, int F) {
+  Shape sh{B, N, D, H, F};
+  Carver c{nullptr, 0};
+  FwdBuffersT<float> f;
+  f.carve(c, sh, true);
+  BwdBuffersT<float> g;
+  g.carve(c, sh);
+  return c.off;
+}
+
+extern "C" int dk_fused_block_bwd_f32(void* const* ptr, int B, int N, int D, int H, int F,
+                                      float eps, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Shape sh{B, N, D, H, F};
+  if (!attention_bwd_takes(sh.hd(), N)) return (int)cudaErrorInvalidValue;
+  const float* x = (const float*)ptr[0];
+  const float* s_attn = (const float*)ptr[1];
+  const float* s_mlp = (const float*)ptr[2];
+  const BlockWeightsT<float> w = unpack_weights<float>(ptr + 3);
+  Carver c{(char*)ptr[30], 0};
+  FwdBuffersT<float> f;
+  f.carve(c, sh, true);
+  BwdBuffersT<float> g;
+  g.carve(c, sh);
+  const cudaError_t err =
+      forward_chain(x, s_attn, s_mlp, w, sh, eps, f, true, nullptr, nullptr, nullptr, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reverse_chain((const float*)ptr[15], (const float*)ptr[16], s_attn, s_mlp, w, sh,
+                            f, g, (float* const*)(ptr + 18), (float*)ptr[17], nullptr, st);
 }
 
 // Bytes of scratch for dk_weight_grad_sm90 at (M, O, I): the row-range

@@ -7,7 +7,9 @@
 //   out = x2 + s_mlp * feat,   feat = fc2(gelu(fc1(LN2(x2))))
 // with the optional second output `feat` (post-MLP, pre-drop-path,
 // pre-residual). Matmul operands are bf16 with fp32 accumulation; LN,
-// softmax, GELU (exact erff) and residuals run in fp32.
+// softmax, GELU (exact erff) and residuals run in fp32. Its fp32 form
+// (`dk_fused_block_fwd_f32`, for x and weights in fp32, as the TPU kernel
+// runs at its input's dtype) takes fp32 operands, 3xTF32 on TF32 wgmma.
 //
 // What bounds it on an H100: at the main-path shapes (B=256, N=198,
 // D=192/384) the block is about 24ND^2 + 4N^2D FLOPs per element against
@@ -50,11 +52,35 @@ extern "C" int dk_fused_block_fwd(void* const* ptr, int B, int N, int D, int H, 
                             nullptr, (bf16*)ptr[16], st);
 }
 
+// The fp32 form (rows of an fp32 model): x, out and feat fp32, the 12
+// weights fp32; every product 3xTF32 on TF32 wgmma with fp32 accumulation, nothing
+// rounded to bf16 (fused_block_common.cuh). The same pointer table and
+// return as dk_fused_block_fwd.
+extern "C" size_t dk_fused_block_fwd_f32_workspace(int B, int N, int D, int H, int F) {
+  Shape sh{B, N, D, H, F};
+  Carver c{nullptr, 0};
+  FwdBuffersT<float> f;
+  f.carve(c, sh, false);
+  return c.off;
+}
+
+extern "C" int dk_fused_block_fwd_f32(void* const* ptr, int B, int N, int D, int H, int F,
+                                      float eps, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Shape sh{B, N, D, H, F};
+  Carver c{(char*)ptr[17], 0};
+  FwdBuffersT<float> f;
+  f.carve(c, sh, false);
+  return (int)forward_chain((const float*)ptr[0], (const float*)ptr[1], (const float*)ptr[2],
+                            unpack_weights<float>(ptr + 3), sh, eps, f, false, nullptr,
+                            (float*)ptr[15], (float*)ptr[16], st);
+}
+
 // One linear product alone, on gemm_sm90.cuh (a kernel-only check; no model
 // path calls it): out = a w^T with the epilogue of `Linear`, as the forward's
 // products and the backward's input gradients run it. ptr: a [M, K] bf16,
-// w [N, K] bf16, then each of bias, act_grad, pre_bf16, res_f32, res_bf16,
-// res_scale, out_f32, out_bf16, mul or null. Returns the launch error, or
+// w [N, K] bf16, then each of bias, act_grad, pre_lp, res_f32, res_bf16,
+// res_scale, out_f32, out_lp, mul or null. Returns the launch error, or
 // cudaErrorInvalidValue for a shape it does not take.
 extern "C" int dk_linear_sm90(void* const* ptr, int M, int N, int K, int scale_cols,
                               float col_scale, int gelu, int rows_per_sample, void* stream) {
@@ -62,10 +88,10 @@ extern "C" int dk_linear_sm90(void* const* ptr, int M, int N, int K, int scale_c
   l.bias = (const float*)ptr[2];
   l.scale_cols = scale_cols; l.col_scale = col_scale;
   l.gelu = gelu; l.act_grad = (float*)ptr[3];
-  l.pre_bf16 = (bf16*)ptr[4];
+  l.pre_lp = (bf16*)ptr[4];
   l.res_f32 = (const float*)ptr[5]; l.res_bf16 = (const bf16*)ptr[6];
   l.res_scale = (const float*)ptr[7]; l.rows_per_sample = rows_per_sample;
-  l.out_f32 = (float*)ptr[8]; l.out_bf16 = (bf16*)ptr[9];
+  l.out_f32 = (float*)ptr[8]; l.out_lp = (bf16*)ptr[9];
   l.mul = (const float*)ptr[10];
   return (int)linear_sm90(l, (cudaStream_t)stream);
 }

@@ -8,7 +8,9 @@
 // the scores on chip, so no [N, N] tensor reaches the workspace. Every
 // product runs on the TMA + wgmma GEMM of gemm_sm90.cuh: the four input
 // gradients on `linear_sm90` against the weights transposed once per sweep,
-// the four weight gradients on `weight_grad_sm90`.
+// the four weight gradients on `weight_grad_sm90`. Like the forward chain it
+// is written once for its operand type T (bf16, or fp32 in 3xTF32; the bf16
+// names of the comments below read as T).
 
 #pragma once
 
@@ -93,12 +95,13 @@ inline cudaError_t cs_opt_in(K kernel, size_t bytes) {
              : cudaSuccess;
 }
 
-// g_feat = g_out * s_mlp + g_feat_extra in bf16, and its column sums (the
-// fc2 bias gradient) in partial[0]; g_out is bf16 at a kernel boundary,
-// fp32 between the two blocks of a pair
-template <typename TG>
-__global__ void gfeat_kernel(const TG* g_out, const bf16* g_extra, const float* s_mlp, int M,
-                             int rows_per_sample, int D, bf16* g_lp, float* partial) {
+// g_feat = g_out * s_mlp + g_feat_extra as a product operand (to_lp), and
+// its column sums (the fc2 bias gradient) in partial[0]; g_out is bf16 at a
+// bf16 kernel boundary, fp32 in the fp32 form and between the two blocks of a
+// pair
+template <typename TG, typename T>
+__global__ void gfeat_kernel(const TG* g_out, const T* g_extra, const float* s_mlp, int M,
+                             int rows_per_sample, int D, T* g_lp, float* partial) {
   extern __shared__ float cs_acc[];
   float* acc = cs_warp_slice(cs_acc, 1, D);
   const int r0 = blockIdx.x * CS_ROWS, r1 = min(M, r0 + CS_ROWS);
@@ -107,8 +110,8 @@ __global__ void gfeat_kernel(const TG* g_out, const bf16* g_extra, const float* 
     for (int d = threadIdx.x % 32; d < D; d += 32) {
       const long long i = (long long)r * D + d;
       float v = ld(g_out + i) * sc;
-      if (g_extra) v += __bfloat162float(g_extra[i]);
-      g_lp[i] = __float2bfloat16(v);
+      if (g_extra) v += ld(g_extra + i);
+      g_lp[i] = to_lp<T>(v);
       acc[d] += v;
     }
   }
@@ -117,15 +120,15 @@ __global__ void gfeat_kernel(const TG* g_out, const bf16* g_extra, const float* 
 
 // LayerNorm backward (_ln_bwd) plus the residual cotangent:
 //   dx = add + (dy*g - mean(dy*g) - xhat*mean(dy*g*xhat)) * rstd
-// written as fp32/bf16, and with a row_scale also dx * row_scale[sample] as
-// bf16; the column sums of dy*xhat (the gain gradient), dy (the bias
+// written as fp32 and/or as a product operand (to_lp), and with a row_scale
+// also dx * row_scale[sample] as one; the column sums of dy*xhat (the gain gradient), dy (the bias
 // gradient) and, with a row_scale, dx * row_scale (the bias gradient of the
 // branch before it) in partial[0], [1], [2].
-template <typename TA>
+template <typename TA, typename T>
 __global__ void ln_bwd_kernel(const float* dy, const float* xhat, const float* rstd,
                               const float* g, const TA* add, int M, int D, float* out32,
-                              bf16* out_lp, const float* row_scale, int rows_per_sample,
-                              bf16* sc_lp, float* partial) {
+                              T* out_lp, const float* row_scale, int rows_per_sample,
+                              T* sc_lp, float* partial) {
   extern __shared__ float cs_acc[];
   const int nsums = row_scale ? 3 : 2;
   float* acc = cs_warp_slice(cs_acc, nsums, D);
@@ -147,11 +150,11 @@ __global__ void ln_bwd_kernel(const float* dy, const float* xhat, const float* r
       const float dyv = dy[o + d], xh = xhat[o + d];
       const float v = ld(add + o + d) + (dyv * g[d] - m1 - xh * m2) * r;
       if (out32) out32[o + d] = v;
-      if (out_lp) out_lp[o + d] = __float2bfloat16(v);
+      if (out_lp) out_lp[o + d] = to_lp<T>(v);
       acc[d] += dyv * xh;
       acc[D + d] += dyv;
       if (row_scale) {
-        sc_lp[o + d] = __float2bfloat16(v * sc);
+        sc_lp[o + d] = to_lp<T>(v * sc);
         acc[2 * D + d] += v * sc;
       }
     }
@@ -159,27 +162,35 @@ __global__ void ln_bwd_kernel(const float* dy, const float* xhat, const float* r
   cs_write(cs_acc, nsums, D, partial);
 }
 
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+
 // delta[b, h, n] = sum over the head's 64 columns of dO * O, one warp per
-// (row, head); dO and O bf16 [M, D], delta [B*H, N] fp32.
-__global__ void attn_delta_kernel(const bf16* dout, const bf16* o, long long M, int N, int D,
-                                  int H, float* delta) {
+// (row, head); dO and O [M, D] of T, delta [B*H, N] fp32.
+template <typename T>
+__global__ void attn_delta_kernel(const T* dout, const T* o, long long M, int N, int D, int H,
+                                  float* delta) {
   const long long w = (long long)blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (w >= M * H) return;
   const long long row = w / H;
   const int h = (int)(w % H);
   const long long i = row * D + h * 64 + 2 * lane;
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + i));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + i));
+  const float2 a = ld2(dout + i);
+  const float2 b = ld2(o + i);
   const float s = warp_sum(a.x * b.x + a.y * b.y);
   if (lane == 0) delta[(row / N * H + h) * N + row % N] = s;
 }
 
 // fp32 elements of the partials of the widest weight gradient.
+template <typename T>
 inline long long wgrad_partial_len(const Shape& sh) {
   const int M = (int)sh.M(), D = sh.D, F = sh.F;
-  const long long a = weight_grad_partial_len(M, D, F), b = weight_grad_partial_len(M, F, D);
-  const long long c = weight_grad_partial_len(M, D, D), d = weight_grad_partial_len(M, 3 * D, D);
+  const long long a = weight_grad_partial_len<T>(M, D, F), b = weight_grad_partial_len<T>(M, F, D);
+  const long long c = weight_grad_partial_len<T>(M, D, D),
+                  d = weight_grad_partial_len<T>(M, 3 * D, D);
   const long long ab = a > b ? a : b, cd = c > d ? c : d;
   return ab > cd ? ab : cd;
 }
@@ -196,46 +207,58 @@ inline long long colsum_partial_len(const Shape& sh) {
 }
 
 // The sweep's own buffers: the cotangents it carries between its kernels
-// (bf16 where only a product reads them, fp32 where a LayerNorm backward
+// (of T where only a product reads them, fp32 where a LayerNorm backward
 // does), the four matmul weights transposed ([I, O], K-major for
-// linear_sm90), and the partials of the weight and column sums.
-struct BwdBuffers {
+// linear_sm90), and the partials of the weight and column sums; in the fp32
+// form also G^T and X^T of the widest weight gradient (gt, xt).
+template <typename T>
+struct BwdBuffersT {
   float *dz, *dx2, *delta, *dy;
-  bf16 *gfeat_lp, *dhpre_lp, *dattn_lp, *do_lp, *dqkv_lp;
-  bf16 *wqkv_t, *wproj_t, *w1_t, *w2_t;
+  T *gfeat_lp, *dhpre_lp, *dattn_lp, *do_lp, *dqkv_lp;
+  T *wqkv_t, *wproj_t, *w1_t, *w2_t;
+  T *gt, *xt;
   float *partial, *col_partial;
 
   void carve(Carver& c, const Shape& sh) {
     const long long M = sh.M();
     const int D = sh.D, F = sh.F;
-    gfeat_lp = c.take<bf16>(M * D);
-    dhpre_lp = c.take<bf16>(M * F);
+    gfeat_lp = c.take<T>(M * D);
+    dhpre_lp = c.take<T>(M * F);
     dz = c.take<float>(M * D);       dx2 = c.take<float>(M * D);
-    dattn_lp = c.take<bf16>(M * D);
-    do_lp = c.take<bf16>(M * D);
+    dattn_lp = c.take<T>(M * D);
+    do_lp = c.take<T>(M * D);
     delta = c.take<float>(sh.BH() * sh.N);
-    dqkv_lp = c.take<bf16>(M * 3 * D);
+    dqkv_lp = c.take<T>(M * 3 * D);
     dy = c.take<float>(M * D);
-    wqkv_t = c.take<bf16>(3LL * D * D);
-    wproj_t = c.take<bf16>((long long)D * D);
-    w1_t = c.take<bf16>((long long)F * D);
-    w2_t = c.take<bf16>((long long)D * F);
-    partial = c.take<float>(wgrad_partial_len(sh));
+    wqkv_t = c.take<T>(3LL * D * D);
+    wproj_t = c.take<T>((long long)D * D);
+    w1_t = c.take<T>((long long)F * D);
+    w2_t = c.take<T>((long long)D * F);
+    gt = xt = nullptr;
+    if (is_f32<T>) {   // G^T is [O, ld] with O up to max(3D, F), X^T [I, ld] with I up to F
+      const long long ld = transposed_ld((int)M);
+      gt = c.take<T>((3 * D > F ? 3 * D : F) * ld);
+      xt = c.take<T>((D > F ? D : F) * ld);
+    }
+    partial = c.take<float>(wgrad_partial_len<T>(sh));
     col_partial = c.take<float>(colsum_partial_len(sh));
   }
 };
 
+using BwdBuffers = BwdBuffersT<bf16>;
+
 // From the stash `f` of one block's recomputed forward and the cotangent
-// `g_out` at its output (bf16, or fp32 between the blocks of a pair; plus the
-// optional bf16 `g_feat` on the feature output): the 12 weight gradients
-// `dW` (fp32, summed over the batch, in the weights' order) and the input
-// cotangent as fp32 (`dx32`) and/or bf16 (`dx`). `g` is scratch. Returns the
-// first launch error (nothing after it is launched).
-template <typename TG>
-inline cudaError_t reverse_chain(const TG* g_out, const bf16* g_feat, const float* s_attn,
-                                 const float* s_mlp, const BlockWeights& w, const Shape& sh,
-                                 FwdBuffers& f, BwdBuffers& g, float* const* dW, float* dx32,
-                                 bf16* dx, cudaStream_t st) {
+// `g_out` at its output (bf16, or fp32 in the fp32 form and between the
+// blocks of a pair; plus the optional `g_feat` of T on the feature output):
+// the 12 weight gradients `dW` (fp32, summed over the batch, in the weights'
+// order) and the input cotangent as fp32 (`dx32`) and/or as T (`dx`,
+// rounded as a product operand). `g` is scratch. Returns the first launch
+// error (nothing after it is launched).
+template <typename T, typename TG>
+inline cudaError_t reverse_chain(const TG* g_out, const same_t<T>* g_feat, const float* s_attn,
+                                 const float* s_mlp, const BlockWeightsT<T>& w, const Shape& sh,
+                                 FwdBuffersT<T>& f, BwdBuffersT<T>& g, float* const* dW,
+                                 float* dx32, same_t<T>* dx, cudaStream_t st) {
   const int N = sh.N, D = sh.D, F = sh.F, H = sh.H, hd = sh.hd();
   const int M = (int)sh.M();
   const float scale = 1.0f / sqrtf((float)hd);
@@ -253,27 +276,29 @@ inline cudaError_t reverse_chain(const TG* g_out, const bf16* g_feat, const floa
   // MLP: feat = h W2^T + b2; dhpre = (g_feat W2) * gelu', its column sums
   // per 128-row tile from the GEMM's epilogue
   const int chunks = cs_chunks(M);
-  if ((err = cs_opt_in(gfeat_kernel<TG>, cs_smem(1, D))) != cudaSuccess) return err;
-  gfeat_kernel<TG><<<chunks, ROW_THREADS, cs_smem(1, D), st>>>(g_out, g_feat, s_mlp, M, N, D,
-                                                               g.gfeat_lp, g.col_partial);
+  if ((err = cs_opt_in(gfeat_kernel<TG, T>, cs_smem(1, D))) != cudaSuccess) return err;
+  gfeat_kernel<TG, T><<<chunks, ROW_THREADS, cs_smem(1, D), st>>>(
+      g_out, g_feat, s_mlp, M, N, D, g.gfeat_lp, g.col_partial);
   cs_reduce(g.col_partial, chunks, D, 0, dbf2, st);
-  if ((err = weight_grad_sm90(g.gfeat_lp, f.h, M, D, F, g.partial, dw2, st)) != cudaSuccess)
+  if ((err = weight_grad_sm90(g.gfeat_lp, f.h, M, D, F, g.partial, dw2, st, g.gt, g.xt)) !=
+      cudaSuccess)
     return err;
-  Linear l = linear_of(g.gfeat_lp, g.w2_t, M, F, D);
+  LinearT<T> l = linear_of<T>(g.gfeat_lp, g.w2_t, M, F, D);
   l.mul = f.hgrad; l.col_part = g.col_partial;
-  l.out_bf16 = g.dhpre_lp;
+  l.out_lp = g.dhpre_lp;
   if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
   cs_reduce(g.col_partial, linear_row_tiles(M), F, 0, dbf1, st);
-  if ((err = weight_grad_sm90(g.dhpre_lp, f.z, M, F, D, g.partial, dw1, st)) != cudaSuccess)
+  if ((err = weight_grad_sm90(g.dhpre_lp, f.z, M, F, D, g.partial, dw1, st, g.gt, g.xt)) !=
+      cudaSuccess)
     return err;
-  l = linear_of(g.dhpre_lp, g.w1_t, M, D, F);
+  l = linear_of<T>(g.dhpre_lp, g.w1_t, M, D, F);
   l.out_f32 = g.dz;
   if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
 
   // LN2 backward; dx2 = g_out + dLN2 ; dattn = dx2 * s_attn; the sums of
   // the LN2 gain and bias and the proj bias
-  if ((err = cs_opt_in(ln_bwd_kernel<TG>, cs_smem(3, D))) != cudaSuccess) return err;
-  ln_bwd_kernel<TG><<<chunks, ROW_THREADS, cs_smem(3, D), st>>>(
+  if ((err = cs_opt_in(ln_bwd_kernel<TG, T>, cs_smem(3, D))) != cudaSuccess) return err;
+  ln_bwd_kernel<TG, T><<<chunks, ROW_THREADS, cs_smem(3, D), st>>>(
       g.dz, f.xhat2, f.rstd2, w.g2, g_out, M, D, g.dx2, nullptr, s_attn, N, g.dattn_lp,
       g.col_partial);
   cs_reduce(g.col_partial, chunks, D, 0, dg2, st);
@@ -281,18 +306,18 @@ inline cudaError_t reverse_chain(const TG* g_out, const bf16* g_feat, const floa
   cs_reduce(g.col_partial, chunks, D, 2, dbproj, st);
 
   // proj: attn = merged Wproj^T + bproj; dO = dattn Wproj
-  if ((err = weight_grad_sm90(g.dattn_lp, f.merged, M, D, D, g.partial, dwproj, st)) !=
-      cudaSuccess)
+  if ((err = weight_grad_sm90(g.dattn_lp, f.merged, M, D, D, g.partial, dwproj, st, g.gt,
+                              g.xt)) != cudaSuccess)
     return err;
-  l = linear_of(g.dattn_lp, g.wproj_t, M, D, D);
-  l.out_bf16 = g.do_lp;
+  l = linear_of<T>(g.dattn_lp, g.wproj_t, M, D, D);
+  l.out_lp = g.do_lp;
   if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
 
   // attention, per (element, head): dq (times the q-column scale), dk, dv
   // straight into the q, k, v columns of dqkv, their column sums per element
-  attn_delta_kernel<<<row_blocks((long long)M * H), ROW_THREADS, 0, st>>>(
+  attn_delta_kernel<T><<<row_blocks((long long)M * H), ROW_THREADS, 0, st>>>(
       g.do_lp, f.merged, M, N, D, H, g.delta);
-  AttnBwdArgs a = {};
+  AttnBwdArgsT<T> a = {};
   a.q = f.qkv_lp; a.k = f.qkv_lp + D; a.v = f.qkv_lp + 2 * D; a.dout = g.do_lp;
   a.q_sb = a.k_sb = a.v_sb = (long long)N * 3 * D;
   a.q_sh = a.k_sh = a.v_sh = hd;
@@ -309,16 +334,16 @@ inline cudaError_t reverse_chain(const TG* g_out, const bf16* g_feat, const floa
   reduce_chunks(g.col_partial, sh.B, 3 * D, dbqkv, st);
 
   // qkv = LN1(x) Wqkv^T + bqkv
-  if ((err = weight_grad_sm90(g.dqkv_lp, f.y, M, 3 * D, D, g.partial, dwqkv, st)) !=
-      cudaSuccess)
+  if ((err = weight_grad_sm90(g.dqkv_lp, f.y, M, 3 * D, D, g.partial, dwqkv, st, g.gt,
+                              g.xt)) != cudaSuccess)
     return err;
-  l = linear_of(g.dqkv_lp, g.wqkv_t, M, D, 3 * D);
+  l = linear_of<T>(g.dqkv_lp, g.wqkv_t, M, D, 3 * D);
   l.out_f32 = g.dy;
   if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
 
   // LN1 backward; dx = dx2 + dLN1; the sums of the LN1 gain and bias
-  if ((err = cs_opt_in(ln_bwd_kernel<float>, cs_smem(2, D))) != cudaSuccess) return err;
-  ln_bwd_kernel<float><<<chunks, ROW_THREADS, cs_smem(2, D), st>>>(
+  if ((err = cs_opt_in(ln_bwd_kernel<float, T>, cs_smem(2, D))) != cudaSuccess) return err;
+  ln_bwd_kernel<float, T><<<chunks, ROW_THREADS, cs_smem(2, D), st>>>(
       g.dy, f.xhat1, f.rstd1, w.g1, g.dx2, M, D, dx32, dx, nullptr, N, nullptr, g.col_partial);
   cs_reduce(g.col_partial, chunks, D, 0, dg1, st);
   cs_reduce(g.col_partial, chunks, D, 1, db1, st);

@@ -6,6 +6,8 @@
 // nn.Linear weights W1 [F, D], W2 [D, F]:
 //
 //   forward   h = gelu(x W1^T + b1) rounded to bf16, o = h W2^T + b2
+//             (fp32 operands: `dk_fused_mlp_fwd_f32` at the end of this file,
+//             the same with 3xTF32 products and h kept fp32)
 //   backward  hpre and h recomputed from x; dh = dy W2, dhpre = dh gelu'(hpre),
 //             dx = dhpre W1, dW1 = dhpre^T x, dW2 = h^T dy,
 //             db1 = colsum(dhpre), db2 = colsum(dy)        (fp32 sums)
@@ -384,17 +386,17 @@ extern "C" int dk_fused_mlp_bwd(const void* x_, const void* w1_, const void* b1_
   // recompute h = gelu(hpre) and gelu'(hpre), hpre = x W1^T + b1
   Linear l = linear_of(x, w1, M, F, D);
   l.bias = (const float*)b1_; l.gelu = 1; l.act_grad = g.hgrad;
-  l.out_bf16 = g.h;
+  l.out_lp = g.h;
   if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
   // dhpre = (dy W2) * gelu'(hpre) in bf16; db1 from its 128-row column sums
   l = linear_of(dy, g.w2_t, M, F, D);
   l.mul = g.hgrad; l.col_part = g.col_partial;
-  l.out_bf16 = g.dhpre;
+  l.out_lp = g.dhpre;
   if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
   cs_reduce(g.col_partial, linear_row_tiles(M), F, 0, (float*)db1, st);
   // dx = dhpre W1
   l = linear_of(g.dhpre, g.w1_t, M, D, F);
-  l.out_bf16 = (bf16*)dx;
+  l.out_lp = (bf16*)dx;
   if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
   // dW1 = dhpre^T x, dW2 = dy^T h
   if ((err = weight_grad_sm90(g.dhpre, x, M, F, D, g.partial, (float*)dw1, st)) != cudaSuccess)
@@ -406,5 +408,51 @@ extern "C" int dk_fused_mlp_bwd(const void* x_, const void* w1_, const void* b1_
   if ((err = cs_opt_in(colsum_kernel, cs_smem(1, D))) != cudaSuccess) return (int)err;
   colsum_kernel<<<chunks, ROW_THREADS, cs_smem(1, D), st>>>(dy, M, D, g.col_partial);
   reduce_chunks(g.col_partial, chunks, D, (float*)db2, st);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Forward, fp32 operands (3xTF32)
+// ---------------------------------------------------------------------------
+
+// The fp32 form of the forward, for an fp32 model: every product 3xTF32 on
+// the TF32 wgmma with fp32 accumulation (gemm_sm90.cuh), nothing rounded to
+// bf16. It is a chain on gemm_sm90.cuh's fp32 linear product, not the fused
+// kernel above:
+//   1. h = gelu(x W1^T + b1), erf-GELU in the epilogue (`gelu_erf`), stored
+//      fp32 in the workspace;
+//   2. out = h W2^T + b2, stored fp32.
+// What this form gives up: the [M, F] hidden goes through device memory
+// (8 bytes an element, written and read back), which the bf16 kernel keeps on
+// chip. At fp32 its x tile alone (64 rows x D 384 x 4 bytes) would take 96 KB
+// of shared memory, beside the split tiles of 3xTF32, so the fused design
+// needs a plan of its own; a simple chain comes first.
+extern "C" size_t dk_fused_mlp_fwd_f32_workspace(int M, int D, int F) {
+  Carver c{nullptr, 0};
+  c.take<float>((long long)M * F);
+  return c.off;
+}
+
+// x: [M, D] fp32; w1: [F, D], w2: [D, F] fp32; b1: [F], b2: [D] fp32; out:
+// [M, D] fp32; work: dk_fused_mlp_fwd_f32_workspace(M, D, F) bytes. Takes D
+// and F multiples of 8 and 16-byte-aligned x, w1 and w2. Returns
+// cudaGetLastError() after the launches, or -1, without a launch, for a
+// shape it refuses.
+extern "C" int dk_fused_mlp_fwd_f32(const void* x_, const void* w1_, const void* b1_,
+                                    const void* w2_, const void* b2_, void* out_, void* work,
+                                    int M, int D, int F, void* stream) {
+  if (M < 1 || D < 8 || F < 8 || D % 8 || F % 8 || !work) return -1;
+  cudaStream_t st = (cudaStream_t)stream;
+  Carver c{(char*)work, 0};
+  float* h = c.take<float>((long long)M * F);
+  cudaError_t err;
+  LinearT<float> f1 = linear_of((const float*)x_, (const float*)w1_, M, F, D);
+  f1.bias = (const float*)b1_; f1.gelu = 1;
+  f1.out_lp = h;
+  if ((err = linear_sm90(f1, st)) != cudaSuccess) return err == cudaErrorInvalidValue ? -1 : (int)err;
+  LinearT<float> f2 = linear_of((const float*)h, (const float*)w2_, M, D, F);
+  f2.bias = (const float*)b2_;
+  f2.out_f32 = (float*)out_;
+  if ((err = linear_sm90(f2, st)) != cudaSuccess) return err == cudaErrorInvalidValue ? -1 : (int)err;
   return (int)cudaGetLastError();
 }

@@ -56,6 +56,27 @@
 // range; the caller sums them in range order. Each output element is summed
 // by one warpgroup in a fixed k order and the partials in a fixed order: no
 // atomics, two runs give the same bits.
+//
+// Both forms take fp32 operands as well (the operand type T, `Operand<T>`):
+// an fp32 product is 3xTF32 on the TF32 wgmma (m64n64k8.f32.tf32.tf32, 495
+// TFLOP/s dense) with fp32 accumulation. A 128-byte swizzle row holds 32
+// fp32, so a k-block is 32 deep and a stage holds the bf16 ring's bytes; a
+// k-step of 8 is 32 bytes, as bf16's of 16 is. TF32 wgmma takes no
+// transpose: both shared-memory operands are K-major. linear_kernel reads
+// them so already; weight_grad_kernel's depth m is the strided dimension of
+// G and X, so the fp32 weight gradient first transposes them in device
+// memory (G^T [O, M], X^T [I, M], fused_block_common.cuh `weight_grad_sm90`)
+// and then reads both K-major.
+// 3xTF32: one TF32 product (10 mantissa bits, an eighth of bf16's rounding)
+// held the fp32 forms' error to 0.25 of the bf16 forms' with no margin (one
+// input draw in 64 read 0.249 for a block's dx), so every fp32 product is
+// a_hi b_hi + a_hi b_lo + a_lo b_hi, with hi = TF32(v) rounded to nearest and
+// lo = TF32(v - hi): about 21 bits of each operand. The operands are stored
+// fp32 and unrounded (`to_lp<float>` is the identity); when a stage lands,
+// the consumer warps split it: hi in place (wgmma would otherwise truncate
+// the low 13 bits), lo into a double-buffered tile of its own (`split_tf32`),
+// then three wgmma per k-step. The lo tiles (48 KB) leave room for one CTA
+// an SM, not two.
 
 #pragma once
 
@@ -64,9 +85,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace dk {
 
 using bf16 = __nv_bfloat16;
+
+template <typename T>
+constexpr bool is_f32 = std::is_same<T, float>::value;
+
+// x rounded to nearest TF32 (10 explicit mantissa bits; ties away from zero),
+// as an fp32 bit pattern whose low 13 bits are zero.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
@@ -248,16 +282,111 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+// D[64 x 64] (+)= A[64 x 8] B[8 x 64] with TF32 operands read from fp32 bit
+// patterns, A and B K-major in shared memory (TF32 takes no transpose).
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D[64 x 64] += A[64 x 8] B[8 x 64], A from registers (one TF32 value each:
+// of the warp's 16 rows, a[0] at (lane / 4, lane % 4), a[1] 8 rows down,
+// a[2] and a[3] 4 columns right of those), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// The operand type of a product: bf16 (wgmma k = 16) or fp32 read as TF32
+// (k = 8). A 128-byte swizzle row holds BK elements of either, and a k-step
+// is 32 bytes of it, so a K-major tile's descriptor moves by 2 (32 >> 4) a
+// step in both; `mma` is one k-step with A and B K-major in shared memory.
+template <typename T>
+struct Operand;
+
+template <>
+struct Operand<bf16> {
+  static constexpr int BK = 64, KSTEP = 16;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+    wgmma_ss(d, da, db, acc);
+  }
+};
+
+// fp32: one k-step is three TF32 products of the split tiles (hi in the
+// stage, lo in tiles of their own), the small terms first.
+template <>
+struct Operand<float> {
+  static constexpr int BK = 32, KSTEP = 8;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static __device__ __forceinline__ void mma3(float (&d)[32], uint64_t da, uint64_t da_lo,
+                                              uint64_t db, uint64_t db_lo, int acc) {
+    wgmma_ss_tf32(d, da_lo, db, acc);
+    wgmma_ss_tf32(d, da, db_lo, 1);
+    wgmma_ss_tf32(d, da, db, 1);
+  }
+};
+
+// v as a product operand of type T: bf16 rounded to nearest, or fp32 as it
+// is (the fp32 GEMM splits its tiles into TF32 hi and lo parts itself).
+template <typename T>
+__device__ __forceinline__ T to_lp(float v);
+template <>
+__device__ __forceinline__ bf16 to_lp<bf16>(float v) { return __float2bfloat16(v); }
+template <>
+__device__ __forceinline__ float to_lp<float>(float v) { return v; }
+
+// Writes of the generic proxy to shared memory, made visible to the async
+// proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The 3xTF32 split of n fp32 values of a tile in shared memory, by threads
+// `tid` of `nthreads`: t[i] = hi = TF32(t[i]) rounded to nearest, lo[i] =
+// TF32(t[i] - hi). Elementwise, so any layout (the swizzle too) carries over
+// to a lo tile at the same offset from a 1024-byte boundary.
+__device__ __forceinline__ void split_tf32(float* t, float* lo, int n, int tid, int nthreads) {
+  for (int i = 4 * tid; i < n; i += 4 * nthreads) {
+    float4 v = *reinterpret_cast<float4*>(t + i);
+    float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
+    *reinterpret_cast<float4*>(t + i) = h;
+    *reinterpret_cast<float4*>(lo + i) = make_float4(tf32_rna(v.x - h.x), tf32_rna(v.y - h.y),
+                                                     tf32_rna(v.z - h.z), tf32_rna(v.w - h.w));
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The linear product and its epilogue
 // ---------------------------------------------------------------------------
 
-// C = a w^T with a [M, K] row-major and w [N, K] (nn.Linear), then, in this
-// order, on v = C[m, n] (outputs [M, N] row-major):
-struct Linear {
+// C = a w^T with a [M, K] row-major and w [N, K] (nn.Linear), operands of
+// type T (bf16, or fp32 on TF32), then, in this order, on v = C[m, n]
+// (outputs [M, N] row-major):
+template <typename T>
+struct LinearT {
   int M, N, K;
-  const bf16* a;
-  const bf16* w;
+  const T* a;
+  const T* w;
   const float* bias;        // v += bias[n]
   int scale_cols;           // v *= col_scale for n < scale_cols
   float col_scale;
@@ -266,17 +395,20 @@ struct Linear {
                             // column sums of v here (fp32, rows past M left out)
   int gelu;                 // v = gelu(v); gelu'(v) -> act_grad (fp32)
   float* act_grad;
-  bf16* pre_bf16;           // pre_bf16 = v (before the residual)
+  T* pre_lp;                // pre_lp = v (before the residual), as a product operand
   const float* res_f32;     // v = res + res_scale[m / rows_per_sample] * v
   const bf16* res_bf16;
   const float* res_scale;
   int rows_per_sample;
   float* out_f32;           // out = v
-  bf16* out_bf16;
+  T* out_lp;                // out = v, as a product operand (to_lp)
 };
 
-inline Linear linear_of(const bf16* a, const bf16* w, int M, int N, int K) {
-  Linear p = {};
+using Linear = LinearT<bf16>;
+
+template <typename T>
+inline LinearT<T> linear_of(const T* a, const T* w, int M, int N, int K) {
+  LinearT<T> p = {};
   p.M = M; p.N = N; p.K = K;
   p.a = a; p.w = w;
   p.col_scale = 1.0f;
@@ -285,13 +417,21 @@ inline Linear linear_of(const bf16* a, const bf16* w, int M, int N, int K) {
 }
 
 namespace sm90 {
-constexpr int BM = 128, BN = 64, BK = 64, STAGES = 4, CONSUMER_WARPS = 8, EPI_J = 4;
+constexpr int BM = 128, BN = 64, STAGES = 4, CONSUMER_WARPS = 8, EPI_J = 4;
+constexpr int ROW_BYTES = 128;   // a k-block of one operand row: Operand<T>::BK elements
 constexpr int THREADS = (CONSUMER_WARPS + 1) * 32;
 constexpr int CTAS_PER_SM = 2;
-// the ring, its barriers, and the column sums of one tile per consumer warp
-constexpr size_t SMEM_BYTES = (size_t)STAGES * (BM + BN) * BK * sizeof(bf16) +
-                              2 * STAGES * sizeof(uint64_t) + CONSUMER_WARPS * BN * sizeof(float) +
-                              1024;
+// fp32: the lo tiles of A and B, two sets (a k-block's products stay in
+// flight while the next k-block is split)
+template <typename T>
+constexpr int LO_ELEMS = is_f32<T> ? 2 * (BM + BN) * Operand<T>::BK : 0;
+// the ring, the lo tiles, the barriers, and the column sums of one tile per
+// consumer warp
+template <typename T>
+constexpr size_t smem_bytes() {
+  return (size_t)STAGES * (BM + BN) * ROW_BYTES + LO_ELEMS<T> * sizeof(T) +
+         2 * STAGES * sizeof(uint64_t) + CONSUMER_WARPS * BN * sizeof(float) + 1024;
+}
 }  // namespace sm90
 
 // Row tiles of a linear product of M rows (the rows of `Linear::col_part`).
@@ -302,6 +442,24 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(sm90::CONSUMER_WARPS * 32) : "memory");
 }
 
+// fp32: the 3xTF32 split of a landed stage by the consumer warps. A
+// warpgroup splits its own 64 rows of A (`a`, its lo rows `a_lo`; with
+// `own_a` false, as for a weight gradient's half past O, it skips them), all
+// consumer threads together the B tile shared by both. The barrier before
+// keeps the lo tiles from being overwritten while the other warpgroup's
+// products of two k-blocks back may still read them (each warpgroup waits
+// for its own only); the one after publishes the split to both.
+__device__ __forceinline__ void split_stage(float* a, float* a_lo, float* b, float* b_lo,
+                                            bool own_a) {
+  using namespace sm90;
+  constexpr int BK = Operand<float>::BK;
+  consumer_sync();
+  if (own_a) split_tf32(a, a_lo, 64 * BK, threadIdx.x % 128, 128);
+  split_tf32(b, b_lo, BN * BK, threadIdx.x, CONSUMER_WARPS * 32);
+  fence_proxy_async();
+  consumer_sync();
+}
+
 // Two neighbouring outputs as one float2 / bf16x2 store.
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -309,12 +467,15 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+// ... as product operands (to_lp): bf16 as above, fp32 as it is
+__device__ __forceinline__ void store2_lp(bf16* p, float a, float b) { store2(p, a, b); }
+__device__ __forceinline__ void store2_lp(float* p, float a, float b) { store2(p, a, b); }
 
 // The epilogue of columns n, n + 1 of row m, given their bias b, residual r,
 // multiplier mu (read only with MUL) and the row's residual scale rs (each
 // read by the caller). Returns v after the multiplier.
-template <bool MUL>
-__device__ __forceinline__ float2 linear_epilogue(const Linear& p, int m, int n, float v0,
+template <typename T, bool MUL>
+__device__ __forceinline__ float2 linear_epilogue(const LinearT<T>& p, int m, int n, float v0,
                                                   float v1, float2 b, float2 r, float2 mu,
                                                   float rs) {
   const long long c = (long long)m * p.N + n;
@@ -334,17 +495,18 @@ __device__ __forceinline__ float2 linear_epilogue(const Linear& p, int m, int n,
     v0 = gelu_erf(v0);
     v1 = gelu_erf(v1);
   }
-  if (p.pre_bf16) store2(p.pre_bf16 + c, v0, v1);
+  if (p.pre_lp) store2_lp(p.pre_lp + c, v0, v1);
   if (!MUL && p.res_scale) {
     v0 = r.x + rs * v0;
     v1 = r.y + rs * v1;
   }
   if (p.out_f32) store2(p.out_f32 + c, v0, v1);
-  if (p.out_bf16) store2(p.out_bf16 + c, v0, v1);
+  if (p.out_lp) store2_lp(p.out_lp + c, v0, v1);
   return after_mul;
 }
 
-__device__ __forceinline__ float2 load_residual(const Linear& p, long long c) {
+template <typename T>
+__device__ __forceinline__ float2 load_residual(const LinearT<T>& p, long long c) {
   if (p.res_f32) return __ldg(reinterpret_cast<const float2*>(p.res_f32 + c));
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p.res_bf16 + c)));
 }
@@ -352,15 +514,17 @@ __device__ __forceinline__ float2 load_residual(const Linear& p, long long c) {
 // MUL: the epilogue reads `mul` and may write `col_part` (an instantiation of
 // its own, so that the forward's products keep the registers of the one
 // without it).
-template <bool MUL>
+template <typename T, bool MUL>
 static __global__ void __launch_bounds__(sm90::THREADS, sm90::CTAS_PER_SM)
 linear_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
-              const Linear p) {
+              const LinearT<T> p) {
   using namespace sm90;
+  constexpr int BK = Operand<T>::BK;
   extern __shared__ unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(align1024(smem_raw));   // [STAGES][BM][BK]
-  bf16* Bs = As + STAGES * BM * BK;                            // [STAGES][BN][BK]
-  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + STAGES * BN * BK);
+  T* As = reinterpret_cast<T*>(align1024(smem_raw));         // [STAGES][BM][BK]
+  T* Bs = As + STAGES * BM * BK;                               // [STAGES][BN][BK]
+  T* lo = Bs + STAGES * BN * BK;                               // fp32: [2][BM + BN][BK]
+  uint64_t* full = reinterpret_cast<uint64_t*>(lo + LO_ELEMS<T>);
   uint64_t* empty = full + STAGES;
   float* cs = reinterpret_cast<float*>(empty + STAGES);     // [CONSUMER_WARPS][BN]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -387,7 +551,7 @@ linear_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ 
         const int m0 = t / n_tiles * BM, n0 = t % n_tiles * BN;
         for (int kb = 0; kb < k_blocks; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], (BM + BN) * BK * sizeof(bf16));
+          mbar_expect_tx(&full[stage], (BM + BN) * BK * sizeof(T));
           tma_load_2d(As + stage * BM * BK, &tm_a, kb * BK, m0, &full[stage]);
           tma_load_2d(Bs + stage * BN * BK, &tm_w, kb * BK, n0, &full[stage]);
           if (++stage == STAGES) { stage = 0; phase ^= 1; }
@@ -408,9 +572,23 @@ linear_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ 
       mbar_wait(&full[stage], phase);
       const uint64_t da = sw128_desc(As + stage * BM * BK + wg * 64 * BK);
       const uint64_t db = sw128_desc(Bs + stage * BN * BK);
-      wgmma_fence();
+      if constexpr (is_f32<T>) {
+        T* lo_a = lo + (kb & 1) * (BM + BN) * BK;
+        T* lo_b = lo_a + BM * BK;
+        split_stage(As + stage * BM * BK + wg * 64 * BK, lo_a + wg * 64 * BK,
+                    Bs + stage * BN * BK, lo_b, true);
+        const uint64_t da_lo = sw128_desc(lo_a + wg * 64 * BK), db_lo = sw128_desc(lo_b);
+        wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < BK / 16; ++k) wgmma_ss(acc, da + 2 * k, db + 2 * k, kb > 0 || k > 0);
+        for (int k = 0; k < BK / Operand<T>::KSTEP; ++k)
+          Operand<T>::mma3(acc, da + 2 * k, da_lo + 2 * k, db + 2 * k, db_lo + 2 * k,
+                           kb > 0 || k > 0);
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < BK / Operand<T>::KSTEP; ++k)
+          Operand<T>::mma(acc, da + 2 * k, db + 2 * k, kb > 0 || k > 0);
+      }
       wgmma_commit();
       // the k-block before this one is done: its stage goes back to the producer
       wgmma_wait<1>();
@@ -461,7 +639,7 @@ linear_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ 
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           if (row_ok[h]) {
-            const float2 v = linear_epilogue<MUL>(
+            const float2 v = linear_epilogue<T, MUL>(
                 p, row + 8 * h, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], b[jj],
                 MUL ? make_float2(0.f, 0.f) : r[MUL ? 0 : jj][h],
                 MUL ? mu[MUL ? jj : 0][h] : make_float2(1.f, 1.f), rs[h]);
@@ -517,14 +695,21 @@ struct WeightGrad {
 // i), so a k-step of 16 rows is 2048 bytes on. Where the tile's upper 64
 // columns of o lie past O (O = 192 is three halves), that half is not loaded
 // and its warpgroup only keeps the ring in step.
+// fp32 (TF32, which takes no transpose): tm_g and tm_x map G^T [O, M] and
+// X^T [I, M], and a stage holds K-major [64 o][32 m] boxes of G^T and a
+// [64 i][32 m] box of X^T, a k-step of 8 rows 32 bytes on, as linear_kernel
+// reads its tiles.
+template <typename T>
 static __global__ void __launch_bounds__(sm90::THREADS, sm90::CTAS_PER_SM)
 weight_grad_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_constant__ CUtensorMap tm_x,
                    const WeightGrad p) {
   using namespace sm90;
+  constexpr int BK = Operand<T>::BK;
   extern __shared__ unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(align1024(smem_raw));   // [STAGES][2][BK][64]
-  bf16* Bs = As + STAGES * BM * BK;                            // [STAGES][BK][BN]
-  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + STAGES * BN * BK);
+  T* As = reinterpret_cast<T*>(align1024(smem_raw));         // [STAGES][2][BK][64]
+  T* Bs = As + STAGES * BM * BK;                               // [STAGES][BK][BN]
+  T* lo = Bs + STAGES * BN * BK;                               // fp32: [2][BM + BN][BK]
+  uint64_t* full = reinterpret_cast<uint64_t*>(lo + LO_ELEMS<T>);
   uint64_t* empty = full + STAGES;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -553,11 +738,18 @@ weight_grad_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_consta
         const int kb0 = s * p.kb_per_split, kb1 = min(k_total, kb0 + p.kb_per_split);
         for (int kb = kb0; kb < kb1; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], (halves * 64 + BN) * BK * sizeof(bf16));
-          for (int h = 0; h < halves; ++h)
-            tma_load_2d(As + stage * BM * BK + h * 64 * BK, &tm_g, o0 + 64 * h, kb * BK,
-                        &full[stage]);
-          tma_load_2d(Bs + stage * BN * BK, &tm_x, i0, kb * BK, &full[stage]);
+          mbar_expect_tx(&full[stage], (halves * 64 + BN) * BK * sizeof(T));
+          for (int h = 0; h < halves; ++h) {
+            T* dst = As + stage * BM * BK + h * 64 * BK;
+            if constexpr (is_f32<T>)
+              tma_load_2d(dst, &tm_g, kb * BK, o0 + 64 * h, &full[stage]);
+            else
+              tma_load_2d(dst, &tm_g, o0 + 64 * h, kb * BK, &full[stage]);
+          }
+          if constexpr (is_f32<T>)
+            tma_load_2d(Bs + stage * BN * BK, &tm_x, kb * BK, i0, &full[stage]);
+          else
+            tma_load_2d(Bs + stage * BN * BK, &tm_x, i0, kb * BK, &full[stage]);
           if (++stage == STAGES) { stage = 0; phase ^= 1; }
         }
       }
@@ -577,13 +769,27 @@ weight_grad_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_consta
     const int kb0 = s * p.kb_per_split, kb1 = min(k_total, kb0 + p.kb_per_split);
     for (int kb = kb0; kb < kb1; ++kb) {
       mbar_wait(&full[stage], phase);
+      if constexpr (is_f32<T>) {   // every consumer warp splits and syncs, active or not
+        T* lo_a = lo + (kb & 1) * (BM + BN) * BK;
+        T* lo_b = lo_a + BM * BK;
+        split_stage(As + (stage * BM + wg * 64) * BK, lo_a + wg * 64 * BK,
+                    Bs + stage * BN * BK, lo_b, active);
+      }
       if (active) {
         const uint64_t da = sw128_desc(As + (stage * BM + wg * 64) * BK);
         const uint64_t db = sw128_desc(Bs + stage * BN * BK);
         wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < BK / 16; ++k)
-          wgmma_ss_tt(acc, da + 128 * k, db + 128 * k, kb > kb0 || k > 0);
+        for (int k = 0; k < BK / Operand<T>::KSTEP; ++k) {
+          if constexpr (is_f32<T>) {
+            T* lo_a = lo + (kb & 1) * (BM + BN) * BK;
+            Operand<T>::mma3(acc, da + 2 * k, sw128_desc(lo_a + wg * 64 * BK) + 2 * k,
+                             db + 2 * k, sw128_desc(lo_a + BM * BK) + 2 * k,
+                             kb > kb0 || k > 0);
+          } else {
+            wgmma_ss_tt(acc, da + 128 * k, db + 128 * k, kb > kb0 || k > 0);
+          }
+        }
         wgmma_commit();
         // the k-block before this one is done: its stage goes back to the producer
         wgmma_wait<1>();
@@ -641,16 +847,19 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map of a row-major [rows, K] bf16 matrix, read in boxes of
-// [box_rows, 64] in the 128-byte swizzle; out-of-range elements read as 0.
-inline bool kmajor_map(CUtensorMap* map, const bf16* ptr, int rows, int K, int box_rows) {
+// Tensor map of a row-major [rows, K] matrix of T (rows `ld` elements apart,
+// ld = K when 0), read in boxes of [box_rows, Operand<T>::BK] (128 bytes) in
+// the 128-byte swizzle; out-of-range elements read as 0.
+template <typename T>
+inline bool kmajor_map(CUtensorMap* map, const T* ptr, int rows, int K, int box_rows,
+                       int ld = 0) {
   const EncodeTiledFn enc = encode_tiled();
   if (!enc) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld ? ld : K) * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)Operand<T>::BK, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)ptr, dims, strides, box, elem,
+  return enc(map, Operand<T>::MAP, 2, (void*)ptr, dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -662,24 +871,24 @@ inline bool kmajor_map(CUtensorMap* map, const bf16* ptr, int rows, int K, int b
 // one object for the whole process, and a second library would launch without
 // its opt-in).
 constexpr int kMaxDevices = 64;
-static int linear_grid[2][kMaxDevices];
+static int linear_grid[2][2][kMaxDevices];   // [fp32][MUL][device]
 
-template <bool MUL>
-inline cudaError_t launch_linear(const CUtensorMap& ta, const CUtensorMap& tw, const Linear& p,
-                                 cudaStream_t st) {
+template <typename T, bool MUL>
+inline cudaError_t launch_linear(const CUtensorMap& ta, const CUtensorMap& tw,
+                                 const LinearT<T>& p, cudaStream_t st) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int& slots = linear_grid[MUL][dev];
+  int& slots = linear_grid[is_f32<T>][MUL][dev];
   if (!slots) {
     int sms = 0, per_sm = 0;
-    e = cudaFuncSetAttribute(linear_kernel<MUL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm90::SMEM_BYTES);
+    e = cudaFuncSetAttribute(linear_kernel<T, MUL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sm90::smem_bytes<T>());
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, linear_kernel<MUL>,
-                                                        sm90::THREADS, sm90::SMEM_BYTES);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, linear_kernel<T, MUL>,
+                                                        sm90::THREADS, sm90::smem_bytes<T>());
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     slots = sms * per_sm;
@@ -687,7 +896,7 @@ inline cudaError_t launch_linear(const CUtensorMap& ta, const CUtensorMap& tw, c
   const long long tiles =
       (long long)((p.M + sm90::BM - 1) / sm90::BM) * ((p.N + sm90::BN - 1) / sm90::BN);
   const int grid = (int)(tiles < slots ? tiles : slots);
-  linear_kernel<MUL><<<grid, sm90::THREADS, sm90::SMEM_BYTES, st>>>(ta, tw, p);
+  linear_kernel<T, MUL><<<grid, sm90::THREADS, sm90::smem_bytes<T>(), st>>>(ta, tw, p);
   return cudaGetLastError();
 }
 
@@ -695,26 +904,29 @@ inline cudaError_t launch_linear(const CUtensorMap& ta, const CUtensorMap& tw, c
 // strides are multiples of 16 bytes), 16-byte-aligned a and w, and `mul` or
 // a residual but not both; returns cudaErrorInvalidValue for anything else,
 // without a launch.
-inline cudaError_t linear_sm90(const Linear& p, cudaStream_t st) {
+template <typename T>
+inline cudaError_t linear_sm90(const LinearT<T>& p, cudaStream_t st) {
   if (p.M < 1 || p.N < 8 || p.K < 8 || p.N % 8 || p.K % 8 ||
       ((uintptr_t)p.a | (uintptr_t)p.w) % 16 || (p.mul && p.res_scale))
     return cudaErrorInvalidValue;
   CUtensorMap ta, tw;
   if (!kmajor_map(&ta, p.a, p.M, p.K, sm90::BM) || !kmajor_map(&tw, p.w, p.N, p.K, sm90::BN))
     return cudaErrorInvalidValue;
-  return p.mul ? launch_linear<true>(ta, tw, p, st) : launch_linear<false>(ta, tw, p, st);
+  return p.mul ? launch_linear<T, true>(ta, tw, p, st) : launch_linear<T, false>(ta, tw, p, st);
 }
 
 // The split of a weight gradient's M rows into row ranges: as many ranges
 // as fill kWgradSlots CTA slots (two CTAs on each of an H100's 132 SMs) with
-// (tile, range) items, each range a whole number of 64-row k-blocks and none
-// empty. A function of the shape alone, so the workspace can be sized before
-// a launch and the sum order is the same on every run.
+// (tile, range) items, each range a whole number of k-blocks (64 rows of
+// bf16, 32 of fp32) and none empty. A function of the shape alone, so the
+// workspace can be sized before a launch and the sum order is the same on
+// every run.
 constexpr int kWgradSlots = 2 * 132;
 
+template <typename T = bf16>
 inline void weight_grad_plan(int M, int O, int I, int* splits, int* kb_per_split) {
   const int tiles = (O + sm90::BM - 1) / sm90::BM * ((I + sm90::BN - 1) / sm90::BN);
-  const int k_total = (M + sm90::BK - 1) / sm90::BK;
+  const int k_total = (M + Operand<T>::BK - 1) / Operand<T>::BK;
   int s = (kWgradSlots + tiles - 1) / tiles;
   s = s < 1 ? 1 : (s > k_total ? k_total : s);
   const int per = (k_total + s - 1) / s;
@@ -723,50 +935,62 @@ inline void weight_grad_plan(int M, int O, int I, int* splits, int* kb_per_split
 }
 
 // fp32 elements of the partials of one weight gradient.
+template <typename T = bf16>
 inline long long weight_grad_partial_len(int M, int O, int I) {
   int splits, per;
-  weight_grad_plan(M, O, I, &splits, &per);
+  weight_grad_plan<T>(M, O, I, &splits, &per);
   return (long long)splits * O * I;
 }
 
-static int wgrad_grid[kMaxDevices];
+// The row length of the transposed G^T and X^T of an fp32 weight gradient:
+// M rounded up to a multiple of 4 (TMA strides are multiples of 16 bytes).
+inline int transposed_ld(int M) { return (M + 3) / 4 * 4; }
 
-// Launches the partials of dW[O, I] = g^T x (g [M, O], x [M, I] bf16,
-// row-major) into `partial` (weight_grad_partial_len floats) on `st` and
-// returns the number of partials through `splits`. Takes O and I multiples of
-// 8 and 16-byte-aligned g and x; cudaErrorInvalidValue, without a launch, for
-// anything else.
-inline cudaError_t weight_grad_partials_sm90(const bf16* g, const bf16* x, int M, int O, int I,
+static int wgrad_grid[2][kMaxDevices];   // [fp32][device]
+
+// Launches the partials of dW[O, I] = g^T x into `partial`
+// (weight_grad_partial_len<T> floats) on `st` and returns the number of
+// partials through `splits`. bf16: g [M, O] and x [M, I] row-major. fp32:
+// g and x are G^T [O, M] and X^T [I, M], rows transposed_ld(M) apart. Takes
+// O and I multiples of 8 and 16-byte-aligned g and x; cudaErrorInvalidValue,
+// without a launch, for anything else.
+template <typename T>
+inline cudaError_t weight_grad_partials_sm90(const T* g, const T* x, int M, int O, int I,
                                              float* partial, int* splits, cudaStream_t st) {
   if (M < 1 || O < 8 || I < 8 || O % 8 || I % 8 || ((uintptr_t)g | (uintptr_t)x) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap tg, tx;
-  if (!kmajor_map(&tg, g, M, O, sm90::BK) || !kmajor_map(&tx, x, M, I, sm90::BK))
-    return cudaErrorInvalidValue;
+  const bool mapped =
+      is_f32<T> ? kmajor_map(&tg, g, O, M, 64, transposed_ld(M)) &&
+                      kmajor_map(&tx, x, I, M, sm90::BN, transposed_ld(M))
+                : kmajor_map(&tg, g, M, O, Operand<T>::BK) &&
+                      kmajor_map(&tx, x, M, I, Operand<T>::BK);
+  if (!mapped) return cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!wgrad_grid[dev]) {
+  int& slots = wgrad_grid[is_f32<T>][dev];
+  if (!slots) {
     int sms = 0, per_sm = 0;
-    e = cudaFuncSetAttribute(weight_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm90::SMEM_BYTES);
+    e = cudaFuncSetAttribute(weight_grad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sm90::smem_bytes<T>());
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, weight_grad_kernel,
-                                                        sm90::THREADS, sm90::SMEM_BYTES);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, weight_grad_kernel<T>,
+                                                        sm90::THREADS, sm90::smem_bytes<T>());
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    wgrad_grid[dev] = sms * per_sm;
+    slots = sms * per_sm;
   }
   WeightGrad p;
   p.M = M; p.O = O; p.I = I;
-  weight_grad_plan(M, O, I, &p.splits, &p.kb_per_split);
+  weight_grad_plan<T>(M, O, I, &p.splits, &p.kb_per_split);
   p.partial = partial;
   const long long items = (long long)((O + sm90::BM - 1) / sm90::BM) *
                           ((I + sm90::BN - 1) / sm90::BN) * p.splits;
-  const int grid = (int)(items < wgrad_grid[dev] ? items : wgrad_grid[dev]);
-  weight_grad_kernel<<<grid, sm90::THREADS, sm90::SMEM_BYTES, st>>>(tg, tx, p);
+  const int grid = (int)(items < slots ? items : slots);
+  weight_grad_kernel<T><<<grid, sm90::THREADS, sm90::smem_bytes<T>(), st>>>(tg, tx, p);
   *splits = p.splits;
   return cudaGetLastError();
 }

@@ -11,8 +11,8 @@ stochastic depth, 1 otherwise) and ``feat`` the post-MLP, pre-drop-path,
 pre-residual hidden state a feature-KD objective reads.
 
 Numerics follow the TPU kernel: matmul operands are rounded to the compute
-dtype (bf16 on the card) and accumulated in fp32; LayerNorm, softmax, GELU and
-the residual stream run in fp32; the softmax normalisation is applied after
+dtype (x's: bf16, or fp32) and accumulated in fp32; LayerNorm, softmax, GELU
+and the residual stream run in fp32; the softmax normalisation is applied after
 the ``e @ v`` product (``post_div``). The backward saves only ``x`` and the
 scales and recomputes the forward. Its plain version folds the softmax
 normalisations into row scalings, as the JAX package does; the kernel reaches
@@ -26,8 +26,14 @@ backward its cotangent, never leave fp32 (a single block rounds its output to
 the compute dtype), and the backward saves one tensor per pair.
 
 Dispatch is by the device of ``x``: a CPU tensor takes the plain version, a
-CUDA tensor the hand-written kernels in ``csrc/`` (bf16 only), anything else
-raises. Weights use nn.Linear's [out, in] layout and timm's names.
+CUDA tensor the hand-written kernels in ``csrc/``, anything else raises. The
+single-block kernels take bf16 x (any float weights, rounded to bf16) or fp32
+x with fp32 weights: the fp32 form runs every product on TF32 tensor cores
+in 3xTF32 (a high and a low TF32 part of each operand, three products: about
+fp32 accuracy) and rounds nothing to bf16, as the TPU kernel runs at its
+input's dtype; its plain version is the same function at fp32, `_mm` in full
+fp32. The pair kernels take bf16 only. Weights use
+nn.Linear's [out, in] layout and timm's names.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import math
 from typing import Mapping, Optional, Tuple
 
 import torch
+
+from deltakd_tpu_torch.ops import kernel_entry
 
 # timm names of one block's parameters, in the kernels' operand order
 # (_weight_arrays in the JAX package: g1, b1, wqkv, bqkv, wproj, bproj, g2,
@@ -54,8 +62,9 @@ KERNEL_HEAD_DIMS = (64,)
 # tiles of 64 rows.
 KERNEL_BWD_MAX_N = 704
 
-# Kernel launches by (kernel name, embed width). Each wrapper adds one where
-# it launches its kernel; nothing else touches the count.
+# Kernel launches by (entry point, embed width): the fp32 forms count under
+# their own entry points (``fused_block_fwd_f32``, ...). Each wrapper adds one
+# where it launches its kernel; nothing else touches the count.
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -240,11 +249,13 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _kernel_operands(x, s_attn, s_mlp, w, H, name):
     """Checks what the kernels take and returns (x, s_attn, s_mlp, weights)
-    as contiguous tensors: x bf16 [B,N,D] with a head dim in
-    KERNEL_HEAD_DIMS, scales fp32 [B], matmul weights bf16, LN params and
-    biases fp32. Raises ValueError, before any launch, for anything else."""
-    if x.dtype != torch.bfloat16 or x.dim() != 3:
-        raise ValueError(f"{name}: x must be bf16 [B, N, D], got "
+    as contiguous tensors: x bf16 or fp32 [B,N,D] with a head dim in
+    KERNEL_HEAD_DIMS, scales fp32 [B], matmul weights in x's dtype (bf16 x:
+    any float weights, rounded to bf16; fp32 x: fp32 weights, kept), LN
+    params and biases fp32. Raises ValueError, before any launch, for
+    anything else, a mix such as fp32 x with bf16 weights among it."""
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 3:
+        raise ValueError(f"{name}: x must be bf16 or fp32 [B, N, D], got "
                          f"{x.dtype} {tuple(x.shape)}")
     B, N, D = x.shape
     if D % H:
@@ -259,7 +270,10 @@ def _kernel_operands(x, s_attn, s_mlp, w, H, name):
         if tuple(t.shape) != shape or t.device != x.device:
             raise ValueError(f"{name}: weight of shape {tuple(t.shape)} on "
                              f"{t.device}, expected {shape} on {x.device}")
-    ws = tuple((t.to(torch.bfloat16) if i in _MATMUL_WEIGHTS else t.float()
+        if x.dtype == torch.float32 and t.dtype != torch.float32:
+            raise ValueError(f"{name}: fp32 x takes fp32 weights, got a {t.dtype} "
+                             f"weight of shape {tuple(t.shape)}")
+    ws = tuple((t.to(x.dtype) if i in _MATMUL_WEIGHTS else t.float()
                 ).contiguous() for i, t in enumerate(w))
     scales = tuple(s.reshape(B).float().contiguous() for s in (s_attn, s_mlp))
     return x.contiguous(), scales[0], scales[1], ws
@@ -267,7 +281,9 @@ def _kernel_operands(x, s_attn, s_mlp, w, H, name):
 
 # The source under csrc/ that holds a kernel's entry point, where it is not
 # named like the kernel.
-_SOURCE_OF = {"fused_pair_fwd": "fused_block_pair", "fused_pair_bwd": "fused_block_pair"}
+_SOURCE_OF = {"fused_pair_fwd": "fused_block_pair", "fused_pair_bwd": "fused_block_pair",
+              "fused_block_fwd_f32": "fused_block_fwd",
+              "fused_block_bwd_f32": "fused_block_bwd"}
 
 
 def _library(name):
@@ -300,16 +316,17 @@ def _workspace(name, x, H, F):
 
 
 def fused_block_fwd_cuda(x, s_attn, s_mlp, w, H, eps, need_feat):
-    """The forward kernel (csrc/fused_block_fwd.cu) on CUDA tensors."""
+    """The forward kernel (csrc/fused_block_fwd.cu) on CUDA tensors, in x's
+    dtype (bf16, or fp32 in 3xTF32)."""
     x, s_attn, s_mlp, ws = _kernel_operands(x, s_attn, s_mlp, w, H,
                                             "fused_block_fwd")
+    name = kernel_entry("fused_block_fwd", x)
     F = ws[8].shape[0]
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
         feat = torch.empty_like(x) if need_feat else None
-        work = _workspace("fused_block_fwd", x, H, F)
-        _launch("fused_block_fwd",
-                [_ptr(t) for t in (x, s_attn, s_mlp, *ws, out, feat, work)],
+        work = _workspace(name, x, H, F)
+        _launch(name, [_ptr(t) for t in (x, s_attn, s_mlp, *ws, out, feat, work)],
                 x, H, F, eps)
     return out, feat
 
@@ -321,30 +338,35 @@ def _bwd_length(x, name):
 
 
 def fused_block_bwd_cuda(x, s_attn, s_mlp, w, g_out, g_feat, H, eps):
-    """The backward kernel (csrc/fused_block_bwd.cu) on CUDA tensors:
-    dx (bf16) and the 12 fp32 weight grads summed over the batch."""
+    """The backward kernel (csrc/fused_block_bwd.cu) on CUDA tensors, in x's
+    dtype (bf16, or fp32 in 3xTF32): dx in x's dtype and the 12 fp32 weight
+    grads summed over the batch."""
     x, s_attn, s_mlp, ws = _kernel_operands(x, s_attn, s_mlp, w, H,
                                             "fused_block_bwd")
     _bwd_length(x, "fused_block_bwd")
-    g_out = g_out.to(torch.bfloat16).contiguous()
+    name = kernel_entry("fused_block_bwd", x)
+    g_out = g_out.to(x.dtype).contiguous()
     if g_feat is not None:
-        g_feat = g_feat.to(torch.bfloat16).contiguous()
+        g_feat = g_feat.to(x.dtype).contiguous()
     F = ws[8].shape[0]
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
         dws = tuple(torch.empty(t.shape, dtype=torch.float32, device=x.device)
                     for t in ws)
-        work = _workspace("fused_block_bwd", x, H, F)
-        _launch("fused_block_bwd",
-                [_ptr(t) for t in (x, s_attn, s_mlp, *ws, g_out, g_feat, dx,
-                                   *dws, work)],
+        work = _workspace(name, x, H, F)
+        _launch(name, [_ptr(t) for t in (x, s_attn, s_mlp, *ws, g_out, g_feat, dx,
+                                         *dws, work)],
                 x, H, F, eps)
     return dx, dws
 
 
 def _pair_operands(x, scales, w1, w2, H, name):
     """_kernel_operands for both blocks of a pair, which must have the same
-    widths: (x, four scales, weights of block 1, weights of block 2)."""
+    widths and take bf16 x only: (x, four scales, weights of block 1, weights
+    of block 2)."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the pair kernels take bf16 x, got {x.dtype} (their "
+                         f"fp32 form is not ported yet: ROADMAP.md, Queue 1 item 6)")
     x, sa1, sm1, ws1 = _kernel_operands(x, scales[0], scales[1], w1, H, name)
     _, sa2, sm2, ws2 = _kernel_operands(x, scales[2], scales[3], w2, H, name)
     if ws1[8].shape != ws2[8].shape:

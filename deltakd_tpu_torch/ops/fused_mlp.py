@@ -21,7 +21,11 @@ fp32 and cast to the parameters' dtypes.
 Dispatch is by the device of ``x``: a CPU tensor takes the plain version, a
 CUDA tensor the hand-written kernels in ``csrc/fused_mlp.cu`` (bf16, D and F
 multiples of 16; the forward takes the widths of :func:`forward_takes`, every
-model width among them), anything else raises.
+model width among them), anything else raises. The forward also has an fp32
+form (fp32 x with fp32 weights: 3xTF32 products, nothing rounded to bf16, the
+hidden through device memory), so ``fused_mlp`` serves an fp32 teacher; the
+backward takes bf16 only, and ``fused_mlp_train`` raises NotImplementedError
+on an fp32 CUDA tensor (ROADMAP.md, Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from deltakd_tpu_torch.ops import current_stream, on_card
+from deltakd_tpu_torch.ops import current_stream, kernel_entry, on_card
 
 # Kernel launches by (kernel name, width D). Each wrapper adds one where it
 # launches its kernel; nothing else touches the count.
@@ -111,13 +115,16 @@ def _library():
     return _build.library("fused_mlp")
 
 
-def _operands(name, x2, w1, b1, w2, b2=None):
+def _operands(name, x2, w1, b1, w2, b2=None, fp32=False):
     """Checks what the kernels take and returns contiguous (x2, w1, b1, w2,
-    b2): x2 CUDA bf16 [M, D], weights bf16, biases rounded to bf16 and held in
-    fp32."""
-    if x2.device.type != "cuda" or x2.dtype != torch.bfloat16 or x2.dim() != 2:
-        raise ValueError(f"{name}: x must be CUDA bf16 [M, D], got {x2.dtype} "
-                         f"{tuple(x2.shape)} on {x2.device}")
+    b2): x2 CUDA bf16 [M, D] with weights bf16 and biases rounded to bf16 and
+    held in fp32; with ``fp32`` also x2 fp32 with fp32 weights and biases,
+    kept. Raises ValueError, before any launch, for anything else, a mix
+    such as fp32 x with bf16 weights among it."""
+    dtypes = (torch.bfloat16, torch.float32) if fp32 else (torch.bfloat16,)
+    if x2.dtype not in dtypes or x2.dim() != 2:
+        raise ValueError(f"{name}: x must be {' or '.join(map(str, dtypes))} [M, D], "
+                         f"got {x2.dtype} {tuple(x2.shape)}")
     M, D = x2.shape
     F = w1.shape[0]
     if M < 1 or D % 16 or F % 16:
@@ -129,6 +136,13 @@ def _operands(name, x2, w1, b1, w2, b2=None):
         if tuple(t.shape) != shape or t.device != x2.device:
             raise ValueError(f"{name}: operand of shape {tuple(t.shape)} on {t.device}, "
                              f"expected {shape} on {x2.device}")
+        if x2.dtype == torch.float32 and t.dtype != torch.float32:
+            raise ValueError(f"{name}: fp32 x takes fp32 weights and biases, got a "
+                             f"{t.dtype} operand of shape {tuple(t.shape)}")
+    if x2.device.type != "cuda":
+        raise ValueError(f"{name}: takes CUDA tensors, got x on {x2.device}")
+    if x2.dtype == torch.float32:
+        return tuple(None if t is None else t.contiguous() for t in (x2, w1, b1, w2, b2))
     lp = lambda t: t.to(torch.bfloat16).contiguous()            # noqa: E731
     bias = lambda t: t.to(torch.bfloat16).float().contiguous()  # noqa: E731
     return (x2.contiguous(), lp(w1), bias(b1), lp(w2),
@@ -136,26 +150,34 @@ def _operands(name, x2, w1, b1, w2, b2=None):
 
 
 def kernel_fused_mlp(x2, w1, b1, w2, b2) -> torch.Tensor:
-    """The forward kernel alone on a CUDA bf16 [M, D] tensor. Raises
-    ValueError for widths it does not take (:func:`forward_takes`), on a
-    bf16 [M, D] tensor of any device before its device is looked at."""
+    """The forward kernel alone on a CUDA bf16 or fp32 [M, D] tensor (fp32:
+    the fp32 form, ``dk_fused_mlp_fwd_f32``, counted as
+    ``("fused_mlp_fwd_f32", D)``). Raises ValueError for widths the bf16
+    kernel does not take (:func:`forward_takes`), on a bf16 [M, D] tensor of
+    any device before its device is looked at."""
     D, F = x2.shape[-1], w1.shape[0]
     if not forward_takes(D, F) and x2.dtype == torch.bfloat16 and x2.dim() == 2:
         raise ValueError(f"fused_mlp: the forward kernel takes no width D={D}, F={F} (D "
                          f"a multiple of 192 or 256 up to 1024, F of 128)")
-    x2, w1, b1, w2, b2 = _operands("fused_mlp", x2, w1, b1, w2, b2)
+    x2, w1, b1, w2, b2 = _operands("fused_mlp", x2, w1, b1, w2, b2, fp32=True)
     M = x2.shape[0]
+    name = kernel_entry("fused_mlp_fwd", x2)
+    lib = _library()
     with torch.cuda.device(x2.device):
         out = torch.empty_like(x2)
-        err = _library().dk_fused_mlp_fwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                                          w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                                          M, D, F, current_stream(x2))
+        ptrs = [t.data_ptr() for t in (x2, w1, b1, w2, b2, out)]
+        if name == "fused_mlp_fwd":
+            err = lib.dk_fused_mlp_fwd(*ptrs, M, D, F, current_stream(x2))
+        else:
+            work = torch.empty(lib.dk_fused_mlp_fwd_f32_workspace(M, D, F), dtype=torch.uint8,
+                               device=x2.device)
+            err = lib.dk_fused_mlp_fwd_f32(*ptrs, work.data_ptr(), M, D, F, current_stream(x2))
     if err == -1:
         raise ValueError(f"fused_mlp: the kernel refused D={D}, F={F} or an operand not "
                          f"16-byte aligned; nothing was launched")
     if err:
         raise RuntimeError(f"fused_mlp: CUDA error {err} at launch")
-    LAUNCHES[("fused_mlp_fwd", D)] += 1
+    LAUNCHES[(name, D)] += 1
     return out
 
 
@@ -233,7 +255,13 @@ class _FusedMlpTrain(torch.autograd.Function):
 
 
 def fused_mlp_train(x: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
-    """[..., D] -> [..., D], differentiable in all five operands."""
+    """[..., D] -> [..., D], differentiable in all five operands. Raises
+    NotImplementedError, before any launch, on an fp32 CUDA tensor: the MLP
+    backward has no fp32 form yet (ROADMAP.md, Queue 1 item 6)."""
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        raise NotImplementedError("fused_mlp_train: the MLP backward kernel takes bf16 only; "
+                                  "its fp32 form is not ported yet (ROADMAP.md, Queue 1 "
+                                  "item 6)")
     return _FusedMlpTrain.apply(x, w1, b1, w2, b2)
 
 

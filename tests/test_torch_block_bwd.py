@@ -13,8 +13,10 @@ the factory's choice of kernels by dtype.
 - `plain_linear` with `mul`, the input gradient dhpre = (g_feat W2) * gelu',
   against the JAX reverse sweep's own formula on bf16 operands; 1e-5 of the
   largest value (summation order).
-- `load_teacher_student`: an fp32 config runs both models without kernels, a
-  bf16 config keeps the fused block (and the pair where asked).
+- `load_teacher_student`: the JAX factory's route at either dtype: the fused
+  block for both models (the kernels' fp32 forms at fp32), flash_attention on
+  the unfused route with the teacher's fused MLP, the pair for the student
+  where asked at bf16 and NotImplementedError at fp32.
 The kernels themselves run only on a card (tests/test_torch_cuda.py).
 """
 
@@ -172,31 +174,45 @@ def test_plain_linear_mul_is_the_input_gradient_times_gelu_grad(with_bias):
 
 @pytest.mark.parametrize("dtype,block_pair,mesh_shape", [
     ("float32", False, None), ("float32", True, None), ("float32", False, (1, 2)),
-    ("bfloat16", False, None), ("bfloat16", True, None)])
+    ("bfloat16", False, None), ("bfloat16", True, None), ("bfloat16", False, (1, 2)),
+    ("float32", True, (1, 2))])
 def test_factory_turns_the_kernels_off_for_fp32(dtype, block_pair, mesh_shape):
-    """The kernels take bf16 only, so an fp32 config builds both models on
-    PyTorch's own ops (no block, pair, attention or MLP function), whatever
-    the path; a bf16 config keeps the fused block, and the pair for the
-    student where asked."""
+    """The factory's kernels at each dtype. The name is from before the fp32
+    forms: the kernels are no longer turned off for fp32. An fp32 config is
+    routed as the JAX factory routes it, through the kernels' fp32 forms: the
+    fused block for both models; on the unfused route (a model axis of 2)
+    flash_attention for both and the fused MLP for the forward-only teacher;
+    block_pair at fp32 raises NotImplementedError where the pair would run
+    (not on the unfused route), and at bf16 gives the student the pair.
+    Compute dtype and parameters follow the config."""
     from deltakd_tpu_torch.configs.config import TrainConfig
     from deltakd_tpu_torch.models.factory import load_teacher_student
     from deltakd_tpu_torch.ops.attention import flash_attention
     from deltakd_tpu_torch.ops.fused_block import fused_vit_block, fused_vit_block_pair
+    from deltakd_tpu_torch.ops.fused_mlp import fused_mlp
 
     cfg = TrainConfig(teacher_model="deit_small_distilled_patch16_224",
                       student_model="deit_tiny_distilled_patch16_224", aa="",
                       color_jitter=0.0, dataset="cifar-10", input_size=32,
                       distillation_type="soft", allow_random_teacher=True, dtype=dtype,
                       mesh_shape=mesh_shape)
+    unfused = mesh_shape is not None
+    if dtype == "float32" and block_pair and not unfused:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 6"):
+            load_teacher_student(cfg, block_pair=block_pair, seed=0, device="cpu")
+        return
     teacher, student, _ = load_teacher_student(cfg, block_pair=block_pair, seed=0,
                                                device="cpu")
-    fns = ("block_fn", "block_pair_fn", "attention_fn", "mlp_fn")
-    if dtype == "float32":
-        for model in (teacher, student):
-            assert all(getattr(model, f) is None for f in fns)
-        assert next(student.parameters()).dtype == torch.float32
+    want = torch.float32 if dtype == "float32" else torch.bfloat16
+    assert teacher.dtype == student.dtype == want
+    assert next(student.parameters()).dtype == torch.float32
+    assert teacher.attention_fn is student.attention_fn is flash_attention
+    assert teacher.block_pair_fn is None
+    assert student.mlp_fn is None
+    if unfused:
+        assert teacher.block_fn is student.block_fn is None
+        assert student.block_pair_fn is None
+        assert teacher.mlp_fn is fused_mlp
     else:
         assert teacher.block_fn is student.block_fn is fused_vit_block
-        assert teacher.attention_fn is student.attention_fn is flash_attention
-        assert teacher.block_pair_fn is None
         assert student.block_pair_fn is (fused_vit_block_pair if block_pair else None)

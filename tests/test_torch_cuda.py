@@ -10,8 +10,14 @@ the tolerance is 2e-2 of the largest reference value. The GEMM alone: the
 forward's products against F.linear plus their epilogue, the backward's input
 gradient with the GELU derivative as `mul` and its weight gradients against
 their plain versions, same tolerance, two runs the same bits. An fp32 soft-KD
-train step through the factory, which gives an fp32 config no kernels: on the
-card, and on the CPU as well (the one case here that runs without a card). The
+train step through the factory, which gives an fp32 config the fused block:
+its fp32 kernels on the card, its plain version on the CPU (the one case here
+that runs without a card). The fp32 forms of the block and attention kernels
+at B=8 (chip_smoke.py phase 13's criterion): each error against the plain
+fp32 version (TF32 off) at most 0.02 of the bf16 kernel's on the same
+inputs (every fp32 product is 3xTF32), or below 1e-6 of the largest value;
+two runs the same bits; the same for the MLP forward's fp32 form at every
+zoo width. The
 block-pair kernels: the four (feat1, feat2) variants at D=192 and D=384 on
 weights of std 1/sqrt(fan-in), scales with zeros, through the kernels alone
 and through the autograd Function. The sort kernels: inputs with ties (+0.0 tied with a later -0.0 from
@@ -369,8 +375,8 @@ def test_attention_kernels_match_plain_version_on_card(shape):
         assert at.LAUNCHES == {("flash_fwd", B * H): 1, ("flash_bwd", B * H): 1}
         (g_r,) = torch.autograd.grad(at.reference_attention(*views), [qkv], do)
         _within(g_k, g_r)
-    with pytest.raises(ValueError):
-        at.kernel_flash_fwd(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):   # a mix of dtypes
+        at.kernel_flash_fwd(q.float(), k, v)
     with pytest.raises(ValueError):
         at.kernel_flash_fwd(q[..., :32], k[..., :32], v[..., :32])
     long = torch.zeros(1, 1, at.max_sequence() + 1, 64, dtype=torch.bfloat16, device="cuda")
@@ -417,8 +423,8 @@ def test_mlp_kernels_match_plain_version_on_card(M, D):
     assert [t.dtype for t in grads] == [t.dtype for t in ops]
     with pytest.raises(RuntimeError, match="forward only"):
         fm.fused_mlp(*ops)
-    with pytest.raises(ValueError):
-        fm.kernel_fused_mlp(x.float(), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="fp32 x takes fp32 weights"):
+        fm.kernel_fused_mlp(x.float(), w1.bfloat16(), b1, w2, b2)
 
     lp = [w1.bfloat16(), b1.bfloat16().float(), w2.bfloat16(), b2.bfloat16().float()]
     torch.cuda.synchronize()
@@ -451,11 +457,123 @@ def test_mlp_backward_at_a_width_the_forward_refuses_on_card():
     assert not fm.LAUNCHES
 
 
+def _f32_within(a32, a16, ref, ratio=0.02, floor=1e-6):
+    """chip_smoke.py phase 13's criterion: the fp32 kernel's largest error
+    against the plain fp32 version, over the plain version's largest value,
+    at most ``ratio`` of the bf16 kernel's on the same inputs (every fp32
+    product is 3xTF32, about fp32 accuracy), or below ``floor``."""
+    ref = ref.float()
+    mx = ref.abs().max().item()
+    e32 = (a32.float() - ref).abs().max().item() / mx
+    e16 = (a16.float() - ref).abs().max().item() / mx
+    assert e32 <= ratio * e16 or e32 <= floor, (e32, e16)
+
+
+@pytest.fixture
+def tf32_off():
+    """The plain fp32 versions in full fp32: TF32 off in PyTorch's products
+    and convolutions, restored afterwards."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_feat", [False, True])
+@pytest.mark.parametrize("width,heads,n_tok", [(192, 3, 198), (384, 6, 197)])
+def test_fp32_block_kernels_match_plain_version_on_card(width, heads, n_tok, need_feat,
+                                                        tf32_off):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(width + n_tok + need_feat)
+    p = _block_params(width, g)
+    x = torch.randn(8, n_tok, width, generator=g).cuda()
+    keep = 0.9
+    kw = dict(num_heads=heads,
+              scale_attn=torch.tensor([0, 1 / keep, 1, 1, 1 / keep, 1, 0, 1]).cuda(),
+              scale_mlp=torch.tensor([1 / keep, 0, 1, 1, 1, 1 / keep, 1, 0]).cuda())
+    g_out = torch.randn(x.shape, generator=g).cuda()
+    g_feat = torch.randn(x.shape, generator=g).cuda() if need_feat else None
+    fb.reset_launches()
+    out, feat = fb.kernel_block_fwd(x, p, need_features=need_feat, **kw)
+    dx, dws = fb.kernel_block_bwd(x, p, g_out, g_feat, **kw)
+    assert fb.LAUNCHES == {("fused_block_fwd_f32", width): 1, ("fused_block_bwd_f32", width): 1}
+    assert out.dtype == dx.dtype == torch.float32
+    out16, feat16 = fb.kernel_block_fwd(x.bfloat16(), p, need_features=True, **kw)
+    dx16, dws16 = fb.kernel_block_bwd(x.bfloat16(), p, g_out, g_feat, **kw)
+    r_out, r_feat = fb.reference_vit_block(x, p, **kw)
+    r_dx, r_dws = fb.reference_vit_block_bwd(x, p, g_out, g_feat, **kw)
+    _f32_within(out - x, out16.float() - x, r_out - x)
+    if need_feat:
+        _f32_within(feat, feat16, r_feat)
+    _f32_within(dx, dx16, r_dx)
+    for name in fb.PARAM_NAMES:
+        _f32_within(dws[name], dws16[name], r_dws[name])
+    again, dx2 = fb.kernel_block_fwd(x, p, need_features=need_feat, **kw)[0], \
+        fb.kernel_block_bwd(x, p, g_out, g_feat, **kw)[0]
+    assert torch.equal(out, again) and torch.equal(dx, dx2)
+    mixed = {n: t.bfloat16() if t.dim() == 2 else t for n, t in p.items()}
+    with pytest.raises(ValueError, match="fp32 x takes fp32 weights"):
+        fb.kernel_block_fwd(x, mixed, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 198, 64), (1, 2, 50, 64), (4, 65, 64),
+                                   (1, 1, 578, 64), (1, 2, 656, 64)])
+def test_fp32_attention_kernels_match_plain_version_on_card(shape, tf32_off):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(shape[-2] + 1)
+    q, k = (1.5 * torch.randn(shape, generator=g).cuda() for _ in range(2))
+    v, do = (torch.randn(shape, generator=g).cuda() for _ in range(2))
+    lp = [t.bfloat16() for t in (q, k, v, do)]
+    at.reset_launches()
+    o, lse = at.kernel_flash_fwd(q, k, v)
+    grads = at.kernel_flash_bwd(q, k, v, o, lse, do)
+    bh = shape[0] * (shape[1] if len(shape) == 4 else 1)
+    assert at.LAUNCHES == {("flash_fwd_f32", bh): 1, ("flash_bwd_f32", bh): 1}
+    o16, lse16 = at.kernel_flash_fwd(*lp[:3])
+    grads16 = at.kernel_flash_bwd(*lp[:3], o16, lse16, lp[3])
+    r_o, r_lse = at._plain_fwd(q, k, v)
+    _f32_within(o, o16, r_o)
+    _f32_within(lse, lse16, r_lse)
+    for a, b, c, d in zip(grads, grads16, at._plain_bwd(q, k, v, r_o, r_lse, do),
+                          at.kernel_flash_bwd(q, k, v, o, lse, do)):
+        _f32_within(a, b, c)
+        assert a.dtype == torch.float32 and torch.equal(a, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1584, 1001])
+@pytest.mark.parametrize("D", [192, 384, 768, 1024])
+def test_fp32_mlp_forward_matches_plain_version_on_card(M, D, tf32_off):
+    """The MLP forward's fp32 form (fp32 x and parameters) against its plain
+    fp32 version, beside the bf16 kernel on x rounded to bf16; two runs the
+    same bits; fused_mlp_train refuses fp32 on the card before a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    _, w1, b1, w2, b2, _ = _mlp_operands(M, D)
+    x = torch.randn(M, D, generator=torch.Generator().manual_seed(D)).cuda()
+    fm.reset_launches()
+    out = fm.kernel_fused_mlp(x, w1, b1, w2, b2)
+    assert fm.LAUNCHES == {("fused_mlp_fwd_f32", D): 1} and out.dtype == torch.float32
+    _f32_within(out, fm.kernel_fused_mlp(x.bfloat16(), w1, b1, w2, b2),
+                fm._plain_fwd(x, w1, b1, w2, b2))
+    assert torch.equal(out, fm.kernel_fused_mlp(x, w1, b1, w2, b2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        fm.fused_mlp_train(x, w1, b1, w2, b2)
+    assert fm.LAUNCHES == {("fused_mlp_fwd_f32", D): 2, ("fused_mlp_fwd", D): 1}
+
+
 def _fp32_soft_step(device):
     """One soft-KD train step of DeiT-Small -> DeiT-Tiny at 32 px, batch 4,
-    from an fp32 TrainConfig through load_teacher_student: no kernel is
-    given to either model and none launches; finite metrics and a changed
-    student. Returns the metrics."""
+    from an fp32 TrainConfig through load_teacher_student: both models get
+    the fused block, which runs its fp32 forms on the card (12 + 12 block
+    forwards and 12 block backwards, no bf16 launch) and its plain fp32
+    version on the CPU (no launch); finite metrics and a changed student.
+    Returns the metrics."""
+    from deltakd_tpu_torch.ops.fused_block import fused_vit_block
     import numpy as np
 
     from deltakd_tpu_torch.configs.config import TrainConfig
@@ -474,8 +592,7 @@ def _fp32_soft_step(device):
                       color_jitter=0.0, allow_random_teacher=True)
     teacher, student, aux = load_teacher_student(cfg, seed=0, device=device)
     for model in (teacher, student):
-        assert all(getattr(model, f) is None
-                   for f in ("block_fn", "block_pair_fn", "attention_fn", "mlp_fn"))
+        assert model.block_fn is fused_vit_block and model.block_pair_fn is None
     tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
     state = TrainState(student, tx=tx, aux=aux)
     kd = KDSettings.from_config(cfg, student_prefix=student.cfg.num_prefix_tokens,
@@ -491,7 +608,10 @@ def _fp32_soft_step(device):
         mod.reset_launches()
     metrics = {k: float(v) for k, v in
                step(state, images, labels, torch.Generator(device=device).manual_seed(1)).items()}
-    assert not any(mod.LAUNCHES for mod in (fb, at, fm, so))
+    launches = {k: n for mod in (fb, at, fm, so) for k, n in mod.LAUNCHES.items()}
+    assert launches == ({} if device == "cpu" else {
+        ("fused_block_fwd_f32", 384): 12, ("fused_block_fwd_f32", 192): 12,
+        ("fused_block_bwd_f32", 192): 12})
     assert all(np.isfinite(v) for v in metrics.values())
     assert (state.params - before).abs().max().item() > 0
     return metrics
@@ -499,8 +619,10 @@ def _fp32_soft_step(device):
 
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 def test_fp32_soft_kd_step_runs_without_kernels(device):
-    """The kernels take bf16 only; an fp32 config trains on PyTorch's own ops,
-    on the card as on the CPU."""
+    """An fp32 config trains through the fused block: its fp32 kernels on the
+    card, its plain fp32 version on the CPU, and no other kernel either way.
+    The name is from before the fp32 forms, when an fp32 config ran no
+    kernel."""
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.set_num_threads(1)

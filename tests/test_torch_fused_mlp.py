@@ -151,11 +151,15 @@ def test_dispatch_is_by_device_and_kernels_refuse_what_they_do_not_take():
     x, w1, b1, w2, b2, dy = (torch.from_numpy(a) for a in _inputs((5,), 6))
     with pytest.raises(ValueError, match="no implementation for device"):
         tfm.fused_mlp(x.to("meta"), w1, b1, w2, b2)
-    # the kernel wrappers never fall back to the plain version
-    with pytest.raises(ValueError, match="CUDA bf16"):
+    # the kernel wrappers never fall back to the plain version (fp32 CPU x:
+    # the forward, which has an fp32 form, refuses the device; the backward,
+    # bf16 only, the dtype)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
         tfm.kernel_fused_mlp(x, w1, b1, w2, b2)
-    with pytest.raises(ValueError, match="CUDA bf16"):
+    with pytest.raises(ValueError, match="x must be torch.bfloat16"):
         tfm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        tfm.kernel_fused_mlp_bwd(x.bfloat16(), w1, b1, w2, dy.bfloat16())
 
 
 def test_two_plain_linears_compose_to_the_plain_forward():
