@@ -10,8 +10,9 @@
     python3 chip_smoke.py --attention-checks # only flash_fwd's and flash_bwd's checks (phase 5a)
     python3 chip_smoke.py --sort-checks      # only the sort kernels' checks (phase 4a)
     python3 chip_smoke.py --dp-checks        # only the data-parallel step's checks (phase 12a)
-    python3 chip_smoke.py --fp32-checks      # only the fp32 forms' checks at B=8 (phase 13a, 13b)
-    python3 chip_smoke.py --fp32-checks --seeds 8  # ... the block and MLP checks on 8 draws each
+    python3 chip_smoke.py --fp32-checks      # only the fp32 forms' checks at B=8 (phase 13a, 13b,
+                                             # 14a) and the optimizers' (14d, first half)
+    python3 chip_smoke.py --fp32-checks --seeds 8  # ... the block, MLP and pair checks on 8 draws
 
 Phases, each of which fails the run:
   1. prints the card's name and power limit (nvidia-smi);
@@ -206,7 +207,34 @@ Phases, each of which fails the run:
      attention launches and 12 of the teacher's fp32 MLP forward); 13d the fp32
      forms' times at the main-path shapes beside their bounds (TF32 rate or
      4-byte elements), their plain versions and one library call with TF32
-     allowed, each beside the card's name and power limit.
+     allowed, each beside the card's name and power limit;
+ 14. the fp32 forms of rows 6-8, then the rest of the optimizer and token
+     dropout: 14a holds the fp32 MLP backward (dx, dW1, db1, dW2, db2) at
+     D = 192, 384, 768, 1024 (M = 1584 and 1001) and the fp32 pair forward and
+     backward (out - x, the features, dx, the 24 weight gradients) at B=8 for
+     D = 192 and 384 and the four feature variants (sample 5 with all four
+     scales 0 comes back as x) against their plain fp32 versions, each error
+     at most F32_RATIO of the bf16 form's on the same inputs, two runs the same
+     bits; then at the main shapes (the pair at [256, 198, 192] with no and
+     with both features, also against two fp32 single kernels chained within
+     PAIR_SINGLES_TOL; the MLP backward at [50688, 192]) with their times,
+     plain versions, library calls (two library blocks; the MLP through
+     autograd; TF32 allowed) and bounds, and the fp32 workspaces; 14b the
+     paired fp32 soft step at full width through load_teacher_student(dtype
+     float32, block_pair=True): 12 fp32 block forwards, 6 fp32 pair forwards
+     and 6 fp32 pair backwards a step, no other launch, its eval batch on the
+     single-block view, logits and soft loss against the CPU port, its ms and
+     peak memory; 14c fused_mlp_train at fp32 at [256, 198, 192], one fp32
+     forward and one fp32 backward launch; 14d every optimizer and schedule
+     (adamw, sgd, adam x cosine, step, plateau) with the LR scale set half-way,
+     card against CPU on DeiT-Ti-distilled's flat vector, the scale
+     multiplying the whole update, each update timed; run() on phase 11's
+     pickles with --sched plateau and --lr-noise for 3 epochs (the scale in
+     effect and the scale saved after each epoch against PlateauController on
+     the logged val_acc1 and lr_noise_multiplier), 2 epochs resumed to a third
+     (the same bits), one epoch each of --opt sgd --sched step and --opt
+     adam; 14e a student with token dropout 0.1: the kept share, the kept
+     values' scale, two soft steps, eval unchanged.
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
@@ -969,20 +997,20 @@ def time_kernels(fb, worst):
     return rows
 
 
-def _pair_inputs(D, H, B, seed, device, n=N_TOK):
+def _pair_inputs(D, H, B, seed, device, n=N_TOK, fp32=False):
     """Two blocks' weights, x of n tokens and the four drop-path scales
     (s_attn1, s_mlp1, s_attn2, s_mlp2): _block_inputs twice, block 2's scales
     rolled so its zeros fall on other samples, and sample 5 with all four at
-    0."""
+    0; x and the three cotangents bf16 (with ``fp32``: fp32)."""
     import torch
 
-    p1, x, sa1, sm1 = _block_inputs(D, H, B, seed, device, n=n)
+    p1, x, sa1, sm1 = _block_inputs(D, H, B, seed, device, n=n, fp32=fp32)
     p2, _, sa2, sm2 = _block_inputs(D, H, B, seed + 1000, device, n=n)
     scales = [sa1, sm1, sa2.roll(3), sm2.roll(3)]
     for s in scales:
         s[5] = 0.0
     g = torch.Generator(device=device).manual_seed(seed)
-    gs = [torch.randn(x.shape, generator=g, device=device).bfloat16() for _ in range(3)]
+    gs = [torch.randn(x.shape, generator=g, device=device).to(x.dtype) for _ in range(3)]
     return p1, p2, x, tuple(scales), gs
 
 
@@ -1757,9 +1785,9 @@ def _block_launches(steps, form=""):
             (f"fused_block_bwd{form}", 192): 12 * steps}
 
 
-def _paired_launches(steps):
-    return {("fused_block_fwd", 384): 12 * steps, ("fused_pair_fwd", 192): 6 * steps,
-            ("fused_pair_bwd", 192): 6 * steps}
+def _paired_launches(steps, form=""):
+    return {(f"fused_block_fwd{form}", 384): 12 * steps, (f"fused_pair_fwd{form}", 192): 6 * steps,
+            (f"fused_pair_bwd{form}", 192): 6 * steps}
 
 
 def _unfused_launches(steps, form=""):
@@ -1888,7 +1916,7 @@ def run_train_path(mods, kd_type, steps, unfused=False, paired=False,
     if unfused or (mesh and len(mesh) > 1 and int(mesh[1]) > 1):
         expect = _unfused_launches(steps, form)
     else:
-        expect = _paired_launches(steps) if paired else _block_launches(steps, form)
+        expect = _paired_launches(steps, form) if paired else _block_launches(steps, form)
     if kd_type == "wasskd" and cfg.wasskd_type == "l1":
         expect.update(sorted_l1_fwd=3 * steps, sorted_l1_bwd=3 * steps)
     if launches != expect:
@@ -2101,23 +2129,27 @@ def run_eval(mods, student, aug, images, labels, expect, name="eval"):
     return eval_launches
 
 
-def run_mlp_train(mods, fm):
+def run_mlp_train(mods, fm, fp32=False):
     """fused_mlp_train forward and backward through its public function at the
-    student's [256, 198, 192] (no model calls it, in the JAX package either):
-    one forward and one backward launch, finite gradients of the operands'
-    shapes and dtypes."""
+    student's [256, 198, 192] (no model calls it, in the JAX package either),
+    on bf16 x (with ``fp32``: fp32 x and dy, phase 14c): one forward and one
+    backward launch of the form of x's dtype, finite gradients of the
+    operands' shapes and dtypes."""
     import torch
 
     D = MLP_MAIN["student"]
     x, w1, b1, w2, b2, dy = _mlp_inputs(M_MAIN, D, 9)
+    if fp32:
+        x, dy = x.float(), dy.float()
     ops = [t.requires_grad_(True) for t in (x.reshape(B_MAIN, N_TOK, D), w1, b1, w2, b2)]
     _reset_launches(mods)
     out = fm.fused_mlp_train(*ops)
     grads = torch.autograd.grad(out, ops, dy.reshape(out.shape))
     torch.cuda.synchronize()
     launches = _read_launches(mods)
-    print(f"[fused_mlp_train] launches {launches}")
-    if launches != {("fused_mlp_fwd", D): 1, ("fused_mlp_bwd", D): 1}:
+    form = "_f32" if fp32 else ""
+    print(f"[fused_mlp_train{form}] launches {launches}")
+    if launches != {(f"fused_mlp_fwd{form}", D): 1, (f"fused_mlp_bwd{form}", D): 1}:
         raise AssertionError(f"fused_mlp_train launches {launches}, expected one forward "
                              f"and one backward")
     for g, t in zip(grads, ops):
@@ -3379,6 +3411,19 @@ def _hold_f32(worst, key, tag, checks, same_bits, x=None):
         raise AssertionError(f"{name0} {tag}: two runs gave different bits")
 
 
+def _with_tf32(fn):
+    """fn() with TF32 allowed in PyTorch's products and convolutions (a
+    library call's time at fp32), then off again, as the plain versions
+    need it."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
 def _hold_block_f32(fb, worst, D, H, B, n, need_feat, seed, main=False, backward=True):
     """The fp32 block forward (and backward) against its plain fp32 version,
     beside the bf16 kernels on the same inputs rounded to bf16."""
@@ -3550,13 +3595,6 @@ def time_fp32_kernels(fb, at, fm, worst, smi):
         _hold_attention_f32(at, worst, (bh, N_TOK, HEAD_DIM), main=True)
     _hold_mlp_f32(fm, worst, M_MAIN, MLP_MAIN["teacher"], 5, main=True)
 
-    def library(fn):
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-        try:
-            return fn()
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-
     B, N = B_MAIN, N_TOK
     for kernel, D, H in (("fused_block_fwd_f32", 384, 6), ("fused_block_fwd_f32", 192, 3),
                          ("fused_block_bwd_f32", 192, 3)):
@@ -3577,7 +3615,7 @@ def time_fp32_kernels(fb, at, fm, worst, smi):
                 with torch.no_grad():
                     _library_block(x_lib, lib_w, H, 1e-6, sa, sm)
 
-            library_ms = library(lambda: _timed(lib_fwd, 20))
+            library_ms = _with_tf32(lambda: _timed(lib_fwd, 20))
             nbytes = 2 * B * N * D * 4 + weight_bytes
         else:
             ms = _timed(lambda: fb.kernel_block_bwd(x, p, g_out, None, **kw), 10)
@@ -3589,7 +3627,7 @@ def time_fp32_kernels(fb, at, fm, worst, smi):
             def lib_fwd_bwd():
                 _library_block(x_lib, lib_w, H, 1e-6, sa, sm).backward(g_out)
 
-            library_ms = library(lambda: _timed(lib_fwd_bwd, 20) - _timed(lib_fwd_graph, 20))
+            library_ms = _with_tf32(lambda: _timed(lib_fwd_bwd, 20) - _timed(lib_fwd_graph, 20))
             flops = 3 * flops - 2 * B * N * D * 4 * D
             nbytes = 3 * B * N * D * 4 + weight_bytes + 12 * D * D * 4
         rows[(kernel, D)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -3609,7 +3647,7 @@ def time_fp32_kernels(fb, at, fm, worst, smi):
                 with torch.no_grad():
                     F.scaled_dot_product_attention(q4, k4, v4)
 
-            library_ms = library(lambda: _timed(lib_attn, 20))
+            library_ms = _with_tf32(lambda: _timed(lib_attn, 20))
             bound = _bound(2 * product, 4 * tensor_bytes + bh * N * 4, PEAK_TF32_FLOPS)
         else:
             ms = _timed(lambda: at.kernel_flash_bwd(q, k, v, o, lse, do), 20)
@@ -3622,7 +3660,7 @@ def time_fp32_kernels(fb, at, fm, worst, smi):
             def lib_fwd_bwd():
                 torch.autograd.grad(lib_fwd(), leaves, do4)
 
-            library_ms = library(lambda: _timed(lib_fwd_bwd, 20) - _timed(lib_fwd, 20))
+            library_ms = _with_tf32(lambda: _timed(lib_fwd_bwd, 20) - _timed(lib_fwd, 20))
             bound = _bound(5 * product, 8 * tensor_bytes + bh * N * 4, PEAK_TF32_FLOPS)
         rows[(kernel, bh)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
     D = MLP_MAIN["teacher"]
@@ -3636,7 +3674,7 @@ def time_fp32_kernels(fb, at, fm, worst, smi):
     rows[("fused_mlp_fwd_f32", D)] = dict(
         ms=_timed(lambda: fm.kernel_fused_mlp(x, w1, b1, w2, b2), 10),
         plain_ms=_timed(lambda: fm._plain_fwd(x, w1, b1, w2, b2), 3),
-        library_ms=library(lambda: _timed(lib_mlp, 20)),
+        library_ms=_with_tf32(lambda: _timed(lib_mlp, 20)),
         **_bound(4 * M_MAIN * D * 4 * D, (2 * M_MAIN * D + 8 * D * D + 5 * D) * 4,
                  PEAK_TF32_FLOPS))
     for (kernel, n), row in rows.items():
@@ -3708,6 +3746,484 @@ def run_fp32_route(mods, soft_bf16_ms, smi):
           f"unfused fp32 step {unfused_ms:.2f} ms, peak {unfused_peak / 2**30:.3f} GiB; {smi}")
     return by_path, ms
 
+
+# ---------------------------------------------------------------------------
+# Phase 14: the fp32 forms of rows 6-8, the optimizers, token dropout
+# ---------------------------------------------------------------------------
+
+PAIR_SINGLES_TOL = 1e-5   # 14a: the fp32 pair against two fp32 single blocks chained,
+#                           of the largest |single value| (fp32 sums, other orders)
+OPT_TOL = 1e-6            # 14d, card against CPU after OPT_STEPS updates: the global
+#                           norm, relative, and the moments and the trace, of their
+#                           largest |value|
+OPT_ULPS = 6              # ... each parameter, in fp32 ulps of |start| + its path (the
+#                           sum of its |changes|, which bounds every value it took): one
+#                           rounding into it an update; an update 1e-5 off reads 84
+#                           ulps on the parameters that start at 0, the biases
+OPT_STEPS = 6             # the LR scale is set to OPT_SCALE before update OPT_STEPS // 2
+OPT_SCALE = 0.5
+OPT_CASES = tuple((opt, sched) for opt in ("adamw", "sgd", "adam")
+                  for sched in ("cosine", "step", "plateau"))
+DROP_RATE = 0.1           # 14e: token dropout of the student
+
+
+def _hold_pair_f32(fb, worst, D, H, B, nf1, nf2, seed, main=False):
+    """Phase 14a: the fp32 pair forward and backward against their plain fp32
+    versions on one input (fp32 x and cotangents), beside the bf16 pair
+    kernels on the same inputs rounded to bf16 (_hold_f32); sample 5 with all
+    four scales at 0 must come back as x, a feature output follows its flag,
+    and a second run gives the same bits. Returns (inputs, fp32 forward
+    outputs, fp32 backward outputs)."""
+    import torch
+
+    p1, p2, x, scales, (g_out, g_f1, g_f2) = inputs = _pair_inputs(D, H, B, seed, "cuda",
+                                                                   fp32=True)
+    g_f1, g_f2 = (g_f1 if nf1 else None), (g_f2 if nf2 else None)
+    x16 = x.bfloat16()
+    kw = dict(num_heads=H, scales=scales)
+    fkw = dict(need_features1=nf1, need_features2=nf2, **kw)
+    fwd, fwd2 = (fb.kernel_block_pair_fwd(x, p1, p2, **fkw) for _ in range(2))
+    fwd16 = fb.kernel_block_pair_fwd(x16, p1, p2, **fkw)
+    r_fwd = fb.reference_vit_block_pair(x, p1, p2, **kw)
+    bwd, bwd2 = (fb.kernel_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw) for _ in range(2))
+    bwd16 = fb.kernel_block_pair_bwd(x16, p1, p2, g_out, g_f1, g_f2, **kw)
+    r_bwd = fb.reference_vit_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)
+    torch.cuda.synchronize()
+    tag = f"B={B} D={D} feat=({nf1}, {nf2})"
+    for flag, feat in ((nf1, fwd[1]), (nf2, fwd[2])):
+        if (feat is not None) != flag or (feat is not None and feat.dtype != torch.float32):
+            raise AssertionError(f"fused_pair_fwd_f32 {tag}: a feature output does not "
+                                 f"follow its flag or is not fp32")
+    if fwd[0].dtype != torch.float32 or bwd[0].dtype != torch.float32:
+        raise AssertionError(f"fused_pair_f32 {tag}: out or dx is not fp32")
+    if not torch.equal(fwd[0][5], x[5]):
+        raise AssertionError(f"fused_pair_fwd_f32 {tag}: all four scales 0 did not return x")
+    _hold_f32(worst, ("fused_pair_fwd_f32", D) if main else "fused_pair_fwd_f32", tag,
+              [("out", fwd[0], fwd16[0], r_fwd[0])]
+              + [(name, fwd[i], fwd16[i], r_fwd[i]) for i, name in ((1, "feat1"), (2, "feat2"))
+                 if fwd[i] is not None],
+              all(torch.equal(a, b) for a, b in zip(fwd, fwd2) if a is not None), x)
+    (dx, dw1, dw2), (dx16, dw1_16, dw2_16), (r_dx, r_dw1, r_dw2) = bwd, bwd16, r_bwd
+    _hold_f32(worst, ("fused_pair_bwd_f32", D) if main else "fused_pair_bwd_f32", tag,
+              [("dx", dx, dx16, r_dx)]
+              + [(f"d{n}[{blk}]", dw[n], dw16[n], r_dw[n])
+                 for blk, dw, dw16, r_dw in ((1, dw1, dw1_16, r_dw1), (2, dw2, dw2_16, r_dw2))
+                 for n in fb.PARAM_NAMES],
+              torch.equal(dx, bwd2[0]) and all(torch.equal(a[n], b[n]) for a, b in (
+                  (dw1, bwd2[1]), (dw2, bwd2[2])) for n in fb.PARAM_NAMES))
+    return inputs, fwd, bwd
+
+
+def check_fp32_pairs(fb, worst, seeds=1):
+    """Phase 14a: the fp32 pair kernels at B=8 for D = 192 and 384 and the four
+    feature variants, each on ``seeds`` input draws."""
+    for s in range(seeds):
+        for D, H in ((192, 3), (384, 6)):
+            for nf1, nf2 in PAIR_FLAGS:
+                _hold_pair_f32(fb, worst, D, H, B_CHECK, nf1, nf2, D + 2 * nf1 + nf2 + 1000 * s)
+
+
+def _hold_mlp_bwd_f32(fm, worst, M, D, seed, main=False):
+    """Phase 14a: the fp32 MLP backward against its plain fp32 version at
+    [M, D] (fp32 x and dy of std 1, weights of std 1/sqrt(fan-in)), beside
+    the bf16 kernel on the same inputs rounded to bf16."""
+    import torch
+
+    _, w1, b1, w2, _, _ = _mlp_inputs(M, D, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    x, dy = (torch.randn(M, D, generator=g).cuda() for _ in range(2))
+    grads, again = (fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy) for _ in range(2))
+    grads16 = fm.kernel_fused_mlp_bwd(x.bfloat16(), w1, b1, w2, dy.bfloat16())
+    ref = fm._plain_bwd(x, w1, b1, w2, dy)
+    torch.cuda.synchronize()
+    if grads[0].dtype != torch.float32:
+        raise AssertionError(f"fused_mlp_bwd_f32 M={M} D={D}: dx is not fp32")
+    _hold_f32(worst, ("fused_mlp_bwd_f32", D) if main else "fused_mlp_bwd_f32",
+              f"M={M} D={D}", [(n, *t) for n, t in zip(("dx", "dW1", "db1", "dW2", "db2"),
+                                                       zip(grads, grads16, ref))],
+              all(torch.equal(a, b) for a, b in zip(grads, again)))
+
+
+def check_fp32_mlp_backward(fm, worst, seeds=1):
+    """Phase 14a: the fp32 MLP backward at every width of the model zoo at 8
+    images' rows and an odd M (the cases of phase 13a's forward), each on
+    ``seeds`` input draws."""
+    for s in range(seeds):
+        for D in MLP_WIDTHS:
+            for M in (B_CHECK * N_TOK, 1001):
+                _hold_mlp_bwd_f32(fm, worst, M, D, M + D + 7 + 1000 * s)
+
+
+def time_fp32_rows_6_8(fb, fm, worst, smi):
+    """Phase 14a at the main-path shapes, then the rows' times. The pair at
+    [256, 198, 192] with no feature (what the paired fp32 step launches) and
+    with both features, against two fp32 single blocks chained (within
+    PAIR_SINGLES_TOL: at fp32 nothing is rounded between the blocks of
+    either); the MLP backward at the student's [50688, 192]. Then each
+    row's ms, its plain version's (fp32, TF32 off), one library call's with
+    TF32 allowed (two library blocks chained; the MLP as F.linear, F.gelu,
+    F.linear through autograd, forward+backward minus forward) and the bound
+    (TF32 operations over 495 TFLOP/s, or 4-byte inputs, outputs, weights and
+    fp32 gradients over the memory rate)."""
+    import torch
+    import torch.nn.functional as F
+
+    D, H, B, N = 192, 3, B_MAIN, N_TOK
+    _hold_pair_f32(fb, worst, D, H, B, False, False, 12, main=True)
+    (p1, p2, x, scales, (g_out, g_f1, g_f2)), fwd, (dx, dw1, _) = _hold_pair_f32(
+        fb, worst, D, H, B, True, True, 11, main=True)
+    kw1 = dict(num_heads=H, scale_attn=scales[0], scale_mlp=scales[1])
+    kw2 = dict(num_heads=H, scale_attn=scales[2], scale_mlp=scales[3])
+    mid, f1 = fb.kernel_block_fwd(x, p1, need_features=True, **kw1)
+    out, f2 = fb.kernel_block_fwd(mid, p2, need_features=True, **kw2)
+    dmid, _ = fb.kernel_block_bwd(mid, p2, g_out, g_f2, **kw2)
+    s_dx, s_dw1 = fb.kernel_block_bwd(x, p1, dmid, g_f1, **kw1)
+    torch.cuda.synchronize()
+    for name, a, b in (("out - x", fwd[0] - x, out - x), ("feat1", fwd[1], f1),
+                       ("feat2", fwd[2], f2), ("dx", dx, s_dx),
+                       ("dmlp.fc1.weight[1]", dw1["mlp.fc1.weight"], s_dw1["mlp.fc1.weight"])):
+        abs_err, mx = _err(a, b)
+        ok = abs_err <= PAIR_SINGLES_TOL * mx
+        print(f"[fp32 pair vs two fp32 single kernels] {name}: max_abs_diff {abs_err:.3e}, "
+              f"max |single| {mx:.3e} (rel {abs_err / mx:.3e}, limit {PAIR_SINGLES_TOL}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the fp32 pair and two fp32 single kernels differ in {name}")
+    _hold_mlp_bwd_f32(fm, worst, M_MAIN, MLP_MAIN["student"], 5, main=True)
+
+    kw = dict(num_heads=H, scales=scales)
+    lib_w = [[t.detach().requires_grad_(True) for t in fb.block_params(p)] for p in (p1, p2)]
+    x_lib = x.detach().requires_grad_(True)
+
+    def lib_fwd():
+        m = _library_block(x_lib, lib_w[0], H, 1e-6, scales[0], scales[1])
+        return _library_block(m, lib_w[1], H, 1e-6, scales[2], scales[3])
+
+    def lib_fwd_no_grad():
+        with torch.no_grad():
+            lib_fwd()
+
+    flops1 = B * (24 * N * D * D + 4 * N * N * D)
+    fc2 = 2 * B * N * D * 4 * D
+    io, weights = B * N * D * 4, 2 * 12 * D * D * 4
+    rows = {}
+    pair_fwd = lambda: fb.kernel_block_pair_fwd(  # noqa: E731
+        x, p1, p2, need_features1=False, need_features2=False, **kw)
+    pair_bwd = lambda: fb.kernel_block_pair_bwd(x, p1, p2, g_out, **kw)  # noqa: E731
+    rows[("fused_pair_fwd_f32", D)] = dict(
+        ms=_timed(pair_fwd, 10),
+        plain_ms=_timed(lambda: fb.reference_vit_block_pair(x, p1, p2, **kw), 3),
+        library_ms=_with_tf32(lambda: _timed(lib_fwd_no_grad, 20)),
+        **_bound(2 * flops1, 2 * io + weights, PEAK_TF32_FLOPS))
+    rows[("fused_pair_bwd_f32", D)] = dict(
+        ms=_timed(pair_bwd, 10),
+        plain_ms=_timed(lambda: fb.reference_vit_block_pair_bwd(x, p1, p2, g_out, **kw), 3),
+        library_ms=_with_tf32(lambda: _timed(lambda: lib_fwd().backward(g_out), 20)
+                           - _timed(lib_fwd, 20)),
+        # per block the recompute up to the GELU and two products per forward
+        # product, and block 1's fc2 for mid; x, g_out, dx, the weights and
+        # their fp32 gradients
+        **_bound(2 * (3 * flops1 - fc2) + fc2, 3 * io + 2 * weights, PEAK_TF32_FLOPS))
+
+    D = MLP_MAIN["student"]
+    _, w1, b1, w2, b2, _ = _mlp_inputs(M_MAIN, D, 5)
+    g = torch.Generator().manual_seed(6)
+    xm, dy = (torch.randn(M_MAIN, D, generator=g).cuda() for _ in range(2))
+    lib = [t.detach().requires_grad_(True) for t in (xm, w1, b1, w2, b2)]
+
+    def lib_mlp():
+        return F.linear(F.gelu(F.linear(lib[0], lib[1], lib[2])), lib[3], lib[4])
+
+    product, mlp_weights = 2 * M_MAIN * D * 4 * D, 2 * D * 4 * D * 4
+    rows[("fused_mlp_bwd_f32", D)] = dict(
+        ms=_timed(lambda: fm.kernel_fused_mlp_bwd(xm, w1, b1, w2, dy), 10),
+        plain_ms=_timed(lambda: fm._plain_bwd(xm, w1, b1, w2, dy), 3),
+        library_ms=_with_tf32(lambda: _timed(lambda: torch.autograd.grad(lib_mlp(), lib, dy), 20)
+                           - _timed(lib_mlp, 20)),
+        **_bound(5 * product, 3 * M_MAIN * D * 4 + 2 * mlp_weights + 9 * D * 4,
+                 PEAK_TF32_FLOPS))
+    work = {name: fb.workspace_bytes(name, (B, N, 192), H, 4 * 192)
+            for name in ("fused_pair_fwd_f32", "fused_pair_bwd_f32", "fused_pair_bwd")}
+    work["fused_mlp_bwd_f32"] = fm.workspace_bytes(M_MAIN, D, 4 * D, "fused_mlp_bwd_f32")
+    work["fused_mlp_bwd"] = fm.workspace_bytes(M_MAIN, D, 4 * D)
+    for (kernel, n), row in rows.items():
+        what = f"M={M_MAIN} D={n}" if "mlp" in kernel else f"D={n} B={B}"
+        print(f"[time fp32] {kernel} {what}: {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} "
+              f"ms, library (TF32 allowed) {row['library_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {smi}")
+    print("[workspace fp32] bytes at the main shapes: "
+          + ", ".join(f"{k} {v}" for k, v in work.items()))
+    return rows
+
+
+def run_fp32_pair_route(mods, smi):
+    """Phase 14b: the paired fp32 soft step at full width through
+    load_teacher_student(dtype float32, block_pair=True): 12 fp32 block
+    forwards (the teacher), 6 fp32 pair forwards and 6 fp32 pair backwards
+    a step, no bf16 and no single-block launch at D=192; the eval batch on
+    the single-block view; both models' logits and the soft loss against the
+    CPU port at fp32. Returns the launches by path and the step's ms."""
+    import torch
+
+    by_path = {}
+    by_path["fp32 paired soft"], ms, peak, kept = run_train_path(
+        mods, "soft", F32_STEPS, paired=True, name="fp32 paired soft",
+        options=dict(dtype="float32"))
+    teacher, student, _, aug, _, images, labels = kept
+    by_path["fp32 paired eval"] = run_eval(
+        mods, student.view(block_pair_fn=None, collect_features=False), aug, images, labels,
+        {("fused_block_fwd_f32", 192): 12}, name="fp32 paired eval")
+    check_fp32_against_cpu(teacher, student, aug, images)
+    del teacher, student, kept
+    torch.cuda.empty_cache()
+    print(f"[fp32 paired] soft step {ms:.2f} ms ({B_MAIN / ms * 1e3:.1f} images/s), peak "
+          f"allocated {peak / 2**30:.3f} GiB; {smi}")
+    return by_path, ms
+
+
+def check_optimizers(smi):
+    """Phase 14d: each optimizer and schedule of train/optim.py (OPT_CASES,
+    with clipping, an LR scale set to OPT_SCALE half-way through: the
+    plateau's, or LR noise's for cosine and step) on the card against the
+    same on the CPU, over the flat vector of DeiT-Ti-distilled's parameters
+    and OPT_STEPS seeded gradients: the global norm and the buffers within
+    OPT_TOL, each parameter within OPT_ULPS ulps. Then from the same state
+    one update at scale 1 and one at 0.25, each of parameters set to 0 (so
+    that the change is the update itself, not its difference with parameters
+    of larger magnitude): the second must be 0.25 times the first (the scale
+    multiplies the whole update). Returns each update's ms on the card."""
+    import copy as copy_mod
+
+    import torch
+
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.models.factory import create_model
+    from deltakd_tpu_torch.train import optim
+    from deltakd_tpu_torch.train.state import trainable_parameters
+
+    model = create_model("deit_tiny_distilled_patch16_224", num_classes=100, seed=3,
+                         device="cpu")
+    named = {"cpu": trainable_parameters(model)}
+    named["cuda"] = [(n, p.detach().cuda()) for n, p in named["cpu"]]
+    flat0 = torch.cat([p.detach().reshape(-1) for _, p in named["cpu"]])
+    g = torch.Generator().manual_seed(14)
+    grads = [torch.randn(flat0.numel(), generator=g) * 0.05 for _ in range(OPT_STEPS + 1)]
+    norms = [optim.global_norm(grads[0].to(dev)).item() for dev in ("cuda", "cpu")]
+    fp32_norm = torch.linalg.vector_norm(grads[0]).item()
+    norm_err = abs(norms[0] - norms[1]) / norms[1]
+    print(f"[optimizer] global norm of the first gradient (fp64 sum): card {norms[0]!r}, CPU "
+          f"{norms[1]!r} (rel {norm_err:.3e}, limit {OPT_TOL}); the CPU's fp32 norm "
+          f"{fp32_norm!r} (rel {abs(fp32_norm - norms[1]) / norms[1]:.3e})")
+    if not norm_err <= OPT_TOL:
+        raise AssertionError("the global norm differs between the card and the CPU")
+    eps = torch.finfo(torch.float32).eps
+    times = {}
+    for opt, sched in OPT_CASES:
+        cfg = TrainConfig(opt=opt, sched=sched, lr=5e-4, warmup_lr=1e-6, warmup_epochs=1,
+                          epochs=3, decay_epochs=1, decay_rate=0.5, weight_decay=0.05,
+                          clip_grad=5.0, lr_noise=None if sched == "plateau" else (0.0,),
+                          aa="", color_jitter=0.0)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tx = optim.make_optimizer(cfg, named[dev], 2)
+            params = flat0.to(dev).clone()
+            path = torch.zeros_like(params)
+            state = tx.init(params)
+            for i in range(OPT_STEPS):
+                if i == OPT_STEPS // 2:
+                    optim.set_lr_scale(state, OPT_SCALE)
+                before = params.clone()
+                tx.update(grads[i].to(dev), state, params)
+                path += (params - before).abs()
+            runs[dev] = (tx, state, params, path)
+        tx, state, params, _ = runs["cuda"]
+        _, state_cpu, params_cpu, path = runs["cpu"]
+        diff = (params.cpu() - params_cpu).abs()
+        ulps = (diff / (eps * (flat0.abs() + path))).nan_to_num(0.0).max().item()
+        moved = (params_cpu - flat0).abs().max().item()
+        errs = [(diff.max().item(), moved)] + [
+            _err(getattr(state, b).cpu(), getattr(state_cpu, b)) for b in state.BUFFERS]
+        ok = (ulps <= OPT_ULPS and all(e <= OPT_TOL * mx for e, mx in errs[1:])
+              and state.count == state_cpu.count == OPT_STEPS
+              and state.scale == state_cpu.scale == OPT_SCALE and moved > 0)
+        # one more update from the same state at scale 1 and at 0.25
+        deltas = []
+        for scale in (1.0, 0.25):
+            st, p = copy_mod.deepcopy(state), torch.zeros_like(params)
+            optim.set_lr_scale(st, scale)
+            tx.update(grads[-1].cuda(), st, p)
+            deltas.append(p)
+        scale_err = (deltas[1] - 0.25 * deltas[0]).abs().max().item()
+        scale_max = deltas[0].abs().max().item()
+        scale_ok = scale_max > 0 and scale_err <= 1e-6 * scale_max
+        grad = grads[-1].cuda()
+        st, p = copy_mod.deepcopy(state), params.clone()
+        times[f"{opt} {sched}"] = _timed(lambda: tx.update(grad, st, p), 20)
+        print(f"[optimizer] {opt} {sched} ({state.kind}): card vs CPU after {OPT_STEPS} "
+              f"updates, params {ulps:.2f} ulps (limit {OPT_ULPS}; max |diff| {errs[0][0]:.3e}"
+              f", {errs[0][0] / moved:.3e} of the largest change {moved:.3e}), buffers "
+              f"{', '.join(f'{e:.3e} of {mx:.3e}' for e, mx in errs[1:])} (limit "
+              f"{OPT_TOL} of the largest); scale 0.25 moves {scale_err:.3e} off 0.25 x the "
+              f"scale-1 update (max {scale_max:.3e}); update "
+              f"{times[f'{opt} {sched}']:.3f} ms over {flat0.numel()} parameters "
+              f"{'ok' if ok and scale_ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{opt} {sched}: the card's updates differ from the CPU's")
+        if not scale_ok:
+            raise AssertionError(f"{opt} {sched}: the LR scale does not multiply the update")
+    print(f"[optimizer] update ms at {flat0.numel()} parameters: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f"; {smi}")
+    return times
+
+
+def _saved_opt(ckpt, epoch):
+    import torch
+
+    return torch.load(os.path.join(ckpt, f"state-{epoch}", "state.pt"),
+                      weights_only=True)["state"]["opt"]
+
+
+def run_optimizer_runtime(runtime, tmp, smi):
+    """Phase 14d, through run(): soft-deit-tiny.sh's flags on phase 11's
+    pickles with --sched plateau (patience 0, no cooldown, decay 0.5) and
+    --lr-noise 0.3 (epochs 1-2 of 3), 4 steps an epoch: the scale in effect
+    in each epoch must be the plateau scale after the epoch before times the
+    epoch's noise, and the scale saved after each epoch the plateau's alone,
+    PlateauController's on the val_acc1 that run() logged. Then 2 epochs
+    resumed to a third against the 3 straight ones: parameters and Adam
+    moments the same bits, the resumed third epoch at the straight one's
+    scale. Then one epoch each of --opt sgd --sched step and --opt adam."""
+    from deltakd_tpu_torch.configs.config import parse_args
+    from deltakd_tpu_torch.cli import train as train_cli
+    from deltakd_tpu_torch.train import loop, optim
+
+    soft = runtime["soft_argv"]
+    short = ["--steps-per-epoch", "4", "--eval-steps", "2"]
+    plateau = ["--sched", "plateau", "--lr-noise", "0.3", "--patience-epochs", "0",
+               "--cooldown-epochs", "0", "--decay-rate", "0.5", *short]
+    record = {"installed": [], "saved": [], "val_acc1": []}
+    real = {n: getattr(loop, n) for n in ("train_one_epoch", "validate", "save_checkpoint")}
+
+    def train_one_epoch(state, *a, **kw):
+        record["installed"].append(optim.get_lr_scale(state.opt_state))
+        return real["train_one_epoch"](state, *a, **kw)
+
+    def validate(*a, **kw):
+        out = real["validate"](*a, **kw)
+        record["val_acc1"].append(out["val_acc1"])
+        return out
+
+    def save_checkpoint(path, state, **kw):
+        record["saved"].append(optim.get_lr_scale(state.opt_state))
+        return real["save_checkpoint"](path, state, **kw)
+
+    def run(argv):
+        for v in record.values():
+            v.clear()
+        loop.train_one_epoch, loop.validate = train_one_epoch, validate
+        loop.save_checkpoint = save_checkpoint
+        try:
+            t0 = time.perf_counter()
+            metrics = train_cli.main(argv)
+            seconds = time.perf_counter() - t0
+        finally:
+            for n, fn in real.items():
+                setattr(loop, n, fn)
+        return metrics, {k: list(v) for k, v in record.items()}, seconds
+
+    argv = soft("plateau", "--epochs", "3", *plateau)
+    cfg = parse_args(argv)
+    straight, rec, seconds = run(argv)
+    controller = optim.PlateauController(
+        decay_rate=cfg.decay_rate, patience=cfg.patience_epochs, cooldown=cfg.cooldown_epochs,
+        min_lr=cfg.min_lr, base_lr=cfg.lr)
+    want_saved = [controller.epoch_end(a) for a in rec["val_acc1"]]
+    before = [1.0] + want_saved[:-1]
+    want_installed = [b * optim.lr_noise_multiplier(cfg, e) for e, b in enumerate(before)]
+    print(f"[optimizer run()] plateau + lr noise, 3 epochs in {seconds:.1f} s: val_acc1 "
+          f"{rec['val_acc1']}; scale in effect {rec['installed']} (want {want_installed}); "
+          f"saved {rec['saved']} (want {want_saved}); {straight}")
+    if rec["installed"] != want_installed or rec["saved"] != want_saved:
+        raise AssertionError("run(): the LR scales do not follow the plateau and the noise")
+    if not all(math.isfinite(v) for v in straight.values()):
+        raise AssertionError(f"run() with --sched plateau: non-finite metrics {straight}")
+    ckpt = os.path.join(tmp, "plateau", "checkpoint")
+    if _saved_opt(ckpt, 3)["scale"] != want_saved[2]:
+        raise AssertionError("run(): the checkpoint's scale is not the plateau's")
+
+    run(soft("plateau-resumed", "--epochs", "2", *plateau))
+    resumed_ckpt = os.path.join(tmp, "plateau-resumed", "checkpoint")
+    _, rec_resumed, _ = run(soft("plateau-resumed", "--epochs", "3", "--resume",
+                                 "--checkpoint", resumed_ckpt, *plateau))
+    same, _ = _same_state(os.path.join(ckpt, "state-3"), os.path.join(resumed_ckpt, "state-3"))
+    print(f"[optimizer run()] resumed at epoch 2: scale in effect {rec_resumed['installed']} "
+          f"(straight {rec['installed'][2:]}); parameters and moments "
+          f"{'the same bits' if same else 'DIFFER'}")
+    if not same or rec_resumed["installed"] != rec["installed"][2:]:
+        raise AssertionError("run(): the resumed plateau run differs from the straight one")
+
+    for name, flags, kind in (("sgd-step", ["--opt", "sgd", "--sched", "step"], "sgd"),
+                              ("adam", ["--opt", "adam"], "adam")):
+        metrics, _, seconds = run(soft(name, "--epochs", "1", *flags, *short))
+        saved = _saved_opt(os.path.join(tmp, name, "checkpoint"), 1)
+        print(f"[optimizer run()] {' '.join(flags)}: 1 epoch in {seconds:.1f} s, {metrics}; "
+              f"checkpoint optimizer {saved['kind']}, {saved['count']} updates")
+        if saved["kind"] != kind or saved["count"] != 4 or not all(
+                math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"run() with {flags}: {metrics}, saved {saved['kind']}")
+
+
+def run_token_dropout(mods, smi):
+    """Phase 14e: a student with token dropout (drop_rate DROP_RATE) at full
+    width: its dropout on the tokens alone (the kept share within 6 standard
+    deviations of 1 - p, the kept values x / (1 - p) exactly, the others 0);
+    two soft-KD steps with finite metrics and changed parameters; and its
+    eval logits the same bits as those of the same weights without dropout."""
+    import dataclasses
+
+    import torch
+
+    from deltakd_tpu_torch.models import registry
+
+    name = "deit_tiny_distilled_dropout_patch16_224"
+    registry.MODEL_REGISTRY[name] = dataclasses.replace(
+        registry.MODEL_REGISTRY["deit_tiny_distilled_patch16_224"], drop_rate=DROP_RATE)
+    try:
+        launches, ms, _, kept = run_train_path(
+            mods, "soft", 2, name="token dropout soft", options=dict(student_model=name))
+    finally:
+        del registry.MODEL_REGISTRY[name]
+    _, student, _, aug, _, images, _ = kept
+    x = torch.randn(B_MAIN, N_TOK, 192, generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda").bfloat16()
+    out = student.token_dropout(x, torch.Generator(device="cuda").manual_seed(6))
+    kept_mask = out != 0
+    n, p_keep = x.numel(), 1.0 - DROP_RATE
+    share = kept_mask.float().mean().item()
+    sigma = math.sqrt(p_keep * (1 - p_keep) / n)
+    exact = torch.equal(out[kept_mask], (x / p_keep)[kept_mask])
+    from deltakd_tpu_torch.data.augment import eval_transform
+
+    xe = eval_transform(images[:16], aug).to(student.dtype)
+    plain = copy.copy(student)
+    plain.cfg = dataclasses.replace(student.cfg, drop_rate=0.0)
+    with torch.no_grad():
+        same_eval = torch.equal(student(xe, train=False).logits, plain(xe, train=False).logits)
+    print(f"[token dropout] kept share {share:.6f} of {n} (1 - p = {p_keep}, 6 sigma "
+          f"{6 * sigma:.2e}); kept values x / (1 - p) exactly: {exact}; eval logits equal "
+          f"without dropout: {same_eval}; step {ms:.2f} ms, launches {launches}; {smi}")
+    if abs(share - p_keep) > 6 * sigma or not exact or not same_eval:
+        raise AssertionError("token dropout: the mask, its scale or eval is wrong")
+    del student, kept
+    return launches
+
+
+# What two planted faults of phase 14a add to a source: a kernel that rounds
+# n fp32 values to bf16 precision in place, and its launch on the stream `st`.
+ROUND_KERNEL = ("__global__ void fault_round_bf16(float* p, long long n) {\n"
+                "  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;\n"
+                "  if (i < n) p[i] = __bfloat162float(__float2bfloat16(p[i]));\n}\n\n")
+ROUND_LAUNCH = "fault_round_bf16<<<blocks_of({1}, 256), 256, 0, st>>>({0}, {1});"
 
 FAULTS = (
     ("the online rescale left out", "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
@@ -3803,6 +4319,29 @@ FAULTS = (
     ("GELU left out of the fp32 MLP forward's fc1", "deltakd_tpu_torch/ops/csrc/fused_mlp.cu",
      (("f1.bias = (const float*)b1_; f1.gelu = 1;", "f1.bias = (const float*)b1_; f1.gelu = 0;"),),
      "--fp32-checks"),
+    # the fp32 forms of rows 6-8 (phase 14a): a kernel that rounds an fp32
+    # buffer to bf16 precision, added to the source, and its launch
+    ("the fp32 pair's mid rounded to bf16", "deltakd_tpu_torch/ops/csrc/fused_block_pair.cu",
+     (("template <typename T>\nstruct PairBwdBuffers {", ROUND_KERNEL
+       + "template <typename T>\nstruct PairBwdBuffers {"),
+      ("  if (err != cudaSuccess) return (int)err;\n  T* out = is_f32<T>",
+       "  if (err != cudaSuccess) return (int)err;\n  if (is_f32<T>) " + ROUND_LAUNCH.format(
+           "mid", "sh.M() * sh.D") + "\n  T* out = is_f32<T>"),
+      ("  if (err == cudaSuccess)\n    err = forward_chain((const float*)b.mid",
+       "  if (is_f32<T>) " + ROUND_LAUNCH.format("b.mid", "sh.M() * sh.D")
+       + "\n  if (err == cudaSuccess)\n    err = forward_chain((const float*)b.mid")),
+     "--fp32-checks"),
+    ("the fp32 MLP backward's dhpre stored as bf16", "deltakd_tpu_torch/ops/csrc/fused_mlp.cu",
+     (("template <typename T>\nstruct MlpBwdBuffers {", ROUND_KERNEL
+       + "template <typename T>\nstruct MlpBwdBuffers {"),
+      ("  cs_reduce(g.col_partial, linear_row_tiles(M), F, 0, (float*)db1, st);",
+       "  if (is_f32<T>) " + ROUND_LAUNCH.format("(float*)g.dhpre", "(long long)M * F")
+       + "\n  cs_reduce(g.col_partial, linear_row_tiles(M), F, 0, (float*)db1, st);")),
+     "--fp32-checks"),
+    # the optimizers (phase 14d): a Python edit of the port
+    ("the LR scale left out of the sgd update", "deltakd_tpu_torch/train/optim.py",
+     (("step_lr = _scaled(self.learning_rate(state.count), state)",
+       "step_lr = self.learning_rate(state.count)"),), "--fp32-checks"),
     # data parallelism (phase 12a): a Python edit of the port, not a kernel
     ("the gradient all-reduce left out", "deltakd_tpu_torch/train/step.py",
      (("grads = dp.all_reduce(grads) / dp.world", "grads = grads"),), "--dp-checks"),
@@ -3899,7 +4438,8 @@ def main() -> int:
                         if backward_checks else ["fused_mlp"] if mlp_checks else
                         ["attention"] if attention_checks else ["sort"] if sort_checks
                         else ["fused_block_fwd", "fused_block_bwd"] if dp_checks
-                        else ["fused_block_fwd", "fused_block_bwd", "attention", "fused_mlp"]
+                        else ["fused_block_fwd", "fused_block_bwd", "fused_block_pair",
+                              "attention", "fused_mlp"]
                         if fp32_checks
                         else _build.SOURCES)
     print(f"[build] sources {list(_build.SOURCES)}, compiled {sorted(logs)} in "
@@ -3935,7 +4475,10 @@ def main() -> int:
         check_fp32_blocks(fb, worst, seeds)
         check_fp32_mlp(fm, worst, seeds)
         check_fp32_attention(at, worst)
+        check_fp32_mlp_backward(fm, worst, seeds)
+        check_fp32_pairs(fb, worst, seeds)
         print_fp32_ratios()
+        check_optimizers(smi)
         return 0
     check_kernels(fb, worst)
     check_block_forward_shapes(fb, worst)
@@ -4057,11 +4600,28 @@ def main() -> int:
     check_fp32_mlp(fm, worst)
     check_fp32_attention(at, worst)
     timing.update(time_fp32_kernels(fb, at, fm, worst, smi))
-    print_fp32_ratios()
     torch.cuda.empty_cache()
     fp32_paths, step_ms["fp32 soft"] = run_fp32_route(mods, step_ms["soft"], smi)
     by_path.update(fp32_paths)
     print(f"[fp32] phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    # phase 14: the fp32 forms of rows 6-8 and the paired fp32 step,
+    # fused_mlp_train at fp32, the optimizers, token dropout
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_fp32_mlp_backward(fm, worst)
+    check_fp32_pairs(fb, worst)
+    timing.update(time_fp32_rows_6_8(fb, fm, worst, smi))
+    print_fp32_ratios()
+    torch.cuda.empty_cache()
+    pair_paths, step_ms["fp32 paired soft"] = run_fp32_pair_route(mods, smi)
+    by_path.update(pair_paths)
+    by_path["fp32 fused_mlp_train"] = run_mlp_train(mods, fm, fp32=True)
+    check_optimizers(smi)
+    run_optimizer_runtime(runtime, tmp, smi)
+    by_path["token dropout soft"] = run_token_dropout(mods, smi)
+    torch.cuda.empty_cache()
+    print(f"[phase 14] took {time.perf_counter() - t0:.1f} s")
     print("[slice] step ms by path: "
           + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
 
@@ -4083,7 +4643,12 @@ def main() -> int:
            "flash_bwd_f32": (csrc + "attention.cu", "deltakd_tpu/ops/attention.py:62"),
            "fused_mlp_fwd": (csrc + "fused_mlp.cu", "deltakd_tpu/ops/fused_mlp.py:50"),
            "fused_mlp_fwd_f32": (csrc + "fused_mlp.cu", "deltakd_tpu/ops/fused_mlp.py:50"),
-           "fused_mlp_bwd": (csrc + "fused_mlp.cu", "deltakd_tpu/ops/fused_mlp.py:126")}
+           "fused_mlp_bwd": (csrc + "fused_mlp.cu", "deltakd_tpu/ops/fused_mlp.py:126"),
+           "fused_mlp_bwd_f32": (csrc + "fused_mlp.cu", "deltakd_tpu/ops/fused_mlp.py:126"),
+           "fused_pair_fwd_f32": (csrc + "fused_block_pair.cu",
+                                  "deltakd_tpu/ops/fused_block.py:929"),
+           "fused_pair_bwd_f32": (csrc + "fused_block_pair.cu",
+                                  "deltakd_tpu/ops/fused_block.py:982")}
     teacher_keys = (384, ATTN_MAIN["teacher"])
     kernels = []
     for key, row in timing.items():

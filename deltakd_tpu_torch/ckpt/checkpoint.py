@@ -10,8 +10,11 @@ interpolating the position embedding onto the new patch grid.
 
 The layout is the JAX package's, written with ``torch.save`` instead of
 orbax: ``<save_dir>/state-<epoch>/state.pt`` holds the flat fp32 parameter
-vector with its names and shapes, the AdamW count and moments, the EMA, the
-step count, the epoch and the best accuracy, all on the CPU. Each save
+vector with its names and shapes, the optimizer's kind, count and buffers
+(AdamW's and Adam's moments, SGD's trace) and its LR scale, the EMA, the step
+count, the epoch and the best accuracy, all on the CPU. A checkpoint without
+the optimizer's kind and scale (the first format) loads as AdamW with scale
+1.0. Each save
 writes a temporary directory and renames it when complete; the previous
 epoch's directory stays until the next save, a same-epoch re-save parks the
 old directory at ``.prev``, and ``meta.json`` (``format``, ``state_dir``)
@@ -81,8 +84,8 @@ def _state_to_dict(state) -> Dict:
         "names": [n for n, _ in state.named_params],
         "shapes": [list(p.shape) for _, p in state.named_params],
         "params": state.params.detach().cpu(),
-        "opt": {"count": int(opt.count), "mu": opt.mu.detach().cpu(),
-                "nu": opt.nu.detach().cpu()},
+        "opt": {"kind": opt.kind, "count": int(opt.count), "scale": opt.scale,
+                **{b: getattr(opt, b).detach().cpu() for b in opt.BUFFERS}},
         "ema": None if state.ema_params is None else state.ema_params.detach().cpu(),
         "step": int(state.step),
     }
@@ -166,10 +169,17 @@ def load_checkpoint(save_dir: str, state) -> Tuple[object, int, float]:
         raise ValueError(f"{save_dir} holds another model's parameters")
     if (saved["ema"] is None) != (state.ema_params is None):
         raise ValueError(f"{save_dir}: the EMA does not match --ema-decay")
+    opt, saved_opt = state.opt_state, saved["opt"]
+    if saved_opt.get("kind", "adamw") != opt.kind:
+        raise ValueError(f"{save_dir} holds the state of optimizer "
+                         f"{saved_opt.get('kind', 'adamw')!r}, not {opt.kind!r}")
     state.params.copy_(saved["params"])
-    state.opt_state.count = saved["opt"]["count"]
-    state.opt_state.mu.copy_(saved["opt"]["mu"])
-    state.opt_state.nu.copy_(saved["opt"]["nu"])
+    opt.count = saved_opt["count"]
+    for b in opt.BUFFERS:
+        getattr(opt, b).copy_(saved_opt[b])
+    if opt.scale is not None:
+        saved_scale = saved_opt.get("scale")
+        opt.scale = 1.0 if saved_scale is None else float(saved_scale)
     if state.ema_params is not None:
         state.ema_params.copy_(saved["ema"])
     state.step = saved["step"]

@@ -5,11 +5,13 @@ same names and defaults, and the same argparse surface, so that every
 
 Every augmentation flag of the JAX package works, and ``aa`` is parsed when
 the config is made, so a policy string the JAX package rejects raises here
-too. What the port does not have yet raises ``NotImplementedError`` instead
-of silently training another recipe: optimizers other than AdamW, schedules
-other than cosine, and LR noise. ``cutmix_minmax`` raises as well, and an
-unknown ``mixup_mode`` raises ``ValueError`` (the JAX package ignores both).
-The CLI accepts those flags all the same.
+too. Every optimizer (``adamw``, ``sgd`` / ``momentum``, ``adam``), schedule
+(``cosine``, ``step``, ``plateau``) and LR-noise setting of the JAX package
+trains; another ``opt`` or ``sched`` raises ``NotImplementedError`` when the
+config is made, where the JAX package raises it when it builds the
+optimizer. ``cutmix_minmax`` is accepted and, as in the JAX package, turns
+mixup on and changes nothing else (``validate`` warns); an unknown
+``mixup_mode`` raises ``ValueError`` (the JAX package ignores it).
 
 The switches of the JAX package's TPU runtime are accepted and mean here:
 ``device`` picks the port's device (None: the card; 'cpu' runs the plain
@@ -156,6 +158,7 @@ class TrainConfig:
     def __post_init__(self):
         from deltakd_tpu_torch.data.augment import parse_aa_spec
         from deltakd_tpu_torch.data.mixup import MODES
+        from deltakd_tpu_torch.train.optim import OPTIMIZERS, SCHEDULES
 
         if self.aa:
             parse_aa_spec(self.aa)
@@ -164,14 +167,14 @@ class TrainConfig:
                                       f"('pixel', 'const', 'rand' are)")
         if self.recount < 1:
             raise ValueError("recount must be >= 1")
-        if self.opt != "adamw" or self.sched != "cosine" or self.lr_noise:
-            raise NotImplementedError(
-                "only opt='adamw' with sched='cosine' and no lr_noise is ported")
+        if self.opt not in OPTIMIZERS:
+            raise NotImplementedError(f"optimizer {self.opt!r} not implemented "
+                                      f"({', '.join(OPTIMIZERS)} are)")
+        if self.sched not in SCHEDULES:
+            raise NotImplementedError(f"scheduler {self.sched!r} not implemented "
+                                      f"({', '.join(SCHEDULES)} are)")
         if self.mixup_mode not in MODES:
             raise ValueError(f"mixup_mode {self.mixup_mode!r} is not one of {MODES}")
-        if self.cutmix_minmax is not None:
-            raise NotImplementedError("cutmix_minmax is not implemented (the JAX "
-                                      "package accepts it and ignores it)")
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be bfloat16 or float32, got {self.dtype!r}")
 
@@ -186,12 +189,16 @@ class TrainConfig:
         """The JAX package's check of flags it accepts but does not honour.
         What it raises for, ``__post_init__`` raises for already; ``resplit``
         is an accepted no-op with a warning, as in the reference, which parses
-        it and never passes it on (reference dataset/datasets.py:56-64)."""
+        it and never passes it on (reference dataset/datasets.py:56-64), and
+        so is ``cutmix_minmax``, which the JAX package's mixup never reads."""
         if self.resplit:
             warnings.warn(
                 "--resplit is accepted but has no effect, matching the "
                 "reference, which parses it and never passes it to "
                 "create_transform (dataset/datasets.py:56-64)")
+        if self.cutmix_minmax is not None:
+            warnings.warn("--cutmix-minmax is accepted but changes nothing but turning "
+                          "mixup on, as in the JAX package, whose mixup never reads it")
         return self
 
 

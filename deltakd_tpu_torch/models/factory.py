@@ -88,10 +88,9 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
     ``DELTAKD_PAIR=1``: with kernels on and no model axis, the student (never
     the forward-only teacher) runs two consecutive blocks per call through
     ``fused_vit_block_pair``. Evaluate it on single blocks:
-    ``student.view(block_pair_fn=None, collect_features=False)``. The pair
-    kernels take bf16 only, so ``block_pair`` with a float32 config raises
-    ``NotImplementedError`` (ROADMAP.md, Queue 1 item 6) rather than give the
-    student single blocks."""
+    ``student.view(block_pair_fn=None, collect_features=False)``. At float32
+    the pair runs its fp32 form, as the JAX factory turns the pair on at any
+    dtype."""
     if (not config.teacher_checkpoint and config.distillation_type != "none"
             and not config.allow_random_teacher):
         raise ValueError(
@@ -109,10 +108,6 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
     model_axis = int(mesh_shape[1]) if mesh_shape and len(mesh_shape) > 1 else 1
     block_fn = fused_vit_block if kernels_on and model_axis == 1 else None
     pair_on = kernels_on and model_axis == 1 and block_pair
-    if pair_on and dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"block_pair with dtype {config.dtype}: the block-pair kernels take bf16 only; "
-            f"their fp32 form is not ported yet (ROADMAP.md, Queue 1 item 6)")
     block_pair_fn = best_block_pair_fn(pair_on)
 
     def needed(name):

@@ -8,6 +8,9 @@ checkpoint loads natively. The contract is the JAX model's:
 * compute runs in ``dtype`` (bf16 by default) over fp32 parameters;
 * each block's feature is its post-MLP, pre-drop-path, pre-residual hidden;
 * LayerNorm eps is 1e-6; drop-path rates ramp linearly across depth;
+* with ``drop_rate`` > 0, train mode drops tokens after the position
+  embedding as flax ``nn.Dropout`` does (keep with probability 1 - p, kept
+  values scaled by 1 / (1 - p)), the mask drawn from the step's generator;
 * a distilled model returns ``(cls, dist)`` logits in train mode and the
   average of the two heads in eval mode.
 
@@ -172,9 +175,6 @@ class VisionTransformer(nn.Module):
                  block_fn: Optional[Callable] = None,
                  block_pair_fn: Optional[Callable] = None, collect_features=True):
         super().__init__()
-        if cfg.drop_rate > 0.0:
-            raise NotImplementedError("token dropout (drop_rate > 0) is not "
-                                      "ported yet")
         self.cfg = cfg
         self.dtype = dtype
         # block_fn (the whole block fused) wins where the model has a qkv bias;
@@ -244,13 +244,32 @@ class VisionTransformer(nn.Module):
         cf = self.collect_features if override is None else override
         return bool(cf) if isinstance(cf, bool) else i in cf
 
+    def token_dropout(self, x: torch.Tensor, generator: Optional[torch.Generator],
+                      keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """flax nn.Dropout(drop_rate) on the tokens x [B, N, D] in train mode:
+        each value kept with probability 1 - drop_rate and then scaled by
+        1 / (1 - drop_rate). ``keep`` (bool, x's shape) pins the mask; else it
+        is drawn from ``generator``."""
+        rate = self.cfg.drop_rate
+        if rate >= 1.0:
+            return torch.zeros_like(x)
+        if keep is None:
+            if generator is None:
+                raise ValueError("train mode with drop_rate > 0 needs token_keep or a "
+                                 "generator")
+            keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 drop_scales: Optional[Sequence] = None,
                 generator: Optional[torch.Generator] = None,
-                collect_features=None) -> ViTOutput:
+                collect_features=None,
+                token_keep: Optional[torch.Tensor] = None) -> ViTOutput:
         """x: [B, H, W, C] images. In train mode with a drop-path rate, the
         branch scales are ``drop_scales`` (one (s_attn, s_mlp) pair or None
-        per block) or else drawn from ``generator``."""
+        per block) or else drawn from ``generator``; with a token dropout
+        rate, the keep mask of the tokens is ``token_keep`` or else drawn
+        from ``generator`` after the drop-path scales."""
         cfg, dt = self.cfg, self.dtype
         B = x.shape[0]
         if train and cfg.drop_path_rate > 0.0 and drop_scales is None:
@@ -269,6 +288,8 @@ class VisionTransformer(nn.Module):
         if cfg.distilled:
             prefix.append(self.dist_token.to(dt).expand(B, -1, -1))
         x = torch.cat(prefix + [x], dim=1) + self.pos_embed.to(dt)
+        if train and cfg.drop_rate > 0.0:
+            x = self.token_dropout(x, generator, token_keep)
 
         def scales_of(i):
             pair = drop_scales[i] if drop_scales is not None else None

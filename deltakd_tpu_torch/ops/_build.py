@@ -40,8 +40,11 @@ SIGNATURES = {
                         **_block_signatures("fused_block_bwd_f32"),
                         "dk_weight_grad_sm90_workspace": ([_INT] * 3, ctypes.c_size_t),
                         "dk_weight_grad_sm90": ([_PTR] * 2 + [_INT] * 3 + [_PTR] * 3, _INT)},
+    # the pair forward and backward in bf16 and fp32
     "fused_block_pair": {**_block_signatures("fused_pair_fwd"),
-                         **_block_signatures("fused_pair_bwd")},
+                         **_block_signatures("fused_pair_bwd"),
+                         **_block_signatures("fused_pair_fwd_f32"),
+                         **_block_signatures("fused_pair_bwd_f32")},
     "sort": {
         "dk_sort_tiles": ([_INT, _INT], _INT),
         "dk_sort_bitonic": ([_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR], _INT),
@@ -61,8 +64,10 @@ SIGNATURES = {
         "dk_fused_mlp_fwd": ([_PTR] * 6 + [_INT] * 3 + [_PTR], _INT),
         "dk_fused_mlp_fwd_f32_workspace": ([_INT] * 3, ctypes.c_size_t),
         "dk_fused_mlp_fwd_f32": ([_PTR] * 7 + [_INT] * 3 + [_PTR], _INT),
-        "dk_fused_mlp_bwd_workspace": ([_INT] * 3, ctypes.c_size_t),
-        "dk_fused_mlp_bwd": ([_PTR] * 11 + [_INT] * 3 + [_PTR], _INT),
+        **{f"dk_fused_mlp_bwd{form}_workspace": ([_INT] * 3, ctypes.c_size_t)
+           for form in ("", "_f32")},
+        **{f"dk_fused_mlp_bwd{form}": ([_PTR] * 11 + [_INT] * 3 + [_PTR], _INT)
+           for form in ("", "_f32")},
     },
 }
 

@@ -3,8 +3,9 @@
 //
 // Replaces: deltakd_tpu/ops/fused_block.py `_pair_fwd_kernel` (called by
 // `_pair_fwd_call`) and `_pair_bwd_kernel` (called by `_pair_bwd_call`). For
-// x [B, N, D] bf16, four per-sample drop-path scales [B] fp32 and two weight
-// sets:
+// x [B, N, D] bf16 (or fp32 with fp32 weights: the `_f32` entry points, as
+// the TPU kernels run at their input's dtype), four per-sample drop-path
+// scales [B] fp32 and two weight sets:
 //   mid, feat1 = block(x,   w1, s_attn1, s_mlp1)
 //   out, feat2 = block(mid, w2, s_attn2, s_mlp2)
 // What the pair does that two single-block launches do not: `mid` never
@@ -43,10 +44,13 @@ namespace {
 // (s_attn1, s_mlp1, s_attn2, s_mlp2), 12 weights of block 1, 12 of block 2.
 constexpr int P_X = 0, P_SCALES = 1, P_W1 = 5, P_W2 = 17, P_REST = 29;
 
+// The backward's workspace at operand type T: both blocks' stashes, mid and
+// dmid (fp32 in both forms), and the sweeps' shared buffers.
+template <typename T>
 struct PairBwdBuffers {
-  FwdBuffers f1, f2;
+  FwdBuffersT<T> f1, f2;
   float *mid, *dmid;
-  BwdBuffers g;
+  BwdBuffersT<T> g;
 
   void carve(Carver& c, const Shape& sh) {
     f1.carve(c, sh, true);
@@ -57,71 +61,65 @@ struct PairBwdBuffers {
   }
 };
 
-}  // namespace
-
-extern "C" size_t dk_fused_pair_fwd_workspace(int B, int N, int D, int H, int F) {
-  Shape sh{B, N, D, H, F};
+template <typename T>
+size_t pair_fwd_workspace(const Shape& sh) {
   Carver c{nullptr, 0};
-  FwdBuffers f;
+  FwdBuffersT<T> f;
   f.carve(c, sh, false);
-  c.take<float>(sh.M() * D);
+  c.take<float>(sh.M() * sh.D);
   return c.off;
 }
 
-// ptr: x, s_attn1, s_mlp1, s_attn2, s_mlp2, 12 weights of block 1, 12 of
-// block 2, out, feat1|null, feat2|null, workspace. Returns
-// cudaGetLastError() after the launches.
-extern "C" int dk_fused_pair_fwd(void* const* ptr, int B, int N, int D, int H, int F,
-                                 float eps, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  Shape sh{B, N, D, H, F};
+// The forward at operand type T: x, out, feat1 and feat2 of T. Block 2's
+// output is rounded to bf16 at the kernel boundary in the bf16 form and
+// written unrounded in the fp32 form.
+template <typename T>
+int pair_fwd(void* const* ptr, const Shape& sh, float eps, cudaStream_t st) {
   const float* const* s = (const float* const*)(ptr + P_SCALES);
   Carver c{(char*)ptr[P_REST + 3], 0};
-  FwdBuffers f;
+  FwdBuffersT<T> f;
   f.carve(c, sh, false);
-  float* mid = c.take<float>(sh.M() * D);
+  float* mid = c.take<float>(sh.M() * sh.D);
   const cudaError_t err =
-      forward_chain((const bf16*)ptr[P_X], s[0], s[1], unpack_weights(ptr + P_W1), sh, eps, f,
-                    false, nullptr, mid, (bf16*)ptr[P_REST + 1], st);
+      forward_chain((const T*)ptr[P_X], s[0], s[1], unpack_weights<T>(ptr + P_W1), sh, eps, f,
+                    false, nullptr, mid, (T*)ptr[P_REST + 1], st);
   if (err != cudaSuccess) return (int)err;
-  return (int)forward_chain((const float*)mid, s[2], s[3], unpack_weights(ptr + P_W2), sh, eps,
-                            f, false, (bf16*)ptr[P_REST], nullptr, (bf16*)ptr[P_REST + 2], st);
+  T* out = is_f32<T> ? nullptr : (T*)ptr[P_REST];
+  float* out32 = is_f32<T> ? (float*)ptr[P_REST] : nullptr;
+  return (int)forward_chain((const float*)mid, s[2], s[3], unpack_weights<T>(ptr + P_W2), sh,
+                            eps, f, false, out, out32, (T*)ptr[P_REST + 2], st);
 }
 
-extern "C" size_t dk_fused_pair_bwd_workspace(int B, int N, int D, int H, int F) {
-  Shape sh{B, N, D, H, F};
+template <typename T>
+size_t pair_bwd_workspace(const Shape& sh) {
   Carver c{nullptr, 0};
-  PairBwdBuffers b;
+  PairBwdBuffers<T> b;
   b.carve(c, sh);
   return c.off;
 }
 
-// ptr: x, s_attn1, s_mlp1, s_attn2, s_mlp2, 12 weights of block 1, 12 of
-// block 2, g_out, g_feat1|null, g_feat2|null, dx, the 12 fp32 weight
-// gradients of block 1, the 12 of block 2 (each in its weights' order), then
-// the workspace. Returns the first launch error, or cudaErrorInvalidValue,
-// before any launch, for a shape the attention kernels do not take.
-extern "C" int dk_fused_pair_bwd(void* const* ptr, int B, int N, int D, int H, int F,
-                                 float eps, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const Shape sh{B, N, D, H, F};
-  if (!attention_bwd_takes(sh.hd(), N)) return (int)cudaErrorInvalidValue;
+// The backward at operand type T: x, g_out, g_feat1, g_feat2 and dx of T.
+template <typename T>
+int pair_bwd(void* const* ptr, const Shape& sh, float eps, cudaStream_t st) {
+  if (!attention_bwd_takes(sh.hd(), sh.N)) return (int)cudaErrorInvalidValue;
   const float* const* s = (const float* const*)(ptr + P_SCALES);
-  const BlockWeights w1 = unpack_weights(ptr + P_W1), w2 = unpack_weights(ptr + P_W2);
-  const bf16* g_out = (const bf16*)ptr[P_REST];
-  const bf16* g_feat1 = (const bf16*)ptr[P_REST + 1];
-  const bf16* g_feat2 = (const bf16*)ptr[P_REST + 2];
-  bf16* dx = (bf16*)ptr[P_REST + 3];
+  const BlockWeightsT<T> w1 = unpack_weights<T>(ptr + P_W1), w2 = unpack_weights<T>(ptr + P_W2);
+  const T* g_out = (const T*)ptr[P_REST];
+  const T* g_feat1 = (const T*)ptr[P_REST + 1];
+  const T* g_feat2 = (const T*)ptr[P_REST + 2];
+  // dx: rounded as a product operand in the bf16 form, unrounded in the fp32
+  T* dx = is_f32<T> ? nullptr : (T*)ptr[P_REST + 3];
+  float* dx32 = is_f32<T> ? (float*)ptr[P_REST + 3] : nullptr;
   float* const* dW1 = (float* const*)(ptr + P_REST + 4);
   float* const* dW2 = dW1 + 12;
 
   Carver c{(char*)ptr[P_REST + 4 + 24], 0};
-  PairBwdBuffers b;
+  PairBwdBuffers<T> b;
   b.carve(c, sh);
 
   // recompute block 1 with its stash and its unrounded output, then block 2's
   // stash from it (block 2 stops at the GELU)
-  cudaError_t err = forward_chain((const bf16*)ptr[P_X], s[0], s[1], w1, sh, eps, b.f1, true,
+  cudaError_t err = forward_chain((const T*)ptr[P_X], s[0], s[1], w1, sh, eps, b.f1, true,
                                   nullptr, b.mid, nullptr, st);
   if (err == cudaSuccess)
     err = forward_chain((const float*)b.mid, s[2], s[3], w2, sh, eps, b.f2, true, nullptr,
@@ -131,5 +129,56 @@ extern "C" int dk_fused_pair_bwd(void* const* ptr, int B, int N, int D, int H, i
   err = reverse_chain(g_out, g_feat2, s[2], s[3], w2, sh, b.f2, b.g, dW2, b.dmid, nullptr, st);
   if (err != cudaSuccess) return (int)err;
   return (int)reverse_chain((const float*)b.dmid, g_feat1, s[0], s[1], w1, sh, b.f1, b.g, dW1,
-                            nullptr, dx, st);
+                            dx32, dx, st);
+}
+
+}  // namespace
+
+extern "C" size_t dk_fused_pair_fwd_workspace(int B, int N, int D, int H, int F) {
+  return pair_fwd_workspace<bf16>(Shape{B, N, D, H, F});
+}
+
+// ptr: x, s_attn1, s_mlp1, s_attn2, s_mlp2, 12 weights of block 1, 12 of
+// block 2, out, feat1|null, feat2|null, workspace. Returns
+// cudaGetLastError() after the launches.
+extern "C" int dk_fused_pair_fwd(void* const* ptr, int B, int N, int D, int H, int F,
+                                 float eps, void* stream) {
+  return pair_fwd<bf16>(ptr, Shape{B, N, D, H, F}, eps, (cudaStream_t)stream);
+}
+
+extern "C" size_t dk_fused_pair_bwd_workspace(int B, int N, int D, int H, int F) {
+  return pair_bwd_workspace<bf16>(Shape{B, N, D, H, F});
+}
+
+// ptr: x, s_attn1, s_mlp1, s_attn2, s_mlp2, 12 weights of block 1, 12 of
+// block 2, g_out, g_feat1|null, g_feat2|null, dx, the 12 fp32 weight
+// gradients of block 1, the 12 of block 2 (each in its weights' order), then
+// the workspace. Returns the first launch error, or cudaErrorInvalidValue,
+// before any launch, for a shape the attention kernels do not take.
+extern "C" int dk_fused_pair_bwd(void* const* ptr, int B, int N, int D, int H, int F,
+                                 float eps, void* stream) {
+  return pair_bwd<bf16>(ptr, Shape{B, N, D, H, F}, eps, (cudaStream_t)stream);
+}
+
+// The fp32 forms (rows 7 and 8 of an fp32 model): x, out, the features,
+// the cotangents and dx fp32, the 24 weights fp32, every product 3xTF32 on
+// TF32 wgmma, nothing rounded to bf16 (so the pair gives the bits of two
+// fp32 single blocks chained, whose output between them is fp32 too). The
+// same pointer tables and returns as the bf16 entry points.
+extern "C" size_t dk_fused_pair_fwd_f32_workspace(int B, int N, int D, int H, int F) {
+  return pair_fwd_workspace<float>(Shape{B, N, D, H, F});
+}
+
+extern "C" int dk_fused_pair_fwd_f32(void* const* ptr, int B, int N, int D, int H, int F,
+                                     float eps, void* stream) {
+  return pair_fwd<float>(ptr, Shape{B, N, D, H, F}, eps, (cudaStream_t)stream);
+}
+
+extern "C" size_t dk_fused_pair_bwd_f32_workspace(int B, int N, int D, int H, int F) {
+  return pair_bwd_workspace<float>(Shape{B, N, D, H, F});
+}
+
+extern "C" int dk_fused_pair_bwd_f32(void* const* ptr, int B, int N, int D, int H, int F,
+                                     float eps, void* stream) {
+  return pair_bwd<float>(ptr, Shape{B, N, D, H, F}, eps, (cudaStream_t)stream);
 }

@@ -11,6 +11,8 @@
 //   backward  hpre and h recomputed from x; dh = dy W2, dhpre = dh gelu'(hpre),
 //             dx = dhpre W1, dW1 = dhpre^T x, dW2 = h^T dy,
 //             db1 = colsum(dhpre), db2 = colsum(dy)        (fp32 sums)
+//             (fp32 operands: `dk_fused_mlp_bwd_f32`, the same chain with
+//             3xTF32 products and nothing rounded to bf16)
 //
 // What bounds the forward on an H100: the tensor cores, as long as the
 // [M, F] hidden never reaches device memory. 4 M D F operations on 2 M D bf16
@@ -298,9 +300,11 @@ cudaError_t launch_fwd(const bf16* x, const bf16* w1, const float* b1, const bf1
 // Backward
 // ---------------------------------------------------------------------------
 
-// partial[chunk][d] = the sum over the chunk's CS_ROWS rows of a[row, d]: the
-// row kernels' column-sum pattern (fused_block_reverse.cuh), fixed order.
-__global__ void colsum_kernel(const bf16* a, int M, int D, float* partial) {
+// partial[chunk][d] = the sum over the chunk's CS_ROWS rows of a[row, d] (a
+// of T): the row kernels' column-sum pattern (fused_block_reverse.cuh),
+// fixed order.
+template <typename T>
+__global__ void colsum_kernel(const T* a, int M, int D, float* partial) {
   extern __shared__ float cs_acc[];
   float* acc = cs_warp_slice(cs_acc, 1, D);
   const int r0 = blockIdx.x * CS_ROWS, r1 = min(M, r0 + CS_ROWS);
@@ -309,26 +313,91 @@ __global__ void colsum_kernel(const bf16* a, int M, int D, float* partial) {
   cs_write(cs_acc, 1, D, partial);
 }
 
-// Workspace of the backward: h and dhpre in bf16, gelu'(hpre) in fp32, the
-// weights transposed (K-major operands of the input gradients), the
-// row-range partials of the wider weight gradient, and the column sums'
-// partials (dhpre's per 128-row tile, dy's per CS_ROWS rows).
+// Workspace of the backward at operand type T: h and dhpre in T, gelu'(hpre)
+// in fp32, the weights transposed (K-major operands of the input
+// gradients), in the fp32 form G^T and X^T of the weight gradients (TF32
+// wgmma takes no transpose; both products reuse them), the row-range
+// partials of the wider weight gradient, and the column sums' partials
+// (dhpre's per 128-row tile, dy's per CS_ROWS rows).
+template <typename T>
 struct MlpBwdBuffers {
-  bf16 *h, *dhpre, *w1_t, *w2_t;
+  T *h, *dhpre, *w1_t, *w2_t, *gt, *xt;
   float *hgrad, *partial, *col_partial;
 
   void carve(Carver& c, int M, int D, int F) {
-    h = c.take<bf16>((long long)M * F);
-    dhpre = c.take<bf16>((long long)M * F);
+    h = c.take<T>((long long)M * F);
+    dhpre = c.take<T>((long long)M * F);
     hgrad = c.take<float>((long long)M * F);
-    w1_t = c.take<bf16>((long long)D * F);
-    w2_t = c.take<bf16>((long long)F * D);
-    const long long a = weight_grad_partial_len(M, F, D), b = weight_grad_partial_len(M, D, F);
+    w1_t = c.take<T>((long long)D * F);
+    w2_t = c.take<T>((long long)F * D);
+    gt = xt = nullptr;
+    if (is_f32<T>) {   // dW1: G^T [F, ld], X^T [D, ld]; dW2: G^T [D, ld], X^T [F, ld]
+      const long long rows = D > F ? D : F, ld = transposed_ld(M);
+      gt = c.take<T>(rows * ld);
+      xt = c.take<T>(rows * ld);
+    }
+    const long long a = weight_grad_partial_len<T>(M, F, D),
+                    b = weight_grad_partial_len<T>(M, D, F);
     partial = c.take<float>(a > b ? a : b);
     const long long t = (long long)linear_row_tiles(M) * F, r = (long long)cs_chunks(M) * D;
     col_partial = c.take<float>(t > r ? t : r);
   }
 };
+
+template <typename T>
+size_t mlp_bwd_workspace(int M, int D, int F) {
+  Carver c{nullptr, 0};
+  MlpBwdBuffers<T> g;
+  g.carve(c, M, D, F);
+  return c.off;
+}
+
+// The backward's chain at operand type T (x, dy, dx of T); the entry points
+// below are its bf16 and fp32 forms.
+template <typename T>
+int mlp_bwd(const void* x_, const void* w1_, const void* b1_, const void* w2_, const void* dy_,
+            void* dx, void* dw1, void* db1, void* dw2, void* db2, void* work, int M, int D,
+            int F, cudaStream_t st) {
+  if (M < 1 || D < 8 || F < 8 || D % 8 || F % 8 || !work) return -1;
+  const T *x = (const T*)x_, *w1 = (const T*)w1_, *w2 = (const T*)w2_, *dy = (const T*)dy_;
+  Carver c{(char*)work, 0};
+  MlpBwdBuffers<T> g;
+  g.carve(c, M, D, F);
+  cudaError_t err;
+
+  // the weights as the K-major operands of the input gradients
+  transpose(w1, F, D, g.w1_t, st);
+  transpose(w2, D, F, g.w2_t, st);
+
+  // recompute h = gelu(hpre) and gelu'(hpre), hpre = x W1^T + b1
+  LinearT<T> l = linear_of(x, w1, M, F, D);
+  l.bias = (const float*)b1_; l.gelu = 1; l.act_grad = g.hgrad;
+  l.out_lp = g.h;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
+  // dhpre = (dy W2) * gelu'(hpre) in T; db1 from its 128-row column sums
+  l = linear_of<T>(dy, g.w2_t, M, F, D);
+  l.mul = g.hgrad; l.col_part = g.col_partial;
+  l.out_lp = g.dhpre;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
+  cs_reduce(g.col_partial, linear_row_tiles(M), F, 0, (float*)db1, st);
+  // dx = dhpre W1
+  l = linear_of<T>(g.dhpre, g.w1_t, M, D, F);
+  l.out_lp = (T*)dx;
+  if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
+  // dW1 = dhpre^T x, dW2 = dy^T h
+  if ((err = weight_grad_sm90(g.dhpre, x, M, F, D, g.partial, (float*)dw1, st, g.gt, g.xt)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = weight_grad_sm90(dy, g.h, M, D, F, g.partial, (float*)dw2, st, g.gt, g.xt)) !=
+      cudaSuccess)
+    return (int)err;
+  // db2 = colsum(dy)
+  const int chunks = cs_chunks(M);
+  if ((err = cs_opt_in(colsum_kernel<T>, cs_smem(1, D))) != cudaSuccess) return (int)err;
+  colsum_kernel<T><<<chunks, ROW_THREADS, cs_smem(1, D), st>>>(dy, M, D, g.col_partial);
+  reduce_chunks(g.col_partial, chunks, D, (float*)db2, st);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -356,59 +425,18 @@ extern "C" int dk_fused_mlp_fwd(const void* x_, const void* w1_, const void* b1_
 }
 
 extern "C" size_t dk_fused_mlp_bwd_workspace(int M, int D, int F) {
-  Carver c{nullptr, 0};
-  MlpBwdBuffers g;
-  g.carve(c, M, D, F);
-  return c.off;
+  return mlp_bwd_workspace<bf16>(M, D, F);
 }
 
 // x, dy: [M, D] bf16; w1: [F, D], w2: [D, F] bf16; b1: [F] fp32. Writes dx
 // [M, D] bf16 and dw1 [F, D], db1 [F], dw2 [D, F], db2 [D] in fp32. D and F
 // are multiples of 8. Returns the first launch error, or -1 for a shape it
 // refuses (nothing after it is launched).
-extern "C" int dk_fused_mlp_bwd(const void* x_, const void* w1_, const void* b1_,
-                                const void* w2_, const void* dy_, void* dx, void* dw1,
-                                void* db1, void* dw2, void* db2, void* work, int M, int D,
-                                int F, void* stream) {
-  if (M < 1 || D < 8 || F < 8 || D % 8 || F % 8 || !work) return -1;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bf16 *x = (const bf16*)x_, *w1 = (const bf16*)w1_, *w2 = (const bf16*)w2_,
-             *dy = (const bf16*)dy_;
-  Carver c{(char*)work, 0};
-  MlpBwdBuffers g;
-  g.carve(c, M, D, F);
-  cudaError_t err;
-
-  // the weights as the K-major operands of the input gradients
-  transpose(w1, F, D, g.w1_t, st);
-  transpose(w2, D, F, g.w2_t, st);
-
-  // recompute h = gelu(hpre) and gelu'(hpre), hpre = x W1^T + b1
-  Linear l = linear_of(x, w1, M, F, D);
-  l.bias = (const float*)b1_; l.gelu = 1; l.act_grad = g.hgrad;
-  l.out_lp = g.h;
-  if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
-  // dhpre = (dy W2) * gelu'(hpre) in bf16; db1 from its 128-row column sums
-  l = linear_of(dy, g.w2_t, M, F, D);
-  l.mul = g.hgrad; l.col_part = g.col_partial;
-  l.out_lp = g.dhpre;
-  if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
-  cs_reduce(g.col_partial, linear_row_tiles(M), F, 0, (float*)db1, st);
-  // dx = dhpre W1
-  l = linear_of(g.dhpre, g.w1_t, M, D, F);
-  l.out_lp = (bf16*)dx;
-  if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
-  // dW1 = dhpre^T x, dW2 = dy^T h
-  if ((err = weight_grad_sm90(g.dhpre, x, M, F, D, g.partial, (float*)dw1, st)) != cudaSuccess)
-    return (int)err;
-  if ((err = weight_grad_sm90(dy, g.h, M, D, F, g.partial, (float*)dw2, st)) != cudaSuccess)
-    return (int)err;
-  // db2 = colsum(dy)
-  const int chunks = cs_chunks(M);
-  if ((err = cs_opt_in(colsum_kernel, cs_smem(1, D))) != cudaSuccess) return (int)err;
-  colsum_kernel<<<chunks, ROW_THREADS, cs_smem(1, D), st>>>(dy, M, D, g.col_partial);
-  reduce_chunks(g.col_partial, chunks, D, (float*)db2, st);
-  return (int)cudaGetLastError();
+extern "C" int dk_fused_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
+                                const void* dy, void* dx, void* dw1, void* db1, void* dw2,
+                                void* db2, void* work, int M, int D, int F, void* stream) {
+  return mlp_bwd<bf16>(x, w1, b1, w2, dy, dx, dw1, db1, dw2, db2, work, M, D, F,
+                       (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -455,4 +483,26 @@ extern "C" int dk_fused_mlp_fwd_f32(const void* x_, const void* w1_, const void*
   f2.out_f32 = (float*)out_;
   if ((err = linear_sm90(f2, st)) != cudaSuccess) return err == cudaErrorInvalidValue ? -1 : (int)err;
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward, fp32 operands (3xTF32)
+// ---------------------------------------------------------------------------
+
+// The fp32 form of the backward (row 6 of an fp32 model): the chain above at
+// fp32, every product 3xTF32 on the TF32 wgmma, h, dhpre, dx and the
+// transposed weights fp32 and unrounded. Its two weight gradients transpose
+// G and X into the workspace first, so the workspace is about twice the bf16
+// form's. The same arguments and returns as dk_fused_mlp_bwd, with x, dy,
+// w1, w2 and dx fp32.
+extern "C" size_t dk_fused_mlp_bwd_f32_workspace(int M, int D, int F) {
+  return mlp_bwd_workspace<float>(M, D, F);
+}
+
+extern "C" int dk_fused_mlp_bwd_f32(const void* x, const void* w1, const void* b1,
+                                    const void* w2, const void* dy, void* dx, void* dw1,
+                                    void* db1, void* dw2, void* db2, void* work, int M, int D,
+                                    int F, void* stream) {
+  return mlp_bwd<float>(x, w1, b1, w2, dy, dx, dw1, db1, dw2, db2, work, M, D, F,
+                        (cudaStream_t)stream);
 }

@@ -32,8 +32,8 @@ x with fp32 weights: the fp32 form runs every product on TF32 tensor cores
 in 3xTF32 (a high and a low TF32 part of each operand, three products: about
 fp32 accuracy) and rounds nothing to bf16, as the TPU kernel runs at its
 input's dtype; its plain version is the same function at fp32, `_mm` in full
-fp32. The pair kernels take bf16 only. Weights use
-nn.Linear's [out, in] layout and timm's names.
+fp32. The pair kernels take the same two forms. Weights use nn.Linear's
+[out, in] layout and timm's names.
 """
 
 from __future__ import annotations
@@ -282,6 +282,8 @@ def _kernel_operands(x, s_attn, s_mlp, w, H, name):
 # The source under csrc/ that holds a kernel's entry point, where it is not
 # named like the kernel.
 _SOURCE_OF = {"fused_pair_fwd": "fused_block_pair", "fused_pair_bwd": "fused_block_pair",
+              "fused_pair_fwd_f32": "fused_block_pair",
+              "fused_pair_bwd_f32": "fused_block_pair",
               "fused_block_fwd_f32": "fused_block_fwd",
               "fused_block_bwd_f32": "fused_block_bwd"}
 
@@ -362,11 +364,9 @@ def fused_block_bwd_cuda(x, s_attn, s_mlp, w, g_out, g_feat, H, eps):
 
 def _pair_operands(x, scales, w1, w2, H, name):
     """_kernel_operands for both blocks of a pair, which must have the same
-    widths and take bf16 x only: (x, four scales, weights of block 1, weights
-    of block 2)."""
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the pair kernels take bf16 x, got {x.dtype} (their "
-                         f"fp32 form is not ported yet: ROADMAP.md, Queue 1 item 6)")
+    widths: (x, four scales, weights of block 1, weights of block 2); bf16 x
+    (any float weights, rounded) or fp32 x with fp32 weights in both blocks,
+    and ValueError before any launch for anything else."""
     x, sa1, sm1, ws1 = _kernel_operands(x, scales[0], scales[1], w1, H, name)
     _, sa2, sm2, ws2 = _kernel_operands(x, scales[2], scales[3], w2, H, name)
     if ws1[8].shape != ws2[8].shape:
@@ -376,10 +376,10 @@ def _pair_operands(x, scales, w1, w2, H, name):
 
 
 def fused_pair_fwd_cuda(x, scales, w1, w2, H, eps, nf1, nf2):
-    """The pair forward kernel (csrc/fused_block_pair.cu) on CUDA tensors:
-    (out, feat1|None, feat2|None)."""
-    name = "fused_pair_fwd"
-    x, scales, ws1, ws2 = _pair_operands(x, scales, w1, w2, H, name)
+    """The pair forward kernel (csrc/fused_block_pair.cu) on CUDA tensors, in
+    x's dtype (bf16, or fp32 in 3xTF32): (out, feat1|None, feat2|None)."""
+    x, scales, ws1, ws2 = _pair_operands(x, scales, w1, w2, H, "fused_pair_fwd")
+    name = kernel_entry("fused_pair_fwd", x)
     F = ws1[8].shape[0]
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
@@ -392,12 +392,13 @@ def fused_pair_fwd_cuda(x, scales, w1, w2, H, eps, nf1, nf2):
 
 
 def fused_pair_bwd_cuda(x, scales, w1, w2, g_out, g_f1, g_f2, H, eps):
-    """The pair backward kernel (csrc/fused_block_pair.cu) on CUDA tensors:
-    dx (bf16) and the 12 + 12 fp32 weight grads summed over the batch."""
-    name = "fused_pair_bwd"
-    x, scales, ws1, ws2 = _pair_operands(x, scales, w1, w2, H, name)
-    _bwd_length(x, name)
-    g_out, g_f1, g_f2 = (None if g is None else g.to(torch.bfloat16).contiguous()
+    """The pair backward kernel (csrc/fused_block_pair.cu) on CUDA tensors, in
+    x's dtype (bf16, or fp32 in 3xTF32): dx in x's dtype and the 12 + 12
+    fp32 weight grads summed over the batch."""
+    x, scales, ws1, ws2 = _pair_operands(x, scales, w1, w2, H, "fused_pair_bwd")
+    _bwd_length(x, "fused_pair_bwd")
+    name = kernel_entry("fused_pair_bwd", x)
+    g_out, g_f1, g_f2 = (None if g is None else g.to(x.dtype).contiguous()
                          for g in (g_out, g_f1, g_f2))
     F = ws1[8].shape[0]
     with torch.cuda.device(x.device):

@@ -21,11 +21,11 @@ fp32 and cast to the parameters' dtypes.
 Dispatch is by the device of ``x``: a CPU tensor takes the plain version, a
 CUDA tensor the hand-written kernels in ``csrc/fused_mlp.cu`` (bf16, D and F
 multiples of 16; the forward takes the widths of :func:`forward_takes`, every
-model width among them), anything else raises. The forward also has an fp32
-form (fp32 x with fp32 weights: 3xTF32 products, nothing rounded to bf16, the
-hidden through device memory), so ``fused_mlp`` serves an fp32 teacher; the
-backward takes bf16 only, and ``fused_mlp_train`` raises NotImplementedError
-on an fp32 CUDA tensor (ROADMAP.md, Queue 1 item 6).
+model width among them), anything else raises. Both kernels also have an
+fp32 form (fp32 x with fp32 weights: 3xTF32 products, nothing rounded to
+bf16, the hidden through device memory), so ``fused_mlp`` serves an fp32
+teacher and ``fused_mlp_train`` an fp32 model; a mix of dtypes raises
+ValueError before a launch.
 """
 
 from __future__ import annotations
@@ -115,15 +115,14 @@ def _library():
     return _build.library("fused_mlp")
 
 
-def _operands(name, x2, w1, b1, w2, b2=None, fp32=False):
+def _operands(name, x2, w1, b1, w2, b2=None):
     """Checks what the kernels take and returns contiguous (x2, w1, b1, w2,
     b2): x2 CUDA bf16 [M, D] with weights bf16 and biases rounded to bf16 and
-    held in fp32; with ``fp32`` also x2 fp32 with fp32 weights and biases,
-    kept. Raises ValueError, before any launch, for anything else, a mix
-    such as fp32 x with bf16 weights among it."""
-    dtypes = (torch.bfloat16, torch.float32) if fp32 else (torch.bfloat16,)
-    if x2.dtype not in dtypes or x2.dim() != 2:
-        raise ValueError(f"{name}: x must be {' or '.join(map(str, dtypes))} [M, D], "
+    held in fp32, or x2 fp32 with fp32 weights and biases, kept. Raises
+    ValueError, before any launch, for anything else, a mix such as fp32 x
+    with bf16 weights among it."""
+    if x2.dtype not in (torch.bfloat16, torch.float32) or x2.dim() != 2:
+        raise ValueError(f"{name}: x must be torch.bfloat16 or torch.float32 [M, D], "
                          f"got {x2.dtype} {tuple(x2.shape)}")
     M, D = x2.shape
     F = w1.shape[0]
@@ -159,7 +158,7 @@ def kernel_fused_mlp(x2, w1, b1, w2, b2) -> torch.Tensor:
     if not forward_takes(D, F) and x2.dtype == torch.bfloat16 and x2.dim() == 2:
         raise ValueError(f"fused_mlp: the forward kernel takes no width D={D}, F={F} (D "
                          f"a multiple of 192 or 256 up to 1024, F of 128)")
-    x2, w1, b1, w2, b2 = _operands("fused_mlp", x2, w1, b1, w2, b2, fp32=True)
+    x2, w1, b1, w2, b2 = _operands("fused_mlp", x2, w1, b1, w2, b2)
     M = x2.shape[0]
     name = kernel_entry("fused_mlp_fwd", x2)
     lib = _library()
@@ -181,16 +180,20 @@ def kernel_fused_mlp(x2, w1, b1, w2, b2) -> torch.Tensor:
     return out
 
 
-def workspace_bytes(M: int, D: int, F: int) -> int:
-    """Bytes of the backward kernel's workspace at [M, D] and hidden width F:
-    h and dhpre in bf16, gelu' in fp32, W1 and W2 transposed, the partials
-    of the wider weight gradient and of the column sums."""
-    return _library().dk_fused_mlp_bwd_workspace(M, D, F)
+def workspace_bytes(M: int, D: int, F: int, name: str = "fused_mlp_bwd") -> int:
+    """Bytes of the workspace of backward kernel ``name`` (``fused_mlp_bwd``
+    or ``fused_mlp_bwd_f32``) at [M, D] and hidden width F: h and dhpre in
+    the operand dtype, gelu' in fp32, W1 and W2 transposed, the partials of
+    the wider weight gradient and of the column sums; in the fp32 form also
+    the weight gradients' transposed operands."""
+    return getattr(_library(), f"dk_{name}_workspace")(M, D, F)
 
 
 def kernel_fused_mlp_bwd(x2, w1, b1, w2, dy2):
-    """The backward kernel alone on CUDA bf16 [M, D] tensors: (dx bf16, dw1,
-    db1, dw2, db2 fp32)."""
+    """The backward kernel alone on CUDA bf16 or fp32 [M, D] tensors (fp32:
+    the fp32 form, ``dk_fused_mlp_bwd_f32``, counted as
+    ``("fused_mlp_bwd_f32", D)``): (dx in x's dtype, dw1, db1, dw2, db2
+    fp32)."""
     x2, w1, b1, w2, _ = _operands("fused_mlp_bwd", x2, w1, b1, w2)
     if dy2.shape != x2.shape or dy2.dtype != x2.dtype or dy2.device != x2.device:
         raise ValueError(f"fused_mlp_bwd: dy is {dy2.dtype} {tuple(dy2.shape)} on "
@@ -198,20 +201,21 @@ def kernel_fused_mlp_bwd(x2, w1, b1, w2, dy2):
     dy2 = dy2.contiguous()
     M, D = x2.shape
     F = w1.shape[0]
-    lib = _library()
+    name = kernel_entry("fused_mlp_bwd", x2)
     with torch.cuda.device(x2.device):
         f32 = dict(dtype=torch.float32, device=x2.device)
         dx = torch.empty_like(x2)
         dw1, db1 = torch.empty((F, D), **f32), torch.empty(F, **f32)
         dw2, db2 = torch.empty((D, F), **f32), torch.empty(D, **f32)
-        work = torch.empty(workspace_bytes(M, D, F), dtype=torch.uint8, device=x2.device)
-        err = lib.dk_fused_mlp_bwd(
+        work = torch.empty(workspace_bytes(M, D, F, name), dtype=torch.uint8,
+                           device=x2.device)
+        err = getattr(_library(), f"dk_{name}")(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy2.data_ptr(),
             dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
             work.data_ptr(), M, D, F, current_stream(x2))
     if err:
-        raise RuntimeError(f"fused_mlp_bwd: CUDA error {err} at launch")
-    LAUNCHES[("fused_mlp_bwd", D)] += 1
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    LAUNCHES[(name, D)] += 1
     return dx, dw1, db1, dw2, db2
 
 
@@ -255,13 +259,8 @@ class _FusedMlpTrain(torch.autograd.Function):
 
 
 def fused_mlp_train(x: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
-    """[..., D] -> [..., D], differentiable in all five operands. Raises
-    NotImplementedError, before any launch, on an fp32 CUDA tensor: the MLP
-    backward has no fp32 form yet (ROADMAP.md, Queue 1 item 6)."""
-    if x.device.type == "cuda" and x.dtype == torch.float32:
-        raise NotImplementedError("fused_mlp_train: the MLP backward kernel takes bf16 only; "
-                                  "its fp32 form is not ported yet (ROADMAP.md, Queue 1 "
-                                  "item 6)")
+    """[..., D] -> [..., D], differentiable in all five operands, at x's
+    dtype (bf16, or fp32 with fp32 parameters)."""
     return _FusedMlpTrain.apply(x, w1, b1, w2, b2)
 
 

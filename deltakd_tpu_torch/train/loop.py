@@ -55,7 +55,9 @@ from deltakd_tpu_torch.ops.fused_mlp import best_mlp_fn
 from deltakd_tpu_torch.parallel import LOCAL, DataParallel, make_mesh
 from deltakd_tpu_torch.parallel import current as current_dp
 from deltakd_tpu_torch.parallel import rank_device
-from deltakd_tpu_torch.train.optim import make_optimizer
+from deltakd_tpu_torch.train.optim import (PlateauController, get_lr_scale,
+                                            lr_noise_multiplier, make_optimizer,
+                                            set_lr_scale)
 from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
 from deltakd_tpu_torch.train.step import build_eval_step, build_train_step
 
@@ -273,11 +275,30 @@ def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
                                   aug=aug, mixup=mixup, tx=tx, aux=aux, dp=dp)
     eval_step = build_eval_step(student=student_eval, aug=aug)
 
+    # --sched plateau: the decay on a stalled validation metric is the LR
+    # scale on the optimizer state, set between epochs on the host. It rides
+    # in the checkpoint, so a resumed run keeps its decayed LR. --lr-noise
+    # rides on the same scale, times the plateau scale: installed at an
+    # epoch's start and stripped again before the save, so the saved scale
+    # is the plateau's alone.
+    plateau_scale = get_lr_scale(state.opt_state)
+    plateau_scale = 1.0 if plateau_scale is None else plateau_scale
+    plateau = None
+    if cfg.sched == "plateau":
+        plateau = PlateauController(
+            decay_rate=cfg.decay_rate, patience=cfg.patience_epochs,
+            cooldown=cfg.cooldown_epochs, min_lr=cfg.min_lr, base_lr=cfg.lr,
+            initial_scale=plateau_scale)
+
     if dp.is_main:
         os.makedirs(cfg.save_dir, exist_ok=True)
     val_metrics: Dict[str, float] = {}
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
+        if cfg.lr_noise:
+            noise = lr_noise_multiplier(cfg, epoch)
+            set_lr_scale(state.opt_state, plateau_scale * noise)
+            logger.info(f"lr noise: multiplier {noise:.6f}")
         generator, batch_generator = epoch_generators(cfg.seed, epoch, device, dp)
         with (_profiler(cfg, device) if epoch == start_epoch
               else contextlib.nullcontext()) as prof:
@@ -296,6 +317,13 @@ def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
                     f"- Val: {val_metrics}")
 
         current = val_metrics.get("val_acc1", 0.0)
+        if plateau is not None:
+            # val_acc1 is the ranks' all-reduced sum, so every rank sets the
+            # same scale
+            plateau_scale = plateau.epoch_end(current)
+            logger.info(f"plateau scheduler: lr scale {plateau_scale:.6f}")
+        if plateau is not None or cfg.lr_noise:
+            set_lr_scale(state.opt_state, plateau_scale)
         is_best = current > best_val_acc
         best_val_acc = max(best_val_acc, current)
         if dp.is_main:

@@ -1,5 +1,7 @@
 """Train state (``deltakd_tpu/train/state.py``): the trainable parameters as
-one flat fp32 vector, the optimizer state and an optional EMA copy.
+one flat fp32 vector, the optimizer state (``train/optim.py``: AdamW's or
+Adam's moments or SGD's trace over the same vector, and the LR scale where
+the optimizer has one) and an optional EMA copy.
 
 ``TrainState`` rebinds every trainable parameter of the student (and of the
 aux heads, when a KD objective has any) to a view into ``params``, so the

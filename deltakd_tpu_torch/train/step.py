@@ -3,11 +3,11 @@
 One train step: on-device augmentation and mixup, the frozen teacher forward
 under ``torch.no_grad()``, the student forward and backward, the KD loss (for
 a feature objective on both models' per-block features and the aux heads),
-the clipped AdamW update over the flat parameter vector of student and aux
+the optimizer's update over the flat parameter vector of student and aux
 heads, the EMA update and the metrics, optionally over several accumulated
 micro-batches. Randomness comes from explicit ``torch.Generator``s; tests
 may instead pin the post-transform images, the soft targets, the drop-path
-scales, the masking noise and DiffKD's draws.
+scales, the token dropout mask, the masking noise and DiffKD's draws.
 
 Under data parallelism (``dp``, one process per card) each rank runs the
 step on its rows of the global batch: the per-image draws come from the
@@ -31,6 +31,7 @@ from deltakd_tpu_torch.data.augment import AugmentConfig, eval_transform, train_
 from deltakd_tpu_torch.data.mixup import MixupConfig, apply_mixup
 from deltakd_tpu_torch.kd.losses import FEATURE_TYPES, DiffKDDraws, KDSettings, total_loss
 from deltakd_tpu_torch.parallel.mesh import DataParallel, current
+from deltakd_tpu_torch.train.optim import global_norm
 from deltakd_tpu_torch.train.state import TrainState
 
 
@@ -46,13 +47,16 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
                      aux=None, dp: Optional[DataParallel] = None) -> Callable:
     """Returns ``step(state, images_u8, labels, generator, *,
     batch_generator=None, images=None, targets=None, drop_scales=None,
-    epoch=0, mask_noise=None, diffkd_draws=None) -> metrics``.
+    token_keep=None, epoch=0, mask_noise=None, diffkd_draws=None) ->
+    metrics``.
 
     ``state`` must hold ``student``'s parameters and, for a feature objective,
     those of its aux heads ``aux`` (TrainState(student, aux=aux, ...)).
     ``images`` (post-transform, post-mixup, [B, S, S, 3]) and ``targets``
     replace the drawn augmentation; ``drop_scales`` (per block an
-    (s_attn, s_mlp) pair or None) replaces the drawn stochastic depth and
+    (s_attn, s_mlp) pair or None) replaces the drawn stochastic depth,
+    ``token_keep`` (bool [B, N, D]) the student's drawn token dropout mask
+    (a student with ``drop_rate`` > 0; the teacher never drops) and
     ``mask_noise`` ([B, L]) the drawn masking noise, ``diffkd_draws``
     (``kd.losses.DiffKDDraws``) DiffKD's timesteps, noise and dropout masks;
     each pinned draw needs ``grad_accum_steps == 1``. ``epoch`` (a Python
@@ -71,7 +75,7 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
         teacher.requires_grad_(False)
 
     def micro_grads(params, generator, batch_generator, images_u8, labels, images,
-                    targets, drop_scales, epoch, mask_noise, diffkd_draws):
+                    targets, drop_scales, token_keep, epoch, mask_noise, diffkd_draws):
         if images is None:
             # named ranges, so that a profile of the step can tell them apart
             with torch.profiler.record_function("train_transform"):
@@ -93,7 +97,7 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
             teacher_logits = t_out.logits
             teacher_feats = t_out.features if needs_features else None
         s_out = student(images, train=True, drop_scales=drop_scales,
-                        generator=generator)
+                        generator=generator, token_keep=token_keep)
         loss, loss_metrics = total_loss(
             kd, student_logits=s_out.logits, student_dist_logits=s_out.logits_dist,
             student_feats=s_out.features if needs_features else None,
@@ -117,12 +121,13 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
     def step(state: TrainState, images_u8, labels, generator: torch.Generator, *,
              batch_generator: Optional[torch.Generator] = None,
              images=None, targets=None, drop_scales: Optional[Sequence] = None,
+             token_keep: Optional[torch.Tensor] = None,
              epoch: int = 0, mask_noise: Optional[torch.Tensor] = None,
              diffkd_draws: Optional[DiffKDDraws] = None) -> Dict[str, torch.Tensor]:
-        pinned = (drop_scales, mask_noise, diffkd_draws)
+        pinned = (drop_scales, token_keep, mask_noise, diffkd_draws)
         if any(p is not None for p in pinned) and accum > 1:
-            raise ValueError("pinned drop_scales, mask_noise or diffkd_draws need "
-                             "grad_accum_steps == 1")
+            raise ValueError("pinned drop_scales, token_keep, mask_noise or diffkd_draws "
+                             "need grad_accum_steps == 1")
         params = state.parameters()
         batch_generator = batch_generator or generator
         mb = labels.shape[0] // accum
@@ -133,7 +138,7 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
                 params, generator, batch_generator,
                 None if images_u8 is None else images_u8[part], labels[part],
                 None if images is None else images[part],
-                None if targets is None else targets[part], drop_scales,
+                None if targets is None else targets[part], drop_scales, token_keep,
                 epoch, mask_noise, diffkd_draws)
             g_sum = g if g_sum is None else g_sum + g
             m_sum = m if m_sum is None else {k: m_sum[k] + m[k] for k in m}
@@ -142,7 +147,7 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
             with torch.profiler.record_function("gradient all-reduce"):
                 grads = dp.all_reduce(grads) / dp.world
         metrics = {k: v / accum for k, v in m_sum.items()}
-        metrics["grad_norm"] = torch.linalg.vector_norm(grads)
+        metrics["grad_norm"] = global_norm(grads)
         state.apply_gradients(grads=grads, tx=tx, ema_decay=ema_decay)
         return metrics
 

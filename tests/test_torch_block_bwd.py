@@ -182,9 +182,9 @@ def test_factory_turns_the_kernels_off_for_fp32(dtype, block_pair, mesh_shape):
     routed as the JAX factory routes it, through the kernels' fp32 forms: the
     fused block for both models; on the unfused route (a model axis of 2)
     flash_attention for both and the fused MLP for the forward-only teacher;
-    block_pair at fp32 raises NotImplementedError where the pair would run
-    (not on the unfused route), and at bf16 gives the student the pair.
-    Compute dtype and parameters follow the config."""
+    block_pair gives the student the pair at either dtype (the pair's fp32
+    form at fp32), never on the unfused route. Compute dtype and parameters
+    follow the config."""
     from deltakd_tpu_torch.configs.config import TrainConfig
     from deltakd_tpu_torch.models.factory import load_teacher_student
     from deltakd_tpu_torch.ops.attention import flash_attention
@@ -197,10 +197,6 @@ def test_factory_turns_the_kernels_off_for_fp32(dtype, block_pair, mesh_shape):
                       distillation_type="soft", allow_random_teacher=True, dtype=dtype,
                       mesh_shape=mesh_shape)
     unfused = mesh_shape is not None
-    if dtype == "float32" and block_pair and not unfused:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 6"):
-            load_teacher_student(cfg, block_pair=block_pair, seed=0, device="cpu")
-        return
     teacher, student, _ = load_teacher_student(cfg, block_pair=block_pair, seed=0,
                                                device="cpu")
     want = torch.float32 if dtype == "float32" else torch.bfloat16

@@ -231,9 +231,9 @@ def test_pair_rounds_nothing_between_the_blocks_in_bf16():
 
 def test_pair_dispatch_and_operand_checks():
     """A meta tensor has no implementation; the kernel wrappers refuse fp32
-    input, two blocks of different hidden widths and a head dim without a
-    kernel before they touch a library; best_block_pair_fn gives the function
-    or None."""
+    input with bf16 weights, two blocks of different hidden widths and a head
+    dim without a kernel before they touch a library; best_block_pair_fn
+    gives the function or None."""
     params, x, scales, _ = _setup(7)
     tps = [flax_block_to_torch(p) for p in params]
     ws = [tfb.block_params(tp) for tp in tps]
@@ -242,8 +242,11 @@ def test_pair_dispatch_and_operand_checks():
         tfb.pair_fwd(torch.empty(B, N, D, device="meta"), ts, *ws, H, 1e-6, True, True)
     with pytest.raises(ValueError, match="no implementation"):
         tfb.pair_bwd(torch.empty(B, N, D, device="meta"), ts, *ws, None, None, None, H, 1e-6)
-    with pytest.raises(ValueError, match="bf16"):
-        tfb.fused_pair_fwd_cuda(torch.from_numpy(x), ts, *ws, H, 1e-6, True, True)
+    # one head of 64, so that the dtypes are what is refused
+    with pytest.raises(ValueError, match="fp32 x takes fp32 weights"):
+        tfb.fused_pair_fwd_cuda(torch.from_numpy(x), ts, *[[t.bfloat16() for t in w]
+                                                          for w in ws], D // 64, 1e-6, True,
+                                True)
     narrow = list(ws[1])
     narrow[8], narrow[9], narrow[10] = narrow[8][:128], narrow[9][:128], narrow[10][:, :128]
     # one head of 64, a head dim the kernels take, so that the widths are what is refused

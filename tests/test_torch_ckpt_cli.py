@@ -161,11 +161,16 @@ def test_validate_warns_on_resplit_and_maps_amp():
             assert mod.parse_args(["--resplit"]).resplit
         assert mod.parse_args(["--amp", "--dtype", "float32"]).dtype == "bfloat16"
         assert mod.parse_args(["--fp16", "--dtype", "float32"]).dtype == "bfloat16"
-    # what the port has not ported yet raises when the config is made
-    for argv in (["--sched", "step"], ["--opt", "sgd"], ["--lr-noise", "0.4", "0.8"],
-                 ["--cutmix-minmax", "0.2", "0.8"]):
+    # what neither package trains raises when the port's config is made;
+    # every optimizer, schedule and LR noise of the JAX package parses
+    for argv in (["--sched", "tanh"], ["--opt", "lamb"], ["--opt", "sgdp"],
+                 ["--remode", "corner"]):
         with pytest.raises(NotImplementedError):
             pconfig.parse_args(argv)
+    with pytest.warns(UserWarning, match="cutmix-minmax"):
+        assert pconfig.parse_args(["--cutmix-minmax", "0.2", "0.8"]).mixup_active
+    cfg = pconfig.parse_args(["--opt", "sgd", "--sched", "step", "--lr-noise", "0.4", "0.8"])
+    assert (cfg.opt, cfg.sched, cfg.lr_noise) == ("sgd", "step", (0.4, 0.8))
     assert pconfig.parse_args(["--device", "cpu"]).device == "cpu"
     assert pconfig.parse_args([]).device is None
 

@@ -16,8 +16,10 @@ that runs without a card). The fp32 forms of the block and attention kernels
 at B=8 (chip_smoke.py phase 13's criterion): each error against the plain
 fp32 version (TF32 off) at most 0.02 of the bf16 kernel's on the same
 inputs (every fp32 product is 3xTF32), or below 1e-6 of the largest value;
-two runs the same bits; the same for the MLP forward's fp32 form at every
-zoo width. The
+two runs the same bits; the same for the MLP forward's and backward's fp32
+forms at every zoo width and for the block pair's fp32 forms in the four
+feature variants, and a paired fp32 soft-KD step (6 fp32 pair forwards and 6
+fp32 pair backwards; its `cpu` case runs without a card). The
 block-pair kernels: the four (feat1, feat2) variants at D=192 and D=384 on
 weights of std 1/sqrt(fan-in), scales with zeros, through the kernels alone
 and through the autograd Function. The sort kernels: inputs with ties (+0.0 tied with a later -0.0 from
@@ -273,8 +275,10 @@ def test_pair_kernels_match_plain_version_on_card(width, heads, nf1, nf2):
     assert fb.LAUNCHES == {("fused_pair_fwd", width): 1, ("fused_pair_bwd", width): 1}
     assert torch.equal(grads[0], dx) and grads[1].dtype == torch.float32
     assert torch.equal(grads[1], dw1["norm1.weight"])
-    with pytest.raises(ValueError):
-        fb.kernel_block_pair_fwd(x.float(), p1, p2, **kw)
+    # fp32 x takes the pair's fp32 form, with fp32 weights only
+    mixed = {n: t.bfloat16() if t.dim() == 2 else t for n, t in p1.items()}
+    with pytest.raises(ValueError, match="fp32 x takes fp32 weights"):
+        fb.kernel_block_pair_fwd(x.float(), mixed, p2, **kw)
 
 
 def _within(a, b, tol=2e-2):
@@ -550,7 +554,8 @@ def test_fp32_attention_kernels_match_plain_version_on_card(shape, tf32_off):
 def test_fp32_mlp_forward_matches_plain_version_on_card(M, D, tf32_off):
     """The MLP forward's fp32 form (fp32 x and parameters) against its plain
     fp32 version, beside the bf16 kernel on x rounded to bf16; two runs the
-    same bits; fused_mlp_train refuses fp32 on the card before a launch."""
+    same bits; fused_mlp_train at fp32 launches the fp32 forward and the fp32
+    backward once each (the name of the backward's form: the test below)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     _, w1, b1, w2, b2, _ = _mlp_operands(M, D)
@@ -561,19 +566,23 @@ def test_fp32_mlp_forward_matches_plain_version_on_card(M, D, tf32_off):
     _f32_within(out, fm.kernel_fused_mlp(x.bfloat16(), w1, b1, w2, b2),
                 fm._plain_fwd(x, w1, b1, w2, b2))
     assert torch.equal(out, fm.kernel_fused_mlp(x, w1, b1, w2, b2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        fm.fused_mlp_train(x, w1, b1, w2, b2)
-    assert fm.LAUNCHES == {("fused_mlp_fwd_f32", D): 2, ("fused_mlp_fwd", D): 1}
+    leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+    fm.fused_mlp_train(*leaves).sum().backward()
+    assert all(t.grad.dtype == torch.float32 and bool(t.grad.isfinite().all())
+               for t in leaves)
+    assert fm.LAUNCHES == {("fused_mlp_fwd_f32", D): 3, ("fused_mlp_fwd", D): 1,
+                           ("fused_mlp_bwd_f32", D): 1}
 
 
-def _fp32_soft_step(device):
+def _fp32_soft_step(device, block_pair=False):
     """One soft-KD train step of DeiT-Small -> DeiT-Tiny at 32 px, batch 4,
     from an fp32 TrainConfig through load_teacher_student: both models get
     the fused block, which runs its fp32 forms on the card (12 + 12 block
     forwards and 12 block backwards, no bf16 launch) and its plain fp32
-    version on the CPU (no launch); finite metrics and a changed student.
-    Returns the metrics."""
-    from deltakd_tpu_torch.ops.fused_block import fused_vit_block
+    version on the CPU (no launch); with ``block_pair`` the student runs
+    block pairs (6 fp32 pair forwards and 6 fp32 pair backwards on the
+    card). Finite metrics and a changed student. Returns the metrics."""
+    from deltakd_tpu_torch.ops.fused_block import fused_vit_block, fused_vit_block_pair
     import numpy as np
 
     from deltakd_tpu_torch.configs.config import TrainConfig
@@ -590,9 +599,12 @@ def _fp32_soft_step(device):
                       distillation_type="soft", dataset="cifar-100", input_size=32,
                       dtype="float32", drop_path_rate=0.1, epochs=300, aa="",
                       color_jitter=0.0, allow_random_teacher=True)
-    teacher, student, aux = load_teacher_student(cfg, seed=0, device=device)
+    teacher, student, aux = load_teacher_student(cfg, block_pair=block_pair, seed=0,
+                                                 device=device)
     for model in (teacher, student):
-        assert model.block_fn is fused_vit_block and model.block_pair_fn is None
+        assert model.block_fn is fused_vit_block
+    assert teacher.block_pair_fn is None
+    assert student.block_pair_fn is (fused_vit_block_pair if block_pair else None)
     tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
     state = TrainState(student, tx=tx, aux=aux)
     kd = KDSettings.from_config(cfg, student_prefix=student.cfg.num_prefix_tokens,
@@ -610,6 +622,8 @@ def _fp32_soft_step(device):
                step(state, images, labels, torch.Generator(device=device).manual_seed(1)).items()}
     launches = {k: n for mod in (fb, at, fm, so) for k, n in mod.LAUNCHES.items()}
     assert launches == ({} if device == "cpu" else {
+        ("fused_block_fwd_f32", 384): 12, ("fused_pair_fwd_f32", 192): 6,
+        ("fused_pair_bwd_f32", 192): 6} if block_pair else {
         ("fused_block_fwd_f32", 384): 12, ("fused_block_fwd_f32", 192): 12,
         ("fused_block_bwd_f32", 192): 12})
     assert all(np.isfinite(v) for v in metrics.values())
@@ -627,6 +641,87 @@ def test_fp32_soft_kd_step_runs_without_kernels(device):
         pytest.skip("needs an NVIDIA GPU")
     torch.set_num_threads(1)
     _fp32_soft_step(device)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_fp32_paired_soft_kd_step(device):
+    """An fp32 config with block_pair trains the student on the pair's fp32
+    forms on the card (the JAX factory turns the pair on at any dtype), on
+    its plain fp32 version on the CPU."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.set_num_threads(1)
+    _fp32_soft_step(device, block_pair=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf1,nf2", [(False, False), (True, False), (False, True),
+                                     (True, True)])
+@pytest.mark.parametrize("width,heads", [(192, 3), (384, 6)])
+def test_fp32_pair_kernels_match_plain_version_on_card(width, heads, nf1, nf2, tf32_off):
+    """The pair's fp32 forms (x, weights, cotangents fp32) against the plain
+    fp32 pair, beside the bf16 pair kernels on x rounded to bf16; sample 0
+    with all four scales 0 comes back as x; two runs the same bits; fp32 x
+    with a bf16 weight is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(width + 2 * nf1 + nf2)
+    p1, p2 = _block_params(width, g), _block_params(width, g)
+    x = torch.randn(8, 198, width, generator=g).cuda()
+    keep = 0.9
+    scales = tuple(torch.tensor(s).cuda() for s in (
+        [0, 1 / keep, 1, 1, 1 / keep, 1, 0, 1], [0, 0, 1, 1, 1, 1 / keep, 1, 0],
+        [0, 1, 0, 1, 1, 1, 1 / keep, 1], [0, 1, 1, 0, 1 / keep, 1, 1, 1]))
+    g_out, g_f1, g_f2 = (torch.randn(x.shape, generator=g).cuda() for _ in range(3))
+    g_f1, g_f2 = (g_f1 if nf1 else None), (g_f2 if nf2 else None)
+    kw = dict(num_heads=heads, scales=scales)
+    fkw = dict(need_features1=nf1, need_features2=nf2, **kw)
+    fb.reset_launches()
+    out, f1, f2 = fb.kernel_block_pair_fwd(x, p1, p2, **fkw)
+    dx, dw1, dw2 = fb.kernel_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)
+    assert fb.LAUNCHES == {("fused_pair_fwd_f32", width): 1, ("fused_pair_bwd_f32", width): 1}
+    assert out.dtype == dx.dtype == torch.float32 and torch.equal(out[0], x[0])
+    out16, f1_16, f2_16 = fb.kernel_block_pair_fwd(x.bfloat16(), p1, p2, **fkw)
+    dx16, dw1_16, dw2_16 = fb.kernel_block_pair_bwd(x.bfloat16(), p1, p2, g_out, g_f1, g_f2,
+                                                    **kw)
+    r_out, r_f1, r_f2 = fb.reference_vit_block_pair(x, p1, p2, **kw)
+    r_dx, r_dw1, r_dw2 = fb.reference_vit_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)
+    _f32_within(out - x, out16.float() - x, r_out - x)
+    for flag, a, b, c in ((nf1, f1, f1_16, r_f1), (nf2, f2, f2_16, r_f2)):
+        assert (a is not None) == flag
+        if flag:
+            _f32_within(a, b, c)
+    _f32_within(dx, dx16, r_dx)
+    for dw, dw16, r_dw in ((dw1, dw1_16, r_dw1), (dw2, dw2_16, r_dw2)):
+        for name in fb.PARAM_NAMES:
+            _f32_within(dw[name], dw16[name], r_dw[name])
+    assert torch.equal(out, fb.kernel_block_pair_fwd(x, p1, p2, **fkw)[0])
+    assert torch.equal(dx, fb.kernel_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)[0])
+    mixed = {n: t.bfloat16() if t.dim() == 2 else t for n, t in p2.items()}
+    with pytest.raises(ValueError, match="fp32 x takes fp32 weights"):
+        fb.kernel_block_pair_fwd(x, p1, mixed, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1584, 1001])
+@pytest.mark.parametrize("D", [192, 384, 768, 1024])
+def test_fp32_mlp_backward_matches_plain_version_on_card(M, D, tf32_off):
+    """The MLP backward's fp32 form (fp32 x, dy and parameters) against its
+    plain fp32 version, beside the bf16 kernel on x and dy rounded to bf16;
+    two runs the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    _, w1, b1, w2, _, _ = _mlp_operands(M, D)
+    g = torch.Generator().manual_seed(D + 1)
+    x, dy = (torch.randn(M, D, generator=g).cuda() for _ in range(2))
+    fm.reset_launches()
+    grads = fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy)
+    assert fm.LAUNCHES == {("fused_mlp_bwd_f32", D): 1} and grads[0].dtype == torch.float32
+    grads16 = fm.kernel_fused_mlp_bwd(x.bfloat16(), w1, b1, w2, dy.bfloat16())
+    for a, b, c in zip(grads, grads16, fm._plain_bwd(x, w1, b1, w2, dy)):
+        _f32_within(a, b, c)
+    for a, b in zip(grads, fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy)):
+        assert torch.equal(a, b)
 
 
 # -----------------------------------------------------------------------------

@@ -116,9 +116,23 @@ def test_fused_block_refuses_other_dtypes_before_a_launch(kernel, case):
 
 
 def test_pair_kernels_refuse_fp32():
+    """The name is from before the pair's fp32 form: fp32 x with fp32 weights
+    passes the pair's dtype checks (at one head of 128 the head dim is then
+    what refuses it), and fp32 x with a bf16 weight of either block is
+    refused before a launch."""
     x, sa, sm, w = _block(torch.float32)
-    with pytest.raises(ValueError, match="bf16 x"):
-        fb.fused_pair_fwd_cuda(x, (sa, sm, sa, sm), w, w, H, 1e-6, True, True)
+    scales = (sa, sm, sa, sm)
+    x2, _, ws1, ws2 = fb._pair_operands(x, scales, w, w, D // 64, "fused_pair_fwd")
+    assert x2.dtype == torch.float32 and all(t.dtype == torch.float32 for t in ws1 + ws2)
+    assert kernel_entry("fused_pair_fwd", x2) == "fused_pair_fwd_f32"
+    with pytest.raises(ValueError, match="head dim 128"):
+        fb.fused_pair_fwd_cuda(x, scales, w, w, 1, 1e-6, True, True)
+    mixed = list(w)
+    mixed[10] = mixed[10].bfloat16()
+    for w1, w2 in ((mixed, w), (w, mixed)):
+        with pytest.raises(ValueError, match="fp32 x takes fp32 weights"):
+            fb.fused_pair_fwd_cuda(x, scales, w1, w2, D // 64, 1e-6, True, True)
+    assert not fb.LAUNCHES
 
 
 def _qkv(dtypes):
@@ -167,7 +181,7 @@ def test_fused_mlp_operands_take_fp32_and_bf16(dtype):
     raises. fp32 takes the forward's fp32 form."""
     ops = _mlp(dtype)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
-        fm._operands("fused_mlp", *ops, fp32=True)
+        fm._operands("fused_mlp", *ops)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         fm.kernel_fused_mlp(*ops)
     assert kernel_entry("fused_mlp_fwd", ops[0]) == (
@@ -188,11 +202,17 @@ def test_fused_mlp_refuses_mixed_and_other_dtypes_before_a_launch(case):
 
 
 def test_fused_mlp_backward_refuses_fp32():
-    """The MLP backward has no fp32 form: its operand check takes bf16 x
-    only."""
+    """The name is from before the backward's fp32 form: fp32 x with fp32
+    weights passes its dtype checks (on CPU tensors the device's check is the
+    one that raises); a mix of dtypes is refused before a launch."""
     x, w1, b1, w2, _ = _mlp(torch.float32)
-    with pytest.raises(ValueError, match="x must be torch.bfloat16"):
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
         fm.kernel_fused_mlp_bwd(x, w1, b1, w2, x)
+    assert kernel_entry("fused_mlp_bwd", x) == "fused_mlp_bwd_f32"
+    for bad in ({"w1": w1.bfloat16()}, {"b1": b1.bfloat16()}, {"w2": w2.bfloat16()}):
+        ops = dict(dict(w1=w1, b1=b1, w2=w2), **bad)
+        with pytest.raises(ValueError, match="fp32 weights"):
+            fm.kernel_fused_mlp_bwd(x, ops["w1"], ops["b1"], ops["w2"], x)
 
 
 # -----------------------------------------------------------------------------

@@ -152,12 +152,14 @@ def test_dispatch_is_by_device_and_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="no implementation for device"):
         tfm.fused_mlp(x.to("meta"), w1, b1, w2, b2)
     # the kernel wrappers never fall back to the plain version (fp32 CPU x:
-    # the forward, which has an fp32 form, refuses the device; the backward,
-    # bf16 only, the dtype)
+    # the forward and the backward, which have fp32 forms, refuse the device;
+    # fp16 x, which neither takes, the dtype)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         tfm.kernel_fused_mlp(x, w1, b1, w2, b2)
-    with pytest.raises(ValueError, match="x must be torch.bfloat16"):
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
         tfm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy)
+    with pytest.raises(ValueError, match="x must be torch.bfloat16 or torch.float32"):
+        tfm.kernel_fused_mlp_bwd(x.half(), w1, b1, w2, dy.half())
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         tfm.kernel_fused_mlp_bwd(x.bfloat16(), w1, b1, w2, dy.bfloat16())
 

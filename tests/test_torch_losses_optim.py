@@ -134,15 +134,24 @@ def test_fused_clipped_adamw_and_ema_match_jax():
 
 
 def test_config_rejects_what_is_not_ported():
-    """What the port lacks raises (other optimizers and schedules, LR noise,
-    cutmix_minmax, the aa specs the JAX package rejects); every augmentation
-    flag of the JAX TrainConfig constructs."""
-    for kw in (dict(sched="step"), dict(opt="sgd"), dict(lr_noise=(0.5,)),
-               dict(cutmix_minmax=(0.2, 0.8)), dict(aa="augmix-m5"),
+    """What the port lacks raises, and only what the JAX package lacks too (an
+    optimizer, a schedule, an erasing mode, the aa specs it rejects); every
+    optimizer, schedule and LR-noise setting and every augmentation flag of
+    the JAX TrainConfig constructs, cutmix_minmax among them."""
+    for kw in (dict(sched="tanh"), dict(opt="lamb"), dict(opt="lamb", lr_noise=(0.5,)),
+               dict(remode="corner"), dict(aa="augmix-m5"),
                dict(aa="rand-m9-mstd0.5")):
         with pytest.raises(NotImplementedError):
             TrainConfig(**kw)
+    # the JAX package raises for the same optimizer and schedule when it
+    # builds them
+    for kw in (dict(sched="tanh"), dict(opt="lamb")):
+        with pytest.raises(NotImplementedError):
+            jo.make_optimizer(JTrainConfig(**kw), {"w": jnp.zeros((2, 2))}, 2)
     for kw in (dict(), dict(aa="original-mstd0.5"), dict(aa="", color_jitter=0.3),
                dict(ThreeAugment=True), dict(src=True), dict(mixup_mode="pair"),
-               dict(mixup_mode="elem"), dict(aa=None, color_jitter=0.0)):
+               dict(mixup_mode="elem"), dict(aa=None, color_jitter=0.0),
+               dict(sched="step"), dict(opt="sgd"), dict(lr_noise=(0.5,)),
+               dict(opt="momentum", sched="plateau", lr_noise=(0.2, 0.8)),
+               dict(opt="adam"), dict(cutmix_minmax=(0.2, 0.8))):
         TrainConfig(**kw)
