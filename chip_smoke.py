@@ -10,6 +10,7 @@
     python3 chip_smoke.py --attention-checks # only flash_fwd's and flash_bwd's checks (phase 5a)
     python3 chip_smoke.py --sort-checks      # only the sort kernels' checks (phase 4a)
     python3 chip_smoke.py --dp-checks        # only the data-parallel step's checks (phase 12a)
+    python3 chip_smoke.py --tp-checks        # only the tensor-parallel checks (phase 15)
     python3 chip_smoke.py --fp32-checks      # only the fp32 forms' checks at B=8 (phase 13a, 13b,
                                              # 14a) and the optimizers' (14d, first half)
     python3 chip_smoke.py --fp32-checks --seeds 8  # ... the block, MLP and pair checks on 8 draws
@@ -234,13 +235,35 @@ Phases, each of which fails the run:
      the logged val_acc1 and lr_noise_multiplier), 2 epochs resumed to a third
      (the same bits), one epoch each of --opt sgd --sched step and --opt
      adam; 14e a student with token dropout 0.1: the kept share, the kept
-     values' scale, two soft steps, eval unchanged.
+     values' scale, two soft steps, eval unchanged;
+ 15. tensor parallelism (the JAX package's model mesh axis): 15a, two
+     processes sharing the card over gloo at mesh (1, 2), the DeiT-S-distilled
+     teacher (6 heads, 3 a rank) and DeiT-Ti-distilled student (3 heads: the
+     qkv output gathered, attention on all heads), 224 px, global B = 32, soft
+     KD, 3 steps in bf16 then in fp32 on one pinned batch: the gathered
+     gradient of every parameter tensor, the loss, the grad norm and the
+     gathered parameters against the one-process unfused step on the same
+     weights and draws (TP_GRAD_TOL, TP_LOSS_TOL), the replicated tensors the
+     same bits on both ranks, exactly 24 flash_fwd, 12 flash_bwd and 12
+     fused_mlp_fwd (F/2 = 768) launches a step and rank and no block or pair
+     launch; the step's ms a rank and the model group's collectives' ms and
+     bytes (gloo through the host on one card: not a TP speed); 15b, four
+     processes at mesh (2, 2) at the JAX dry run's widths (depth 3, D = 64 /
+     128, 4 heads, 32 px, fp32, PyTorch's own ops: the kernels take head dim
+     64): mgd, soft with grad_accum_steps=2, wasskd-sinkhorn with 8
+     iterations, each against one process on the global batch (TP_DRY_TOL);
+     15c, run() at (1, 2) with soft-deit-tiny.sh's flags on phase 11's
+     pickles at fp32, B = 32, 4 steps: one epoch against one process
+     (TP_RUN_TOL), rank 0 alone writing, a one-process checkpoint resumed at
+     (1, 2) against its one-process resume, each side's checkpoint loaded
+     and saved again by the other side the same bits.
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
 """
 
 import atexit
+import collections
 import copy
 import json
 import math
@@ -331,6 +354,7 @@ AUG_VARIANTS = tuple(
 CIFAR100_STD = (0.2675, 0.2565, 0.2761)
 GREY_LEVEL = 1.0 / (255.0 * min(CIFAR100_STD))   # one grey level after normalisation
 RECIPE_STEPS = 8
+AUG_CPU_ROWS = 64     # phase 9: the images of each variant held against the CPU
 # the kernels that the fused block's wrappers launch (gemm_sm90.cuh,
 # attention_{fwd,bwd}.cuh, fused_block_{common,reverse}.cuh)
 BLOCK_KERNELS = ("linear_kernel", "weight_grad_kernel", "attention_fwd_kernel",
@@ -1802,6 +1826,20 @@ def _reset_launches(mods):
         mod.reset_launches()
 
 
+class _Laps:
+    """lap(name) prints the seconds since the last lap (or since the build
+    ended) beside the time since the script started."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - self.last:.1f} s ({now - self.start:.1f} s after the "
+              f"build)")
+        self.last = now
+
+
 def _read_launches(mods):
     return {k: n for mod in mods for k, n in mod.LAUNCHES.items()}
 
@@ -2023,7 +2061,8 @@ def check_augment():
     """Phase 9, the train-time data path at B_MAIN, 224 px: for each of
     AUG_VARIANTS the draws are made on the card, the transform runs on them
     twice under torch.cuda's sync debug mode 'error' (a host sync raises)
-    and must give the same bits; the CPU runs the same draws, and the card
+    and must give the same bits; on the first AUG_CPU_ROWS images and their
+    own draws the CPU runs the same draws, and the card
     is held against it stage by stage: the geometric stage (integer pixels:
     a difference is a rounding flip, one level at each of the bicubic
     resample's two roundings), then the pixel stage from the CPU's
@@ -2057,25 +2096,32 @@ def check_augment():
             torch.cuda.set_sync_debug_mode("default")
         if not torch.equal(out, again):
             raise AssertionError(f"{name}: two runs of the transform differ")
-        d_cpu = ta.draws_to(d, "cpu")
-        geo = ta.geometric_stage(x, ac, d)
-        geo_cpu = ta.geometric_stage(x.cpu(), ac, d_cpu)
+        # card against CPU on the first AUG_CPU_ROWS images, their own draws
+        # (the CPU's transform of a whole batch took most of the phase)
+        xs = x[:AUG_CPU_ROWS]
+        ds = ta.draw_train_transform(gen, xs.shape, ac, device="cuda")
+        d_cpu = ta.draws_to(ds, "cpu")
+        geo_s = ta.geometric_stage(xs, ac, ds)
+        geo_cpu = ta.geometric_stage(xs.cpu(), ac, d_cpu)
         # integer pixels: the bicubic resample rounds twice (between its passes
         # and at the end), and a sum that differs in its last bit can flip each
         # rounding by one level
-        _pixels_agree(f"{name}: geometric stage, card vs CPU", geo, geo_cpu, 1e-3, 2.0)
+        _pixels_agree(f"{name}: geometric stage, card vs CPU", geo_s, geo_cpu, 1e-3, 2.0)
         tol = 1.6e-2 if ac.pixel_bf16 else 1e-5
         _pixels_agree(f"{name}: pixel stage from the same integers, card vs CPU",
-                      ta.pixel_stage(geo_cpu.cuda(), ac, d), ta.pixel_stage(geo_cpu, ac, d_cpu),
+                      ta.pixel_stage(geo_cpu.cuda(), ac, ds), ta.pixel_stage(geo_cpu, ac, d_cpu),
                       tol, GREY_LEVEL, ops=d_cpu.ra or d_cpu.aa)
-        whole = (out.float().cpu() - ta.apply_train_transform(x.cpu(), ac, d_cpu).float()).abs()
+        whole = (ta.apply_train_transform(xs, ac, ds).float().cpu()
+                 - ta.apply_train_transform(xs.cpu(), ac, d_cpu).float()).abs()
+        geo = ta.geometric_stage(x, ac, d)
         # 4 calls stay inside _timed's head start, so the events bracket the
         # card's work; the host's time a call is taken beside it
         ms = _timed(lambda: ta.train_transform(gen, x, ac), 4)
         geo_ms = _timed(lambda: ta.geometric_stage(x, ac, d), 4)
         pix_ms = _timed(lambda: ta.pixel_stage(geo, ac, d), 4)
         host_ms = _host_ms(lambda: ta.train_transform(gen, x, ac), 4)
-        print(f"[augment] {name}: whole transform card vs CPU: share beyond {tol:g} "
+        print(f"[augment] {name}: whole transform card vs CPU ({AUG_CPU_ROWS} images): "
+              f"share beyond {tol:g} "
               f"{(whole > tol).float().mean().item():.5f}, max diff {whole.max().item():.3e}; "
               f"{ms:.3f} ms a batch of {B_MAIN} on the card (geometric stage {geo_ms:.3f}, "
               f"pixel stage {pix_ms:.3f}), {host_ms:.3f} ms on the host's clock to the end, "
@@ -2684,6 +2730,18 @@ def recipe_argvs(recipe, tmp, **env):
     return [argv[2:] for argv in calls]
 
 
+def soft_recipe_argv(tmp, env):
+    """soft(save, *extra): the flags of soft-deit-tiny.sh with ``env`` and its
+    --save-dir and --log-file under ``tmp``, ``extra`` appended."""
+    def soft(save, *extra):
+        [argv] = recipe_argvs("soft-deit-tiny.sh", tmp, EXTRA_FLAGS=" ".join(
+            ["--save-dir", os.path.join(tmp, save), "--log-file",
+             os.path.join(tmp, "logs", save), "--log-every", "1000", *extra]), **env)
+        return argv
+
+    return soft
+
+
 class RunProbe:
     """Wraps what run() calls (train_one_epoch, the steps, validate, the
     checkpoint save and load, the train loader's batches, the finetune load)
@@ -2896,12 +2954,7 @@ def run_runtime_path(mods, tmp, teacher_checkpoint, smi, soft_recipe_ms):
              ("fused_block_bwd", 192): 12}
     eval_fused = {("fused_block_fwd", 192): 12}
 
-    def soft(save, *extra):
-        [argv] = recipe_argvs("soft-deit-tiny.sh", tmp, EXTRA_FLAGS=" ".join(
-            ["--save-dir", os.path.join(tmp, save), "--log-file",
-             os.path.join(tmp, "logs", save), "--log-every", "1000", *extra]), **env)
-        return argv
-
+    soft = soft_recipe_argv(tmp, env)
     probe = RunProbe(mods)
     # 11a: two epochs; the syncs of the first counted
     probe.sync_epoch = 0
@@ -3370,6 +3423,542 @@ def run_data_parallel(mods, smi, tmp=None, data_env=None, state_11a=None, soft_a
         if not same:
             raise AssertionError("12c: torchrun at world 1 differs from the plain run")
     print(f"[dp] {smi}: phase 12 took {time.perf_counter() - t_start:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: tensor parallelism (the model mesh axis), ranks sharing the card
+# over gloo (15a, 15b), run() at mesh (1, 2) (15c)
+# ---------------------------------------------------------------------------
+TP_BATCH = 32         # 15a: the global batch (gloo moves every collective through the host)
+TP_STEPS = 3          # 15a: steps at each dtype (the ms is the median of steps 2-3)
+# 15a: the two ranks' step against the one-process unfused step on the same
+# weights and draws: per parameter tensor, max |gathered TP gradient - one
+# process's| over the tensor's max |g|; the loss and grad norm relative; the
+# parameters after the step per tensor over their max |value|. In bf16 the
+# row-parallel proj and fc2 products round each rank's partial sum to bf16
+# before the reduce (the one process rounds the whole sum once), and the
+# column-parallel input gradients likewise: about one bf16 ulp (2^-8) of each
+# partial in every block's output and input gradient, which the chain of 12
+# blocks carries into every weight gradient. In fp32 every product is fp32
+# (the kernels 3xTF32) and only the order of the sums differs. Measured (one
+# H100): 1.84e-2 bf16 (a LayerNorm gain's), 5.7e-6 fp32 (the dist head's).
+TP_GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+TP_LOSS_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
+# 15b: the dry run's widths (depth 3, D = 64 / 128, 4 heads, 32 px; head dim
+# 16 and 32, which the attention kernel does not take, so the models run
+# PyTorch's own ops as the JAX dry run runs its plain modules), fp32: only
+# the order of the sums differs from the one process
+TP_DRY_TOL = 1e-4
+TP_DRY = (("mgd", False, 1, {}), ("soft", True, 2, {}),
+          ("wasskd", False, 1, {"wasskd_type": "sinkhorn", "sinkhorn_iters": 8}))
+TP_DRY_MODELS = {"tp_dry_student": dict(embed_dim=64, distilled=False),
+                 "tp_dry_student_distilled": dict(embed_dim=64, distilled=True),
+                 "tp_dry_teacher": dict(embed_dim=128, distilled=True)}
+# 15c: run() at (1, 2) against one process at fp32, B = 32, 4 steps, 2 eval batches
+TP_RUN_FLAGS = ("--dtype", "float32", "--batch-size", "32", "--steps-per-epoch", "4",
+                "--eval-steps", "2", "--mesh-shape", "1", "2")
+# val_loss, relative; val_acc1 within one of the 64 images. After 4 steps the
+# student (random weights) classifies one of the 64 images or none on either
+# side (val_acc1 1.562 and 0 on the H100), so val_loss is the comparison that
+# carries 15c; the val_acc1 bound only catches a gross fault
+TP_RUN_TOL = 1e-4
+TP_RUN_IMAGES = 64
+
+
+def _tp_launches(dtype, M=2, B=TP_BATCH):
+    """A TP step's launches a rank at a model axis of M (2 or 4): DeiT-S's 6
+    heads split 6/M a rank where M divides them, else all 6 on each rank (the
+    gather route), DeiT-Ti's 3 heads all on each rank; the teacher's MLP on
+    its F/M hidden columns (counted by D = 384)."""
+    form = "_f32" if dtype == "float32" else ""
+    out = collections.Counter()
+    out[(f"flash_fwd{form}", B * (6 // M if 6 % M == 0 else 6))] += 12
+    out[(f"flash_fwd{form}", B * 3)] += 12
+    out[(f"flash_bwd{form}", B * 3)] += 12
+    out[(f"fused_mlp_fwd{form}", 384)] += 12
+    return dict(out)
+
+
+# 15d: the student's eval view at a model axis of 4 runs every block's MLP
+# kernel on F/4 = 192 hidden columns (one warpgroup's plan, hidden chunks of
+# 64) and its attention on all 3 heads
+TP_EVAL_LAUNCHES = {("flash_fwd", TP_BATCH * 3): 12, ("fused_mlp_fwd", 192): 12}
+
+
+def _tp_config(dtype, mesh_shape=(1, 2), **extra):
+    from deltakd_tpu_torch.configs.config import TrainConfig
+
+    options = dict(teacher_model="deit_small_distilled_patch16_224",
+                   student_model="deit_tiny_distilled_patch16_224", batch_size=TP_BATCH,
+                   distillation_type="soft", dataset="cifar-100", input_size=224,
+                   dtype=dtype, drop_path_rate=0.1, epochs=300, aa="", color_jitter=0.0,
+                   allow_random_teacher=True, mesh_shape=mesh_shape)
+    return TrainConfig(**dict(options, **extra))
+
+
+def _full(state, t):
+    """``t`` (a flat vector of ``state``'s layout) in the full layout, on the CPU."""
+    return (t if state.shards is None else state.shards.gather(t)).cpu()
+
+
+def _tp_result(state, first, applied, params, launches, ms):
+    """What a TP (or one-process) run of a step gives the checks: the metrics
+    and the applied gradient of the first step, ``params`` (the parameters
+    after it in the full layout), the local parameters after the last step
+    and which are shards."""
+    import torch
+
+    shapes = ([p.shape for _, p in state.named_params] if state.shards is None
+              else state.shards.full_shapes)
+    return dict(metrics=first, grads=_full(state, applied[0]), params=params,
+                local=state.params.cpu(),
+                sharded=None if state.shards is None else state.shards.mask.cpu(),
+                names=[(n, math.prod(s)) for (n, _), s in zip(state.named_params, shapes)],
+                launches=launches, ms=ms, peak=torch.cuda.max_memory_allocated())
+
+
+def _tp_step(mods, dtype, mesh, steps, kd_type="soft", evaluate=False):
+    """15a: ``steps`` train steps of ``kd_type`` (soft, or wasskd: l1, its
+    aux heads replicated) of the full-width models at ``dtype`` on ``mesh``
+    (or one process with ``mesh`` None: the unfused path, whole models), on
+    one pinned batch made from a seed on the card: images, targets,
+    drop-path scales. With ``evaluate`` (15d), then the student's eval view
+    (``train.loop.eval_view``, as validate runs it) on the same images: its
+    logits and launches as ``eval``."""
+    import torch
+
+    from deltakd_tpu_torch.train.loop import eval_view
+
+    from deltakd_tpu_torch.data.augment import AugmentConfig
+    from deltakd_tpu_torch.kd.losses import KDSettings
+    from deltakd_tpu_torch.models.factory import load_teacher_student
+    from deltakd_tpu_torch.train.optim import make_optimizer
+    from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
+    from deltakd_tpu_torch.train.step import build_train_step
+
+    cfg = _tp_config(dtype, (1, 2) if mesh is None else mesh.shape, distillation_type=kd_type)
+    teacher, student, aux = load_teacher_student(cfg, seed=0, device="cuda", mesh=mesh)
+    tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
+    state = TrainState(student, tx=tx, aux=aux)
+    applied = []
+    apply = state.apply_gradients
+    state.apply_gradients = lambda *, grads, **kw: (
+        applied.append(grads.detach().clone()) if not applied else None,
+        apply(grads=grads, **kw))
+    kd = KDSettings.from_config(cfg, student_prefix=2, teacher_prefix=2)
+    step = build_train_step(cfg=cfg, kd=kd, student=student, teacher=teacher, aux=aux,
+                            aug=AugmentConfig.from_config(cfg), mixup=None, tx=tx,
+                            dp=None if mesh is None else mesh.data)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    images = torch.randn(TP_BATCH, 224, 224, 3, generator=g, device="cuda")
+    targets = torch.softmax(3.0 * torch.randn(TP_BATCH, 100, generator=g, device="cuda"), -1)
+    labels = torch.randint(0, 100, (TP_BATCH,), generator=g, device="cuda")
+    scales = student.draw_drop_scales(TP_BATCH, g, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, ms, first, params = [], [], None, None
+    for _ in range(steps):
+        _reset_launches(mods)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        m = step(state, None, labels, gen, images=images, targets=targets,
+                 drop_scales=scales)
+        e1.record()
+        torch.cuda.synchronize()
+        launches.append(_read_launches(mods))
+        ms.append(e0.elapsed_time(e1))
+        if first is None:
+            first, params = {k: float(v) for k, v in m.items()}, _full(state, state.params)
+    out = _tp_result(state, first, applied, params, launches, ms)
+    if evaluate:
+        _reset_launches(mods)
+        with torch.no_grad():
+            logits = eval_view(student)(images.to(student.dtype), train=False).logits
+        out["eval"] = dict(logits=logits.float().cpu(), launches=_read_launches(mods))
+    return out
+
+
+def _register_dry_models():
+    from deltakd_tpu_torch.models import registry
+    from deltakd_tpu_torch.models.vit import ViTConfig
+
+    for name, kw in TP_DRY_MODELS.items():
+        registry.MODEL_REGISTRY[name] = ViTConfig(img_size=32, depth=3, num_heads=4, **kw)
+
+
+def _tp_dry_step(kd_type, distilled, accum, extra, mesh):
+    """15b: one step of the JAX dry run's case on ``mesh`` (2, 2), each data
+    rank on its rows of the global batch (2 images a device and micro-batch),
+    or the one process on all of it (``mesh`` None); images, targets,
+    drop-path scales and masking noise pinned from a seed."""
+    import torch
+
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.data.augment import AugmentConfig
+    from deltakd_tpu_torch.kd.losses import KDSettings
+    from deltakd_tpu_torch.models.factory import load_teacher_student
+    from deltakd_tpu_torch.train.optim import make_optimizer
+    from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
+    from deltakd_tpu_torch.train.step import build_train_step
+
+    batch = 2 * 4 * accum
+    cfg = TrainConfig(teacher_model="tp_dry_teacher",
+                      student_model="tp_dry_student" + ("_distilled" if distilled else ""),
+                      input_size=32, batch_size=batch, epochs=5, warmup_epochs=1,
+                      dtype="float32", drop_path_rate=0.0 if accum > 1 else 0.1,
+                      distillation_type=kd_type, grad_accum_steps=accum, dataset="cifar-100",
+                      allow_random_teacher=True, aa="", color_jitter=0.0, mesh_shape=(2, 2),
+                      **extra)
+    teacher, student, aux = load_teacher_student(cfg, attention_fn=None, seed=0,
+                                                 device="cuda", mesh=mesh)
+    tx = make_optimizer(cfg, trainable_parameters(student, aux), 4)
+    state = TrainState(student, tx=tx, aux=aux)
+    applied = []
+    apply = state.apply_gradients
+    state.apply_gradients = lambda *, grads, **kw: (applied.append(grads.detach().clone()),
+                                                    apply(grads=grads, **kw))
+    dp = None if mesh is None else mesh.data
+    step = build_train_step(
+        cfg=cfg, kd=KDSettings.from_config(cfg, student_prefix=student.cfg.num_prefix_tokens,
+                                           teacher_prefix=2),
+        student=student, teacher=teacher, aux=aux, aug=AugmentConfig.from_config(cfg),
+        mixup=None, tx=tx, dp=dp)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    images = torch.randn(batch, 32, 32, 3, generator=g, device="cuda")
+    targets = torch.softmax(3.0 * torch.randn(batch, 100, generator=g, device="cuda"), -1)
+    labels = torch.randint(0, 100, (batch,), generator=g, device="cuda")
+    noise = torch.rand(batch, 4, generator=g, device="cuda")
+    scales = student.draw_drop_scales(batch, g, "cuda")
+    D = 1 if mesh is None else mesh.data.world
+    d = 0 if mesh is None else mesh.data.rank
+    mb = batch // accum // D
+    rows = torch.cat([torch.arange(i * batch // accum + d * mb, i * batch // accum + (d + 1) * mb)
+                      for i in range(accum)]).cuda()
+    pinned = dict(targets=targets[rows])   # drop-path and noise pinned without accumulation
+    if accum == 1:
+        pinned.update(drop_scales=[None if s is None else tuple(x[rows] for x in s)
+                                   for s in scales],
+                      mask_noise=noise[rows] if kd_type == "mgd" else None)
+    m = step(state, None, labels[rows], torch.Generator(device="cuda").manual_seed(4),
+             images=images[rows], **pinned)
+    return _tp_result(state, {k: float(v) for k, v in m.items()}, applied,
+                      _full(state, state.params), [], [])
+
+
+def _tp_collectives(mesh):
+    """Host-clock ms and bytes of the model group's collectives at 15a's
+    shapes: the row-parallel reduce of the teacher's [B, N, 384] fp32 partial,
+    the student's [B, N, 192], and the gather of the student's qkv columns
+    [B, N, 288] in bf16 (the gather route)."""
+    import torch
+
+    tp = mesh.model
+    out = {}
+    for name, shape, dtype in (("reduce teacher", (TP_BATCH, N_TOK, 384), torch.float32),
+                               ("reduce student", (TP_BATCH, N_TOK, 192), torch.float32),
+                               ("gather qkv", (TP_BATCH, N_TOK, 288), torch.bfloat16)):
+        t = torch.ones(shape, dtype=dtype, device="cuda")
+        fn = (lambda t=t: tp.all_reduce(t)) if name.startswith("reduce") else (
+            lambda t=t: tp.all_gather(t))
+        out[name] = (_host_ms(fn, 5), t.numel() * t.element_size())
+    return out
+
+
+class _SaveWrites:
+    """Records run()'s checkpoint saves as (epoch, whether this rank wrote)."""
+
+    def __init__(self):
+        from deltakd_tpu_torch.train import loop
+
+        self.loop, self.saves = loop, []
+
+    def __enter__(self):
+        real = self._real = self.loop.save_checkpoint
+
+        def save_checkpoint(*args, **kw):
+            self.saves.append((kw["epoch"], kw.get("write", True)))
+            return real(*args, **kw)
+
+        self.loop.save_checkpoint = save_checkpoint
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.save_checkpoint = self._real
+
+
+def _tp_round_trip(argv, src, dst, mesh):
+    """Loads checkpoint ``src`` into the state of ``argv``'s config on
+    ``mesh`` (each rank cuts its shards) and saves it to ``dst`` at once
+    (gathered again; rank 0 writes)."""
+    from deltakd_tpu_torch.ckpt.checkpoint import load_checkpoint, save_checkpoint
+    from deltakd_tpu_torch.configs.config import parse_args
+    from deltakd_tpu_torch.models.factory import load_teacher_student
+    from deltakd_tpu_torch.train.optim import make_optimizer
+    from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
+
+    cfg = parse_args(argv)
+    _, student, aux = load_teacher_student(cfg, seed=cfg.seed, device="cuda", mesh=mesh)
+    tx = make_optimizer(cfg, trainable_parameters(student, aux), 4)
+    state = TrainState(student, tx=tx, aux=aux, ema_decay=cfg.ema_decay)
+    state, epoch, best = load_checkpoint(src, state)
+    save_checkpoint(dst, state, epoch=epoch, best_acc=best, is_best=False,
+                    write=mesh is None or mesh.is_main)
+
+
+def _tp_rank(rank, world, port, out_dir, tasks):
+    """One of phase 15's processes: a gloo group of ``world`` on the one card
+    and the mesh of ``tasks["mesh"]``; 15a, 15b or 15c as ``tasks`` says.
+    Writes its results to out_dir/tp_rank<rank>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from deltakd_tpu_torch import parallel
+    from deltakd_tpu_torch.ops import attention as at
+    from deltakd_tpu_torch.ops import fused_block as fb
+    from deltakd_tpu_torch.ops import fused_mlp as fm
+    from deltakd_tpu_torch.ops import sort as so
+
+    mods = (fb, so, at, fm)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    mesh = parallel.make_mesh(tasks["mesh"], parallel.current())
+    out = {"mesh": (mesh.data.rank, mesh.model.rank)}
+    t0 = time.perf_counter()
+    if "15a" in tasks:
+        for dtype in ("bfloat16", "float32"):
+            out[dtype] = _tp_step(mods, dtype, mesh, TP_STEPS)
+            torch.cuda.empty_cache()
+        out["wasskd"] = _tp_step(mods, "bfloat16", mesh, 1, "wasskd")
+        out["collectives"] = _tp_collectives(mesh)
+        out["15a_s"] = time.perf_counter() - t0
+    if "15b" in tasks:
+        _register_dry_models()
+        for kd_type, distilled, accum, extra in TP_DRY:
+            out[kd_type] = _tp_dry_step(kd_type, distilled, accum, extra, mesh)
+        out["15b_s"] = time.perf_counter() - t0
+    if "15d" in tasks:   # the same four ranks as one data row at a model axis of 4
+        t0 = time.perf_counter()
+        out["15d"] = _tp_step(mods, "bfloat16", parallel.make_mesh((1, 4), parallel.current()),
+                              1, evaluate=True)
+        out["15d_s"] = time.perf_counter() - t0
+    if "15c" in tasks:
+        from deltakd_tpu_torch.cli import train as train_cli
+
+        t0 = time.perf_counter()
+        c = tasks["15c"]
+        with _SaveWrites() as rec:
+            out["run"] = train_cli.main(c["tp"])
+            out["resumed"] = train_cli.main(c["resume"])
+        out["saves"] = rec.saves
+        _tp_round_trip(c["tp"], c["one_ckpt"], c["round_trip"], mesh)
+        out["15c_s"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(out_dir, f"tp_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _tp_spawn(world, out_dir, tasks):
+    import torch
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_tp_rank, args=(world, _free_port(), out_dir, tasks), nprocs=world,
+                       start_method="spawn")
+    return [torch.load(os.path.join(out_dir, f"tp_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _tp_errors(got, ref):
+    """Per parameter tensor: max |got - ref| of the gathered gradient over the
+    tensor's max |g|, and of the parameters after the first step over the
+    largest |parameter| (a zero-initialised bias is +-lr after AdamW's first
+    step, its sign the gradient's, which flips where a gradient is near 0)."""
+    errs = {"grad": {}, "param": {}}
+    largest = ref["params"].abs().max().item()
+    offset = 0
+    for pname, n in ref["names"]:
+        part = slice(offset, offset + n)
+        want = ref["grads"][part]
+        errs["grad"][pname] = ((got["grads"][part] - want).abs().max().item()
+                               / max(want.abs().max().item(), 1e-30))
+        errs["param"][pname] = (got["params"][part] - ref["params"][part]).abs().max().item(
+            ) / largest
+        offset += n
+    return errs
+
+
+def _tp_hold(what, got, ref, grad_tol, loss_tol, ranks_of_row):
+    """Holds each rank's gathered gradient and parameters and the data ranks'
+    mean loss against the one process; the replicated tensors the same bits
+    on the model ranks of each data row, the gathered gradients and
+    parameters the same bits on every rank. Returns the worst gradient error."""
+    import torch
+
+    worst = 0.0
+    for r, g in enumerate(got):
+        errs = _tp_errors(g, ref)
+        top = sorted(errs["grad"], key=errs["grad"].get, reverse=True)[:3]
+        worst = max(worst, errs["grad"][top[0]], max(errs["param"].values()))
+        if r == 0:
+            print(f"[tp] {what}: gathered gradient max |diff| per tensor of its max |g|: "
+                  + ", ".join(f"{k} {errs['grad'][k]:.2e}" for k in top)
+                  + f" (worst of {len(errs['grad'])}; limit {grad_tol:g}); parameters after "
+                  f"the first step, per tensor of the largest |p|: "
+                  f"{max(errs['param'].values()):.2e}")
+    loss = sum(g["metrics"]["train_loss"] for g in got) / len(got)
+    loss_err = abs(loss - ref["metrics"]["train_loss"]) / abs(ref["metrics"]["train_loss"])
+    norm_err = abs(got[0]["metrics"]["grad_norm"] - ref["metrics"]["grad_norm"]) / abs(
+        ref["metrics"]["grad_norm"])
+    same = all(torch.equal(g["local"][~g["sharded"]],
+                           got[ranks_of_row[i][0]]["local"][~got[ranks_of_row[i][0]]["sharded"]])
+               for i, row in enumerate(ranks_of_row) for g in (got[r] for r in row))
+    same = same and all(torch.equal(g["grads"], got[0]["grads"])
+                        and torch.equal(g["params"], got[0]["params"]) for g in got)
+    print(f"[tp] {what}: loss {loss:.7g} vs {ref['metrics']['train_loss']:.7g} (relative "
+          f"{loss_err:.2e}, limit {loss_tol:g}); grad_norm {got[0]['metrics']['grad_norm']:.7g} "
+          f"vs {ref['metrics']['grad_norm']:.7g} (relative {norm_err:.2e}); replicated "
+          f"tensors on a data row's model ranks and the gathered state on every rank "
+          f"{'the same bits' if same else 'DIFFER'}")
+    if worst > grad_tol or loss_err > loss_tol or norm_err > grad_tol or not same:
+        raise AssertionError(f"{what}: the TP step is not the one-process step")
+    return worst
+
+
+def _tp_close(what, got, want):
+    """run()'s val_loss within TP_RUN_TOL and val_acc1 within one image (both
+    sides classify one image or none after 15c's 4 steps: val_loss carries
+    the comparison)."""
+    loss_err = abs(got["val_loss"] - want["val_loss"]) / abs(want["val_loss"])
+    acc_err = abs(got["val_acc1"] - want["val_acc1"])
+    ok = loss_err <= TP_RUN_TOL and acc_err <= 100.0 / TP_RUN_IMAGES + 1e-9
+    print(f"[tp] {what}: val_loss {got['val_loss']:.7g} vs {want['val_loss']:.7g} (relative "
+          f"{loss_err:.2e}, limit {TP_RUN_TOL:g}), val_acc1 {got['val_acc1']:.4g} vs "
+          f"{want['val_acc1']:.4g} (limit one of {TP_RUN_IMAGES} images) "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_tensor_parallel(mods, smi, soft_argv=None, tmp=None):
+    """Phase 15. 15a: two processes on the one card over gloo at mesh (1, 2),
+    DeiT-S-distilled teacher (6 heads, 3 a rank) and DeiT-Ti-distilled student
+    (3 heads: the gather route), 224 px, global B = TP_BATCH, soft KD, bf16 then
+    fp32, against the one-process unfused step; the launches a step and rank;
+    the model group's collectives timed. 15b: four processes at mesh (2, 2) at
+    the JAX dry run's widths: mgd, soft with grad_accum_steps=2 and
+    wasskd-sinkhorn against one process on the global batch. 15c (with
+    ``soft_argv``): run() at (1, 2) against one process on phase 11's pickles
+    at fp32, B = 32, for one epoch; rank 0 alone writes; a one-process
+    checkpoint resumed at (1, 2) for a second epoch against the one process's
+    own resume; each side's checkpoint loaded and saved again on the other
+    side the same bits."""
+    import torch
+
+    t_start = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    atexit.register(shutil.rmtree, out_dir, True)
+    tasks = {"mesh": (1, 2), "15a": True}
+    if soft_argv is not None:
+        from deltakd_tpu_torch.cli import train as train_cli
+
+        one = soft_argv("tp_one", "--epochs", "1", *TP_RUN_FLAGS)
+        one_ckpt = os.path.join(tmp, "tp_one", "checkpoint")
+        one_run = train_cli.main(one)
+        shutil.copytree(os.path.join(tmp, "tp_one"), os.path.join(tmp, "tp_one_copy"))
+        tasks["15c"] = dict(
+            tp=soft_argv("tp_two", "--epochs", "1", *TP_RUN_FLAGS),
+            resume=soft_argv("tp_one_copy", "--epochs", "2", "--resume", "--checkpoint",
+                             os.path.join(tmp, "tp_one_copy", "checkpoint"), *TP_RUN_FLAGS),
+            one_ckpt=one_ckpt, round_trip=os.path.join(tmp, "tp_round_trip"))
+    got = got_a = _tp_spawn(2, out_dir, tasks)
+    print(f"[tp] 15a: the two ranks took {got[0]['15a_s']:.1f} s"
+          + (f", 15c {got[0]['15c_s']:.1f} s" if "15c" in tasks else "")
+          + " (rank 0)")
+    worst, refs = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        ref = refs[dtype] = _tp_step(mods, dtype, None, 1, evaluate=dtype == "bfloat16")
+        torch.cuda.empty_cache()
+        ranks = [g[dtype] for g in got]
+        worst[dtype] = _tp_hold(f"15a {dtype} soft step, mesh (1, 2), B={TP_BATCH}", ranks,
+                                ref, TP_GRAD_TOL[dtype], TP_LOSS_TOL[dtype], [(0, 1)])
+        for r, g in enumerate(ranks):
+            _check_launches(f"15a {dtype} rank {r}", g["launches"], _tp_launches(dtype),
+                            TP_STEPS)
+        print(f"[tp] {smi}: 15a {dtype}: TP step {_median(ranks[0]['ms'][1:]):.2f} ms a rank "
+              f"(median of steps 2-{TP_STEPS}, CUDA events; two processes sharing the card, "
+              f"every model-group collective through the host over gloo: not a TP speed); "
+              f"one-process unfused step {ref['ms'][0]:.2f} ms (first step); launches a step "
+              f"and rank {ranks[0]['launches'][0]}; peak allocated "
+              f"{ranks[0]['peak'] / 2**30:.3f} GiB a rank")
+    ref = _tp_step(mods, "bfloat16", None, 1, "wasskd")
+    torch.cuda.empty_cache()
+    ranks = [g["wasskd"] for g in got]
+    worst["wasskd"] = _tp_hold(f"15a bfloat16 wasskd-l1 step, mesh (1, 2), B={TP_BATCH}",
+                               ranks, ref, TP_GRAD_TOL["bfloat16"], TP_LOSS_TOL["bfloat16"],
+                               [(0, 1)])
+    for r, g in enumerate(ranks):   # rows 10 and 11 on the replicated features
+        _check_launches(f"15a wasskd rank {r}", g["launches"], dict(
+            _tp_launches("bfloat16"), sorted_l1_fwd=3, sorted_l1_bwd=3), 1)
+    print(f"[tp] 15a wasskd-l1: launches a step and rank {ranks[0]['launches'][0]}")
+    c = got[0]["collectives"]
+    print(f"[tp] {smi}: 15a model-group collectives (gloo through the host on one card, "
+          f"host clock, rank 0): " + "; ".join(
+              f"{k} {ms:.2f} ms for {nbytes} bytes" for k, (ms, nbytes) in c.items()))
+
+    # 15b: four ranks at (2, 2), the dry run's cases; 15d: the same ranks at
+    # (1, 4), the full-width bf16 soft step and the student's eval view
+    got = _tp_spawn(4, out_dir, {"mesh": (2, 2), "15b": True, "15d": True})
+    _register_dry_models()
+    for kd_type, distilled, accum, extra in TP_DRY:
+        ref = _tp_dry_step(kd_type, distilled, accum, extra, None)
+        _tp_hold(f"15b {kd_type} (accum {accum}{', ' + str(extra) if extra else ''}), mesh "
+                 f"(2, 2)", [g[kd_type] for g in got], ref, TP_DRY_TOL, TP_DRY_TOL,
+                 [(0, 1), (2, 3)])
+    print(f"[tp] 15b: the four ranks took {got[0]['15b_s']:.1f} s (rank 0)")
+    ranks = [g["15d"] for g in got]
+    worst["bfloat16 (1, 4)"] = _tp_hold(
+        f"15d bfloat16 soft step, mesh (1, 4), B={TP_BATCH}", ranks, refs["bfloat16"],
+        TP_GRAD_TOL["bfloat16"], TP_LOSS_TOL["bfloat16"], [(0, 1, 2, 3)])
+    for r, g in enumerate(ranks):
+        _check_launches(f"15d rank {r}", g["launches"], _tp_launches("bfloat16", 4), 1)
+        _check_launches(f"15d rank {r} eval view", [g["eval"]["launches"]],
+                        TP_EVAL_LAUNCHES, 1)
+        _agree(f"15d rank {r} eval-view logits at mesh (1, 4)", g["eval"]["logits"],
+               refs["bfloat16"]["eval"]["logits"], (TP_BATCH, 100),
+               other="the one-process eval view")
+    print(f"[tp] {smi}: 15d: the four ranks took {got[0]['15d_s']:.1f} s (rank 0); TP step "
+          f"{ranks[0]['ms'][0]:.2f} ms a rank (its first, CUDA events; four processes sharing "
+          f"the card over gloo: not a TP speed); launches a step and rank "
+          f"{ranks[0]['launches'][0]}; the eval view's {ranks[0]['eval']['launches']}")
+
+    if "15c" in tasks:
+        c = tasks["15c"]
+        ranks = got_a
+        straight = ranks[0]["run"]
+        ok = _tp_close("15c one epoch at (1, 2) against one process", straight, one_run)
+        one_resumed = train_cli.main(soft_argv("tp_one", "--epochs", "2", "--resume",
+                                               "--checkpoint", one_ckpt, *TP_RUN_FLAGS))
+        ok &= _tp_close("15c the one-process checkpoint resumed at (1, 2) against its "
+                        "one-process resume", ranks[0]["resumed"], one_resumed)
+        saves = [g["saves"] for g in ranks]
+        same_tp, _ = _same_state(os.path.join(c["round_trip"], "state-1"),
+                                 os.path.join(one_ckpt, "state-1"))
+        _tp_round_trip(one, os.path.join(tmp, "tp_two", "checkpoint"),
+                       os.path.join(tmp, "tp_two_round_trip"), None)
+        same_one, step = _same_state(os.path.join(tmp, "tp_two_round_trip", "state-1"),
+                                     os.path.join(tmp, "tp_two", "checkpoint", "state-1"))
+        print(f"[tp] 15c saves (epoch, wrote) by rank {saves}; the one-process checkpoint "
+              f"cut at (1, 2) and gathered again {'the same bits' if same_tp else 'DIFFERS'};"
+              f" the (1, 2) checkpoint loaded in one process and saved again "
+              f"{'the same bits' if same_one else 'DIFFERS'} ({step} steps)")
+        if not (ok and same_tp and same_one and saves[0] == [(1, True), (2, True)]
+                and saves[1] == [(1, False), (2, False)]):
+            raise AssertionError("15c: run() at (1, 2) failed its checks")
+    print(f"[tp] {smi}: phase 15 took {time.perf_counter() - t_start:.1f} s")
+    return worst
 
 
 # Planted faults (``--faults``): each is an edit of one kernel source, or of
@@ -4415,6 +5004,7 @@ def main() -> int:
     sort_checks = "--sort-checks" in sys.argv[1:]
     dp_checks = "--dp-checks" in sys.argv[1:]
     fp32_checks = "--fp32-checks" in sys.argv[1:]
+    tp_checks = "--tp-checks" in sys.argv[1:]
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deltakd_tpu_torch.ops import _build
@@ -4440,8 +5030,9 @@ def main() -> int:
                         else ["fused_block_fwd", "fused_block_bwd"] if dp_checks
                         else ["fused_block_fwd", "fused_block_bwd", "fused_block_pair",
                               "attention", "fused_mlp"]
-                        if fp32_checks
+                        if fp32_checks else ["attention", "fused_mlp", "sort"] if tp_checks
                         else _build.SOURCES)
+    lap = _Laps()
     print(f"[build] sources {list(_build.SOURCES)}, compiled {sorted(logs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -4469,6 +5060,16 @@ def main() -> int:
         return 0
     if dp_checks:        # a planted-fault copy: phase 12a only
         run_data_parallel(mods, smi)
+        return 0
+    if tp_checks:        # phase 15 alone, on its own pickles and teacher checkpoint
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        atexit.register(shutil.rmtree, tmp, True)
+        os.environ.update(WANDB_MODE="disabled", WANDB_ERROR_REPORTING="false")
+        write_cifar100(os.path.join(tmp, "data"), RUNTIME_TRAIN, RUNTIME_TEST)
+        teacher_checkpoint = os.path.join(tmp, "deit_small_distilled_patch16_384.pth")
+        write_teacher_checkpoint(teacher_checkpoint)
+        run_tensor_parallel(mods, smi, soft_recipe_argv(tmp, dict(
+            DATA_PATH=os.path.join(tmp, "data"), TEACHER_CKPT=teacher_checkpoint)), tmp)
         return 0
     if fp32_checks:      # a planted-fault copy: the fp32 forms' checks at B=8 only
         seeds = int(sys.argv[sys.argv.index("--seeds") + 1]) if "--seeds" in sys.argv else 1
@@ -4501,6 +5102,7 @@ def main() -> int:
     timing.update(time_pair_kernels(fb))
     torch.cuda.empty_cache()
 
+    lap("the kernels' checks and times")
     by_path, step_ms, peaks = {}, {}, {}
     for kd_type, steps in PATHS:
         by_path[kd_type], step_ms[kd_type], peaks[kd_type], kept = run_train_path(
@@ -4515,6 +5117,7 @@ def main() -> int:
         del teacher, student, aux, kept
         torch.cuda.empty_cache()
 
+    lap("the train paths")
     # the recipes' objectives, each in its recipe's configuration
     for name, options, epochs in OBJECTIVE_PATHS:
         by_path[name], step_ms[name], peaks[name], kept = run_train_path(
@@ -4531,6 +5134,7 @@ def main() -> int:
     time_objective_solvers()
     by_path["value_sort"] = run_value_sort(so)
 
+    lap("the objectives and the value sort")
     # the train-time data path, then the recipe's soft step with its teacher
     # imported from a checkpoint
     aug_ms = check_augment()
@@ -4549,6 +5153,7 @@ def main() -> int:
           f"the card, {ra['host_ms']:.3f} on the host's clock (aa='': {plain_ms:.3f}), mixup "
           f"{aug_ms['mixup batch']['ms']:.3f}")
 
+    lap("the data path and the recipe step")
     # the unfused model path: its train steps, its eval batch on the eval view
     by_path["unfused_soft"], step_ms["unfused soft"], _, kept = run_train_path(
         mods, "soft", UNFUSED_STEPS, unfused=True)
@@ -4563,6 +5168,7 @@ def main() -> int:
     by_path["fused_mlp_train"] = run_mlp_train(mods, fm)
     by_path["no_qkv_bias"] = run_no_qkv_bias(mods, images, aug)
 
+    lap("the unfused path")
     # the block-pair path: the student's blocks two per kernel
     for kd_type, steps in PAIRED_PATHS:
         name = f"paired {kd_type}"
@@ -4578,6 +5184,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     by_path["odd_depth_pair"] = run_odd_depth_pair(mods, images, aug)
 
+    lap("the paired path")
     # the runtime: run() and the CLIs with the flags of the recipes
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4588,11 +5195,13 @@ def main() -> int:
     print(f"[runtime] phase 11 took {time.perf_counter() - t0:.1f} s; launches "
           f"{by_path['runtime']}")
 
+    lap("phase 11")
     # data parallelism: two ranks on the card over gloo; torchrun with NCCL
     torch.cuda.empty_cache()
     run_data_parallel(mods, smi, tmp, data_env=runtime["env"], state_11a=runtime["state_11a"],
                       soft_argv=runtime["soft_argv"])
 
+    lap("phase 12")
     # the fp32 route: the kernels' fp32 forms, then an fp32 config's step
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4605,6 +5214,7 @@ def main() -> int:
     by_path.update(fp32_paths)
     print(f"[fp32] phase 13 took {time.perf_counter() - t0:.1f} s")
 
+    lap("phase 13")
     # phase 14: the fp32 forms of rows 6-8 and the paired fp32 step,
     # fused_mlp_train at fp32, the optimizers, token dropout
     torch.cuda.empty_cache()
@@ -4622,6 +5232,12 @@ def main() -> int:
     by_path["token dropout soft"] = run_token_dropout(mods, smi)
     torch.cuda.empty_cache()
     print(f"[phase 14] took {time.perf_counter() - t0:.1f} s")
+
+    lap("phase 14")
+    # phase 15: tensor parallelism, ranks sharing the card over gloo
+    torch.cuda.empty_cache()
+    run_tensor_parallel(mods, smi, runtime["soft_argv"], tmp)
+    lap("phase 15")
     print("[slice] step ms by path: "
           + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
 

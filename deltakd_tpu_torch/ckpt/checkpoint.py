@@ -9,7 +9,9 @@ the student's backbone only, dropping shape-mismatched heads and
 interpolating the position embedding onto the new patch grid.
 
 The layout is the JAX package's, written with ``torch.save`` instead of
-orbax: ``<save_dir>/state-<epoch>/state.pt`` holds the flat fp32 parameter
+orbax, and the same at every mesh shape (a tensor-parallel run gathers its
+shards before it writes and cuts them from the full tensors when it
+resumes): ``<save_dir>/state-<epoch>/state.pt`` holds the flat fp32 parameter
 vector with its names and shapes, the optimizer's kind, count and buffers
 (AdamW's and Adam's moments, SGD's trace) and its LR scale, the EMA, the step
 count, the epoch and the best accuracy, all on the CPU. A checkpoint without
@@ -27,12 +29,14 @@ import json
 import math
 import os
 import shutil
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from deltakd_tpu_torch.models.import_timm import load_state_dict, timm_to_torch
 from deltakd_tpu_torch.models.pos_embed import interpolate_pos_embed
+from deltakd_tpu_torch.models.vit import VisionTransformer
+from deltakd_tpu_torch.parallel.tensor import full_state_dict, load_full_state_dict
 
 _STATE_DIR = "state"
 _STATE_FILE = "state.pt"
@@ -77,25 +81,40 @@ def _write_json(path: str, obj) -> None:
     os.replace(tmp, path)
 
 
+def _full_shapes(state) -> List[List[int]]:
+    if state.shards is not None:
+        return [list(s) for s in state.shards.full_shapes]
+    return [list(p.shape) for _, p in state.named_params]
+
+
 def _state_to_dict(state) -> Dict:
-    """A TrainState as CPU tensors and Python values."""
+    """A TrainState as CPU tensors and Python values, in a one-rank run's
+    layout: under tensor parallelism every flat vector is gathered over the
+    model group (collective)."""
     opt = state.opt_state
+    full = (lambda t: t) if state.shards is None else state.shards.gather   # noqa: E731
     return {
         "names": [n for n, _ in state.named_params],
-        "shapes": [list(p.shape) for _, p in state.named_params],
-        "params": state.params.detach().cpu(),
+        "shapes": _full_shapes(state),
+        "params": full(state.params.detach()).cpu(),
         "opt": {"kind": opt.kind, "count": int(opt.count), "scale": opt.scale,
-                **{b: getattr(opt, b).detach().cpu() for b in opt.BUFFERS}},
-        "ema": None if state.ema_params is None else state.ema_params.detach().cpu(),
+                **{b: full(getattr(opt, b).detach()).cpu() for b in opt.BUFFERS}},
+        "ema": None if state.ema_params is None else full(state.ema_params.detach()).cpu(),
         "step": int(state.step),
     }
 
 
 def save_checkpoint(save_dir: str, state, *, epoch: int, best_acc: float,
-                    is_best: bool) -> str:
+                    is_best: bool, write: bool = True) -> Optional[str]:
     """Write ``save_dir/state-<epoch>`` and ``meta.json``; copy both to
     ``save_dir.best`` on a new best (reference utils.py:90-93). Returns the
-    state dir."""
+    state dir. Under tensor parallelism every model rank of the writer's
+    data row calls it, since the shards are gathered first; those with
+    ``write`` False only take part in the gather (and return None)."""
+    tree = {"state": _state_to_dict(state),
+            "meta": {"epoch": int(epoch), "best_acc": float(best_acc)}}
+    if not write:
+        return None
     save_dir = os.path.abspath(save_dir)
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.join(save_dir, f"{_STATE_DIR}-{epoch}")
@@ -114,9 +133,7 @@ def save_checkpoint(save_dir: str, state, *, epoch: int, best_acc: float,
     if os.path.isdir(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    torch.save({"state": _state_to_dict(state),
-                "meta": {"epoch": int(epoch), "best_acc": float(best_acc)}},
-               os.path.join(tmp, _STATE_FILE))
+    torch.save(tree, os.path.join(tmp, _STATE_FILE))
     os.replace(tmp, path)
     _write_json(os.path.join(save_dir, _META),
                 {"epoch": int(epoch), "best_acc": float(best_acc), "format": _FORMAT,
@@ -160,12 +177,13 @@ def _read(save_dir: str) -> Dict:
 def load_checkpoint(save_dir: str, state) -> Tuple[object, int, float]:
     """Restore a TrainState in place for --resume (reference
     train.py:274-280). Returns (state, next_epoch, best_acc); the state's
-    parameter names and shapes must be the checkpoint's."""
+    parameter names and full shapes must be the checkpoint's. Under tensor
+    parallelism each rank cuts its shards from the full tensors, so a
+    checkpoint resumes at any mesh shape."""
     tree = _read(save_dir)
     saved = tree["state"]
     names = [n for n, _ in state.named_params]
-    shapes = [list(p.shape) for _, p in state.named_params]
-    if saved["names"] != names or saved["shapes"] != shapes:
+    if saved["names"] != names or saved["shapes"] != _full_shapes(state):
         raise ValueError(f"{save_dir} holds another model's parameters")
     if (saved["ema"] is None) != (state.ema_params is None):
         raise ValueError(f"{save_dir}: the EMA does not match --ema-decay")
@@ -173,15 +191,16 @@ def load_checkpoint(save_dir: str, state) -> Tuple[object, int, float]:
     if saved_opt.get("kind", "adamw") != opt.kind:
         raise ValueError(f"{save_dir} holds the state of optimizer "
                          f"{saved_opt.get('kind', 'adamw')!r}, not {opt.kind!r}")
-    state.params.copy_(saved["params"])
+    cut = (lambda t: t) if state.shards is None else state.shards.cut   # noqa: E731
+    state.params.copy_(cut(saved["params"]))
     opt.count = saved_opt["count"]
     for b in opt.BUFFERS:
-        getattr(opt, b).copy_(saved_opt[b])
+        getattr(opt, b).copy_(cut(saved_opt[b]))
     if opt.scale is not None:
         saved_scale = saved_opt.get("scale")
         opt.scale = 1.0 if saved_scale is None else float(saved_scale)
     if state.ema_params is not None:
-        state.ema_params.copy_(saved["ema"])
+        state.ema_params.copy_(cut(saved["ema"]))
     state.step = saved["step"]
     return state, int(tree["meta"]["epoch"]), float(tree["meta"]["best_acc"])
 
@@ -229,7 +248,16 @@ def load_student_for_finetune(checkpoint: str, student, *, num_prefix_tokens: in
                               log=print) -> Dict[str, torch.Tensor]:
     """Load a student backbone into ``student``'s parameters in place, from a
     checkpoint directory of this package or a torch/timm state_dict file.
-    Returns the parameters by name after the load."""
+    Returns the parameters by name after the load. A student sharded over a
+    model axis loads into a full copy of itself on the CPU (its shards
+    gathered, collective), which each rank then cuts."""
+    if getattr(student, "tp", None) is not None:
+        full = VisionTransformer(student.cfg, dtype=student.dtype)
+        full.load_state_dict({k: v.cpu() for k, v in full_state_dict(student).items()})
+        out = load_student_for_finetune(checkpoint, full,
+                                        num_prefix_tokens=num_prefix_tokens, log=log)
+        load_full_state_dict(student, out)
+        return out
     if os.path.isdir(checkpoint):
         merged = _merge_for_finetune(student_state_dict(checkpoint)[0],
                                      dict(student.named_parameters()),

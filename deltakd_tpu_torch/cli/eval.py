@@ -1,8 +1,11 @@
 """Checkpoint evaluation CLI (``deltakd_tpu/cli/eval.py``): load a checkpoint's
 student (or its EMA), evaluate it on the validation split, print the metrics
 and write them as JSON (next to the checkpoint unless ``--output`` says
-otherwise). Under torchrun each rank evaluates its shard of the split and
-the sums are all-reduced; rank 0 prints and writes them.
+otherwise). Under torchrun the student is replicated on every rank, as the
+JAX eval CLI replicates it, whatever ``--mesh-shape`` says: each data rank
+evaluates its shard of the split (the model ranks of a data row the same
+one) and the sums are all-reduced over the data group; global rank 0
+prints and writes them.
 
     python -m deltakd_tpu_torch.cli.eval --checkpoint checkpoints/run/checkpoint \\
         --dataset cifar-100 --data-path dataset [--use-ema]
@@ -19,7 +22,7 @@ from deltakd_tpu_torch.data.augment import AugmentConfig
 from deltakd_tpu_torch.data.loader import make_loader
 from deltakd_tpu_torch.data.sources import build_source
 from deltakd_tpu_torch.models.factory import load_teacher_student
-from deltakd_tpu_torch.parallel import current, rank_device
+from deltakd_tpu_torch.parallel import current, make_mesh, rank_device
 from deltakd_tpu_torch.train.loop import eval_view, validate
 from deltakd_tpu_torch.train.step import build_eval_step
 
@@ -36,7 +39,8 @@ def main(argv=None):
         parser.error("--checkpoint is required")
     cfg = config_from_namespace(ns)
     device = rank_device(resolve_device(cfg.device or "cuda"))
-    dp = current()
+    mesh = make_mesh(cfg.mesh_shape, current())
+    dp = mesh.data
 
     # the factory picks the student's path as run() does; the teacher is
     # never run, so it needs no weights
@@ -55,7 +59,7 @@ def main(argv=None):
     metrics = validate(eval_step, loader, cfg, device=device, pin=pin, prefix="test",
                        dp=dp)
     metrics["epoch"] = meta["epoch"]
-    if dp.is_main:
+    if mesh.is_main:
         print(json.dumps(metrics, indent=4))
         out_path = ns.output or os.path.join(cfg.checkpoint, "eval.json")
         with open(out_path, "w") as f:

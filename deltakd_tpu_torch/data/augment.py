@@ -227,11 +227,13 @@ class AugmentConfig:
     def from_config(cls, cfg) -> "AugmentConfig":
         """The JAX package's rules: 3-Augment turns RA/AA and erasing off;
         colour jitter acts only without aa or with 3-Augment; the heavy RA ops
-        run on a batch subset unless the batch is split over devices, i.e.
-        over more than one rank or a data axis > 1 in ``mesh_shape``. The
-        subset (its size and the rows past it) is the local batch's, so a
-        split batch would not give the global batch's transform: the ops run
-        on every image instead, as in the JAX package."""
+        run on a batch subset unless the batch is split over devices
+        (``_mesh_is_single_data_shard``): with ``mesh_shape`` None, over more
+        than one rank; otherwise over a data axis > 1, whatever the model
+        axis (its ranks hold the same rows). The subset (its size and the
+        rows past it) is the local batch's, so a split batch would not give
+        the global batch's transform: the ops run on every image instead, as
+        in the JAX package."""
         from deltakd_tpu_torch.data.registry import DATASET_STATS
         from deltakd_tpu_torch.parallel.mesh import world
 
@@ -249,7 +251,7 @@ class AugmentConfig:
                    small_input_crop=cfg.input_size <= 32,
                    eval_crop_ratio=cfg.eval_crop_ratio,
                    pixel_bf16=cfg.aug_pixel_bf16,
-                   subset_ops=world() == 1 and (ms is None or int(ms[0]) == 1))
+                   subset_ops=world() == 1 if ms is None else int(ms[0]) == 1)
 
 
 # -----------------------------------------------------------------------------

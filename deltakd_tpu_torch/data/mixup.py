@@ -7,7 +7,10 @@ draws one decision for the whole batch, 'elem' one per image, and 'pair' one
 per image with partners (i, B-1-i) sharing the first one's.
 
 ``draw_mixup`` takes a ``torch.Generator`` and returns the draws, all on the
-device (no host sync); ``mix_batch`` applies them.
+device (no host sync); ``mix_batch`` applies them. Over several data ranks
+(``dp``: under tensor parallelism the data axis, whose rank and group pick
+the partner and carry the exchange) each rank mixes its rows of the global
+batch.
 """
 
 from __future__ import annotations

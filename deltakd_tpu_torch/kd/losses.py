@@ -17,7 +17,10 @@ masks) comes from an explicit ``torch.Generator`` unless the caller pins it.
 Under data parallelism (``dp``) each rank holds its rows of the global batch.
 Every objective is a mean over equal local batches, so the ranks' mean of
 the local losses is the global one, except for two terms that couple the
-batch: LRKD's Gram matrices and DiffKD's mean weight, which are all-reduced.
+batch: LRKD's Gram matrices and DiffKD's mean weight, which are all-reduced
+over ``dp``'s group. Under tensor parallelism ``dp`` is the data axis (the
+ranks of one model column): the features are replicated over the model
+group, so each model rank computes the same loss.
 """
 
 from __future__ import annotations

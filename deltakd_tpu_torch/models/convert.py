@@ -5,7 +5,9 @@ PyTorch state_dict: the inverse of ``timm_to_flax``
 Dense kernels [in, out] become nn.Linear weights [out, in]; the patch-embed
 conv kernel goes HWIO -> OIHW; LayerNorm ``scale`` becomes ``weight``; the
 fused QKV keeps its (3, heads, head_dim) output packing. ``aux_flax_to_torch``
-does the same for the aux-head tree of ``deltakd_tpu/kd/aux.py``.
+does the same for the aux-head tree of ``deltakd_tpu/kd/aux.py``, and
+``flax_to_torch_shard`` cuts the ViT's state_dict to one model rank's
+shards (the aux heads are replicated).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from deltakd_tpu_torch.parallel.tensor import shard_state_dict
 
 
 def flax_block_to_torch(block: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -91,3 +95,11 @@ def aux_flax_to_torch(aux_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(aux_params, "")
     return _tensors(sd)
+
+
+def flax_to_torch_shard(params: Mapping[str, Any], num_heads: int, size: int,
+                        rank: int) -> Dict[str, torch.Tensor]:
+    """``flax_to_torch`` cut to model rank ``rank``'s shards over a model axis
+    of ``size`` (``parallel.tensor.shard_state_dict``): what a
+    ``VisionTransformer(..., tp=...)`` of that rank loads."""
+    return shard_state_dict(flax_to_torch(params), num_heads, size, rank)

@@ -23,7 +23,9 @@ from deltakd_tpu_torch.models.registry import get_model_config
 from deltakd_tpu_torch.models.vit import VisionTransformer, init_weights
 from deltakd_tpu_torch.ops.attention import best_attention_fn
 from deltakd_tpu_torch.ops.fused_block import best_block_pair_fn, fused_vit_block
-from deltakd_tpu_torch.ops.fused_mlp import best_mlp_fn
+from deltakd_tpu_torch.ops.fused_mlp import best_mlp_fn, forward_takes
+from deltakd_tpu_torch.parallel.mesh import Mesh, ModelParallel
+from deltakd_tpu_torch.parallel.tensor import shard_state_dict
 
 _FROM_CONFIG = object()
 
@@ -53,8 +55,49 @@ def create_model(name: str, *, num_classes: int, img_size: int = 224,
     return model.to(device)
 
 
+def shard_model(model: VisionTransformer, tp: Optional[ModelParallel]
+                ) -> VisionTransformer:
+    """``model`` as model rank ``tp.rank`` holds it: a model on the same
+    device with the same settings whose blocks hold that rank's Megatron
+    shards of ``model``'s parameters (``parallel/tensor.py``); ``model``
+    itself without a model axis."""
+    if tp is None or not tp.active:
+        return model
+    device = model.head.weight.device
+    with torch.device(device):
+        sharded = VisionTransformer(model.cfg, dtype=model.dtype,
+                                    attention_fn=model.attention_fn, mlp_fn=model.mlp_fn,
+                                    collect_features=model.collect_features, tp=tp)
+    sharded.load_state_dict(shard_state_dict(model.state_dict(), model.cfg.num_heads,
+                                             tp.size, tp.rank))
+    for (_, p), (_, q) in zip(model.named_parameters(), sharded.named_parameters()):
+        q.requires_grad_(p.requires_grad)
+    if hasattr(model, "import_report"):
+        sharded.import_report = model.import_report
+    return sharded
+
+
+def check_mlp_shards(name: str, num_classes: int, size: int, dtype: torch.dtype) -> None:
+    """Refuses, with a ValueError that names the model and F/M, a model axis
+    of ``size`` that cuts the model's MLP hidden F into shards of a width the
+    fused MLP forward (``ops.fused_mlp.forward_takes`` at ``dtype``) does not
+    take where it takes F itself: the teacher, and the student's eval view,
+    run that kernel on each rank's F/M hidden columns. A width the model
+    axis does not divide is left to the shard cut, which refuses it."""
+    cfg = get_model_config(name, num_classes=num_classes)
+    D, F = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
+    if size > 1 and F % size == 0 and forward_takes(D, F, dtype) and not forward_takes(
+            D, F // size, dtype):
+        raise ValueError(
+            f"{name}: a model axis of {size} leaves each rank F/M = {F}/{size} = "
+            f"{F // size} hidden columns of its MLP, a width the fused MLP forward "
+            f"kernel does not take at D={D} ({dtype}); choose a model axis whose F/M the "
+            f"kernel takes (ops/fused_mlp.py forward_takes)")
+
+
 def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
-                         block_pair: bool = False, seed: int = 0, device="cuda"
+                         block_pair: bool = False, seed: int = 0, device="cuda",
+                         mesh: Optional[Mesh] = None
                          ) -> Tuple[VisionTransformer, VisionTransformer,
                                     Optional[AuxHeads]]:
     """(teacher, student, aux) for a TrainConfig; the teacher is frozen and
@@ -81,8 +124,13 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
       fused block consumes whole weight matrices, so tensor parallelism runs
       the student with ``attention_fn`` and the forward-only teacher with
       ``attention_fn`` and ``fused_mlp`` (at float32 the MLP forward's fp32
-      form). In the port ``mesh_shape`` so far only selects that path;
-      nothing is placed over a model axis yet.
+      form). With ``mesh`` (``parallel.make_mesh``) over a model axis of
+      several ranks, both models, the frozen teacher too, hold this rank's
+      shards (``shard_model``), cut from the same seeded weights and
+      imported teacher a one-rank run builds; at one rank ``mesh_shape``
+      only selects the path. With kernels on, a model axis that leaves the
+      fused MLP forward a hidden shard it does not take is refused before
+      anything is built (``check_mlp_shards``).
 
     ``block_pair`` stands for the JAX factory's environment variable
     ``DELTAKD_PAIR=1``: with kernels on and no model axis, the student (never
@@ -109,6 +157,10 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
     block_fn = fused_vit_block if kernels_on and model_axis == 1 else None
     pair_on = kernels_on and model_axis == 1 and block_pair
     block_pair_fn = best_block_pair_fn(pair_on)
+    tp = mesh.model if mesh is not None else None
+    if kernels_on and tp is not None and tp.active:
+        for name in (config.teacher_model, config.student_model):
+            check_mlp_shards(name, num_classes, tp.size, dtype)
 
     def needed(name):
         depth = get_model_config(name, num_classes=num_classes).depth
@@ -137,6 +189,7 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
                            block_pair_fn=block_pair_fn,
                            collect_features=needed(config.student_model),
                            seed=seed + 2, device=device)
+    teacher, student = shard_model(teacher, tp), shard_model(student, tp)
     aux = None
     if config.distillation_type.lower() in FEATURE_TYPES:
         aux = AuxHeads(config.distillation_type, student.cfg.embed_dim,

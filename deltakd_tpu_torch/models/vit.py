@@ -28,6 +28,16 @@ attention core through ``attention_fn(q, k, v)`` on [B, H, N, head_dim]
 ``mlp_fn(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias)``
 (``ops/fused_mlp.fused_mlp``, forward only) when they are set, else through
 PyTorch's matmul, softmax and GELU.
+
+With ``tp`` (``parallel.mesh.ModelParallel``, a model axis of M > 1 ranks)
+the model holds one rank's Megatron shards (``parallel/tensor.py``) and
+runs the unfused path: qkv and fc1 split on their output features, proj and
+fc2 on their input features, the row-parallel outputs summed over the model
+group with their biases added once; the LayerNorms, residuals, drop-path
+scales, token dropout, heads and features are replicated. Where M divides
+the heads attention runs on the rank's H/M heads; otherwise (DeiT-Tiny's 3
+heads over 2 ranks) the qkv output is gathered and attention runs on all
+heads.
 """
 
 from __future__ import annotations
@@ -39,6 +49,11 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from deltakd_tpu_torch.parallel.mesh import ModelParallel
+from deltakd_tpu_torch.parallel.tensor import (copy_to_model, gather_from_model, heads_split,
+                                               qkv_rows, reduce_from_model, shard_of,
+                                               shard_parameters)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,50 +108,113 @@ def _layer_norm(x, layer: nn.LayerNorm, dtype):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 tp: Optional[ModelParallel] = None):
         super().__init__()
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
+        self.tp = tp if tp is not None and tp.active else None
+        if self.tp is not None:
+            # the qkv bias is replicated (below 2-D); each rank adds the
+            # entries of its own rows
+            self.register_buffer("qkv_rows", qkv_rows(dim, num_heads, tp.size, tp.rank),
+                                 persistent=False)
 
     def forward(self, x, dtype, attention_fn: Optional[Callable] = None):
         B, N, D = x.shape
         hd = D // self.num_heads
+        if self.tp is not None:
+            return self._forward_sharded(x, dtype, attention_fn)
         qkv = _linear(x, self.qkv, dtype).reshape(B, N, 3, self.num_heads, hd)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        if attention_fn is not None:
-            out = attention_fn(q, k, v)
+        out = _attend(qkv, dtype, attention_fn)
+        return _linear(out.reshape(B, N, D), self.proj, dtype)
+
+    def _forward_sharded(self, x, dtype, attention_fn):
+        """Column-parallel qkv, row-parallel proj. Where M divides the heads
+        the rank's qkv rows are its heads' q, k and v and attention runs on
+        those; otherwise the qkv output is gathered, attention runs on every
+        head and the rank keeps its D/M columns for proj."""
+        tp, (B, N, D) = self.tp, x.shape
+        hd = D // self.num_heads
+        bias = self.qkv.bias
+        if bias is not None:
+            bias = shard_of(bias, self.qkv_rows, tp).to(dtype)
+        qkv = F.linear(copy_to_model(x, tp).to(dtype), self.qkv.weight.to(dtype), bias)
+        if heads_split(self.num_heads, tp.size):
+            out = _attend(qkv.reshape(B, N, 3, self.num_heads // tp.size, hd), dtype,
+                          attention_fn)
         else:
-            s = torch.matmul((q * hd ** -0.5).float(), k.float().transpose(-1, -2))
-            p = torch.softmax(s, dim=-1).to(dtype)
-            out = torch.matmul(p, v)
-        return _linear(out.transpose(1, 2).reshape(B, N, D), self.proj, dtype)
+            qkv = gather_from_model(qkv, tp).reshape(B, N, 3, self.num_heads, hd)
+            out = _attend(qkv, dtype, attention_fn).reshape(B, N, D)
+            out = out.chunk(tp.size, dim=-1)[tp.rank]
+        partial = F.linear(out.reshape(B, N, -1), self.proj.weight.to(dtype))
+        return _row_parallel_out(partial, self.proj.bias, dtype, tp)
+
+
+def _attend(qkv, dtype, attention_fn):
+    """Attention on qkv [B, N, 3, H, hd] -> [B, N, H, hd]."""
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    if attention_fn is not None:
+        out = attention_fn(q, k, v)
+    else:
+        s = torch.matmul((q * q.shape[-1] ** -0.5).float(), k.float().transpose(-1, -2))
+        p = torch.softmax(s, dim=-1).to(dtype)
+        out = torch.matmul(p, v)
+    return out.transpose(1, 2)
+
+
+def _row_parallel_out(partial, bias, dtype, tp):
+    """The model ranks' sum of the row-parallel partial products (summed in
+    fp32), the bias added once."""
+    return (reduce_from_model(partial.float(), tp) + bias.to(dtype).float()).to(dtype)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, tp: Optional[ModelParallel] = None):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.tp = tp if tp is not None and tp.active else None
+        if self.tp is not None:
+            w = hidden // tp.size
+            self.register_buffer("fc1_rows", torch.arange(tp.rank * w, (tp.rank + 1) * w),
+                                 persistent=False)
 
     def forward(self, x, dtype, mlp_fn: Optional[Callable] = None):
+        if self.tp is not None:
+            return self._forward_sharded(x, dtype, mlp_fn)
         if mlp_fn is not None:
             return mlp_fn(x.to(dtype), self.fc1.weight, self.fc1.bias,
                           self.fc2.weight, self.fc2.bias)
         h = F.gelu(_linear(x, self.fc1, dtype))
         return _linear(h, self.fc2, dtype)
 
+    def _forward_sharded(self, x, dtype, mlp_fn):
+        """Column-parallel fc1 on the rank's F/M hidden features, row-parallel
+        fc2; ``mlp_fn`` runs on the shards with a zero fc2 bias."""
+        tp = self.tp
+        x = copy_to_model(x, tp).to(dtype)
+        b1 = shard_of(self.fc1.bias, self.fc1_rows, tp)
+        if mlp_fn is not None:
+            partial = mlp_fn(x, self.fc1.weight, b1, self.fc2.weight,
+                             torch.zeros_like(self.fc2.bias))
+        else:
+            h = F.gelu(F.linear(x, self.fc1.weight.to(dtype), b1.to(dtype)))
+            partial = F.linear(h, self.fc2.weight.to(dtype))
+        return _row_parallel_out(partial, self.fc2.bias, dtype, tp)
+
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, qkv_bias: bool,
-                 ln_eps: float):
+                 ln_eps: float, tp: Optional[ModelParallel] = None):
         super().__init__()
         self.num_heads = num_heads
         self.ln_eps = ln_eps
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
-        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.attn = Attention(dim, num_heads, qkv_bias, tp)
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), tp)
 
     def forward(self, x, dtype, scales: Optional[Tuple[torch.Tensor, torch.Tensor]],
                 block_fn: Optional[Callable], collect: bool,
@@ -173,7 +251,8 @@ class VisionTransformer(nn.Module):
                  attention_fn: Optional[Callable] = None,
                  mlp_fn: Optional[Callable] = None,
                  block_fn: Optional[Callable] = None,
-                 block_pair_fn: Optional[Callable] = None, collect_features=True):
+                 block_pair_fn: Optional[Callable] = None, collect_features=True,
+                 tp: Optional[ModelParallel] = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -193,12 +272,24 @@ class VisionTransformer(nn.Module):
         self.dist_token = nn.Parameter(torch.zeros(1, 1, D)) if cfg.distilled else None
         self.pos_embed = nn.Parameter(
             torch.zeros(1, cfg.num_prefix_tokens + cfg.num_patches, D))
+        # the model axis: the blocks hold this rank's shards (load them with
+        # parallel.tensor.shard_state_dict or load_full_state_dict)
+        self.tp = tp if tp is not None and tp.active else None
+        self._check_tp()
         self.blocks = nn.ModuleList(
-            Block(D, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias, cfg.ln_eps)
+            Block(D, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias, cfg.ln_eps, self.tp)
             for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(D, eps=cfg.ln_eps)
         self.head = nn.Linear(D, cfg.num_classes)
         self.head_dist = nn.Linear(D, cfg.num_classes) if cfg.distilled else None
+        if self.tp is not None:
+            shard_parameters(self, cfg.num_heads, self.tp)
+
+    def _check_tp(self):
+        if self.tp is not None and (self.block_fn is not None
+                                    or self.block_pair_fn is not None):
+            raise ValueError("a model sharded over a model axis runs the unfused path: "
+                             "the fused block and pair take whole weight matrices")
 
     def drop_path_rates(self):
         """timm's linspace(0, rate, depth) ramp."""
@@ -238,6 +329,7 @@ class VisionTransformer(nn.Module):
         other = copy.copy(self)
         for name, value in overrides.items():
             setattr(other, name, value)
+        other._check_tp()
         return other
 
     def _collect(self, i: int, override) -> bool:

@@ -4,25 +4,34 @@ the forward GFLOPs and the inference throughput of the startup banner
 
 from __future__ import annotations
 
+import math
 import time
+
 import torch
 
 
 def count_params(model: torch.nn.Module) -> float:
-    """Parameters in millions."""
-    return sum(p.numel() for p in model.parameters()) / 1e6
+    """Parameters in millions: the whole model's, where a parameter is one
+    rank's shard over a model axis (``parallel.tensor.shard_parameters``)."""
+    def numel(p):
+        shard = getattr(p, "model_shard", None)
+        return p.numel() if shard is None else math.prod(shard.full_shape)
+
+    return sum(numel(p) for p in model.parameters()) / 1e6
 
 
 @torch.no_grad()
 def model_gflops(model, input_size: int) -> float:
-    """Forward GFLOPs per image, counted by ``FlopCounterMode`` on the model's
-    plain PyTorch path (the same parameters; a kernel launched through ctypes
-    is invisible to the counter)."""
+    """Forward GFLOPs per image, counted by ``FlopCounterMode`` on the plain
+    PyTorch path of a model of ``model``'s configuration on the meta device
+    (shapes alone: a kernel launched through ctypes is invisible to the
+    counter, and a model whose parameters are one rank's shards counts as
+    the whole model, with no collective)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    plain = model.view(attention_fn=None, mlp_fn=None, block_fn=None,
-                       block_pair_fn=None, collect_features=False)
-    x = torch.zeros(1, input_size, input_size, 3, device=model.pos_embed.device)
+    with torch.device("meta"):
+        plain = type(model)(model.cfg, dtype=model.dtype, collect_features=False)
+        x = torch.zeros(1, input_size, input_size, 3)
     counter = FlopCounterMode(display=False)
     with counter:
         plain(x, train=False)

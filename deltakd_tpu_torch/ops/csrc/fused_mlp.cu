@@ -403,13 +403,17 @@ int mlp_bwd(const void* x_, const void* w1_, const void* b1_, const void* w2_, c
 
 // x: [M, D] bf16; w1: [F, D], w2: [D, F] bf16 (nn.Linear layout); b1: [F],
 // b2: [D] fp32; out: [M, D] bf16; all 16-byte aligned. The plan (C, DN) of
-// `mlp_fwd_kernel` by width: the first of C DN = 384, 256, 192 that divides
-// D. Takes D up to MAX_D, a multiple of 192 or 256, and F a multiple of 128
-// (every plan's hidden chunk divides it). Returns cudaGetLastError() after
-// the launch, or -1, without a launch, for a width it does not take.
+// `mlp_fwd_kernel` by width: with F a multiple of 128, the first of C DN =
+// 384, 256, 192 that divides D; with F a multiple of 64 alone (a model
+// rank's shard of the hidden under tensor parallelism, such as DeiT-Ti's
+// 768 / 4), one warpgroup of 192 columns, whose hidden chunk is 64, in
+// D / 192 passes. Takes D up to MAX_D, a multiple of 192 or 256, and F a
+// multiple of 128, or of 64 where D is a multiple of 192. Returns
+// cudaGetLastError() after the launch, or -1, without a launch, for a width
+// it does not take.
 extern "C" int dk_fused_mlp_fwd(const void* x_, const void* w1_, const void* b1_, const void* w2_,
                                 const void* b2_, void* out_, int M, int D, int F, void* stream) {
-  if (M < 1 || D < 192 || D > MAX_D || F < 128 || F % 128 ||
+  if (M < 1 || D < 192 || D > MAX_D || F < 64 || F % 64 || (F % 128 && D % 192) ||
       ((uintptr_t)x_ | (uintptr_t)w1_ | (uintptr_t)w2_) % 16)
     return -1;
   const bf16 *x = (const bf16*)x_, *w1 = (const bf16*)w1_, *w2 = (const bf16*)w2_;
@@ -417,8 +421,9 @@ extern "C" int dk_fused_mlp_fwd(const void* x_, const void* w1_, const void* b1_
   bf16* out = (bf16*)out_;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e;
-  if (D % 384 == 0) e = launch_fwd<2, 192>(x, w1, b1, w2, b2, out, M, D, F, st);
-  else if (D % 256 == 0) e = launch_fwd<2, 128>(x, w1, b1, w2, b2, out, M, D, F, st);
+  if (F % 128 == 0 && D % 384 == 0) e = launch_fwd<2, 192>(x, w1, b1, w2, b2, out, M, D, F, st);
+  else if (F % 128 == 0 && D % 256 == 0)
+    e = launch_fwd<2, 128>(x, w1, b1, w2, b2, out, M, D, F, st);
   else if (D % 192 == 0) e = launch_fwd<1, 192>(x, w1, b1, w2, b2, out, M, D, F, st);
   else return -1;
   return e == cudaErrorInvalidValue ? -1 : (int)e;

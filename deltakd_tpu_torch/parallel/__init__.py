@@ -1,6 +1,8 @@
 from deltakd_tpu_torch.parallel.distributed import maybe_initialize_distributed, rank_device
-from deltakd_tpu_torch.parallel.mesh import (LOCAL, DataParallel, current, is_main_process,
-                                             make_mesh, rank, world)
+from deltakd_tpu_torch.parallel.mesh import (LOCAL, NO_MODEL, DataParallel, Mesh, ModelParallel,
+                                             current, is_main_process, make_mesh, mesh_shape,
+                                             param_spec, rank, world)
 
-__all__ = ["LOCAL", "DataParallel", "current", "is_main_process", "make_mesh",
-           "maybe_initialize_distributed", "rank", "rank_device", "world"]
+__all__ = ["LOCAL", "NO_MODEL", "DataParallel", "Mesh", "ModelParallel", "current",
+           "is_main_process", "make_mesh", "maybe_initialize_distributed", "mesh_shape",
+           "param_spec", "rank", "rank_device", "world"]

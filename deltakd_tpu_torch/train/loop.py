@@ -14,15 +14,20 @@ and reads once. Every draw of an epoch comes from generators seeded from
 (seed, epoch), and the loader's order from seed + epoch, so a resumed run
 repeats a straight one bit for bit.
 
-Under torchrun (``parallel.maybe_initialize_distributed``) each process
-trains its card's rows of the global batch (``--batch-size`` is per card):
-the loaders shard by rank (the RASampler with ``--repeated-aug``), the
-per-image draws come from a generator seeded from (seed, epoch, rank) and
-the global batch's draws from one seeded from (seed, epoch) on every rank;
-the parameters are broadcast from rank 0 after they are built or loaded;
-the epoch's metric sums and the validation sums are all-reduced at their
-one read; rank 0 alone logs and writes checkpoints; a SIGTERM on any rank
-stops every rank after the same epoch.
+Under torchrun (``parallel.maybe_initialize_distributed``) the ranks form
+the JAX package's (data, model) mesh of ``--mesh-shape`` (default: every
+rank on the data axis). Each data rank trains its rows of the global batch
+(``--batch-size`` is per data rank; the model axis does not multiply it):
+the loaders shard by data rank (the RASampler with ``--repeated-aug``), the
+per-image draws come from a generator seeded from (seed, epoch, data rank)
+and the global batch's draws from one seeded from (seed, epoch) on every
+rank, so the model ranks of one data row draw the same numbers; the models
+hold each model rank's shards (``models.factory.shard_model``); the
+parameters are broadcast from data rank 0 of each model column after they
+are built or loaded; the epoch's metric sums and the validation sums are
+all-reduced over the data group at their one read; global rank 0 alone logs
+and writes checkpoints (gathered over its model group first); a SIGTERM on
+any rank stops every rank after the same epoch.
 """
 
 from __future__ import annotations
@@ -180,7 +185,7 @@ def run(cfg) -> Dict[str, float]:
     """Full training entry (reference tools/train.py:215-367). Runs on the
     card unless ``cfg.device`` is 'cpu'; without a card it raises. Under
     torchrun, or in a process group that already exists, it runs one rank of
-    the data axis (on card ``LOCAL_RANK``)."""
+    the mesh of ``cfg.mesh_shape`` (on card ``LOCAL_RANK``)."""
     device = rank_device(resolve_device(cfg.device or "cuda"))
     stop = threading.Event()
     try:   # the handler only sets a flag; the loop saves and returns
@@ -201,42 +206,45 @@ def run(cfg) -> Dict[str, float]:
 
 
 def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
-    dp = current_dp()
-    make_mesh(cfg.mesh_shape, dp)   # the JAX package's check of --mesh-shape
+    mesh = make_mesh(cfg.mesh_shape, current_dp())   # with the JAX package's check
+    dp = mesh.data
     pin = cfg.pin_mem and device.type == "cuda"
     log_file = get_timestamped_log_file_path(cfg.log_file)
-    logger = setup_logger(log_file, is_main=dp.is_main)
+    logger = setup_logger(log_file, is_main=mesh.is_main)
     logger.info(f"Training started with {cfg.teacher_model} as teacher and "
                 f"{cfg.student_model} as student")
     logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                        if device.type == "cuda" else "")
-                + f"; data axis of {dp.world} rank(s)")
+                + f"; data axis of {dp.world} rank(s), model axis of {mesh.model.size}")
 
     teacher, student, aux = load_teacher_student(
         cfg, block_pair=os.environ.get("DELTAKD_PAIR") == "1", seed=cfg.seed,
-        device=device)
+        device=device, mesh=mesh)
     student_eval = eval_view(student)
 
-    # startup banner: params / FLOPs / inference throughput (train.py:230-241)
-    if dp.is_main:
-        params_m = count_params(student)
-        flops = model_gflops(student, cfg.input_size)
+    # startup banner: params / FLOPs / inference throughput (train.py:230-241):
+    # the whole student's counts; the throughput of the eval view, which the
+    # model ranks of data row 0 run together under a model axis
+    if dp.rank == 0:
         throughput = measure_throughput(student_eval, batch_size=min(cfg.batch_size, 64),
                                         input_size=cfg.input_size)
+    if mesh.is_main:
+        params_m = count_params(student)
+        flops = model_gflops(student, cfg.input_size)
         logger.info("Model Statistics:")
         logger.info(f"FLOPs: {flops:.2f}G")
         logger.info(f"Parameters: {params_m:.2f}M")
         logger.info(f"Throughput: {throughput:.2f} images/sec")
     wandb_run = WandbRun(enabled=cfg.wandb, project=cfg.wandb_project,
                          name=os.path.basename(log_file).replace(".log", ""), config=cfg,
-                         is_main=dp.is_main)
-    if dp.is_main:
+                         is_main=mesh.is_main)
+    if mesh.is_main:
         wandb_run.summary({"flops_G": flops, "params_M": params_m,
                            "throughput": throughput})
 
     # grad accumulation multiplies the train batch (the step splits it into
     # micro-batches); evaluation runs plain forwards at the batch size. Each
-    # rank loads its shard; the RASampler engages at world > 1.
+    # data rank loads its shard; the RASampler engages at a data axis > 1.
     train_loader = make_loader(cfg, build_source(cfg, is_train=True),
                                batch_size=cfg.batch_size * max(1, cfg.grad_accum_steps),
                                is_train=True, world=dp.world, rank=dp.rank,
@@ -252,7 +260,7 @@ def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
 
     start_epoch, best_val_acc = 0, 0.0
     if cfg.checkpoint:
-        dp.barrier()   # no rank reads a checkpoint before rank 0 has written it
+        mesh.barrier()   # no rank reads a checkpoint before rank 0 has written it
         if cfg.resume:
             state, start_epoch, best_val_acc = load_checkpoint(cfg.checkpoint, state)
             logger.info(f"Resumed from {cfg.checkpoint} at epoch {start_epoch}")
@@ -262,7 +270,8 @@ def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
                                       log=logger.info)
             if cfg.finetune:
                 logger.info(f"Finetuning from {cfg.checkpoint}")
-    # every rank starts from rank 0's parameters (what DDP's wrapper does)
+    # every data rank starts from data rank 0's parameters (what DDP's
+    # wrapper does); each model column broadcasts its own shards
     dp.broadcast(state.params)
     if state.ema_params is not None:
         dp.broadcast(state.ema_params)
@@ -290,7 +299,7 @@ def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
             cooldown=cfg.cooldown_epochs, min_lr=cfg.min_lr, base_lr=cfg.lr,
             initial_scale=plateau_scale)
 
-    if dp.is_main:
+    if mesh.is_main:
         os.makedirs(cfg.save_dir, exist_ok=True)
     val_metrics: Dict[str, float] = {}
     for epoch in range(start_epoch, cfg.epochs):
@@ -306,8 +315,8 @@ def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
                 state, train_step, train_loader, epoch, cfg, device=device,
                 generator=generator, batch_generator=batch_generator, pin=pin, dp=dp)
         if prof is not None:
-            trace_dir = cfg.profile_dir if not dp.active else os.path.join(
-                cfg.profile_dir, f"rank{dp.rank}")
+            trace_dir = cfg.profile_dir if mesh.world == 1 else os.path.join(
+                cfg.profile_dir, f"rank{mesh.rank}")
             os.makedirs(trace_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(trace_dir, f"trace_epoch{epoch}.json"))
         val_metrics = validate(eval_step, val_loader, cfg, device=device, pin=pin, dp=dp)
@@ -318,19 +327,20 @@ def _run(cfg, device: torch.device, stop: threading.Event) -> Dict[str, float]:
 
         current = val_metrics.get("val_acc1", 0.0)
         if plateau is not None:
-            # val_acc1 is the ranks' all-reduced sum, so every rank sets the
-            # same scale
+            # val_acc1 is the data ranks' all-reduced sum, so every rank sets
+            # the same scale
             plateau_scale = plateau.epoch_end(current)
             logger.info(f"plateau scheduler: lr scale {plateau_scale:.6f}")
         if plateau is not None or cfg.lr_noise:
             set_lr_scale(state.opt_state, plateau_scale)
         is_best = current > best_val_acc
         best_val_acc = max(best_val_acc, current)
-        if dp.is_main:
+        if dp.rank == 0:   # data row 0 gathers its shards; global rank 0 writes
             save_checkpoint(os.path.join(cfg.save_dir, "checkpoint"), state,
-                            epoch=epoch + 1, best_acc=best_val_acc, is_best=is_best)
-        dp.barrier()
-        if dp.any_rank(stop.is_set(), device):   # every rank stops after the same epoch
+                            epoch=epoch + 1, best_acc=best_val_acc, is_best=is_best,
+                            write=mesh.is_main)
+        mesh.barrier()
+        if mesh.any_rank(stop.is_set(), device):   # every rank stops after the same epoch
             logger.info(f"SIGTERM received — checkpoint saved at epoch {epoch + 1}, "
                         f"exiting for resume")
             break

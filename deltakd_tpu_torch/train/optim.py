@@ -21,7 +21,9 @@
 Every optimizer runs over ONE flat fp32 vector holding every trainable
 parameter (``train/state.py`` makes the parameters views into it), as a
 handful of element passes instead of a few per tensor, and updates it in
-place.
+place. Under tensor parallelism the vector holds this rank's shards and the
+replicated tensors; the update is elementwise, so only the clip's global
+norm reaches across the model group.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from deltakd_tpu_torch.parallel.tensor import FlatShards
 
 NO_DECAY_NAMES = ("bias", "pos_embed", "cls_token", "dist_token", "saliency_attn")
 
@@ -215,19 +219,24 @@ def _decay_mask(named_params) -> torch.Tensor:
                       for n, p in named_params])
 
 
-def global_norm(g: torch.Tensor) -> torch.Tensor:
+def global_norm(g: torch.Tensor, shards: Optional[FlatShards] = None) -> torch.Tensor:
     """The global norm of the flat vector as an fp32 scalar, summed in fp64:
     PyTorch's fp32 norm on the CPU drifts with the length (1.4e-4 relative
     over 5.6M values) where the card's does not, and the clip scales every
-    value by it."""
-    return torch.linalg.vector_norm(g, dtype=torch.float64).float()
+    value by it. With ``shards`` (a vector that holds this rank's shards over
+    a model axis) the norm of the full vector: the shards' squares summed
+    over the model group, the replicated tensors' counted once."""
+    if shards is None:
+        return torch.linalg.vector_norm(g, dtype=torch.float64).float()
+    return shards.square_sum(g).sqrt().float()
 
 
-def _clip(g: torch.Tensor, clip_norm: Optional[float]) -> torch.Tensor:
+def _clip(g: torch.Tensor, clip_norm: Optional[float],
+          shards: Optional[FlatShards] = None) -> torch.Tensor:
     """Clipping by the global norm of the flat vector."""
     if clip_norm is None:
         return g
-    gnorm = global_norm(g)
+    gnorm = global_norm(g, shards)
     return g * (clip_norm / torch.clamp(gnorm, min=clip_norm))
 
 
@@ -249,6 +258,7 @@ class FusedClippedAdamW:
         self.lr_scale = lr_scale
         self.kind = kind
         self.mask = _decay_mask(named_params)
+        self.shards = FlatShards.of(named_params)
 
     def init(self, flat_params: torch.Tensor) -> FusedAdamWState:
         return FusedAdamWState(0, torch.zeros_like(flat_params),
@@ -259,7 +269,7 @@ class FusedClippedAdamW:
                params: torch.Tensor) -> None:
         """Applies one step IN PLACE: ``params`` and the moments in ``state``
         are overwritten (the JAX version returns new arrays instead)."""
-        g = _clip(grads.float(), self.clip_norm)
+        g = _clip(grads.float(), self.clip_norm, self.shards)
         lr = _scaled(self.learning_rate(state.count), state)
         state.count += 1
         state.mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
@@ -291,13 +301,15 @@ class Sgd:
         self.clip_norm = clip_norm
         self.lr_scale = lr_scale
         self.mask = _decay_mask(named_params)
+        self.shards = FlatShards.of(named_params)
 
     def init(self, flat_params: torch.Tensor) -> TraceState:
         return TraceState(0, torch.zeros_like(flat_params), 1.0 if self.lr_scale else None)
 
     def update(self, grads: torch.Tensor, state: TraceState, params: torch.Tensor) -> None:
         """One step IN PLACE on ``params`` and the trace."""
-        g = _clip(grads.float(), self.clip_norm) + self.weight_decay * self.mask * params
+        g = _clip(grads.float(), self.clip_norm, self.shards)
+        g = g + self.weight_decay * self.mask * params
         step_lr = _scaled(self.learning_rate(state.count), state)
         state.count += 1
         state.trace.mul_(self.momentum).add_(g)

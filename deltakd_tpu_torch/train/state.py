@@ -6,6 +6,9 @@ the optimizer has one) and an optional EMA copy.
 ``TrainState`` rebinds every trainable parameter of the student (and of the
 aux heads, when a KD objective has any) to a view into ``params``, so the
 module computes with the vector that the fused optimizer updates in place.
+Under tensor parallelism the student's parameters are this rank's shards,
+so the vector, the optimizer's buffers and the EMA hold them, and
+``shards`` (``parallel.tensor.FlatShards``) maps them to the full layout.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+
+from deltakd_tpu_torch.parallel.tensor import FlatShards
 
 
 def trainable_parameters(student: nn.Module, aux: Optional[nn.Module] = None
@@ -37,6 +42,7 @@ class TrainState:
             n = p.numel()
             p.data = self.params[offset:offset + n].view_as(p)
             offset += n
+        self.shards = FlatShards.of(self.named_params)   # None without a model axis
         self.step = 0
         self.opt_state = tx.init(self.params)
         self.ema_params = self.params.clone() if ema_decay else None

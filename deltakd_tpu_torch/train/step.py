@@ -18,7 +18,12 @@ DiffKD's batch-coupled terms are all-reduced, and after the micro-batches
 one all-reduce of the flat gradient vector divided by the world size makes
 every rank's update the global batch's (the psum of the JAX kernels'
 partitioning rules). The teacher stays a replica on each rank; the metrics
-stay per rank and are reduced where they are read.
+stay per rank and are reduced where they are read. Under tensor
+parallelism ``dp`` is the data axis, the ranks of this rank's model column:
+the model ranks of one data row hold the same rows and draw the same
+numbers, the models' shards reduce over the model group inside the
+forward and backward (``parallel/tensor.py``), and the flat gradient holds
+this rank's shards.
 """
 
 from __future__ import annotations
@@ -62,7 +67,8 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
     each pinned draw needs ``grad_accum_steps == 1``. ``epoch`` (a Python
     int) picks CurKD's phase. Metrics are 0-d tensors on the device.
     ``dp`` is the data axis (default: the current process group, see
-    ``parallel.current``); ``batch_generator`` defaults to ``generator``.
+    ``parallel.current``; under a model axis ``make_mesh(...).data``);
+    ``batch_generator`` defaults to ``generator``.
     """
     dp = dp or current()
     needs_teacher = kd.distillation_type != "none"
@@ -147,7 +153,7 @@ def build_train_step(*, cfg, kd: KDSettings, student, teacher,
             with torch.profiler.record_function("gradient all-reduce"):
                 grads = dp.all_reduce(grads) / dp.world
         metrics = {k: v / accum for k, v in m_sum.items()}
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = global_norm(grads, state.shards)
         state.apply_gradients(grads=grads, tx=tx, ema_decay=ema_decay)
         return metrics
 

@@ -106,7 +106,8 @@ def test_recipe_copies_parse_to_the_same_config(tmp_path, recipe):
 
 def test_recipe_copies_differ_only_in_the_train_line():
     """Every recipe is its JAX copy; ``_common.sh`` differs in its comments and
-    in the launch: the port's module, and torchrun when $1 gives a card count."""
+    in the launch: the port's module, and torchrun when $1 gives a mesh ("N"
+    or "D M": as many processes as the product)."""
     names = sorted(os.listdir(os.path.join(ROOT, "exp")))
     assert sorted(os.listdir(os.path.join(ROOT, "deltakd_tpu_torch", "exp"))) == names
     assert len(RECIPES) == 14
@@ -121,8 +122,8 @@ def test_recipe_copies_differ_only_in_the_train_line():
             assert a[-1] == 'TRAIN="python -m deltakd_tpu.cli.train"'
             assert b[-2:] == [
                 'TRAIN="python -m deltakd_tpu_torch.cli.train"',
-                'if [[ -n "$1" ]]; then TRAIN="torchrun --standalone --nproc_per_node $1 '
-                '-m deltakd_tpu_torch.cli.train"; fi']
+                'if [[ -n "$1" ]]; then TRAIN="torchrun --standalone --nproc_per_node '
+                '$((${1// /*})) -m deltakd_tpu_torch.cli.train"; fi']
         else:
             assert a == b, name
 

@@ -388,11 +388,11 @@ def test_attention_kernels_match_plain_version_on_card(shape):
         at.kernel_flash_bwd(long, long, long, long, long[..., 0].float(), long)
 
 
-def _mlp_operands(M, D):
+def _mlp_operands(M, D, F=None):
     """x and dy in bf16, fp32 weights and biases (the model's parameters, as
-    the model passes them), on the card."""
+    the model passes them), on the card; F = 4 D by default."""
     g = torch.Generator().manual_seed(M)
-    F = 4 * D
+    F = F or 4 * D
     x, dy = (torch.randn(M, D, generator=g).cuda().bfloat16() for _ in range(2))
     w1 = (torch.randn(F, D, generator=g) / D ** 0.5).cuda()
     w2 = (torch.randn(D, F, generator=g) / F ** 0.5).cuda()
@@ -440,6 +440,24 @@ def test_mlp_kernels_match_plain_version_on_card(M, D):
     assert torch.cuda.max_memory_allocated() - before <= M * D * 2 + 4 * (F + D) + 2048
     assert torch.cuda.max_memory_allocated() - before < M * F * 2
     assert torch.equal(out_lp, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [37, 1000])
+@pytest.mark.parametrize("D,F", [(192, 192), (192, 64), (384, 192), (384, 320), (768, 192)])
+def test_mlp_forward_at_the_shard_widths_on_card(M, D, F):
+    """A model rank's hidden shard of F = 4D under tensor parallelism, F a
+    multiple of 64 but not of 128 (DeiT-Ti at a model axis of 4 and 12,
+    DeiT-S at 8, DeiT-B at 16), or F = 320: one warpgroup's plan in D / 192
+    passes, against the plain version; two runs the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    x, w1, b1, w2, b2, _ = _mlp_operands(M, D, F)
+    fm.reset_launches()
+    out = fm.kernel_fused_mlp(x, w1, b1, w2, b2)
+    assert fm.LAUNCHES == {("fused_mlp_fwd", D): 1}
+    _within(out, fm._plain_fwd(x, w1, b1, w2, b2))
+    assert torch.equal(out, fm.kernel_fused_mlp(x, w1, b1, w2, b2))
 
 
 @pytest.mark.cuda

@@ -289,8 +289,12 @@ def test_epoch_generators_split_per_image_and_global_draws(ranks):
 
 
 def test_subset_ops_follow_the_rank_count(ranks):
+    """Two ranks with ``mesh_shape`` None split the batch: no subset ops. With
+    a mesh shape they follow its data axis, as JAX's
+    ``_mesh_is_single_data_shard``: (1, 2) over the two ranks splits nothing."""
     got, _, _ = ranks
     assert not any(g["generators"]["aug"] for g in got)
+    assert all(g["generators"]["aug_model_axis"] for g in got)
     assert ta.AugmentConfig.from_config(TrainConfig(dataset="cifar-100")).subset_ops
 
 
@@ -395,15 +399,19 @@ def test_world_one_group_gives_the_plain_run(ranks):
 
 def test_make_mesh_checks_the_shape_against_the_ranks():
     two = parallel.DataParallel(world=2, rank=1)
-    assert parallel.make_mesh((2,), two) == (2, 1)
-    assert parallel.make_mesh(None, two) == (2, 1)
+    assert parallel.make_mesh((2,), two).shape == (2, 1)
+    assert parallel.make_mesh((2,), two).data == two      # the default group
+    assert parallel.make_mesh(None, two).shape == (2, 1)
     with pytest.raises(ValueError):
         parallel.make_mesh((4,), two)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        parallel.make_mesh((1, 2), two)
+    # a model axis over the ranks: the shape check (make_mesh then creates the
+    # groups, which needs a process group)
+    assert parallel.mesh_shape((1, 2), two.world) == (1, 2)
+    with pytest.raises(ValueError):
+        parallel.mesh_shape((2, 2), two.world)
     # one rank: the shape only picks the model path
-    assert parallel.make_mesh((1, 2), parallel.LOCAL) == (1, 2)
-    assert parallel.make_mesh((4,), parallel.LOCAL) == (4, 1)
+    assert parallel.make_mesh((1, 2), parallel.LOCAL).shape == (1, 2)
+    assert parallel.make_mesh((4,), parallel.LOCAL).shape == (4, 1)
     assert two.partner == 0 and parallel.DataParallel(world=3, rank=1).partner == 1
 
 

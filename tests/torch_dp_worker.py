@@ -105,7 +105,9 @@ def generators_task(dp):
     per_image, batch = loop.epoch_generators(7, 3, torch.device("cpu"), dp)
     return {"per_image": torch.rand(8, generator=per_image),
             "batch": torch.rand(8, generator=batch),
-            "aug": AugmentConfig.from_config(TrainConfig(dataset="cifar-100")).subset_ops}
+            "aug": AugmentConfig.from_config(TrainConfig(dataset="cifar-100")).subset_ops,
+            "aug_model_axis": AugmentConfig.from_config(
+                TrainConfig(dataset="cifar-100", mesh_shape=(1, 2))).subset_ops}
 
 
 def validate_task(t, dp):
@@ -164,7 +166,8 @@ def run_task(tmp, dp):
         "--output", os.path.join(tmp, "eval.json")])
     return {"straight": straight, "resumed": resumed, "eval": test,
             "loaders": rec.loaders, "saves": rec.saves,
-            "stop": dp.any_rank(dp.rank == dp.world - 1, torch.device("cpu"))}
+            "stop": parallel.make_mesh(None, dp).any_rank(dp.rank == dp.world - 1,
+                                                          torch.device("cpu"))}
 
 
 def world_one_task(tmp, port):
