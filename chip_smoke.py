@@ -362,8 +362,9 @@ BLOCK_KERNELS = ("linear_kernel", "weight_grad_kernel", "attention_fwd_kernel",
                  "ln_bwd_kernel", "gfeat_kernel", "reduce_chunks_kernel",
                  "reduce_partials_kernel", "transpose_kernel", "colsum_kernel",
                  # the fp32 forms' own kernels
-                 "attention_fwd_f32_kernel", "attention_bwd_dkdv_f32_kernel",
-                 "attention_bwd_dq_f32_kernel", "tf32_copy_kernel")
+                 "attention_fwd_f32_kernel", "weight_grad_f32_kernel",
+                 "attention_bwd_pack_f32_kernel", "attention_bwd_f32_kernel",
+                 "attention_bwd_reduce_f32_kernel")
 
 
 def _timed(fn, iters, warmup=3):
@@ -4078,6 +4079,88 @@ def _hold_mlp_f32(fm, worst, M, D, seed, main=False):
               f"M={M} D={D}", [("o", out, out16, ref)], torch.equal(out, again))
 
 
+def check_fp32_weight_grads(fb, worst, timed=False):
+    """Phase 13a: the fp32 weight gradient alone (fb.kernel_weight_grad on
+    fp32 G and X, dk_weight_grad_sm90_f32) at the backward's four products,
+    D = 192 and 384, M = 1001 (ragged against the 128-row tile and the
+    32-row k-blocks) and M = 50688, against the plain fp32 product (TF32
+    off), beside the bf16 kernel on G and X rounded to bf16; two runs the
+    same bits. With ``timed``, each at M = 50688 beside the bf16 kernel and
+    one torch.matmul with TF32 allowed. Returns {(name, D): (fp32 ms, bf16
+    ms, TF32 matmul ms)}."""
+    import torch
+
+    rows = {}
+    for D in (192, 384):
+        for name, o_mult, i_mult in BACKWARD_PRODUCTS:
+            O, I = o_mult * D, i_mult * D
+            for M in (1001, M_MAIN):
+                g = torch.Generator(device="cuda").manual_seed(D + M + O + 1)
+                G = torch.randn(M, O, generator=g, device="cuda")
+                X = torch.randn(M, I, generator=g, device="cuda")
+                dw, again = fb.kernel_weight_grad(G, X), fb.kernel_weight_grad(G, X)
+                dw16 = fb.kernel_weight_grad(G.bfloat16(), X.bfloat16())
+                ref = fb.plain_weight_grad(G, X, torch.float32)
+                torch.cuda.synchronize()
+                _hold_f32(worst, "weight_grad_sm90_f32", f"{name} D={D} M={M}",
+                          [("dW", dw, dw16, ref)], torch.equal(dw, again))
+            if timed:
+                G16, X16 = G.bfloat16(), X.bfloat16()
+                rows[(name, D)] = (_timed(lambda: fb.kernel_weight_grad(G, X), 20),
+                                   _timed(lambda: fb.kernel_weight_grad(G16, X16), 20),
+                                   _with_tf32(lambda: _timed(lambda: torch.matmul(G.t(), X), 20)))
+                print(f"[gemm fp32] wgrad {name} D={D} [{O}x{M}]x[{M}x{I}]: "
+                      f"{rows[(name, D)][0]:.4f} ms; bf16 kernel {rows[(name, D)][1]:.4f} ms; "
+                      f"torch.matmul (TF32 allowed) {rows[(name, D)][2]:.4f} ms")
+    return rows
+
+
+# Workspace bytes of the fp32 backwards at the main shapes ([256, 198, 192];
+# the MLP's [50688, 192]) in the design whose weight gradients transposed G
+# and X through the workspace (G^T and X^T of the widest one, 311,427,072
+# bytes at these shapes), from that design's carve, and of its widest
+# weight gradient's row-range partials.
+F32_BWD_WORKSPACE_BEFORE = {"fused_block_bwd_f32": 1_492_733_952,
+                            "fused_pair_bwd_f32": 2_233_387_008,
+                            "fused_mlp_bwd_f32": 789_811_200}
+F32_WGRAD_PARTIAL_BEFORE = 8_847_360
+
+
+def print_fp32_backward_workspace(fb, fm, at):
+    """The fp32 block, pair and MLP backwards' workspace at the main shapes
+    beside F32_BWD_WORKSPACE_BEFORE: fails unless each is below it and the
+    difference is the transposed G and X it no longer carves, less the
+    larger row-range partials of the shorter fp32 ranges and, for the block
+    and the pair, less what the attention backward's workspace adds to the
+    slice it shares with dhpre."""
+    D, H, N, B = 192, 3, N_TOK, B_MAIN
+    F, M = 4 * D, B * N
+
+    def r256(n):
+        return (n + 255) // 256 * 256
+
+    gt_xt = 2 * r256(F * ((M + 3) // 4 * 4) * 4)
+    attn = at._library().dk_flash_bwd_f32_workspace(B, H, N)
+    grown = max(r256(attn), r256(M * F * 4)) - r256(M * F * 4)
+    lib = fb._library("fused_block_bwd")
+    partial = r256(max(lib.dk_weight_grad_sm90_f32_workspace(M, o * D, i * D)
+                       for _, o, i in BACKWARD_PRODUCTS))
+    now = {name: fb.workspace_bytes(name, (B, N, D), H, F)
+           for name in ("fused_block_bwd_f32", "fused_pair_bwd_f32")}
+    now["fused_mlp_bwd_f32"] = fm.workspace_bytes(M, D, F, "fused_mlp_bwd_f32")
+    for name, before in F32_BWD_WORKSPACE_BEFORE.items():
+        added = partial - F32_WGRAD_PARTIAL_BEFORE + (0 if "mlp" in name else grown)
+        want = before - gt_xt + added
+        print(f"[workspace fp32] {name}: {now[name]} bytes, before {before}, "
+              f"{before - now[name]} less; G^T and X^T ({gt_xt}) gone, the weight-gradient "
+              f"partials {partial} (before {F32_WGRAD_PARTIAL_BEFORE})"
+              + ("" if "mlp" in name else f", the attention backward's workspace {attn} in "
+                 f"dhpre's slice ({grown} more)"))
+        if now[name] != want or now[name] >= before:
+            raise AssertionError(f"{name}: the workspace is {now[name]} bytes, not {want}, or "
+                                 f"not below {before}")
+
+
 def check_fp32_mlp(fm, worst, seeds=1):
     """Phase 13a: the fp32 MLP forward at every width of the model zoo at 8
     images' rows and an odd M, each on ``seeds`` input draws."""
@@ -4901,10 +4984,35 @@ FAULTS = (
        "    wgmma_ss_tf32(d, da, db_lo, acc);"),), "--fp32-checks"),
     # the columns of every transposed tile in their natural order, where the
     # A fragments from registers want them in tf32_key_slot order
-    ("a wrong transpose of a tile (V^T, K^T, Q^T, dO^T)",
+    ("a wrong transpose of a tile (V^T of the forward, K^T of the backward)",
      "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
      (("    const int col = (r & ~7) | tf32_key_slot(r & 7);", "    const int col = r;"),),
      "--fp32-checks"),
+    # the fp32 weight gradient (gemm_sm90.cuh weight_grad_f32_kernel): G^T's
+    # lo part left out (2xTF32, a single TF32 rounding of every G)
+    ("the lo part of G^T left out of the fp32 weight gradient",
+     "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
+     (("          wgmma_rs_tf32(acc, a_lo[k], d_hi + 2 * k, kb > kb0 || k > 0);\n"
+       "          wgmma_rs_tf32(acc, a_hi[k], d_lo + 2 * k, 1);",
+       "          wgmma_rs_tf32(acc, a_hi[k], d_lo + 2 * k, kb > kb0 || k > 0);"),),
+     "--fp32-checks"),
+    # ... its on-chip X^T: row m = 8 of each k-block also lands in the k slot
+    # of m = 9, whose own row is lost
+    ("one row of the X tile written to a wrong k slot of the fp32 weight gradient's X^T",
+     "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
+     (("x[n][u] = *reinterpret_cast<const float*>(xbox + box32_offset(8 * k + 2 * u + h, lane));",
+       "x[n][u] = *reinterpret_cast<const float*>(xbox + box32_offset("
+       "8 * k + 2 * u + h == 9 ? 8 : 8 * k + 2 * u + h, lane));"),), "--fp32-checks"),
+    # the fp32 attention backward's prologue reads head 1's Q^T from head 0
+    ("one head's Q^T from its neighbour in the fp32 attention backward's prologue",
+     "deltakd_tpu_torch/ops/csrc/attention_bwd.cuh",
+     (("  const float* qh = p.q + b * p.q_sb + h * p.q_sh;\n"
+       "  const float* dh = p.dout + b * p.d_sb + h * p.d_sh;\n"
+       "  for (int e = threadIdx.x;",
+       "  const int src = bh == 1 ? 0 : bh;\n"
+       "  const float* qh = p.q + (src / p.H) * p.q_sb + (src % p.H) * p.q_sh;\n"
+       "  const float* dh = p.dout + b * p.d_sb + h * p.d_sh;\n"
+       "  for (int e = threadIdx.x;"),), "--fp32-checks"),
     ("GELU left out of the fp32 MLP forward's fc1", "deltakd_tpu_torch/ops/csrc/fused_mlp.cu",
      (("f1.bias = (const float*)b1_; f1.gelu = 1;", "f1.bias = (const float*)b1_; f1.gelu = 0;"),),
      "--fp32-checks"),
@@ -5074,6 +5182,7 @@ def main() -> int:
     if fp32_checks:      # a planted-fault copy: the fp32 forms' checks at B=8 only
         seeds = int(sys.argv[sys.argv.index("--seeds") + 1]) if "--seeds" in sys.argv else 1
         check_fp32_blocks(fb, worst, seeds)
+        check_fp32_weight_grads(fb, worst)
         check_fp32_mlp(fm, worst, seeds)
         check_fp32_attention(at, worst)
         check_fp32_mlp_backward(fm, worst, seeds)
@@ -5206,6 +5315,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     check_fp32_blocks(fb, worst)
+    check_fp32_weight_grads(fb, worst)
+    print_fp32_backward_workspace(fb, fm, at)
     check_fp32_mlp(fm, worst)
     check_fp32_attention(at, worst)
     timing.update(time_fp32_kernels(fb, at, fm, worst, smi))

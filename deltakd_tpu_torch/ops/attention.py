@@ -177,11 +177,14 @@ def kernel_flash_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, t
     with torch.cuda.device(q.device):
         dq, dk, dv = (torch.empty((B, H, N, _HEAD_DIM), dtype=q.dtype, device=q.device)
                       for _ in range(3))
+        # the fp32 form's workspace: Q^T, dO^T, the dQ partials of its key tiles
+        work = ((torch.empty(lib.dk_flash_bwd_f32_workspace(B, H, N), dtype=torch.uint8,
+                             device=q.device),) if name == "flash_bwd_f32" else ())
         err = getattr(lib, f"dk_{name}")(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), do4.data_ptr(),
             *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3], *do4.stride()[:3],
             o4.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, N, current_stream(q))
+            B, H, N, *(w.data_ptr() for w in work), current_stream(q))
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[(name, B * H)] += 1

@@ -39,8 +39,8 @@
 // kernels run at their inputs' dtype) run every product on TF32 wgmma in
 // 3xTF32 (each operand as a high and a low TF32 part, three products) and
 // round nothing to bf16: o, lse, dq, dk, dv fp32 (the fp32 forms in
-// attention_fwd.cuh and attention_bwd.cuh; the backward is two kernels
-// there). Inputs are addressed
+// attention_fwd.cuh and attention_bwd.cuh; the fp32 backward is three
+// kernels there, with a workspace the caller passes). Inputs are addressed
 // through (batch, head, row) strides with a contiguous head dim, so the
 // [B, N, 3, H, 64] views of a packed qkv projection are read in place.
 
@@ -129,12 +129,20 @@ extern "C" int dk_flash_fwd_f32(const void* q, const void* k, const void* v, lon
   return (int)dk::attention_fwd(a, HD, (cudaStream_t)stream);
 }
 
+// Bytes of dk_flash_bwd_f32's workspace (attention_bwd.cuh
+// `attention_bwd_f32_workspace`).
+extern "C" size_t dk_flash_bwd_f32_workspace(int B, int H, int N) {
+  return dk::attention_bwd_f32_workspace(B, H, N);
+}
+
+// The fp32 backward takes its workspace, of the bytes above, before the
+// stream.
 extern "C" int dk_flash_bwd_f32(const void* q, const void* k, const void* v, const void* dO,
                                 long long q_sb, long long q_sh, long long q_sn, long long k_sb,
                                 long long k_sh, long long k_sn, long long v_sb, long long v_sh,
                                 long long v_sn, long long g_sb, long long g_sh, long long g_sn,
                                 const void* o, const void* lse, void* dq, void* dk, void* dv,
-                                int B, int H, int N, void* stream) {
+                                int B, int H, int N, void* work, void* stream) {
   if (B < 1 || H < 1 || N < 1 || N > dk_flash_max_n()) return -1;
   const long long sb = (long long)H * N * HD, sh = (long long)N * HD;
   dk::AttnBwdArgsT<float> a = {};
@@ -150,5 +158,5 @@ extern "C" int dk_flash_bwd_f32(const void* q, const void* k, const void* v, con
   a.colsum = nullptr;
   a.scale = a.dq_scale = 1.0f / sqrtf((float)HD);   // 2^-3
   a.B = B; a.H = H; a.N = N;
-  return (int)dk::attention_bwd(a, HD, (cudaStream_t)stream);
+  return (int)dk::attention_bwd(a, HD, (float*)work, (cudaStream_t)stream);
 }

@@ -400,40 +400,83 @@ inline cudaError_t attention_bwd(const AttnBwdArgs& p, int hd, cudaStream_t st) 
 //
 // The math is the bf16 form's, every product in 3xTF32 as attention_fwd.cuh's
 // fp32 form computes it (each operand split into hi and lo TF32 parts, three
-// wgmmas a product). TF32 wgmma takes no transpose, and three of the five
-// products read a tile transposed (dV += P^T dO, dK += dS^T Q and dQ = dS K),
-// so the threads write Q^T, dO^T and K^T from registers
-// (`load_tile_f32_t`, their columns in tf32_key_slot order, so that P^T,
-// dS^T and dS are the A fragments as the accumulators hold them). An fp32
-// split tile is 32 KB, and one CTA cannot also hold dQ of all N rows, so
-// the backward is two kernels:
-//   attention_bwd_dkdv_f32_kernel: one CTA per (batch, head) walks the key
-//     tiles, keeps dK and dV of the tile in registers and loops over the
-//     query tiles: S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and
-//     dK += dS^T Q from registers against dO^T and Q^T. Shared memory: K,
-//     V, Q, dO, Q^T, dO^T (split) and delta of all rows, 197 KB at N = 198;
-//   attention_bwd_dq_f32_kernel: one CTA per (batch, head) walks the query
-//     tiles, keeps dQ of the tile in registers and loops over the key tiles:
-//     S = Q K^T, dP = dO V^T, then dQ += dS K against K^T. Shared memory:
-//     Q, dO, K, V, K^T (split), 162 KB.
-// The second recomputes S and dP (seven products of N x N x 64 where the bf16
-// form has five). Each sum runs in a fixed order inside one CTA: no atomics,
-// two runs give the same bits, and no shared memory grows with N but delta.
-// Nothing is rounded to bf16: P, dS, delta, lse and the gradients are fp32.
+// wgmmas a product). Nothing is rounded to bf16: P, dS, delta, lse and the
+// gradients are fp32. TF32 wgmma takes no transpose and its B operand (and a
+// shared-memory A) is K-major, so the orientation of each product is chosen
+// for the operand it can read as it lies:
+//   S = Q K^T and dP = dO V^T     A = the Q and dO tiles, B = K and V, all
+//                                 as they lie (query rows in the accumulators);
+//   dQ_i = dS K                   A = dS's hi and lo parts read back from
+//                                 dS^T (below) as fragments, B = K^T of the
+//                                 key tile;
+//   dV^T += dO^T P^T, dK^T += Q^T dS^T
+//                                 A = dO^T and Q^T from registers, B = P^T
+//                                 and dS^T, which the threads store from
+//                                 their accumulators into tiles of their own
+//                                 (rows keys, columns queries).
+// Five products of N x N x 64 a (key tile, query tile) pair, as the bf16 form
+// has. Every transposed input tile is made once per head and call: K^T once
+// by the CTA that owns the key tile (load_tile_f32_t), Q^T and dO^T of each
+// head once, by a prologue kernel, into the workspace ([B*H][64][N padded to
+// 64]), from which each pair's A fragments are read as they lie (float2 of
+// two neighbouring queries; the columns of a k-step hold its queries in
+// tf32_key_slot order, so that they are P^T's and dS^T's columns as the
+// threads store them).
+// Three kernels:
+//   attention_bwd_pack_f32_kernel: Q^T and dO^T of one 64-row tile of one
+//     head into the workspace, and (flash, which passes no delta) delta =
+//     rowsum(dO * O) of its rows;
+//   attention_bwd_f32_kernel: one CTA per (batch, head, key tile), which
+//     keeps dK^T and dV^T of its 64 keys in registers and walks the query
+//     tiles in order. Its two warpgroups split each pair's products:
+//     warpgroup 0 S, P^T, dV^T and dQ_i, warpgroup 1 dP, dS^T and dK^T,
+//     handing P^T and dS^T to each other through named barriers, so that
+//     one's products run under the other's exponentials and stores. Each
+//     pair's dQ_i share goes to the workspace as an fp32 partial of its key
+//     tile. The next query tile's Q and dO land by cp.async under the rest
+//     of the pair, and each product's A fragments from device memory under
+//     the product before. Shared memory: Q, dO, K, V, K^T, P^T, dS^T as
+//     split tiles, 7 x 32 KB + alignment = 230,400 bytes: one CTA (256
+//     threads) an SM, B*H x N64 / 64 CTAs (3,072 at the main shape);
+//   attention_bwd_reduce_f32_kernel: one CTA per (batch, head) adds the dQ
+//     partials in key-tile order (times dq_scale) and, with `colsum`, sums dq
+//     over the rows and the key tiles' column sums of dk and dv in order.
+// Each sum runs in a fixed order: no atomics, two runs give the same bits.
+// What bounds it on an H100: the five products, 3xTF32 on the TF32 tensor
+// cores (3 x 5 x 2 N^2 64 operations a head against 7 N 64 fp32 values in
+// and out, some 200 a byte at N = 198, above the card's ~150 for TF32);
+// above that, each warpgroup's serial chain of products (three, two) and
+// the padding of N to 64-row tiles.
+// Workspace (`attention_bwd_f32_workspace`), fp32: Q^T and dO^T (2 x B*H x
+// 64 x N64, N64 = N rounded up to 64), the dQ partials (N64 / 64 x B*H x N x
+// 64), the key tiles' column sums of dk and dv (B*H x N64 / 64 x 2 x 64) and
+// delta (B*H x N64).
 
 namespace attn32 {
-// K, V, Q, dO, Q^T, dO^T (split tiles); lse of a query tile, delta of all
-// rows, the column sums of dk and dv and one 64-column partial per warp
-inline size_t dkdv_smem_bytes(int N) {
-  const int tiles = (N + attn::T - 1) / attn::T;
-  return 6 * SPLIT * sizeof(float) + attn::T * sizeof(float) +
-         (size_t)tiles * attn::T * sizeof(float) + (2 + 4) * 64 * sizeof(float) + 1024;
-}
-// Q, dO, K, V, K^T (split tiles); lse and delta of the query tile, the
-// column sums of dq and one 64-column partial per warp
-constexpr size_t DQ_SMEM_BYTES =
-    5 * SPLIT * sizeof(float) + 2 * attn::T * sizeof(float) + (1 + 4) * 64 * sizeof(float) + 1024;
+// Q, dO, K, V, K^T, P^T, dS^T (split tiles)
+constexpr size_t BWD_SMEM_BYTES = 7 * SPLIT * sizeof(float) + 1024;
 }  // namespace attn32
+
+// The fp32 backward's workspace for B*H heads of N rows: its parts' floats
+// and their offsets.
+struct AttnBwdWork {
+  long long bh, tiles, np;   // heads, 64-row tiles, N rounded up to 64
+  long long qt_len() const { return bh * 64 * np; }            // Q^T and dO^T each
+  long long dq_len(int N) const { return tiles * bh * N * 64; }  // [key tile][bh][N][64]
+  long long col_len() const { return bh * tiles * 2 * 64; }     // [bh][key tile][dk, dv][64]
+  long long delta_len() const { return bh * np; }                // [bh][np]
+};
+
+inline AttnBwdWork attn_bwd_work(int B, int H, int N) {
+  const long long tiles = (N + attn::T - 1) / attn::T;
+  return AttnBwdWork{(long long)B * H, tiles, tiles * attn::T};
+}
+
+// Bytes of the fp32 attention backward's workspace.
+inline size_t attention_bwd_f32_workspace(int B, int H, int N) {
+  const AttnBwdWork w = attn_bwd_work(B, H, N);
+  return (size_t)(2 * w.qt_len() + w.dq_len(N) + w.col_len() + w.delta_len()) * sizeof(float);
+}
 
 // delta = rowsum(dO * O) of rows [r0, r0 + count) of one head into
 // out[0, count), 0 past N: 8 threads a row, 8 columns each, summed over the
@@ -458,155 +501,131 @@ __device__ __forceinline__ void rows_delta_f32(const AttnBwdArgsT<float>& p, con
   }
 }
 
-// One thread's rows of a 64 x 64 fp32 gradient tile (rows r0 + 16 warp +
-// lane / 4 and + 8 of the head) to `out`, rows at or beyond N left out.
-__device__ __forceinline__ void store_grad_rows_f32(const AttnBwdArgsT<float>& p, float* out,
-                                                    long long head, int r0, const float (&d)[32]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + 16 * warp + lane / 4 + 8 * h;
-    if (row >= p.N) continue;
-    const long long off = head + row * p.g_sn + 2 * (lane % 4);
-#pragma unroll
-    for (int jb = 0; jb < 8; ++jb) {
-      store2(out + off + 8 * jb, d[4 * jb + 2 * h], d[4 * jb + 2 * h + 1]);
-    }
-  }
-}
-
+// Grid (query tiles, B*H), one warpgroup: Q^T and dO^T of rows [64 i, 64 i +
+// 64) of one head into qt and dt [B*H][64][np] (0 past N) through a padded
+// shared tile, and with `delta` rowsum(dO * O) of those rows into delta
+// [B*H][np].
 __global__ void __launch_bounds__(attn::THREADS)
-attention_bwd_dkdv_f32_kernel(const AttnBwdArgsT<float> p) {
-  using attn32::SPLIT;
-  constexpr int T = attn::T;
-  extern __shared__ unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(align1024(smem_raw));   // split tiles
-  float* Vs = Ks + SPLIT;
-  float* Qs = Vs + SPLIT;
-  float* Ds = Qs + SPLIT;   // dO of the query tile
-  float* Qt = Ds + SPLIT;   // Q^T and dO^T of the query tile, queries in tf32_key_slot order
-  float* Dt = Qt + SPLIT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int N = p.N, tiles = (N + T - 1) / T;
-  float* lse_t = Dt + SPLIT;         // lse * log2(e) of the query tile
-  float* delta_all = lse_t + T;      // [tiles * T], 0 past N
-  float* col = delta_all + tiles * T;   // [2][64]: the column sums of dk, dv
-  float* wpart = col + 2 * 64;          // [4][64]
+attention_bwd_pack_f32_kernel(const AttnBwdArgsT<float> p, int np, float* qt, float* dt,
+                              float* delta) {
+  __shared__ float tq[64][65], td[64][65];
+  const int i = blockIdx.x, bh = blockIdx.y, b = bh / p.H, h = bh % p.H, r0 = i * attn::T;
   const float* qh = p.q + b * p.q_sb + h * p.q_sh;
-  const float* kh = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vh = p.v + b * p.v_sb + h * p.v_sh;
   const float* dh = p.dout + b * p.d_sb + h * p.d_sh;
-  const float* lse = p.lse + (long long)bh * N;
-  const long long ghead = b * p.g_sb + h * p.g_sh;
-  const float exp_scale = p.scale * 1.4426950408889634f;
-
-  for (int i = threadIdx.x; i < 2 * 64; i += attn::THREADS) col[i] = 0.f;
-  if (p.delta) {
-    const float* delta = p.delta + (long long)bh * N;
-    for (int r = threadIdx.x; r < tiles * T; r += attn::THREADS)
-      delta_all[r] = r < N ? delta[r] : 0.f;
-  } else {
-    rows_delta_f32(p, dh, p.o + b * p.o_sb + h * p.o_sh, 0, tiles * T, delta_all);
-  }
-
-  // this thread's rows (keys) and columns (queries) of S^T and dP^T
-  const int r_lo = 16 * warp + lane / 4, c_lo = 2 * (lane % 4);
-
-  for (int j = 0; j < tiles; ++j) {
-    load_tile_f32_async(Ks, kh, p.k_sn, j * T, N);
-    load_tile_f32_async(Vs, vh, p.v_sn, j * T, N);
-    cp_async_commit();
-    float gk[32], gv[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) gk[i] = gv[i] = 0.f;
-
-    for (int i = 0; i < tiles; ++i) {
-      load_tile_f32_async(Qs, qh, p.q_sn, i * T, N);
-      load_tile_f32_async(Ds, dh, p.d_sn, i * T, N);
-      cp_async_commit();
-      load_tile_f32_t(Qt, qh, p.q_sn, i * T, N);
-      load_tile_f32_t(Dt, dh, p.d_sn, i * T, N);
-      if (threadIdx.x < T) {
-        const int row = i * T + threadIdx.x;
-        lse_t[threadIdx.x] = row < N ? lse[row] * 1.4426950408889634f : 0.f;
-      }
-      cp_async_wait<0>();
-      if (i == 0) {
-        split_tile_f32(Ks);
-        split_tile_f32(Vs);
-      }
-      split_tile_f32(Qs);
-      split_tile_f32(Ds);
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T over the 64 dims of the head
-      float st[32], dpt[32];
-      wgmma_fence();
-      mma3_ss(st, Ks, Qs, 0);
-      mma3_ss(dpt, Vs, Ds, 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-
-      // P^T = exp(S^T - lse) in place of S^T, 0 where the key or the query
-      // is padding; dV += P^T dO from its hi and lo A fragments (8 queries a
-      // k-step), B = dO^T
-      uint32_t fh[8][4], fl[8][4];
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int key = j * T + r_lo + 8 * (u >> 1), qc = 8 * kk + c_lo + (u & 1);
-          const bool live = key < N && i * T + qc < N;
-          st[4 * kk + u] = live ? exp2f(st[4 * kk + u] * exp_scale - lse_t[qc]) : 0.f;
-        }
-        const float pv[4] = {st[4 * kk], st[4 * kk + 1], st[4 * kk + 2], st[4 * kk + 3]};
-        tf32_a_fragments(fh[kk], fl[kk], pv);
-      }
-      wgmma_fence();
-      mma3_rs(gv, fh, fl, Dt);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(gv);
-
-      // dS^T = P^T (dP^T - delta); dK += dS^T Q, B = Q^T
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        float sv[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          sv[u] = st[4 * kk + u] * (dpt[4 * kk + u] - delta_all[i * T + 8 * kk + c_lo + (u & 1)]);
-        tf32_a_fragments(fh[kk], fl[kk], sv);
-      }
-      wgmma_fence();
-      mma3_rs(gk, fh, fl, Qt);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(gk);
-      __syncthreads();   // the query tiles are refilled by the next iteration
+  for (int e = threadIdx.x; e < 64 * 16; e += attn::THREADS) {
+    const int r = e / 16, c = 4 * (e % 16), row = r0 + r;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), d = a;
+    if (row < p.N) {
+      a = *reinterpret_cast<const float4*>(qh + (long long)row * p.q_sn + c);
+      d = *reinterpret_cast<const float4*>(dh + (long long)row * p.d_sn + c);
     }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) gk[i] *= p.scale;
-    store_grad_rows_f32(p, p.dk, ghead, j * T, gk);
-    store_grad_rows_f32(p, p.dv, ghead, j * T, gv);
-    if (p.colsum) {   // key tiles in order
-      add_colsums(gk, wpart, col);
-      add_colsums(gv, wpart, col + 64);
-    }
+    tq[r][c] = a.x; tq[r][c + 1] = a.y; tq[r][c + 2] = a.z; tq[r][c + 3] = a.w;
+    td[r][c] = d.x; td[r][c + 1] = d.y; td[r][c + 2] = d.z; td[r][c + 3] = d.w;
   }
-  if (p.colsum) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * 64; i += attn::THREADS)
-      p.colsum[(long long)b * p.cs_b + (1 + i / 64) * p.cs_part + h * 64 + i % 64] = col[i];
+  if (delta)
+    rows_delta_f32(p, dh, p.o + b * p.o_sb + h * p.o_sh, r0, attn::T,
+                   delta + (long long)bh * np + r0);
+  __syncthreads();
+  float* qo = qt + (long long)bh * 64 * np + r0;
+  float* dout = dt + (long long)bh * 64 * np + r0;
+  for (int e = threadIdx.x; e < 64 * 16; e += attn::THREADS) {
+    const int d = e / 16, r = 4 * (e % 16);
+    *reinterpret_cast<float4*>(qo + (long long)d * np + r) =
+        make_float4(tq[r][d], tq[r + 1][d], tq[r + 2][d], tq[r + 3][d]);
+    *reinterpret_cast<float4*>(dout + (long long)d * np + r) =
+        make_float4(td[r][d], td[r + 1][d], td[r + 2][d], td[r + 3][d]);
   }
 }
 
-__global__ void __launch_bounds__(attn::THREADS)
-attention_bwd_dq_f32_kernel(const AttnBwdArgsT<float> p) {
-  using attn32::SPLIT;
+// Thread `tid` (0-127) of a warpgroup holds rows r = 16 (tid / 32) + (tid %
+// 32) / 4 and r + 8 of an accumulator, columns 2 t and 2 t + 1 of each 8
+// (t = tid % 4).
+__device__ __forceinline__ int acc_row(int tid) { return 16 * (tid / 32) + (tid % 32) / 4; }
+
+// This thread's raw A fragments of a transposed query tile (rows d, columns
+// the 64 queries of tile i): per k-step k, the float2 of queries 8 k + 2 t
+// and + 1 (columns t and t + 4 in tf32_key_slot order, t = tid % 4) at rows
+// d = r and r + 8.
+__device__ __forceinline__ void load_t_fragments(float2 (&f)[8][2], const float* src, int np,
+                                                 int i, int tid) {
+  const int r = acc_row(tid), t = tid % 4;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      f[k][hh] = __ldg(reinterpret_cast<const float2*>(src + (long long)(r + 8 * hh) * np +
+                                                       i * attn::T + 8 * k + 2 * t));
+}
+
+// The hi and lo A fragments of raw fragments from load_t_fragments:
+// (row r, column t), (r + 8, t), (r, t + 4), (r + 8, t + 4) of each k-step.
+__device__ __forceinline__ void split_t_fragments(uint32_t (&hi)[8][4], uint32_t (&lo)[8][4],
+                                                  const float2 (&f)[8][2]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float v[4] = {f[k][0].x, f[k][1].x, f[k][0].y, f[k][1].y};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float2 x = tf32_split(v[u]);
+      hi[k][u] = __float_as_uint(x.x);
+      lo[k][u] = __float_as_uint(x.y);
+    }
+  }
+}
+
+// One thread's share of a transposed gradient tile (rows d, columns the 64
+// keys from k0) to out[key][d] of the head (rows `sn` apart), keys at or
+// beyond N left out. With `col`, also this warp's row sums (the column sums
+// of the gradient over its keys) into col[d].
+__device__ __forceinline__ void store_t_grad_f32(float* out, long long sn, int k0, int N,
+                                                 const float (&d)[32], float* col, int tid) {
+  const int r = acc_row(tid), c = 2 * (tid % 4);
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * jb + c + (e & 1), row = r + 8 * (e >> 1);
+      if (key < N) out[(long long)key * sn + row] = d[4 * jb + e];
+      sum[e >> 1] += d[4 * jb + e];
+    }
+  if (!col) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+    if (tid % 4 == 0) col[r + 8 * hh] = sum[hh];
+  }
+}
+
+// Named barriers of attention_bwd_f32_kernel (0 is __syncthreads): the
+// hand-offs of P^T and dS^T between its two warpgroups (all 256 threads:
+// one warpgroup arrives, the other waits), and each warpgroup's own.
+namespace attn32 {
+constexpr int BAR_PT_FULL = 1, BAR_PT_FREE = 2, BAR_ST_FULL = 3, BAR_ST_FREE = 4, BAR_OWN = 5;
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Two warpgroups a CTA, one per (batch, head, key tile), each with its own
+// share of every (key tile, query tile) pair, the query tiles in order:
+//   warpgroup 0: S = Q K^T, P = exp(S - lse) stored as P^T; dV^T += dO^T P^T;
+//                dQ_i = dS K, dS read back from dS^T as A fragments;
+//   warpgroup 1: dP = dO V^T, dS = P (dP - delta) with P read back from P^T,
+//                stored as dS^T; dK^T += Q^T dS^T.
+// Warpgroup 0 owns Q, K, K^T and P^T, warpgroup 1 dO, V and dS^T; each loads
+// and splits its own tiles (the next query tile's Q or dO by cp.async
+// under the rest of the pair), and they meet only at the four hand-off
+// barriers. P = hi + lo of P^T's split (within 2^-22 of the stored P).
+__global__ void __launch_bounds__(2 * attn::THREADS)
+attention_bwd_f32_kernel(const AttnBwdArgsT<float> p, const float* qt, const float* dt,
+                         const float* delta_w, float* dq_part, float* col_part) {
+  using namespace attn32;
   constexpr int T = attn::T;
   extern __shared__ unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(align1024(smem_raw));   // split tiles
@@ -614,117 +633,275 @@ attention_bwd_dq_f32_kernel(const AttnBwdArgsT<float> p) {
   float* Ks = Ds + SPLIT;
   float* Vs = Ks + SPLIT;
   float* Kt = Vs + SPLIT;   // K^T of the key tile, keys in tf32_key_slot order
-  float* lse_t = Kt + SPLIT;     // lse * log2(e) of the query tile
-  float* delta_t = lse_t + T;    // delta of the query tile
-  float* col = delta_t + T;      // [64]: the column sums of dq
-  float* wpart = col + 64;       // [4][64]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int N = p.N, tiles = (N + T - 1) / T;
-  const float* qh = p.q + b * p.q_sb + h * p.q_sh;
-  const float* kh = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vh = p.v + b * p.v_sb + h * p.v_sh;
-  const float* dh = p.dout + b * p.d_sb + h * p.d_sh;
-  const float* lse = p.lse + (long long)bh * N;
-  const long long ghead = b * p.g_sb + h * p.g_sh;
-  const float exp_scale = p.scale * 1.4426950408889634f;
-  if (threadIdx.x < 64) col[threadIdx.x] = 0.f;
+  float* Pt = Kt + SPLIT;   // P^T and dS^T of the pair, queries in tf32_key_slot order
+  float* St = Pt + SPLIT;
+  const int wg = threadIdx.x / attn::THREADS, tid = threadIdx.x % attn::THREADS;
+  const int N = p.N, tiles = (N + T - 1) / T, np = tiles * T;
+  const int bh = blockIdx.x / tiles, j = blockIdx.x % tiles, b = bh / p.H, h = bh % p.H;
+  const long long BH = (long long)p.B * p.H, ghead = b * p.g_sb + h * p.g_sh;
+  float* col = p.colsum ? col_part + (bh * tiles + j) * 2 * 64 : nullptr;
+  constexpr float LOG2E = 1.4426950408889634f;
 
-  // this thread's rows (queries) and columns (keys) of S and dP
-  const int r_lo = 16 * warp + lane / 4, c_lo = 2 * (lane % 4);
-
-  for (int i = 0; i < tiles; ++i) {
-    load_tile_f32_async(Qs, qh, p.q_sn, i * T, N);
-    load_tile_f32_async(Ds, dh, p.d_sn, i * T, N);
-    cp_async_commit();
-    if (threadIdx.x < T) {
-      const int row = i * T + threadIdx.x;
-      lse_t[threadIdx.x] = row < N ? lse[row] * 1.4426950408889634f : 0.f;
-      if (p.delta) delta_t[threadIdx.x] = row < N ? p.delta[(long long)bh * N + row] : 0.f;
-    }
-    if (!p.delta) rows_delta_f32(p, dh, p.o + b * p.o_sb + h * p.o_sh, i * T, T, delta_t);
-    float gq[32];
+  // this thread's rows (queries of S, dP, dQ; dims of dK^T, dV^T) and columns
+  const int r_lo = acc_row(tid), c_lo = 2 * (tid % 4);
+  // the byte offset in P^T and dS^T of its accumulator element u of k-step
+  // 0, (query r_lo + 8 (u >> 1), key c_lo + (u & 1)); key 8 kk + c_lo + (u &
+  // 1) lies 1024 kk bytes on
+  int pt_off[4];
 #pragma unroll
-    for (int e = 0; e < 32; ++e) gq[e] = 0.f;
+  for (int u = 0; u < 4; ++u) {
+    const int qr = r_lo + 8 * (u >> 1);
+    pt_off[u] = f32_tile_offset(c_lo + (u & 1), (qr & ~7) | tf32_key_slot(qr & 7));
+  }
+  const unsigned char* pt = reinterpret_cast<const unsigned char*>(Pt);
+  const unsigned char* stt = reinterpret_cast<const unsigned char*>(St);
+  uint32_t fh[8][4], fl[8][4];
 
-    for (int j = 0; j < tiles; ++j) {
-      load_tile_f32_async(Ks, kh, p.k_sn, j * T, N);
-      load_tile_f32_async(Vs, vh, p.v_sn, j * T, N);
-      cp_async_commit();
-      load_tile_f32_t(Kt, kh, p.k_sn, j * T, N);
-      cp_async_wait<0>();
-      if (j == 0) {
-        split_tile_f32(Qs);
-        split_tile_f32(Ds);
+  if (wg == 0) {
+    const float* qh = p.q + b * p.q_sb + h * p.q_sh;
+    const float* kh = p.k + b * p.k_sb + h * p.k_sh;
+    const float* lse = p.lse + (long long)bh * N;
+    const float* dth = dt + (long long)bh * 64 * np;
+    const float exp_scale = p.scale * LOG2E;
+    load_tile_f32_async(Ks, kh, p.k_sn, j * T, N, tid);
+    load_tile_f32_async(Qs, qh, p.q_sn, 0, N, tid);
+    cp_async_commit();
+    load_tile_f32_t(Kt, kh, p.k_sn, j * T, N, tid);
+    float gv[32];   // dV^T of the key tile: rows d, columns keys
+#pragma unroll
+    for (int e = 0; e < 32; ++e) gv[e] = 0.f;
+
+    for (int i = 0; i < tiles; ++i) {
+      float lse_r[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = i * T + r_lo + 8 * hh;
+        lse_r[hh] = row < N ? lse[row] * LOG2E : 0.f;
       }
-      split_tile_f32(Ks);
-      split_tile_f32(Vs);
+      float2 fr[8][2];   // dO^T's fragments, loaded under S
+      load_t_fragments(fr, dth, np, i, tid);
+      cp_async_wait<0>();
+      if (i == 0) split_tile_f32(Ks, tid);
+      split_tile_f32(Qs, tid);
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      __syncthreads();
+      named_sync(BAR_OWN + 0, attn::THREADS);
 
-      // S = Q K^T and dP = dO V^T over the 64 dims of the head
-      float sq[32], dpq[32];
+      // S = Q K^T over the 64 dims of the head
+      float sq[32];
       wgmma_fence();
       mma3_ss(sq, Qs, Ks, 0);
-      mma3_ss(dpq, Ds, Vs, 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sq);
-      fence_regs(dpq);
-
-      // dS = P (dP - delta), 0 where the query or the key is padding; as hi
-      // and lo TF32 A fragments, 8 keys a k-step
-      uint32_t sf[8][4], sl[8][4];
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        float sv[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int qr = r_lo + 8 * (u >> 1), key = j * T + 8 * kk + c_lo + (u & 1);
-          const bool live = i * T + qr < N && key < N;
-          const float pq = live ? exp2f(sq[4 * kk + u] * exp_scale - lse_t[qr]) : 0.f;
-          sv[u] = pq * (dpq[4 * kk + u] - delta_t[qr]);
-        }
-        tf32_a_fragments(sf[kk], sl[kk], sv);
+      named_sync(BAR_OWN + 0, attn::THREADS);   // every warp's S is done: Q is free
+      if (i + 1 < tiles) {
+        load_tile_f32_async(Qs, qh, p.q_sn, (i + 1) * T, N, tid);
+        cp_async_commit();
       }
 
-      // dQ += dS K, B = K^T
+      // P = exp(S - lse), 0 where the query or the key is padding, as P^T
+      if (i > 0) named_sync(BAR_PT_FREE, 2 * attn::THREADS);   // warpgroup 1 has read the last
+      unsigned char* ptw = reinterpret_cast<unsigned char*>(Pt);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int qr = r_lo + 8 * (u >> 1), key = 8 * kk + c_lo + (u & 1);
+          const bool live = i * T + qr < N && j * T + key < N;
+          const float2 ps =
+              tf32_split(live ? exp2f(sq[4 * kk + u] * exp_scale - lse_r[u >> 1]) : 0.f);
+          const int off = pt_off[u] + 1024 * kk;
+          *reinterpret_cast<float*>(ptw + off) = ps.x;
+          *reinterpret_cast<float*>(ptw + TILE * 4 + off) = ps.y;
+        }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      named_arrive(BAR_PT_FULL, 2 * attn::THREADS);
+      named_sync(BAR_OWN + 0, attn::THREADS);
+
+      // dV^T += dO^T P^T
+      split_t_fragments(fh, fl, fr);
       wgmma_fence();
-      mma3_rs(gq, sf, sl, Kt);
+      mma3_rs(gv, fh, fl, Pt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(gv);
+
+      // dQ_i = dS K: dS's hi and lo parts read from dS^T as A fragments (8
+      // keys a k-step; (row r, column t), (r + 8, t), (r, t + 4), (r + 8, t + 4)
+      // are elements 0, 2, 1, 3 of the accumulator layout), B = K^T
+      named_sync(BAR_ST_FULL, 2 * attn::THREADS);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int at[4] = {0, 2, 1, 3};
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int off = pt_off[at[a]] + 1024 * kk;
+          fh[kk][a] = *reinterpret_cast<const uint32_t*>(stt + off);
+          fl[kk][a] = *reinterpret_cast<const uint32_t*>(stt + TILE * 4 + off);
+        }
+      }
+      if (i + 1 < tiles) named_arrive(BAR_ST_FREE, 2 * attn::THREADS);
+      float gq[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) gq[e] = 0.f;
+      wgmma_fence();
+      mma3_rs(gq, fh, fl, Kt);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(gq);
-      __syncthreads();   // the key tiles are refilled by the next iteration
+      // this key tile's share of dQ_i, a partial for the reduce kernel
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = i * T + r_lo + 8 * hh;
+        if (row >= N) continue;
+        float* dst = dq_part + ((j * BH + bh) * N + row) * 64 + c_lo;
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb)
+          store2(dst + 8 * jb, gq[4 * jb + 2 * hh], gq[4 * jb + 2 * hh + 1]);
+      }
+    }
+    store_t_grad_f32(p.dv + ghead, p.g_sn, j * T, N, gv, col ? col + 64 : nullptr, tid);
+  } else {
+    const float* vh = p.v + b * p.v_sb + h * p.v_sh;
+    const float* dh = p.dout + b * p.d_sb + h * p.d_sh;
+    const float* delta = p.delta ? p.delta + (long long)bh * N : delta_w + (long long)bh * np;
+    const float* qth = qt + (long long)bh * 64 * np;
+    load_tile_f32_async(Vs, vh, p.v_sn, j * T, N, tid);
+    load_tile_f32_async(Ds, dh, p.d_sn, 0, N, tid);
+    cp_async_commit();
+    float gk[32];   // dK^T of the key tile: rows d, columns keys
+#pragma unroll
+    for (int e = 0; e < 32; ++e) gk[e] = 0.f;
+
+    for (int i = 0; i < tiles; ++i) {
+      float delta_r[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = i * T + r_lo + 8 * hh;
+        delta_r[hh] = row < N ? delta[row] : 0.f;
+      }
+      float2 fr[8][2];   // Q^T's fragments, loaded under dP
+      load_t_fragments(fr, qth, np, i, tid);
+      cp_async_wait<0>();
+      if (i == 0) split_tile_f32(Vs, tid);
+      split_tile_f32(Ds, tid);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      named_sync(BAR_OWN + 1, attn::THREADS);
+
+      // dP = dO V^T over the 64 dims of the head
+      float dpq[32];
+      wgmma_fence();
+      mma3_ss(dpq, Ds, Vs, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dpq);
+      named_sync(BAR_OWN + 1, attn::THREADS);   // every warp's dP is done: dO is free
+      if (i + 1 < tiles) {
+        load_tile_f32_async(Ds, dh, p.d_sn, (i + 1) * T, N, tid);
+        cp_async_commit();
+      }
+
+      // dS = P (dP - delta), P from P^T (0 at padding), as dS^T
+      named_sync(BAR_PT_FULL, 2 * attn::THREADS);
+      if (i > 0) named_sync(BAR_ST_FREE, 2 * attn::THREADS);   // warpgroup 0 has read the last
+      unsigned char* stw = reinterpret_cast<unsigned char*>(St);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int off = pt_off[u] + 1024 * kk;
+          const float pv = *reinterpret_cast<const float*>(pt + off) +
+                           *reinterpret_cast<const float*>(pt + TILE * 4 + off);
+          const float2 ss = tf32_split(pv * (dpq[4 * kk + u] - delta_r[u >> 1]));
+          *reinterpret_cast<float*>(stw + off) = ss.x;
+          *reinterpret_cast<float*>(stw + TILE * 4 + off) = ss.y;
+        }
+      if (i + 1 < tiles) named_arrive(BAR_PT_FREE, 2 * attn::THREADS);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      named_arrive(BAR_ST_FULL, 2 * attn::THREADS);
+      named_sync(BAR_OWN + 1, attn::THREADS);
+
+      // dK^T += Q^T dS^T
+      split_t_fragments(fh, fl, fr);
+      wgmma_fence();
+      mma3_rs(gk, fh, fl, St);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(gk);
     }
 #pragma unroll
-    for (int e = 0; e < 32; ++e) gq[e] *= p.dq_scale;
-    store_grad_rows_f32(p, p.dq, ghead, i * T, gq);
-    if (p.colsum) add_colsums(gq, wpart, col);   // query tiles in order
-  }
-  if (p.colsum) {
-    __syncthreads();
-    if (threadIdx.x < 64)
-      p.colsum[(long long)b * p.cs_b + h * 64 + threadIdx.x] = col[threadIdx.x];
+    for (int e = 0; e < 32; ++e) gk[e] *= p.scale;
+    store_t_grad_f32(p.dk + ghead, p.g_sn, j * T, N, gk, col, tid);
   }
 }
 
-// Launches the fp32 attention backward (its two kernels) on `st`;
-// cudaErrorInvalidValue, without a launch, for a shape the bf16 form does
-// not take either.
-inline cudaError_t attention_bwd(const AttnBwdArgsT<float>& p, int hd, cudaStream_t st) {
-  if (!attention_bwd_takes(hd, p.N) || p.B < 1 || p.H < 1 || !(p.delta || p.o))
+// One CTA per (batch, head): dq = dq_scale x the sum of the key tiles'
+// partials in tile order; with `colsum`, the column sums of dq over the
+// head's rows (fixed order: each thread its rows, then the four row classes
+// in order) and of dk and dv over the key tiles in order.
+__global__ void __launch_bounds__(attn::THREADS)
+attention_bwd_reduce_f32_kernel(const AttnBwdArgsT<float> p, const float* dq_part,
+                                const float* col_part) {
+  __shared__ float wpart[4 * 64];
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H, N = p.N;
+  const int tiles = (N + attn::T - 1) / attn::T;
+  const long long BH = (long long)p.B * p.H, ghead = b * p.g_sb + h * p.g_sh;
+  // thread t adds column pair t % 32 of rows t / 32, + 4, + 8, ...
+  float2 qs = make_float2(0.f, 0.f);
+  for (int e = threadIdx.x; e < N * 32; e += attn::THREADS) {
+    const int r = e / 32, c2 = e % 32;
+    float2 v = make_float2(0.f, 0.f);
+    for (int j = 0; j < tiles; ++j) {
+      const float2 part =
+          *reinterpret_cast<const float2*>(dq_part + ((j * BH + bh) * N + r) * 64 + 2 * c2);
+      v.x += part.x;
+      v.y += part.y;
+    }
+    v.x *= p.dq_scale;
+    v.y *= p.dq_scale;
+    store2(p.dq + ghead + r * p.g_sn + 2 * c2, v.x, v.y);
+    qs.x += v.x;
+    qs.y += v.y;
+  }
+  if (!p.colsum) return;
+  wpart[2 * threadIdx.x] = qs.x;   // [4 row classes][32 column pairs]
+  wpart[2 * threadIdx.x + 1] = qs.y;
+  __syncthreads();
+  float* out = p.colsum + (long long)b * p.cs_b + h * 64;
+  if (threadIdx.x < 64)
+    out[threadIdx.x] = wpart[threadIdx.x] + wpart[64 + threadIdx.x] + wpart[128 + threadIdx.x] +
+                       wpart[192 + threadIdx.x];
+  for (int i = threadIdx.x; i < 2 * 64; i += attn::THREADS) {
+    float sum = 0.f;
+    for (int j = 0; j < tiles; ++j) sum += col_part[(bh * tiles + j) * 2 * 64 + i];
+    out[(1 + i / 64) * p.cs_part + i % 64] = sum;
+  }
+}
+
+// Launches the fp32 attention backward (its three kernels) on `st`, with
+// `work` of attention_bwd_f32_workspace(B, H, N) bytes; cudaErrorInvalidValue,
+// without a launch, for a shape the bf16 form does not take either.
+inline cudaError_t attention_bwd(const AttnBwdArgsT<float>& p, int hd, float* work,
+                                 cudaStream_t st) {
+  if (!attention_bwd_takes(hd, p.N) || p.B < 1 || p.H < 1 || !(p.delta || p.o) || !work)
     return cudaErrorInvalidValue;
-  const size_t kv_smem = attn32::dkdv_smem_bytes(p.N);
-  cudaError_t e = cudaFuncSetAttribute(attention_bwd_dkdv_f32_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(attention_bwd_dq_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)attn32::DQ_SMEM_BYTES);
+  const AttnBwdWork w = attn_bwd_work(p.B, p.H, p.N);
+  float* qt = work;
+  float* dt = qt + w.qt_len();
+  float* dq_part = dt + w.qt_len();
+  float* col_part = dq_part + w.dq_len(p.N);
+  float* delta = p.delta ? nullptr : col_part + w.col_len();
+  cudaError_t e = cudaFuncSetAttribute(attention_bwd_f32_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)attn32::BWD_SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  attention_bwd_dkdv_f32_kernel<<<p.B * p.H, attn::THREADS, kv_smem, st>>>(p);
+  attention_bwd_pack_f32_kernel<<<dim3((unsigned)w.tiles, (unsigned)w.bh), attn::THREADS, 0,
+                                  st>>>(p, (int)w.np, qt, dt, delta);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  attention_bwd_dq_f32_kernel<<<p.B * p.H, attn::THREADS, attn32::DQ_SMEM_BYTES, st>>>(p);
+  attention_bwd_f32_kernel<<<(unsigned)(w.bh * w.tiles), 2 * attn::THREADS,
+                             attn32::BWD_SMEM_BYTES, st>>>(p, qt, dt, delta, dq_part, col_part);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  attention_bwd_reduce_f32_kernel<<<(unsigned)w.bh, attn::THREADS, 0, st>>>(p, dq_part, col_part);
   return cudaGetLastError();
 }
 

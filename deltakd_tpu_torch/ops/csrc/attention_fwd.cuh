@@ -248,7 +248,8 @@ inline cudaError_t attention_fwd(const AttnArgs& p, int hd, cudaStream_t st) {
 //    the accumulator registers of P are the A fragments as they stand: a
 //    thread's accumulator holds keys 2t and 2t + 1 of each 8 (t = lane % 4)
 //    and a TF32 A fragment wants columns t and t + 4 of a k-step. The
-//    attention backward reads Q^T, dO^T and K^T the same way.
+//    attention backward reads K^T the same way, and its Q^T and dO^T A
+//    fragments, P^T and dS^T in the same column order.
 //  * Q and K arrive by cp.async as the bf16 form's tiles do, and each thread
 //    then splits the chunks it copied into hi and lo in place; V^T is split
 //    as it is written, P in registers. Nothing is rounded to bf16: the
@@ -292,12 +293,13 @@ __device__ __forceinline__ float2 tf32_split(float x) {
 
 // Rows [r0, r0 + 64) of one head (64 fp32 a row, `sn` elements apart) into
 // the hi tile of a split tile by cp.async, 16 bytes a thread; rows at or
-// beyond N are zero-filled (their source address stays in bounds).
+// beyond N are zero-filled (their source address stays in bounds). By the
+// warpgroup whose thread `tid` (0-127) this is, as the next two.
 __device__ __forceinline__ void load_tile_f32_async(float* tile, const float* src, long long sn,
-                                                    int r0, int N) {
+                                                    int r0, int N, int tid = threadIdx.x) {
   const uint32_t base = smem_u32(tile);
 #pragma unroll
-  for (int i = threadIdx.x; i < attn::T * 16; i += attn::THREADS) {
+  for (int i = tid; i < attn::T * 16; i += attn::THREADS) {
     const int r = i >> 4, c = (i & 15) * 4, row = r0 + r;
     const float* g = src + (long long)(row < N ? row : N - 1) * sn + c;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(base + f32_tile_offset(r, c)),
@@ -309,10 +311,10 @@ __device__ __forceinline__ void load_tile_f32_async(float* tile, const float* sr
 // The chunks that this thread copied into a split tile with
 // load_tile_f32_async, split into its hi and lo parts in place once its
 // cp.async group has landed.
-__device__ __forceinline__ void split_tile_f32(float* tile) {
+__device__ __forceinline__ void split_tile_f32(float* tile, int tid = threadIdx.x) {
   unsigned char* base = reinterpret_cast<unsigned char*>(tile);
 #pragma unroll
-  for (int i = threadIdx.x; i < attn::T * 16; i += attn::THREADS) {
+  for (int i = tid; i < attn::T * 16; i += attn::THREADS) {
     const int off = f32_tile_offset(i >> 4, (i & 15) * 4);
     float4* hi = reinterpret_cast<float4*>(base + off);
     const float4 v = *hi;
@@ -328,10 +330,10 @@ __device__ __forceinline__ void split_tile_f32(float* tile) {
 // tf32_key_slot order; rows at or beyond N are zeros. A warp takes 32
 // consecutive rows of one 4-dim slice: its stores fill 32 banks.
 __device__ __forceinline__ void load_tile_f32_t(float* tile, const float* src, long long sn, int r0,
-                                                int N) {
+                                                int N, int tid = threadIdx.x) {
   unsigned char* base = reinterpret_cast<unsigned char*>(tile);
 #pragma unroll
-  for (int i = threadIdx.x; i < attn::T * 16; i += attn::THREADS) {
+  for (int i = tid; i < attn::T * 16; i += attn::THREADS) {
     const int r = i & 63, d0 = (i >> 6) * 4, row = r0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < N) v = __ldg(reinterpret_cast<const float4*>(src + (long long)row * sn + d0));

@@ -121,3 +121,15 @@ extern "C" int dk_weight_grad_sm90(const void* g, const void* x, int M, int O, i
   return (int)weight_grad_sm90((const bf16*)g, (const bf16*)x, M, O, I, (float*)partial,
                                (float*)out, (cudaStream_t)stream);
 }
+
+// The fp32 form of the two above (the fp32 backward's weight gradients,
+// `weight_grad_f32_kernel`, 3xTF32): g and x fp32, the same arguments.
+extern "C" size_t dk_weight_grad_sm90_f32_workspace(int M, int O, int I) {
+  return (size_t)weight_grad_partial_len<float>(M, O, I) * sizeof(float);
+}
+
+extern "C" int dk_weight_grad_sm90_f32(const void* g, const void* x, int M, int O, int I,
+                                       void* partial, void* out, void* stream) {
+  return (int)weight_grad_sm90((const float*)g, (const float*)x, M, O, I, (float*)partial,
+                               (float*)out, (cudaStream_t)stream);
+}

@@ -1,6 +1,6 @@
 // Building blocks shared by the fused ViT block forward and backward kernels
 // and the block-pair kernels (fused_block_pair.cu); the fused-MLP backward
-// (fused_mlp.cu) builds on the weight-gradient sum and the transpose.
+// (fused_mlp.cu) builds on the weight-gradient sum and the weight transpose.
 //
 // The TPU kernels (deltakd_tpu/ops/fused_block.py `_fwd_kernel`,
 // `_bwd_kernel`) keep one batch element's whole block in 16+ MB of VMEM. An
@@ -34,9 +34,9 @@
 // run at the input's dtype). In the fp32 form every buffer that the bf16
 // form keeps in bf16 is fp32 and unrounded: nothing is rounded to bf16, and
 // every product, the GEMM's (gemm_sm90.cuh) and the attention cores', is
-// 3xTF32 on fp32 operands. Its weight gradients transpose G and X first
-// (TF32 wgmma takes no transpose), so its workspace is about twice the bf16
-// form's.
+// 3xTF32 on fp32 operands. Its weight gradients read G and X as they lie and
+// make their K-major TF32 operands on chip (gemm_sm90.cuh
+// `weight_grad_f32_kernel`), as the bf16 form reads them MN-major.
 
 #pragma once
 
@@ -77,11 +77,10 @@ __global__ void reduce_partials_kernel(const float* partial, int chunks, long lo
 
 inline int blocks_of(long long n, int t) { return (int)((n + t - 1) / t); }
 
-// out [C, ld] = in [R, C]^T (ld = R when 0), of T: an nn.Linear weight [O, I] as the K-major [I, O] operand of an input gradient
-// dX = G W on linear_sm90, and in the fp32 form G and X of a weight gradient
-// as G^T and X^T.
+// out [C, R] = in [R, C]^T, of T: an nn.Linear weight [O, I] as the K-major
+// [I, O] operand of an input gradient dX = G W on linear_sm90.
 template <typename T>
-__global__ void transpose_kernel(const T* in, int R, int C, int ld, T* out) {
+__global__ void transpose_kernel(const T* in, int R, int C, T* out) {
   __shared__ T t[32][33];
   const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
   for (int dy = threadIdx.y; dy < 32; dy += blockDim.y) {
@@ -91,31 +90,23 @@ __global__ void transpose_kernel(const T* in, int R, int C, int ld, T* out) {
   __syncthreads();
   for (int dy = threadIdx.y; dy < 32; dy += blockDim.y) {
     const int c = c0 + dy, r = r0 + threadIdx.x;
-    if (r < R && c < C) out[(long long)c * ld + r] = t[threadIdx.x][dy];
+    if (r < R && c < C) out[(long long)c * R + r] = t[threadIdx.x][dy];
   }
 }
 
 template <typename T>
-inline void transpose(const T* in, int R, int C, T* out, cudaStream_t st, int ld = 0) {
+inline void transpose(const T* in, int R, int C, T* out, cudaStream_t st) {
   transpose_kernel<T><<<dim3(blocks_of(C, 32), blocks_of(R, 32)), dim3(32, 8), 0, st>>>(
-      in, R, C, ld ? ld : R, out);
+      in, R, C, out);
 }
 
 // dW [O, I] = sum_m G[m, O]^T X[m, I] on the TMA + wgmma GEMM: fp32 partials
 // over row ranges (gemm_sm90.cuh `weight_grad_kernel`), then their sum in
 // range order. `partial` holds weight_grad_partial_len<T>(M, O, I) floats.
-// fp32: G and X are first transposed into gt [O, transposed_ld(M)] and xt
-// [I, transposed_ld(M)] (TF32 wgmma reads both operands K-major only).
+// G and X are read as they lie, at either operand type.
 template <typename T>
 inline cudaError_t weight_grad_sm90(const T* g, const T* x, int M, int O, int I, float* partial,
-                                    float* out, cudaStream_t st, T* gt = nullptr,
-                                    T* xt = nullptr) {
-  if constexpr (is_f32<T>) {
-    transpose(g, M, O, gt, st, transposed_ld(M));
-    transpose(x, M, I, xt, st, transposed_ld(M));
-    g = gt;
-    x = xt;
-  }
+                                    float* out, cudaStream_t st) {
   int splits = 0;
   const cudaError_t e = weight_grad_partials_sm90(g, x, M, O, I, partial, &splits, st);
   if (e != cudaSuccess) return e;

@@ -209,21 +209,26 @@ inline long long colsum_partial_len(const Shape& sh) {
 // The sweep's own buffers: the cotangents it carries between its kernels
 // (of T where only a product reads them, fp32 where a LayerNorm backward
 // does), the four matmul weights transposed ([I, O], K-major for
-// linear_sm90), and the partials of the weight and column sums; in the fp32
-// form also G^T and X^T of the widest weight gradient (gt, xt).
+// linear_sm90), and the partials of the weight and column sums. In the fp32
+// form the attention backward's workspace (attention_bwd.cuh,
+// `attention_bwd_f32_workspace`) shares its slice with dhpre, which is dead
+// from the fc1 input gradient on; the slice is the larger of the two.
 template <typename T>
 struct BwdBuffersT {
   float *dz, *dx2, *delta, *dy;
   T *gfeat_lp, *dhpre_lp, *dattn_lp, *do_lp, *dqkv_lp;
   T *wqkv_t, *wproj_t, *w1_t, *w2_t;
-  T *gt, *xt;
+  float *attn_work;
   float *partial, *col_partial;
 
   void carve(Carver& c, const Shape& sh) {
     const long long M = sh.M();
     const int D = sh.D, F = sh.F;
     gfeat_lp = c.take<T>(M * D);
-    dhpre_lp = c.take<T>(M * F);
+    const long long dh = M * F * (long long)sizeof(T);
+    const long long aw = is_f32<T> ? (long long)attention_bwd_f32_workspace(sh.B, sh.H, sh.N) : 0;
+    dhpre_lp = reinterpret_cast<T*>(c.take<char>(dh > aw ? dh : aw));
+    attn_work = is_f32<T> ? reinterpret_cast<float*>(dhpre_lp) : nullptr;
     dz = c.take<float>(M * D);       dx2 = c.take<float>(M * D);
     dattn_lp = c.take<T>(M * D);
     do_lp = c.take<T>(M * D);
@@ -234,12 +239,6 @@ struct BwdBuffersT {
     wproj_t = c.take<T>((long long)D * D);
     w1_t = c.take<T>((long long)F * D);
     w2_t = c.take<T>((long long)D * F);
-    gt = xt = nullptr;
-    if (is_f32<T>) {   // G^T is [O, ld] with O up to max(3D, F), X^T [I, ld] with I up to F
-      const long long ld = transposed_ld((int)M);
-      gt = c.take<T>((3 * D > F ? 3 * D : F) * ld);
-      xt = c.take<T>((D > F ? D : F) * ld);
-    }
     partial = c.take<float>(wgrad_partial_len<T>(sh));
     col_partial = c.take<float>(colsum_partial_len(sh));
   }
@@ -280,16 +279,14 @@ inline cudaError_t reverse_chain(const TG* g_out, const same_t<T>* g_feat, const
   gfeat_kernel<TG, T><<<chunks, ROW_THREADS, cs_smem(1, D), st>>>(
       g_out, g_feat, s_mlp, M, N, D, g.gfeat_lp, g.col_partial);
   cs_reduce(g.col_partial, chunks, D, 0, dbf2, st);
-  if ((err = weight_grad_sm90(g.gfeat_lp, f.h, M, D, F, g.partial, dw2, st, g.gt, g.xt)) !=
-      cudaSuccess)
+  if ((err = weight_grad_sm90(g.gfeat_lp, f.h, M, D, F, g.partial, dw2, st)) != cudaSuccess)
     return err;
   LinearT<T> l = linear_of<T>(g.gfeat_lp, g.w2_t, M, F, D);
   l.mul = f.hgrad; l.col_part = g.col_partial;
   l.out_lp = g.dhpre_lp;
   if ((err = linear_sm90(l, st)) != cudaSuccess) return err;
   cs_reduce(g.col_partial, linear_row_tiles(M), F, 0, dbf1, st);
-  if ((err = weight_grad_sm90(g.dhpre_lp, f.z, M, F, D, g.partial, dw1, st, g.gt, g.xt)) !=
-      cudaSuccess)
+  if ((err = weight_grad_sm90(g.dhpre_lp, f.z, M, F, D, g.partial, dw1, st)) != cudaSuccess)
     return err;
   l = linear_of<T>(g.dhpre_lp, g.w1_t, M, D, F);
   l.out_f32 = g.dz;
@@ -306,8 +303,8 @@ inline cudaError_t reverse_chain(const TG* g_out, const same_t<T>* g_feat, const
   cs_reduce(g.col_partial, chunks, D, 2, dbproj, st);
 
   // proj: attn = merged Wproj^T + bproj; dO = dattn Wproj
-  if ((err = weight_grad_sm90(g.dattn_lp, f.merged, M, D, D, g.partial, dwproj, st, g.gt,
-                              g.xt)) != cudaSuccess)
+  if ((err = weight_grad_sm90(g.dattn_lp, f.merged, M, D, D, g.partial, dwproj, st)) !=
+      cudaSuccess)
     return err;
   l = linear_of<T>(g.dattn_lp, g.wproj_t, M, D, D);
   l.out_lp = g.do_lp;
@@ -330,12 +327,16 @@ inline cudaError_t reverse_chain(const TG* g_out, const same_t<T>* g_feat, const
   a.scale = 1.0f;   // q arrives scaled
   a.dq_scale = scale;
   a.B = sh.B; a.H = H; a.N = N;
-  if ((err = attention_bwd(a, hd, st)) != cudaSuccess) return err;
+  if constexpr (is_f32<T>)
+    err = attention_bwd(a, hd, g.attn_work, st);
+  else
+    err = attention_bwd(a, hd, st);
+  if (err != cudaSuccess) return err;
   reduce_chunks(g.col_partial, sh.B, 3 * D, dbqkv, st);
 
   // qkv = LN1(x) Wqkv^T + bqkv
-  if ((err = weight_grad_sm90(g.dqkv_lp, f.y, M, 3 * D, D, g.partial, dwqkv, st, g.gt,
-                              g.xt)) != cudaSuccess)
+  if ((err = weight_grad_sm90(g.dqkv_lp, f.y, M, 3 * D, D, g.partial, dwqkv, st)) !=
+      cudaSuccess)
     return err;
   l = linear_of<T>(g.dqkv_lp, g.wqkv_t, M, D, 3 * D);
   l.out_f32 = g.dy;

@@ -315,13 +315,11 @@ __global__ void colsum_kernel(const T* a, int M, int D, float* partial) {
 
 // Workspace of the backward at operand type T: h and dhpre in T, gelu'(hpre)
 // in fp32, the weights transposed (K-major operands of the input
-// gradients), in the fp32 form G^T and X^T of the weight gradients (TF32
-// wgmma takes no transpose; both products reuse them), the row-range
-// partials of the wider weight gradient, and the column sums' partials
-// (dhpre's per 128-row tile, dy's per CS_ROWS rows).
+// gradients), the row-range partials of the wider weight gradient, and the
+// column sums' partials (dhpre's per 128-row tile, dy's per CS_ROWS rows).
 template <typename T>
 struct MlpBwdBuffers {
-  T *h, *dhpre, *w1_t, *w2_t, *gt, *xt;
+  T *h, *dhpre, *w1_t, *w2_t;
   float *hgrad, *partial, *col_partial;
 
   void carve(Carver& c, int M, int D, int F) {
@@ -330,12 +328,6 @@ struct MlpBwdBuffers {
     hgrad = c.take<float>((long long)M * F);
     w1_t = c.take<T>((long long)D * F);
     w2_t = c.take<T>((long long)F * D);
-    gt = xt = nullptr;
-    if (is_f32<T>) {   // dW1: G^T [F, ld], X^T [D, ld]; dW2: G^T [D, ld], X^T [F, ld]
-      const long long rows = D > F ? D : F, ld = transposed_ld(M);
-      gt = c.take<T>(rows * ld);
-      xt = c.take<T>(rows * ld);
-    }
     const long long a = weight_grad_partial_len<T>(M, F, D),
                     b = weight_grad_partial_len<T>(M, D, F);
     partial = c.take<float>(a > b ? a : b);
@@ -385,11 +377,9 @@ int mlp_bwd(const void* x_, const void* w1_, const void* b1_, const void* w2_, c
   l.out_lp = (T*)dx;
   if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
   // dW1 = dhpre^T x, dW2 = dy^T h
-  if ((err = weight_grad_sm90(g.dhpre, x, M, F, D, g.partial, (float*)dw1, st, g.gt, g.xt)) !=
-      cudaSuccess)
+  if ((err = weight_grad_sm90(g.dhpre, x, M, F, D, g.partial, (float*)dw1, st)) != cudaSuccess)
     return (int)err;
-  if ((err = weight_grad_sm90(dy, g.h, M, D, F, g.partial, (float*)dw2, st, g.gt, g.xt)) !=
-      cudaSuccess)
+  if ((err = weight_grad_sm90(dy, g.h, M, D, F, g.partial, (float*)dw2, st)) != cudaSuccess)
     return (int)err;
   // db2 = colsum(dy)
   const int chunks = cs_chunks(M);
@@ -496,10 +486,9 @@ extern "C" int dk_fused_mlp_fwd_f32(const void* x_, const void* w1_, const void*
 
 // The fp32 form of the backward (row 6 of an fp32 model): the chain above at
 // fp32, every product 3xTF32 on the TF32 wgmma, h, dhpre, dx and the
-// transposed weights fp32 and unrounded. Its two weight gradients transpose
-// G and X into the workspace first, so the workspace is about twice the bf16
-// form's. The same arguments and returns as dk_fused_mlp_bwd, with x, dy,
-// w1, w2 and dx fp32.
+// transposed weights fp32 and unrounded; its two weight gradients read G and
+// X as they lie (gemm_sm90.cuh `weight_grad_f32_kernel`). The same arguments
+// and returns as dk_fused_mlp_bwd, with x, dy, w1, w2 and dx fp32.
 extern "C" size_t dk_fused_mlp_bwd_f32_workspace(int M, int D, int F) {
   return mlp_bwd_workspace<float>(M, D, F);
 }

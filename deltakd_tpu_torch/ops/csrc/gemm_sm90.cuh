@@ -62,21 +62,23 @@
 // TFLOP/s dense) with fp32 accumulation. A 128-byte swizzle row holds 32
 // fp32, so a k-block is 32 deep and a stage holds the bf16 ring's bytes; a
 // k-step of 8 is 32 bytes, as bf16's of 16 is. TF32 wgmma takes no
-// transpose: both shared-memory operands are K-major. linear_kernel reads
-// them so already; weight_grad_kernel's depth m is the strided dimension of
-// G and X, so the fp32 weight gradient first transposes them in device
-// memory (G^T [O, M], X^T [I, M], fused_block_common.cuh `weight_grad_sm90`)
-// and then reads both K-major.
+// transpose: both shared-memory operands are K-major.
 // 3xTF32: one TF32 product (10 mantissa bits, an eighth of bf16's rounding)
 // held the fp32 forms' error to 0.25 of the bf16 forms' with no margin (one
 // input draw in 64 read 0.249 for a block's dx), so every fp32 product is
 // a_hi b_hi + a_hi b_lo + a_lo b_hi, with hi = TF32(v) rounded to nearest and
 // lo = TF32(v - hi): about 21 bits of each operand. The operands are stored
-// fp32 and unrounded (`to_lp<float>` is the identity); when a stage lands,
-// the consumer warps split it: hi in place (wgmma would otherwise truncate
+// fp32 and unrounded (`to_lp<float>` is the identity).
+// linear_kernel reads its fp32 tiles K-major as they land; the consumer
+// warps split each landed stage: hi in place (wgmma would otherwise truncate
 // the low 13 bits), lo into a double-buffered tile of its own (`split_tf32`),
 // then three wgmma per k-step. The lo tiles (48 KB) leave room for one CTA
 // an SM, not two.
+// The fp32 weight gradient's depth m is the strided dimension of G and X, so
+// it is a kernel of its own, `weight_grad_f32_kernel`: it lands G and X as
+// they lie, as the bf16 form does, and makes the K-major operands on chip in
+// the pass that splits them (G^T as the A operand from registers, X^T as
+// K-major hi and lo tiles of each warpgroup's own); see its comment.
 
 #pragma once
 
@@ -444,7 +446,7 @@ __device__ __forceinline__ void consumer_sync() {
 
 // fp32: the 3xTF32 split of a landed stage by the consumer warps. A
 // warpgroup splits its own 64 rows of A (`a`, its lo rows `a_lo`; with
-// `own_a` false, as for a weight gradient's half past O, it skips them), all
+// `own_a` false it skips them: linear_kernel, the one caller, passes true), all
 // consumer threads together the B tile shared by both. The barrier before
 // keeps the lo tiles from being overwritten while the other warpgroup's
 // products of two k-blocks back may still read them (each warpgroup waits
@@ -694,11 +696,8 @@ struct WeightGrad {
 // swizzle; a box is MN-major for wgmma (its 64 columns are the product's o or
 // i), so a k-step of 16 rows is 2048 bytes on. Where the tile's upper 64
 // columns of o lie past O (O = 192 is three halves), that half is not loaded
-// and its warpgroup only keeps the ring in step.
-// fp32 (TF32, which takes no transpose): tm_g and tm_x map G^T [O, M] and
-// X^T [I, M], and a stage holds K-major [64 o][32 m] boxes of G^T and a
-// [64 i][32 m] box of X^T, a k-step of 8 rows 32 bytes on, as linear_kernel
-// reads its tiles.
+// and its warpgroup only keeps the ring in step. bf16 operands; the fp32
+// form is weight_grad_f32_kernel below.
 template <typename T>
 static __global__ void __launch_bounds__(sm90::THREADS, sm90::CTAS_PER_SM)
 weight_grad_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_constant__ CUtensorMap tm_x,
@@ -708,8 +707,7 @@ weight_grad_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_consta
   extern __shared__ unsigned char smem_raw[];
   T* As = reinterpret_cast<T*>(align1024(smem_raw));         // [STAGES][2][BK][64]
   T* Bs = As + STAGES * BM * BK;                               // [STAGES][BK][BN]
-  T* lo = Bs + STAGES * BN * BK;                               // fp32: [2][BM + BN][BK]
-  uint64_t* full = reinterpret_cast<uint64_t*>(lo + LO_ELEMS<T>);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + STAGES * BN * BK + LO_ELEMS<T>);
   uint64_t* empty = full + STAGES;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -739,17 +737,10 @@ weight_grad_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_consta
         for (int kb = kb0; kb < kb1; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], (halves * 64 + BN) * BK * sizeof(T));
-          for (int h = 0; h < halves; ++h) {
-            T* dst = As + stage * BM * BK + h * 64 * BK;
-            if constexpr (is_f32<T>)
-              tma_load_2d(dst, &tm_g, kb * BK, o0 + 64 * h, &full[stage]);
-            else
-              tma_load_2d(dst, &tm_g, o0 + 64 * h, kb * BK, &full[stage]);
-          }
-          if constexpr (is_f32<T>)
-            tma_load_2d(Bs + stage * BN * BK, &tm_x, kb * BK, i0, &full[stage]);
-          else
-            tma_load_2d(Bs + stage * BN * BK, &tm_x, i0, kb * BK, &full[stage]);
+          for (int h = 0; h < halves; ++h)
+            tma_load_2d(As + stage * BM * BK + h * 64 * BK, &tm_g, o0 + 64 * h, kb * BK,
+                        &full[stage]);
+          tma_load_2d(Bs + stage * BN * BK, &tm_x, i0, kb * BK, &full[stage]);
           if (++stage == STAGES) { stage = 0; phase ^= 1; }
         }
       }
@@ -769,27 +760,13 @@ weight_grad_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_consta
     const int kb0 = s * p.kb_per_split, kb1 = min(k_total, kb0 + p.kb_per_split);
     for (int kb = kb0; kb < kb1; ++kb) {
       mbar_wait(&full[stage], phase);
-      if constexpr (is_f32<T>) {   // every consumer warp splits and syncs, active or not
-        T* lo_a = lo + (kb & 1) * (BM + BN) * BK;
-        T* lo_b = lo_a + BM * BK;
-        split_stage(As + (stage * BM + wg * 64) * BK, lo_a + wg * 64 * BK,
-                    Bs + stage * BN * BK, lo_b, active);
-      }
       if (active) {
         const uint64_t da = sw128_desc(As + (stage * BM + wg * 64) * BK);
         const uint64_t db = sw128_desc(Bs + stage * BN * BK);
         wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < BK / Operand<T>::KSTEP; ++k) {
-          if constexpr (is_f32<T>) {
-            T* lo_a = lo + (kb & 1) * (BM + BN) * BK;
-            Operand<T>::mma3(acc, da + 2 * k, sw128_desc(lo_a + wg * 64 * BK) + 2 * k,
-                             db + 2 * k, sw128_desc(lo_a + BM * BK) + 2 * k,
-                             kb > kb0 || k > 0);
-          } else {
-            wgmma_ss_tt(acc, da + 128 * k, db + 128 * k, kb > kb0 || k > 0);
-          }
-        }
+        for (int k = 0; k < BK / Operand<T>::KSTEP; ++k)
+          wgmma_ss_tt(acc, da + 128 * k, db + 128 * k, kb > kb0 || k > 0);
         wgmma_commit();
         // the k-block before this one is done: its stage goes back to the producer
         wgmma_wait<1>();
@@ -817,6 +794,229 @@ weight_grad_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_consta
         if (row + 8 * h < p.O)
           store2(out + (long long)(row + 8 * h) * p.I + n, acc[4 * j + 2 * h],
                  acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 weight gradient: G and X as they lie, the K-major operands made on
+// chip
+// ---------------------------------------------------------------------------
+//
+// The same work items, row ranges and partials as weight_grad_kernel, with
+// fp32 operands in 3xTF32. TF32 wgmma reads its shared-memory operands
+// K-major only, and the depth m of a weight gradient is the strided
+// dimension of G [M, O] and X [M, I]; the kernel makes the K-major TF32 hi
+// and lo operands on chip, in the one pass that touches every landed
+// element, so nothing is transposed through device memory:
+//  * TMA lands G and X as they lie, in [32 m][32 columns] boxes (128 bytes a
+//    row, the 128-byte swizzle): four of G (the tile's 128 o) and two of X
+//    (its 64 i) a stage, 24 KB. Boxes that start past O or I are not loaded;
+//    only outputs that are never stored read them.
+//  * G^T is the A operand from registers. Each thread reads its fragments of
+//    its warp's 16 o straight from the G boxes, as float2 (two neighbouring
+//    o at one m), and splits them into TF32 hi and lo in registers. For that
+//    the warp's 16 wgmma rows hold its o in the order 0, 2, ..., 14, 1, 3,
+//    ..., 15 (row r holds o = 2 (r % 8) + r / 8; the epilogue stores them
+//    there), and the 8 columns of a k-step hold its 8 rows m in
+//    tf32_key_slot order (column c holds m = 2 (c % 4) + c / 4): the four
+//    lanes of a quad then read rows m in four different swizzle phases, and
+//    a half-warp's 16 float2 fall on the 32 banks once.
+//  * X^T is the B operand: K-major [64 i][32 m] hi and lo tiles in the
+//    128-byte swizzle, the k-step's columns in the same order. Each
+//    warpgroup writes its own from the X boxes: a lane reads its column i at
+//    the four m of one 16-byte chunk of the k-step (a warp reads one 128-byte
+//    row: no conflict) and writes them as one float4 of hi and one of lo (a
+//    quarter-warp writes its 8 rows of i into 8 different chunks).
+//  * A warpgroup holds a landed stage in registers and in its X^T tiles
+//    before its products start, and releases it to the producer then. The
+//    two warpgroups share nothing but the ring; a k-block costs each two
+//    named barriers of its own 128 threads (its X^T is free: its products of
+//    the k-block before are done; its X^T is written), besides the ring's
+//    full and empty barriers. Each thread's products of a k-block are
+//    waited for before its next loads (its A fragments are registers).
+// Shared memory: a ring of 3 stages of 24 KB, two 16 KB X^T tiles, the
+// barriers and the alignment, 107,568 bytes a CTA: two CTAs an SM, as the
+// bf16 form.
+namespace wg32 {
+constexpr int BK = Operand<float>::BK;                      // rows m of a k-block
+constexpr int STAGES = 3;
+constexpr int BOX = 32 * BK;                                // fp32 elements of one [32 m][32] box
+constexpr int G_BOXES = sm90::BM / 32, X_BOXES = sm90::BN / 32;
+constexpr int STAGE_ELEMS = (G_BOXES + X_BOXES) * BOX;      // 24 KB
+constexpr int XT_ELEMS = 2 * sm90::BN * BK;                 // a warpgroup's X^T, hi then lo: 16 KB
+constexpr size_t SMEM_BYTES = (size_t)STAGES * STAGE_ELEMS * sizeof(float) +
+                              2 * XT_ELEMS * sizeof(float) + 2 * STAGES * sizeof(uint64_t) + 1024;
+}  // namespace wg32
+
+// Byte offset of (row r, column c) in a [32][32] fp32 box in the 128-byte
+// swizzle (16-byte chunks XOR row % 8, as TMA lays it).
+__device__ __forceinline__ int box32_offset(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ (r & 7))) << 4) + (c & 3) * 4;
+}
+
+// Named barrier 2 + wg among the 128 threads of consumer warpgroup wg.
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+}
+
+// T is float (a template, so that only the sources that launch it build it).
+template <typename T>
+static __global__ void __launch_bounds__(sm90::THREADS, sm90::CTAS_PER_SM)
+weight_grad_f32_kernel(const __grid_constant__ CUtensorMap tm_g,
+                       const __grid_constant__ CUtensorMap tm_x, const WeightGrad p) {
+  static_assert(is_f32<T>, "the fp32 weight gradient");
+  using namespace sm90;
+  using wg32::BK;
+  using wg32::BOX;
+  extern __shared__ unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(align1024(smem_raw));   // [STAGES][4 G, 2 X boxes]
+  float* xt = ring + wg32::STAGES * wg32::STAGE_ELEMS;          // [2 warpgroups][hi, lo][BN][BK]
+  uint64_t* full = reinterpret_cast<uint64_t*>(xt + 2 * wg32::XT_ELEMS);
+  uint64_t* empty = full + wg32::STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < wg32::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int i_tiles = (p.I + BN - 1) / BN;
+  const int tiles = (p.O + BM - 1) / BM * i_tiles;
+  const int items = tiles * p.splits;
+  const int k_total = (p.M + BK - 1) / BK;
+
+  if (warp == CONSUMER_WARPS) {
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < items; t += gridDim.x) {
+        const int s = t / tiles, tile = t % tiles;
+        const int o0 = tile / i_tiles * BM, i0 = tile % i_tiles * BN;
+        const int gb = min(wg32::G_BOXES, (p.O - o0 + 31) / 32);
+        const int xb = min(wg32::X_BOXES, (p.I - i0 + 31) / 32);
+        const int kb0 = s * p.kb_per_split, kb1 = min(k_total, kb0 + p.kb_per_split);
+        for (int kb = kb0; kb < kb1; ++kb) {
+          float* st = ring + stage * wg32::STAGE_ELEMS;
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], (gb + xb) * BOX * sizeof(float));
+          for (int b = 0; b < gb; ++b)
+            tma_load_2d(st + b * BOX, &tm_g, o0 + 32 * b, kb * BK, &full[stage]);
+          for (int b = 0; b < xb; ++b)
+            tma_load_2d(st + (wg32::G_BOXES + b) * BOX, &tm_x, i0 + 32 * b, kb * BK,
+                        &full[stage]);
+          if (++stage == wg32::STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns o0 + 64 wg + [0, 64), its warp wq 16 of them
+  const int wg = warp / 4, wq = warp % 4, quad = lane / 4, c = lane % 4;
+  unsigned char* xt_hi = reinterpret_cast<unsigned char*>(xt + wg * wg32::XT_ELEMS);
+  unsigned char* xt_lo = xt_hi + BN * BK * sizeof(float);
+  const uint64_t d_hi = sw128_desc(xt_hi), d_lo = sw128_desc(xt_lo);
+  float acc[BN / 2];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < items; t += gridDim.x) {
+    const int s = t / tiles, tile = t % tiles;
+    const int o0 = tile / i_tiles * BM, i0 = tile % i_tiles * BN;
+    const bool active = o0 + 64 * wg < p.O;
+    const int kb0 = s * p.kb_per_split, kb1 = min(k_total, kb0 + p.kb_per_split);
+    for (int kb = kb0; kb < kb1; ++kb) {
+      mbar_wait(&full[stage], phase);
+      uint32_t a_hi[4][4], a_lo[4][4];
+      if (active) {
+        const unsigned char* st =
+            reinterpret_cast<const unsigned char*>(ring + stage * wg32::STAGE_ELEMS);
+        // G^T fragments: this warp's o pair (2 quad, + 1) at m = 8 k + 2 c
+        // (column c of k-step k) and m = 8 k + 2 c + 1 (column c + 4)
+        const unsigned char* gbox = st + (2 * wg + wq / 2) * BOX * sizeof(float);
+        const int go = 16 * (wq % 2) + 2 * quad;
+        float2 g[4][2];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            g[k][e] = *reinterpret_cast<const float2*>(gbox + box32_offset(8 * k + 2 * c + e, go));
+        // X^T: four (i, chunk) tasks of this lane, each the four m of one
+        // 16-byte chunk of a k-step (columns 4 h + u hold m = 8 k + 2 u + h)
+        float x[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int task = 4 * wq + n, b = task >> 3, k = (task >> 1) & 3, h = task & 1;
+          const unsigned char* xbox = st + (wg32::G_BOXES + b) * BOX * sizeof(float);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            x[n][u] = *reinterpret_cast<const float*>(xbox + box32_offset(8 * k + 2 * u + h, lane));
+        }
+        warpgroup_sync(wg);   // this warpgroup's products of the k-block before are done
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int task = 4 * wq + n, b = task >> 3, k = (task >> 1) & 3, h = task & 1;
+          const int i = 32 * b + lane, chunk = 2 * k + h;
+          const int off = i * 128 + ((chunk ^ (i & 7)) << 4);
+          float hi[4], lo[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            hi[u] = tf32_rna(x[n][u]);
+            lo[u] = tf32_rna(x[n][u] - hi[u]);
+          }
+          *reinterpret_cast<float4*>(xt_hi + off) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<float4*>(xt_lo + off) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+        }
+        // the A fragments: (row quad, column c), (quad + 8, c), (quad, c + 4), (quad + 8, c + 4)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float v[4] = {g[k][0].x, g[k][0].y, g[k][1].x, g[k][1].y};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float hv = tf32_rna(v[r]);
+            a_hi[k][r] = __float_as_uint(hv);
+            a_lo[k][r] = __float_as_uint(tf32_rna(v[r] - hv));
+          }
+        }
+      }
+      // the stage is in registers and in X^T: it goes back to the producer
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (active) {
+        fence_proxy_async();
+        warpgroup_sync(wg);   // X^T is written
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          wgmma_rs_tf32(acc, a_lo[k], d_hi + 2 * k, kb > kb0 || k > 0);
+          wgmma_rs_tf32(acc, a_hi[k], d_lo + 2 * k, 1);
+          wgmma_rs_tf32(acc, a_hi[k], d_hi + 2 * k, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      if (++stage == wg32::STAGES) { stage = 0; phase ^= 1; }
+    }
+    if (!active) continue;
+
+    // row r of the warp's 16 holds o = 2 (r % 8) + r / 8: this thread's rows
+    // quad and quad + 8 are the neighbouring o = 2 quad and 2 quad + 1
+    const int row = o0 + wg * 64 + wq * 16 + 2 * quad;
+    const int col = i0 + 2 * c;
+    float* out = p.partial + (long long)s * p.O * p.I;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = col + 8 * j;   // I % 8 == 0: n, n + 1 both in or both out
+      if (n >= p.I) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (row + h < p.O)
+          store2(out + (long long)(row + h) * p.I + n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
 }
@@ -918,16 +1118,23 @@ inline cudaError_t linear_sm90(const LinearT<T>& p, cudaStream_t st) {
 // The split of a weight gradient's M rows into row ranges: as many ranges
 // as fill kWgradSlots CTA slots (two CTAs on each of an H100's 132 SMs) with
 // (tile, range) items, each range a whole number of k-blocks (64 rows of
-// bf16, 32 of fp32) and none empty. A function of the shape alone, so the
-// workspace can be sized before a launch and the sum order is the same on
-// every run.
+// bf16, 32 of fp32) and none empty. fp32: that many times the smallest
+// whole number that keeps a range within kWgradF32Depth k-blocks (1,536
+// rows). The tensor cores' fp32 accumulator loses more low bits the longer
+// one sum runs (on the card, a 12,672-row range at D = 384 read 0.036 of the
+// bf16 form's error, 4,608 rows at D = 192 0.014; the limit is 0.02); the
+// ranges' partials are added in fp32 by reduce_partials_kernel. A function
+// of the shape alone, so the workspace can be sized before a launch and the
+// sum order is the same on every run.
 constexpr int kWgradSlots = 2 * 132;
+constexpr int kWgradF32Depth = 48;
 
 template <typename T = bf16>
 inline void weight_grad_plan(int M, int O, int I, int* splits, int* kb_per_split) {
   const int tiles = (O + sm90::BM - 1) / sm90::BM * ((I + sm90::BN - 1) / sm90::BN);
   const int k_total = (M + Operand<T>::BK - 1) / Operand<T>::BK;
   int s = (kWgradSlots + tiles - 1) / tiles;
+  if (is_f32<T>) s *= (k_total + s * kWgradF32Depth - 1) / (s * kWgradF32Depth);
   s = s < 1 ? 1 : (s > k_total ? k_total : s);
   const int per = (k_total + s - 1) / s;
   *kb_per_split = per;
@@ -942,30 +1149,30 @@ inline long long weight_grad_partial_len(int M, int O, int I) {
   return (long long)splits * O * I;
 }
 
-// The row length of the transposed G^T and X^T of an fp32 weight gradient:
-// M rounded up to a multiple of 4 (TMA strides are multiples of 16 bytes).
-inline int transposed_ld(int M) { return (M + 3) / 4 * 4; }
-
 static int wgrad_grid[2][kMaxDevices];   // [fp32][device]
 
 // Launches the partials of dW[O, I] = g^T x into `partial`
 // (weight_grad_partial_len<T> floats) on `st` and returns the number of
-// partials through `splits`. bf16: g [M, O] and x [M, I] row-major. fp32:
-// g and x are G^T [O, M] and X^T [I, M], rows transposed_ld(M) apart. Takes
-// O and I multiples of 8 and 16-byte-aligned g and x; cudaErrorInvalidValue,
-// without a launch, for anything else.
+// partials through `splits`: g [M, O] and x [M, I] row-major, bf16 or fp32
+// (weight_grad_f32_kernel). Takes O and I multiples of 8 and 16-byte-aligned
+// g and x; cudaErrorInvalidValue, without a launch, for anything else.
 template <typename T>
 inline cudaError_t weight_grad_partials_sm90(const T* g, const T* x, int M, int O, int I,
                                              float* partial, int* splits, cudaStream_t st) {
   if (M < 1 || O < 8 || I < 8 || O % 8 || I % 8 || ((uintptr_t)g | (uintptr_t)x) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap tg, tx;
-  const bool mapped =
-      is_f32<T> ? kmajor_map(&tg, g, O, M, 64, transposed_ld(M)) &&
-                      kmajor_map(&tx, x, I, M, sm90::BN, transposed_ld(M))
-                : kmajor_map(&tg, g, M, O, Operand<T>::BK) &&
-                      kmajor_map(&tx, x, M, I, Operand<T>::BK);
-  if (!mapped) return cudaErrorInvalidValue;
+  if (!kmajor_map(&tg, g, M, O, Operand<T>::BK) || !kmajor_map(&tx, x, M, I, Operand<T>::BK))
+    return cudaErrorInvalidValue;
+  void (*kernel)(CUtensorMap, CUtensorMap, WeightGrad);
+  size_t smem;
+  if constexpr (is_f32<T>) {
+    kernel = weight_grad_f32_kernel<T>;
+    smem = wg32::SMEM_BYTES;
+  } else {
+    kernel = weight_grad_kernel<T>;
+    smem = sm90::smem_bytes<T>();
+  }
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -973,12 +1180,10 @@ inline cudaError_t weight_grad_partials_sm90(const T* g, const T* x, int M, int 
   int& slots = wgrad_grid[is_f32<T>][dev];
   if (!slots) {
     int sms = 0, per_sm = 0;
-    e = cudaFuncSetAttribute(weight_grad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm90::smem_bytes<T>());
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, weight_grad_kernel<T>,
-                                                        sm90::THREADS, sm90::smem_bytes<T>());
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, sm90::THREADS, smem);
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     slots = sms * per_sm;
@@ -990,7 +1195,7 @@ inline cudaError_t weight_grad_partials_sm90(const T* g, const T* x, int M, int 
   const long long items = (long long)((O + sm90::BM - 1) / sm90::BM) *
                           ((I + sm90::BN - 1) / sm90::BN) * p.splits;
   const int grid = (int)(items < slots ? items : slots);
-  weight_grad_kernel<T><<<grid, sm90::THREADS, sm90::smem_bytes<T>(), st>>>(tg, tx, p);
+  kernel<<<grid, sm90::THREADS, smem, st>>>(tg, tx, p);
   *splits = p.splits;
   return cudaGetLastError();
 }

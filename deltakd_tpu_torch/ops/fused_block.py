@@ -590,30 +590,32 @@ def plain_weight_grad(g, x, dtype=torch.bfloat16):
 def kernel_weight_grad(g, x):
     """One weight gradient of the block backward alone, on its TMA + wgmma
     GEMM (``dk_weight_grad_sm90``: fp32 partials over row ranges, summed in a
-    fixed order), no autograd; CUDA tensors: g [M, O] and x [M, I] bf16 with
-    O and I multiples of 8. No model path calls it. Returns what
-    :func:`plain_weight_grad` returns."""
+    fixed order; for fp32 g and x its fp32 form ``dk_weight_grad_sm90_f32``,
+    3xTF32), no autograd; CUDA tensors: g [M, O] and x [M, I], both bf16 or
+    both fp32, with O and I multiples of 8. No model path calls it. Returns
+    what :func:`plain_weight_grad` returns at their dtype."""
     if (g.dim() != 2 or x.dim() != 2 or g.shape[0] != x.shape[0]
-            or g.dtype != torch.bfloat16 or x.dtype != torch.bfloat16
+            or g.dtype not in (torch.bfloat16, torch.float32) or x.dtype != g.dtype
             or g.device.type != "cuda" or x.device != g.device
             or g.shape[1] % 8 or x.shape[1] % 8):
-        raise ValueError(f"weight grad: takes CUDA bf16 g [M, O] and x [M, I] with O, I "
-                         f"multiples of 8, got {g.dtype} {tuple(g.shape)} and {x.dtype} "
-                         f"{tuple(x.shape)} on {g.device}")
+        raise ValueError(f"weight grad: takes CUDA g [M, O] and x [M, I], both bf16 or both "
+                         f"fp32, with O, I multiples of 8, got {g.dtype} {tuple(g.shape)} and "
+                         f"{x.dtype} {tuple(x.shape)} on {g.device}")
     M, O = g.shape
     I = x.shape[1]
     g, x = g.contiguous(), x.contiguous()
+    name = "weight_grad_sm90" + ("_f32" if g.dtype == torch.float32 else "")
     lib = _library("fused_block_bwd")
     with torch.cuda.device(g.device):
-        partial = torch.empty(lib.dk_weight_grad_sm90_workspace(M, O, I), dtype=torch.uint8,
+        partial = torch.empty(getattr(lib, f"dk_{name}_workspace")(M, O, I), dtype=torch.uint8,
                               device=g.device)
         out = torch.empty((O, I), dtype=torch.float32, device=g.device)
-        err = lib.dk_weight_grad_sm90(g.data_ptr(), x.data_ptr(), M, O, I, partial.data_ptr(),
-                                      out.data_ptr(),
-                                      torch.cuda.current_stream(g.device).cuda_stream)
+        err = getattr(lib, f"dk_{name}")(g.data_ptr(), x.data_ptr(), M, O, I, partial.data_ptr(),
+                                         out.data_ptr(),
+                                         torch.cuda.current_stream(g.device).cuda_stream)
     if err:
-        raise RuntimeError(f"weight grad: CUDA error {err} at launch")
-    LAUNCHES[("weight_grad_sm90", O)] += 1
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    LAUNCHES[(name, O)] += 1
     return out
 
 

@@ -192,8 +192,7 @@ def workspace_bytes(M: int, D: int, F: int, name: str = "fused_mlp_bwd") -> int:
     """Bytes of the workspace of backward kernel ``name`` (``fused_mlp_bwd``
     or ``fused_mlp_bwd_f32``) at [M, D] and hidden width F: h and dhpre in
     the operand dtype, gelu' in fp32, W1 and W2 transposed, the partials of
-    the wider weight gradient and of the column sums; in the fp32 form also
-    the weight gradients' transposed operands."""
+    the wider weight gradient and of the column sums."""
     return getattr(_library(), f"dk_{name}_workspace")(M, D, F)
 
 

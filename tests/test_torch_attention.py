@@ -28,8 +28,9 @@ torch.set_num_threads(1)
 TOL = 1e-5
 SHAPES = [(2, 2, 10, 8), (1, 3, 20, 16), (2, 1, 7, 64)]
 # the backward kernel's edges at head dim 64: one row, a 64-row tile and one
-# row more, and the longest sequence the kernels take
-KERNEL_LENGTHS = [(1, 2, 1, 64), (1, 2, 65, 64), (1, 1, 656, 64)]
+# row more, and the longest sequence the kernels take; then N = 50, under
+# one 64-row tile, for three heads (the fp32 backward's tiles are per head)
+KERNEL_LENGTHS = [(1, 2, 1, 64), (1, 2, 65, 64), (1, 1, 656, 64), (1, 3, 50, 64)]
 
 
 def _inputs(shape, seed=0):

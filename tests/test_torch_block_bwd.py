@@ -9,7 +9,8 @@ the factory's choice of kernels by dtype.
   two ways, so the tolerance is 1e-5 of the largest value (fp32 rounding).
 - `plain_weight_grad`, the weight gradient's plain version, against the four
   weight-gradient products of JAX `_block_bwd_reverse` at fp32, summed over
-  the batch; 1e-5 of the largest value (summation order).
+  the batch, at M = 36 and 18 rows; 1e-5 of the largest value (summation
+  order).
 - `plain_linear` with `mul`, the input gradient dhpre = (g_feat W2) * gelu',
   against the JAX reverse sweep's own formula on bf16 operands; 1e-5 of the
   largest value (summation order).
@@ -107,14 +108,15 @@ def _block(seed):
     return params, w, x, sa, sm, g_out
 
 
-def _reverse_operands(w, x, sa, sm, g_out):
+def _reverse_operands(w, x, sa, sm, g_out, batch=B):
     """Per weight-gradient product, (output cotangent G, input X) over the
-    batch's rows, built from JAX's stash as `_block_bwd_reverse` builds them,
-    and JAX's own weight gradient summed over the batch (torch layout)."""
+    rows of the first ``batch`` elements, built from JAX's stash as
+    `_block_bwd_reverse` builds them, and JAX's own weight gradient summed
+    over those elements (torch layout)."""
     scale = HD ** -0.5
     ops = {"w2": [], "w1": [], "wproj": [], "wqkv": []}
     sums = {}
-    for b in range(B):
+    for b in range(batch):
         _, stash = jfb._block_fwd_stash(jnp.asarray(x[b]), w, sa[b], 1e-6, H, D, scale,
                                         jnp.float32)
         (y, qkv, es, rss, merged, _, _, xhat2, rstd2, z, h, hgrad) = stash
@@ -136,10 +138,17 @@ def _reverse_operands(w, x, sa, sm, g_out):
     return ops, sums
 
 
-@pytest.mark.parametrize("product", ["w2", "w1", "wproj", "wqkv"])
-def test_plain_weight_grad_matches_jax_reverse_sweep(product):
+PRODUCTS = ["w2", "w1", "wproj", "wqkv"]
+
+
+# fp32 throughout; M = B x N = 36 rows, and one element's 18 (no multiple of
+# 4 or of the fp32 kernel's 32-row k-block, the edges its tiling treats
+# apart)
+@pytest.mark.parametrize("product,batch", [pytest.param(p, B, id=p) for p in PRODUCTS]
+                         + [pytest.param(p, 1, id=f"{p}-M{N}") for p in PRODUCTS])
+def test_plain_weight_grad_matches_jax_reverse_sweep(product, batch):
     _, w, x, sa, sm, g_out = _block(3)
-    ops, sums = _reverse_operands(w, x, sa, sm, g_out)
+    ops, sums = _reverse_operands(w, x, sa, sm, g_out, batch)
     g = torch.from_numpy(np.stack([o[0] for o in ops[product]]))
     a = torch.from_numpy(np.stack([o[1] for o in ops[product]]))
     got = tfb.plain_weight_grad(g, a, torch.float32)

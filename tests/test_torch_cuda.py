@@ -16,8 +16,9 @@ that runs without a card). The fp32 forms of the block and attention kernels
 at B=8 (chip_smoke.py phase 13's criterion): each error against the plain
 fp32 version (TF32 off) at most 0.02 of the bf16 kernel's on the same
 inputs (every fp32 product is 3xTF32), or below 1e-6 of the largest value;
-two runs the same bits; the same for the MLP forward's and backward's fp32
-forms at every zoo width and for the block pair's fp32 forms in the four
+two runs the same bits; the same for the fp32 weight gradient alone at the
+backward's four shapes and M = 1001, 1584, 50688, for the MLP forward's and
+backward's fp32 forms at every zoo width and for the block pair's fp32 forms in the four
 feature variants, and a paired fp32 soft-KD step (6 fp32 pair forwards and 6
 fp32 pair backwards; its `cpu` case runs without a card). The
 block-pair kernels: the four (feat1, feat2) variants at D=192 and D=384 on
@@ -541,8 +542,34 @@ def test_fp32_block_kernels_match_plain_version_on_card(width, heads, n_tok, nee
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [1001, 1584, 50688])
+@pytest.mark.parametrize("O,I", [(192, 768), (768, 192), (576, 192), (192, 192)])
+def test_fp32_weight_grad_matches_plain_version_on_card(M, O, I, tf32_off):
+    """The fp32 weight gradient alone (dk_weight_grad_sm90_f32: G and X read
+    as they lie, their K-major TF32 operands made on chip) against the plain
+    fp32 product with TF32 off, by phase 13's criterion beside the bf16
+    kernel on G and X rounded to bf16; M not a multiple of the 32-row
+    k-block; two runs the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(M + O + I)
+    G = torch.randn(M, O, generator=g).cuda()
+    X = torch.randn(M, I, generator=g).cuda()
+    fb.reset_launches()
+    dw = fb.kernel_weight_grad(G, X)
+    assert fb.LAUNCHES == {("weight_grad_sm90_f32", O): 1}
+    assert dw.dtype == torch.float32 and dw.shape == (O, I)
+    _f32_within(dw, fb.kernel_weight_grad(G.bfloat16(), X.bfloat16()),
+                fb.plain_weight_grad(G, X, torch.float32))
+    assert torch.equal(dw, fb.kernel_weight_grad(G, X))
+    with pytest.raises(ValueError):
+        fb.kernel_weight_grad(G, X.bfloat16())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 3, 198, 64), (1, 2, 50, 64), (4, 65, 64),
-                                   (1, 1, 578, 64), (1, 2, 656, 64)])
+                                   (1, 1, 578, 64), (1, 2, 656, 64), (2, 3, 64, 64),
+                                   (1, 2, 65, 64)])
 def test_fp32_attention_kernels_match_plain_version_on_card(shape, tf32_off):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
