@@ -190,10 +190,15 @@ Phases, each of which fails the run:
      feature, dx and the 12 weight gradients, each error (the largest
      |difference| over the largest |plain value|) at most F32_RATIO of the
      bf16 kernel's against the same fp32 plain result on the same inputs (or
-     below F32_FLOOR), two runs the same bits; the fp32 MLP forward the same
-     way at D = 192, 384, 768, 1024 (M = 1584 and 1001) and at the teacher's
-     [50688, 384]; 13b the fp32 attention kernels the same way (o, lse, dq,
-     dk, dv), at [24, 198, 64], N
+     below F32_FLOOR), two runs the same bits; the fp32 weight gradient and
+     the fp32 linear product alone (`[gemm fp32 linear]`: the forward's four
+     products and the backward's four input gradients with their chains'
+     epilogues at D = 192 and 384, M = 1001 and 50688, each weight's TF32
+     split bit for bit against its plain version, timed in TFLOP/s beside
+     torch.matmul with TF32 allowed and off) the same way; the fp32 MLP
+     forward the same way at D = 192, 384, 768, 1024 (M = 1584 and 1001)
+     and at the teacher's [50688, 384]; 13b the fp32 attention kernels the
+     same way (o, lse, dq, dk, dv), at [24, 198, 64], N
      = 50, 65, 578 (4 and 1 heads) and 656 (the longest they take), at [24,
      198, 64] on bf16-exact inputs, through the autograd Function on strided
      views of a packed qkv, and at [1536, 198, 64] and [768, 198, 64]; the
@@ -362,6 +367,7 @@ BLOCK_KERNELS = ("linear_kernel", "weight_grad_kernel", "attention_fwd_kernel",
                  "ln_bwd_kernel", "gfeat_kernel", "reduce_chunks_kernel",
                  "reduce_partials_kernel", "transpose_kernel", "colsum_kernel",
                  # the fp32 forms' own kernels
+                 "linear_f32_kernel", "split_weights_tf32_kernel",
                  "attention_fwd_f32_kernel", "weight_grad_f32_kernel",
                  "attention_bwd_pack_f32_kernel", "attention_bwd_f32_kernel",
                  "attention_bwd_reduce_f32_kernel")
@@ -838,18 +844,20 @@ def print_backward_workspace(fb):
 LINEAR_PRODUCTS = (("qkv", 3, 1), ("proj", 1, 1), ("fc1", 4, 1), ("fc2", 1, 4))
 
 
-def _linear_inputs(name, D, M, seed):
+def _linear_inputs(name, D, M, seed, fp32=False):
     """One product's operands and the epilogue that forward_chain gives it:
     qkv scales its q columns by 64^-1/2, proj adds the drop-path-scaled bf16
     block input, fc1 applies GELU (and keeps its derivative), fc2 adds the
-    fp32 x2; the scales hold zeros."""
+    fp32 x2; the scales hold zeros. With ``fp32``, a, w and proj's residual
+    fp32, as the fp32 form's chain has them."""
     import torch
 
     mult = {n: (a, b) for n, a, b in LINEAR_PRODUCTS}[name]
     N, K = mult[0] * D, mult[1] * D
     g = torch.Generator().manual_seed(seed)
-    a = torch.randn(M, K, generator=g).cuda().bfloat16()
-    w = (torch.randn(N, K, generator=g) / math.sqrt(K)).cuda().bfloat16()
+    lp = (lambda t: t) if fp32 else (lambda t: t.bfloat16())
+    a = lp(torch.randn(M, K, generator=g).cuda())
+    w = lp((torch.randn(N, K, generator=g) / math.sqrt(K)).cuda())
     bias = (0.1 * torch.randn(N, generator=g)).cuda()
     kw = {}
     if name == "qkv":
@@ -861,7 +869,7 @@ def _linear_inputs(name, D, M, seed):
         s = (torch.rand(M // rps, generator=g) < 0.9).float() / 0.9
         s[0] = 0.0
         res = torch.randn(M, N, generator=g).cuda()
-        kw = dict(residual=res.bfloat16() if name == "proj" else res, res_scale=s.cuda(),
+        kw = dict(residual=lp(res) if name == "proj" else res, res_scale=s.cuda(),
                   rows_per_sample=rps)
     return a, w, bias, kw
 
@@ -4079,6 +4087,97 @@ def _hold_mlp_f32(fm, worst, M, D, seed, main=False):
               f"M={M} D={D}", [("o", out, out16, ref)], torch.equal(out, again))
 
 
+def check_fp32_linear(fb, worst, timed=False):
+    """Phase 13a, `[gemm fp32 linear]`: the fp32 linear product alone
+    (fb.kernel_linear on fp32 a and w: dk_linear_sm90_f32, the weight split
+    once into TF32 parts, A split in registers) on the forward's four
+    products with the epilogues forward_chain gives them (qkv's column
+    scale, proj's residual, fc1's bias, GELU and gelu', fc2's fp32 residual)
+    and the backward's four input gradients (on W^T; fc2's times gelu', with
+    its 128-row column sums), at D = 192 and 384, M = 1001 (ragged against
+    the 128-row tile) and M = 50688, against the plain fp32 version (TF32
+    off) under phase 13's criterion beside the bf16 kernel on the same
+    inputs rounded to bf16; two runs the same bits. Each weight's split alone
+    (fb.kernel_tf32_split: the forward's, and the backward's transposed
+    split of W^T) equals fb.tf32_split bit for bit. With ``timed``, each
+    product at M = 50688 in TFLOP/s of fp32 work beside one torch.matmul
+    with TF32 allowed and one with TF32 off. Returns {(kind, name, D): (ms,
+    TF32 matmul ms, fp32 matmul ms)}."""
+    import torch
+
+    def hold_split(w, transposed):
+        hi, lo = fb.kernel_tf32_split(w, transposed)
+        r_hi, r_lo, _ = fb.tf32_split(w.t() if transposed else w)
+        torch.cuda.synchronize()
+        ok = torch.equal(hi, r_hi) and torch.equal(lo, r_lo)
+        print(f"[gemm fp32 linear] split of {'W^T' if transposed else 'W'} {tuple(w.shape)}: "
+              f"hi and lo {'equal' if ok else 'differ from'} tf32_split's bits "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the fp32 weight split of {tuple(w.shape)} (transposed "
+                                 f"{transposed}) is not tf32_split's")
+
+    def hold(tag, a, w, bias, kw, col_part=False):
+        M, N = a.shape[0], w.shape[0]
+        parts = [torch.empty((M + 127) // 128, N, device="cuda") for _ in range(3)] \
+            if col_part else [None] * 3
+        got = fb.kernel_linear(a, w, bias, col_part=parts[0], **kw)
+        again = fb.kernel_linear(a, w, bias, col_part=parts[1], **kw)
+        got16 = fb.kernel_linear(a.bfloat16(), w.bfloat16(), bias, col_part=parts[2], **kw)
+        ref = fb.plain_linear(a, w, bias, dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        checks = [(name, g, g16, r) for name, g, g16, r in
+                  zip(("out32", "out_lp", "pre", "gelu'"), got, got16, ref) if g is not None]
+        same = all(torch.equal(g, g2) for g, g2 in zip(got, again) if g is not None)
+        if col_part:
+            rows = torch.zeros(parts[0].shape[0] * 128, N, device="cuda")
+            rows[:M] = ref[0]
+            checks.append(("col_part", parts[0], parts[2], rows.view(-1, 128, N).sum(1)))
+            same = same and torch.equal(parts[0], parts[1])
+        _hold_f32(worst, "linear_sm90_f32", tag, checks, same)
+
+    times = {}
+
+    def time_one(key, a, w, bias, kw):
+        (M, K), N = a.shape, w.shape[0]
+        flops = 2 * M * N * K
+        ms = _timed(lambda: fb.kernel_linear(a, w, bias, **kw), 20)
+        tf32_ms = _with_tf32(lambda: _timed(lambda: torch.matmul(a, w.t()), 20))
+        f32_ms = _timed(lambda: torch.matmul(a, w.t()), 20)
+        times[key] = (ms, tf32_ms, f32_ms)
+        print(f"[gemm fp32 linear] {key[0]} {key[1]} D={key[2]} [{M}x{K}]x[{K}x{N}] writing "
+              f"{'+'.join(kw['outputs'])}: {ms:.4f} ms {flops / ms / 1e9:.1f} TFLOP/s of fp32 "
+              f"work; torch.matmul TF32 allowed {tf32_ms:.4f} ms {flops / tf32_ms / 1e9:.1f}, "
+              f"TF32 off {f32_ms:.4f} ms {flops / f32_ms / 1e9:.1f}")
+
+    for D in (192, 384):
+        for name, _, _ in LINEAR_PRODUCTS:
+            for M in (1001, M_MAIN):
+                a, w, bias, kw = _linear_inputs(name, D, M, D + M + 1, fp32=True)
+                if M == M_MAIN:
+                    hold_split(w, False)
+                hold(f"{name} D={D} M={M}", a, w, bias, kw)
+            if timed:
+                time_one(("linear", name, D), a, w, bias,
+                         dict(kw, outputs=LINEAR_MAIN_OUTPUTS[name]))
+        for name, o_mult, i_mult in BACKWARD_PRODUCTS:
+            O, I = o_mult * D, i_mult * D
+            for M in (1001, M_MAIN):
+                g = torch.Generator(device="cuda").manual_seed(D + M + O + 2)
+                G = torch.randn(M, O, generator=g, device="cuda")
+                W = torch.randn(O, I, generator=g, device="cuda") / math.sqrt(O)
+                mul = (1.2 * torch.rand(M, I, generator=g, device="cuda") - 0.1
+                       if name == "fc2" else None)
+                if M == M_MAIN:
+                    hold_split(W, True)
+                hold(f"dgrad {name} D={D} M={M}", G, W.t().contiguous(), None,
+                     dict(mul=mul), col_part=mul is not None)
+            if timed:
+                time_one(("dgrad", name, D), G, W.t().contiguous(), None,
+                         dict(mul=mul, outputs=DGRAD_OUTPUTS[name]))
+    return times
+
+
 def check_fp32_weight_grads(fb, worst, timed=False):
     """Phase 13a: the fp32 weight gradient alone (fb.kernel_weight_grad on
     fp32 G and X, dk_weight_grad_sm90_f32) at the backward's four products,
@@ -4130,9 +4229,11 @@ def print_fp32_backward_workspace(fb, fm, at):
     """The fp32 block, pair and MLP backwards' workspace at the main shapes
     beside F32_BWD_WORKSPACE_BEFORE: fails unless each is below it and the
     difference is the transposed G and X it no longer carves, less the
-    larger row-range partials of the shorter fp32 ranges and, for the block
-    and the pair, less what the attention backward's workspace adds to the
-    slice it shares with dhpre."""
+    larger row-range partials of the shorter fp32 ranges, less the weights
+    split into TF32 hi and lo (each stash's four split weights, the lo half
+    of each transposed weight; the MLP's transposes and its recompute's W1)
+    and, for the block and the pair, less what the attention backward's
+    workspace adds to the slice it shares with dhpre."""
     D, H, N, B = 192, 3, N_TOK, B_MAIN
     F, M = 4 * D, B * N
 
@@ -4148,12 +4249,19 @@ def print_fp32_backward_workspace(fb, fm, at):
     now = {name: fb.workspace_bytes(name, (B, N, D), H, F)
            for name in ("fused_block_bwd_f32", "fused_pair_bwd_f32")}
     now["fused_mlp_bwd_f32"] = fm.workspace_bytes(M, D, F, "fused_mlp_bwd_f32")
+    wn = (3 * D * D, D * D, F * D, D * F)
+    stash_split = sum(r256(2 * n * 4) for n in wn)
+    lo_halves = sum(r256(2 * n * 4) - r256(n * 4) for n in wn)
+    split = {"fused_block_bwd_f32": stash_split + lo_halves,
+             "fused_pair_bwd_f32": 2 * stash_split + lo_halves,
+             "fused_mlp_bwd_f32": 2 * (r256(2 * F * D * 4) - r256(F * D * 4)) + r256(2 * F * D * 4)}
     for name, before in F32_BWD_WORKSPACE_BEFORE.items():
         added = partial - F32_WGRAD_PARTIAL_BEFORE + (0 if "mlp" in name else grown)
-        want = before - gt_xt + added
+        want = before - gt_xt + added + split[name]
         print(f"[workspace fp32] {name}: {now[name]} bytes, before {before}, "
               f"{before - now[name]} less; G^T and X^T ({gt_xt}) gone, the weight-gradient "
-              f"partials {partial} (before {F32_WGRAD_PARTIAL_BEFORE})"
+              f"partials {partial} (before {F32_WGRAD_PARTIAL_BEFORE}), the split weights "
+              f"{split[name]}"
               + ("" if "mlp" in name else f", the attention backward's workspace {attn} in "
                  f"dhpre's slice ({grown} more)"))
         if now[name] != want or now[name] >= before:
@@ -4976,12 +5084,25 @@ FAULTS = (
        "void store2_lp(float* p, float a, float b) { store2(p, "
        "__bfloat162float(__float2bfloat16(a)), __bfloat162float(__float2bfloat16(b))); }"),),
      "--fp32-checks"),
-    # the lo part of the GEMM's A tiles left out: 2xTF32, a single TF32
-    # rounding of every activation operand
+    # the product of A's hi part with B's lo part left out of the fp32 GEMM's
+    # k-step: 2xTF32, a single TF32 rounding of every weight operand
     ("the lo part of one operand of the fp32 GEMM left out",
      "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
-     (("    wgmma_ss_tf32(d, da_lo, db, acc);\n    wgmma_ss_tf32(d, da, db_lo, 1);",
-       "    wgmma_ss_tf32(d, da, db_lo, acc);"),), "--fp32-checks"),
+     (("          wgmma_rs_tf32(acc[nb], a_lo[f], hi, kb > 0 || s > 0);\n"
+       "          wgmma_rs_tf32(acc[nb], a_hi[f], lo, 1);",
+       "          wgmma_rs_tf32(acc[nb], a_lo[f], hi, kb > 0 || s > 0);"),), "--fp32-checks"),
+    # the fp32 GEMM's weight split once per call (split_weights_tf32_kernel)
+    # and its A split in registers (linear_f32_kernel)
+    ("the pre-split's lo part left out for B", "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
+     (("      l[c] = x.y;", "      l[c] = 0.f;"),), "--fp32-checks"),
+    # k-step 1 of each weight's row 0: its columns 0 and 1 hold m = 1 and 0
+    ("a slot swap in one 8-block of B's k permutation",
+     "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
+     (("      const int c = tf32_key_slot(m);",
+       "      const int c = tf32_key_slot(i == 1 ? m ^ 1 : m);"),), "--fp32-checks"),
+    ("A's lo part dropped in registers", "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
+     (("          a_lo[f][i] = __float_as_uint(hl.y);", "          a_lo[f][i] = 0u;"),),
+     "--fp32-checks"),
     # the columns of every transposed tile in their natural order, where the
     # A fragments from registers want them in tf32_key_slot order
     ("a wrong transpose of a tile (V^T of the forward, K^T of the backward)",
@@ -5183,6 +5304,7 @@ def main() -> int:
         seeds = int(sys.argv[sys.argv.index("--seeds") + 1]) if "--seeds" in sys.argv else 1
         check_fp32_blocks(fb, worst, seeds)
         check_fp32_weight_grads(fb, worst)
+        check_fp32_linear(fb, worst)
         check_fp32_mlp(fm, worst, seeds)
         check_fp32_attention(at, worst)
         check_fp32_mlp_backward(fm, worst, seeds)
@@ -5316,6 +5438,7 @@ def main() -> int:
     t0 = time.perf_counter()
     check_fp32_blocks(fb, worst)
     check_fp32_weight_grads(fb, worst)
+    check_fp32_linear(fb, worst, timed=True)
     print_fp32_backward_workspace(fb, fm, at)
     check_fp32_mlp(fm, worst)
     check_fp32_attention(at, worst)
@@ -5393,6 +5516,11 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src[kernel][0],
                         "replaces": src[kernel][1], "launches": sum(launched.values()),
                         "launches_by_path": launched, "max_abs_err": max_abs_err, **row})
+        if kernel.endswith("_f32") and not kernel.startswith("flash"):
+            # the fp32 linear product's kernels inside the entry point (gemm_sm90.cuh;
+            # a backward splits W^T in its transpose)
+            kernels[-1]["gemm_kernels"] = ["split_weights_tf32_kernel", "linear_f32_kernel"] + (
+                ["transpose_kernel"] if "_bwd" in kernel else [])
     if {k["source"] for k in kernels} != {csrc + f"{n}.cu" for n in _build.SOURCES}:
         raise AssertionError("a built source has no kernel in the report")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -28,12 +28,15 @@ def _block_signatures(name: str) -> dict:
 # The C interface of each source: function -> (argument types, result type).
 # Every pointer and the stream are c_void_p, or ctypes would cut them to 32 bits.
 SIGNATURES = {
-    # the forward in bf16 and fp32, and one of its linear products alone
-    # (gemm_sm90.cuh)
+    # the forward in bf16 and fp32, one of its linear products alone in
+    # either form (gemm_sm90.cuh), and the fp32 weight operand's split alone
     "fused_block_fwd": {**_block_signatures("fused_block_fwd"),
                         **_block_signatures("fused_block_fwd_f32"),
-                        "dk_linear_sm90": ([ctypes.POINTER(_PTR)] + [_INT] * 4
-                                           + [ctypes.c_float, _INT, _INT, _PTR], _INT)},
+                        **{f"dk_linear_sm90{form}": ([ctypes.POINTER(_PTR)] + [_INT] * 4
+                                                     + [ctypes.c_float, _INT, _INT, _PTR], _INT)
+                           for form in ("", "_f32")},
+                        "dk_linear_sm90_f32_workspace": ([_INT] * 2, ctypes.c_size_t),
+                        "dk_tf32_split": ([_PTR, _INT, _INT, _INT, _PTR, _PTR], _INT)},
     # the backward in bf16 and fp32, and one of its weight gradients alone
     # in either form (gemm_sm90.cuh)
     "fused_block_bwd": {**_block_signatures("fused_block_bwd"),

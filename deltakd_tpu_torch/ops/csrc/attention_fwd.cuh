@@ -280,16 +280,9 @@ __device__ __forceinline__ uint64_t f32_kstep_desc(const float* tile, int kk) {
   return sw128_desc(tile + (kk >> 2) * attn32::HALF) + 2 * (kk & 3);
 }
 
-// The column of key m (0-7) of a group of 8 in a tile whose columns are keys
-// (or queries) and that a TF32 product reads against an A operand taken
-// from accumulator registers: key 2c in column c, key 2c + 1 in column c + 4.
-__device__ __forceinline__ int tf32_key_slot(int m) { return (m >> 1) | ((m & 1) << 2); }
-
-// x as hi = tf32(x) and lo = tf32(x - hi), the two TF32 parts of 3xTF32.
-__device__ __forceinline__ float2 tf32_split(float x) {
-  const float hi = tf32_rna(x);
-  return make_float2(hi, tf32_rna(x - hi));
-}
+// tf32_key_slot (gemm_sm90.cuh) is the column of key m (0-7) of a group of
+// 8 in a tile whose columns are keys (or queries) and that a TF32 product
+// reads against an A operand taken from accumulator registers.
 
 // Rows [r0, r0 + 64) of one head (64 fp32 a row, `sn` elements apart) into
 // the hi tile of a split tile by cp.async, 16 bytes a thread; rows at or

@@ -34,7 +34,11 @@
 // run at the input's dtype). In the fp32 form every buffer that the bf16
 // form keeps in bf16 is fp32 and unrounded: nothing is rounded to bf16, and
 // every product, the GEMM's (gemm_sm90.cuh) and the attention cores', is
-// 3xTF32 on fp32 operands. Its weight gradients read G and X as they lie and
+// 3xTF32 on fp32 operands. The matmul weights are split into TF32 hi and lo
+// once per call, into the workspace: forward_chain splits the four it
+// multiplies by (`split_weights_tf32`), the backward's transpose writes W^T
+// split; the activations are split in registers by the GEMM itself
+// (`linear_f32_kernel`). Its weight gradients read G and X as they lie and
 // make their K-major TF32 operands on chip (gemm_sm90.cuh
 // `weight_grad_f32_kernel`), as the bf16 form reads them MN-major.
 
@@ -78,7 +82,10 @@ __global__ void reduce_partials_kernel(const float* partial, int chunks, long lo
 inline int blocks_of(long long n, int t) { return (int)((n + t - 1) / t); }
 
 // out [C, R] = in [R, C]^T, of T: an nn.Linear weight [O, I] as the K-major
-// [I, O] operand of an input gradient dX = G W on linear_sm90.
+// [I, O] operand of an input gradient dX = G W on linear_sm90. fp32: out is
+// the split operand of linear_f32_kernel ([2][C][R]: hi = TF32(v), lo =
+// TF32(v - hi), each k-step's 8 columns in tf32_key_slot order; R % 8 ==
+// 0), written in the same pass.
 template <typename T>
 __global__ void transpose_kernel(const T* in, int R, int C, T* out) {
   __shared__ T t[32][33];
@@ -90,7 +97,15 @@ __global__ void transpose_kernel(const T* in, int R, int C, T* out) {
   __syncthreads();
   for (int dy = threadIdx.y; dy < 32; dy += blockDim.y) {
     const int c = c0 + dy, r = r0 + threadIdx.x;
-    if (r < R && c < C) out[(long long)c * R + r] = t[threadIdx.x][dy];
+    if (r >= R || c >= C) continue;
+    if constexpr (is_f32<T>) {
+      const float2 x = tf32_split(t[threadIdx.x][dy]);
+      const long long o = (long long)c * R + ((r & ~7) | tf32_key_slot(r & 7));
+      out[o] = x.x;
+      out[(long long)C * R + o] = x.y;
+    } else {
+      out[(long long)c * R + r] = t[threadIdx.x][dy];
+    }
   }
 }
 
@@ -98,6 +113,13 @@ template <typename T>
 inline void transpose(const T* in, int R, int C, T* out, cudaStream_t st) {
   transpose_kernel<T><<<dim3(blocks_of(C, 32), blocks_of(R, 32)), dim3(32, 8), 0, st>>>(
       in, R, C, out);
+}
+
+// Elements of T of an [R, C] weight as linear_sm90's B operand
+// (LinearT::w): R C in bf16, 2 R C in the fp32 form (its TF32 hi and lo).
+template <typename T>
+constexpr long long weight_operand_len(long long R, long long C) {
+  return (is_f32<T> ? 2 : 1) * R * C;
 }
 
 // dW [O, I] = sum_m G[m, O]^T X[m, I] on the TMA + wgmma GEMM: fp32 partials
@@ -195,6 +217,9 @@ struct FwdBuffersT {
   T* y; T* qkv_lp; T* merged; float* x2; T* z; T* h;
   // stash (backward only)
   float *lse, *xhat1, *rstd1, *xhat2, *rstd2, *hgrad;
+  // fp32: the four matmul weights (qkv, proj, fc1, fc2) split into TF32
+  // parts, the products' B operands (split_weights_tf32)
+  T* w_split[4];
 
   void carve(Carver& c, const Shape& sh, bool stash) {
     const long long M = sh.M(), D = sh.D, F = sh.F;
@@ -213,6 +238,8 @@ struct FwdBuffersT {
       rstd2 = c.take<float>(M);
       hgrad = c.take<float>(M * sh.F);
     }
+    const long long wn[4] = {3 * D * D, D * D, F * D, D * F};
+    for (int j = 0; j < 4; ++j) w_split[j] = is_f32<T> ? c.take<T>(2 * wn[j]) : nullptr;
   }
 };
 
@@ -246,6 +273,16 @@ inline cudaError_t forward_chain(const TX* x, const float* s_attn, const float* 
   const long long M = sh.M();
   const float scale = 1.0f / sqrtf((float)hd);
   cudaError_t err;
+
+  if constexpr (is_f32<T>) {
+    // the weights split into TF32 hi and lo once, for every row tile of their
+    // products (fc2's only where it runs)
+    const T* ws[4] = {w.wqkv, w.wproj, w.w1, w.w2};
+    const long long wn[4] = {3LL * D * D, (long long)D * D, (long long)F * D, (long long)D * F};
+    if ((err = split_weights_tf32(out || out32 ? 4 : 3, ws, f.w_split, wn, st)) != cudaSuccess)
+      return err;
+    w.wqkv = f.w_split[0]; w.wproj = f.w_split[1]; w.w1 = f.w_split[2]; w.w2 = f.w_split[3];
+  }
 
   ln_fwd_kernel<TX, T><<<row_blocks(M), ROW_THREADS, 0, st>>>(
       x, w.g1, w.b1, (int)M, D, eps, f.y, stash ? f.xhat1 : nullptr,

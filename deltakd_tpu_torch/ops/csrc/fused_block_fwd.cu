@@ -80,18 +80,69 @@ extern "C" int dk_fused_block_fwd_f32(void* const* ptr, int B, int N, int D, int
 // path calls it): out = a w^T with the epilogue of `Linear`, as the forward's
 // products and the backward's input gradients run it. ptr: a [M, K] bf16,
 // w [N, K] bf16, then each of bias, act_grad, pre_lp, res_f32, res_bf16,
-// res_scale, out_f32, out_lp, mul or null. Returns the launch error, or
-// cudaErrorInvalidValue for a shape it does not take.
-extern "C" int dk_linear_sm90(void* const* ptr, int M, int N, int K, int scale_cols,
-                              float col_scale, int gelu, int rows_per_sample, void* stream) {
-  Linear l = linear_of((const bf16*)ptr[0], (const bf16*)ptr[1], M, N, K);
+// res_scale, out_f32, out_lp, mul, col_part or null. Returns the launch
+// error, or cudaErrorInvalidValue for a shape it does not take.
+template <typename T>
+static LinearT<T> linear_from_table(void* const* ptr, const T* w, int M, int N, int K,
+                                    int scale_cols, float col_scale, int gelu,
+                                    int rows_per_sample) {
+  LinearT<T> l = linear_of((const T*)ptr[0], w, M, N, K);
   l.bias = (const float*)ptr[2];
   l.scale_cols = scale_cols; l.col_scale = col_scale;
   l.gelu = gelu; l.act_grad = (float*)ptr[3];
-  l.pre_lp = (bf16*)ptr[4];
+  l.pre_lp = (T*)ptr[4];
   l.res_f32 = (const float*)ptr[5]; l.res_bf16 = (const bf16*)ptr[6];
   l.res_scale = (const float*)ptr[7]; l.rows_per_sample = rows_per_sample;
-  l.out_f32 = (float*)ptr[8]; l.out_lp = (bf16*)ptr[9];
-  l.mul = (const float*)ptr[10];
-  return (int)linear_sm90(l, (cudaStream_t)stream);
+  l.out_f32 = (float*)ptr[8]; l.out_lp = (T*)ptr[9];
+  l.mul = (const float*)ptr[10]; l.col_part = (float*)ptr[11];
+  return l;
+}
+
+extern "C" int dk_linear_sm90(void* const* ptr, int M, int N, int K, int scale_cols,
+                              float col_scale, int gelu, int rows_per_sample, void* stream) {
+  return (int)linear_sm90(linear_from_table(ptr, (const bf16*)ptr[1], M, N, K, scale_cols,
+                                            col_scale, gelu, rows_per_sample),
+                          (cudaStream_t)stream);
+}
+
+// Its fp32 form (linear_f32_kernel): a, w, pre_lp and out_lp fp32, the same
+// table and one more entry, ptr[12], the workspace of
+// dk_linear_sm90_f32_workspace(N, K) bytes into which w is split first
+// (split_weights_tf32_kernel), as an entry point of the chains splits its
+// weights.
+extern "C" size_t dk_linear_sm90_f32_workspace(int N, int K) {
+  return (size_t)2 * N * K * sizeof(float);
+}
+
+extern "C" int dk_linear_sm90_f32(void* const* ptr, int M, int N, int K, int scale_cols,
+                                  float col_scale, int gelu, int rows_per_sample, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* w = (const float*)ptr[1];
+  float* split = (float*)ptr[12];
+  const long long n = (long long)N * K;
+  if (K % 8) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = split_weights_tf32(1, &w, &split, &n, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)linear_sm90(linear_from_table(ptr, (const float*)ptr[12], M, N, K, scale_cols,
+                                            col_scale, gelu, rows_per_sample),
+                          st);
+}
+
+// The fp32 weight operand alone (a kernel-only check): w [R, C] fp32 split
+// into out [2][R][C] by split_weights_tf32_kernel, or, with `transposed`,
+// w^T into out [2][C][R] by the backward's transpose_kernel<float>. Takes C
+// (R when transposed) a multiple of 8 and 16-byte-aligned w and out.
+extern "C" int dk_tf32_split(const void* w, int R, int C, int transposed, void* out,
+                             void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (R < 1 || C < 1 || (transposed ? R : C) % 8 || ((uintptr_t)w | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (transposed) {
+    transpose((const float*)w, R, C, (float*)out, st);
+    return (int)cudaGetLastError();
+  }
+  const float* src = (const float*)w;
+  float* split = (float*)out;
+  const long long n = (long long)R * C;
+  return (int)split_weights_tf32(1, &src, &split, &n, st);
 }

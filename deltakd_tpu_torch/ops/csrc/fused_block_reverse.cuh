@@ -209,10 +209,11 @@ inline long long colsum_partial_len(const Shape& sh) {
 // The sweep's own buffers: the cotangents it carries between its kernels
 // (of T where only a product reads them, fp32 where a LayerNorm backward
 // does), the four matmul weights transposed ([I, O], K-major for
-// linear_sm90), and the partials of the weight and column sums. In the fp32
-// form the attention backward's workspace (attention_bwd.cuh,
-// `attention_bwd_f32_workspace`) shares its slice with dhpre, which is dead
-// from the fc1 input gradient on; the slice is the larger of the two.
+// linear_sm90; fp32: split into TF32 hi and lo by the transpose), and the
+// partials of the weight and column sums. In the fp32 form the attention
+// backward's workspace (attention_bwd.cuh, `attention_bwd_f32_workspace`)
+// shares its slice with dhpre, which is dead from the fc1 input gradient
+// on; the slice is the larger of the two.
 template <typename T>
 struct BwdBuffersT {
   float *dz, *dx2, *delta, *dy;
@@ -235,10 +236,10 @@ struct BwdBuffersT {
     delta = c.take<float>(sh.BH() * sh.N);
     dqkv_lp = c.take<T>(M * 3 * D);
     dy = c.take<float>(M * D);
-    wqkv_t = c.take<T>(3LL * D * D);
-    wproj_t = c.take<T>((long long)D * D);
-    w1_t = c.take<T>((long long)F * D);
-    w2_t = c.take<T>((long long)D * F);
+    wqkv_t = c.take<T>(weight_operand_len<T>(D, 3 * D));
+    wproj_t = c.take<T>(weight_operand_len<T>(D, D));
+    w1_t = c.take<T>(weight_operand_len<T>(D, F));
+    w2_t = c.take<T>(weight_operand_len<T>(F, D));
     partial = c.take<float>(wgrad_partial_len<T>(sh));
     col_partial = c.take<float>(colsum_partial_len(sh));
   }

@@ -315,24 +315,27 @@ __global__ void colsum_kernel(const T* a, int M, int D, float* partial) {
 
 // Workspace of the backward at operand type T: h and dhpre in T, gelu'(hpre)
 // in fp32, the weights transposed (K-major operands of the input
-// gradients), the row-range partials of the wider weight gradient, and the
-// column sums' partials (dhpre's per 128-row tile, dy's per CS_ROWS rows).
+// gradients; fp32: split into TF32 hi and lo by the transpose), the
+// row-range partials of the wider weight gradient, the column sums'
+// partials (dhpre's per 128-row tile, dy's per CS_ROWS rows), and, in the
+// fp32 form, W1 split for the recompute.
 template <typename T>
 struct MlpBwdBuffers {
-  T *h, *dhpre, *w1_t, *w2_t;
+  T *h, *dhpre, *w1_t, *w2_t, *w1_split;
   float *hgrad, *partial, *col_partial;
 
   void carve(Carver& c, int M, int D, int F) {
     h = c.take<T>((long long)M * F);
     dhpre = c.take<T>((long long)M * F);
     hgrad = c.take<float>((long long)M * F);
-    w1_t = c.take<T>((long long)D * F);
-    w2_t = c.take<T>((long long)F * D);
+    w1_t = c.take<T>(weight_operand_len<T>(D, F));
+    w2_t = c.take<T>(weight_operand_len<T>(F, D));
     const long long a = weight_grad_partial_len<T>(M, F, D),
                     b = weight_grad_partial_len<T>(M, D, F);
     partial = c.take<float>(a > b ? a : b);
     const long long t = (long long)linear_row_tiles(M) * F, r = (long long)cs_chunks(M) * D;
     col_partial = c.take<float>(t > r ? t : r);
+    w1_split = is_f32<T> ? c.take<T>(2LL * F * D) : nullptr;
   }
 };
 
@@ -362,7 +365,13 @@ int mlp_bwd(const void* x_, const void* w1_, const void* b1_, const void* w2_, c
   transpose(w2, D, F, g.w2_t, st);
 
   // recompute h = gelu(hpre) and gelu'(hpre), hpre = x W1^T + b1
-  LinearT<T> l = linear_of(x, w1, M, F, D);
+  const T* w1_op = w1;
+  if constexpr (is_f32<T>) {
+    const long long n = (long long)F * D;
+    if ((err = split_weights_tf32(1, &w1, &g.w1_split, &n, st)) != cudaSuccess) return (int)err;
+    w1_op = g.w1_split;
+  }
+  LinearT<T> l = linear_of(x, w1_op, M, F, D);
   l.bias = (const float*)b1_; l.gelu = 1; l.act_grad = g.hgrad;
   l.out_lp = g.h;
   if ((err = linear_sm90(l, st)) != cudaSuccess) return (int)err;
@@ -442,6 +451,7 @@ extern "C" int dk_fused_mlp_bwd(const void* x, const void* w1, const void* b1, c
 // the TF32 wgmma with fp32 accumulation (gemm_sm90.cuh), nothing rounded to
 // bf16. It is a chain on gemm_sm90.cuh's fp32 linear product, not the fused
 // kernel above:
+//   0. W1 and W2 split into TF32 hi and lo in the workspace (one launch);
 //   1. h = gelu(x W1^T + b1), erf-GELU in the epilogue (`gelu_erf`), stored
 //      fp32 in the workspace;
 //   2. out = h W2^T + b2, stored fp32.
@@ -450,9 +460,21 @@ extern "C" int dk_fused_mlp_bwd(const void* x, const void* w1, const void* b1, c
 // chip. At fp32 its x tile alone (64 rows x D 384 x 4 bytes) would take 96 KB
 // of shared memory, beside the split tiles of 3xTF32, so the fused design
 // needs a plan of its own; a simple chain comes first.
+// The workspace: h, then W1 and W2 split.
+struct MlpFwdF32Buffers {
+  float *h, *w1_split, *w2_split;
+
+  void carve(Carver& c, int M, int D, int F) {
+    h = c.take<float>((long long)M * F);
+    w1_split = c.take<float>(2LL * F * D);
+    w2_split = c.take<float>(2LL * D * F);
+  }
+};
+
 extern "C" size_t dk_fused_mlp_fwd_f32_workspace(int M, int D, int F) {
   Carver c{nullptr, 0};
-  c.take<float>((long long)M * F);
+  MlpFwdF32Buffers b;
+  b.carve(c, M, D, F);
   return c.off;
 }
 
@@ -467,13 +489,19 @@ extern "C" int dk_fused_mlp_fwd_f32(const void* x_, const void* w1_, const void*
   if (M < 1 || D < 8 || F < 8 || D % 8 || F % 8 || !work) return -1;
   cudaStream_t st = (cudaStream_t)stream;
   Carver c{(char*)work, 0};
-  float* h = c.take<float>((long long)M * F);
+  MlpFwdF32Buffers b;
+  b.carve(c, M, D, F);
+  const float* w[2] = {(const float*)w1_, (const float*)w2_};
+  float* split[2] = {b.w1_split, b.w2_split};
+  const long long n[2] = {(long long)F * D, (long long)D * F};
   cudaError_t err;
-  LinearT<float> f1 = linear_of((const float*)x_, (const float*)w1_, M, F, D);
+  if ((err = split_weights_tf32(2, w, split, n, st)) != cudaSuccess)
+    return err == cudaErrorInvalidValue ? -1 : (int)err;
+  LinearT<float> f1 = linear_of((const float*)x_, (const float*)b.w1_split, M, F, D);
   f1.bias = (const float*)b1_; f1.gelu = 1;
-  f1.out_lp = h;
+  f1.out_lp = b.h;
   if ((err = linear_sm90(f1, st)) != cudaSuccess) return err == cudaErrorInvalidValue ? -1 : (int)err;
-  LinearT<float> f2 = linear_of((const float*)h, (const float*)w2_, M, D, F);
+  LinearT<float> f2 = linear_of((const float*)b.h, (const float*)b.w2_split, M, D, F);
   f2.bias = (const float*)b2_;
   f2.out_f32 = (float*)out_;
   if ((err = linear_sm90(f2, st)) != cudaSuccess) return err == cudaErrorInvalidValue ? -1 : (int)err;

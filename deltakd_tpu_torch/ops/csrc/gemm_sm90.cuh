@@ -57,7 +57,7 @@
 // by one warpgroup in a fixed k order and the partials in a fixed order: no
 // atomics, two runs give the same bits.
 //
-// Both forms take fp32 operands as well (the operand type T, `Operand<T>`):
+// Both forms have fp32 counterparts (the operand type T, `Operand<T>`):
 // an fp32 product is 3xTF32 on the TF32 wgmma (m64n64k8.f32.tf32.tf32, 495
 // TFLOP/s dense) with fp32 accumulation. A 128-byte swizzle row holds 32
 // fp32, so a k-block is 32 deep and a stage holds the bf16 ring's bytes; a
@@ -69,11 +69,12 @@
 // a_hi b_hi + a_hi b_lo + a_lo b_hi, with hi = TF32(v) rounded to nearest and
 // lo = TF32(v - hi): about 21 bits of each operand. The operands are stored
 // fp32 and unrounded (`to_lp<float>` is the identity).
-// linear_kernel reads its fp32 tiles K-major as they land; the consumer
-// warps split each landed stage: hi in place (wgmma would otherwise truncate
-// the low 13 bits), lo into a double-buffered tile of its own (`split_tf32`),
-// then three wgmma per k-step. The lo tiles (48 KB) leave room for one CTA
-// an SM, not two.
+// The fp32 linear product is a kernel of its own, `linear_f32_kernel`: its
+// weight arrives split, once per call, into TF32 hi and lo ([2][N][K], each
+// k-step's 8 columns in tf32_key_slot order: `split_weights_tf32_kernel`,
+// or fused_block_common.cuh's transpose for an input gradient), and each
+// thread splits its A fragments in registers; nothing is split in shared
+// memory. See its comment.
 // The fp32 weight gradient's depth m is the strided dimension of G and X, so
 // it is a kernel of its own, `weight_grad_f32_kernel`: it lands G and X as
 // they lie, as the bf16 form does, and makes the K-major operands on chip in
@@ -102,6 +103,18 @@ __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return __uint_as_float(r);
+}
+
+// The column of k-step position m (0..7) of a K-major TF32 operand whose A
+// fragments come from registers: a thread with lane % 4 = t holds columns t
+// and t + 4, which this order makes the neighbouring m = 2t and 2t + 1 (one
+// float2 read). Column c holds m = 2 (c % 4) + c / 4.
+__host__ __device__ __forceinline__ int tf32_key_slot(int m) { return (m >> 1) | ((m & 1) << 2); }
+
+// x as hi = tf32(x) and lo = tf32(x - hi), the two TF32 parts of 3xTF32.
+__device__ __forceinline__ float2 tf32_split(float x) {
+  const float hi = tf32_rna(x);
+  return make_float2(hi, tf32_rna(x - hi));
 }
 
 __device__ __forceinline__ float gelu_erf(float x) {
@@ -334,22 +347,16 @@ struct Operand<bf16> {
   }
 };
 
-// fp32: one k-step is three TF32 products of the split tiles (hi in the
-// stage, lo in tiles of their own), the small terms first.
+// fp32: one k-step is three TF32 products of the hi and lo parts
+// (linear_f32_kernel, weight_grad_f32_kernel).
 template <>
 struct Operand<float> {
   static constexpr int BK = 32, KSTEP = 8;
   static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  static __device__ __forceinline__ void mma3(float (&d)[32], uint64_t da, uint64_t da_lo,
-                                              uint64_t db, uint64_t db_lo, int acc) {
-    wgmma_ss_tf32(d, da_lo, db, acc);
-    wgmma_ss_tf32(d, da, db_lo, 1);
-    wgmma_ss_tf32(d, da, db, 1);
-  }
 };
 
 // v as a product operand of type T: bf16 rounded to nearest, or fp32 as it
-// is (the fp32 GEMM splits its tiles into TF32 hi and lo parts itself).
+// is (the fp32 products split their operands into TF32 hi and lo parts).
 template <typename T>
 __device__ __forceinline__ T to_lp(float v);
 template <>
@@ -363,18 +370,69 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// The 3xTF32 split of n fp32 values of a tile in shared memory, by threads
-// `tid` of `nthreads`: t[i] = hi = TF32(t[i]) rounded to nearest, lo[i] =
-// TF32(t[i] - hi). Elementwise, so any layout (the swizzle too) carries over
-// to a lo tile at the same offset from a 1024-byte boundary.
-__device__ __forceinline__ void split_tf32(float* t, float* lo, int n, int tid, int nthreads) {
-  for (int i = 4 * tid; i < n; i += 4 * nthreads) {
-    float4 v = *reinterpret_cast<float4*>(t + i);
-    float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
-    *reinterpret_cast<float4*>(t + i) = h;
-    *reinterpret_cast<float4*>(lo + i) = make_float4(tf32_rna(v.x - h.x), tf32_rna(v.y - h.y),
-                                                     tf32_rna(v.z - h.z), tf32_rna(v.w - h.w));
+// ---------------------------------------------------------------------------
+// The fp32 weight operand, split once per call
+// ---------------------------------------------------------------------------
+
+// Up to four weights [R, C] (C % 8 == 0, 16-byte aligned) split in one
+// launch: out[0] = hi = TF32(w) rounded to nearest, out[1] = lo = TF32(w -
+// hi), each [R, C] with the 8 columns of every k-step in tf32_key_slot
+// order: the K-major B operand of linear_f32_kernel (`LinearT<float>::w`).
+struct Tf32Splits {
+  const float* w[4];
+  float* out[4];     // [2][R][C]
+  long long n[4];    // R * C
+  int count;
+};
+
+// One thread takes the 8 values of one k-step of one row of weight
+// blockIdx.y (two float4 in, two of hi and two of lo out).
+__global__ void split_weights_tf32_kernel(const Tf32Splits s) {
+  const int j = blockIdx.y;
+  const long long steps = s.n[j] / 8;
+  const float4* w = reinterpret_cast<const float4*>(s.w[j]);
+  float4* hi = reinterpret_cast<float4*>(s.out[j]);
+  float4* lo = hi + s.n[j] / 4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < steps;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float4 a = w[2 * i], b = w[2 * i + 1];
+    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    float h[8], l[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const float2 x = tf32_split(v[m]);
+      const int c = tf32_key_slot(m);
+      h[c] = x.x;
+      l[c] = x.y;
+    }
+    hi[2 * i] = make_float4(h[0], h[1], h[2], h[3]);
+    hi[2 * i + 1] = make_float4(h[4], h[5], h[6], h[7]);
+    lo[2 * i] = make_float4(l[0], l[1], l[2], l[3]);
+    lo[2 * i + 1] = make_float4(l[4], l[5], l[6], l[7]);
   }
+}
+
+// Splits `count` (1 to 4) weights w[j] of n[j] fp32 values (a multiple of 8,
+// 16-byte aligned) into out[j] (2 n[j] values: hi, then lo) in one launch on
+// `st`; cudaErrorInvalidValue, without a launch, for anything else.
+inline cudaError_t split_weights_tf32(int count, const float* const* w, float* const* out,
+                                      const long long* n, cudaStream_t st) {
+  if (count < 1 || count > 4) return cudaErrorInvalidValue;
+  Tf32Splits s = {};
+  s.count = count;
+  long long most = 0;
+  for (int j = 0; j < count; ++j) {
+    if (n[j] < 8 || n[j] % 8 || ((uintptr_t)w[j] | (uintptr_t)out[j]) % 16)
+      return cudaErrorInvalidValue;
+    s.w[j] = w[j];
+    s.out[j] = out[j];
+    s.n[j] = n[j];
+    most = n[j] > most ? n[j] : most;
+  }
+  const long long blocks = (most / 8 + 255) / 256;
+  split_weights_tf32_kernel<<<dim3((unsigned)(blocks < 1024 ? blocks : 1024), count), 256, 0,
+                              st>>>(s);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -388,7 +446,9 @@ template <typename T>
 struct LinearT {
   int M, N, K;
   const T* a;
-  const T* w;
+  const T* w;               // bf16: w [N, K]; fp32: w split into TF32 parts,
+                            // [2][N][K], hi then lo, each k-step's 8 columns in
+                            // tf32_key_slot order (split_weights_tf32)
   const float* bias;        // v += bias[n]
   int scale_cols;           // v *= col_scale for n < scale_cols
   float col_scale;
@@ -423,17 +483,10 @@ constexpr int BM = 128, BN = 64, STAGES = 4, CONSUMER_WARPS = 8, EPI_J = 4;
 constexpr int ROW_BYTES = 128;   // a k-block of one operand row: Operand<T>::BK elements
 constexpr int THREADS = (CONSUMER_WARPS + 1) * 32;
 constexpr int CTAS_PER_SM = 2;
-// fp32: the lo tiles of A and B, two sets (a k-block's products stay in
-// flight while the next k-block is split)
-template <typename T>
-constexpr int LO_ELEMS = is_f32<T> ? 2 * (BM + BN) * Operand<T>::BK : 0;
-// the ring, the lo tiles, the barriers, and the column sums of one tile per
-// consumer warp
-template <typename T>
-constexpr size_t smem_bytes() {
-  return (size_t)STAGES * (BM + BN) * ROW_BYTES + LO_ELEMS<T> * sizeof(T) +
-         2 * STAGES * sizeof(uint64_t) + CONSUMER_WARPS * BN * sizeof(float) + 1024;
-}
+// the ring, the barriers, and the column sums of one tile per consumer warp
+constexpr size_t SMEM_BYTES = (size_t)STAGES * (BM + BN) * ROW_BYTES +
+                              2 * STAGES * sizeof(uint64_t) + CONSUMER_WARPS * BN * sizeof(float) +
+                              1024;
 }  // namespace sm90
 
 // Row tiles of a linear product of M rows (the rows of `Linear::col_part`).
@@ -442,24 +495,6 @@ inline int linear_row_tiles(int M) { return (M + sm90::BM - 1) / sm90::BM; }
 // Barrier 1 among the consumer warps alone (the producer warp runs ahead).
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(sm90::CONSUMER_WARPS * 32) : "memory");
-}
-
-// fp32: the 3xTF32 split of a landed stage by the consumer warps. A
-// warpgroup splits its own 64 rows of A (`a`, its lo rows `a_lo`; with
-// `own_a` false it skips them: linear_kernel, the one caller, passes true), all
-// consumer threads together the B tile shared by both. The barrier before
-// keeps the lo tiles from being overwritten while the other warpgroup's
-// products of two k-blocks back may still read them (each warpgroup waits
-// for its own only); the one after publishes the split to both.
-__device__ __forceinline__ void split_stage(float* a, float* a_lo, float* b, float* b_lo,
-                                            bool own_a) {
-  using namespace sm90;
-  constexpr int BK = Operand<float>::BK;
-  consumer_sync();
-  if (own_a) split_tf32(a, a_lo, 64 * BK, threadIdx.x % 128, 128);
-  split_tf32(b, b_lo, BN * BK, threadIdx.x, CONSUMER_WARPS * 32);
-  fence_proxy_async();
-  consumer_sync();
 }
 
 // Two neighbouring outputs as one float2 / bf16x2 store.
@@ -513,20 +548,102 @@ __device__ __forceinline__ float2 load_residual(const LinearT<T>& p, long long c
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p.res_bf16 + c)));
 }
 
+// The epilogue of one 64-column block (n0, n0 + 64) of the 128-row output
+// tile at m0, from a consumer thread's accumulators of its wgmma rows quad
+// and quad + 8 (quad = lane / 4), which hold the output rows `row` and
+// row + 8, columns n0 + 2 (lane % 4) + 8 j. EPI_J 8-column blocks at a time:
+// first every input of the group (bias, residual, multiplier), then the
+// stores, so that the loads overlap instead of each waiting behind the
+// stores before it. With `col_part`, every consumer thread takes part (two
+// barriers of the consumer warps).
+template <typename T, bool MUL>
+__device__ __forceinline__ void store_linear_tile(const LinearT<T>& p, const float (&acc)[32],
+                                                  int m0, int n0, int row, float* cs) {
+  using namespace sm90;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = n0 + 2 * (lane % 4);
+  const bool row_ok[2] = {row < p.M, row + 8 < p.M};
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (p.res_scale && row_ok[h]) rs[h] = __ldg(p.res_scale + (row + 8 * h) / p.rows_per_sample);
+#pragma unroll
+  for (int j0 = 0; j0 < BN / 8; j0 += EPI_J) {
+    float2 b[EPI_J], r[MUL ? 1 : EPI_J][2], mu[MUL ? EPI_J : 1][2];
+#pragma unroll
+    for (int jj = 0; jj < EPI_J; ++jj) {
+      const int n = col + 8 * (j0 + jj);   // N % 8 == 0: n, n + 1 both in or both out
+      b[jj] = p.bias && n < p.N ? __ldg(reinterpret_cast<const float2*>(p.bias + n))
+                                : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (MUL)   // in place of the residual, which a MUL launch never has
+          mu[MUL ? jj : 0][h] =
+              n < p.N && row_ok[h]
+                  ? __ldg(reinterpret_cast<const float2*>(p.mul + (long long)(row + 8 * h) * p.N + n))
+                  : make_float2(1.f, 1.f);
+        else
+          r[MUL ? 0 : jj][h] = p.res_scale && n < p.N && row_ok[h]
+                                   ? load_residual(p, (long long)(row + 8 * h) * p.N + n)
+                                   : make_float2(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < EPI_J; ++jj) {
+      const int n = col + 8 * (j0 + jj), j = j0 + jj;
+      if (n >= p.N) continue;   // the same for the whole warp (N % 8 == 0)
+      float2 csum = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (row_ok[h]) {
+          const float2 v = linear_epilogue<T, MUL>(
+              p, row + 8 * h, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], b[jj],
+              MUL ? make_float2(0.f, 0.f) : r[MUL ? 0 : jj][h],
+              MUL ? mu[MUL ? jj : 0][h] : make_float2(1.f, 1.f), rs[h]);
+          csum.x += v.x;
+          csum.y += v.y;
+        }
+      if (MUL && p.col_part) {
+        // the warp's 16 rows: lanes with the same lane % 4 hold the same columns
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          csum.x += __shfl_xor_sync(0xffffffffu, csum.x, o);
+          csum.y += __shfl_xor_sync(0xffffffffu, csum.y, o);
+        }
+        if (lane < 4) {
+          cs[warp * BN + 8 * j + 2 * lane] = csum.x;
+          cs[warp * BN + 8 * j + 2 * lane + 1] = csum.y;
+        }
+      }
+    }
+  }
+  if (MUL && p.col_part) {
+    // the tile's 128 rows: the consumer warps' sums in warp order
+    consumer_sync();
+    if (threadIdx.x < BN && n0 + threadIdx.x < p.N) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < CONSUMER_WARPS; ++w) sum += cs[w * BN + threadIdx.x];
+      p.col_part[(long long)(m0 / BM) * p.N + n0 + threadIdx.x] = sum;
+    }
+    consumer_sync();
+  }
+}
+
 // MUL: the epilogue reads `mul` and may write `col_part` (an instantiation of
 // its own, so that the forward's products keep the registers of the one
-// without it).
+// without it). bf16 operands; the fp32 form is linear_f32_kernel below.
 template <typename T, bool MUL>
 static __global__ void __launch_bounds__(sm90::THREADS, sm90::CTAS_PER_SM)
 linear_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
               const LinearT<T> p) {
+  static_assert(!is_f32<T>, "the bf16 linear product");
   using namespace sm90;
   constexpr int BK = Operand<T>::BK;
   extern __shared__ unsigned char smem_raw[];
   T* As = reinterpret_cast<T*>(align1024(smem_raw));         // [STAGES][BM][BK]
   T* Bs = As + STAGES * BM * BK;                               // [STAGES][BN][BK]
-  T* lo = Bs + STAGES * BN * BK;                               // fp32: [2][BM + BN][BK]
-  uint64_t* full = reinterpret_cast<uint64_t*>(lo + LO_ELEMS<T>);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + STAGES * BN * BK);
   uint64_t* empty = full + STAGES;
   float* cs = reinterpret_cast<float*>(empty + STAGES);     // [CONSUMER_WARPS][BN]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -574,23 +691,10 @@ linear_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ 
       mbar_wait(&full[stage], phase);
       const uint64_t da = sw128_desc(As + stage * BM * BK + wg * 64 * BK);
       const uint64_t db = sw128_desc(Bs + stage * BN * BK);
-      if constexpr (is_f32<T>) {
-        T* lo_a = lo + (kb & 1) * (BM + BN) * BK;
-        T* lo_b = lo_a + BM * BK;
-        split_stage(As + stage * BM * BK + wg * 64 * BK, lo_a + wg * 64 * BK,
-                    Bs + stage * BN * BK, lo_b, true);
-        const uint64_t da_lo = sw128_desc(lo_a + wg * 64 * BK), db_lo = sw128_desc(lo_b);
-        wgmma_fence();
+      wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < BK / Operand<T>::KSTEP; ++k)
-          Operand<T>::mma3(acc, da + 2 * k, da_lo + 2 * k, db + 2 * k, db_lo + 2 * k,
-                           kb > 0 || k > 0);
-      } else {
-        wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < BK / Operand<T>::KSTEP; ++k)
-          Operand<T>::mma(acc, da + 2 * k, db + 2 * k, kb > 0 || k > 0);
-      }
+      for (int k = 0; k < BK / Operand<T>::KSTEP; ++k)
+        Operand<T>::mma(acc, da + 2 * k, db + 2 * k, kb > 0 || k > 0);
       wgmma_commit();
       // the k-block before this one is done: its stage goes back to the producer
       wgmma_wait<1>();
@@ -601,78 +705,172 @@ linear_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ 
     wgmma_wait<0>();
     fence_regs(acc);
     if (lane == 0) mbar_arrive(&empty[held]);
+    store_linear_tile<T, MUL>(p, acc, m0, n0, m0 + wg * 64 + (warp % 4) * 16 + lane / 4, cs);
+  }
+}
 
-    // Epilogue, EPI_J 8-column blocks at a time: first every input of the
-    // group (bias, residual, multiplier), then the stores, so that the loads
-    // overlap instead of each waiting behind the stores before it.
-    const int row = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
-    const int col = n0 + 2 * (lane % 4);
-    const bool row_ok[2] = {row < p.M, row + 8 < p.M};
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (p.res_scale && row_ok[h]) rs[h] = __ldg(p.res_scale + (row + 8 * h) / p.rows_per_sample);
-#pragma unroll
-    for (int j0 = 0; j0 < BN / 8; j0 += EPI_J) {
-      float2 b[EPI_J], r[MUL ? 1 : EPI_J][2], mu[MUL ? EPI_J : 1][2];
-#pragma unroll
-      for (int jj = 0; jj < EPI_J; ++jj) {
-        const int n = col + 8 * (j0 + jj);   // N % 8 == 0: n, n + 1 both in or both out
-        b[jj] = p.bias && n < p.N ? __ldg(reinterpret_cast<const float2*>(p.bias + n))
-                                  : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (MUL)   // in place of the residual, which a MUL launch never has
-            mu[MUL ? jj : 0][h] =
-                n < p.N && row_ok[h]
-                    ? __ldg(reinterpret_cast<const float2*>(p.mul + (long long)(row + 8 * h) * p.N + n))
-                    : make_float2(1.f, 1.f);
-          else
-            r[MUL ? 0 : jj][h] = p.res_scale && n < p.N && row_ok[h]
-                           ? load_residual(p, (long long)(row + 8 * h) * p.N + n)
-                           : make_float2(0.f, 0.f);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < EPI_J; ++jj) {
-        const int n = col + 8 * (j0 + jj), j = j0 + jj;
-        if (n >= p.N) continue;   // the same for the whole warp (N % 8 == 0)
-        float2 csum = make_float2(0.f, 0.f);
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          if (row_ok[h]) {
-            const float2 v = linear_epilogue<T, MUL>(
-                p, row + 8 * h, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], b[jj],
-                MUL ? make_float2(0.f, 0.f) : r[MUL ? 0 : jj][h],
-                MUL ? mu[MUL ? jj : 0][h] : make_float2(1.f, 1.f), rs[h]);
-            csum.x += v.x;
-            csum.y += v.y;
-          }
-        if (MUL && p.col_part) {
-          // the warp's 16 rows: lanes with the same lane % 4 hold the same columns
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1) {
-            csum.x += __shfl_xor_sync(0xffffffffu, csum.x, o);
-            csum.y += __shfl_xor_sync(0xffffffffu, csum.y, o);
-          }
-          if (lane < 4) {
-            cs[warp * BN + 8 * j + 2 * lane] = csum.x;
-            cs[warp * BN + 8 * j + 2 * lane + 1] = csum.y;
-          }
+// ---------------------------------------------------------------------------
+// The fp32 linear product: the weight split once per call, A in registers
+// ---------------------------------------------------------------------------
+//
+// linear_kernel's persistent tiles, producer and epilogue, with fp32
+// operands in 3xTF32: a k-step of 8 is a_lo b_hi + a_hi b_lo + a_hi b_hi, the
+// small terms first.
+//  * B is the weight split once per call (`LinearT<float>::w`: hi, then lo,
+//    each k-step's columns in tf32_key_slot order), so the CTAs of the
+//    M / 128 row tiles do not split the same tiles again. TMA lands A
+//    (128 x 32) and W's hi and lo boxes (TN x 32) in each stage.
+//  * A is the operand from registers. A thread reads its fragments of a
+//    k-step from the landed, swizzled A box as two float2: k = 2t and 2t + 1
+//    (t = lane % 4; columns t and t + 4 of the k-step, the order of B's
+//    columns) of its rows r and r + 8. It splits them into TF32 hi and lo in
+//    registers. The warp's 16 wgmma rows hold its tile rows in the order 0,
+//    2, 4, 6, 1, 3, 5, 7 (and those + 8; row q holds tf32_key_slot's m =
+//    2 (q % 4) + q / 4): the four rows of a half-warp then lie in swizzle
+//    phases two apart and its 16 float2 fall on the 32 banks once. The
+//    epilogue stores each row where it belongs.
+//  * The consumers write nothing to shared memory, so there is no proxy
+//    fence, and the two warpgroups share nothing but the ring: no barrier
+//    across them. A k-step's three products are one wgmma group; each
+//    warpgroup keeps one group in flight while it splits the next k-step
+//    into the other of two register sets (its float2 read one k-step
+//    ahead), and gives a stage back to the producer once the last group
+//    that reads its B is done (one k-step into the next k-block).
+// Two tile plans (TN output columns, STAGES stages of A, B_hi and B_lo,
+// (BM + 2 TN) x 32 fp32 each, the barriers and the column sums): TN = 64
+// at three stages, 101,424 bytes, two CTAs an SM, so that one CTA's
+// epilogue runs under the other's products; TN = 128 (two wgmma blocks of
+// 64 on the same A fragments) at four stages, one CTA an SM, which reads
+// a third less A and B from L2 for the same work. The launch takes TN = 128
+// where N is a multiple of 128 and K at least 384 (`linear_f32_wide`): on
+// an H100 it ran the block's products at D = 384 faster, TN = 64 every
+// product at D = 192 (PERF.md has both plans' times).
+namespace lf32 {
+constexpr int BK = Operand<float>::BK;
+__host__ __device__ constexpr int stages(int tn) { return tn == 64 ? 3 : 4; }
+__host__ __device__ constexpr int ctas_per_sm(int tn) { return tn == 64 ? 2 : 1; }
+__host__ __device__ constexpr size_t smem_bytes(int tn) {
+  return (size_t)stages(tn) * (sm90::BM + 2 * tn) * BK * sizeof(float) +
+         2 * stages(tn) * sizeof(uint64_t) + sm90::CONSUMER_WARPS * sm90::BN * sizeof(float) + 1024;
+}
+}  // namespace lf32
+
+inline bool linear_f32_wide(int N, int K) { return N % 128 == 0 && K >= 384; }
+
+template <bool MUL, int TN>
+static __global__ void __launch_bounds__(sm90::THREADS, lf32::ctas_per_sm(TN))
+linear_f32_kernel(const __grid_constant__ CUtensorMap tm_a,
+                  const __grid_constant__ CUtensorMap tm_hi,
+                  const __grid_constant__ CUtensorMap tm_lo, const LinearT<float> p) {
+  using namespace sm90;
+  using lf32::BK;
+  constexpr int NB = TN / 64, STAGES = lf32::stages(TN);
+  extern __shared__ unsigned char smem_raw[];
+  float* As = reinterpret_cast<float*>(align1024(smem_raw));   // [STAGES][BM][BK]
+  float* Bs = As + STAGES * BM * BK;                            // [STAGES][hi, lo][TN][BK]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + STAGES * 2 * TN * BK);
+  uint64_t* empty = full + STAGES;
+  float* cs = reinterpret_cast<float*>(empty + STAGES);       // [CONSUMER_WARPS][64]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_tiles = (p.N + TN - 1) / TN;
+  const int tiles = (p.M + BM - 1) / BM * n_tiles;
+  const int k_blocks = (p.K + BK - 1) / BK;
+
+  if (warp == CONSUMER_WARPS) {
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / n_tiles * BM, n0 = t % n_tiles * TN;
+        for (int kb = 0; kb < k_blocks; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], (BM + 2 * TN) * BK * sizeof(float));
+          tma_load_2d(As + stage * BM * BK, &tm_a, kb * BK, m0, &full[stage]);
+          tma_load_2d(Bs + 2 * stage * TN * BK, &tm_hi, kb * BK, n0, &full[stage]);
+          tma_load_2d(Bs + (2 * stage + 1) * TN * BK, &tm_lo, kb * BK, n0, &full[stage]);
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
         }
       }
     }
-    if (MUL && p.col_part) {
-      // the tile's 128 rows: the consumer warps' sums in warp order
-      consumer_sync();
-      if (threadIdx.x < BN && n0 + threadIdx.x < p.N) {
-        float sum = 0.f;
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile; this
+  // thread's wgmma rows quad and quad + 8 of its warp hold tile rows r, r + 8
+  const int wg = warp / 4, quad = lane / 4, t4 = lane % 4;
+  const int r = wg * 64 + (warp % 4) * 16 + 2 * (quad & 3) + (quad >> 2);
+  // byte offset in an A box of this thread's float2 of k-step 0 at row r
+  // (k = 2 t4): k-step s is at a_off ^ (s << 5) (16-byte chunk 2 s + t4 / 2,
+  // swizzled), row r + 8 1024 bytes on (the same swizzle phase)
+  const int a_off = r * 128 + (((t4 >> 1) ^ (r & 7)) << 4) + (t4 & 1) * 8;
+  float acc[NB][32];
+  uint32_t a_hi[2][4], a_lo[2][4];   // two register sets of A fragments
+  int stage = 0, held = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = t / n_tiles * BM, n0 = t % n_tiles * TN;
+    for (int kb = 0; kb < k_blocks; ++kb) {
+      mbar_wait(&full[stage], phase);
+      const unsigned char* a_box = reinterpret_cast<const unsigned char*>(As + stage * BM * BK);
+      float2 v[2][2];   // the A values of this k-step and of the next, as read
 #pragma unroll
-        for (int w = 0; w < CONSUMER_WARPS; ++w) sum += cs[w * BN + threadIdx.x];
-        p.col_part[(long long)(m0 / BM) * p.N + n0 + threadIdx.x] = sum;
+      for (int h = 0; h < 2; ++h)
+        v[0][h] = *reinterpret_cast<const float2*>(a_box + a_off + 1024 * h);
+      const uint64_t d_hi = sw128_desc(Bs + 2 * stage * TN * BK);
+      const uint64_t d_lo = sw128_desc(Bs + (2 * stage + 1) * TN * BK);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (s < 3)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            v[(s + 1) & 1][h] =
+                *reinterpret_cast<const float2*>(a_box + (a_off ^ ((s + 1) << 5)) + 1024 * h);
+        // the group two k-steps back, the last reader of this register set, is done
+        wgmma_wait<1>();
+        if (s == 1) {
+          // ... and so is every group of the k-block before: its stage goes back
+          if (kb > 0 && lane == 0) mbar_arrive(&empty[held]);
+          held = stage;
+        }
+        const int f = s & 1;
+        // the A fragments: rows quad, quad + 8 of column t4, then of column t4 + 4
+        const float x[4] = {v[f][0].x, v[f][1].x, v[f][0].y, v[f][1].y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 hl = tf32_split(x[i]);
+          a_hi[f][i] = __float_as_uint(hl.x);
+          a_lo[f][i] = __float_as_uint(hl.y);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          // block nb of B: 64 rows of 128 bytes, 8192 bytes on
+          const uint64_t hi = d_hi + 2 * s + 512 * nb, lo = d_lo + 2 * s + 512 * nb;
+          wgmma_rs_tf32(acc[nb], a_lo[f], hi, kb > 0 || s > 0);
+          wgmma_rs_tf32(acc[nb], a_hi[f], lo, 1);
+          wgmma_rs_tf32(acc[nb], a_hi[f], hi, 1);
+        }
+        wgmma_commit();
       }
-      consumer_sync();
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
     }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+    if (lane == 0) mbar_arrive(&empty[held]);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      store_linear_tile<float, MUL>(p, acc[nb], m0, n0 + 64 * nb, m0 + r, cs);
   }
 }
 
@@ -707,7 +905,7 @@ weight_grad_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_consta
   extern __shared__ unsigned char smem_raw[];
   T* As = reinterpret_cast<T*>(align1024(smem_raw));         // [STAGES][2][BK][64]
   T* Bs = As + STAGES * BM * BK;                               // [STAGES][BK][BN]
-  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + STAGES * BN * BK + LO_ELEMS<T>);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + STAGES * BN * BK);
   uint64_t* empty = full + STAGES;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -1065,54 +1263,75 @@ inline bool kmajor_map(CUtensorMap* map, const T* ptr, int rows, int K, int box_
 }
 
 // Per device and instantiation, the number of CTAs that fit the card at once,
-// known once linear_kernel has its shared-memory opt-in there. Internal
+// known once the kernel has its shared-memory opt-in there. Internal
 // linkage on purpose: every library that includes this header has its own
 // copy of the kernel to opt in (a static local of an inline function would be
 // one object for the whole process, and a second library would launch without
 // its opt-in).
 constexpr int kMaxDevices = 64;
-static int linear_grid[2][2][kMaxDevices];   // [fp32][MUL][device]
+static int linear_grid[2][kMaxDevices];              // [MUL][device]
+static int linear_f32_grid[2][2][kMaxDevices];       // [TN == 128][MUL][device]
 
-template <typename T, bool MUL>
-inline cudaError_t launch_linear(const CUtensorMap& ta, const CUtensorMap& tw,
-                                 const LinearT<T>& p, cudaStream_t st) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+// Sets `kernel`'s opt-in to `smem` bytes of shared memory on device `dev`
+// and its CTA slots there (SMs times the CTAs that fit one) into *slots,
+// unless *slots is known already.
+template <typename K>
+inline cudaError_t cta_slots(K kernel, size_t smem, int dev, int* slots) {
+  if (*slots) return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, sm90::THREADS, smem);
   if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int& slots = linear_grid[is_f32<T>][MUL][dev];
-  if (!slots) {
-    int sms = 0, per_sm = 0;
-    e = cudaFuncSetAttribute(linear_kernel<T, MUL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm90::smem_bytes<T>());
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, linear_kernel<T, MUL>,
-                                                        sm90::THREADS, sm90::smem_bytes<T>());
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    slots = sms * per_sm;
-  }
-  const long long tiles =
-      (long long)((p.M + sm90::BM - 1) / sm90::BM) * ((p.N + sm90::BN - 1) / sm90::BN);
-  const int grid = (int)(tiles < slots ? tiles : slots);
-  linear_kernel<T, MUL><<<grid, sm90::THREADS, sm90::smem_bytes<T>(), st>>>(ta, tw, p);
-  return cudaGetLastError();
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *slots = sms * per_sm;
+  return cudaSuccess;
 }
 
-// Launches C = a w^T + epilogue on `st`. Takes N and K multiples of 8 (TMA
-// strides are multiples of 16 bytes), 16-byte-aligned a and w, and `mul` or
-// a residual but not both; returns cudaErrorInvalidValue for anything else,
-// without a launch.
+// Launches C = a w^T + epilogue on `st`: bf16 on linear_kernel, fp32 (w
+// split, see LinearT) on linear_f32_kernel. Takes N and K multiples of 8
+// (TMA strides are multiples of 16 bytes), 16-byte-aligned a and w, and
+// `mul` or a residual but not both; returns cudaErrorInvalidValue for
+// anything else, without a launch.
 template <typename T>
 inline cudaError_t linear_sm90(const LinearT<T>& p, cudaStream_t st) {
   if (p.M < 1 || p.N < 8 || p.K < 8 || p.N % 8 || p.K % 8 ||
       ((uintptr_t)p.a | (uintptr_t)p.w) % 16 || (p.mul && p.res_scale))
     return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int* slots = &linear_grid[p.mul != nullptr][dev];
+  const long long row_tiles = linear_row_tiles(p.M);
   CUtensorMap ta, tw;
-  if (!kmajor_map(&ta, p.a, p.M, p.K, sm90::BM) || !kmajor_map(&tw, p.w, p.N, p.K, sm90::BN))
-    return cudaErrorInvalidValue;
-  return p.mul ? launch_linear<T, true>(ta, tw, p, st) : launch_linear<T, false>(ta, tw, p, st);
+  if constexpr (is_f32<T>) {
+    const bool wide = linear_f32_wide(p.N, p.K);
+    const int tn = wide ? 128 : 64;
+    CUtensorMap tl;
+    if (!kmajor_map(&ta, p.a, p.M, p.K, sm90::BM) || !kmajor_map(&tw, p.w, p.N, p.K, tn) ||
+        !kmajor_map(&tl, p.w + (long long)p.N * p.K, p.N, p.K, tn))
+      return cudaErrorInvalidValue;
+    const auto kernel =
+        wide ? (p.mul ? linear_f32_kernel<true, 128> : linear_f32_kernel<false, 128>)
+             : (p.mul ? linear_f32_kernel<true, 64> : linear_f32_kernel<false, 64>);
+    const size_t smem = lf32::smem_bytes(tn);
+    slots = &linear_f32_grid[wide][p.mul != nullptr][dev];
+    if ((e = cta_slots(kernel, smem, dev, slots)) != cudaSuccess) return e;
+    const long long tiles = row_tiles * ((p.N + tn - 1) / tn);
+    kernel<<<(int)(tiles < *slots ? tiles : *slots), sm90::THREADS, smem, st>>>(ta, tw, tl, p);
+  } else {
+    if (!kmajor_map(&ta, p.a, p.M, p.K, sm90::BM) || !kmajor_map(&tw, p.w, p.N, p.K, sm90::BN))
+      return cudaErrorInvalidValue;
+    const auto kernel = p.mul ? linear_kernel<T, true> : linear_kernel<T, false>;
+    if ((e = cta_slots(kernel, sm90::SMEM_BYTES, dev, slots)) != cudaSuccess) return e;
+    const long long tiles = row_tiles * ((p.N + sm90::BN - 1) / sm90::BN);
+    kernel<<<(int)(tiles < *slots ? tiles : *slots), sm90::THREADS, sm90::SMEM_BYTES, st>>>(
+        ta, tw, p);
+  }
+  return cudaGetLastError();
 }
 
 // The split of a weight gradient's M rows into row ranges: as many ranges
@@ -1171,23 +1390,14 @@ inline cudaError_t weight_grad_partials_sm90(const T* g, const T* x, int M, int 
     smem = wg32::SMEM_BYTES;
   } else {
     kernel = weight_grad_kernel<T>;
-    smem = sm90::smem_bytes<T>();
+    smem = sm90::SMEM_BYTES;
   }
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   int& slots = wgrad_grid[is_f32<T>][dev];
-  if (!slots) {
-    int sms = 0, per_sm = 0;
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, sm90::THREADS, smem);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    slots = sms * per_sm;
-  }
+  if ((e = cta_slots(kernel, smem, dev, &slots)) != cudaSuccess) return e;
   WeightGrad p;
   p.M = M; p.O = O; p.I = I;
   weight_grad_plan<T>(M, O, I, &p.splits, &p.kb_per_split);

@@ -620,16 +620,16 @@ def kernel_weight_grad(g, x):
 
 
 def plain_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, mul=None, gelu=False,
-                 residual=None, res_scale=None, rows_per_sample=1):
+                 residual=None, res_scale=None, rows_per_sample=1, dtype=torch.bfloat16):
     """What one linear product of the block forward or one input gradient of
     its backward computes (csrc/gemm_sm90.cuh), on any device: v = a w^T with
-    bf16 operands and fp32 accumulation (a [M, K], w [N, K]), + bias, the
-    first ``scale_cols`` columns times ``col_scale``, times ``mul`` (fp32
-    [M, N]), then GELU; with a ``residual`` r,
-    out = r + res_scale[row // rows_per_sample] * v. Returns (out fp32, out
-    bf16, v before the residual in bf16, gelu' before the GELU in fp32 or
-    None)."""
-    v = _mm(a, w.t(), torch.bfloat16)
+    operands rounded to ``dtype`` (bf16, or fp32 for the fp32 form) and fp32
+    accumulation (a [M, K], w [N, K]), + bias, the first ``scale_cols``
+    columns times ``col_scale``, times ``mul`` (fp32 [M, N]), then GELU;
+    with a ``residual`` r, out = r + res_scale[row // rows_per_sample] * v.
+    Returns (out fp32, out in ``dtype``, v before the residual in ``dtype``,
+    gelu' before the GELU in fp32 or None)."""
+    v = _mm(a, w.t(), dtype)
     if bias is not None:
         v = v + bias.float()
     if scale_cols:
@@ -639,32 +639,38 @@ def plain_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, mul=None, gelu
     grad = None
     if gelu:
         v, grad = _gelu_and_grad(v)
-    pre = v.to(torch.bfloat16)
+    pre = v.to(dtype)
     if residual is not None:
         row_scale = res_scale.float().repeat_interleave(rows_per_sample)
         v = residual.float() + row_scale[:, None] * v
-    return v, v.to(torch.bfloat16), pre, grad
+    return v, v.to(dtype), pre, grad
 
 
 def kernel_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, mul=None, gelu=False,
                   residual=None, res_scale=None, rows_per_sample=1,
-                  outputs=("f32", "bf16", "pre", "grad")):
+                  outputs=("f32", "bf16", "pre", "grad"), col_part=None):
     """One linear product alone, on the block's TMA + wgmma GEMM
-    (``dk_linear_sm90``), no autograd; CUDA tensors: a [M, K] and w [N, K]
-    bf16 with N and K multiples of 8, bias fp32, mul fp32 [M, N] or a
-    residual fp32 or bf16 [M, N] with res_scale fp32 [M // rows_per_sample]
-    (not both). An input
-    gradient dX = G W of the backward is ``kernel_linear(G, W.t())``.
-    ``outputs`` names those to write ("grad" only with ``gelu``). No model
-    path calls it. Returns what :func:`plain_linear` returns, None for each
+    (``dk_linear_sm90``; for fp32 a and w its fp32 form ``dk_linear_sm90_f32``,
+    3xTF32, which splits w into TF32 parts first, as the fp32 chains do), no
+    autograd; CUDA tensors: a [M, K] and w [N, K], both bf16 or both fp32,
+    with N and K multiples of 8, bias fp32, mul fp32 [M, N] or a residual
+    fp32 or bf16 [M, N] with res_scale fp32 [M // rows_per_sample] (not
+    both). An input gradient dX = G W of the backward is
+    ``kernel_linear(G, W.t())``. ``outputs`` names those to write ("bf16" is
+    the output as a product operand, in a's dtype; "grad" only with
+    ``gelu``). With ``mul``, ``col_part`` (fp32 [ceil(M / 128), N]) takes
+    the column sums of each 128-row tile of v after the multiplier, as the
+    backward's fc2 input gradient writes them. No model path calls it.
+    Returns what :func:`plain_linear` returns at a's dtype, None for each
     output not asked for."""
     M, K = a.shape
     N = w.shape[0]
-    if (a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or w.shape[1] != K
-            or a.device.type != "cuda" or w.device != a.device or N % 8 or K % 8):
-        raise ValueError(f"linear: takes CUDA bf16 a [M, K] and w [N, K] with N, K "
-                         f"multiples of 8, got {a.dtype} {tuple(a.shape)} and {w.dtype} "
-                         f"{tuple(w.shape)} on {a.device}")
+    if (a.dtype not in (torch.bfloat16, torch.float32) or w.dtype != a.dtype
+            or w.shape[1] != K or a.device.type != "cuda" or w.device != a.device
+            or N % 8 or K % 8):
+        raise ValueError(f"linear: takes CUDA a [M, K] and w [N, K], both bf16 or both fp32, "
+                         f"with N, K multiples of 8, got {a.dtype} {tuple(a.shape)} and "
+                         f"{w.dtype} {tuple(w.shape)} on {a.device}")
     if (residual is None) != (res_scale is None):
         raise ValueError("linear: a residual needs its res_scale and the other way round")
     if mul is not None and residual is not None:
@@ -680,26 +686,91 @@ def kernel_linear(a, w, bias=None, *, scale_cols=0, col_scale=1.0, mul=None, gel
             raise ValueError(f"linear: mul must be [{M}, {N}] on {a.device}, got "
                              f"{tuple(mul.shape)} on {mul.device}")
         mul = mul.float().contiguous()
+    if col_part is not None and (mul is None or col_part.dtype != torch.float32
+                                 or tuple(col_part.shape) != ((M + 127) // 128, N)
+                                 or col_part.device != a.device
+                                 or not col_part.is_contiguous()):
+        raise ValueError(f"linear: col_part must be a contiguous fp32 [{(M + 127) // 128}, {N}] "
+                         f"on {a.device}, with mul")
 
     def new(name, dtype):
         wanted = name in outputs and (name != "grad" or gelu)
         return torch.empty((M, N), dtype=dtype, device=a.device) if wanted else None
 
+    name = "linear_sm90" + ("_f32" if a.dtype == torch.float32 else "")
+    lib = _library("fused_block_fwd")
     with torch.cuda.device(a.device):
-        out32, out_lp = new("f32", torch.float32), new("bf16", torch.bfloat16)
-        pre, grad = new("pre", torch.bfloat16), new("grad", torch.float32)
+        out32, out_lp = new("f32", torch.float32), new("bf16", a.dtype)
+        pre, grad = new("pre", a.dtype), new("grad", torch.float32)
         res32 = residual if residual is not None and residual.dtype == torch.float32 else None
         res_lp = residual if residual is not None and res32 is None else None
         ptrs = [_ptr(t) for t in (a, w, bias, grad, pre, res32, res_lp, res_scale, out32,
-                                  out_lp, mul)]
+                                  out_lp, mul, col_part)]
+        if name == "linear_sm90_f32":
+            work = torch.empty(lib.dk_linear_sm90_f32_workspace(N, K), dtype=torch.uint8,
+                               device=a.device)
+            ptrs.append(work.data_ptr())
         table = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        err = _library("fused_block_fwd").dk_linear_sm90(
+        err = getattr(lib, f"dk_{name}")(
             table, M, N, K, scale_cols, col_scale, int(gelu), rows_per_sample,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"linear: CUDA error {err} at launch")
-    LAUNCHES[("linear_sm90", N)] += 1
+    LAUNCHES[(name, N)] += 1
     return out32, out_lp, pre, grad
+
+
+def _tf32_rna(v):
+    """fp32 v rounded to nearest TF32, ties away from zero (the card's
+    cvt.rna.tf32.f32): half the weight of the 13 low bits added to the
+    magnitude's bit pattern, then those bits cleared; inf and NaN as they
+    are."""
+    bits = v.view(torch.int32)
+    return torch.where(torch.isfinite(v), ((bits + 0x1000) & -0x2000).view(torch.float32), v)
+
+
+def tf32_split(w):
+    """The fp32 weight operand of the fp32 linear GEMM as the card's split
+    writes it (csrc/gemm_sm90.cuh ``split_weights_tf32_kernel``; an input
+    gradient's W^T is ``tf32_split(W.t())``), on any device: (hi, lo, cols)
+    with hi = TF32(w) rounded to nearest (ties away from zero), lo = TF32(w -
+    hi), both fp32 [R, C] with the columns of each k-step of 8 permuted:
+    column j holds w's column cols[j], 2 (j % 4) + j // 4 of its k-step (C a
+    multiple of 8). The plain version the split kernels are held to; only
+    the tests and chip_smoke.py call it."""
+    R, C = w.shape
+    if C % 8:
+        raise ValueError(f"tf32_split: takes C a multiple of 8, got {tuple(w.shape)}")
+    j = torch.arange(C, device=w.device)
+    cols = (j & ~7) | (2 * (j & 3) + ((j & 7) >> 2))
+    w = w.float()[:, cols]
+    hi = _tf32_rna(w)
+    return hi, _tf32_rna(w - hi), cols
+
+
+def kernel_tf32_split(w, transposed=False):
+    """The card's split of an fp32 weight alone (``dk_tf32_split``: the
+    forward's ``split_weights_tf32_kernel``, or with ``transposed`` the
+    backward's ``transpose_kernel`` of w^T), no model path calls it; CUDA
+    fp32 w [R, C] with C (R when transposed) a multiple of 8. Returns the
+    (hi, lo) of :func:`tf32_split` of w (of w^T when transposed)."""
+    if (w.dtype != torch.float32 or w.dim() != 2 or w.device.type != "cuda"
+            or w.shape[0 if transposed else 1] % 8):
+        raise ValueError(f"tf32_split: takes a CUDA fp32 [R, C] weight with "
+                         f"{'R' if transposed else 'C'} a multiple of 8, got {w.dtype} "
+                         f"{tuple(w.shape)} on {w.device}")
+    w = w.contiguous()
+    R, C = w.shape
+    with torch.cuda.device(w.device):
+        out = torch.empty((2, C, R) if transposed else (2, R, C), dtype=torch.float32,
+                          device=w.device)
+        err = _library("fused_block_fwd").dk_tf32_split(
+            w.data_ptr(), R, C, int(transposed), out.data_ptr(),
+            torch.cuda.current_stream(w.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"tf32_split: CUDA error {err} at launch")
+    LAUNCHES[("tf32_split", out.shape[2])] += 1
+    return out[0], out[1]
 
 
 def fused_vit_block_pair(x: torch.Tensor, params1: Mapping[str, torch.Tensor],

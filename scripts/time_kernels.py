@@ -20,8 +20,10 @@ change, parent. The timing is chip_smoke.py's `time_attention_kernels`,
 `time_pair_kernels`, phases 3b and 8b; with --fp32 `time_fp32_kernels` and
 `time_fp32_rows_6_8`, phases 13d and 14a, the kernels inside one fp32
 attention backward and one fp32 block backward by `torch.profiler`
-(`profile_calls`), and, where the package has it, the fp32 weight gradient
-alone at the backward's four products, `check_fp32_weight_grads`), which
+(`profile_calls`), and, where the package has them, the fp32 weight
+gradient alone at the backward's four products, `check_fp32_weight_grads`,
+and the fp32 linear product alone at the forward's four products and the
+backward's four input gradients, `check_fp32_linear`), which
 call the package's kernel wrappers and plain versions only, each holding
 its kernels at the main shape first; the kernels are built first into
 DIR's own build directory (the build's seconds are printed). With
@@ -35,6 +37,7 @@ chip_smoke.py's `[time]` lines, and last one JSON object {"package": DIR,
 value sort the same in fp32 with a "fp32_" prefix}}, "mlp_widths": {D:
 {"ms", "library_ms", "bound_ms"}}, "step_ms": {path: ms}, "peak_gib":
 {path: GiB}, "wgrad_f32": {product: [fp32 ms, bf16 ms, TF32 matmul ms]},
+"linear_f32": {product: [fp32 ms, TF32 matmul ms, fp32 matmul ms]},
 "workspace": {kernel: bytes}}. Exits 1 without a card.
 """
 
@@ -96,7 +99,7 @@ def main() -> int:
     if args.blocks:
         rows.update(chip_smoke.time_kernels(fb, worst))
         rows.update(chip_smoke.time_pair_kernels(fb))
-    wgrad = {}
+    wgrad, linear = {}, {}
     if args.fp32:
         rows.update(chip_smoke.time_fp32_kernels(fb, at, fm, worst, smi))
         rows.update(chip_smoke.time_fp32_rows_6_8(fb, fm, worst, smi))
@@ -117,6 +120,9 @@ def main() -> int:
         else:
             wgrad = {f"{name} D={D}": list(t) for (name, D), t in
                      chip_smoke.check_fp32_weight_grads(fb, worst, timed=True).items()}
+        if hasattr(fb, "kernel_tf32_split"):   # a package with the fp32 linear product alone
+            linear = {f"{kind} {name} D={D}": list(t) for (kind, name, D), t in
+                      chip_smoke.check_fp32_linear(fb, worst, timed=True).items()}
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     keys += tuple(f"fp32_{k}" for k in keys)   # the value sort's fp32 timing
     result = {"package": pkg,
@@ -126,6 +132,8 @@ def main() -> int:
                              for D, (ms, lib, bound) in chip_smoke.time_mlp_widths(fm).items()}}
     if wgrad:
         result["wgrad_f32"] = wgrad
+    if linear:
+        result["linear_f32"] = linear
     if args.fp32:
         shape = (chip_smoke.B_MAIN, chip_smoke.N_TOK, 192)
         result["workspace"] = {name: fb.workspace_bytes(name, shape, 3, 4 * 192)

@@ -17,7 +17,10 @@ at B=8 (chip_smoke.py phase 13's criterion): each error against the plain
 fp32 version (TF32 off) at most 0.02 of the bf16 kernel's on the same
 inputs (every fp32 product is 3xTF32), or below 1e-6 of the largest value;
 two runs the same bits; the same for the fp32 weight gradient alone at the
-backward's four shapes and M = 1001, 1584, 50688, for the MLP forward's and
+backward's four shapes and M = 1001, 1584, 50688, for the fp32 linear
+product alone at the forward's four products and the backward's four input
+gradients (D = 192, 384; M = 1001, 50688), whose weight split also equals
+its plain version bit for bit, for the MLP forward's and
 backward's fp32 forms at every zoo width and for the block pair's fp32 forms in the four
 feature variants, and a paired fp32 soft-KD step (6 fp32 pair forwards and 6
 fp32 pair backwards; its `cpu` case runs without a card). The
@@ -564,6 +567,72 @@ def test_fp32_weight_grad_matches_plain_version_on_card(M, O, I, tf32_off):
     assert torch.equal(dw, fb.kernel_weight_grad(G, X))
     with pytest.raises(ValueError):
         fb.kernel_weight_grad(G, X.bfloat16())
+
+
+# The forward's four products (N / D, K / D) and the backward's four input
+# gradients (on W^T: N = I, K = O), with the epilogue each chain gives it.
+LINEAR_F32_CASES = [("qkv", 3, 1), ("proj", 1, 1), ("fc1", 4, 1), ("fc2", 1, 4),
+                    ("dgrad fc2", 4, 1), ("dgrad fc1", 1, 4), ("dgrad proj", 1, 1),
+                    ("dgrad qkv", 1, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1001, 50688])
+@pytest.mark.parametrize("D", [192, 384])
+@pytest.mark.parametrize("name,n_mult,k_mult", LINEAR_F32_CASES)
+def test_fp32_linear_matches_plain_version_on_card(name, n_mult, k_mult, D, M, tf32_off):
+    """The fp32 linear product alone (dk_linear_sm90_f32: the weight split
+    once into TF32 hi and lo with permuted k-step columns, A split in
+    registers) against its plain fp32 version with TF32 off, by phase 13's
+    criterion beside the bf16 kernel on the same inputs rounded to bf16, with
+    the chains' epilogues (qkv's column scale, proj's residual, fc1's GELU
+    and gelu', fc2's fp32 residual; fc2's input gradient times gelu' with its
+    128-row column sums); M ragged against the 128-row tile; two runs the
+    same bits. The weight's split alone, forward and transposed, equals
+    tf32_split's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    N, K = n_mult * D, k_mult * D
+    g = torch.Generator().manual_seed(M + N + K)
+    a = torch.randn(M, K, generator=g).cuda()
+    w = (torch.randn(N, K, generator=g) / K ** 0.5).cuda()
+    bias = None if name.startswith("dgrad") else (0.1 * torch.randn(N, generator=g)).cuda()
+    kw = {}
+    if name == "qkv":
+        kw = dict(scale_cols=D, col_scale=0.125)
+    elif name == "fc1":
+        kw = dict(gelu=True)
+    elif name in ("proj", "fc2"):
+        rps = 198 if M % 198 == 0 else 7
+        s = (torch.rand(M // rps, generator=g) < 0.9).float() / 0.9
+        kw = dict(residual=torch.randn(M, N, generator=g).cuda(), res_scale=s.cuda(),
+                  rows_per_sample=rps)
+    elif name == "dgrad fc2":
+        kw = dict(mul=(1.2 * torch.rand(M, N, generator=g) - 0.1).cuda())
+    parts = [torch.empty((M + 127) // 128, N, device="cuda") for _ in range(3)] \
+        if "mul" in kw else [None] * 3
+    fb.reset_launches()
+    got = fb.kernel_linear(a, w, bias, col_part=parts[0], **kw)
+    assert fb.LAUNCHES == {("linear_sm90_f32", N): 1}
+    got16 = fb.kernel_linear(a.bfloat16(), w.bfloat16(), bias, col_part=parts[1], **kw)
+    ref = fb.plain_linear(a, w, bias, dtype=torch.float32, **kw)
+    for g32, g16, r in zip(got, got16, ref):
+        if g32 is not None:
+            assert g32.dtype == torch.float32
+            _f32_within(g32, g16, r)
+    if parts[0] is not None:
+        rows = torch.zeros(parts[0].shape[0] * 128, N, device="cuda")
+        rows[:M] = ref[0]
+        _f32_within(parts[0], parts[1], rows.view(-1, 128, N).sum(1))
+    again = fb.kernel_linear(a, w, bias, col_part=parts[2], **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again) if x is not None)
+    assert parts[0] is None or torch.equal(parts[0], parts[2])
+    for transposed in (False, True):
+        hi, lo = fb.kernel_tf32_split(w, transposed)
+        r_hi, r_lo, _ = fb.tf32_split(w.t() if transposed else w)
+        assert torch.equal(hi, r_hi) and torch.equal(lo, r_lo)
+    with pytest.raises(ValueError):
+        fb.kernel_linear(a, w.bfloat16(), bias, **kw)
 
 
 @pytest.mark.cuda
