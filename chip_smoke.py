@@ -199,7 +199,12 @@ Phases, each of which fails the run:
      forward the same way at D = 192, 384, 768, 1024 (M = 1584 and 1001)
      and at the teacher's [50688, 384]; 13b the fp32 attention kernels the
      same way (o, lse, dq, dk, dv), at [24, 198, 64], N
-     = 50, 65, 578 (4 and 1 heads) and 656 (the longest they take), at [24,
+     = 50, 65, 578 (4 and 1 heads) and 656 (the longest they take), the
+     warp-specialised forward's edges (N = 8, 9: one chunk, its tail of one
+     and two 8-key groups; 64: one whole chunk; 128, 129: one and two
+     128-row CTAs a head, the second's one row on a single consumer; 200: a
+     whole 8-key tail; each at 4 heads; 198 at one head; N = 1 for the
+     forward alone), at [24,
      198, 64] on bf16-exact inputs, through the autograd Function on strided
      views of a packed qkv, and at [1536, 198, 64] and [768, 198, 64]; the
      largest fp32/bf16 ratio of each quantity (`[fp32 worst]`); 13c
@@ -360,6 +365,9 @@ CIFAR100_STD = (0.2675, 0.2565, 0.2761)
 GREY_LEVEL = 1.0 / (255.0 * min(CIFAR100_STD))   # one grey level after normalisation
 RECIPE_STEPS = 8
 AUG_CPU_ROWS = 64     # phase 9: the images of each variant held against the CPU
+# the entry points that launch the fp32 attention forward
+ATTENTION_FWD_F32_ROWS = ("flash_fwd_f32", "fused_block_fwd_f32", "fused_block_bwd_f32",
+                          "fused_pair_fwd_f32", "fused_pair_bwd_f32")
 # the kernels that the fused block's wrappers launch (gemm_sm90.cuh,
 # attention_{fwd,bwd}.cuh, fused_block_{common,reverse}.cuh)
 BLOCK_KERNELS = ("linear_kernel", "weight_grad_kernel", "attention_fwd_kernel",
@@ -368,7 +376,7 @@ BLOCK_KERNELS = ("linear_kernel", "weight_grad_kernel", "attention_fwd_kernel",
                  "reduce_partials_kernel", "transpose_kernel", "colsum_kernel",
                  # the fp32 forms' own kernels
                  "linear_f32_kernel", "split_weights_tf32_kernel",
-                 "attention_fwd_f32_kernel", "weight_grad_f32_kernel",
+                 "attention_fwd_f32_ws_kernel", "weight_grad_f32_kernel",
                  "attention_bwd_pack_f32_kernel", "attention_bwd_f32_kernel",
                  "attention_bwd_reduce_f32_kernel")
 
@@ -4286,14 +4294,15 @@ def print_fp32_ratios():
               f"{ratio / F32_RATIO:.2f} of it")
 
 
-def _hold_attention_f32(at, worst, shape, main=False, exact=False):
+def _hold_attention_f32(at, worst, shape, main=False, exact=False, backward=True):
     """Both fp32 attention kernels against their plain fp32 versions at one
     shape, beside the bf16 kernels on the same inputs rounded to bf16. With
     ``exact`` the inputs are bf16 values, so that rounding them adds nothing
     to either form's error and what is left is the kernels' own roundings
     (P, dS and the outputs in the bf16 form): a bf16 rounding inside the
     fp32 form then shows (lse, an exact fp32 sum on both sides, is left
-    out)."""
+    out). Without ``backward`` the forward alone (at N = 1 dq and dk are
+    zero by their math, rounding noise on both sides)."""
     import torch
 
     q, k, v, do = _attention_inputs(shape, shape[0] + shape[1] + 1, fp32=True)
@@ -4304,15 +4313,18 @@ def _hold_attention_f32(at, worst, shape, main=False, exact=False):
     o2, lse2 = at.kernel_flash_fwd(q, k, v)
     o16, lse16 = at.kernel_flash_fwd(q16, k16, v16)
     r_o, r_lse = at._plain_fwd(q, k, v)
-    grads = at.kernel_flash_bwd(q, k, v, o, lse, do)
-    grads2 = at.kernel_flash_bwd(q, k, v, o, lse, do)
-    grads16 = at.kernel_flash_bwd(q16, k16, v16, o16, lse16, do16)
-    r_grads = at._plain_bwd(q, k, v, r_o, r_lse, do)
     torch.cuda.synchronize()
     tag = f"{tuple(shape)}" + (" bf16-exact inputs" if exact else "")
     _hold_f32(worst, ("flash_fwd_f32", shape[0]) if main else "flash_fwd_f32", tag,
               [("o", o, o16, r_o)] + ([] if exact else [("lse", lse, lse16, r_lse)]),
               torch.equal(o, o2) and torch.equal(lse, lse2))
+    if not backward:
+        return
+    grads = at.kernel_flash_bwd(q, k, v, o, lse, do)
+    grads2 = at.kernel_flash_bwd(q, k, v, o, lse, do)
+    grads16 = at.kernel_flash_bwd(q16, k16, v16, o16, lse16, do16)
+    r_grads = at._plain_bwd(q, k, v, r_o, r_lse, do)
+    torch.cuda.synchronize()
     _hold_f32(worst, ("flash_bwd_f32", shape[0]) if main else "flash_bwd_f32", tag,
               [(n, *t) for n, t in zip(("dq", "dk", "dv"), zip(grads, grads16, r_grads))],
               all(torch.equal(a, b) for a, b in zip(grads, grads2)))
@@ -4349,12 +4361,19 @@ def _hold_attention_views_f32(at, worst, B, H, N):
 
 def check_fp32_attention(at, worst):
     """Phase 13b: the fp32 attention kernels at [24, 198, 64], N = 50, 65, 578
-    (also for one head) and 656 (the longest they take), at [24, 198, 64] on
-    bf16-exact inputs, and through the autograd Function on strided views of
-    a packed qkv."""
+    (also for one head) and 656 (the longest they take), the warp-specialised
+    forward's edges (N = 8 and 9: one chunk cut to one and two 8-key groups;
+    64: one whole chunk; 128 and 129: one 128-row CTA a head, then a second
+    with one row on one consumer; 200: a tail of one whole group; 198 at one
+    head; N = 1 for the forward alone), at [24, 198, 64] on bf16-exact
+    inputs, and through the autograd Function on strided views of a packed
+    qkv."""
     for shape in ((B_CHECK * 3, N_TOK, HEAD_DIM), (4, 50, HEAD_DIM), (4, 65, HEAD_DIM),
-                  (4, 578, HEAD_DIM), (1, 578, HEAD_DIM), (4, 656, HEAD_DIM)):
+                  (4, 578, HEAD_DIM), (1, 578, HEAD_DIM), (4, 656, HEAD_DIM),
+                  (4, 8, HEAD_DIM), (4, 9, HEAD_DIM), (4, 64, HEAD_DIM), (4, 128, HEAD_DIM),
+                  (4, 129, HEAD_DIM), (4, 200, HEAD_DIM), (1, N_TOK, HEAD_DIM)):
         _hold_attention_f32(at, worst, shape)
+    _hold_attention_f32(at, worst, (4, 1, HEAD_DIM), backward=False)
     _hold_attention_f32(at, worst, (B_CHECK * 3, N_TOK, HEAD_DIM), exact=True)
     _hold_attention_views_f32(at, worst, 2, 3, N_TOK)
 
@@ -5074,8 +5093,8 @@ FAULTS = (
     # the fp32 forms (phase 13a, 13b)
     ("one operand of an fp32 product rounded to bf16 (the attention forward's P)",
      "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
-     (("      tf32_a_fragments(pa[kk], pl[kk], e);",
-       "      tf32_a_fragments(pa[kk], pl[kk], {__bfloat162float(__float2bfloat16(e[0])), "
+     (("    tf32_a_fragments(pa[kk], pl[kk], e);",
+       "    tf32_a_fragments(pa[kk], pl[kk], {__bfloat162float(__float2bfloat16(e[0])), "
        "__bfloat162float(__float2bfloat16(e[1])), __bfloat162float(__float2bfloat16(e[2])), "
        "__bfloat162float(__float2bfloat16(e[3]))});"),), "--fp32-checks"),
     ("an fp32 intermediate stored as bf16 (the GEMM epilogue's product operands)",
@@ -5103,12 +5122,35 @@ FAULTS = (
     ("A's lo part dropped in registers", "deltakd_tpu_torch/ops/csrc/gemm_sm90.cuh",
      (("          a_lo[f][i] = __float_as_uint(hl.y);", "          a_lo[f][i] = 0u;"),),
      "--fp32-checks"),
-    # the columns of every transposed tile in their natural order, where the
-    # A fragments from registers want them in tf32_key_slot order
-    ("a wrong transpose of a tile (V^T of the forward, K^T of the backward)",
+    # the columns of a transposed tile in their natural order, where the A
+    # fragments from registers want them in tf32_key_slot order: V^T as the
+    # fp32 attention forward's producer writes it, K^T of the fp32 attention
+    # backward (load_tile_f32_t)
+    ("a wrong transpose of V^T in the fp32 attention forward",
+     "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
+     (("  const int key = tid & 63, slot = (key & ~7) | tf32_key_slot(key & 7);",
+       "  const int key = tid & 63, slot = key;"),), "--fp32-checks"),
+    ("a wrong transpose of K^T in the fp32 attention backward",
      "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
      (("    const int col = (r & ~7) | tf32_key_slot(r & 7);", "    const int col = r;"),),
      "--fp32-checks"),
+    # the warp-specialised fp32 attention forward: its last chunk's keys
+    # counted 8 short, one group (N = 198 computed on 192 keys; N = 8 on none)
+    ("the fp32 attention forward's tail chunk cut one 8-key group short",
+     "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
+     (("last_keys = x.N - last * T;", "last_keys = x.N - last * T - 8;"),), "--fp32-checks"),
+    # ... its consumers reading K from the other slot of the ring than the
+    # one whose full barrier they waited on (the ring stays in step)
+    ("a ring slot of the fp32 attention forward read before its full barrier",
+     "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
+     (("  return x.Ks + j % fwd32::SLOTS * attn32::SPLIT;",
+       "  return x.Ks + (j + 1) % fwd32::SLOTS * attn32::SPLIT;"),),
+     "--fp32-checks"),
+    # ... its second consumer splitting the first one's 64 query rows as its Q
+    ("the second consumer of the fp32 attention forward on the first one's Q rows",
+     "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
+     (("    load_rows_f32(v, qh, p.q_sn, r0, N, tid);",
+       "    load_rows_f32(v, qh, p.q_sn, q0, N, tid);"),), "--fp32-checks"),
     # the fp32 weight gradient (gemm_sm90.cuh weight_grad_f32_kernel): G^T's
     # lo part left out (2xTF32, a single TF32 rounding of every G)
     ("the lo part of G^T left out of the fp32 weight gradient",
@@ -5521,6 +5563,10 @@ def main() -> int:
             # a backward splits W^T in its transpose)
             kernels[-1]["gemm_kernels"] = ["split_weights_tf32_kernel", "linear_f32_kernel"] + (
                 ["transpose_kernel"] if "_bwd" in kernel else [])
+        if kernel in ATTENTION_FWD_F32_ROWS:
+            # the warp-specialised fp32 attention forward (attention_fwd.cuh), in
+            # flash_fwd_f32 and in every fp32 block and pair forward and recompute
+            kernels[-1]["attention_kernels"] = ["attention_fwd_f32_ws_kernel"]
     if {k["source"] for k in kernels} != {csrc + f"{n}.cu" for n in _build.SOURCES}:
         raise AssertionError("a built source has no kernel in the report")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -39,10 +39,16 @@
 // kernels run at their inputs' dtype) run every product on TF32 wgmma in
 // 3xTF32 (each operand as a high and a low TF32 part, three products) and
 // round nothing to bf16: o, lse, dq, dk, dv fp32 (the fp32 forms in
-// attention_fwd.cuh and attention_bwd.cuh; the fp32 backward is three
-// kernels there, with a workspace the caller passes). Inputs are addressed
-// through (batch, head, row) strides with a contiguous head dim, so the
-// [B, N, 3, H, 64] views of a packed qkv projection are read in place.
+// attention_fwd.cuh and attention_bwd.cuh). The fp32 forward is one
+// warp-specialised kernel per (batch * head, 128 query rows): a producer
+// warpgroup splits each 64-key chunk of K and V^T into TF32 hi and lo in a
+// two-slot ring, two consumer warpgroups of 64 rows take turns at the
+// tensor cores, and the last chunk runs only over its groups of 8 keys;
+// what bounds it is its products at the TF32 rate, three times over. The
+// fp32 backward is three kernels, with a workspace the caller passes.
+// Inputs are addressed through (batch, head, row) strides with a contiguous
+// head dim, so the [B, N, 3, H, 64] views of a packed qkv projection are
+// read in place.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

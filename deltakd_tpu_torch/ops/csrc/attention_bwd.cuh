@@ -605,13 +605,6 @@ namespace attn32 {
 constexpr int BAR_PT_FULL = 1, BAR_PT_FREE = 2, BAR_ST_FULL = 3, BAR_ST_FREE = 4, BAR_OWN = 5;
 }
 
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
 // Two warpgroups a CTA, one per (batch, head, key tile), each with its own
 // share of every (key tile, query tile) pair, the query tiles in order:
 //   warpgroup 0: S = Q K^T, P = exp(S - lse) stored as P^T; dV^T += dO^T P^T;

@@ -10,7 +10,8 @@
 // with the normalisation applied after the p v product (post-division, as
 // deltakd_tpu/ops/fused_block.py:214-247 computes it with post_div=True).
 //
-// One CTA (one warpgroup, 128 threads) per (batch * head, 64 query rows):
+// The bf16 form (the fp32 form, warp-specialised, is at the end of this
+// file): one CTA (one warpgroup, 128 threads) per (batch * head, 64 query rows):
 // thousands of CTAs at the main path's shapes, several resident per SM. The
 // Q tile is loaded once; K and V stream in chunks of 64 keys through a
 // double-buffered cp.async ring (the next chunk's copy runs under this
@@ -225,12 +226,11 @@ inline cudaError_t attention_fwd(const AttnArgs& p, int hd, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 form: fp32 operands on TF32 wgmma (m64n64k8) in 3xTF32, fp32
-// accumulation
+// The fp32 form: fp32 operands on TF32 wgmma in 3xTF32, fp32 accumulation,
+// one producer and two consumer warpgroups
 // ---------------------------------------------------------------------------
 //
-// The math, the grid and the online softmax are the bf16 form's. What
-// differs:
+// The math and the online softmax are the bf16 form's. What differs:
 //  * 3xTF32. wgmma reads a 32-bit element as TF32 (10 mantissa bits), and a
 //    single TF32 rounding of q, k, v and P leaves attention's error at an
 //    eighth of the bf16 form's on average but, for one head at N = 578,
@@ -243,24 +243,58 @@ inline cudaError_t attention_fwd(const AttnArgs& p, int hd, cudaStream_t st) {
 //    fp32 (16 KB): k-steps 0-3 of 8 columns in the first, 4-7 in the
 //    second; a split tile is the hi tile followed by the lo tile (32 KB).
 //  * TF32 wgmma takes no transpose, so O += P V reads V^T (head-dim-major)
-//    as its K-major B operand. The threads write V^T from registers, and in
-//    each group of 8 keys they permute the columns (tf32_key_slot) so that
-//    the accumulator registers of P are the A fragments as they stand: a
-//    thread's accumulator holds keys 2t and 2t + 1 of each 8 (t = lane % 4)
-//    and a TF32 A fragment wants columns t and t + 4 of a k-step. The
-//    attention backward reads K^T the same way, and its Q^T and dO^T A
-//    fragments, P^T and dS^T in the same column order.
-//  * Q and K arrive by cp.async as the bf16 form's tiles do, and each thread
-//    then splits the chunks it copied into hi and lo in place; V^T is split
-//    as it is written, P in registers. Nothing is rounded to bf16: the
-//    scores, the softmax, lse and o are fp32.
-//  * Shared memory: Q, two K and two V^T split tiles, 161 KB (the bf16
-//    form: 40 KB), one CTA an SM.
-// What bounds it on an H100: as the bf16 form, bytes (now 4 a value, some 50
-// operations a byte at N = 198) against products at the TF32 rate, half
-// bf16's, three times over; the V^T copy through registers is not
-// overlapped with the products of its own chunk, only with the scores of
-// the chunk before.
+//    as its K-major B operand, written with the columns of each group of 8
+//    keys permuted (tf32_key_slot) so that the accumulator registers of P
+//    are the A fragments as they stand: a thread's accumulator holds keys
+//    2t and 2t + 1 of each 8 (t = lane % 4) and a TF32 A fragment wants
+//    columns t and t + 4 of a k-step. The attention backward reads K^T the
+//    same way, and its Q^T and dO^T A fragments, P^T and dS^T in the same
+//    column order.
+//  * Warp specialisation (attention_fwd_f32_ws_kernel). One CTA of three
+//    warpgroups per (batch * head, 128 query rows); the CTAs of a head's
+//    row halves are neighbours in blockIdx, so their reads of K and V meet
+//    in L2, and each chunk of K and V is split twice a head at N = 198
+//    where 64-row CTAs split it four times.
+//    - The producer (warpgroup 0, its registers lowered by setmaxnreg)
+//      copies each 64-key chunk of K and of V from device memory as it lies
+//      into a raw staging tile (cp.async, the next chunk's copies in flight
+//      while it works on this one), splits it into TF32 hi and lo and
+//      writes K's split tile and V^T's into a ring of two K slots and two
+//      V^T slots, then fences (its stores are generic-proxy, wgmma reads
+//      through the async proxy) and arrives on the slot's full mbarrier. K
+//      and V^T have barriers of their own: a chunk's K is free once its
+//      scores are done, its V^T only after its P V product, a batch later.
+//    - Two consumers (warpgroups 1 and 2, registers raised) own 64 query
+//      rows each and split their Q once into a split tile of their own.
+//      Per chunk j a consumer waits on the full barriers, issues S_j = Q
+//      K_j^T and O += P_{j-1} V_{j-1} as one batch of wgmmas, gives the two
+//      slots back (one arrival a warp), and runs the softmax of S_j while
+//      the other consumer's batch holds the tensor cores. Two named
+//      barriers make the consumers take turns at issuing a batch (FA3's
+//      ordering), so that their batches alternate.
+//  * The tail chunk is cut to its groups of 8 keys: with r keys left in the
+//    last chunk, S runs at n = 8 ceil(r / 8) (the n = 8..64 TF32 forms) and
+//    P V over as many k-steps. At N = 198 (and 197) the keys computed fall
+//    from 256 to 200 a row. Keys at or beyond N inside the last group are
+//    zeros in K and V^T and -inf in S before the max.
+//  * Nothing is rounded to bf16: the scores, the softmax, lse and o are
+//    fp32. Each row's sums run in chunk order, whatever the timing of the
+//    warpgroups: two runs give the same bits, and so do the block forward
+//    and its recompute in the backward.
+//  * Shared memory: two Q, two K and two V^T split tiles, the producer's
+//    two raw tiles and eight mbarriers, 230,464 bytes: one CTA (384
+//    threads) an SM.
+// What bounds it on an H100: the products at the TF32 rate. One head moves
+// q, k, v, o (4 x N x 64 fp32) for 4 N^2 x 64 operations, some 150 a byte
+// at N = 198, the TF32 ridge of the card; 3xTF32 triples the operations, so
+// the tensor cores bound it (about 0.12 ms for the teacher's 1,536 heads
+// at 256 query and 200 key rows a head, above the 0.093 ms of its bytes).
+// On the card it takes about 2.6 times that; what it loses is not
+// measured apart: each CTA's prologue (Q, then K of chunk 0) and epilogue,
+// exposed at one CTA an SM, the softmax between a consumer's batches that
+// the other consumer's batch covers only in part, the shared-memory reads
+// of the products (Q and K both from shared memory: 4 KB a wgmma), and the
+// query rows padded to 64.
 
 namespace attn32 {
 constexpr int HALF = attn::T * 32;   // fp32 elements of one swizzle atom column
@@ -287,7 +321,8 @@ __device__ __forceinline__ uint64_t f32_kstep_desc(const float* tile, int kk) {
 // Rows [r0, r0 + 64) of one head (64 fp32 a row, `sn` elements apart) into
 // the hi tile of a split tile by cp.async, 16 bytes a thread; rows at or
 // beyond N are zero-filled (their source address stays in bounds). By the
-// warpgroup whose thread `tid` (0-127) this is, as the next two.
+// warpgroup whose thread `tid` (0-127) this is, as the next two (the
+// attention backward's tiles; this one also the forward producer's raw K).
 __device__ __forceinline__ void load_tile_f32_async(float* tile, const float* src, long long sn,
                                                     int r0, int N, int tid = threadIdx.x) {
   const uint32_t base = smem_u32(tile);
@@ -358,125 +393,410 @@ __device__ __forceinline__ void tf32_a_fragments(uint32_t (&hi)[4], uint32_t (&l
   }
 }
 
-// D (+)= A B^T over the 64 dims of two K-major split tiles in 3xTF32;
-// acc = 0 starts the sum at zero.
-__device__ __forceinline__ void mma3_ss(float (&d)[32], const float* a, const float* b, int acc) {
+// D (+)= A B^T over the 64 dims of two K-major split tiles in 3xTF32, D's
+// columns the first G groups of 8 rows of B (wgmma_ss_tf32_n); acc = 0
+// starts the sum at zero.
+template <int G>
+__device__ __forceinline__ void mma3_ss_n(float (&d)[32], const float* a, const float* b, int acc) {
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
-    wgmma_ss_tf32(d, f32_kstep_desc(a + attn32::TILE, kk), f32_kstep_desc(b, kk), acc || kk > 0);
-    wgmma_ss_tf32(d, f32_kstep_desc(a, kk), f32_kstep_desc(b + attn32::TILE, kk), 1);
-    wgmma_ss_tf32(d, f32_kstep_desc(a, kk), f32_kstep_desc(b, kk), 1);
+    wgmma_ss_tf32_n<G>(d, f32_kstep_desc(a + attn32::TILE, kk), f32_kstep_desc(b, kk), acc || kk > 0);
+    wgmma_ss_tf32_n<G>(d, f32_kstep_desc(a, kk), f32_kstep_desc(b + attn32::TILE, kk), 1);
+    wgmma_ss_tf32_n<G>(d, f32_kstep_desc(a, kk), f32_kstep_desc(b, kk), 1);
   }
 }
 
-// D += A B in 3xTF32, A from registers (the hi and lo fragments of 8
-// k-steps), B a K-major split tile.
-__device__ __forceinline__ void mma3_rs(float (&d)[32], const uint32_t (&hi)[8][4],
-                                        const uint32_t (&lo)[8][4], const float* b) {
+__device__ __forceinline__ void mma3_ss(float (&d)[32], const float* a, const float* b, int acc) {
+  mma3_ss_n<8>(d, a, b, acc);
+}
+
+// D += A B in 3xTF32 over the first G k-steps, A from registers (the hi and
+// lo fragments of 8 k-steps), B a K-major split tile.
+template <int G>
+__device__ __forceinline__ void mma3_rs_n(float (&d)[32], const uint32_t (&hi)[8][4],
+                                          const uint32_t (&lo)[8][4], const float* b) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < G; ++kk) {
     wgmma_rs_tf32(d, lo[kk], f32_kstep_desc(b, kk), 1);
     wgmma_rs_tf32(d, hi[kk], f32_kstep_desc(b + attn32::TILE, kk), 1);
     wgmma_rs_tf32(d, hi[kk], f32_kstep_desc(b, kk), 1);
   }
 }
 
-__global__ void __launch_bounds__(attn::THREADS) attention_fwd_f32_kernel(const AttnArgsT<float> p) {
+__device__ __forceinline__ void mma3_rs(float (&d)[32], const uint32_t (&hi)[8][4],
+                                        const uint32_t (&lo)[8][4], const float* b) {
+  mma3_rs_n<8>(d, hi, lo, b);
+}
+
+// The warp-specialised forward's plan.
+namespace fwd32 {
+constexpr int ROWS = 2 * attn::T;            // query rows of a CTA, 64 a consumer
+constexpr int THREADS = 3 * attn::THREADS;   // the producer, consumers 0 and 1
+constexpr int SLOTS = 2;                     // ring slots of K, and of V^T
+// 120 x 128 + 192 x 256 = 168 x 384 (the registers a thread at entry); a
+// producer of 72 spilled and ran the teacher's forward a fifth slower
+// (PERF.md)
+constexpr int PRODUCER_REGS = 120, CONSUMER_REGS = 192;
+constexpr int BAR_Q = 1;      // + c: consumer c's own barrier (its Q split tile is written)
+constexpr int BAR_TURN = 3;   // + c: consumer c's turn to issue a batch
+constexpr bool TAKE_TURNS = true;   // a few percent faster than none (PERF.md)
+// Q of both consumers, the K and V^T slots (split tiles), the producer's
+// raw K and V tiles, 4 SLOTS mbarriers: 230,464 bytes
+constexpr size_t SMEM_BYTES = (2 + 2 * SLOTS) * attn32::SPLIT * sizeof(float) +
+                              2 * attn32::TILE * sizeof(float) + 4 * SLOTS * sizeof(uint64_t) +
+                              1024;
+}  // namespace fwd32
+
+// Rows [r0, r0 + 64) of one head (64 fp32 a row, `sn` elements apart), the
+// share of warpgroup thread `tid`: v[u] = row r0 + (tid >> 4) + 8u, columns
+// 4 (tid & 15) to + 3, a warp's loads two whole rows; zeros at or beyond N.
+__device__ __forceinline__ void load_rows_f32(float4 (&v)[8], const float* src, long long sn,
+                                              int r0, int N, int tid) {
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int row = r0 + (tid >> 4) + 8 * u;
+    v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < N)
+      v[u] = __ldg(reinterpret_cast<const float4*>(src + (long long)row * sn + 4 * (tid & 15)));
+  }
+}
+
+// Rows held that way (load_rows_f32, read_rows_raw) split into TF32 hi and
+// lo: a K-major split tile's rows below `rows` (a multiple of 8).
+__device__ __forceinline__ void store_rows_split(float* tile, const float4 (&v)[8], int rows,
+                                                 int tid) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(tile);
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int r = (tid >> 4) + 8 * u;
+    if (r >= rows) continue;
+    const int off = f32_tile_offset(r, 4 * (tid & 15));
+    const float2 x = tf32_split(v[u].x), y = tf32_split(v[u].y), z = tf32_split(v[u].z),
+                 w = tf32_split(v[u].w);
+    *reinterpret_cast<float4*>(base + off) = make_float4(x.x, y.x, z.x, w.x);
+    *reinterpret_cast<float4*>(base + attn32::TILE * 4 + off) = make_float4(x.y, y.y, z.y, w.y);
+  }
+}
+
+// The producer's raw tiles. Rows [r0, r0 + 64) of one head into a [2][64][32]
+// staging tile by cp.async, the share of warpgroup thread `tid` being the
+// 16-byte chunks that it reads back (cp.async lands a thread's own copies
+// in its own order): for K, row (tid >> 4) + 8u, columns 4 (tid & 15) to +
+// 3 (load_tile_f32_async's share, read back by read_rows_raw); for V, key
+// r0 + (tid & 63), dims 4 ((tid >> 6) + 2u) to + 3 (load_keys_f32_async,
+// read_keys_raw), so that its V^T stores fill the banks. Rows at or beyond N
+// are zero-filled.
+__device__ __forceinline__ void load_keys_f32_async(float* tile, const float* src, long long sn,
+                                                    int r0, int N, int tid) {
+  const uint32_t base = smem_u32(tile);
+  const int r = tid & 63, row = r0 + r;
+  const float* g = src + (long long)(row < N ? row : N - 1) * sn;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int c = 4 * ((tid >> 6) + 2 * u);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(base + f32_tile_offset(r, c)),
+                 "l"(g + c), "r"(row < N ? 16 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void read_rows_raw(float4 (&v)[8], const float* tile, int tid) {
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    v[u] = *reinterpret_cast<const float4*>(base + f32_tile_offset((tid >> 4) + 8 * u, 4 * (tid & 15)));
+}
+
+__device__ __forceinline__ void read_keys_raw(float4 (&v)[8], const float* tile, int tid) {
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    v[u] = *reinterpret_cast<const float4*>(
+        base + f32_tile_offset(tid & 63, 4 * ((tid >> 6) + 2 * u)));
+}
+
+// Those keys split into TF32 hi and lo as the columns of a split tile of
+// [2][64 dims][32] (V^T), each at its tf32_key_slot column of its group of
+// 8. A warp's stores of one dim are 32 keys: the 32 banks once.
+__device__ __forceinline__ void store_keys_split_t(float* tile, const float4 (&v)[8], int tid) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(tile);
+  const int key = tid & 63, slot = (key & ~7) | tf32_key_slot(key & 7);
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int d0 = 4 * ((tid >> 6) + 2 * u);
+    const float e[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int off = f32_tile_offset(d0 + i, slot);
+      const float2 x = tf32_split(e[i]);
+      *reinterpret_cast<float*>(base + off) = x.x;
+      *reinterpret_cast<float*>(base + attn32::TILE * 4 + off) = x.y;
+    }
+  }
+}
+
+// The online softmax of one chunk's scores: keys at or beyond `valid` (the
+// chunk's keys below N) out, the new running max, o rescaled, and P as the
+// hi and lo TF32 A fragments of the P V product, 8 keys a k-step. The row
+// sums add fp32 p. Thread (warp, lane) holds rows 16 warp + lane / 4 and + 8
+// of the tile; of every 8 columns, the two at 2 (lane % 4). Maxima in log2
+// units.
+__device__ __forceinline__ void softmax_chunk(float (&sc)[32], int valid, float to_log2,
+                                              float (&row_max)[2], float (&row_sum)[2],
+                                              float (&acc_o)[32], uint32_t (&pa)[8][4],
+                                              uint32_t (&pl)[8][4]) {
+  const int key0 = 2 * (threadIdx.x % 4);
+  float mnew[2] = {row_max[0], row_max[1]};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    sc[i] = valid >= attn::T || key0 + 8 * (i / 4) + (i & 1) < valid ? sc[i] * to_log2 : -INFINITY;
+    mnew[(i / 2) & 1] = fmaxf(mnew[(i / 2) & 1], sc[i]);
+  }
+  float rescale[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mnew[r] = fmaxf(mnew[r], __shfl_xor_sync(0xffffffffu, mnew[r], 1));
+    mnew[r] = fmaxf(mnew[r], __shfl_xor_sync(0xffffffffu, mnew[r], 2));
+    rescale[r] = exp2f(row_max[r] - mnew[r]);   // 0 on the first chunk
+    row_max[r] = mnew[r];
+    row_sum[r] *= rescale[r];
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const float e[4] = {exp2f(sc[4 * kk] - row_max[0]), exp2f(sc[4 * kk + 1] - row_max[0]),
+                        exp2f(sc[4 * kk + 2] - row_max[1]), exp2f(sc[4 * kk + 3] - row_max[1])};
+    row_sum[0] += e[0] + e[1];
+    row_sum[1] += e[2] + e[3];
+    tf32_a_fragments(pa[kk], pl[kk], e);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_o[i] *= rescale[(i / 2) & 1];
+}
+
+// Consumer c's turn to issue a batch of wgmmas, and its handing the turn to
+// the other consumer (consumer 1 hands none after its last batch, so that
+// the barriers end even).
+__device__ __forceinline__ void take_turn(bool turns, int c) {
+  if (turns) named_sync(fwd32::BAR_TURN + c, 2 * attn::THREADS);
+}
+__device__ __forceinline__ void pass_turn(bool turns, int c, bool last) {
+  if (turns && !(last && c == 1)) named_arrive(fwd32::BAR_TURN + (c ^ 1), 2 * attn::THREADS);
+}
+
+// What a consumer warpgroup reads of its CTA.
+struct Fwd32Consumer {
+  const float *qs, *Ks, *Vt;   // its Q split tile, the K and V^T slots
+  uint64_t *k_full, *k_empty, *v_full, *v_empty;
+  int N, chunks, c, lane;
+  bool turns;
+  float to_log2;
+};
+
+// K and V^T of chunk j, once their full barriers have completed.
+__device__ __forceinline__ const float* k_ready(const Fwd32Consumer& x, int j) {
+  mbar_wait(&x.k_full[j % fwd32::SLOTS], (j / fwd32::SLOTS) & 1);
+  return x.Ks + j % fwd32::SLOTS * attn32::SPLIT;
+}
+__device__ __forceinline__ const float* v_ready(const Fwd32Consumer& x, int j) {
+  mbar_wait(&x.v_full[j % fwd32::SLOTS], (j / fwd32::SLOTS) & 1);
+  return x.Vt + j % fwd32::SLOTS * attn32::SPLIT;
+}
+
+// After the batch that holds S of chunk j (in s): the turn passed, the
+// batch waited for, its slots back to the producer (K's, and V^T's of chunk
+// j - 1), then the softmax of the chunk's `valid` keys.
+__device__ __forceinline__ void softmax_after(const Fwd32Consumer& x, int j, float (&s)[32],
+                                              int valid, float (&acc_o)[32], float (&row_max)[2],
+                                              float (&row_sum)[2], uint32_t (&pa)[8][4],
+                                              uint32_t (&pl)[8][4]) {
+  pass_turn(x.turns, x.c, false);
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(acc_o);
+  if (x.lane == 0) {
+    mbar_arrive(&x.k_empty[j % fwd32::SLOTS]);
+    if (j > 0) mbar_arrive(&x.v_empty[(j - 1) % fwd32::SLOTS]);
+  }
+  softmax_chunk(s, valid, x.to_log2, row_max, row_sum, acc_o, pa, pl);
+}
+
+// A consumer's walk over the chunks, the last one holding G groups of 8
+// keys (a single chunk with ONE_CHUNK): batch j issues P V of chunk j - 1
+// and S of chunk j, the last chunk's S at n = 8G into accumulators of its
+// own (st: no accumulator register takes part in wgmmas of two widths),
+// then P V of the last chunk over G k-steps. Every branch on the shape is
+// taken outside the wgmma batches and everything is inlined, so that the
+// compiler keeps each batch in flight until its wait.
+template <int G, bool ONE_CHUNK>
+__device__ __forceinline__ void consume_chunks(const Fwd32Consumer& x, float (&acc_o)[32],
+                                               float (&row_max)[2], float (&row_sum)[2]) {
+  using attn::T;
+  float sc[32], st[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = st[i] = 0.f;
+  uint32_t pa[8][4], pl[8][4];   // P of the chunk before, hi and lo A fragments
+  const int last = x.chunks - 1, last_keys = x.N - last * T;
+
+  if constexpr (ONE_CHUNK) {
+    const float* ks = k_ready(x, 0);
+    take_turn(x.turns, x.c);
+    wgmma_fence();
+    mma3_ss_n<G>(st, x.qs, ks, 0);
+    wgmma_commit();
+    softmax_after(x, 0, st, last_keys, acc_o, row_max, row_sum, pa, pl);
+  } else {
+    const float* ks = k_ready(x, 0);
+    take_turn(x.turns, x.c);
+    wgmma_fence();
+    mma3_ss(sc, x.qs, ks, 0);
+    wgmma_commit();
+    softmax_after(x, 0, sc, T, acc_o, row_max, row_sum, pa, pl);
+    for (int j = 1; j < last; ++j) {
+      ks = k_ready(x, j);
+      const float* vt = v_ready(x, j - 1);
+      take_turn(x.turns, x.c);
+      wgmma_fence();
+      mma3_rs(acc_o, pa, pl, vt);
+      mma3_ss(sc, x.qs, ks, 0);
+      wgmma_commit();
+      softmax_after(x, j, sc, T, acc_o, row_max, row_sum, pa, pl);
+    }
+    ks = k_ready(x, last);
+    const float* vt = v_ready(x, last - 1);
+    take_turn(x.turns, x.c);
+    wgmma_fence();
+    mma3_rs(acc_o, pa, pl, vt);
+    mma3_ss_n<G>(st, x.qs, ks, 0);
+    wgmma_commit();
+    softmax_after(x, last, st, last_keys, acc_o, row_max, row_sum, pa, pl);
+  }
+
+  // P V of the last chunk, over its G groups of 8 keys (its slots are not
+  // refilled)
+  const float* vt = v_ready(x, last);
+  take_turn(x.turns, x.c);
+  wgmma_fence();
+  mma3_rs_n<G>(acc_o, pa, pl, vt);
+  wgmma_commit();
+  pass_turn(x.turns, x.c, true);
+  wgmma_wait<0>();
+  fence_regs(acc_o);
+}
+
+template <int G>
+__device__ __forceinline__ void consume(const Fwd32Consumer& x, float (&acc_o)[32],
+                                        float (&row_max)[2], float (&row_sum)[2]) {
+  if (x.chunks == 1)
+    consume_chunks<G, true>(x, acc_o, row_max, row_sum);
+  else
+    consume_chunks<G, false>(x, acc_o, row_max, row_sum);
+}
+
+__global__ void __launch_bounds__(fwd32::THREADS, 1)
+attention_fwd_f32_ws_kernel(const AttnArgsT<float> p) {
+  using namespace fwd32;
   using attn::T;
   using attn32::SPLIT;
   extern __shared__ unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(align1024(smem_raw));   // split tiles
-  float* Ks = Qs + SPLIT;       // [2][SPLIT]
-  float* Vt = Ks + 2 * SPLIT;   // [2][SPLIT]: V^T of the chunk, keys in tf32_key_slot order
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * T, bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int N = p.N, chunks = (N + T - 1) / T;
-  const float* qh = p.q + b * p.q_sb + h * p.q_sh;
-  const float* kh = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vh = p.v + b * p.v_sb + h * p.v_sh;
+  float* Qs = reinterpret_cast<float*>(align1024(smem_raw));   // [2][SPLIT]: consumer c's Q
+  float* Ks = Qs + 2 * SPLIT;       // [SLOTS][SPLIT]
+  float* Vt = Ks + SLOTS * SPLIT;   // [SLOTS][SPLIT]: V^T, keys in tf32_key_slot order
+  float* raw_k = Vt + SLOTS * SPLIT;   // the producer's staging tiles
+  float* raw_v = raw_k + attn32::TILE;
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(raw_v + attn32::TILE);
+  uint64_t* k_empty = k_full + SLOTS;
+  uint64_t* v_full = k_empty + SLOTS;
+  uint64_t* v_empty = v_full + SLOTS;
+  const int N = p.N, q_tiles = (N + ROWS - 1) / ROWS, chunks = (N + T - 1) / T;
+  const int bh = blockIdx.x / q_tiles, q0 = blockIdx.x % q_tiles * ROWS, b = bh / p.H, h = bh % p.H;
+  const int tail = (N - (chunks - 1) * T + 7) / 8;   // groups of 8 keys in the last chunk
+  const int consumers = N - q0 > T ? 2 : 1;
+  const int wg = threadIdx.x / attn::THREADS, tid = threadIdx.x % attn::THREADS;
 
-  load_tile_f32_async(Qs, qh, p.q_sn, q0, N);
-  load_tile_f32_async(Ks, kh, p.k_sn, 0, N);
-  cp_async_commit();
-  load_tile_f32_t(Vt, vh, p.v_sn, 0, N);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(&k_full[s], attn::THREADS);
+      mbar_init(&v_full[s], attn::THREADS);
+      mbar_init(&k_empty[s], 4 * consumers);
+      mbar_init(&v_empty[s], 4 * consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  // Thread (warp, lane) holds rows 16 warp + lane / 4 and + 8 of the tile;
-  // of every 8 columns, the two at 2 (lane % 4). Maxima in log2 units.
+  if (wg == 0) {
+    // the producer: chunk j of K, then of V^T, split into slot j % SLOTS
+    // once the consumers have given it back, the next chunk's raw tile then
+    // copied in (two cp.async groups in flight: K and V of the chunk ahead)
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const float* kh = p.k + b * p.k_sb + h * p.k_sh;
+    const float* vh = p.v + b * p.v_sb + h * p.v_sh;
+    load_tile_f32_async(raw_k, kh, p.k_sn, 0, N, tid);
+    cp_async_commit();
+    load_keys_f32_async(raw_v, vh, p.v_sn, 0, N, tid);
+    cp_async_commit();
+    float4 v[8];
+    for (int j = 0; j < chunks; ++j) {
+      const int s = j % SLOTS, rows = j + 1 < chunks ? T : 8 * tail;
+      const uint32_t freed = ((j / SLOTS) & 1) ^ 1;
+      cp_async_wait<1>();   // K of chunk j
+      read_rows_raw(v, raw_k, tid);
+      mbar_wait(&k_empty[s], freed);
+      store_rows_split(Ks + s * SPLIT, v, rows, tid);
+      fence_proxy_async();
+      mbar_arrive(&k_full[s]);
+      if (j + 1 < chunks) load_tile_f32_async(raw_k, kh, p.k_sn, (j + 1) * T, N, tid);
+      cp_async_commit();
+      cp_async_wait<1>();   // V of chunk j
+      read_keys_raw(v, raw_v, tid);
+      mbar_wait(&v_empty[s], freed);
+      store_keys_split_t(Vt + s * SPLIT, v, tid);
+      fence_proxy_async();
+      mbar_arrive(&v_full[s]);
+      if (j + 1 < chunks) load_keys_f32_async(raw_v, vh, p.v_sn, (j + 1) * T, N, tid);
+      cp_async_commit();
+    }
+    return;
+  }
+
+  // consumer c: query rows [r0, r0 + 64)
+  const int c = wg - 1, r0 = q0 + c * T;
+  if (c >= consumers) return;
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int warp = tid / 32, lane = tid % 32;
+  float* qs = Qs + c * SPLIT;
+  {
+    const float* qh = p.q + b * p.q_sb + h * p.q_sh;
+    float4 v[8];
+    load_rows_f32(v, qh, p.q_sn, r0, N, tid);
+    store_rows_split(qs, v, T, tid);
+  }
+  fence_proxy_async();
+  named_sync(BAR_Q + c, attn::THREADS);
+  const bool turns = TAKE_TURNS && consumers == 2;
+  if (turns && c == 1) named_arrive(BAR_TURN + 0, 2 * attn::THREADS);   // consumer 0 goes first
+
   float acc_o[32], row_max[2] = {-INFINITY, -INFINITY}, row_sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc_o[i] = 0.f;
-  const float to_log2 = p.scale * 1.4426950408889634f;
-
-  for (int j = 0; j < chunks; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < chunks) {
-      load_tile_f32_async(Ks + (cur ^ 1) * SPLIT, kh, p.k_sn, (j + 1) * T, N);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    if (j == 0) split_tile_f32(Qs);
-    split_tile_f32(Ks + cur * SPLIT);
-    // this thread's writes are visible to wgmma (the async proxy), then all threads'
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();
-
-    // S = Q K^T over this chunk's 64 keys, 8 k-steps of 8 dims
-    float sc[32];
-    wgmma_fence();
-    mma3_ss(sc, Qs, Ks + cur * SPLIT, 0);
-    wgmma_commit();
-    // the next chunk's V^T is written while the scores are computed (its
-    // buffer's last reader, the chunk before's P V, has finished)
-    if (j + 1 < chunks) load_tile_f32_t(Vt + (cur ^ 1) * SPLIT, vh, p.v_sn, (j + 1) * T, N);
-    wgmma_wait<0>();
-    fence_regs(sc);
-
-    // online softmax: keys at or beyond N out, the new running max, rescale
-    const int key0 = j * T + 2 * (lane % 4);
-    float mnew[2] = {row_max[0], row_max[1]};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      sc[i] = key0 + 8 * (i / 4) + (i & 1) < N ? sc[i] * to_log2 : -INFINITY;
-      mnew[(i / 2) & 1] = fmaxf(mnew[(i / 2) & 1], sc[i]);
-    }
-    float rescale[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mnew[r] = fmaxf(mnew[r], __shfl_xor_sync(0xffffffffu, mnew[r], 1));
-      mnew[r] = fmaxf(mnew[r], __shfl_xor_sync(0xffffffffu, mnew[r], 2));
-      rescale[r] = exp2f(row_max[r] - mnew[r]);   // 0 on the first chunk
-      row_max[r] = mnew[r];
-      row_sum[r] *= rescale[r];
-    }
-    // P as hi and lo TF32 A fragments, 8 keys a k-step; the row sums add fp32 p
-    uint32_t pa[8][4], pl[8][4];
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const float e[4] = {exp2f(sc[4 * kk] - row_max[0]), exp2f(sc[4 * kk + 1] - row_max[0]),
-                          exp2f(sc[4 * kk + 2] - row_max[1]), exp2f(sc[4 * kk + 3] - row_max[1])};
-      row_sum[0] += e[0] + e[1];
-      row_sum[1] += e[2] + e[3];
-      tf32_a_fragments(pa[kk], pl[kk], e);
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc_o[i] *= rescale[(i / 2) & 1];
-
-    // O += P V, B = V^T of the chunk
-    wgmma_fence();
-    mma3_rs(acc_o, pa, pl, Vt + cur * SPLIT);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc_o);
-    __syncthreads();   // K of this chunk is refilled by the next iteration's copy
+  const Fwd32Consumer x = {qs, Ks, Vt, k_full, k_empty, v_full, v_empty, N, chunks, c, lane,
+                           turns, p.scale * 1.4426950408889634f};
+  switch (tail) {
+    case 1: consume<1>(x, acc_o, row_max, row_sum); break;
+    case 2: consume<2>(x, acc_o, row_max, row_sum); break;
+    case 3: consume<3>(x, acc_o, row_max, row_sum); break;
+    case 4: consume<4>(x, acc_o, row_max, row_sum); break;
+    case 5: consume<5>(x, acc_o, row_max, row_sum); break;
+    case 6: consume<6>(x, acc_o, row_max, row_sum); break;
+    case 7: consume<7>(x, acc_o, row_max, row_sum); break;
+    default: consume<8>(x, acc_o, row_max, row_sum); break;
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
     row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
-    const int row = q0 + warp * 16 + lane / 4 + 8 * r;
+    const int row = r0 + warp * 16 + lane / 4 + 8 * r;
     if (row >= N) continue;
     const float inv = 1.0f / row_sum[r];
     float* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_sn + 2 * (lane % 4);
@@ -493,12 +813,13 @@ __global__ void __launch_bounds__(attn::THREADS) attention_fwd_f32_kernel(const 
 // without a launch, for a head dim without an instantiation or an empty shape.
 inline cudaError_t attention_fwd(const AttnArgsT<float>& p, int hd, cudaStream_t st) {
   if (!attention_fwd_takes(hd) || p.B < 1 || p.H < 1 || p.N < 1) return cudaErrorInvalidValue;
-  constexpr size_t smem = 5 * attn32::SPLIT * sizeof(float) + 1024;   // Q, 2 K, 2 V^T: 161 KB
-  const cudaError_t e = cudaFuncSetAttribute(attention_fwd_f32_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = cudaFuncSetAttribute(attention_fwd_f32_ws_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)fwd32::SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.N + attn::T - 1) / attn::T, p.B * p.H);
-  attention_fwd_f32_kernel<<<grid, attn::THREADS, smem, st>>>(p);
+  // the CTAs of one head's row halves are neighbours
+  const long long ctas = (long long)p.B * p.H * ((p.N + fwd32::ROWS - 1) / fwd32::ROWS);
+  attention_fwd_f32_ws_kernel<<<(unsigned)ctas, fwd32::THREADS, fwd32::SMEM_BYTES, st>>>(p);
   return cudaGetLastError();
 }
 

@@ -19,8 +19,10 @@ change, parent. The timing is chip_smoke.py's `time_attention_kernels`,
 `time_sort_kernels` and `time_mlp_widths` (with --blocks `time_kernels` and
 `time_pair_kernels`, phases 3b and 8b; with --fp32 `time_fp32_kernels` and
 `time_fp32_rows_6_8`, phases 13d and 14a, the kernels inside one fp32
-attention backward and one fp32 block backward by `torch.profiler`
-(`profile_calls`), and, where the package has them, the fp32 weight
+block forward at D = 384 and at D = 192, one fp32 attention backward and
+one fp32 block backward by `torch.profiler` (`profile_calls`; the
+forward's show the attention forward's share of rows 1 and 2, whose
+recompute is the D = 192 forward), and, where the package has them, the fp32 weight
 gradient alone at the backward's four products, `check_fp32_weight_grads`,
 and the fp32 linear product alone at the forward's four products and the
 backward's four input gradients, `check_fp32_linear`), which
@@ -103,7 +105,13 @@ def main() -> int:
     if args.fp32:
         rows.update(chip_smoke.time_fp32_kernels(fb, at, fm, worst, smi))
         rows.update(chip_smoke.time_fp32_rows_6_8(fb, fm, worst, smi))
-        # the kernels inside the fp32 attention backward and block backward
+        # the kernels inside one fp32 block forward at either width, the fp32
+        # attention backward and the fp32 block backward
+        for D, H in ((384, 6), (192, 3)):
+            p, x, sa, sm = chip_smoke._block_inputs(D, H, chip_smoke.B_MAIN, 7, "cuda", fp32=True)
+            chip_smoke.profile_calls(
+                f"fused_block_fwd_f32 D={D}", lambda: fb.kernel_block_fwd(
+                    x, p, num_heads=H, scale_attn=sa, scale_mlp=sm, need_features=False))
         bh, n = chip_smoke.ATTN_MAIN["student"], chip_smoke.N_TOK
         q, k, v, do = chip_smoke._attention_inputs((bh, n, chip_smoke.HEAD_DIM), 3, fp32=True)
         o, lse = at.kernel_flash_fwd(q, k, v)

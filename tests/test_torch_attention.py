@@ -31,6 +31,11 @@ SHAPES = [(2, 2, 10, 8), (1, 3, 20, 16), (2, 1, 7, 64)]
 # row more, and the longest sequence the kernels take; then N = 50, under
 # one 64-row tile, for three heads (the fp32 backward's tiles are per head)
 KERNEL_LENGTHS = [(1, 2, 1, 64), (1, 2, 65, 64), (1, 1, 656, 64), (1, 3, 50, 64)]
+# the fp32 forward kernel's edges at head dim 64 (it cuts the last 64-key
+# chunk to its groups of 8 keys and gives a CTA 128 query rows): one group,
+# a second 128-row tile of one row, the main path's N = 198 (two keys of
+# padding in its one tail group) and a whole tail group
+FORWARD_LENGTHS = [(1, 2, 8, 64), (1, 1, 129, 64), (1, 1, 198, 64), (1, 2, 200, 64)]
 
 
 def _inputs(shape, seed=0):
@@ -94,7 +99,7 @@ def test_flash_attention_gradients_match_jax_grad(shape):
         _close(a, b)
 
 
-@pytest.mark.parametrize("shape", SHAPES[:2])
+@pytest.mark.parametrize("shape", SHAPES[:2] + FORWARD_LENGTHS)
 def test_plain_forward_matches_interpreted_pallas_body(shape):
     q, k, v, _ = _inputs(shape, 2)
     B, H, N, D = shape

@@ -638,7 +638,10 @@ def test_fp32_linear_matches_plain_version_on_card(name, n_mult, k_mult, D, M, t
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 3, 198, 64), (1, 2, 50, 64), (4, 65, 64),
                                    (1, 1, 578, 64), (1, 2, 656, 64), (2, 3, 64, 64),
-                                   (1, 2, 65, 64)])
+                                   (1, 2, 65, 64),
+                                   # the warp-specialised forward's edges (chip_smoke.py 13b)
+                                   (4, 8, 64), (4, 9, 64), (4, 128, 64), (4, 129, 64),
+                                   (4, 200, 64), (1, 1, 198, 64)])
 def test_fp32_attention_kernels_match_plain_version_on_card(shape, tf32_off):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
