@@ -14,6 +14,10 @@
     python3 chip_smoke.py --fp32-checks      # only the fp32 forms' checks at B=8 (phase 13a, 13b,
                                              # 14a) and the optimizers' (14d, first half)
     python3 chip_smoke.py --fp32-checks --seeds 8  # ... the block, MLP and pair checks on 8 draws
+    python3 chip_smoke.py --learning-checks  # only phase 16 (--seeds N: 16a, 16b at N seeds)
+    python3 chip_smoke.py --faults --backward-checks --run-as --learning-checks
+                                             # diagnostic: the backward's faults under
+                                             # phase 16 (which of them it catches alone)
 
 Phases, each of which fails the run:
   1. prints the card's name and power limit (nvidia-smi);
@@ -266,7 +270,35 @@ Phases, each of which fails the run:
      pickles at fp32, B = 32, 4 steps: one epoch against one process
      (TP_RUN_TOL), rank 0 alone writing, a one-process checkpoint resumed at
      (1, 2) against its one-process resume, each side's checkpoint loaded
-     and saved again by the other side the same bits.
+     and saved again by the other side the same bits;
+ 16. learning (the texture task of tests/test_learning.py: horizontal and
+     vertical stripes, checkerboard, solid; 256 training and 128 held-out
+     images at 224 px with 16 px stripes, made from a seed; lr 2e-3 after
+     20 steps of warmup, then the cosine over each run's steps): 16a a
+     DeiT-Tiny at full width and depth, 4 classes, fresh weights, no KD, 100
+     steps at B = 128 over the two training batches in turn, on each of six
+     routes: the fused block (rows 1, 2), block pairs (rows 7, 8) and the
+     unfused path (rows 3, 4; row 5 in eval), each in bf16 and in the fp32
+     forms, and the fused bf16 route also at the JAX TPU test's constant
+     2e-3 with no warmup (at seeds 0, 3 and 5); each route's kernels
+     launched the expected number of times a step and no plain version run
+     (every ``_plain_*`` of the ops modules counted); train top-1 at step
+     100 and held-out top-1 above 85%; 16b a DeiT-S-distilled teacher (100
+     classes, labels 0-3) trained on the fused bf16 route for 160 steps
+     (held-out top-1 above 85%), then from it DeiT-Ti-distilled students by
+     soft KD at DeiT's alpha 0.5 and tau 1 and at the recipe's 0.1 and 3,
+     and a DeiT-Ti by wasskd-l1, 100 steps each on the fused path, held-out
+     top-1 above 85% (and at DeiT's weights the distillation head's; at the
+     recipe's it is read), and one more soft student at the recipe's
+     weights under 16c's run() schedule (96 steps; the class head held,
+     the distillation head read); 16c
+     the teacher written as a checkpoint (both heads kept on import) and
+     cli.train.main with soft-deit-tiny.sh's flags at B = 128 for 12 epochs
+     on CIFAR-100 pickles of the texture task at 32 px (16a's images
+     reduced by 7 x 7 means; the distill loss by epoch, the teacher's and
+     the final student's distillation head's val top-1 printed beside): the
+     train loss falls from the first epoch to the last and the last val
+     top-1 is at least 50%.
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
@@ -2013,9 +2045,17 @@ def write_teacher_checkpoint(path):
     with torch.no_grad():   # non-zero biases and gains, so that loading them shows
         for p in src.parameters():
             p.add_(0.01 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
-    state = src.state_dict()
-    torch.save({"model": {"module." + k: v for k, v in state.items()}, "epoch": 299,
-                "args": "deit_small_distilled_patch16_384"}, path)
+    return write_teacher_of(src, path, epoch=299, args="deit_small_distilled_patch16_384")
+
+
+def write_teacher_of(model, path, **entries):
+    """``model`` saved as timm and DeiT save a checkpoint: every key with
+    'module.' inside {"model": ...}, beside the non-tensor ``entries``.
+    Returns the state_dict (timm names, CPU tensors)."""
+    import torch
+
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.save({"model": {"module." + k: v for k, v in state.items()}, **entries}, path)
     return state
 
 
@@ -2701,20 +2741,27 @@ TRANSFER_STEPS = 4
 SYNC_WARNING = "synchroniz"   # in torch.cuda's sync debug warnings
 
 
-def write_cifar100(root, n_train, n_test, seed=0):
+def write_cifar100_pickles(root, splits):
     """cifar-100-python/{train,test} as the standard archive holds them: uint8
-    rows of 3072 (CHW) and 'fine_labels'."""
+    rows of 3072 (CHW) and 'fine_labels'; ``splits`` maps each name to its
+    (rows, labels)."""
     import pickle
 
+    base = os.path.join(root, "cifar-100-python")
+    os.makedirs(base)
+    for name, (rows, labels) in splits.items():
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({"data": rows, "fine_labels": [int(v) for v in labels]}, f)
+
+
+def write_cifar100(root, n_train, n_test, seed=0):
+    """CIFAR-100 pickles of random pixels and labels."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    base = os.path.join(root, "cifar-100-python")
-    os.makedirs(base)
-    for name, n in (("train", n_train), ("test", n_test)):
-        with open(os.path.join(base, name), "wb") as f:
-            pickle.dump({"data": rng.randint(0, 256, (n, 3072), dtype=np.uint8),
-                         "fine_labels": rng.randint(0, 100, n).tolist()}, f)
+    write_cifar100_pickles(root, {
+        name: (rng.randint(0, 256, (n, 3072), dtype=np.uint8), rng.randint(0, 100, n))
+        for name, n in (("train", n_train), ("test", n_test))})
 
 
 def recipe_argvs(recipe, tmp, **env):
@@ -2781,6 +2828,7 @@ class RunProbe:
     def reset(self):
         self.step_launches, self.eval_launches, self.events = [], [], []
         self.loader_wait, self.validate_ms, self.epoch_metrics = [], [], []
+        self.val_metrics = []
         self.save, self.load_ms, self.finetune = [], [], None
         self.syncs = None   # (where each sync outside the steps was, syncs in the steps)
         self._warnings, self._in_steps = None, set()
@@ -2889,7 +2937,8 @@ class RunProbe:
         loop.build_train_step = build_train_step
         loop.build_eval_step = build_eval_step
         loop.train_one_epoch = train_one_epoch
-        loop.validate = timed("validate", lambda out, ms: probe.validate_ms.append(ms))
+        loop.validate = timed("validate", lambda out, ms: (probe.validate_ms.append(ms),
+                                                           probe.val_metrics.append(out)))
         loop.save_checkpoint = timed("save_checkpoint", lambda path, ms: probe.save.append(
             (ms, os.path.getsize(os.path.join(path, "state.pt")))))
         loop.load_checkpoint = timed("load_checkpoint",
@@ -5017,6 +5066,509 @@ def run_token_dropout(mods, smi):
     return launches
 
 
+# Phase 16, learning: the port trains a task to high accuracy on every kernel
+# route, through distillation, and through run() on the recipe. The task is
+# tests/test_learning.py's: 4 classes (horizontal stripes, vertical stripes,
+# checkerboard, solid) of grey 30 / 230 with uniform noise, invariant to
+# crops and flips, so that a pipeline that learns it is not learning a
+# shortcut. A gradient that is biased but inside a kernel check's tolerance
+# compounds over steps; these checks see the outcome.
+LEARN_SIZE, LEARN_STRIPE = 224, 16     # 16a, 16b: 224 px, 16 px stripes (the JAX TPU test's)
+LEARN_TRAIN, LEARN_TEST = 256, 128     # two training batches in turn; one held-out batch
+LEARN_B = 128
+LEARN_STEPS = 100
+LEARN_BAR = 85.0          # % train top-1 at the last step and held-out top-1 (chance 25%)
+# The LR: the JAX TPU test's 2e-3, reached by a linear warmup over 20 steps,
+# then the cosine over the rest of a run. With no warmup, DeiT-Tiny stays on
+# the task's first plateau past step 100 for some seeds, at a constant or a
+# falling LR (scripts/learning_schedules.py)
+LEARN_LR, LEARN_WARMUP = 2e-3, 20
+# The JAX TPU test's own LR, a constant 2e-3 from the first step: 16a also
+# runs the fused bf16 route (the JAX test's) under it, at seeds where it
+# passes. Under it some seeds stay below the bar at step 100 on every route,
+# the block's plain versions and the model's plain PyTorch ops too
+# (scripts/learning_schedules.py --routes fused,fused-plain,plain), while
+# the kernels' gradient stays as close to fp32 as the plain version's
+# (scripts/gradient_fidelity.py); so the other runs take the warmup.
+LEARN_CONSTANT = dict(sched="step", decay_rate=1.0, warmup_epochs=0)
+LEARN_CONSTANT_SEEDS = (0, 3, 5)
+TEACHER_STEPS = 160       # 16b's teacher (the JAX package's measurement's length)
+LEARN_ROUTES = (("fused", "bfloat16"), ("pairs", "bfloat16"), ("unfused", "bfloat16"),
+                ("fused", "float32"), ("pairs", "float32"), ("unfused", "float32"))
+# 16c: CIFAR-100 pickles at 32 px: 16a's 224 px images reduced by means over
+# 7 x 7 pixels, which the recipe's transform scales back to 224 px, so that
+# 16b's teacher sees its own task
+RUN_SIZE = 32
+RUN_TRAIN, RUN_TEST = 1024, 256
+RUN_EPOCHS = 12           # the recipe's 5 warmup epochs, then 7 on its cosine
+RUN_BAR = 50.0            # % val top-1 of the last epoch (chance 25%)
+# 16b's students: (name, TrainConfig fields, model, the heads whose held-out
+# top-1 is held to LEARN_BAR, steps a schedule epoch). The distillation head
+# learns from the soft term alone, which DeiT's loss divides by B x classes:
+# at the recipe's alpha 0.1 and tau 3 it trails the class head by tens of
+# steps, so it is held at DeiT's own soft-distillation weights and only read
+# at the recipe's. The recipe's weights are also read under run()'s own
+# schedule in 16c (soft-deit-tiny.sh's --lr 5e-4 and --weight-decay 1e-4,
+# 5 warmup epochs from 1e-6, the cosine over RUN_EPOCHS epochs of 16c's
+# steps), with no augmentation, its class head held: what 16c's
+# distillation head could reach at 16c's LR.
+DISTILL_STUDENTS = (
+    ("soft", dict(distillation_type="soft", alpha=0.5, tau=1.0),
+     "deit_tiny_distilled_patch16_224", ("class", "dist"), 1),
+    ("soft at the recipe's alpha and tau", dict(distillation_type="soft", alpha=0.1, tau=3.0),
+     "deit_tiny_distilled_patch16_224", ("class",), 1),
+    ("soft at the recipe's alpha and tau under run()'s schedule",
+     dict(distillation_type="soft", alpha=0.1, tau=3.0, lr=5e-4, weight_decay=1e-4,
+          warmup_epochs=5, epochs=RUN_EPOCHS),
+     "deit_tiny_distilled_patch16_224", ("class",), RUN_TRAIN // LEARN_B),
+    ("wasskd", dict(distillation_type="wasskd", wasskd_type="l1"), "deit_tiny_patch16_224",
+     ("class",), 1))
+
+
+def texture_images(n, size, stripe, seed):
+    """``n`` images of the texture task, uint8 [n, size, size, 3], and their
+    labels in 0-3 (int64), made from ``seed`` with numpy as
+    tests/test_learning.py makes them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 4, (n,)).astype(np.int64)
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    pats = [(yy // stripe) % 2, (xx // stripe) % 2, ((yy // stripe) + (xx // stripe)) % 2,
+            np.ones_like(yy)]
+    imgs = np.zeros((n, size, size, 3), np.uint8)
+    for i in range(n):
+        p = pats[labels[i]] * 200 + 30
+        imgs[i] = np.clip(np.stack([p] * 3, -1) + rng.randint(-20, 20, (size, size, 3)), 0, 255)
+    return imgs, labels
+
+
+def learn_data(device="cuda"):
+    """16a's and 16b's data on ``device``: the two training batches and the
+    held-out batch, each (uint8 images, labels)."""
+    import torch
+
+    train, train_labels = texture_images(LEARN_TRAIN, LEARN_SIZE, LEARN_STRIPE, 0)
+    test, test_labels = texture_images(LEARN_TEST, LEARN_SIZE, LEARN_STRIPE, 1)
+    on = lambda a: torch.from_numpy(a).to(device)   # noqa: E731
+    batches = [(on(train[i:i + LEARN_B]), on(train_labels[i:i + LEARN_B]))
+               for i in range(0, LEARN_TRAIN, LEARN_B)]
+    return batches, (on(test), on(test_labels))
+
+
+def _learn_config(dtype, steps, **extra):
+    """tests/test_learning.py's TPU test: no KD, lr 2e-3, no drop-path, aa,
+    mixup, erasing or smoothing (colour jitter at its default, as there),
+    but the LR on LEARN_WARMUP steps of warmup and the cosine for a run of
+    ``steps``, one schedule epoch a step (make_optimizer(cfg, ..., 1))."""
+    from deltakd_tpu_torch.configs.config import TrainConfig
+
+    return TrainConfig(**{**dict(batch_size=LEARN_B, distillation_type="none",
+                                 dataset="cifar-100", input_size=LEARN_SIZE, dtype=dtype,
+                                 drop_path_rate=0.0, epochs=steps, warmup_epochs=LEARN_WARMUP,
+                                 lr=LEARN_LR, sched="cosine", mixup=0.0, cutmix=0.0,
+                                 reprob=0.0, aa="", smoothing=0.0),
+                          **extra})
+
+
+class _PlainCalls:
+    """Counts, while entered, the calls of the kernels' plain versions (each
+    ``_plain_*`` function of the ops modules), so that a phase can show that
+    none ran where the kernels should have."""
+
+    def __init__(self, mods):
+        self.mods = mods
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        self.saved = []
+        for mod in self.mods:
+            for name in [n for n in vars(mod) if n.startswith("_plain_")]:
+                fn = getattr(mod, name)
+                self.saved.append((mod, name, fn))
+                setattr(mod, name, self._counted(f"{mod.__name__.split('.')[-1]}.{name}", fn))
+        return self
+
+    def _counted(self, key, fn):
+        def wrapper(*args, **kw):
+            self.calls[key] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _no_fallback(what, launches, expect, plain):
+    if launches != expect or plain:
+        raise AssertionError(f"{what}: kernel launches {launches}, expected {expect}; "
+                             f"plain versions run {dict(plain)}")
+
+
+def _learn_steps(mods, what, step, state, batches, steps, per_step, gen):
+    """``steps`` train steps over ``batches`` in turn, the launches counted
+    from 0 around them: ``per_step`` times ``steps``, and no plain version.
+    Returns the metrics of every step (floats) and the median step ms (host
+    clock to a synchronize, steps after the first)."""
+    import torch
+
+    on_card = batches[0][0].device.type == "cuda"
+    _reset_launches(mods)
+    metrics, times = [], []
+    with _PlainCalls(mods) as plain:
+        for i in range(steps):
+            images, labels = batches[i % len(batches)]
+            t0 = time.perf_counter()
+            metrics.append(step(state, images, labels, gen))
+            if on_card:
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    _no_fallback(what, _read_launches(mods), {k: n * steps for k, n in per_step.items()},
+                 plain.calls)
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, m in enumerate(metrics):
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{what}: non-finite metrics at step {i + 1}: {m}")
+    return metrics, _median(times[1:]) * 1e3
+
+
+def _heldout(mods, what, model, aug, test, per_batch):
+    """Held-out top-1 (%) of ``model`` through build_eval_step on the
+    held-out batch, its launches ``per_batch`` and no plain version; and the
+    distillation head's top-1 where the model has one."""
+    import torch
+
+    from deltakd_tpu_torch.data.augment import eval_transform
+    from deltakd_tpu_torch.train.step import build_eval_step, topk_correct
+
+    images, labels = test
+    eval_step = build_eval_step(student=model, aug=aug)
+    _reset_launches(mods)
+    with _PlainCalls(mods) as plain:
+        sums = eval_step(images, labels, images.shape[0])
+    _no_fallback(f"{what} eval", _read_launches(mods), per_batch, plain.calls)
+    acc = float(sums["correct1"]) / float(sums["count"]) * 100
+    dist = None
+    if model.cfg.distilled:
+        with torch.no_grad():
+            out = model(eval_transform(images, aug).to(model.dtype), train=False)
+        dist = float(topk_correct(out.logits_dist, labels, 1).float().mean()) * 100
+    return acc, dist
+
+
+def _first_above(metrics, bar):
+    """The first step (from 1) whose train top-1 is above ``bar``, or None."""
+    return next((i + 1 for i, m in enumerate(metrics) if m["train_acc1"] > bar), None)
+
+
+def _losses(metrics, every=10):
+    return " ".join(f"{i + 1}:{metrics[i]['train_loss']:.4f}"
+                    for i in range(every - 1, len(metrics), every))
+
+
+def learn_route(mods, route, dtype, data, seed=0, smi="", weights=None, **fields):
+    """16a, one route: a DeiT-Tiny (full width and depth, 4 classes) from
+    fresh weights (the seed's, or the state dict ``weights``) trained
+    LEARN_STEPS steps on the texture task, then its held-out top-1.
+    ``route`` 'fused' (rows 1, 2), 'pairs' (rows 7, 8; eval on single
+    blocks, row 1) or 'unfused' (rows 3, 4 through flash_attention; eval
+    adds fused_mlp, row 5), at ``dtype``'s form of the kernels, or 'plain'
+    (the model's own PyTorch ops, no kernel: a reference for
+    scripts/learning_schedules.py). ``fields`` are TrainConfig fields over
+    _learn_config's. Returns the readings, ``ok`` whether the last step's
+    train top-1 and the held-out top-1 are above LEARN_BAR; raises at once
+    on a launch count, a plain version or a non-finite metric."""
+    import torch
+
+    from deltakd_tpu_torch.data.augment import AugmentConfig
+    from deltakd_tpu_torch.kd.losses import KDSettings
+    from deltakd_tpu_torch.models.factory import create_model
+    from deltakd_tpu_torch.train.optim import make_optimizer
+    from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
+    from deltakd_tpu_torch.train.step import build_train_step
+
+    fb, _, at, fm = mods
+    batches, test = data
+    device = test[0].device
+    form = "_f32" if dtype == "float32" else ""
+    bh = LEARN_B * 3                      # DeiT-Tiny's 3 heads
+    blocks, eval_view, per_step, per_eval = {
+        "fused": (dict(block_fn=fb.fused_vit_block), {},
+                  {(f"fused_block_fwd{form}", 192): 12, (f"fused_block_bwd{form}", 192): 12},
+                  {(f"fused_block_fwd{form}", 192): 12}),
+        "pairs": (dict(block_fn=fb.fused_vit_block, block_pair_fn=fb.fused_vit_block_pair),
+                  dict(block_pair_fn=None),
+                  {(f"fused_pair_fwd{form}", 192): 6, (f"fused_pair_bwd{form}", 192): 6},
+                  {(f"fused_block_fwd{form}", 192): 12}),
+        "unfused": (dict(block_fn=None, attention_fn=at.flash_attention),
+                    dict(mlp_fn=fm.fused_mlp),
+                    {(f"flash_fwd{form}", bh): 12, (f"flash_bwd{form}", bh): 12},
+                    {(f"flash_fwd{form}", bh): 12, (f"fused_mlp_fwd{form}", 192): 12}),
+        "plain": (dict(block_fn=None), {}, {}, {}),
+    }[route]
+    name = f"{route} {'fp32' if form else 'bf16'}" + "".join(f", {k}={v}"
+                                                            for k, v in fields.items())
+    cfg = _learn_config(dtype, LEARN_STEPS, **fields)
+    student = create_model("deit_tiny_patch16_224", num_classes=4, img_size=LEARN_SIZE,
+                           dtype=torch.float32 if form else torch.bfloat16,
+                           collect_features=False, seed=1 + seed, device=device, **blocks)
+    if weights is not None:
+        student.load_state_dict(weights)
+    aug = AugmentConfig.from_config(cfg)
+    tx = make_optimizer(cfg, trainable_parameters(student), 1)
+    state = TrainState(student, tx=tx)
+    step = build_train_step(cfg=cfg, kd=KDSettings.from_config(cfg), student=student,
+                            teacher=None, aug=aug, mixup=None, tx=tx)
+    gen = torch.Generator(device=device).manual_seed(3 + seed)
+    metrics, ms = _learn_steps(mods, f"16a {name}", step, state, batches, LEARN_STEPS,
+                               per_step, gen)
+    held, _ = _heldout(mods, f"16a {name}", student.view(collect_features=False, **eval_view),
+                       aug, test, per_eval)
+    out = dict(train=metrics[-1]["train_acc1"], heldout=held, ms=ms,
+               first=_first_above(metrics, LEARN_BAR), loss=metrics[-1]["train_loss"],
+               last10=sum(m["train_acc1"] for m in metrics[-10:]) / 10, seed=seed)
+    out["ok"] = out["train"] > LEARN_BAR and held > LEARN_BAR
+    print(f"[learning] 16a {name} seed {seed}: loss by step {_losses(metrics)}")
+    print(f"[learning] 16a {name} seed {seed} ({smi}): {'ok' if out['ok'] else 'FAIL'}: "
+          f"train top-1 {out['train']:.1f}% at step {LEARN_STEPS} (first above "
+          f"{LEARN_BAR:.0f}% at step {out['first']}), held-out top-1 {held:.1f}% (bar "
+          f"{LEARN_BAR:.0f}% for both); median step {ms:.2f} ms at B={LEARN_B}; "
+          f"{sum(per_step.values())} kernel launches a step, no plain version")
+    return out
+
+
+def learn_distillation(mods, data, seed=0, smi=""):
+    """16b: a DeiT-S-distilled teacher (100 classes, labels 0-3) trained on the
+    fused bf16 route for TEACHER_STEPS steps (its held-out top-1 must pass
+    LEARN_BAR), then the DeiT-Tiny students of DISTILL_STUDENTS on the
+    fused path from it, each for its schedule's steps: soft KD (the main
+    path: row 1 at D = 384 and 192, row 2) and wasskd-l1 (rows 10 and 11 as
+    well). The held-out top-1 of each head that a student's entry names
+    must pass LEARN_BAR. Returns the readings and the trained teacher."""
+    import torch
+
+    from deltakd_tpu_torch.data.augment import AugmentConfig
+    from deltakd_tpu_torch.kd.aux import AuxHeads
+    from deltakd_tpu_torch.kd.losses import FEATURE_TYPES, KDSettings, feature_indices
+    from deltakd_tpu_torch.models.factory import create_model
+    from deltakd_tpu_torch.train.optim import make_optimizer
+    from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
+    from deltakd_tpu_torch.train.step import build_train_step
+
+    fb = mods[0]
+    batches, test = data
+    device = test[0].device
+    cfg = _learn_config("bfloat16", TEACHER_STEPS)
+    aug = AugmentConfig.from_config(cfg)
+    teacher = create_model("deit_small_distilled_patch16_224", num_classes=100,
+                           img_size=LEARN_SIZE, block_fn=fb.fused_vit_block,
+                           collect_features=False, seed=11 + seed, device=device)
+    tx = make_optimizer(cfg, trainable_parameters(teacher), 1)
+    state = TrainState(teacher, tx=tx)
+    step = build_train_step(cfg=cfg, kd=KDSettings.from_config(cfg), student=teacher,
+                            teacher=None, aug=aug, mixup=None, tx=tx)
+    gen = torch.Generator(device=device).manual_seed(13 + seed)
+    fwd = {("fused_block_fwd", 192): 12}
+    metrics, ms = _learn_steps(mods, "16b teacher", step, state, batches, TEACHER_STEPS,
+                               {("fused_block_fwd", 384): 12, ("fused_block_bwd", 384): 12},
+                               gen)
+    held, dist = _heldout(mods, "16b teacher", teacher.view(collect_features=False), aug,
+                          test, {("fused_block_fwd", 384): 12})
+    out = {"teacher": dict(train=metrics[-1]["train_acc1"], heldout=held, dist=dist, ms=ms,
+                           first=_first_above(metrics, LEARN_BAR), ok=held > LEARN_BAR)}
+    print(f"[learning] 16b teacher deit_small_distilled seed {seed}: loss by step "
+          f"{_losses(metrics)}")
+    print(f"[learning] 16b teacher seed {seed} ({smi}): held-out top-1 {held:.1f}% after "
+          f"{TEACHER_STEPS} steps (its distillation head, which no loss trains, "
+          f"{dist:.1f}%; train top-1 {out['teacher']['train']:.1f}%, first above "
+          f"{LEARN_BAR:.0f}% at step {out['teacher']['first']}); median step {ms:.2f} ms")
+    if held <= LEARN_BAR:
+        raise AssertionError(f"16b: the teacher's held-out top-1 {held:.1f}% after "
+                             f"{TEACHER_STEPS} steps (bar {LEARN_BAR}%)")
+    teacher.requires_grad_(False)
+
+    for name, options, student_name, held_heads, per_epoch in DISTILL_STUDENTS:
+        kd_type = options["distillation_type"]
+        cfg = _learn_config("bfloat16", LEARN_STEPS, **options)
+        steps = cfg.epochs * per_epoch
+        feats = feature_indices(kd_type, 12)
+        student = create_model(student_name, num_classes=100, img_size=LEARN_SIZE,
+                               block_fn=fb.fused_vit_block, collect_features=feats,
+                               seed=21 + seed, device=device)
+        aux = None
+        if kd_type in FEATURE_TYPES:
+            aux = AuxHeads(kd_type, 192, 384, torch.Generator().manual_seed(31 + seed)).to(device)
+        tx = make_optimizer(cfg, trainable_parameters(student, aux), per_epoch)
+        state = TrainState(student, tx=tx, aux=aux)
+        kd = KDSettings.from_config(cfg, student_prefix=student.cfg.num_prefix_tokens,
+                                    teacher_prefix=teacher.cfg.num_prefix_tokens)
+        step = build_train_step(cfg=cfg, kd=kd, student=student,
+                                teacher=teacher.view(collect_features=feats), aux=aux, aug=aug,
+                                mixup=None, tx=tx)
+        per_step = {("fused_block_fwd", 384): 12, ("fused_block_fwd", 192): 12,
+                    ("fused_block_bwd", 192): 12}
+        if kd_type == "wasskd":
+            per_step.update(sorted_l1_fwd=3, sorted_l1_bwd=3)
+        gen = torch.Generator(device=device).manual_seed(23 + seed)
+        metrics, ms = _learn_steps(mods, f"16b {name}", step, state, batches, steps,
+                                   per_step, gen)
+        held, dist = _heldout(mods, f"16b {name}", student.view(collect_features=False), aug,
+                              test, fwd)
+        out[name] = dict(train=metrics[-1]["train_acc1"], heldout=held, dist=dist, ms=ms,
+                         first=_first_above(metrics, LEARN_BAR),
+                         ok=(("class" not in held_heads or held > LEARN_BAR)
+                             and ("dist" not in held_heads or dist > LEARN_BAR)))
+        print(f"[learning] 16b {name} {student_name} seed {seed}: loss by step "
+              f"{_losses(metrics)}; distill loss by step "
+              + " ".join(f"{i + 1}:{metrics[i]['distill_loss']:.5g}"
+                         for i in range(9, steps, 10)))
+        print(f"[learning] 16b {name} seed {seed} ({smi}): "
+              f"{'ok' if out[name]['ok'] else 'FAIL'}: held-out top-1 {held:.1f}%"
+              + ("" if "class" in held_heads else " (not held to the bar)")
+              + (f", distillation head {dist:.1f}%" if dist is not None else "")
+              + ("" if dist is None or "dist" in held_heads else " (not held to the bar)")
+              + f"; train top-1 {out[name]['train']:.1f}% at step {steps} (first "
+              f"above {LEARN_BAR:.0f}% at step {out[name]['first']}); median step "
+              f"{ms:.2f} ms")
+        del student, aux, state
+    return out, teacher
+
+
+def learn_recipe(mods, teacher, tmp, smi="", seed=0):
+    """16c: run() through cli.train.main with soft-deit-tiny.sh's flags (RA,
+    mixup and cutmix, erasing, alpha 0.1, tau 3) at B = LEARN_B for
+    RUN_EPOCHS epochs on CIFAR-100 pickles of the texture task (32 px, as
+    RUN_SIZE says), distilling from 16b's teacher written as phase 10
+    writes a checkpoint (``write_teacher_of``). Its import must
+    keep both 100-class heads. The train loss must fall from the first
+    epoch to the last and the last epoch's val top-1 be at least RUN_BAR."""
+    import numpy as np
+    import torch
+
+    from deltakd_tpu_torch.ckpt.checkpoint import student_state_dict
+    from deltakd_tpu_torch.cli import train as train_cli
+    from deltakd_tpu_torch.configs.config import TrainConfig
+    from deltakd_tpu_torch.data.augment import AugmentConfig
+    from deltakd_tpu_torch.models.factory import create_model
+    from deltakd_tpu_torch.models.import_timm import load_state_dict, timm_to_torch
+
+    path = os.path.join(tmp, "texture_teacher.pth")
+    state = write_teacher_of(teacher, path, epoch=TEACHER_STEPS,
+                             args="deit_small_distilled_patch16_224")
+    check = create_model("deit_small_distilled_patch16_224", num_classes=100,
+                         img_size=LEARN_SIZE, seed=0, device="cpu")
+    report = timm_to_torch(load_state_dict(path), check)
+    sd = check.state_dict()
+    heads = ["head.weight", "head.bias", "head_dist.weight", "head_dist.bias"]
+    same = all(torch.equal(sd[k], state[k]) for k in state)
+    print(f"[learning] 16c teacher import: skipped {report['skipped']}, unconsumed "
+          f"{report['unconsumed']}; heads {heads} kept; every tensor the file's: {same}")
+    if report["skipped"] or report["unconsumed"] or not same:
+        raise AssertionError("16c: the teacher checkpoint does not import whole")
+    data = os.path.join(tmp, f"texture-cifar-{seed}")
+    splits = {}
+    f = LEARN_SIZE // RUN_SIZE
+    for split, n, s in (("train", RUN_TRAIN, 2 + 2 * seed), ("test", RUN_TEST, 3 + 2 * seed)):
+        imgs, labels = texture_images(n, LEARN_SIZE, LEARN_STRIPE, s)
+        small = np.round(imgs.reshape(n, RUN_SIZE, f, RUN_SIZE, f, 3).mean((2, 4),
+                                                                        dtype=np.float32))
+        splits[split] = (small.astype(np.uint8), labels)
+    write_cifar100_pickles(data, {k: (v.transpose(0, 3, 1, 2).reshape(len(v), -1), y)
+                                  for k, (v, y) in splits.items()})
+    soft = soft_recipe_argv(tmp, dict(DATA_PATH=data, TEACHER_CKPT=path))
+    probe = RunProbe(mods)
+    t0 = time.perf_counter()
+    with probe, _PlainCalls(mods) as plain:
+        final = train_cli.main(soft(f"texture-{seed}", "--epochs", str(RUN_EPOCHS),
+                                    "--batch-size", str(LEARN_B), "--seed", str(42 + seed)))
+    run_s = time.perf_counter() - t0
+    steps = RUN_TRAIN // LEARN_B
+    _check_launches("16c train steps", probe.step_launches,
+                    {("fused_block_fwd", 384): 12, ("fused_block_fwd", 192): 12,
+                     ("fused_block_bwd", 192): 12}, RUN_EPOCHS * steps)
+    _check_launches("16c eval batches", probe.eval_launches, {("fused_block_fwd", 192): 12},
+                    RUN_EPOCHS * -(-RUN_TEST // LEARN_B))
+    _no_fallback("16c run()", {}, {}, plain.calls)   # its launches are held above
+    losses = [m["train_loss"] for m in probe.epoch_metrics]
+    distill = [m["distill_loss"] for m in probe.epoch_metrics]
+    vals = [m["val_acc1"] for m in probe.val_metrics]
+    # the teacher and the trained student's distillation head on the val images
+    device = teacher.head.weight.device
+    test = tuple(torch.from_numpy(a).to(device) for a in splits["test"])
+    aug = AugmentConfig.from_config(TrainConfig(dataset="cifar-100", input_size=LEARN_SIZE))
+    teacher_val, _ = _heldout(mods, "16c teacher", teacher.view(collect_features=False), aug,
+                              test, {("fused_block_fwd", 384): 12})
+    student = create_model("deit_tiny_distilled_patch16_224", num_classes=100,
+                           img_size=LEARN_SIZE, collect_features=False, device=device)
+    student.load_state_dict(student_state_dict(
+        os.path.join(tmp, f"texture-{seed}", "checkpoint"))[0])
+    _, dist_val = _heldout(mods, "16c student", student, aug, test,
+                           {("fused_block_fwd", 192): 12})
+    out = dict(losses=losses, vals=vals, val=final["val_acc1"], s=run_s,
+               ms=_median(probe.step_ms()), teacher=teacher_val, dist=dist_val)
+    out["ok"] = (len(losses) == RUN_EPOCHS and losses[-1] < losses[0]
+                 and final["val_acc1"] >= RUN_BAR and np.isfinite(final["val_loss"]))
+    print(f"[learning] 16c soft-deit-tiny.sh seed {seed} ({smi}): "
+          f"{'ok' if out['ok'] else 'FAIL'}: {RUN_EPOCHS} epochs of "
+          f"{steps} steps at B={LEARN_B} in {run_s:.1f} s; train loss by epoch "
+          + ", ".join(f"{v:.4f}" for v in losses) + "; its distill loss by epoch "
+          + ", ".join(f"{v:.5g}" for v in distill) + "; val top-1 by epoch "
+          + ", ".join(f"{v:.1f}" for v in vals) + f" (bar {RUN_BAR:.0f}% at the last, and "
+          f"the loss falling); the last student's distillation head {dist_val:.1f}%, the "
+          f"teacher {teacher_val:.1f}% on the val images; run() train step {out['ms']:.2f} ms")
+    return out
+
+
+def _spread(values):
+    done = [v for v in values if v is not None]
+    if not done:
+        return "none"
+    return f"{min(done):.1f}-{max(done):.1f}" if len(done) > 1 else f"{done[0]:.1f}"
+
+
+def run_learning(mods, smi, tmp, seeds=1):
+    """Phase 16: 16a every route, 16b distillation and 16c run() on 16b's
+    teacher, at ``seeds`` seeds each (their spread printed). Every reading
+    is taken before the phase fails on one below its bar (a launch count,
+    a plain version or a non-finite metric fails it at once). Returns the
+    readings and the phase's seconds."""
+    t0 = time.perf_counter()
+    data = learn_data()
+    got = collections.defaultdict(list)
+    for seed in LEARN_CONSTANT_SEEDS:
+        got["16a fused bfloat16 at a constant 2e-3"].append(
+            learn_route(mods, "fused", "bfloat16", data, seed, smi, **LEARN_CONSTANT))
+    for seed in range(seeds):
+        for route, dtype in LEARN_ROUTES:
+            got[f"16a {route} {dtype}"].append(learn_route(mods, route, dtype, data, seed, smi))
+        distill, teacher = learn_distillation(mods, data, seed, smi)
+        for k, v in distill.items():
+            got[f"16b {k}"].append(v)
+        got["16c"].append(learn_recipe(mods, teacher, tmp, smi, seed))
+        del teacher
+    if seeds > 1:
+        for k, runs in got.items():
+            if k == "16c":
+                print(f"[learning] 16c over {seeds} seeds: last val top-1 "
+                      f"{_spread([r['val'] for r in runs])}%, train loss first -> last epoch "
+                      + ", ".join(f"{r['losses'][0]:.3f} -> {r['losses'][-1]:.3f}" for r in runs))
+                continue
+            print(f"[learning] {k} over {len(runs)} seeds: held-out top-1 "
+                  f"{_spread([r['heldout'] for r in runs])}%, train top-1 "
+                  f"{_spread([r['train'] for r in runs])}%, first above {LEARN_BAR:.0f}% at "
+                  f"steps {_spread([r['first'] for r in runs])}"
+                  + (f", distillation head {_spread([r['dist'] for r in runs])}%"
+                     if runs[0].get("dist") is not None else ""))
+    seconds = time.perf_counter() - t0
+    print(f"[learning] phase 16 took {seconds:.1f} s ({smi})")
+    failed = [f"{k} seed {r.get('seed', seed)}" for k, runs in got.items()
+              for seed, r in enumerate(runs) if not r["ok"]]
+    if failed:
+        raise AssertionError(f"phase 16: below the bar: {', '.join(failed)}")
+    return dict(readings=got, seconds=seconds)
+
+
 # What two planted faults of phase 14a add to a source: a kernel that rounds
 # n fp32 values to bf16 precision in place, and its launch on the stream `st`.
 ROUND_KERNEL = ("__global__ void fault_round_bf16(float* p, long long n) {\n"
@@ -5215,6 +5767,21 @@ FAULTS = (
     ("LRKD's Gram left local", "deltakd_tpu_torch/kd/losses.py",
      (("gram = dp.all_reduce(torch.bmm(t2.mT, t2))", "gram = torch.bmm(t2.mT, t2)"),),
      "--dp-checks"),
+    # learning (phase 16): the bf16 block backward hands back -dx at the block's
+    # input (a kernel that negates it, added to the source, launched last)
+    ("the sign of dx flipped at the bf16 block backward's input",
+     "deltakd_tpu_torch/ops/csrc/fused_block_bwd.cu",
+     (('extern "C" int dk_fused_block_bwd(void* const* ptr,',
+       "__global__ void fault_negate_bf16(bf16* p, long long n) {\n"
+       "  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;\n"
+       "  if (i < n) p[i] = __float2bfloat16(-__bfloat162float(p[i]));\n}\n\n"
+       'extern "C" int dk_fused_block_bwd(void* const* ptr,'),
+      ("  return (int)reverse_chain(g_out, g_feat, s_attn, s_mlp, w, sh, f, g, dW, nullptr, dx, st);",
+       "  const cudaError_t e =\n"
+       "      reverse_chain(g_out, g_feat, s_attn, s_mlp, w, sh, f, g, dW, nullptr, dx, st);\n"
+       "  fault_negate_bf16<<<blocks_of(sh.M() * sh.D, 256), 256, 0, st>>>(dx, sh.M() * sh.D);\n"
+       "  return (int)e;")),
+     "--learning-checks"),
 )
 
 
@@ -5222,12 +5789,21 @@ def run_faults() -> int:
     """For each planted fault: a copy of the package and this script under
     .scratch/faults/ (ignored by git), the edit, then ``chip_smoke.py`` with
     the fault's check mode in the copy, which must exit 1. Returns 0 when
-    every fault failed its run."""
+    every fault failed its run. ``--run-as MODE`` is a diagnostic, not a
+    check: it runs the chosen faults under MODE instead, to read which of
+    them another mode's checks catch (the backward's faults under phase 16
+    show how blunt a learning check is)."""
     import shutil
 
     root = os.path.dirname(os.path.abspath(__file__))
     caught = []
-    only = [a for a in sys.argv[1:] if a.endswith("-checks")]
+    argv = sys.argv[1:]
+    run_as = None
+    if "--run-as" in argv:
+        i = argv.index("--run-as")
+        run_as = argv[i + 1]
+        del argv[i:i + 2]
+    only = [a for a in argv if a.endswith("-checks")]
     for i, (name, rel, edits, checks) in enumerate(FAULTS):
         if only and checks not in only:
             continue
@@ -5247,11 +5823,12 @@ def run_faults() -> int:
         with open(path, "w") as f:
             f.write(text)
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "chip_smoke.py", checks], cwd=copy,
+        proc = subprocess.run([sys.executable, "chip_smoke.py", run_as or checks], cwd=copy,
                               capture_output=True, text=True, timeout=600)
         first = ([line for line in proc.stdout.splitlines() if "FAIL" in line]
                  or proc.stderr.strip().splitlines()[-1:] or ["(none)"])[0]
-        print(f"[fault] {name}: exit {proc.returncode} after {time.perf_counter() - t0:.1f} s; "
+        print(f"[fault] {name} ({run_as or checks}): exit {proc.returncode} after "
+              f"{time.perf_counter() - t0:.1f} s; "
               f"first failure: {first}")
         caught.append(proc.returncode == 1)
         shutil.rmtree(copy)
@@ -5276,6 +5853,8 @@ def main() -> int:
     dp_checks = "--dp-checks" in sys.argv[1:]
     fp32_checks = "--fp32-checks" in sys.argv[1:]
     tp_checks = "--tp-checks" in sys.argv[1:]
+    learning_checks = "--learning-checks" in sys.argv[1:]
+    seeds = int(sys.argv[sys.argv.index("--seeds") + 1]) if "--seeds" in sys.argv else 1
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deltakd_tpu_torch.ops import _build
@@ -5342,8 +5921,13 @@ def main() -> int:
         run_tensor_parallel(mods, smi, soft_recipe_argv(tmp, dict(
             DATA_PATH=os.path.join(tmp, "data"), TEACHER_CKPT=teacher_checkpoint)), tmp)
         return 0
+    if learning_checks:  # phase 16 alone
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        atexit.register(shutil.rmtree, tmp, True)
+        os.environ.update(WANDB_MODE="disabled", WANDB_ERROR_REPORTING="false")
+        run_learning(mods, smi, tmp, seeds)
+        return 0
     if fp32_checks:      # a planted-fault copy: the fp32 forms' checks at B=8 only
-        seeds = int(sys.argv[sys.argv.index("--seeds") + 1]) if "--seeds" in sys.argv else 1
         check_fp32_blocks(fb, worst, seeds)
         check_fp32_weight_grads(fb, worst)
         check_fp32_linear(fb, worst)
@@ -5514,6 +6098,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_tensor_parallel(mods, smi, runtime["soft_argv"], tmp)
     lap("phase 15")
+    # phase 16: the port learns a task on every route, by distillation, under run()
+    torch.cuda.empty_cache()
+    learning = run_learning(mods, smi, tmp, seeds)
+    lap("phase 16")
     print("[slice] step ms by path: "
           + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
 
@@ -5569,7 +6157,8 @@ def main() -> int:
             kernels[-1]["attention_kernels"] = ["attention_fwd_f32_ws_kernel"]
     if {k["source"] for k in kernels} != {csrc + f"{n}.cu" for n in _build.SOURCES}:
         raise AssertionError("a built source has no kernel in the report")
-    print(f"[total] {time.perf_counter() - t_start:.1f} s")
+    print(f"[total] {time.perf_counter() - t_start:.1f} s (phase 16, learning: "
+          f"{learning['seconds']:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
