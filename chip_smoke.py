@@ -15,6 +15,7 @@
                                              # 14a) and the optimizers' (14d, first half)
     python3 chip_smoke.py --fp32-checks --seeds 8  # ... the block, MLP and pair checks on 8 draws
     python3 chip_smoke.py --learning-checks  # only phase 16 (--seeds N: 16a, 16b at N seeds)
+    python3 chip_smoke.py --outcome-checks   # only phase 17 (--seeds N: 17b at N seeds)
     python3 chip_smoke.py --faults --backward-checks --run-as --learning-checks
                                              # diagnostic: the backward's faults under
                                              # phase 16 (which of them it catches alone)
@@ -298,7 +299,20 @@ Phases, each of which fails the run:
      reduced by 7 x 7 means; the distill loss by epoch, the teacher's and
      the final student's distillation head's val top-1 printed beside): the
      train loss falls from the first epoch to the last and the last val
-     top-1 is at least 50%.
+     top-1 is at least 50%;
+ 17. the outcome checks of the JAX package's benchmarks, ported, each
+     through run() on the fused bf16 route with the launches of every train
+     step and eval batch held to the route's and no plain version run
+     (scripts/run_probe.py): 17a scripts/soak_run.py in full, 24 epochs of
+     soft KD at 224 px from a folder of JPEGs (FolderSource and the Loader),
+     EMA 0.996, a checkpoint each epoch, --resume at epoch 12; every gate of
+     its analyze (24 epochs logged, the loss descent, the resume's
+     continuity, val top-1 at least 45%, no epoch-time creep), the loader
+     wait a step and the epoch times printed; 17b scripts/equivalence_run.py
+     --quick --objective soft --dtype bfloat16 at seed 0: the torch stack's
+     teacher and student (fp32, TF32 off) and ours, each seed's ours final
+     val top-1 at least EQUIVALENCE_BAR, both stacks' readings and the band
+     verdict printed.
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
@@ -5569,6 +5583,105 @@ def run_learning(mods, smi, tmp, seeds=1):
     return dict(readings=got, seconds=seconds)
 
 
+# Phase 17: the JAX package's last two outcome checks, ported
+# (scripts/soak_run.py, scripts/equivalence_run.py), driven through the
+# port's run() on the fused bf16 route. Each script counts the launches of
+# every train step and eval batch of its run() calls against the route's
+# (scripts/run_probe.py) and fails on a plain version; here the counts are
+# also read around each whole run for the kernels' line.
+SOAK_EPOCHS = 24          # benchmarks/soak_run.py's: 12, then --resume to 24
+# 17b's bar: % ours' final val top-1 at --quick (chance 12.5%: 16 of the 128
+# val images). --quick trains 24 steps, most in the warmup; the first calls
+# read 21.09, 36.72, 17.97, 15.62, 40.62% at seeds 0-4 (PERF.md), and the
+# bf16 route repeats its digits at a seed
+EQUIVALENCE_BAR = 14.0
+
+
+def _outcome_scripts():
+    """scripts/soak_run.py and scripts/equivalence_run.py as modules."""
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import equivalence_run
+    import soak_run
+
+    return soak_run, equivalence_run
+
+
+def run_soak(mods, smi, tmp):
+    """17a: the soak in full (SOAK_EPOCHS epochs of soft KD at 224 px, EMA
+    0.996, a checkpoint each epoch, resumed at half way) on the fused bf16
+    route; every gate of its analyze must pass. Returns the launches of
+    the whole run and its readings."""
+    soak_run, _ = _outcome_scripts()
+    _reset_launches(mods)
+    t0 = time.perf_counter()
+    with _PlainCalls(mods) as plain:
+        ok, r = soak_run.soak(SOAK_EPOCHS, "cuda", base=os.path.join(tmp, "soak"))
+    seconds = time.perf_counter() - t0
+    launches = _read_launches(mods)
+    _no_fallback("17a soak", {}, {}, plain.calls)   # each step's launches: the script's
+    print(f"[outcome] 17a soak ({smi}): {'ok' if ok else 'FAIL'}: {SOAK_EPOCHS} epochs "
+          f"(resumed at {SOAK_EPOCHS // 2}) in {seconds:.1f} s; train loss "
+          f"{r['losses'][0]:.3f} -> {r['losses'][-1]:.3f}; val top-1 by epoch "
+          + ", ".join(f"{a:.1f}" for a in r["accs"]) + "; epoch s "
+          + ", ".join(f"{t:.1f}" for t in r["times"]) + f" (early median {r['early']:.1f}, "
+          f"late {r['late']:.1f}); loader wait ms a step by epoch "
+          + ", ".join(f"{w:.3f}" for w in r["loader_wait_ms"]) + "; step ms by epoch "
+          + ", ".join(f"{t:.1f}" for t in r["step_ms"]) + f"; launches {launches}, by phase "
+          f"{r['launches']}")
+    if not ok:
+        raise AssertionError("17a: a gate of the soak failed (SOAK FAIL above)")
+    shutil.rmtree(r["base"], ignore_errors=True)
+    return launches, dict(r, seconds=seconds)
+
+
+def run_equivalence(mods, smi, tmp, seeds=1):
+    """17b: scripts/equivalence_run.py --quick --objective soft --dtype
+    bfloat16 with both stacks at ``seeds`` seeds: the torch stack's
+    teacher, its student and ours (run() on the fused bf16 route). Every
+    seed's ours final val top-1 must reach EQUIVALENCE_BAR; the band verdict
+    is printed. Returns the launches of ours' runs and the readings."""
+    _, eq = _outcome_scripts()
+    argv = ["--quick", "--objective", "soft", "--dtype", "bfloat16", "--seeds",
+            *map(str, range(seeds)), "--workdir", os.path.join(tmp, "equivalence"),
+            "--out", os.path.join(tmp, "EQUIVALENCE_quick.md")]
+    _reset_launches(mods)
+    t0 = time.perf_counter()
+    with _PlainCalls(mods) as plain:
+        out = eq.compare(argv)
+    seconds = time.perf_counter() - t0
+    launches = _read_launches(mods)
+    _no_fallback("17b equivalence", {}, {}, plain.calls)
+    rows = [out["results"][("soft", s)] for s in range(seeds)]
+    delta, band, verdict = out["verdicts"]["soft"]
+    print(f"[outcome] 17b equivalence --quick soft bf16 ({smi}) in {seconds:.1f} s: teacher "
+          f"{out['teacher_acc']:.2f}%; by seed torch / ours final val top-1 "
+          + ", ".join(f"{r['torch']['final_acc']:.2f} / {r['ours']['final_acc']:.2f}"
+                      for r in rows) + f"; delta {delta:.2f}, {verdict} band {band:.2f}; "
+          f"bar {EQUIVALENCE_BAR:.0f}% for ours; launches {launches}")
+    low = [s for s, r in enumerate(rows) if r["ours"]["final_acc"] < EQUIVALENCE_BAR]
+    if low:
+        raise AssertionError(f"17b: ours' final val top-1 below {EQUIVALENCE_BAR}% at "
+                             f"seeds {low}")
+    return launches, dict(out, seconds=seconds)
+
+
+def run_outcome_checks(mods, smi, tmp, seeds=1):
+    """Phase 17: 17a then 17b. Returns the launches by path and the seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    by_path = {}
+    by_path["17a soak"], soak = run_soak(mods, smi, tmp)
+    torch.cuda.empty_cache()
+    by_path["17b equivalence"], equivalence = run_equivalence(mods, smi, tmp, seeds)
+    seconds = time.perf_counter() - t0
+    print(f"[outcome] phase 17 took {seconds:.1f} s (17a {soak['seconds']:.1f} s, 17b "
+          f"{equivalence['seconds']:.1f} s)")
+    return by_path, seconds
+
+
 # What two planted faults of phase 14a add to a source: a kernel that rounds
 # n fp32 values to bf16 precision in place, and its launch on the stream `st`.
 ROUND_KERNEL = ("__global__ void fault_round_bf16(float* p, long long n) {\n"
@@ -5782,6 +5895,10 @@ FAULTS = (
        "  fault_negate_bf16<<<blocks_of(sh.M() * sh.D, 256), 256, 0, st>>>(dx, sh.M() * sh.D);\n"
        "  return (int)e;")),
      "--learning-checks"),
+    # the soak (phase 17a): --resume restores the epoch counter, the optimizer
+    # and the EMA, but the student keeps its fresh weights
+    ("the resume keeps the fresh student weights", "deltakd_tpu_torch/ckpt/checkpoint.py",
+     (('    state.params.copy_(cut(saved["params"]))\n', ""),), "--outcome-checks"),
 )
 
 
@@ -5813,6 +5930,11 @@ def run_faults() -> int:
                         os.path.join(copy, "deltakd_tpu_torch"),
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy2(os.path.abspath(__file__), copy)
+        # phase 17's scripts, and the torch stack's model that one of them imports
+        shutil.copytree(os.path.join(root, "scripts"), os.path.join(copy, "scripts"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        os.makedirs(os.path.join(copy, "tests"))
+        shutil.copy2(os.path.join(root, "tests", "torch_ref.py"), os.path.join(copy, "tests"))
         path = os.path.join(copy, rel)
         with open(path) as f:
             text = f.read()
@@ -5854,6 +5976,7 @@ def main() -> int:
     fp32_checks = "--fp32-checks" in sys.argv[1:]
     tp_checks = "--tp-checks" in sys.argv[1:]
     learning_checks = "--learning-checks" in sys.argv[1:]
+    outcome_checks = "--outcome-checks" in sys.argv[1:]
     seeds = int(sys.argv[sys.argv.index("--seeds") + 1]) if "--seeds" in sys.argv else 1
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5881,6 +6004,7 @@ def main() -> int:
                         else ["fused_block_fwd", "fused_block_bwd", "fused_block_pair",
                               "attention", "fused_mlp"]
                         if fp32_checks else ["attention", "fused_mlp", "sort"] if tp_checks
+                        else ["fused_block_fwd", "fused_block_bwd"] if outcome_checks
                         else _build.SOURCES)
     lap = _Laps()
     print(f"[build] sources {list(_build.SOURCES)}, compiled {sorted(logs)} in "
@@ -5926,6 +6050,12 @@ def main() -> int:
         atexit.register(shutil.rmtree, tmp, True)
         os.environ.update(WANDB_MODE="disabled", WANDB_ERROR_REPORTING="false")
         run_learning(mods, smi, tmp, seeds)
+        return 0
+    if outcome_checks:   # phase 17 alone (--seeds N: 17b at seeds 0..N-1)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        atexit.register(shutil.rmtree, tmp, True)
+        os.environ.update(WANDB_MODE="disabled", WANDB_ERROR_REPORTING="false")
+        run_outcome_checks(mods, smi, tmp, seeds)
         return 0
     if fp32_checks:      # a planted-fault copy: the fp32 forms' checks at B=8 only
         check_fp32_blocks(fb, worst, seeds)
@@ -6102,6 +6232,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     learning = run_learning(mods, smi, tmp, seeds)
     lap("phase 16")
+    # phase 17: the soak and the accuracy equivalence through run()
+    torch.cuda.empty_cache()
+    outcome, outcome_s = run_outcome_checks(mods, smi, tmp)
+    by_path.update(outcome)
+    lap("phase 17")
     print("[slice] step ms by path: "
           + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
 
@@ -6158,7 +6293,7 @@ def main() -> int:
     if {k["source"] for k in kernels} != {csrc + f"{n}.cu" for n in _build.SOURCES}:
         raise AssertionError("a built source has no kernel in the report")
     print(f"[total] {time.perf_counter() - t_start:.1f} s (phase 16, learning: "
-          f"{learning['seconds']:.1f} s)")
+          f"{learning['seconds']:.1f} s; phase 17, the outcome checks: {outcome_s:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

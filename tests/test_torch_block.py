@@ -243,8 +243,8 @@ def test_plain_linear_is_the_forward_chains_product(epilogue):
 
 
 def test_port_imports_no_jax():
-    """deltakd_tpu_torch, chip_smoke.py and scripts/ import neither jax nor
-    deltakd_tpu."""
+    """deltakd_tpu_torch, chip_smoke.py and scripts/ import neither jax,
+    deltakd_tpu nor the JAX package's benchmarks."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = [os.path.join(root, "chip_smoke.py")]
     for top in ("deltakd_tpu_torch", "scripts"):
@@ -258,7 +258,9 @@ def test_port_imports_no_jax():
                    "train/loop.py", "cli/train.py", "cli/eval.py", "cli/sweep.py",
                    "parallel/distributed.py", "parallel/mesh.py"):
         assert os.path.join(root, "deltakd_tpu_torch", module) in files, module
-    banned = ("jax", "jaxlib", "flax", "optax", "deltakd_tpu")
+    for script in ("equivalence_run.py", "soak_run.py"):
+        assert os.path.join(root, "scripts", script) in files, script
+    banned = ("jax", "jaxlib", "flax", "optax", "deltakd_tpu", "benchmarks")
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
