@@ -262,12 +262,25 @@ Phases, each of which fails the run:
      same bits on both ranks, exactly 24 flash_fwd, 12 flash_bwd and 12
      fused_mlp_fwd (F/2 = 768) launches a step and rank and no block or pair
      launch; the step's ms a rank and the model group's collectives' ms and
-     bytes (gloo through the host on one card: not a TP speed); 15b, four
-     processes at mesh (2, 2) at the JAX dry run's widths (depth 3, D = 64 /
-     128, 4 heads, 32 px, fp32, PyTorch's own ops: the kernels take head dim
-     64): mgd, soft with grad_accum_steps=2, wasskd-sinkhorn with 8
-     iterations, each against one process on the global batch (TP_DRY_TOL);
-     15c, run() at (1, 2) with soft-deit-tiny.sh's flags on phase 11's
+     bytes (gloo through the host on one card: not a TP speed); 15d, four
+     processes at mesh (1, 4): the bf16 soft step against the same one
+     process, 12 fused_mlp_fwd launches on F/4 = 384, the student's eval view
+     (the MLP kernel on F/4 = 192) against the one process's; 15e, eight
+     processes (the JAX package's eight-device meshes): at (4, 2) the JAX dry
+     run's cases at its widths (depth 3, D = 64 / 128, 4 heads, 32 px, fp32,
+     PyTorch's own ops: the kernels take head dim 64): mgd, soft with
+     grad_accum_steps=2, wasskd-sinkhorn with 8 iterations, each then its
+     masked eval step (the last 3 rows invalid), against one process on the
+     global batch (TP_DRY_TOL; the eval count exact); at (8, 1) the dry run's
+     fused case, the bf16 soft step with accumulation 2 on the block kernels
+     at DeiT widths (depth 3, 224 px, B = 256 a micro-batch, phase 12's
+     regime) against the one-process fused step (phase 12's
+     DP_GRAD_TOL, DP_LOSS_TOL), 6 forward launches a model and 6 backward a
+     rank; at (1, 8) the full-width bf16 soft step against the one-process
+     unfused step (TP_GRAD_TOL, TP_LOSS_TOL), its launches a rank (the
+     teacher's MLP on F/8 = 192) and the student's eval view (12
+     fused_mlp_fwd launches on F/8 = 96, the plan's 32-wide tail) against
+     the one process's; 15c, run() at (1, 2) with soft-deit-tiny.sh's flags on phase 11's
      pickles at fp32, B = 32, 4 steps: one epoch against one process
      (TP_RUN_TOL), rank 0 alone writing, a one-process checkpoint resumed at
      (1, 2) against its one-process resume, each side's checkpoint loaded
@@ -365,6 +378,10 @@ M_MAIN = B_MAIN * N_TOK          # token rows of one batch: 50688
 ATTN_MAIN = {"teacher": B_MAIN * 6, "student": B_MAIN * 3}
 MLP_MAIN = {"teacher": 384, "student": 192}
 MLP_WIDTHS = (192, 384, 768, 1024)   # the model zoo's (models/registry.py)
+# (D, F/M): the teacher's and the student's hidden shards at a model axis of 8
+# (the plan's 32-wide tail chunk; two column passes), and at 2, 4 and 8 to time
+MLP_SHARDS = ((192, 96), (384, 192))
+MLP_SHARD_WIDTHS = ((384, 768), (384, 384), (384, 192), (192, 384), (192, 192), (192, 96))
 UNFUSED_STEPS = 8
 # train steps per distillation type, in the order they run
 PATHS = (("soft", 8), ("wasskd", 4), ("mgd", 2), ("vitkd", 2))
@@ -1691,13 +1708,14 @@ def time_attention_kernels(at):
     return rows
 
 
-def _mlp_inputs(M, D, seed):
+def _mlp_inputs(M, D, seed, F=None):
     """x and the cotangent dy of std 1 in bf16, fp32 weights of std
-    1/sqrt(fan-in) in nn.Linear layout and biases of std 0.1, on the card."""
+    1/sqrt(fan-in) in nn.Linear layout and biases of std 0.1, on the card;
+    hidden width F (default 4 D)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    F = 4 * D
+    F = F or 4 * D
     x, dy = (torch.randn(M, D, generator=g).cuda().bfloat16() for _ in range(2))
     w1 = (torch.randn(F, D, generator=g) / math.sqrt(D)).cuda()
     w2 = (torch.randn(D, F, generator=g) / math.sqrt(F)).cuda()
@@ -1705,17 +1723,18 @@ def _mlp_inputs(M, D, seed):
     return x, w1, b1, w2, b2, dy
 
 
-def _hold_mlp(fm, worst, M, D, main=False):
-    """Both fused-MLP kernels against their plain versions at one shape."""
+def _hold_mlp(fm, worst, M, D, main=False, F=None):
+    """Both fused-MLP kernels against their plain versions at one shape
+    (hidden width F, default 4 D)."""
     import torch
 
-    x, w1, b1, w2, b2, dy = _mlp_inputs(M, D, M + D)
+    x, w1, b1, w2, b2, dy = _mlp_inputs(M, D, M + D + (F or 0), F)
     out, out2 = (fm.kernel_fused_mlp(x, w1, b1, w2, b2) for _ in range(2))
     r_out = fm._plain_fwd(x, w1, b1, w2, b2)
     grads, grads2 = (fm.kernel_fused_mlp_bwd(x, w1, b1, w2, dy) for _ in range(2))
     r_grads = fm._plain_bwd(x, w1, b1, w2, dy)
     torch.cuda.synchronize()
-    tag = f"M={M} D={D}"
+    tag = f"M={M} D={D}" + (f" F={F}" if F else "")
     _hold_all(worst, ("fused_mlp_fwd", D) if main else "fused_mlp_fwd", tag,
               [("out", out, r_out, None)], torch.equal(out, out2))
     _hold_all(worst, ("fused_mlp_bwd", D) if main else "fused_mlp_bwd", tag,
@@ -1729,12 +1748,18 @@ def check_mlp_kernels(fm, worst):
     of the model zoo (D = 192, 384, 768, 1024: every forward plan, one to four
     column passes): 8 images' rows (1584 = 24.75 row tiles) and an odd M;
     then the main path's M = 50688 at the student's and the teacher's
-    width."""
+    width; then the hidden shards of a model axis of 8 (MLP_SHARDS: the
+    one-warpgroup plan with its 32-wide tail chunk at D = 192, F = 96, and in
+    two column passes at D = 384, F = 192) at 8 and 32 images' rows and an
+    odd M."""
     for D in MLP_WIDTHS:
         for M in (B_CHECK * N_TOK, 1001):
             _hold_mlp(fm, worst, M, D)
     for D in MLP_MAIN.values():
         _hold_mlp(fm, worst, M_MAIN, D, main=True)
+    for D, F in MLP_SHARDS:
+        for M in (B_CHECK * N_TOK, TP_BATCH * N_TOK, 1001):
+            _hold_mlp(fm, worst, M, D, F=F)
 
 
 # Workspace bytes of the MLP backward at [50688, 192] in the design that ran
@@ -1785,6 +1810,34 @@ def time_mlp_widths(fm):
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
         del x, w1, b1, w2, b2, lib
     return rows
+
+
+def time_mlp_shard_widths(fm, smi):
+    """The forward kernel at the hidden shards it serves under tensor
+    parallelism (MLP_SHARD_WIDTHS: F/M at model axes 2, 4 and 8 of the
+    teacher's and the student's F = 4 D) at 32 and 256 images' rows, on fp32
+    parameters as the sharded teacher passes them, beside the library call
+    (F.linear + F.gelu + F.linear on bf16 copies) and the bound of the
+    MLP's own work (the one-warpgroup plan at D = 384 recomputes fc1 in its
+    second column pass)."""
+    import torch
+    import torch.nn.functional as F
+
+    for D, hidden in MLP_SHARD_WIDTHS:
+        for M in (TP_BATCH * N_TOK, M_MAIN):
+            x, w1, b1, w2, b2, _ = _mlp_inputs(M, D, 7, hidden)
+            lib = [t.bfloat16() for t in (x, w1, b1, w2, b2)]
+            ms = _timed(lambda: fm.kernel_fused_mlp(x, w1, b1, w2, b2), 10)
+            with torch.no_grad():
+                library_ms = _timed(
+                    lambda: F.linear(F.gelu(F.linear(lib[0], lib[1], lib[2])), lib[3], lib[4]),
+                    10)
+            bound = _bound(2 * 2 * M * D * hidden,
+                           2 * M * D * 2 + 2 * D * hidden * 2 + 4 * (hidden + D))
+            print(f"[time] {smi}: fused_mlp_fwd shard M={M} D={D} F={hidden}: {ms:.4f} ms, "
+                  f"library {library_ms:.4f} ms, kernel/library {ms / library_ms:.4f}, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+            del x, w1, b1, w2, b2, lib
 
 
 def time_mlp_kernels(fb, fm):
@@ -3507,7 +3560,7 @@ def run_data_parallel(mods, smi, tmp=None, data_env=None, state_11a=None, soft_a
 
 # ---------------------------------------------------------------------------
 # Phase 15: tensor parallelism (the model mesh axis), ranks sharing the card
-# over gloo (15a, 15b), run() at mesh (1, 2) (15c)
+# over gloo (15a, 15d, 15e), run() at mesh (1, 2) (15c)
 # ---------------------------------------------------------------------------
 TP_BATCH = 32         # 15a: the global batch (gloo moves every collective through the host)
 TP_STEPS = 3          # 15a: steps at each dtype (the ms is the median of steps 2-3)
@@ -3524,16 +3577,34 @@ TP_STEPS = 3          # 15a: steps at each dtype (the ms is the median of steps 
 # H100): 1.84e-2 bf16 (a LayerNorm gain's), 5.7e-6 fp32 (the dist head's).
 TP_GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 TP_LOSS_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
-# 15b: the dry run's widths (depth 3, D = 64 / 128, 4 heads, 32 px; head dim
-# 16 and 32, which the attention kernel does not take, so the models run
-# PyTorch's own ops as the JAX dry run runs its plain modules), fp32: only
-# the order of the sums differs from the one process
+# 15e (4, 2): the dry run's widths (depth 3, D = 64 / 128, 4 heads, 32 px;
+# head dim 16 and 32, which the attention kernel does not take, so the models
+# run PyTorch's own ops as the JAX dry run runs its plain modules), fp32: only
+# the order of the sums differs from the one process. (8, 1): the dry run's
+# fused case at DeiT widths (D = 192 / 384, 3 / 6 heads, head dim 64, depth
+# 3), so that the block kernels run, in bf16 under phase 12's bounds, in
+# phase 12's regime: 224 px and the main path's global batch (B_MAIN a
+# micro-batch, 32 images a rank). Those bounds hold where a rank's gradient
+# sums run over many images (phase 12: 128 a rank). At the dry run's 2
+# images a rank and micro-batch the per-tensor error grows: each rank rounds
+# its partial gradient of the parameters PyTorch's bf16 ops use (tokens,
+# patch embedding, heads) to bf16 before the all-reduce, and cuBLAS's
+# products, whose order of sums changes with the row count, round the
+# blocks' cotangents one bf16 ulp apart; eight such small partials read
+# 1.26e-2 (the dist token's) at 224 px and 1.23e-2 (a LayerNorm gain's) at
+# 32 px on one H100, above DP_GRAD_TOL, with the loss within 5e-8
 TP_DRY_TOL = 1e-4
 TP_DRY = (("mgd", False, 1, {}), ("soft", True, 2, {}),
           ("wasskd", False, 1, {"wasskd_type": "sinkhorn", "sinkhorn_iters": 8}))
-TP_DRY_MODELS = {"tp_dry_student": dict(embed_dim=64, distilled=False),
-                 "tp_dry_student_distilled": dict(embed_dim=64, distilled=True),
-                 "tp_dry_teacher": dict(embed_dim=128, distilled=True)}
+TP_DRY_MODELS = {"tp_dry_student": dict(embed_dim=64, num_heads=4, distilled=False),
+                 "tp_dry_student_distilled": dict(embed_dim=64, num_heads=4, distilled=True),
+                 "tp_dry_teacher": dict(embed_dim=128, num_heads=4, distilled=True),
+                 "tp_dry_deit_student": dict(embed_dim=192, num_heads=3, distilled=True,
+                                             img_size=224),
+                 "tp_dry_deit_teacher": dict(embed_dim=384, num_heads=6, distilled=True,
+                                             img_size=224)}
+TP_WORLD = 8          # 15e's ranks
+TP_FUSED_ACCUM = 2
 # 15c: run() at (1, 2) against one process at fp32, B = 32, 4 steps, 2 eval batches
 TP_RUN_FLAGS = ("--dtype", "float32", "--batch-size", "32", "--steps-per-epoch", "4",
                 "--eval-steps", "2", "--mesh-shape", "1", "2")
@@ -3546,10 +3617,10 @@ TP_RUN_IMAGES = 64
 
 
 def _tp_launches(dtype, M=2, B=TP_BATCH):
-    """A TP step's launches a rank at a model axis of M (2 or 4): DeiT-S's 6
-    heads split 6/M a rank where M divides them, else all 6 on each rank (the
-    gather route), DeiT-Ti's 3 heads all on each rank; the teacher's MLP on
-    its F/M hidden columns (counted by D = 384)."""
+    """A TP step's launches a rank at a model axis of M (2, 4 or 8): DeiT-S's
+    6 heads split 6/M a rank where M divides them, else all 6 on each rank
+    (the gather route), DeiT-Ti's 3 heads all on each rank; the teacher's MLP
+    on its F/M hidden columns (counted by D = 384; F/8 = 192 at M = 8)."""
     form = "_f32" if dtype == "float32" else ""
     out = collections.Counter()
     out[(f"flash_fwd{form}", B * (6 // M if 6 % M == 0 else 6))] += 12
@@ -3559,9 +3630,10 @@ def _tp_launches(dtype, M=2, B=TP_BATCH):
     return dict(out)
 
 
-# 15d: the student's eval view at a model axis of 4 runs every block's MLP
-# kernel on F/4 = 192 hidden columns (one warpgroup's plan, hidden chunks of
-# 64) and its attention on all 3 heads
+# 15d, 15e: the student's eval view at a model axis of 4 (8) runs every
+# block's MLP kernel on F/4 = 192 (F/8 = 96) hidden columns (one warpgroup's
+# plan, hidden chunks of 64; at F/8 one 64-wide chunk and the 32-wide tail)
+# and its attention on all 3 heads
 TP_EVAL_LAUNCHES = {("flash_fwd", TP_BATCH * 3): 12, ("fused_mlp_fwd", 192): 12}
 
 
@@ -3664,34 +3736,46 @@ def _register_dry_models():
     from deltakd_tpu_torch.models.vit import ViTConfig
 
     for name, kw in TP_DRY_MODELS.items():
-        registry.MODEL_REGISTRY[name] = ViTConfig(img_size=32, depth=3, num_heads=4, **kw)
+        registry.MODEL_REGISTRY[name] = ViTConfig(**dict(dict(img_size=32, depth=3), **kw))
 
 
-def _tp_dry_step(kd_type, distilled, accum, extra, mesh):
-    """15b: one step of the JAX dry run's case on ``mesh`` (2, 2), each data
-    rank on its rows of the global batch (2 images a device and micro-batch),
-    or the one process on all of it (``mesh`` None); images, targets,
-    drop-path scales and masking noise pinned from a seed."""
+def _tp_dry_step(kd_type, distilled, accum, extra, mesh, mods=None):
+    """15e: one step of the JAX dry run's case on ``mesh`` (TP_WORLD ranks),
+    each data rank on its rows of the global batch (2 images a rank and
+    micro-batch; fused: B_MAIN a micro-batch), or the one process on all of
+    it (``mesh`` None); images,
+    targets, drop-path scales and masking noise pinned from a seed. At (4, 2)
+    the dry run's models with PyTorch's own ops at fp32, then the masked eval
+    step on the data rank's rows of uint8 images, the last 3 of the batch
+    invalid, summed over the data ranks (as ``eval``); with ``mods``, the
+    fused case at (8, 1): DeiT widths at 224 px, the block kernels in bf16,
+    the launches of the step."""
     import torch
 
     from deltakd_tpu_torch.configs.config import TrainConfig
     from deltakd_tpu_torch.data.augment import AugmentConfig
     from deltakd_tpu_torch.kd.losses import KDSettings
     from deltakd_tpu_torch.models.factory import load_teacher_student
+    from deltakd_tpu_torch.train.loop import eval_view
     from deltakd_tpu_torch.train.optim import make_optimizer
     from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
-    from deltakd_tpu_torch.train.step import build_train_step
+    from deltakd_tpu_torch.train.step import build_eval_step, build_train_step
 
-    batch = 2 * 4 * accum
-    cfg = TrainConfig(teacher_model="tp_dry_teacher",
-                      student_model="tp_dry_student" + ("_distilled" if distilled else ""),
-                      input_size=32, batch_size=batch, epochs=5, warmup_epochs=1,
-                      dtype="float32", drop_path_rate=0.0 if accum > 1 else 0.1,
+    fused = mods is not None
+    batch = (B_MAIN if fused else 2 * TP_WORLD) * accum
+    img = 224 if fused else 32
+    prefix = "tp_dry_deit_" if fused else "tp_dry_"
+    cfg = TrainConfig(teacher_model=prefix + "teacher",
+                      student_model=prefix + "student" + ("" if fused or not distilled
+                                                          else "_distilled"),
+                      input_size=img, batch_size=batch, epochs=5, warmup_epochs=1,
+                      dtype="bfloat16" if fused else "float32",
+                      drop_path_rate=0.0 if accum > 1 else 0.1,
                       distillation_type=kd_type, grad_accum_steps=accum, dataset="cifar-100",
-                      allow_random_teacher=True, aa="", color_jitter=0.0, mesh_shape=(2, 2),
-                      **extra)
-    teacher, student, aux = load_teacher_student(cfg, attention_fn=None, seed=0,
-                                                 device="cuda", mesh=mesh)
+                      allow_random_teacher=True, aa="", color_jitter=0.0,
+                      mesh_shape=(TP_WORLD, 1) if fused else (TP_WORLD // 2, 2), **extra)
+    kw = {} if fused else {"attention_fn": None}
+    teacher, student, aux = load_teacher_student(cfg, seed=0, device="cuda", mesh=mesh, **kw)
     tx = make_optimizer(cfg, trainable_parameters(student, aux), 4)
     state = TrainState(student, tx=tx, aux=aux)
     applied = []
@@ -3705,11 +3789,13 @@ def _tp_dry_step(kd_type, distilled, accum, extra, mesh):
         student=student, teacher=teacher, aux=aux, aug=AugmentConfig.from_config(cfg),
         mixup=None, tx=tx, dp=dp)
     g = torch.Generator(device="cuda").manual_seed(16)
-    images = torch.randn(batch, 32, 32, 3, generator=g, device="cuda")
+    images = torch.randn(batch, img, img, 3, generator=g, device="cuda")
     targets = torch.softmax(3.0 * torch.randn(batch, 100, generator=g, device="cuda"), -1)
     labels = torch.randint(0, 100, (batch,), generator=g, device="cuda")
     noise = torch.rand(batch, 4, generator=g, device="cuda")
     scales = student.draw_drop_scales(batch, g, "cuda")
+    u8 = torch.randint(0, 256, (batch, 32, 32, 3), generator=g, device="cuda",
+                       dtype=torch.uint8)
     D = 1 if mesh is None else mesh.data.world
     d = 0 if mesh is None else mesh.data.rank
     mb = batch // accum // D
@@ -3720,10 +3806,24 @@ def _tp_dry_step(kd_type, distilled, accum, extra, mesh):
         pinned.update(drop_scales=[None if s is None else tuple(x[rows] for x in s)
                                    for s in scales],
                       mask_noise=noise[rows] if kd_type == "mgd" else None)
+    if fused:
+        _reset_launches(mods)
     m = step(state, None, labels[rows], torch.Generator(device="cuda").manual_seed(4),
              images=images[rows], **pinned)
-    return _tp_result(state, {k: float(v) for k, v in m.items()}, applied,
-                      _full(state, state.params), [], [])
+    torch.cuda.synchronize()
+    out = _tp_result(state, {k: float(v) for k, v in m.items()}, applied,
+                     _full(state, state.params), [_read_launches(mods)] if fused else [], [])
+    if not fused:
+        b = batch // D
+        mine = slice(d * b, (d + 1) * b)
+        sums = build_eval_step(student=eval_view(student), aug=AugmentConfig.from_config(cfg))(
+            u8[mine], labels[mine], (torch.arange(batch, device="cuda") < batch - 3)[mine])
+        names = sorted(sums)
+        total = torch.stack([sums[k].float() for k in names])
+        if mesh is not None:
+            mesh.data.all_reduce(total)
+        out["eval"] = dict(zip(names, total.tolist()))
+    return out
 
 
 def _tp_collectives(mesh):
@@ -3788,8 +3888,8 @@ def _tp_round_trip(argv, src, dst, mesh):
 
 def _tp_rank(rank, world, port, out_dir, tasks):
     """One of phase 15's processes: a gloo group of ``world`` on the one card
-    and the mesh of ``tasks["mesh"]``; 15a, 15b or 15c as ``tasks`` says.
-    Writes its results to out_dir/tp_rank<rank>.pt."""
+    and the mesh of ``tasks["mesh"]``; 15a, 15c, 15d or 15e as ``tasks``
+    says. Writes its results to out_dir/tp_rank<rank>.pt."""
     import torch
     import torch.distributed as dist
 
@@ -3817,12 +3917,20 @@ def _tp_rank(rank, world, port, out_dir, tasks):
         out["wasskd"] = _tp_step(mods, "bfloat16", mesh, 1, "wasskd")
         out["collectives"] = _tp_collectives(mesh)
         out["15a_s"] = time.perf_counter() - t0
-    if "15b" in tasks:
+    if "15e" in tasks:   # eight ranks at (4, 2), then (8, 1), then (1, 8)
         _register_dry_models()
         for kd_type, distilled, accum, extra in TP_DRY:
             out[kd_type] = _tp_dry_step(kd_type, distilled, accum, extra, mesh)
-        out["15b_s"] = time.perf_counter() - t0
-    if "15d" in tasks:   # the same four ranks as one data row at a model axis of 4
+        out["fused"] = _tp_dry_step("soft", True, TP_FUSED_ACCUM, {},
+                                    parallel.make_mesh((TP_WORLD, 1), parallel.current()), mods)
+        out["15e_dry_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["15e"] = _tp_step(mods, "bfloat16",
+                              parallel.make_mesh((1, TP_WORLD), parallel.current()), 1,
+                              evaluate=True)
+        out["15e_s"] = time.perf_counter() - t0
+    if "15d" in tasks:   # four ranks as one data row at a model axis of 4
         t0 = time.perf_counter()
         out["15d"] = _tp_step(mods, "bfloat16", parallel.make_mesh((1, 4), parallel.current()),
                               1, evaluate=True)
@@ -3893,9 +4001,11 @@ def _tp_hold(what, got, ref, grad_tol, loss_tol, ranks_of_row):
     loss_err = abs(loss - ref["metrics"]["train_loss"]) / abs(ref["metrics"]["train_loss"])
     norm_err = abs(got[0]["metrics"]["grad_norm"] - ref["metrics"]["grad_norm"]) / abs(
         ref["metrics"]["grad_norm"])
-    same = all(torch.equal(g["local"][~g["sharded"]],
-                           got[ranks_of_row[i][0]]["local"][~got[ranks_of_row[i][0]]["sharded"]])
-               for i, row in enumerate(ranks_of_row) for g in (got[r] for r in row))
+    def replicated(g):   # every tensor without a model axis
+        return g["local"] if g["sharded"] is None else g["local"][~g["sharded"]]
+
+    same = all(torch.equal(replicated(g), replicated(got[row[0]]))
+               for row in ranks_of_row for g in (got[r] for r in row))
     same = same and all(torch.equal(g["grads"], got[0]["grads"])
                         and torch.equal(g["params"], got[0]["params"]) for g in got)
     print(f"[tp] {what}: loss {loss:.7g} vs {ref['metrics']['train_loss']:.7g} (relative "
@@ -3922,14 +4032,85 @@ def _tp_close(what, got, want):
     return ok
 
 
+def _tp_hold_eval(what, got, ref, count):
+    """15e's masked eval sums (each rank's: the data ranks' sum) against the
+    one process's: the count exact (``count``, the batch less 3), the loss
+    sum within TP_DRY_TOL, the top-1 and top-5 counts within one image (a
+    near-tie of two logits may flip under another order of the sums)."""
+    loss_err = max(abs(g["loss_sum"] - ref["loss_sum"]) for g in got) / abs(ref["loss_sum"])
+    top = max(abs(g[k] - ref[k]) for g in got for k in ("correct1", "correct5"))
+    ok = (all(g["count"] == count for g in got) and ref["count"] == count
+          and loss_err <= TP_DRY_TOL and top <= 1)
+    print(f"[tp] {what} masked eval: count {got[0]['count']:.0f} (batch less 3), loss_sum "
+          f"{got[0]['loss_sum']:.7g} vs {ref['loss_sum']:.7g} (relative {loss_err:.2e}, limit "
+          f"{TP_DRY_TOL:g}), correct1 {got[0]['correct1']:.0f} vs {ref['correct1']:.0f}, "
+          f"correct5 {got[0]['correct5']:.0f} vs {ref['correct5']:.0f} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the masked eval is not the one process's")
+
+
+def run_eight_ranks(mods, smi, out_dir, ref_full):
+    """15e: eight processes sharing the card over gloo, as the JAX package's
+    eight-device meshes: at (4, 2) the dry run's cases and their masked eval,
+    at (8, 1) its fused case at DeiT widths in bf16, at (1, 8) the full-width
+    bf16 soft step (against ``ref_full``, 15a's one-process unfused step) and
+    the student's eval view. Returns the worst gradient error of each bf16
+    comparison."""
+    t0 = time.perf_counter()
+    got = _tp_spawn(TP_WORLD, out_dir, {"mesh": (TP_WORLD // 2, 2), "15e": True})
+    spawn_s = time.perf_counter() - t0
+    _register_dry_models()
+    rows_42 = [(r, r + 1) for r in range(0, TP_WORLD, 2)]
+    for kd_type, distilled, accum, extra in TP_DRY:
+        ref = _tp_dry_step(kd_type, distilled, accum, extra, None)
+        what = f"15e {kd_type} (accum {accum}{', ' + str(extra) if extra else ''}), mesh (4, 2)"
+        _tp_hold(what, [g[kd_type] for g in got], ref, TP_DRY_TOL, TP_DRY_TOL, rows_42)
+        _tp_hold_eval(what, [g[kd_type]["eval"] for g in got], ref["eval"],
+                      2 * TP_WORLD * accum - 3)
+    worst = {}
+    ref = _tp_dry_step("soft", True, TP_FUSED_ACCUM, {}, None, mods)
+    ranks = [g["fused"] for g in got]
+    worst["bfloat16 fused (8, 1)"] = _tp_hold(
+        f"15e bfloat16 fused soft step (accum {TP_FUSED_ACCUM}, DeiT widths, depth 3, 224 px, "
+        f"B={B_MAIN} a micro-batch), mesh ({TP_WORLD}, 1)", ranks, ref, DP_GRAD_TOL, DP_LOSS_TOL,
+        [(r,) for r in range(TP_WORLD)])
+    n = 3 * TP_FUSED_ACCUM
+    want = {("fused_block_fwd", 384): n, ("fused_block_fwd", 192): n, ("fused_block_bwd", 192): n}
+    _check_launches("15e one-process fused step", ref["launches"], want, 1)
+    for r, g in enumerate(ranks):
+        _check_launches(f"15e fused rank {r}", g["launches"], want, 1)
+    print(f"[tp] 15e fused: launches a step and rank {ranks[0]['launches'][0]}")
+    ranks = [g["15e"] for g in got]
+    worst["bfloat16 (1, 8)"] = _tp_hold(
+        f"15e bfloat16 soft step, mesh (1, {TP_WORLD}), B={TP_BATCH}", ranks, ref_full,
+        TP_GRAD_TOL["bfloat16"], TP_LOSS_TOL["bfloat16"], [tuple(range(TP_WORLD))])
+    for r, g in enumerate(ranks):
+        _check_launches(f"15e rank {r}", g["launches"], _tp_launches("bfloat16", TP_WORLD), 1)
+        _check_launches(f"15e rank {r} eval view", [g["eval"]["launches"]],
+                        TP_EVAL_LAUNCHES, 1)
+        _agree(f"15e rank {r} eval-view logits at mesh (1, {TP_WORLD})", g["eval"]["logits"],
+               ref_full["eval"]["logits"], (TP_BATCH, 100), other="the one-process eval view")
+    print(f"[tp] {smi}: 15e: the eight ranks took {spawn_s:.1f} s with their start (rank 0: "
+          f"(4, 2) and (8, 1) {got[0]['15e_dry_s']:.1f} s, (1, 8) {got[0]['15e_s']:.1f} s); "
+          f"(1, 8) TP step {ranks[0]['ms'][0]:.2f} ms a rank (its first, CUDA events; eight "
+          f"processes sharing the card, every collective through the host over gloo: not a "
+          f"TP speed); launches a step and rank {ranks[0]['launches'][0]}; the eval view's "
+          f"{ranks[0]['eval']['launches']}; NCCL across eight cards not run (one card)")
+    return worst
+
+
 def run_tensor_parallel(mods, smi, soft_argv=None, tmp=None):
     """Phase 15. 15a: two processes on the one card over gloo at mesh (1, 2),
     DeiT-S-distilled teacher (6 heads, 3 a rank) and DeiT-Ti-distilled student
     (3 heads: the gather route), 224 px, global B = TP_BATCH, soft KD, bf16 then
     fp32, against the one-process unfused step; the launches a step and rank;
-    the model group's collectives timed. 15b: four processes at mesh (2, 2) at
-    the JAX dry run's widths: mgd, soft with grad_accum_steps=2 and
-    wasskd-sinkhorn against one process on the global batch. 15c (with
+    the model group's collectives timed. 15d: four processes at (1, 4), the
+    bf16 step and the student's eval view. 15e: eight processes: at (4, 2)
+    the JAX dry run's cases at its widths (mgd, soft with grad_accum_steps=2,
+    wasskd-sinkhorn), each with its masked eval, against one process on the
+    global batch; at (8, 1) its fused case at DeiT widths in bf16; at (1, 8)
+    the full-width bf16 step and the eval view. 15c (with
     ``soft_argv``): run() at (1, 2) against one process on phase 11's pickles
     at fp32, B = 32, for one epoch; rank 0 alone writes; a one-process
     checkpoint resumed at (1, 2) for a second epoch against the one process's
@@ -3988,16 +4169,9 @@ def run_tensor_parallel(mods, smi, soft_argv=None, tmp=None):
           f"host clock, rank 0): " + "; ".join(
               f"{k} {ms:.2f} ms for {nbytes} bytes" for k, (ms, nbytes) in c.items()))
 
-    # 15b: four ranks at (2, 2), the dry run's cases; 15d: the same ranks at
-    # (1, 4), the full-width bf16 soft step and the student's eval view
-    got = _tp_spawn(4, out_dir, {"mesh": (2, 2), "15b": True, "15d": True})
-    _register_dry_models()
-    for kd_type, distilled, accum, extra in TP_DRY:
-        ref = _tp_dry_step(kd_type, distilled, accum, extra, None)
-        _tp_hold(f"15b {kd_type} (accum {accum}{', ' + str(extra) if extra else ''}), mesh "
-                 f"(2, 2)", [g[kd_type] for g in got], ref, TP_DRY_TOL, TP_DRY_TOL,
-                 [(0, 1), (2, 3)])
-    print(f"[tp] 15b: the four ranks took {got[0]['15b_s']:.1f} s (rank 0)")
+    # 15d: four ranks at (1, 4), the full-width bf16 soft step and the
+    # student's eval view
+    got = _tp_spawn(4, out_dir, {"mesh": (1, 4), "15d": True})
     ranks = [g["15d"] for g in got]
     worst["bfloat16 (1, 4)"] = _tp_hold(
         f"15d bfloat16 soft step, mesh (1, 4), B={TP_BATCH}", ranks, refs["bfloat16"],
@@ -4013,6 +4187,7 @@ def run_tensor_parallel(mods, smi, soft_argv=None, tmp=None):
           f"{ranks[0]['ms'][0]:.2f} ms a rank (its first, CUDA events; four processes sharing "
           f"the card over gloo: not a TP speed); launches a step and rank "
           f"{ranks[0]['launches'][0]}; the eval view's {ranks[0]['eval']['launches']}")
+    worst.update(run_eight_ranks(mods, smi, out_dir, refs["bfloat16"]))
 
     if "15c" in tasks:
         c = tasks["15c"]
@@ -5728,6 +5903,11 @@ FAULTS = (
        "j == 1 ? __floats2bfloat162_rn(v0, v1) : "
        "__floats2bfloat162_rn(gelu_rational(v0), gelu_rational(v1));"),),
      "--mlp-checks"),
+    ("fc2 of the MLP forward's 32-wide tail chunk one k16 step short",
+     "deltakd_tpu_torch/ops/csrc/fused_mlp.cu",
+     (("for (int k = 0; k < 2; ++k) wgmma_ss(acc[nb], da + 2 * k, db + 2 * k, 1);",
+       "for (int k = 0; k < 1; ++k) wgmma_ss(acc[nb], da + 2 * k, db + 2 * k, 1);"),),
+     "--mlp-checks"),
     ("the last row chunk of db2 left out of the MLP backward's sum",
      "deltakd_tpu_torch/ops/csrc/fused_mlp.cu",
      (("reduce_chunks(g.col_partial, chunks, D, (float*)db2, st);",
@@ -6003,7 +6183,8 @@ def main() -> int:
                         else ["fused_block_fwd", "fused_block_bwd"] if dp_checks
                         else ["fused_block_fwd", "fused_block_bwd", "fused_block_pair",
                               "attention", "fused_mlp"]
-                        if fp32_checks else ["attention", "fused_mlp", "sort"] if tp_checks
+                        if fp32_checks else ["fused_block_fwd", "fused_block_bwd", "attention",
+                                             "fused_mlp", "sort"] if tp_checks
                         else ["fused_block_fwd", "fused_block_bwd"] if outcome_checks
                         else _build.SOURCES)
     lap = _Laps()
@@ -6084,6 +6265,7 @@ def main() -> int:
     print_mlp_backward_workspace(fm)
     timing.update(time_mlp_kernels(fb, fm))
     time_mlp_widths(fm)
+    time_mlp_shard_widths(fm, smi)
     check_pair_kernels(fb, worst)
     check_pair_cotangent_fp32(fb)
     timing.update(time_pair_kernels(fb))

@@ -40,6 +40,18 @@
 //    of 192, 768 two passes of those, 1024 four passes of two of 128). Each
 //    pass recomputes fc1, so the operations are 1.5x the MLP's at D = 768
 //    and 2.5x at 1024. `dk_fused_mlp_fwd` picks the plan by width.
+//  * A model rank's shard of the hidden under tensor parallelism may be an
+//    odd multiple of 32 (DeiT-Ti's 768 / 8 = 96). The one-warpgroup plan
+//    then ends each pass with a 32-wide tail chunk: its W1 and W2 tiles are
+//    the same 64 x 64 TMA boxes, whose rows (W1) and columns (W2) past F
+//    arrive as zeros. fc1 is the chunk's usual n = 64 product into S (its
+//    columns 32-63 come out zero and go unused): an n = 32 wgmma would need
+//    accumulators of its own, since ptxas serialises wgmma of two shapes on
+//    one accumulator, and this plan has no registers to spare (with 16 more
+//    ptxas spilled and serialised every wgmma of the kernel). The GELU
+//    writes 32 columns of H, and fc2 takes K = 32 as two k16 steps. The tail
+//    runs after the pass's 64-wide chunks, with no product in flight on
+//    either side of it.
 //  * The GELU runs between a warpgroup's two products, with its own
 //    tensor-core work waiting (the other warpgroup, and at D = 192 a second
 //    CTA on the SM, fill that gap), so its cost shows: it uses the TPU
@@ -114,7 +126,10 @@ mlp_fwd_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
   uint64_t* xbar = empty + MAX_STAGES;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m0 = blockIdx.x * RT;
+  // 64 C-wide hidden chunks, then (one warpgroup, F an odd multiple of 32)
+  // the 32-wide tail chunk
   const int kblocks = D / 64, chunks = F / (64 * C), passes = D / (C * DN);
+  const bool tail = C == 1 && F % 64 != 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -140,7 +155,7 @@ mlp_fwd_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
         if (++stage == stages) { stage = 0; phase ^= 1; }
       };
       for (int p = 0; p < passes; ++p)
-        for (int j = 0; j < chunks; ++j) {
+        for (int j = 0; j < chunks + tail; ++j) {
           const int f0 = j * 64 * C;
           for (int kb = 0; kb < kblocks; ++kb)
             for (int c = 0; c < C; ++c) load(&tm_w1, kb * 64, f0 + 64 * c);
@@ -249,6 +264,54 @@ mlp_fwd_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
             retire();
           }
         }
+      }
+    }
+    if constexpr (C == 1) {
+      if (tail) {
+        // the 32-wide tail chunk [F - 32, F): every product before it done
+        wgmma_wait<0>();
+        release();
+        for (int kb = 0; kb < kblocks; ++kb) {
+          mbar_wait(&full[stage], phase);
+          const uint64_t da = sw128_desc(Xs + kb * TILE), db = sw128_desc(Ws + stage * TILE);
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < 4; ++k) wgmma_ss(s, da + 2 * k, db + 2 * k, kb > 0 || k > 0);
+          wgmma_commit();
+          retire();
+        }
+        wgmma_wait<0>();
+        fence_regs(s);
+        release();
+        unsigned char* hc = reinterpret_cast<unsigned char*>(Hs + (chunk_no & 1) * TILE);
+        const float* bias = b1 + F - 32 + cq;
+#pragma unroll
+        for (int jb = 0; jb < 4; ++jb) {
+          const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + 8 * jb));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = r + 8 * h;
+            const float u0 = s[4 * jb + 2 * h] + bv.x, u1 = s[4 * jb + 2 * h + 1] + bv.y;
+            *reinterpret_cast<__nv_bfloat162*>(hc + row * 128 + ((jb ^ (row & 7)) << 4) + 2 * cq) =
+                __floats2bfloat162_rn(gelu_rational(u0), gelu_rational(u1));
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("bar.sync 1, 128;" ::: "memory");
+        const uint64_t da = sw128_desc(Hs + (chunk_no & 1) * TILE);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          mbar_wait(&full[stage], phase);
+          const uint64_t db = sw128_desc(Ws + stage * TILE);
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < 2; ++k) wgmma_ss(acc[nb], da + 2 * k, db + 2 * k, 1);
+          wgmma_commit();
+          retire();
+        }
+        ++chunk_no;
+        wgmma_wait<0>();
+        release();
       }
     }
     wgmma_wait<0>();
@@ -403,16 +466,16 @@ int mlp_bwd(const void* x_, const void* w1_, const void* b1_, const void* w2_, c
 // x: [M, D] bf16; w1: [F, D], w2: [D, F] bf16 (nn.Linear layout); b1: [F],
 // b2: [D] fp32; out: [M, D] bf16; all 16-byte aligned. The plan (C, DN) of
 // `mlp_fwd_kernel` by width: with F a multiple of 128, the first of C DN =
-// 384, 256, 192 that divides D; with F a multiple of 64 alone (a model
+// 384, 256, 192 that divides D; with F a multiple of 32 alone (a model
 // rank's shard of the hidden under tensor parallelism, such as DeiT-Ti's
-// 768 / 4), one warpgroup of 192 columns, whose hidden chunk is 64, in
-// D / 192 passes. Takes D up to MAX_D, a multiple of 192 or 256, and F a
-// multiple of 128, or of 64 where D is a multiple of 192. Returns
-// cudaGetLastError() after the launch, or -1, without a launch, for a width
-// it does not take.
+// 768 / 4 and 768 / 8), one warpgroup of 192 columns, whose hidden chunks
+// are 64 and a 32-wide tail where F is an odd multiple of 32, in D / 192
+// passes. Takes D up to MAX_D, a multiple of 192 or 256, and F a multiple of
+// 128, or of 32 where D is a multiple of 192. Returns cudaGetLastError()
+// after the launch, or -1, without a launch, for a width it does not take.
 extern "C" int dk_fused_mlp_fwd(const void* x_, const void* w1_, const void* b1_, const void* w2_,
                                 const void* b2_, void* out_, int M, int D, int F, void* stream) {
-  if (M < 1 || D < 192 || D > MAX_D || F < 64 || F % 64 || (F % 128 && D % 192) ||
+  if (M < 1 || D < 192 || D > MAX_D || F < 32 || F % 32 || (F % 128 && D % 192) ||
       ((uintptr_t)x_ | (uintptr_t)w1_ | (uintptr_t)w2_) % 16)
     return -1;
   const bf16 *x = (const bf16*)x_, *w1 = (const bf16*)w1_, *w2 = (const bf16*)w2_;

@@ -99,16 +99,17 @@ def _plain_bwd(x2, w1, b1, w2, dy2):
 def forward_takes(D: int, F: int, dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether the forward kernel at ``dtype`` takes width D and hidden width
     F. bf16: D a multiple of 192 or 256 up to 1024 (the widest model; its x
-    tile fills most of shared memory), F a multiple of 128, or of 64 where D
-    is a multiple of 192 (one warpgroup's plan, whose hidden chunk is 64: a
-    model rank's shard of the hidden, such as DeiT-Ti's 768 / 4). Every width
-    of the model zoo with F = 4D is taken. The kernel's entry point
+    tile fills most of shared memory), F a multiple of 128, or of 32 where D
+    is a multiple of 192 (one warpgroup's plan, whose hidden chunks are 64
+    and, for F an odd multiple of 32, a 32-wide tail: a model rank's shard
+    of the hidden, such as DeiT-Ti's 768 / 4 and 768 / 8). Every width of
+    the model zoo with F = 4D is taken. The kernel's entry point
     (csrc/fused_mlp.cu `dk_fused_mlp_fwd`) holds the same rule and picks the
     kernel's plan. float32 (the fp32 form, a chain of GEMM products): D and
     F multiples of 16."""
     if dtype == torch.float32:
         return D > 0 and F > 0 and D % 16 == 0 and F % 16 == 0
-    return (0 < D <= 1024 and (D % 192 == 0 or D % 256 == 0) and F > 0 and F % 64 == 0
+    return (0 < D <= 1024 and (D % 192 == 0 or D % 256 == 0) and F > 0 and F % 32 == 0
             and (F % 128 == 0 or D % 192 == 0))
 
 
@@ -164,7 +165,7 @@ def kernel_fused_mlp(x2, w1, b1, w2, b2) -> torch.Tensor:
     D, F = x2.shape[-1], w1.shape[0]
     if not forward_takes(D, F) and x2.dtype == torch.bfloat16 and x2.dim() == 2:
         raise ValueError(f"fused_mlp: the forward kernel takes no width D={D}, F={F} (D "
-                         f"a multiple of 192 or 256 up to 1024, F of 128, or of 64 where "
+                         f"a multiple of 192 or 256 up to 1024, F of 128, or of 32 where "
                          f"D is a multiple of 192)")
     x2, w1, b1, w2, b2 = _operands("fused_mlp", x2, w1, b1, w2, b2)
     M = x2.shape[0]

@@ -258,7 +258,7 @@ def test_port_imports_no_jax():
                    "train/loop.py", "cli/train.py", "cli/eval.py", "cli/sweep.py",
                    "parallel/distributed.py", "parallel/mesh.py"):
         assert os.path.join(root, "deltakd_tpu_torch", module) in files, module
-    for script in ("equivalence_run.py", "soak_run.py"):
+    for script in ("equivalence_run.py", "soak_run.py", "dryrun_multichip.py"):
         assert os.path.join(root, "scripts", script) in files, script
     banned = ("jax", "jaxlib", "flax", "optax", "deltakd_tpu", "benchmarks")
     for path in files:

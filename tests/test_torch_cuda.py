@@ -450,12 +450,14 @@ def test_mlp_kernels_match_plain_version_on_card(M, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [37, 1000])
-@pytest.mark.parametrize("D,F", [(192, 192), (192, 64), (384, 192), (384, 320), (768, 192)])
+@pytest.mark.parametrize("D,F", [(192, 192), (192, 64), (384, 192), (384, 320), (768, 192),
+                                 (192, 96), (192, 32), (384, 96), (768, 224)])
 def test_mlp_forward_at_the_shard_widths_on_card(M, D, F):
     """A model rank's hidden shard of F = 4D under tensor parallelism, F a
     multiple of 64 but not of 128 (DeiT-Ti at a model axis of 4 and 12,
-    DeiT-S at 8, DeiT-B at 16), or F = 320: one warpgroup's plan in D / 192
-    passes, against the plain version; two runs the same bits."""
+    DeiT-S at 8, DeiT-B at 16), F = 320, or an odd multiple of 32 (DeiT-Ti
+    at 8, DeiT-S at 16: the plan's 32-wide tail chunk): one warpgroup's plan
+    in D / 192 passes, against the plain version; two runs the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     x, w1, b1, w2, b2, _ = _mlp_operands(M, D, F)

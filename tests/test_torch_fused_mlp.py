@@ -191,21 +191,23 @@ def test_forward_plan_covers_every_model_width(D):
 
 
 @pytest.mark.parametrize("D,F", [(192, 192), (192, 64), (384, 192), (768, 192),
-                                 (576, 320), (256, 384)])
+                                 (576, 320), (256, 384), (192, 96), (192, 32), (384, 96)])
 def test_forward_kernel_takes_the_tensor_parallel_shards(D, F):
-    """A model rank's hidden shard F/M: a multiple of 64 where D is a
-    multiple of 192 (one warpgroup's plan, hidden chunks of 64), of 128
-    otherwise; the fp32 form takes multiples of 16."""
+    """A model rank's hidden shard F/M: a multiple of 32 where D is a
+    multiple of 192 (one warpgroup's plan, hidden chunks of 64 and a 32-wide
+    tail: DeiT-Ti at a model axis of 8, DeiT-S at 16), of 128 otherwise; the
+    fp32 form takes multiples of 16."""
     assert tfm.forward_takes(D, F)
     assert tfm.forward_takes(D, F, torch.float32)
     assert not tfm.forward_takes(D, 40, torch.float32)
 
 
-@pytest.mark.parametrize("D,F", [(64, 256), (80, 320), (192, 800), (1536, 6144),
-                                 (2048, 8192), (256, 320), (192, 96)])
+@pytest.mark.parametrize("D,F", [(64, 256), (80, 320), (192, 784), (1536, 6144),
+                                 (2048, 8192), (256, 320), (192, 48)])
 def test_forward_kernel_refuses_widths_without_a_plan(D, F):
-    """D not a multiple of 192 or 256, F not a multiple of 64 (nor of 128
-    where D is not a multiple of 192), D wider than
+    """D not a multiple of 192 or 256, F not a multiple of 32 (DeiT-Ti at a
+    model axis of 16: 48), nor of 128 where D is not a multiple of 192), D
+    wider than
     1024 (an x tile that leaves no room in shared memory): ValueError before
     anything is launched or allocated, on any device, and no fall-back to the
     plain version."""

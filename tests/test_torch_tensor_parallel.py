@@ -41,6 +41,7 @@ from deltakd_tpu.kd.losses import KDSettings as JKDSettings
 from deltakd_tpu.models.registry import get_model_config as j_get_model_config
 from deltakd_tpu.models.vit import ViTConfig as JViTConfig
 from deltakd_tpu.models.vit import VisionTransformer as JViT
+from deltakd_tpu.ops import fused_block as jfb
 from deltakd_tpu.parallel import mesh as jmesh
 from deltakd_tpu.train import step as jstep
 from deltakd_tpu.train.optim import make_optimizer as j_make_optimizer
@@ -108,13 +109,20 @@ def data_rows(shape, batch, accum):
 def jax_step(t, mesh):
     """The JAX step on ``mesh``, its state placed by ``state_shardings`` and
     the teacher by ``param_shardings``, its transform replaced by u8 / 64 - 2,
-    its mixup by the pinned targets. Returns (metrics, student state_dict,
-    aux state_dict or None)."""
-    j_student = JViT(JViTConfig(**t["student_kw"]), dtype=jnp.float32)
-    j_teacher = JViT(JViTConfig(**t["teacher_kw"]), dtype=jnp.float32)
+    its mixup by the pinned targets; with ``fused`` in ``t`` both models on
+    the Pallas fused block in interpret mode (the JAX dry run's fused case).
+    Returns (metrics, student state_dict, aux state_dict or None); with
+    ``eval`` in ``t`` the metrics also hold ``eval_<sum>``: the masked eval
+    step on the updated student over the step's images, the last 3 rows
+    invalid (the JAX dry run's eval)."""
+    block_fn = jfb.fused_vit_block if t.get("fused") else None
+    j_student = JViT(JViTConfig(**t["student_kw"]), dtype=jnp.float32, block_fn=block_fn)
+    j_teacher = JViT(JViTConfig(**t["teacher_kw"]), dtype=jnp.float32, block_fn=block_fn)
     jcfg = JTrainConfig(**t["hp"])
     targets, aux_tree = t["targets"], t["aux_tree"]
     with pytest.MonkeyPatch.context() as mp:
+        if block_fn is not None:
+            mp.setattr(jfb, "_INTERPRET", True)
         mp.setattr(jstep, "train_transform",
                    lambda k, x, ac: x.astype(jnp.float32) / 64.0 - 2.0)
         if targets is not None:
@@ -132,38 +140,55 @@ def jax_step(t, mesh):
             mixup=None if targets is None else JMixupConfig(num_classes=C), tx=jtx,
             donate=False, batch_shard=jmesh.batch_sharding(mesh))
         shard = jmesh.batch_sharding(mesh)
+        images = jax.device_put(jnp.asarray(t["u8"].numpy()), shard)
+        labels = jax.device_put(jnp.asarray(t["labels"].numpy()), shard)
         jstate, metrics = fn(
             jax.device_put(jstate, jmesh.state_shardings(mesh, jstate)),
             jax.device_put(t["teacher_params"],
                            jmesh.param_shardings(mesh, t["teacher_params"])),
-            jax.device_put(jnp.asarray(t["u8"].numpy()), shard),
-            jax.device_put(jnp.asarray(t["labels"].numpy()), shard), KEY,
-            jnp.asarray(0, jnp.int32))
+            images, labels, KEY, jnp.asarray(0, jnp.int32))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if t.get("eval"):
+            n = images.shape[0]
+            sums = jstep.build_eval_step(student_module=j_student,
+                                         aug=JAugmentConfig.from_config(jcfg))(
+                jstate.params["student"], images, labels,
+                jax.device_put(np.arange(n) < n - 3, shard))
+            metrics.update({f"eval_{k}": float(v) for k, v in sums.items()})
     jstate = jax.device_get(jstate)
-    return ({k: float(v) for k, v in metrics.items()},
-            flax_to_torch(jstate.params["student"]),
+    return (metrics, flax_to_torch(jstate.params["student"]),
             aux_flax_to_torch(jstate.params["aux"]) if aux_tree else None)
 
 
-def step_spec(hp, student_kw, teacher_kw, shape, rng, seed, targets=True, aux_tree=None):
+def step_spec(hp, student_kw, teacher_kw, shape, rng, seed, targets=True, aux_tree=None,
+              batch=BG):
+    """One step's task at global ``batch`` a micro-batch."""
     accum = hp.get("grad_accum_steps", 1)
-    return dict(hp=hp, rows=data_rows(shape, BG, accum), student_kw=student_kw,
+    return dict(hp=hp, rows=data_rows(shape, batch, accum), student_kw=student_kw,
                 teacher_kw=teacher_kw, student_params=init_params(student_kw, seed),
                 teacher_params=init_params(teacher_kw, seed + 1), aux_tree=aux_tree or {},
                 aux_sd=aux_flax_to_torch(aux_tree) if aux_tree else None,
-                u8=torch.from_numpy(rng.randint(0, 256, (BG * accum, 32, 32, 3))
+                u8=torch.from_numpy(rng.randint(0, 256, (batch * accum, 32, 32, 3))
                                     .astype(np.uint8)),
-                labels=torch.from_numpy(rng.randint(0, C, BG * accum)),
-                targets=torch.from_numpy(rng.dirichlet(np.ones(C), BG).astype(np.float32))
+                labels=torch.from_numpy(rng.randint(0, C, batch * accum)),
+                targets=torch.from_numpy(rng.dirichlet(np.ones(C), batch).astype(np.float32))
                 if targets else None)
+
+
+def _without_trees(steps):
+    return {k: {kk: vv for kk, vv in v.items() if kk != "aux_tree"} for k, v in steps.items()}
 
 
 def launch(spec, world, tmp, jax_side):
     """Starts the ranks, runs ``jax_side()`` meanwhile; returns (the ranks'
     results, what ``jax_side`` returned)."""
     spec_path = str(tmp / "spec.pt")
-    torch.save({**spec, "steps": {k: {kk: vv for kk, vv in v.items() if kk != "aux_tree"}
-                                  for k, v in spec["steps"].items()}}, spec_path)
+    if "meshes" in spec:
+        saved = {**spec, "meshes": {shape: {**s, "steps": _without_trees(s["steps"])}
+                                    for shape, s in spec["meshes"].items()}}
+    else:
+        saved = {**spec, "steps": _without_trees(spec["steps"])}
+    torch.save(saved, spec_path)
     port = free_port()
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_tp_worker", str(r),
@@ -383,8 +408,9 @@ def test_every_model_axis_the_cut_takes_runs_the_mlp_kernel_or_is_refused(name, 
     """For each width of the zoo and each model axis M whose shards the cut
     takes (M divides D and F): either the fused MLP forward takes the rank's
     hidden shard F/M at D, or ``check_mlp_shards`` refuses the model axis
-    with a ValueError naming the model and F/M. Model axes 2 and 4 run the
-    kernel on every model; DeiT-Ti at 8 (F/M = 96) is refused in bf16."""
+    with a ValueError naming the model and F/M. Model axes 2, 4 and 8 run the
+    kernel on every model (DeiT-Ti at 8: F/M = 96, the one-warpgroup plan's
+    32-wide tail chunk); DeiT-Ti at 16 (F/M = 48) is refused in bf16."""
     from deltakd_tpu_torch.models.factory import check_mlp_shards
     from deltakd_tpu_torch.models.registry import get_model_config
     from deltakd_tpu_torch.ops.fused_mlp import forward_takes
@@ -401,15 +427,17 @@ def test_every_model_axis_the_cut_takes_runs_the_mlp_kernel_or_is_refused(name, 
         else:
             with pytest.raises(ValueError, match=f"{name}: .*F/M = {F}/{M} = {F // M} "):
                 check_mlp_shards(name, C, M, dtype)
-    assert {2, 4} <= set(taken)
-    assert (8 in taken) is not (name == "deit_tiny_patch16_224" and dtype == torch.bfloat16)
+    assert {2, 4, 8} <= set(taken)
+    assert (16 in taken) is not (name == "deit_tiny_patch16_224" and dtype == torch.bfloat16)
 
 
 def test_the_factory_refuses_a_model_axis_before_building():
-    """``load_teacher_student`` with kernels on refuses a model axis that
-    leaves the student's eval view an MLP shard the kernel does not take
-    (DeiT-Ti at 8: F/M = 96), before a model is built; the fp32 form takes
-    that shard, and so does the plain path with kernels off."""
+    """``load_teacher_student`` with kernels on builds DeiT-S / DeiT-Ti at a
+    model axis of 8 in bf16 (the student's eval view gives the MLP kernel
+    F/M = 96) and refuses a model axis that leaves the student's eval view an
+    MLP shard the kernel does not take (DeiT-Ti at 16: F/M = 48), before a
+    model is built; the fp32 form takes that shard, and so does the plain
+    path with kernels off."""
     import dataclasses
 
     from deltakd_tpu_torch.models.factory import load_teacher_student
@@ -419,14 +447,20 @@ def test_the_factory_refuses_a_model_axis_before_building():
                               distillation_type="soft", allow_random_teacher=True,
                               dataset="cifar-100", mesh_shape=(1, 8))
     mesh = parallel.Mesh((1, 8), model=parallel.ModelParallel(8, 0))
-    with pytest.raises(ValueError, match="deit_tiny_distilled_patch16_224: .* = 96 "):
+    teacher, student, _ = load_teacher_student(cfg, device="cpu", mesh=mesh)
+    assert student.dtype == torch.bfloat16 and student.attention_fn is not None
+    assert student.blocks[0].mlp.fc1.weight.shape == (96, 192)
+    assert teacher.blocks[0].mlp.fc1.weight.shape == (192, 384)
+    cfg = dataclasses.replace(cfg, mesh_shape=(1, 16))
+    mesh = parallel.Mesh((1, 16), model=parallel.ModelParallel(16, 0))
+    with pytest.raises(ValueError, match="deit_tiny_distilled_patch16_224: .* = 48 "):
         load_teacher_student(cfg, device="cpu", mesh=mesh)
     tiny = dataclasses.replace(cfg, teacher_model=cfg.student_model)
     for config, attention_fn in ((dataclasses.replace(tiny, dtype="float32"), "config"),
                                  (tiny, None)):
         kw = {} if attention_fn == "config" else {"attention_fn": attention_fn}
         teacher, student, _ = load_teacher_student(config, device="cpu", mesh=mesh, **kw)
-        assert student.blocks[0].mlp.fc1.weight.shape == (96, 192)
+        assert student.blocks[0].mlp.fc1.weight.shape == (48, 192)
 
 
 def test_one_rank_mesh_only_picks_the_path():

@@ -1,19 +1,25 @@
 """One rank of the port's tensor-parallel checks on the CPU, for
-``tests/test_torch_tensor_parallel.py`` and
-``tests/test_torch_tensor_parallel_mesh.py``: ``python -m
-tests.torch_tp_worker RANK WORLD PORT SPEC OUT`` joins a gloo group of WORLD
-processes on localhost:PORT, lays them out as the mesh the SPEC file
-(``torch.save``'d by the test) names, runs its tasks and writes what it
-found to OUT/rank<RANK>.pt. Imports torch and the port, never JAX.
+``tests/test_torch_tensor_parallel.py``,
+``tests/test_torch_tensor_parallel_mesh.py`` and
+``tests/test_torch_eight_ranks.py``: ``python -m tests.torch_tp_worker RANK
+WORLD PORT SPEC OUT`` joins a gloo group of WORLD processes on
+localhost:PORT, lays them out as the mesh the SPEC file (``torch.save``'d by
+the test) names, or one after another as each mesh of its ``meshes``, runs
+the tasks of each and writes what it found to OUT/rank<RANK>.pt. Imports
+torch and the port, never JAX.
 
 Tasks: train steps on pinned images, each model loaded from the JAX
 package's parameters through ``flax_to_torch_shard`` (the rank's shards),
-on the rows of the rank's data rank; mixup in its three modes over the data
-group; and with ``run`` in the spec, ``run()`` at mesh (2, 2) (two epochs
-straight, a finetune from its checkpoint, the eval CLI), then on ranks 0
-and 1 in a group of two at mesh (2, 1) (two epochs straight, the (2, 2)
-run's epoch-1 checkpoint resumed, the same finetune), then on all four
-ranks at (2, 2) again (the (2, 1) run's epoch-1 checkpoint resumed).
+or at a model axis of 1 with ``fused`` through the fused block's plain
+version, on the rows of the rank's data rank, each with ``eval`` followed
+by the masked eval step on the data rank's rows of the step's images;
+mixup in its three modes over the data group; with ``run`` in the spec,
+``run()`` at mesh (2, 2) (two epochs straight, a finetune from its
+checkpoint, the eval CLI), then on ranks 0 and 1 in a group of two at mesh
+(2, 1) (two epochs straight, the (2, 2) run's epoch-1 checkpoint resumed,
+the same finetune), then on all four ranks at (2, 2) again (the (2, 1)
+run's epoch-1 checkpoint resumed); with ``run_meshes``, ``run()`` for one
+epoch at each of its (mesh, per-data-rank batch) over the whole group.
 """
 
 import os
@@ -32,13 +38,14 @@ from deltakd_tpu_torch.models import registry
 from deltakd_tpu_torch.models.convert import flax_to_torch, flax_to_torch_shard
 from deltakd_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from deltakd_tpu_torch.ops.attention import flash_attention
+from deltakd_tpu_torch.ops.fused_block import fused_vit_block
 from deltakd_tpu_torch.ops.fused_mlp import fused_mlp
 from deltakd_tpu_torch.parallel import current, make_mesh
 from deltakd_tpu_torch.parallel.tensor import full_state_dict, load_full_state_dict
 from deltakd_tpu_torch.train import loop
 from deltakd_tpu_torch.train.optim import make_optimizer
 from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
-from deltakd_tpu_torch.train.step import build_train_step
+from deltakd_tpu_torch.train.step import build_eval_step, build_train_step
 
 # the run() models: depth 2, a 3-head student (the gather route at M = 2)
 # and a 4-head teacher, registered in this process only
@@ -46,8 +53,13 @@ RUN_MODELS = {"tp_tiny_distilled": dict(embed_dim=48, depth=2, num_heads=3, dist
               "tp_small_distilled": dict(embed_dim=64, depth=2, num_heads=4, distilled=True)}
 
 
-def _model(kw, flax_params, mesh, teacher=False):
-    """The unfused model of the factory's TP route, this rank's shards."""
+def _model(kw, flax_params, mesh, teacher=False, fused=False):
+    """The unfused model of the factory's TP route, this rank's shards; with
+    ``fused`` (no model axis) the factory's fused route, whole."""
+    if fused:
+        m = VisionTransformer(ViTConfig(**kw), dtype=torch.float32, block_fn=fused_vit_block)
+        m.load_state_dict(flax_to_torch(flax_params))
+        return m
     m = VisionTransformer(ViTConfig(**kw), dtype=torch.float32, attention_fn=flash_attention,
                           mlp_fn=fused_mlp if teacher else None, tp=mesh.model)
     m.load_state_dict(flax_to_torch_shard(flax_params, kw["num_heads"], mesh.model.size,
@@ -66,19 +78,22 @@ def _inverses(student, state, full):
     return {"gather": set(gathered) == set(full)
             and all(torch.equal(gathered[k], v) for k, v in full.items()),
             "cut": all(torch.equal(p, q) for p, q in zip(student.parameters(), local)),
-            "flat": torch.equal(state.shards.cut(state.shards.gather(state.params)),
-                                state.params)}
+            "flat": state.shards is None   # no model axis: nothing to gather
+            or torch.equal(state.shards.cut(state.shards.gather(state.params)), state.params)}
 
 
 def train_step_task(t, mesh):
     """One train step on the data rank's rows: the metrics, the flat gradient
     it applied (local, and gathered into the full layout), the local
     parameters and which of them are shards, the full parameters after the
-    update, and before it whether the gathers invert the shard cut."""
+    update, and before it whether the gathers invert the shard cut; with
+    ``eval``, the masked eval step's sums on the data rank's rows of the
+    step's images, the last 3 of the global batch invalid."""
     dp = mesh.data
     rows = torch.as_tensor(t["rows"][dp.rank])
-    student = _model(t["student_kw"], t["student_params"], mesh)
-    teacher = _model(t["teacher_kw"], t["teacher_params"], mesh, teacher=True)
+    fused = t.get("fused", False)
+    student = _model(t["student_kw"], t["student_params"], mesh, fused=fused)
+    teacher = _model(t["teacher_kw"], t["teacher_params"], mesh, teacher=True, fused=fused)
     cfg = TrainConfig(aa="", color_jitter=0.0, **t["hp"])
     kd_type = cfg.distillation_type
     aux = None
@@ -107,10 +122,21 @@ def train_step_task(t, mesh):
            images=u8.float() / 64.0 - 2.0,
            targets=None if t.get("targets") is None else t["targets"][rows],
            mask_noise=None if t.get("noise") is None else t["noise"][rows])
-    return {"metrics": {k: float(v) for k, v in m.items()}, "grads": applied[0],
-            "full_grads": state.shards.gather(applied[0]), "params": state.params.clone(),
-            "sharded": state.shards.mask.clone(), "student": full_state_dict(student),
-            "aux": None if aux is None else aux.state_dict(), "inverses": inverses}
+    shards = state.shards   # None without a model axis: every tensor whole
+    out = {"metrics": {k: float(v) for k, v in m.items()}, "grads": applied[0],
+           "full_grads": applied[0] if shards is None else shards.gather(applied[0]),
+           "params": state.params.clone(),
+           "sharded": torch.zeros_like(state.params, dtype=torch.bool) if shards is None
+           else shards.mask.clone(), "student": full_state_dict(student),
+           "aux": None if aux is None else aux.state_dict(), "inverses": inverses}
+    if t.get("eval"):
+        n = t["u8"].shape[0]
+        b = n // dp.world
+        mine = slice(dp.rank * b, (dp.rank + 1) * b)
+        sums = build_eval_step(student=student, aug=AugmentConfig.from_config(cfg))(
+            t["u8"][mine], t["labels"][mine], torch.arange(n)[mine] < n - 3)
+        out["eval"] = {k: float(v) for k, v in sums.items()}
+    return out
 
 
 def mixup_task(t, mesh):
@@ -124,9 +150,9 @@ def mixup_task(t, mesh):
     return out
 
 
-def _argv(tmp, name, mesh_shape, *extra):
+def _argv(tmp, name, mesh_shape, *extra, batch=4):
     return ["--device", "cpu", "--synthetic-data", "--dataset", "synthetic", "--input-size",
-            "32", "--batch-size", "4", "--steps-per-epoch", "2", "--eval-steps", "2",
+            "32", "--batch-size", str(batch), "--steps-per-epoch", "2", "--eval-steps", "2",
             "--dtype", "float32", "--student-model", "tp_tiny_distilled", "--teacher-model",
             "tp_small_distilled", "--distillation-type", "soft", "--allow-random-teacher",
             "--log-every", "1", "--ema-decay", "0.9", "--log-file",
@@ -192,6 +218,31 @@ def run_task(tmp, rank, ports):
     return out
 
 
+def run_meshes_task(tmp, meshes):
+    """run() for one epoch in the first warmup epoch (as
+    ``tests/test_integration.py`` runs it) at each (mesh shape, per-data-rank
+    batch) of ``meshes`` over the whole group; each result with this rank's
+    checkpoint saves."""
+    out = {}
+    for shape, batch in meshes:
+        name = "run_" + shape.replace(" ", "_")
+        with SaveRecorder() as rec:
+            out[shape] = loop.run(parse_args(_argv(tmp, name, shape, "--epochs", "1",
+                                                   "--warmup-epochs", "1", batch=batch)))
+        out[shape + " saves"] = rec.saves
+    return out
+
+
+def mesh_tasks(spec, mesh):
+    """The train steps and mixup of ``spec`` on ``mesh``."""
+    out = {"mesh": (mesh.shape, mesh.data.rank, mesh.model.rank)}
+    for name, task in spec["steps"].items():
+        out[name] = train_step_task(task, mesh)
+    if spec.get("mixup"):
+        out["mixup"] = mixup_task(spec["mixup"], mesh)
+    return out
+
+
 def main(rank, world, port, spec_path, out_dir):
     torch.set_num_threads(1)
     for name, kw in RUN_MODELS.items():
@@ -199,16 +250,17 @@ def main(rank, world, port, spec_path, out_dir):
     spec = torch.load(spec_path, weights_only=False)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
-    mesh = make_mesh(spec["mesh_shape"], current())
-    out = {"mesh": (mesh.shape, mesh.data.rank, mesh.model.rank)}
-    for name, task in spec["steps"].items():
-        out[name] = train_step_task(task, mesh)
-    if spec.get("mixup"):
-        out["mixup"] = mixup_task(spec["mixup"], mesh)
-    out["subset_ops"] = AugmentConfig.from_config(
-        TrainConfig(dataset="cifar-100", mesh_shape=spec["mesh_shape"])).subset_ops
+    if "meshes" in spec:
+        out = {shape: mesh_tasks(s, make_mesh(shape, current()))
+               for shape, s in spec["meshes"].items()}
+    else:
+        out = mesh_tasks(spec, make_mesh(spec["mesh_shape"], current()))
+        out["subset_ops"] = AugmentConfig.from_config(
+            TrainConfig(dataset="cifar-100", mesh_shape=spec["mesh_shape"])).subset_ops
     if spec.get("run"):
         out["run"] = run_task(spec["tmp"], rank, spec["run_ports"])
+    if spec.get("run_meshes"):
+        out["run"] = run_meshes_task(spec["tmp"], spec["run_meshes"])
     dist.destroy_process_group()
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
