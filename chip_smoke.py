@@ -16,6 +16,7 @@
     python3 chip_smoke.py --fp32-checks --seeds 8  # ... the block, MLP and pair checks on 8 draws
     python3 chip_smoke.py --learning-checks  # only phase 16 (--seeds N: 16a, 16b at N seeds)
     python3 chip_smoke.py --outcome-checks   # only phase 17 (--seeds N: 17b at N seeds)
+    python3 chip_smoke.py --long-sequence-checks  # only phase 18 (448 px and up)
     python3 chip_smoke.py --faults --backward-checks --run-as --learning-checks
                                              # diagnostic: the backward's faults under
                                              # phase 16 (which of them it catches alone)
@@ -325,7 +326,25 @@ Phases, each of which fails the run:
      --quick --objective soft --dtype bfloat16 at seed 0: the torch stack's
      teacher and student (fp32, TF32 off) and ours, each seed's ours final
      val top-1 at least EQUIVALENCE_BAR, both stacks' readings and the band
-     verdict printed.
+     verdict printed;
+ 18. long sequences (448 px and up; --long-sequence-checks alone): 18a each
+     kernel of the long routes against its plain version on the card, two
+     runs the same bits: flash_fwd and flash_bwd in bf16 and fp32 (also on
+     strided views of a packed qkv) at N = 705, 786, 1026 and 1298 (past the
+     attention backward's 11 shared-memory tiles of dQ: its workspace
+     route), the block and pair forwards and backwards in bf16 and fp32 at
+     D = 192 and 384, N = 786 and 1026, with and without the feature output
+     and cotangents, and the value sort (four dtypes) and sorted_l1 (bf16,
+     fp32) at n = 1025, 1296 and 4096 (the merge across warps through shared
+     memory); 18b one soft-KD step at full width and depth at 448 px (B =
+     32) on the fused, paired and unfused routes, each launching its route's
+     kernels, its loss, distill loss and gradient norm and the flat soft-KD
+     gradient of one batch with pinned drop-path scales against the plain
+     route on the card (no kernel, the same seeded weights, LOGIT_TOL), then
+     one WassKD-l1 step at 576 px (B = 16, 1296 patch rows) with its three
+     sorted_l1 launches each way; 18c rows 2, 4 and 8 at B = 32, N = 786 and
+     1026, timed beside their plain versions, bounds and library calls and
+     scaled_dot_product_attention's forward+backward at the same shape.
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
@@ -666,6 +685,30 @@ def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+def _attention_fwd_bound(bh, n):
+    """Two N x N x 64 products against q, k, v, o in bf16 and lse."""
+    return _bound(2 * 2 * bh * n * n * HEAD_DIM, 4 * bh * n * HEAD_DIM * 2 + bh * n * 4)
+
+
+def _attention_bwd_bound(bh, n):
+    """Five N x N x 64 products against q, k, v, dO, dq, dk, dv (and o) in
+    bf16 and lse."""
+    return _bound(5 * 2 * bh * n * n * HEAD_DIM, 8 * bh * n * HEAD_DIM * 2 + bh * n * 4)
+
+
+def _block_bwd_bound(B, n, D, blocks=1):
+    """A block backward's (``blocks`` = 2: the pair's) products and bytes: per
+    block the recompute up to the GELU (a forward less its fc2) and two
+    products per forward product, and for the pair block 1's fc2 for mid;
+    x, g_out, dx, the bf16 weights, the fp32 gradients."""
+    flops1 = B * (24 * n * D * D + 4 * n * n * D)
+    fc2 = 2 * B * n * D * 4 * D
+    io, weights = B * n * D * 2, 12 * D * D
+    if blocks == 1:
+        return _bound(3 * flops1 - fc2, 3 * io + weights * (2 + 4))
+    return _bound(2 * (3 * flops1 - fc2) + fc2, 3 * io + 2 * weights * (2 + 4))
+
+
 def _block_inputs(D, H, B, seed, device, n=N_TOK, fp32=False):
     """A block's weights (LayerNorm params off their ones/zeros init), bf16
     (with ``fp32``: fp32) input and drop-path scales with some 0 and some
@@ -741,25 +784,30 @@ def check_kernels(fb, worst):
                 ("d" + n, dws[n], r_dws[n]) for n in fb.PARAM_NAMES])
 
 
-def check_block_forward_shapes(fb, worst):
+BLOCK_LENGTHS = (50, N_TOK - 1, N_TOK, 578)
+BLOCK_WIDTHS = ((192, 3), (384, 6), (768, 12))
+
+
+def check_block_forward_shapes(fb, worst, lengths=BLOCK_LENGTHS, widths=BLOCK_WIDTHS,
+                               B=B_CHECK):
     """Phase 3a': the block forward against its plain version at B=8 for every
     sequence length N in (50, 197, 198, 578) (ragged against the 64-row query
     tiles, 64-key chunks and 128-row GEMM tiles; 197, odd, is the DeiT
     without a distillation token; 578 is the 384-px finetune),
     width (192, 384, 768) and feature option, with drop-path scales that hold
-    zeros; two runs the same bits."""
+    zeros; two runs the same bits. Phase 18a runs it at other lengths."""
     import torch
 
-    for n in (50, N_TOK - 1, N_TOK, 578):
-        for D, H in ((192, 3), (384, 6), (768, 12)):
+    for n in lengths:
+        for D, H in widths:
             for need_feat in (False, True):
-                p, x, sa, sm = _block_inputs(D, H, B_CHECK, D + n + need_feat, "cuda", n=n)
+                p, x, sa, sm = _block_inputs(D, H, B, D + n + need_feat, "cuda", n=n)
                 kw = dict(num_heads=H, scale_attn=sa, scale_mlp=sm)
                 out, feat = fb.kernel_block_fwd(x, p, need_features=need_feat, **kw)
                 again = fb.kernel_block_fwd(x, p, need_features=need_feat, **kw)
                 r_out, r_feat = fb.reference_vit_block(x, p, **kw)
                 torch.cuda.synchronize()
-                _hold(worst, f"B={B_CHECK} N={n} feat={need_feat}", "fused_block_fwd", D, x,
+                _hold(worst, f"B={B} N={n} feat={need_feat}", "fused_block_fwd", D, x,
                       [("out", out, r_out)] + ([("feat", feat, r_feat)] if need_feat else []))
                 if not (torch.equal(out, again[0])
                         and (not need_feat or torch.equal(feat, again[1]))):
@@ -767,19 +815,21 @@ def check_block_forward_shapes(fb, worst):
                                          f"different bits")
 
 
-def check_block_backward_shapes(fb, worst):
+def check_block_backward_shapes(fb, worst, lengths=BLOCK_LENGTHS, widths=BLOCK_WIDTHS,
+                                B=B_CHECK):
     """Phase 3c: the block backward against its plain version at B=8 for
     every N in (50, 197, 198, 578) (ragged against the attention backward's 64-row
     tiles and the weight gradients' 64-row k-blocks), width (192, 384, 768),
     with and without a feature cotangent; the pair backward (and its forward)
     at D=192 and 384 for the same N, with no feature cotangent and with both;
-    drop-path scales that hold zeros; two runs the same bits."""
+    drop-path scales that hold zeros; two runs the same bits. Phase 18a runs
+    it at other lengths (B >= 6: _pair_inputs zeroes sample 5)."""
     import torch
 
-    for n in (50, N_TOK - 1, N_TOK, 578):
-        for D, H in ((192, 3), (384, 6), (768, 12)):
+    for n in lengths:
+        for D, H in widths:
             for need_feat in (False, True):
-                p, x, sa, sm = _block_inputs(D, H, B_CHECK, D + n + need_feat, "cuda", n=n)
+                p, x, sa, sm = _block_inputs(D, H, B, D + n + need_feat, "cuda", n=n)
                 kw = dict(num_heads=H, scale_attn=sa, scale_mlp=sm)
                 g = torch.Generator(device="cuda").manual_seed(D + n)
                 g_out = torch.randn(x.shape, generator=g, device="cuda").bfloat16()
@@ -789,15 +839,15 @@ def check_block_backward_shapes(fb, worst):
                 dx2, dws2 = fb.kernel_block_bwd(x, p, g_out, g_feat, **kw)
                 r_dx, r_dws = fb.reference_vit_block_bwd(x, p, g_out, g_feat, **kw)
                 torch.cuda.synchronize()
-                _hold(worst, f"B={B_CHECK} N={n} feat={need_feat}", "fused_block_bwd", D, x,
+                _hold(worst, f"B={B} N={n} feat={need_feat}", "fused_block_bwd", D, x,
                       [("dx", dx, r_dx)] + [("d" + k, dws[k], r_dws[k]) for k in fb.PARAM_NAMES])
                 if not (torch.equal(dx, dx2) and all(torch.equal(dws[k], dws2[k])
                                                      for k in fb.PARAM_NAMES)):
                     raise AssertionError(f"fused_block_bwd D={D} N={n}: two runs gave "
                                          f"different bits")
-        for D, H in ((192, 3), (384, 6)):
+        for D, H in widths[:2]:
             for nf in (False, True):
-                _hold_pair(fb, worst, D, H, B_CHECK, nf, nf, D + n + nf, repeat=True, n=n)
+                _hold_pair(fb, worst, D, H, B, nf, nf, D + n + nf, repeat=True, n=n)
 
 
 # The backward's products per nn.Linear weight W [O, I] of the block:
@@ -1085,16 +1135,11 @@ def time_kernels(fb, worst):
             extra = f" (library forward+backward {both:.3f} ms, forward {fwd:.3f} ms)"
             profile_backward(fb, x, p, g_out, kw)
         B, N = B_MAIN, N_TOK
-        flops = B * (24 * N * D * D + 4 * N * N * D)
-        weight_bytes = 12 * D * D * 2
-        nbytes = 2 * B * N * D * 2 + weight_bytes
         if kernel == "fused_block_bwd":
-            # two products per forward product, and the recompute, which stops
-            # at the GELU: a forward less its fc2
-            flops = 3 * flops - 2 * B * N * D * 4 * D
-            nbytes = 3 * B * N * D * 2 + weight_bytes + 12 * D * D * 4
-        rows[(kernel, D)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                 **_bound(flops, nbytes))
+            bound = _block_bwd_bound(B, N, D)
+        else:
+            bound = _bound(B * (24 * N * D * D + 4 * N * N * D), 2 * B * N * D * 2 + 12 * D * D * 2)
+        rows[(kernel, D)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
         print(f"[time] {kernel} D={D} B={B}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"library {library_ms:.3f} ms, bound {rows[(kernel, D)]['bound_ms']:.4f} ms "
               f"({rows[(kernel, D)]['bound_by']}){extra}")
@@ -1275,7 +1320,6 @@ def time_pair_kernels(fb):
             lib_fwd()
 
     flops1 = B * (24 * N * D * D + 4 * N * N * D)
-    fc2 = 2 * B * N * D * 4 * D
     io, weights = B * N * D * 2, 2 * 12 * D * D
     rows = {}
     for kernel, pair, singles, plain in (
@@ -1294,10 +1338,7 @@ def time_pair_kernels(fb):
             fwd = _timed(lib_fwd, 20)
             library_ms = both - fwd
             extra = f" (library forward+backward {both:.3f} ms, forward {fwd:.3f} ms)"
-            # per block the recompute up to the GELU (a forward less its fc2) and
-            # two products per forward product, and block 1's fc2 for mid; x,
-            # g_out, dx, the bf16 weights, the fp32 gradients
-            bound = _bound(2 * (3 * flops1 - fc2) + fc2, 3 * io + weights * (2 + 4))
+            bound = _block_bwd_bound(B, N, D, blocks=2)
         rows[(kernel, D)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
         print(f"[time] {kernel} D={D} B={B}: {ms:.3f} ms (turns {turns[0]:.3f}, {turns[3]:.3f}), "
               f"two single kernels {singles_ms:.3f} ms (turns {turns[1]:.3f}, {turns[2]:.3f}), "
@@ -1498,9 +1539,9 @@ def check_sort_kernels(so, worst):
             _hold_sort(so, worst, shape, dtype)
 
 
-def time_sort_kernels(so):
-    """Phase 4b: the sort kernels at the main-path shape in bf16 (the value
-    sort in fp32 as well, `fp32_*` keys of its row): kernel, plain and
+def time_sort_kernels(so, shape=SORT_MAIN):
+    """Phase 4b: the sort kernels at the main-path shape (18c: at ``shape``)
+    in bf16 (the value sort in fp32 as well, `fp32_*` keys of its row): kernel, plain and
     library times, and the bound. Library: torch.sort(dim=1,
     stable=True) for the value sort; for sorted_l1 the stable sort of s and
     the sort of t with autograd's index scatter as the backward (its time is
@@ -1510,9 +1551,9 @@ def time_sort_kernels(so):
     operations each) over the fp32 rate."""
     import torch
 
-    B, n, d = SORT_MAIN
+    B, n, d = shape
     numel, esize = B * n * d, 2
-    s, t = _sort_inputs(SORT_MAIN, torch.bfloat16, 1)
+    s, t = _sort_inputs(shape, torch.bfloat16, 1)
     _, sign = so.kernel_sorted_l1_fwd(s, t)
     scale = torch.ones((), device="cuda") / numel
     s_grad = s.clone().requires_grad_(True)
@@ -1553,7 +1594,7 @@ def time_sort_kernels(so):
         t_bytes, t_ops = row.pop("nbytes") / PEAK_BYTES, row.pop("ops") / PEAK_FP32_OPS
         row["bound_ms"] = max(t_bytes, t_ops) * 1e3
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"[time] {kernel} {SORT_MAIN} {'fp32' if row is fp32 else 'bf16'}: "
+        print(f"[time] {kernel} {shape} {'fp32' if row is fp32 else 'bf16'}: "
               f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
               f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     rows["bitonic_sort"].update({f"fp32_{k}": v for k, v in fp32.items() if k != "bound_by"})
@@ -1678,14 +1719,13 @@ def time_attention_kernels(at):
         q, k, v, do = _attention_inputs((bh, N_TOK, HEAD_DIM), 3)
         o, lse = at.kernel_flash_fwd(q, k, v)
         q4, k4, v4, do4 = (t.reshape(B_MAIN, -1, N_TOK, HEAD_DIM) for t in (q, k, v, do))
-        tensor_bytes, product = bh * N_TOK * HEAD_DIM * 2, 2 * bh * N_TOK * N_TOK * HEAD_DIM
         extra = ""
         if kernel == "flash_fwd":
             ms = _timed(lambda: at.kernel_flash_fwd(q, k, v), 20)
             plain_ms = _timed(lambda: at._plain_fwd(q, k, v), 5)
             with torch.no_grad():
                 library_ms = _timed(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
-            bound = _bound(2 * product, 4 * tensor_bytes + bh * N_TOK * 4)
+            bound = _attention_fwd_bound(bh, N_TOK)
         else:
             ms = _timed(lambda: at.kernel_flash_bwd(q, k, v, o, lse, do), 20)
             plain_ms = _timed(lambda: at._plain_bwd(q, k, v, o, lse, do), 5)
@@ -1700,7 +1740,7 @@ def time_attention_kernels(at):
             both, fwd = _timed(lib_fwd_bwd, 20), _timed(lib_fwd, 20)
             library_ms = both - fwd
             extra = f" (library forward+backward {both:.3f} ms, forward {fwd:.3f} ms)"
-            bound = _bound(5 * product, 8 * tensor_bytes + bh * N_TOK * 4)
+            bound = _attention_bwd_bound(bh, N_TOK)
         rows[(kernel, bh)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
         print(f"[time] {kernel} {who} [{bh},{N_TOK},{HEAD_DIM}]: {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
@@ -1930,10 +1970,9 @@ def _paired_launches(steps, form=""):
             (f"fused_pair_bwd{form}", 192): 6 * steps}
 
 
-def _unfused_launches(steps, form=""):
-    return {(f"flash_fwd{form}", ATTN_MAIN["teacher"]): 12 * steps,
-            (f"flash_fwd{form}", ATTN_MAIN["student"]): 12 * steps,
-            (f"flash_bwd{form}", ATTN_MAIN["student"]): 12 * steps,
+def _unfused_launches(steps, form="", B=B_MAIN):
+    return {(f"flash_fwd{form}", 6 * B): 12 * steps, (f"flash_fwd{form}", 3 * B): 12 * steps,
+            (f"flash_bwd{form}", 3 * B): 12 * steps,
             (f"fused_mlp_fwd{form}", MLP_MAIN["teacher"]): 12 * steps}
 
 
@@ -4804,7 +4843,7 @@ OPT_CASES = tuple((opt, sched) for opt in ("adamw", "sgd", "adam")
 DROP_RATE = 0.1           # 14e: token dropout of the student
 
 
-def _hold_pair_f32(fb, worst, D, H, B, nf1, nf2, seed, main=False):
+def _hold_pair_f32(fb, worst, D, H, B, nf1, nf2, seed, main=False, n=N_TOK):
     """Phase 14a: the fp32 pair forward and backward against their plain fp32
     versions on one input (fp32 x and cotangents), beside the bf16 pair
     kernels on the same inputs rounded to bf16 (_hold_f32); sample 5 with all
@@ -4814,7 +4853,7 @@ def _hold_pair_f32(fb, worst, D, H, B, nf1, nf2, seed, main=False):
     import torch
 
     p1, p2, x, scales, (g_out, g_f1, g_f2) = inputs = _pair_inputs(D, H, B, seed, "cuda",
-                                                                   fp32=True)
+                                                                   n=n, fp32=True)
     g_f1, g_f2 = (g_f1 if nf1 else None), (g_f2 if nf2 else None)
     x16 = x.bfloat16()
     kw = dict(num_heads=H, scales=scales)
@@ -4826,7 +4865,7 @@ def _hold_pair_f32(fb, worst, D, H, B, nf1, nf2, seed, main=False):
     bwd16 = fb.kernel_block_pair_bwd(x16, p1, p2, g_out, g_f1, g_f2, **kw)
     r_bwd = fb.reference_vit_block_pair_bwd(x, p1, p2, g_out, g_f1, g_f2, **kw)
     torch.cuda.synchronize()
-    tag = f"B={B} D={D} feat=({nf1}, {nf2})"
+    tag = f"B={B} D={D}{'' if n == N_TOK else f' N={n}'} feat=({nf1}, {nf2})"
     for flag, feat in ((nf1, fwd[1]), (nf2, fwd[2])):
         if (feat is not None) != flag or (feat is not None and feat.dtype != torch.float32):
             raise AssertionError(f"fused_pair_fwd_f32 {tag}: a feature output does not "
@@ -5857,6 +5896,308 @@ def run_outcome_checks(mods, smi, tmp, seeds=1):
     return by_path, seconds
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: long sequences (448 px and up)
+# ---------------------------------------------------------------------------
+
+# 18a's lengths: one row past the attention backward's 11 shared-memory
+# tiles; 448 px (784 patches + 2); 512 px (1024 + 2); 576 px (1296 + 2)
+LONG_ATTENTION_N = (705, 786, 1026, 1298)
+LONG_BLOCK_N = (786, 1026)
+# the token sort past one warp's 1024 keys: a row past it, WassKD-l1's patch
+# rows at 576 px, and the longest the kernels take (1024 px)
+LONG_SORT_N = (1025, 1296, 4096)
+LONG_SORT_D = ((2, 100), (2, 384), (1, 3))   # (B, d): scalar loads; 16-byte loads; d < C
+LONG_BLOCK_B = 6      # _pair_inputs sets all four scales of sample 5 to 0
+LONG_STEP_PX, LONG_STEP_B = 448, 32       # 18b: the soft step on each route
+LONG_WASSKD_PX, LONG_WASSKD_B = 576, 16   # 18b: the WassKD-l1 step
+LONG_TIME_B = 32      # 18c: rows 2-4, 8 at the student's width and heads
+LONG_SORT_SHAPE = (LONG_WASSKD_B, 1296, 384)   # 18c: one WassKD-l1 layer at 576 px
+# the rows whose JSON entry carries 18c's readings
+LONG_ROWS = (("flash_fwd", 3 * B_MAIN), ("flash_bwd", 3 * B_MAIN), ("fused_block_bwd", 192),
+             ("fused_pair_bwd", 192), "bitonic_sort", "sorted_l1_fwd", "sorted_l1_bwd")
+
+
+def check_long_sequences(fb, at, so, worst):
+    """Phase 18a: each kernel of the long routes against its plain version on
+    the card, two runs the same bits: rows 3 and 4 (bf16 and fp32, also
+    through the autograd Function on strided views of a packed qkv) at N =
+    705, 786, 1026, 1298; rows 1, 2, 7, 8 (bf16 and fp32, with and without
+    the feature output and cotangent) at D = 192 and 384, N = 786 and 1026;
+    rows 9-11 at n = 1025, 1296, 4096 (the value sort in bf16, fp16, fp32 and
+    int32, sorted_l1 in bf16 and fp32) at d = 100, 384 and 3."""
+    import torch
+
+    t0 = time.perf_counter()
+    for n in LONG_ATTENTION_N:
+        _hold_attention(at, worst, (4, n, HEAD_DIM))
+        _hold_attention_views(at, worst, 1, 2, n)
+        _hold_attention_f32(at, worst, (4, n, HEAD_DIM))
+        _hold_attention_views_f32(at, worst, 1, 2, n)
+    t1 = time.perf_counter()
+    widths = BLOCK_WIDTHS[:2]
+    check_block_forward_shapes(fb, worst, LONG_BLOCK_N, widths, LONG_BLOCK_B)
+    check_block_backward_shapes(fb, worst, LONG_BLOCK_N, widths, LONG_BLOCK_B)
+    for n in LONG_BLOCK_N:
+        for D, H in widths:
+            for nf in (False, True):
+                seed = 18 * D + n + nf
+                _hold_block_f32(fb, worst, D, H, LONG_BLOCK_B, n, nf, seed)
+                _hold_pair_f32(fb, worst, D, H, LONG_BLOCK_B, nf, nf, seed, n=n)
+        torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    for n in LONG_SORT_N:
+        for B, d in LONG_SORT_D:
+            for dtype in (torch.bfloat16, torch.float16, torch.float32, torch.int32):
+                _hold_value_sort(so, worst, (B, n, d), dtype)
+            for dtype in (torch.bfloat16, torch.float32):
+                _hold_sort(so, worst, (B, n, d), dtype)
+    print(f"[long] 18a: attention {t1 - t0:.1f} s, blocks and pairs {t2 - t1:.1f} s, sorts "
+          f"{time.perf_counter() - t2:.1f} s")
+
+
+def _long_config(kd_type, px, B, **extra):
+    from deltakd_tpu_torch.configs.config import TrainConfig
+
+    return TrainConfig(teacher_model="deit_small_distilled_patch16_224",
+                       student_model="deit_tiny_distilled_patch16_224", batch_size=B,
+                       distillation_type=kd_type, dataset="cifar-100", input_size=px,
+                       dtype="bfloat16", drop_path_rate=0.1, aug_pixel_bf16=True, aa="",
+                       color_jitter=0.0, allow_random_teacher=True, **extra)
+
+
+def _long_step(mods, cfg, route):
+    """One train step through build_train_step on ``route`` ("fused",
+    "paired", "unfused" or "plain": attention_fn=None, no kernel) from
+    load_teacher_student's seeded weights: (metrics, launches, the models)."""
+    import numpy as np
+    import torch
+
+    from deltakd_tpu_torch.data.augment import AugmentConfig
+    from deltakd_tpu_torch.data.mixup import MixupConfig
+    from deltakd_tpu_torch.kd.losses import KDSettings
+    from deltakd_tpu_torch.models.factory import load_teacher_student
+    from deltakd_tpu_torch.train.optim import make_optimizer
+    from deltakd_tpu_torch.train.state import TrainState, trainable_parameters
+    from deltakd_tpu_torch.train.step import build_train_step
+
+    kw = dict(attention_fn=None) if route == "plain" else {}
+    teacher, student, aux = load_teacher_student(
+        cfg.replace(mesh_shape=(1, 2)) if route == "unfused" else cfg,
+        block_pair=route == "paired", seed=0, device="cuda", **kw)
+    tx = make_optimizer(cfg, trainable_parameters(student, aux), 100)
+    state = TrainState(student, tx=tx, aux=aux)
+    kd = KDSettings.from_config(cfg, student_prefix=student.cfg.num_prefix_tokens,
+                                teacher_prefix=teacher.cfg.num_prefix_tokens)
+    step = build_train_step(cfg=cfg, kd=kd, student=student, teacher=teacher, aux=aux,
+                            aug=AugmentConfig.from_config(cfg),
+                            mixup=MixupConfig.from_config(cfg, student.cfg.num_classes), tx=tx)
+    host = np.random.RandomState(0)
+    B = cfg.batch_size
+    images = torch.from_numpy(host.randint(0, 256, (B, 32, 32, 3), dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(host.randint(0, student.cfg.num_classes, (B,))).cuda()
+    torch.cuda.synchronize()
+    _reset_launches(mods)
+    t0 = time.perf_counter()
+    m = step(state, images, labels, torch.Generator(device="cuda").manual_seed(4))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _read_launches(mods)
+    metrics = {k: float(v) for k, v in m.items()}
+    print(f"[long] {route} {cfg.distillation_type} step at {cfg.input_size} px, B={B}: "
+          + " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
+          + f" ({ms:.1f} ms, the first call); launches {launches}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"long {route} step: non-finite metrics {metrics}")
+    return metrics, launches, (teacher, student, images, labels, kd)
+
+
+def _long_gradient(mods, teacher, student, images, labels, kd, cfg):
+    """The flat gradient of the soft-KD loss of one batch through ``student``
+    with pinned drop-path scales, and the launches it made."""
+    import torch
+
+    from deltakd_tpu_torch.data.augment import AugmentConfig, eval_transform
+    from deltakd_tpu_torch.kd.losses import total_loss
+
+    batch = eval_transform(images, AugmentConfig.from_config(cfg)).bfloat16()
+    scales = student.draw_drop_scales(batch.shape[0],
+                                      torch.Generator(device="cuda").manual_seed(5), "cuda")
+    with torch.no_grad():
+        teacher_logits = teacher(batch, train=False).logits
+    targets = torch.nn.functional.one_hot(labels.long(), student.cfg.num_classes).float()
+    _reset_launches(mods)
+    out = student(batch, train=True, drop_scales=scales)
+    loss, _ = total_loss(kd, student_logits=out.logits, student_dist_logits=out.logits_dist,
+                         student_feats=None, teacher_logits=teacher_logits, teacher_feats=None,
+                         aux=None, targets=targets, train=True)
+    flat = torch.cat([g.reshape(-1).float()
+                      for g in torch.autograd.grad(loss, list(student.parameters()))])
+    torch.cuda.synchronize()
+    return loss.item(), flat, _read_launches(mods)
+
+
+def _long_close(what, got, ref, tol):
+    err = abs(got - ref)
+    ok = err <= tol * max(abs(ref), 1e-3)
+    print(f"[long] {what}: {got:.6g} vs the plain route's {ref:.6g} (rel {err / max(abs(ref), 1e-3):.3e}, "
+          f"tol {tol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what} disagrees with the plain route on the card")
+
+
+def run_long_steps(mods):
+    """Phase 18b: one soft-KD step at full width (DeiT-S-distilled teacher,
+    DeiT-Ti-distilled student, depth 12) through build_train_step at 448 px
+    (N = 786) on the fused, paired and unfused routes, each launching its
+    route's kernels and no plain version: the step's loss and gradient norm,
+    and the soft-KD loss and flat gradient of one batch with pinned drop-path
+    scales, held against the plain route on the card (attention_fn=None, the
+    same seeded weights) within LOGIT_TOL; then one WassKD-l1 step at 576 px
+    (1,296 patch rows) on the fused route, which launches the sorted_l1
+    kernels, its losses held the same way. Returns the launches by path."""
+    import torch
+
+    t0 = time.perf_counter()
+    by_path = {}
+    cfg = _long_config("soft", LONG_STEP_PX, LONG_STEP_B)
+    plain_m, plain_l, kept = _long_step(mods, cfg, "plain")
+    if plain_l:
+        raise AssertionError(f"the plain route launched kernels: {plain_l}")
+    plain_loss, plain_flat, _ = _long_gradient(mods, *kept, cfg)
+    del kept
+    for route in ("fused", "paired", "unfused"):
+        torch.cuda.empty_cache()
+        m, launches, kept = _long_step(mods, cfg, route)
+        expect = {"fused": _block_launches(1), "paired": _paired_launches(1),
+                  "unfused": _unfused_launches(1, B=LONG_STEP_B)}[route]
+        if launches != expect:
+            raise AssertionError(f"long {route} step: launches {launches}, expected {expect}")
+        by_path[f"long {route} soft"] = launches
+        for key in ("train_loss", "distill_loss", "grad_norm"):
+            _long_close(f"{route} step {key} at {LONG_STEP_PX} px", m[key], plain_m[key],
+                        LOGIT_TOL)
+        loss, flat, g_launches = _long_gradient(mods, *kept, cfg)
+        _long_close(f"{route} soft-KD loss of one batch", loss, plain_loss, LOGIT_TOL)
+        abs_err, mx = _err(flat, plain_flat)
+        ok = abs_err <= LOGIT_TOL * mx and bool(torch.isfinite(flat).all())
+        print(f"[long] {route} soft-KD gradient ({flat.numel()} values) vs the plain route: "
+              f"max_abs_diff {abs_err:.3e}, max |plain| {mx:.3e} (rel {abs_err / mx:.3e}, "
+              f"tol {LOGIT_TOL}) {'ok' if ok else 'FAIL'}; launches {g_launches}")
+        if not ok:
+            raise AssertionError(f"the long {route} route's gradient disagrees with the "
+                                 f"plain route")
+        del kept
+    torch.cuda.empty_cache()
+    cfg = _long_config("wasskd", LONG_WASSKD_PX, LONG_WASSKD_B)
+    plain_m, _, kept = _long_step(mods, cfg, "plain")
+    del kept
+    m, launches, kept = _long_step(mods, cfg, "fused")
+    del kept
+    expect = dict(_block_launches(1), sorted_l1_fwd=3, sorted_l1_bwd=3)
+    if launches != expect:
+        raise AssertionError(f"long wasskd step: launches {launches}, expected {expect}")
+    by_path["long fused wasskd"] = launches
+    for key in ("train_loss", "distill_loss", "grad_norm"):
+        _long_close(f"wasskd step {key} at {LONG_WASSKD_PX} px", m[key], plain_m[key],
+                    LOGIT_TOL)
+    torch.cuda.empty_cache()
+    print(f"[long] 18b took {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def time_long_sequences(fb, at, so):
+    """Phase 18c: rows 2 (the block backward, D = 192), 3 and 4 (flash_fwd,
+    flash_bwd, 3 heads) and 8 (the pair backward, D = 192) at B = 32 and N =
+    786 and 1026: kernel and plain times, the bound, the library's (SDPA's
+    forward; for a backward the same block(s) or SDPA, forward+backward less
+    forward) and beside each the forward+backward of
+    F.scaled_dot_product_attention at the attention's shape; then rows 9-11
+    at [16, 1296, 384] (phase 4b's timing at n = 1296). Returns {kernel: {N
+    or n: row}}."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    D, H, B = 192, 3, LONG_TIME_B
+    for n in LONG_BLOCK_N:
+        q, k, v, do = _attention_inputs((B * H, n, HEAD_DIM), 3)
+        q4, k4, v4, do4 = (t.reshape(B, H, n, HEAD_DIM) for t in (q, k, v, do))
+        leaves = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*leaves)
+
+        def sdpa_no_grad():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(q4, k4, v4)
+
+        sdpa_both = _timed(lambda: torch.autograd.grad(sdpa_fwd(), leaves, do4), 10)
+        sdpa_fwd_ms = _timed(sdpa_fwd, 10)
+        o, lse = at.kernel_flash_fwd(q, k, v)
+        cases = {"flash_fwd": (lambda: at.kernel_flash_fwd(q, k, v),
+                               lambda: at._plain_fwd(q, k, v), _timed(sdpa_no_grad, 10),
+                               _attention_fwd_bound(B * H, n)),
+                 "flash_bwd": (lambda: at.kernel_flash_bwd(q, k, v, o, lse, do),
+                               lambda: at._plain_bwd(q, k, v, o, lse, do),
+                               sdpa_both - sdpa_fwd_ms, _attention_bwd_bound(B * H, n))}
+        p, x, sa, sm = _block_inputs(D, H, B, 7, "cuda", n=n)
+        kw = dict(num_heads=H, scale_attn=sa, scale_mlp=sm)
+        g_out = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(n),
+                            device="cuda", dtype=x.dtype)
+        lib_w = [t.detach().bfloat16().requires_grad_(True) for t in fb.block_params(p)]
+        x_lib = x.detach().requires_grad_(True)
+        lib_both = _timed(lambda: _library_block(x_lib, lib_w, H, 1e-6, sa, sm).backward(g_out), 5)
+        lib_fwd = _timed(lambda: _library_block(x_lib, lib_w, H, 1e-6, sa, sm), 5)
+        cases["fused_block_bwd"] = (
+            lambda: fb.kernel_block_bwd(x, p, g_out, None, **kw),
+            lambda: fb.reference_vit_block_bwd(x, p, g_out, None, **kw),
+            lib_both - lib_fwd, _block_bwd_bound(B, n, D))
+        p1, p2, xp, scales, (gp, _, _) = _pair_inputs(D, H, B, 13, "cuda", n=n)
+        pkw = dict(num_heads=H, scales=scales)
+        lib_w2 = [[t.detach().bfloat16().requires_grad_(True) for t in fb.block_params(pp)]
+                  for pp in (p1, p2)]
+        xp_lib = xp.detach().requires_grad_(True)
+
+        def lib_pair():
+            m = _library_block(xp_lib, lib_w2[0], H, 1e-6, scales[0], scales[1])
+            return _library_block(m, lib_w2[1], H, 1e-6, scales[2], scales[3])
+
+        pair_both = _timed(lambda: lib_pair().backward(gp), 5)
+        pair_fwd = _timed(lib_pair, 5)
+        cases["fused_pair_bwd"] = (
+            lambda: fb.kernel_block_pair_bwd(xp, p1, p2, gp, **pkw),
+            lambda: fb.reference_vit_block_pair_bwd(xp, p1, p2, gp, **pkw),
+            pair_both - pair_fwd, _block_bwd_bound(B, n, D, blocks=2))
+        for kernel, (fn, plain, library_ms, bound) in cases.items():
+            row = dict(ms=_timed(fn, 10), plain_ms=_timed(plain, 3), library_ms=library_ms,
+                       sdpa_fwd_bwd_ms=sdpa_both, **bound)
+            rows.setdefault(kernel, {})[n] = row
+            print(f"[time long] {kernel} B={B} N={n} (D={D}, {H} heads): {row['ms']:.3f} ms, "
+                  f"plain {row['plain_ms']:.3f} ms, library {library_ms:.3f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); scaled_dot_product_attention "
+                  f"forward+backward at [{B},{H},{n},64] {sdpa_both:.3f} ms")
+        del cases, x_lib, lib_w, xp_lib, lib_w2
+        torch.cuda.empty_cache()
+    for kernel, row in time_sort_kernels(so, LONG_SORT_SHAPE).items():
+        rows[kernel] = {LONG_SORT_SHAPE[1]: row}
+    return rows
+
+
+def run_long_sequences(mods, smi):
+    """Phase 18: 18a, 18b, 18c. Returns (launches by path, 18c's rows)."""
+    fb, so, at, _ = mods
+    t0 = time.perf_counter()
+    worst = {}
+    check_long_sequences(fb, at, so, worst)
+    by_path = run_long_steps(mods)
+    rows = time_long_sequences(fb, at, so)
+    print(f"[long] {smi}: phase 18 took {time.perf_counter() - t0:.1f} s; largest errors "
+          + ", ".join(f"{k if isinstance(k, str) else f'{k[0]}[{k[1]}]'} {v:.3e}"
+                      for k, v in sorted(worst.items(), key=str)))
+    return by_path, rows, worst
+
+
 # What two planted faults of phase 14a add to a source: a kernel that rounds
 # n fp32 values to bf16 precision in place, and its launch on the stream `st`.
 ROUND_KERNEL = ("__global__ void fault_round_bf16(float* p, long long n) {\n"
@@ -6079,6 +6420,20 @@ FAULTS = (
     # and the EMA, but the student keeps its fresh weights
     ("the resume keeps the fresh student weights", "deltakd_tpu_torch/ckpt/checkpoint.py",
      (('    state.params.copy_(cut(saved["params"]))\n', ""),), "--outcome-checks"),
+    # the long routes (phase 18a): the bf16 attention backward's workspace
+    # route leaving out the dQ share of key tiles past the 11th (what the
+    # shared-memory route could not hold), and the sort's merge across warps
+    # skipping its stride-1024 stage (n_pad = 4096: n = 4096)
+    ("the long attention backward's dQ of key tiles past the 11th dropped",
+     "deltakd_tpu_torch/ops/csrc/attention_bwd.cuh",
+     (("            v = old[hh][jb];",
+       "            v = old[hh][jb], dqi[4 * jb + 2 * hh] *= (j < 11), "
+       "dqi[4 * jb + 2 * hh + 1] *= (j < 11);"),), "--long-sequence-checks"),
+    ("the sort's merge across warps without its stride-1024 stage",
+     "deltakd_tpu_torch/ops/csrc/sort.cu",
+     (("  const int p0 = kRun * run + 32 * lane;",
+       "  if (mask == kRun) return;\n  const int p0 = kRun * run + 32 * lane;"),),
+     "--long-sequence-checks"),
 )
 
 
@@ -6157,6 +6512,7 @@ def main() -> int:
     tp_checks = "--tp-checks" in sys.argv[1:]
     learning_checks = "--learning-checks" in sys.argv[1:]
     outcome_checks = "--outcome-checks" in sys.argv[1:]
+    long_checks = "--long-sequence-checks" in sys.argv[1:]
     seeds = int(sys.argv[sys.argv.index("--seeds") + 1]) if "--seeds" in sys.argv else 1
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -6231,6 +6587,9 @@ def main() -> int:
         atexit.register(shutil.rmtree, tmp, True)
         os.environ.update(WANDB_MODE="disabled", WANDB_ERROR_REPORTING="false")
         run_learning(mods, smi, tmp, seeds)
+        return 0
+    if long_checks:      # phase 18 alone (and a planted-fault copy of the long routes)
+        run_long_sequences(mods, smi)
         return 0
     if outcome_checks:   # phase 17 alone (--seeds N: 17b at seeds 0..N-1)
         tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -6419,6 +6778,11 @@ def main() -> int:
     outcome, outcome_s = run_outcome_checks(mods, smi, tmp)
     by_path.update(outcome)
     lap("phase 17")
+    # phase 18: long sequences, 448 px and up
+    torch.cuda.empty_cache()
+    long_paths, long_rows, long_worst = run_long_sequences(mods, smi)
+    by_path.update(long_paths)
+    lap("phase 18")
     print("[slice] step ms by path: "
           + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
 
@@ -6468,6 +6832,13 @@ def main() -> int:
             # a backward splits W^T in its transpose)
             kernels[-1]["gemm_kernels"] = ["split_weights_tf32_kernel", "linear_f32_kernel"] + (
                 ["transpose_kernel"] if "_bwd" in kernel else [])
+        if key in LONG_ROWS:
+            # phase 18c: the row at 448 and 512 px (B = 32; the sorts at n = 1296),
+            # and 18a's largest error
+            kernels[-1]["long_sequence"] = {
+                "by_n": long_rows[kernel],
+                "max_abs_err": max(v for k, v in long_worst.items()
+                                   if (k if isinstance(k, str) else k[0]) == kernel)}
         if kernel in ATTENTION_FWD_F32_ROWS:
             # the warp-specialised fp32 attention forward (attention_fwd.cuh), in
             # flash_fwd_f32 and in every fp32 block and pair forward and recompute

@@ -57,16 +57,16 @@ SIGNATURES = {
         "dk_sort_sl1_bwd": ([_PTR, _PTR, _PTR, _I64, _INT, _PTR], _INT),
     },
     # tensors, their (batch, head, row) strides, outputs, B, H, N, stream;
-    # the _f32 forms take the same arguments, the backward's a workspace
+    # the _f32 forms take the same arguments; the backwards a workspace
     # before the stream
     "attention": {
         "dk_flash_max_n": ([], _INT),
         **{f"dk_flash_fwd{form}": ([_PTR] * 3 + [_I64] * 9 + [_PTR] * 2 + [_INT] * 3 + [_PTR],
                                    _INT) for form in ("", "_f32")},
-        "dk_flash_bwd": ([_PTR] * 4 + [_I64] * 12 + [_PTR] * 5 + [_INT] * 3 + [_PTR], _INT),
-        "dk_flash_bwd_f32_workspace": ([_INT] * 3, ctypes.c_size_t),
-        "dk_flash_bwd_f32": ([_PTR] * 4 + [_I64] * 12 + [_PTR] * 5 + [_INT] * 3 + [_PTR] * 2,
-                             _INT),
+        **{f"dk_flash_bwd{form}_workspace": ([_INT] * 3, ctypes.c_size_t)
+           for form in ("", "_f32")},
+        **{f"dk_flash_bwd{form}": ([_PTR] * 4 + [_I64] * 12 + [_PTR] * 5 + [_INT] * 3
+                                   + [_PTR] * 2, _INT) for form in ("", "_f32")},
     },
     "fused_mlp": {
         "dk_fused_mlp_fwd": ([_PTR] * 6 + [_INT] * 3 + [_PTR], _INT),

@@ -17,7 +17,8 @@ rebuilds ``p = exp(s - lse)`` and emits
 Tensors are [B, H, N, head_dim] (the kernels alone also take [B*H, N,
 head_dim]). Dispatch is by the device of ``q``: a CPU tensor takes the plain
 version, a CUDA tensor the hand-written kernels in ``csrc/attention.cu`` (bf16
-or fp32, head dim 64, N up to ``max_sequence()``), anything else raises. The
+or fp32, head dim 64; bf16 N up to ``KERNEL_MAX_N``, fp32 any N), anything
+else raises. The
 fp32 forms run every product on TF32 tensor cores in 3xTF32 (each operand as a
 high and a low TF32 part, three products: fp32 accuracy) and round nothing to
 bf16: o, lse, dq, dk, dv are fp32, as the TPU kernels emit their input's
@@ -36,6 +37,11 @@ import torch
 from deltakd_tpu_torch.ops import current_stream, kernel_entry, on_card
 
 _HEAD_DIM = 64
+# The longest sequence the bf16 kernels take (``max_sequence()`` reads it from
+# the built library): the backward keeps delta of all of a head's rows in
+# shared memory (attention_bwd.cuh ``attn_bwd::MAX_N``; above 704 rows its dQ
+# lives in a device workspace). The fp32 forms take any N.
+KERNEL_MAX_N = 47104
 
 # Kernel launches by (entry point, batch * heads): the fp32 forms count under
 # ``flash_fwd_f32`` and ``flash_bwd_f32``. Each wrapper adds one where it
@@ -99,9 +105,15 @@ def _library():
 
 
 def max_sequence() -> int:
-    """The longest N the kernels take (656; the backward keeps dQ of all N
-    rows in shared memory and takes up to 704). Needs the built library."""
+    """The longest N the bf16 kernels take, from the built library
+    (``KERNEL_MAX_N``)."""
     return _library().dk_flash_max_n()
+
+
+def _length(name: str, q: torch.Tensor, N: int) -> None:
+    if q.dtype == torch.bfloat16 and N > KERNEL_MAX_N:
+        raise ValueError(f"{name}: N = {N} exceeds the bf16 kernels' limit of "
+                         f"{KERNEL_MAX_N} keys")
 
 
 def _operands(name: str, *tensors: torch.Tensor):
@@ -142,10 +154,8 @@ def kernel_flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     dims."""
     (B, H, N), (q4, k4, v4) = _operands("flash_fwd", q, k, v)
     name = kernel_entry("flash_fwd", q)
+    _length("flash_fwd", q, N)
     lib = _library()
-    if N > max_sequence():
-        raise ValueError(f"flash_fwd: N = {N} exceeds the kernel's limit of "
-                         f"{max_sequence()} keys")
     q4, k4, v4 = _strided(q4), _strided(k4), _strided(v4)
     with torch.cuda.device(q.device):
         o = torch.empty((B, H, N, _HEAD_DIM), dtype=q.dtype, device=q.device)
@@ -168,23 +178,22 @@ def kernel_flash_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, t
     if lse.dtype != torch.float32 or lse.numel() != B * H * N or lse.device != q.device:
         raise ValueError(f"flash_bwd: lse must be fp32 with one value a row on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    _length("flash_bwd", q, N)
     lib = _library()
-    if N > max_sequence():
-        raise ValueError(f"flash_bwd: N = {N} exceeds the kernel's limit of "
-                         f"{max_sequence()} keys")
     q4, k4, v4, do4 = _strided(q4), _strided(k4), _strided(v4), _strided(do4)
     o4, lse = o4.contiguous(), lse.contiguous()
     with torch.cuda.device(q.device):
         dq, dk, dv = (torch.empty((B, H, N, _HEAD_DIM), dtype=q.dtype, device=q.device)
                       for _ in range(3))
-        # the fp32 form's workspace: Q^T, dO^T, the dQ partials of its key tiles
-        work = ((torch.empty(lib.dk_flash_bwd_f32_workspace(B, H, N), dtype=torch.uint8,
-                             device=q.device),) if name == "flash_bwd_f32" else ())
+        # the workspace: fp32, Q^T, dO^T and the dQ partials of its key tiles;
+        # bf16, fp32 dQ of every head above 704 rows (else none)
+        nbytes = getattr(lib, f"dk_{name}_workspace")(B, H, N)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
         err = getattr(lib, f"dk_{name}")(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), do4.data_ptr(),
             *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3], *do4.stride()[:3],
             o4.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, N, *(w.data_ptr() for w in work), current_stream(q))
+            B, H, N, None if work is None else work.data_ptr(), current_stream(q))
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[(name, B * H)] += 1

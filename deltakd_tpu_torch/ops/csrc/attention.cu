@@ -26,12 +26,13 @@
 //   K and V read once per 64-row query tile.
 // * backward: attention_bwd.cuh: one warpgroup per (batch, head), the five
 //   products on wgmma, P^T and dS^T in registers, dK and dV in registers per
-//   64-key tile, dQ of all rows summed in shared memory in key-tile order (no
-//   atomics, no partials in device memory, one launch). Here it gets the
+//   64-key tile, dQ of all rows summed in key-tile order (no atomics, one
+//   launch): in shared memory up to N = 704, above that in the CTA's own
+//   slice of a device workspace (`dk_flash_bwd_workspace`). Here it gets the
 //   unscaled q, so the scale goes on S in the exponent and on dQ and dK
 //   (64^-1/2 = 2^-3: exact), and no delta, so each CTA computes
-//   rowsum(dO * o) of its head in its prologue. N up to 704 (dQ in shared
-//   memory), above the forward's 656.
+//   rowsum(dO * o) of its head in its prologue. N up to 47,104 (delta of all
+//   rows in shared memory).
 //
 // In the backward p and ds are rounded to bf16 before their products (the
 // tensor cores take bf16); q, k, v, dO arrive in bf16. The fp32 forms
@@ -65,11 +66,11 @@ constexpr int HD = 64;   // head dim
 
 }  // namespace
 
-// The longest sequence flash_attention takes: 656 keys, the limit of the
-// forward when it kept all of K and V in shared memory. The streaming forward
-// takes any N, the backward up to 704; both are held to their plain versions
-// up to this length.
-extern "C" int dk_flash_max_n() { return 656; }
+// The longest sequence the bf16 entry points take: the backward's, which
+// keeps delta of all rows in shared memory (attn_bwd::MAX_N, 47,104). The
+// streaming forward takes any N and is held to the same length, so that
+// whatever it evaluates it can also differentiate. The fp32 forms take any N.
+extern "C" int dk_flash_max_n() { return dk::attn_bwd::MAX_N; }
 
 // q, k, v: [B, H, N, 64] bf16 through strides (batch, head, row), in
 // elements; o: [B, H, N, 64] bf16 and lse: [B, H, N] fp32, both contiguous.
@@ -90,15 +91,22 @@ extern "C" int dk_flash_fwd(const void* q, const void* k, const void* v, long lo
   return (int)dk::attention_fwd(a, HD, (cudaStream_t)stream);
 }
 
+// Bytes of dk_flash_bwd's workspace (attention_bwd.cuh
+// `attention_bwd_workspace`): 0 up to N = 704, fp32 dQ of every head above.
+extern "C" size_t dk_flash_bwd_workspace(int B, int H, int N) {
+  return dk::attention_bwd_workspace(B, H, N);
+}
+
 // q, k, v, dO strided as in the forward; o, lse the forward's outputs
-// (contiguous); dq, dk, dv: [B, H, N, 64] bf16 contiguous. Returns
+// (contiguous); dq, dk, dv: [B, H, N, 64] bf16 contiguous; the workspace, of
+// the bytes above (null when they are 0), before the stream. Returns
 // cudaGetLastError() after the launch, or -1 for a shape it refuses.
 extern "C" int dk_flash_bwd(const void* q, const void* k, const void* v, const void* dO,
                             long long q_sb, long long q_sh, long long q_sn, long long k_sb,
                             long long k_sh, long long k_sn, long long v_sb, long long v_sh,
                             long long v_sn, long long g_sb, long long g_sh, long long g_sn,
                             const void* o, const void* lse, void* dq, void* dk, void* dv, int B,
-                            int H, int N, void* stream) {
+                            int H, int N, void* work, void* stream) {
   if (B < 1 || H < 1 || N < 1 || N > dk_flash_max_n()) return -1;
   const long long sb = (long long)H * N * HD, sh = (long long)N * HD;
   dk::AttnBwdArgs a = {};
@@ -114,7 +122,7 @@ extern "C" int dk_flash_bwd(const void* q, const void* k, const void* v, const v
   a.colsum = nullptr;
   a.scale = a.dq_scale = 1.0f / sqrtf((float)HD);   // 2^-3
   a.B = B; a.H = H; a.N = N;
-  return (int)dk::attention_bwd(a, HD, (cudaStream_t)stream);
+  return (int)dk::attention_bwd(a, HD, (float*)work, (cudaStream_t)stream);
 }
 
 // The fp32 forms of the two entry points above: the same arguments, every
@@ -123,7 +131,7 @@ extern "C" int dk_flash_fwd_f32(const void* q, const void* k, const void* v, lon
                                 long long q_sh, long long q_sn, long long k_sb, long long k_sh,
                                 long long k_sn, long long v_sb, long long v_sh, long long v_sn,
                                 void* o, void* lse, int B, int H, int N, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || N > dk_flash_max_n()) return -1;
+  if (B < 1 || H < 1 || N < 1) return -1;
   dk::AttnArgsT<float> a = {};
   a.q = (const float*)q; a.q_sb = q_sb; a.q_sh = q_sh; a.q_sn = q_sn;
   a.k = (const float*)k; a.k_sb = k_sb; a.k_sh = k_sh; a.k_sn = k_sn;
@@ -149,7 +157,7 @@ extern "C" int dk_flash_bwd_f32(const void* q, const void* k, const void* v, con
                                 long long v_sn, long long g_sb, long long g_sh, long long g_sn,
                                 const void* o, const void* lse, void* dq, void* dk, void* dv,
                                 int B, int H, int N, void* work, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || N > dk_flash_max_n()) return -1;
+  if (B < 1 || H < 1 || N < 1) return -1;
   const long long sb = (long long)H * N * HD, sh = (long long)N * HD;
   dk::AttnBwdArgsT<float> a = {};
   a.q = (const float*)q; a.q_sb = q_sb; a.q_sh = q_sh; a.q_sn = q_sn;

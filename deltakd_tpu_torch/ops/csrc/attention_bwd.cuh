@@ -37,9 +37,12 @@
 //        as they lie in shared memory (wgmma's transposed B operand);
 //   dQ_i = dS K: dS^T goes to shared memory in the 128-byte swizzle and is
 //        read as wgmma's transposed A operand, K as its transposed B; the
-//        product is added to an fp32 dQ of all N rows in shared memory.
-// dQ sums its key tiles in key-tile order inside one CTA: no partials in
-// device memory and no atomics, two runs give the same bits. Tiles arrive by
+//        product is added to an fp32 dQ of all N rows, in shared memory up
+//        to 11 query tiles (N <= 704) and above that in a slice of a device
+//        workspace that only this CTA reads and writes (the long route).
+// dQ sums its key tiles in key-tile order inside one CTA: no atomics, and
+// each element is added to by one thread, so two runs give the same bits and
+// both routes add in the same order. Tiles arrive by
 // cp.async in the 128-byte swizzle (attention_fwd.cuh's loader); rows at or
 // beyond N arrive as zeros, and P is set to 0 wherever the key or the query
 // is at or beyond N, so padding adds nothing.
@@ -55,7 +58,16 @@
 // exponentials, two more, a barrier, the fifth) and the padding of 198 rows
 // to 256. The scores never reach device memory; shared memory holds the five
 // 8 KB tiles, delta of all rows and dQ (16 KB per 64 query rows: 64 KB at
-// N = 198, two CTAs an SM; N up to 704, 227,072 bytes at 11 tiles).
+// N = 198, two CTAs an SM; 227,072 bytes at 11 tiles, N = 704).
+//
+// The long route (N > 704): dQ leaves shared memory for the workspace
+// (`attention_bwd_workspace`, B*H x N64 x 64 fp32: 201 KB a head at N = 786,
+// 272 KB at 1026), where each CTA's slice is read and written once per (key
+// tile, query tile) pair, 32 KB a pair, and stays in L2 while the CTA walks
+// it. Each thread loads its 32 old dQ values of the pair before the dQ_i
+// product and adds after it, so the load's latency runs under the product.
+// Shared memory keeps the five tiles and delta of all rows (N x 4 bytes):
+// 44,032 + 256 x tiles bytes, which takes N up to 47,104 (736 tiles).
 
 #pragma once
 
@@ -96,14 +108,28 @@ namespace attn_bwd {
 constexpr int T = attn::T;             // keys of a key tile, rows of a query tile
 constexpr int TILE = T * 64;           // bf16 elements of one tile
 constexpr int MAX_TILES = 11;          // dQ in shared memory: N <= 704
-// five bf16 tiles, lse of a query tile, delta of all rows, dQ of all rows,
-// the column sums of dq, dk, dv and one 64-column partial per warp
-inline size_t smem_bytes(int N) {
+constexpr size_t SMEM_MAX = 232448;    // a CTA's shared memory on an H100
+// five bf16 tiles, lse of a query tile, delta of all rows, dQ of all rows
+// (not on the long route), the column sums of dq, dk, dv and one 64-column
+// partial per warp
+inline size_t smem_bytes(int N, bool dq_in_smem) {
   const int tiles = (N + T - 1) / T;
   return 5 * TILE * sizeof(bf16) + T * sizeof(float) + (size_t)tiles * T * sizeof(float) +
-         (size_t)tiles * T * 64 * sizeof(float) + (3 + 4) * 64 * sizeof(float) + 1024;
+         (dq_in_smem ? (size_t)tiles * T * 64 * sizeof(float) : 0) +
+         (3 + 4) * 64 * sizeof(float) + 1024;
 }
+// The longest N the long route takes: delta of all rows in shared memory.
+constexpr int MAX_N = (int)((SMEM_MAX - 5 * TILE * 2 - T * 4 - 7 * 64 * 4 - 1024) / (T * 4)) * T;
 }  // namespace attn_bwd
+
+// Bytes of the bf16 attention backward's workspace for B*H heads of N rows:
+// none up to 11 query tiles (dQ in shared memory), above them fp32 dQ of every
+// head's rows, each head's slice N rounded up to 64 rows of 64.
+inline size_t attention_bwd_workspace(int B, int H, int N) {
+  const long long tiles = (N + attn_bwd::T - 1) / attn_bwd::T;
+  return tiles <= attn_bwd::MAX_TILES ? 0
+                                      : (size_t)B * H * tiles * attn_bwd::T * 64 * sizeof(float);
+}
 
 // The fp32 dQ accumulator in shared memory: row r, float2 column c2 (of 32),
 // swizzled so that the accumulator layout's 4 rows x 4 column pairs of a
@@ -169,7 +195,11 @@ __device__ __forceinline__ void store_grad_rows(const AttnBwdArgs& p, bf16* out,
   }
 }
 
-__global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const AttnBwdArgs p) {
+// DQ_WORK: the long route, dQ in the CTA's slice of dq_work (B*H x tiles x
+// 64 x 64 fp32) instead of shared memory.
+template <bool DQ_WORK>
+__global__ void __launch_bounds__(attn::THREADS)
+attention_bwd_kernel(const AttnBwdArgs p, float* dq_work) {
   using attn_bwd::T;
   using attn_bwd::TILE;
   extern __shared__ unsigned char smem_raw[];
@@ -183,7 +213,14 @@ __global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const Attn
   const int N = p.N, tiles = (N + T - 1) / T;
   float* lse_s = reinterpret_cast<float*>(Ss + TILE);   // lse * log2(e) of the query tile
   float* delta_all = lse_s + T;                          // [tiles * T], 0 past N
-  float* dq = delta_all + tiles * T;                     // [tiles * T][64] fp32
+  float *dq, *col;   // [tiles * T][64] fp32; [3][64]: the column sums of dq, dk, dv
+  if constexpr (DQ_WORK) {
+    dq = dq_work + (long long)bh * tiles * T * 64;
+    col = delta_all + tiles * T;
+  } else {
+    dq = delta_all + tiles * T;
+    col = dq + tiles * T * 64;
+  }
   const bf16* qh = p.q + b * p.q_sb + h * p.q_sh;
   const bf16* kh = p.k + b * p.k_sb + h * p.k_sh;
   const bf16* vh = p.v + b * p.v_sb + h * p.v_sh;
@@ -193,7 +230,6 @@ __global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const Attn
   constexpr float LOG2E = 1.4426950408889634f;
   const float s_log2e = p.scale * LOG2E;   // the block: scale 1, LOG2E itself
 
-  float* col = dq + tiles * T * 64;   // [3][64]: the column sums of dq, dk, dv
   float* wpart = col + 3 * 64;        // [4][64]
   for (int i = threadIdx.x; i < tiles * T * 16; i += attn::THREADS)
     reinterpret_cast<float4*>(dq)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -308,6 +344,17 @@ __global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const Attn
       for (int k = 0; k < 4; ++k) wgmma_rs_t(dk, sa[k], q_desc + 128 * k, 1);
       wgmma_commit();
 
+      // the long route: this thread's dQ of the query tile from the
+      // workspace, loaded under the dQ_i product (its own last writes)
+      float2 old[2][8];
+      if constexpr (DQ_WORK) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int jb = 0; jb < 8; ++jb)
+            old[hh][jb] = *dq_slot(dq, i * T + r_lo + 8 * hh, 4 * jb + c_lo / 2);
+      }
+
       // dS^T to shared memory, then dQ_i = dS K (dS^T and K both read
       // transposed: 16 keys a k-step)
       store_tile_sw128(Ss, s);
@@ -332,7 +379,11 @@ __global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const Attn
 #pragma unroll
         for (int jb = 0; jb < 8; ++jb) {
           float2* slot = dq_slot(dq, r, 4 * jb + c_lo / 2);
-          float2 v = *slot;
+          float2 v;
+          if constexpr (DQ_WORK)
+            v = old[hh][jb];
+          else
+            v = *slot;
           v.x += dqi[4 * jb + 2 * hh];
           v.y += dqi[4 * jb + 2 * hh + 1];
           *slot = v;
@@ -374,22 +425,27 @@ __global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const Attn
   }
 }
 
-// Whether the kernel takes head dim hd and sequence length N (dQ and delta
-// of all N rows live in shared memory).
+// Whether the bf16 kernel takes head dim hd and sequence length N (delta of
+// all N rows lives in shared memory; dQ too up to 11 tiles).
 inline bool attention_bwd_takes(int hd, int N) {
-  return hd == 64 && N >= 1 && (N + attn_bwd::T - 1) / attn_bwd::T <= attn_bwd::MAX_TILES;
+  return hd == 64 && N >= 1 && N <= attn_bwd::MAX_N;
 }
 
-// Launches the attention backward on `st`; cudaErrorInvalidValue, without a
-// launch, for a shape it does not take.
-inline cudaError_t attention_bwd(const AttnBwdArgs& p, int hd, cudaStream_t st) {
+// Launches the attention backward on `st`, with `work` of
+// attention_bwd_workspace(B, H, N) bytes (unused, and may be null, up to 11
+// tiles); cudaErrorInvalidValue, without a launch, for a shape it does not
+// take.
+inline cudaError_t attention_bwd(const AttnBwdArgs& p, int hd, float* work, cudaStream_t st) {
   if (!attention_bwd_takes(hd, p.N) || p.B < 1 || p.H < 1 || !(p.delta || p.o))
     return cudaErrorInvalidValue;
-  const size_t smem = attn_bwd::smem_bytes(p.N);
-  cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const bool short_route = attention_bwd_workspace(p.B, p.H, p.N) == 0;
+  if (!short_route && !work) return cudaErrorInvalidValue;
+  const size_t smem = attn_bwd::smem_bytes(p.N, short_route);
+  auto kernel = short_route ? attention_bwd_kernel<false> : attention_bwd_kernel<true>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  attention_bwd_kernel<<<p.B * p.H, attn::THREADS, smem, st>>>(p);
+  kernel<<<p.B * p.H, attn::THREADS, smem, st>>>(p, short_route ? nullptr : work);
   return cudaGetLastError();
 }
 
@@ -871,12 +927,16 @@ attention_bwd_reduce_f32_kernel(const AttnBwdArgsT<float> p, const float* dq_par
   }
 }
 
+// Whether the fp32 form takes head dim hd and sequence length N: any N (its
+// dQ partials and delta live in the workspace).
+inline bool attention_bwd_f32_takes(int hd, int N) { return hd == 64 && N >= 1; }
+
 // Launches the fp32 attention backward (its three kernels) on `st`, with
 // `work` of attention_bwd_f32_workspace(B, H, N) bytes; cudaErrorInvalidValue,
-// without a launch, for a shape the bf16 form does not take either.
+// without a launch, for a shape it does not take.
 inline cudaError_t attention_bwd(const AttnBwdArgsT<float>& p, int hd, float* work,
                                  cudaStream_t st) {
-  if (!attention_bwd_takes(hd, p.N) || p.B < 1 || p.H < 1 || !(p.delta || p.o) || !work)
+  if (!attention_bwd_f32_takes(hd, p.N) || p.B < 1 || p.H < 1 || !(p.delta || p.o) || !work)
     return cudaErrorInvalidValue;
   const AttnBwdWork w = attn_bwd_work(p.B, p.H, p.N);
   float* qt = work;

@@ -44,7 +44,8 @@ extern "C" size_t dk_fused_block_bwd_workspace(int B, int N, int D, int H, int F
 // ptr: x, s_attn, s_mlp, 12 weights, g_out, g_feat|null, dx, then the 12 fp32
 // weight gradients in the same order as the weights, then the workspace.
 // Returns the first launch error, or cudaErrorInvalidValue, before any
-// launch, for a shape the attention kernels do not take.
+// launch, for a shape the attention kernels do not take (head dim 64, N up
+// to attn_bwd::MAX_N).
 extern "C" int dk_fused_block_bwd(void* const* ptr, int B, int N, int D, int H, int F,
                                   float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -89,7 +90,7 @@ extern "C" int dk_fused_block_bwd_f32(void* const* ptr, int B, int N, int D, int
                                       float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const Shape sh{B, N, D, H, F};
-  if (!attention_bwd_takes(sh.hd(), N)) return (int)cudaErrorInvalidValue;
+  if (!attention_bwd_f32_takes(sh.hd(), N)) return (int)cudaErrorInvalidValue;
   const float* x = (const float*)ptr[0];
   const float* s_attn = (const float*)ptr[1];
   const float* s_mlp = (const float*)ptr[2];

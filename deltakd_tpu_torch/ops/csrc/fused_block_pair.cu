@@ -101,7 +101,8 @@ size_t pair_bwd_workspace(const Shape& sh) {
 // The backward at operand type T: x, g_out, g_feat1, g_feat2 and dx of T.
 template <typename T>
 int pair_bwd(void* const* ptr, const Shape& sh, float eps, cudaStream_t st) {
-  if (!attention_bwd_takes(sh.hd(), sh.N)) return (int)cudaErrorInvalidValue;
+  if (!(is_f32<T> ? attention_bwd_f32_takes(sh.hd(), sh.N) : attention_bwd_takes(sh.hd(), sh.N)))
+    return (int)cudaErrorInvalidValue;
   const float* const* s = (const float* const*)(ptr + P_SCALES);
   const BlockWeightsT<T> w1 = unpack_weights<T>(ptr + P_W1), w2 = unpack_weights<T>(ptr + P_W2);
   const T* g_out = (const T*)ptr[P_REST];

@@ -210,10 +210,11 @@ inline long long colsum_partial_len(const Shape& sh) {
 // (of T where only a product reads them, fp32 where a LayerNorm backward
 // does), the four matmul weights transposed ([I, O], K-major for
 // linear_sm90; fp32: split into TF32 hi and lo by the transpose), and the
-// partials of the weight and column sums. In the fp32 form the attention
-// backward's workspace (attention_bwd.cuh, `attention_bwd_f32_workspace`)
-// shares its slice with dhpre, which is dead from the fc1 input gradient
-// on; the slice is the larger of the two.
+// partials of the weight and column sums. The attention backward's workspace
+// (attention_bwd.cuh: `attention_bwd_f32_workspace` in the fp32 form,
+// `attention_bwd_workspace` in bf16, which is empty up to N = 704) shares its
+// slice with dhpre, which is dead from the fc1 input gradient on; the slice
+// is the larger of the two.
 template <typename T>
 struct BwdBuffersT {
   float *dz, *dx2, *delta, *dy;
@@ -227,9 +228,10 @@ struct BwdBuffersT {
     const int D = sh.D, F = sh.F;
     gfeat_lp = c.take<T>(M * D);
     const long long dh = M * F * (long long)sizeof(T);
-    const long long aw = is_f32<T> ? (long long)attention_bwd_f32_workspace(sh.B, sh.H, sh.N) : 0;
+    const long long aw = (long long)(is_f32<T> ? attention_bwd_f32_workspace(sh.B, sh.H, sh.N)
+                                               : attention_bwd_workspace(sh.B, sh.H, sh.N));
     dhpre_lp = reinterpret_cast<T*>(c.take<char>(dh > aw ? dh : aw));
-    attn_work = is_f32<T> ? reinterpret_cast<float*>(dhpre_lp) : nullptr;
+    attn_work = reinterpret_cast<float*>(dhpre_lp);
     dz = c.take<float>(M * D);       dx2 = c.take<float>(M * D);
     dattn_lp = c.take<T>(M * D);
     do_lp = c.take<T>(M * D);
@@ -328,11 +330,7 @@ inline cudaError_t reverse_chain(const TG* g_out, const same_t<T>* g_feat, const
   a.scale = 1.0f;   // q arrives scaled
   a.dq_scale = scale;
   a.B = sh.B; a.H = H; a.N = N;
-  if constexpr (is_f32<T>)
-    err = attention_bwd(a, hd, g.attn_work, st);
-  else
-    err = attention_bwd(a, hd, st);
-  if (err != cudaSuccess) return err;
+  if ((err = attention_bwd(a, hd, g.attn_work, st)) != cudaSuccess) return err;
   reduce_chunks(g.col_partial, sh.B, 3 * D, dbqkv, st);
 
   // qkv = LN1(x) Wqkv^T + bqkv

@@ -7,7 +7,7 @@
 // `bitonic_sort_pallas`), `_sl1_fwd_kernel` (`_sl1_fwd_call`) and
 // `_sl1_bwd_kernel` (`_sl1_bwd_call`).
 //
-// Every column (b, :, j) is an independent sort of n <= 1024 values. The
+// Every column (b, :, j) is an independent sort of n <= 4096 values. The
 // value sort and the sorted_l1 forward run one design. A thread block (8
 // warps) takes one batch element b and a tile of C neighbouring columns (32
 // up to n_pad = 512, 16 at n_pad = 1024; columns past d are skipped, so any d
@@ -75,6 +75,26 @@
 // column (5.9 M warp shuffles for the value sort at the main shape), 8 for
 // fp32, and 8 + 4 for the forward's s and t (17.7 M), at one warp shuffle a
 // clock an SM; the min/max instructions share the SM's issue slots with them.
+//
+// Columns longer than 1024 (n_pad = 2048 and 4096: RUNS = n_pad / 1024 runs
+// of 1024 keys). A column is taken by RUNS neighbouring warps of the block,
+// warp k holding run k (rows 1024 k + 32 r + lane) as 32 keys a lane at
+// positions 1024 k + 32 lane + r; the block holds 16384 / n_pad columns (8
+// at 2048, 4 at 4096) and its 8 warps take them 8 / RUNS at a time, in two
+// rounds. Each warp sorts its run ascending with the network above. The
+// merge phases of block size Kb = 2048 .. n_pad then use the network's other
+// form, which needs no descending blocks: a phase's first stage compares
+// position p with its mirror p ^ (Kb - 1), its next ones p with p ^ J (J =
+// Kb / 4 .. 1), the lower position keeping the smaller key. The stages whose
+// partner lies in another run (the mirror stage and J >= 1024) go through an
+// exchange buffer in shared memory between two barriers (one skipped slot
+// after every 32 keys: no bank conflict); those of J <= 512 run within the
+// warp as above (`merge`). 16-bit keys leave their words for the exchange
+// and go back two to a word for the in-warp stages. The sorted_l1 forward's
+// s keys keep their row in 16 bits (bf16) or 32 (fp32): rows below 4096
+// leave them distinct. Two barriers a cross stage, 1 stage at 2048 and 3 at
+// 4096; the rest of the kernel, loads, keys, decode, stores and the loss's
+// sum, is the short columns'. n <= 1024 runs the code above unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -85,7 +105,8 @@
 
 namespace {
 
-constexpr int kMaxN = 1024;
+constexpr int kMaxN = 4096;
+constexpr int kRun = 1024;   // keys a warp sorts in registers and shuffles
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 
@@ -95,7 +116,11 @@ inline int next_pow2(int n) {
   return p;
 }
 
-__host__ __device__ constexpr int col_tile(int n_pad) { return n_pad <= 512 ? 32 : 16; }
+// Columns a block takes: 32 up to n_pad = 512, 16 at 1024; above, as many as
+// fill two rounds of the 8 warps at n_pad / 1024 warps a column.
+__host__ __device__ constexpr int col_tile(int n_pad) {
+  return n_pad <= 512 ? 32 : n_pad <= kRun ? 16 : 2 * kWarps * kRun / n_pad;
+}
 
 // A dtype's bits, as its key image needs them.
 template <typename T>
@@ -326,7 +351,73 @@ __device__ __forceinline__ int slot(int p) {
 // LD = 1 word (mod 32 words), so that the load's column writes and the
 // store's column reads meet no bank conflict.
 template <typename T, int NP>
-__host__ __device__ constexpr int value_sort_ld() { return NP + 33 * (4 / (int)sizeof(T)); }
+__host__ __device__ constexpr int value_sort_ld() {
+  return NP <= kRun ? NP + 33 * (4 / (int)sizeof(T)) : NP + NP / 32 + 33 * (4 / (int)sizeof(T));
+}
+
+// ---------------------------------------------------------------------------
+// The merge across runs (columns longer than 1024)
+// ---------------------------------------------------------------------------
+
+// Where position p of a column lies in the exchange buffer: one slot skipped
+// after every 32 keys.
+__device__ __forceinline__ int xslot(int p) { return p + (p >> 5); }
+
+// One stage whose partners lie in other runs: position p (1024 run + 32 lane
+// + r) meets p ^ mask, and keeps the larger key if p & half, else the
+// smaller. `buf` holds the column's keys (n_pad + n_pad / 32 slots); every
+// thread of the block calls it, the barriers being __syncthreads.
+template <typename K>
+__device__ __forceinline__ void exchange(K (&v)[32], K* buf, int run, int lane, int mask,
+                                         int half) {
+  const int p0 = kRun * run + 32 * lane;
+#pragma unroll
+  for (int r = 0; r < 32; ++r) buf[xslot(p0 + r)] = v[r];
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const int p = p0 + r;
+    const K o = buf[xslot(p ^ mask)];
+    v[r] = (p & half) ? kmax(v[r], o) : kmin(v[r], o);
+  }
+  __syncthreads();   // the buffer is written again by the next stage
+}
+
+// The merge phases Kb = 2048 .. 1024 RUNS on runs that each leave the
+// network ascending (32 keys a lane, one a word). The in-warp stages keep
+// the smaller key low without complements: no block descends.
+template <int RUNS, typename K>
+__device__ __forceinline__ void merge_runs(K (&v)[32], K* buf, int run, int lane) {
+#pragma unroll 1
+  for (int Kb = 2 * kRun; Kb <= kRun * RUNS; Kb *= 2) {
+    exchange(v, buf, run, lane, Kb - 1, Kb / 2);
+#pragma unroll 1
+    for (int J = Kb / 4; J >= kRun; J /= 2) exchange(v, buf, run, lane, J, J);
+    merge<32, kRun / 2>(v, lane);
+  }
+}
+
+// The same for 16-bit keys two to a word (positions r and r + 16 of a lane):
+// one key a word for the exchanges, two for the in-warp stages.
+template <int RUNS>
+__device__ __forceinline__ void merge_runs_pairs(uint32_t (&w)[16], uint32_t* buf, int run,
+                                                 int lane) {
+#pragma unroll 1
+  for (int Kb = 2 * kRun; Kb <= kRun * RUNS; Kb *= 2) {
+    uint32_t v[32];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      v[i] = w[i] & 0xffffu;
+      v[i + 16] = w[i] >> 16;
+    }
+    exchange(v, buf, run, lane, Kb - 1, Kb / 2);
+#pragma unroll 1
+    for (int J = Kb / 4; J >= kRun; J /= 2) exchange(v, buf, run, lane, J, J);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w[i] = v[i] | (v[i + 16] << 16);
+    merge_pairs<32, kRun / 2>(w, lane);
+  }
+}
 
 // Rows 0 .. n - 1 of columns col0 .. col0 + C - 1 of element b of x (and, if
 // Twin, of y), as they are, into the columns xs[c * LD + slot(row)] (and ys);
@@ -395,11 +486,12 @@ __device__ __forceinline__ void store_columns(const T* xs, T* __restrict__ out, 
 // ---------------------------------------------------------------------------
 
 // One block: element b, columns col0 .. col0 + C - 1 of x, sorted into out.
-template <typename T, int R>
+// RUNS > 1: columns of n_pad = 1024 RUNS (R = 32), RUNS warps a column.
+template <typename T, int R, int RUNS = 1>
 __global__ void __launch_bounds__(kThreads)
 value_sort_kernel(const T* __restrict__ x, T* __restrict__ out, int n, int d, int tiles, int vec) {
-  constexpr int NP = 32 * R, C = col_tile(NP), LD = value_sort_ld<T, NP>();
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int NP = 32 * R * RUNS, C = col_tile(NP), LD = value_sort_ld<T, NP>();
+  constexpr int VEC = 16 / (int)sizeof(T) < C ? 16 / (int)sizeof(T) : C;
   // 16-bit keys two to a word (positions r and r + R / 2), from R = 2 on
   constexpr bool kPairs = sizeof(T) == 2 && R >= 2;
   constexpr int W = kPairs ? R / 2 : R;
@@ -409,12 +501,50 @@ value_sort_kernel(const T* __restrict__ x, T* __restrict__ out, int n, int d, in
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (vec)
-    load_columns<T, R, C, LD, VEC, true, false>(x, nullptr, xs, nullptr, b, n, d, col0);
+    load_columns<T, R * RUNS, C, LD, VEC, true, false>(x, nullptr, xs, nullptr, b, n, d, col0);
   else
-    load_columns<T, R, C, LD, 1, true, false>(x, nullptr, xs, nullptr, b, n, d, col0);
+    load_columns<T, R * RUNS, C, LD, 1, true, false>(x, nullptr, xs, nullptr, b, n, d, col0);
   __syncthreads();
 
-  for (int c = warp; c < C && col0 + c < d; c += kWarps) {
+  if constexpr (RUNS > 1) {
+    // warp w takes run w % RUNS of columns w / RUNS, + 8 / RUNS (every warp
+    // runs both rounds: the exchanges' barriers are the block's)
+    constexpr int G = kWarps / RUNS;
+    const int run = warp % RUNS;
+    uint32_t* buf = reinterpret_cast<uint32_t*>(smem + C * LD * sizeof(T)) +
+                    (warp / RUNS) * (NP + NP / 32);
+#pragma unroll 1
+    for (int c = warp / RUNS; c < C; c += G) {
+      const bool live = col0 + c < d;
+      T* col = xs + c * LD;
+      uint32_t w[W];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int row = kRun * run + 32 * r + lane;
+        const uint32_t k = live && row < n ? key_image(col[slot<T, true>(row)]) : Bits<T>::kMask;
+        if (!kPairs || r < W)
+          w[r % W] = k;
+        else
+          w[r % W] |= k << 16;
+      }
+      if constexpr (kPairs) {
+        network_pairs<32>(w, lane);
+        merge_runs_pairs<RUNS>(w, buf, run, lane);
+      } else {
+        network<32>(w, lane);
+        merge_runs<RUNS>(w, buf, run, lane);
+      }
+      // every warp of the column has read its rows (the exchanges' barriers)
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int p = kRun * run + 32 * lane + r;
+        if (!live || p >= n) break;
+        const uint32_t k = kPairs ? (w[r % W] >> (16 * (r / W))) & 0xffffu : w[r % W];
+        col[slot<T, true>(p)] = key_value<T>(k);
+      }
+    }
+  }
+  for (int c = warp; RUNS == 1 && c < C && col0 + c < d; c += kWarps) {
     T* col = xs + c * LD;
     // the keys: lane l takes rows l, l + 32, ...; rows at or past n pad
     uint32_t w[W];
@@ -442,9 +572,9 @@ value_sort_kernel(const T* __restrict__ x, T* __restrict__ out, int n, int d, in
   }
   __syncthreads();
   if (vec)
-    store_columns<T, R, C, LD, VEC>(xs, out, b, n, d, col0);
+    store_columns<T, R * RUNS, C, LD, VEC>(xs, out, b, n, d, col0);
   else
-    store_columns<T, R, C, LD, 1>(xs, out, b, n, d, col0);
+    store_columns<T, R * RUNS, C, LD, 1>(xs, out, b, n, d, col0);
 }
 
 // ---------------------------------------------------------------------------
@@ -453,18 +583,19 @@ value_sort_kernel(const T* __restrict__ x, T* __restrict__ out, int n, int d, in
 
 // One block: element b, columns col0 .. col0 + C - 1. partials[blockIdx.x]
 // gets the block's sum of |s_sorted - t_sorted|; sign (int8, [B, n, d])
-// gets sign(s_sorted - t_sorted) at the row each s key came from.
-template <typename T, int R>
+// gets sign(s_sorted - t_sorted) at the row each s key came from. RUNS > 1:
+// columns of n_pad = 1024 RUNS (R = 32), RUNS warps a column.
+template <typename T, int R, int RUNS = 1>
 __global__ void __launch_bounds__(kThreads, R <= 8 ? 4 : 1)   // R <= 8: 64 registers
 sl1_fwd_kernel(const T* __restrict__ s, const T* __restrict__ t, float* __restrict__ partials,
                int8_t* __restrict__ sign, int n, int d, int tiles, int vec) {
   using K = SortKey<T>;
   using S = typename K::S;
-  constexpr int NP = 32 * R;
+  constexpr int NP = 32 * R * RUNS;
   constexpr int C = col_tile(NP);
   constexpr int LD = NP + 4 / (int)sizeof(T);        // conflict-free column writes
   constexpr int LDS = NP + 4;                        // signs: conflict-free row reads
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 16 / (int)sizeof(T) < C ? 16 / (int)sizeof(T) : C;
   // t keys of bf16 two to a word (positions r and r + R / 2), from R = 2 on
   constexpr bool kPairs = sizeof(T) == 2 && R >= 2;
   constexpr int TW = kPairs ? R / 2 : R;
@@ -477,13 +608,57 @@ sl1_fwd_kernel(const T* __restrict__ s, const T* __restrict__ t, float* __restri
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (vec)
-    load_columns<T, R, C, LD, VEC, false, true>(s, t, xs, xt, b, n, d, col0);
+    load_columns<T, R * RUNS, C, LD, VEC, false, true>(s, t, xs, xt, b, n, d, col0);
   else
-    load_columns<T, R, C, LD, 1, false, true>(s, t, xs, xt, b, n, d, col0);
+    load_columns<T, R * RUNS, C, LD, 1, false, true>(s, t, xs, xt, b, n, d, col0);
   __syncthreads();
 
   float acc = 0.f;
-  for (int c = warp; c < C && col0 + c < d; c += kWarps) {
+  if constexpr (RUNS > 1) {
+    // as in the value sort: warp w on run w % RUNS of columns w / RUNS, +
+    // 8 / RUNS; s keys, then t keys, through one exchange buffer
+    constexpr int G = kWarps / RUNS;
+    const int run = warp % RUNS;
+    unsigned char* xb = reinterpret_cast<unsigned char*>(sg + C * LDS);
+    S* sbuf = reinterpret_cast<S*>(xb) + (warp / RUNS) * (NP + NP / 32);
+    uint32_t* tbuf = reinterpret_cast<uint32_t*>(xb) + (warp / RUNS) * (NP + NP / 32);
+#pragma unroll 1
+    for (int c = warp / RUNS; c < C; c += G) {
+      const bool live = col0 + c < d;
+      S v[32];
+      uint32_t w[TW];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int row = kRun * run + 32 * r + lane;
+        const bool in = live && row < n;
+        v[r] = K::pack(in ? key_image<true>(xs[c * LD + row]) : K::kPad, row);
+        const uint32_t ti = in ? key_image<true>(xt[c * LD + row]) : K::kPad;
+        if (!kPairs || r < TW)
+          w[r % TW] = ti;
+        else
+          w[r % TW] |= ti << 16;
+      }
+      network<32>(v, lane);
+      merge_runs<RUNS>(v, sbuf, run, lane);
+      if constexpr (kPairs) {
+        network_pairs<32>(w, lane);
+        merge_runs_pairs<RUNS>(w, tbuf, run, lane);
+      } else {
+        network<32>(w, lane);
+        merge_runs<RUNS>(w, tbuf, run, lane);
+      }
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int p = kRun * run + 32 * lane + r;
+        if (!live || p >= n) break;
+        const uint32_t t_image = kPairs ? (w[r % TW] >> (16 * (r / TW))) & 0xffffu : w[r % TW];
+        const float diff = K::s_value(v[r]) - K::value(t_image);
+        acc += fabsf(diff);
+        sg[c * LDS + K::row(v[r])] = (int8_t)((diff > 0.f) - (diff < 0.f));
+      }
+    }
+  }
+  for (int c = warp; RUNS == 1 && c < C && col0 + c < d; c += kWarps) {
     // the keys: lane l takes rows l, l + 32, ...; rows at or past n pad
     S v[R];
     uint32_t w[TW];
@@ -558,20 +733,33 @@ __global__ void sl1_bwd_kernel(const int8_t* __restrict__ sign, const float* __r
 }
 
 inline bool bad_shape(int B, int n, int d) {
-  return B < 1 || d < 1 || n < 2 || n > kMaxN || (long long)B * ((d + 15) / 16) > 0x7fffffffLL;
+  if (B < 1 || d < 1 || n < 2 || n > kMaxN) return true;
+  const int C = col_tile(next_pow2(n));
+  return (long long)B * ((d + C - 1) / C) > 0x7fffffffLL;
 }
 
-// f(std::integral_constant<int, R>()) for the keys a lane, R = n_pad / 32.
+// f(integral_constant<int, R>(), integral_constant<int, RUNS>()) for the keys
+// a lane, R = min(n_pad, 1024) / 32, and the runs a column, n_pad / 1024 from
+// 2048 on (else 1).
 template <typename F>
 int by_keys_a_lane(int n, F f) {
   using std::integral_constant;
   const int n_pad = next_pow2(n);
-  if (n_pad <= 32) return f(integral_constant<int, 1>());
-  if (n_pad == 64) return f(integral_constant<int, 2>());
-  if (n_pad == 128) return f(integral_constant<int, 4>());
-  if (n_pad == 256) return f(integral_constant<int, 8>());
-  if (n_pad == 512) return f(integral_constant<int, 16>());
-  return f(integral_constant<int, 32>());
+  const integral_constant<int, 1> one;
+  if (n_pad <= 32) return f(integral_constant<int, 1>(), one);
+  if (n_pad == 64) return f(integral_constant<int, 2>(), one);
+  if (n_pad == 128) return f(integral_constant<int, 4>(), one);
+  if (n_pad == 256) return f(integral_constant<int, 8>(), one);
+  if (n_pad == 512) return f(integral_constant<int, 16>(), one);
+  if (n_pad == 1024) return f(integral_constant<int, 32>(), one);
+  if (n_pad == 2048) return f(integral_constant<int, 32>(), integral_constant<int, 2>());
+  return f(integral_constant<int, 32>(), integral_constant<int, 4>());
+}
+
+// Bytes of the exchange buffer of a block whose columns have RUNS runs.
+template <typename K, int RUNS>
+constexpr size_t exchange_bytes() {
+  return RUNS > 1 ? (size_t)(kWarps / RUNS) * (kRun * RUNS + kRun * RUNS / 32) * sizeof(K) : 0;
 }
 
 // 16-byte loads and stores when every row segment of a column tile is 16-byte
@@ -581,46 +769,49 @@ int vectorised(int d, const void* a, const void* b) {
   return d % (16 / (int)sizeof(T)) == 0 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
 }
 
-template <typename T, int R>
+template <typename T, int R, int RUNS>
 int launch_sort(const T* x, T* out, int B, int n, int d, cudaStream_t st) {
-  constexpr int NP = 32 * R, C = col_tile(NP);
-  const size_t bytes = (size_t)C * value_sort_ld<T, NP>() * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(value_sort_kernel<T, R>,
+  constexpr int NP = 32 * R * RUNS, C = col_tile(NP);
+  const size_t bytes =
+      (size_t)C * value_sort_ld<T, NP>() * sizeof(T) + exchange_bytes<uint32_t, RUNS>();
+  cudaError_t e = cudaFuncSetAttribute(value_sort_kernel<T, R, RUNS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (d + C - 1) / C;
-  value_sort_kernel<T, R><<<B * tiles, kThreads, bytes, st>>>(x, out, n, d, tiles,
-                                                              vectorised<T>(d, x, out));
+  value_sort_kernel<T, R, RUNS><<<B * tiles, kThreads, bytes, st>>>(x, out, n, d, tiles,
+                                                                    vectorised<T>(d, x, out));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int run_sort(const void* x, void* out, int B, int n, int d, cudaStream_t st) {
-  return by_keys_a_lane(n, [&](auto r) {
-    return launch_sort<T, decltype(r)::value>((const T*)x, (T*)out, B, n, d, st);
+  return by_keys_a_lane(n, [&](auto r, auto runs) {
+    return launch_sort<T, decltype(r)::value, decltype(runs)::value>((const T*)x, (T*)out, B, n,
+                                                                     d, st);
   });
 }
 
-template <typename T, int R>
+template <typename T, int R, int RUNS>
 int launch_sl1_fwd(const T* s, const T* t, float* partials, int8_t* sign, int B, int n, int d,
                    cudaStream_t st) {
-  constexpr int NP = 32 * R, C = col_tile(NP);
-  const size_t bytes = (size_t)C * (NP + 4 / sizeof(T)) * 2 * sizeof(T) + (size_t)C * (NP + 4);
-  cudaError_t e = cudaFuncSetAttribute(sl1_fwd_kernel<T, R>,
+  constexpr int NP = 32 * R * RUNS, C = col_tile(NP);
+  const size_t bytes = (size_t)C * (NP + 4 / sizeof(T)) * 2 * sizeof(T) + (size_t)C * (NP + 4) +
+                       exchange_bytes<typename SortKey<T>::S, RUNS>();
+  cudaError_t e = cudaFuncSetAttribute(sl1_fwd_kernel<T, R, RUNS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (d + C - 1) / C;
-  sl1_fwd_kernel<T, R><<<B * tiles, kThreads, bytes, st>>>(s, t, partials, sign, n, d, tiles,
-                                                           vectorised<T>(d, s, t));
+  sl1_fwd_kernel<T, R, RUNS><<<B * tiles, kThreads, bytes, st>>>(s, t, partials, sign, n, d,
+                                                                 tiles, vectorised<T>(d, s, t));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int run_sl1_fwd(const void* s, const void* t, float* partials, int8_t* sign, int B, int n,
                 int d, cudaStream_t st) {
-  return by_keys_a_lane(n, [&](auto r) {
-    return launch_sl1_fwd<T, decltype(r)::value>((const T*)s, (const T*)t, partials, sign, B, n,
-                                                 d, st);
+  return by_keys_a_lane(n, [&](auto r, auto runs) {
+    return launch_sl1_fwd<T, decltype(r)::value, decltype(runs)::value>(
+        (const T*)s, (const T*)t, partials, sign, B, n, d, st);
   });
 }
 

@@ -46,6 +46,7 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 from deltakd_tpu_torch.ops import kernel_entry
+from deltakd_tpu_torch.ops.attention import KERNEL_MAX_N
 
 # timm names of one block's parameters, in the kernels' operand order
 # (_weight_arrays in the JAX package: g1, b1, wqkv, bqkv, wproj, bproj, g2,
@@ -57,10 +58,11 @@ _MATMUL_WEIGHTS = (2, 4, 8, 10)
 # Head dims the block kernels take: the forward's attention (attention_fwd.cuh)
 # has an instantiation for these only.
 KERNEL_HEAD_DIMS = (64,)
-# Longest sequence the backward kernels take: the attention backward
-# (attention_bwd.cuh) keeps dQ of all of a head's rows in shared memory, 11
-# tiles of 64 rows.
-KERNEL_BWD_MAX_N = 704
+# Longest sequence the bf16 backward kernels take: their attention backward's
+# (attention_bwd.cuh), which keeps delta of all of a head's rows in shared
+# memory (its dQ too up to 704 rows, above them in a slice of the
+# workspace). The fp32 forms take any N.
+KERNEL_BWD_MAX_N = KERNEL_MAX_N
 
 # Kernel launches by (entry point, embed width): the fp32 forms count under
 # their own entry points (``fused_block_fwd_f32``, ...). Each wrapper adds one
@@ -334,7 +336,7 @@ def fused_block_fwd_cuda(x, s_attn, s_mlp, w, H, eps, need_feat):
 
 
 def _bwd_length(x, name):
-    if x.shape[1] > KERNEL_BWD_MAX_N:
+    if x.dtype == torch.bfloat16 and x.shape[1] > KERNEL_BWD_MAX_N:
         raise ValueError(f"{name}: sequence length {x.shape[1]} is above the "
                          f"{KERNEL_BWD_MAX_N} the backward kernels take")
 

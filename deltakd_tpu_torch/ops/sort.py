@@ -16,10 +16,11 @@ equally valid subgradient of the same loss.
 Dispatch is by the device of the input: a CPU tensor takes the plain version,
 a CUDA tensor the hand-written kernels in ``csrc/sort.cu``, anything else
 raises. The kernels work on a contiguous [B, n, d] tensor sorted along n,
-2 <= n <= 1024; another axis or rank is brought to that layout by a
+2 <= n <= 4096; another axis or rank is brought to that layout by a
 transpose, not by another code path. The whole batch goes through one call.
 Both sorts run one bitonic network in registers and warp shuffles, one warp
-a column, on unsigned key images whose order is the order to sort by
+a column of up to 1024 rows (longer columns: n / 1024 warps, which merge
+their runs through shared memory), on unsigned key images whose order is the order to sort by
 (``value_sort_keys``). The value sort takes bf16, fp16, fp32 and int32 and
 equals ``torch.sort(x, dim=1).values``: every NaN sorts last (a column with k
 NaNs ends in k NaNs), -0.0 and +0.0 keep their signs (the -0.0s first, equal
@@ -46,7 +47,8 @@ _SORT_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torc
 # (integer view, bits, the bits of +inf: anything above is a NaN; None for an integer)
 _KEY_BITS = {torch.bfloat16: (torch.int16, 16, 0x7f80), torch.float16: (torch.int16, 16, 0x7c00),
              torch.float32: (torch.int32, 32, 0x7f800000), torch.int32: (torch.int32, 32, None)}
-_MIN_N, _MAX_N = 2, 1024
+_MIN_N, _MAX_N = 2, 4096
+KERNEL_MAX_N = _MAX_N   # the longest column the kernels sort
 
 
 def reset_launches() -> None:

@@ -5,7 +5,7 @@ Run on a machine with an NVIDIA GPU (no JAX needed there):
 Without a card the tests skip: a CUDA kernel has no CPU mode. The fused
 block: small shape (D=128, 2 heads of 64, N=18) with drop-path scales of 0
 and 1/keep, and the forward and the backward (with and without a feature
-cotangent) at N in (50, 197, 198, 578) for D in (192, 384, 768); bf16 operands, so
+cotangent) at N in (50, 197, 198, 578, 786, 1026) for D in (192, 384, 768); bf16 operands, so
 the tolerance is 2e-2 of the largest reference value. The GEMM alone: the
 forward's products against F.linear plus their epilogue, the backward's input
 gradient with the GELU derivative as `mul` and its weight gradients against
@@ -27,7 +27,7 @@ fp32 pair backwards; its `cpu` case runs without a card). The
 block-pair kernels: the four (feat1, feat2) variants at D=192 and D=384 on
 weights of std 1/sqrt(fan-in), scales with zeros, through the kernels alone
 and through the autograd Function. The sort kernels: inputs with ties (+0.0 tied with a later -0.0 from
-n = 4 on), n from 2 to 1024; the value sort also in fp16 and int32 with NaN, +-inf and
+n = 4 on), n from 2 to 1296 (past one warp's 1024 keys); the value sort also in fp16 and int32 with NaN, +-inf and
 the int32 extremes, against torch.sort (NaNs at the same places); sorted values, signs and gradients exactly, the loss to 1e-5 (fp32 sums in
 another order). The attention and MLP
 kernels: O(1) bf16 inputs (q, k of std 2, weights of std 1/sqrt(fan-in)), ragged
@@ -97,7 +97,7 @@ def test_kernels_match_plain_version_on_card(need_feat):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_tok", [50, 197, 198, 578])
+@pytest.mark.parametrize("n_tok", [50, 197, 198, 578, 786, 1026])
 @pytest.mark.parametrize("width,heads", [(192, 3), (384, 6), (768, 12)])
 def test_block_forward_sequence_lengths_on_card(width, heads, n_tok):
     """The forward (TMA + wgmma GEMM, on-chip attention) at ragged sequence
@@ -151,7 +151,7 @@ def test_linear_matches_f_linear_on_card(width, product):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_tok", [50, 197, 198, 578])
+@pytest.mark.parametrize("n_tok", [50, 197, 198, 578, 786, 1026])
 @pytest.mark.parametrize("width,heads", [(192, 3), (384, 6), (768, 12)])
 def test_block_backward_sequence_lengths_on_card(width, heads, n_tok):
     """The backward (recompute with lse, attention backward with the scores
@@ -175,8 +175,8 @@ def test_block_backward_sequence_lengths_on_card(width, heads, n_tok):
             _within(dws[n], r_dws[n])
             assert torch.equal(dws[n], dws2[n])
         assert torch.equal(dx, dx2)
-    # a sequence longer than the attention backward's shared-memory dQ holds is
-    # refused before any launch
+    # a sequence longer than the attention backward's shared-memory delta holds
+    # is refused before any launch (above 704 rows its dQ lives in the workspace)
     long_x = torch.zeros(1, fb.KERNEL_BWD_MAX_N + 1, width, device="cuda", dtype=torch.bfloat16)
     fb.reset_launches()
     with pytest.raises(ValueError, match="sequence length"):
@@ -294,7 +294,8 @@ def _within(a, b, tol=2e-2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32, torch.int32])
-@pytest.mark.parametrize("shape", [(3, 196, 40), (2, 2, 5), (2, 1024, 20), (4, 33, 1)])
+@pytest.mark.parametrize("shape", [(3, 196, 40), (2, 2, 5), (2, 1024, 20), (4, 33, 1),
+                                   (2, 1296, 20)])
 def test_value_sort_matches_torch_sort_on_card(shape, dtype):
     """The value sort in its four dtypes: ties, +-0.0, +-inf and NaN (the int32
     extremes for int32); torch.sort's values where it has no NaN, the NaNs at
@@ -328,7 +329,7 @@ def test_value_sort_matches_torch_sort_on_card(shape, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(3, 196, 40), (2, 64, 33), (2, 2, 5), (1, 1024, 20),
-                                   (2, 1024, 20), (2, 33, 40), (4, 196, 384)])
+                                   (2, 1024, 20), (2, 33, 40), (4, 196, 384), (2, 1296, 20)])
 def test_sort_kernels_match_plain_version_on_card(shape, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -360,7 +361,8 @@ def test_sort_kernels_match_plain_version_on_card(shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 3, 198, 64), (1, 2, 50, 64), (6, 16, 64), (1, 1, 578, 64),
-                                   (2, 6, 578, 64), (1, 2, 656, 64)])
+                                   (2, 6, 578, 64), (1, 2, 656, 64), (1, 2, 786, 64),
+                                   (1, 2, 1026, 64)])
 def test_attention_kernels_match_plain_version_on_card(shape):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -389,6 +391,7 @@ def test_attention_kernels_match_plain_version_on_card(shape):
         at.kernel_flash_fwd(q.float(), k, v)
     with pytest.raises(ValueError):
         at.kernel_flash_fwd(q[..., :32], k[..., :32], v[..., :32])
+    assert at.max_sequence() == at.KERNEL_MAX_N
     long = torch.zeros(1, 1, at.max_sequence() + 1, 64, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError):
         at.kernel_flash_bwd(long, long, long, long, long[..., 0].float(), long)
@@ -642,7 +645,7 @@ def test_fp32_linear_matches_plain_version_on_card(name, n_mult, k_mult, D, M, t
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 3, 198, 64), (1, 2, 50, 64), (4, 65, 64),
                                    (1, 1, 578, 64), (1, 2, 656, 64), (2, 3, 64, 64),
-                                   (1, 2, 65, 64),
+                                   (1, 2, 65, 64), (1, 2, 786, 64), (1, 2, 1026, 64),
                                    # the warp-specialised forward's edges (chip_smoke.py 13b)
                                    (4, 8, 64), (4, 9, 64), (4, 128, 64), (4, 129, 64),
                                    (4, 200, 64), (1, 1, 198, 64)])
