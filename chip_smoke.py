@@ -58,9 +58,9 @@ Phases, each of which fails the run:
      their plain versions on O(1) inputs (q, k of std 1.5, weights of std
      1/sqrt(fan-in)): attention at [24,198,64], at N=50 (no multiple of 16),
      N=65 (a 64-row tile and one row), N=578 ([4,578,64] and [48,578,64]),
-     N=656 (the longest it takes; the backward's shared memory at its
-     largest), through the autograd Function on strided views of a packed
-     qkv projection, and at the main-path shapes
+     N=656 (these two on the backward's split route), through the autograd
+     Function on strided views of a packed qkv projection, and at the
+     main-path shapes
      [1536,198,64] and [768,198,64]; the MLP at every zoo width D = 192,
      384, 768, 1024 with M=1584 and M=1001 (no row tile divides them) and at
      M=50688 for D = 192, 384; two runs give the same bits; prints the MLP
@@ -327,12 +327,15 @@ Phases, each of which fails the run:
      teacher and student (fp32, TF32 off) and ours, each seed's ours final
      val top-1 at least EQUIVALENCE_BAR, both stacks' readings and the band
      verdict printed;
- 18. long sequences (448 px and up; --long-sequence-checks alone): 18a each
-     kernel of the long routes against its plain version on the card, two
-     runs the same bits: flash_fwd and flash_bwd in bf16 and fp32 (also on
-     strided views of a packed qkv) at N = 705, 786, 1026 and 1298 (past the
-     attention backward's 11 shared-memory tiles of dQ: its workspace
-     route), the block and pair forwards and backwards in bf16 and fp32 at
+ 18. long sequences (448 px and up; --long-sequence-checks alone): 18a the
+     bf16 attention backward's split route forced (kernel_flash_bwd(...,
+     route="split")) at N = 198 and 704 for 4 and 96 heads, its dq, dk and
+     dv the short route's bits; each kernel of the long routes against its
+     plain version on the card, two runs the same bits: flash_fwd and
+     flash_bwd in bf16 and fp32 (also on strided views of a packed qkv) at
+     N = 705, 786, 1026 and 1298 (past the 11 tiles of dQ that the
+     short route holds in shared memory), the block and pair
+     forwards and backwards in bf16 and fp32 at
      D = 192 and 384, N = 786 and 1026, with and without the feature output
      and cotangents, and the value sort (four dtypes) and sorted_l1 (bf16,
      fp32) at n = 1025, 1296 and 4096 (the merge across warps through shared
@@ -342,9 +345,12 @@ Phases, each of which fails the run:
      gradient of one batch with pinned drop-path scales against the plain
      route on the card (no kernel, the same seeded weights, LOGIT_TOL), then
      one WassKD-l1 step at 576 px (B = 16, 1296 patch rows) with its three
-     sorted_l1 launches each way; 18c rows 2, 4 and 8 at B = 32, N = 786 and
-     1026, timed beside their plain versions, bounds and library calls and
-     scaled_dot_product_attention's forward+backward at the same shape.
+     sorted_l1 launches each way, each step's peak allocated memory; 18c
+     rows 2, 4 and 8 at B = 32, N = 786 and 1026, timed beside their plain
+     versions, bounds and library calls and scaled_dot_product_attention's
+     forward+backward at the same shape, and flash_bwd's short and split
+     routes, each forced, at N = 198 to 704 for B*H = 96 and 768 (the
+     switch between them at 256 rows).
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
@@ -453,7 +459,8 @@ ATTENTION_FWD_F32_ROWS = ("flash_fwd_f32", "fused_block_fwd_f32", "fused_block_b
 # the kernels that the fused block's wrappers launch (gemm_sm90.cuh,
 # attention_{fwd,bwd}.cuh, fused_block_{common,reverse}.cuh)
 BLOCK_KERNELS = ("linear_kernel", "weight_grad_kernel", "attention_fwd_kernel",
-                 "attention_bwd_kernel", "attn_delta_kernel", "ln_fwd_kernel",
+                 "attention_bwd_kernel", "attention_bwd_split_kernel", "attn_delta_kernel",
+                 "ln_fwd_kernel",
                  "ln_bwd_kernel", "gfeat_kernel", "reduce_chunks_kernel",
                  "reduce_partials_kernel", "transpose_kernel", "colsum_kernel",
                  # the fp32 forms' own kernels
@@ -578,6 +585,8 @@ UNFUSED_PARTS = (
     ("the port's kernels (flash_fwd, flash_bwd, fused_mlp_fwd)",
      lambda kernel, chain: any(k in kernel for k in ("attention_fwd_kernel",
                                                      "attention_bwd_kernel",
+                                                     "attention_bwd_split_kernel",
+                                                     "attention_bwd_delta_kernel",
                                                      "mlp_fwd_kernel"))),
     # flash_bwd's dq, dk, dv reach the packed qkv through select's backward
     # (a zero [B, N, 3, H, 64] tensor and a copy into it, each) and two adds
@@ -1688,9 +1697,8 @@ def _hold_attention_views(at, worst, B, H, N):
 def check_attention_kernels(at, worst):
     """Phase 5a: the attention kernels vs their plain versions: 8 images of
     the student (3 heads), an N that is no multiple of 16, a 64-row tile and
-    one row, N = 578 for 4 and for 48 (batch, head) pairs, N = 656 (the
-    longest they take: the backward keeps dQ and delta of 11 row tiles in
-    227,072 bytes of shared memory), the gradient through the autograd
+    one row, N = 578 for 4 and for 48 (batch, head) pairs and N = 656 (the
+    backward's split route above 256 rows), the gradient through the autograd
     Function on strided views of a packed qkv projection, and the main
     path's two shapes."""
     for shape in ((B_CHECK * 3, N_TOK, HEAD_DIM), (4, 50, HEAD_DIM), (4, 65, HEAD_DIM),
@@ -5900,8 +5908,9 @@ def run_outcome_checks(mods, smi, tmp, seeds=1):
 # Phase 18: long sequences (448 px and up)
 # ---------------------------------------------------------------------------
 
-# 18a's lengths: one row past the attention backward's 11 shared-memory
-# tiles; 448 px (784 patches + 2); 512 px (1024 + 2); 576 px (1296 + 2)
+# 18a's lengths: one row past the 11 tiles of dQ that the attention
+# backward's short route holds in shared memory; 448 px (784 patches + 2);
+# 512 px (1024 + 2); 576 px (1296 + 2)
 LONG_ATTENTION_N = (705, 786, 1026, 1298)
 LONG_BLOCK_N = (786, 1026)
 # the token sort past one warp's 1024 keys: a row past it, WassKD-l1's patch
@@ -5913,6 +5922,18 @@ LONG_STEP_PX, LONG_STEP_B = 448, 32       # 18b: the soft step on each route
 LONG_WASSKD_PX, LONG_WASSKD_B = 576, 16   # 18b: the WassKD-l1 step
 LONG_TIME_B = 32      # 18c: rows 2-4, 8 at the student's width and heads
 LONG_SORT_SHAPE = (LONG_WASSKD_B, 1296, 384)   # 18c: one WassKD-l1 layer at 576 px
+# 18a: the bf16 attention backward's split route forced where the short route
+# runs, (B*H, N): its dq, dk and dv must be the short route's bits
+SPLIT_BITS_SHAPES = ((4, 198), (96, 198), (4, 704), (96, 704))
+# 18c: both routes forced at 4 to 11 query tiles (224 to 416 px, and 704), B*H = 96
+# and 768
+SPLIT_SWITCH_N, SPLIT_SWITCH_BH = (198, 258, 326, 402, 486, 531, 578, 678, 704), (96, 768)
+# the kernels of the split route (attention_bwd.cuh), by the entry points that
+# launch them above 256 rows
+SPLIT_ROUTE_KERNELS = {
+    "flash_bwd": ["attention_bwd_delta_kernel", "attention_bwd_split_kernel"],
+    "fused_block_bwd": ["attention_bwd_split_kernel", "attention_bwd_colsum_kernel"]}
+SPLIT_ROUTE_KERNELS["fused_pair_bwd"] = SPLIT_ROUTE_KERNELS["fused_block_bwd"]
 # the rows whose JSON entry carries 18c's readings
 LONG_ROWS = (("flash_fwd", 3 * B_MAIN), ("flash_bwd", 3 * B_MAIN), ("fused_block_bwd", 192),
              ("fused_pair_bwd", 192), "bitonic_sort", "sorted_l1_fwd", "sorted_l1_bwd")
@@ -5929,6 +5950,7 @@ def check_long_sequences(fb, at, so, worst):
     import torch
 
     t0 = time.perf_counter()
+    check_split_route_bits(at, worst)
     for n in LONG_ATTENTION_N:
         _hold_attention(at, worst, (4, n, HEAD_DIM))
         _hold_attention_views(at, worst, 1, 2, n)
@@ -5956,6 +5978,52 @@ def check_long_sequences(fb, at, so, worst):
           f"{time.perf_counter() - t2:.1f} s")
 
 
+def check_split_route_bits(at, worst):
+    """Phase 18a: the bf16 attention backward's two routes forced
+    (kernel_flash_bwd(route=...), which no model path sets) at N = 198 and
+    704: the split route's dq, dk and dv the short route's bits, and the
+    split route held to the plain version with two runs the same bits."""
+    import torch
+
+    for bh, n in SPLIT_BITS_SHAPES:
+        q, k, v, do = _attention_inputs((bh, n, HEAD_DIM), bh + n)
+        o, lse = at.kernel_flash_fwd(q, k, v)
+        short = at.kernel_flash_bwd(q, k, v, o, lse, do, route="short")
+        split = at.kernel_flash_bwd(q, k, v, o, lse, do, route="split")
+        split2 = at.kernel_flash_bwd(q, k, v, o, lse, do, route="split")
+        plain = at._plain_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        tag = f"split route forced [{bh},{n},{HEAD_DIM}]"
+        _hold_all(worst, "flash_bwd", tag,
+                  [(name, a, b, None) for name, a, b in zip(("dq", "dk", "dv"), split, plain)],
+                  all(torch.equal(a, b) for a, b in zip(split, split2)))
+        same = [torch.equal(a, b) for a, b in zip(split, short)]
+        diffs = ", ".join(f"{name} {_err(a, b)[0]:.3e}"
+                          for name, a, b in zip(("dq", "dk", "dv"), split, short))
+        print(f"[long] {tag} against the short route: "
+              f"{'the same bits' if all(same) else 'different bits'} (largest differences "
+              f"{diffs}) {'ok' if all(same) else 'FAIL'}")
+        if not all(same):
+            raise AssertionError(f"{tag}: not the short route's bits")
+
+
+def time_split_switch(at):
+    """Phase 18c: the bf16 attention backward's two routes, each forced, at
+    the lengths SPLIT_SWITCH_N and B*H of 96 and 768 (the switch between
+    them). Returns {"BHxN": [short ms, split ms]}."""
+    out = {}
+    for bh in SPLIT_SWITCH_BH:
+        for n in SPLIT_SWITCH_N:
+            q, k, v, do = _attention_inputs((bh, n, HEAD_DIM), 3)
+            o, lse = at.kernel_flash_fwd(q, k, v)
+            short, split = (_timed(lambda: at.kernel_flash_bwd(q, k, v, o, lse, do, route=r), 10)
+                            for r in ("short", "split"))
+            out[f"{bh}x{n}"] = [short, split]
+            print(f"[time long] flash_bwd [{bh},{n},{HEAD_DIM}]: short route {short:.4f} ms, "
+                  f"split route {split:.4f} ms (short / split {short / split:.3f})")
+    return out
+
+
 def _long_config(kd_type, px, B, **extra):
     from deltakd_tpu_torch.configs.config import TrainConfig
 
@@ -5969,7 +6037,8 @@ def _long_config(kd_type, px, B, **extra):
 def _long_step(mods, cfg, route):
     """One train step through build_train_step on ``route`` ("fused",
     "paired", "unfused" or "plain": attention_fn=None, no kernel) from
-    load_teacher_student's seeded weights: (metrics, launches, the models)."""
+    load_teacher_student's seeded weights: (metrics, launches, the models,
+    the step's peak allocated bytes)."""
     import numpy as np
     import torch
 
@@ -5997,19 +6066,21 @@ def _long_step(mods, cfg, route):
     images = torch.from_numpy(host.randint(0, 256, (B, 32, 32, 3), dtype=np.uint8)).cuda()
     labels = torch.from_numpy(host.randint(0, student.cfg.num_classes, (B,))).cuda()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _reset_launches(mods)
     t0 = time.perf_counter()
     m = step(state, images, labels, torch.Generator(device="cuda").manual_seed(4))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
     launches = _read_launches(mods)
     metrics = {k: float(v) for k, v in m.items()}
     print(f"[long] {route} {cfg.distillation_type} step at {cfg.input_size} px, B={B}: "
           + " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
-          + f" ({ms:.1f} ms, the first call); launches {launches}")
+          + f" ({ms:.1f} ms, the first call; peak allocated {peak} bytes); launches {launches}")
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"long {route} step: non-finite metrics {metrics}")
-    return metrics, launches, (teacher, student, images, labels, kd)
+    return metrics, launches, (teacher, student, images, labels, kd), peak
 
 
 def _long_gradient(mods, teacher, student, images, labels, kd, cfg):
@@ -6061,14 +6132,14 @@ def run_long_steps(mods):
     t0 = time.perf_counter()
     by_path = {}
     cfg = _long_config("soft", LONG_STEP_PX, LONG_STEP_B)
-    plain_m, plain_l, kept = _long_step(mods, cfg, "plain")
+    plain_m, plain_l, kept, _ = _long_step(mods, cfg, "plain")
     if plain_l:
         raise AssertionError(f"the plain route launched kernels: {plain_l}")
     plain_loss, plain_flat, _ = _long_gradient(mods, *kept, cfg)
     del kept
     for route in ("fused", "paired", "unfused"):
         torch.cuda.empty_cache()
-        m, launches, kept = _long_step(mods, cfg, route)
+        m, launches, kept, _ = _long_step(mods, cfg, route)
         expect = {"fused": _block_launches(1), "paired": _paired_launches(1),
                   "unfused": _unfused_launches(1, B=LONG_STEP_B)}[route]
         if launches != expect:
@@ -6090,9 +6161,9 @@ def run_long_steps(mods):
         del kept
     torch.cuda.empty_cache()
     cfg = _long_config("wasskd", LONG_WASSKD_PX, LONG_WASSKD_B)
-    plain_m, _, kept = _long_step(mods, cfg, "plain")
+    plain_m, _, kept, _ = _long_step(mods, cfg, "plain")
     del kept
-    m, launches, kept = _long_step(mods, cfg, "fused")
+    m, launches, kept, _ = _long_step(mods, cfg, "fused")
     del kept
     expect = dict(_block_launches(1), sorted_l1_fwd=3, sorted_l1_bwd=3)
     if launches != expect:
@@ -6112,7 +6183,8 @@ def time_long_sequences(fb, at, so):
     786 and 1026: kernel and plain times, the bound, the library's (SDPA's
     forward; for a backward the same block(s) or SDPA, forward+backward less
     forward) and beside each the forward+backward of
-    F.scaled_dot_product_attention at the attention's shape; then rows 9-11
+    F.scaled_dot_product_attention at the attention's shape, and at N = 786
+    flash_bwd's kernels by torch.profiler (the split route's); then rows 9-11
     at [16, 1296, 384] (phase 4b's timing at n = 1296). Returns {kernel: {N
     or n: row}}."""
     import torch
@@ -6169,6 +6241,8 @@ def time_long_sequences(fb, at, so):
             lambda: fb.kernel_block_pair_bwd(xp, p1, p2, gp, **pkw),
             lambda: fb.reference_vit_block_pair_bwd(xp, p1, p2, gp, **pkw),
             pair_both - pair_fwd, _block_bwd_bound(B, n, D, blocks=2))
+        if n == LONG_BLOCK_N[0]:   # the split route's kernels at 448 px
+            profile_calls(f"flash_bwd [{B * H},{n},{HEAD_DIM}]", cases["flash_bwd"][0])
         for kernel, (fn, plain, library_ms, bound) in cases.items():
             row = dict(ms=_timed(fn, 10), plain_ms=_timed(plain, 3), library_ms=library_ms,
                        sdpa_fwd_bwd_ms=sdpa_both, **bound)
@@ -6192,6 +6266,7 @@ def run_long_sequences(mods, smi):
     check_long_sequences(fb, at, so, worst)
     by_path = run_long_steps(mods)
     rows = time_long_sequences(fb, at, so)
+    time_split_switch(at)
     print(f"[long] {smi}: phase 18 took {time.perf_counter() - t0:.1f} s; largest errors "
           + ", ".join(f"{k if isinstance(k, str) else f'{k[0]}[{k[1]}]'} {v:.3e}"
                       for k, v in sorted(worst.items(), key=str)))
@@ -6221,7 +6296,11 @@ FAULTS = (
      (("sw128_desc(As + stage * BM * BK + wg * 64 * BK)",
        "sw128_desc(As + (stage + 1) % STAGES * BM * BK + wg * 64 * BK)"),), "--forward-checks"),
     ("delta left out of dS", "deltakd_tpu_torch/ops/csrc/attention_bwd.cuh",
-     (("sv[e] = pv[e] * (dp[idx] - delta_s[col]);", "sv[e] = pv[e] * dp[idx];"),),
+     # in both routes of the bf16 attention backward (their lines differ in
+     # indentation only)
+     (("\n          sv[e] = pv[e] * (dp[idx] - delta_s[col]);",
+       "\n          sv[e] = pv[e] * dp[idx];"),
+      ("\n      sv[e] = pv[e] * (dp[idx] - delta_s[col]);", "\n      sv[e] = pv[e] * dp[idx];")),
      "--backward-checks"),
     ("the dQ share of key tile 1 added twice", "deltakd_tpu_torch/ops/csrc/attention_bwd.cuh",
      (("v.x += dqi[4 * jb + 2 * hh];", "v.x += (j == 1 ? 2.f : 1.f) * dqi[4 * jb + 2 * hh];"),
@@ -6420,15 +6499,23 @@ FAULTS = (
     # and the EMA, but the student keeps its fresh weights
     ("the resume keeps the fresh student weights", "deltakd_tpu_torch/ckpt/checkpoint.py",
      (('    state.params.copy_(cut(saved["params"]))\n', ""),), "--outcome-checks"),
-    # the long routes (phase 18a): the bf16 attention backward's workspace
-    # route leaving out the dQ share of key tiles past the 11th (what the
-    # shared-memory route could not hold), and the sort's merge across warps
-    # skipping its stride-1024 stage (n_pad = 4096: n = 4096)
-    ("the long attention backward's dQ of key tiles past the 11th dropped",
+    # the long routes (phase 18a): the bf16 attention backward's split route
+    # with its dQ kernel leaving out the key tiles past the 11th (what the
+    # short route's shared memory holds) or its dK/dV kernel leaving out the
+    # last query tile (its products run on N = 0: every P is 0), and the
+    # sort's merge across warps skipping its stride-1024 stage (n_pad = 4096:
+    # n = 4096)
+    ("the split attention backward's dQ of key tiles past the 11th dropped",
      "deltakd_tpu_torch/ops/csrc/attention_bwd.cuh",
-     (("            v = old[hh][jb];",
-       "            v = old[hh][jb], dqi[4 * jb + 2 * hh] *= (j < 11), "
-       "dqi[4 * jb + 2 * hh + 1] *= (j < 11);"),), "--long-sequence-checks"),
+     (("    for (int e = 0; e < 32; ++e) dq[e] += dqi[e];",
+       "    for (int e = 0; e < 32; ++e) dq[e] += j < 11 ? dqi[e] : 0.f;"),),
+     "--long-sequence-checks"),
+    ("the split attention backward's dK and dV without the last query tile",
+     "deltakd_tpu_torch/ops/csrc/attention_bwd.cuh",
+     (("split_pair_scores<true>(s, pa, sa, Ks, Vs, Qi, Di, st, st + T, j * T, i * T, N, s_log2e);",
+       "split_pair_scores<true>(s, pa, sa, Ks, Vs, Qi, Di, st, st + T, j * T, i * T,\n"
+       "                            i + 1 < tiles ? N : 0, s_log2e);"),),
+     "--long-sequence-checks"),
     ("the sort's merge across warps without its stride-1024 stage",
      "deltakd_tpu_torch/ops/csrc/sort.cu",
      (("  const int p0 = kRun * run + 32 * lane;",
@@ -6834,9 +6921,15 @@ def main() -> int:
                 ["transpose_kernel"] if "_bwd" in kernel else [])
         if key in LONG_ROWS:
             # phase 18c: the row at 448 and 512 px (B = 32; the sorts at n = 1296),
-            # and 18a's largest error
+            # 18b's launches and 18a's largest error
+            by_long_path = {path: sum(n for k, n in counts.items()
+                                      if (k[0] if isinstance(k, tuple) else k) == kernel)
+                            for path, counts in long_paths.items()}
             kernels[-1]["long_sequence"] = {
                 "by_n": long_rows[kernel],
+                "launches_by_path": {path: n for path, n in by_long_path.items() if n},
+                **({"split_route_kernels": SPLIT_ROUTE_KERNELS[kernel]}
+                   if kernel in SPLIT_ROUTE_KERNELS else {}),
                 "max_abs_err": max(v for k, v in long_worst.items()
                                    if (k if isinstance(k, str) else k[0]) == kernel)}
         if kernel in ATTENTION_FWD_F32_ROWS:

@@ -58,7 +58,7 @@ SIGNATURES = {
     },
     # tensors, their (batch, head, row) strides, outputs, B, H, N, stream;
     # the _f32 forms take the same arguments; the backwards a workspace
-    # before the stream
+    # before the stream (dk_flash_bwd_route: and a route after it)
     "attention": {
         "dk_flash_max_n": ([], _INT),
         **{f"dk_flash_fwd{form}": ([_PTR] * 3 + [_I64] * 9 + [_PTR] * 2 + [_INT] * 3 + [_PTR],
@@ -67,6 +67,9 @@ SIGNATURES = {
            for form in ("", "_f32")},
         **{f"dk_flash_bwd{form}": ([_PTR] * 4 + [_I64] * 12 + [_PTR] * 5 + [_INT] * 3
                                    + [_PTR] * 2, _INT) for form in ("", "_f32")},
+        "dk_flash_bwd_route_workspace": ([_INT] * 4, ctypes.c_size_t),
+        "dk_flash_bwd_route": ([_PTR] * 4 + [_I64] * 12 + [_PTR] * 5 + [_INT] * 3
+                               + [_PTR] * 2 + [_INT], _INT),
     },
     "fused_mlp": {
         "dk_fused_mlp_fwd": ([_PTR] * 6 + [_INT] * 3 + [_PTR], _INT),

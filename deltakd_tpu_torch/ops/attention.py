@@ -38,9 +38,8 @@ from deltakd_tpu_torch.ops import current_stream, kernel_entry, on_card
 
 _HEAD_DIM = 64
 # The longest sequence the bf16 kernels take (``max_sequence()`` reads it from
-# the built library): the backward keeps delta of all of a head's rows in
-# shared memory (attention_bwd.cuh ``attn_bwd::MAX_N``; above 704 rows its dQ
-# lives in a device workspace). The fp32 forms take any N.
+# the built library; attention_bwd.cuh ``attn_bwd::MAX_N``). The fp32 forms
+# take any N.
 KERNEL_MAX_N = 47104
 
 # Kernel launches by (entry point, batch * heads): the fp32 forms count under
@@ -169,12 +168,31 @@ def kernel_flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     return o.reshape(q.shape), lse.reshape(q.shape[:-1])
 
 
-def kernel_flash_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+# The bf16 backward's routes that ``kernel_flash_bwd(route=...)`` forces
+# (attention_bwd.cuh ``AttnBwdRoute``), and the longest N of the short one.
+_ROUTES = {"short": 1, "split": 2}
+SHORT_ROUTE_MAX_N = 704
+
+
+def kernel_flash_bwd(q, k, v, o, lse, do, route: Optional[str] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel alone on CUDA bf16 or fp32 tensors: (dq, dk, dv),
     contiguous in the shape and dtype of q. ``o`` and ``lse`` are the forward
-    kernel's outputs; one call, which also forms delta = rowsum(dO * o)."""
+    kernel's outputs; one call, which also forms delta = rowsum(dO * o).
+    ``route`` ("short", N <= 704, or "split"; bf16 only) forces a route of
+    the bf16 backward, which otherwise takes the short one up to 256 rows
+    and the split one above them, and counts under
+    ``flash_bwd_<route>``: it holds the two routes to the same bits and
+    times them beside each other on the card, and no model path sets it."""
     (B, H, N), (q4, k4, v4, o4, do4) = _operands("flash_bwd", q, k, v, o, do)
     name = kernel_entry("flash_bwd", q)
+    if route is not None:
+        if q.dtype != torch.bfloat16 or route not in _ROUTES:
+            raise ValueError(f"flash_bwd: route {route!r} at {q.dtype}: the bf16 backward "
+                             f"has the routes {sorted(_ROUTES)} (bf16 only)")
+        if route == "short" and N > SHORT_ROUTE_MAX_N:
+            raise ValueError(f"flash_bwd: the short route takes N up to {SHORT_ROUTE_MAX_N}, "
+                             f"got {N}")
     if lse.dtype != torch.float32 or lse.numel() != B * H * N or lse.device != q.device:
         raise ValueError(f"flash_bwd: lse must be fp32 with one value a row on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
@@ -186,14 +204,19 @@ def kernel_flash_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, t
         dq, dk, dv = (torch.empty((B, H, N, _HEAD_DIM), dtype=q.dtype, device=q.device)
                       for _ in range(3))
         # the workspace: fp32, Q^T, dO^T and the dQ partials of its key tiles;
-        # bf16, fp32 dQ of every head above 704 rows (else none)
-        nbytes = getattr(lib, f"dk_{name}_workspace")(B, H, N)
+        # bf16, the split route's delta and column-sum partials (none on the
+        # short route)
+        forced = () if route is None else (_ROUTES[route],)
+        entry = name if route is None else "flash_bwd_route"
+        nbytes = getattr(lib, f"dk_{entry}_workspace")(B, H, N, *forced)
         work = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
-        err = getattr(lib, f"dk_{name}")(
+        err = getattr(lib, f"dk_{entry}")(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), do4.data_ptr(),
             *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3], *do4.stride()[:3],
             o4.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, N, None if work is None else work.data_ptr(), current_stream(q))
+            B, H, N, None if work is None else work.data_ptr(), current_stream(q), *forced)
+    if route is not None:
+        name = f"flash_bwd_{route}"
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[(name, B * H)] += 1

@@ -24,15 +24,17 @@
 //   padding. What keeps it above its byte bound: each CTA's chain of two
 //   wgmma batches with the softmax between them, 198 keys padded to 256, and
 //   K and V read once per 64-row query tile.
-// * backward: attention_bwd.cuh: one warpgroup per (batch, head), the five
-//   products on wgmma, P^T and dS^T in registers, dK and dV in registers per
-//   64-key tile, dQ of all rows summed in key-tile order (no atomics, one
-//   launch): in shared memory up to N = 704, above that in the CTA's own
-//   slice of a device workspace (`dk_flash_bwd_workspace`). Here it gets the
-//   unscaled q, so the scale goes on S in the exponent and on dQ and dK
-//   (64^-1/2 = 2^-3: exact), and no delta, so each CTA computes
-//   rowsum(dO * o) of its head in its prologue. N up to 47,104 (delta of all
-//   rows in shared memory).
+// * backward: attention_bwd.cuh, the five products on wgmma, P^T and dS^T
+//   in registers, every sum in a fixed order (no atomics). Up to N = 256 one
+//   warpgroup per (batch, head) keeps dK and dV in registers per 64-key tile
+//   and dQ of all rows in shared memory (one launch). Above it the split
+//   route: one warpgroup per (batch, head, key tile) for dK and dV and one
+//   per (batch, head, query tile) for dQ, in one launch after one that
+//   computes rowsum(dO * o) into a small device workspace
+//   (`dk_flash_bwd_workspace`).
+//   Here it gets the unscaled q, so the scale goes on S in the exponent and
+//   on dQ and dK (64^-1/2 = 2^-3: exact), and no delta, so it computes
+//   rowsum(dO * o) of each head itself. N up to 47,104.
 //
 // In the backward p and ds are rounded to bf16 before their products (the
 // tensor cores take bf16); q, k, v, dO arrive in bf16. The fp32 forms
@@ -66,10 +68,10 @@ constexpr int HD = 64;   // head dim
 
 }  // namespace
 
-// The longest sequence the bf16 entry points take: the backward's, which
-// keeps delta of all rows in shared memory (attn_bwd::MAX_N, 47,104). The
-// streaming forward takes any N and is held to the same length, so that
-// whatever it evaluates it can also differentiate. The fp32 forms take any N.
+// The longest sequence the bf16 entry points take: attn_bwd::MAX_N, 47,104.
+// The streaming forward takes any N and is held to the backward's length, so
+// that whatever it evaluates it can also differentiate. The fp32 forms take
+// any N.
 extern "C" int dk_flash_max_n() { return dk::attn_bwd::MAX_N; }
 
 // q, k, v: [B, H, N, 64] bf16 through strides (batch, head, row), in
@@ -92,21 +94,19 @@ extern "C" int dk_flash_fwd(const void* q, const void* k, const void* v, long lo
 }
 
 // Bytes of dk_flash_bwd's workspace (attention_bwd.cuh
-// `attention_bwd_workspace`): 0 up to N = 704, fp32 dQ of every head above.
+// `attention_bwd_workspace`): 0 up to N = 256, above it the split route's
+// delta and column-sum partials.
 extern "C" size_t dk_flash_bwd_workspace(int B, int H, int N) {
   return dk::attention_bwd_workspace(B, H, N);
 }
 
-// q, k, v, dO strided as in the forward; o, lse the forward's outputs
-// (contiguous); dq, dk, dv: [B, H, N, 64] bf16 contiguous; the workspace, of
-// the bytes above (null when they are 0), before the stream. Returns
-// cudaGetLastError() after the launch, or -1 for a shape it refuses.
-extern "C" int dk_flash_bwd(const void* q, const void* k, const void* v, const void* dO,
-                            long long q_sb, long long q_sh, long long q_sn, long long k_sb,
-                            long long k_sh, long long k_sn, long long v_sb, long long v_sh,
-                            long long v_sn, long long g_sb, long long g_sh, long long g_sn,
-                            const void* o, const void* lse, void* dq, void* dk, void* dv, int B,
-                            int H, int N, void* work, void* stream) {
+namespace {
+
+int flash_bwd(const void* q, const void* k, const void* v, const void* dO, long long q_sb,
+              long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn,
+              long long v_sb, long long v_sh, long long v_sn, long long g_sb, long long g_sh,
+              long long g_sn, const void* o, const void* lse, void* dq, void* dk, void* dv, int B,
+              int H, int N, void* work, void* stream, dk::AttnBwdRoute route) {
   if (B < 1 || H < 1 || N < 1 || N > dk_flash_max_n()) return -1;
   const long long sb = (long long)H * N * HD, sh = (long long)N * HD;
   dk::AttnBwdArgs a = {};
@@ -122,10 +122,46 @@ extern "C" int dk_flash_bwd(const void* q, const void* k, const void* v, const v
   a.colsum = nullptr;
   a.scale = a.dq_scale = 1.0f / sqrtf((float)HD);   // 2^-3
   a.B = B; a.H = H; a.N = N;
-  return (int)dk::attention_bwd(a, HD, (float*)work, (cudaStream_t)stream);
+  return (int)dk::attention_bwd(a, HD, (float*)work, (cudaStream_t)stream, route);
 }
 
-// The fp32 forms of the two entry points above: the same arguments, every
+}  // namespace
+
+// q, k, v, dO strided as in the forward; o, lse the forward's outputs
+// (contiguous); dq, dk, dv: [B, H, N, 64] bf16 contiguous; the workspace, of
+// the bytes above (null when they are 0), before the stream. Returns
+// cudaGetLastError() after the launch, or -1 for a shape it refuses.
+extern "C" int dk_flash_bwd(const void* q, const void* k, const void* v, const void* dO,
+                            long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+                            long long k_sh, long long k_sn, long long v_sb, long long v_sh,
+                            long long v_sn, long long g_sb, long long g_sh, long long g_sn,
+                            const void* o, const void* lse, void* dq, void* dk, void* dv, int B,
+                            int H, int N, void* work, void* stream) {
+  return flash_bwd(q, k, v, dO, q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, g_sb, g_sh,
+                   g_sn, o, lse, dq, dk, dv, B, H, N, work, stream, dk::AttnBwdRoute::AUTO);
+}
+
+// dk_flash_bwd on a route forced (1 the short route, N <= 704; 2 the split
+// route, any N), where the kernel would take the other by itself: the same
+// arguments and the route last, with a workspace of
+// dk_flash_bwd_route_workspace bytes. For holding the two routes to the same
+// bits and timing them beside each other; no model path calls it.
+extern "C" size_t dk_flash_bwd_route_workspace(int B, int H, int N, int route) {
+  return route == (int)dk::AttnBwdRoute::SPLIT ? dk::attention_bwd_split_workspace(B, H, N) : 0;
+}
+
+extern "C" int dk_flash_bwd_route(const void* q, const void* k, const void* v, const void* dO,
+                                  long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+                                  long long k_sh, long long k_sn, long long v_sb, long long v_sh,
+                                  long long v_sn, long long g_sb, long long g_sh, long long g_sn,
+                                  const void* o, const void* lse, void* dq, void* dk, void* dv,
+                                  int B, int H, int N, void* work, void* stream, int route) {
+  if (route != (int)dk::AttnBwdRoute::SHORT && route != (int)dk::AttnBwdRoute::SPLIT) return -1;
+  return flash_bwd(q, k, v, dO, q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, g_sb, g_sh,
+                   g_sn, o, lse, dq, dk, dv, B, H, N, work, stream, (dk::AttnBwdRoute)route);
+}
+
+// The fp32 forms of dk_flash_fwd and dk_flash_bwd: the same arguments, every
 // tensor fp32 (lse fp32 as before).
 extern "C" int dk_flash_fwd_f32(const void* q, const void* k, const void* v, long long q_sb,
                                 long long q_sh, long long q_sn, long long k_sb, long long k_sh,

@@ -23,29 +23,34 @@
 //
 // delta. The block passes delta (its chain has dO and O in token-major
 // buffers and computes it in a row pass); flash_bwd passes `o` instead, and
-// each CTA computes delta of its head's N rows in its prologue (8 threads a
-// row, 16 bytes each, a fixed-order sum) into shared memory. That reads dO
-// and O of the head once more (2 x N x 64 bf16; 2 x 19.5 MB at [768, 198, 64])
-// and saves a launch and a round trip of delta through device memory.
+// on the short route each CTA computes delta of its head's N rows in its
+// prologue (8 threads a row, 16 bytes each, a fixed-order sum) into shared
+// memory. That reads dO and O of the head once more (2 x N x 64 bf16; 2 x
+// 19.5 MB at [768, 198, 64]) and saves a launch and a round trip of delta
+// through device memory. The split route computes it the same way, once per
+// head, in a launch of its own.
 //
-// One CTA (one warpgroup, 128 threads) per (batch, head). It walks the key
-// tiles of 64 keys; for each it keeps dK and dV of those keys in registers
-// and loops over the query tiles of 64 rows:
+// Two routes compute it, with the same products of each (key tile, query
+// tile) pair and every sum in the same order, so that where both take a
+// shape they give the same bits.
+//
+// The short route (`attention_bwd_kernel`, N <= 256 by itself; it takes N up
+// to 704): one CTA (one warpgroup, 128 threads) per (batch, head). It walks
+// the key tiles of 64 keys; for each it keeps dK and dV of those keys in
+// registers and loops over the query tiles of 64 rows:
 //   S^T = K Q^T and dP^T = V dO^T: wgmma from shared memory, keys as rows, so
 //        that P^T and dS^T land in registers as the A operand of the next two;
 //   dV += P^T dO and dK += dS^T Q: wgmma with A from registers, dO and Q
 //        as they lie in shared memory (wgmma's transposed B operand);
 //   dQ_i = dS K: dS^T goes to shared memory in the 128-byte swizzle and is
 //        read as wgmma's transposed A operand, K as its transposed B; the
-//        product is added to an fp32 dQ of all N rows, in shared memory up
-//        to 11 query tiles (N <= 704) and above that in a slice of a device
-//        workspace that only this CTA reads and writes (the long route).
+//        product is added to an fp32 dQ of all N rows in shared memory (11
+//        query tiles at most).
 // dQ sums its key tiles in key-tile order inside one CTA: no atomics, and
-// each element is added to by one thread, so two runs give the same bits and
-// both routes add in the same order. Tiles arrive by
-// cp.async in the 128-byte swizzle (attention_fwd.cuh's loader); rows at or
-// beyond N arrive as zeros, and P is set to 0 wherever the key or the query
-// is at or beyond N, so padding adds nothing.
+// each element is added to by one thread, so two runs give the same bits.
+// Tiles arrive by cp.async in the 128-byte swizzle (attention_fwd.cuh's
+// loader); rows at or beyond N arrive as zeros, and P is set to 0 wherever
+// the key or the query is at or beyond N, so padding adds nothing.
 //
 // With `colsum` it also writes each head's column sums of dq, dk and dv
 // (fixed order: rows by shuffles and warps, key tiles in order), the
@@ -60,14 +65,42 @@
 // 8 KB tiles, delta of all rows and dQ (16 KB per 64 query rows: 64 KB at
 // N = 198, two CTAs an SM; 227,072 bytes at 11 tiles, N = 704).
 //
-// The long route (N > 704): dQ leaves shared memory for the workspace
-// (`attention_bwd_workspace`, B*H x N64 x 64 fp32: 201 KB a head at N = 786,
-// 272 KB at 1026), where each CTA's slice is read and written once per (key
-// tile, query tile) pair, 32 KB a pair, and stays in L2 while the CTA walks
-// it. Each thread loads its 32 old dQ values of the pair before the dQ_i
-// product and adds after it, so the load's latency runs under the product.
-// Shared memory keeps the five tiles and delta of all rows (N x 4 bytes):
-// 44,032 + 256 x tiles bytes, which takes N up to 47,104 (736 tiles).
+// The split route (N > 256, attn_bwd::SPLIT_TILES; forced at any N by
+// attention_bwd's `route`). Above 704 rows dQ of all rows no longer fits a
+// CTA, and below it B*H CTAs (96 at B = 32 of 3 heads, for 132 SMs) that
+// each walk tiles^2 pairs in series leave the card idle. So the pairs are
+// spread over 2 x B*H x tiles CTAs, one warpgroup each, and no N x 64
+// partial reaches device memory:
+//   attention_bwd_delta_kernel (flash, which passes o): delta of each 64-row
+//        tile into the workspace, computed as the short route computes it;
+//   attention_bwd_split_kernel, in one launch:
+//     split_dkdv, one CTA per (batch, head, key tile): K and V once, then the
+//        query tiles in order, each pair's S^T, dP^T, P^T, dS^T, dV += P^T dO
+//        and dK += dS^T Q as the short route computes them, while the next
+//        query tile's Q and dO (cp.async) and its lse and delta (registers)
+//        arrive in a second buffer;
+//     split_dq, one CTA per (batch, head, query tile): Q, dO, lse and delta
+//        once, then the key tiles in order, the next K and V arriving in a
+//        second buffer; per pair S^T and dP^T again, dS^T to shared memory,
+//        dQ_i = dS K, added to dQ in registers from zero in key-tile order,
+//        as the short route adds it in shared memory; one barrier a pair in
+//        split_dkdv, two in split_dq;
+//   attention_bwd_colsum_kernel (with `colsum`): each tile's column sums of
+//        dq, dk and dv, written by the two halves as partials, added in tile
+//        order (dk's and dv's in the short route's order).
+// A pair costs seven products instead of five (S^T and dP^T in both halves):
+// 1.4 times the bound's operations, against 2,496 CTAs at B*H = 96, N = 786.
+// One launch for both halves, so that the dQ CTAs fill the SMs while the
+// last wave of dK/dV drains (two launches of 1,248 CTAs at three an SM each
+// end on a wave 15% full; measured 0.88 of their time at N = 786). Shared
+// memory: 59 KB a CTA (the dQ half's Q, dO, two K, two V and dS^T); the
+// registers, held to 168 (the dK/dV half's dK, dV, S^T, dP^T and the two A
+// operands), allow three CTAs an SM. What bounds it: its seven products
+// (operations) in principle; in practice each CTA's serial chain of a pair,
+// which three CTAs an SM overlap only in part (about a quarter of the tensor
+// cores' rate at N = 786). The workspace (`attention_bwd_workspace`) holds
+// delta [B*H][N64] and the partials [B*H][tiles][3][64] fp32: 1.7 MB at
+// B*H = 96, N = 1026.
 
 #pragma once
 
@@ -107,28 +140,50 @@ using AttnBwdArgs = AttnBwdArgsT<bf16>;
 namespace attn_bwd {
 constexpr int T = attn::T;             // keys of a key tile, rows of a query tile
 constexpr int TILE = T * 64;           // bf16 elements of one tile
-constexpr int MAX_TILES = 11;          // dQ in shared memory: N <= 704
-constexpr size_t SMEM_MAX = 232448;    // a CTA's shared memory on an H100
-// five bf16 tiles, lse of a query tile, delta of all rows, dQ of all rows
-// (not on the long route), the column sums of dq, dk, dv and one 64-column
+constexpr int MAX_TILES = 11;          // the short route, dQ in shared memory: N <= 704
+// the short route's shared memory: five bf16 tiles, lse of a query tile,
+// delta and dQ of all rows, the column sums of dq, dk, dv and one 64-column
 // partial per warp
-inline size_t smem_bytes(int N, bool dq_in_smem) {
+inline size_t smem_bytes(int N) {
   const int tiles = (N + T - 1) / T;
-  return 5 * TILE * sizeof(bf16) + T * sizeof(float) + (size_t)tiles * T * sizeof(float) +
-         (dq_in_smem ? (size_t)tiles * T * 64 * sizeof(float) : 0) +
+  return 5 * TILE * sizeof(bf16) + T * sizeof(float) + (size_t)tiles * T * 65 * sizeof(float) +
          (3 + 4) * 64 * sizeof(float) + 1024;
 }
-// The longest N the long route takes: delta of all rows in shared memory.
-constexpr int MAX_N = (int)((SMEM_MAX - 5 * TILE * 2 - T * 4 - 7 * 64 * 4 - 1024) / (T * 4)) * T;
+// The split route from 5 query tiles (N > 256) on: at 5 to 11 tiles it takes
+// 0.56-0.72 of the short route's time at B*H = 96 and 768, at 4 (N = 198,
+// B*H = 768) 1.14 (PERF.md).
+constexpr int SPLIT_TILES = 5;
+// The CTAs an SM the split route's registers must allow (__launch_bounds__:
+// 168 registers and 68 bytes spilled, where the compiler would take 184 and
+// fit two; the spill costs nothing measured, PERF.md).
+constexpr int SPLIT_CTAS = 3;
+// The split route's, the larger of its halves': dK/dV six bf16 tiles (K, V,
+// two Q, two dO) and lse and delta of two query tiles; dQ seven (Q, dO, two
+// K, two V, dS^T) and lse and delta of one; one 64-column partial per warp.
+constexpr size_t SPLIT_SMEM = 7 * TILE * sizeof(bf16) + 4 * T * sizeof(float) +
+                              4 * 64 * sizeof(float) + 1024;
+// The longest N the bf16 entry points take (736 tiles). Neither route's
+// shared memory depends on N past 11 tiles; the bound holds the forward,
+// the backward and the factory's refusals to one length.
+constexpr int MAX_N = 47104;
 }  // namespace attn_bwd
 
-// Bytes of the bf16 attention backward's workspace for B*H heads of N rows:
-// none up to 11 query tiles (dQ in shared memory), above them fp32 dQ of every
-// head's rows, each head's slice N rounded up to 64 rows of 64.
-inline size_t attention_bwd_workspace(int B, int H, int N) {
+// Whether the bf16 backward takes the split route at N by itself.
+inline bool attention_bwd_splits(int N) {
+  return (N + attn_bwd::T - 1) / attn_bwd::T >= attn_bwd::SPLIT_TILES;
+}
+
+// Bytes of the split route's workspace for B*H heads of N rows: delta
+// [B*H][N64] (flash only) and the tiles' column-sum partials [B*H][tiles][3]
+// [64], fp32.
+inline size_t attention_bwd_split_workspace(int B, int H, int N) {
   const long long tiles = (N + attn_bwd::T - 1) / attn_bwd::T;
-  return tiles <= attn_bwd::MAX_TILES ? 0
-                                      : (size_t)B * H * tiles * attn_bwd::T * 64 * sizeof(float);
+  return (size_t)B * H * tiles * (attn_bwd::T + 3 * 64) * sizeof(float);
+}
+
+// Bytes of the bf16 attention backward's workspace: none on the short route.
+inline size_t attention_bwd_workspace(int B, int H, int N) {
+  return attention_bwd_splits(N) ? attention_bwd_split_workspace(B, H, N) : 0;
 }
 
 // The fp32 dQ accumulator in shared memory: row r, float2 column c2 (of 32),
@@ -154,10 +209,10 @@ __device__ __forceinline__ void store_tile_sw128(bf16* tile, const float (&d)[32
   }
 }
 
-// Adds the column sums of one 64 x 64 accumulator (all 64 rows; rows past N
-// hold zeros) to col[64]: each warp's 16 rows by shuffles, then the four
-// warps in order through wpart[4][64]. All 128 threads call it.
-__device__ __forceinline__ void add_colsums(const float (&d)[32], float* wpart, float* col) {
+// The column sums of one 64 x 64 accumulator (all 64 rows; rows past N hold
+// zeros), per warp: each warp's 16 rows by shuffles into wpart[warp][64]. All
+// 128 threads call it; wpart is complete when it returns.
+__device__ __forceinline__ void warp_colsums(const float (&d)[32], float* wpart) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int jb = 0; jb < 8; ++jb) {
@@ -173,9 +228,25 @@ __device__ __forceinline__ void add_colsums(const float (&d)[32], float* wpart, 
     }
   }
   __syncthreads();
+}
+
+// Adds the column sums of one 64 x 64 accumulator to col[64]: the warps' sums
+// (warp_colsums) in warp order. All 128 threads call it.
+__device__ __forceinline__ void add_colsums(const float (&d)[32], float* wpart, float* col) {
+  warp_colsums(d, wpart);
   if (threadIdx.x < 64)
     col[threadIdx.x] += wpart[threadIdx.x] + wpart[64 + threadIdx.x] + wpart[128 + threadIdx.x] +
                         wpart[192 + threadIdx.x];
+  __syncthreads();
+}
+
+// The column sums of one 64 x 64 accumulator, as add_colsums adds them, to
+// out[64] (device memory). All 128 threads call it.
+__device__ __forceinline__ void store_colsums(const float (&d)[32], float* wpart, float* out) {
+  warp_colsums(d, wpart);
+  if (threadIdx.x < 64)
+    out[threadIdx.x] = wpart[threadIdx.x] + wpart[64 + threadIdx.x] + wpart[128 + threadIdx.x] +
+                       wpart[192 + threadIdx.x];
   __syncthreads();
 }
 
@@ -195,11 +266,42 @@ __device__ __forceinline__ void store_grad_rows(const AttnBwdArgs& p, bf16* out,
   }
 }
 
-// DQ_WORK: the long route, dQ in the CTA's slice of dq_work (B*H x tiles x
-// 64 x 64 fp32) instead of shared memory.
-template <bool DQ_WORK>
-__global__ void __launch_bounds__(attn::THREADS)
-attention_bwd_kernel(const AttnBwdArgs p, float* dq_work) {
+// delta = rowsum(dO * O) of rows [r0, r0 + 64) of one head into out[0, 64),
+// 0 past N: 8 threads a row, 8 columns each, summed over the 8 by shuffles
+// in a fixed order; a thread has the loads of 4 rows (16 apart) in flight.
+__device__ __forceinline__ void tile_delta(const AttnBwdArgs& p, const bf16* dh, const bf16* oh,
+                                           int r0, float* out) {
+  const int c = 8 * (threadIdx.x % 8), r1 = threadIdx.x / 8;
+  uint4 a[4], o[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int r = r0 + r1 + 16 * u;
+    a[u] = o[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (r < p.N) {
+      a[u] = *reinterpret_cast<const uint4*>(dh + (long long)r * p.d_sn + c);
+      o[u] = *reinterpret_cast<const uint4*>(oh + (long long)r * p.o_sn + c);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const uint32_t av[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
+    const uint32_t ov[4] = {o[u].x, o[u].y, o[u].z, o[u].w};
+    float d = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[e]));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov[e]));
+      d += x.x * y.x + x.y * y.y;
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    d += __shfl_xor_sync(0xffffffffu, d, 4);
+    if (threadIdx.x % 8 == 0) out[r1 + 16 * u] = d;
+  }
+}
+
+// The short route: one CTA per (batch, head), dQ of all rows in shared memory.
+__global__ void __launch_bounds__(attn::THREADS) attention_bwd_kernel(const AttnBwdArgs p) {
   using attn_bwd::T;
   using attn_bwd::TILE;
   extern __shared__ unsigned char smem_raw[];
@@ -213,14 +315,8 @@ attention_bwd_kernel(const AttnBwdArgs p, float* dq_work) {
   const int N = p.N, tiles = (N + T - 1) / T;
   float* lse_s = reinterpret_cast<float*>(Ss + TILE);   // lse * log2(e) of the query tile
   float* delta_all = lse_s + T;                          // [tiles * T], 0 past N
-  float *dq, *col;   // [tiles * T][64] fp32; [3][64]: the column sums of dq, dk, dv
-  if constexpr (DQ_WORK) {
-    dq = dq_work + (long long)bh * tiles * T * 64;
-    col = delta_all + tiles * T;
-  } else {
-    dq = delta_all + tiles * T;
-    col = dq + tiles * T * 64;
-  }
+  float* dq = delta_all + tiles * T;                     // [tiles * T][64] fp32
+  float* col = dq + tiles * T * 64;   // [3][64]: the column sums of dq, dk, dv
   const bf16* qh = p.q + b * p.q_sb + h * p.q_sh;
   const bf16* kh = p.k + b * p.k_sb + h * p.k_sh;
   const bf16* vh = p.v + b * p.v_sb + h * p.v_sh;
@@ -239,39 +335,8 @@ attention_bwd_kernel(const AttnBwdArgs p, float* dq_work) {
     for (int r = threadIdx.x; r < tiles * T; r += attn::THREADS)
       delta_all[r] = r < N ? delta[r] : 0.f;
   } else {
-    // delta = rowsum(dO * O): 8 threads a row, 8 columns each, summed over
-    // the 8 by shuffles in a fixed order; a thread has the loads of 4 rows
-    // (16 apart) in flight, and each pass covers one 64-row tile
     const bf16* oh = p.o + b * p.o_sb + h * p.o_sh;
-    const int c = 8 * (threadIdx.x % 8);
-    for (int r0 = threadIdx.x / 8; r0 < tiles * T; r0 += T) {
-      uint4 a[4], o[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int r = r0 + 16 * u;
-        a[u] = o[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (r < N) {
-          a[u] = *reinterpret_cast<const uint4*>(dh + (long long)r * p.d_sn + c);
-          o[u] = *reinterpret_cast<const uint4*>(oh + (long long)r * p.o_sn + c);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const uint32_t av[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
-        const uint32_t ov[4] = {o[u].x, o[u].y, o[u].z, o[u].w};
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[e]));
-          const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov[e]));
-          d += x.x * y.x + x.y * y.y;
-        }
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
-        d += __shfl_xor_sync(0xffffffffu, d, 4);
-        if (threadIdx.x % 8 == 0) delta_all[r0 + 16 * u] = d;
-      }
-    }
+    for (int r0 = 0; r0 < tiles * T; r0 += T) tile_delta(p, dh, oh, r0, delta_all + r0);
   }
 
   // this thread's rows (keys in S^T, dP^T, dK, dV; queries in dQ) and columns
@@ -344,17 +409,6 @@ attention_bwd_kernel(const AttnBwdArgs p, float* dq_work) {
       for (int k = 0; k < 4; ++k) wgmma_rs_t(dk, sa[k], q_desc + 128 * k, 1);
       wgmma_commit();
 
-      // the long route: this thread's dQ of the query tile from the
-      // workspace, loaded under the dQ_i product (its own last writes)
-      float2 old[2][8];
-      if constexpr (DQ_WORK) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-          for (int jb = 0; jb < 8; ++jb)
-            old[hh][jb] = *dq_slot(dq, i * T + r_lo + 8 * hh, 4 * jb + c_lo / 2);
-      }
-
       // dS^T to shared memory, then dQ_i = dS K (dS^T and K both read
       // transposed: 16 keys a k-step)
       store_tile_sw128(Ss, s);
@@ -379,11 +433,7 @@ attention_bwd_kernel(const AttnBwdArgs p, float* dq_work) {
 #pragma unroll
         for (int jb = 0; jb < 8; ++jb) {
           float2* slot = dq_slot(dq, r, 4 * jb + c_lo / 2);
-          float2 v;
-          if constexpr (DQ_WORK)
-            v = old[hh][jb];
-          else
-            v = *slot;
+          float2 v = *slot;
           v.x += dqi[4 * jb + 2 * hh];
           v.y += dqi[4 * jb + 2 * hh + 1];
           *slot = v;
@@ -425,27 +475,311 @@ attention_bwd_kernel(const AttnBwdArgs p, float* dq_work) {
   }
 }
 
-// Whether the bf16 kernel takes head dim hd and sequence length N (delta of
-// all N rows lives in shared memory; dQ too up to 11 tiles).
+// ---------------------------------------------------------------------------
+// The split route: one CTA per (batch, head, key tile) for dK and dV and one
+// per (batch, head, query tile) for dQ (the header's note)
+// ---------------------------------------------------------------------------
+
+// lse * log2(e) (threads 0-63) or delta (threads 64-127) of row 64 i +
+// threadIdx.x % 64 of the head, 0 past N: the row statistics of query tile
+// i, one value a thread.
+__device__ __forceinline__ float split_row_stat(const float* lse, const float* delta, int i,
+                                                int N) {
+  constexpr float LOG2E = 1.4426950408889634f;
+  const int row = i * attn_bwd::T + threadIdx.x % attn_bwd::T;
+  if (row >= N) return 0.f;
+  return threadIdx.x < attn_bwd::T ? lse[row] * LOG2E : delta[row];
+}
+
+// What both halves of the split route compute of one (key tile, query tile)
+// pair, as the short route computes it: S^T = K Q^T and dP^T = V dO^T over
+// the 64 dims of the head (the tiles in shared memory), then P^T = exp(S^T -
+// lse) and dS^T = P^T (dP^T - delta), 0 at padding keys and queries; key0
+// and q0 are the tiles' first rows. dS^T is left in s; with FRAGMENTS, P^T
+// and dS^T also go to pa and sa as wgmma A fragments (16 queries a k-step).
+template <bool FRAGMENTS>
+__device__ __forceinline__ void split_pair_scores(float (&s)[32], uint32_t (&pa)[4][4],
+                                                  uint32_t (&sa)[4][4], const bf16* Ks,
+                                                  const bf16* Vs, const bf16* Qs, const bf16* Ds,
+                                                  const float* lse_s, const float* delta_s,
+                                                  int key0, int q0, int N, float s_log2e) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r_lo = 16 * warp + lane / 4, c_lo = 2 * (lane % 4);
+  float dp[32];
+  const uint64_t k_desc = sw128_desc(Ks), v_desc = sw128_desc(Vs);
+  const uint64_t q_desc = sw128_desc(Qs), do_desc = sw128_desc(Ds);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) wgmma_ss(s, k_desc + 2 * k, q_desc + 2 * k, k > 0);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) wgmma_ss(dp, v_desc + 2 * k, do_desc + 2 * k, k > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb) {
+    float pv[4], sv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + r_lo + 8 * (e >> 1);
+      const int col = 8 * jb + c_lo + (e & 1);
+      const int idx = 4 * jb + e;
+      const bool in = key < N && q0 + col < N;
+      pv[e] = in ? exp2f(s[idx] * s_log2e - lse_s[col]) : 0.f;
+      sv[e] = pv[e] * (dp[idx] - delta_s[col]);
+      s[idx] = sv[e];
+    }
+    if constexpr (FRAGMENTS) {
+      pa[jb / 2][2 * (jb & 1)] = pack_bf16(pv[0], pv[1]);
+      pa[jb / 2][2 * (jb & 1) + 1] = pack_bf16(pv[2], pv[3]);
+      sa[jb / 2][2 * (jb & 1)] = pack_bf16(sv[0], sv[1]);
+      sa[jb / 2][2 * (jb & 1) + 1] = pack_bf16(sv[2], sv[3]);
+    }
+  }
+}
+
+// Flash's delta (flash passes o, not delta): one CTA per (batch, head, query
+// tile), blockIdx.x = bh * tiles + i, into delta_w [B*H][N64].
+__global__ void __launch_bounds__(attn::THREADS)
+attention_bwd_delta_kernel(const AttnBwdArgs p, float* delta_w) {
+  const int tiles = (p.N + attn_bwd::T - 1) / attn_bwd::T;
+  const int bh = blockIdx.x / tiles, i = blockIdx.x % tiles, b = bh / p.H, h = bh % p.H;
+  tile_delta(p, p.dout + b * p.d_sb + h * p.d_sh, p.o + b * p.o_sb + h * p.o_sh,
+             i * attn_bwd::T, delta_w + (long long)blockIdx.x * attn_bwd::T);
+}
+
+// dK and dV of key tile j of head bh (the first half of the split grid). K
+// and V of the key tile stay in shared memory and dK, dV in registers while
+// the query tiles pass in order, two buffers of Q, dO, lse and delta. With
+// `colsum`, the key tile's column sums of dk and dv go to col_part
+// [B*H][tiles][3][64] at parts 1 and 2.
+__device__ __forceinline__ void split_dkdv(const AttnBwdArgs& p, const float* delta_w,
+                                           float* col_part, int bh, int j,
+                                           unsigned char* smem) {
+  using attn_bwd::T;
+  using attn_bwd::TILE;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + TILE;
+  bf16* Qs = Vs + TILE;       // [2][TILE]: this pair's query tile and the next one's
+  bf16* Ds = Qs + 2 * TILE;   // [2][TILE]: dO likewise
+  float* stat = reinterpret_cast<float*>(Ds + 2 * TILE);   // [2][lse * log2(e), delta][T]
+  float* wpart = stat + 4 * T;                              // [4][64]
+  const int N = p.N, tiles = (N + T - 1) / T, b = bh / p.H, h = bh % p.H;
+  const bf16* qh = p.q + b * p.q_sb + h * p.q_sh;
+  const bf16* dh = p.dout + b * p.d_sb + h * p.d_sh;
+  const float* lse = p.lse + (long long)bh * N;
+  const float* delta = p.delta ? p.delta + (long long)bh * N : delta_w + (long long)bh * tiles * T;
+  const float s_log2e = p.scale * 1.4426950408889634f;
+
+  load_tile_async(Ks, p.k + b * p.k_sb + h * p.k_sh, p.k_sn, j * T, N);
+  load_tile_async(Vs, p.v + b * p.v_sb + h * p.v_sh, p.v_sn, j * T, N);
+  load_tile_async(Qs, qh, p.q_sn, 0, N);
+  load_tile_async(Ds, dh, p.d_sn, 0, N);
+  cp_async_commit();
+  stat[threadIdx.x] = split_row_stat(lse, delta, 0, N);
+  float dk[32], dv[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dk[e] = dv[e] = 0.f;
+
+  for (int i = 0; i < tiles; ++i) {
+    const int cur = i & 1;
+    cp_async_wait<0>();   // pair i's copies
+    // this thread's copies are visible to wgmma (the async proxy), then all
+    // threads'; every thread is past pair i - 1, so its buffers are free
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    float next = 0.f;   // the next query tile's row statistic, stored after this pair
+    if (i + 1 < tiles) {
+      load_tile_async(Qs + (cur ^ 1) * TILE, qh, p.q_sn, (i + 1) * T, N);
+      load_tile_async(Ds + (cur ^ 1) * TILE, dh, p.d_sn, (i + 1) * T, N);
+      cp_async_commit();
+      next = split_row_stat(lse, delta, i + 1, N);
+    }
+
+    const bf16* Qi = Qs + cur * TILE;
+    const bf16* Di = Ds + cur * TILE;
+    const float* st = stat + 2 * T * cur;
+    float s[32];
+    uint32_t pa[4][4], sa[4][4];
+    split_pair_scores<true>(s, pa, sa, Ks, Vs, Qi, Di, st, st + T, j * T, i * T, N, s_log2e);
+
+    // dV += P^T dO and dK += dS^T Q: a k-step of 16 queries is 16 rows of dO
+    // and Q, 2048 bytes
+    const uint64_t q_desc = sw128_desc(Qi), do_desc = sw128_desc(Di);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_rs_t(dv, pa[k], do_desc + 128 * k, 1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_rs_t(dk, sa[k], q_desc + 128 * k, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    stat[2 * T * (cur ^ 1) + threadIdx.x] = next;
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dk[e] *= p.scale;
+  const long long ghead = b * p.g_sb + h * p.g_sh;
+  store_grad_rows(p, p.dk, ghead, j * T, dk);
+  store_grad_rows(p, p.dv, ghead, j * T, dv);
+  if (p.colsum) {
+    float* col = col_part + ((long long)bh * tiles + j) * 3 * 64;
+    store_colsums(dk, wpart, col + 64);
+    store_colsums(dv, wpart, col + 128);
+  }
+}
+
+// dQ of query tile i of head bh (the second half of the split grid). Q, dO,
+// lse and delta of the query tile stay in shared memory and dQ in registers
+// while the key tiles pass in order, two buffers of K and V. With `colsum`,
+// the query tile's column sums of dq go to col_part at part 0.
+__device__ __forceinline__ void split_dq(const AttnBwdArgs& p, const float* delta_w,
+                                         float* col_part, int bh, int i, unsigned char* smem) {
+  using attn_bwd::T;
+  using attn_bwd::TILE;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ds = Qs + TILE;       // dO of the query tile
+  bf16* Ks = Ds + TILE;       // [2][TILE]: this pair's key tile and the next one's
+  bf16* Vs = Ks + 2 * TILE;   // [2][TILE]: V likewise
+  bf16* Ss = Vs + 2 * TILE;   // dS^T of the pair
+  float* stat = reinterpret_cast<float*>(Ss + TILE);   // [lse * log2(e), delta][T]
+  float* wpart = stat + 2 * T;                          // [4][64]
+  const int N = p.N, tiles = (N + T - 1) / T, b = bh / p.H, h = bh % p.H;
+  const bf16* kh = p.k + b * p.k_sb + h * p.k_sh;
+  const bf16* vh = p.v + b * p.v_sb + h * p.v_sh;
+  const float* delta = p.delta ? p.delta + (long long)bh * N : delta_w + (long long)bh * tiles * T;
+  const float s_log2e = p.scale * 1.4426950408889634f;
+
+  load_tile_async(Qs, p.q + b * p.q_sb + h * p.q_sh, p.q_sn, i * T, N);
+  load_tile_async(Ds, p.dout + b * p.d_sb + h * p.d_sh, p.d_sn, i * T, N);
+  load_tile_async(Ks, kh, p.k_sn, 0, N);
+  load_tile_async(Vs, vh, p.v_sn, 0, N);
+  cp_async_commit();
+  stat[threadIdx.x] = split_row_stat(p.lse + (long long)bh * N, delta, i, N);
+  float dq[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dq[e] = 0.f;
+
+  for (int j = 0; j < tiles; ++j) {
+    const int cur = j & 1;
+    cp_async_wait<0>();   // pair j's copies
+    // the copies are visible; every thread is past pair j - 1, so its K and V
+    // buffers and dS^T are free
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (j + 1 < tiles) {
+      load_tile_async(Ks + (cur ^ 1) * TILE, kh, p.k_sn, (j + 1) * T, N);
+      load_tile_async(Vs + (cur ^ 1) * TILE, vh, p.v_sn, (j + 1) * T, N);
+      cp_async_commit();
+    }
+
+    const bf16* Kj = Ks + cur * TILE;
+    float s[32];
+    uint32_t pa[4][4], sa[4][4];   // unused: dS^T goes through shared memory
+    split_pair_scores<false>(s, pa, sa, Kj, Vs + cur * TILE, Qs, Ds, stat, stat + T, j * T,
+                             i * T, N, s_log2e);
+
+    // dS^T to shared memory, then dQ_i = dS K (dS^T and K both read
+    // transposed: 16 keys a k-step), added to dQ in key-tile order
+    store_tile_sw128(Ss, s);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    float dqi[32];
+    const uint64_t ds_desc = sw128_desc(Ss), k_desc = sw128_desc(Kj);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_ss_tt(dqi, ds_desc + 128 * k, k_desc + 128 * k, k > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqi);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[e] += dqi[e];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dq[e] *= p.dq_scale;
+  store_grad_rows(p, p.dq, b * p.g_sb + h * p.g_sh, i * T, dq);
+  if (p.colsum)
+    store_colsums(dq, wpart, col_part + ((long long)bh * tiles + i) * 3 * 64);
+}
+
+// The split route's grid: 2 x B*H x tiles CTAs, one warpgroup each. The first
+// half computes dK and dV (CTA bh * tiles + j: key tile j of head bh), the
+// second dQ (bh * tiles + i past the first half: query tile i): one launch,
+// so that the dQ CTAs fill the SMs while the last wave of dK/dV drains.
+__global__ void __launch_bounds__(attn::THREADS, attn_bwd::SPLIT_CTAS)
+attention_bwd_split_kernel(const AttnBwdArgs p, const float* delta_w, float* col_part) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int tiles = (p.N + attn_bwd::T - 1) / attn_bwd::T, half = p.B * p.H * tiles;
+  if ((int)blockIdx.x < half)
+    split_dkdv(p, delta_w, col_part, blockIdx.x / tiles, blockIdx.x % tiles, smem);
+  else
+    split_dq(p, delta_w, col_part, (blockIdx.x - half) / tiles, (blockIdx.x - half) % tiles,
+             smem);
+}
+
+// The split route's column sums: one CTA per (batch, head) adds its tiles'
+// partials of dq, dk and dv in tile order into colsum.
+__global__ void __launch_bounds__(attn::THREADS)
+attention_bwd_colsum_kernel(const AttnBwdArgs p, const float* col_part) {
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int tiles = (p.N + attn_bwd::T - 1) / attn_bwd::T;
+  const float* part = col_part + (long long)bh * tiles * 3 * 64;
+  for (int e = threadIdx.x; e < 3 * 64; e += attn::THREADS) {
+    float sum = 0.f;
+    for (int t = 0; t < tiles; ++t) sum += part[t * 3 * 64 + e];
+    p.colsum[(long long)b * p.cs_b + (e / 64) * p.cs_part + h * 64 + e % 64] = sum;
+  }
+}
+
+// Whether the bf16 kernels take head dim hd and sequence length N.
 inline bool attention_bwd_takes(int hd, int N) {
   return hd == 64 && N >= 1 && N <= attn_bwd::MAX_N;
 }
 
-// Launches the attention backward on `st`, with `work` of
-// attention_bwd_workspace(B, H, N) bytes (unused, and may be null, up to 11
-// tiles); cudaErrorInvalidValue, without a launch, for a shape it does not
-// take.
-inline cudaError_t attention_bwd(const AttnBwdArgs& p, int hd, float* work, cudaStream_t st) {
+// The routes of the bf16 attention backward: the one attention_bwd_splits
+// picks, or either one forced (the short route up to 11 query tiles).
+enum class AttnBwdRoute { AUTO = 0, SHORT = 1, SPLIT = 2 };
+
+// Launches the bf16 attention backward on `st`: the short route or the split
+// route (`route`, by default as attention_bwd_splits picks), with `work` of
+// attention_bwd_split_workspace(B, H, N) bytes on the split route (the short
+// route takes none, and `work` may then be null). cudaErrorInvalidValue,
+// without a launch, for a shape or route it does not take.
+inline cudaError_t attention_bwd(const AttnBwdArgs& p, int hd, float* work, cudaStream_t st,
+                                 AttnBwdRoute route = AttnBwdRoute::AUTO) {
   if (!attention_bwd_takes(hd, p.N) || p.B < 1 || p.H < 1 || !(p.delta || p.o))
     return cudaErrorInvalidValue;
-  const bool short_route = attention_bwd_workspace(p.B, p.H, p.N) == 0;
-  if (!short_route && !work) return cudaErrorInvalidValue;
-  const size_t smem = attn_bwd::smem_bytes(p.N, short_route);
-  auto kernel = short_route ? attention_bwd_kernel<false> : attention_bwd_kernel<true>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (route == AttnBwdRoute::AUTO)
+    route = attention_bwd_splits(p.N) ? AttnBwdRoute::SPLIT : AttnBwdRoute::SHORT;
+  cudaError_t e;
+  if (route == AttnBwdRoute::SHORT) {
+    if ((p.N + attn_bwd::T - 1) / attn_bwd::T > attn_bwd::MAX_TILES) return cudaErrorInvalidValue;
+    const size_t smem = attn_bwd::smem_bytes(p.N);
+    e = cudaFuncSetAttribute(attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    attention_bwd_kernel<<<p.B * p.H, attn::THREADS, smem, st>>>(p);
+    return cudaGetLastError();
+  }
+  if (!work) return cudaErrorInvalidValue;
+  const long long bh = (long long)p.B * p.H, tiles = (p.N + attn_bwd::T - 1) / attn_bwd::T;
+  const unsigned grid = (unsigned)(bh * tiles);
+  float* delta_w = work;                              // [B*H][N64]
+  float* col_part = work + bh * tiles * attn_bwd::T;  // [B*H][tiles][3][64]
+  if (!p.delta) {
+    attention_bwd_delta_kernel<<<grid, attn::THREADS, 0, st>>>(p, delta_w);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  e = cudaFuncSetAttribute(attention_bwd_split_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)attn_bwd::SPLIT_SMEM);
   if (e != cudaSuccess) return e;
-  kernel<<<p.B * p.H, attn::THREADS, smem, st>>>(p, short_route ? nullptr : work);
+  attention_bwd_split_kernel<<<2 * grid, attn::THREADS, attn_bwd::SPLIT_SMEM, st>>>(p, delta_w,
+                                                                                    col_part);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (p.colsum) attention_bwd_colsum_kernel<<<(unsigned)bh, attn::THREADS, 0, st>>>(p, col_part);
   return cudaGetLastError();
 }
 

@@ -212,9 +212,10 @@ inline long long colsum_partial_len(const Shape& sh) {
 // linear_sm90; fp32: split into TF32 hi and lo by the transpose), and the
 // partials of the weight and column sums. The attention backward's workspace
 // (attention_bwd.cuh: `attention_bwd_f32_workspace` in the fp32 form,
-// `attention_bwd_workspace` in bf16, which is empty up to N = 704) shares its
-// slice with dhpre, which is dead from the fc1 input gradient on; the slice
-// is the larger of the two.
+// `attention_bwd_workspace` in bf16, which is empty up to N = 256 and above
+// it holds the split route's column-sum partials) shares its slice with
+// dhpre, which is dead from the fc1 input gradient on; the slice is the
+// larger of the two.
 template <typename T>
 struct BwdBuffersT {
   float *dz, *dx2, *delta, *dy;

@@ -59,9 +59,8 @@ _MATMUL_WEIGHTS = (2, 4, 8, 10)
 # has an instantiation for these only.
 KERNEL_HEAD_DIMS = (64,)
 # Longest sequence the bf16 backward kernels take: their attention backward's
-# (attention_bwd.cuh), which keeps delta of all of a head's rows in shared
-# memory (its dQ too up to 704 rows, above them in a slice of the
-# workspace). The fp32 forms take any N.
+# (attention_bwd.cuh ``attn_bwd::MAX_N``; up to 256 rows one CTA per head with
+# dQ in shared memory, above them the split route). The fp32 forms take any N.
 KERNEL_BWD_MAX_N = KERNEL_MAX_N
 
 # Kernel launches by (entry point, embed width): the fp32 forms count under

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Times the fp32 attention forward (`flash_fwd_f32`) of this checkout's
-package at the main path's shapes ([1536, 198, 64] and [768, 198, 64],
-chip_smoke.py's ATTN_MAIN) beside copies of the package with one edit of
-its source each (VARIANTS), on one NVIDIA GPU, in turns: the tree, the
-variant, the variant, the tree. Each copy lives under the git-ignored
-`.scratch/variants/`, builds its own attention library there and is timed
-in a process of its own (chip_smoke.py's `_timed`: the median of per-call
-CUDA-event times).
+"""Times an attention kernel of this checkout's package beside copies of the
+package with one edit of its source each (VARIANTS), on one NVIDIA GPU, in
+turns: the tree, the variant, the variant, the tree. A variant names its
+kernel: the fp32 attention forward (`flash_fwd_f32`) at the main path's
+shapes ([1536, 198, 64] and [768, 198, 64], chip_smoke.py's ATTN_MAIN), or
+the bf16 attention backward (`flash_bwd`) on its split route at the student's
+448 and 512 px shapes ([96, 786, 64], [96, 1026, 64]) and at [768, 704, 64].
+Each copy lives under the git-ignored `.scratch/variants/`, builds its own
+attention library there and is timed in a process of its own (chip_smoke.py's
+`_timed`: the median of per-call CUDA-event times).
 
     python3 scripts/time_attention_variants.py           # every variant
     python3 scripts/time_attention_variants.py turns     # the named ones
 
 Prints the card's name and power limit, each run's ms, and last one JSON
-object {"rows": {variant: {"tree": [[ms teacher, ms student], ...],
+object {"rows": {variant: {"tree": [[ms at each shape], ...],
 "variant": [...]}}}. Exits 1 without a card.
 """
 
@@ -24,21 +26,38 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh"
-# name -> (file, text, its replacement)
+BWD = "deltakd_tpu_torch/ops/csrc/attention_bwd.cuh"
+# the shapes each kernel is timed at: [B*H, N, 64]
+SHAPES = {"flash_fwd_f32": ((1536, 198), (768, 198)),
+          "flash_bwd": ((96, 786), (96, 1026), (768, 704))}
+# name -> (kernel, file, text, its replacement)
 VARIANTS = {
     # the two consumer warpgroups issue their batches of wgmmas when they are
     # ready, without taking turns
-    "turns": (SRC, "constexpr bool TAKE_TURNS = true;", "constexpr bool TAKE_TURNS = false;"),
+    "turns": ("flash_fwd_f32", SRC, "constexpr bool TAKE_TURNS = true;",
+              "constexpr bool TAKE_TURNS = false;"),
     # other splits of the registers between the producer and the consumers
-    "registers 72/216": (SRC, "constexpr int PRODUCER_REGS = 120, CONSUMER_REGS = 192;",
+    "registers 72/216": ("flash_fwd_f32", SRC,
+                         "constexpr int PRODUCER_REGS = 120, CONSUMER_REGS = 192;",
                          "constexpr int PRODUCER_REGS = 72, CONSUMER_REGS = 216;"),
-    "registers 152/176": (SRC, "constexpr int PRODUCER_REGS = 120, CONSUMER_REGS = 192;",
+    "registers 152/176": ("flash_fwd_f32", SRC,
+                          "constexpr int PRODUCER_REGS = 120, CONSUMER_REGS = 192;",
                           "constexpr int PRODUCER_REGS = 152, CONSUMER_REGS = 176;"),
+    # its registers not held to three CTAs an SM
+    "registers unbounded": ("flash_bwd", BWD, "constexpr int SPLIT_CTAS = 3;",
+                            "constexpr int SPLIT_CTAS = 1;"),
+    # a diagnostic, not a design (its gradients are wrong): the split route's
+    # dK/dV half without the copies of the query tiles after the first, every
+    # pair on it (what the L2 traffic of its Q and dO costs)
+    "no next query tiles (wrong results)": (
+        "flash_bwd", BWD,
+        "    if (i + 1 < tiles) {\n      load_tile_async(Qs + (cur ^ 1) * TILE",
+        "    if (false) {\n      load_tile_async(Qs + (cur ^ 1) * TILE"),
 }
 
 
-def _time_package(pkg):
-    """Worker: the ms of flash_fwd_f32 at each main shape for the package
+def _time_package(pkg, kernel):
+    """Worker: the ms of ``kernel`` at each of its shapes for the package
     under pkg, as one JSON line."""
     sys.path.insert(0, pkg)
     sys.path.insert(1, ROOT)
@@ -50,17 +69,22 @@ def _time_package(pkg):
     if not os.path.abspath(at.__file__).startswith(pkg + os.sep):
         raise RuntimeError(f"imported {at.__file__}, not the package under {pkg}")
     ms = []
-    for bh in (chip_smoke.ATTN_MAIN["teacher"], chip_smoke.ATTN_MAIN["student"]):
-        q, k, v, _ = chip_smoke._attention_inputs((bh, chip_smoke.N_TOK, chip_smoke.HEAD_DIM), 3,
-                                                  fp32=True)
-        ms.append(chip_smoke._timed(lambda: at.kernel_flash_fwd(q, k, v), 20))
-        del q, k, v
+    for bh, n in SHAPES[kernel]:
+        fp32 = kernel.endswith("_f32")
+        q, k, v, do = chip_smoke._attention_inputs((bh, n, chip_smoke.HEAD_DIM), 3, fp32=fp32)
+        if kernel.startswith("flash_fwd"):
+            ms.append(chip_smoke._timed(lambda: at.kernel_flash_fwd(q, k, v), 20))
+        else:
+            o, lse = at.kernel_flash_fwd(q, k, v)
+            ms.append(chip_smoke._timed(lambda: at.kernel_flash_bwd(q, k, v, o, lse, do), 20))
+            del o, lse
+        del q, k, v, do
         torch.cuda.empty_cache()
     print(json.dumps(ms))
 
 
-def _run(pkg):
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--package", pkg],
+def _run(pkg, kernel):
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--package", pkg, kernel],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"timing {pkg} failed:\n{proc.stdout}{proc.stderr}")
@@ -69,7 +93,7 @@ def _run(pkg):
 
 def main() -> int:
     if sys.argv[1:2] == ["--package"]:
-        _time_package(os.path.abspath(sys.argv[2]))
+        _time_package(os.path.abspath(sys.argv[2]), sys.argv[3])
         return 0
     import torch
 
@@ -80,7 +104,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     rows = {}
     for name in sys.argv[1:] or list(VARIANTS):
-        rel, old, new = VARIANTS[name]
+        kernel, rel, old, new = VARIANTS[name]
         copy = os.path.join(ROOT, ".scratch", "variants", name.replace(" ", "_").replace("/", "_"))
         shutil.rmtree(copy, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "deltakd_tpu_torch"),
@@ -95,9 +119,10 @@ def main() -> int:
             f.write(text.replace(old, new))
         got = {"tree": [], "variant": []}
         for which, pkg in (("tree", ROOT), ("variant", copy), ("variant", copy), ("tree", ROOT)):
-            got[which].append(_run(pkg))
-            print(f"[variant] {name} {which}: flash_fwd_f32 teacher {got[which][-1][0]:.4f} ms, "
-                  f"student {got[which][-1][1]:.4f} ms", flush=True)
+            got[which].append(_run(pkg, kernel))
+            print(f"[variant] {name} {which}: {kernel} " + ", ".join(
+                f"[{bh},{n},64] {ms:.4f} ms" for (bh, n), ms in zip(SHAPES[kernel],
+                                                                    got[which][-1])), flush=True)
         rows[name] = got
     print(json.dumps({"rows": rows}))
     return 0

@@ -5,12 +5,14 @@ sort, sorted_l1 forward and backward) at the main path's shapes beside their
 plain versions, bounds and library calls, and the fused-MLP forward at every
 zoo width (D = 192, 384, 768, 1024; M = 50688, fp32 parameters as the model
 passes them) beside its library call; with --blocks also the bf16 block and
-pair kernels (rows 1, 2, 7, 8), with --fp32 the fp32 forms of rows 1-8.
+pair kernels (rows 1, 2, 7, 8), with --fp32 the fp32 forms of rows 1-8,
+with --long rows 2, 4 and 8 at 448 and 512 px.
 
     python3 scripts/time_kernels.py                  # this checkout's package
     python3 scripts/time_kernels.py --package DIR    # the package under DIR
     python3 scripts/time_kernels.py --steps 8        # and 8 train steps of each path below
     python3 scripts/time_kernels.py --fp32 --blocks --steps 4   # every row, the fp32 steps
+    python3 scripts/time_kernels.py --long --blocks  # rows 2, 4, 8 at N = 198 and the long N
 
 DIR is the root of another checkout (for example an earlier commit unpacked
 with `git archive` into a git-ignored directory), so that two commits'
@@ -33,18 +35,27 @@ DIR's own build directory (the build's seconds are printed). With
 fused-block path (chip_smoke.py's `run_train_path`: full width, batch 256,
 random weights), the steps that launch flash_bwd and the sorted_l1 forward;
 with --fp32 instead the three fp32 soft steps (fused, paired, unfused),
-and their peak allocated memory. Prints the card's name and power limit,
+and their peak allocated memory. With --long: chip_smoke.py's
+`time_long_sequences` (phase 18c: rows 2, 4, 8 at B = 32, 3 heads, N = 786
+and 1026 beside SDPA and the library blocks, rows 9-11 at [16, 1296, 384]),
+`time_split_switch` where the package has the split route (flash_bwd's
+short and split routes forced at N = 198 to 704, B*H = 96 and 768), and one
+soft-KD step at 448 px (B = 32) on the fused, paired and unfused routes
+with its peak allocated memory (`_long_step`). Prints the card's name and power limit,
 chip_smoke.py's `[time]` lines, and last one JSON object {"package": DIR,
 "rows": {name: {"ms", "plain_ms", "library_ms", "bound_ms", and for the
 value sort the same in fp32 with a "fp32_" prefix}}, "mlp_widths": {D:
 {"ms", "library_ms", "bound_ms"}}, "step_ms": {path: ms}, "peak_gib":
 {path: GiB}, "wgrad_f32": {product: [fp32 ms, bf16 ms, TF32 matmul ms]},
 "linear_f32": {product: [fp32 ms, TF32 matmul ms, fp32 matmul ms]},
-"workspace": {kernel: bytes}}. Exits 1 without a card.
+"workspace": {kernel: bytes}, "long": {"kernel N=n": {...}}, "split_switch":
+{"BHxN": [short ms, split ms]}, "long_peak_bytes": {route: bytes}}. Exits 1
+without a card.
 """
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -65,6 +76,10 @@ def main() -> int:
                     help="also time the bf16 block and pair kernels (rows 1, 2, 7, 8)")
     ap.add_argument("--fp32", action="store_true",
                     help="also time the fp32 forms of rows 1-8")
+    ap.add_argument("--long", action="store_true",
+                    help="also time rows 2, 4, 8 at 448 and 512 px (phase 18c), the bf16 "
+                         "attention backward's two routes below its switch and the 448 px "
+                         "step's peak memory")
     args = ap.parse_args()
     pkg = os.path.abspath(args.package)
     sys.path.insert(0, pkg)
@@ -148,6 +163,20 @@ def main() -> int:
                                for name in ("fused_block_bwd_f32", "fused_pair_bwd_f32")}
         result["workspace"]["fused_mlp_bwd_f32"] = fm.workspace_bytes(
             chip_smoke.M_MAIN, 192, 4 * 192, "fused_mlp_bwd_f32")
+    if args.long:
+        long_rows = chip_smoke.time_long_sequences(fb, at, so)
+        result["long"] = {f"{kernel if isinstance(kernel, str) else kernel[0]} N={n}": r
+                          for kernel, by_n in long_rows.items() for n, r in by_n.items()}
+        if "route" in inspect.signature(at.kernel_flash_bwd).parameters:
+            result["split_switch"] = chip_smoke.time_split_switch(at)
+        cfg = chip_smoke._long_config("soft", chip_smoke.LONG_STEP_PX, chip_smoke.LONG_STEP_B)
+        result["long_peak_bytes"] = {}
+        for route in ("fused", "paired", "unfused"):
+            torch.cuda.empty_cache()
+            kept = chip_smoke._long_step((fb, so, at, fm), cfg, route)
+            result["long_peak_bytes"][route] = kept[3]
+            del kept
+        torch.cuda.empty_cache()
     if args.steps:
         mods = (fb, so, at, fm)
         run = chip_smoke.run_train_path

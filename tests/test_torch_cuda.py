@@ -5,7 +5,10 @@ Run on a machine with an NVIDIA GPU (no JAX needed there):
 Without a card the tests skip: a CUDA kernel has no CPU mode. The fused
 block: small shape (D=128, 2 heads of 64, N=18) with drop-path scales of 0
 and 1/keep, and the forward and the backward (with and without a feature
-cotangent) at N in (50, 197, 198, 578, 786, 1026) for D in (192, 384, 768); bf16 operands, so
+cotangent) at N in (50, 197, 198, 578, 786, 1026) for D in (192, 384, 768), and at
+B = 32, D = 192 for N = 786 and 1026 beside flash_bwd there (the attention backward's
+split route at 96 heads), whose split route forced at N = 198 and 704 gives the bits of
+its short route, forced too; bf16 operands, so
 the tolerance is 2e-2 of the largest reference value. The GEMM alone: the
 forward's products against F.linear plus their epilogue, the backward's input
 gradient with the GELU derivative as `mul` and its weight gradients against
@@ -175,8 +178,8 @@ def test_block_backward_sequence_lengths_on_card(width, heads, n_tok):
             _within(dws[n], r_dws[n])
             assert torch.equal(dws[n], dws2[n])
         assert torch.equal(dx, dx2)
-    # a sequence longer than the attention backward's shared-memory delta holds
-    # is refused before any launch (above 704 rows its dQ lives in the workspace)
+    # a sequence longer than the bf16 backward's limit (KERNEL_BWD_MAX_N) is
+    # refused before any launch
     long_x = torch.zeros(1, fb.KERNEL_BWD_MAX_N + 1, width, device="cuda", dtype=torch.bfloat16)
     fb.reset_launches()
     with pytest.raises(ValueError, match="sequence length"):
@@ -395,6 +398,70 @@ def test_attention_kernels_match_plain_version_on_card(shape):
     long = torch.zeros(1, 1, at.max_sequence() + 1, 64, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError):
         at.kernel_flash_bwd(long, long, long, long, long[..., 0].float(), long)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tok", [786, 1026])
+def test_long_attention_backward_at_96_heads_on_card(n_tok):
+    """The bf16 attention backward's split route (N > 256) at B = 32 and 3
+    heads (B*H = 96: the student at 448 and 512 px): flash_bwd and the block
+    backward (D = 192, drop-path scales with zeros) within the plain
+    version's tolerance, two runs the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(n_tok + 25)
+    shape = (32, 3, n_tok, 64)
+    q, k = (2 * torch.randn(shape, generator=g).cuda().bfloat16() for _ in range(2))
+    v, do = (torch.randn(shape, generator=g).cuda().bfloat16() for _ in range(2))
+    o, lse = at.kernel_flash_fwd(q, k, v)
+    at.reset_launches()
+    grads = at.kernel_flash_bwd(q, k, v, o, lse, do)
+    assert at.LAUNCHES == {("flash_bwd", 96): 1}
+    for a, b, c in zip(grads, at._plain_bwd(q, k, v, o, lse, do),
+                       at.kernel_flash_bwd(q, k, v, o, lse, do)):
+        _within(a, b)
+        assert torch.equal(a, c)
+    del q, k, v, do, o, lse, grads
+    params = _block_params(192, g)
+    x, g_out = (torch.randn(32, n_tok, 192, generator=g).cuda().bfloat16() for _ in range(2))
+    drop = torch.where(torch.arange(32) % 4 == 0, 0.0, 1 / 0.9).cuda()
+    kw = dict(num_heads=3, scale_attn=drop, scale_mlp=drop.flip(0))
+    dx, dws = fb.kernel_block_bwd(x, params, g_out, None, **kw)
+    dx2, dws2 = fb.kernel_block_bwd(x, params, g_out, None, **kw)
+    r_dx, r_dws = fb.reference_vit_block_bwd(x, params, g_out, None, **kw)
+    _within(dx, r_dx)
+    assert torch.equal(dx, dx2)
+    for n in fb.PARAM_NAMES:
+        _within(dws[n], r_dws[n])
+        assert torch.equal(dws[n], dws2[n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n_tok", [(96, 198), (96, 704)])
+def test_split_route_gives_the_short_routes_bits_on_card(bh, n_tok):
+    """The bf16 attention backward's two routes, each forced: the same
+    products and sums in the same order, so the split route's dq, dk and dv
+    come out with the short route's bits. The forced routes are bf16 only,
+    the short one up to 704 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(bh + n_tok)
+    shape = (bh, n_tok, 64)
+    q, k = (1.5 * torch.randn(shape, generator=g).cuda().bfloat16() for _ in range(2))
+    v, do = (torch.randn(shape, generator=g).cuda().bfloat16() for _ in range(2))
+    o, lse = at.kernel_flash_fwd(q, k, v)
+    at.reset_launches()
+    short = at.kernel_flash_bwd(q, k, v, o, lse, do, route="short")
+    split = at.kernel_flash_bwd(q, k, v, o, lse, do, route="split")
+    assert at.LAUNCHES == {("flash_bwd_short", bh): 1, ("flash_bwd_split", bh): 1}
+    for a, b in zip(split, short):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="bf16 only"):
+        at.kernel_flash_bwd(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                            route="split")
+    long = torch.zeros(1, 1, at.SHORT_ROUTE_MAX_N + 1, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="short route"):
+        at.kernel_flash_bwd(long, long, long, long, long[..., 0].float(), long, route="short")
 
 
 def _mlp_operands(M, D, F=None):
