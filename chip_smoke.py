@@ -17,6 +17,7 @@
     python3 chip_smoke.py --learning-checks  # only phase 16 (--seeds N: 16a, 16b at N seeds)
     python3 chip_smoke.py --outcome-checks   # only phase 17 (--seeds N: 17b at N seeds)
     python3 chip_smoke.py --long-sequence-checks  # only phase 18 (448 px and up)
+    python3 chip_smoke.py --past-limit-checks     # only phase 18d's holds and bits
     python3 chip_smoke.py --faults --backward-checks --run-as --learning-checks
                                              # diagnostic: the backward's faults under
                                              # phase 16 (which of them it catches alone)
@@ -350,7 +351,19 @@ Phases, each of which fails the run:
      versions, bounds and library calls and scaled_dot_product_attention's
      forward+backward at the same shape, and flash_bwd's short and split
      routes, each forced, at N = 198 to 704 for B*H = 96 and 768 (the
-     switch between them at 256 rows).
+     switch between them at 256 rows); 18d past the old limits: the value
+     sort (four dtypes, NaN, +-inf, -0.0) and sorted_l1 (bf16, fp32; ties,
+     +0.0/-0.0, and NaN) on the long route at n = 4097, 8192, 16641 and
+     65536 against their plain versions, exact, two runs the same bits;
+     rows 3 and 4 at [1, 47105, 64] against the plain versions in 1024-row
+     chunks; rows 3 and 4 at B*H = 65,537 and row 1 at 21,846 x 3 heads (N
+     = 8); the bits of rows 1, 3 and 9-11 at the main shapes and of the
+     sorts at n = 1296 and 4096 against the parent's (PARENT_BITS); one
+     WassKD-l1 step at 1040 px (B = 8, 4,225 patch rows) and one soft step
+     at 3488 px (B = 1, 47,526 tokens) at full width and depth on the fused
+     route, finite, with their launches; rows 9-11 at n = 4096 to 65536 and
+     rows 3 and 4 at [3, 47526, 64] and [65537, 8, 64] timed beside their
+     plain versions, bounds and torch.sort / SDPA.
 It prints a JSON line with the kernels' numbers, then, as the last line,
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints no
 result.
@@ -1556,8 +1569,10 @@ def time_sort_kernels(so, shape=SORT_MAIN):
     the sort of t with autograd's index scatter as the backward (its time is
     forward+backward minus forward). Bound: the larger of the bytes each
     kernel must move (inputs, outputs and the int8 residual once each) over
-    the memory rate, and the network's compare-exchanges at this n (two
-    operations each) over the fp32 rate."""
+    the memory rate, and the network's compare-exchanges at this n (n / 2 a
+    stage, over the ceil(log2 n) (ceil(log2 n) + 1) / 2 stages of a bitonic
+    sort; two operations each: the padding's exchanges are not counted) over
+    the fp32 rate."""
     import torch
 
     B, n, d = shape
@@ -1566,9 +1581,8 @@ def time_sort_kernels(so, shape=SORT_MAIN):
     _, sign = so.kernel_sorted_l1_fwd(s, t)
     scale = torch.ones((), device="cuda") / numel
     s_grad = s.clone().requires_grad_(True)
-    n_pad = 1 << (n - 1).bit_length()
-    stages = sum(range(1, n_pad.bit_length()))
-    exchanges = B * d * (n_pad // 2) * stages
+    levels = (n - 1).bit_length()
+    exchanges = B * d * (n // 2) * levels * (levels + 1) // 2
 
     def lib_fwd():
         return so.sorted_l1_reference(s_grad, t, 1)
@@ -6273,6 +6287,364 @@ def run_long_sequences(mods, smi):
     return by_path, rows, worst
 
 
+# ---------------------------------------------------------------------------
+# Phase 18d: past the old limits (the sorts past 4,096 rows, the attention
+# past 47,104 tokens and past 65,535 batch x heads)
+# ---------------------------------------------------------------------------
+
+# the sorts' long route: a row past 4,096, two runs, WassKD-l1's 16,641 rows
+# at 2064 px, 16 runs; (B, d): 16-byte loads, and d < the 4 columns of a block
+PAST_SORT_N = (4097, 8192, 16641, 65536)
+PAST_SORT_D = ((2, 96), (1, 3))
+PAST_ATTENTION_N = 47105          # a row past the old cap, B*H = 1
+PAST_HEADS = (65537, 8)           # row 3 alone: B*H, N
+PAST_BLOCK = (192, 3, 21846, 8)   # row 1: D, H, B (B*H = 65,538), N
+PAST_WASSKD_PX, PAST_WASSKD_B = 1040, 8   # 4,225 patch rows, 4,227 tokens
+PAST_SOFT_PX, PAST_SOFT_B = 3488, 1       # 47,526 tokens
+# The kernels at the shapes those two steps give them: sorted_l1 on the
+# aligned features [B, 4225, 384] bf16; the attention at [B x heads, N, 64],
+# the student's 3 heads forward and backward, the teacher's 6 forward only
+PAST_PATH_SORT = (PAST_WASSKD_B, (PAST_WASSKD_PX // 16) ** 2, 384)
+PAST_PATH_ATTENTION = tuple((B * H, (px // 16) ** 2 + 2, H == 3)
+                            for px, B in ((PAST_WASSKD_PX, PAST_WASSKD_B),
+                                          (PAST_SOFT_PX, PAST_SOFT_B)) for H in (3, 6))
+# 18d's times: the sorts at [B, n, 384] (n = 4096 the last of the short
+# route, 4,225 WassKD-l1's rows at 1040 px), the attention at 3488 px's length
+PAST_SORT_TIMES = ((8, 4096, 384), (8, 4225, 384), (2, 8192, 384), (1, 16641, 384),
+                   (1, 65536, 384))
+PAST_ATTENTION_TIMES = ((3, 47526), (PAST_HEADS[0], PAST_HEADS[1]))   # (B*H, N)
+# The bits of rows 1, 3, 9, 10 and 11 at the main shapes and of rows 9-11 at
+# n = 1296 and 4096 (main_shape_bits: sha256 of each output, inputs drawn with
+# numpy) as the kernels before the long route and the flattened grid give
+# them (scripts/time_kernels.py --bits on the parent commit, e991dd9, NVIDIA
+# H100 80GB HBM3). A change that alters them on purpose pins them anew.
+PARENT_BITS = {
+    "fused_block_fwd D=384": "da4204781d6a1f89", "fused_block_fwd D=192": "394c65186ffba799",
+    "flash_fwd [1536,198,64]": "3bdc054aac295e0c",
+    "bitonic_sort [256,196,384]": "6cf03d07c8685132",
+    "sorted_l1_fwd [256,196,384]": "bf4d7be32554733c",
+    "sorted_l1_bwd [256,196,384]": "2f42d47fc8d25aaf",
+    "bitonic_sort [16,1296,384]": "4d18ef8273c0e99c",
+    "sorted_l1_fwd [16,1296,384]": "04459dcbfe2dec0c",
+    "sorted_l1_bwd [16,1296,384]": "a9824934bdf79eb1",
+    "bitonic_sort [4,4096,384]": "ef9caae130fa5598",
+    "sorted_l1_fwd [4,4096,384]": "df120bc567f1158f",
+    "sorted_l1_bwd [4,4096,384]": "f9e67c3b8ac259d5"}
+
+
+def _hold_sort_nan(so, worst, shape, dtype):
+    """sorted_l1's kernels on `_sort_inputs` with NaN (sign bit clear) planted
+    in a hundredth of s and of t: the loss NaN on both sides, the signs and
+    the gradient equal to the plain sort's with sign(NaN) read as 0 (the
+    kernels' rule: a NaN's difference has sign 0), two runs the same bits."""
+    import torch
+
+    s, t = _sort_inputs(shape, dtype, shape[1] + shape[2] + 1)
+    g = torch.Generator().manual_seed(shape[1])
+    for x in (s, t):
+        at = torch.randperm(x.numel(), generator=g)[: max(3, x.numel() // 100)].cuda()
+        x.view(-1)[at] = float("nan")
+        x.copy_(torch.where(torch.isnan(x), x.abs(), x))
+    total, sign = so.kernel_sorted_l1_fwd(s, t)
+    total2, sign2 = so.kernel_sorted_l1_fwd(s, t)
+    s_sorted, idx = torch.sort(s, dim=1, stable=True)
+    diff = s_sorted.float() - torch.sort(t, dim=1).values.float()
+    ref = torch.zeros(s.shape, dtype=torch.int8, device=s.device)
+    ref.scatter_(1, idx, torch.nan_to_num(torch.sign(diff), nan=0.0).to(torch.int8))
+    scale = torch.ones((), device="cuda") / s.numel()
+    g_k, g_r = so.kernel_sorted_l1_bwd(sign, scale, dtype), so._plain_sl1_bwd(ref, scale, dtype)
+    torch.cuda.synchronize()
+    tag = f"{tuple(shape)} {str(dtype).split('.')[-1]} with NaN"
+    checks = [("loss NaN", math.isnan(total.item()) and math.isnan(diff.abs().sum().item())),
+              ("signs equal the plain sort's", torch.equal(sign, ref)),
+              ("gradient equals the plain version's", torch.equal(g_k, g_r)),
+              ("two runs give the same bits", torch.equal(sign, sign2)
+               and math.isnan(total2.item()))]
+    print(f"[past] sort {tag} ({int(torch.isnan(s).sum())} NaN in s): "
+          + "; ".join(f"{name}: {'ok' if ok else 'FAIL'}" for name, ok in checks))
+    for name, ok in checks:
+        if not ok:
+            raise AssertionError(f"sort kernels {tag}: {name} failed")
+
+
+def _hold_attention_rows(at, worst, shape, backward=True):
+    """Row 3 (and with ``backward`` row 4) at a length whose [N, N] scores
+    may not fit: against the plain versions in query-row chunks
+    (`_plain_fwd_rows`, `_plain_bwd_rows`), two runs the same bits."""
+    import torch
+
+    q, k, v, do = _attention_inputs(shape, shape[0] + shape[1])
+    o, lse = at.kernel_flash_fwd(q, k, v)
+    o2, lse2 = at.kernel_flash_fwd(q, k, v)
+    r_o, r_lse = at._plain_fwd_rows(q, k, v)
+    torch.cuda.synchronize()
+    tag = f"{tuple(shape)} (plain in 1024-row chunks)"
+    _hold_all(worst, "flash_fwd", tag, [("o", o, r_o, None), ("lse", lse, r_lse, LSE_TOL)],
+              torch.equal(o, o2) and torch.equal(lse, lse2))
+    del r_o, r_lse
+    if backward:
+        grads = at.kernel_flash_bwd(q, k, v, o, lse, do)
+        grads2 = at.kernel_flash_bwd(q, k, v, o, lse, do)
+        r_grads = at._plain_bwd_rows(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        _hold_all(worst, "flash_bwd", tag,
+                  [(n, a, b, None) for n, a, b in zip(("dq", "dk", "dv"), grads, r_grads)],
+                  all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+
+
+def check_past_limits(fb, at, so, worst):
+    """Phase 18d's holds: rows 9 and 10 (and 11 behind them) on the long
+    route at n = 4097, 8192, 16641, 65536 for (B, d) = (2, 96) and (1, 3):
+    the value sort in four dtypes with NaN, +-inf and -0.0 (torch.sort's
+    values, the NaNs last), sorted_l1 in bf16 and fp32 with ties and
+    +0.0/-0.0 (signs and gradient exact, the loss to LOSS_TOL) and with NaN;
+    rows 3 and 4 at [1, 47105, 64] against the plain versions in row chunks;
+    rows 3 and 4 at B*H = 65,537 and row 1 at B*H = 65,538 (N = 8), where a
+    grid's y would stop at 65,535; and the kernels at the shapes the 1040 px
+    WassKD-l1 and 3488 px soft steps give them (PAST_PATH_SORT, sorted_l1 in
+    bf16, and PAST_PATH_ATTENTION). Two runs the same bits each."""
+    import torch
+
+    t0 = time.perf_counter()
+    for n in PAST_SORT_N:
+        for B, d in PAST_SORT_D:
+            for dtype in (torch.bfloat16, torch.float16, torch.float32, torch.int32):
+                _hold_value_sort(so, worst, (B, n, d), dtype)
+            for dtype in (torch.bfloat16, torch.float32):
+                _hold_sort(so, worst, (B, n, d), dtype)
+                _hold_sort_nan(so, worst, (B, n, d), dtype)
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _hold_attention_rows(at, worst, (1, PAST_ATTENTION_N, HEAD_DIM))
+    _hold_attention(at, worst, (*PAST_HEADS, HEAD_DIM))
+    D, H, B, n = PAST_BLOCK
+    check_block_forward_shapes(fb, worst, (n,), ((D, H),), B)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    _hold_sort(so, worst, PAST_PATH_SORT, torch.bfloat16)
+    for bh, n, backward in PAST_PATH_ATTENTION:
+        _hold_attention_rows(at, worst, (bh, n, HEAD_DIM), backward)
+        torch.cuda.empty_cache()
+    print(f"[past] 18d holds: sorts {t1 - t0:.1f} s, attention and blocks "
+          f"{t2 - t1:.1f} s, at the steps' shapes {time.perf_counter() - t2:.1f} s")
+
+
+def _np_block_inputs(D, H, B, n, seed):
+    """`_block_inputs`' shapes and scales drawn with numpy (the same draws on
+    any torch), on the card."""
+    import numpy as np
+    import torch
+
+    from deltakd_tpu_torch.ops.fused_block import PARAM_NAMES
+
+    rng = np.random.RandomState(seed)
+
+    def r(*shape, sc):
+        return torch.from_numpy((rng.randn(*shape) * sc).astype(np.float32))
+
+    F = 4 * D
+    wqkv = torch.cat([r(2 * D, D, sc=2 / math.sqrt(D)), r(D, D, sc=1 / math.sqrt(D))])
+    ws = [1 + r(D, sc=.1), r(D, sc=.1), wqkv, r(3 * D, sc=.02),
+          r(D, D, sc=1 / math.sqrt(D)), r(D, sc=.02), 1 + r(D, sc=.1), r(D, sc=.1),
+          r(F, D, sc=1 / math.sqrt(D)), r(F, sc=.02), r(D, F, sc=1 / math.sqrt(F)),
+          r(D, sc=.02)]
+    params = {name: w.cuda() for name, w in zip(PARAM_NAMES, ws)}
+    x = r(B, n, D, sc=1.0).bfloat16().cuda()
+    scales = torch.from_numpy((rng.rand(2, B) < 0.9).astype(np.float32) / 0.9).cuda()
+    return params, x, scales[0], scales[1]
+
+
+def main_shape_bits(fb, at, so):
+    """{output: sha256 digest} of rows 1 (the teacher's forward, D = 384, and
+    the student's with its features, D = 192, at [256, 198, D]), 3 (flash_fwd's
+    o and lse at [1536, 198, 64]) and 9-11 (the value sort, sorted_l1's sum,
+    signs and gradient, bf16) at [256, 196, 384], [16, 1296, 384] and [4,
+    4096, 384]: inputs drawn with numpy, so that the digests hold across
+    torch builds."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    def card(a, dtype=torch.bfloat16):
+        return torch.from_numpy(a.astype(np.float32)).to(dtype).cuda()
+
+    out = {}
+    for D, H, feat in ((384, 6, False), (192, 3, True)):
+        p, x, sa, sm = _np_block_inputs(D, H, B_MAIN, N_TOK, D)
+        y, f = fb.kernel_block_fwd(x, p, num_heads=H, scale_attn=sa, scale_mlp=sm,
+                                   need_features=feat)
+        out[f"fused_block_fwd D={D}"] = digest(*([y, f] if feat else [y]))
+    rng = np.random.RandomState(3)
+    q, k, v = (card(1.5 * rng.randn(ATTN_MAIN["teacher"], N_TOK, HEAD_DIM)) for _ in range(3))
+    out["flash_fwd [1536,198,64]"] = digest(*at.kernel_flash_fwd(q, k, v))
+    for shape in (SORT_MAIN, (16, 1296, 384), (4, 4096, 384)):
+        rng = np.random.RandomState(shape[1])
+        s, t = (card(np.round(rng.randn(*shape) * 8) / 8) for _ in range(2))
+        s[:, 2], s[:, 3] = 0.0, -0.0
+        tag = f"[{','.join(map(str, shape))}]"
+        out[f"bitonic_sort {tag}"] = digest(so.bitonic_sort_kernel(s))
+        total, sign = so.kernel_sorted_l1_fwd(s, t)
+        out[f"sorted_l1_fwd {tag}"] = digest(total.reshape(1), sign)
+        g = so.kernel_sorted_l1_bwd(sign, torch.ones((), device="cuda") / s.numel(),
+                                    torch.bfloat16)
+        out[f"sorted_l1_bwd {tag}"] = digest(g)
+    torch.cuda.synchronize()
+    return out
+
+
+def check_parent_bits(fb, at, so):
+    """Phase 18d: `main_shape_bits` against PARENT_BITS (rows 1, 3, 9-11 at
+    the main shapes and the sorts up to 4,096 rows give the bits they gave
+    before the long route and the flattened grid)."""
+    got = main_shape_bits(fb, at, so)
+    diff = sorted(k for k in PARENT_BITS if got.get(k) != PARENT_BITS[k])
+    print(f"[past] main-shape bits of {len(got)} outputs against the parent's: "
+          + ("the same bits ok" if not diff else f"different bits in {diff} FAIL"))
+    if diff:
+        raise AssertionError(f"not the parent's bits: {diff}")
+
+
+def run_past_limit_steps(mods):
+    """Phase 18d's steps at full width and depth (DeiT-S-distilled teacher,
+    DeiT-Ti-distilled student, bf16, the fused route, seeded random weights)
+    through load_teacher_student and build_train_step: one WassKD-l1 step at
+    1040 px (B = 8; 4,225 patch rows, the sorts' long route; 4,227 tokens,
+    the attention's split route) and one soft-KD step at 3488 px (B = 1;
+    47,526 tokens, past the old 47,104): finite metrics and each route's
+    launches. Returns the launches by path and each step's peak bytes."""
+    import torch
+
+    by_path, peaks = {}, {}
+    # three sorted_l1 calls a step, on the long route: its runs, stages and
+    # finishes each a launch
+    rows = (PAST_WASSKD_PX // 16) ** 2
+    for kd, px, B, extra in (("wasskd", PAST_WASSKD_PX, PAST_WASSKD_B,
+                              dict(sorted_l1_fwd=3 * mods[1].launches_per_call(rows, 2),
+                                   sorted_l1_bwd=3)),
+                             ("soft", PAST_SOFT_PX, PAST_SOFT_B, {})):
+        torch.cuda.empty_cache()
+        _, launches, kept, peak = _long_step(mods, _long_config(kd, px, B), "fused")
+        del kept
+        expect = dict(_block_launches(1), **extra)
+        if launches != expect:
+            raise AssertionError(f"{kd} step at {px} px: launches {launches}, expected {expect}")
+        by_path[f"past fused {kd} {px}px"] = launches
+        peaks[f"{kd} {px}px"] = peak
+    torch.cuda.empty_cache()
+    return by_path, peaks
+
+
+def _sdpa_times(q4, k4, v4, do4, iters):
+    """(forward ms without autograd, forward+backward ms, backend) of one
+    F.scaled_dot_product_attention call on [B, H, N, 64]: PyTorch's own
+    choice of backend, or where that fails (its cuDNN graph at 65,537
+    heads) the math backend."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+
+    def times():
+        with torch.no_grad():
+            fwd = _timed(lambda: F.scaled_dot_product_attention(q4, k4, v4), iters)
+        both = _timed(lambda: torch.autograd.grad(F.scaled_dot_product_attention(*leaves),
+                                                  leaves, do4), iters)
+        return fwd, both
+
+    try:
+        return (*times(), "default")
+    except RuntimeError as e:
+        print(f"[time past] SDPA at {tuple(q4.shape)} failed on its default backend "
+              f"({str(e).splitlines()[0][:120]}); timing the math backend")
+    with sdpa_kernel(SDPBackend.MATH):
+        return (*times(), "math")
+
+
+def time_past_limits(at, so):
+    """Phase 18d's times: rows 9-11 (`time_sort_kernels`) at PAST_SORT_TIMES
+    and rows 3 and 4 at PAST_ATTENTION_TIMES beside their plain versions (in
+    row chunks at 47,526), bounds and SDPA (forward; forward+backward less
+    forward). Returns {kernel: {shape: row}}."""
+    import torch
+
+    rows = {}
+    for shape in PAST_SORT_TIMES:
+        for kernel, row in time_sort_kernels(so, shape).items():
+            rows.setdefault(kernel, {})["x".join(map(str, shape))] = row
+        torch.cuda.empty_cache()
+    for bh, n in PAST_ATTENTION_TIMES:
+        q, k, v, do = _attention_inputs((bh, n, HEAD_DIM), 3)
+        o, lse = at.kernel_flash_fwd(q, k, v)
+        q4, k4, v4, do4 = (t.reshape(1, bh, n, HEAD_DIM) for t in (q, k, v, do))
+        chunked = n * n * 4 > 2**31
+        plain_fwd = at._plain_fwd_rows if chunked else at._plain_fwd
+        plain_bwd = at._plain_bwd_rows if chunked else at._plain_bwd
+        iters = 3 if chunked else 10
+        sdpa_fwd, sdpa_both, backend = _sdpa_times(q4, k4, v4, do4, iters)
+        cases = {"flash_fwd": (lambda: at.kernel_flash_fwd(q, k, v),
+                               lambda: plain_fwd(q, k, v), sdpa_fwd,
+                               _attention_fwd_bound(bh, n)),
+                 "flash_bwd": (lambda: at.kernel_flash_bwd(q, k, v, o, lse, do),
+                               lambda: plain_bwd(q, k, v, o, lse, do), sdpa_both - sdpa_fwd,
+                               _attention_bwd_bound(bh, n))}
+        for kernel, (fn, plain, library_ms, bound) in cases.items():
+            row = dict(ms=_timed(fn, iters), plain_ms=_timed(plain, 2), library_ms=library_ms,
+                       library_backend=backend, **bound)
+            rows.setdefault(kernel, {})[f"{bh}x{n}x{HEAD_DIM}"] = row
+            print(f"[time past] {kernel} [{bh},{n},{HEAD_DIM}]: {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.3f} ms{' (row chunks)' if chunked else ''}, SDPA "
+                  f"({backend}) {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})")
+        del q, k, v, do, o, lse, q4, k4, v4, do4, cases
+        torch.cuda.empty_cache()
+    return rows
+
+
+def print_past_workspace(fb, at):
+    """Phase 18d: the attention backward's workspace at the 1040 px and 3488
+    px lengths, B*H of the student's and the teacher's heads: the bf16 split
+    route's (O(B*H*N)) beside the fp32 form's, whose dQ partials, [key
+    tile][B*H][N][64] fp32, grow as N^2; and the fp32 block backward's,
+    which holds it in dhpre's slice."""
+    lib = at._library()
+    for B, N in ((PAST_WASSKD_B, PAST_WASSKD_PX ** 2 // 256 + 2),
+                 (PAST_SOFT_B, PAST_SOFT_PX ** 2 // 256 + 2)):
+        for H in (3, 6):
+            dq = (N + 63) // 64 * B * H * N * 64 * 4
+            print(f"[workspace past] attention backward B={B} H={H} N={N}: bf16 "
+                  f"{lib.dk_flash_bwd_workspace(B, H, N)} bytes, fp32 "
+                  f"{lib.dk_flash_bwd_f32_workspace(B, H, N)} bytes (its dQ partials {dq}); "
+                  f"fp32 block backward (D = {64 * H}) "
+                  f"{fb.workspace_bytes('fused_block_bwd_f32', (B, N, 64 * H), H, 256 * H)} "
+                  f"bytes, bf16 {fb.workspace_bytes('fused_block_bwd', (B, N, 64 * H), H, 256 * H)}")
+
+
+def run_past_limits(mods, smi):
+    """Phase 18d: the holds, the main-shape bits, the two steps, the times.
+    Returns (launches by path, times by kernel, largest errors)."""
+    fb, so, at, _ = mods
+    t0 = time.perf_counter()
+    worst = {}
+    check_past_limits(fb, at, so, worst)
+    check_parent_bits(fb, at, so)
+    print_past_workspace(fb, at)
+    by_path, peaks = run_past_limit_steps(mods)
+    rows = time_past_limits(at, so)
+    print(f"[past] {smi}: phase 18d took {time.perf_counter() - t0:.1f} s; steps' peak "
+          f"allocated bytes {peaks}; largest errors "
+          + ", ".join(f"{k if isinstance(k, str) else f'{k[0]}[{k[1]}]'} {v:.3e}"
+                      for k, v in sorted(worst.items(), key=str)))
+    return by_path, rows, worst
+
+
 # What two planted faults of phase 14a add to a source: a kernel that rounds
 # n fp32 values to bf16 precision in place, and its launch on the stream `st`.
 ROUND_KERNEL = ("__global__ void fault_round_bf16(float* p, long long n) {\n"
@@ -6521,6 +6893,29 @@ FAULTS = (
      (("  const int p0 = kRun * run + 32 * lane;",
        "  if (mask == kRun) return;\n  const int p0 = kRun * run + 32 * lane;"),),
      "--long-sequence-checks"),
+    # past the old limits (phase 18d's holds): the long sort's schedule
+    # without its stride-4096 stage (n_pad >= 16384), the long route's padding
+    # keyed as the smallest key (it merges in front of the real rows), and the
+    # attention forward's CTA reading K and V of the head after the one whose
+    # queries and output it holds (a head index off by one in the 1-D grid;
+    # a shift of the whole index would only permute the work)
+    ("a merge stage skipped above 4,096 rows (the long sort's stride-4096 stage)",
+     "deltakd_tpu_torch/ops/sort.py",
+     (("        while j >= _CHUNK:", "        while j > _CHUNK:"),), "--past-limit-checks"),
+    ("the long route's padding keyed below the real keys", "deltakd_tpu_torch/ops/csrc/sort.cu",
+     (("v[r] = long_key(in ? key_image<true>(xs[c * LD + row]) : Bits<T>::kMask, r0 + row);",
+       "v[r] = long_key(in ? key_image<true>(xs[c * LD + row]) : 0u, r0 + row);"),
+      ("u[r] = live && row < rows ? key_image(xs[c * LD + row]) : Bits<T>::kMask;",
+       "u[r] = live && row < rows ? key_image(xs[c * LD + row]) : 0u;")),
+     "--past-limit-checks"),
+    ("the attention forward reading K and V of the neighbouring head",
+     "deltakd_tpu_torch/ops/csrc/attention_fwd.cuh",
+     (("  const bf16* kh = p.k + b * p.k_sb + h * p.k_sh;\n"
+       "  const bf16* vh = p.v + b * p.v_sb + h * p.v_sh;\n",
+       "  const int nb = (bh + 1) % (p.B * p.H);\n"
+       "  const bf16* kh = p.k + nb / p.H * p.k_sb + nb % p.H * p.k_sh;\n"
+       "  const bf16* vh = p.v + nb / p.H * p.v_sb + nb % p.H * p.v_sh;\n"),),
+     "--past-limit-checks"),
 )
 
 
@@ -6600,6 +6995,7 @@ def main() -> int:
     learning_checks = "--learning-checks" in sys.argv[1:]
     outcome_checks = "--outcome-checks" in sys.argv[1:]
     long_checks = "--long-sequence-checks" in sys.argv[1:]
+    past_checks = "--past-limit-checks" in sys.argv[1:]
     seeds = int(sys.argv[sys.argv.index("--seeds") + 1]) if "--seeds" in sys.argv else 1
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -6629,6 +7025,7 @@ def main() -> int:
                         if fp32_checks else ["fused_block_fwd", "fused_block_bwd", "attention",
                                              "fused_mlp", "sort"] if tp_checks
                         else ["fused_block_fwd", "fused_block_bwd"] if outcome_checks
+                        else ["fused_block_fwd", "sort", "attention"] if past_checks
                         else _build.SOURCES)
     lap = _Laps()
     print(f"[build] sources {list(_build.SOURCES)}, compiled {sorted(logs)} in "
@@ -6677,6 +7074,11 @@ def main() -> int:
         return 0
     if long_checks:      # phase 18 alone (and a planted-fault copy of the long routes)
         run_long_sequences(mods, smi)
+        run_past_limits(mods, smi)
+        return 0
+    if past_checks:      # a planted-fault copy: phase 18d's holds and bits only
+        check_past_limits(fb, at, so, worst)
+        check_parent_bits(fb, at, so)
         return 0
     if outcome_checks:   # phase 17 alone (--seeds N: 17b at seeds 0..N-1)
         tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -6869,6 +7271,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     long_paths, long_rows, long_worst = run_long_sequences(mods, smi)
     by_path.update(long_paths)
+    past_paths, past_rows, past_worst = run_past_limits(mods, smi)
+    by_path.update(past_paths)
     lap("phase 18")
     print("[slice] step ms by path: "
           + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items()))
@@ -6932,6 +7336,18 @@ def main() -> int:
                    if kernel in SPLIT_ROUTE_KERNELS else {}),
                 "max_abs_err": max(v for k, v in long_worst.items()
                                    if (k if isinstance(k, str) else k[0]) == kernel)}
+        past = {"by_shape": past_rows.get(kernel, {}),
+                "launches_by_path": {path: n for path, counts in past_paths.items()
+                                     if (n := sum(c for k, c in counts.items()
+                                                  if (k[0] if isinstance(k, tuple) else k)
+                                                  == kernel))},
+                "max_abs_err": max([v for k, v in past_worst.items()
+                                    if (k if isinstance(k, str) else k[0]) == kernel],
+                                   default=None)}
+        if any(past.values()):
+            # phase 18d: the row past the old limits (the sorts past 4,096 rows,
+            # the attention at 47,526 tokens and past 65,535 batch x heads)
+            kernels[-1]["past_old_limits"] = past
         if kernel in ATTENTION_FWD_F32_ROWS:
             # the warp-specialised fp32 attention forward (attention_fwd.cuh), in
             # flash_fwd_f32 and in every fp32 block and pair forward and recompute

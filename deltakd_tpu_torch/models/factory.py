@@ -21,7 +21,6 @@ from deltakd_tpu_torch.kd.losses import FEATURE_TYPES, feature_indices
 from deltakd_tpu_torch.models.import_timm import load_state_dict, timm_to_torch
 from deltakd_tpu_torch.models.registry import get_model_config
 from deltakd_tpu_torch.models.vit import VisionTransformer, init_weights
-from deltakd_tpu_torch.ops import attention as _attention
 from deltakd_tpu_torch.ops import sort as _sort
 from deltakd_tpu_torch.ops.attention import best_attention_fn
 from deltakd_tpu_torch.ops.fused_block import best_block_pair_fn, fused_vit_block
@@ -97,25 +96,20 @@ def check_mlp_shards(name: str, num_classes: int, size: int, dtype: torch.dtype)
             f"kernel takes (ops/fused_mlp.py forward_takes)")
 
 
-def check_sequence_lengths(config, num_classes: int, dtype: torch.dtype,
-                           kernels_on: bool) -> None:
+def check_sequence_lengths(config, num_classes: int, kernels_on: bool) -> None:
     """Refuses, with a ValueError that names the input size, a config whose
-    sequences pass a kernel's length limit: the tokens of either model on the
-    bf16 kernel routes (``ops.attention.KERNEL_MAX_N``, the attention
-    backward's delta of all rows in shared memory; 47,104 tokens, some 3,472
-    px at patch 16) and WassKD-l1's patch rows (``ops.sort.KERNEL_MAX_N``,
-    4,096: 1,024 px at patch 16). The JAX package takes any size; below these
-    limits the port's kernels take every size it does."""
+    WassKD-l1 patch rows pass the sort kernels' limit
+    (``ops.sort.KERNEL_MAX_N``, 2**30 rows: their padded column length,
+    positions and rows are 32-bit ints; some 524,000 px at patch 16, far
+    past what one card's memory holds). The JAX package takes any size, and
+    so do the port's other kernels: the attention forward and backward take
+    any sequence length and any batch x heads (``ops.attention``)."""
+    if not kernels_on or config.distillation_type != "wasskd" or config.wasskd_type != "l1":
+        return
     size = config.input_size
     for name in (config.teacher_model, config.student_model):
         cfg = get_model_config(name, num_classes=num_classes, img_size=size)
-        tokens = cfg.num_patches + cfg.num_prefix_tokens
-        if kernels_on and dtype == torch.bfloat16 and tokens > _attention.KERNEL_MAX_N:
-            raise ValueError(
-                f"{name} at --input-size {size} has {tokens} tokens, above the "
-                f"{_attention.KERNEL_MAX_N} the bf16 attention backward kernel takes")
-        if (config.distillation_type == "wasskd" and config.wasskd_type == "l1"
-                and cfg.num_patches > _sort.KERNEL_MAX_N):
+        if cfg.num_patches > _sort.KERNEL_MAX_N:
             raise ValueError(
                 f"{name} at --input-size {size} has {cfg.num_patches} patch rows, above "
                 f"the {_sort.KERNEL_MAX_N} the WassKD-l1 sort kernels take")
@@ -158,8 +152,8 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
       fused MLP forward a hidden shard it does not take is refused before
       anything is built (``check_mlp_shards``).
 
-    An input size whose sequences pass a kernel's length limit is refused
-    before anything is built (``check_sequence_lengths``).
+    An input size whose WassKD-l1 patch rows pass the sort kernels' limit
+    (2**30) is refused before anything is built (``check_sequence_lengths``).
 
     ``block_pair`` stands for the JAX factory's environment variable
     ``DELTAKD_PAIR=1``: with kernels on and no model axis, the student (never
@@ -190,7 +184,7 @@ def load_teacher_student(config, *, attention_fn=_FROM_CONFIG,
     if kernels_on and tp is not None and tp.active:
         for name in (config.teacher_model, config.student_model):
             check_mlp_shards(name, num_classes, tp.size, dtype)
-    check_sequence_lengths(config, num_classes, dtype, kernels_on)
+    check_sequence_lengths(config, num_classes, kernels_on)
 
     def needed(name):
         depth = get_model_config(name, num_classes=num_classes).depth

@@ -55,12 +55,16 @@ SIGNATURES = {
         "dk_sort_bitonic": ([_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR], _INT),
         "dk_sort_sl1_fwd": ([_PTR] * 4 + [_INT] * 4 + [_PTR], _INT),
         "dk_sort_sl1_bwd": ([_PTR, _PTR, _PTR, _I64, _INT, _PTR], _INT),
+        # the long route (n > 4096): runs, one merge stage, a phase's finish
+        "dk_sort_long_runs": ([_PTR] * 4 + [_INT] * 4 + [_PTR], _INT),
+        "dk_sort_long_stage": ([_PTR, _INT, _I64, _INT, _INT, _INT, _PTR], _INT),
+        "dk_sort_long_finish_value": ([_PTR] * 2 + [_INT] * 5 + [_PTR], _INT),
+        "dk_sort_long_finish_sl1": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
     },
     # tensors, their (batch, head, row) strides, outputs, B, H, N, stream;
     # the _f32 forms take the same arguments; the backwards a workspace
     # before the stream (dk_flash_bwd_route: and a route after it)
     "attention": {
-        "dk_flash_max_n": ([], _INT),
         **{f"dk_flash_fwd{form}": ([_PTR] * 3 + [_I64] * 9 + [_PTR] * 2 + [_INT] * 3 + [_PTR],
                                    _INT) for form in ("", "_f32")},
         **{f"dk_flash_bwd{form}_workspace": ([_INT] * 3, ctypes.c_size_t)

@@ -17,8 +17,7 @@ rebuilds ``p = exp(s - lse)`` and emits
 Tensors are [B, H, N, head_dim] (the kernels alone also take [B*H, N,
 head_dim]). Dispatch is by the device of ``q``: a CPU tensor takes the plain
 version, a CUDA tensor the hand-written kernels in ``csrc/attention.cu`` (bf16
-or fp32, head dim 64; bf16 N up to ``KERNEL_MAX_N``, fp32 any N), anything
-else raises. The
+or fp32, head dim 64, any N and any batch x heads), anything else raises. The
 fp32 forms run every product on TF32 tensor cores in 3xTF32 (each operand as a
 high and a low TF32 part, three products: fp32 accuracy) and round nothing to
 bf16: o, lse, dq, dk, dv are fp32, as the TPU kernels emit their input's
@@ -37,10 +36,6 @@ import torch
 from deltakd_tpu_torch.ops import current_stream, kernel_entry, on_card
 
 _HEAD_DIM = 64
-# The longest sequence the bf16 kernels take (``max_sequence()`` reads it from
-# the built library; attention_bwd.cuh ``attn_bwd::MAX_N``). The fp32 forms
-# take any N.
-KERNEL_MAX_N = 47104
 
 # Kernel launches by (entry point, batch * heads): the fp32 forms count under
 # ``flash_fwd_f32`` and ``flash_bwd_f32``. Each wrapper adds one where it
@@ -93,6 +88,33 @@ def _plain_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.T
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def _plain_fwd_rows(q, k, v, rows: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_plain_fwd`` in query-row chunks of ``rows``: the same formulas on
+    [rows, N] scores at a time, for lengths whose [N, N] fp32 scores do not
+    fit (8.9 GB a head at N = 47,105)."""
+    parts = [_plain_fwd(q[..., i:i + rows, :], k, v) for i in range(0, q.shape[-2], rows)]
+    return torch.cat([o for o, _ in parts], -2), torch.cat([lse for _, lse in parts], -1)
+
+
+def _plain_bwd_rows(q, k, v, o, lse, do, rows: int = 1024
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_plain_bwd`` in query-row chunks of ``rows``: dq a chunk at a time,
+    dk and dv summed over the chunks in fp32, then cast as there."""
+    scale = q.shape[-1] ** -0.5
+    k32, v32 = k.float(), v.float()
+    dk, dv, dq = torch.zeros_like(k32), torch.zeros_like(v32), []
+    for i in range(0, q.shape[-2], rows):
+        q32, do32 = q[..., i:i + rows, :].float(), do[..., i:i + rows, :].float()
+        s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[..., i:i + rows].unsqueeze(-1))
+        dv += torch.matmul(p.transpose(-1, -2), do32)
+        delta = (do32 * o[..., i:i + rows, :].float()).sum(-1, keepdim=True)
+        ds = p * (torch.matmul(do32, v32.transpose(-1, -2)) - delta) * scale
+        dq.append(torch.matmul(ds, k32))
+        dk += torch.matmul(ds.transpose(-1, -2), q32)
+    return torch.cat(dq, -2).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 # -----------------------------------------------------------------------------
 # CUDA kernel wrappers
 # -----------------------------------------------------------------------------
@@ -101,18 +123,6 @@ def _library():
     from deltakd_tpu_torch.ops import _build
 
     return _build.library("attention")
-
-
-def max_sequence() -> int:
-    """The longest N the bf16 kernels take, from the built library
-    (``KERNEL_MAX_N``)."""
-    return _library().dk_flash_max_n()
-
-
-def _length(name: str, q: torch.Tensor, N: int) -> None:
-    if q.dtype == torch.bfloat16 and N > KERNEL_MAX_N:
-        raise ValueError(f"{name}: N = {N} exceeds the bf16 kernels' limit of "
-                         f"{KERNEL_MAX_N} keys")
 
 
 def _operands(name: str, *tensors: torch.Tensor):
@@ -153,7 +163,6 @@ def kernel_flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     dims."""
     (B, H, N), (q4, k4, v4) = _operands("flash_fwd", q, k, v)
     name = kernel_entry("flash_fwd", q)
-    _length("flash_fwd", q, N)
     lib = _library()
     q4, k4, v4 = _strided(q4), _strided(k4), _strided(v4)
     with torch.cuda.device(q.device):
@@ -196,7 +205,6 @@ def kernel_flash_bwd(q, k, v, o, lse, do, route: Optional[str] = None
     if lse.dtype != torch.float32 or lse.numel() != B * H * N or lse.device != q.device:
         raise ValueError(f"flash_bwd: lse must be fp32 with one value a row on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
-    _length("flash_bwd", q, N)
     lib = _library()
     q4, k4, v4, do4 = _strided(q4), _strided(k4), _strided(v4), _strided(do4)
     o4, lse = o4.contiguous(), lse.contiguous()

@@ -34,7 +34,8 @@
 //   (`dk_flash_bwd_workspace`).
 //   Here it gets the unscaled q, so the scale goes on S in the exponent and
 //   on dQ and dK (64^-1/2 = 2^-3: exact), and no delta, so it computes
-//   rowsum(dO * o) of each head itself. N up to 47,104.
+//   rowsum(dO * o) of each head itself. Any N and any B*H: neither route's
+//   shared memory grows past 11 tiles and every grid is 1-D.
 //
 // In the backward p and ds are rounded to bf16 before their products (the
 // tensor cores take bf16); q, k, v, dO arrive in bf16. The fp32 forms
@@ -68,12 +69,6 @@ constexpr int HD = 64;   // head dim
 
 }  // namespace
 
-// The longest sequence the bf16 entry points take: attn_bwd::MAX_N, 47,104.
-// The streaming forward takes any N and is held to the backward's length, so
-// that whatever it evaluates it can also differentiate. The fp32 forms take
-// any N.
-extern "C" int dk_flash_max_n() { return dk::attn_bwd::MAX_N; }
-
 // q, k, v: [B, H, N, 64] bf16 through strides (batch, head, row), in
 // elements; o: [B, H, N, 64] bf16 and lse: [B, H, N] fp32, both contiguous.
 // Returns cudaGetLastError() after the launch, or -1 for a shape it refuses.
@@ -81,7 +76,7 @@ extern "C" int dk_flash_fwd(const void* q, const void* k, const void* v, long lo
                             long long q_sh, long long q_sn, long long k_sb, long long k_sh,
                             long long k_sn, long long v_sb, long long v_sh, long long v_sn,
                             void* o, void* lse, int B, int H, int N, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || N > dk_flash_max_n()) return -1;
+  if (B < 1 || H < 1 || N < 1) return -1;
   dk::AttnArgs a = {};
   a.q = (const bf16*)q; a.q_sb = q_sb; a.q_sh = q_sh; a.q_sn = q_sn;
   a.k = (const bf16*)k; a.k_sb = k_sb; a.k_sh = k_sh; a.k_sn = k_sn;
@@ -107,7 +102,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dO, long 
               long long v_sb, long long v_sh, long long v_sn, long long g_sb, long long g_sh,
               long long g_sn, const void* o, const void* lse, void* dq, void* dk, void* dv, int B,
               int H, int N, void* work, void* stream, dk::AttnBwdRoute route) {
-  if (B < 1 || H < 1 || N < 1 || N > dk_flash_max_n()) return -1;
+  if (B < 1 || H < 1 || N < 1) return -1;
   const long long sb = (long long)H * N * HD, sh = (long long)N * HD;
   dk::AttnBwdArgs a = {};
   a.q = (const bf16*)q; a.q_sb = q_sb; a.q_sh = q_sh; a.q_sn = q_sn;

@@ -162,10 +162,6 @@ constexpr int SPLIT_CTAS = 3;
 // K, two V, dS^T) and lse and delta of one; one 64-column partial per warp.
 constexpr size_t SPLIT_SMEM = 7 * TILE * sizeof(bf16) + 4 * T * sizeof(float) +
                               4 * 64 * sizeof(float) + 1024;
-// The longest N the bf16 entry points take (736 tiles). Neither route's
-// shared memory depends on N past 11 tiles; the bound holds the forward,
-// the backward and the factory's refusals to one length.
-constexpr int MAX_N = 47104;
 }  // namespace attn_bwd
 
 // Whether the bf16 backward takes the split route at N by itself.
@@ -733,10 +729,11 @@ attention_bwd_colsum_kernel(const AttnBwdArgs p, const float* col_part) {
   }
 }
 
-// Whether the bf16 kernels take head dim hd and sequence length N.
-inline bool attention_bwd_takes(int hd, int N) {
-  return hd == 64 && N >= 1 && N <= attn_bwd::MAX_N;
-}
+// Whether the bf16 kernels take head dim hd and sequence length N: any N.
+// Neither route's shared memory depends on N past 11 tiles, every row and
+// head offset is 64-bit, and the split route's workspace is O(B*H*N); what
+// bounds N is the grid (attention_bwd refuses 2 B*H*tiles > 2^31 - 1 CTAs).
+inline bool attention_bwd_takes(int hd, int N) { return hd == 64 && N >= 1; }
 
 // The routes of the bf16 attention backward: the one attention_bwd_splits
 // picks, or either one forced (the short route up to 11 query tiles).
@@ -763,8 +760,8 @@ inline cudaError_t attention_bwd(const AttnBwdArgs& p, int hd, float* work, cuda
     attention_bwd_kernel<<<p.B * p.H, attn::THREADS, smem, st>>>(p);
     return cudaGetLastError();
   }
-  if (!work) return cudaErrorInvalidValue;
   const long long bh = (long long)p.B * p.H, tiles = (p.N + attn_bwd::T - 1) / attn_bwd::T;
+  if (!work || 2 * bh * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const unsigned grid = (unsigned)(bh * tiles);
   float* delta_w = work;                              // [B*H][N64]
   float* col_part = work + bh * tiles * attn_bwd::T;  // [B*H][tiles][3][64]
@@ -891,15 +888,17 @@ __device__ __forceinline__ void rows_delta_f32(const AttnBwdArgsT<float>& p, con
   }
 }
 
-// Grid (query tiles, B*H), one warpgroup: Q^T and dO^T of rows [64 i, 64 i +
-// 64) of one head into qt and dt [B*H][64][np] (0 past N) through a padded
-// shared tile, and with `delta` rowsum(dO * O) of those rows into delta
-// [B*H][np].
+// One warpgroup a (head, query tile), blockIdx.x = bh * tiles + i (a head's
+// tiles side by side; B*H may pass gridDim.y's 65,535): Q^T and dO^T of rows
+// [64 i, 64 i + 64) of head bh into qt and dt [B*H][64][np] (0 past N)
+// through a padded shared tile, and with `delta` rowsum(dO * O) of those
+// rows into delta [B*H][np].
 __global__ void __launch_bounds__(attn::THREADS)
 attention_bwd_pack_f32_kernel(const AttnBwdArgsT<float> p, int np, float* qt, float* dt,
                               float* delta) {
   __shared__ float tq[64][65], td[64][65];
-  const int i = blockIdx.x, bh = blockIdx.y, b = bh / p.H, h = bh % p.H, r0 = i * attn::T;
+  const int tiles = np / attn::T, bh = blockIdx.x / tiles, i = blockIdx.x % tiles;
+  const int b = bh / p.H, h = bh % p.H, r0 = i * attn::T;
   const float* qh = p.q + b * p.q_sb + h * p.q_sh;
   const float* dh = p.dout + b * p.d_sb + h * p.d_sh;
   for (int e = threadIdx.x; e < 64 * 16; e += attn::THREADS) {
@@ -1273,6 +1272,7 @@ inline cudaError_t attention_bwd(const AttnBwdArgsT<float>& p, int hd, float* wo
   if (!attention_bwd_f32_takes(hd, p.N) || p.B < 1 || p.H < 1 || !(p.delta || p.o) || !work)
     return cudaErrorInvalidValue;
   const AttnBwdWork w = attn_bwd_work(p.B, p.H, p.N);
+  if (w.bh * w.tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   float* qt = work;
   float* dt = qt + w.qt_len();
   float* dq_part = dt + w.qt_len();
@@ -1282,8 +1282,8 @@ inline cudaError_t attention_bwd(const AttnBwdArgsT<float>& p, int hd, float* wo
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)attn32::BWD_SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  attention_bwd_pack_f32_kernel<<<dim3((unsigned)w.tiles, (unsigned)w.bh), attn::THREADS, 0,
-                                  st>>>(p, (int)w.np, qt, dt, delta);
+  attention_bwd_pack_f32_kernel<<<(unsigned)(w.bh * w.tiles), attn::THREADS, 0, st>>>(
+      p, (int)w.np, qt, dt, delta);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   attention_bwd_f32_kernel<<<(unsigned)(w.bh * w.tiles), 2 * attn::THREADS,
                              attn32::BWD_SMEM_BYTES, st>>>(p, qt, dt, delta, dq_part, col_part);

@@ -11,8 +11,10 @@
 // deltakd_tpu/ops/fused_block.py:214-247 computes it with post_div=True).
 //
 // The bf16 form (the fp32 form, warp-specialised, is at the end of this
-// file): one CTA (one warpgroup, 128 threads) per (batch * head, 64 query rows):
-// thousands of CTAs at the main path's shapes, several resident per SM. The
+// file): one CTA (one warpgroup, 128 threads) per (batch * head, 64 query rows),
+// a 1-D grid with a head's query tiles side by side (any B*H: gridDim.y would
+// stop at 65,535): thousands of CTAs at the main path's shapes, several
+// resident per SM. The
 // Q tile is loaded once; K and V stream in chunks of 64 keys through a
 // double-buffered cp.async ring (the next chunk's copy runs under this
 // chunk's products), each tile stored in the 128-byte swizzle that wgmma
@@ -110,8 +112,10 @@ __global__ void __launch_bounds__(attn::THREADS) attention_fwd_kernel(const Attn
   bf16* Ks = Qs + TILE;       // [2][T][HD]
   bf16* Vs = Ks + 2 * TILE;   // [2][T][HD]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * T, bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  // blockIdx.x = bh * chunks + query tile: a head's query tiles side by side
+  // (their K and V reads meet in L2), and B*H past gridDim.y's 65,535
   const int N = p.N, chunks = (N + T - 1) / T;
+  const int bh = blockIdx.x / chunks, q0 = blockIdx.x % chunks * T, b = bh / p.H, h = bh % p.H;
   const bf16* qh = p.q + b * p.q_sb + h * p.q_sh;
   const bf16* kh = p.k + b * p.k_sb + h * p.k_sh;
   const bf16* vh = p.v + b * p.v_sb + h * p.v_sh;
@@ -220,8 +224,9 @@ inline bool attention_fwd_takes(int hd) { return hd == 64; }
 inline cudaError_t attention_fwd(const AttnArgs& p, int hd, cudaStream_t st) {
   if (!attention_fwd_takes(hd) || p.B < 1 || p.H < 1 || p.N < 1) return cudaErrorInvalidValue;
   constexpr size_t smem = 5 * attn::T * 64 * sizeof(bf16) + 1024;   // Q, 2 K, 2 V: 41 KB
-  const dim3 grid((p.N + attn::T - 1) / attn::T, p.B * p.H);
-  attention_fwd_kernel<64><<<grid, attn::THREADS, smem, st>>>(p);
+  const long long ctas = (long long)p.B * p.H * ((p.N + attn::T - 1) / attn::T);
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attention_fwd_kernel<64><<<(unsigned)ctas, attn::THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
 

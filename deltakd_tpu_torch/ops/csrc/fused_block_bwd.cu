@@ -44,8 +44,7 @@ extern "C" size_t dk_fused_block_bwd_workspace(int B, int N, int D, int H, int F
 // ptr: x, s_attn, s_mlp, 12 weights, g_out, g_feat|null, dx, then the 12 fp32
 // weight gradients in the same order as the weights, then the workspace.
 // Returns the first launch error, or cudaErrorInvalidValue, before any
-// launch, for a shape the attention kernels do not take (head dim 64, N up
-// to attn_bwd::MAX_N).
+// launch, for a shape the attention kernels do not take (head dim 64).
 extern "C" int dk_fused_block_bwd(void* const* ptr, int B, int N, int D, int H, int F,
                                   float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

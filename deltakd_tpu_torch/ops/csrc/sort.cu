@@ -7,8 +7,9 @@
 // `bitonic_sort_pallas`), `_sl1_fwd_kernel` (`_sl1_fwd_call`) and
 // `_sl1_bwd_kernel` (`_sl1_bwd_call`).
 //
-// Every column (b, :, j) is an independent sort of n <= 4096 values. The
-// value sort and the sorted_l1 forward run one design. A thread block (8
+// Every column (b, :, j) is an independent sort of its n values. Up to n =
+// 4096 the value sort and the sorted_l1 forward run one design (longer
+// columns: the long route at the end of this comment). A thread block (8
 // warps) takes one batch element b and a tile of C neighbouring columns (32
 // up to n_pad = 512, 16 at n_pad = 1024; columns past d are skipped, so any d
 // works), loads [n, C] with reads coalesced along d (16 bytes a load when d
@@ -95,6 +96,37 @@
 // leave them distinct. Two barriers a cross stage, 1 stage at 2048 and 3 at
 // 4096; the rest of the kernel, loads, keys, decode, stores and the loss's
 // sum, is the short columns'. n <= 1024 runs the code above unchanged.
+//
+// The long route: columns longer than 4096 (n_pad = 8192 and up, any
+// power of two up to 2^30; the JAX package's network takes any n). One
+// block holds 4096 keys a column (a group of four warps, 32 a lane), and a
+// column's keys live in a workspace in device memory, [B * d][n_pad] by
+// column (`dk_sort_long_*`; the caller drives the passes, ops/sort.py
+// `long_schedule`):
+//   1. runs: block (b, 4 columns, run q) loads rows 4096 q .. 4096 q + 4095
+//      of its columns coalesced along d, keys them (rows past n take the
+//      largest image, as above), and each group sorts a column's run
+//      ascending with the in-block design above (the network, then the
+//      merge phases 2048 and 4096 through a shared exchange buffer, its
+//      barriers the group's own named barrier), and writes it to the
+//      workspace through that buffer, coalesced;
+//   2. for each merge phase Kb = 8192 .. n_pad: its stages of stride 4096
+//      and up, one launch a stage, one thread a compare-exchange in device
+//      memory (the mirror stage p ^ (Kb - 1) first, then p ^ J, J = Kb / 4
+//      .. 4096); then the finish, one group a 4096-key chunk: the stages of
+//      stride 2048 .. 1, in the block as above. At the last phase the finish
+//      ends the sort: the value sort decodes its keys into the output; the
+//      sorted_l1 forward's block takes one chunk of s and the same chunk of
+//      t (a group each), and the s group forms |s - t| and the signs as
+//      above, one fp32 partial a block (columns, then chunks, in order;
+//      the caller sums them in a fixed order) and each sign written to the
+//      row its key carries.
+// The long route's s keys are 64 bits for bf16 as for fp32, (image << 32)
+// | row, since rows pass 65535; t keys and the value sort's keys are 32-bit
+// words, one key a word. Bytes: each pass reads and writes every key once
+// (12 bytes an element for sorted_l1, 4 for the value sort), log2(n_pad /
+// 4096) (log2(n_pad / 4096) + 1) / 2 stage passes and as many finishes as
+// phases: a column of 8192 takes one stage and one finish.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -732,10 +764,285 @@ __global__ void sl1_bwd_kernel(const int8_t* __restrict__ sign, const float* __r
   }
 }
 
+// ---------------------------------------------------------------------------
+// The long route (columns longer than 4096)
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 4 * kRun;         // keys of a group of four warps, 32 a lane
+constexpr int kLongCols = 4;             // columns a runs block loads
+constexpr int kGroupThreads = 4 * 32;
+constexpr int kChunkSlots = kChunk + kChunk / 32;   // a group's exchange buffer (xslot)
+constexpr int kLongMaxN = 1 << 30;       // n_pad, positions and rows in 32-bit ints
+
+// The barrier of warp group g (warps 4g .. 4g + 3): named barrier 1 + g.
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + g), "r"(kGroupThreads) : "memory");
+}
+
+// `exchange` within a group: position p = 1024 w + 32 lane + r of its 4096
+// keys meets p ^ mask and keeps the larger key if p & half, else the smaller.
+template <typename K>
+__device__ __forceinline__ void group_exchange(K (&v)[32], K* buf, int w, int lane, int g,
+                                               int mask, int half) {
+  const int p0 = kRun * w + 32 * lane;
+#pragma unroll
+  for (int r = 0; r < 32; ++r) buf[xslot(p0 + r)] = v[r];
+  group_sync(g);
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const int p = p0 + r;
+    const K o = buf[xslot(p ^ mask)];
+    v[r] = (p & half) ? kmax(v[r], o) : kmin(v[r], o);
+  }
+  group_sync(g);   // the buffer is written again by the next stage
+}
+
+// A group's 4096 keys sorted ascending: each warp's 1024 by the network,
+// then the merge phases 2048 and 4096 (merge_runs<4> on the group).
+template <typename K>
+__device__ __forceinline__ void group_sort(K (&v)[32], K* buf, int w, int lane, int g) {
+  network<32>(v, lane);
+#pragma unroll 1
+  for (int kb = 2 * kRun; kb <= kChunk; kb *= 2) {
+    group_exchange(v, buf, w, lane, g, kb - 1, kb / 2);
+#pragma unroll 1
+    for (int j = kb / 4; j >= kRun; j /= 2) group_exchange(v, buf, w, lane, g, j, j);
+    merge<32, kRun / 2>(v, lane);
+  }
+}
+
+// The stages of stride 2048 .. 1 of a merge phase on a group's 4096 keys.
+template <typename K>
+__device__ __forceinline__ void group_finish(K (&v)[32], K* buf, int w, int lane, int g) {
+  group_exchange(v, buf, w, lane, g, kChunk / 2, kChunk / 2);
+  group_exchange(v, buf, w, lane, g, kRun, kRun);
+  merge<32, kRun / 2>(v, lane);
+}
+
+// v (position 1024 w + 32 lane + r) into the buffer in position order.
+template <typename K>
+__device__ __forceinline__ void group_stage(const K (&v)[32], K* buf, int w, int lane, int g) {
+  const int p0 = kRun * w + 32 * lane;
+#pragma unroll
+  for (int r = 0; r < 32; ++r) buf[xslot(p0 + r)] = v[r];
+  group_sync(g);
+}
+
+// 4096 keys of device memory into v by way of the buffer (coalesced reads).
+template <typename K>
+__device__ __forceinline__ void group_load(K (&v)[32], const K* __restrict__ src, K* buf, int w,
+                                           int lane, int g) {
+  for (int i = 32 * w + lane; i < kChunk; i += kGroupThreads) buf[xslot(i)] = src[i];
+  group_sync(g);
+  const int p0 = kRun * w + 32 * lane;
+#pragma unroll
+  for (int r = 0; r < 32; ++r) v[r] = buf[xslot(p0 + r)];
+  group_sync(g);
+}
+
+// v back to device memory by way of the buffer (coalesced writes).
+template <typename K>
+__device__ __forceinline__ void group_store(const K (&v)[32], K* __restrict__ dst, K* buf, int w,
+                                            int lane, int g) {
+  group_stage(v, buf, w, lane, g);
+  for (int i = 32 * w + lane; i < kChunk; i += kGroupThreads) dst[i] = buf[xslot(i)];
+  group_sync(g);
+}
+
+// The long route's s keys: (image << 32) | row, for bf16 as for fp32.
+__device__ __forceinline__ unsigned long long long_key(uint32_t image, int row) {
+  return ((unsigned long long)image << 32) | (uint32_t)row;
+}
+
+// Bytes of a runs block's staged values, before its two exchange buffers.
+template <typename T, bool SL1>
+__host__ __device__ constexpr size_t long_values_bytes() {
+  return ((SL1 ? 2 : 1) * kLongCols * (size_t)(kChunk + 4 / sizeof(T)) * sizeof(T) + 15) / 16 * 16;
+}
+
+// Pass 1: block (b, columns col0 .. col0 + 3, run q) sorts rows [4096 q,
+// 4096 q + 4096) of its columns into the workspace, [B * d][n_pad] by
+// column; groups take columns g and g + 2. The value sort (!SL1): x's key
+// images into k32. sorted_l1: s keys (image << 32 | row, -0.0 folded onto
+// +0.0) into k64, t's images into k32. Rows past n (the whole run when 4096
+// q >= n) are padding: the largest image.
+template <typename T, bool SL1>
+__global__ void __launch_bounds__(kThreads, 1)
+long_runs_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                 unsigned long long* __restrict__ k64, uint32_t* __restrict__ k32, int n, int d,
+                 int n_pad, int tiles, int vec) {
+  constexpr int C = kLongCols, LD = kChunk + 4 / (int)sizeof(T);
+  constexpr int VEC = 16 / (int)sizeof(T) < C ? 16 / (int)sizeof(T) : C;
+  using K = typename std::conditional<SL1, unsigned long long, uint32_t>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);   // [C][LD] x (s) by column
+  T* ys = xs + C * LD;                  // [C][LD] t by column (SL1)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = warp / 4, w = warp % 4;
+  K* buf = reinterpret_cast<K*>(smem + long_values_bytes<T, SL1>()) + g * kChunkSlots;
+  const int runs = n_pad / kChunk, q = blockIdx.x % runs, bt = blockIdx.x / runs;
+  const int b = bt / tiles, col0 = (bt % tiles) * C;
+  const int r0 = q * kChunk, rows = n - r0 < kChunk ? n - r0 : kChunk;   // <= 0: all padding
+
+  if (rows > 0) {
+    const size_t at = ((size_t)b * n + r0) * d;
+    if (vec)
+      load_columns<T, kChunk / 32, C, LD, VEC, false, SL1>(x + at, SL1 ? y + at : nullptr, xs, ys,
+                                                            0, rows, d, col0);
+    else
+      load_columns<T, kChunk / 32, C, LD, 1, false, SL1>(x + at, SL1 ? y + at : nullptr, xs, ys,
+                                                          0, rows, d, col0);
+  }
+  __syncthreads();
+
+#pragma unroll 1
+  for (int c = g; c < C; c += 2) {
+    const bool live = col0 + c < d;
+    const size_t at = ((size_t)b * d + col0 + c) * n_pad + r0;
+    uint32_t u[32];
+    if constexpr (SL1) {
+      unsigned long long v[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int row = kRun * w + 32 * r + lane;
+        const bool in = live && row < rows;
+        v[r] = long_key(in ? key_image<true>(xs[c * LD + row]) : Bits<T>::kMask, r0 + row);
+      }
+      group_sort(v, buf, w, lane, g);
+      if (live) group_store(v, k64 + at, buf, w, lane, g);
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int row = kRun * w + 32 * r + lane;
+        u[r] = live && row < rows ? key_image<true>(ys[c * LD + row]) : Bits<T>::kMask;
+      }
+      uint32_t* buf32 = reinterpret_cast<uint32_t*>(buf);
+      group_sort(u, buf32, w, lane, g);
+      if (live) group_store(u, k32 + at, buf32, w, lane, g);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int row = kRun * w + 32 * r + lane;
+        u[r] = live && row < rows ? key_image(xs[c * LD + row]) : Bits<T>::kMask;
+      }
+      group_sort(u, buf, w, lane, g);
+      if (live) group_store(u, k32 + at, buf, w, lane, g);
+    }
+  }
+}
+
+// Pass 2: one merge stage of stride >= 4096 on every column of the
+// workspace, one thread a compare-exchange: position p, whose bit `half` is
+// clear, against p | half, or (mirror) against p ^ (2 half - 1); the smaller
+// key goes to p. A column holds 2^log_pairs pairs (n_pad / 2).
+template <typename K>
+__global__ void __launch_bounds__(256)
+long_stage_kernel(K* __restrict__ keys, long long pairs, int log_pairs, int half, int mirror) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= pairs) return;
+  const int k = (int)(i & ((1LL << log_pairs) - 1));
+  const int p = ((k & ~(half - 1)) << 1) | (k & (half - 1));
+  const int o = mirror ? p ^ (2 * half - 1) : p | half;
+  K* col = keys + ((i >> log_pairs) << (log_pairs + 1));
+  const K a = col[p], e = col[o];
+  col[p] = kmin(a, e);
+  col[o] = kmax(a, e);
+}
+
+// Pass 3, the value sort: the stages of stride 2048 .. 1 of a merge phase on
+// each 4096-key chunk, two chunks a block (a group each); at the last phase
+// the keys are decoded into out at their positions below n.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+long_finish_value_kernel(uint32_t* __restrict__ keys, T* __restrict__ out, int n, int d,
+                         int n_pad, int last) {
+  __shared__ uint32_t bufs[2][kChunkSlots];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = warp / 4, w = warp % 4;
+  const int runs = n_pad / kChunk;
+  const long long chunk = 2LL * blockIdx.x + g, col = chunk / runs;
+  const int q = (int)(chunk % runs);
+  uint32_t* src = keys + col * n_pad + (long long)q * kChunk;
+  uint32_t v[32];
+  group_load(v, src, bufs[g], w, lane, g);
+  group_finish(v, bufs[g], w, lane, g);
+  if (!last) {
+    group_store(v, src, bufs[g], w, lane, g);
+    return;
+  }
+  group_stage(v, bufs[g], w, lane, g);
+  const long long b = col / d, j = col % d;
+  for (int i = 32 * w + lane; i < kChunk && q * kChunk + i < n; i += kGroupThreads)
+    out[(b * n + q * kChunk + i) * d + j] = key_value<T>(bufs[g][xslot(i)]);
+}
+
+// Bytes of the sorted_l1 finish's buffers: a chunk of s keys and one of t.
+constexpr size_t kFinishSl1Bytes = kChunkSlots * (sizeof(unsigned long long) + sizeof(uint32_t));
+
+// Pass 3, sorted_l1: one chunk a block, its s keys by group 0 and its t keys
+// by group 1, each through the stages of stride 2048 .. 1. At the last
+// phase group 1 leaves the t images in its buffer in position order and
+// group 0 forms, at each position below n, |s - t| into the block's fp32
+// partial (partials[blockIdx.x]: lanes, then warps in order) and sign(s - t)
+// at the row its s key carries.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+long_finish_sl1_kernel(unsigned long long* __restrict__ k64, uint32_t* __restrict__ k32,
+                       float* __restrict__ partials, int8_t* __restrict__ sign, int n, int d,
+                       int n_pad, int last) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* sbuf = reinterpret_cast<unsigned long long*>(smem);
+  uint32_t* tbuf = reinterpret_cast<uint32_t*>(sbuf + kChunkSlots);
+  __shared__ float red[4];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = warp / 4, w = warp % 4;
+  const int runs = n_pad / kChunk, q = blockIdx.x % runs;
+  const long long col = blockIdx.x / runs, at = col * n_pad + (long long)q * kChunk;
+  unsigned long long v[32];
+  if (g == 0) {
+    group_load(v, k64 + at, sbuf, w, lane, g);
+    group_finish(v, sbuf, w, lane, g);
+    if (!last) group_store(v, k64 + at, sbuf, w, lane, g);
+  } else {
+    uint32_t u[32];
+    group_load(u, k32 + at, tbuf, w, lane, g);
+    group_finish(u, tbuf, w, lane, g);
+    if (!last)
+      group_store(u, k32 + at, tbuf, w, lane, g);
+    else
+      group_stage(u, tbuf, w, lane, g);
+  }
+  if (!last) return;
+  __syncthreads();   // the t images are in tbuf
+  float acc = 0.f;
+  if (g == 0) {
+    const long long b = col / d, j = col % d;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int p = kRun * w + 32 * lane + r;
+      if (q * kChunk + p >= n) break;
+      const float diff = SortKey<T>::value((uint32_t)(v[r] >> 32)) - SortKey<T>::value(tbuf[xslot(p)]);
+      acc += fabsf(diff);
+      sign[(b * n + (uint32_t)v[r]) * d + j] = (int8_t)((diff > 0.f) - (diff < 0.f));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) red[w] = acc;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) partials[blockIdx.x] = red[0] + red[1] + red[2] + red[3];
+}
+
 inline bool bad_shape(int B, int n, int d) {
   if (B < 1 || d < 1 || n < 2 || n > kMaxN) return true;
   const int C = col_tile(next_pow2(n));
   return (long long)B * ((d + C - 1) / C) > 0x7fffffffLL;
+}
+
+// The long route's shapes: n from 4097 to 2^30 and every grid within its
+// limit (the runs, B * ceil(d / 4) * n_pad / 4096 blocks; the stages, B * d *
+// n_pad / 2 threads; the sorted_l1 finish, B * d * n_pad / 4096 blocks).
+inline bool bad_long_shape(long long B, int n, int d) {
+  if (B < 1 || d < 1 || n <= kMaxN || n > kLongMaxN) return true;
+  const long long n_pad = next_pow2(n), runs = n_pad / kChunk, cols = B * d;
+  return B * ((d + kLongCols - 1) / kLongCols) * runs > 0x7fffffffLL ||
+         cols * n_pad / 2 / 256 > 0x7fffffffLL || cols * runs > 0x7fffffffLL;
 }
 
 // f(integral_constant<int, R>(), integral_constant<int, RUNS>()) for the keys
@@ -825,17 +1132,57 @@ int run_sl1_bwd(const int8_t* sign, const float* scale, void* g, long long numel
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool SL1>
+int launch_long_runs(const void* x, const void* y, void* k64, void* k32, int B, int n, int d,
+                     cudaStream_t st) {
+  const int n_pad = next_pow2(n), tiles = (d + kLongCols - 1) / kLongCols;
+  const size_t bytes = long_values_bytes<T, SL1>() +
+                       2 * (size_t)kChunkSlots * (SL1 ? sizeof(unsigned long long) : sizeof(uint32_t));
+  cudaError_t e = cudaFuncSetAttribute(long_runs_kernel<T, SL1>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  long_runs_kernel<T, SL1><<<B * tiles * (n_pad / kChunk), kThreads, bytes, st>>>(
+      (const T*)x, (const T*)y, (unsigned long long*)k64, (uint32_t*)k32, n, d, n_pad, tiles,
+      vectorised<T>(d, x, SL1 ? y : x));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_long_finish_value(void* keys, void* out, int B, int n, int d, int last,
+                             cudaStream_t st) {
+  const long long n_pad = next_pow2(n), blocks = (long long)B * d * (n_pad / kChunk) / 2;
+  long_finish_value_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>((uint32_t*)keys, (T*)out, n,
+                                                                     d, (int)n_pad, last);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_long_finish_sl1(void* k64, void* k32, void* partials, void* sign, int B, int n, int d,
+                           int last, cudaStream_t st) {
+  const long long n_pad = next_pow2(n), blocks = (long long)B * d * (n_pad / kChunk);
+  cudaError_t e = cudaFuncSetAttribute(long_finish_sl1_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kFinishSl1Bytes);
+  if (e != cudaSuccess) return (int)e;
+  long_finish_sl1_kernel<T><<<(unsigned)blocks, kThreads, kFinishSl1Bytes, st>>>(
+      (unsigned long long*)k64, (uint32_t*)k32, (float*)partials, (int8_t*)sign, n, d,
+      (int)n_pad, last);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Column tiles per batch element: the forward writes B * tiles loss partials.
+// Loss partials per batch element of the sorted_l1 forward: its column tiles
+// up to n = 4096; on the long route one per column and 4096-row chunk.
 extern "C" int dk_sort_tiles(int n, int d) {
+  if (n > kMaxN) return bad_long_shape(1, n, d) ? -1 : d * (next_pow2(n) / kChunk);
   if (bad_shape(1, n, d)) return -1;
   const int C = col_tile(next_pow2(n));
   return (d + C - 1) / C;
 }
 
-// x, out: [B, n, d] contiguous, of the dtype that `dtype` names: 0 fp32,
-// 1 bf16, 2 fp16, 3 int32. Returns a CUDA error code (0 = launched).
+// x, out: [B, n, d] contiguous, n <= 4096, of the dtype that `dtype` names:
+// 0 fp32, 1 bf16, 2 fp16, 3 int32. Returns a CUDA error code (0 = launched).
 extern "C" int dk_sort_bitonic(const void* x, void* out, int B, int n, int d, int dtype,
                                void* stream) {
   if (bad_shape(B, n, d)) return (int)cudaErrorInvalidValue;
@@ -849,7 +1196,8 @@ extern "C" int dk_sort_bitonic(const void* x, void* out, int B, int n, int d, in
   }
 }
 
-// s, t: [B, n, d] contiguous, one dtype; partials: fp32 [B * dk_sort_tiles(n, d)];
+// s, t: [B, n, d] contiguous, n <= 4096, one dtype; partials: fp32 [B *
+// dk_sort_tiles(n, d)];
 // sign: int8 [B, n, d], sign(s_sorted - t_sorted) at the row each s came from.
 extern "C" int dk_sort_sl1_fwd(const void* s, const void* t, void* partials, void* sign,
                                int B, int n, int d, int is_bf16, void* stream) {
@@ -866,4 +1214,84 @@ extern "C" int dk_sort_sl1_bwd(const void* sign, const void* scale, void* g, lon
   cudaStream_t st = (cudaStream_t)stream;
   return is_bf16 ? run_sl1_bwd<__nv_bfloat16>((const int8_t*)sign, (const float*)scale, g, numel, st)
                  : run_sl1_bwd<float>((const int8_t*)sign, (const float*)scale, g, numel, st);
+}
+
+// The long route (4096 < n <= 2^30), its passes in the order ops/sort.py
+// `long_schedule` gives; every call returns a CUDA error code (0 =
+// launched). The workspace: k32, [B * d][n_pad] uint32 (the value sort's
+// keys, or sorted_l1's t keys), and for sorted_l1 k64, [B * d][n_pad]
+// uint64 (its s keys).
+//
+// Pass 1. x: [B, n, d] contiguous; y: null for the value sort (x of the dtype
+// `dtype` names, as dk_sort_bitonic), else sorted_l1's t beside s = x (dtype 0
+// fp32 or 1 bf16).
+extern "C" int dk_sort_long_runs(const void* x, const void* y, void* k64, void* k32, int B, int n,
+                                 int d, int dtype, void* stream) {
+  if (bad_long_shape(B, n, d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (y) {
+    switch (dtype) {
+      case 0: return launch_long_runs<float, true>(x, y, k64, k32, B, n, d, st);
+      case 1: return launch_long_runs<__nv_bfloat16, true>(x, y, k64, k32, B, n, d, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (dtype) {
+    case 0: return launch_long_runs<float, false>(x, y, k64, k32, B, n, d, st);
+    case 1: return launch_long_runs<__nv_bfloat16, false>(x, y, k64, k32, B, n, d, st);
+    case 2: return launch_long_runs<__half, false>(x, y, k64, k32, B, n, d, st);
+    case 3: return launch_long_runs<int32_t, false>(x, y, k64, k32, B, n, d, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Pass 2, one stage on `keys` ([cols][n_pad] of key_bytes 4 or 8 each): the
+// pairs (p, p | half), or with `mirror` (p, p ^ (2 half - 1)), over the
+// positions p whose bit `half` is clear; 4096 <= half < n_pad.
+extern "C" int dk_sort_long_stage(void* keys, int key_bytes, long long cols, int n_pad, int half,
+                                  int mirror, void* stream) {
+  if (cols < 1 || n_pad <= kChunk || n_pad > kLongMaxN || (n_pad & (n_pad - 1)) ||
+      half < kChunk || half >= n_pad || (half & (half - 1)))
+    return (int)cudaErrorInvalidValue;
+  int log_pairs = 0;
+  while ((2 << log_pairs) < n_pad) ++log_pairs;
+  const long long pairs = cols * (n_pad / 2), blocks = (pairs + 255) / 256;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (key_bytes == 8)
+    long_stage_kernel<unsigned long long><<<(unsigned)blocks, 256, 0, st>>>(
+        (unsigned long long*)keys, pairs, log_pairs, half, mirror);
+  else if (key_bytes == 4)
+    long_stage_kernel<uint32_t><<<(unsigned)blocks, 256, 0, st>>>((uint32_t*)keys, pairs,
+                                                                  log_pairs, half, mirror);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Pass 3 of the value sort: the finish of a merge phase on k32; with `last`
+// (the phase of block size n_pad) the sorted values into out, [B, n, d]
+// contiguous of x's dtype.
+extern "C" int dk_sort_long_finish_value(void* k32, void* out, int B, int n, int d, int dtype,
+                                         int last, void* stream) {
+  if (bad_long_shape(B, n, d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return launch_long_finish_value<float>(k32, out, B, n, d, last, st);
+    case 1: return launch_long_finish_value<__nv_bfloat16>(k32, out, B, n, d, last, st);
+    case 2: return launch_long_finish_value<__half>(k32, out, B, n, d, last, st);
+    case 3: return launch_long_finish_value<int32_t>(k32, out, B, n, d, last, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Pass 3 of the sorted_l1 forward: the finish on k64 and k32; with `last` the
+// loss partials (fp32 [B * dk_sort_tiles(n, d)]) and the signs (int8 [B, n,
+// d], at the row each s came from), as dk_sort_sl1_fwd writes them.
+extern "C" int dk_sort_long_finish_sl1(void* k64, void* k32, void* partials, void* sign, int B,
+                                       int n, int d, int is_bf16, int last, void* stream) {
+  if (bad_long_shape(B, n, d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return is_bf16 ? launch_long_finish_sl1<__nv_bfloat16>(k64, k32, partials, sign, B, n, d, last, st)
+                 : launch_long_finish_sl1<float>(k64, k32, partials, sign, B, n, d, last, st);
 }

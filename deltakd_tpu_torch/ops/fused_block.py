@@ -46,7 +46,6 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 from deltakd_tpu_torch.ops import kernel_entry
-from deltakd_tpu_torch.ops.attention import KERNEL_MAX_N
 
 # timm names of one block's parameters, in the kernels' operand order
 # (_weight_arrays in the JAX package: g1, b1, wqkv, bqkv, wproj, bproj, g2,
@@ -58,10 +57,6 @@ _MATMUL_WEIGHTS = (2, 4, 8, 10)
 # Head dims the block kernels take: the forward's attention (attention_fwd.cuh)
 # has an instantiation for these only.
 KERNEL_HEAD_DIMS = (64,)
-# Longest sequence the bf16 backward kernels take: their attention backward's
-# (attention_bwd.cuh ``attn_bwd::MAX_N``; up to 256 rows one CTA per head with
-# dQ in shared memory, above them the split route). The fp32 forms take any N.
-KERNEL_BWD_MAX_N = KERNEL_MAX_N
 
 # Kernel launches by (entry point, embed width): the fp32 forms count under
 # their own entry points (``fused_block_fwd_f32``, ...). Each wrapper adds one
@@ -334,19 +329,12 @@ def fused_block_fwd_cuda(x, s_attn, s_mlp, w, H, eps, need_feat):
     return out, feat
 
 
-def _bwd_length(x, name):
-    if x.dtype == torch.bfloat16 and x.shape[1] > KERNEL_BWD_MAX_N:
-        raise ValueError(f"{name}: sequence length {x.shape[1]} is above the "
-                         f"{KERNEL_BWD_MAX_N} the backward kernels take")
-
-
 def fused_block_bwd_cuda(x, s_attn, s_mlp, w, g_out, g_feat, H, eps):
     """The backward kernel (csrc/fused_block_bwd.cu) on CUDA tensors, in x's
     dtype (bf16, or fp32 in 3xTF32): dx in x's dtype and the 12 fp32 weight
     grads summed over the batch."""
     x, s_attn, s_mlp, ws = _kernel_operands(x, s_attn, s_mlp, w, H,
                                             "fused_block_bwd")
-    _bwd_length(x, "fused_block_bwd")
     name = kernel_entry("fused_block_bwd", x)
     g_out = g_out.to(x.dtype).contiguous()
     if g_feat is not None:
@@ -397,7 +385,6 @@ def fused_pair_bwd_cuda(x, scales, w1, w2, g_out, g_f1, g_f2, H, eps):
     x's dtype (bf16, or fp32 in 3xTF32): dx in x's dtype and the 12 + 12
     fp32 weight grads summed over the batch."""
     x, scales, ws1, ws2 = _pair_operands(x, scales, w1, w2, H, "fused_pair_bwd")
-    _bwd_length(x, "fused_pair_bwd")
     name = kernel_entry("fused_pair_bwd", x)
     g_out, g_f1, g_f2 = (None if g is None else g.to(x.dtype).contiguous()
                          for g in (g_out, g_f1, g_f2))

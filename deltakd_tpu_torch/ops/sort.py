@@ -16,12 +16,17 @@ equally valid subgradient of the same loss.
 Dispatch is by the device of the input: a CPU tensor takes the plain version,
 a CUDA tensor the hand-written kernels in ``csrc/sort.cu``, anything else
 raises. The kernels work on a contiguous [B, n, d] tensor sorted along n,
-2 <= n <= 4096; another axis or rank is brought to that layout by a
-transpose, not by another code path. The whole batch goes through one call.
-Both sorts run one bitonic network in registers and warp shuffles, one warp
-a column of up to 1024 rows (longer columns: n / 1024 warps, which merge
-their runs through shared memory), on unsigned key images whose order is the order to sort by
-(``value_sort_keys``). The value sort takes bf16, fp16, fp32 and int32 and
+2 <= n <= 2**30 (``KERNEL_MAX_N``: positions and rows are 32-bit ints);
+another axis or rank is brought to that layout by a transpose, not by
+another code path. The whole batch goes through one call. Both sorts run
+one bitonic network in registers and warp shuffles, one warp a column of up
+to 1024 rows (up to 4096: n / 1024 warps, which merge their runs through
+shared memory), on unsigned key images whose order is the order to sort by
+(``value_sort_keys``). Longer columns take the long route: runs of 4096
+rows sorted that way into a key workspace in device memory, then the merge
+stages of stride 4096 and up in device memory, one launch a stage, and
+after each merge phase the strides below 4096 in the block
+(``long_schedule``). The value sort takes bf16, fp16, fp32 and int32 and
 equals ``torch.sort(x, dim=1).values``: every NaN sorts last (a column with k
 NaNs ends in k NaNs), -0.0 and +0.0 keep their signs (the -0.0s first, equal
 as floats to torch.sort's result). The sorted_l1 kernels take bf16 and fp32;
@@ -37,8 +42,9 @@ import torch
 
 from deltakd_tpu_torch.ops import current_stream, on_card
 
-# Kernel launches by kernel name. Each wrapper adds one where it launches its
-# kernel; nothing else touches the count.
+# Kernel launches by kernel name (the row: the long route's runs, stages and
+# finishes all count under the sort that launches them). Each wrapper adds one
+# where it launches a kernel; nothing else touches the count.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -47,8 +53,12 @@ _SORT_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torc
 # (integer view, bits, the bits of +inf: anything above is a NaN; None for an integer)
 _KEY_BITS = {torch.bfloat16: (torch.int16, 16, 0x7f80), torch.float16: (torch.int16, 16, 0x7c00),
              torch.float32: (torch.int32, 32, 0x7f800000), torch.int32: (torch.int32, 32, None)}
-_MIN_N, _MAX_N = 2, 4096
-KERNEL_MAX_N = _MAX_N   # the longest column the kernels sort
+_MIN_N = 2
+# The longest column the kernels sort: n_pad, the positions and the rows the
+# keys carry are 32-bit ints (sort.cu kLongMaxN). Past 4096 rows the long route.
+KERNEL_MAX_N = 1 << 30
+_SHORT_MAX_N = 4096
+_CHUNK = 4096   # the rows of a run, and of a finish's chunk, on the long route
 
 
 def reset_launches() -> None:
@@ -144,8 +154,8 @@ def _kernel_operand(x: torch.Tensor, name: str, dtypes=_KERNEL_DTYPES) -> torch.
         raise ValueError(f"{name}: takes a [B, n, d] tensor of "
                          f"{', '.join(str(t).split('.')[-1] for t in dtypes)}, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if not _MIN_N <= x.shape[1] <= _MAX_N or x.shape[0] < 1 or x.shape[2] < 1:
-        raise ValueError(f"{name}: sorts {_MIN_N} <= n <= {_MAX_N} rows of a "
+    if not _MIN_N <= x.shape[1] <= KERNEL_MAX_N or x.shape[0] < 1 or x.shape[2] < 1:
+        raise ValueError(f"{name}: sorts {_MIN_N} <= n <= {KERNEL_MAX_N} rows of a "
                          f"non-empty [B, n, d] tensor, got {tuple(x.shape)}")
     if x.device.type != "cuda":
         raise ValueError(f"{name}: needs a CUDA tensor, got one on {x.device}")
@@ -161,22 +171,82 @@ def _call(fn: str, name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def long_schedule(n: int):
+    """The long route's passes after its runs (each 4096 rows of a column
+    sorted ascending), for a column of ``n`` > 4096 rows padded to n_pad, a
+    power of two: for each merge phase of block size Kb = 8192 .. n_pad,
+    ``("stage", Kb / 2, True)`` (the mirror stage, p against p ^ (Kb - 1)),
+    ``("stage", J, False)`` for J = Kb / 4 .. 4096 (p against p | J), then
+    ``("finish", Kb == n_pad)`` (the strides 2048 .. 1 in the block; the
+    last one writes the result)."""
+    n_pad = 1 << (n - 1).bit_length()
+    steps, kb = [], 2 * _CHUNK
+    while kb <= n_pad:
+        steps.append(("stage", kb // 2, True))
+        j = kb // 4
+        while j >= _CHUNK:
+            steps.append(("stage", j, False))
+            j //= 2
+        steps.append(("finish", kb == n_pad))
+        kb *= 2
+    return steps
+
+
+def launches_per_call(n: int, key_arrays: int = 1) -> int:
+    """The kernel launches of one sort call on columns of ``n`` rows: one on
+    the short route; on the long route the runs, each stage once for each of
+    the ``key_arrays`` (sorted_l1's forward sorts two) and each finish."""
+    if n <= _SHORT_MAX_N:
+        return 1
+    return 1 + sum(key_arrays if step[0] == "stage" else 1 for step in long_schedule(n))
+
+
+def _long_route(name: str, x: torch.Tensor, y, code: int, finish) -> None:
+    """The long route on [B, n, d] ``x`` (and sorted_l1's t ``y``): the
+    runs, then ``long_schedule``'s stages on the key workspace, ``finish(k64,
+    k32, last)`` at each finish."""
+    B, n, d = x.shape
+    n_pad = 1 << (n - 1).bit_length()
+    cols, st = B * d, current_stream(x)
+    k32 = torch.empty(cols * n_pad, dtype=torch.int32, device=x.device)
+    k64 = (torch.empty(cols * n_pad, dtype=torch.int64, device=x.device)
+           if y is not None else None)
+    keys = [k for k in (k64, k32) if k is not None]
+    _call("dk_sort_long_runs", name, x.data_ptr(), None if y is None else y.data_ptr(),
+          None if k64 is None else k64.data_ptr(), k32.data_ptr(), B, n, d, code, st)
+    for step in long_schedule(n):
+        if step[0] == "stage":
+            for k in keys:
+                _call("dk_sort_long_stage", name, k.data_ptr(), k.element_size(), cols,
+                      n_pad, step[1], int(step[2]), st)
+        else:
+            finish(k64, k32, int(step[1]))
+
+
 def bitonic_sort_kernel(x: torch.Tensor) -> torch.Tensor:
     """The value-sort kernel: ascending along axis 1 of a CUDA [B, n, d]
     tensor of bf16, fp16, fp32 or int32."""
     x = _kernel_operand(x, "bitonic_sort", tuple(_SORT_DTYPE_CODES))
     B, n, d = x.shape
+    code = _SORT_DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
-        _call("dk_sort_bitonic", "bitonic_sort", x.data_ptr(), out.data_ptr(), B, n, d,
-              _SORT_DTYPE_CODES[x.dtype], current_stream(x))
+        st = current_stream(x)
+        if n <= _SHORT_MAX_N:
+            _call("dk_sort_bitonic", "bitonic_sort", x.data_ptr(), out.data_ptr(), B, n, d,
+                  code, st)
+        else:
+            _long_route("bitonic_sort", x, None, code, lambda k64, k32, last: _call(
+                "dk_sort_long_finish_value", "bitonic_sort", k32.data_ptr(), out.data_ptr(), B,
+                n, d, code, last, st))
     return out
 
 
 def kernel_sorted_l1_fwd(s: torch.Tensor, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on CUDA [B, n, d] tensors of one dtype: (fp32 sum of
     |s_sorted - t_sorted|, int8 signs in row order). One loss partial per
-    thread block, summed here in a fixed order."""
+    thread block (on the long route per column and 4096-row chunk), summed
+    here in a fixed order."""
     from deltakd_tpu_torch.ops import _build
 
     s = _kernel_operand(s, "sorted_l1_fwd")
@@ -186,12 +256,20 @@ def kernel_sorted_l1_fwd(s: torch.Tensor, t: torch.Tensor) -> Tuple[torch.Tensor
     t = t.contiguous()
     B, n, d = s.shape
     tiles = _build.library("sort").dk_sort_tiles(n, d)
+    is_bf16 = int(s.dtype == torch.bfloat16)
     with torch.cuda.device(s.device):
         partials = torch.empty(B * tiles, dtype=torch.float32, device=s.device)
         sign = torch.empty(s.shape, dtype=torch.int8, device=s.device)
-        _call("dk_sort_sl1_fwd", "sorted_l1_fwd", s.data_ptr(), t.data_ptr(),
-              partials.data_ptr(), sign.data_ptr(), B, n, d,
-              int(s.dtype == torch.bfloat16), current_stream(s))
+        st = current_stream(s)
+        if n <= _SHORT_MAX_N:
+            _call("dk_sort_sl1_fwd", "sorted_l1_fwd", s.data_ptr(), t.data_ptr(),
+                  partials.data_ptr(), sign.data_ptr(), B, n, d, is_bf16, st)
+        else:
+            _long_route("sorted_l1_fwd", s, t, is_bf16,
+                        lambda k64, k32, last: _call(
+                            "dk_sort_long_finish_sl1", "sorted_l1_fwd", k64.data_ptr(),
+                            k32.data_ptr(), partials.data_ptr(), sign.data_ptr(), B, n, d,
+                            is_bf16, last, st))
     return partials.sum(), sign
 
 

@@ -6,13 +6,15 @@ plain versions, bounds and library calls, and the fused-MLP forward at every
 zoo width (D = 192, 384, 768, 1024; M = 50688, fp32 parameters as the model
 passes them) beside its library call; with --blocks also the bf16 block and
 pair kernels (rows 1, 2, 7, 8), with --fp32 the fp32 forms of rows 1-8,
-with --long rows 2, 4 and 8 at 448 and 512 px.
+with --long rows 2, 4 and 8 at 448 and 512 px, with --bits the digests of
+rows 1, 3 and 9-11.
 
     python3 scripts/time_kernels.py                  # this checkout's package
     python3 scripts/time_kernels.py --package DIR    # the package under DIR
     python3 scripts/time_kernels.py --steps 8        # and 8 train steps of each path below
     python3 scripts/time_kernels.py --fp32 --blocks --steps 4   # every row, the fp32 steps
     python3 scripts/time_kernels.py --long --blocks  # rows 2, 4, 8 at N = 198 and the long N
+    python3 scripts/time_kernels.py --blocks --bits  # and the bits of rows 1, 3, 9-11
 
 DIR is the root of another checkout (for example an earlier commit unpacked
 with `git archive` into a git-ignored directory), so that two commits'
@@ -49,8 +51,11 @@ value sort the same in fp32 with a "fp32_" prefix}}, "mlp_widths": {D:
 {path: GiB}, "wgrad_f32": {product: [fp32 ms, bf16 ms, TF32 matmul ms]},
 "linear_f32": {product: [fp32 ms, TF32 matmul ms, fp32 matmul ms]},
 "workspace": {kernel: bytes}, "long": {"kernel N=n": {...}}, "split_switch":
-{"BHxN": [short ms, split ms]}, "long_peak_bytes": {route: bytes}}. Exits 1
-without a card.
+{"BHxN": [short ms, split ms]}, "long_peak_bytes": {route: bytes}, "bits":
+{output: digest}}. With --bits: chip_smoke.py's `main_shape_bits` (a
+sha256 digest of each output of rows 1, 3 and 9-11 at the main shapes and
+of the sorts at n = 1296 and 4096, inputs drawn with numpy), so that two
+packages' bits can be compared. Exits 1 without a card.
 """
 
 import argparse
@@ -80,6 +85,8 @@ def main() -> int:
                     help="also time rows 2, 4, 8 at 448 and 512 px (phase 18c), the bf16 "
                          "attention backward's two routes below its switch and the 448 px "
                          "step's peak memory")
+    ap.add_argument("--bits", action="store_true",
+                    help="also print the digests of rows 1, 3 and 9-11 at the main shapes")
     args = ap.parse_args()
     pkg = os.path.abspath(args.package)
     sys.path.insert(0, pkg)
@@ -177,6 +184,8 @@ def main() -> int:
             result["long_peak_bytes"][route] = kept[3]
             del kept
         torch.cuda.empty_cache()
+    if args.bits:
+        result["bits"] = chip_smoke.main_shape_bits(fb, at, so)
     if args.steps:
         mods = (fb, so, at, fm)
         run = chip_smoke.run_train_path

@@ -32,9 +32,13 @@ weights of std 1/sqrt(fan-in), scales with zeros, through the kernels alone
 and through the autograd Function. The sort kernels: inputs with ties (+0.0 tied with a later -0.0 from
 n = 4 on), n from 2 to 1296 (past one warp's 1024 keys); the value sort also in fp16 and int32 with NaN, +-inf and
 the int32 extremes, against torch.sort (NaNs at the same places); sorted values, signs and gradients exactly, the loss to 1e-5 (fp32 sums in
-another order). The attention and MLP
+another order); on the long route (n > 4096) at n = 4097, 8192, 16641,
+65536 with NaN, +-inf and -0.0, sorted_l1 also with NaN (sign(NaN) read as
+0). The attention and MLP
 kernels: O(1) bf16 inputs (q, k of std 2, weights of std 1/sqrt(fan-in)), ragged
-N and M; 2e-2 of the largest reference value, 1e-3 absolute on lse. The
+N and M; 2e-2 of the largest reference value, 1e-3 absolute on lse; rows 3
+and 4 at [1, 47105, 64] (past the old cap of 47,104; the plain versions in
+1024-row chunks) and at 65,537 batch x heads, row 1 at 21,846 x 3 heads. The
 train-time data path: the RA and AA transform at 224 px on the card against
 the CPU on the same draws (as chip_smoke.py phase 9), no host sync in the
 transform or in mixup, and a fused soft-KD step with TrainConfig's defaults
@@ -178,12 +182,11 @@ def test_block_backward_sequence_lengths_on_card(width, heads, n_tok):
             _within(dws[n], r_dws[n])
             assert torch.equal(dws[n], dws2[n])
         assert torch.equal(dx, dx2)
-    # a sequence longer than the bf16 backward's limit (KERNEL_BWD_MAX_N) is
-    # refused before any launch
-    long_x = torch.zeros(1, fb.KERNEL_BWD_MAX_N + 1, width, device="cuda", dtype=torch.bfloat16)
+    # no length cap is left: a head dim the kernels have no instantiation for
+    # is what they refuse, before any launch
     fb.reset_launches()
-    with pytest.raises(ValueError, match="sequence length"):
-        fb.kernel_block_bwd(long_x, params, long_x, None, num_heads=heads)
+    with pytest.raises(ValueError):
+        fb.kernel_block_bwd(x, params, g_out, None, num_heads=heads * 2)
     assert not fb.LAUNCHES
 
 
@@ -394,10 +397,9 @@ def test_attention_kernels_match_plain_version_on_card(shape):
         at.kernel_flash_fwd(q.float(), k, v)
     with pytest.raises(ValueError):
         at.kernel_flash_fwd(q[..., :32], k[..., :32], v[..., :32])
-    assert at.max_sequence() == at.KERNEL_MAX_N
-    long = torch.zeros(1, 1, at.max_sequence() + 1, 64, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError):
-        at.kernel_flash_bwd(long, long, long, long, long[..., 0].float(), long)
+    # no length cap is left (the bf16 kernels took N up to 47,104 before):
+    # a row past it runs on both kernels (test_attention_past_the_old_limits_on_card)
+    assert not hasattr(at, "max_sequence") and not hasattr(at, "KERNEL_MAX_N")
 
 
 @pytest.mark.cuda
@@ -462,6 +464,131 @@ def test_split_route_gives_the_short_routes_bits_on_card(bh, n_tok):
     long = torch.zeros(1, 1, at.SHORT_ROUTE_MAX_N + 1, 64, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="short route"):
         at.kernel_flash_bwd(long, long, long, long, long[..., 0].float(), long, route="short")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [96, 3])
+@pytest.mark.parametrize("n", [4097, 8192, 16641, 65536])
+def test_long_sorts_match_plain_version_on_card(n, d):
+    """Rows 9 and 10 (and 11 behind them) on the long route (n > 4096: runs
+    of 4096 rows sorted in the block, the merge stages of stride 4096 and up
+    in device memory): the value sort in its four dtypes with NaN, +-inf and
+    -0.0 against torch.sort (the NaNs last), sorted_l1 in bf16 and fp32 with
+    ties, +0.0 tied with a later -0.0 and NaN (sign bit clear) against the
+    plain stable sort, sign(NaN) read as 0: values, signs and gradient
+    exactly, the loss to 1e-5 where it is finite; two runs the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(n + d)
+    shape = (2, n, d)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32, torch.int32):
+        if dtype == torch.int32:
+            x = torch.randint(-40, 40, shape, generator=g, dtype=torch.int32)
+            x.view(-1)[:4] = torch.tensor([-2**31, 2**31 - 1, 2**31 - 1, 0], dtype=torch.int32)
+        else:
+            x = (torch.randn(shape, generator=g) * 4).round() / 4
+            x.view(-1)[torch.randperm(x.numel(), generator=g)[:x.numel() // 100]] = float("nan")
+            x.view(-1)[:4] = torch.tensor([-0.0, float("inf"), 0.0, -float("inf")])
+            x = x.to(dtype)
+        x = x.cuda()
+        if dtype.is_floating_point:
+            x = torch.where(torch.isnan(x), x.abs(), x)   # the card sorts -NaN first
+        so.reset_launches()
+        out = so.bitonic_sort(x, axis=1)
+        assert so.LAUNCHES == {"bitonic_sort": so.launches_per_call(n)}
+        ref = torch.sort(x, dim=1).values
+        nan = torch.isnan(ref) if dtype.is_floating_point else torch.zeros_like(ref, dtype=torch.bool)
+        assert torch.equal(out[~nan], ref[~nan])
+        if dtype.is_floating_point:
+            assert torch.equal(torch.isnan(out), nan)
+            neg_zero = lambda t: ((t == 0) & torch.signbit(t)).sum(dim=1)
+            assert torch.equal(neg_zero(out), neg_zero(x))
+        bits = torch.int16 if dtype.itemsize == 2 else torch.int32
+        assert torch.equal(out.view(bits), so.bitonic_sort(x, axis=1).view(bits))
+    for dtype in (torch.bfloat16, torch.float32):
+        for with_nan in (False, True):
+            s = (torch.randn(shape, generator=g) * 4).round().div(4).to(dtype)
+            t = (torch.randn(shape, generator=g) * 4).round().div(4).to(dtype)
+            s[:, 2], s[:, 3] = 0.0, -0.0
+            if with_nan:
+                s.view(-1)[torch.randperm(s.numel(), generator=g)[:s.numel() // 100]] = float("nan")
+                t.view(-1)[torch.randperm(t.numel(), generator=g)[:t.numel() // 100]] = float("nan")
+            s, t = (torch.where(torch.isnan(a), a.abs(), a) for a in (s.cuda(), t.cuda()))
+            so.reset_launches()
+            total, sign = so.kernel_sorted_l1_fwd(s, t)
+            total2, sign2 = so.kernel_sorted_l1_fwd(s, t)
+            s_sorted, idx = torch.sort(s, dim=1, stable=True)
+            diff = s_sorted.float() - torch.sort(t, dim=1).values.float()
+            ref = torch.zeros(shape, dtype=torch.int8, device="cuda")
+            ref.scatter_(1, idx, torch.nan_to_num(torch.sign(diff), nan=0.0).to(torch.int8))
+            assert torch.equal(sign, ref) and torch.equal(sign, sign2)
+            r_total = diff.abs().sum()
+            if with_nan:
+                assert torch.isnan(total) and torch.isnan(r_total) and torch.isnan(total2)
+            else:
+                assert abs(total.item() - r_total.item()) <= 1e-5 * abs(r_total.item())
+                assert total.item() == total2.item()
+            scale = torch.ones((), device="cuda") / s.numel()
+            assert torch.equal(so.kernel_sorted_l1_bwd(sign, scale, dtype),
+                               so._plain_sl1_bwd(ref, scale, dtype))
+            assert so.LAUNCHES == {"sorted_l1_fwd": 2 * so.launches_per_call(n, 2),
+                                   "sorted_l1_bwd": 1}
+
+
+@pytest.mark.cuda
+def test_attention_past_the_old_limits_on_card():
+    """Rows 3 and 4 at [1, 47105, 64], a row past the bf16 kernels' old cap
+    of 47,104 (the split route's backward): against the plain versions in
+    1024-row query chunks (one head's [N, N] fp32 scores take 8.9 GB), 2e-2
+    of the largest value, lse to 1e-3; two runs the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(47105)
+    shape = (1, 1, 47105, 64)
+    q, k = (1.5 * torch.randn(shape, generator=g).cuda().bfloat16() for _ in range(2))
+    v, do = (torch.randn(shape, generator=g).cuda().bfloat16() for _ in range(2))
+    at.reset_launches()
+    o, lse = at.kernel_flash_fwd(q, k, v)
+    grads = at.kernel_flash_bwd(q, k, v, o, lse, do)
+    assert at.LAUNCHES == {("flash_fwd", 1): 1, ("flash_bwd", 1): 1}
+    r_o, r_lse = at._plain_fwd_rows(q, k, v)
+    _within(o, r_o)
+    assert (lse - r_lse).abs().max().item() <= 1e-3
+    o2, lse2 = at.kernel_flash_fwd(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, b, c in zip(grads, at._plain_bwd_rows(q, k, v, o, lse, do),
+                       at.kernel_flash_bwd(q, k, v, o, lse, do)):
+        _within(a, b)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_past_65535_batch_heads_on_card():
+    """Grids past 65,535 batch x heads, where gridDim.y would stop: rows 3 and
+    4 at B*H = 65,537 (N = 8) and row 1 (the block forward, D = 192, 3
+    heads) at B = 21,846 (B*H = 65,538), against their plain versions; two
+    runs the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator().manual_seed(65537)
+    shape = (65537, 8, 64)
+    q, k = (1.5 * torch.randn(shape, generator=g).cuda().bfloat16() for _ in range(2))
+    v, do = (torch.randn(shape, generator=g).cuda().bfloat16() for _ in range(2))
+    o, lse = at.kernel_flash_fwd(q, k, v)
+    r_o, r_lse = at._plain_fwd(q, k, v)
+    _within(o, r_o)
+    assert (lse - r_lse).abs().max().item() <= 1e-3
+    assert torch.equal(o, at.kernel_flash_fwd(q, k, v)[0])
+    for a, b in zip(at.kernel_flash_bwd(q, k, v, o, lse, do), at._plain_bwd(q, k, v, o, lse, do)):
+        _within(a, b)
+    params = _block_params(192, g)
+    x = torch.randn(21846, 8, 192, generator=g).cuda().bfloat16()
+    kw = dict(num_heads=3, scale_attn=torch.full((21846,), 1 / 0.9).cuda(),
+              scale_mlp=torch.ones(21846).cuda())
+    out, _ = fb.kernel_block_fwd(x, params, **kw)
+    r_out, _ = fb.reference_vit_block(x, params, **kw)
+    _within(out.float() - x.float(), r_out.float() - x.float())
+    assert torch.equal(out, fb.kernel_block_fwd(x, params, **kw)[0])
 
 
 def _mlp_operands(M, D, F=None):

@@ -5,9 +5,11 @@ px: 28 x 28 patches and two prefix tokens) and 1026 (512 px); the plain
 flash backward against the JAX flash backward's Pallas body run by the
 Pallas interpreter at the same lengths; the plain ``sorted_l1`` and its
 gradient against ``deltakd_tpu.ops.sort.sorted_l1`` (the XLA network) at
-1296 patch rows (576 px); a model at 448 px, logits and gradients; and the
-factory, which builds every size the kernels take and refuses, naming the
-input size, the sizes above a kernel's length limit.
+1296 patch rows (576 px) and at 4225 (1040 px, the sort kernels' long
+route); the long route's merge schedule (``ops.sort.long_schedule``)
+emulated with numpy against np.sort; a model at 448 px, logits and
+gradients; and the factory, which builds every size the JAX package takes,
+1040 px WassKD-l1 and 3488 px soft KD among them.
 
 Narrow widths (D = 128, 2 heads, depth 2, B = 1), fp32 on the CPU: the
 differences are summation order only, so the tolerance is 1e-4 of the
@@ -226,8 +228,7 @@ def test_factory_builds_long_inputs(size, kd):
     1,296 patch rows) builds both models at that size, the bf16 and fp32
     routes past every kernel's length check."""
     for dtype in ("bfloat16", "float32"):
-        factory.check_sequence_lengths(_config(size, kd, dtype), 100,
-                                       getattr(torch, dtype), True)
+        factory.check_sequence_lengths(_config(size, kd, dtype), 100, True)
     teacher, student, aux = factory.load_teacher_student(_config(size, kd), device="cpu")
     grid = size // 16
     assert teacher.cfg.img_size == student.cfg.img_size == size
@@ -236,18 +237,105 @@ def test_factory_builds_long_inputs(size, kd):
     assert (aux is not None) == (kd == "wasskd")
 
 
-@pytest.mark.parametrize("size,kd,dtype,what", [
-    (1040, "wasskd", "float32", "patch rows"),    # 65 x 65 = 4,225 rows > 4,096
-    (3488, "soft", "bfloat16", "tokens"),         # 218 x 218 + 2 = 47,526 > 47,104
+@pytest.mark.parametrize("size,kd,dtypes", [
+    (1040, "wasskd", ("bfloat16", "float32")),   # 65 x 65 = 4,225 patch rows > 4,096
+    (3488, "soft", ("bfloat16",)),               # 218 x 218 + 2 = 47,526 tokens > 47,104
 ])
-def test_factory_refuses_sizes_above_a_kernel_limit(size, kd, dtype, what):
-    """The limits that remain (the sort's 4,096 rows a column, the bf16
-    attention backward's 47,104 tokens) are refused before anything is
-    built, with a ValueError that names the input size; the fp32 route and
-    a route without kernels take the same token count."""
-    with pytest.raises(ValueError, match=f"--input-size {size} has .* {what}"):
-        factory.load_teacher_student(_config(size, kd, dtype), device="cpu")
-    if what == "tokens":
-        factory.check_sequence_lengths(_config(size, kd, "float32"), 100, torch.float32, True)
-        factory.check_sequence_lengths(_config(size, kd, dtype), 100, torch.bfloat16, False)
-    assert tsort.KERNEL_MAX_N == 4096 and tat.KERNEL_MAX_N == tfb.KERNEL_BWD_MAX_N == 47104
+def test_factory_refuses_sizes_above_a_kernel_limit(size, kd, dtypes):
+    """The sizes past the old kernel limits (the sort's 4,096 rows a column,
+    the bf16 attention's 47,104 tokens) are no longer refused: the sort
+    kernels take columns up to 2**30 rows (their long route past 4,096) and
+    the attention kernels any length, so load_teacher_student builds both
+    models at these sizes on the kernel routes, as the JAX package does."""
+    grid = size // 16
+    for dtype in dtypes:
+        teacher, student, aux = factory.load_teacher_student(_config(size, kd, dtype),
+                                                             device="cpu")
+        assert teacher.cfg.img_size == student.cfg.img_size == size
+        assert student.cfg.num_patches == grid * grid
+        assert student.pos_embed.shape[1] == grid * grid + 2
+        assert (aux is not None) == (kd == "wasskd")
+        del teacher, student, aux
+    assert tsort.KERNEL_MAX_N == 1 << 30
+    assert not hasattr(tat, "KERNEL_MAX_N") and not hasattr(tfb, "KERNEL_BWD_MAX_N")
+
+
+def test_plain_sorted_l1_matches_jax_at_4225_rows():
+    """The plain sorted_l1 and its gradient against the JAX package's
+    sorted_l1 at WassKD-l1's 4,225 patch rows of a 1040-px input, the sort
+    kernels' long route on the card: tie-free fp32 draws, rtol 1e-5."""
+    rng = np.random.RandomState(26)
+    s, t = (rng.randn(1, 4225, 8).astype(np.float32) for _ in range(2))
+    v, g = jax.value_and_grad(lambda x: jsort.sorted_l1(x, jnp.asarray(t), axis=1))(
+        jnp.asarray(s))
+    ts = torch.from_numpy(s).requires_grad_(True)
+    loss = tsort.sorted_l1(ts, torch.from_numpy(t), 1)
+    (gs,) = torch.autograd.grad(loss, [ts])
+    np.testing.assert_allclose(loss.item(), float(v), rtol=1e-5)
+    np.testing.assert_allclose(gs.numpy(), np.asarray(g), rtol=1e-5, atol=1e-12)
+
+
+def _compare_exchange(keys, half, mirror):
+    """One stage of the network on [cols, n_pad] keys: position p (bit
+    ``half`` clear) against p | half, or p ^ (2 half - 1), the smaller key
+    to p, as sort.cu's long_stage_kernel and group_exchange do."""
+    p = np.arange(keys.shape[1])
+    p = p[(p & half) == 0]
+    o = p ^ (2 * half - 1) if mirror else p | half
+    a, b = keys[:, p], keys[:, o]
+    keys[:, p], keys[:, o] = np.minimum(a, b), np.maximum(a, b)
+
+
+@pytest.mark.parametrize("n", [4097, 8192, 16641, 65536])
+def test_long_sort_schedule_sorts(n):
+    """The long route's passes as the wrapper drives them: runs of 4096
+    sorted (np.sort for the in-block network), then long_schedule's stages
+    and, at each finish, the strides 2048 .. 1 in each 4096-key chunk, on
+    keys with ties and the largest key (a NaN's image, and the padding's)
+    among the real ones: the first n positions equal np.sort's; and the
+    kernel launches of one call that ``launches_per_call`` counts."""
+    rng = np.random.RandomState(n)
+    cols, pad = 3, np.iinfo(np.int32).max
+    keys = rng.randint(0, 50, size=(cols, n)).astype(np.int64)
+    keys[rng.rand(cols, n) < 0.01] = pad
+    n_pad = 1 << (n - 1).bit_length()
+    work = np.full((cols, n_pad), pad, dtype=np.int64)
+    work[:, :n] = keys
+    work = np.sort(work.reshape(cols, -1, 4096), axis=2).reshape(cols, n_pad)
+    steps = tsort.long_schedule(n)
+    for step in steps:
+        if step[0] == "stage":
+            _compare_exchange(work, step[1], step[2])
+        else:
+            half = 2048
+            while half:
+                _compare_exchange(work, half, False)
+                half //= 2
+    np.testing.assert_array_equal(work[:, :n], np.sort(keys, axis=1))
+    phases = (n_pad // 4096).bit_length() - 1
+    assert [s[1] for s in steps if s[0] == "finish"] == [False] * (phases - 1) + [True]
+    stages = phases * (phases + 1) // 2
+    assert sum(s[0] == "stage" for s in steps) == stages
+    # the launches of one call: the runs, each stage once a key array, each finish
+    assert tsort.launches_per_call(n) == 1 + stages + phases
+    assert tsort.launches_per_call(n, 2) == 1 + 2 * stages + phases
+    assert tsort.launches_per_call(4096, 2) == 1
+
+
+@pytest.mark.parametrize("rows", [16, 64])
+def test_plain_attention_in_row_chunks_matches_plain(rows):
+    """The plain attention forward and backward in query-row chunks (what
+    the kernels are held to past N = 47,104 on the card, where one head's
+    [N, N] fp32 scores take 8.9 GB) against the unchunked plain versions at
+    a ragged N, fp32: the same formulas, summed in another order (dk, dv
+    over the chunks): 1e-5 of the largest value."""
+    rng = np.random.RandomState(rows)
+    q, k = (torch.from_numpy(2.0 * rng.randn(2, 3, 150, 64).astype(np.float32)) for _ in range(2))
+    v, do = (torch.from_numpy(rng.randn(2, 3, 150, 64).astype(np.float32)) for _ in range(2))
+    o, lse = tat._plain_fwd(q, k, v)
+    o_c, lse_c = tat._plain_fwd_rows(q, k, v, rows)
+    _close(o_c, o, 1e-5)
+    _close(lse_c, lse, 1e-5)
+    for a, b in zip(tat._plain_bwd_rows(q, k, v, o, lse, do, rows),
+                    tat._plain_bwd(q, k, v, o, lse, do)):
+        _close(a, b, 1e-5)
